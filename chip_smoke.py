@@ -6,9 +6,10 @@
 Phases, each printing one JSON line with the card's name and power limit:
 
 1. build    — compile the CUDA kernels from ``paddle_tpu_torch/csrc``.
-2. kernels  — hold K4 (paged decode), K5 (paged prefill) and K1 (flash
-              forward) against their plain PyTorch versions at the serving
-              path's shapes, in f32 and bf16, and time each kernel, its
+2. kernels  — hold K4 (paged decode), K5 (paged prefill), K1 (flash
+              forward) and K2/K3 (flash backward: dK/dV and dQ) against
+              their plain PyTorch versions at the serving and training
+              paths' shapes, in f32 and bf16, and time each kernel, its
               plain version and one library call computing the same thing.
 3. serve_paged — Llama-2 7B at full width (random weights from a seed),
               bf16, paged KV: 12 requests sharing a 512-token system
@@ -17,6 +18,13 @@ Phases, each printing one JSON line with the card's name and power limit:
               contiguous layout, whose prefill runs K1.
 5. parity   — full width in f32 at 2 layers: paged prefill + 4 decode
               steps on the kernel path against ``kernel="reference"``.
+6. train    — GPT-2 345M at full width (24 layers, random weights from a
+              seed), batch 8 x 1024, bf16 AMP O2 with f32 masters, AdamW:
+              3 warm-up and 10 timed steps on one batch; the K1/K2/K3
+              launch counts of these 13 steps are read.
+7. train_parity — GPT-2 345M width at 2 layers in f32: loss, every
+              gradient and the parameters after one AdamW step on the
+              kernel path against ``kernel="reference"``.
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
 ``{"kernels": [...]}`` line; the last line is
@@ -211,45 +219,127 @@ def check_flash(gen, B, S, H, dtype, D=128):
             "bound": bound(nbytes, 4 * H * D * keys, dtype)}
 
 
+#: K2/K3 gradients are sums over up to S rows: held relative to the plain
+#: version's largest value
+BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64):
+    """K2 (``which="flash_bwd_dkv"``) or K3 (``"flash_bwd_dq"``) on q/k/v
+    taken as strided views of one fused ``[B, S, H, 3*D]`` projection, as
+    the GPT model hands them over, with lse and delta from the plain
+    forward.  The library call is one ``torch.autograd.grad`` through
+    causal SDPA giving dq, dk and dv together; its forward runs at the
+    first call (a warm-up call of the timing)."""
+    from paddle_tpu_torch.ops import attention as att
+    from paddle_tpu_torch.ops import kernels
+
+    q, k, v = torch.randn((B, S, H, 3 * D), generator=gen,
+                          device="cuda").to(dtype).split(D, dim=-1)
+    do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+    o, lse = att._sdpa_reference(q, k, v, True, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+        .contiguous().view(B * H, S)
+    del o
+    args = (q, k, v, do, lse, delta, True)
+    if which == "flash_bwd_dkv":
+        def kern():
+            return kernels.flash_bwd_dkv(*args)
+
+        def plain():
+            return att._flash_bwd_dkv_reference(*args)
+    else:
+        def kern():
+            return (kernels.flash_bwd_dq(*args),)
+
+        def plain():
+            return (att._flash_bwd_dq_reference(*args),)
+    ref = plain()
+    scale = max(r.float().abs().max().item() for r in ref)
+    err = max((a.float() - r.float()).abs().max().item()
+              for a, r in zip(kern(), ref))
+    del ref
+    graph = []
+
+    def library():
+        if not graph:
+            qkv = [t.transpose(1, 2).detach().requires_grad_()
+                   for t in (q, k, v)]
+            graph.append((torch.nn.functional.scaled_dot_product_attention(
+                *qkv, is_causal=True), qkv))
+        out, qkv = graph[0]
+        return torch.autograd.grad(out, qkv, do.transpose(1, 2),
+                                   retain_graph=True)
+    isz = torch.finfo(dtype).bits // 8
+    pairs = B * S * (S + 1) // 2
+    n_out, flops_per_pair = (2, 8 * D) if which == "flash_bwd_dkv" \
+        else (1, 6 * D)
+    nbytes = (4 + n_out) * B * S * H * D * isz + 2 * B * H * S * 4
+    return {"err": err, "tol": BWD_TOLERANCE[dtype] * scale,
+            "kern": kern, "plain": plain, "library": library,
+            "bound": bound(nbytes, flops_per_pair * H * pairs, dtype)}
+
+
 DECODE_LENGTHS = [2047, 1800, 1536, 1200, 1024, 700, 333, 0]
+#: the GPT-2 345M train step's attention shape: batch, seq, heads, head dim
+TRAIN_ATTN = (8, 1024, 16, 64)
 
 
 def phase_kernels() -> dict:
-    """Every case is checked in f32 and bf16; the bf16 MHA case (the 7B
-    serving path) is also timed.  Returns per kernel the record for the
-    final ``{"kernels": [...]}`` line, minus ``launches``."""
+    """Every case is checked in f32 and bf16 and timed in bf16.  Returns
+    per kernel the record for the final ``{"kernels": [...]}`` line (minus
+    ``launches``): that of its main-path case, the first listed."""
+    from paddle_tpu_torch.ops.kernels import KERNELS
+
     gen = torch.Generator(device="cuda").manual_seed(0)
+    B, S, H, D = TRAIN_ATTN
+    train = f"B={B} S={S} H={H} D={D} causal"
+    sdpa_grad = "autograd.grad through scaled_dot_product_attention " \
+        "is_causal: dq, dk and dv in one call, shared by K2 and K3"
+    gather_sdpa = "index_select + scaled_dot_product_attention with a " \
+        "mask (2 calls)"
+
+    def bwd(which):
+        return lambda dt: check_flash_bwd(gen, which, B, S, H, dt, D)
+
+    # kernel -> [(label, make(dtype), shape, library call)], main path first
     cases = {
         "paged_decode": [
             ("H32/Hkv32", lambda dt: check_decode(gen, 32, 32, dt,
-                                                  DECODE_LENGTHS)),
+                                                  DECODE_LENGTHS),
+             "B=8 lengths<=2047 H=Hkv=32 D=128 bs=16",
+             gather_sdpa),
             ("H64/Hkv8", lambda dt: check_decode(gen, 64, 8, dt,
-                                                 DECODE_LENGTHS))],
+                                                 DECODE_LENGTHS),
+             "B=8 lengths<=2047 H=64 Hkv=8 D=128 bs=16",
+             gather_sdpa)],
         "paged_prefill": [
             ("H32/Hkv32", lambda dt: check_prefill(gen, 32, 32, dt, 512,
-                                                   512)),
+                                                   512),
+             "S=512 start=512 H=Hkv=32 D=128 bs=16",
+             gather_sdpa),
             ("H64/Hkv8", lambda dt: check_prefill(gen, 64, 8, dt, 512,
-                                                  512))],
+                                                  512),
+             "S=512 start=512 H=64 Hkv=8 D=128 bs=16",
+             gather_sdpa)],
         "flash_fwd": [
-            ("B1/S1024/H32", lambda dt: check_flash(gen, 1, 1024, 32, dt))],
+            ("train", lambda dt: check_flash(gen, B, S, H, dt, D), train,
+             "scaled_dot_product_attention is_causal"),
+            ("serve", lambda dt: check_flash(gen, 1, 1024, 32, dt),
+             "B=1 S=1024 H=32 D=128 causal",
+             "scaled_dot_product_attention is_causal")],
+        "flash_bwd_dkv": [("train", bwd("flash_bwd_dkv"), train, sdpa_grad)],
+        "flash_bwd_dq": [("train", bwd("flash_bwd_dq"), train, sdpa_grad)],
     }
-    shape_of = {"paged_decode": "B=8 lengths<=2047 H=Hkv=32 D=128 bs=16",
-                "paged_prefill": "S=512 start=512 H=Hkv=32 D=128 bs=16",
-                "flash_fwd": "B=1 S=1024 H=32 D=128 causal"}
-    library_of = {"paged_decode": "index_select + scaled_dot_product_"
-                                  "attention with a mask (2 calls)",
-                  "paged_prefill": "index_select + scaled_dot_product_"
-                                   "attention with a mask (2 calls)",
-                  "flash_fwd": "scaled_dot_product_attention is_causal"}
-    out = {}
+    out, library_ms = {}, {}      # one library figure per (shape, call)
     for name, shapes in cases.items():
-        errors, timed = {}, None
-        for label, make in shapes:
+        errors, tolerances, timed = {}, {}, []
+        for label, make, shape, library_call in shapes:
             for dt in (torch.float32, torch.bfloat16):
                 res = make(dt)
-                tol = TOLERANCE[dt]
+                tol = res.get("tol", TOLERANCE[dt])
                 key = f"{label}/{str(dt).split('.')[-1]}"
-                errors[key] = res["err"]
+                errors[key], tolerances[key] = res["err"], tol
                 if res["err"] > tol or not np.isfinite(res["err"]):
                     raise AssertionError(
                         f"{name} {key}: max abs err {res['err']} > {tol}")
@@ -257,37 +347,28 @@ def phase_kernels() -> dict:
                     raise AssertionError(
                         f"{name} {key}: lse err {res['lse_err']} > "
                         f"{LSE_TOLERANCE}")
-                if dt == torch.bfloat16 and timed is None:
-                    timed = res
-                    timed["err_key"] = key
-                else:
-                    del res
+                if dt == torch.bfloat16:
+                    bound_ms, bound_by = res["bound"]
+                    lib = (shape, library_call)
+                    if lib not in library_ms:
+                        library_ms[lib] = cuda_ms(res["library"], iters=5)
+                    timed.append({
+                        "case": label, "shape": shape + " bf16",
+                        "max_abs_err": res["err"], "tolerance": tol,
+                        "ms": cuda_ms(res["kern"]),
+                        "plain_ms": cuda_ms(res["plain"], iters=3),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms[lib],
+                        "library_call": library_call})
+                del res
                 torch.cuda.synchronize()
-            gc.collect()
-            torch.cuda.empty_cache()
-        ms = cuda_ms(timed["kern"])
-        plain_ms = cuda_ms(timed["plain"], iters=3)
-        library_ms = cuda_ms(timed["library"], iters=5)
-        bound_ms, bound_by = timed["bound"]
-        from paddle_tpu_torch.ops.kernels import KERNELS
-
+                gc.collect()
+                torch.cuda.empty_cache()
         info = KERNELS[name]
-        out[name] = {
-            "name": name, "route": "cuda", "source": info.source,
-            "replaces": info.replaces,
-            "max_abs_err": timed["err"], "tolerance": TOLERANCE[
-                torch.bfloat16], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "library_call": library_of[name],
-            "shape": shape_of[name] + " bf16"}
-        emit("kernels", kernel=name, errors=errors,
-             tolerances={"float32": TOLERANCE[torch.float32],
-                         "bfloat16": TOLERANCE[torch.bfloat16]},
-             **{k: v for k, v in out[name].items()
-                if k not in ("name", "source", "replaces", "route")})
-        del timed
-        gc.collect()
-        torch.cuda.empty_cache()
+        out[name] = {"name": name, "route": "cuda", "source": info.source,
+                     "replaces": info.replaces, **timed[0]}
+        emit("kernels", kernel=name, errors=errors, tolerances=tolerances,
+             timed=timed)
     return out
 
 
@@ -490,6 +571,156 @@ def phase_parity():
                              f"{launches}")
 
 
+# -- phases 6 and 7: training ----------------------------------------------
+
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def run_train(config: str, batch: int, seq: int, device: str, warmup: int,
+              steps: int) -> dict:
+    """``build_train_step`` for ``config``; zero the launch counts, run
+    ``warmup`` then ``steps`` timed steps on the one seeded batch, and
+    check the losses: finite, the last below the first.  Returns the
+    run's figures and the launch counts of these steps alone."""
+    from paddle_tpu_torch import build_train_step
+    from paddle_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    ts = build_train_step(config, batch=batch, seq=seq, device=device)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in ts.model.parameters())
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses = [ts.train_step(ts.x, ts.y) for _ in range(warmup)]
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [ts.train_step(ts.x, ts.y) for _ in range(steps)]
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.KERNELS.items()}
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall {losses}")
+    tokens_per_s = steps * batch * seq / wall
+    res = {"params": n_params, "steps": warmup + steps, "timed_steps": steps,
+           "model_build_s": round(build_s, 3),
+           "step_ms": wall * 1e3 / steps, "tokens_per_s": tokens_per_s,
+           "mfu": tokens_per_s * 6 * n_params / PEAK_FLOPS[torch.bfloat16],
+           "losses": losses, "launches": launches,
+           "layers": ts.model.config.num_hidden_layers}
+    if cuda:
+        res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+def phase_train() -> dict:
+    res = run_train("gpt2-345m", batch=8, seq=1024, device="cuda", warmup=3,
+                    steps=10)
+    want = res["layers"] * res["steps"]
+    emit("train", model="gpt2-345m", dtype="bfloat16 (AMP O2, f32 masters)",
+         batch=8, seq=1024, mfu_peak="989e12 bf16 dense, 6N flops/token",
+         **res)
+    for name in TRAIN_KERNELS:
+        if res["launches"][name] != want:
+            raise AssertionError(f"train: {name} launched "
+                                 f"{res['launches'][name]} times, want "
+                                 f"{want} (one per layer per step)")
+    return res
+
+
+#: train_parity tolerances (f32): loss relative; each gradient relative to
+#: its tensor's largest value; the parameters after one AdamW step, whose
+#: first step is lr * g / (|g| + eps): 1e-6 absolute (1e-2 lr) where the
+#: reference gradient is at least SIGNAL of its tensor's largest, and 2 lr
+#: elsewhere, where the two paths' gradients differ by more than their
+#: size and the steps may go opposite ways (the key slice of the qkv bias,
+#: whose gradient is zero in exact arithmetic, is all such noise)
+TRAIN_PARITY_TOLERANCE = {"loss": 1e-5, "grad": 1e-4, "param": 1e-6,
+                          "param_noise": 2e-4}
+SIGNAL = 1e-3
+
+
+def drive_train_parity(cfg, batch: int, seq: int, device: str,
+                       lr: float = 1e-4, seed: int = 0) -> dict:
+    """Two models with the same seeded f32 weights, on ``kernel="cuda"``
+    and ``kernel="reference"``: one forward + backward on the same batch,
+    then one AdamW step each.  Returns the largest loss, gradient and
+    parameter differences (gradients relative to each tensor's largest
+    value; parameters split by the reference gradient's size, see
+    ``TRAIN_PARITY_TOLERANCE``) and the kernel path's launch counts."""
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+
+    rs = np.random.RandomState(seed)
+    x, y = (torch.from_numpy(rs.randint(0, cfg.vocab_size, (batch, seq)))
+            .to(device) for _ in range(2))
+    runs = {}
+    for kernel in ("reference", "cuda"):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        model = GPTForCausalLM(cfg, device=device, generator=gen,
+                               kernel=kernel)
+        kernels.reset_launches()
+        loss = model.compute_loss(x, y)
+        loss.backward()
+        launches = {n: k.launches for n, k in kernels.KERNELS.items()}
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        AdamW(model.parameters(), lr=lr).step()
+        runs[kernel] = (loss.item(), grads, dict(model.named_parameters()),
+                        launches)
+    (ref_loss, ref_g, ref_p, _), (loss, got_g, got_p, launches) = \
+        runs["reference"], runs["cuda"]
+    grad_err = param_err = noise_err = 0.0
+    n_noise = n_all = 0
+    for n, g in ref_g.items():
+        top = g.abs().max().clamp(min=1e-30)
+        grad_err = max(grad_err, ((got_g[n] - g).abs().max() / top).item())
+        diff = (got_p[n] - ref_p[n]).detach().abs()
+        noise = g.abs() < SIGNAL * top
+        if (~noise).any():
+            param_err = max(param_err, diff[~noise].max().item())
+        if noise.any():
+            noise_err = max(noise_err, diff[noise].max().item())
+        n_noise += int(noise.sum())
+        n_all += noise.numel()
+    return {"loss": loss, "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+            "grad_rel_err": grad_err, "param_abs_err": param_err,
+            "noise_param_abs_err": noise_err,
+            "noise_share": n_noise / n_all, "launches": launches}
+
+
+def check_train_parity(res: dict) -> None:
+    tol = TRAIN_PARITY_TOLERANCE
+    for key, limit in (("loss_rel_err", tol["loss"]),
+                       ("grad_rel_err", tol["grad"]),
+                       ("param_abs_err", tol["param"]),
+                       ("noise_param_abs_err", tol["param_noise"])):
+        if not res[key] <= limit:
+            raise AssertionError(f"train_parity: {key} {res[key]} > {limit}")
+
+
+def phase_train_parity() -> None:
+    from paddle_tpu_torch.models import gpt2_345m
+
+    cfg = gpt2_345m(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    res = drive_train_parity(cfg, batch=2, seq=256, device="cuda")
+    emit("train_parity", model="gpt2-345m width, 2 layers", dtype="float32",
+         batch=2, seq=256, tolerance=TRAIN_PARITY_TOLERANCE, **res)
+    check_train_parity(res)
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        if res["launches"][name] < 1:
+            raise AssertionError(f"train_parity: kernel path did not launch "
+                                 f"{name}: {res['launches']}")
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -509,13 +740,19 @@ def main() -> int:
     model, paged = phase_serve_paged()
     gc.collect()
     torch.cuda.empty_cache()
-    contiguous = phase_serve_contiguous(model)
+    phase_serve_contiguous(model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     phase_parity()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_parity()
     launches = {**paged["launches"],
-                "flash_fwd": contiguous["launches"]["flash_fwd"]}
+                **{n: train["launches"][n] for n in TRAIN_KERNELS}}
     kernels_line = [{**rec, "launches": launches[name]}
                     for name, rec in records.items()]
     print(CARD)

@@ -1,18 +1,24 @@
 """paddle_tpu_torch: the PyTorch + CUDA port of paddle_tpu.
 
 This package stands beside ``paddle_tpu`` (the JAX reference) and imports
-nothing of it.  It grows slice by slice; this slice serves Llama models
-through a continuous-batching engine whose attention runs in hand-written
-CUDA kernels for Hopper (``csrc/``):
+nothing of it.  It grows slice by slice.  Its attention runs in
+hand-written CUDA kernels for Hopper (``csrc/``), one for each Pallas
+kernel of the JAX package:
 
-- K4 paged decode and K5 fused paged prefill (``csrc/paged_attention.cu``),
-- K1 flash attention forward (``csrc/flash_attention_fwd.cu``).
+- K1 flash attention forward (``csrc/flash_attention_fwd.cu``),
+- K2 (dK, dV) and K3 (dQ) flash attention backward
+  (``csrc/flash_attention_bwd.cu``),
+- K4 paged decode and K5 fused paged prefill (``csrc/paged_attention.cu``).
 
-Entry point: :func:`inference.create_engine`.  Everything runs on
-``cuda`` unless the caller passes ``device="cpu"``; on CPU tensors each
-kernel's plain PyTorch version runs instead.
+Entry points: :func:`inference.create_engine` serves Llama models;
+:func:`training.build_train_step` trains GPT (the GPT-2 345M step of
+``bench.py``).  Everything runs on ``cuda`` unless the caller passes
+``device="cpu"``; on CPU tensors each kernel's plain PyTorch version runs
+instead.
 """
-from . import models, ops, serving
+from . import amp, models, ops, optimizer, serving
 from .inference import create_engine
+from .training import build_train_step
 
-__all__ = ["create_engine", "models", "ops", "serving"]
+__all__ = ["amp", "build_train_step", "create_engine", "models", "ops",
+           "optimizer", "serving"]

@@ -1,10 +1,15 @@
 """Models of the port."""
 from .convert import from_jax_state_dict
+from .gpt import (
+    GPT_CONFIGS, GPTConfig, GPTForCausalLM, GPTModel, gpt2_345m, gpt3_13b,
+    gpt_tiny,
+)
 from .llama import (
     LLAMA_CONFIGS, LlamaConfig, LlamaForCausalLM, LlamaModel, llama2_13b,
     llama2_70b, llama2_7b, llama_tiny,
 )
 
-__all__ = ["from_jax_state_dict", "LLAMA_CONFIGS", "LlamaConfig",
-           "LlamaForCausalLM", "LlamaModel", "llama2_13b", "llama2_70b",
-           "llama2_7b", "llama_tiny"]
+__all__ = ["from_jax_state_dict", "GPT_CONFIGS", "GPTConfig",
+           "GPTForCausalLM", "GPTModel", "gpt2_345m", "gpt3_13b", "gpt_tiny",
+           "LLAMA_CONFIGS", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
+           "llama2_13b", "llama2_70b", "llama2_7b", "llama_tiny"]

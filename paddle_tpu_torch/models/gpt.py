@@ -1,0 +1,247 @@
+"""GPT decoder-only transformer (pre-LN, tanh-gelu MLP, tied LM head) as
+``nn.Module``s, for training.
+
+Port of ``paddle_tpu/models/gpt.py`` for one device (model parallel 1):
+``ColumnParallelLinear``/``RowParallelLinear`` become ``nn.Linear``
+(weight ``[out, in]``; the JAX layout is ``[in, out]``, see
+``convert.py``) and ``VocabParallelEmbedding`` becomes ``nn.Embedding``.
+Module and parameter names are the JAX ``state_dict()``'s.  The fused
+``qkv_proj`` keeps the JAX output layout, head-major ``[H, 3*D]``, so q, k
+and v are strided ``[B, S, H, D]`` views of one projection, which the
+flash kernels read through their strides.
+
+Attention runs through :func:`ops.attention.flash_attention` (kernels K1,
+K2 and K3 on CUDA, or the plain versions with ``kernel="reference"`` and
+on the CPU); the loss through :func:`ops.fused.fused_linear_cross_entropy`
+on the head weight, so no ``[B, S, V]`` logits are made.  Dropout and
+activation recompute are not ported (ROADMAP.md A.6): a config asking for
+either raises.  GPT serving is ROADMAP.md A.2.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..nn.norm import LayerNorm
+from ..ops.attention import flash_attention
+from ..ops.fused import fused_linear_cross_entropy
+
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "gpt_tiny",
+           "gpt2_345m", "gpt3_13b", "GPT_CONFIGS"]
+
+
+@dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: Optional[int] = None   # None → 4 * hidden
+    max_position_embeddings: int = 1024
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    initializer_range: float = 0.02
+    layer_norm_epsilon: float = 1e-5
+    tie_word_embeddings: bool = True
+    recompute: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def ffn_size(self) -> int:
+        return self.intermediate_size or 4 * self.hidden_size
+
+
+def gpt_tiny(**kw) -> GPTConfig:
+    for k, v in dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
+                     num_attention_heads=4, max_position_embeddings=64,
+                     hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0).items():
+        kw.setdefault(k, v)
+    return GPTConfig(**kw)
+
+
+def gpt2_345m(**kw) -> GPTConfig:
+    for k, v in dict(vocab_size=50304, hidden_size=1024, num_hidden_layers=24,
+                     num_attention_heads=16,
+                     max_position_embeddings=1024).items():
+        kw.setdefault(k, v)
+    return GPTConfig(**kw)
+
+
+def gpt3_13b(**kw) -> GPTConfig:
+    for k, v in dict(vocab_size=50304, hidden_size=5120, num_hidden_layers=40,
+                     num_attention_heads=40,
+                     max_position_embeddings=2048).items():
+        kw.setdefault(k, v)
+    return GPTConfig(**kw)
+
+
+GPT_CONFIGS = {"tiny": gpt_tiny, "gpt2-345m": gpt2_345m, "gpt3-13b": gpt3_13b}
+
+
+class GPTAttention(nn.Module):
+    """Causal self-attention off one fused, head-major qkv projection."""
+
+    def __init__(self, config: GPTConfig, *, device=None, dtype=None,
+                 kernel: str = "cuda"):
+        super().__init__()
+        self.n_heads = config.num_attention_heads
+        self.head_dim = config.head_dim
+        self.kernel = kernel
+        h = config.hidden_size
+        self.qkv_proj = nn.Linear(h, 3 * h, device=device, dtype=dtype)
+        self.out_proj = nn.Linear(h, h, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, S, _ = x.shape
+        qkv = self.qkv_proj(x).view(B, S, self.n_heads, 3 * self.head_dim)
+        q, k, v = qkv.split(self.head_dim, dim=-1)          # [B, S, H, D]
+        ctx = flash_attention(q, k, v, is_causal=True, kernel=self.kernel)
+        return self.out_proj(ctx.reshape(B, S, self.n_heads * self.head_dim))
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, config: GPTConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.fc1 = nn.Linear(config.hidden_size, config.ffn_size,
+                             device=device, dtype=dtype)
+        self.fc2 = nn.Linear(config.ffn_size, config.hidden_size,
+                             device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(nn.functional.gelu(self.fc1(x), approximate="tanh"))
+
+
+class GPTDecoderLayer(nn.Module):
+    """Pre-LN block: ``x + attn(ln1(x))``; ``x + mlp(ln2(x))``."""
+
+    def __init__(self, config: GPTConfig, *, device=None, dtype=None,
+                 kernel: str = "cuda"):
+        super().__init__()
+        eps, h = config.layer_norm_epsilon, config.hidden_size
+        self.ln1 = LayerNorm(h, eps, device=device, dtype=dtype)
+        self.attn = GPTAttention(config, device=device, dtype=dtype,
+                                 kernel=kernel)
+        self.ln2 = LayerNorm(h, eps, device=device, dtype=dtype)
+        self.mlp = GPTMLP(config, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
+
+class GPTEmbeddings(nn.Module):
+    def __init__(self, config: GPTConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.word_embeddings = nn.Embedding(
+            config.vocab_size, config.hidden_size, device=device, dtype=dtype)
+        self.position_embeddings = nn.Embedding(
+            config.max_position_embeddings, config.hidden_size,
+            device=device, dtype=dtype)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        S = input_ids.shape[-1]
+        max_pos = self.position_embeddings.num_embeddings
+        if S > max_pos:
+            raise ValueError(f"sequence length {S} exceeds "
+                             f"max_position_embeddings {max_pos}")
+        pos = torch.arange(S, device=input_ids.device)[None, :]
+        return self.word_embeddings(input_ids) + self.position_embeddings(pos)
+
+
+class GPTModel(nn.Module):
+    def __init__(self, config: GPTConfig, *, device=None, dtype=None,
+                 kernel: str = "cuda"):
+        super().__init__()
+        self.config = config
+        self.embeddings = GPTEmbeddings(config, device=device, dtype=dtype)
+        self.layers = nn.ModuleList(
+            [GPTDecoderLayer(config, device=device, dtype=dtype,
+                             kernel=kernel)
+             for _ in range(config.num_hidden_layers)])
+        self.final_ln = LayerNorm(config.hidden_size,
+                                  config.layer_norm_epsilon, device=device,
+                                  dtype=dtype)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        h = self.embeddings(input_ids)
+        for layer in self.layers:
+            h = layer(h)
+        return self.final_ln(h)
+
+
+class GPTForCausalLM(nn.Module):
+    """GPTModel + the LM head, tied to the word embedding by default.
+
+    ``device`` defaults to ``"cuda"``; pass ``device="cpu"`` to run on the
+    CPU.  Asking for CUDA on a machine without a card raises.  ``kernel``
+    (``"cuda"`` or ``"reference"``) picks the attention path on the card;
+    CPU tensors always take the plain versions."""
+
+    def __init__(self, config: GPTConfig, *, device="cuda",
+                 dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None,
+                 kernel: str = "cuda"):
+        super().__init__()
+        if config.hidden_dropout_prob > 0 or \
+                config.attention_probs_dropout_prob > 0:
+            raise NotImplementedError(
+                "GPTForCausalLM: dropout is not ported (ROADMAP.md A.6); "
+                "pass hidden_dropout_prob=0.0 and "
+                "attention_probs_dropout_prob=0.0")
+        if config.recompute:
+            raise NotImplementedError(
+                "GPTForCausalLM: activation recompute is not ported "
+                "(ROADMAP.md A.6); pass recompute=False")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "GPTForCausalLM: device 'cuda' asked for, but no CUDA "
+                "device is available (pass device='cpu' to run on the CPU)")
+        self.config = config
+        self.gpt = GPTModel(config, device=device, dtype=dtype, kernel=kernel)
+        self.lm_head = None if config.tie_word_embeddings else nn.Linear(
+            config.hidden_size, config.vocab_size, bias=False, device=device,
+            dtype=dtype)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Draw every weight matrix and embedding from
+        N(0, initializer_range); biases zero; LayerNorm weight one, bias
+        zero."""
+        std = self.config.initializer_range
+        for m in self.modules():
+            if isinstance(m, (nn.Linear, nn.Embedding)):
+                m.weight.normal_(0.0, std, generator=generator)
+                if getattr(m, "bias", None) is not None:
+                    m.bias.zero_()
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+    def _head_weight(self) -> torch.Tensor:
+        """The ``[V, H]`` head weight: the word embedding when tied."""
+        if self.lm_head is None:
+            return self.gpt.embeddings.word_embeddings.weight
+        return self.lm_head.weight
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Logits ``[B, S, V]`` (serving and tests; training calls
+        :meth:`compute_loss`, which never makes them)."""
+        return self.gpt(input_ids) @ self._head_weight().t()
+
+    def compute_loss(self, input_ids: torch.Tensor, labels: torch.Tensor,
+                     loss_mask: Optional[torch.Tensor] = None,
+                     ignore_index: int = -100) -> torch.Tensor:
+        """Forward + causal-LM loss (f32 scalar) through the vocab-blocked
+        fused cross-entropy."""
+        return fused_linear_cross_entropy(
+            self.gpt(input_ids), self._head_weight(), labels,
+            loss_mask=loss_mask, ignore_index=ignore_index)

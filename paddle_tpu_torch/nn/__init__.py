@@ -1,5 +1,5 @@
 """Layers of the port that PyTorch does not provide in the JAX package's
 form."""
-from .norm import RMSNorm, rms_norm
+from .norm import LayerNorm, RMSNorm, layer_norm, rms_norm
 
-__all__ = ["RMSNorm", "rms_norm"]
+__all__ = ["LayerNorm", "RMSNorm", "layer_norm", "rms_norm"]

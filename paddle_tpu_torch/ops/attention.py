@@ -1,12 +1,20 @@
-"""Self-attention over ``[B, S, H, D]`` tensors: the plain version and the
-flash kernel dispatch.
+"""Self-attention over ``[B, S, H, D]`` tensors: the plain versions and the
+flash kernel dispatch, forward and backward.
 
 Port of ``_sdpa_reference`` and ``flash_attention`` from
-``paddle_tpu/ops/pallas/__init__.py``.  :func:`flash_attention` runs the
-hand-written flash forward kernel (K1, ``csrc/flash_attention_fwd.cu``)
-for CUDA tensors and :func:`_sdpa_reference` for CPU ones.  This slice
-serves only, so there is no backward, no attention mask and no dropout on
-the kernel path; the training slice brings them.
+``paddle_tpu/ops/pallas/__init__.py`` and of the ``_flash`` custom_vjp of
+``paddle_tpu/ops/pallas/flash_attention_kernel.py``.  On CUDA tensors
+:func:`flash_attention` runs the hand-written kernels: K1 forward
+(``csrc/flash_attention_fwd.cu``), and K2 (dK, dV) and K3 (dQ) backward
+(``csrc/flash_attention_bwd.cu``), tied together by one
+``torch.autograd.Function`` as ``_flash`` ties the Pallas kernels.  On CPU
+tensors, or with ``kernel="reference"``, the same Function runs the plain
+versions: :func:`_sdpa_reference` and the whole-sequence rewrites of
+``_p_ds`` (:func:`_flash_bwd_dkv_reference`,
+:func:`_flash_bwd_dq_reference`).
+
+As on the JAX package's Pallas route, the kernel path takes causal or full
+self-attention with no mask and no dropout.
 """
 from __future__ import annotations
 
@@ -16,6 +24,8 @@ from . import kernels
 from .cached_attention import NEG_INF
 
 __all__ = ["flash_attention", "supports"]
+
+_KERNEL_CHOICES = ("cuda", "reference")
 
 
 def _sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -40,24 +50,121 @@ def _sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _p_ds(q, k, v, do, lse, delta, causal: bool):
+    """``_p_ds`` over the whole sequence in f32: ``p = exp(s - lse)`` and
+    ``ds = p * (dO v^T - delta) * scale`` as ``[B, H, S, S]``, with the
+    f32 ``[B, H, S, D]`` copies of q and dO they were made from."""
+    B, S, H, D = q.shape
+    scale = 1.0 / D ** 0.5
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse.reshape(B, H, S, 1))
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta.reshape(B, H, S, 1)) * scale
+    return p, ds, qf, dof
+
+
+def _flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = True):
+    """K2's plain version: ``(dk, dv)`` ``[B, S, H, D]`` in the input
+    dtype.  ``lse`` and ``delta`` are f32 ``[B*H, S]``.  As in the Pallas
+    kernel, p is rounded to dO's dtype before ``dV = p^T dO`` and ds to
+    q's before ``dK = ds^T q``; the sums are f32."""
+    p, ds, qf, dof = _p_ds(q, k, v, do, lse, delta, causal)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qf)
+    return (dk.transpose(1, 2).to(k.dtype).contiguous(),
+            dv.transpose(1, 2).to(v.dtype).contiguous())
+
+
+def _flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool = True):
+    """K3's plain version: ``dq`` ``[B, S, H, D]`` in the input dtype;
+    ds is rounded to k's dtype before ``dQ = ds k``."""
+    _, ds, _, _ = _p_ds(q, k, v, do, lse, delta, causal)
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float().transpose(1, 2))
+    return dq.transpose(1, 2).to(q.dtype).contiguous()
+
+
+def _use_kernel(t: torch.Tensor, kernel: str) -> bool:
+    return t.is_cuda and kernel == "cuda"
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K2 + K3 backward (``_flash``'s custom_vjp): the forward
+    saves ``(q, k, v, o, lse)``; the backward forms
+    ``delta = rowsum(dO * O)`` in f32 as ``[B*H, S]`` (a torch op, as the
+    JAX package forms it outside its kernels) and runs K2 then K3.  The
+    three gradients come back as separate contiguous tensors, so a caller
+    that split q/k/v off one fused projection pays one concatenation in
+    the split's backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, kernel: str):
+        if _use_kernel(q, kernel):
+            o, lse = kernels.flash_fwd(q, k, v, causal=causal)
+        else:
+            o, lse = _sdpa_reference(q, k, v, causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.kernel = causal, kernel
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        B, S, H, _ = q.shape
+        if do.stride(-1) != 1:          # never so on the GPT path
+            do = do.contiguous()
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .contiguous().view(B * H, S)
+        if _use_kernel(q, ctx.kernel):
+            dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                           ctx.causal)
+            dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal)
+        else:
+            dk, dv = _flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                              ctx.causal)
+            dq = _flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                         ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def supports(q_shape, k_shape) -> bool:
-    """Shapes the flash kernel takes: equal self-attention ``[B, S, H, D]``
-    q and k with a head dim it is instantiated for."""
+    """Shapes the flash kernels take: equal self-attention
+    ``[B, S, H, D]`` q and k with a head dim they are instantiated for."""
     return (len(q_shape) == 4 and tuple(k_shape) == tuple(q_shape)
             and q_shape[-1] in kernels.HEAD_DIMS)
 
 
 def flash_attention(query: torch.Tensor, key: torch.Tensor,
-                    value: torch.Tensor,
-                    is_causal: bool = False) -> torch.Tensor:
-    """Attention over ``[B, S, H, D]`` (kv heads already expanded): kernel
-    K1 for CUDA tensors, :func:`_sdpa_reference` for CPU ones.  A CUDA call
-    with shapes the kernel does not take raises."""
-    if query.is_cuda:
-        if not supports(tuple(query.shape), tuple(key.shape)):
-            raise ValueError(
-                f"flash_attention: the CUDA kernel takes equal [B, S, H, D] "
-                f"q/k with head_dim in {kernels.HEAD_DIMS}, got "
-                f"{tuple(query.shape)} / {tuple(key.shape)}")
+                    value: torch.Tensor, is_causal: bool = False,
+                    dropout_p: float = 0.0,
+                    kernel: str = "cuda") -> torch.Tensor:
+    """Attention over ``[B, S, H, D]`` (kv heads already expanded).
+
+    ``kernel="cuda"`` runs K1 (and K2/K3 in the backward) for CUDA
+    tensors; CPU tensors, and ``kernel="reference"``, take the plain
+    versions.  A CUDA call with shapes the kernels do not take raises, and
+    so does attention dropout (not ported: ROADMAP.md A.6).  When no input
+    requires a gradient, or under ``torch.no_grad()``, nothing is saved
+    for a backward."""
+    if kernel not in _KERNEL_CHOICES:
+        raise ValueError(f"kernel must be one of {_KERNEL_CHOICES}, got "
+                         f"{kernel!r}")
+    if dropout_p > 0.0:
+        raise NotImplementedError(
+            "flash_attention: attention dropout is not ported (ROADMAP.md "
+            "A.6); the Pallas route also requires dropout_p == 0")
+    if _use_kernel(query, kernel) and not supports(tuple(query.shape),
+                                                   tuple(key.shape)):
+        raise ValueError(
+            f"flash_attention: the CUDA kernels take equal [B, S, H, D] "
+            f"q/k with head_dim in {kernels.HEAD_DIMS}, got "
+            f"{tuple(query.shape)} / {tuple(key.shape)}")
+    if torch.is_grad_enabled() and (query.requires_grad or key.requires_grad
+                                    or value.requires_grad):
+        return _FlashAttention.apply(query, key, value, is_causal, kernel)
+    if _use_kernel(query, kernel):
         return kernels.flash_fwd(query, key, value, causal=is_causal)[0]
     return _sdpa_reference(query, key, value, is_causal)

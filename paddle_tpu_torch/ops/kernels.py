@@ -29,7 +29,8 @@ from typing import Dict, Optional, Sequence
 import torch
 
 __all__ = ["KERNELS", "build", "reset_launches", "paged_decode",
-           "paged_prefill", "flash_fwd", "HEAD_DIMS", "MAX_GROUP"]
+           "paged_prefill", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+           "HEAD_DIMS", "MAX_GROUP"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -61,6 +62,13 @@ _LIBRARIES = {
                         + [_L] * 12 + [_F, _P],
         "pt_flash_error_string": [_I],
     }),
+    "flash_attention_bwd": ("flash_attention_bwd.cu", {
+        "pt_flash_bwd_dkv": [_I, _I] + [_P] * 8 + [_I] * 4 + [_L] * 18
+                            + [_F, _P],
+        "pt_flash_bwd_dq": [_I, _I] + [_P] * 7 + [_I] * 4 + [_L] * 15
+                           + [_F, _P],
+        "pt_flash_bwd_error_string": [_I],
+    }),
 }
 
 
@@ -85,6 +93,12 @@ KERNELS: Dict[str, KernelInfo] = {
     "flash_fwd": KernelInfo(
         "flash_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         "paddle_tpu/ops/pallas/flash_attention_kernel.py:128"),
+    "flash_bwd_dkv": KernelInfo(
+        "flash_bwd_dkv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention_kernel.py:170"),
+    "flash_bwd_dq": KernelInfo(
+        "flash_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention_kernel.py:210"),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -290,20 +304,38 @@ def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+def _check_dense(what: str, q: torch.Tensor, *others: torch.Tensor) -> int:
+    """Equal ``[B, S, H, D]`` tensors of one dtype, head dims contiguous
+    (any other strides are read as they are)."""
+    D = _check_common(what, q, *others)
+    _require(q.dim() == 4 and all(t.shape == q.shape for t in others), what,
+             f"shapes {[tuple(t.shape) for t in (q, *others)]} (want equal "
+             f"[B, S, H, D])")
+    _require(all(t.dtype == q.dtype for t in others), what,
+             "the tensors differ in dtype")
+    _require(all(t.stride(-1) == 1 for t in others), what,
+             "every head dim must be contiguous")
+    return D
+
+
+def _check_rows(what: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
+    """lse / delta: contiguous f32 ``[B*H, S]``, row ``b*H + h``."""
+    B, S, H, _ = q.shape
+    for t in rows:
+        _require(t.dtype == torch.float32 and tuple(t.shape) == (B * H, S)
+                 and t.is_contiguous() and t.device == q.device, what,
+                 f"lse/delta must be contiguous float32 [B*H, S] = "
+                 f"[{B * H}, {S}] on {q.device}, got {t.dtype} "
+                 f"{tuple(t.shape)}")
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True):
     """K1: flash attention forward over ``[B, S, H, D]`` q/k/v, read
     through their strides (head dim contiguous).  Returns ``(o, lse)``:
     ``o`` ``[B, S, H, D]`` in the input dtype, ``lse`` ``[B*H, S]`` f32."""
     what = "flash_fwd"
-    D = _check_common(what, q, k, v)
-    _require(q.dim() == 4 and k.shape == q.shape and v.shape == q.shape,
-             what, f"q/k/v {tuple(q.shape)} {tuple(k.shape)} "
-             f"{tuple(v.shape)} (want equal [B, S, H, D])")
-    _require(k.dtype == q.dtype and v.dtype == q.dtype, what,
-             "q/k/v differ in dtype")
-    _require(k.stride(-1) == 1 and v.stride(-1) == 1, what,
-             "the head dim of k and v must be contiguous")
+    D = _check_dense(what, q, k, v)
     B, S, H, _ = q.shape
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
@@ -316,3 +348,51 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(rc, lib, "pt_flash_error_string", what)
     KERNELS["flash_fwd"].launches += 1
     return o, lse
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  causal: bool = True):
+    """K2: dK and dV of flash attention.  ``q``/``k``/``v``/``do``
+    ``[B, S, H, D]`` read through their strides (head dims contiguous);
+    ``lse`` (K1's) and ``delta = rowsum(do * o)`` contiguous f32
+    ``[B*H, S]``.  Returns ``(dk, dv)``, contiguous ``[B, S, H, D]`` in
+    the input dtype."""
+    what = "flash_bwd_dkv"
+    D = _check_dense(what, q, k, v, do)
+    _check_rows(what, q, lse, delta)
+    B, S, H, _ = q.shape
+    dk = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lib = _library("flash_attention_bwd")
+    rc = lib.pt_flash_bwd_dkv(
+        _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, S, H, int(bool(causal)),
+        *[s for t in (q, k, v, do, dk, dv) for s in t.stride()[:3]],
+        1.0 / D ** 0.5, _stream(q))
+    _raise_on(rc, lib, "pt_flash_bwd_error_string", what)
+    KERNELS["flash_bwd_dkv"].launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 causal: bool = True) -> torch.Tensor:
+    """K3: dQ of flash attention; arguments as :func:`flash_bwd_dkv`.
+    Returns ``dq``, contiguous ``[B, S, H, D]`` in the input dtype."""
+    what = "flash_bwd_dq"
+    D = _check_dense(what, q, k, v, do)
+    _check_rows(what, q, lse, delta)
+    B, S, H, _ = q.shape
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lib = _library("flash_attention_bwd")
+    rc = lib.pt_flash_bwd_dq(
+        _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B,
+        S, H, int(bool(causal)),
+        *[s for t in (q, k, v, do, dq) for s in t.stride()[:3]],
+        1.0 / D ** 0.5, _stream(q))
+    _raise_on(rc, lib, "pt_flash_bwd_error_string", what)
+    KERNELS["flash_bwd_dq"].launches += 1
+    return dq

@@ -1,0 +1,75 @@
+"""The GPT train step: model, AdamW, AMP O2 and the seeded batch.
+
+Port of ``bench.py`` ``build_bench`` (:140-205), the step the JAX package
+was built and benchmarked around: ``GPTForCausalLM`` with dropout 0 and
+no recompute, ``compute_loss`` (fused vocab-blocked cross-entropy) under
+AMP O2 (bf16 parameters, f32 masters), backward, ``AdamW``.  The step runs
+eagerly; ``jit.to_static``, CUDA graphs and the fleet wrappers (identity
+at one card) are not part of this port (ROADMAP.md A.6).
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Union
+
+import numpy as np
+import torch
+
+from . import amp
+from .models.gpt import GPT_CONFIGS, GPTForCausalLM
+from .optimizer import AdamW
+
+__all__ = ["TrainStep", "build_train_step"]
+
+
+class TrainStep(NamedTuple):
+    model: GPTForCausalLM
+    optimizer: AdamW
+    train_step: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    x: torch.Tensor
+    y: torch.Tensor
+
+
+def build_train_step(config: str = "gpt2-345m", *, batch: int = 8,
+                     seq: int = 1024, device="cuda", amp_level: str = "O2",
+                     lr: float = 1e-4,
+                     moment_dtype: Union[None, str, torch.dtype] = None,
+                     seed: int = 0, kernel: str = "cuda") -> TrainStep:
+    """Build the train step of ``bench.py`` for a ``GPT_CONFIGS`` name.
+
+    Weights are drawn from ``torch.Generator(device).manual_seed(seed)``;
+    the batch ``x, y`` (``[batch, seq]`` token ids) from
+    ``np.random.RandomState(seed)``, ``x`` then ``y``, as ``bench.py``
+    draws them.  ``amp_level`` is ``"O2"`` (bf16 parameters, f32 masters)
+    or ``"O0"`` (f32).  ``train_step(x, y)`` runs ``compute_loss``,
+    backward, the optimizer step and clears the gradients; it returns the
+    loss (f32, on the device, not synchronised).  ``device`` defaults to
+    ``"cuda"`` and raises where there is no card."""
+    if amp_level == "O1":
+        raise NotImplementedError("amp O1 (per-op auto_cast) is not ported "
+                                  "(ROADMAP.md A.6); use O2 or O0")
+    if amp_level not in ("O0", "O2"):
+        raise ValueError(f"amp_level must be O0 or O2, got {amp_level!r}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_train_step: device 'cuda' asked for, but "
+                           "no CUDA device is available (pass device='cpu')")
+    cfg = GPT_CONFIGS[config](recompute=False, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = GPTForCausalLM(cfg, device=device, generator=gen, kernel=kernel)
+    opt = AdamW(model.parameters(), lr=lr, moment_dtype=moment_dtype)
+    if amp_level == "O2":
+        model, opt = amp.decorate(model, opt, level="O2")
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.randint(0, cfg.vocab_size, (batch, seq)))
+    y = torch.from_numpy(rs.randint(0, cfg.vocab_size, (batch, seq)))
+
+    def train_step(inputs: torch.Tensor, labels: torch.Tensor
+                   ) -> torch.Tensor:
+        loss = model.compute_loss(inputs, labels)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    return TrainStep(model, opt, train_step, x.to(device), y.to(device))

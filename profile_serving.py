@@ -35,6 +35,8 @@ import chip_smoke
 GROUPS = (("K4 paged_decode", ("paged_decode_kernel",)),
           ("K5 paged_prefill", ("paged_prefill_kernel",)),
           ("K1 flash_fwd", ("flash_fwd_kernel",)),
+          ("K2 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+          ("K3 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
           ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet",
                       "sm90_")),
           ("elementwise/reduce", ("elementwise", "vectorized", "reduce",
@@ -74,7 +76,10 @@ def trace(fn, n_steps: int, plain=None) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device events, less the user annotations the profiler also records
+    # on the device timeline (e.g. "Optimizer.step#AdamW.step")
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)

@@ -1,9 +1,11 @@
 """``chip_smoke.py`` and the port's import boundary, on the CPU.
 
 The card-only phases of ``chip_smoke.py`` run on the card; here its serve
-and parity helpers run at ``llama_tiny`` size with ``device="cpu"`` (the
-kernels' plain versions), and the script itself must refuse to report a
-result where there is no card or no repository around it.
+and parity helpers run at ``llama_tiny`` size and its train and
+train_parity helpers at ``gpt_tiny`` size, with ``device="cpu"`` (the
+kernels' plain versions, so no kernel launches), and the script itself
+must refuse to report a result where there is no card or no repository
+around it.
 """
 import ast
 import json
@@ -19,7 +21,9 @@ import torch
 
 import chip_smoke
 from paddle_tpu_torch import create_engine
-from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+from paddle_tpu_torch.models import (
+    GPTForCausalLM, LlamaForCausalLM, gpt_tiny, llama_tiny,
+)
 from paddle_tpu_torch.ops import kernels
 
 torch.set_num_threads(2)
@@ -29,7 +33,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def _port_sources():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "profile_serving.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "profile_serving.py",
+                    ROOT / "profile_training.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -84,6 +89,33 @@ def test_parity_phase_on_tiny_cpu():
     assert len(ref) == 4 and ref[0].shape == (2, 128)
     err = max((a - b).abs().max().item() for a, b in zip(got, ref))
     assert err <= 1e-5
+
+
+def test_train_phase_on_tiny_cpu():
+    """The train phase's helper: falling finite losses, the figures it
+    prints, and no kernel launched on CPU tensors."""
+    res = chip_smoke.run_train("tiny", batch=2, seq=16, device="cpu",
+                               warmup=1, steps=2)
+    assert len(res["losses"]) == 3 and res["losses"][-1] < res["losses"][0]
+    assert res["params"] == sum(
+        p.numel() for p in GPTForCausalLM(gpt_tiny(), device="cpu")
+        .parameters())
+    assert res["tokens_per_s"] > 0 and res["step_ms"] > 0
+    assert res["launches"] == {n: 0 for n in kernels.KERNELS}
+
+
+def test_train_parity_phase_on_tiny_cpu():
+    """Both paths take the plain versions on the CPU: they agree exactly,
+    and the checker passes them."""
+    res = chip_smoke.drive_train_parity(gpt_tiny(), batch=2, seq=16,
+                                        device="cpu")
+    assert res["loss_rel_err"] == res["grad_rel_err"] == 0.0
+    assert res["param_abs_err"] == res["noise_param_abs_err"] == 0.0
+    assert 0.0 < res["noise_share"] < 0.5
+    assert res["launches"] == {n: 0 for n in kernels.KERNELS}
+    chip_smoke.check_train_parity(res)
+    with pytest.raises(AssertionError, match="grad_rel_err"):
+        chip_smoke.check_train_parity({**res, "grad_rel_err": 1.0})
 
 
 def test_bound_names_the_larger_time():

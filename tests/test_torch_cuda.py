@@ -7,16 +7,23 @@ without JAX:
 
 Tolerances: 1e-4 absolute in f32 (CUDA-core sums in another order than
 the plain version's), 3e-2 in bf16 (two bf16 ulps at |x| < 4; both sides
-accumulate in f32 and round once), 1e-3 on the f32 lse.
+accumulate in f32 and round once), 1e-3 on the f32 lse.  The backward
+kernels' gradients sum over up to S rows, so they are held relative to
+the plain version's largest value: 1e-4 in f32, 2e-2 in bf16.
 """
 import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.models import (
+    GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
+)
 from paddle_tpu_torch.ops import cached_attention as ca
 from paddle_tpu_torch.ops import kernels
-from paddle_tpu_torch.ops.attention import _sdpa_reference
+from paddle_tpu_torch.ops.attention import (
+    _flash_bwd_dkv_reference, _flash_bwd_dq_reference, _sdpa_reference,
+    flash_attention,
+)
 from paddle_tpu_torch.serving import Engine, SamplingParams
 
 
@@ -111,3 +118,91 @@ def test_engine_kernel_path_matches_reference_path(cuda_device):
     assert contiguous == ref and c_launches["flash_fwd"] > 0
     law = SamplingParams(temperature=0.9, top_k=50, seed=3)
     assert run("paged", "cuda", law)[0] == run("paged", "reference", law)[0]
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_kernels_match_plain(cuda_device, dtype, rel, d, causal):
+    """K2 and K3 on strided views of a fused ``[B, S, H, 3*D]`` qkv at a
+    ragged S (70: a full 64-row tile and a part one), lse and delta from
+    the plain forward."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    B, S, H = 2, 70, 3
+    q, k, v = torch.randn((B, S, H, 3 * d), generator=g,
+                          device=cuda_device).to(dtype).split(d, dim=-1)
+    do = torch.randn((B, S, H, d), generator=g, device=cuda_device).to(dtype)
+    o, lse = _sdpa_reference(q, k, v, causal, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+        .contiguous().view(B * H, S)
+    args = (q, k, v, do, lse, delta, causal)
+    dk, dv = kernels.flash_bwd_dkv(*args)
+    dq = kernels.flash_bwd_dq(*args)
+    rk, rv = _flash_bwd_dkv_reference(*args)
+    rq = _flash_bwd_dq_reference(*args)
+    for got, want in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == dtype and got.shape == (B, S, H, d)
+        assert _rel_err(got, want) <= rel
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradients_kernel_vs_reference(cuda_device):
+    """The autograd Function (K1 + K2 + K3) against its plain path, f32,
+    through a fused qkv as the GPT model feeds it."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = torch.randn((2, 130, 4, 192), generator=g, device=cuda_device)
+    do = torch.randn((2, 130, 4, 64), generator=g, device=cuda_device)
+    grads, outs = [], []
+    for kernel in ("cuda", "reference"):
+        t = qkv.clone().requires_grad_()
+        kernels.reset_launches()
+        out = flash_attention(*t.split(64, dim=-1), is_causal=True,
+                              kernel=kernel)
+        out.backward(do)
+        outs.append(out.detach())
+        grads.append(t.grad)
+        launched = kernels.KERNELS["flash_bwd_dq"].launches
+        assert launched == (1 if kernel == "cuda" else 0)
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-4
+    assert _rel_err(grads[0], grads[1]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_raise_on_bad_rows(cuda_device):
+    x = torch.zeros(1, 8, 2, 64, device=cuda_device)
+    good = torch.zeros(2, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="lse/delta"):
+        kernels.flash_bwd_dq(x, x, x, x, good.t().contiguous(), good)
+    with pytest.raises(ValueError, match="lse/delta"):
+        kernels.flash_bwd_dkv(x, x, x, x, good, good.double())
+
+
+@pytest.mark.cuda
+def test_gpt_loss_and_gradients_kernel_vs_reference(cuda_device):
+    """A small GPT (head dim 64) in f32: ``compute_loss`` and every
+    gradient on the kernel path against ``kernel="reference"``."""
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=128,
+                    hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    x, y = (torch.from_numpy(np.random.RandomState(i).randint(
+        0, 512, (2, 96))).to(cuda_device) for i in range(2))
+    res = []
+    for kernel in ("cuda", "reference"):
+        m = GPTForCausalLM(
+            cfg, device=cuda_device, kernel=kernel,
+            generator=torch.Generator(device=cuda_device).manual_seed(0))
+        loss = m.compute_loss(x, y)
+        loss.backward()
+        res.append((loss.item(), {n: p.grad for n, p in
+                                  m.named_parameters()}))
+    (loss, grads), (ref_loss, ref_grads) = res
+    assert loss == pytest.approx(ref_loss, rel=1e-5)
+    for n, want in ref_grads.items():
+        assert _rel_err(grads[n], want) <= 1e-4, n

@@ -1,0 +1,133 @@
+"""The port's flash-attention backward against the JAX package's, on the
+CPU.
+
+The JAX side runs the Pallas kernels in interpret mode with 8-row blocks:
+``_bwd`` (K2 and K3) for the plain backward versions, and ``jax.vjp`` of
+the ``_flash`` custom_vjp (K1 forward, K2/K3 backward) for the gradients
+of the port's ``flash_attention``.  q, k and v are strided views of one
+fused ``[B, S, H, 3*D]`` projection, as in the GPT model.  Tolerance:
+1e-5 absolute in f32 (the same sums in other orders; measured ~7e-7).
+K2/K3 themselves are held against these plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from paddle_tpu.ops.pallas.flash_attention_kernel import _bwd, _flash, _fwd
+from paddle_tpu_torch.ops import kernels
+from paddle_tpu_torch.ops.attention import (
+    _flash_bwd_dkv_reference, _flash_bwd_dq_reference, flash_attention,
+)
+
+torch.set_num_threads(2)
+
+F32_TOL = 1e-5
+B, S, H, D = 2, 16, 2, 16
+
+
+def _inputs(seed):
+    rs = np.random.RandomState(seed)
+    qkv = rs.randn(B, S, H, 3 * D).astype(np.float32)
+    do = rs.randn(B, S, H, D).astype(np.float32)
+    return qkv, do
+
+
+def _to_bh(x):
+    return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(B * H, S, D)
+
+
+def _from_bh(x):
+    return np.asarray(x).reshape(B, H, S, D).transpose(0, 2, 1, 3)
+
+
+def _split(qkv):
+    return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_matches_pallas_bwd(causal):
+    """``_flash_bwd_dkv_reference`` / ``_flash_bwd_dq_reference`` against
+    ``_bwd``, fed the Pallas forward's O and lse, with delta formed as the
+    autograd Function forms it (``[B*H, S]``, row ``b*H + h``)."""
+    qkv, do = _inputs(0)
+    q, k, v = _split(qkv)
+    o, lse = _fwd(_to_bh(q), _to_bh(k), _to_bh(v), scale=D ** -0.5,
+                  causal=causal, block_q=8, block_k=8, interpret=True)
+    dq, dk, dv = _bwd((_to_bh(q), _to_bh(k), _to_bh(v), o, lse), _to_bh(do),
+                      scale=D ** -0.5, causal=causal, block_q=8, block_k=8,
+                      interpret=True)
+    tqkv = torch.from_numpy(qkv)
+    tq, tk, tv = tqkv.split(D, dim=-1)             # strided views
+    tdo = torch.from_numpy(do)
+    to = torch.from_numpy(_from_bh(o).copy())
+    tlse = torch.from_numpy(np.array(lse))
+    delta = (tdo * to).sum(-1).transpose(1, 2).contiguous().view(B * H, S)
+    rk, rv = _flash_bwd_dkv_reference(tq, tk, tv, tdo, tlse, delta, causal)
+    rq = _flash_bwd_dq_reference(tq, tk, tv, tdo, tlse, delta, causal)
+    for got, want in ((rq, dq), (rk, dk), (rv, dv)):
+        np.testing.assert_allclose(got.numpy(), _from_bh(want), rtol=0,
+                                   atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_grads_match_flash_vjp(causal):
+    """Output and dQ/dK/dV of the port's autograd Function (plain versions
+    on CPU tensors) against ``jax.vjp`` of ``_flash``."""
+    qkv, do = _inputs(1)
+    q, k, v = _split(qkv)
+    o, vjp = jax.vjp(lambda a, b, c: _flash(a, b, c, causal, 8, 8, True),
+                     _to_bh(q), _to_bh(k), _to_bh(v))
+    dq, dk, dv = vjp(_to_bh(do))
+    t = torch.from_numpy(qkv).requires_grad_()
+    out = flash_attention(*t.split(D, dim=-1), is_causal=causal)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), _from_bh(o), rtol=0,
+                               atol=F32_TOL)
+    g = t.grad.numpy()
+    for part, want in zip(_split(g), (dq, dk, dv)):
+        np.testing.assert_allclose(part, _from_bh(want), rtol=0,
+                                   atol=F32_TOL)
+
+
+def test_reference_choice_runs_the_same_function():
+    """``kernel="reference"`` is the plain path on any device; on CPU
+    tensors ``kernel="cuda"`` takes it too, so the two agree exactly."""
+    qkv, do = _inputs(2)
+    grads = []
+    for kernel in ("cuda", "reference"):
+        t = torch.from_numpy(qkv).requires_grad_()
+        flash_attention(*t.split(D, dim=-1), is_causal=True,
+                        kernel=kernel).backward(torch.from_numpy(do))
+        grads.append(t.grad)
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_no_grad_saves_nothing():
+    x = torch.randn(1, 8, 2, 16, requires_grad=True)
+    with torch.no_grad():
+        out = flash_attention(x, x, x, is_causal=True)
+    assert out.grad_fn is None
+    assert flash_attention(x, x, x, is_causal=True).grad_fn is not None
+
+
+def test_dropout_and_unknown_kernel_raise():
+    x = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        flash_attention(x, x, x, is_causal=True, dropout_p=0.1)
+    with pytest.raises(ValueError, match="kernel"):
+        flash_attention(x, x, x, kernel="triton")
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    """K2/K3's wrappers take CUDA tensors only: no quiet CPU fallback."""
+    x = torch.zeros(1, 8, 2, 64)
+    rows = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.flash_bwd_dkv(x, x, x, x, rows, rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.flash_bwd_dq(x, x, x, x, rows, rows)
+    assert kernels.KERNELS["flash_bwd_dkv"].launches == 0
+    assert kernels.KERNELS["flash_bwd_dq"].launches == 0

@@ -1,17 +1,23 @@
 // Shared pieces of the hand-written attention kernels for Hopper (sm_90a).
 //
-// Arithmetic contract (the one the Pallas TPU kernels follow):
-// products and softmax in f32, scale 1/sqrt(D), masked scores filled with
-// -1e30, online softmax (running max m, running sum l, f32 accumulator),
-// and the l == 0 guard at the end.  Inputs and outputs are f32 or bf16.
+// Arithmetic contract (the one the Pallas TPU kernels follow, in
+// paddle_tpu/ops/pallas/flash_attention_kernel.py and
+// paged_attention_kernel.py): softmax in f32, scale 1/sqrt(D), masked
+// scores filled with -1e30, online softmax (running max m, running sum l,
+// f32 accumulator), and the l == 0 guard at the end.  Inputs and outputs
+// are f32 or bf16.
 //
-// `attend_tile` is the query-tile loop shared by the paged prefill kernel
-// (K5, paged_attention.cu) and the flash forward kernel (K1,
+// `attend_tile` is the f32 query-tile loop shared by the paged prefill
+// kernel (K5, paged_attention.cu) and the flash forward kernel (K1,
 // flash_attention_fwd.cu): one block holds kTileQ queries of one head in
-// shared memory and walks the keys kChunkK at a time up to the tile's
-// causal horizon.  Keys are addressed through a functor, so the paged
-// kernel reads them through the block table and the flash kernel reads a
-// strided [B, S, H, D] tensor, with one loop for both.
+// shared memory as f32 and walks the keys kChunkK at a time up to the
+// tile's causal horizon, with both products as scalar FMA on the CUDA
+// cores (67 TFLOP/s at most), so it is bound by those operations.  Keys are
+// addressed through a functor, so the paged kernel reads them through the
+// block table and the flash kernel reads a strided [B, S, H, D] tensor,
+// with one loop for both.  Only the f32 instances, which the parity checks
+// use, run it: the bf16 instances run the tensor-core loop of
+// attention_wgmma.cuh through the same functors.
 #pragma once
 
 #include <cuda_bf16.h>

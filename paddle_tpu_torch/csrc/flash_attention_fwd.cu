@@ -4,17 +4,25 @@
 // (`_fwd`, kernel `_fwd_kernel`, reached through `flash_attention_fused`):
 // causal (or full) self-attention over q/k/v [B, S, H, D] with an online
 // softmax, emitting O in the input dtype and lse = m + log(l) in f32.  The
-// lse is compact [B*H, S]; the TPU's [BH, S, 1] buffer was a layout
-// artifact.  The backward kernels (K2, K3) that read it come with training.
+// lse is compact [B*H, S] (row b*H + h), which the backward kernels K2/K3
+// read; the TPU's [BH, S, 1] buffer was a layout artifact.
 //
-// Bound by operations: 4 * B * H * D * sum_q(keys attended) flops against
-// 4 * B * S * H * D * itemsize bytes.  One block per (query tile, head,
-// batch) walks the key chunks up to the tile's causal horizon, so blocks
-// above the diagonal are never visited (attention_common.cuh).  The
-// tensors are read through their strides: no transpose to [B*H, S, D].
-// The products run on CUDA-core f32 FMA; wgmma, TMA and tuned tiles are
-// later work (the v5e block sizes 512/1024 do not carry over).
-#include "attention_common.cuh"
+// Bound by operations at the main paths' shapes: 4 * B * H * D *
+// sum_q(keys attended) flops against 4 * B * S * H * D * itemsize bytes
+// (at the GPT-2 345M shape the bytes bound is larger only because the
+// published bf16 peak is so high; either way the tensor cores are the
+// only route to it).  The tensors are read through their strides (GPT's
+// fused [B, S, H, 3D] projection, Llama's kv split): no transpose to
+// [B*H, S, D].
+//
+// bf16 runs on tensor cores: one warpgroup per (64-query tile, head,
+// batch) runs `tc::attend_tile` (attention_wgmma.cuh): wgmma for Q K^T and
+// P V, a two-stage cp.async ring of swizzled K/V tiles, the softmax on the
+// accumulator fragment.  Rows must be 16-byte aligned (the wrapper checks).
+// The heaviest (last) causal query tiles are scheduled first.  f32 keeps
+// the CUDA-core loop `attend_tile` (attention_common.cuh), 16 queries per
+// block, which the f32 parity checks use.
+#include "attention_wgmma.cuh"
 
 namespace pt {
 
@@ -22,6 +30,7 @@ namespace pt {
 struct DenseKeyAt {
   long long k_base, k_ss, v_base, v_ss;
   int S;
+  __device__ __forceinline__ int limit() const { return S; }
   __device__ __forceinline__ bool operator()(int pos, long long& k_off,
                                              long long& v_off) const {
     if (pos >= S) return false;
@@ -39,16 +48,27 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     float scale) {
-  __shared__ TileSmem<D> sm;
-  const int q0 = blockIdx.x * kTileQ, h = blockIdx.y, b = blockIdx.z;
-  const int n_rows = min(kTileQ, S - q0);
+  constexpr int kTile = tc::kQueryTile<T>;
+  // last query tile first: under a causal mask it has the most keys
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_rows = min(kTile, S - q0);
   const int horizon = causal ? q0 + n_rows - 1 : S - 1;
   const DenseKeyAt key_at{(long long)b * k_sb + (long long)h * k_sh, k_ss,
                           (long long)b * v_sb + (long long)h * v_sh, v_ss, S};
-  attend_tile<T, D>(sm, q + b * q_sb + q0 * q_ss + h * q_sh, q_ss, n_rows, q0,
-                    horizon, causal != 0, k, v, key_at, scale,
-                    o + b * o_sb + q0 * o_ss + h * o_sh, o_ss,
-                    lse + ((long long)b * H + h) * S + q0);
+  const T* q_rows = q + b * q_sb + q0 * q_ss + h * q_sh;
+  T* o_rows = o + b * o_sb + q0 * o_ss + h * o_sh;
+  float* lse_rows = lse + ((long long)b * H + h) * S + q0;
+  if constexpr (tc::kOnTensorCores<T>) {
+    extern __shared__ uint8_t dyn_smem[];
+    tc::attend_tile<D>(dyn_smem, q_rows, q_ss, n_rows, q0, horizon,
+                       causal != 0, k, v, key_at, scale, o_rows, o_ss,
+                       lse_rows);
+  } else {
+    __shared__ TileSmem<D> sm;
+    attend_tile<T, D>(sm, q_rows, q_ss, n_rows, q0, horizon, causal != 0, k,
+                      v, key_at, scale, o_rows, o_ss, lse_rows);
+  }
 }
 
 template <typename T, int D>
@@ -59,8 +79,10 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
                      long long v_sb, long long v_ss, long long v_sh,
                      long long o_sb, long long o_ss, long long o_sh,
                      float scale, cudaStream_t stream) {
-  const dim3 grid((S + kTileQ - 1) / kTileQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  const int smem = tc::dynamic_smem<T, D>(flash_fwd_kernel<T, D>);
+  if (smem < 0) return -smem;
+  const dim3 grid((S + tc::kQueryTile<T> - 1) / tc::kQueryTile<T>, H, B);
+  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       S, H, causal, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,

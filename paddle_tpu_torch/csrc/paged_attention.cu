@@ -12,15 +12,20 @@
 // group of H/Hkv query heads, so a K/V row is read once for the whole group
 // (GQA in-kernel), and it loops only over the live keys 0..lengths[b]: the
 // TPU grid walks all max_blocks blocks and skips the dead ones.  Four
-// threads share a key, so a chunk of 32 keys is in flight at once.
+// threads share a key, so a chunk of 32 keys is in flight at once.  It runs
+// on CUDA-core f32 FMA in both dtypes.
 //
 // K5 is bound by operations at long tails: 4 * H * D * sum_q(keys attended)
-// flops.  One block per (query tile, head) walks the key chunks up to the
-// tile's causal horizon start + last_row (attention_common.cuh); the Pallas
-// kernel instead holds all S queries in VMEM, which S = 4096 would not fit
-// in shared memory.  Both kernels use CUDA-core f32 FMA; tensor cores
-// (wgmma) and TMA are later work.
-#include "attention_common.cuh"
+// flops.  One block per (query tile, head) walks the key tiles up to the
+// tile's causal horizon start + last_row; the Pallas kernel instead holds
+// all S queries in VMEM, which S = 4096 would not fit in shared memory.
+// bf16 runs on tensor cores through `tc::attend_tile` (attention_wgmma.cuh),
+// the loop K1 runs: 64 queries per warpgroup, wgmma for both products, K/V
+// rows fetched by cp.async through the block table (a 64-key tile spans
+// four 16-row pool blocks).  It rounds p to bf16 before P V, where the
+// Pallas kernel keeps p in f32: one bf16 rounding of p apart.  f32 keeps the
+// CUDA-core loop `attend_tile` (attention_common.cuh), 16 queries a block.
+#include "attention_wgmma.cuh"
 
 namespace pt {
 
@@ -146,6 +151,9 @@ struct PagedKeyAt {
   int block_size;
   int max_blocks;
   long long p_sb, p_st, head_off;
+  __device__ __forceinline__ int limit() const {
+    return max_blocks * block_size;
+  }
   __device__ __forceinline__ bool operator()(int pos, long long& k_off,
                                              long long& v_off) const {
     const int j = pos / block_size;
@@ -164,16 +172,28 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     int max_blocks, long long q_ss, long long q_sh, long long o_ss,
     long long o_sh, long long p_sb, long long p_st, long long p_sh,
     float scale) {
-  __shared__ TileSmem<D> sm;
-  const int q0 = blockIdx.x * kTileQ, h = blockIdx.y;
-  const int n_rows = min(kTileQ, S - q0);
+  constexpr int kTile = tc::kQueryTile<T>;
+  // last query tile first: it has the most keys
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile, h = blockIdx.y;
+  const int n_rows = min(kTile, S - q0);
   const int hkv = h / (H / Hkv);
   const PagedKeyAt key_at{row,  block_size, max_blocks,
                           p_sb, p_st,       (long long)hkv * p_sh};
   // query s sits at absolute position start + s and sees keys 0..start+s
-  attend_tile<T, D>(sm, q + q0 * q_ss + h * q_sh, q_ss, n_rows, start + q0,
-                    start + q0 + n_rows - 1, /*causal=*/true, k_pool, v_pool,
-                    key_at, scale, out + q0 * o_ss + h * o_sh, o_ss, nullptr);
+  const T* q_rows = q + q0 * q_ss + h * q_sh;
+  T* o_rows = out + q0 * o_ss + h * o_sh;
+  const int horizon = start + q0 + n_rows - 1;
+  if constexpr (tc::kOnTensorCores<T>) {
+    extern __shared__ uint8_t dyn_smem[];
+    tc::attend_tile<D>(dyn_smem, q_rows, q_ss, n_rows, start + q0, horizon,
+                       /*causal=*/true, k_pool, v_pool, key_at, scale,
+                       o_rows, o_ss, nullptr);
+  } else {
+    __shared__ TileSmem<D> sm;
+    attend_tile<T, D>(sm, q_rows, q_ss, n_rows, start + q0, horizon,
+                      /*causal=*/true, k_pool, v_pool, key_at, scale, o_rows,
+                      o_ss, nullptr);
+  }
 }
 
 template <typename T, int D>
@@ -200,8 +220,10 @@ int launch_prefill(const void* q, const void* k_pool, const void* v_pool,
                    long long q_sh, long long o_ss, long long o_sh,
                    long long p_sb, long long p_st, long long p_sh, float scale,
                    cudaStream_t stream) {
-  const dim3 grid((S + kTileQ - 1) / kTileQ, H);
-  paged_prefill_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  const int smem = tc::dynamic_smem<T, D>(paged_prefill_kernel<T, D>);
+  if (smem < 0) return -smem;
+  const dim3 grid((S + tc::kQueryTile<T> - 1) / tc::kQueryTile<T>, H);
+  paged_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int*>(row), start,
       static_cast<T*>(out), S, H, Hkv, block_size, max_blocks, q_ss, q_sh,

@@ -228,6 +228,22 @@ def _check_pool(what: str, q, k_pool, v_pool, D: int):
     return H, Hkv
 
 
+def _check_rows16(what: str, *tensors: torch.Tensor) -> None:
+    """The bf16 tensor-core loop (K1, K5) copies rows in 16-byte pieces:
+    every row of each operand must start 16-byte aligned."""
+    for t in tensors:
+        if t.dtype != torch.bfloat16:
+            continue
+        isz = t.element_size()
+        strides = [s * isz for s, n in zip(t.stride()[:-1], t.shape[:-1])
+                   if n > 1]
+        _require(t.data_ptr() % 16 == 0 and all(s % 16 == 0
+                                                for s in strides), what,
+                 f"bf16 rows must start 16-byte aligned for the kernel's "
+                 f"16-byte copies, got address {t.data_ptr()} and strides "
+                 f"{tuple(t.stride())} (elements)")
+
+
 def _check_index(what: str, t: torch.Tensor, dim: int, name: str) -> None:
     _require(t.dtype == torch.int32 and t.dim() == dim, what,
              f"{name} must be int32 with {dim} dim(s), got {t.dtype} "
@@ -281,13 +297,15 @@ def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
     ``q`` ``[1, S, H, D]`` tail queries at absolute positions
     ``start..start+S-1``; pools as :func:`paged_decode`; ``block_row``
     ``[max_blocks]`` int32, the slot's table row.  Returns
-    ``[1, S, H, D]``."""
+    ``[1, S, H, D]``.  bf16 runs on tensor cores and needs 16-byte aligned
+    rows (:func:`_check_rows16`); f32 runs the CUDA-core loop."""
     what = "paged_prefill"
     D = _check_common(what, q, k_pool, v_pool, block_row)
     _require(q.dim() == 4 and q.shape[0] == 1, what,
              f"q {tuple(q.shape)} (want [1, S, H, D])")
     H, Hkv = _check_pool(what, q, k_pool, v_pool, D)
     _check_index(what, block_row, 1, "block_row")
+    _check_rows16(what, q, k_pool, v_pool)
     start = int(start)
     _require(start >= 0, what, f"start {start} < 0")
     S = q.shape[1]
@@ -333,9 +351,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True):
     """K1: flash attention forward over ``[B, S, H, D]`` q/k/v, read
     through their strides (head dim contiguous).  Returns ``(o, lse)``:
-    ``o`` ``[B, S, H, D]`` in the input dtype, ``lse`` ``[B*H, S]`` f32."""
+    ``o`` ``[B, S, H, D]`` in the input dtype, ``lse`` ``[B*H, S]`` f32.
+    bf16 runs on tensor cores and needs 16-byte aligned rows
+    (:func:`_check_rows16`); f32 runs the CUDA-core loop."""
     what = "flash_fwd"
     D = _check_dense(what, q, k, v)
+    _check_rows16(what, q, k, v)
     B, S, H, _ = q.shape
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)

@@ -108,12 +108,13 @@ def test_cached_attention_matches_jax_oracle():
 # -- K5: paged prefill -------------------------------------------------------
 
 @pytest.mark.parametrize("hkv,h", [(4, 4), (2, 4)])
-@pytest.mark.parametrize("start", [0, 16])
+@pytest.mark.parametrize("start", [0, 16, 80])
 def test_paged_prefill_matches_pallas(hkv, h, start):
     """With and without a cached prefix (start > 0 puts shared blocks under
-    the cross-attention half of the mask)."""
+    the cross-attention half of the mask), 16-query tails.  start 80 is a
+    multiple of 16 but not of 64, as the card's 64-query tiles meet it."""
     rs = np.random.RandomState(3)
-    NB, BS, D, MB, S = 11, 8, 16, 4, 16
+    NB, BS, D, MB, S = 17, 8, 16, 12, 16
     kp, vp = _pool(rs, NB, BS, hkv, D)
     row = rs.randint(1, NB, (MB,)).astype(np.int32)
     q = rs.randn(1, S, h, D).astype(np.float32)
@@ -141,31 +142,36 @@ def test_paged_prefill_future_positions_are_invisible():
 
 # -- K1: flash forward -------------------------------------------------------
 
+@pytest.mark.parametrize("S,block", [(16, 8), (80, 16)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_matches_pallas(causal):
+def test_flash_attention_matches_pallas(causal, S, block):
+    """S 80 is not a multiple of 64: the card's last 64-query tile is
+    ragged there (the Pallas blocks, 16, divide it)."""
     rs = np.random.RandomState(7)
-    B, S, H, D = 2, 16, 2, 16
+    B, H, D = 2, 2, 16
     q, k, v = (rs.randn(B, S, H, D).astype(np.float32) for _ in range(3))
     ref = flash_attention_fused(jnp.asarray(q), jnp.asarray(k),
-                                jnp.asarray(v), causal=causal, block_q=8,
-                                block_k=8, interpret=True)
+                                jnp.asarray(v), causal=causal, block_q=block,
+                                block_k=block, interpret=True)
     out = flash_attention(_t(q), _t(k), _t(v), is_causal=causal)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
                                atol=F32_TOL)
 
 
-def test_flash_lse_matches_pallas_fwd():
-    """The compact [B*H, S] lse the kernel emits (and the training slice's
-    backward will read) against the Pallas forward's."""
+@pytest.mark.parametrize("S,block", [(16, 8), (80, 16)])
+def test_flash_lse_matches_pallas_fwd(S, block):
+    """The compact [B*H, S] lse the kernel emits (and the backward kernels
+    read) against the Pallas forward's."""
     rs = np.random.RandomState(8)
-    B, S, H, D = 2, 16, 2, 16
+    B, H, D = 2, 2, 16
     q, k, v = (rs.randn(B, S, H, D).astype(np.float32) for _ in range(3))
 
     def to_bh(x):
         return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(B * H, S, D)
 
     o_ref, lse_ref = _fwd(to_bh(q), to_bh(k), to_bh(v), scale=D ** -0.5,
-                          causal=True, block_q=8, block_k=8, interpret=True)
+                          causal=True, block_q=block, block_k=block,
+                          interpret=True)
     out, lse = _sdpa_reference(_t(q), _t(k), _t(v), True, return_lse=True)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), rtol=0,
                                atol=F32_TOL)

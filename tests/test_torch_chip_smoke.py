@@ -142,3 +142,26 @@ def test_script_alone_fails(tmp_path):
     assert p.returncode != 0
     for line in p.stdout.splitlines():
         assert not (line.startswith("{") and json.loads(line).get("ok"))
+
+
+@pytest.mark.parametrize("mangled,label", [
+    ("_ZN2pt16flash_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PS2_Pfiii",
+     "flash_fwd_kernel<bf16,64>"),
+    ("_ZN2pt20paged_prefill_kernelIfLi128EEEvPKT_S3_S3_PKiiPS1_",
+     "paged_prefill_kernel<f32,128>"),
+    ("some_other_symbol", "some_other_symbol"),
+])
+def test_kernel_label_names_instances(mangled, label):
+    assert chip_smoke.kernel_label(mangled) == label
+
+
+def test_check_tensor_cores_wants_hgmma_in_bf16_k1_and_k5():
+    good = {"flash_attention_fwd": {f"flash_fwd_kernel<bf16,{d}>": 8
+                                    for d in kernels.HEAD_DIMS},
+            "paged_attention": {f"paged_prefill_kernel<bf16,{d}>": 8
+                                for d in kernels.HEAD_DIMS}}
+    chip_smoke.check_tensor_cores(good)
+    bad = {**good, "paged_attention": {**good["paged_attention"],
+                                       "paged_prefill_kernel<bf16,128>": 0}}
+    with pytest.raises(AssertionError, match="paged_prefill_kernel"):
+        chip_smoke.check_tensor_cores(bad)

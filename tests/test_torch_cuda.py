@@ -7,7 +7,8 @@ without JAX:
 
 Tolerances: 1e-4 absolute in f32 (CUDA-core sums in another order than
 the plain version's), 3e-2 in bf16 (two bf16 ulps at |x| < 4; both sides
-accumulate in f32 and round once), 1e-3 on the f32 lse.  The backward
+accumulate in f32 and round once, and the bf16 K1/K5 also round p to bf16
+before P V on the tensor cores), 1e-3 on the f32 lse.  The backward
 kernels' gradients sum over up to S rows, so they are held relative to
 the plain version's largest value: 1e-4 in f32, 2e-2 in bf16.
 """
@@ -81,6 +82,18 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         kernels.paged_decode(q, pool, pool, tbl.long(), lens)
     with pytest.raises(ValueError, match="dtype"):
         kernels.paged_decode(q, pool.half(), pool.half(), tbl, lens)
+    # the bf16 tensor-core loop copies 16-byte rows: a row stride of 65
+    # elements (130 bytes), or a base 2 bytes off, is refused
+    odd = torch.zeros(1, 8, 2, 65, dtype=torch.bfloat16,
+                      device=cuda_device)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.flash_fwd(odd, odd, odd)
+    flat = torch.zeros(1 + 8 * 2 * 64, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.paged_prefill(shifted, pool.bfloat16(), pool.bfloat16(),
+                              tbl[0], 0)
 
 
 @pytest.mark.cuda
@@ -118,6 +131,69 @@ def test_engine_kernel_path_matches_reference_path(cuda_device):
     assert contiguous == ref and c_launches["flash_fwd"] > 0
     law = SamplingParams(temperature=0.9, top_k=50, seed=3)
     assert run("paged", "cuda", law)[0] == run("paged", "reference", law)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 70, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_bf16_tensor_cores_match_plain(cuda_device, S, causal, d):
+    """The bf16 K1 (wgmma tile loop) against ``_sdpa_reference``: one part
+    tile (16), a full tile and a part one (70), 16 tiles ragged (1000)."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn((2, S, 3, d), generator=g, device=cuda_device)
+               .bfloat16() for _ in range(3))
+    o, lse = kernels.flash_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = _sdpa_reference(q, k, v, causal, return_lse=True)
+    assert o.dtype == torch.bfloat16 and torch.isfinite(o.float()).all()
+    assert (o.float() - o_ref.float()).abs().max().item() <= 3e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_bf16_reads_fused_qkv_views(cuda_device, d):
+    """K1 on q/k/v split off one ``[B, S, H, 3*D]`` projection (row stride
+    3*H*D, as GPT hands them over) equals K1 on contiguous copies."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = torch.randn((2, 200, 4, 3 * d), generator=g,
+                          device=cuda_device).bfloat16().split(d, dim=-1)
+    o, lse = kernels.flash_fwd(q, k, v, causal=True)
+    o2, lse2 = kernels.flash_fwd(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_ref = _sdpa_reference(q, k, v, True)
+    assert (o.float() - o_ref.float()).abs().max().item() <= 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,start", [(16, 0), (32, 1008), (128, 512)])
+@pytest.mark.parametrize("hkv,h", [(8, 8), (2, 8)])
+def test_paged_prefill_bf16_tensor_cores_match_plain(cuda_device, S, start,
+                                                     hkv, h):
+    """The bf16 K5 (wgmma tile loop through the block table) against
+    ``block_prefill_attention`` on the gathered cache, on a strided
+    one-layer view of a two-layer pool: a 16-query tail from 0, a
+    32-query tail after a start that is a multiple of 16 but not of 64,
+    and two full tiles after 512."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    n_blocks = (start + S) // 16 + 8
+
+    def pool():
+        return torch.randn((n_blocks + 1, 2, 16, hkv, 128), generator=g,
+                           device=cuda_device).bfloat16()[:, 1]
+
+    kp, vp = pool(), pool()
+    row = (torch.randperm(n_blocks, generator=g, device=cuda_device) + 1
+           ).to(torch.int32)
+    q = torch.randn((1, S, h, 128), generator=g,
+                    device=cuda_device).bfloat16()
+    got = kernels.paged_prefill(q, kp, vp, row, start)
+    want = ca.block_prefill_attention(q, ca.gather_block_kv(kp, row[None]),
+                                      ca.gather_block_kv(vp, row[None]),
+                                      start)
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 3e-2
 
 
 def _rel_err(got, want):
@@ -206,3 +282,35 @@ def test_gpt_loss_and_gradients_kernel_vs_reference(cuda_device):
     assert loss == pytest.approx(ref_loss, rel=1e-5)
     for n, want in ref_grads.items():
         assert _rel_err(grads[n], want) <= 1e-4, n
+
+
+@pytest.mark.cuda
+def test_gpt_bf16_loss_and_gradients_kernel_vs_reference(cuda_device):
+    """A small GPT (head dim 64) in bf16: ``compute_loss`` and every
+    gradient through K1 (tensor cores) -> K2/K3 against the reference
+    path.  The two paths round at other points (K1 rounds p to bf16, the
+    reference rounds only its output), so the loss is held to 1e-2
+    relative and each gradient to 5e-2 of its reference norm."""
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=256,
+                    hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    x, y = (torch.from_numpy(np.random.RandomState(i).randint(
+        0, 512, (2, 200))).to(cuda_device) for i in range(2))
+    res = []
+    for kernel in ("cuda", "reference"):
+        m = GPTForCausalLM(
+            cfg, device=cuda_device, dtype=torch.bfloat16, kernel=kernel,
+            generator=torch.Generator(device=cuda_device).manual_seed(0))
+        kernels.reset_launches()
+        loss = m.compute_loss(x, y)
+        loss.backward()
+        launched = {n: k.launches for n, k in kernels.KERNELS.items()}
+        res.append((loss.float().item(), launched,
+                    {n: p.grad.float() for n, p in m.named_parameters()}))
+    (loss, launched, grads), (ref_loss, ref_launched, ref_grads) = res
+    assert launched["flash_fwd"] == launched["flash_bwd_dq"] == 2
+    assert sum(ref_launched.values()) == 0
+    assert np.isfinite(loss) and loss == pytest.approx(ref_loss, rel=1e-2)
+    for n, want in ref_grads.items():
+        err = ((grads[n] - want).norm() / want.norm().clamp(min=1e-30))
+        assert err.item() <= 5e-2, n

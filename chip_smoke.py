@@ -13,9 +13,9 @@ Phases, each printing one JSON line with the card's name and power limit:
               their plain PyTorch versions at the serving and training
               paths' shapes, in f32 and bf16, and time each kernel, its
               plain version and one library call computing the same thing;
-              hold the bf16 tensor-core K1 and K5 at their edge shapes
-              (ragged S, S 16, full and causal, D 64 and 128, starts that
-              are not multiples of 64), and require wgmma in both.
+              hold the bf16 tensor-core K1, K5, K2 and K3 at their edge
+              shapes (ragged S, S 16, full and causal, D 64 and 128, starts
+              that are not multiples of 64), and require wgmma in all four.
 3. serve_paged — Llama-2 7B at full width (random weights from a seed),
               bf16, paged KV: 12 requests sharing a 512-token system
               prompt; the K4/K5 launch counts of this run are read.
@@ -30,6 +30,9 @@ Phases, each printing one JSON line with the card's name and power limit:
 7. train_parity — GPT-2 345M width at 2 layers in f32: loss, every
               gradient and the parameters after one AdamW step on the
               kernel path against ``kernel="reference"``.
+8. train_parity_bf16 — the same model in bf16: loss and every gradient
+              on the kernel path (the bf16 K1, K2 and K3 on tensor cores)
+              against ``kernel="reference"``.
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
 ``{"kernels": [...]}`` line; the last line is
@@ -150,6 +153,23 @@ def hgmma_counts(lib_path: str) -> dict:
     return counts
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """``nvcc -Xptxas -v`` output -> per kernel instance its spill line
+    and its registers line, e.g. ``{"flash_fwd_kernel<bf16,64>": "0 bytes
+    stack frame, 0 bytes spill stores, 0 bytes spill loads; Used 95
+    registers, used 1 barriers"}``."""
+    out, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = kernel_label(m.group(1))
+            out[current] = []
+        elif current is not None and ("registers" in line
+                                      or "spill" in line):
+            out[current].append(line.split("ptxas info    :")[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
 def phase_build() -> dict:
     """Builds every library and returns per library its ``HGMMA`` count
     by kernel.  The line shows nvcc's seconds, the ``ptxas`` registers
@@ -159,10 +179,8 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     info = kernels.build()
     secs = time.perf_counter() - t0
-    ptxas = {}
-    for name, rec in info.items():
-        ptxas[name] = [ln.strip() for ln in rec["ptxas"].splitlines()
-                       if "registers" in ln or "spill" in ln]
+    ptxas = {name: ptxas_by_kernel(rec["ptxas"])
+             for name, rec in info.items()}
     hgmma = {name: hgmma_counts(rec["path"]) for name, rec in info.items()}
     emit("build", seconds=round(secs, 3),
          per_library={n: r["seconds"] for n, r in info.items()},
@@ -170,15 +188,17 @@ def phase_build() -> dict:
     return hgmma
 
 
-#: kernels whose bf16 instances must run on tensor cores, by library
-TENSOR_CORE_KERNELS = {"flash_attention_fwd": "flash_fwd_kernel",
-                       "paged_attention": "paged_prefill_kernel"}
+#: (library, kernel) whose bf16 instances must run on tensor cores
+TENSOR_CORE_KERNELS = (("flash_attention_fwd", "flash_fwd_kernel"),
+                       ("paged_attention", "paged_prefill_kernel"),
+                       ("flash_attention_bwd", "flash_bwd_dkv_kernel"),
+                       ("flash_attention_bwd", "flash_bwd_dq_kernel"))
 
 
 def check_tensor_cores(hgmma: dict) -> None:
     from paddle_tpu_torch.ops.kernels import HEAD_DIMS
 
-    for lib, kernel in TENSOR_CORE_KERNELS.items():
+    for lib, kernel in TENSOR_CORE_KERNELS:
         for d in HEAD_DIMS:
             label = f"{kernel}<bf16,{d}>"
             if not hgmma.get(lib, {}).get(label, 0) > 0:
@@ -313,24 +333,24 @@ def check_flash(gen, B, S, H, dtype, D=128, causal=True, fused=False):
 BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64):
+def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64, causal=True):
     """K2 (``which="flash_bwd_dkv"``) or K3 (``"flash_bwd_dq"``) on q/k/v
     taken as strided views of one fused ``[B, S, H, 3*D]`` projection, as
     the GPT model hands them over, with lse and delta from the plain
     forward.  The library call is one ``torch.autograd.grad`` through
-    causal SDPA giving dq, dk and dv together; its forward runs at the
-    first call (a warm-up call of the timing)."""
+    SDPA giving dq, dk and dv together; its forward runs at the first
+    call (a warm-up call of the timing)."""
     from paddle_tpu_torch.ops import attention as att
     from paddle_tpu_torch.ops import kernels
 
     q, k, v = torch.randn((B, S, H, 3 * D), generator=gen,
                           device="cuda").to(dtype).split(D, dim=-1)
     do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
-    o, lse = att._sdpa_reference(q, k, v, True, return_lse=True)
+    o, lse = att._sdpa_reference(q, k, v, causal, return_lse=True)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
         .contiguous().view(B * H, S)
     del o
-    args = (q, k, v, do, lse, delta, True)
+    args = (q, k, v, do, lse, delta, causal)
     if which == "flash_bwd_dkv":
         def kern():
             return kernels.flash_bwd_dkv(*args)
@@ -355,12 +375,12 @@ def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64):
             qkv = [t.transpose(1, 2).detach().requires_grad_()
                    for t in (q, k, v)]
             graph.append((torch.nn.functional.scaled_dot_product_attention(
-                *qkv, is_causal=True), qkv))
+                *qkv, is_causal=causal), qkv))
         out, qkv = graph[0]
         return torch.autograd.grad(out, qkv, do.transpose(1, 2),
                                    retain_graph=True)
     isz = torch.finfo(dtype).bits // 8
-    pairs = B * S * (S + 1) // 2
+    pairs = B * (S * (S + 1) // 2 if causal else S * S)
     n_out, flops_per_pair = (2, 8 * D) if which == "flash_bwd_dkv" \
         else (1, 6 * D)
     nbytes = (4 + n_out) * B * S * H * D * isz + 2 * B * H * S * 4
@@ -395,11 +415,30 @@ def flash_edges(gen):
     return out
 
 
+def bwd_edges(gen, which: str):
+    """K2's or K3's bf16 edge cases, as :func:`flash_edges`; the S 1000
+    causal D 128 and S 1000 full D 64 cases are timed."""
+    out = []
+    for S, causal, D in [(S, c, D) for S in (1000, 70) for c in (True, False)
+                         for D in (64, 128)] + [(16, True, 64),
+                                                (16, True, 128)]:
+        mask = "causal" if causal else "full"
+        out.append((f"S{S}/{mask}/D{D}",
+                    lambda dt, S=S, c=causal, D=D: check_flash_bwd(
+                        gen, which, 2, S, 4, dt, D, causal=c),
+                    f"B=2 S={S} H=4 D={D} {mask}, q/k/v views of a fused "
+                    f"[B, S, H, 3D] projection",
+                    f"autograd.grad through scaled_dot_product_attention "
+                    f"is_causal={causal}", BF16,
+                    S == 1000 and (causal, D) in ((True, 128), (False, 64))))
+    return out
+
+
 def phase_kernels(hgmma: dict) -> dict:
     """Every main-path case is checked in f32 and bf16 and timed in bf16;
-    the edge cases of the bf16 tensor-core loop (K1, K5) are checked in
-    bf16, and some timed.  ``hgmma`` (from the build phase) must show
-    wgmma in the bf16 K1 and K5.  Returns per kernel the record for the
+    the edge cases of the bf16 tensor-core kernels (K1, K5, K2, K3) are
+    checked in bf16, and some timed.  ``hgmma`` (from the build phase)
+    must show wgmma in all four.  Returns per kernel the record for the
     final ``{"kernels": [...]}`` line (minus ``launches``): that of its
     main-path case, the first listed."""
     from paddle_tpu_torch.ops.kernels import KERNELS
@@ -461,9 +500,9 @@ def phase_kernels(hgmma: dict) -> dict:
              sdpa_causal, BF16, True),
             *flash_edges(gen)],
         "flash_bwd_dkv": [("train", bwd("flash_bwd_dkv"), train, sdpa_grad,
-                           BOTH, True)],
+                           BOTH, True), *bwd_edges(gen, "flash_bwd_dkv")],
         "flash_bwd_dq": [("train", bwd("flash_bwd_dq"), train, sdpa_grad,
-                          BOTH, True)],
+                          BOTH, True), *bwd_edges(gen, "flash_bwd_dq")],
     }
     out, library_ms = {}, {}      # one library figure per (shape, call)
     for name, shapes in cases.items():
@@ -859,6 +898,73 @@ def phase_train_parity() -> None:
                                  f"{name}: {res['launches']}")
 
 
+#: train_parity_bf16 tolerances: the loss relative, each gradient relative
+#: to its tensor's largest value.  The two paths round at other points (the
+#: bf16 K1 rounds p before P V, the reference only its output), and every
+#: later bf16 op rounds what it is given, so the gradients differ by a few
+#: bf16 ulps (2^-8 = 3.9e-3 of a value) at their largest elements.
+BF16_GRAD_TOLERANCE = {"loss": 1e-2, "grad": 5e-2}
+
+
+def drive_grad_parity_bf16(cfg, batch: int, seq: int, device: str,
+                           seed: int = 0) -> dict:
+    """Two bf16 models with the same seeded weights, on ``kernel="cuda"``
+    and ``kernel="reference"``: one forward + backward on the same batch.
+    Returns the loss's relative difference, the largest gradient
+    difference relative to its tensor's largest value (and which tensor),
+    and the kernel path's launch counts."""
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.ops import kernels
+
+    rs = np.random.RandomState(seed)
+    x, y = (torch.from_numpy(rs.randint(0, cfg.vocab_size, (batch, seq)))
+            .to(device) for _ in range(2))
+    runs = {}
+    for kernel in ("reference", "cuda"):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        model = GPTForCausalLM(cfg, device=device, dtype=torch.bfloat16,
+                               generator=gen, kernel=kernel)
+        kernels.reset_launches()
+        loss = model.compute_loss(x, y)
+        loss.backward()
+        runs[kernel] = (loss.float().item(),
+                        {n: p.grad.float() for n, p in
+                         model.named_parameters()},
+                        {n: k.launches for n, k in kernels.KERNELS.items()})
+        del model
+    (ref_loss, ref_g, _), (loss, got_g, launches) = \
+        runs["reference"], runs["cuda"]
+    worst, grad_err = "", 0.0
+    for n, g in ref_g.items():
+        err = ((got_g[n] - g).abs().max()
+               / g.abs().max().clamp(min=1e-30)).item()
+        if not err <= grad_err:
+            worst, grad_err = n, err
+    return {"loss": loss, "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+            "grad_rel_err": grad_err, "worst_grad": worst,
+            "launches": launches}
+
+
+def phase_train_parity_bf16() -> None:
+    from paddle_tpu_torch.models import gpt2_345m
+
+    cfg = gpt2_345m(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    res = drive_grad_parity_bf16(cfg, batch=2, seq=256, device="cuda")
+    emit("train_parity_bf16", model="gpt2-345m width, 2 layers",
+         dtype="bfloat16", batch=2, seq=256,
+         tolerance=BF16_GRAD_TOLERANCE, **res)
+    for key, limit in (("loss_rel_err", BF16_GRAD_TOLERANCE["loss"]),
+                       ("grad_rel_err", BF16_GRAD_TOLERANCE["grad"])):
+        if not res[key] <= limit:
+            raise AssertionError(f"train_parity_bf16: {key} {res[key]} > "
+                                 f"{limit} ({res['worst_grad']})")
+    for name in TRAIN_KERNELS:
+        if res["launches"][name] < 1:
+            raise AssertionError(f"train_parity_bf16: kernel path did not "
+                                 f"launch {name}: {res['launches']}")
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -888,6 +994,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_parity()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_parity_bf16()
     launches = {**paged["launches"],
                 **{n: train["launches"][n] for n in TRAIN_KERNELS}}
     kernels_line = [{**rec, "launches": launches[name]}

@@ -1,5 +1,7 @@
 // The bf16 tensor-core tile loop shared by K1 (flash forward,
-// flash_attention_fwd.cu) and K5 (paged prefill, paged_attention.cu).
+// flash_attention_fwd.cu) and K5 (paged prefill, paged_attention.cu), and
+// the PTX pieces (wgmma, descriptors, cp.async, TileCopy) that the bf16
+// backward kernels K2/K3 (flash_attention_bwd.cu) build on too.
 //
 // Same function as `attend_tile` in attention_common.cuh, which the f32
 // instances keep: scale 1/sqrt(D), masked scores -1e30, online softmax
@@ -77,6 +79,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared (the .cg form takes 16 only); src_bytes 0 writes
+// zeros and reads nothing.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes)
                : "memory");
 }

@@ -131,7 +131,8 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     """Compile the named libraries (default: all) that are not built yet,
     one ``nvcc`` per source, all started together.  Returns per library
     ``{"path", "seconds", "cached", "ptxas"}`` (``ptxas``: the compiler's
-    register/shared-memory report).  Raises with the compiler's output if
+    register/shared-memory report, kept beside the library so that a
+    cached build reports it too).  Raises with the compiler's output if
     any build fails."""
     names = list(names or _LIBRARIES)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -139,8 +140,10 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     for name in names:
         path = _lib_path(name)
         if path.exists():
+            report = path.with_suffix(".ptxas.txt")
             out[name] = {"path": str(path), "seconds": 0.0, "cached": True,
-                         "ptxas": ""}
+                         "ptxas": report.read_text() if report.exists()
+                         else ""}
             continue
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -155,6 +158,7 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"--- {name} (nvcc rc {proc.returncode}) ---\n{log}")
             continue
+        path.with_suffix(".ptxas.txt").write_text(log)
         os.replace(tmp, path)
         out[name] = {"path": str(path), "seconds": round(secs, 3),
                      "cached": False, "ptxas": log}
@@ -229,8 +233,8 @@ def _check_pool(what: str, q, k_pool, v_pool, D: int):
 
 
 def _check_rows16(what: str, *tensors: torch.Tensor) -> None:
-    """The bf16 tensor-core loop (K1, K5) copies rows in 16-byte pieces:
-    every row of each operand must start 16-byte aligned."""
+    """The bf16 tensor-core kernels (K1, K5, K2, K3) copy rows in 16-byte
+    pieces: every row of each operand must start 16-byte aligned."""
     for t in tensors:
         if t.dtype != torch.bfloat16:
             continue
@@ -378,9 +382,11 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B, S, H, D]`` read through their strides (head dims contiguous);
     ``lse`` (K1's) and ``delta = rowsum(do * o)`` contiguous f32
     ``[B*H, S]``.  Returns ``(dk, dv)``, contiguous ``[B, S, H, D]`` in
-    the input dtype."""
+    the input dtype.  bf16 runs on tensor cores and needs 16-byte aligned
+    rows (:func:`_check_rows16`); f32 runs the CUDA-core loop."""
     what = "flash_bwd_dkv"
     D = _check_dense(what, q, k, v, do)
+    _check_rows16(what, q, k, v, do)
     _check_rows(what, q, lse, delta)
     B, S, H, _ = q.shape
     dk = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -401,9 +407,11 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  causal: bool = True) -> torch.Tensor:
     """K3: dQ of flash attention; arguments as :func:`flash_bwd_dkv`.
-    Returns ``dq``, contiguous ``[B, S, H, D]`` in the input dtype."""
+    Returns ``dq``, contiguous ``[B, S, H, D]`` in the input dtype; bf16
+    needs 16-byte aligned rows, as there."""
     what = "flash_bwd_dq"
     D = _check_dense(what, q, k, v, do)
+    _check_rows16(what, q, k, v, do)
     _check_rows(what, q, lse, delta)
     B, S, H, _ = q.shape
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)

@@ -155,13 +155,86 @@ def test_kernel_label_names_instances(mangled, label):
     assert chip_smoke.kernel_label(mangled) == label
 
 
-def test_check_tensor_cores_wants_hgmma_in_bf16_k1_and_k5():
-    good = {"flash_attention_fwd": {f"flash_fwd_kernel<bf16,{d}>": 8
-                                    for d in kernels.HEAD_DIMS},
-            "paged_attention": {f"paged_prefill_kernel<bf16,{d}>": 8
-                                for d in kernels.HEAD_DIMS}}
+def _hgmma_everywhere():
+    out = {}
+    for lib, kernel in chip_smoke.TENSOR_CORE_KERNELS:
+        out.setdefault(lib, {}).update(
+            {f"{kernel}<bf16,{d}>": 8 for d in kernels.HEAD_DIMS})
+    return out
+
+
+@pytest.mark.parametrize("lib,label", [
+    ("paged_attention", "paged_prefill_kernel<bf16,128>"),
+    ("flash_attention_fwd", "flash_fwd_kernel<bf16,64>"),
+    ("flash_attention_bwd", "flash_bwd_dkv_kernel<bf16,64>"),
+    ("flash_attention_bwd", "flash_bwd_dq_kernel<bf16,128>"),
+])
+def test_check_tensor_cores_wants_hgmma_in_bf16_k1_and_k5(lib, label):
+    """The bf16 K1, K5, K2 and K3 must each hold HGMMA at both head dims;
+    one instance without any fails the check, and names itself."""
+    good = _hgmma_everywhere()
+    assert {lib for lib, _ in chip_smoke.TENSOR_CORE_KERNELS} == {
+        "paged_attention", "flash_attention_fwd", "flash_attention_bwd"}
     chip_smoke.check_tensor_cores(good)
-    bad = {**good, "paged_attention": {**good["paged_attention"],
-                                       "paged_prefill_kernel<bf16,128>": 0}}
-    with pytest.raises(AssertionError, match="paged_prefill_kernel"):
+    bad = {**good, lib: {**good[lib], label: 0}}
+    with pytest.raises(AssertionError, match=label.split("<")[0]):
         chip_smoke.check_tensor_cores(bad)
+
+
+def test_ptxas_by_kernel_labels_each_instance():
+    log = (
+        "ptxas info    : Compiling entry function "
+        "'_ZN2pt20flash_bwd_dkv_kernelI13__nv_bfloat16Li128EEEvPKT_' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN2pt20flash_bwd_dkv\n"
+        "    24 bytes stack frame, 20 bytes spill stores, 20 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN2pt19flash_bwd_dq_kernelIfLi64EEEvPKT_' for 'sm_90a'\n"
+        "ptxas info    : Used 80 registers, used 1 barriers\n")
+    assert chip_smoke.ptxas_by_kernel(log) == {
+        "flash_bwd_dkv_kernel<bf16,128>":
+            "24 bytes stack frame, 20 bytes spill stores, 20 bytes spill "
+            "loads; Used 255 registers, used 1 barriers",
+        "flash_bwd_dq_kernel<f32,64>": "Used 80 registers, used 1 barriers"}
+
+
+def test_bf16_grad_parity_phase_on_tiny_cpu():
+    """Both paths take the plain versions on the CPU: the bf16 gradient
+    check reads no difference and no launch."""
+    res = chip_smoke.drive_grad_parity_bf16(gpt_tiny(), batch=2, seq=16,
+                                            device="cpu")
+    assert np.isfinite(res["loss"])
+    assert res["loss_rel_err"] == res["grad_rel_err"] == 0.0
+    assert res["launches"] == {n: 0 for n in kernels.KERNELS}
+
+
+def test_bwd_edges_cover_the_tensor_core_shapes():
+    cases = chip_smoke.bwd_edges(None, "flash_bwd_dkv")
+    labels = {c[0] for c in cases}
+    assert labels == {f"S{S}/{m}/D{d}" for S in (1000, 70)
+                      for m in ("causal", "full") for d in (64, 128)} | {
+        "S16/causal/D64", "S16/causal/D128"}
+    assert all(c[4] == chip_smoke.BF16 for c in cases)
+    assert sum(c[5] for c in cases) == 2
+
+
+def test_cached_build_still_reports_ptxas(tmp_path, monkeypatch):
+    """A library built by an earlier process reports the compiler's
+    register and spill lines as a fresh build does (the build line reads
+    them), from the report kept beside it."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        "while [ \"$1\" != \"-o\" ]; do shift; done\n"
+        "touch \"$2\"\n"
+        "echo \"ptxas info    : Used 42 registers, used 1 barriers\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    first = kernels.build(["flash_attention_bwd"])["flash_attention_bwd"]
+    again = kernels.build(["flash_attention_bwd"])["flash_attention_bwd"]
+    assert not first["cached"] and again["cached"]
+    assert "Used 42 registers" in first["ptxas"]
+    assert again["ptxas"] == first["ptxas"]

@@ -10,7 +10,9 @@ the plain version's), 3e-2 in bf16 (two bf16 ulps at |x| < 4; both sides
 accumulate in f32 and round once, and the bf16 K1/K5 also round p to bf16
 before P V on the tensor cores), 1e-3 on the f32 lse.  The backward
 kernels' gradients sum over up to S rows, so they are held relative to
-the plain version's largest value: 1e-4 in f32, 2e-2 in bf16.
+the plain version's largest value: 1e-4 in f32, 2e-2 in bf16 (the bf16
+K2/K3 run on tensor cores and round p and ds where the plain versions
+do).
 """
 import numpy as np
 import pytest
@@ -206,12 +208,15 @@ def _rel_err(got, want):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_backward_kernels_match_plain(cuda_device, dtype, rel, d, causal):
-    """K2 and K3 on strided views of a fused ``[B, S, H, 3*D]`` qkv at a
-    ragged S (70: a full 64-row tile and a part one), lse and delta from
-    the plain forward."""
+@pytest.mark.parametrize("B,S,H", [(2, 16, 3), (2, 70, 3), (2, 1000, 3),
+                                   (4, 1000, 32)])
+def test_backward_kernels_match_plain(cuda_device, dtype, rel, d, causal,
+                                      B, S, H):
+    """K2 and K3 on strided views of a fused ``[B, S, H, 3*D]`` qkv, lse
+    and delta from the plain forward: one part-filled tile (S 16), a full
+    tile and a part one (70), 16 tiles ragged (1000), and at B 4, H 32
+    2048 blocks, several waves of the card."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    B, S, H = 2, 70, 3
     q, k, v = torch.randn((B, S, H, 3 * d), generator=g,
                           device=cuda_device).to(dtype).split(d, dim=-1)
     do = torch.randn((B, S, H, d), generator=g, device=cuda_device).to(dtype)
@@ -258,6 +263,27 @@ def test_backward_wrappers_raise_on_bad_rows(cuda_device):
         kernels.flash_bwd_dq(x, x, x, x, good.t().contiguous(), good)
     with pytest.raises(ValueError, match="lse/delta"):
         kernels.flash_bwd_dkv(x, x, x, x, good, good.double())
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_refuse_misaligned_bf16_rows(cuda_device):
+    """The bf16 K2/K3 copy 16-byte rows: a row stride of 65 elements, or a
+    base 2 bytes off, is refused before any launch."""
+    rows = torch.zeros(2, 8, device=cuda_device)
+    odd = torch.zeros(1, 8, 2, 65, dtype=torch.bfloat16,
+                      device=cuda_device)[..., :64]
+    flat = torch.zeros(1 + 8 * 2 * 64, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:].view(1, 8, 2, 64)
+    good = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16, device=cuda_device)
+    kernels.reset_launches()
+    for bad in (odd, shifted):
+        with pytest.raises(ValueError, match="16-byte"):
+            kernels.flash_bwd_dkv(good, bad, good, good, rows, rows)
+        with pytest.raises(ValueError, match="16-byte"):
+            kernels.flash_bwd_dq(good, good, good, bad, rows, rows)
+    assert kernels.KERNELS["flash_bwd_dkv"].launches == 0
+    assert kernels.KERNELS["flash_bwd_dq"].launches == 0
 
 
 @pytest.mark.cuda

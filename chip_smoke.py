@@ -15,7 +15,13 @@ Phases, each printing one JSON line with the card's name and power limit:
               plain version and one library call computing the same thing;
               hold the bf16 tensor-core K1, K5, K2 and K3 at their edge
               shapes (ragged S, S 16, full and causal, D 64 and 128, starts
-              that are not multiples of 64), and require wgmma in all four.
+              that are not multiples of 64), and require wgmma in all four;
+              hold the split-K K4 at its edges (windows about one split
+              long, a length past the table, query groups 1-8, block size
+              32, shared table rows), time it at one long slot, at 32 slots
+              and on a table whose blocks walk several splits (these three
+              also in f32), and require two calls on the same inputs to
+              agree bitwise.
 3. serve_paged — Llama-2 7B at full width (random weights from a seed),
               bf16, paged KV: 12 requests sharing a 512-token system
               prompt; the K4/K5 launch counts of this run are read.
@@ -125,16 +131,18 @@ def _cuobjdump() -> str:
 
 def kernel_label(mangled: str) -> str:
     """``_ZN2pt16flash_fwd_kernelI13__nv_bfloat16Li64EE...`` ->
-    ``flash_fwd_kernel<bf16,64>``; other names are returned as they are."""
+    ``flash_fwd_kernel<bf16,64>`` (and ``...Li128ELi4EE...`` ->
+    ``<bf16,128,4>``); other names are returned as they are."""
     m = re.search(r"_ZN2pt(\d+)", mangled)
     if m is None:
         return mangled
     name = mangled[m.end():m.end() + int(m.group(1))]
-    t = re.match(r"I(13__nv_bfloat16|f)Li(\d+)E", mangled[m.end()
-                                                         + len(name):])
+    t = re.match(r"I(13__nv_bfloat16|f)((?:Li\d+E)+)", mangled[m.end()
+                                                              + len(name):])
     if t is None:
         return name
-    return f"{name}<{'f32' if t.group(1) == 'f' else 'bf16'},{t.group(2)}>"
+    ints = ",".join(re.findall(r"Li(\d+)E", t.group(2)))
+    return f"{name}<{'f32' if t.group(1) == 'f' else 'bf16'},{ints}>"
 
 
 def hgmma_counts(lib_path: str) -> dict:
@@ -216,7 +224,13 @@ def _pool(rs_gen, n_blocks, bs, hkv, d, dtype, layers=2):
     return k[:, 1], v[:, 1]
 
 
-def check_decode(gen, H, Hkv, dtype, lengths, D=128, bs=16, max_seq=4096):
+def check_decode(gen, H, Hkv, dtype, lengths, D=128, bs=16, max_seq=4096,
+                 shared_blocks=0):
+    """K4 against ``gather_block_kv`` + ``cached_attention`` on a strided
+    one-layer view of a two-layer pool, the slots' blocks shuffled.
+    ``shared_blocks``: every table row starts with row 0's first blocks
+    (a prefix-cache hit).  Two calls on the same inputs must agree bitwise
+    (``res["bitwise"]``)."""
     from paddle_tpu_torch.ops import cached_attention as ca
     from paddle_tpu_torch.ops import kernels
 
@@ -225,6 +239,8 @@ def check_decode(gen, H, Hkv, dtype, lengths, D=128, bs=16, max_seq=4096):
     kp, vp = _pool(gen, B * MB + 1, bs, Hkv, D, dtype)
     perm = torch.randperm(B * MB, generator=gen, device="cuda") + 1
     tables = perm.reshape(B, MB).to(torch.int32)
+    if shared_blocks:
+        tables[:, :shared_blocks] = tables[0, :shared_blocks].clone()
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(dtype)
 
@@ -247,12 +263,21 @@ def check_decode(gen, H, Hkv, dtype, lengths, D=128, bs=16, max_seq=4096):
             q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
             attn_mask=valid, enable_gqa=H != Hkv).transpose(1, 2)
 
-    err = (kern().float() - plain().float()).abs().max().item()
+    got = kern()
+    err = (got.float() - plain().float()).abs().max().item()
+    bitwise = torch.equal(got, kern())
+    # the bound reads each live K/V row once: a row shared by several
+    # slots' tables counts once
+    rows = set()
+    for row, n in zip(tables.tolist(), lengths):
+        rows.update((row[p // bs], p % bs) for p in range(min(n + 1,
+                                                              MB * bs)))
+    keys = sum(min(n + 1, MB * bs) for n in lengths)
     isz = torch.finfo(dtype).bits // 8
-    keys = sum(n + 1 for n in lengths)
-    nbytes = keys * Hkv * D * 2 * isz + 2 * B * H * D * isz \
+    nbytes = len(rows) * Hkv * D * 2 * isz + 2 * B * H * D * isz \
         + tables.numel() * 4 + B * 4
-    return {"err": err, "kern": kern, "plain": plain, "library": library,
+    return {"err": err, "bitwise": bitwise, "kern": kern, "plain": plain,
+            "library": library,
             "bound": bound(nbytes, 4 * H * D * keys, dtype)}
 
 
@@ -415,6 +440,60 @@ def flash_edges(gen):
     return out
 
 
+def decode_edges(gen):
+    """K4's edge cases, in bf16 and (the first seven) f32: an empty window,
+    windows about one split long, a length past the table, one long slot,
+    32 slots of 1024, a 32768-position table whose grid is capped so that
+    a block walks several splits (these three timed, and held in f32 too
+    so that the split walk and the merge are checked to 1e-4), query
+    groups of 1, 4 and 8 at D 64 and 128 (timed at 128: the same bytes,
+    more rows), of 2 and of 3 (a bucket of 4 with a row unused), block
+    size 32, and tables whose rows share their first 32
+    blocks (a prefix-cache hit)."""
+    from paddle_tpu_torch.ops.kernels import DECODE_SPLIT_KEYS as P
+
+    lib = "index_select + scaled_dot_product_attention with a mask (2 calls)"
+
+    def case(label, lengths, shape, dtypes=BF16, timed=False, H=32, Hkv=32,
+             **kw):
+        return (label, lambda dt: check_decode(gen, H, Hkv, dt, lengths,
+                                               **kw),
+                shape, lib, dtypes, timed)
+
+    out = [case("len0", [0], "B=1 length 0 H=Hkv=32 D=128 bs=16", BOTH),
+           case("lenP-1,P,P+1", [P - 1, P, P + 1],
+                f"B=3 lengths {P - 1},{P},{P + 1} H=Hkv=32 D=128 bs=16",
+                BOTH),
+           case("past_table", [1024 + 37, 500],
+                "B=2 lengths 1061 (past the 1024-position table),500 "
+                "H=Hkv=32 D=128 bs=16 max_seq=1024", BOTH, max_seq=1024),
+           case("B1/len4095", [4095], "B=1 length 4095 H=Hkv=32 D=128 "
+                "bs=16 max_seq=4096", BOTH, timed=True),
+           case("B32/len1023", [1023] * 32, "B=32 lengths 1023 H=Hkv=32 "
+                "D=128 bs=16 max_seq=2048", BOTH, timed=True, max_seq=2048),
+           case("long_table", [30000, 700], "B=2 lengths 30000,700 H=Hkv=32 "
+                "D=128 bs=16 max_seq=32768 (blocks walk several splits)",
+                BOTH, timed=True, max_seq=32768),
+           case("G2/D128", [0, 300, 777, 1500], "B=4 lengths 0,300,777,1500 "
+                "H=8 Hkv=4 D=128 bs=16 max_seq=2048", BOTH, H=8, Hkv=4,
+                max_seq=2048),
+           case("G3/D128", [0, 300, 777, 1500], "B=4 lengths 0,300,777,1500 "
+                "H=12 Hkv=4 D=128 bs=16 max_seq=2048", H=12, Hkv=4,
+                max_seq=2048)]
+    for G in (1, 4, 8):
+        for D in (64, 128):
+            out.append(case(f"G{G}/D{D}", [0, 300, 777, 1500],
+                            f"B=4 lengths 0,300,777,1500 H={4 * G} Hkv=4 "
+                            f"D={D} bs=16 max_seq=2048", timed=D == 128,
+                            H=4 * G, Hkv=4, D=D, max_seq=2048))
+    out += [case("bs32", [100, 1000, 2047], "B=3 lengths 100,1000,2047 "
+                 "H=Hkv=32 D=128 bs=32", bs=32),
+            case("shared_prefix", [600, 900, 511, 1500],
+                 "B=4 lengths 600,900,511,1500 H=Hkv=32 D=128 bs=16, rows "
+                 "sharing their first 32 blocks", shared_blocks=32)]
+    return out
+
+
 def bwd_edges(gen, which: str):
     """K2's or K3's bf16 edge cases, as :func:`flash_edges`; the S 1000
     causal D 128 and S 1000 full D 64 cases are timed."""
@@ -473,7 +552,8 @@ def phase_kernels(hgmma: dict) -> dict:
             ("H64/Hkv8", lambda dt: check_decode(gen, 64, 8, dt,
                                                  DECODE_LENGTHS),
              "B=8 lengths<=2047 H=64 Hkv=8 D=128 bs=16",
-             gather_sdpa, BOTH, True)],
+             gather_sdpa, BOTH, True),
+            *decode_edges(gen)],
         "paged_prefill": [
             ("H32/Hkv32", lambda dt: check_prefill(gen, 32, 32, dt, 512,
                                                    512),
@@ -516,6 +596,9 @@ def phase_kernels(hgmma: dict) -> dict:
                 if res["err"] > tol or not np.isfinite(res["err"]):
                     raise AssertionError(
                         f"{name} {key}: max abs err {res['err']} > {tol}")
+                if not res.get("bitwise", True):
+                    raise AssertionError(f"{name} {key}: two calls on the "
+                                         f"same inputs differ")
                 if "lse_err" in res:
                     lse_errors[key] = res["lse_err"]
                     if not res["lse_err"] <= LSE_TOLERANCE:

@@ -24,13 +24,14 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["KERNELS", "build", "reset_launches", "paged_decode",
            "paged_prefill", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
-           "HEAD_DIMS", "MAX_GROUP"]
+           "decode_plan", "DecodePlan", "HEAD_DIMS", "MAX_GROUP",
+           "DECODE_SPLIT_KEYS", "DECODE_GRID_BLOCKS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -43,16 +44,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 HEAD_DIMS = (64, 128)
 #: query heads per kv head one decode block holds (kMaxGroup in the source)
 MAX_GROUP = 8
+#: positions of a slot's window in one K4 split, for a query group of one
+#: (half that for larger groups, whose blocks are bound by latency more
+#: than bytes); the source takes at most kMaxSplitKeys, also 512
+DECODE_SPLIT_KEYS = 512
+#: K4's grid holds about this many blocks at most (slots x kv heads x
+#: grid_splits); past it each block walks several splits
+DECODE_GRID_BLOCKS = 2048
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
+_LOG2E = 1.4426950408889634
 
 # library -> (source, {C function: argtypes})
 _LIBRARIES = {
     "paged_attention": ("paged_attention.cu", {
-        "pt_paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+        "pt_paged_decode": [_I, _I] + [_P] * 9 + [_I] * 8 + [_L] * 8
+                           + [_F, _P],
         "pt_paged_prefill": [_I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                              _I, _L, _L, _L, _L, _L, _L, _L, _F, _P],
         "pt_paged_error_string": [_I],
@@ -232,20 +241,22 @@ def _check_pool(what: str, q, k_pool, v_pool, D: int):
     return H, Hkv
 
 
-def _check_rows16(what: str, *tensors: torch.Tensor) -> None:
-    """The bf16 tensor-core kernels (K1, K5, K2, K3) copy rows in 16-byte
-    pieces: every row of each operand must start 16-byte aligned."""
+def _check_rows16(what: str, *tensors: torch.Tensor,
+                  dtypes=(torch.bfloat16,)) -> None:
+    """The bf16 tensor-core kernels (K1, K5, K2, K3), and K4 in both
+    dtypes, copy rows in 16-byte pieces: every row of each operand of a
+    dtype in ``dtypes`` must start 16-byte aligned."""
     for t in tensors:
-        if t.dtype != torch.bfloat16:
+        if t.dtype not in dtypes:
             continue
         isz = t.element_size()
         strides = [s * isz for s, n in zip(t.stride()[:-1], t.shape[:-1])
                    if n > 1]
         _require(t.data_ptr() % 16 == 0 and all(s % 16 == 0
                                                 for s in strides), what,
-                 f"bf16 rows must start 16-byte aligned for the kernel's "
-                 f"16-byte copies, got address {t.data_ptr()} and strides "
-                 f"{tuple(t.stride())} (elements)")
+                 f"{t.dtype} rows must start 16-byte aligned for the "
+                 f"kernel's 16-byte copies, got address {t.data_ptr()} and "
+                 f"strides {tuple(t.stride())} (elements)")
 
 
 def _check_index(what: str, t: torch.Tensor, dim: int, name: str) -> None:
@@ -258,6 +269,54 @@ def _check_index(what: str, t: torch.Tensor, dim: int, name: str) -> None:
 
 # -- wrappers --------------------------------------------------------------
 
+@dataclass(frozen=True)
+class DecodePlan:
+    """K4's launch, from the shapes alone (never from the lengths' values,
+    so the wrapper does not sync with the host): a slot's window of
+    ``max_blocks * block_size`` positions is cut into ``splits`` runs of
+    ``split_keys``; the grid is ``(grid_splits, kv heads, slots)``, block
+    ``x`` walking splits ``x, x + grid_splits, ...`` of its (slot, kv
+    head)'s live window.  When a window spans several splits each writes its partial
+    softmax state to f32 scratch (``partial_shape``: the unnormalised acc,
+    ``ml_shape``: m and l), and one int32 ticket per (slot, kv head) finds
+    the block that merges them."""
+
+    split_keys: int
+    splits: int
+    grid_splits: int
+    partial_shape: Tuple[int, int, int, int]
+    ml_shape: Tuple[int, int, int, int]
+    tickets: int
+
+
+def decode_plan(batch: int, heads: int, kv_heads: int, head_dim: int,
+                max_blocks: int, block_size: int) -> DecodePlan:
+    """K4's plan: splits of :data:`DECODE_SPLIT_KEYS` positions (half that
+    for groups past one), and the grid capped near
+    :data:`DECODE_GRID_BLOCKS` blocks."""
+    split_keys = (DECODE_SPLIT_KEYS if heads == kv_heads
+                  else DECODE_SPLIT_KEYS // 2)
+    splits = max(1, -(-max_blocks * block_size // split_keys))
+    grid_splits = min(splits, -(-DECODE_GRID_BLOCKS // (batch * kv_heads)))
+    return DecodePlan(split_keys, splits, grid_splits,
+                      (batch, heads, splits, head_dim),
+                      (batch, heads, splits, 2), batch * kv_heads)
+
+
+# (device, stream) -> K4's int32 tickets: 0 before and after every launch
+# (the merging block resets its own), so they are zeroed once per stream
+# and again only when a launch needs more
+_decode_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    t = _decode_tickets.get((device, stream))
+    if t is None or t.numel() < n:
+        t = torch.zeros(n, dtype=torch.int32, device=device)
+        _decode_tickets[(device, stream)] = t
+    return t
+
+
 def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  block_tables: torch.Tensor,
                  lengths: torch.Tensor) -> torch.Tensor:
@@ -266,7 +325,10 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     ``q`` ``[B, 1, H, D]``; pools ``[num_blocks, block_size, Hkv, D]``
     (a strided one-layer view of the multi-layer pool is taken as is);
     ``block_tables`` ``[B, max_blocks]`` int32; ``lengths`` ``[B]`` int32,
-    the window being ``0..lengths[b]``.  Returns ``[B, 1, H, D]``."""
+    the window being ``0..lengths[b]``.  Returns ``[B, 1, H, D]``.  The
+    kernel copies rows in 16-byte pieces, so q's and the pools' rows must
+    start 16-byte aligned (:func:`_check_rows16`).  The split-K launch
+    comes from :func:`decode_plan`.  One device launch."""
     what = "paged_decode"
     D = _check_common(what, q, k_pool, v_pool, block_tables, lengths)
     _require(q.dim() == 4 and q.shape[1] == 1, what,
@@ -279,15 +341,27 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     _check_index(what, lengths, 1, "lengths")
     _require(block_tables.shape[0] == B and lengths.shape[0] == B, what,
              "block_tables/lengths batch != q batch")
+    _check_rows16(what, q, k_pool, v_pool, dtypes=tuple(_DTYPE_CODE))
+    bs, MB = k_pool.shape[1], block_tables.shape[1]
+    plan = decode_plan(B, H, Hkv, D, MB, bs)
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    stream = _stream(q)
+    part = ml = tickets = None
+    if plan.splits > 1:
+        part = torch.empty(plan.partial_shape, dtype=torch.float32,
+                           device=q.device)
+        ml = torch.empty(plan.ml_shape, dtype=torch.float32, device=q.device)
+        tickets = _tickets(q.device, stream, plan.tickets)
     lib = _library("paged_attention")
     rc = lib.pt_paged_decode(
         _DTYPE_CODE[q.dtype], D, q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, Hkv, k_pool.shape[1], block_tables.shape[1],
+        out.data_ptr(), *(None if t is None else t.data_ptr()
+                          for t in (part, ml, tickets)),
+        B, H, Hkv, bs, MB, plan.split_keys, plan.splits, plan.grid_splits,
         q.stride(0), q.stride(2), out.stride(0), out.stride(2),
         block_tables.stride(0), k_pool.stride(0), k_pool.stride(1),
-        k_pool.stride(2), 1.0 / D ** 0.5, _stream(q))
+        k_pool.stride(2), _LOG2E / D ** 0.5, stream)
     _raise_on(rc, lib, "pt_paged_error_string", what)
     KERNELS["paged_decode"].launches += 1
     return out

@@ -149,6 +149,8 @@ def test_script_alone_fails(tmp_path):
      "flash_fwd_kernel<bf16,64>"),
     ("_ZN2pt20paged_prefill_kernelIfLi128EEEvPKT_S3_S3_PKiiPS1_",
      "paged_prefill_kernel<f32,128>"),
+    ("_ZN2pt19paged_decode_kernelI13__nv_bfloat16Li128ELi4EEEvPKT_S4_",
+     "paged_decode_kernel<bf16,128,4>"),
     ("some_other_symbol", "some_other_symbol"),
 ])
 def test_kernel_label_names_instances(mangled, label):
@@ -238,3 +240,21 @@ def test_cached_build_still_reports_ptxas(tmp_path, monkeypatch):
     assert not first["cached"] and again["cached"]
     assert "Used 42 registers" in first["ptxas"]
     assert again["ptxas"] == first["ptxas"]
+
+
+def test_decode_edges_cover_the_split_k_shapes():
+    """K4's edge cases: the first seven (the multi-split ones among them)
+    in f32 and bf16, the rest in bf16; one long slot, 32 slots, the long
+    table and the groups of 1, 4 and 8 at D 128 are timed."""
+    cases = chip_smoke.decode_edges(None)
+    labels = [c[0] for c in cases]
+    assert labels[:7] == ["len0", "lenP-1,P,P+1", "past_table",
+                          "B1/len4095", "B32/len1023", "long_table",
+                          "G2/D128"]
+    assert set(labels[7:]) == {"G3/D128", "bs32", "shared_prefix"} | {
+        f"G{g}/D{d}" for g in (1, 4, 8) for d in (64, 128)}
+    assert all(c[4] == chip_smoke.BOTH for c in cases[:7])
+    assert all(c[4] == chip_smoke.BF16 for c in cases[7:])
+    assert {c[0] for c in cases if c[5]} == {
+        "B1/len4095", "B32/len1023", "long_table", "G1/D128", "G4/D128",
+        "G8/D128"}

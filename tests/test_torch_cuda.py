@@ -6,9 +6,10 @@ without JAX:
     python -m pytest --noconftest tests/test_torch_cuda.py
 
 Tolerances: 1e-4 absolute in f32 (CUDA-core sums in another order than
-the plain version's), 3e-2 in bf16 (two bf16 ulps at |x| < 4; both sides
-accumulate in f32 and round once, and the bf16 K1/K5 also round p to bf16
-before P V on the tensor cores), 1e-3 on the f32 lse.  The backward
+the plain version's; K4 also merges its splits in log2 units), 3e-2 in
+bf16 (two bf16 ulps at |x| < 4; both sides accumulate in f32 and round
+once, and the bf16 K1/K5 also round p to bf16 before P V on the tensor
+cores), 1e-3 on the f32 lse.  The backward
 kernels' gradients sum over up to S rows, so they are held relative to
 the plain version's largest value: 1e-4 in f32, 2e-2 in bf16 (the bf16
 K2/K3 run on tensor cores and round p and ds where the plain versions
@@ -96,6 +97,121 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         kernels.paged_prefill(shifted, pool.bfloat16(), pool.bfloat16(),
                               tbl[0], 0)
+
+
+def _decode_inputs(device, dtype, lengths, h=32, hkv=32, d=128, bs=16,
+                   max_seq=2048, shared_blocks=0):
+    """Seeded K4 inputs on a strided one-layer view of a two-layer pool,
+    the slots' blocks shuffled; ``shared_blocks``: every table row starts
+    with row 0's first blocks (a prefix-cache hit)."""
+    g = torch.Generator(device=device).manual_seed(6)
+    B, MB = len(lengths), max_seq // bs
+
+    def pool():
+        return torch.randn((B * MB + 1, 2, bs, hkv, d), generator=g,
+                           device=device).to(dtype)[:, 1]
+
+    kp, vp = pool(), pool()
+    tbl = (torch.randperm(B * MB, generator=g, device=device) + 1
+           ).reshape(B, MB).to(torch.int32)
+    if shared_blocks:
+        tbl[:, :shared_blocks] = tbl[0, :shared_blocks].clone()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    q = torch.randn((B, 1, h, d), generator=g, device=device).to(dtype)
+    return q, kp, vp, tbl, lens
+
+
+#: K4's edge cases: an empty window, windows about one split long, a
+#: length past the table, one long slot, a 32768-position table (its grid
+#: is capped, so a block walks several splits), query groups of 1, 2, 4
+#: and 8 at D 64 and 128 and of 3 (a bucket of 4 with a row unused),
+#: block size 32, and rows sharing their first 32 blocks
+_P = kernels.DECODE_SPLIT_KEYS
+DECODE_EDGES = {
+    "len0": dict(lengths=[0]),
+    "split_edges": dict(lengths=[_P - 1, _P, _P + 1]),
+    "past_table": dict(lengths=[1024 + 37, 500], max_seq=1024),
+    "B1_len4095": dict(lengths=[4095], max_seq=4096),
+    "long_table": dict(lengths=[30000, 700], max_seq=32768),
+    **{f"G{G}_D{d}": dict(lengths=[0, 300, 777, 1500], h=4 * G, hkv=4, d=d)
+       for G in (1, 2, 4, 8) for d in (64, 128)},
+    "G3_D128": dict(lengths=[0, 300, 777, 1500], h=12, hkv=4),
+    "bs32": dict(lengths=[100, 1000, 2047], bs=32),
+    "shared_prefix": dict(lengths=[600, 900, 511, 1500], shared_blocks=32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", sorted(DECODE_EDGES))
+def test_paged_decode_edges_match_plain(cuda_device, dtype, tol, case):
+    """The split-K K4 against ``gather_block_kv`` + ``cached_attention``,
+    and two calls on the same inputs agree bitwise (the splits are merged
+    in split order, with no float atomics)."""
+    args = _decode_inputs(cuda_device, dtype, **DECODE_EDGES[case])
+    q, kp, vp, tbl, lens = args
+    got = kernels.paged_decode(*args)
+    want = ca.cached_attention(q, ca.gather_block_kv(kp, tbl),
+                               ca.gather_block_kv(vp, tbl), lens)
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, kernels.paged_decode(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_never_reads_dead_positions(cuda_device, dtype):
+    """Rows past each slot's length, in its last block and in the blocks
+    after it, are overwritten with NaN: the result does not change, at
+    one split and at several (lengths past 2 * split_keys)."""
+    args = _decode_inputs(cuda_device, dtype, [4, 600, 2 * _P + 30], h=8,
+                          hkv=2)
+    q, kp, vp, tbl, lens = args
+    want = kernels.paged_decode(*args)
+    live = torch.zeros(kp.shape[:2], dtype=torch.bool, device=cuda_device)
+    bs = kp.shape[1]
+    for b, n in enumerate(lens.tolist()):
+        pos = torch.arange(n + 1, device=cuda_device)
+        live[tbl[b].long()[pos // bs], pos % bs] = True
+    kp[~live] = float("nan")
+    vp[~live] = float("nan")
+    got = kernels.paged_decode(*args)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_paged_decode_issues_no_host_sync(cuda_device):
+    """K4's grid and scratch come from the shapes alone: the wrapper never
+    reads the lengths back, so it runs under ``set_sync_debug_mode
+    ("error")``, including a call that grows the merge tickets."""
+    small = _decode_inputs(cuda_device, torch.bfloat16, [5, 700])
+    large = _decode_inputs(cuda_device, torch.bfloat16, [5, 700, 1500, 30])
+    kernels.paged_decode(*small)            # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [kernels.paged_decode(*args) for args in (small, large,
+                                                         small)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(o.float()).all() for o in outs)
+    assert torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+def test_paged_decode_refuses_misaligned_rows(cuda_device):
+    """K4 copies 16-byte rows in both dtypes: an f32 row stride of 66
+    elements (264 bytes) is refused before any launch."""
+    q = torch.zeros(1, 1, 2, 64, device=cuda_device)
+    pool = torch.zeros(3, 4, 2, 66, device=cuda_device)[..., :64]
+    tbl = torch.ones(1, 2, dtype=torch.int32, device=cuda_device)
+    lens = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.paged_decode(q, pool, pool, tbl, lens)
+    assert kernels.KERNELS["paged_decode"].launches == 0
 
 
 @pytest.mark.cuda

@@ -21,22 +21,35 @@ Phases, each printing one JSON line with the card's name and power limit:
               32, shared table rows), time it at one long slot, at 32 slots
               and on a table whose blocks walk several splits (these three
               also in f32), and require two calls on the same inputs to
-              agree bitwise.
+              agree bitwise; hold and time K4 and K5 at ``serve_gpt``'s
+              shapes too (16 heads of 64, a 1024-position table).
 3. serve_paged — Llama-2 7B at full width (random weights from a seed),
               bf16, paged KV: 12 requests sharing a 512-token system
               prompt; the K4/K5 launch counts of this run are read.
+              Every engine step is a CUDA graph (``serving.programs``):
+              warmup captures one per prefill bucket and one decode, and
+              each serve phase prints ``compile_cache`` and fails if a
+              program is built after warmup.
 4. serve_contiguous — a few requests through the same model with the
               contiguous layout, whose prefill runs K1.
-5. parity   — full width in f32 at 2 layers: paged prefill + 4 decode
-              steps on the kernel path against ``kernel="reference"``.
-6. train    — GPT-2 345M at full width (24 layers, random weights from a
+5. serve_gpt — GPT-2 345M at full width (random weights from a seed),
+              bf16, paged KV: 12 requests sharing a 256-token system
+              prompt; K4 and K5 run at head dim 64.
+6. parity   — Llama-2 7B and GPT-2 345M widths in f32 at 2 layers: paged
+              prefill + 4 decode steps on the kernel path against
+              ``kernel="reference"``.
+7. graph_parity — the same two widths in f32 at 2 layers, paged and
+              contiguous: seeded requests (greedy and sampling) served
+              through the engine's programs and through its step bodies
+              called eagerly give identical token streams.
+8. train    — GPT-2 345M at full width (24 layers, random weights from a
               seed), batch 8 x 1024, bf16 AMP O2 with f32 masters, AdamW:
               3 warm-up and 10 timed steps on one batch; the K1/K2/K3
               launch counts of these 13 steps are read.
-7. train_parity — GPT-2 345M width at 2 layers in f32: loss, every
+9. train_parity — GPT-2 345M width at 2 layers in f32: loss, every
               gradient and the parameters after one AdamW step on the
               kernel path against ``kernel="reference"``.
-8. train_parity_bf16 — the same model in bf16: loss and every gradient
+10. train_parity_bf16 — the same model in bf16: loss and every gradient
               on the kernel path (the bf16 K1, K2 and K3 on tensor cores)
               against ``kernel="reference"``.
 
@@ -291,13 +304,15 @@ def check_prefill(gen, H, Hkv, dtype, start, S, D=128, bs=16, max_seq=4096):
            + 1).to(torch.int32)
     q = torch.randn((1, S, H, D), generator=gen, device="cuda").to(dtype)
 
+    start_t = torch.tensor([start], dtype=torch.int32, device="cuda")
+
     def kern():
-        return kernels.paged_prefill(q, kp, vp, row, start)
+        return kernels.paged_prefill(q, kp, vp, row, start_t)
 
     def plain():
         return ca.block_prefill_attention(
             q, ca.gather_block_kv(kp, row[None]),
-            ca.gather_block_kv(vp, row[None]), start)
+            ca.gather_block_kv(vp, row[None]), start_t)
 
     T = MB * bs
     valid = (torch.arange(T, device="cuda")[None, :]
@@ -415,6 +430,9 @@ def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64, causal=True):
 
 
 DECODE_LENGTHS = [2047, 1800, 1536, 1200, 1024, 700, 333, 0]
+#: serve_gpt's 8 slots 32 tokens into their decode: the 256-token system
+#: prompt plus tails of 32, 600, 150, 77, 400, 256, 500 and 64
+GPT_DECODE_LENGTHS = [320, 888, 438, 365, 688, 544, 788, 352]
 #: the GPT-2 345M train step's attention shape: batch, seq, heads, head dim
 TRAIN_ATTN = (8, 1024, 16, 64)
 
@@ -535,10 +553,13 @@ def phase_kernels(hgmma: dict) -> dict:
     def bwd(which):
         return lambda dt: check_flash_bwd(gen, which, B, S, H, dt, D)
 
-    def prefill(H, Hkv, start, S_, dtypes=BF16, timed=False):
-        return (f"S{S_}/start{start}/H{H}/Hkv{Hkv}",
-                lambda dt: check_prefill(gen, H, Hkv, dt, start, S_),
-                f"S={S_} start={start} H={H} Hkv={Hkv} D=128 bs=16",
+    def prefill(H, Hkv, start, S_, dtypes=BF16, timed=False, D_=128,
+                max_seq=4096, label=""):
+        return (label or f"S{S_}/start{start}/H{H}/Hkv{Hkv}",
+                lambda dt: check_prefill(gen, H, Hkv, dt, start, S_, D=D_,
+                                         max_seq=max_seq),
+                f"S={S_} start={start} H={H} Hkv={Hkv} D={D_} bs=16"
+                + (f" max_seq={max_seq}" if max_seq != 4096 else ""),
                 gather_sdpa, dtypes, timed)
 
     # kernel -> [(label, make(dtype), shape, library call, dtypes, timed)],
@@ -553,6 +574,13 @@ def phase_kernels(hgmma: dict) -> dict:
                                                  DECODE_LENGTHS),
              "B=8 lengths<=2047 H=64 Hkv=8 D=128 bs=16",
              gather_sdpa, BOTH, True),
+            # serve_gpt's decode: GPT-2 345M's heads, its 8 slots halfway
+            # through their 64 new tokens
+            ("gpt345m", lambda dt: check_decode(gen, 16, 16, dt,
+                                                GPT_DECODE_LENGTHS, D=64,
+                                                max_seq=1024),
+             "B=8 lengths<=888 H=Hkv=16 D=64 bs=16 max_seq=1024",
+             gather_sdpa, BOTH, True),
             *decode_edges(gen)],
         "paged_prefill": [
             ("H32/Hkv32", lambda dt: check_prefill(gen, 32, 32, dt, 512,
@@ -565,6 +593,13 @@ def phase_kernels(hgmma: dict) -> dict:
              gather_sdpa, BOTH, True),
             # the 1000-token admission's bucket after a 512-token prefix
             prefill(32, 32, 512, 1024, timed=True),
+            # serve_gpt's admissions (GPT-2 345M's heads, a 1024-position
+            # table): a bucket-512 tail after its 256-token system prompt,
+            # and the bucket-1024 tail, which the table holds only from 0
+            prefill(16, 16, 256, 512, BOTH, True, D_=64, max_seq=1024,
+                    label="gpt345m/S512/start256"),
+            prefill(16, 16, 0, 1024, BOTH, True, D_=64, max_seq=1024,
+                    label="gpt345m/S1024/start0"),
             prefill(32, 32, 0, 16),
             prefill(64, 8, 0, 16),
             prefill(32, 32, 1008, 32),
@@ -632,7 +667,7 @@ def phase_kernels(hgmma: dict) -> dict:
     return out
 
 
-# -- phases 3 and 4: serving ----------------------------------------------
+# -- phases 3, 4 and 5: serving ---------------------------------------------
 
 def make_requests(vocab: int, n: int, prefix_len: int, tail_lens, seed: int):
     """``n`` prompts sharing one ``prefix_len``-token system prompt, tails
@@ -659,7 +694,10 @@ def serve(engine, requests, max_new_tokens: int) -> dict:
     launch counts of this run alone."""
     from paddle_tpu_torch.ops import kernels
 
-    engine.warmup()
+    warm = engine.warmup()
+    if warm["compile_misses"] != len(engine.buckets) + 1:
+        raise AssertionError(f"warmup built {warm['compile_misses']} "
+                             f"programs, want {len(engine.buckets) + 1}")
     cuda = engine.device.type == "cuda"
     if cuda:
         torch.cuda.synchronize()
@@ -672,7 +710,7 @@ def serve(engine, requests, max_new_tokens: int) -> dict:
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in kernels.KERNELS.items()}
+    launches = kernels.launch_counts()
     vocab = engine.config.vocab_size
     for r in reqs:
         if r.state != "finished" or len(r.output_ids) != max_new_tokens:
@@ -683,6 +721,9 @@ def serve(engine, requests, max_new_tokens: int) -> dict:
             raise AssertionError(f"request {r.request_id}: token out of "
                                  f"range")
     st = engine.stats()
+    if st["compile_cache"]["after_warmup"] != 0:
+        raise AssertionError(f"step programs built after warmup: "
+                             f"{st['compile_cache']}")
     res = {"requests": len(reqs), "wall_s": round(wall, 3),
            "ttft_ms": {k: st["ttft_ms"][k] for k in ("p50", "p99")},
            "inter_token_ms": {k: st["inter_token_ms"][k]
@@ -691,6 +732,7 @@ def serve(engine, requests, max_new_tokens: int) -> dict:
            "decode_steps": st["decode_steps"],
            "slot_occupancy": st["slot_occupancy"],
            "prefills_by_bucket": st["prefills_by_bucket"],
+           "compile_cache": st["compile_cache"],
            "launches": launches,
            "outputs": [r.output_ids for r in reqs]}
     if engine.kv_layout == "paged":
@@ -702,8 +744,12 @@ def serve(engine, requests, max_new_tokens: int) -> dict:
             raise AssertionError(f"paged serve: allocator invariants "
                                  f"{res['kv_block_invariants']}")
     if cuda:
+        # the graphs' pool is reserved at warmup, not allocated: the peak
+        # of allocated memory does not show it, the reserved peak does
         res["peak_memory_gb"] = round(torch.cuda.max_memory_allocated()
                                       / 2 ** 30, 3)
+        res["peak_reserved_gb"] = round(torch.cuda.max_memory_reserved()
+                                        / 2 ** 30, 3)
     return res
 
 
@@ -745,7 +791,33 @@ def phase_serve_contiguous(model):
     return res
 
 
-# -- phase 5: model parity, kernel path against the reference path --------
+def phase_serve_gpt():
+    """GPT-2 345M at full width through the paged engine: K4 and K5 at
+    head dim 64, with the prefix cache."""
+    from paddle_tpu_torch import create_engine
+
+    t0 = time.perf_counter()
+    eng = create_engine("gpt:gpt2-345m", device="cuda", dtype=torch.bfloat16,
+                        kv_layout="paged", block_size=16, min_bucket=16,
+                        num_slots=8, max_seq=1024, seed=0)
+    build_s = time.perf_counter() - t0
+    if eng.config.head_dim != 64:
+        raise AssertionError(f"serve_gpt: head dim {eng.config.head_dim}")
+    reqs = make_requests(eng.config.vocab_size, 12, 256,
+                         [32, 600, 150, 77, 400, 256, 500, 64], seed=2)
+    res = serve(eng, reqs, max_new_tokens=64)
+    if res["launches"]["paged_decode"] < 1 or \
+            res["launches"]["paged_prefill"] < 1:
+        raise AssertionError(f"serve_gpt did not run K4/K5: "
+                             f"{res['launches']}")
+    emit("serve_gpt", model="gpt2-345m", dtype="bfloat16", head_dim=64,
+         model_build_s=round(build_s, 3), max_seq=eng.max_seq,
+         kv_pool_gb=round(eng.cache.nbytes() / 2 ** 30, 3),
+         **{k: v for k, v in res.items() if k != "outputs"})
+    return res
+
+
+# -- phase 6: model parity, kernel path against the reference path --------
 
 PARITY_TOLERANCE = 1e-3
 
@@ -765,7 +837,8 @@ def drive_paged(model, kernel: str, prompt, shared_len: int, tail,
 
     cfg, bs = model.config, 16
     dev = next(model.parameters()).device
-    cache = PagedKVCache(2, cfg.num_hidden_layers, 1024, cfg.n_kv_heads,
+    kv_heads = getattr(cfg, "n_kv_heads", None) or cfg.num_attention_heads
+    cache = PagedKVCache(2, cfg.num_hidden_layers, 1024, kv_heads,
                          cfg.head_dim, torch.float32, block_size=bs,
                          kernel=kernel, device=dev)
 
@@ -773,6 +846,11 @@ def drive_paged(model, kernel: str, prompt, shared_len: int, tail,
         bucket = -(-len(ids) // bs) * bs
         x = np.zeros((1, bucket), dtype=np.int64)
         x[0, :len(ids)] = ids
+        # the prefill surface takes int32 device scalars, as the engine's
+        # programs pass them
+        slot, start, length = (torch.tensor([n], dtype=torch.int32,
+                                            device=dev)
+                               for n in (slot, start, length))
         logits = model(torch.from_numpy(x).to(dev),
                        cache_ctx=PagedCacheContext(cache, "prefill",
                                                    slot=slot, start=start))
@@ -802,36 +880,167 @@ def drive_paged(model, kernel: str, prompt, shared_len: int, tail,
     return out, fed
 
 
+def parity_models():
+    """The full-width configurations held at 2 layers in f32 by ``parity``
+    and ``graph_parity``: Llama-2 7B's (D 128) and GPT-2 345M's (D 64),
+    each built on the card with random weights from a seed."""
+    from paddle_tpu_torch.models import (
+        GPTForCausalLM, LlamaForCausalLM, gpt2_345m, llama2_7b,
+    )
+
+    def llama():
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        return LlamaForCausalLM(llama2_7b(num_hidden_layers=2),
+                                device="cuda", dtype=torch.float32,
+                                generator=gen).eval()
+
+    def gpt():
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        return GPTForCausalLM(
+            gpt2_345m(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0),
+            device="cuda", dtype=torch.float32, generator=gen).eval()
+
+    return [("llama2-7b width, 2 layers", llama),
+            ("gpt2-345m width, 2 layers", gpt)]
+
+
 def phase_parity():
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
     from paddle_tpu_torch.ops import kernels
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    model = LlamaForCausalLM(llama2_7b(num_hidden_layers=2), device="cuda",
-                             dtype=torch.float32, generator=gen).eval()
-    rs = np.random.RandomState(2)
-    prompt = rs.randint(0, model.config.vocab_size, (300,)).tolist()
-    tail = rs.randint(0, model.config.vocab_size, (100,)).tolist()
-    ref, fed = drive_paged(model, "reference", prompt, 256, tail, 4)
+    for label, build in parity_models():
+        model = build()
+        rs = np.random.RandomState(2)
+        prompt = rs.randint(0, model.config.vocab_size, (300,)).tolist()
+        tail = rs.randint(0, model.config.vocab_size, (100,)).tolist()
+        ref, fed = drive_paged(model, "reference", prompt, 256, tail, 4)
+        kernels.reset_launches()
+        got, _ = drive_paged(model, "cuda", prompt, 256, tail, 4, feed=fed)
+        launches = kernels.launch_counts()
+        err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        agree = float(np.mean([bool((a.argmax(-1) == b.argmax(-1)).all())
+                               for a, b in zip(got, ref)]))
+        emit("parity", model=label, dtype="float32",
+             head_dim=model.config.head_dim, forwards=len(ref),
+             max_abs_logit_err=err, tolerance=PARITY_TOLERANCE,
+             greedy_token_agreement=agree, launches=launches)
+        if not err <= PARITY_TOLERANCE:
+            raise AssertionError(f"parity ({label}): logits differ by {err} "
+                                 f"> {PARITY_TOLERANCE}")
+        if launches["paged_decode"] < 1 or launches["paged_prefill"] < 1:
+            raise AssertionError(f"parity ({label}): kernel path did not "
+                                 f"launch K4/K5: {launches}")
+        del model, ref, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# -- phase 7: graph_parity, the engine's programs against its bodies -----
+
+@torch.no_grad()
+def serve_bodies(engine, requests, max_new_tokens: int):
+    """Serve ``requests`` through ``engine``'s step bodies called eagerly,
+    as :func:`drive_paged` calls the model: every request is staged into
+    slot ``i`` and prefilled from position 0 (no prefix reuse), then all
+    decode together until each has ``max_new_tokens``.  The engine's
+    programs are never run.  Returns the token streams in request
+    order."""
+    from paddle_tpu_torch.serving import Request
+
+    if len(requests) > engine.num_slots:
+        raise ValueError(f"{len(requests)} requests for {engine.num_slots} "
+                         f"slots")
+    dev, paged = engine.device, engine.kv_layout == "paged"
+    out, seq = {}, {}
+    for slot, (prompt, law) in enumerate(requests):
+        # the engine numbers requests 0.. in the order they are added, and
+        # seeds an unseeded law from that number
+        req = Request(np.asarray(prompt), max_new_tokens, law,
+                      request_id=slot)
+        engine.sampler.stage_slot(slot, law, engine._seed_for(req))
+        L = len(prompt)
+        bucket = engine.bucket_for(L)
+        if paged and not engine.cache.begin_sequence(slot, [], 0, bucket):
+            raise AssertionError("serve_bodies: pool exhausted")
+        ids = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+        ids[0, :L] = torch.tensor(prompt, device=dev)
+        meta = torch.tensor([slot, L, 0], dtype=torch.int32, device=dev)
+        out[slot] = [int(engine._prefill_step(ids, meta))]
+        seq[slot] = L
+    running = set(out)
+    while running:
+        active = np.zeros(engine.num_slots, dtype=np.int32)
+        for slot in running:
+            if paged and not engine.cache.ensure_capacity(slot, seq[slot]):
+                raise AssertionError("serve_bodies: pool exhausted")
+            active[slot] = 1
+        toks = engine._decode_step(
+            torch.from_numpy(active).to(dev)).cpu().tolist()
+        for slot in sorted(running):
+            seq[slot] += 1
+            out[slot].append(toks[slot])
+            if len(out[slot]) == max_new_tokens:
+                running.discard(slot)
+                if paged:
+                    engine.cache.release_slot(slot)
+    return [out[i] for i in range(len(requests))]
+
+
+def drive_graph_parity(model, layout: str, requests, max_new_tokens: int,
+                       **engine_kw) -> dict:
+    """The same seeded requests served by an engine (its step programs:
+    CUDA graphs on the card) and by :func:`serve_bodies` on a second
+    engine over the same model; prefix reuse is off in both, so the two
+    run the same arithmetic.  Returns both token streams, whether they
+    are identical, the first engine's ``compile_cache`` and its launch
+    counts."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import Engine
+
+    kw = dict(kv_layout=layout, enable_prefix_cache=False, **engine_kw)
+    eng = Engine(model, **kw)
+    eng.warmup()
     kernels.reset_launches()
-    got, _ = drive_paged(model, "cuda", prompt, 256, tail, 4, feed=fed)
-    launches = {n: k.launches for n, k in kernels.KERNELS.items()}
-    err = max((a - b).abs().max().item() for a, b in zip(got, ref))
-    agree = float(np.mean([bool((a.argmax(-1) == b.argmax(-1)).all())
-                           for a, b in zip(got, ref)]))
-    emit("parity", model="llama2-7b width, 2 layers", dtype="float32",
-         forwards=len(ref), max_abs_logit_err=err,
-         tolerance=PARITY_TOLERANCE, greedy_token_agreement=agree,
-         launches=launches)
-    if not err <= PARITY_TOLERANCE:
-        raise AssertionError(f"parity: logits differ by {err} > "
-                             f"{PARITY_TOLERANCE}")
-    if launches["paged_decode"] < 1 or launches["paged_prefill"] < 1:
-        raise AssertionError(f"parity: kernel path did not launch K4/K5: "
-                             f"{launches}")
+    reqs = [eng.add_request(p, sampling=s, max_new_tokens=max_new_tokens)
+            for p, s in requests]
+    eng.run()
+    launches = kernels.launch_counts()
+    programs = [r.output_ids for r in reqs]
+    cc = eng.stats()["compile_cache"]
+    del eng
+    eager = serve_bodies(Engine(model, **kw), requests, max_new_tokens)
+    return {"identical": programs == eager, "programs": programs,
+            "eager": eager, "compile_cache": cc, "launches": launches}
 
 
-# -- phases 6 and 7: training ----------------------------------------------
+def phase_graph_parity():
+    for label, build in parity_models():
+        model = build()
+        reqs = make_requests(model.config.vocab_size, 4, 48,
+                             [5, 40, 17, 90], seed=3)
+        for layout in ("paged", "contiguous"):
+            res = drive_graph_parity(model, layout, reqs, 12, num_slots=4,
+                                     max_seq=256, min_bucket=16,
+                                     block_size=16)
+            emit("graph_parity", model=label, dtype="float32", layout=layout,
+                 requests=len(reqs), laws="greedy, temperature, top-k, top-p",
+                 identical=res["identical"],
+                 compile_cache=res["compile_cache"],
+                 launches=res["launches"])
+            if not res["identical"]:
+                raise AssertionError(
+                    f"graph_parity ({label}, {layout}): the programs gave "
+                    f"{res['programs']}, the eager bodies {res['eager']}")
+            if res["compile_cache"]["after_warmup"] != 0 or \
+                    res["compile_cache"]["hits"] < 1:
+                raise AssertionError(f"graph_parity ({label}, {layout}): "
+                                     f"{res['compile_cache']}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# -- phases 8, 9 and 10: training ------------------------------------------
 
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 
@@ -862,7 +1071,7 @@ def run_train(config: str, batch: int, seq: int, device: str, warmup: int,
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in kernels.KERNELS.items()}
+    launches = kernels.launch_counts()
     losses = [float(v) for v in losses]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train: non-finite loss {losses}")
@@ -930,7 +1139,7 @@ def drive_train_parity(cfg, batch: int, seq: int, device: str,
         kernels.reset_launches()
         loss = model.compute_loss(x, y)
         loss.backward()
-        launches = {n: k.launches for n, k in kernels.KERNELS.items()}
+        launches = kernels.launch_counts()
         grads = {n: p.grad.clone() for n, p in model.named_parameters()}
         AdamW(model.parameters(), lr=lr).step()
         runs[kernel] = (loss.item(), grads, dict(model.named_parameters()),
@@ -1013,7 +1222,7 @@ def drive_grad_parity_bf16(cfg, batch: int, seq: int, device: str,
         runs[kernel] = (loss.float().item(),
                         {n: p.grad.float() for n, p in
                          model.named_parameters()},
-                        {n: k.launches for n, k in kernels.KERNELS.items()})
+                        kernels.launch_counts())
         del model
     (ref_loss, ref_g, _), (loss, got_g, launches) = \
         runs["reference"], runs["cuda"]
@@ -1070,9 +1279,11 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    phase_parity()
+    phase_serve_gpt()
     gc.collect()
     torch.cuda.empty_cache()
+    phase_parity()
+    phase_graph_parity()
     train = phase_train()
     gc.collect()
     torch.cuda.empty_cache()

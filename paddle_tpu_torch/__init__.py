@@ -10,7 +10,8 @@ kernel of the JAX package:
   (``csrc/flash_attention_bwd.cu``),
 - K4 paged decode and K5 fused paged prefill (``csrc/paged_attention.cu``).
 
-Entry points: :func:`inference.create_engine` serves Llama models;
+Entry points: :func:`inference.create_engine` serves GPT and Llama
+models, each engine step a CUDA graph on the card;
 :func:`training.build_train_step` trains GPT (the GPT-2 345M step of
 ``bench.py``).  Everything runs on ``cuda`` unless the caller passes
 ``device="cpu"``; on CPU tensors each kernel's plain PyTorch version runs

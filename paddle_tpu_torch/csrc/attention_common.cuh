@@ -24,7 +24,38 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace pt {
+
+// Opts a kernel instance in to more than 48 KB of dynamic shared memory
+// (cudaFuncSetAttribute) once per device, at its first launch there, and
+// not at every launch: a launch captured into a CUDA graph then makes no
+// runtime call but cudaGetDevice, the launch itself and cudaGetLastError.
+// Each launcher keeps one as a function-local static, so every kernel
+// instance has its own record.
+class SmemOptIn {
+ public:
+  // Returns `bytes`, or a negative cudaError_t.
+  template <typename Kernel>
+  int operator()(Kernel kernel, int bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    const bool kept = dev < kMaxDevices;
+    if (kept && done_[dev].load(std::memory_order_acquire) == bytes)
+      return bytes;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    if (kept) done_[dev].store(bytes, std::memory_order_release);
+    return bytes;
+  }
+
+ private:
+  static constexpr int kMaxDevices = 64;
+  std::atomic<int> done_[kMaxDevices] = {};  // bytes opted in; 0: none yet
+};
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;  // 4 warps per block

@@ -260,10 +260,15 @@ __device__ __forceinline__ void attend_tile(
     for (int i = 0; i < TileCopy<D>::kIters; ++i) {
       const int pos = c0 + cp.first_row + i * TileCopy<D>::kRowStep;
       long long ko = 0, vo = 0;
+      // the key's address (a table read for K5) does not wait for n_keys,
+      // which K5 forms from a start it reads from memory: the two loads
+      // are in flight together
+      key_at(pos, ko, vo);
       const bool live = pos < n_keys;
-      if (live) key_at(pos, ko, vo);
-      cp_async16(cp.dst(k_sm, i), k_base + ko + cp.chunk * 8, live ? 16 : 0);
-      cp_async16(cp.dst(v_sm, i), v_base + vo + cp.chunk * 8, live ? 16 : 0);
+      cp_async16(cp.dst(k_sm, i), k_base + (live ? ko : 0) + cp.chunk * 8,
+                 live ? 16 : 0);
+      cp_async16(cp.dst(v_sm, i), v_base + (live ? vo : 0) + cp.chunk * 8,
+                 live ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -394,15 +399,14 @@ template <typename T>
 constexpr int kQueryTile = kOnTensorCores<T> ? kTileM : kTileQ;
 
 // Dynamic shared memory of a K1/K5 instance, opting the kernel in past
-// 48 KB where it needs more; returns the bytes or a negative cudaError_t.
+// 48 KB (once per device, through the launcher's `opt_in`) where it needs
+// more; returns the bytes or a negative cudaError_t.
 template <typename T, int D, typename Kernel>
-int dynamic_smem(Kernel kernel) {
+int dynamic_smem(Kernel kernel, SmemOptIn& opt_in) {
   if constexpr (!kOnTensorCores<T>) {
     return 0;
   } else {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kAlloc);
-    return err == cudaSuccess ? Smem<D>::kAlloc : -static_cast<int>(err);
+    return opt_in(kernel, Smem<D>::kAlloc);
   }
 }
 

@@ -685,18 +685,17 @@ __global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dq_kernel(
 }
 
 // Dynamic shared memory of a K2/K3 instance (`products` [tile, tile] f32
-// buffers for the CUDA-core loop), opting the kernel in past 48 KB;
-// returns the bytes or a negative cudaError_t.
+// buffers for the CUDA-core loop), opting the kernel in past 48 KB once
+// per device through the launcher's `opt_in`; returns the bytes or a
+// negative cudaError_t.
 template <typename T, int D, typename Kernel>
-int bwd_smem(Kernel kernel, int products) {
+int bwd_smem(Kernel kernel, int products, SmemOptIn& opt_in) {
   int bytes;
   if constexpr (tc::kOnTensorCores<T>)
     bytes = tc::BwdSmem<D>::kAlloc;
   else
     bytes = static_cast<int>(BwdLayout<D>::bytes(products));
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  return err == cudaSuccess ? bytes : -static_cast<int>(err);
+  return opt_in(kernel, bytes);
 }
 
 template <typename T, int D>
@@ -710,7 +709,8 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v,
                          long long dk_sb, long long dk_ss, long long dk_sh,
                          long long dv_sb, long long dv_ss, long long dv_sh,
                          float scale, cudaStream_t stream) {
-  const int smem = bwd_smem<T, D>(flash_bwd_dkv_kernel<T, D>, 2);
+  static SmemOptIn opt_in;
+  const int smem = bwd_smem<T, D>(flash_bwd_dkv_kernel<T, D>, 2, opt_in);
   if (smem < 0) return -smem;
   const dim3 grid((S + kBwdTile - 1) / kBwdTile, H, B);
   flash_bwd_dkv_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(
@@ -733,7 +733,8 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v,
                         long long do_sb, long long do_ss, long long do_sh,
                         long long dq_sb, long long dq_ss, long long dq_sh,
                         float scale, cudaStream_t stream) {
-  const int smem = bwd_smem<T, D>(flash_bwd_dq_kernel<T, D>, 1);
+  static SmemOptIn opt_in;
+  const int smem = bwd_smem<T, D>(flash_bwd_dq_kernel<T, D>, 1, opt_in);
   if (smem < 0) return -smem;
   const dim3 grid((S + kBwdTile - 1) / kBwdTile, H, B);
   flash_bwd_dq_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(

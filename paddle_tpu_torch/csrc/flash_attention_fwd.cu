@@ -79,7 +79,8 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
                      long long v_sb, long long v_ss, long long v_sh,
                      long long o_sb, long long o_ss, long long o_sh,
                      float scale, cudaStream_t stream) {
-  const int smem = tc::dynamic_smem<T, D>(flash_fwd_kernel<T, D>);
+  static SmemOptIn opt_in;
+  const int smem = tc::dynamic_smem<T, D>(flash_fwd_kernel<T, D>, opt_in);
   if (smem < 0) return -smem;
   const dim3 grid((S + tc::kQueryTile<T> - 1) / tc::kQueryTile<T>, H, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(

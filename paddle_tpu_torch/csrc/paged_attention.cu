@@ -380,12 +380,16 @@ struct PagedKeyAt {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ row, int start,
-    T* __restrict__ out, int S, int H, int Hkv, int block_size,
-    int max_blocks, long long q_ss, long long q_sh, long long o_ss,
-    long long o_sh, long long p_sb, long long p_st, long long p_sh,
-    float scale) {
+    const T* __restrict__ v_pool, const int* __restrict__ row,
+    const int* __restrict__ start_at, T* __restrict__ out, int S, int H,
+    int Hkv, int block_size, int max_blocks, long long q_ss, long long q_sh,
+    long long o_ss, long long o_sh, long long p_sb, long long p_st,
+    long long p_sh, float scale) {
   constexpr int kTile = tc::kQueryTile<T>;
+  // the cached prefix length lives in device memory, so that one CUDA graph
+  // of a bucket's prefill serves every prefix; the grid depends on S alone.
+  // A negative start counts as 0, as in the plain block_prefill_attention.
+  const int start = max(0, __ldg(start_at));
   // last query tile first: it has the most keys
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile, h = blockIdx.y;
   const int n_rows = min(kTile, S - q0);
@@ -449,18 +453,21 @@ int launch_decode(int group, PT_DECODE_PARAMS) {
 
 template <typename T, int D>
 int launch_prefill(const void* q, const void* k_pool, const void* v_pool,
-                   const void* row, int start, void* out, int S, int H,
-                   int Hkv, int block_size, int max_blocks, long long q_ss,
-                   long long q_sh, long long o_ss, long long o_sh,
-                   long long p_sb, long long p_st, long long p_sh, float scale,
-                   cudaStream_t stream) {
-  const int smem = tc::dynamic_smem<T, D>(paged_prefill_kernel<T, D>);
+                   const void* row, const void* start, void* out, int S,
+                   int H, int Hkv, int block_size, int max_blocks,
+                   long long q_ss, long long q_sh, long long o_ss,
+                   long long o_sh, long long p_sb, long long p_st,
+                   long long p_sh, float scale, cudaStream_t stream) {
+  static SmemOptIn opt_in;
+  const int smem =
+      tc::dynamic_smem<T, D>(paged_prefill_kernel<T, D>, opt_in);
   if (smem < 0) return -smem;
   const dim3 grid((S + tc::kQueryTile<T> - 1) / tc::kQueryTile<T>, H);
   paged_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(row), start,
-      static_cast<T*>(out), S, H, Hkv, block_size, max_blocks, q_ss, q_sh,
+      static_cast<const T*>(v_pool), static_cast<const int*>(row),
+      static_cast<const int*>(start), static_cast<T*>(out), S, H, Hkv,
+      block_size, max_blocks, q_ss, q_sh,
       o_ss, o_sh, p_sb, p_st, p_sh, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -494,9 +501,11 @@ int pt_paged_decode(int dtype, int head_dim, PT_DECODE_PARAMS) {
   PT_DISPATCH(pt::launch_decode, H / Hkv, PT_DECODE_ARGS)
 }
 
+// start: int32 [1] in device memory, the absolute position of the first
+// tail query (the cached prefix length); read by the kernel at entry.
 int pt_paged_prefill(int dtype, int head_dim, const void* q,
                      const void* k_pool, const void* v_pool, const void* row,
-                     int start, void* out, int S, int H, int Hkv,
+                     const void* start, void* out, int S, int H, int Hkv,
                      int block_size, int max_blocks, long long q_ss,
                      long long q_sh, long long o_ss, long long o_sh,
                      long long p_sb, long long p_st, long long p_sh,

@@ -11,7 +11,8 @@ __all__ = ["create_engine"]
 def create_engine(config, *, device="cuda", dtype=torch.float32,
                   seed: int = 0, **engine_kwargs) -> Engine:
     """Build a continuous-batching :class:`~.serving.Engine` from a
-    ``LlamaConfig``, a registry name (``"llama:llama2-7b"``) or a model.
+    ``GPTConfig``/``LlamaConfig``, a registry name (``"gpt:gpt2-345m"``,
+    ``"llama:llama2-7b"``) or a model.
 
     A new model is built on ``device`` (``"cuda"`` unless the caller asks
     for ``"cpu"``) in ``dtype``, with weights drawn from a generator seeded

@@ -1,5 +1,5 @@
 """GPT decoder-only transformer (pre-LN, tanh-gelu MLP, tied LM head) as
-``nn.Module``s, for training.
+``nn.Module``s, for training and serving.
 
 Port of ``paddle_tpu/models/gpt.py`` for one device (model parallel 1):
 ``ColumnParallelLinear``/``RowParallelLinear`` become ``nn.Linear``
@@ -15,7 +15,16 @@ K2 and K3 on CUDA, or the plain versions with ``kernel="reference"`` and
 on the CPU); the loss through :func:`ops.fused.fused_linear_cross_entropy`
 on the head weight, so no ``[B, S, V]`` logits are made.  Dropout and
 activation recompute are not ported (ROADMAP.md A.6): a config asking for
-either raises.  GPT serving is ROADMAP.md A.2.
+either raises.
+
+Serving passes a cache context (``serving.kv_cache.CacheContext`` or
+``serving.paging.PagedCacheContext``) that routes the K/V writes and the
+attention, as in the JAX package: a prefill writes the bucket's K/V and
+attends through the context, a decode step writes each slot's token and
+attends over its window, and the learned positions come from the context
+(each slot's length in decode, the positions past a cached prefix in a
+paged tail prefill).  q, k and v stay strided views of the head-major
+qkv projection, which the kernels read through their strides.
 """
 from __future__ import annotations
 
@@ -98,11 +107,18 @@ class GPTAttention(nn.Module):
         self.qkv_proj = nn.Linear(h, 3 * h, device=device, dtype=dtype)
         self.out_proj = nn.Linear(h, h, device=device, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cache_ctx=None) -> torch.Tensor:
         B, S, _ = x.shape
         qkv = self.qkv_proj(x).view(B, S, self.n_heads, 3 * self.head_dim)
         q, k, v = qkv.split(self.head_dim, dim=-1)          # [B, S, H, D]
-        ctx = flash_attention(q, k, v, is_causal=True, kernel=self.kernel)
+        if cache_ctx is None:
+            ctx = flash_attention(q, k, v, is_causal=True,
+                                  kernel=self.kernel)
+        elif cache_ctx.mode == "prefill":
+            cache_ctx.write_prefill(k, v)
+            ctx = cache_ctx.prefill_attention(q, k, v)
+        else:               # decode: each slot's one token
+            ctx = cache_ctx.decode_attention(q, k, v)
         return self.out_proj(ctx.reshape(B, S, self.n_heads * self.head_dim))
 
 
@@ -131,8 +147,8 @@ class GPTDecoderLayer(nn.Module):
         self.ln2 = LayerNorm(h, eps, device=device, dtype=dtype)
         self.mlp = GPTMLP(config, device=device, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x: torch.Tensor, cache_ctx=None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), cache_ctx)
         return x + self.mlp(self.ln2(x))
 
 
@@ -145,14 +161,17 @@ class GPTEmbeddings(nn.Module):
             config.max_position_embeddings, config.hidden_size,
             device=device, dtype=dtype)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        S = input_ids.shape[-1]
-        max_pos = self.position_embeddings.num_embeddings
-        if S > max_pos:
-            raise ValueError(f"sequence length {S} exceeds "
-                             f"max_position_embeddings {max_pos}")
-        pos = torch.arange(S, device=input_ids.device)[None, :]
-        return self.word_embeddings(input_ids) + self.position_embeddings(pos)
+    def forward(self, input_ids: torch.Tensor,
+                position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if position_ids is None:
+            S = input_ids.shape[-1]
+            max_pos = self.position_embeddings.num_embeddings
+            if S > max_pos:
+                raise ValueError(f"sequence length {S} exceeds "
+                                 f"max_position_embeddings {max_pos}")
+            position_ids = torch.arange(S, device=input_ids.device)[None, :]
+        return self.word_embeddings(input_ids) + \
+            self.position_embeddings(position_ids)
 
 
 class GPTModel(nn.Module):
@@ -169,10 +188,23 @@ class GPTModel(nn.Module):
                                   config.layer_norm_epsilon, device=device,
                                   dtype=dtype)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        h = self.embeddings(input_ids)
-        for layer in self.layers:
-            h = layer(h)
+    def forward(self, input_ids: torch.Tensor,
+                position_ids: Optional[torch.Tensor] = None,
+                cache_ctx=None) -> torch.Tensor:
+        if cache_ctx is not None and position_ids is None:
+            if cache_ctx.mode != "prefill":
+                # decode: each slot's token sits at that slot's length
+                position_ids = cache_ctx.positions()
+            else:
+                # paged tail prefill: past the cached prefix (None for the
+                # contiguous layout: 0..S-1)
+                position_ids = cache_ctx.prefill_positions(
+                    input_ids.shape[-1])
+        h = self.embeddings(input_ids, position_ids)
+        for i, layer in enumerate(self.layers):
+            if cache_ctx is not None:
+                cache_ctx.layer_idx = i
+            h = layer(h, cache_ctx)
         return self.final_ln(h)
 
 
@@ -232,10 +264,13 @@ class GPTForCausalLM(nn.Module):
             return self.gpt.embeddings.word_embeddings.weight
         return self.lm_head.weight
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                cache_ctx=None) -> torch.Tensor:
         """Logits ``[B, S, V]`` (serving and tests; training calls
-        :meth:`compute_loss`, which never makes them)."""
-        return self.gpt(input_ids) @ self._head_weight().t()
+        :meth:`compute_loss`, which never makes them).  ``cache_ctx``
+        routes a serving step through the KV cache."""
+        return self.gpt(input_ids, cache_ctx=cache_ctx) \
+            @ self._head_weight().t()
 
     def compute_loss(self, input_ids: torch.Tensor, labels: torch.Tensor,
                      loss_mask: Optional[torch.Tensor] = None,

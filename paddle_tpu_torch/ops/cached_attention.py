@@ -76,13 +76,17 @@ def gather_block_kv(pool_layer: torch.Tensor,
 
 
 def block_prefill_attention(query: torch.Tensor, k_cache: torch.Tensor,
-                            v_cache: torch.Tensor, start) -> torch.Tensor:
+                            v_cache: torch.Tensor,
+                            start: torch.Tensor) -> torch.Tensor:
     """Tail-bucket prefill attention against a gathered cache: the ``S``
     queries sit at absolute positions ``start..start+S-1`` and see keys
     ``kpos <= qpos`` (the cached prefix and the causal tail in one mask).
-    ``query`` ``[1, S, H, D]``, caches ``[1, T, Hkv, D]``."""
+    ``query`` ``[1, S, H, D]``, caches ``[1, T, Hkv, D]``; ``start`` an
+    integer tensor of one element, read on the device as K5 reads it (a
+    negative start counts as 0, in both)."""
     S, T = query.shape[1], k_cache.shape[1]
-    qpos = int(start) + torch.arange(S, device=query.device)
+    start = start.reshape(()).long().clamp_min(0)
+    qpos = start + torch.arange(S, device=query.device)
     kpos = torch.arange(T, device=query.device)
     valid = kpos[None, :] <= qpos[:, None]
     return _masked_attention(query, k_cache, v_cache, valid[None, None])
@@ -103,11 +107,12 @@ def paged_decode_attention(query: torch.Tensor, k_pool: torch.Tensor,
 
 def paged_prefill_attention(query: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, block_row: torch.Tensor,
-                            start: int) -> torch.Tensor:
+                            start: torch.Tensor) -> torch.Tensor:
     """Fused cached-prefix + causal-tail prefill off the block pool: kernel
     K5 for CUDA tensors, ``gather_block_kv`` +
-    :func:`block_prefill_attention` for CPU ones.  Shapes as
-    :func:`kernels.paged_prefill`."""
+    :func:`block_prefill_attention` for CPU ones.  Arguments as
+    :func:`kernels.paged_prefill` (``start`` an int32 tensor of one
+    element beside the query)."""
     if query.is_cuda:
         return kernels.paged_prefill(query, k_pool, v_pool, block_row, start)
     row = block_row[None, :]

@@ -13,6 +13,14 @@ kernel and its plain PyTorch version is made one level up, by the device
 of the tensors (``ops.cached_attention``, ``ops.attention``).  Each
 wrapper counts its launches in :data:`KERNELS`, so a run can show that it
 went through the kernel.
+
+The wrappers can be captured into a CUDA graph (``serving.programs``):
+they read nothing back from the device, allocate their outputs and
+scratch with ``torch.empty`` and make their one launch on the current
+stream; K5 reads its ``start`` from device memory, and K4's merge tickets
+are made outside any capture.  A count is taken on the host, so a
+capture counts its launches once and a replay none: the program that
+replays a graph adds the launches its capture made (``add_launches``).
 """
 from __future__ import annotations
 
@@ -24,12 +32,13 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["KERNELS", "build", "reset_launches", "paged_decode",
-           "paged_prefill", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+__all__ = ["KERNELS", "build", "reset_launches", "launch_counts",
+           "add_launches", "paged_decode", "paged_prefill", "flash_fwd",
+           "flash_bwd_dkv", "flash_bwd_dq",
            "decode_plan", "DecodePlan", "HEAD_DIMS", "MAX_GROUP",
            "DECODE_SPLIT_KEYS", "DECODE_GRID_BLOCKS"]
 
@@ -62,7 +71,7 @@ _LIBRARIES = {
     "paged_attention": ("paged_attention.cu", {
         "pt_paged_decode": [_I, _I] + [_P] * 9 + [_I] * 8 + [_L] * 8
                            + [_F, _P],
-        "pt_paged_prefill": [_I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+        "pt_paged_prefill": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _L, _L, _L, _L, _L, _L, _L, _F, _P],
         "pt_paged_error_string": [_I],
     }),
@@ -116,6 +125,17 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {n: k.launches for n, k in KERNELS.items()}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (by kernel name) to the launch counts: a replayed
+    graph's launches, which no wrapper call counts."""
+    for n, c in counts.items():
+        KERNELS[n].launches += c
 
 
 def _nvcc() -> str:
@@ -305,13 +325,25 @@ def decode_plan(batch: int, heads: int, kv_heads: int, head_dim: int,
 
 # (device, stream) -> K4's int32 tickets: 0 before and after every launch
 # (the merging block resets its own), so they are zeroed once per stream
-# and again only when a launch needs more
+# and again only when a launch needs more.  A buffer is never freed: a
+# CUDA graph that captured a launch keeps its address, so one outgrown by
+# a later launch stays alive in _retired_tickets.
 _decode_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+_retired_tickets: List[torch.Tensor] = []
 
 
 def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     t = _decode_tickets.get((device, stream))
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            # made here, they would come from the graph's private pool and
+            # be zeroed only at capture; the launch before a capture, on
+            # the capture stream, makes them
+            raise RuntimeError(
+                "paged_decode: no merge tickets for this stream yet; launch "
+                "the kernel once on the capture stream before capturing it")
+        if t is not None:
+            _retired_tickets.append(t)
         t = torch.zeros(n, dtype=torch.int32, device=device)
         _decode_tickets[(device, stream)] = t
     return t
@@ -369,30 +401,40 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
 
 def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
                   v_pool: torch.Tensor, block_row: torch.Tensor,
-                  start: int) -> torch.Tensor:
+                  start: torch.Tensor) -> torch.Tensor:
     """K5: fused cached-prefix + causal-tail prefill off the block pool.
 
     ``q`` ``[1, S, H, D]`` tail queries at absolute positions
     ``start..start+S-1``; pools as :func:`paged_decode`; ``block_row``
-    ``[max_blocks]`` int32, the slot's table row.  Returns
-    ``[1, S, H, D]``.  bf16 runs on tensor cores and needs 16-byte aligned
-    rows (:func:`_check_rows16`); f32 runs the CUDA-core loop."""
+    ``[max_blocks]`` int32, the slot's table row; ``start`` an int32
+    tensor of one element on the device, which the kernel reads at entry
+    (a negative value counts as 0), so that one CUDA graph of a bucket
+    serves every prefix length.  Returns ``[1, S, H, D]``.  bf16 runs on
+    tensor cores and needs 16-byte aligned rows (:func:`_check_rows16`);
+    f32 runs the CUDA-core loop."""
     what = "paged_prefill"
     D = _check_common(what, q, k_pool, v_pool, block_row)
     _require(q.dim() == 4 and q.shape[0] == 1, what,
              f"q {tuple(q.shape)} (want [1, S, H, D])")
     H, Hkv = _check_pool(what, q, k_pool, v_pool, D)
     _check_index(what, block_row, 1, "block_row")
+    # (the message names the start's type, never its value: formatting a
+    # tensor's value reads it back, which a graph capture forbids)
+    got = (f"{start.dtype} {tuple(start.shape)} on {start.device}"
+           if isinstance(start, torch.Tensor) else type(start).__name__)
+    _require(isinstance(start, torch.Tensor) and start.device == q.device
+             and start.dtype == torch.int32 and start.numel() == 1, what,
+             f"start must be an int32 tensor of one element on {q.device}, "
+             f"got {got}")
     _check_rows16(what, q, k_pool, v_pool)
-    start = int(start)
-    _require(start >= 0, what, f"start {start} < 0")
     S = q.shape[1]
     out = torch.empty((1, S, H, D), dtype=q.dtype, device=q.device)
     lib = _library("paged_attention")
     rc = lib.pt_paged_prefill(
         _DTYPE_CODE[q.dtype], D, q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), block_row.data_ptr(), start, out.data_ptr(), S, H,
-        Hkv, k_pool.shape[1], block_row.shape[0], q.stride(1), q.stride(2),
+        v_pool.data_ptr(), block_row.data_ptr(), start.data_ptr(),
+        out.data_ptr(), S, H, Hkv, k_pool.shape[1], block_row.shape[0],
+        q.stride(1), q.stride(2),
         out.stride(1), out.stride(2), k_pool.stride(0), k_pool.stride(1),
         k_pool.stride(2), 1.0 / D ** 0.5, _stream(q))
     _raise_on(rc, lib, "pt_paged_error_string", what)

@@ -17,8 +17,16 @@ attention runs through the CUDA kernels K4/K5 (``kernel="auto"`` or
 layout prefills through the flash kernel K1 and decodes with the plain
 one-row attention, as the JAX engine does.
 
-PyTorch runs eagerly, so the JAX engine's compiled step programs become
-plain methods (:meth:`Engine._prefill_step`, :meth:`Engine._decode_step`).
+As in the JAX engine, each step runs as a program built once and then
+reused (``serving.programs``): one per prefill bucket and one for the
+decode step, whose inputs (the bucket's ids; the slot, length and start;
+the active mask) are data.  On the card a program is a CUDA graph,
+captured at its first call and replayed after; :meth:`warmup` builds them
+all, and ``stats()["compile_cache"]`` counts the builds (misses) and
+reuses (hits): a miss after warmup is an anomaly.  The bodies stay
+methods (:meth:`Engine._prefill_step`, :meth:`Engine._decode_step`) that
+can be called eagerly.
+
 The opt-in subsystems of the JAX engine are not part of this port yet:
 speculation, adapters, grammars, the journal, the tracer, the mesh, fault
 plans, the sanitizer and the watchdog, priorities, preemption, shedding,
@@ -26,6 +34,7 @@ deadlines, bounded queues and step retries, and ``Fleet``.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import time
 from collections import deque
@@ -38,6 +47,7 @@ from torch import nn
 
 from .kv_cache import CacheContext, KVCache
 from .metrics import ServingMetrics
+from .programs import StepPrograms
 from .sampling import DeviceSampler, SamplingParams
 
 __all__ = ["Engine", "Request", "SamplingParams"]
@@ -90,8 +100,9 @@ class Engine:
 
     Args:
         model: an ``nn.Module`` with a ``.config`` whose forward takes
-            ``cache_ctx`` (``LlamaForCausalLM``).  The engine runs on the
-            model's device and switches it to eval mode.
+            ``cache_ctx`` (``GPTForCausalLM``, ``LlamaForCausalLM``).  The
+            engine runs on the model's device and switches it to eval
+            mode.
         num_slots: fixed decode batch width.
         max_seq: per-slot cache capacity (prompt + generated); defaults to
             the model's ``max_position_embeddings``.
@@ -122,7 +133,7 @@ class Engine:
         cfg = getattr(model, "config", None)
         if cfg is None:
             raise TypeError("Engine needs a model carrying a .config "
-                            "(LlamaForCausalLM)")
+                            "(GPTForCausalLM, LlamaForCausalLM)")
         self.model = model.eval()
         self.config = cfg
         param = next(model.parameters())
@@ -151,7 +162,8 @@ class Engine:
                        else ("cuda" if kernel == "auto" else kernel))
         self.block_size = int(block_size)
         cache_dtype = cache_dtype or param.dtype
-        kv_heads = cfg.n_kv_heads
+        kv_heads = getattr(cfg, "n_kv_heads", None) or \
+            cfg.num_attention_heads
         self.prefix_cache = None
         if kv_layout == "paged":
             from .paging import PagedKVCache
@@ -180,6 +192,8 @@ class Engine:
         self.name = name or f"engine-{next(_engine_counter)}"
         self.metrics = ServingMetrics(self.name, num_slots=self.num_slots)
         self.sampler = DeviceSampler(self.num_slots, device=self.device)
+        self.programs = StepPrograms(self.device, self.metrics.on_compile)
+        self._warm_misses: Optional[int] = None
         self.queue: deque = deque()
         self.running: Dict[int, Request] = {}
         self.free_slots: List[int] = list(range(self.num_slots))
@@ -205,16 +219,19 @@ class Engine:
                 return b
         return self.max_seq
 
-    # -- the two step bodies -----------------------------------------------
+    # -- the two step bodies and their programs ---------------------------
 
     @torch.no_grad()
-    def _prefill_step(self, ids: np.ndarray, slot: int, length: int,
-                      start: int = 0) -> torch.Tensor:
-        """Run one prompt bucket ``ids`` ``[1, S]`` (the tokens at absolute
-        positions ``start..``) into ``slot``, set the slot's length, and
-        sample the first token on the device from the last real position
-        (tail index ``length - start - 1``).  Returns a device scalar."""
-        input_ids = torch.from_numpy(ids).to(self.device)
+    def _prefill_step(self, ids: torch.Tensor,
+                      meta: torch.Tensor) -> torch.Tensor:
+        """Run one prompt bucket ``ids`` ``[1, S]`` int64 (the tokens at
+        absolute positions ``start..``) into a slot, set the slot's
+        length, and sample its first token on the device from the last
+        real position (tail index ``length - start - 1``).  ``meta`` is
+        the ``[3]`` int32 device tensor ``(slot, length, start)``, start 0
+        in the contiguous layout.  Returns a ``[1]`` int32 device
+        tensor."""
+        slot, length, start = meta[0:1], meta[1:2], meta[2:3]
         if self.kv_layout == "paged":
             from .paging import PagedCacheContext
 
@@ -222,21 +239,32 @@ class Engine:
                                     start=start)
         else:
             ctx = CacheContext(self.cache, "prefill", slot=slot)
-        logits = self.model(input_ids, cache_ctx=ctx)
+        logits = self.model(ids, cache_ctx=ctx)
         self.cache.set_length(slot, length)
-        return self.sampler.sample_slot(slot,
-                                        logits[0, length - start - 1].float())
+        last = logits[0].index_select(0, (length - start - 1).long())
+        return self.sampler.sample_slot(slot.long(), last.float())
 
     @torch.no_grad()
     def _decode_step(self, active: torch.Tensor) -> torch.Tensor:
         """One decode step over all slots; ``active`` is the ``[slots]``
-        int32 mask of slots whose length advances.  Returns the sampled
-        ``[slots]`` int32 tokens (also written into the token lane)."""
+        int32 mask of slots whose length advances and whose sampler
+        counter moves.  Returns the sampled ``[slots]`` int32 tokens (also
+        written into the token lane)."""
         tokens = self.sampler.tokens[:, None].long()
         logits = self.model(tokens, cache_ctx=CacheContext(self.cache,
                                                            "decode"))
         self.cache.advance(active)
-        return self.sampler.sample_all(logits[:, -1, :].float())
+        return self.sampler.sample_all(logits[:, -1, :].float(), active)
+
+    def _run_prefill(self, ids: np.ndarray, slot: int, length: int,
+                     start: int = 0) -> torch.Tensor:
+        """The prefill program of ``ids``'s bucket on this admission."""
+        meta = np.array([slot, length, start], dtype=np.int32)
+        return self.programs.run(("prefill", ids.shape[1]),
+                                 self._prefill_step, ids, meta)
+
+    def _run_decode(self, active: np.ndarray) -> torch.Tensor:
+        return self.programs.run(("decode",), self._decode_step, active)
 
     # -- public API --------------------------------------------------------
 
@@ -244,37 +272,50 @@ class Engine:
     def resolve_model(config, *, device="cuda", dtype=torch.float32,
                       seed: int = 0) -> nn.Module:
         """Turn what :meth:`from_config` accepts into a model: a module
-        passes through; a ``LlamaConfig`` or a registry name
-        (``"llama:llama2-7b"``) builds one on ``device`` in ``dtype`` with
-        weights drawn from a generator seeded with ``seed``."""
-        from ..models import LLAMA_CONFIGS, LlamaConfig, LlamaForCausalLM
+        passes through; a ``GPTConfig``/``LlamaConfig`` or a registry name
+        (``"gpt:gpt2-345m"``, ``"llama:llama2-7b"``) builds one on
+        ``device`` in ``dtype`` with weights drawn from a generator seeded
+        with ``seed``.  A GPT is built with its dropout probabilities at
+        0: serving runs in eval mode, where dropout does nothing."""
+        from ..models import (
+            GPT_CONFIGS, GPTConfig, GPTForCausalLM, LLAMA_CONFIGS,
+            LlamaConfig, LlamaForCausalLM,
+        )
 
         if isinstance(config, nn.Module):
             return config
         if isinstance(config, str):
             family, _, which = config.partition(":")
-            which = which or "tiny"
-            if family != "llama" or which not in LLAMA_CONFIGS:
-                raise KeyError(f"unknown model spec {config!r}; want "
-                               f"'llama:<{'|'.join(LLAMA_CONFIGS)}>'")
-            config = LLAMA_CONFIGS[which]()
-        if not isinstance(config, LlamaConfig):
+            reg = {"gpt": GPT_CONFIGS, "llama": LLAMA_CONFIGS}.get(family)
+            if reg is None or (which or "tiny") not in reg:
+                raise KeyError(
+                    f"unknown model spec {config!r}; want "
+                    f"'gpt:<{'|'.join(GPT_CONFIGS)}>' or "
+                    f"'llama:<{'|'.join(LLAMA_CONFIGS)}>'")
+            config = reg[which or "tiny"]()
+        if isinstance(config, GPTConfig):
+            config = dataclasses.replace(config, hidden_dropout_prob=0.0,
+                                         attention_probs_dropout_prob=0.0)
+            cls_ = GPTForCausalLM
+        elif isinstance(config, LlamaConfig):
+            cls_ = LlamaForCausalLM
+        else:
             raise TypeError(f"Engine.from_config: unsupported config "
-                            f"{type(config).__name__} — pass a LlamaConfig, "
-                            f"a 'llama:<size>' name, or a model")
+                            f"{type(config).__name__} — pass a GPTConfig/"
+                            f"LlamaConfig, a 'family:size' name, or a model")
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} asked for, but no CUDA "
                                f"device is available")
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        return LlamaForCausalLM(config, device=dev, dtype=dtype,
-                                generator=gen)
+        return cls_(config, device=dev, dtype=dtype, generator=gen)
 
     @classmethod
     def from_config(cls, config, *, device="cuda", dtype=torch.float32,
                     seed: int = 0, **engine_kwargs) -> "Engine":
-        """Build an engine from a ``LlamaConfig``, a registry name or a
-        model; ``device``/``dtype``/``seed`` place and draw a new model."""
+        """Build an engine from a ``GPTConfig``/``LlamaConfig``, a
+        registry name or a model; ``device``/``dtype``/``seed`` place and
+        draw a new model."""
         return cls(cls.resolve_model(config, device=device, dtype=dtype,
                                      seed=seed), **engine_kwargs)
 
@@ -331,10 +372,12 @@ class Engine:
         return req
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> dict:
-        """Run each prefill bucket once (slot 0, one real token) and one
-        decode step, then reset the cache and the sampler.  Nothing is
-        compiled here; this builds the kernels and settles the allocator
-        before the first request is timed."""
+        """Build every step program: each bucket's prefill (a dummy
+        admission into slot 0, one real token, released after) and the
+        decode step, then reset the cache and the sampler.  On the card
+        this captures the CUDA graphs, so that live serving starts with
+        every program built: ``stats()["compile_cache"]["misses"]`` must
+        not move after it."""
         if self.running or self.queue:
             raise RuntimeError("warmup() must run before serving traffic "
                                "(it scribbles over slot 0 and resets all "
@@ -348,18 +391,19 @@ class Engine:
                         f"warmup: pool of {self.cache.num_blocks} blocks "
                         f"cannot hold one bucket-{b} prefill")
                 try:
-                    self._prefill_step(ids, 0, 1, 0)
+                    int(self._run_prefill(ids, 0, 1, 0))
                 finally:
                     self.cache.release_slot(0)
             else:
-                self._prefill_step(ids, 0, 1)
-        self._decode_step(torch.zeros(self.num_slots, dtype=torch.int32,
-                                      device=self.device))
+                int(self._run_prefill(ids, 0, 1))
+        self._run_decode(np.zeros(self.num_slots, dtype=np.int32)).cpu()
         self.cache.reset()
         self.sampler.reset()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return {"buckets": use}
+        self._warm_misses = self.metrics.compile_misses
+        return {"buckets": use, "programs": ["prefill", "decode"],
+                "compile_misses": self.metrics.compile_misses}
 
     # -- admission ---------------------------------------------------------
 
@@ -387,7 +431,7 @@ class Engine:
             return "deferred", None, bucket
         ids = np.zeros((1, bucket), dtype=np.int64)
         ids[0, :L - P] = req.prompt_ids[P:]
-        tok = self._prefill_step(ids, req.slot, L, P)
+        tok = self._run_prefill(ids, req.slot, L, P)
         if self.prefix_cache is not None:
             self.prefix_cache.register(req.prompt_ids,
                                        self.cache.owned_blocks(req.slot))
@@ -407,8 +451,9 @@ class Engine:
             bucket = self.bucket_for(L)
             ids = np.zeros((1, bucket), dtype=np.int64)
             ids[0, :L] = req.prompt_ids
-            tok_t = self._prefill_step(ids, req.slot, L)
-        tok = int(tok_t)                 # waits for the prefill to finish
+            tok_t = self._run_prefill(ids, req.slot, L)
+        # waits for the prefill; read before any other program runs
+        tok = int(tok_t)
         now = time.perf_counter()
         self.metrics.prefill_time_s += now - t0
         req.state, req.prefill_bucket = "running", bucket
@@ -490,12 +535,12 @@ class Engine:
         for slot in self.running:
             active[slot] = 1
         t0 = time.perf_counter()
-        out = self._decode_step(torch.from_numpy(active).to(self.device))
-        return out, t0
+        return self._run_decode(active), t0
 
     def _deliver_tokens(self, out: torch.Tensor, t0: float) -> None:
         """Pull the ``[slots]`` sampled tokens (the step's one device to
-        host copy), then run callbacks and stop checks."""
+        host copy, before any other program runs), then run callbacks and
+        stop checks."""
         toks = out.cpu().numpy()
         now = time.perf_counter()
         self.metrics.on_decode_step(len(self.running), now - t0)
@@ -594,6 +639,11 @@ class Engine:
         audit and, paged, the pool and prefix-cache gauges."""
         self.metrics._slots_busy = len(self.running)
         snap = self.metrics.snapshot()
+        # programs built after warmup: a steady-state anomaly (None before
+        # warmup)
+        snap["compile_cache"]["after_warmup"] = (
+            None if self._warm_misses is None
+            else self.metrics.compile_misses - self._warm_misses)
         snap["queue_depth"] = len(self.queue)
         snap["health"] = self.health()
         snap["paging"] = (self._paging_snapshot()

@@ -11,18 +11,37 @@ writes each slot's token at ``lengths[slot]`` and then advances the
 lengths by the active mask; attention reads positions ``<= lengths[slot]``
 only.  Every readable position was written by the current request, so a
 reused slot needs no zeroing.
+
+The prefill surface takes its slot, length and start as int32 tensors of
+one element on the cache's device (:func:`check_scalar`), and writes
+through ``index_copy_``: a prefill captured once per bucket into a CUDA
+graph then serves every slot and prompt length.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from ..ops.attention import flash_attention
 from ..ops.cached_attention import cached_attention
 
-__all__ = ["KVCache", "CacheContext"]
+__all__ = ["KVCache", "CacheContext", "check_scalar"]
+
+
+def check_scalar(name: str, x) -> torch.Tensor:
+    """``x`` as ``[1]``; it must be an int32 tensor of one element (a
+    slot, length or start of the prefill surface).  The message names the
+    type, never the value: formatting a device value reads it back, which
+    a graph capture forbids."""
+    if not (isinstance(x, torch.Tensor) and x.dtype == torch.int32
+            and x.numel() == 1):
+        got = (f"{x.dtype} {tuple(x.shape)}" if isinstance(x, torch.Tensor)
+               else type(x).__name__)
+        raise TypeError(f"{name} must be an int32 tensor of one element on "
+                        f"the cache's device, got {got}")
+    return x.reshape(1)
 
 
 class KVCache:
@@ -50,17 +69,18 @@ class KVCache:
         self.lengths = torch.zeros((self.num_slots,), dtype=torch.int32,
                                    device=self.device)
 
-    def prefill_write(self, layer_idx: int, slot: int, k: torch.Tensor,
-                      v: torch.Tensor) -> None:
+    def prefill_write(self, layer_idx: int, slot: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor) -> None:
         """Write a prompt bucket's K/V ``[1, S, Hkv, D]`` into ``slot`` at
         positions ``0..S-1``, in place."""
-        S = k.shape[1]
-        self.k[slot, layer_idx, :S] = k[0]
-        self.v[slot, layer_idx, :S] = v[0]
+        S, idx = k.shape[1], slot.long()
+        self.k[:, layer_idx, :S].index_copy_(0, idx, k.to(self.dtype))
+        self.v[:, layer_idx, :S].index_copy_(0, idx, v.to(self.dtype))
 
-    def set_length(self, slot: int, length: int) -> None:
+    def set_length(self, slot: torch.Tensor, length: torch.Tensor) -> None:
         """Record a freshly prefilled slot's length (in place)."""
-        self.lengths[slot] = int(length)
+        self.lengths.index_copy_(0, check_scalar("slot", slot).long(),
+                                 check_scalar("length", length))
 
     def decode_write(self, layer_idx: int, k: torch.Tensor,
                      v: torch.Tensor):
@@ -99,13 +119,15 @@ class CacheContext:
 
     cache: object
     mode: str                          # "prefill" | "decode"
-    slot: Optional[int] = None         # prefill
+    slot: Optional[torch.Tensor] = None  # prefill: int32, one element
     layer_idx: int = 0
 
     def __post_init__(self):
         if self.mode not in ("prefill", "decode"):
             raise ValueError(f"CacheContext mode {self.mode!r} "
                              "(want 'prefill' or 'decode')")
+        if self.mode == "prefill":
+            self.slot = check_scalar("slot", self.slot)
 
     def write_prefill(self, k: torch.Tensor, v: torch.Tensor) -> None:
         self.cache.prefill_write(self.layer_idx, self.slot, k, v)

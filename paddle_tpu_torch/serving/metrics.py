@@ -1,6 +1,7 @@
 """Serving metrics the engine's ``stats()`` reads: time to first token,
-inter-token latency, decode tokens/s and slot occupancy, plus the request
-and token counters behind them.
+inter-token latency, decode tokens/s and slot occupancy, the request and
+token counters behind them, and the step programs' hit/miss counters
+(``compile_cache``) that back the zero-recapture steady state.
 
 A slice of ``paddle_tpu/serving/metrics.py``.  Times are host clock
 (``perf_counter``) around work that ends in a device synchronisation: a
@@ -54,6 +55,8 @@ class ServingMetrics:
         self.decode_time_s = 0.0
         self.prefill_time_s = 0.0
         self.prefills_by_bucket: Dict[int, int] = {}
+        self.compile_hits = 0
+        self.compile_misses = 0
         self.ttft_s: deque = deque(maxlen=_LATENCY_WINDOW)
         self.itl_s: deque = deque(maxlen=_LATENCY_WINDOW)
         self._occupancy_sum = 0.0
@@ -77,6 +80,14 @@ class ServingMetrics:
         self.decode_tokens += n_active
         self.decode_time_s += step_s
         self.itl_s.extend([step_s] * n_active)
+
+    def on_compile(self, miss: bool) -> None:
+        """One step-program call: a miss builds the program (a CUDA graph
+        capture on the card), a hit reuses it."""
+        if miss:
+            self.compile_misses += 1
+        else:
+            self.compile_hits += 1
 
     def on_complete(self) -> None:
         self.requests_completed += 1
@@ -122,4 +133,6 @@ class ServingMetrics:
             "inter_token_ms": _ms(_dist(self.itl_s)),
             "prefills_by_bucket": dict(sorted(
                 self.prefills_by_bucket.items())),
+            "compile_cache": {"hits": self.compile_hits,
+                              "misses": self.compile_misses},
         }

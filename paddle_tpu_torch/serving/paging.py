@@ -30,7 +30,7 @@ from ..ops.cached_attention import (
     block_prefill_attention, cached_attention, gather_block_kv,
     paged_decode_attention, paged_prefill_attention,
 )
-from .kv_cache import CacheContext
+from .kv_cache import CacheContext, check_scalar
 
 __all__ = ["BlockAllocator", "PagedKVCache", "PagedCacheContext",
            "AllocatorError", "SCRATCH_BLOCK"]
@@ -298,21 +298,31 @@ class PagedKVCache:
 
     # -- state ops of the CacheContext surface ------------------------------
 
-    def prefill_write(self, layer_idx: int, slot: int, k: torch.Tensor,
-                      v: torch.Tensor, start: int = 0) -> None:
+    def table_row(self, slot: torch.Tensor) -> torch.Tensor:
+        """The slot's block-table row ``[max_blocks]`` int32 (a copy),
+        picked on the device."""
+        return self.block_tables.index_select(0, slot.long())[0]
+
+    def prefill_write(self, layer_idx: int, slot: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor,
+                      start: torch.Tensor) -> None:
         """Write a tail bucket's K/V ``[1, S, Hkv, D]`` (S a multiple of
         block_size) through the slot's table row, starting at the block
         boundary ``start``.  The block ids stay on the device."""
         bs = self.block_size
         n = k.shape[1] // bs
-        first = int(start) // bs
-        ids = self.block_tables[slot, first:first + n].long()
+        first = start.long() // bs
+        ids = self.table_row(slot).gather(
+            0, first + torch.arange(n, device=self.device)).long()
         shape = (n, bs, self.num_kv_heads, self.head_dim)
-        self.k[ids, layer_idx] = k[0].reshape(shape).to(self.dtype)
-        self.v[ids, layer_idx] = v[0].reshape(shape).to(self.dtype)
+        self.k[:, layer_idx].index_copy_(0, ids,
+                                         k[0].reshape(shape).to(self.dtype))
+        self.v[:, layer_idx].index_copy_(0, ids,
+                                         v[0].reshape(shape).to(self.dtype))
 
-    def set_length(self, slot: int, length: int) -> None:
-        self.lengths[slot] = int(length)
+    def set_length(self, slot: torch.Tensor, length: torch.Tensor) -> None:
+        self.lengths.index_copy_(0, check_scalar("slot", slot).long(),
+                                 check_scalar("length", length))
 
     def _decode_token_write(self, layer_idx: int, k: torch.Tensor,
                             v: torch.Tensor):
@@ -380,17 +390,24 @@ class PagedKVCache:
 class PagedCacheContext(CacheContext):
     """CacheContext over a :class:`PagedKVCache`, plus the tail prefill:
     ``start`` is the absolute position of the bucket's first token (the
-    cached prefix length, a block boundary)."""
+    cached prefix length, a block boundary).  In prefill, ``slot`` and
+    ``start`` are int32 tensors of one element on the cache's device, so
+    that the engine's captured prefill reads them as data."""
 
-    start: int = 0
+    start: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.mode == "prefill":
+            self.start = check_scalar("start", self.start)
 
     def write_prefill(self, k: torch.Tensor, v: torch.Tensor) -> None:
         self.cache.prefill_write(self.layer_idx, self.slot, k, v, self.start)
 
     def prefill_positions(self, seq_len: int) -> torch.Tensor:
         """Absolute positions of the tail's tokens ``[1, S]``."""
-        return (self.start + torch.arange(seq_len,
-                                          device=self.cache.device))[None]
+        return (self.start.long() + torch.arange(
+            seq_len, device=self.cache.device))[None]
 
     def prefill_attention(self, q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
@@ -398,7 +415,7 @@ class PagedCacheContext(CacheContext):
         fresh tail) under one absolute-position causal mask: kernel K5, or
         the gather + plain attention."""
         cache, layer = self.cache, self.layer_idx
-        row = cache.block_tables[self.slot]
+        row = cache.table_row(self.slot)
         if cache.kernel == "cuda":
             return paged_prefill_attention(q, cache.k[:, layer],
                                            cache.v[:, layer], row,

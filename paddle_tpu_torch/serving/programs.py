@@ -1,0 +1,135 @@
+"""The engine's step programs: each built once, then reused.
+
+Port of the JAX engine's compiled step programs (``jit.to_static`` and
+``Engine._call_counted`` in ``paddle_tpu/serving/engine.py``).  There is
+one program per key: ``("prefill", bucket)`` for each prefill bucket and
+``("decode",)`` for the decode step.  A program owns static input buffers
+on the device, and a call copies its host inputs into them (from pinned
+memory, without a host sync).
+
+On a CUDA device a program is a CUDA graph.  The first call of a key runs
+the body once eagerly on a side stream (its result is the call's result,
+and it readies what a capture must find made: the kernel libraries, the
+cuBLAS workspace, K4's merge tickets for that stream), then captures the
+body into a graph under ``no_grad`` and counts a **miss**.  A later call
+copies its inputs in, replays the graph and counts a **hit**.  On the CPU
+PyTorch has no graphs: a program runs its body, the first call of a key
+counting a miss and later calls hits.  A failed capture raises; no path
+on the card runs a step eagerly after its first call.
+
+What a body writes in place (the KV cache, the block tables' reads, the
+sampler's lanes) a replay writes again at the addresses it had at
+capture, so that state is never reallocated.  A body's host side effects
+happen at capture only.  The kernels' launch counts are such an effect:
+the capture's launches are taken back (it launched nothing) and added
+again at every replay, so the counts stay per device launch.
+
+All the programs of one registry share one graph memory pool.  They never
+run at once, but one program's replay may overwrite the memory that holds
+another's output: the caller reads each program's output (``int(tok)``,
+``out.cpu()``) before it runs the next program.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import kernels
+
+__all__ = ["StepPrograms"]
+
+
+class _Program:
+    """One key's static inputs and, on the card, its graph, the graph's
+    output and the kernel launches one replay makes."""
+
+    def __init__(self, inputs: List[torch.Tensor], graph=None, output=None,
+                 launches: Dict[str, int] = None):
+        self.inputs = inputs
+        self.graph = graph
+        self.output = output
+        self.launches = launches or {}
+
+
+class StepPrograms:
+    """The registry of one engine's step programs.
+
+    ``on_compile(miss)`` is told of every call: ``True`` for the first
+    call of a key (a capture on the card), ``False`` for the others."""
+
+    def __init__(self, device, on_compile: Callable[[bool], None]):
+        self.device = torch.device(device)
+        self._on_compile = on_compile
+        self._programs: Dict[Tuple, _Program] = {}
+        if self.device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+
+    def keys(self) -> List[Tuple]:
+        return list(self._programs)
+
+    def run(self, key: Tuple, body: Callable[..., torch.Tensor],
+            *inputs: np.ndarray) -> torch.Tensor:
+        """Run the program ``key`` on ``inputs`` (host arrays, copied into
+        its static buffers; their shapes and dtypes belong to the key).
+        ``body`` maps the device buffers to one output tensor; it is run
+        or captured only at the key's first call.  Returns the output,
+        valid until the next program of this registry runs."""
+        prog = self._programs.get(key)
+        if prog is None:
+            statics = [torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
+                                   device=self.device) for a in inputs]
+            self._copy_in(statics, inputs)
+            if self.device.type == "cuda":
+                prog, out = self._capture(body, statics)
+            else:
+                prog, out = _Program(statics), body(*statics)
+            self._programs[key] = prog
+            self._on_compile(True)
+            return out
+        self._copy_in(prog.inputs, inputs)
+        if prog.graph is None:
+            out = body(*prog.inputs)
+        else:
+            prog.graph.replay()
+            kernels.add_launches(prog.launches)
+            out = prog.output
+        self._on_compile(False)
+        return out
+
+    @staticmethod
+    def _copy_in(statics: List[torch.Tensor], inputs) -> None:
+        for dst, a in zip(statics, inputs):
+            src = torch.from_numpy(np.ascontiguousarray(a))
+            if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+                raise ValueError(f"program input {src.dtype} "
+                                 f"{tuple(src.shape)} does not match its "
+                                 f"buffer {dst.dtype} {tuple(dst.shape)}")
+            if dst.is_cuda:
+                # a pinned block is reused only once its copy has run
+                src = src.pin_memory()
+            dst.copy_(src, non_blocking=True)
+
+    def _capture(self, body, statics):
+        """Run ``body`` eagerly on the side stream, then capture it there
+        into a graph of the shared pool.  Returns the program and the
+        eager run's output."""
+        side, cur = self._stream, torch.cuda.current_stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = body(*statics)
+        cur.wait_stream(side)
+        out.record_stream(cur)
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(graph, pool=self._pool,
+                                               stream=side):
+            output = body(*statics)
+        after = kernels.launch_counts()
+        launches = {n: after[n] - before[n] for n in after
+                    if after[n] != before[n]}
+        # the capture launched nothing: its counts move to the replays
+        kernels.add_launches({n: -c for n, c in launches.items()})
+        return _Program(statics, graph, output, launches), out

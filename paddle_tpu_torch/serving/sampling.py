@@ -3,10 +3,13 @@
 Port of ``paddle_tpu/serving/sampling.py``.  Per-slot temperature, top-k
 and top-p live in ``[slots]`` device tensors and the sampled tokens in a
 device token lane that feeds the next decode step.  ``jax.random`` key
-lanes become one ``torch.Generator`` per slot on the engine's device,
-re-seeded when a request is staged into the slot; the two frameworks give
-different numbers from one seed, so only the laws (and the same-seed
-replay within the port) carry over.
+lanes become two more device lanes, a seed and a draw counter per slot:
+the Gumbel noise of a draw is a counter-based hash of (seed, counter,
+vocabulary index) in plain integer ops, so a step holds no host state and
+one captured CUDA graph serves greedy and sampling slots alike.  A slot's
+stream depends only on its own seed and its own draws.  The two
+frameworks give different numbers from one seed, so only the laws (and
+the same-seed replay within the port) carry over.
 
 :func:`sample` is the host reference (float32 numpy) the device path is
 held against.
@@ -14,15 +17,16 @@ held against.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Optional
 
 import numpy as np
 import torch
 
-__all__ = ["SamplingParams", "sample", "masked_logits", "device_sample",
-           "DeviceSampler"]
+__all__ = ["SamplingParams", "sample", "masked_logits", "gumbel_noise",
+           "device_sample", "DeviceSampler"]
 
 _NEG_INF = -1e30
+_MASK32 = 0xFFFFFFFF
 
 
 @dataclass
@@ -84,7 +88,7 @@ def masked_logits(logits: torch.Tensor, temps: torch.Tensor,
     the nucleus cut is carried back as a z-space threshold; rows with
     ``top_p >= 1`` skip the nucleus mask."""
     V = logits.shape[-1]
-    neg = torch.tensor(_NEG_INF, dtype=logits.dtype, device=logits.device)
+    neg = logits.new_full((), _NEG_INF)
     z = logits / temps[:, None]
     k = torch.where(top_ks > 0, top_ks.clamp(1, V),
                     torch.full_like(top_ks, V)).long()
@@ -99,37 +103,78 @@ def masked_logits(logits: torch.Tensor, temps: torch.Tensor,
     return torch.where((z >= z_thr) | (top_ps[:, None] >= 1.0), z, neg)
 
 
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for 32-bit lanes ``x`` held in int64: ``c`` is
+    split in 16-bit halves, so that no product passes 2**48."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective avalanche hash of 32-bit lanes held in int64 (the
+    ``lowbias32`` mixer: xor-shift, multiply, xor-shift, multiply,
+    xor-shift)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(seeds: torch.Tensor, counters: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """``[N, vocab]`` f32 standard Gumbel noise, a counter-based hash of
+    (``seeds[n]``, ``counters[n]``, vocabulary index): ``seeds`` and
+    ``counters`` are ``[N]`` int64.  Every lane is a 32-bit value kept in
+    int64 and masked after each step, so no op relies on signed overflow;
+    the uniform takes the hash's top 23 bits into the open interval
+    (0, 1): ``(h + 0.5) / 2**23``, from 2**-24 to 1 - 2**-24."""
+    lo = seeds & _MASK32
+    hi = (seeds >> 32) & _MASK32
+    key = _mix32(_mix32(_mix32(lo ^ 0x9E3779B9) ^ hi)
+                 ^ (counters & _MASK32))
+    idx = _mix32(torch.arange(vocab, device=seeds.device) + 0x85EBCA6B)
+    h = _mix32(key[:, None] ^ idx[None, :])
+    u = ((h >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
+    return -torch.log(-torch.log(u))
+
+
 def device_sample(logits: torch.Tensor, temps: torch.Tensor,
                   top_ks: torch.Tensor, top_ps: torch.Tensor,
-                  generators: Sequence[Optional[torch.Generator]]
+                  seeds: torch.Tensor, counters: torch.Tensor
                   ) -> torch.Tensor:
     """One token per row of ``[N, V]`` f32 logits, on the logits' device.
 
     Rows with ``temps <= 0`` take the argmax of the raw logits.  The others
-    draw from the masked law by Gumbel-max with noise from their row's
-    generator (``generators[i]``, None for a greedy row, which draws
-    nothing).  Returns ``[N]`` int32."""
+    draw from the masked law by Gumbel-max, the noise from
+    :func:`gumbel_noise` at their row's seed and counter (every row
+    computes it; a greedy row ignores it).  Returns ``[N]`` int32."""
     logits = logits.float()
     greedy = temps <= 0.0
     z = masked_logits(logits, torch.where(greedy, torch.ones_like(temps),
                                           temps), top_ks, top_ps)
-    noise = torch.zeros_like(z)
-    for i, gen in enumerate(generators):
-        if gen is not None:
-            u = torch.rand(z.shape[-1], generator=gen, device=z.device)
-            noise[i] = -torch.log(-torch.log(u))
-    drawn = torch.argmax(z + noise, dim=-1)
+    drawn = torch.argmax(z + gumbel_noise(seeds, counters, z.shape[-1]),
+                         dim=-1)
     return torch.where(greedy, torch.argmax(logits, dim=-1),
                        drawn).to(torch.int32)
+
+
+def _seed_lane(seed: int) -> int:
+    """A request seed as the int64 lane value: its low 64 bits, signed."""
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return s - (1 << 64) if s >= 1 << 63 else s
 
 
 class DeviceSampler:
     """Per-slot sampling state on the device, updated in place.
 
-    Lanes: temperature, top-k, top-p, and the last sampled token per slot
-    (the next decode step's input ids), plus one ``torch.Generator`` per
-    slot.  :meth:`stage_slot` writes a request's parameters into its slot
-    and re-seeds the slot's generator, so a seed replays its stream."""
+    Lanes: temperature, top-k, top-p, the last sampled token per slot (the
+    next decode step's input ids), and each slot's seed and draw counter
+    (int64).  :meth:`stage_slot` writes a request's parameters and seed
+    into its slot and zeroes its counter, so a seed replays its stream; a
+    draw advances the counter of the slot(s) that drew, inside the step.
+    The step methods take the slot as data (a ``[1]`` device index) and
+    make no host read, so they can be captured into a CUDA graph."""
 
     def __init__(self, num_slots: int, *, device="cuda"):
         self.num_slots = int(num_slots)
@@ -139,45 +184,46 @@ class DeviceSampler:
         self.top_ks = torch.zeros(n, dtype=torch.int32, device=dev)
         self.top_ps = torch.ones(n, dtype=torch.float32, device=dev)
         self.tokens = torch.zeros(n, dtype=torch.int32, device=dev)
-        self.generators = [torch.Generator(device=dev) for _ in range(n)]
-        #: host mirror: which slots draw random numbers (temperature > 0)
-        self._sampling: List[bool] = [False] * n
+        self.seeds = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.counters = torch.zeros(n, dtype=torch.int64, device=dev)
 
     def stage_slot(self, slot: int, params: SamplingParams,
                    seed: int) -> None:
-        self.generators[slot].manual_seed(int(seed))
+        self.seeds[slot] = _seed_lane(seed)
+        self.counters[slot] = 0
         self.temps[slot] = float(params.temperature)
         self.top_ks[slot] = int(params.top_k)
         self.top_ps[slot] = float(params.top_p)
-        self._sampling[slot] = params.temperature > 0.0
 
     def reset(self) -> None:
         """Forget all slots (warmup scribbles over slot 0)."""
-        self.temps.zero_()
-        self.top_ks.zero_()
+        for lane in (self.temps, self.top_ks, self.tokens, self.seeds,
+                     self.counters):
+            lane.zero_()
         self.top_ps.fill_(1.0)
-        self.tokens.zero_()
-        self._sampling = [False] * self.num_slots
 
-    def _gens(self, slots) -> List[Optional[torch.Generator]]:
-        return [self.generators[s] if self._sampling[s] else None
-                for s in slots]
+    def sample_slot(self, slot: torch.Tensor,
+                    logits_row: torch.Tensor) -> torch.Tensor:
+        """Prefill side: sample one slot's first token from its ``[1, V]``
+        logits, write it into the token lane and advance the slot's
+        counter.  ``slot`` is a ``[1]`` int64 device index.  Returns a
+        ``[1]`` int32 device tensor."""
+        lanes = [t.index_select(0, slot) for t in (
+            self.temps, self.top_ks, self.top_ps, self.seeds,
+            self.counters)]
+        tok = device_sample(logits_row, *lanes)
+        self.tokens.index_copy_(0, slot, tok)
+        self.counters.index_copy_(0, slot, lanes[-1] + 1)
+        return tok
 
-    def sample_slot(self, slot: int, logits_row: torch.Tensor) -> torch.Tensor:
-        """Prefill side: sample one slot's first token from its ``[V]``
-        logits and write it into the token lane.  Returns a device
-        scalar."""
-        sl = slice(slot, slot + 1)
-        tok = device_sample(logits_row[None], self.temps[sl],
-                            self.top_ks[sl], self.top_ps[sl],
-                            self._gens([slot]))
-        self.tokens[sl] = tok
-        return tok[0]
-
-    def sample_all(self, logits: torch.Tensor) -> torch.Tensor:
-        """Decode side: sample every slot from ``[slots, V]`` logits and
-        rewrite the token lane (idle slots sample tokens nobody reads)."""
+    def sample_all(self, logits: torch.Tensor,
+                   drew: torch.Tensor) -> torch.Tensor:
+        """Decode side: sample every slot from ``[slots, V]`` logits,
+        rewrite the token lane (idle slots sample tokens nobody reads) and
+        advance the counters of the slots in the ``[slots]`` int mask
+        ``drew``.  Returns the ``[slots]`` int32 tokens."""
         toks = device_sample(logits, self.temps, self.top_ks, self.top_ps,
-                             self._gens(range(self.num_slots)))
+                             self.seeds, self.counters)
         self.tokens.copy_(toks)
+        self.counters += drew
         return toks

@@ -16,8 +16,14 @@ with ``torch.profiler``:
 
 For each it prints one JSON line: host wall time per step (synchronised),
 device busy time per step (the union of kernel intervals), the idle
-share, device time by kernel group (the port's kernels K4/K5/K1, matrix
-products, the rest) and the top kernels.  No phase falls back to the CPU.
+share, the device launches per step (kernels the profiler saw, those of
+replayed CUDA graphs included), the port's kernels' launch counts per
+step (a replay adds its capture's; each must equal the profiler's count
+of that kernel, or the run fails), the host's enqueue time per step (the
+time spent in the engine's step programs: copying the inputs in and
+replaying, or capturing at a first call), device time by kernel group
+(the port's kernels K4/K5/K1, matrix products, the rest) and the top
+kernels.  No phase falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -45,6 +51,24 @@ GROUPS = (("K4 paged_decode", ("paged_decode_kernel",)),
                                   "argmax", "distribution")))
 
 
+def port_kernel_counts(events) -> dict:
+    """Per kernel of the port (``kernels.KERNELS``' names), the device
+    launches among the profiler's ``events`` (by the kernel's function
+    name, ``paged_decode`` -> ``paged_decode_kernel<...>``)."""
+    from paddle_tpu_torch.ops.kernels import KERNELS
+
+    return {n: sum(f"{n}_kernel" in e.name for e in events)
+            for n in KERNELS}
+
+
+def check_counts(counted: dict, profiled: dict) -> None:
+    """The wrappers' counts (a replayed graph adds its capture's) must be
+    the device launches the profiler saw, kernel by kernel."""
+    if counted != profiled:
+        raise AssertionError(f"launch counts {counted} differ from the "
+                             f"kernels the profiler saw {profiled}")
+
+
 def group_of(name: str) -> str:
     low = name.lower()
     for group, keys in GROUPS:
@@ -53,22 +77,29 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def trace(fn, n_steps: int, plain=None) -> dict:
+def trace(fn, n_steps: int, plain=None, enqueue=None) -> dict:
     """Run ``plain`` (default ``fn``) ``n_steps`` times on the host clock,
     then ``fn`` ``n_steps`` times under the profiler; per-step figures
-    (``wall_ms_per_step`` and the idle share are the untraced run's).
-    The idle share is taken against the unprofiled wall time (the
-    profiler slows the host)."""
+    (``wall_ms_per_step``, the idle share and the enqueue time are the
+    untraced run's).  The idle share is taken against the unprofiled wall
+    time (the profiler slows the host).  ``enqueue``: the list that the
+    engine's step programs append their host seconds to."""
     plain = plain or fn
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from paddle_tpu_torch.ops import kernels as port_kernels
+
     torch.cuda.synchronize()
+    if enqueue is not None:
+        enqueue.clear()
     t0 = time.perf_counter()
     for _ in range(n_steps):
         plain()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
+    enqueue_s = sum(enqueue) if enqueue is not None else None
+    port_kernels.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -76,12 +107,15 @@ def trace(fn, n_steps: int, plain=None) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counted = port_kernels.launch_counts()
     # device events, less the user annotations the profiler also records
     # on the device timeline (e.g. "Optimizer.step#AdamW.step")
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
+    profiled = port_kernel_counts(kernels)
+    check_counts(counted, profiled)
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -108,6 +142,11 @@ def trace(fn, n_steps: int, plain=None) -> dict:
         "device_busy_ms_per_step": busy / per,
         "device_idle_share": max(0.0, 1.0 - busy / (plain_wall * 1e6)),
         "kernel_launches_per_step": len(kernels) / n_steps,
+        # the wrappers' counts, each equal to the profiler's
+        "port_launches_per_step": {n: c / n_steps
+                                   for n, c in counted.items() if c},
+        "enqueue_ms_per_step": (None if enqueue_s is None
+                                else enqueue_s * 1e3 / n_steps),
         "groups_ms_per_step": {g: us / per for g, us in
                                sorted(groups.items(), key=lambda kv: -kv[1])},
         "top_kernels": [{"name": n[:120], "ms_per_step": us / per,
@@ -129,7 +168,17 @@ def main() -> int:
     eng = create_engine("llama:llama2-7b", device="cuda",
                         dtype=torch.bfloat16, kv_layout="paged",
                         block_size=16, min_bucket=16, num_slots=8, seed=0)
-    eng.warmup()
+    warm = eng.warmup()
+    # the host's enqueue: the seconds of each step program's call
+    enqueue, run = [], eng.programs.run
+
+    def timed_run(*args):
+        t0 = time.perf_counter()
+        out = run(*args)
+        enqueue.append(time.perf_counter() - t0)
+        return out
+
+    eng.programs.run = timed_run
     reqs = chip_smoke.make_requests(
         eng.config.vocab_size, 8, 512, [64, 1000, 300, 128, 777, 200, 512,
                                         96], seed=0)
@@ -147,10 +196,12 @@ def main() -> int:
     eng.add_request(reqs[0][0], sampling=reqs[0][1], max_new_tokens=200)
     eng.step()
     torch.cuda.synchronize()
+    enqueue.clear()
     t0 = time.perf_counter()
     admit(tails[0])()
     torch.cuda.synchronize()
     admission_wall = time.perf_counter() - t0
+    admission_enqueue = sum(enqueue)
     # six more fill the 8 slots; the last one retires with the last traced
     # decode step (1 token at admission, one per step after), freeing the
     # slot for the traced admission.  Nothing is profiled before the
@@ -166,7 +217,7 @@ def main() -> int:
         raise RuntimeError(f"expected 8 running slots, got "
                            f"{len(eng.running)}")
     lens = sorted(r._seq_len for r in eng.running.values())
-    decode = trace(eng.step, args.steps)
+    decode = trace(eng.step, args.steps, enqueue=enqueue)
     print(json.dumps({"phase": "decode_steps", "card": card,
                       "active_slots": 8, "lengths_at_start": lens,
                       **decode}),
@@ -175,11 +226,18 @@ def main() -> int:
         raise RuntimeError("the short request did not retire on time")
     adm = trace(admit(tails[1]), 1, plain=lambda: None)
     adm["wall_ms_per_step"] = admission_wall * 1e3
+    adm["enqueue_ms_per_step"] = admission_enqueue * 1e3
     adm["device_idle_share"] = max(
         0.0, 1.0 - adm["device_busy_ms_per_step"] / (admission_wall * 1e3))
     print(json.dumps({"phase": "admission_step", "card": card,
                       "tail": 1000, "prefix_hit": 512, "active_slots": 8,
                       **adm}), flush=True)
+    cc = eng.stats()["compile_cache"]
+    print(json.dumps({"phase": "programs", "card": card,
+                      "warmup_misses": warm["compile_misses"],
+                      "compile_cache": cc}), flush=True)
+    if cc["after_warmup"] != 0:
+        raise RuntimeError(f"step programs built after warmup: {cc}")
     print(card)
     return 0
 

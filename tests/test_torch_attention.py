@@ -121,7 +121,8 @@ def test_paged_prefill_matches_pallas(hkv, h, start):
     ref = paged_prefill_attention_kernel(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(row),
         start, interpret=True)
-    out = ca.paged_prefill_attention(_t(q), _t(kp), _t(vp), _t(row), start)
+    out = ca.paged_prefill_attention(_t(q), _t(kp), _t(vp), _t(row),
+                                     _t(np.array([start], np.int32)))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
                                atol=F32_TOL)
 
@@ -132,6 +133,7 @@ def test_paged_prefill_future_positions_are_invisible():
     kp, vp = _pool(rs, NB, BS, Hkv, D)
     row = np.array([1, 2, 3], np.int32)
     q = _t(rs.randn(1, S, 2, D).astype(np.float32))
+    start = _t(np.array([start], np.int32))
     out = ca.paged_prefill_attention(q, _t(kp), _t(vp), _t(row), start)
     kp2, vp2 = kp.copy(), vp.copy()
     kp2[2, 1:], vp2[2, 1:] = 777.0, -777.0
@@ -193,7 +195,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.paged_decode(q, pool, pool, tbl, lens)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.paged_prefill(q, pool, pool, tbl[0], 0)
+        kernels.paged_prefill(q, pool, pool, tbl[0], lens)
     x = torch.zeros(1, 8, 2, 64)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.flash_fwd(x, x, x)

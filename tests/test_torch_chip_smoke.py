@@ -1,9 +1,10 @@
 """``chip_smoke.py`` and the port's import boundary, on the CPU.
 
-The card-only phases of ``chip_smoke.py`` run on the card; here its serve
-and parity helpers run at ``llama_tiny`` size and its train and
-train_parity helpers at ``gpt_tiny`` size, with ``device="cpu"`` (the
-kernels' plain versions, so no kernel launches), and the script itself
+The card-only phases of ``chip_smoke.py`` run on the card; here its serve,
+parity and graph_parity helpers run at ``llama_tiny`` and ``gpt_tiny``
+size and its train and train_parity helpers at ``gpt_tiny`` size, with
+``device="cpu"`` (the kernels' plain versions, so no kernel launches, and
+the engine's step programs run their bodies), and the script itself
 must refuse to report a result where there is no card or no repository
 around it.
 """
@@ -89,6 +90,64 @@ def test_parity_phase_on_tiny_cpu():
     assert len(ref) == 4 and ref[0].shape == (2, 128)
     err = max((a - b).abs().max().item() for a, b in zip(got, ref))
     assert err <= 1e-5
+
+
+def test_gpt_parity_phase_on_tiny_cpu():
+    """``drive_paged`` on a GPT (learned positions, MHA, head dim 16): the
+    kernel route's plain versions agree with the reference route."""
+    model = GPTForCausalLM(gpt_tiny(max_position_embeddings=512),
+                           device="cpu",
+                           generator=torch.Generator().manual_seed(1))
+    rs = np.random.RandomState(2)
+    prompt = rs.randint(0, 128, (40,)).tolist()
+    tail = rs.randint(0, 128, (9,)).tolist()
+    ref, fed = chip_smoke.drive_paged(model, "reference", prompt, 32, tail, 3)
+    got, _ = chip_smoke.drive_paged(model, "cuda", prompt, 32, tail, 3,
+                                    feed=fed)
+    assert len(ref) == 4 and ref[0].shape == (2, 128)
+    assert max((a - b).abs().max().item() for a, b in zip(got, ref)) <= 1e-5
+
+
+def test_serve_gpt_phase_on_tiny_cpu():
+    """The serve_gpt phase's helper on ``gpt:tiny``: prefix hits, a clean
+    pool, every program built at warmup and none after."""
+    eng = create_engine("gpt:tiny", device="cpu", kv_layout="paged",
+                        block_size=8, min_bucket=8, max_seq=64, num_slots=4)
+    reqs = chip_smoke.make_requests(128, 6, 16, [3, 9, 17, 30], seed=2)
+    res = chip_smoke.serve(eng, reqs, max_new_tokens=4)
+    assert res["prefix_hit_rate"] > 0
+    assert res["kv_block_invariants"] == "ok"
+    assert res["compile_cache"]["misses"] == len(eng.buckets) + 1
+    assert res["compile_cache"]["after_warmup"] == 0
+    assert res["compile_cache"]["hits"] > 0
+
+
+def test_serve_fails_when_warmup_leaves_a_program_unbuilt():
+    eng = create_engine("gpt:tiny", device="cpu", kv_layout="paged",
+                        block_size=8, min_bucket=8, max_seq=64, num_slots=4)
+    warm = eng.warmup
+    eng.warmup = lambda: warm(buckets=[8])
+    reqs = chip_smoke.make_requests(128, 2, 16, [3, 30], seed=2)
+    with pytest.raises(AssertionError, match="warmup built 2 programs"):
+        chip_smoke.serve(eng, reqs, max_new_tokens=2)
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_graph_parity_phase_on_tiny_cpu(layout):
+    """The graph_parity helper: the engine's programs and the step bodies
+    driven eagerly by the phase give identical streams (on the CPU both
+    run the bodies; on the card the first are CUDA graphs)."""
+    model = GPTForCausalLM(gpt_tiny(max_position_embeddings=256),
+                           device="cpu",
+                           generator=torch.Generator().manual_seed(1))
+    reqs = chip_smoke.make_requests(128, 4, 48, [5, 40, 17, 90], seed=3)
+    res = chip_smoke.drive_graph_parity(model, layout, reqs, 8, num_slots=4,
+                                        max_seq=256, min_bucket=16,
+                                        block_size=16)
+    assert res["identical"] and len(res["programs"]) == 4
+    assert all(len(o) == 8 for o in res["eager"])
+    assert res["compile_cache"]["after_warmup"] == 0
+    assert res["compile_cache"]["hits"] == 4 + 7
 
 
 def test_train_phase_on_tiny_cpu():

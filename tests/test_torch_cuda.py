@@ -1,7 +1,7 @@
 """The port's CUDA kernels and engine on a card (skipped where there is none).
 
-This file imports torch and the port only, so it also runs on a machine
-without JAX:
+This file imports torch, the port and the helpers of ``chip_smoke`` and
+``profile_serving`` only, so it also runs on a machine without JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from paddle_tpu_torch.models import (
     GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
 )
@@ -60,9 +61,10 @@ def test_kernels_match_plain(cuda_device, dtype, tol, hkv, h):
                                ca.gather_block_kv(vp, tbl), lens)
     assert (got.float() - want.float()).abs().max().item() <= tol
     qs = rand(1, 40, h, 64)
-    got = kernels.paged_prefill(qs, kp, vp, tbl[2], 32)
+    start = torch.tensor([32], dtype=torch.int32, device=cuda_device)
+    got = kernels.paged_prefill(qs, kp, vp, tbl[2], start)
     want = ca.block_prefill_attention(qs, ca.gather_block_kv(kp, tbl[2:]),
-                                      ca.gather_block_kv(vp, tbl[2:]), 32)
+                                      ca.gather_block_kv(vp, tbl[2:]), start)
     assert (got.float() - want.float()).abs().max().item() <= tol
     x = rand(2, 40, h, 64)
     o, lse = kernels.flash_fwd(x, x, x, causal=True)
@@ -94,9 +96,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     flat = torch.zeros(1 + 8 * 2 * 64, dtype=torch.bfloat16,
                        device=cuda_device)
     shifted = flat[1:].view(1, 8, 2, 64)
+    start = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="16-byte"):
         kernels.paged_prefill(shifted, pool.bfloat16(), pool.bfloat16(),
-                              tbl[0], 0)
+                              tbl[0], start)
+    # K5 reads start from device memory: a host int is refused
+    with pytest.raises(ValueError, match="start"):
+        kernels.paged_prefill(q, pool, pool, tbl[0], 0)
 
 
 def _decode_inputs(device, dtype, lengths, h=32, hkv=32, d=128, bs=16,
@@ -306,6 +312,7 @@ def test_paged_prefill_bf16_tensor_cores_match_plain(cuda_device, S, start,
            ).to(torch.int32)
     q = torch.randn((1, S, h, 128), generator=g,
                     device=cuda_device).bfloat16()
+    start = torch.tensor([start], dtype=torch.int32, device=cuda_device)
     got = kernels.paged_prefill(q, kp, vp, row, start)
     want = ca.block_prefill_attention(q, ca.gather_block_kv(kp, row[None]),
                                       ca.gather_block_kv(vp, row[None]),
@@ -456,3 +463,152 @@ def test_gpt_bf16_loss_and_gradients_kernel_vs_reference(cuda_device):
     for n, want in ref_grads.items():
         err = ((grads[n] - want).norm() / want.norm().clamp(min=1e-30))
         assert err.item() <= 5e-2, n
+
+
+# -- the engine's step programs as CUDA graphs -------------------------------
+
+def _small_model(family, device):
+    """A 2-layer f32 model at head dim 64 (GPT) or 64 with GQA (Llama)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    if family == "gpt":
+        cfg = GPTConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                        num_attention_heads=4, max_position_embeddings=256,
+                        hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+        return GPTForCausalLM(cfg, device=device, generator=gen).eval()
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      intermediate_size=512, max_position_embeddings=256)
+    return LlamaForCausalLM(cfg, device=device, generator=gen).eval()
+
+
+_ENGINE_KW = dict(num_slots=4, max_seq=256, min_bucket=16, block_size=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_replayed_steps_equal_eager_bodies(cuda_device, family, layout):
+    """Seeded requests (greedy, temperature, top-k, top-p) served through
+    the engine's CUDA graphs and through its step bodies called eagerly
+    give the same tokens, token for token."""
+    model = _small_model(family, cuda_device)
+    reqs = chip_smoke.make_requests(512, 4, 40, [3, 30, 17, 70], seed=5)
+    res = chip_smoke.drive_graph_parity(model, layout, reqs, 10,
+                                        **_ENGINE_KW)
+    assert res["programs"] == res["eager"]
+    cc = res["compile_cache"]
+    assert cc["after_warmup"] == 0 and cc["hits"] >= 4 + 9
+
+
+@pytest.mark.cuda
+def test_capture_after_warmup_counts_a_miss(cuda_device):
+    """A bucket that warmup did not build is captured at its first
+    admission: one miss after warmup, then hits."""
+    eng = Engine(_small_model("gpt", cuda_device), kv_layout="paged",
+                 **_ENGINE_KW)
+    assert eng.warmup(buckets=[16])["compile_misses"] == 2
+    eng.generate([list(range(5))], max_new_tokens=3)
+    assert eng.stats()["compile_cache"]["after_warmup"] == 0
+    eng.generate([list(range(20))], max_new_tokens=3)      # bucket 32
+    cc = eng.stats()["compile_cache"]
+    assert cc["after_warmup"] == 1 and cc["misses"] == 3
+    eng.generate([list(range(30))], max_new_tokens=3)
+    assert eng.stats()["compile_cache"]["misses"] == 3
+    assert ("prefill", 32) in eng.programs.keys()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_paged_prefill_device_start_replayed(cuda_device, dtype, tol):
+    """K5 captured once into a CUDA graph with its start in device memory,
+    then replayed at other starts written into that memory, matches its
+    plain version at each (a negative start counts as 0 in both)."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    S, h, hkv, d, n_blocks = 32, 8, 2, 64, 40
+    kp, vp = (torch.randn((n_blocks + 1, 2, 16, hkv, d), generator=g,
+                          device=cuda_device).to(dtype)[:, 1]
+              for _ in range(2))
+    row = (torch.randperm(n_blocks, generator=g, device=cuda_device) + 1
+           ).to(torch.int32)
+    q = torch.randn((1, S, h, d), generator=g, device=cuda_device).to(dtype)
+    start = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.paged_prefill(q, kp, vp, row, start)        # load, opt in
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernels.paged_prefill(q, kp, vp, row, start)
+    for s in (0, 16, 80, 512, -16):
+        start.fill_(s)
+        graph.replay()
+        want = ca.block_prefill_attention(
+            q, ca.gather_block_kv(kp, row[None]),
+            ca.gather_block_kv(vp, row[None]), start)
+        assert (out.float() - want.float()).abs().max().item() <= tol, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_replayed_decode_step_issues_no_host_sync(cuda_device, layout):
+    """A replayed decode step (the active mask copied in from pinned
+    memory, then the graph) runs under ``set_sync_debug_mode("error")``."""
+    eng = Engine(_small_model("llama", cuda_device), kv_layout=layout,
+                 **_ENGINE_KW)
+    eng.warmup()
+    eng.add_request(list(range(9)), max_new_tokens=8)
+    eng.step()                                  # admission + one decode
+    active = np.zeros(eng.num_slots, dtype=np.int32)
+    active[list(eng.running)] = 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = eng._run_decode(active)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.shape == (eng.num_slots,) and out.dtype == torch.int32
+    assert eng.stats()["compile_cache"]["after_warmup"] == 0
+
+
+@pytest.mark.cuda
+def test_launch_counts_are_per_replay(cuda_device):
+    """A replayed graph adds the launches its capture made: K4 once per
+    layer per decode step, K5 once per layer per admission."""
+    eng = Engine(_small_model("gpt", cuda_device), kv_layout="paged",
+                 **_ENGINE_KW)
+    eng.warmup()
+    kernels.reset_launches()
+    eng.generate([list(range(12))], max_new_tokens=6)
+    layers = eng.config.num_hidden_layers
+    assert kernels.KERNELS["paged_prefill"].launches == layers
+    assert kernels.KERNELS["paged_decode"].launches == 5 * layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_launch_counts_equal_the_profiled_kernels(cuda_device, layout):
+    """Under replay the counts are bookkept (a replay adds its capture's);
+    the profiler sees the device's own launches: K4/K5 (paged) or K1
+    (contiguous prefill) counted as many times as the trace shows them."""
+    import profile_serving
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = Engine(_small_model("gpt", cuda_device), kv_layout=layout,
+                 **_ENGINE_KW)
+    eng.warmup()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.generate([list(range(12)), list(range(40))], max_new_tokens=6)
+        torch.cuda.synchronize()
+    counted = kernels.launch_counts()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    profiled = profile_serving.port_kernel_counts(events)
+    profile_serving.check_counts(counted, profiled)
+    k = "paged_prefill" if layout == "paged" else "flash_fwd"
+    assert counted[k] == 2 * eng.config.num_hidden_layers

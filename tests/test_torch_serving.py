@@ -7,7 +7,8 @@ weights are converted into the port.  Six greedy prompts sharing a
 num_slots=4)`` in both packages, and by the contiguous layout; the
 generated ids must be identical (exact: greedy argmax of f32 logits that
 agree to ~1e-6).  Sampling is held to the JAX masking law and to
-same-seed replay within the port (torch and jax.random streams differ).
+same-seed replay within the port (the port's counter-based noise and
+jax.random's streams differ).
 """
 import numpy as np
 import pytest
@@ -132,7 +133,7 @@ def test_greedy_sampling_is_argmax_of_raw_logits():
     logits = rs.randn(4, 40).astype(np.float32)
     toks = device_sample(torch.from_numpy(logits), torch.zeros(4),
                          torch.zeros(4, dtype=torch.int32), torch.ones(4),
-                         [None] * 4)
+                         torch.arange(4), torch.zeros(4, dtype=torch.int64))
     want = [sample(row, SamplingParams()) for row in logits]
     assert toks.tolist() == want
 
@@ -140,25 +141,26 @@ def test_greedy_sampling_is_argmax_of_raw_logits():
 def test_top_k_one_is_greedy():
     rs = np.random.RandomState(6)
     logits = torch.from_numpy(rs.randn(3, 40).astype(np.float32))
-    gens = [torch.Generator().manual_seed(i) for i in range(3)]
     toks = device_sample(logits, torch.ones(3),
                          torch.ones(3, dtype=torch.int32), torch.ones(3),
-                         gens)
+                         torch.arange(3), torch.zeros(3, dtype=torch.int64))
     assert torch.equal(toks.long(), logits.argmax(-1))
 
 
 def test_sampling_law_matches_host_oracle():
     """4k seeded draws from one top-k/top-p row against the host oracle's
-    probabilities (L1 distance of the histograms < 0.05)."""
+    probabilities (L1 distance of the histograms < 0.05): 4000 rows of one
+    seed lane, each at its own draw counter, as one slot's stream."""
     rs = np.random.RandomState(7)
     row = rs.randn(20).astype(np.float32) * 2
     params = SamplingParams(temperature=0.8, top_k=8, top_p=0.9)
     n = 4000
     logits = torch.from_numpy(np.tile(row, (n, 1)))
-    gens = [torch.Generator().manual_seed(i) for i in range(n)]
     toks = device_sample(logits, torch.full((n,), 0.8),
                          torch.full((n,), 8, dtype=torch.int32),
-                         torch.full((n,), 0.9), gens).numpy()
+                         torch.full((n,), 0.9),
+                         torch.full((n,), 7919, dtype=torch.int64),
+                         torch.arange(n)).numpy()
     got = np.bincount(toks, minlength=20) / n
     z = masked_logits(torch.from_numpy(row[None]), torch.tensor([0.8]),
                       torch.tensor([8], dtype=torch.int32),

@@ -42,14 +42,31 @@ Phases, each printing one JSON line with the card's name and power limit:
               contiguous: seeded requests (greedy and sampling) served
               through the engine's programs and through its step bodies
               called eagerly give identical token streams.
-8. train    — GPT-2 345M at full width (24 layers, random weights from a
+8. serve_overload — serve_paged's Llama-2 7B (kept alive until here)
+              under overload: a paged engine of 8 slots whose pool of 384
+              blocks (3.0 GiB) cannot hold its 24 requests, in three
+              priority classes arriving at steps 0, 8 and 16 (the normals
+              with a deadline shed, one queued and one running low
+              cancelled), with a live request tracer.  It fails unless
+              some stream was preempted for a slot and some for blocks, a
+              resume hit all its prompt's whole blocks, the trace chain is
+              valid, no program was built after warmup and the pool is
+              clean after; it prints TTFT and ITL per class and writes the
+              Chrome trace into the temporary directory.
+9. overload_parity — both widths at 2 layers in f32, paged and
+              contiguous, 2 slots: a greedy and a seeded top-p low request
+              preempted by high arrivals while the step programs fail
+              (before and after they ran) must give the streams each gives
+              served alone; a decode failing past its retry fails its
+              batch and the next request is served as alone.
+10. train   — GPT-2 345M at full width (24 layers, random weights from a
               seed), batch 8 x 1024, bf16 AMP O2 with f32 masters, AdamW:
               3 warm-up and 10 timed steps on one batch; the K1/K2/K3
               launch counts of these 13 steps are read.
-9. train_parity — GPT-2 345M width at 2 layers in f32: loss, every
+11. train_parity — GPT-2 345M width at 2 layers in f32: loss, every
               gradient and the parameters after one AdamW step on the
               kernel path against ``kernel="reference"``.
-10. train_parity_bf16 — the same model in bf16: loss and every gradient
+12. train_parity_bf16 — the same model in bf16: loss and every gradient
               on the kernel path (the bf16 K1, K2 and K3 on tensor cores)
               against ``kernel="reference"``.
 
@@ -67,6 +84,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -669,18 +687,24 @@ def phase_kernels(hgmma: dict) -> dict:
 
 # -- phases 3, 4 and 5: serving ---------------------------------------------
 
+def sampling_laws(seed: int):
+    """Greedy, temperature, top-k and top-p, the three drawn laws seeded
+    from ``seed``."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    return [SamplingParams(),
+            SamplingParams(temperature=0.8, seed=seed + 1),
+            SamplingParams(temperature=1.0, top_k=40, seed=seed + 2),
+            SamplingParams(temperature=0.7, top_p=0.9, seed=seed + 3)]
+
+
 def make_requests(vocab: int, n: int, prefix_len: int, tail_lens, seed: int):
     """``n`` prompts sharing one ``prefix_len``-token system prompt, tails
     cycling through ``tail_lens``, with greedy, temperature, top-k and
     top-p requests in turn (seeded)."""
-    from paddle_tpu_torch.serving import SamplingParams
-
     rs = np.random.RandomState(seed)
     system = rs.randint(0, vocab, (prefix_len,)).tolist()
-    laws = [SamplingParams(),
-            SamplingParams(temperature=0.8, seed=seed + 1),
-            SamplingParams(temperature=1.0, top_k=40, seed=seed + 2),
-            SamplingParams(temperature=0.7, top_p=0.9, seed=seed + 3)]
+    laws = sampling_laws(seed)
     out = []
     for i in range(n):
         tail = rs.randint(0, vocab, (tail_lens[i % len(tail_lens)],))
@@ -1040,7 +1064,397 @@ def phase_graph_parity():
         torch.cuda.empty_cache()
 
 
-# -- phases 8, 9 and 10: training ------------------------------------------
+# -- phases 8 and 9: the overload regime -----------------------------------
+
+#: ``serve_overload``'s traffic: (class, arrival step, tails, new tokens);
+#: every prompt is the shared system prompt plus its tail, and no prompt
+#: is a whole number of blocks, so a resume can hit all its whole blocks
+OVERLOAD_TRAFFIC = (
+    ("low", 0, [300, 1400, 700, 1100, 333, 950, 1203, 401, 777, 1349, 555,
+                900], 64),
+    ("normal", 8, [65, 300, 129, 511, 200, 77, 400, 150], 64),
+    ("high", 16, [33, 127, 90, 45], 32),
+)
+#: how many of the normal arrivals (the last ones) carry a deadline that
+#: their estimated queue wait must exceed
+OVERLOAD_SHED = 2
+OVERLOAD_DEADLINE_S = 0.05
+
+
+def _percentiles(xs) -> dict:
+    if not xs:
+        return {"count": 0, "p50_ms": None, "p99_ms": None}
+    s = sorted(xs)
+    q = lambda p: s[min(len(s) - 1, int(p * (len(s) - 1) + 0.5))]  # noqa
+    return {"count": len(s), "p50_ms": round(q(0.5) * 1e3, 3),
+            "p99_ms": round(q(0.99) * 1e3, 3)}
+
+
+def preempt_causes(tracer) -> dict:
+    """Each ``preempt`` event's cause: ``blocks`` when the scheduler
+    evicted for KV blocks (the event right after a deferred admission's
+    ``block_pressure``), else ``slot``."""
+    out = {"slot": 0, "blocks": 0}
+    prev = None
+    for ev in tracer.events:
+        if ev["kind"] == "preempt":
+            blocks = (prev is not None and prev["kind"] == "block_pressure"
+                      and "defers" in prev)
+            out["blocks" if blocks else "slot"] += 1
+        if ev["kind"] != "decode_step":
+            prev = ev
+    return out
+
+
+def serve_overload(engine, vocab: int, system_len: int, traffic,
+                   n_shed: int, deadline_s: float, seed: int) -> dict:
+    """Warm ``engine`` (paged, with a live ``RequestTracer``), then drive
+    ``traffic``: each class's requests arrive at their step, the four
+    sampling laws in turn; the last ``n_shed`` normal arrivals carry
+    ``deadline_s`` and must be shed; one queued and one running low
+    request are cancelled.  Checks the overload regime and returns the
+    run's figures."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import (
+        PRIORITY_HIGH, PRIORITY_LOW, PRIORITY_NORMAL, ShedReject,
+        validate_trace,
+    )
+
+    classes = {"low": PRIORITY_LOW, "normal": PRIORITY_NORMAL,
+               "high": PRIORITY_HIGH}
+    tracer = engine.tracer
+    rs = np.random.RandomState(seed)
+    system = rs.randint(0, vocab, (system_len,)).tolist()
+    laws = sampling_laws(seed)
+    warm = engine.warmup()
+    cuda = engine.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = {}                       # request -> [(attempt, t)] per token
+
+    def cb(tok, req):
+        times.setdefault(req.request_id, []).append(
+            (req.preemptions, time.perf_counter()))
+
+    reqs, shed, cancels, n = [], [], {}, 0
+    last_arrival = max(at for _, at, _, _ in traffic)
+    step, t0 = 0, time.perf_counter()
+    while True:
+        for cls, at, tails, new in traffic:
+            if at != step:
+                continue
+            for i, tail_len in enumerate(tails):
+                prompt = system + rs.randint(0, vocab, (tail_len,)).tolist()
+                dl = deadline_s if (cls == "normal"
+                                    and i >= len(tails) - n_shed) else None
+                try:
+                    reqs.append(engine.add_request(
+                        prompt, sampling=laws[n % 4],
+                        max_new_tokens=new, priority=cls, deadline_s=dl,
+                        stream_cb=cb))
+                except ShedReject as e:
+                    shed.append(e.request)
+                n += 1
+        # one low cancelled while queued (step 2), one while running (4)
+        for at, state in ((2, "queued"), (4, "running")):
+            victim = next((r for r in reqs if step == at and r.state == state
+                           and r.priority == PRIORITY_LOW), None)
+            if victim is not None and victim.cancel():
+                cancels[state] = victim.request_id
+        busy = engine.step()
+        step += 1
+        if not busy and step > last_arrival:
+            break
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    st = engine.stats()
+    # -- checks
+    problems = []
+    cancelled = {r.request_id for r in reqs if r.state == "cancelled"}
+    if set(cancels.values()) != cancelled or len(cancelled) != 2:
+        problems.append(f"cancelled {sorted(cancelled)}, asked {cancels}")
+    for r in reqs:
+        if r.request_id in cancelled:
+            continue
+        if r.state != "finished" or len(r.output_ids) != r.max_new_tokens:
+            problems.append(f"request {r.request_id} (class "
+                            f"{r.priority}) ended "
+                            f"{r.state} with {len(r.output_ids)} tokens "
+                            f"({r.error})")
+        if not all(0 <= t < vocab for t in r.output_ids):
+            problems.append(f"request {r.request_id}: token out of range")
+    if len(shed) != n_shed or st["overload"]["shed"] != n_shed:
+        problems.append(f"shed {len(shed)} requests "
+                        f"({st['overload']['shed']} counted), want {n_shed}")
+    if st["failures"]["cancelled"] != 2:
+        problems.append(f"cancelled counter {st['failures']['cancelled']}")
+    causes = preempt_causes(tracer)
+    if causes["slot"] < 1 or causes["blocks"] < 1:
+        problems.append(f"preemptions by cause {causes}: want >= 1 each")
+    bs = engine.block_size
+    by_id = {r.request_id: r for r in reqs}
+    resumes = []
+    for ev in tracer.events:
+        if ev["kind"] != "admitted" or \
+                tracer.spans[ev["span"]]["name"] != "resume":
+            continue
+        L = int(by_id[ev["request_id"]].prompt_ids.size)
+        resumes.append({"request": ev["request_id"], "prompt": L,
+                        "prefix_hit": ev["prefix_hit"],
+                        "bucket": ev["bucket"],
+                        "whole_blocks_hit":
+                            ev["prefix_hit"] >= (L // bs) * bs})
+    if not any(r["whole_blocks_hit"] for r in resumes):
+        problems.append(f"no resume hit all its prompt's whole blocks: "
+                        f"{resumes}")
+    trace_problems = validate_trace(tracer)
+    if trace_problems:
+        problems.append(f"trace chain: {trace_problems[:5]}")
+    if st["compile_cache"]["after_warmup"] != 0:
+        problems.append(f"programs built after warmup: "
+                        f"{st['compile_cache']}")
+    if st["health"]["kv_block_invariants"] != "ok":
+        problems.append(f"allocator: {st['health']['kv_block_invariants']}")
+    if st["paging"]["blocks"]["used"] != 0:
+        problems.append(f"blocks still in use: {st['paging']['blocks']}")
+    if problems:
+        raise AssertionError("serve_overload: " + "; ".join(problems))
+    # -- figures: TTFT and ITL per class over each request's last attempt
+    by_class = {}
+    for cls, prio in classes.items():
+        done = [r for r in reqs if r.finished and r.priority == prio]
+        itl = []
+        for r in done:
+            ts = [t for a, t in times[r.request_id] if a == r.preemptions]
+            itl += [b - a for a, b in zip(ts, ts[1:])]
+        by_class[cls] = {"requests": len(done),
+                         "ttft": _percentiles([r.ttft_s for r in done]),
+                         "itl": _percentiles(itl)}
+    res = {"requests": len(reqs) + len(shed), "finished": sum(
+               r.finished for r in reqs), "shed": len(shed),
+           "cancelled": sorted(cancels.items()), "steps": step,
+           "wall_s": round(wall, 3), "by_class": by_class,
+           "decode_tokens_per_sec": st["decode_tokens_per_sec"],
+           "preemptions": st["overload"]["preemptions"],
+           "preemptions_by_cause": causes,
+           "resumes": resumes,
+           "resume_prefix_hit_tokens": sum(r["prefix_hit"]
+                                           for r in resumes),
+           "queue_depth_max": st["queue_depth_max"],
+           "failures": st["failures"],
+           "prefix_hit_rate": st["paging"]["prefix"]["hit_rate"],
+           "kv_block_invariants": st["health"]["kv_block_invariants"],
+           "compile_cache": st["compile_cache"],
+           "warmup_programs": warm["compile_misses"],
+           "launches": launches,
+           "trace_events": len(tracer.events)}
+    if cuda:
+        res["peak_memory_gb"] = round(torch.cuda.max_memory_allocated()
+                                      / 2 ** 30, 3)
+        res["peak_reserved_gb"] = round(torch.cuda.max_memory_reserved()
+                                        / 2 ** 30, 3)
+    return res
+
+
+def overload_engine(model):
+    """``serve_overload``'s engine: paged, 8 slots, max_seq 4096, a pool
+    of 384 blocks of 16 plus the scratch block (3.0 GiB at Llama-2 7B in
+    bf16), two preemptions a request, aging slower than the run, a queue
+    of 16 and a live request tracer."""
+    from paddle_tpu_torch.serving import Engine, RequestTracer
+
+    return Engine(model, kv_layout="paged", num_slots=8, max_seq=4096,
+                  min_bucket=16, block_size=16, num_kv_blocks=385,
+                  max_preemptions=2, priority_aging_s=30, max_queue=16,
+                  tracer=RequestTracer())
+
+
+def run_serve_overload(model) -> tuple:
+    """``overload_engine`` over ``model`` serving ``OVERLOAD_TRAFFIC``
+    after a 512-token system prompt.  Returns the engine and the run's
+    figures."""
+    eng = overload_engine(model)
+    return eng, serve_overload(eng, model.config.vocab_size, 512,
+                               OVERLOAD_TRAFFIC, OVERLOAD_SHED,
+                               OVERLOAD_DEADLINE_S, seed=4)
+
+
+def phase_serve_overload(model) -> dict:
+    """Llama-2 7B (serve_paged's model) under overload: 24 requests in
+    three priority classes through a paged engine whose pool cannot hold
+    them all."""
+    from paddle_tpu_torch import obs
+
+    eng, res = run_serve_overload(model)
+    if res["launches"]["paged_decode"] < 1 or \
+            res["launches"]["paged_prefill"] < 1:
+        raise AssertionError(f"serve_overload did not run K4/K5: "
+                             f"{res['launches']}")
+    path = obs.write_chrome_trace(eng.tracer, os.path.join(
+        tempfile.gettempdir(), "serve_overload_trace.json"))
+    emit("serve_overload", model="llama2-7b", dtype="bfloat16",
+         kv_pool_gb=round(eng.cache.nbytes() / 2 ** 30, 3),
+         num_kv_blocks=eng.cache.num_blocks, chrome_trace=path, **res)
+    return res
+
+
+def drive_overload_parity(model, layout: str, seed: int, **engine_kw) -> dict:
+    """On one engine (2 slots): a greedy and a seeded top-p ``low``
+    request, each served alone for reference; then both running when two
+    ``high`` requests arrive and preempt them, with the step programs
+    failing (a prefill before and after it ran, a decode before and
+    after); then a decode failing past its retries, and one more request.
+    Returns the streams, the references and the counters."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import Engine, SamplingParams
+
+    eng = Engine(model, kv_layout=layout, num_slots=2, max_preemptions=2,
+                 priority_aging_s=30, **engine_kw)
+    eng.warmup()
+    vocab = model.config.vocab_size
+    rs = np.random.RandomState(seed)
+    lows = [(rs.randint(0, vocab, (40,)).tolist(), SamplingParams()),
+            (rs.randint(0, vocab, (70,)).tolist(),
+             SamplingParams(temperature=0.8, top_p=0.9, seed=seed))]
+    highs = [rs.randint(0, vocab, (n,)).tolist() for n in (20, 33)]
+
+    def alone(prompt, law, priority="low"):
+        r = eng.add_request(prompt, sampling=law, max_new_tokens=12,
+                            priority=priority)
+        eng.run()
+        return r.output_ids
+
+    # served twice alone: the second admission takes the same prefix hit
+    # (paged) as the overload run's admissions and resumes
+    ref = [alone(p, s) for p, s in lows]
+    ref = [alone(p, s) for p, s in lows]
+    ref_high = [alone(p, SamplingParams()) for p in highs]
+    ref_high = [alone(p, SamplingParams()) for p in highs]
+    before = eng.stats()["failures"]
+    run, calls = eng.programs.run, {"prefill": 0, "decode": 0}
+    # (kind, call number) -> when the call fails: never two in a row, so
+    # one retry absorbs each
+    faults = {("prefill", 1): "before", ("prefill", 4): "after",
+              ("decode", 2): "before", ("decode", 6): "after"}
+
+    def flaky(key, body, *inputs):
+        calls[key[0]] += 1
+        when = faults.get((key[0], calls[key[0]]))
+        if when == "before":
+            raise RuntimeError(f"injected fault before {key}")
+        out = run(key, body, *inputs)
+        if when == "after":
+            raise RuntimeError(f"injected fault after {key}")
+        return out
+
+    kernels.reset_launches()
+    eng.programs.run = flaky
+    try:
+        lo = [eng.add_request(p, sampling=s, max_new_tokens=12,
+                              priority="low") for p, s in lows]
+        for _ in range(3):
+            eng.step()
+        running = all(r.state == "running" and r.output_ids for r in lo)
+        hi = [eng.add_request(p, max_new_tokens=12, priority="high")
+              for p in highs]
+        eng.run()
+    finally:
+        del eng.programs.run
+    after = eng.stats()["failures"]
+    retried = {k: v - before["retries_by_point"].get(k, 0)
+               for k, v in after["retries_by_point"].items()}
+    # a decode failing past its one retry fails its batch, not the engine
+    exhausted = {("decode", calls["decode"] + 1): "before",
+                 ("decode", calls["decode"] + 2): "after"}
+    faults = exhausted
+    eng.programs.run = flaky
+    try:
+        doomed = [eng.add_request(p, max_new_tokens=12, priority="high")
+                  for p in highs]
+        eng.run()
+    finally:
+        del eng.programs.run
+    nxt = alone(*lows[0])
+    launches = kernels.launch_counts()
+    health = eng.health()
+    return {"running_before_preemption": running,
+            "preempted": [r.preemptions for r in lo],
+            "states": [r.state for r in lo + hi],
+            "streams": [r.output_ids for r in lo],
+            "references": ref,
+            "high_streams": [r.output_ids for r in hi],
+            "high_references": ref_high,
+            "retries_by_point": retried,
+            "step_failures": after["step_failures"]
+            - before["step_failures"],
+            "doomed": [(r.state, (r.error or "").split(":")[0])
+                       for r in doomed],
+            "next_stream": nxt, "next_reference": ref[0],
+            "kv_block_invariants": health.get("kv_block_invariants", "ok"),
+            "slots_free": health["slots_free"],
+            "after_warmup": eng.stats()["compile_cache"]["after_warmup"],
+            "launches": launches}
+
+
+def check_overload_parity(res: dict, label: str) -> None:
+    want_doomed = [("failed", "decode step failed after 1 retry")] * 2
+    problems = []
+    if not res["running_before_preemption"]:
+        problems.append("the low requests were not both running")
+    if not all(n >= 1 for n in res["preempted"]):
+        problems.append(f"preemptions {res['preempted']}")
+    if res["states"] != ["finished"] * 4:
+        problems.append(f"states {res['states']}")
+    if res["streams"] != res["references"]:
+        problems.append(f"preempted streams {res['streams']} != alone "
+                        f"{res['references']}")
+    if res["high_streams"] != res["high_references"]:
+        problems.append("high streams differ from alone")
+    if res["retries_by_point"] != {"serving.prefill": 2,
+                                   "serving.decode": 2}:
+        problems.append(f"retries {res['retries_by_point']}")
+    if res["doomed"] != want_doomed:
+        problems.append(f"exhausted decode: {res['doomed']}")
+    if res["next_stream"] != res["next_reference"]:
+        problems.append("the request after the failed batch differs")
+    if res["kv_block_invariants"] != "ok" or res["slots_free"] != 2:
+        problems.append(f"pool {res['kv_block_invariants']}, "
+                        f"{res['slots_free']} slots free")
+    if res["after_warmup"] != 0:
+        problems.append(f"{res['after_warmup']} programs after warmup")
+    if problems:
+        raise AssertionError(f"overload_parity ({label}): "
+                             + "; ".join(problems))
+
+
+def phase_overload_parity():
+    for label, build in parity_models():
+        model = build()
+        for layout in ("paged", "contiguous"):
+            res = drive_overload_parity(model, layout, seed=6, max_seq=256,
+                                        min_bucket=16, block_size=16)
+            emit("overload_parity", model=label, dtype="float32",
+                 layout=layout,
+                 **{k: v for k, v in res.items() if k not in (
+                     "streams", "references", "high_streams",
+                     "high_references", "next_stream", "next_reference")})
+            check_overload_parity(res, f"{label}, {layout}")
+            want = ("paged_decode", "paged_prefill") if layout == "paged" \
+                else ("flash_fwd",)
+            if any(res["launches"][k] < 1 for k in want):
+                raise AssertionError(f"overload_parity ({label}, {layout}) "
+                                     f"did not launch {want}: "
+                                     f"{res['launches']}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# -- phases 10, 11 and 12: training ----------------------------------------
 
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 
@@ -1276,7 +1690,6 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_contiguous(model)
-    del model
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_gpt()
@@ -1284,6 +1697,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_parity()
     phase_graph_parity()
+    phase_serve_overload(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_overload_parity()
     train = phase_train()
     gc.collect()
     torch.cuda.empty_cache()

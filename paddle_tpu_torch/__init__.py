@@ -17,9 +17,9 @@ models, each engine step a CUDA graph on the card;
 ``device="cpu"``; on CPU tensors each kernel's plain PyTorch version runs
 instead.
 """
-from . import amp, models, ops, optimizer, serving
+from . import amp, models, obs, ops, optimizer, serving
 from .inference import create_engine
 from .training import build_train_step
 
-__all__ = ["amp", "build_train_step", "create_engine", "models", "ops",
-           "optimizer", "serving"]
+__all__ = ["amp", "build_train_step", "create_engine", "models", "obs",
+           "ops", "optimizer", "serving"]

@@ -1,10 +1,21 @@
-"""Continuous-batching serving of the port: engine, caches, sampling."""
-from .engine import Engine, Request
+"""Continuous-batching serving of the port: engine, caches, sampling,
+the overload regime and the request tracer."""
+from .engine import (
+    PRIORITY_HIGH, PRIORITY_LOW, PRIORITY_NORMAL, Engine, QueueFull, Request,
+    ShedReject,
+)
 from .kv_cache import CacheContext, KVCache
+from .metrics import ServingMetrics
 from .paging import BlockAllocator, PagedCacheContext, PagedKVCache
 from .prefix_cache import PrefixCache
 from .sampling import DeviceSampler, SamplingParams
+from .tracing import (
+    NULL_TRACER, FlightRecorder, RequestTracer, validate_trace,
+)
 
-__all__ = ["Engine", "Request", "CacheContext", "KVCache", "BlockAllocator",
-           "PagedCacheContext", "PagedKVCache", "PrefixCache",
-           "DeviceSampler", "SamplingParams"]
+__all__ = ["Engine", "Request", "QueueFull", "ShedReject", "PRIORITY_LOW",
+           "PRIORITY_NORMAL", "PRIORITY_HIGH", "CacheContext", "KVCache",
+           "BlockAllocator", "PagedCacheContext", "PagedKVCache",
+           "PrefixCache", "DeviceSampler", "SamplingParams",
+           "ServingMetrics", "RequestTracer", "NULL_TRACER",
+           "FlightRecorder", "validate_trace"]

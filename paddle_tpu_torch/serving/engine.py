@@ -27,16 +27,36 @@ reuses (hits): a miss after warmup is an anomaly.  The bodies stay
 methods (:meth:`Engine._prefill_step`, :meth:`Engine._decode_step`) that
 can be called eagerly.
 
-The opt-in subsystems of the JAX engine are not part of this port yet:
-speculation, adapters, grammars, the journal, the tracer, the mesh, fault
-plans, the sanitizer and the watchdog, priorities, preemption, shedding,
-deadlines, bounded queues and step retries, and ``Fleet``.
+Request lifecycle and overload, as in the JAX engine: requests end
+``finished | failed | cancelled | rejected``, every exit through
+:meth:`Engine._retire`; ``Request.cancel()``, wall-clock deadlines, a
+bounded queue (:class:`QueueFull`, ``reject`` or ``block``), bounded step
+retries, priority classes with deferral aging, preemption of a
+lower-priority stream for a slot or for KV blocks (its prompt blocks kept
+in the prefix cache, so the resume prefills only the tail bucket), and
+SLO shedding (:class:`ShedReject`).  All of it is host-side bookkeeping
+between programs: none of it adds a step program.  A request tracer
+(``tracer=``, :mod:`.tracing`) records each request's span chain, and a
+flight recorder keeps the last steps' summaries.
+
+A step program writes state in place while it runs (the KV cache, the
+lengths, the sampler's token and draw-counter lanes), where the JAX
+engine's ``jit`` wrote state back only when a call returned.  So a retry
+first rewrites, from the host's own bookkeeping, what a failed call may
+have written, whether it failed before its replay was enqueued or after
+(:meth:`Engine._step_call`).
+
+The opt-in subsystems of the JAX engine that are not part of this port
+yet: speculation, adapters, grammars, the journal, ``drain``/``shutdown``
+/``recover``/``update_weights``, the mesh, fault plans, the sanitizer and
+the watchdog, the prefix-lookup timeout, and ``Fleet``.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
@@ -49,19 +69,65 @@ from .kv_cache import CacheContext, KVCache
 from .metrics import ServingMetrics
 from .programs import StepPrograms
 from .sampling import DeviceSampler, SamplingParams
+from .tracing import NULL_TRACER, FlightRecorder, RequestTracer
 
-__all__ = ["Engine", "Request", "SamplingParams"]
+__all__ = ["Engine", "Request", "SamplingParams", "QueueFull", "ShedReject",
+           "PRIORITY_LOW", "PRIORITY_NORMAL", "PRIORITY_HIGH"]
 
 _engine_counter = itertools.count()
 
 #: States a request never leaves.
-TERMINAL_STATES = frozenset({"finished", "failed", "rejected"})
+TERMINAL_STATES = frozenset({"finished", "failed", "cancelled", "rejected"})
+
+#: Priority classes (any int works; higher serves first).
+PRIORITY_LOW, PRIORITY_NORMAL, PRIORITY_HIGH = 0, 1, 2
+
+_PRIORITY_NAMES = {"low": PRIORITY_LOW, "normal": PRIORITY_NORMAL,
+                   "high": PRIORITY_HIGH}
+
+
+def _as_priority(priority) -> int:
+    """Normalize a priority class: ``"low"|"normal"|"high"`` or any int
+    (higher = served first)."""
+    if isinstance(priority, str):
+        try:
+            return _PRIORITY_NAMES[priority.lower()]
+        except KeyError:
+            raise ValueError(
+                f"unknown priority {priority!r}; want one of "
+                f"{sorted(_PRIORITY_NAMES)} or an int") from None
+    return int(priority)
+
+
+class QueueFull(RuntimeError):
+    """Admission rejected by backpressure: the request queue is at
+    ``max_queue`` (and, under the ``block`` policy, stayed full past the
+    block timeout).  Carries the observed ``depth`` and the engine's
+    estimated ``retry_after_s`` (also on the rejected handle's
+    ``Request.error_ctx``)."""
+
+    def __init__(self, msg: str, depth: int,
+                 retry_after_s: Optional[float] = None):
+        super().__init__(msg)
+        self.depth = depth
+        self.retry_after_s = retry_after_s
+
+
+class ShedReject(QueueFull):
+    """SLO-aware admission shed: the request carries a wall-clock
+    deadline its estimated queue wait already exceeds, so prefilling it
+    would spend a prefill on work doomed to miss its SLO.  A subclass of
+    :class:`QueueFull`, so backpressure-aware callers handle both alike;
+    ``retry_after_s`` says when the backlog is expected to have
+    cleared."""
 
 
 @dataclass(eq=False)
 class Request:
-    """One generation request: ``queued → running → finished | failed``;
-    a malformed request goes straight to ``rejected``."""
+    """One generation request: ``queued → running → finished | failed |
+    cancelled``; a malformed, backpressured or shed request goes straight
+    to ``rejected``.  A preempted request goes back to ``queued`` and its
+    stream restarts from token 0."""
 
     prompt_ids: np.ndarray
     max_new_tokens: int = 16
@@ -69,8 +135,19 @@ class Request:
     eos_token_id: Optional[int] = None
     stream_cb: Optional[Callable[[int, "Request"], None]] = None
     request_id: int = -1
+    deadline_s: Optional[float] = None   # wall-clock budget from enqueue
+    #: priority class; queue order uses the *effective* priority (this
+    #: plus the deferral-aging boost), preemption rights the class only
+    priority: int = PRIORITY_NORMAL
     state: str = "queued"
+    #: set when the scheduler evicted this request for a higher-priority
+    #: admission (``preemptions`` counts the evictions)
+    preempted: bool = False
+    preemptions: int = 0
     error: Optional[str] = None
+    #: machine-readable context of a backpressure or shed rejection
+    #: (``{"depth": int, "retry_after_s": float}``)
+    error_ctx: Optional[dict] = None
     slot: Optional[int] = None
     output_ids: List[int] = field(default_factory=list)
     prefill_bucket: int = 0
@@ -79,6 +156,8 @@ class Request:
     t_finish: Optional[float] = None
     _seq_len: int = 0                # prompt + emitted tokens in the cache
     _defers: int = 0                 # paged admissions deferred so far
+    _cancel: bool = False
+    _engine: Optional[object] = field(default=None, repr=False)
 
     @property
     def finished(self) -> bool:
@@ -93,6 +172,21 @@ class Request:
         if self.t_first_token is None:
             return None
         return self.t_first_token - self.t_enqueue
+
+    def cancel(self) -> bool:
+        """Ask the engine to stop this request: honoured at once while
+        queued; a running request is retired ``cancelled`` at the next
+        step boundary (before its next decode).  False if the request is
+        already terminal."""
+        if self.done:
+            return False
+        self._cancel = True
+        eng = self._engine() if self._engine is not None else None
+        if eng is not None:
+            eng._on_cancel(self)
+        elif self.state == "queued":
+            self.state = "cancelled"
+        return True
 
 
 class Engine:
@@ -109,7 +203,20 @@ class Engine:
         min_bucket: smallest prefill bucket; buckets double up to
             ``max_seq``.
         cache_dtype: KV cache dtype (default: the model's).
-        name: the engine's label in its metrics.
+        name: the engine's label in its metrics and traces.
+        max_queue: bound on queued (not yet admitted) requests; ``None``
+            (default) is unbounded.
+        queue_policy: what a full queue does to :meth:`add_request`:
+            ``"reject"`` raises :class:`QueueFull` at once; ``"block"``
+            drives :meth:`step` until space frees or ``block_timeout_s``
+            passes (then raises :class:`QueueFull`).
+        block_timeout_s: default wait budget of the ``block`` policy.
+        default_deadline_s: wall-clock deadline of requests that set none
+            (``None``: no deadline).
+        max_step_retries: how many times a failed prefill or decode
+            program call is retried (with exponential backoff) before the
+            requests it serves fail.
+        retry_backoff_s: backoff before the first retry.
         kv_layout: ``"contiguous"`` (one ``max_seq`` stripe per slot) or
             ``"paged"`` (block pool, block tables, prefix reuse).
         kernel: paged attention path: ``"auto"``/``"cuda"`` (kernels K4
@@ -121,15 +228,39 @@ class Engine:
             ``num_slots * max_seq / block_size + 1`` (the scratch block).
         enable_prefix_cache: paged only: serve repeated prompt prefixes
             from shared blocks and prefill only the uncached tail.
+        max_preemptions: how many times one request may be evicted for a
+            higher-priority admission; past it the request is immune.  0
+            turns preemption off.
+        priority_aging_s: a queued request's effective priority rises by
+            one class per this many seconds of wait, so no class starves
+            (``None`` turns aging off).  Aging orders the queue only;
+            preemption compares base classes.
+        tracer: a :class:`~.tracing.RequestTracer` recording each
+            request's span chain; default the env-armed tracer
+            (``PADDLE_TPU_TRACE=1``) or the no-op
+            :data:`~.tracing.NULL_TRACER`.
+        flight_recorder_steps: ring capacity of the always-on
+            :class:`~.tracing.FlightRecorder` (one summary per step).
     """
 
     def __init__(self, model: nn.Module, *, num_slots: int = 4,
                  max_seq: Optional[int] = None, min_bucket: int = 8,
                  cache_dtype: Optional[torch.dtype] = None,
-                 name: Optional[str] = None, kv_layout: str = "contiguous",
+                 name: Optional[str] = None,
+                 max_queue: Optional[int] = None,
+                 queue_policy: str = "reject",
+                 block_timeout_s: float = 30.0,
+                 default_deadline_s: Optional[float] = None,
+                 max_step_retries: int = 1,
+                 retry_backoff_s: float = 0.05,
+                 kv_layout: str = "contiguous",
                  kernel: str = "auto", block_size: int = 16,
                  num_kv_blocks: Optional[int] = None,
-                 enable_prefix_cache: bool = True):
+                 enable_prefix_cache: bool = True,
+                 max_preemptions: int = 2,
+                 priority_aging_s: Optional[float] = 5.0,
+                 tracer=None,
+                 flight_recorder_steps: int = 256):
         cfg = getattr(model, "config", None)
         if cfg is None:
             raise TypeError("Engine needs a model carrying a .config "
@@ -150,6 +281,18 @@ class Engine:
         self.min_bucket = int(min_bucket)
         if self.min_bucket < 1:
             raise ValueError(f"min_bucket must be >= 1, got {min_bucket}")
+        if queue_policy not in ("reject", "block"):
+            raise ValueError(f"queue_policy must be 'reject' or 'block', "
+                             f"got {queue_policy!r}")
+        if max_queue is not None and int(max_queue) < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if max_step_retries < 0:
+            raise ValueError("max_step_retries must be >= 0")
+        if max_preemptions < 0:
+            raise ValueError("max_preemptions must be >= 0")
+        if priority_aging_s is not None and priority_aging_s <= 0:
+            raise ValueError("priority_aging_s must be > 0 (or None to "
+                             "disable aging)")
         self.buckets = self._make_buckets()
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
@@ -199,6 +342,20 @@ class Engine:
         self.free_slots: List[int] = list(range(self.num_slots))
         self._req_counter = itertools.count()
         self._step_counter = 0
+        self._consecutive_failures = 0
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self.queue_policy = queue_policy
+        self.block_timeout_s = float(block_timeout_s)
+        self.default_deadline_s = default_deadline_s
+        self.max_step_retries = int(max_step_retries)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.max_preemptions = int(max_preemptions)
+        self.priority_aging_s = None if priority_aging_s is None \
+            else float(priority_aging_s)
+        if tracer is None:
+            tracer = RequestTracer.from_env() or NULL_TRACER
+        self.tracer = tracer
+        self.flight = FlightRecorder(flight_recorder_steps, name=self.name)
 
     # -- buckets -----------------------------------------------------------
 
@@ -256,6 +413,32 @@ class Engine:
         self.cache.advance(active)
         return self.sampler.sample_all(logits[:, -1, :].float(), active)
 
+    def _restore_lanes(self) -> None:
+        """Rewrite the ``[slots]`` lanes a decode writes in place as the
+        last successful step left them, from the host's bookkeeping: a
+        running slot's length is its request's ``_seq_len``, its token
+        the request's last emitted token (the next decode's input) and
+        its draw counter the number of tokens it emitted (one draw each);
+        an idle slot's are 0.  Whether the failed call ran or not, the
+        retry then writes the same K/V rows at the same positions and
+        draws at the same counters.  Host-to-device copies only, on the
+        retry path alone."""
+        n = self.num_slots
+        lengths = np.zeros(n, dtype=np.int32)
+        tokens = np.zeros(n, dtype=np.int32)
+        counters = np.zeros(n, dtype=np.int64)
+        for slot, req in self.running.items():
+            lengths[slot] = req._seq_len
+            tokens[slot] = req.output_ids[-1]
+            counters[slot] = len(req.output_ids)
+        for lane, values in ((self.cache.lengths, lengths),
+                             (self.sampler.tokens, tokens),
+                             (self.sampler.counters, counters)):
+            src = torch.from_numpy(values)
+            if lane.is_cuda:
+                src = src.pin_memory()
+            lane.copy_(src, non_blocking=True)
+
     def _run_prefill(self, ids: np.ndarray, slot: int, length: int,
                      start: int = 0) -> torch.Tensor:
         """The prefill program of ``ids``'s bucket on this admission."""
@@ -265,6 +448,32 @@ class Engine:
 
     def _run_decode(self, active: np.ndarray) -> torch.Tensor:
         return self.programs.run(("decode",), self._decode_step, active)
+
+    def _step_call(self, point: str, call: Callable[[], torch.Tensor],
+                   undo: Callable[[], None]) -> torch.Tensor:
+        """One step program call (``call``) with a bounded retry.  A
+        program writes its state in place while it runs, so a failed call
+        may have moved it (if it failed after its replay was enqueued) or
+        not (if it failed before): ``undo`` rewrites that state as the
+        failed call found it, which is right either way, before the next
+        attempt.  Adds no device-to-host sync.  Raises the last error once
+        ``max_step_retries`` retries failed."""
+        last_err = None
+        for attempt in range(self.max_step_retries + 1):
+            if attempt:
+                self.metrics.on_retry(point)
+                time.sleep(self.retry_backoff_s * (2 ** (attempt - 1)))
+                undo()
+            try:
+                out = call()
+            except Exception as e:       # noqa: BLE001 — isolated upstream
+                last_err = e
+                self._consecutive_failures += 1
+                self.metrics.on_step_failure(point)
+                continue
+            self._consecutive_failures = 0
+            return out
+        raise last_err
 
     # -- public API --------------------------------------------------------
 
@@ -327,18 +536,32 @@ class Engine:
                     f"max_seq={self.max_seq}")
         if req.max_new_tokens < 1:
             return f"max_new_tokens must be >= 1, got {req.max_new_tokens}"
+        if req.deadline_s is not None and req.deadline_s <= 0:
+            return f"deadline_s must be > 0, got {req.deadline_s}"
         if self.kv_layout == "paged":
-            need = self.bucket_for(req.prompt_ids.size) // self.block_size
+            # worst case (no prefix hit) the prompt prefills a whole bucket
+            # of fresh blocks: a prompt the pool can never hold is
+            # rejected here instead of deferring forever
+            bucket = self.bucket_for(req.prompt_ids.size)
+            need = bucket // self.block_size
             usable = self.cache.num_blocks - self.cache.allocator.reserved
             if need > usable:
-                return (f"prompt needs {need} KV blocks but the pool holds "
-                        f"{usable}")
+                return (f"prompt needs {need} KV blocks (bucket {bucket}, "
+                        f"block_size {self.block_size}) but the pool "
+                        f"holds {usable}")
         return None
+
+    def _reject(self, req: Request, reason: str) -> None:
+        req.state, req.error = "rejected", reason
+        req.t_finish = time.perf_counter()
+        self.metrics.on_reject()
+        self.tracer.on_retired(req, self.name, "rejected", reason)
 
     @staticmethod
     def _seed_for(req: Request) -> int:
         """The request's sampling seed (the JAX engine's formula): staged
-        into the slot's generator at every admission."""
+        into the slot's lanes at every admission, first and resumed
+        alike, so a seeded stream replays the same."""
         return (req.sampling.seed if req.sampling.seed is not None
                 else (req.request_id + 1) * 7919)
 
@@ -347,28 +570,76 @@ class Engine:
                     sampling: Optional[SamplingParams] = None,
                     temperature: Optional[float] = None,
                     eos_token_id: Optional[int] = None,
-                    stream_cb: Optional[Callable] = None) -> Request:
+                    stream_cb: Optional[Callable] = None,
+                    deadline_s: Optional[float] = None,
+                    block_timeout_s: Optional[float] = None,
+                    priority=PRIORITY_NORMAL) -> Request:
         """Enqueue a prompt; a later :meth:`step` admits it into a slot.
+
         A malformed request is marked ``rejected`` and raises
-        ``ValueError`` (the handle rides on the exception's ``.request``)."""
+        ``ValueError``; a full queue raises :class:`QueueFull` under the
+        ``reject`` policy or first drives :meth:`step` for up to
+        ``block_timeout_s`` under ``block``; a request whose estimated
+        queue wait already exceeds its ``deadline_s`` (default: the
+        engine's ``default_deadline_s``) is shed (:class:`ShedReject`).
+        The rejected handle rides on the exception's ``.request``.
+        ``priority`` is ``"low"|"normal"|"high"`` or any int; higher
+        serves first and may preempt strictly lower."""
+        prio = _as_priority(priority)
         prompt = np.asarray(list(prompt_ids), dtype=np.int64).reshape(-1)
         if sampling is None:
             sampling = SamplingParams(temperature=temperature or 0.0)
         req = Request(prompt_ids=prompt, max_new_tokens=int(max_new_tokens),
                       sampling=sampling, eos_token_id=eos_token_id,
                       stream_cb=stream_cb,
-                      request_id=next(self._req_counter))
+                      deadline_s=(deadline_s if deadline_s is not None
+                                  else self.default_deadline_s),
+                      priority=prio, request_id=next(self._req_counter))
         req.t_enqueue = time.perf_counter()
         problem = self._validate(req)
         if problem is not None:
-            req.state, req.error = "rejected", problem
-            req.t_finish = time.perf_counter()
-            self.metrics.on_reject()
+            self._reject(req, problem)
             err = ValueError(problem)
             err.request = req
             raise err
+        wait = self._shed_wait_s(req)
+        if wait is not None:
+            depth = len(self.queue)
+            msg = (f"shed: estimated queue wait {wait:.3f}s exceeds "
+                   f"deadline {req.deadline_s}s (depth={depth}, "
+                   f"retry_after_s={wait:.3f})")
+            req.error_ctx = {"depth": depth,
+                             "retry_after_s": round(wait, 3)}
+            self.metrics.on_shed()
+            self.tracer.on_shed(req, self.name, wait)
+            self._reject(req, msg)
+            err = ShedReject(msg, depth, retry_after_s=round(wait, 3))
+            err.request = req
+            raise err
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            if self.queue_policy == "block":
+                budget = self.block_timeout_s if block_timeout_s is None \
+                    else float(block_timeout_s)
+                t_end = time.perf_counter() + budget
+                while len(self.queue) >= self.max_queue:
+                    if time.perf_counter() >= t_end:
+                        break
+                    self.step()
+            if len(self.queue) >= self.max_queue:
+                depth = len(self.queue)
+                retry = round(self.estimate_queue_wait_s(req.priority), 3)
+                msg = (f"queue full: {depth} >= max_queue={self.max_queue} "
+                       f"(policy={self.queue_policy}, "
+                       f"retry_after_s={retry})")
+                req.error_ctx = {"depth": depth, "retry_after_s": retry}
+                self._reject(req, msg)
+                err = QueueFull(msg, depth, retry_after_s=retry)
+                err.request = req
+                raise err
+        req._engine = weakref.ref(self)
         self.queue.append(req)
-        self.metrics.on_enqueue()
+        self.metrics.on_enqueue(len(self.queue))
+        self.tracer.on_queued(req, self.name)
         return req
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> dict:
@@ -405,6 +676,183 @@ class Engine:
         return {"buckets": use, "programs": ["prefill", "decode"],
                 "compile_misses": self.metrics.compile_misses}
 
+    # -- deadlines, cancellation ---------------------------------------------
+
+    def _deadline_expired(self, req: Request, now: float) -> bool:
+        return req.deadline_s is not None and \
+            (now - req.t_enqueue) > req.deadline_s
+
+    def _fail_deadline(self, req: Request) -> None:
+        self.metrics.on_deadline()
+        self._retire(req, "failed",
+                     error=f"deadline of {req.deadline_s}s exceeded")
+
+    def _on_cancel(self, req: Request) -> None:
+        """A queued request leaves at once; a running one is retired at
+        the next step boundary, between programs."""
+        if req.state != "queued":
+            return
+        try:
+            self.queue.remove(req)
+        except ValueError:
+            # already claimed by the scheduler (popped for admission):
+            # leave the flag, which _admit honours
+            return
+        self._retire(req, "cancelled")
+        self.metrics.queue_depth = len(self.queue)
+
+    def _reap(self, now: float) -> None:
+        """Honour cancellations and deadlines before this step's
+        admissions, for queued and running requests alike."""
+        for req in list(self.queue):
+            if not (req.done or req._cancel
+                    or self._deadline_expired(req, now)):
+                continue
+            self.queue.remove(req)
+            if req.done:
+                continue
+            if req._cancel:
+                self._retire(req, "cancelled")
+            else:
+                self._fail_deadline(req)
+        for req in list(self.running.values()):
+            if req._cancel:
+                self._retire(req, "cancelled")
+            elif self._deadline_expired(req, now):
+                self._fail_deadline(req)
+        self.metrics.queue_depth = len(self.queue)
+
+    # -- overload: priorities, preemption, shedding ------------------------
+
+    def _effective_priority(self, req: Request, now: float) -> int:
+        """Base class plus the deferral-aging boost (+1 class per
+        ``priority_aging_s`` of queue wait): sustained higher-priority
+        arrivals cannot hold a waiting request back forever."""
+        if self.priority_aging_s is None:
+            return req.priority
+        return req.priority + int(
+            max(0.0, now - req.t_enqueue) / self.priority_aging_s)
+
+    def _best_queued_index(self, now: float) -> Optional[int]:
+        """Index of the next request to admit: highest effective
+        priority, FIFO within a class (the first maximum wins)."""
+        best_i, best_eff = None, None
+        for i, q in enumerate(self.queue):
+            eff = self._effective_priority(q, now)
+            if best_eff is None or eff > best_eff:
+                best_i, best_eff = i, eff
+        return best_i
+
+    def _best_preempting_candidate(self, now: float):
+        """With every slot busy, the queued request that should preempt:
+        the highest effective priority among those a victim exists for.
+        The effective head may hold no preemption rights (aging grants
+        queue position, never eviction); it keeps its place for the next
+        retirement while the entitled request evicts past it.  Returns
+        ``(index, request, victim)`` or ``(None, None, None)``."""
+        best, best_eff = (None, None, None), None
+        for i, q in enumerate(self.queue):
+            if q.done:
+                continue
+            eff = self._effective_priority(q, now)
+            if best_eff is not None and eff <= best_eff:
+                continue
+            victim = self._pick_victim(q)
+            if victim is not None:
+                best, best_eff = (i, q, victim), eff
+        return best
+
+    def estimate_queue_wait_s(self,
+                              priority: int = PRIORITY_NORMAL) -> float:
+        """Estimated wall-clock wait before a fresh request of
+        ``priority`` reaches a slot: the running requests' remaining
+        token budgets plus the budgets of queued requests at >= its
+        effective priority, priced at the measured mean inter-token
+        latency and spread over the decode batch width.  A cold engine
+        (no decode measured yet) estimates 0.0, so admission never sheds
+        on a guess, and so does a request the free slots can take now."""
+        if not self.metrics.itl_s:
+            return 0.0
+        now = time.perf_counter()
+        queued_ahead = [q for q in self.queue
+                        if self._effective_priority(q, now) >= int(priority)]
+        if len(queued_ahead) < len(self.free_slots):
+            return 0.0
+        itl = sum(self.metrics.itl_s) / len(self.metrics.itl_s)
+        tokens = sum(max(0, r.max_new_tokens - len(r.output_ids))
+                     for r in self.running.values())
+        tokens += sum(q.max_new_tokens for q in queued_ahead)
+        return tokens * itl / max(self.num_slots, 1)
+
+    def _shed_wait_s(self, req: Request) -> Optional[float]:
+        """The estimated queue wait when it already exceeds the request's
+        deadline, else None.  Deadline-less requests are never shed.  A
+        request that would evict its way into a slot on its first
+        scheduling pass does not wait behind the running backlog, so it
+        is not shed on it; a queued request contends for that only if it
+        could win the preemption pass (effective priority at >= this
+        class and a victim of its own)."""
+        if req.deadline_s is None:
+            return None
+        now = time.perf_counter()
+        if self._pick_victim(req) is not None and not any(
+                not q.done and self._effective_priority(q, now)
+                >= req.priority and self._pick_victim(q) is not None
+                for q in self.queue):
+            return None
+        wait = self.estimate_queue_wait_s(req.priority)
+        return wait if wait > req.deadline_s else None
+
+    def _pick_victim(self, candidate: Request) -> Optional[Request]:
+        """The preemption policy: among running requests of a strictly
+        lower base class than the candidate's with eviction budget left,
+        the lowest class first, the least progress (fewest emitted
+        tokens) next, the youngest last: the least decode work lost."""
+        if self.max_preemptions <= 0:
+            return None
+        cands = [r for r in self.running.values()
+                 if r.priority < candidate.priority
+                 and r.preemptions < self.max_preemptions]
+        if not cands:
+            return None
+        return min(cands, key=lambda r: (r.priority, len(r.output_ids),
+                                         -r.request_id))
+
+    def _preempt(self, victim: Request) -> None:
+        """Evict a running request so a higher-priority admission can
+        take its slot (or, paged, its blocks).  Not a terminal
+        transition: the victim requeues, ``preempted``/``preemptions``
+        set and ``output_ids`` reset, and its stream restarts from token
+        0 on resume.  The resume is cheap: the victim's whole prompt
+        blocks are registered in the prefix cache before its slot
+        releases, so its prefill hits them and runs the tail bucket only.
+        Its slot's lanes are staged anew at re-admission (``_seed_for``).
+
+        This runs only between programs: the scheduler reads every
+        program's output on the host (``int(tok)``, ``out.cpu()``) before
+        it decides again, so no replay that reads the victim's table row
+        or length is in flight when ``release_slot`` points the row at
+        scratch.  The next decode finds the slot inactive."""
+        slot = victim.slot
+        if self.prefix_cache is not None:
+            self.prefix_cache.register(victim.prompt_ids,
+                                       self.cache.owned_blocks(slot))
+        self.cache.release_slot(slot)
+        self.running.pop(slot, None)
+        if slot not in self.free_slots:
+            self.free_slots.append(slot)
+        victim.slot = None
+        victim.state = "queued"
+        victim.preempted = True
+        victim.preemptions += 1
+        victim.output_ids = []
+        victim.t_first_token = None
+        victim._seq_len = 0
+        victim._defers = 0
+        self.queue.append(victim)        # aging runs from its t_enqueue
+        self.metrics.on_preempt(len(self.queue))
+        self.tracer.on_preempt(victim, self.name)
+
     # -- admission ---------------------------------------------------------
 
     def _prefix_lookup(self, req: Request):
@@ -412,10 +860,36 @@ class Engine:
             return 0, []
         return self.prefix_cache.lookup(req.prompt_ids, count=False)
 
+    def _stage(self, req: Request) -> None:
+        """Stage the request's sampling lanes into its slot: its
+        parameters, its seed and a zero draw counter."""
+        self.sampler.stage_slot(req.slot, req.sampling, self._seed_for(req))
+
+    def _prefill_call(self, req: Request, ids: np.ndarray, L: int,
+                      start: int = 0) -> Optional[torch.Tensor]:
+        """One prefill program with the bounded retry.  A retry re-stages
+        the slot's lanes (the failed call may have drawn the first token
+        and moved the counter); its K/V rows and absolute length are
+        written again the same.  Exhausted retries retire ``req`` failed
+        and return None."""
+        try:
+            return self._step_call(
+                "serving.prefill",
+                lambda: self._run_prefill(ids, req.slot, L, start),
+                lambda: self._stage(req))
+        except Exception as e:           # noqa: BLE001 — isolation boundary
+            n = self.max_step_retries
+            self._retire(req, "failed",
+                         error=f"prefill failed after {n} "
+                               f"retr{'y' if n == 1 else 'ies'}: "
+                               f"{type(e).__name__}: {e}")
+            return None
+
     def _paged_prefill(self, req: Request, L: int):
         """Paged admission: prefix lookup, block assignment, tail-bucket
-        prefill.  Returns ``(status, first_token, bucket)``, status
-        ``"ok"`` or ``"deferred"`` (no blocks now; slot untouched)."""
+        prefill.  Returns ``(status, first_token, bucket, prefix_hit)``,
+        status ``"ok"``, ``"deferred"`` (no blocks now; slot untouched) or
+        ``"failed"`` (the request was retired)."""
         P, shared = self._prefix_lookup(req)
         bucket = self.bucket_for(L - P)
         # a partial hit can push prefix + padded tail past the block table:
@@ -428,30 +902,45 @@ class Engine:
         if self.prefix_cache is not None and req._defers == 0:
             self.prefix_cache.record_lookup(L, P)
         if not self.cache.begin_sequence(req.slot, shared, P, bucket):
-            return "deferred", None, bucket
+            return "deferred", None, bucket, P
         ids = np.zeros((1, bucket), dtype=np.int64)
         ids[0, :L - P] = req.prompt_ids[P:]
-        tok = self._run_prefill(ids, req.slot, L, P)
+        tok = self._prefill_call(req, ids, L, P)
+        if tok is None:
+            return "failed", None, bucket, P
         if self.prefix_cache is not None:
             self.prefix_cache.register(req.prompt_ids,
                                        self.cache.owned_blocks(req.slot))
-        return "ok", tok, bucket
+        return "ok", tok, bucket, P
 
     def _admit(self, req: Request) -> Optional[bool]:
-        """Prefill ``req`` into its slot and deliver its first token.
-        Returns False when a paged admission must wait for blocks."""
+        """Prefill ``req`` into its slot and deliver its first token.  A
+        request cancelled or expired while queued leaves without a
+        prefill.  Returns False when a paged admission must wait for
+        blocks."""
+        if req._cancel:                  # cancelled between pop and prefill
+            self._retire(req, "cancelled")
+            return None
+        if self._deadline_expired(req, time.perf_counter()):
+            self._fail_deadline(req)
+            return None
         L = int(req.prompt_ids.size)
         t0 = time.perf_counter()
-        self.sampler.stage_slot(req.slot, req.sampling, self._seed_for(req))
+        prefix_hit = 0
+        self._stage(req)
         if self.kv_layout == "paged":
-            status, tok_t, bucket = self._paged_prefill(req, L)
+            status, tok_t, bucket, prefix_hit = self._paged_prefill(req, L)
             if status == "deferred":
                 return False
+            if status == "failed":
+                return None
         else:
             bucket = self.bucket_for(L)
             ids = np.zeros((1, bucket), dtype=np.int64)
             ids[0, :L] = req.prompt_ids
-            tok_t = self._run_prefill(ids, req.slot, L)
+            tok_t = self._prefill_call(req, ids, L)
+            if tok_t is None:
+                return None
         # waits for the prefill; read before any other program runs
         tok = int(tok_t)
         now = time.perf_counter()
@@ -459,7 +948,9 @@ class Engine:
         req.state, req.prefill_bucket = "running", bucket
         req._seq_len = L
         self.running[req.slot] = req
-        self.metrics.on_admit(bucket, L)
+        self.metrics.on_admit(bucket, L, len(self.queue))
+        self.tracer.on_admitted(req, self.name, bucket, req.slot,
+                                prefix_hit)
         if not self._emit_token(req, tok, now):
             return None
         self.metrics.on_first_token(req.ttft_s)
@@ -477,6 +968,7 @@ class Engine:
             try:
                 req.stream_cb(int(tok), req)
             except Exception as e:       # noqa: BLE001 — per-request boundary
+                self.metrics.on_callback_error()
                 self._retire(req, "failed", error=f"stream_cb raised: "
                              f"{type(e).__name__}: {e}")
                 return False
@@ -506,12 +998,14 @@ class Engine:
             self.running.pop(slot, None)
             if slot not in self.free_slots:
                 self.free_slots.append(slot)
-            if self.kv_layout == "paged":
-                self.cache.release_slot(slot)
+            self.cache.release_slot(slot)
         if state == "finished":
             self.metrics.on_complete()
+        elif state == "cancelled":
+            self.metrics.on_cancel()
         elif state == "failed":
             self.metrics.on_fail()
+        self.tracer.on_retired(req, self.name, state, req.error)
 
     # -- decode ------------------------------------------------------------
 
@@ -521,12 +1015,18 @@ class Engine:
         extend); a slot the pool cannot serve fails."""
         for slot, req in list(self.running.items()):
             if not self.cache.ensure_capacity(slot, req._seq_len):
+                self.tracer.on_block_pressure(req, self.name,
+                                              kind="pool_exhausted",
+                                              position=req._seq_len)
                 self._retire(req, "failed",
-                             error="KV block pool exhausted: no block free "
-                                   f"for position {req._seq_len}")
+                             error="KV block pool exhausted: no block "
+                                   f"free for position {req._seq_len} "
+                                   "(even after prefix-cache eviction)")
 
     def _decode_body(self):
-        """Dispatch one decode step.  Returns ``(tokens, t0)`` or None."""
+        """Dispatch one decode step with the bounded retry.  Returns
+        ``(tokens, t0)``, or None when nothing ran or the retries were
+        exhausted (then every request of the batch failed)."""
         if self.kv_layout == "paged":
             self._prepare_decode_paged()
             if not self.running:
@@ -535,7 +1035,19 @@ class Engine:
         for slot in self.running:
             active[slot] = 1
         t0 = time.perf_counter()
-        return self._run_decode(active), t0
+        try:
+            out = self._step_call("serving.decode",
+                                  lambda: self._run_decode(active),
+                                  self._restore_lanes)
+        except Exception as e:           # noqa: BLE001 — isolation boundary
+            n = self.max_step_retries
+            msg = (f"decode step failed after {n} "
+                   f"retr{'y' if n == 1 else 'ies'}: "
+                   f"{type(e).__name__}: {e}")
+            for req in list(self.running.values()):
+                self._retire(req, "failed", error=msg)
+            return None
+        return out, t0
 
     def _deliver_tokens(self, out: torch.Tensor, t0: float) -> None:
         """Pull the ``[slots]`` sampled tokens (the step's one device to
@@ -544,9 +1056,15 @@ class Engine:
         toks = out.cpu().numpy()
         now = time.perf_counter()
         self.metrics.on_decode_step(len(self.running), now - t0)
+        if self.tracer.enabled:
+            # one event per engine step, never one per token
+            self.tracer.on_decode_step(self.name, self._step_counter,
+                                       list(self.running), now - t0)
         for slot, req in list(self.running.items()):
             req._seq_len += 1
             if not self._emit_token(req, int(toks[slot]), now):
+                continue
+            if req.done:                 # cancelled from inside its cb
                 continue
             if self._done_after_emit(req):
                 self._retire(req)
@@ -554,11 +1072,29 @@ class Engine:
     # -- scheduling --------------------------------------------------------
 
     def step(self) -> bool:
-        """One scheduler tick: admit queued requests into free slots (FIFO),
-        then one decode step for the running slots.  True while work
-        remains."""
-        while self.queue and self.free_slots:
-            req = self.queue.popleft()
+        """One scheduler tick: reap cancellations and deadlines, admit
+        queued requests (highest effective priority first, preempting a
+        lower-priority victim when no slot or no block is free), then one
+        decode step for the running slots.  True while work remains."""
+        self._reap(time.perf_counter())
+        while self.queue:
+            now = time.perf_counter()
+            i = self._best_queued_index(now)
+            req = self.queue[i]
+            if req.done:                 # cancelled or expired while queued
+                del self.queue[i]
+                continue
+            if not self.free_slots:
+                # the entitled queued request (not necessarily the
+                # effective head) may evict the lowest-priority victim;
+                # otherwise the queue waits for a retirement
+                i, req, victim = self._best_preempting_candidate(now)
+                if victim is None:
+                    break
+                del self.queue[i]
+                self._preempt(victim)
+            else:
+                del self.queue[i]
             req.slot = self.free_slots.pop()
             try:
                 deferred = self._admit(req) is False
@@ -568,12 +1104,21 @@ class Engine:
                                  error="admission aborted by engine error")
                 raise
             if deferred:
-                # no blocks for this prompt now: hand the slot back and
-                # wait for running work to retire; with nothing running no
-                # block can ever free, so fail instead of spinning
+                # no blocks for this prompt now: hand the slot back.  A
+                # higher-priority admission evicts a lower-priority victim
+                # for its blocks and tries again; otherwise it waits for
+                # running work to retire, and with nothing running no
+                # block can ever free, so it fails instead of spinning
                 self.free_slots.append(req.slot)
                 req.slot = None
                 req._defers += 1
+                self.tracer.on_block_pressure(req, self.name,
+                                              defers=req._defers)
+                victim = self._pick_victim(req)
+                if victim is not None:
+                    self._preempt(victim)
+                    self.queue.appendleft(req)
+                    continue
                 if self.running:
                     self.queue.appendleft(req)
                 else:
@@ -588,6 +1133,11 @@ class Engine:
             if res is not None:
                 self._deliver_tokens(*res)
         self._step_counter += 1
+        summary = dict(step=self._step_counter, running=len(self.running),
+                       queued=len(self.queue))
+        if self.kv_layout == "paged":
+            summary["free_blocks"] = self.cache.allocator.free_blocks
+        self.flight.record(**summary)
         return bool(self.running or self.queue)
 
     def run(self, max_steps: Optional[int] = None) -> None:
@@ -623,7 +1173,9 @@ class Engine:
     def health(self) -> dict:
         """Liveness snapshot; in the paged layout also the block
         allocator's invariant audit (``"ok"`` or the violations)."""
-        out = {"steps": self._step_counter, "queue_depth": len(self.queue),
+        out = {"steps": self._step_counter,
+               "consecutive_step_failures": self._consecutive_failures,
+               "queue_depth": len(self.queue),
                "slots_free": len(self.free_slots),
                "slots_total": self.num_slots}
         if self.kv_layout == "paged":
@@ -636,16 +1188,19 @@ class Engine:
 
     def stats(self) -> dict:
         """``/stats``-style snapshot: the serving metrics, the health
-        audit and, paged, the pool and prefix-cache gauges."""
+        audit, paged, the pool and prefix-cache gauges, and, with a live
+        tracer, its summary."""
         self.metrics._slots_busy = len(self.running)
+        self.metrics.queue_depth = len(self.queue)
         snap = self.metrics.snapshot()
         # programs built after warmup: a steady-state anomaly (None before
         # warmup)
         snap["compile_cache"]["after_warmup"] = (
             None if self._warm_misses is None
             else self.metrics.compile_misses - self._warm_misses)
-        snap["queue_depth"] = len(self.queue)
         snap["health"] = self.health()
         snap["paging"] = (self._paging_snapshot()
                           if self.kv_layout == "paged" else None)
+        if self.tracer.enabled:
+            snap["tracing"] = self.tracer.snapshot()
         return snap

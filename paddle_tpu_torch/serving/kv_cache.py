@@ -100,6 +100,12 @@ class KVCache:
         once per decode step, after every layer has written)."""
         self.lengths += active
 
+    def release_slot(self, slot: int) -> None:
+        """Zero a retired slot's length.  Every decode writes a token for
+        every slot at its length, the idle ones too: a slot left at
+        ``max_seq`` (retired at capacity) would index past its stripe."""
+        self.lengths[slot] = 0
+
     def reset(self) -> None:
         """Forget all sequences (lengths to 0; payloads left as they are —
         the write discipline makes stale bytes unreadable)."""

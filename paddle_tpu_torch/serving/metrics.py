@@ -1,7 +1,10 @@
 """Serving metrics the engine's ``stats()`` reads: time to first token,
-inter-token latency, decode tokens/s and slot occupancy, the request and
-token counters behind them, and the step programs' hit/miss counters
-(``compile_cache``) that back the zero-recapture steady state.
+inter-token latency, decode tokens/s, queue depth and slot occupancy, the
+request and token counters behind them, the step programs' hit/miss
+counters (``compile_cache``) that back the zero-recapture steady state,
+and the failure-path and overload counters (cancelled, rejected and
+deadline-expired requests, step failures and retries by point,
+preemptions and sheds).
 
 A slice of ``paddle_tpu/serving/metrics.py``.  Times are host clock
 (``perf_counter``) around work that ends in a device synchronisation: a
@@ -10,6 +13,7 @@ its sampled tokens do.
 """
 from __future__ import annotations
 
+import copy
 import time
 from collections import deque
 from typing import Dict
@@ -49,6 +53,18 @@ class ServingMetrics:
         self.requests_completed = 0
         self.requests_failed = 0
         self.requests_rejected = 0
+        self.requests_cancelled = 0
+        self.deadline_expired = 0
+        self.callback_errors = 0
+        # preemption evictions and SLO-shed admissions (a shed also
+        # counts as a rejection; this counter names the cause)
+        self.requests_preempted = 0
+        self.requests_shed = 0
+        self.step_failures = 0
+        self.step_retries = 0
+        self.retries_by_point: Dict[str, int] = {}
+        self.queue_depth = 0
+        self.queue_depth_max = 0
         self.prefill_tokens = 0
         self.decode_tokens = 0
         self.decode_steps = 0
@@ -63,14 +79,17 @@ class ServingMetrics:
         self._occupancy_samples = 0
         self._slots_busy = 0
 
-    def on_enqueue(self) -> None:
+    def on_enqueue(self, depth: int) -> None:
         self.requests_enqueued += 1
+        self.queue_depth = depth
+        self.queue_depth_max = max(self.queue_depth_max, depth)
 
-    def on_admit(self, bucket: int, prompt_len: int) -> None:
+    def on_admit(self, bucket: int, prompt_len: int, depth: int) -> None:
         self.requests_admitted += 1
         self.prefill_tokens += prompt_len
         self.prefills_by_bucket[bucket] = \
             self.prefills_by_bucket.get(bucket, 0) + 1
+        self.queue_depth = depth
 
     def on_first_token(self, ttft_s: float) -> None:
         self.ttft_s.append(ttft_s)
@@ -98,6 +117,35 @@ class ServingMetrics:
     def on_reject(self) -> None:
         self.requests_rejected += 1
 
+    def on_cancel(self) -> None:
+        self.requests_cancelled += 1
+
+    def on_deadline(self) -> None:
+        self.deadline_expired += 1
+
+    def on_callback_error(self) -> None:
+        self.callback_errors += 1
+
+    def on_preempt(self, depth: int) -> None:
+        """A running request was evicted for a higher-priority admission
+        and requeued (not a terminal outcome: the request resumes)."""
+        self.requests_preempted += 1
+        self.queue_depth = depth
+        self.queue_depth_max = max(self.queue_depth_max, depth)
+
+    def on_shed(self) -> None:
+        """An admission was SLO-shed: its estimated queue wait already
+        exceeded its deadline."""
+        self.requests_shed += 1
+
+    def on_step_failure(self, point: str) -> None:
+        self.step_failures += 1
+
+    def on_retry(self, point: str) -> None:
+        self.step_retries += 1
+        self.retries_by_point[point] = \
+            self.retries_by_point.get(point, 0) + 1
+
     def on_slots(self, busy: int) -> None:
         self._slots_busy = busy
         self._occupancy_sum += busy / max(self.num_slots, 1)
@@ -112,8 +160,9 @@ class ServingMetrics:
             if self._occupancy_samples else 0.0
 
     def snapshot(self) -> dict:
-        """The ``/stats`` payload: a fresh JSON-ready dict."""
-        return {
+        """The ``/stats`` payload: a JSON-ready dict that shares no
+        mutable state with the metrics (a caller may change it freely)."""
+        return copy.deepcopy({
             "name": self.name,
             "uptime_s": round(time.perf_counter() - self.t_start, 3),
             "requests": {"enqueued": self.requests_enqueued,
@@ -122,6 +171,21 @@ class ServingMetrics:
                          "failed": self.requests_failed,
                          "rejected": self.requests_rejected,
                          "running": self._slots_busy},
+            "failures": {
+                "failed": self.requests_failed,
+                "cancelled": self.requests_cancelled,
+                "rejected": self.requests_rejected,
+                "deadline_expired": self.deadline_expired,
+                "callback_errors": self.callback_errors,
+                "step_failures": self.step_failures,
+                "step_retries": self.step_retries,
+                "retries_by_point": dict(sorted(
+                    self.retries_by_point.items())),
+            },
+            "overload": {"preemptions": self.requests_preempted,
+                         "shed": self.requests_shed},
+            "queue_depth": self.queue_depth,
+            "queue_depth_max": self.queue_depth_max,
             "slot_occupancy": round(self.occupancy(), 4),
             "slots": {"total": self.num_slots, "busy": self._slots_busy},
             "tokens": {"prefill": self.prefill_tokens,
@@ -135,4 +199,4 @@ class ServingMetrics:
                 self.prefills_by_bucket.items())),
             "compile_cache": {"hits": self.compile_hits,
                               "misses": self.compile_misses},
-        }
+        })

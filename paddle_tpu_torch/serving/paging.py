@@ -108,6 +108,10 @@ class BlockAllocator:
             self.frees += 1
         return self._ref[b]
 
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
     def refcount(self, block_id: int) -> int:
         return self._ref[self._check_id(block_id)]
 

@@ -317,3 +317,42 @@ def test_decode_edges_cover_the_split_k_shapes():
     assert {c[0] for c in cases if c[5]} == {
         "B1/len4095", "B32/len1023", "long_table", "G1/D128", "G4/D128",
         "G8/D128"}
+
+
+def test_serve_overload_phase_on_tiny_cpu():
+    """The serve_overload phase at its own geometry (8 slots, max_seq
+    4096, 384 blocks of 16, the 512-token system prompt and its traffic)
+    over ``llama_tiny``: no eos ends a stream, so the schedule (admissions,
+    deferrals, preemptions, resumes) is the one the card runs.  The phase
+    checks itself; here also that every cause and path showed."""
+    model = LlamaForCausalLM(llama_tiny(max_position_embeddings=4096),
+                             device="cpu",
+                             generator=torch.Generator().manual_seed(1))
+    eng, res = chip_smoke.run_serve_overload(model.eval())
+    assert res["preemptions_by_cause"]["slot"] >= 1
+    assert res["preemptions_by_cause"]["blocks"] >= 1
+    assert res["shed"] == 2 and len(res["cancelled"]) == 2
+    assert res["finished"] == 20
+    assert any(r["whole_blocks_hit"] and r["bucket"] == 16
+               for r in res["resumes"])
+    assert all(c["ttft"]["count"] == c["requests"] > 0
+               for c in res["by_class"].values())
+    assert res["launches"] == {n: 0 for n in kernels.KERNELS}
+    assert eng.stats()["queue_depth_max"] <= eng.max_queue
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+@pytest.mark.parametrize("family", ["llama", "gpt"])
+def test_overload_parity_phase_on_tiny_cpu(family, layout):
+    """overload_parity's drive: preempted streams and streams through
+    failed and retried programs equal the same requests served alone."""
+    cfg = dict(max_position_embeddings=256)
+    gen = torch.Generator().manual_seed(1)
+    model = (LlamaForCausalLM(llama_tiny(**cfg), device="cpu", generator=gen)
+             if family == "llama" else
+             GPTForCausalLM(gpt_tiny(**cfg), device="cpu", generator=gen))
+    res = chip_smoke.drive_overload_parity(model.eval(), layout, seed=6,
+                                           max_seq=256, min_bucket=16,
+                                           block_size=16)
+    chip_smoke.check_overload_parity(res, f"{family}, {layout}")
+    assert res["step_failures"] == 4

@@ -612,3 +612,145 @@ def test_launch_counts_equal_the_profiled_kernels(cuda_device, layout):
     profile_serving.check_counts(counted, profiled)
     k = "paged_prefill" if layout == "paged" else "flash_fwd"
     assert counted[k] == 2 * eng.config.num_hidden_layers
+
+
+# -- the request lifecycle over replayed graphs ------------------------------
+
+def _alone_twice(eng, prompt, law, **kw):
+    """``prompt`` served alone twice on ``eng``; the second stream (in the
+    paged layout its admission hits the first's prompt blocks, as a
+    resume's does)."""
+    for _ in range(2):
+        r = eng.add_request(prompt, sampling=law, max_new_tokens=10, **kw)
+        eng.run()
+    return r.output_ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_decode_retry_restores_replayed_lanes(cuda_device, layout):
+    """A decode replay that ran and then failed has moved the lengths,
+    the token lane and the draw counters; ``_restore_lanes`` rewrites
+    them from the host's bookkeeping, and the replay run again samples
+    the same tokens.  Through the engine's retry, a decode failing after
+    its replay leaves every seeded stream unchanged."""
+    eng = Engine(_small_model("llama", cuda_device), kv_layout=layout,
+                 **_ENGINE_KW)
+    eng.warmup()
+    laws = chip_smoke.sampling_laws(3)
+    prompts = [list(range(5 + 7 * i, 30 + 7 * i)) for i in range(4)]
+    for p, s in zip(prompts[:2], laws[2:]):
+        eng.add_request(p, sampling=s, max_new_tokens=10)
+    eng.step()
+    running = sorted(eng.running)
+    active = np.zeros(eng.num_slots, dtype=np.int32)
+    active[running] = 1
+    lanes = (eng.cache.lengths, eng.sampler.tokens, eng.sampler.counters)
+    before = [t.cpu()[running].clone() for t in lanes]
+    lengths = eng.cache.lengths.cpu().clone()
+    first = eng._run_decode(active).cpu()
+    moved = [t.cpu()[running].clone() for t in lanes]
+    assert not torch.equal(moved[0], before[0])          # lengths advanced
+    assert not torch.equal(moved[2], before[2])          # counters drew
+    eng._restore_lanes()
+    assert all(torch.equal(t.cpu()[running], b)
+               for t, b in zip(lanes, before))
+    assert torch.equal(eng.cache.lengths.cpu(), lengths)
+    again = eng._run_decode(active).cpu()
+    assert torch.equal(again[running], first[running])
+    assert all(torch.equal(t.cpu()[running], m) for t, m in zip(lanes, moved))
+    for r in list(eng.running.values()):
+        r.cancel()
+    eng.run()
+
+    def serve():
+        reqs = [eng.add_request(p, sampling=s, max_new_tokens=10)
+                for p, s in zip(prompts, laws)]
+        eng.run()
+        return [r.output_ids for r in reqs]
+
+    ref = serve()
+    run, calls = eng.programs.run, [0]
+
+    def after(key, body, *inputs):
+        out = run(key, body, *inputs)
+        if key[0] == "decode":
+            calls[0] += 1
+            if calls[0] in (2, 5):
+                raise RuntimeError("injected fault after the replay")
+        return out
+
+    eng.programs.run = after
+    try:
+        got = serve()
+    finally:
+        del eng.programs.run
+    assert got == ref
+    st = eng.stats()
+    assert st["failures"]["retries_by_point"] == {"serving.decode": 2}
+    assert st["compile_cache"]["after_warmup"] == 0
+
+
+@pytest.mark.cuda
+def test_preempted_slot_decodes_safely_and_resumes(cuda_device):
+    """A preempted slot's row points at scratch with length 0 when the
+    next replayed decode runs: the pool stays sound, and the victim's
+    resume (a prefix hit and a tail-bucket K5 prefill) gives the stream
+    it gives served alone."""
+    eng = Engine(_small_model("gpt", cuda_device), kv_layout="paged",
+                 max_preemptions=2, priority_aging_s=30, **_ENGINE_KW)
+    eng.warmup()
+    laws = chip_smoke.sampling_laws(5)
+    lows = [(list(range(3 + i, 43 + i)), laws[i]) for i in range(4)]
+    refs = [_alone_twice(eng, p, s) for p, s in lows]
+    reqs = [eng.add_request(p, sampling=s, max_new_tokens=10,
+                            priority="low") for p, s in lows]
+    eng.step()
+    eng.step()
+    hi = eng.add_request(list(range(90, 110)), max_new_tokens=4,
+                         priority="high")
+    eng.step()                                   # preempts one low
+    victims = [r for r in reqs if r.preempted]
+    assert len(victims) == 1 and hi.state == "running"
+    slot_free = [s for s in range(eng.num_slots) if s not in eng.running]
+    assert eng.cache.lengths.cpu()[slot_free].tolist() == [0] * len(
+        slot_free)
+    eng.step()                                   # a replay over the row
+    torch.cuda.synchronize()
+    assert eng.health()["kv_block_invariants"] == "ok"
+    eng.run()
+    assert [r.output_ids for r in reqs] == refs
+    assert all(r.finished for r in reqs + [hi])
+    resumed = victims[0]
+    assert resumed.prefill_bucket == 16          # the tail, after the hit
+    assert eng.health()["kv_block_invariants"] == "ok"
+    assert eng.stats()["compile_cache"]["after_warmup"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cancel_running_between_replays(cuda_device, layout):
+    """A running request cancelled between two replays retires at the
+    next step boundary with the tokens it had; the others' streams are
+    the ones they give alone."""
+    eng = Engine(_small_model("llama", cuda_device), kv_layout=layout,
+                 **_ENGINE_KW)
+    eng.warmup()
+    laws = chip_smoke.sampling_laws(7)
+    reqs_in = [(list(range(11 + 3 * i, 37 + 3 * i)), laws[i])
+               for i in range(3)]
+    refs = [_alone_twice(eng, p, s) for p, s in reqs_in]
+    reqs = [eng.add_request(p, sampling=s, max_new_tokens=10)
+            for p, s in reqs_in]
+    for _ in range(3):
+        eng.step()
+    emitted = list(reqs[1].output_ids)
+    assert reqs[1].cancel() and reqs[1].state == "running"
+    eng.run()
+    assert reqs[1].state == "cancelled" and reqs[1].output_ids == emitted
+    assert emitted == refs[1][:len(emitted)]
+    assert [reqs[0].output_ids, reqs[2].output_ids] == [refs[0], refs[2]]
+    assert sorted(eng.free_slots) == list(range(eng.num_slots))
+    if layout == "paged":
+        assert eng.health()["kv_block_invariants"] == "ok"
+        assert eng.stats()["paging"]["blocks"]["used"] == 0

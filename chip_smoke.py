@@ -59,19 +59,38 @@ Phases, each printing one JSON line with the card's name and power limit:
               (before and after they ran) must give the streams each gives
               served alone; a decode failing past its retry fails its
               batch and the next request is served as alone.
-10. train   — GPT-2 345M at full width (24 layers, random weights from a
+10. serve_durable — serve_paged's Llama-2 7B with a request journal:
+              serve_paged's engine and traffic served with no journal,
+              with ``fsync="rotate"`` and with ``fsync="always"`` in turn
+              (three times each; ITL, TTFT, tokens/s, records and bytes); 8
+              requests (greedy and seeded) admitted to a journaled engine
+              that is dropped once each streamed two tokens, then
+              recovered by a new engine whose streams must equal the same
+              requests served uninterrupted; a hot swap to weights of
+              another seed and back under the CUDA graphs (the new
+              weights change the stream, the old ones give it back, the
+              prompt misses the prefix cache after each swap, no
+              parameter moves, no program is built); ``drain()`` of a
+              contiguous engine (K1) with 4 requests in flight and
+              ``shutdown(timeout_s=0)`` of a paged one with 2 running.
+11. sigkill_drill — GPT-2 345M at full width, paged, bf16, in two child
+              processes: one journals 3 requests and SIGKILLs itself
+              mid-decode, the other rebuilds the model, recovers and
+              holds the streams to uninterrupted runs.
+12. train   — GPT-2 345M at full width (24 layers, random weights from a
               seed), batch 8 x 1024, bf16 AMP O2 with f32 masters, AdamW:
               3 warm-up and 10 timed steps on one batch; the K1/K2/K3
               launch counts of these 13 steps are read.
-11. train_parity — GPT-2 345M width at 2 layers in f32: loss, every
+13. train_parity — GPT-2 345M width at 2 layers in f32: loss, every
               gradient and the parameters after one AdamW step on the
               kernel path against ``kernel="reference"``.
-12. train_parity_bf16 — the same model in bf16: loss and every gradient
+14. train_parity_bf16 — the same model in bf16: loss and every gradient
               on the kernel path (the bf16 K1, K2 and K3 on tensor cores)
               against ``kernel="reference"``.
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
-``{"kernels": [...]}`` line; the last line is
+``{"kernels": [...]}`` line (each kernel's ``launches`` on its main path,
+and ``launches_by_phase``); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 without that line.  No phase falls back to the CPU.
 """
@@ -82,6 +101,7 @@ import importlib.util
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -777,6 +797,11 @@ def serve(engine, requests, max_new_tokens: int) -> dict:
     return res
 
 
+#: serve_paged's prompt tails (after its 512-token system prompt); its
+#: traffic is also serve_durable's
+PAGED_TAILS = [64, 1000, 300, 128, 777, 200, 512, 96]
+
+
 def phase_serve_paged():
     from paddle_tpu_torch import create_engine
 
@@ -785,8 +810,8 @@ def phase_serve_paged():
                         dtype=torch.bfloat16, kv_layout="paged",
                         block_size=16, min_bucket=16, num_slots=8, seed=0)
     build_s = time.perf_counter() - t0
-    reqs = make_requests(eng.config.vocab_size, 12, 512,
-                         [64, 1000, 300, 128, 777, 200, 512, 96], seed=0)
+    reqs = make_requests(eng.config.vocab_size, 12, 512, PAGED_TAILS,
+                         seed=0)
     res = serve(eng, reqs, max_new_tokens=64)
     if res["launches"]["paged_decode"] < 1 or \
             res["launches"]["paged_prefill"] < 1:
@@ -1454,7 +1479,648 @@ def phase_overload_parity():
         torch.cuda.empty_cache()
 
 
-# -- phases 10, 11 and 12: training ----------------------------------------
+# -- phases 10 and 11: durability -------------------------------------------
+
+#: the three journal settings served in turn, each ``rounds`` times
+JOURNAL_MODES = ("none", "rotate", "always")
+
+
+def paged_engine(model, **kw):
+    """serve_paged's engine over ``model``: paged, block 16, buckets from
+    16, 8 slots, ``max_seq`` the model's positions."""
+    from paddle_tpu_torch.serving import Engine
+
+    return Engine(model, kv_layout="paged", block_size=16, min_bucket=16,
+                  num_slots=8, **kw)
+
+
+class _TimedFile:
+    """A journal segment file whose ``write`` and ``flush`` add their host
+    seconds to ``spent[0]``; everything else goes to the file."""
+
+    def __init__(self, f, spent):
+        self._f, self._spent = f, spent
+
+    def _timed(self, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        self._spent[0] += time.perf_counter() - t
+        return out
+
+    def write(self, data):
+        return self._timed(self._f.write, data)
+
+    def flush(self):
+        return self._timed(self._f.flush)
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
+
+
+def timed_journal(path: str, fsync: str):
+    """A ``RequestJournal`` whose appends are timed on the host clock:
+    returns it and ``[append s, write + flush s]``.  The second is the
+    time inside the segment file's ``write`` and ``flush`` calls alone
+    (every segment, rotations included); the rest of an append is
+    serialising (``json.dumps`` + ``crc32``), the ``fsync`` under
+    ``fsync="always"`` and the journal's bookkeeping."""
+    from paddle_tpu_torch.serving import RequestJournal
+
+    spent = [0.0]
+    io = [0.0]
+    j = RequestJournal(path, fsync=fsync)
+    j._seg = _TimedFile(j._seg, io)
+    append, open_segment = j._append, j._open_segment
+
+    def timed_append(rec):
+        t = time.perf_counter()
+        append(rec)
+        spent[0] += time.perf_counter() - t
+
+    def timed_open_segment():
+        open_segment()
+        j._seg = _TimedFile(j._seg, io)
+
+    j._append, j._open_segment = timed_append, timed_open_segment
+    return j, (spent, io)
+
+
+def _journal_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path) if f.endswith(".jrnl"))
+
+
+def timed_run(engine, requests, max_new_tokens: int) -> dict:
+    """Serve ``requests`` on a warmed ``engine`` from a cold prefix cache;
+    the figures of this run alone (its ITL window starts empty, the rest
+    are deltas of the engine's metrics).  ``itl`` is the engine's: each
+    decode step's time, from its call until its tokens are on the host.
+    ``client_itl`` is what a stream sees: the time between a request's
+    consecutive tokens at its stream callback, which also holds the host
+    work between steps (the journal's appends among it)."""
+    m = engine.metrics
+    if engine.prefix_cache is not None:
+        engine.prefix_cache.clear()
+    m.itl_s.clear()
+    tokens0, time0, steps0 = m.decode_tokens, m.decode_time_s, m.decode_steps
+    stamps = {}
+
+    def cb(tok, req):
+        stamps.setdefault(req.request_id, []).append(time.perf_counter())
+
+    reqs = [engine.add_request(p, sampling=s, max_new_tokens=max_new_tokens,
+                               stream_cb=cb)
+            for p, s in requests]
+    t0 = time.perf_counter()
+    engine.run()
+    wall = time.perf_counter() - t0
+    if any(r.state != "finished" or len(r.output_ids) != max_new_tokens
+           for r in reqs):
+        raise AssertionError(f"journal-cost run: {[r.state for r in reqs]}")
+    itl = list(m.itl_s)
+    gaps = [b - a for ts in stamps.values() for a, b in zip(ts, ts[1:])]
+    return {"wall_s": round(wall, 3),
+            "ttft_p50_ms": _percentiles([r.ttft_s for r in reqs])["p50_ms"],
+            "itl": _percentiles(itl), "client_itl": _percentiles(gaps),
+            "decode_tokens_per_sec": round(
+                (m.decode_tokens - tokens0) / (m.decode_time_s - time0), 2),
+            "decode_steps": m.decode_steps - steps0,
+            "outputs": [r.output_ids for r in reqs]}
+
+
+def journal_cost(engine, requests, max_new_tokens: int, root: str,
+                 rounds: int) -> dict:
+    """The same traffic ``rounds`` times in each of ``JOURNAL_MODES``
+    (none, ``fsync="rotate"``, ``fsync="always"``; in turn), each
+    journaled run into a journal of its own, whose appends, and the
+    ``write`` + ``flush`` calls inside them, are timed on the host clock
+    (:func:`timed_journal`).  The outputs must not depend on the journal.
+    Returns every run and each mode's median ITL p50, TTFT p50, tokens/s
+    and journal time."""
+    runs = []
+    for i in range(rounds):
+        for mode in JOURNAL_MODES:
+            j = None
+            if mode != "none":
+                j, (spent, io) = timed_journal(
+                    os.path.join(root, f"cost-{mode}-{i}"), mode)
+            engine.journal = j
+            res = timed_run(engine, requests, max_new_tokens)
+            engine.journal = None
+            if j is not None:
+                res["journal_ms"] = round(spent[0] * 1e3, 3)
+                res["write_flush_ms"] = round(io[0] * 1e3, 3)
+                j.close()
+                res["records"] = j.records_written
+                res["bytes"] = _journal_bytes(j.path)
+            res["mode"] = mode
+            runs.append(res)
+    ref = runs[0].pop("outputs")
+    for r in runs[1:]:
+        if r.pop("outputs") != ref:
+            raise AssertionError(f"journal-cost: the {r['mode']} run's "
+                                 f"outputs differ from the first run's")
+    summary = {}
+    for mode in JOURNAL_MODES:
+        mine = [r for r in runs if r["mode"] == mode]
+        summary[mode] = {
+            "itl_p50_ms": float(np.median([r["itl"]["p50_ms"]
+                                           for r in mine])),
+            "itl_p99_ms": float(np.median([r["itl"]["p99_ms"]
+                                           for r in mine])),
+            "client_itl_p50_ms": float(np.median(
+                [r["client_itl"]["p50_ms"] for r in mine])),
+            "client_itl_p99_ms": float(np.median(
+                [r["client_itl"]["p99_ms"] for r in mine])),
+            "wall_s": float(np.median([r["wall_s"] for r in mine])),
+            "ttft_p50_ms": float(np.median([r["ttft_p50_ms"]
+                                            for r in mine])),
+            "decode_tokens_per_sec": float(np.median(
+                [r["decode_tokens_per_sec"] for r in mine]))}
+        if mode != "none":
+            # an admission, a first token and an end per request; the
+            # rest is one token record per decode step
+            summary[mode].update(
+                records=mine[0]["records"], bytes=mine[0]["bytes"],
+                token_records_per_decode_step=round(
+                    (mine[0]["records"] - 3 * len(requests))
+                    / mine[0]["decode_steps"], 4),
+                journal_ms=float(np.median([r["journal_ms"]
+                                            for r in mine])),
+                write_flush_ms=float(np.median([r["write_flush_ms"]
+                                                for r in mine])),
+                journal_us_per_record=round(float(np.median(
+                    [r["journal_ms"] for r in mine])) * 1e3
+                    / mine[0]["records"], 3),
+                write_flush_us_per_record=round(float(np.median(
+                    [r["write_flush_ms"] for r in mine])) * 1e3
+                    / mine[0]["records"], 3))
+    return {"runs": runs, "summary": summary}
+
+
+def crash_and_recover(engine, make_engine, requests, root: str) -> tuple:
+    """``requests`` (prompt, law, max_new_tokens) are admitted to
+    ``engine``, journaled, which steps until each has streamed two tokens
+    and is then dropped without ``close()``, as a crash would leave it.
+    A new engine from ``make_engine(journal)`` reopens the journal, warms
+    up, recovers and serves.  The reopened journal must hold, for each
+    pending request, exactly the tokens its client received before the
+    crash, and each recovered stream must begin with them; it must also
+    equal the same request (its journaled recipe, effective seed
+    included) served uninterrupted on that engine from the same cold
+    prefix cache.  Returns the new engine and the figures."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import RequestJournal, SamplingParams
+
+    path = os.path.join(root, "crash")
+    if engine.prefix_cache is not None:
+        engine.prefix_cache.clear()
+    engine.journal = RequestJournal(path)
+    reqs = [engine.add_request(p, sampling=s, max_new_tokens=n)
+            for p, s, n in requests]
+    steps = 0
+    while any(len(r.output_ids) < 2 for r in reqs):
+        engine.step()
+        steps += 1
+    streamed = [len(r.output_ids) for r in reqs]
+    sent = {r.journal_id: list(r.output_ids) for r in reqs}
+    del reqs
+    journal = RequestJournal(path)
+    pending = journal.pending()
+    journaled = {jid: journal.outputs(jid) for jid in pending}
+    eng = make_engine(journal)
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    info = eng.recover()
+    eng.run()
+    rec = info["requests"]
+    # the uninterrupted runs, from the same cold prefix cache
+    if eng.prefix_cache is not None:
+        eng.prefix_cache.clear()
+    refs = []
+    for r in pending.values():
+        s = journal.replay_sampling(r)
+        refs.append(eng.add_request(
+            r["prompt_ids"], max_new_tokens=r["max_new_tokens"],
+            sampling=SamplingParams(temperature=s["temperature"],
+                                    top_k=s["top_k"], top_p=s["top_p"],
+                                    seed=s["seed"])))
+    eng.run()
+    launches = kernels.launch_counts()
+    audit = journal.audit()
+    st = eng.stats()
+    res = {"admitted": len(requests), "steps_before_crash": steps,
+           "streamed_before_crash": streamed,
+           "replayed": info["replayed"],
+           "recovered_flags": all(r.recovered for r in rec),
+           "states": sorted({r.state for r in rec + refs}),
+           "bitwise": [r.output_ids for r in rec]
+           == [r.output_ids for r in refs],
+           "journal_holds_sent": all(journaled[j] == sent[j]
+                                     for j in journaled),
+           "continues_sent": all(
+               r.output_ids[:len(sent[r.journal_id])] == sent[r.journal_id]
+               for r in rec),
+           "sent_tokens": sum(len(sent[j]) for j in journaled),
+           "banked": st["durability"]["banked"],
+           "recovered": st["durability"]["recovered"],
+           "replay_ttft": _percentiles([r.ttft_s for r in rec]),
+           "pending_after": audit["pending"],
+           "duplicate_terminals": audit["duplicate_terminals"],
+           "journal_records": audit["records_written"],
+           "after_warmup": st["compile_cache"]["after_warmup"],
+           "warmup_s": round(warmup_s, 3), "launches": launches}
+    problems = []
+    if not (res["replayed"] == len(pending) > 0 and res["recovered_flags"]):
+        problems.append(f"replayed {res['replayed']} of {len(pending)}")
+    if res["states"] != ["finished"]:
+        problems.append(f"states {res['states']}")
+    if not res["bitwise"]:
+        problems.append(f"recovered {[r.output_ids for r in rec]} != "
+                        f"uninterrupted {[r.output_ids for r in refs]}")
+    if not (res["journal_holds_sent"] and res["continues_sent"]):
+        problems.append(f"sent before the crash {sent}, journaled "
+                        f"{journaled}, recovered "
+                        f"{[(r.journal_id, r.output_ids) for r in rec]}")
+    if res["pending_after"] != 0 or res["duplicate_terminals"] != 0:
+        problems.append(f"audit {audit}")
+    if res["after_warmup"] != 0:
+        problems.append(f"{res['after_warmup']} programs after warmup")
+    if problems:
+        raise AssertionError("serve_durable (recovery): "
+                             + "; ".join(problems))
+    return eng, res
+
+
+def hot_swap(engine, build, prompt, max_new_tokens: int) -> dict:
+    """On the idle ``engine`` (its model built by ``build(0)``): serve
+    ``prompt`` greedily at version 0 (T0) and again (a prefix hit), swap
+    to ``build(1)``'s weights (T1 must differ, the prompt must miss the
+    prefix cache), then back to ``build(0)``'s (T0 again, still a miss).
+    No program may be built and no parameter may move."""
+    cuda = engine.device.type == "cuda"
+    pc = engine.prefix_cache
+    ptrs = {k: p.data_ptr() for k, p in engine.model.named_parameters()}
+    misses = engine.metrics.compile_misses
+
+    def serve_once():
+        r = engine.add_request(prompt, max_new_tokens=max_new_tokens)
+        engine.run()
+        return r
+
+    def swap(seed):
+        other = build(seed)
+        sd = other.state_dict()
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = engine.update_weights(sd)
+        ms = (time.perf_counter() - t0) * 1e3
+        del other, sd
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        return v, ms
+
+    r0 = serve_once()
+    hit0 = pc.hit_tokens_total
+    serve_once()                         # a prefix hit at version 0
+    hit_v0 = pc.hit_tokens_total
+    v1, ms1 = swap(1)
+    r1 = serve_once()
+    hit_v1 = pc.hit_tokens_total
+    v2, ms2 = swap(0)
+    r2 = serve_once()
+    hit_v2 = pc.hit_tokens_total
+    moved = [k for k, p in engine.model.named_parameters()
+             if p.data_ptr() != ptrs[k]]
+    res = {"versions": [r0.model_version, r1.model_version,
+                        r2.model_version],
+           "swap_versions": [v1, v2], "epoch": pc.epoch,
+           "second_v0_serve_hit_tokens": hit_v0 - hit0,
+           "hit_tokens_after_swaps": [hit_v1 - hit_v0, hit_v2 - hit_v1],
+           "t1_differs": r1.output_ids != r0.output_ids,
+           "t0_again": r2.output_ids == r0.output_ids,
+           "swap_ms": [round(ms1, 3), round(ms2, 3)],
+           "parameters": len(ptrs), "moved": moved,
+           "new_programs": engine.metrics.compile_misses - misses,
+           "after_warmup": engine.stats()["compile_cache"]["after_warmup"],
+           "durability": {k: v for k, v in engine.stats()[
+               "durability"].items() if k != "journal"}}
+    problems = []
+    if res["versions"] != [0, 1, 2] or res["swap_versions"] != [1, 2] \
+            or res["epoch"] != 2:
+        problems.append(f"versions {res['versions']}, epoch {res['epoch']}")
+    if res["second_v0_serve_hit_tokens"] <= 0:
+        problems.append("the second v0 serve did not hit the prefix cache")
+    if res["hit_tokens_after_swaps"] != [0, 0]:
+        problems.append(f"hit after a swap: {res['hit_tokens_after_swaps']}")
+    if not res["t1_differs"]:
+        problems.append("the new weights gave the old stream")
+    if not res["t0_again"]:
+        problems.append(f"swapping back gave {r2.output_ids}, not "
+                        f"{r0.output_ids}")
+    if moved or res["new_programs"] or res["after_warmup"]:
+        problems.append(f"moved {moved[:3]}, {res['new_programs']} new "
+                        f"programs, after_warmup {res['after_warmup']}")
+    if problems:
+        raise AssertionError("serve_durable (hot swap): "
+                             + "; ".join(problems))
+    return res
+
+
+def drain_and_shutdown(drain_engine, shutdown_engine, drain_requests,
+                       shutdown_requests, max_new_tokens: int) -> dict:
+    """``drain()`` on ``drain_engine`` with its requests in flight (all
+    must finish, the engine stop and refuse new work), then
+    ``shutdown(timeout_s=0)`` on ``shutdown_engine`` with its requests
+    running (cancelled with ``"engine shutdown"``, the pool clean)."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import EngineStopped
+
+    drain_engine.warmup()
+    kernels.reset_launches()
+    reqs = [drain_engine.add_request(p, sampling=s,
+                                     max_new_tokens=max_new_tokens)
+            for p, s in drain_requests]
+    drain_engine.step()
+    in_flight = sum(not r.done for r in reqs)
+    st = drain_engine.drain()
+    try:
+        drain_engine.add_request([1, 2, 3])
+        refused = False
+    except EngineStopped:
+        refused = True
+    launches = kernels.launch_counts()
+    sreqs = [shutdown_engine.add_request(p, sampling=s,
+                                         max_new_tokens=max_new_tokens)
+             for p, s in shutdown_requests]
+    shutdown_engine.step()
+    running = sum(r.state == "running" for r in sreqs)
+    sst = shutdown_engine.shutdown(timeout_s=0)
+    res = {"drain": {"in_flight": in_flight,
+                     "states": sorted({r.state for r in reqs}),
+                     "tokens": [len(r.output_ids) for r in reqs],
+                     "state": drain_engine.state, "refuses_new": refused,
+                     "after_warmup": st["compile_cache"]["after_warmup"],
+                     "launches": launches},
+           "shutdown": {"running": running,
+                        "outcomes": sorted({(r.state, r.error, r.error_kind)
+                                            for r in sreqs}),
+                        "state": shutdown_engine.state,
+                        "kv_block_invariants":
+                            sst["health"]["kv_block_invariants"],
+                        "blocks_used": sst["paging"]["blocks"]["used"],
+                        "after_warmup":
+                            sst["compile_cache"]["after_warmup"]}}
+    d, s = res["drain"], res["shutdown"]
+    problems = []
+    if d["in_flight"] != len(reqs) or d["states"] != ["finished"] or \
+            d["state"] != "stopped" or not d["refuses_new"]:
+        problems.append(f"drain {d}")
+    if s["running"] != len(sreqs) or s["outcomes"] != [
+            ("cancelled", "engine shutdown", "replica")] or \
+            s["state"] != "stopped" or s["kv_block_invariants"] != "ok" or \
+            s["blocks_used"] != 0:
+        problems.append(f"shutdown {s}")
+    if d["after_warmup"] or s["after_warmup"]:
+        problems.append("programs built after warmup")
+    if problems:
+        raise AssertionError("serve_durable (drain/shutdown): "
+                             + "; ".join(problems))
+    return res
+
+
+def run_serve_durable(model, build, root: str, rounds: int = 3) -> dict:
+    """serve_durable over ``model`` (``build(0)``'s weights): the journal
+    cost on serve_paged's engine and traffic, a crash and recovery of 8
+    requests, the hot swap, drain (contiguous) and shutdown.  Returns the
+    figures and the K4/K5/K1 launches of each part."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import Engine, SamplingParams
+
+    vocab = model.config.vocab_size
+    eng = paged_engine(model)
+    t0 = time.perf_counter()
+    warm = eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    cost = journal_cost(eng, make_requests(vocab, 12, 512, PAGED_TAILS,
+                                           seed=0),
+                        64, root, rounds)
+    cost["launches"] = kernels.launch_counts()
+    # 8 requests, greedy and seeded in turn, after a shared 256-token
+    # prompt; the last two end at their second token, before the crash
+    rs = np.random.RandomState(5)
+    system = rs.randint(0, vocab, (256,)).tolist()
+    crash_reqs = []
+    for i, tail in enumerate([40, 300, 17, 700, 120, 64, 33, 500]):
+        law = SamplingParams() if i % 2 == 0 else SamplingParams(
+            temperature=0.8, top_k=40, seed=100 + i)
+        crash_reqs.append((system + rs.randint(0, vocab, (tail,)).tolist(),
+                           law, 2 if i >= 6 else 32))
+    eng2, recovery = crash_and_recover(
+        eng, lambda j: paged_engine(model, journal=j), crash_reqs, root)
+    del eng                              # the crashed engine's pool and graphs
+    gc.collect()
+    if next(model.parameters()).is_cuda:
+        torch.cuda.empty_cache()
+    kernels.reset_launches()
+    swap = hot_swap(eng2, build, rs.randint(0, vocab, (300,)).tolist(), 16)
+    swap["launches"] = kernels.launch_counts()
+    # serve_contiguous's engine
+    contiguous = Engine(model, kv_layout="contiguous", num_slots=4,
+                        max_seq=2048, min_bucket=16)
+    lifecycle = drain_and_shutdown(
+        contiguous, eng2,
+        make_requests(vocab, 4, 512, [100, 400, 250, 31], seed=6),
+        make_requests(vocab, 2, 128, [50, 90], seed=7), 16)
+    eng2.journal.close()
+    return {"warmup_s": round(warmup_s, 3),
+            "warmup_programs": warm["compile_misses"],
+            "journal_cost": cost, "recovery": recovery, "hot_swap": swap,
+            **lifecycle}
+
+
+def _sum_launches(*counts) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_serve_durable(model) -> dict:
+    """Llama-2 7B (serve_paged's model) with a request journal: the
+    journal's cost, a crash and recovery, a hot swap of the weights under
+    the CUDA graphs, drain and shutdown."""
+    from paddle_tpu_torch.serving import Engine
+
+    def build(seed):
+        return Engine.resolve_model("llama:llama2-7b", device="cuda",
+                                    dtype=torch.bfloat16, seed=seed)
+
+    with tempfile.TemporaryDirectory() as root:
+        res = run_serve_durable(model, build, root)
+    parts = {"journal_cost": res["journal_cost"]["launches"],
+             "recovery": res["recovery"]["launches"],
+             "hot_swap": res["hot_swap"]["launches"],
+             "drain": res["drain"]["launches"]}
+    for part in ("journal_cost", "recovery", "hot_swap"):
+        if parts[part]["paged_decode"] < 1 or \
+                parts[part]["paged_prefill"] < 1:
+            raise AssertionError(f"serve_durable ({part}) did not run "
+                                 f"K4/K5: {parts[part]}")
+    if parts["drain"]["flash_fwd"] < 1:
+        raise AssertionError(f"serve_durable (drain) did not run K1: "
+                             f"{parts['drain']}")
+    res["launches"] = _sum_launches(*parts.values())
+    emit("serve_durable", model="llama2-7b", dtype="bfloat16", **res)
+    return res
+
+
+# -- phase 11: the SIGKILL drill -------------------------------------------
+
+#: one child of the drill: ``serve`` journals 3 requests (greedy, seeded,
+#: greedy) through a paged engine of 2 slots and SIGKILLs itself at its
+#: third step; ``recover`` rebuilds the same model, recovers, serves, holds
+#: each recovered stream to the same request served uninterrupted (from
+#: its journaled recipe) and prints one JSON line.  On the card a child
+#: builds no kernel: the parent built them into ``_build/``.
+_DRILL_CHILD = r"""
+import json, os, signal, sys
+import numpy as np
+import torch
+from paddle_tpu_torch import create_engine
+from paddle_tpu_torch.ops import kernels
+from paddle_tpu_torch.serving import RequestJournal, SamplingParams
+
+mode, jdir, spec, device, dtype, max_seq, lens, new = sys.argv[1:9]
+if device == "cuda":
+    assert torch.cuda.is_available(), "the drill's children need the card"
+    assert all(b["cached"] for b in kernels.build().values()), \
+        "a child of the drill built a kernel"
+journal = RequestJournal(jdir)
+eng = create_engine(spec, device=device, dtype=getattr(torch, dtype),
+                    seed=0, kv_layout="paged", block_size=16,
+                    min_bucket=16, num_slots=2, max_seq=int(max_seq),
+                    journal=journal)
+eng.warmup()
+if mode == "serve":
+    rs = np.random.RandomState(5)
+    laws = [SamplingParams(),
+            SamplingParams(temperature=0.7, top_k=8, seed=99),
+            SamplingParams()]
+    reqs = [eng.add_request(
+        rs.randint(0, eng.config.vocab_size, (n,)).tolist(), sampling=law,
+        max_new_tokens=int(new)) for n, law in zip(json.loads(lens), laws)]
+    steps = 0
+    while eng.step():
+        steps += 1
+        if steps == 3:               # mid-decode, tokens already streamed
+            print("KILLING", json.dumps({r.journal_id: r.output_ids
+                                         for r in reqs}), flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+    raise SystemExit("unreachable: the SIGKILL must land mid-decode")
+pend = journal.pending()
+journaled = {jid: journal.outputs(jid) for jid in pend}
+misses0 = eng.metrics.compile_misses
+kernels.reset_launches()
+info = eng.recover()
+eng.run()
+rec = info["requests"]
+eng.prefix_cache.clear()             # the references start as cold
+refs = []
+for r in pend.values():
+    s = journal.replay_sampling(r)
+    refs.append(eng.add_request(
+        r["prompt_ids"], max_new_tokens=r["max_new_tokens"],
+        sampling=SamplingParams(temperature=s["temperature"],
+                                top_k=s["top_k"], top_p=s["top_p"],
+                                seed=s["seed"])))
+eng.run()
+a = journal.audit()
+print(json.dumps({
+    "replayed": info["replayed"],
+    "recovered_flags": [bool(r.recovered) for r in rec],
+    "all_finished": all(r.state == "finished" for r in rec),
+    "bitwise": [r.output_ids for r in rec] == [r.output_ids for r in refs],
+    "journaled": journaled,
+    "recovered_streams": {r.journal_id: r.output_ids for r in rec},
+    "steady_misses": eng.metrics.compile_misses - misses0,
+    "pending_after": a["pending"],
+    "duplicate_terminals": a["duplicate_terminals"],
+    "launches": kernels.launch_counts()}))
+"""
+
+
+def sigkill_drill(spec: str, device: str, dtype: str, max_seq: int,
+                  prompt_lens, new_tokens: int, root: str) -> dict:
+    """Run the drill's two children from the repository root with this
+    Python.  The first must die by SIGKILL after printing ``KILLING`` and
+    the tokens its clients received; the second's JSON line must show 3
+    replays, all recovered and finished, bitwise equal to uninterrupted
+    runs, a journal that held exactly the received tokens, each replay
+    beginning with them, no program built after warmup, nothing pending
+    and no duplicate terminal."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    args = [os.path.join(root, "drill"), spec, device, dtype, str(max_seq),
+            json.dumps(list(prompt_lens)), str(new_tokens)]
+    t0 = time.perf_counter()
+    r1 = subprocess.run([sys.executable, "-c", _DRILL_CHILD, "serve", *args],
+                        cwd=here, capture_output=True, text=True,
+                        timeout=300)
+    t1 = time.perf_counter()
+    if r1.returncode != -signal.SIGKILL or "KILLING" not in r1.stdout:
+        raise AssertionError(f"sigkill_drill: the serving child ended with "
+                             f"{r1.returncode}: {r1.stdout[-1000:]} "
+                             f"{r1.stderr[-2000:]}")
+    r2 = subprocess.run([sys.executable, "-c", _DRILL_CHILD, "recover",
+                         *args], cwd=here, capture_output=True, text=True,
+                        timeout=300)
+    t2 = time.perf_counter()
+    if r2.returncode != 0:
+        raise AssertionError(f"sigkill_drill: the recovering child failed "
+                             f"({r2.returncode}): {r2.stderr[-2000:]}")
+    out = json.loads(r2.stdout.strip().splitlines()[-1])
+    sent = json.loads(r1.stdout.split("KILLING", 1)[1].splitlines()[0])
+    journaled, streams = out.pop("journaled"), out.pop("recovered_streams")
+    out.update(
+        sent_tokens=sum(len(t) for t in sent.values()),
+        journal_holds_sent=journaled == sent,
+        continues_sent=sorted(streams) == sorted(sent) and all(
+            streams[j][:len(t)] == t for j, t in sent.items()))
+    want = {"replayed": 3, "recovered_flags": [True] * 3,
+            "all_finished": True, "bitwise": True,
+            "journal_holds_sent": True, "continues_sent": True,
+            "steady_misses": 0, "pending_after": 0,
+            "duplicate_terminals": 0}
+    got = {k: out[k] for k in want}
+    if got != want:
+        raise AssertionError(f"sigkill_drill: {got}, want {want}")
+    out.update(serve_child_s=round(t1 - t0, 3),
+               recover_child_s=round(t2 - t1, 3),
+               killed_by=-r1.returncode)
+    return out
+
+
+def phase_sigkill_drill() -> dict:
+    """GPT-2 345M at full width (random weights from seed 0, made on the
+    card in each child), paged, bf16."""
+    with tempfile.TemporaryDirectory() as root:
+        res = sigkill_drill("gpt:gpt2-345m", "cuda", "bfloat16", 1024,
+                            [60, 333, 130], 16, root)
+    if res["launches"]["paged_decode"] < 1 or \
+            res["launches"]["paged_prefill"] < 1:
+        raise AssertionError(f"sigkill_drill did not run K4/K5: "
+                             f"{res['launches']}")
+    emit("sigkill_drill", model="gpt2-345m", dtype="bfloat16", **res)
+    return res
+
+
+# -- phases 12, 13 and 14: training ----------------------------------------
 
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 
@@ -1679,6 +2345,7 @@ def main() -> int:
         return 2
     import paddle_tpu_torch  # noqa: F401 — fails outside the repository
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     CARD = card_line()
@@ -1698,9 +2365,13 @@ def main() -> int:
     phase_parity()
     phase_graph_parity()
     phase_serve_overload(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    durable = phase_serve_durable(model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    drill = phase_sigkill_drill()
     phase_overload_parity()
     train = phase_train()
     gc.collect()
@@ -1711,8 +2382,16 @@ def main() -> int:
     phase_train_parity_bf16()
     launches = {**paged["launches"],
                 **{n: train["launches"][n] for n in TRAIN_KERNELS}}
-    kernels_line = [{**rec, "launches": launches[name]}
+    by_phase = {"serve_paged": paged["launches"],
+                "serve_durable": durable["launches"],
+                "sigkill_drill": drill["launches"],
+                "train": train["launches"]}
+    kernels_line = [{**rec, "launches": launches[name],
+                     "launches_by_phase": {ph: c[name]
+                                           for ph, c in by_phase.items()
+                                           if c.get(name)}}
                     for name, rec in records.items()]
+    emit("done", seconds=round(time.perf_counter() - t_start, 3))
     print(CARD)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {

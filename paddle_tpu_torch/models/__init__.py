@@ -1,5 +1,5 @@
 """Models of the port."""
-from .convert import from_jax_state_dict
+from .convert import from_jax_state_dict, port_state_dict_from_jax
 from .gpt import (
     GPT_CONFIGS, GPTConfig, GPTForCausalLM, GPTModel, gpt2_345m, gpt3_13b,
     gpt_tiny,
@@ -9,7 +9,8 @@ from .llama import (
     llama2_70b, llama2_7b, llama_tiny,
 )
 
-__all__ = ["from_jax_state_dict", "GPT_CONFIGS", "GPTConfig",
-           "GPTForCausalLM", "GPTModel", "gpt2_345m", "gpt3_13b", "gpt_tiny",
+__all__ = ["from_jax_state_dict", "port_state_dict_from_jax", "GPT_CONFIGS",
+           "GPTConfig", "GPTForCausalLM", "GPTModel", "gpt2_345m", "gpt3_13b",
+           "gpt_tiny",
            "LLAMA_CONFIGS", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "llama2_13b", "llama2_70b", "llama2_7b", "llama_tiny"]

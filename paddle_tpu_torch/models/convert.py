@@ -16,15 +16,16 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["from_jax_state_dict"]
+__all__ = ["port_state_dict_from_jax", "from_jax_state_dict"]
 
 
-@torch.no_grad()
-def from_jax_state_dict(model: nn.Module,
-                        state: Dict[str, np.ndarray]) -> nn.Module:
-    """Write a JAX-package state dict (name → numpy array) into ``model``
-    in place, on the model's device and in its dtype.  Raises unless the
-    names cover the model exactly and every shape matches."""
+def port_state_dict_from_jax(model: nn.Module, state: Dict[str, np.ndarray]
+                             ) -> Dict[str, torch.Tensor]:
+    """A JAX-package state dict (name → numpy array) in the port's names
+    and layouts: the state dict ``model.state_dict()`` would give, as CPU
+    tensors (linear weights transposed).  Touches nothing of ``model``.
+    Raises unless the names cover the model exactly and every shape
+    matches."""
     linear = {f"{name}.weight" for name, m in model.named_modules()
               if isinstance(m, nn.Linear)}
     params = dict(model.named_parameters())
@@ -34,6 +35,7 @@ def from_jax_state_dict(model: nn.Module,
         raise ValueError(f"state dict does not cover the model "
                          f"(missing={missing[:5]}, "
                          f"unexpected={unexpected[:5]})")
+    out = {}
     for name, p in params.items():
         arr = np.asarray(state[name])
         if name in linear:
@@ -41,5 +43,17 @@ def from_jax_state_dict(model: nn.Module,
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {arr.shape} after layout "
                              f"change, model has {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(arr)))     # a writable copy
+        out[name] = torch.from_numpy(np.array(arr))    # a writable copy
+    return out
+
+
+@torch.no_grad()
+def from_jax_state_dict(model: nn.Module,
+                        state: Dict[str, np.ndarray]) -> nn.Module:
+    """Write a JAX-package state dict (name → numpy array) into ``model``
+    in place, on the model's device and in its dtype
+    (:func:`port_state_dict_from_jax`, then ``copy_``)."""
+    params = dict(model.named_parameters())
+    for name, t in port_state_dict_from_jax(model, state).items():
+        params[name].copy_(t)
     return model

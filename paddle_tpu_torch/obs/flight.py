@@ -11,10 +11,21 @@ through its owner (``engine.flight``).
 from __future__ import annotations
 
 import time
+import weakref
 from collections import deque
 from typing import List
 
-__all__ = ["FlightRecorder"]
+__all__ = ["FlightRecorder", "live_recorders"]
+
+#: weak registry of every live recorder: the crash-dump path finds the
+#: rings through it without holding them alive
+_LIVE = weakref.WeakSet()
+
+
+def live_recorders() -> List["FlightRecorder"]:
+    """Every live :class:`FlightRecorder` in the process (weakly held,
+    registration order not guaranteed)."""
+    return list(_LIVE)
 
 
 class FlightRecorder:
@@ -36,6 +47,7 @@ class FlightRecorder:
         self._ring: deque = deque(maxlen=self.capacity)
         self.steps_seen = 0
         self.dumps: List[dict] = []
+        _LIVE.add(self)
 
     def record(self, **fields) -> None:
         """Append one step summary (host ints/floats only: the caller is

@@ -1,9 +1,10 @@
 """Continuous-batching serving of the port: engine, caches, sampling,
-the overload regime and the request tracer."""
+the overload regime, the request tracer and the request journal."""
 from .engine import (
-    PRIORITY_HIGH, PRIORITY_LOW, PRIORITY_NORMAL, Engine, QueueFull, Request,
-    ShedReject,
+    PRIORITY_HIGH, PRIORITY_LOW, PRIORITY_NORMAL, Engine, EngineStopped,
+    QueueFull, Request, ShedReject,
 )
+from .journal import JournalCorrupt, RequestJournal
 from .kv_cache import CacheContext, KVCache
 from .metrics import ServingMetrics
 from .paging import BlockAllocator, PagedCacheContext, PagedKVCache
@@ -13,7 +14,8 @@ from .tracing import (
     NULL_TRACER, FlightRecorder, RequestTracer, validate_trace,
 )
 
-__all__ = ["Engine", "Request", "QueueFull", "ShedReject", "PRIORITY_LOW",
+__all__ = ["Engine", "Request", "QueueFull", "ShedReject", "EngineStopped",
+           "RequestJournal", "JournalCorrupt", "PRIORITY_LOW",
            "PRIORITY_NORMAL", "PRIORITY_HIGH", "CacheContext", "KVCache",
            "BlockAllocator", "PagedCacheContext", "PagedKVCache",
            "PrefixCache", "DeviceSampler", "SamplingParams",

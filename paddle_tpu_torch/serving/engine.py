@@ -46,18 +46,31 @@ first rewrites, from the host's own bookkeeping, what a failed call may
 have written, whether it failed before its replay was enqueued or after
 (:meth:`Engine._step_call`).
 
+Durability, as in the JAX engine: the engine's ``state`` (``active``,
+``draining``, ``stopped`` or a sticky ``unhealthy``), :meth:`Engine.drain`
+and :meth:`Engine.shutdown`; a request journal (``journal=``,
+:class:`~.journal.RequestJournal`) written between programs (an
+admission record before the request is queued, one token record per
+engine step, a restart at preemption, an end at retirement), from which
+:meth:`Engine.recover` replays a crashed process's unfinished requests
+from their prompts; and :meth:`Engine.update_weights`, a hot swap on an
+idle engine.  A captured CUDA graph reads the parameters at the
+addresses it saw at capture, so a swap writes every parameter in place
+(``copy_``) on the stream the programs replay on, synchronises it, and
+raises if a parameter moved; the JAX engine could rebind its buffers.
+
 The opt-in subsystems of the JAX engine that are not part of this port
-yet: speculation, adapters, grammars, the journal, ``drain``/``shutdown``
-/``recover``/``update_weights``, the mesh, fault plans, the sanitizer and
-the watchdog, the prefix-lookup timeout, and ``Fleet``.
+yet: speculation, adapters, grammars, the mesh, fault plans, the
+sanitizer and the watchdog, the prefix-lookup timeout, and ``Fleet``.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import time
 import weakref
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -72,7 +85,8 @@ from .sampling import DeviceSampler, SamplingParams
 from .tracing import NULL_TRACER, FlightRecorder, RequestTracer
 
 __all__ = ["Engine", "Request", "SamplingParams", "QueueFull", "ShedReject",
-           "PRIORITY_LOW", "PRIORITY_NORMAL", "PRIORITY_HIGH"]
+           "EngineStopped", "PRIORITY_LOW", "PRIORITY_NORMAL",
+           "PRIORITY_HIGH"]
 
 _engine_counter = itertools.count()
 
@@ -99,6 +113,69 @@ def _as_priority(priority) -> int:
     return int(priority)
 
 
+def _resolve_weights(state_or_path):
+    """Normalize ``update_weights`` input to a flat state dict: a dict
+    passes through and an ``.npz`` path loads its arrays.  A directory
+    (a ``distributed.checkpoint`` of the JAX package) raises: that
+    format's reader is not ported."""
+    if isinstance(state_or_path, dict):
+        return state_or_path
+    if isinstance(state_or_path, (str, os.PathLike)):
+        p = os.fspath(state_or_path)
+        if os.path.isdir(p):
+            raise NotImplementedError(
+                f"update_weights: {p!r} is a directory; the "
+                "distributed.checkpoint format is not ported (ROADMAP.md "
+                "A.5): pass a state dict or an .npz path")
+        if p.endswith(".npz"):
+            with np.load(p) as z:
+                return {k: z[k] for k in z.files}
+        raise ValueError(f"update_weights: {p!r} is not an .npz file")
+    raise TypeError("update_weights wants a state dict or an .npz path, "
+                    f"got {type(state_or_path).__name__}")
+
+
+@torch.no_grad()
+def _write_state_dict(model: nn.Module, sd) -> None:
+    """Write ``sd`` (the names and layouts of ``model.state_dict()``;
+    torch tensors on any device or numpy arrays) into ``model``'s
+    existing tensors, in place.  Every check runs before the first write:
+    the names must cover the model exactly and every shape must match (a
+    partial write would serve a mix of two models).  On the card the
+    copies run on the current stream, the one the step programs replay
+    on, which is synchronised before this returns, so no replay reads a
+    half-written weight.  A captured graph reads a parameter at the
+    address it had at capture: if any tensor moved, this raises."""
+    targets = model.state_dict(keep_vars=True)
+    missing = sorted(set(targets) - set(sd))
+    unexpected = sorted(set(sd) - set(targets))
+    if missing or unexpected:
+        raise ValueError(f"update_weights: state dict does not cover the "
+                         f"model "
+                         f"(missing={missing[:5]}, "
+                         f"unexpected={unexpected[:5]})")
+    for name, t in targets.items():
+        shape = tuple(np.shape(sd[name]))
+        if shape != tuple(t.shape):
+            raise ValueError(f"update_weights: {name} has shape {shape}, "
+                             f"the model {tuple(t.shape)}")
+    before = {name: t.data_ptr() for name, t in targets.items()}
+    device = next(iter(targets.values())).device
+    for name, t in targets.items():
+        src = sd[name]
+        if not isinstance(src, torch.Tensor):
+            src = torch.from_numpy(np.array(src))     # a writable copy
+        t.copy_(src)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    moved = [name for name, t in model.state_dict(keep_vars=True).items()
+             if t.data_ptr() != before.get(name)]
+    if moved:
+        raise RuntimeError(f"update_weights: {moved[:5]} moved in memory; "
+                           f"the step programs' graphs still read the old "
+                           f"address")
+
+
 class QueueFull(RuntimeError):
     """Admission rejected by backpressure: the request queue is at
     ``max_queue`` (and, under the ``block`` policy, stayed full past the
@@ -120,6 +197,11 @@ class ShedReject(QueueFull):
     :class:`QueueFull`, so backpressure-aware callers handle both alike;
     ``retry_after_s`` says when the backlog is expected to have
     cleared."""
+
+
+class EngineStopped(RuntimeError):
+    """``add_request`` after ``drain()``/``shutdown()`` (or on an
+    unhealthy engine): the engine no longer admits work."""
 
 
 @dataclass(eq=False)
@@ -144,10 +226,21 @@ class Request:
     #: admission (``preemptions`` counts the evictions)
     preempted: bool = False
     preemptions: int = 0
+    #: durable identity in the request journal (``Engine(journal=...)``),
+    #: stable across preemption and process crashes
+    journal_id: Optional[str] = None
+    #: set when this admission is a crash-recovery replay from the
+    #: journal (its stream restarted from token 0)
+    recovered: bool = False
+    #: weight version the engine held when this request was admitted
+    model_version: int = 0
     error: Optional[str] = None
     #: machine-readable context of a backpressure or shed rejection
     #: (``{"depth": int, "retry_after_s": float}``)
     error_ctx: Optional[dict] = None
+    #: who a failure implicates: ``"request"`` (its own prompt, callback
+    #: or deadline) or ``"replica"`` (the engine's step or lifecycle)
+    error_kind: str = "request"
     slot: Optional[int] = None
     output_ids: List[int] = field(default_factory=list)
     prefill_bucket: int = 0
@@ -240,7 +333,12 @@ class Engine:
             (``PADDLE_TPU_TRACE=1``) or the no-op
             :data:`~.tracing.NULL_TRACER`.
         flight_recorder_steps: ring capacity of the always-on
-            :class:`~.tracing.FlightRecorder` (one summary per step).
+            :class:`~.tracing.FlightRecorder` (one summary per step),
+            dumped when the engine turns ``unhealthy``.
+        journal: a :class:`~.journal.RequestJournal`: every accepted
+            request is journaled (its replay recipe, one token record
+            per engine step, its end) so that a fresh process can
+            :meth:`recover` it.  ``None`` journals nothing.
     """
 
     def __init__(self, model: nn.Module, *, num_slots: int = 4,
@@ -260,7 +358,8 @@ class Engine:
                  max_preemptions: int = 2,
                  priority_aging_s: Optional[float] = 5.0,
                  tracer=None,
-                 flight_recorder_steps: int = 256):
+                 flight_recorder_steps: int = 256,
+                 journal=None):
         cfg = getattr(model, "config", None)
         if cfg is None:
             raise TypeError("Engine needs a model carrying a .config "
@@ -356,6 +455,17 @@ class Engine:
             tracer = RequestTracer.from_env() or NULL_TRACER
         self.tracer = tracer
         self.flight = FlightRecorder(flight_recorder_steps, name=self.name)
+        # the request journal: None journals nothing and costs nothing;
+        # its writes are host file I/O between programs
+        self.journal = journal
+        #: weight version this engine serves, from 0 (``update_weights``
+        #: bumps it; each request records the version that served it)
+        self.model_version = 0
+        #: the mesh-shape key a sharded engine journals; the port serves
+        #: on one card (ROADMAP.md A.3 step 8)
+        self.mesh_shape: Optional[str] = None
+        self.state = "active"    # active | draining | stopped | unhealthy
+        self._unhealthy_reason: Optional[str] = None
 
     # -- buckets -----------------------------------------------------------
 
@@ -584,8 +694,16 @@ class Engine:
         engine's ``default_deadline_s``) is shed (:class:`ShedReject`).
         The rejected handle rides on the exception's ``.request``.
         ``priority`` is ``"low"|"normal"|"high"`` or any int; higher
-        serves first and may preempt strictly lower."""
+        serves first and may preempt strictly lower.  A stopped, draining
+        or unhealthy engine raises :class:`EngineStopped`.  With a
+        journal, the admission record is written before the request is
+        queued; if that write fails the request is rejected and the
+        storage error raised."""
         prio = _as_priority(priority)
+        if self.state != "active":
+            raise EngineStopped(
+                f"engine {self.name!r} is {self.state}: not admitting "
+                "new requests")
         prompt = np.asarray(list(prompt_ids), dtype=np.int64).reshape(-1)
         if sampling is None:
             sampling = SamplingParams(temperature=temperature or 0.0)
@@ -596,13 +714,28 @@ class Engine:
                                   else self.default_deadline_s),
                       priority=prio, request_id=next(self._req_counter))
         req.t_enqueue = time.perf_counter()
+        origin_wall = None
+        jr = self.journal
+        if jr is not None:
+            # the durable identity, taken before the admission checks: a
+            # recovery replay arrives with an adopted id and the
+            # recovered flag, which exempts it from shedding (it was
+            # accepted once already, before the crash); otherwise the id
+            # is this engine's, made unique across restarts by the
+            # journal's boot marker
+            pend = jr.take_pending()
+            if pend is not None:
+                req.journal_id, req.recovered, origin_wall = pend
+            else:
+                req.journal_id = \
+                    f"{self.name}:b{jr.boot}:r{req.request_id}"
         problem = self._validate(req)
         if problem is not None:
             self._reject(req, problem)
             err = ValueError(problem)
             err.request = req
             raise err
-        wait = self._shed_wait_s(req)
+        wait = None if req.recovered else self._shed_wait_s(req)
         if wait is not None:
             depth = len(self.queue)
             msg = (f"shed: estimated queue wait {wait:.3f}s exceeds "
@@ -637,9 +770,39 @@ class Engine:
                 err.request = req
                 raise err
         req._engine = weakref.ref(self)
+        if jr is not None:
+            # write-ahead: the admission record commits before the
+            # request is queued.  A failing write must not leave the
+            # engine serving a request its caller was told failed
+            s = req.sampling
+            try:
+                jr.record_admission(
+                    req.journal_id, prompt_ids=req.prompt_ids,
+                    sampling={"temperature": s.temperature,
+                              "top_k": s.top_k, "top_p": s.top_p,
+                              "seed": s.seed},
+                    seed_effective=self._seed_for(req),
+                    priority=req.priority, deadline_s=req.deadline_s,
+                    max_new_tokens=req.max_new_tokens,
+                    eos_token_id=req.eos_token_id, engine=self.name,
+                    model_version=self.model_version,
+                    recovered=req.recovered, mesh_shape=self.mesh_shape)
+            except Exception as e:       # noqa: BLE001 — storage failure
+                req.journal_id = None    # nothing durable to audit
+                self._reject(req, f"journal admission write failed: "
+                                  f"{type(e).__name__}: {e}")
+                try:
+                    e.request = req      # the rejection-path convention
+                except Exception:        # noqa: BLE001 — exotic exc type
+                    pass
+                raise
         self.queue.append(req)
         self.metrics.on_enqueue(len(self.queue))
         self.tracer.on_queued(req, self.name)
+        if jr is not None and req.recovered:
+            self.metrics.on_recovered()
+            self.tracer.on_recovered(req, self.name, origin_wall,
+                                     journal_id=req.journal_id)
         return req
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> dict:
@@ -653,6 +816,8 @@ class Engine:
             raise RuntimeError("warmup() must run before serving traffic "
                                "(it scribbles over slot 0 and resets all "
                                "slot lengths)")
+        if self.state != "active":
+            raise EngineStopped(f"engine {self.name!r} is {self.state}")
         use = [int(b) for b in (buckets or self.buckets)]
         for b in use:
             ids = np.zeros((1, b), dtype=np.int64)
@@ -837,7 +1002,12 @@ class Engine:
         if self.prefix_cache is not None:
             self.prefix_cache.register(victim.prompt_ids,
                                        self.cache.owned_blocks(slot))
-        self.cache.release_slot(slot)
+        try:
+            self.cache.release_slot(slot)
+        except Exception as e:           # noqa: BLE001 — accounting bug
+            self._mark_block_corruption(
+                f"release_slot({slot}) failed on preemption: "
+                f"{type(e).__name__}: {e}")
         self.running.pop(slot, None)
         if slot not in self.free_slots:
             self.free_slots.append(slot)
@@ -852,6 +1022,10 @@ class Engine:
         self.queue.append(victim)        # aging runs from its t_enqueue
         self.metrics.on_preempt(len(self.queue))
         self.tracer.on_preempt(victim, self.name)
+        if self.journal is not None and victim.journal_id is not None:
+            # the journaled stream restarts too: tokens before this
+            # record are superseded by the resume's replay from token 0
+            self.journal.record_restart(victim.journal_id, "preempt")
 
     # -- admission ---------------------------------------------------------
 
@@ -882,7 +1056,8 @@ class Engine:
             self._retire(req, "failed",
                          error=f"prefill failed after {n} "
                                f"retr{'y' if n == 1 else 'ies'}: "
-                               f"{type(e).__name__}: {e}")
+                               f"{type(e).__name__}: {e}",
+                         kind="replica")
             return None
 
     def _paged_prefill(self, req: Request, L: int):
@@ -946,11 +1121,17 @@ class Engine:
         now = time.perf_counter()
         self.metrics.prefill_time_s += now - t0
         req.state, req.prefill_bucket = "running", bucket
+        req.model_version = self.model_version
         req._seq_len = L
         self.running[req.slot] = req
         self.metrics.on_admit(bucket, L, len(self.queue))
         self.tracer.on_admitted(req, self.name, bucket, req.slot,
                                 prefix_hit)
+        if self.journal is not None and req.journal_id is not None:
+            # journaled before the emit: delivery is at-least-once
+            # across a crash
+            self.journal.record_tokens(self.name, self._step_counter,
+                                       {req.journal_id: tok})
         if not self._emit_token(req, tok, now):
             return None
         self.metrics.on_first_token(req.ttft_s)
@@ -984,21 +1165,30 @@ class Engine:
         return req._seq_len + 1 > self.max_seq
 
     def _retire(self, req: Request, state: str = "finished",
-                error: Optional[str] = None) -> None:
+                error: Optional[str] = None,
+                kind: Optional[str] = None) -> None:
         """The single exit path: the slot (and its blocks) are reclaimed
-        exactly once.  Idempotent."""
+        exactly once.  Idempotent.  ``kind`` tags who a failure
+        implicates (``Request.error_kind``)."""
         if req.done:
             return
         req.state = state
         if error is not None:
             req.error = error
+        if kind is not None:
+            req.error_kind = kind
         req.t_finish = time.perf_counter()
         slot = req.slot
         if slot is not None:
             self.running.pop(slot, None)
             if slot not in self.free_slots:
                 self.free_slots.append(slot)
-            self.cache.release_slot(slot)
+            try:
+                self.cache.release_slot(slot)
+            except Exception as e:       # noqa: BLE001 — accounting bug
+                self._mark_block_corruption(
+                    f"release_slot({slot}) failed: "
+                    f"{type(e).__name__}: {e}")
         if state == "finished":
             self.metrics.on_complete()
         elif state == "cancelled":
@@ -1006,6 +1196,25 @@ class Engine:
         elif state == "failed":
             self.metrics.on_fail()
         self.tracer.on_retired(req, self.name, state, req.error)
+        if self.journal is not None and req.journal_id is not None:
+            # a request a fleet router owns ends only its attempt here
+            # (the router writes the one final end)
+            self.journal.record_end(
+                req.journal_id, state,
+                final=not self.journal.is_fleet_owned(req.journal_id),
+                error=req.error, n_tokens=len(req.output_ids),
+                engine=self.name)
+
+    def _mark_block_corruption(self, reason: str) -> None:
+        """A block-accounting violation is fatal to trust in the engine,
+        not to its liveness: it turns the engine ``unhealthy`` (sticky;
+        ``step`` then raises :class:`EngineStopped`), freezes the flight
+        ring into a dump and tells the tracer."""
+        if self.state != "unhealthy":
+            self.state = "unhealthy"
+            self._unhealthy_reason = f"KV block accounting: {reason}"
+            self.flight.dump(self._unhealthy_reason)
+            self.tracer.on_unhealthy(self.name, self._unhealthy_reason)
 
     # -- decode ------------------------------------------------------------
 
@@ -1014,7 +1223,14 @@ class Engine:
         position must sit in a block it owns alone (fresh block or copy on
         extend); a slot the pool cannot serve fails."""
         for slot, req in list(self.running.items()):
-            if not self.cache.ensure_capacity(slot, req._seq_len):
+            try:
+                ok = self.cache.ensure_capacity(slot, req._seq_len)
+            except Exception as e:       # noqa: BLE001 — accounting bug
+                self._mark_block_corruption(
+                    f"ensure_capacity({slot}) failed: "
+                    f"{type(e).__name__}: {e}")
+                ok = False
+            if not ok:
                 self.tracer.on_block_pressure(req, self.name,
                                               kind="pool_exhausted",
                                               position=req._seq_len)
@@ -1045,7 +1261,7 @@ class Engine:
                    f"retr{'y' if n == 1 else 'ies'}: "
                    f"{type(e).__name__}: {e}")
             for req in list(self.running.values()):
-                self._retire(req, "failed", error=msg)
+                self._retire(req, "failed", error=msg, kind="replica")
             return None
         return out, t0
 
@@ -1055,6 +1271,15 @@ class Engine:
         stop checks."""
         toks = out.cpu().numpy()
         now = time.perf_counter()
+        if self.journal is not None:
+            # one batched record per engine step for every running slot,
+            # before the emits, from the tokens already on the host
+            tokmap = {r.journal_id: int(toks[s])
+                      for s, r in self.running.items()
+                      if r.journal_id is not None}
+            if tokmap:
+                self.journal.record_tokens(self.name, self._step_counter,
+                                           tokmap)
         self.metrics.on_decode_step(len(self.running), now - t0)
         if self.tracer.enabled:
             # one event per engine step, never one per token
@@ -1075,7 +1300,12 @@ class Engine:
         """One scheduler tick: reap cancellations and deadlines, admit
         queued requests (highest effective priority first, preempting a
         lower-priority victim when no slot or no block is free), then one
-        decode step for the running slots.  True while work remains."""
+        decode step for the running slots.  True while work remains.
+        Raises :class:`EngineStopped` once the engine is unhealthy."""
+        if self.state == "unhealthy":
+            raise EngineStopped(
+                f"engine {self.name!r} is unhealthy: "
+                f"{self._unhealthy_reason}")
         self._reap(time.perf_counter())
         while self.queue:
             now = time.perf_counter()
@@ -1158,6 +1388,196 @@ class Engine:
         self.run()
         return [r.output_ids for r in reqs]
 
+    # -- lifecycle ---------------------------------------------------------
+
+    def drain(self) -> dict:
+        """Stop admitting new requests, finish all queued and running
+        work, and return the final stats snapshot.  The engine ends
+        ``stopped`` (``add_request`` raises :class:`EngineStopped`)."""
+        if self.state == "active":
+            self.state = "draining"
+        while (self.running or self.queue) and self.state == "draining":
+            try:
+                self.step()
+            except EngineStopped:
+                break                    # unhealthy mid-drain: sticky
+        if self.state == "draining" and not (self.running or self.queue):
+            self.state = "stopped"
+        return self.stats()
+
+    def shutdown(self, timeout_s: Optional[float] = None) -> dict:
+        """Drain with a wall-clock budget, then cancel whatever is still
+        unfinished (``error="engine shutdown"``, ``error_kind="replica"``)
+        and stop the engine.  ``timeout_s=None`` waits for all work."""
+        if self.state == "active":
+            self.state = "draining"
+        deadline = None if timeout_s is None \
+            else time.perf_counter() + float(timeout_s)
+        while (self.running or self.queue) and self.state == "draining":
+            if deadline is not None and time.perf_counter() >= deadline:
+                break
+            try:
+                self.step()
+            except EngineStopped:
+                break                    # unhealthy mid-drain: cancel the rest
+        for req in list(self.queue) + list(self.running.values()):
+            # a lifecycle cancellation implicates the engine, not the
+            # request: a fleet may replay it elsewhere
+            self._retire(req, "cancelled", error="engine shutdown",
+                         kind="replica")
+        self.queue.clear()
+        self.metrics.queue_depth = 0
+        if self.state != "unhealthy":
+            self.state = "stopped"
+        return self.stats()
+
+    # -- durability: crash recovery and weight hot swap --------------------
+
+    def recover(self, journal=None, *, cross_mesh: bool = True) -> dict:
+        """Crash recovery: re-enqueue every journaled request that has no
+        final end, as a replay from its prompt (``recovered`` set, its
+        stream restarting at token 0, its slot's lanes staged from the
+        journaled effective seed, so greedy and seeded streams equal an
+        uninterrupted run's).  The journal's terminal outcomes are banked
+        into the metrics, so the counters continue across the restart.
+
+        A request journaled at another mesh shape replays here when
+        ``cross_mesh`` (one ``mesh_reshard`` record per old shape keeps
+        the audit exactly-once) and fails finally when not.  A replay
+        this engine cannot validate fails that request only, finally,
+        and the rest replay.  ``max_queue`` is lifted while the replays
+        are queued.
+
+        Call on an engine after :meth:`warmup` and before any traffic;
+        ``journal`` defaults to the engine's own (passing one attaches
+        it).  Returns ``{"replayed", "requests", "invalid", "cross_mesh",
+        "outcomes"}``."""
+        journal = journal if journal is not None else self.journal
+        if journal is None:
+            raise ValueError("recover() needs a RequestJournal (pass "
+                             "journal= here or to the Engine)")
+        if self.running or self.queue:
+            raise RuntimeError("recover() must run before serving "
+                               "traffic (the journal's replay order is "
+                               "the recovered queue order)")
+        if self.journal is not None and journal is not self.journal:
+            raise ValueError(
+                "recover(journal=...) does not match the journal this "
+                "engine records into: replaying one journal while "
+                "recording into another leaves the replayed journal's "
+                "pending set non-converging")
+        self.journal = journal
+        outcomes = journal.outcomes()
+        self.metrics.bank_outcomes(outcomes)
+        replayed, invalid = [], []
+        # cross-shape dispositions, grouped by the journaled old shape
+        cross: "OrderedDict[Optional[str], OrderedDict[str, str]]" = \
+            OrderedDict()
+        saved_max_queue, self.max_queue = self.max_queue, None
+        try:
+            for jid, rec in journal.pending().items():
+                want = rec.get("mesh_shape")
+                shape_changed = want != self.mesh_shape
+                if shape_changed and not cross_mesh:
+                    journal.record_end(
+                        jid, "failed", final=True,
+                        error=f"recovery replay rejected: journaled "
+                              f"mesh shape {want!r} != this engine's "
+                              f"{self.mesh_shape!r}",
+                        engine=self.name)
+                    invalid.append(jid)
+                    continue
+                s = journal.replay_sampling(rec)
+                journal.begin_attempt(jid, recovered=True,
+                                      origin_wall=rec.get("wall"))
+                try:
+                    self._validate_replay_tenancy(s)
+                    r = self.add_request(
+                        rec["prompt_ids"],
+                        max_new_tokens=rec["max_new_tokens"],
+                        sampling=SamplingParams(
+                            temperature=s["temperature"],
+                            top_k=s["top_k"], top_p=s["top_p"],
+                            seed=s["seed"]),
+                        eos_token_id=rec["eos_token_id"],
+                        deadline_s=rec["deadline_s"],
+                        priority=rec["priority"])
+                except ValueError as e:
+                    # fail THAT request with a final end so the journal
+                    # converges, and keep replaying the rest
+                    journal.record_end(jid, "failed", final=True,
+                                       error=f"recovery replay "
+                                             f"rejected: {e}",
+                                       engine=self.name)
+                    invalid.append(getattr(e, "request", None) or jid)
+                    if shape_changed:
+                        cross.setdefault(want, OrderedDict())[jid] = \
+                            "failed"
+                    continue
+                finally:
+                    journal.end_attempt()
+                replayed.append(r)
+                if shape_changed:
+                    cross.setdefault(want, OrderedDict())[jid] = \
+                        "replayed"
+        finally:
+            self.max_queue = saved_max_queue
+        for old_shape, requests in cross.items():
+            journal.record_mesh_reshard(
+                self.name, old_shape, self.mesh_shape, requests)
+        return {"replayed": len(replayed), "requests": replayed,
+                "invalid": invalid,
+                "cross_mesh": sum(len(v) for v in cross.values()),
+                "outcomes": outcomes}
+
+    @staticmethod
+    def _validate_replay_tenancy(s: dict) -> None:
+        """A journaled adapter or grammar cannot replay here: the port
+        has neither (ROADMAP.md A.3 step 5).  Raises ValueError, which
+        fails that request finally in :meth:`recover`."""
+        for what in ("adapter", "grammar"):
+            if s.get(what) is not None:
+                raise ValueError(
+                    f"journaled {what} {s[what]!r}: adapters and grammars "
+                    f"are not ported (ROADMAP.md A.3 step 5)")
+
+    def update_weights(self, state_or_path) -> int:
+        """Swap the model's weights in place on an idle engine.
+
+        ``state_or_path`` is a state dict with the names and layouts of
+        the port's ``model.state_dict()`` (torch tensors on any device,
+        or numpy arrays) or an ``.npz`` path of one.  Every parameter is
+        written in place on the stream the step programs replay on, which
+        is synchronised before this returns; a parameter that moved in
+        memory raises (a captured graph would go on reading the old
+        one).  So every program built at warmup stays valid: no program
+        is built.  The prefix-cache epoch is bumped, so no later request
+        hits KV computed under the old weights, and ``model_version``
+        advances by one.  Queued or running work
+        raises: its KV was computed under the old weights.  Returns the
+        new version."""
+        if self.running or self.queue:
+            raise RuntimeError(
+                f"engine {self.name!r} has in-flight work "
+                f"({len(self.running)} running, {len(self.queue)} "
+                "queued): drain before update_weights; decoding KV "
+                "prefilled under old weights with new weights would "
+                "serve a torn response")
+        _write_state_dict(self.model, _resolve_weights(state_or_path))
+        return self._mark_weights_swapped()
+
+    def _mark_weights_swapped(self) -> int:
+        """The bookkeeping half of a swap: prefix epoch, version tag,
+        metrics, tracer and journal."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.bump_epoch()
+        self.model_version += 1
+        self.metrics.on_weight_swap(self.model_version)
+        self.tracer.on_weight_swap(self.name, self.model_version)
+        if self.journal is not None:
+            self.journal.record_weight_swap(self.name, self.model_version)
+        return self.model_version
+
     # -- introspection -----------------------------------------------------
 
     def _paging_snapshot(self) -> dict:
@@ -1171,15 +1591,22 @@ class Engine:
                            if self.prefix_cache is not None else None)}
 
     def health(self) -> dict:
-        """Liveness snapshot; in the paged layout also the block
-        allocator's invariant audit (``"ok"`` or the violations)."""
-        out = {"steps": self._step_counter,
+        """Liveness snapshot: the engine's ``state`` (and why it is
+        unhealthy), steps, failures and capacity; in the paged layout
+        also the block allocator's invariant audit (``"ok"`` or the
+        violations), a violation turning the engine ``unhealthy``."""
+        out = {"state": self.state, "reason": self._unhealthy_reason,
+               "steps": self._step_counter,
                "consecutive_step_failures": self._consecutive_failures,
                "queue_depth": len(self.queue),
                "slots_free": len(self.free_slots),
                "slots_total": self.num_slots}
         if self.kv_layout == "paged":
             violations = self.cache.check_invariants()
+            if violations:
+                self._mark_block_corruption("; ".join(violations))
+                out["state"] = self.state
+                out["reason"] = self._unhealthy_reason
             al = self.cache.allocator.stats()
             out["kv_blocks"] = {k: al[k] for k in ("total", "reserved",
                                                    "free", "used", "cached")}
@@ -1201,6 +1628,8 @@ class Engine:
         snap["health"] = self.health()
         snap["paging"] = (self._paging_snapshot()
                           if self.kv_layout == "paged" else None)
+        if self.journal is not None:
+            snap["durability"]["journal"] = self.journal.stats()
         if self.tracer.enabled:
             snap["tracing"] = self.tracer.snapshot()
         return snap

@@ -4,7 +4,9 @@ request and token counters behind them, the step programs' hit/miss
 counters (``compile_cache``) that back the zero-recapture steady state,
 and the failure-path and overload counters (cancelled, rejected and
 deadline-expired requests, step failures and retries by point,
-preemptions and sheds).
+preemptions and sheds), and the durability counters (requests recovered
+from a journal, the outcomes banked from it, weight swaps and the
+model version).
 
 A slice of ``paddle_tpu/serving/metrics.py``.  Times are host clock
 (``perf_counter``) around work that ends in a device synchronisation: a
@@ -60,6 +62,12 @@ class ServingMetrics:
         # counts as a rejection; this counter names the cause)
         self.requests_preempted = 0
         self.requests_shed = 0
+        # durability: journal replays, the pre-crash outcomes banked from
+        # the journal, and in-place weight swaps
+        self.requests_recovered = 0
+        self.banked_outcomes: Dict[str, int] = {}
+        self.weight_swaps = 0
+        self.model_version = 0
         self.step_failures = 0
         self.step_retries = 0
         self.retries_by_point: Dict[str, int] = {}
@@ -138,6 +146,37 @@ class ServingMetrics:
         exceeded its deadline."""
         self.requests_shed += 1
 
+    def bank_outcomes(self, outcomes: Dict[str, int]) -> None:
+        """Fold a recovered journal's pre-crash terminal counts into the
+        live counters (``Engine.recover``): a restarted engine's
+        completed and failed counts continue from where the crashed
+        process left off instead of starting at zero.  The banked dict
+        stays visible in the snapshot."""
+        total = 0
+        for state, n in outcomes.items():
+            self.banked_outcomes[state] = \
+                self.banked_outcomes.get(state, 0) + int(n)
+            total += int(n)
+        # every banked outcome was enqueued, and rejections aside
+        # admitted, in the crashed process
+        self.requests_enqueued += total
+        self.requests_admitted += total - int(outcomes.get("rejected", 0))
+        self.requests_completed += int(outcomes.get("finished", 0))
+        self.requests_failed += int(outcomes.get("failed", 0))
+        self.requests_cancelled += int(outcomes.get("cancelled", 0))
+        self.requests_rejected += int(outcomes.get("rejected", 0))
+
+    def on_recovered(self) -> None:
+        """One journaled non-terminal request was re-enqueued by crash
+        recovery."""
+        self.requests_recovered += 1
+
+    def on_weight_swap(self, version: int) -> None:
+        """The engine's weights were swapped in place (idle engine,
+        parameters written through, prefix epoch bumped)."""
+        self.weight_swaps += 1
+        self.model_version = int(version)
+
     def on_step_failure(self, point: str) -> None:
         self.step_failures += 1
 
@@ -184,6 +223,12 @@ class ServingMetrics:
             },
             "overload": {"preemptions": self.requests_preempted,
                          "shed": self.requests_shed},
+            "durability": {
+                "recovered": self.requests_recovered,
+                "banked": dict(sorted(self.banked_outcomes.items())),
+                "weight_swaps": self.weight_swaps,
+                "model_version": self.model_version,
+            },
             "queue_depth": self.queue_depth,
             "queue_depth_max": self.queue_depth_max,
             "slot_occupancy": round(self.occupancy(), 4),

@@ -1,8 +1,8 @@
 """Cross-request prefix reuse: a host-side hash-chained block cache.
 
 The port's own copy of ``paddle_tpu/serving/prefix_cache.py`` (numpy and
-hashlib only), without the weight-version epoch and the tenant salt,
-whose subsystems (hot swap, adapters) this slice leaves out.
+hashlib only), without the tenant salt (adapters are ROADMAP.md A.3
+step 5).
 
 - **Whole blocks only**: a block of ``block_size`` tokens is the unit of
   storage and of matching.
@@ -14,6 +14,11 @@ whose subsystems (hot swap, adapters) this slice leaves out.
 - **One reference per cached block**, taken on registration; evicting an
   entry drops only that reference.
 - **LRU, leaf-first eviction** of idle entries (refcount 1).
+- **Weight-version epoch**: the epoch is folded into every chain's root,
+  so after :meth:`PrefixCache.bump_epoch` (a weight hot swap) no entry
+  registered under older weights can be hit: its KV was computed by
+  other weights.  Entries a live slot still pins keep their reference
+  until the slot releases, unreachable either way.
 """
 from __future__ import annotations
 
@@ -52,6 +57,8 @@ class PrefixCache:
         self.allocator = allocator
         self.block_size = int(block_size)
         self._entries: "OrderedDict[bytes, _Entry]" = OrderedDict()
+        #: weight-version epoch, folded into every chain-hash root
+        self.epoch = 0
         self.lookups = 0
         self.hit_blocks_total = 0
         self.hit_tokens_total = 0
@@ -60,7 +67,8 @@ class PrefixCache:
         allocator.evict_cb = self._evict_for_alloc
 
     def _keys_for(self, prompt: np.ndarray, n_blocks: int) -> List[bytes]:
-        bs, keys, parent = self.block_size, [], _ROOT
+        bs, keys = self.block_size, []
+        parent = _ROOT + self.epoch.to_bytes(8, "little")
         for i in range(n_blocks):
             parent = _chain_hash(parent, prompt[i * bs:(i + 1) * bs])
             keys.append(parent)
@@ -144,13 +152,42 @@ class PrefixCache:
             freed += 1
         return freed
 
+    def bump_epoch(self) -> int:
+        """Invalidate every cached block for a weight hot swap: advance
+        the epoch (new lookups and registrations hash in a disjoint
+        domain, so an old-epoch entry can never be hit again) and drop
+        every entry, so idle stale-KV blocks return to the pool.  Returns
+        the new epoch."""
+        self.epoch += 1
+        self.clear()
+        return self.epoch
+
+    def clear(self) -> int:
+        """Drop every entry, releasing the cache's references (a block a
+        live slot still holds stays allocated to it).  Returns the number
+        of entries dropped."""
+        n = 0
+        while self._entries:
+            key = self._evictable()
+            if key is None:
+                # the rest is pinned by live slots: drop the cache's view
+                # of them anyway (its refs released, the chains gone)
+                key = next(iter(self._entries))
+            self._evict_one(key)
+            n += 1
+        return n
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
     def hit_rate(self) -> float:
         """Fraction of looked-up prompt tokens served from the cache."""
         return self.hit_tokens_total / self.lookup_tokens_total \
             if self.lookup_tokens_total else 0.0
 
     def stats(self) -> dict:
-        return {"entries": len(self._entries), "lookups": self.lookups,
+        return {"entries": len(self._entries), "epoch": self.epoch,
+                "lookups": self.lookups,
                 "hit_blocks": self.hit_blocks_total,
                 "hit_tokens": self.hit_tokens_total,
                 "lookup_tokens": self.lookup_tokens_total,

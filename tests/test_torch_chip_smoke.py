@@ -356,3 +356,57 @@ def test_overload_parity_phase_on_tiny_cpu(family, layout):
                                            block_size=16)
     chip_smoke.check_overload_parity(res, f"{family}, {layout}")
     assert res["step_failures"] == 4
+
+
+def _tiny_llama(seed):
+    """``llama_tiny`` at serve_paged's positions (4096), from ``seed``."""
+    return LlamaForCausalLM(llama_tiny(max_position_embeddings=4096),
+                            device="cpu",
+                            generator=torch.Generator().manual_seed(seed)
+                            ).eval()
+
+
+def test_serve_durable_phase_on_tiny_cpu(tmp_path):
+    """serve_durable at its own geometry (serve_paged's engine and traffic,
+    the 8-request crash, the swap, drain and shutdown) over ``llama_tiny``;
+    one round of the journal-cost runs.  The phase checks itself; here
+    also what each part reports."""
+    res = chip_smoke.run_serve_durable(_tiny_llama(0), _tiny_llama,
+                                       str(tmp_path), rounds=1)
+    cost = res["journal_cost"]["summary"]
+    runs = res["journal_cost"]["runs"]
+    assert [r["mode"] for r in runs] == ["none", "rotate", "always"]
+    # each run's own ITL window: 12 streams of 63 decoded tokens
+    assert all(r["itl"]["count"] == r["client_itl"]["count"] == 12 * 63
+               for r in runs)
+    for mode in ("rotate", "always"):
+        # 12 admissions, first tokens and ends, and one record per step
+        assert cost[mode]["token_records_per_decode_step"] == 1.0
+        assert cost[mode]["records"] == cost["rotate"]["records"] > 36
+        assert cost[mode]["bytes"] > 0
+        # the write + flush calls are timed inside the appends
+        assert 0 < cost[mode]["write_flush_ms"] < cost[mode]["journal_ms"]
+    rec = res["recovery"]
+    assert rec["replayed"] == 6 and rec["bitwise"]
+    # each replay begins with exactly what its client was sent
+    assert rec["journal_holds_sent"] and rec["continues_sent"]
+    assert rec["sent_tokens"] >= 2 * 6
+    assert rec["banked"] == {"finished": 2} and rec["recovered"] == 6
+    assert min(rec["streamed_before_crash"]) == 2
+    assert res["hot_swap"]["versions"] == [0, 1, 2]
+    assert res["hot_swap"]["hit_tokens_after_swaps"] == [0, 0]
+    assert res["drain"]["tokens"] == [16] * 4
+    assert res["shutdown"]["outcomes"] == [
+        ("cancelled", "engine shutdown", "replica")]
+    for part in ("journal_cost", "recovery", "hot_swap", "drain"):
+        assert res[part]["launches"] == {n: 0 for n in kernels.KERNELS}
+
+
+def test_sigkill_drill_on_tiny_cpu(tmp_path):
+    """The drill's two children at ``gpt_tiny`` size on the CPU: the first
+    dies by SIGKILL mid-decode, the second recovers bitwise."""
+    res = chip_smoke.sigkill_drill("gpt:tiny", "cpu", "float32", 64,
+                                   [6, 11, 14], 8, str(tmp_path))
+    assert res["killed_by"] == 9 and res["replayed"] == 3
+    assert res["continues_sent"] and res["sent_tokens"] > 0
+    assert res["launches"] == {n: 0 for n in kernels.KERNELS}

@@ -29,7 +29,7 @@ from paddle_tpu_torch.ops.attention import (
     _flash_bwd_dkv_reference, _flash_bwd_dq_reference, _sdpa_reference,
     flash_attention,
 )
-from paddle_tpu_torch.serving import Engine, SamplingParams
+from paddle_tpu_torch.serving import Engine, RequestJournal, SamplingParams
 
 
 @pytest.fixture
@@ -467,9 +467,10 @@ def test_gpt_bf16_loss_and_gradients_kernel_vs_reference(cuda_device):
 
 # -- the engine's step programs as CUDA graphs -------------------------------
 
-def _small_model(family, device):
-    """A 2-layer f32 model at head dim 64 (GPT) or 64 with GQA (Llama)."""
-    gen = torch.Generator(device=device).manual_seed(0)
+def _small_model(family, device, seed=0):
+    """A 2-layer f32 model at head dim 64 (GPT) or 64 with GQA (Llama),
+    its weights from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
     if family == "gpt":
         cfg = GPTConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
                         num_attention_heads=4, max_position_embeddings=256,
@@ -754,3 +755,79 @@ def test_cancel_running_between_replays(cuda_device, layout):
     if layout == "paged":
         assert eng.health()["kv_block_invariants"] == "ok"
         assert eng.stats()["paging"]["blocks"]["used"] == 0
+
+
+# -- durability over replayed graphs ------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_hot_swap_graphs_read_the_new_weights(cuda_device, family, layout):
+    """After ``update_weights`` the graphs captured over the old weights
+    serve what graphs captured over the new weights serve (GPT's tied head
+    included), no parameter moved and no program was built; swapping back
+    gives the first streams again."""
+    model = _small_model(family, cuda_device)
+    other = _small_model(family, cuda_device, seed=1)
+    reqs = chip_smoke.make_requests(512, 4, 40, [3, 30, 17, 70], seed=8)
+    kw = dict(kv_layout=layout, **_ENGINE_KW)
+
+    def serve(eng):
+        out = [eng.add_request(p, sampling=s, max_new_tokens=10)
+               for p, s in reqs]
+        eng.run()
+        return [r.output_ids for r in out]
+
+    fresh = Engine(other, **kw)
+    fresh.warmup()
+    want = serve(fresh)
+    del fresh
+    eng = Engine(model, **kw)
+    eng.warmup()
+    first = serve(eng)
+    ptrs = {k: p.data_ptr() for k, p in model.named_parameters()}
+    old = {k: p.detach().clone() for k, p in model.named_parameters()}
+    assert eng.update_weights(other.state_dict()) == 1
+    got = serve(eng)
+    assert got == want and got != first
+    assert eng.update_weights(old) == 2
+    assert serve(eng) == first
+    assert {k: p.data_ptr() for k, p in model.named_parameters()} == ptrs
+    cc = eng.stats()["compile_cache"]
+    assert cc["after_warmup"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_recovered_streams_equal_eager_bodies(cuda_device, layout,
+                                              tmp_path):
+    """Seeded and greedy requests abandoned mid-decode and recovered by a
+    new engine through its CUDA graphs give the streams its step bodies
+    give called eagerly on the journaled recipes."""
+    model = _small_model("llama", cuda_device)
+    kw = dict(kv_layout=layout, enable_prefix_cache=False, **_ENGINE_KW)
+    reqs = chip_smoke.make_requests(512, 4, 40, [3, 30, 17, 70], seed=9)
+    eng = Engine(model, journal=RequestJournal(str(tmp_path)), **kw)
+    eng.warmup()
+    for p, s in reqs:
+        eng.add_request(p, sampling=s, max_new_tokens=12)
+    for _ in range(4):
+        eng.step()
+    del eng
+    journal = RequestJournal(str(tmp_path))
+    pending = journal.pending()
+    eng = Engine(model, journal=journal, **kw)
+    eng.warmup()
+    info = eng.recover()
+    eng.run()
+    assert info["replayed"] == 4
+    recipes = []
+    for r in pending.values():
+        s = journal.replay_sampling(r)
+        recipes.append((r["prompt_ids"], SamplingParams(
+            temperature=s["temperature"], top_k=s["top_k"],
+            top_p=s["top_p"], seed=s["seed"])))
+    eager = chip_smoke.serve_bodies(Engine(model, **kw), recipes, 12)
+    assert [r.output_ids for r in info["requests"]] == eager
+    assert journal.audit()["pending"] == 0
+    assert eng.stats()["compile_cache"]["after_warmup"] == 0

@@ -87,6 +87,34 @@ Phases, each printing one JSON line with the card's name and power limit:
 14. train_parity_bf16 — the same model in bf16: loss and every gradient
               on the kernel path (the bf16 K1, K2 and K3 on tensor cores)
               against ``kernel="reference"``.
+15. serve_spec — serve_paged's Llama-2 7B (after serve_durable) and
+              traffic through a speculating paged engine (max_seq 2048,
+              k 4: draft prefill, draft decode and verify programs, each
+              a CUDA graph), once with an independent draft of
+              JackFram/llama-68m's shape (random weights, seed 1) and once
+              with the target as its own draft: the speculation counters,
+              TTFT, ITL, tokens/s, device ms per round (draft steps and
+              verify, CUDA events around each program), K4/K5/K1
+              launches, the share of greedy streams equal to
+              serve_paged's (reported, not held: bf16 near-ties may part
+              a ``[slots, 5]`` verify from a ``[slots, 1]`` decode),
+              beside the shares that the plain engine at max_seq 2048
+              reproduces on the kernels and on its gather path (no
+              kernel); it fails on a program built after
+              warmup and unless the pool audits clean with no block in
+              use.
+16. spec_parity — (a) the paged verify route (``slots·W`` K4 rows)
+              against the plain ``verify_attention`` at serve_spec's shape
+              in f32 and bf16, timed in bf16 beside the gather + plain
+              attention; (b) K4's merge tickets across a decode graph and
+              a verify graph captured on one stream, decode → verify →
+              decode replayed against eager calls; (c) f32, 2 layers, both
+              widths, both layouts, an independent 1-layer draft and the
+              target as its own draft: greedy speculative streams equal
+              the plain engine's, one request's rounds running past
+              ``max_seq`` until it retires on capacity; and Llama-2 7B at
+              full depth in f32 with the llama-68m-shaped draft, four
+              greedy streams of 32 tokens.
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
 ``{"kernels": [...]}`` line (each kernel's ``launches`` on its main path,
@@ -96,6 +124,7 @@ without that line.  No phase falls back to the CPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import importlib.util
 import json
@@ -732,6 +761,14 @@ def make_requests(vocab: int, n: int, prefix_len: int, tail_lens, seed: int):
     return out
 
 
+def expected_programs(engine) -> int:
+    """The programs warmup builds: a prefill per bucket and the decode;
+    speculating, also a draft prefill per bucket, and the draft decode
+    and the verify in place of the decode."""
+    n = len(engine.buckets)
+    return n + 1 if engine.spec is None else 2 * n + 2
+
+
 def serve(engine, requests, max_new_tokens: int) -> dict:
     """Warm the engine, zero the launch counts, serve ``requests`` to the
     end, and check what came out.  Returns the run's figures and the
@@ -739,9 +776,9 @@ def serve(engine, requests, max_new_tokens: int) -> dict:
     from paddle_tpu_torch.ops import kernels
 
     warm = engine.warmup()
-    if warm["compile_misses"] != len(engine.buckets) + 1:
+    if warm["compile_misses"] != expected_programs(engine):
         raise AssertionError(f"warmup built {warm['compile_misses']} "
-                             f"programs, want {len(engine.buckets) + 1}")
+                             f"programs, want {expected_programs(engine)}")
     cuda = engine.device.type == "cuda"
     if cuda:
         torch.cuda.synchronize()
@@ -2120,6 +2157,403 @@ def phase_sigkill_drill() -> dict:
     return res
 
 
+# -- phases 15 and 16: speculative decoding --------------------------------
+
+SPEC_K = 4
+#: the shape of JackFram/llama-68m, SpecInfer's public draft for Llama
+#: targets (random weights here; made in this script, not registered)
+SPEC_DRAFT_68M = dict(vocab_size=32000, hidden_size=768, num_hidden_layers=2,
+                      num_attention_heads=12, intermediate_size=3072,
+                      max_position_embeddings=2048)
+#: serve_spec's engine: serve_paged's, at max_seq 2048
+SPEC_ENGINE = dict(kv_layout="paged", block_size=16, min_bucket=16,
+                   num_slots=8, max_seq=2048)
+
+
+def spec_draft_68m(device, dtype, seed: int = 1):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return LlamaForCausalLM(LlamaConfig(**SPEC_DRAFT_68M), device=device,
+                            dtype=dtype, generator=gen).eval()
+
+
+def record_programs(engine) -> list:
+    """Wrap ``engine.programs.run`` (an instance attribute; ``del
+    engine.programs.run`` restores it): each call appends ``(key[0],
+    start, end)``, two CUDA events recorded on the host's stream around
+    it (no sync), or nothing on the CPU.  Returns the list."""
+    calls, run = [], engine.programs.run
+    cuda = engine.device.type == "cuda"
+
+    def timed(key, body, *inputs):
+        if not cuda:
+            return run(key, body, *inputs)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(key, body, *inputs)
+        end.record()
+        calls.append((key[0], start, end))
+        return out
+
+    engine.programs.run = timed
+    return calls
+
+
+def program_ms(calls) -> dict:
+    """Summed milliseconds and calls per program kind of
+    :func:`record_programs`' list (synchronises first)."""
+    if calls:
+        torch.cuda.synchronize()
+    out = {}
+    for kind, start, end in calls:
+        ms, n = out.get(kind, (0.0, 0))
+        out[kind] = (ms + start.elapsed_time(end), n + 1)
+    return {k: {"ms": ms, "calls": n} for k, (ms, n) in out.items()}
+
+
+def greedy_agreement(requests, streams, reference) -> dict:
+    """Of the greedy requests, the share whose stream equals the
+    reference's, and the first divergence (request, token index)."""
+    greedy = [i for i, (_, law) in enumerate(requests)
+              if law.temperature == 0.0]
+    same, first = 0, None
+    for i in greedy:
+        a, b = streams[i], reference[i]
+        if a == b:
+            same += 1
+        elif first is None:
+            j = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            first = {"request": i, "token": j}
+    return {"greedy_requests": len(greedy),
+            "equal_share": same / max(len(greedy), 1),
+            "first_divergence": first}
+
+
+def run_serve_spec(model, draft, requests, max_new_tokens: int, reference,
+                   **engine_kw) -> tuple:
+    """A paged speculating engine (``SPEC_ENGINE`` updated by
+    ``engine_kw``, k = ``SPEC_K``) over ``model`` with ``draft`` serves
+    ``requests`` through :func:`serve`; the run's programs are timed with
+    CUDA events (device ms per round, draft steps and verify apart).
+    Fails unless the pool audits clean with no block in use after.
+    Returns the engine and the run's figures, with the greedy streams'
+    agreement with ``reference`` (the same requests' streams without
+    speculation)."""
+    from paddle_tpu_torch.serving import Engine, SpecConfig
+
+    eng = Engine(model, **{**SPEC_ENGINE, **engine_kw},
+                 speculation=SpecConfig(draft_model=draft, k=SPEC_K))
+    calls = record_programs(eng)
+    res = serve(eng, requests, max_new_tokens)
+    n_warm = expected_programs(eng)
+    del eng.programs.run
+    by_kind = program_ms(calls[n_warm:])
+    st = eng.stats()
+    spec = st["speculation"]
+    rounds = max(spec["rounds"], 1)
+    audit = eng.cache.check_invariants()
+    used = eng.cache.allocator.stats()["used"]
+    if audit or used:
+        raise AssertionError(f"serve_spec: pool after the run: {audit}, "
+                             f"{used} blocks in use")
+    res.update({
+        "speculation": spec,
+        "allocator": {"invariants": audit or "ok", "blocks_in_use": used},
+        "programs_ms": by_kind,
+        "device_ms_per_round": (None if not by_kind else {
+            "draft_steps": by_kind.get("draft_decode", {}).get("ms", 0.0)
+            / rounds,
+            "verify": by_kind.get("verify", {}).get("ms", 0.0) / rounds}),
+        "greedy": greedy_agreement(requests, res["outputs"], reference)})
+    return eng, res
+
+
+def phase_serve_spec(model, reference) -> dict:
+    """serve_paged's Llama-2 7B and traffic through a speculating paged
+    engine (max_seq 2048, k 4), with an independent draft of
+    JackFram/llama-68m's shape and with the target as its own draft.
+    Returns the K4/K5/K1 launches of both runs."""
+    reqs = make_requests(model.config.vocab_size, 12, 512, PAGED_TAILS,
+                         seed=0)
+    draft = spec_draft_68m("cuda", torch.bfloat16)
+    launches = []
+    for label, d in (("llama-68m shape, seed 1", draft),
+                     ("self (the target)", model)):
+        eng, res = run_serve_spec(model, d, reqs, 64, reference)
+        for name in ("paged_decode", "paged_prefill", "flash_fwd"):
+            if res["launches"][name] < 1:
+                raise AssertionError(f"serve_spec ({label}) did not run "
+                                     f"{name}: {res['launches']}")
+        launches.append(res["launches"])
+        emit("serve_spec", model="llama2-7b", dtype="bfloat16", draft=label,
+             k=SPEC_K, max_seq=eng.max_seq,
+             kv_pool_gb=round(eng.cache.nbytes() / 2 ** 30, 3),
+             draft_cache_gb=round(eng.spec.nbytes() / 2 ** 30, 3),
+             **{k: v for k, v in res.items() if k != "outputs"})
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del draft
+    # how far bf16 rounding alone parts serve_paged's greedy streams: the
+    # same traffic through the plain engine at serve_spec's max_seq, on
+    # the kernels and on the gather path (no kernel)
+    from paddle_tpu_torch.serving import Engine
+
+    agree = {}
+    for kernel in ("cuda", "reference"):
+        res = serve(Engine(model, **{**SPEC_ENGINE, "kernel": kernel}),
+                    reqs, 64)
+        agree[kernel] = greedy_agreement(reqs, res["outputs"], reference)
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("serve_spec", model="llama2-7b", dtype="bfloat16",
+         part="plain_engine", max_seq=SPEC_ENGINE["max_seq"],
+         greedy_by_kernel=agree)
+    return _sum_launches(*launches)
+
+
+#: serve_spec's windows for the verify route's check: 8 slots, the first
+#: window running past max_seq 2048 (positions 2045..2049)
+SPEC_VERIFY_LENGTHS = [2045, 1800, 1536, 1200, 1024, 700, 333, 0]
+
+
+def check_verify_route(gen, dtype, lengths=SPEC_VERIFY_LENGTHS, H=32, Hkv=32,
+                       D=128, bs=16, max_seq=2048, W=SPEC_K + 1):
+    """The paged verify route (a ``[slots, W]`` window as ``slots·W`` K4
+    rows) against the plain ``verify_attention`` over the gathered pool,
+    at serve_spec's shape.  The plain path is also the route's
+    alternative on the card (the gather copies every slot's whole
+    table)."""
+    from paddle_tpu_torch.ops import cached_attention as ca
+
+    B, MB = len(lengths), max_seq // bs
+    kp, vp = _pool(gen, B * MB + 1, bs, Hkv, D, dtype)
+    tables = (torch.randperm(B * MB, generator=gen, device="cuda") + 1
+              ).reshape(B, MB).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, W, H, D), generator=gen, device="cuda").to(dtype)
+
+    def kern():
+        return ca.paged_verify_attention(q, kp, vp, tables, lens)
+
+    def plain():
+        return ca.verify_attention(q, ca.gather_block_kv(kp, tables),
+                                   ca.gather_block_kv(vp, tables), lens)
+
+    err = (kern().float() - plain().float()).abs().max().item()
+    isz = torch.finfo(dtype).bits // 8
+    # each slot's live K/V rows once (its window's last row's), q and out
+    live = sum(min(n + W, MB * bs) for n in lengths)
+    keys = sum(min(n + i + 1, MB * bs) for n in lengths for i in range(W))
+    nbytes = live * Hkv * D * 2 * isz + 2 * B * W * H * D * isz \
+        + tables.numel() * 4 + B * 4
+    return {"err": err, "kern": kern, "plain": plain,
+            "bound": bound(nbytes, 4 * H * D * keys, dtype)}
+
+
+def ticket_replay(device, dtype, lengths=SPEC_VERIFY_LENGTHS, H=32, Hkv=32,
+                  D=128, bs=16, max_seq=2048, W=SPEC_K + 1) -> dict:
+    """K4's merge tickets across a decode graph and a verify graph of one
+    registry (one capture stream): the decode is captured first (tickets
+    for ``slots`` rows), then the verify, whose first call outgrows that
+    buffer (``slots·W`` rows) and retires it to the decode graph.  Then
+    decode → verify → decode are replayed at new lengths, each held
+    bitwise to an eager call of the same function on the same inputs.
+    Returns whether each replay matched and the tickets left nonzero."""
+    from paddle_tpu_torch.ops import cached_attention as ca
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving.programs import StepPrograms
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    B, MB = len(lengths), max_seq // bs
+    kp, vp = (t[:, 1] for t in (
+        torch.randn((B * MB + 1, 2, bs, Hkv, D), generator=gen,
+                    device=device).to(dtype) for _ in range(2)))
+    tables = (torch.randperm(B * MB, generator=gen, device=device) + 1
+              ).reshape(B, MB).to(torch.int32)
+    q1 = torch.randn((B, 1, H, D), generator=gen, device=device).to(dtype)
+    qw = torch.randn((B, W, H, D), generator=gen, device=device).to(dtype)
+
+    def decode(lens):
+        return ca.paged_decode_attention(q1, kp, vp, tables, lens)
+
+    def verify(lens):
+        return ca.paged_verify_attention(qw, kp, vp, tables, lens)
+
+    progs = StepPrograms(device, lambda miss: None)
+    rs = np.random.RandomState(7)
+    steps = [("decode", decode), ("verify", verify)] * 2 + [("decode",
+                                                               decode)]
+    matched = []
+    for i, (key, fn) in enumerate(steps):
+        lens = np.array(lengths if i < 2 else rs.randint(
+            0, max_seq - W, (B,)), dtype=np.int32)
+        got = progs.run((key,), fn, lens).clone()
+        want = fn(torch.from_numpy(lens).to(device))
+        matched.append((key, "capture" if i < 2 else "replay",
+                        bool(torch.equal(got, want))))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dirty = sum(int(t.count_nonzero()) for t in
+                list(kernels._decode_tickets.values())
+                + kernels._retired_tickets)
+    return {"calls": matched, "all_equal": all(m for *_, m in matched),
+            "tickets_nonzero": dirty}
+
+
+def drive_spec_parity(model, draft, layout: str, requests,
+                      max_new_tokens: int, **engine_kw) -> dict:
+    """The same greedy requests through a plain engine and a speculating
+    one (k = ``SPEC_K``) over ``model``: the streams must be equal, token
+    for token.  Returns both streams, the speculating engine's
+    ``compile_cache``, ``speculation`` and launch counts, and its pool's
+    audit (paged)."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import Engine, SpecConfig
+
+    def run(eng):
+        eng.warmup()
+        kernels.reset_launches()
+        reqs = [eng.add_request(p, sampling=s, max_new_tokens=max_new_tokens)
+                for p, s in requests]
+        eng.run()
+        return [r.output_ids for r in reqs], [r.state for r in reqs]
+
+    plain, _ = run(Engine(model, kv_layout=layout, **engine_kw))
+    eng = Engine(model, kv_layout=layout, **engine_kw,
+                 speculation=SpecConfig(draft_model=draft, k=SPEC_K))
+    spec, states = run(eng)
+    st = eng.stats()
+    out = {"identical": spec == plain, "plain": plain, "spec": spec,
+           "states": states, "compile_cache": st["compile_cache"],
+           "speculation": st["speculation"],
+           "launches": kernels.launch_counts()}
+    if layout == "paged":
+        out["allocator"] = {
+            "invariants": eng.cache.check_invariants() or "ok",
+            "blocks_in_use": eng.cache.allocator.stats()["used"]}
+    return out
+
+
+def check_spec_parity(res: dict, label: str) -> None:
+    if not res["identical"]:
+        raise AssertionError(f"spec_parity ({label}): speculative streams "
+                             f"{res['spec']} != plain {res['plain']}")
+    if any(s != "finished" for s in res["states"]):
+        raise AssertionError(f"spec_parity ({label}): {res['states']}")
+    cc = res["compile_cache"]
+    if cc["after_warmup"] != 0 or cc["hits"] < 1:
+        raise AssertionError(f"spec_parity ({label}): {cc}")
+    if res["speculation"]["rounds"] < 1:
+        raise AssertionError(f"spec_parity ({label}): no round ran")
+    al = res.get("allocator")
+    if al is not None and (al["invariants"] != "ok"
+                           or al["blocks_in_use"]):
+        raise AssertionError(f"spec_parity ({label}): pool {al}")
+
+
+def spec_parity_requests(vocab: int, max_seq: int, seed: int):
+    """Four greedy requests after a 48-token system prompt, and a fifth
+    whose prompt ends 3 positions short of ``max_seq``: it waits for a
+    slot, and its rounds' windows run past the end until it retires on
+    capacity."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    reqs = make_requests(vocab, 4, 48, [5, 40, 17, 90], seed=seed)
+    system = reqs[0][0][:48]
+    tail = np.random.RandomState(seed).randint(0, vocab,
+                                               (max_seq - 3 - 48,))
+    greedy = SamplingParams()
+    return ([(p, greedy) for p, _ in reqs]
+            + [(system + tail.tolist(), greedy)])
+
+
+def full_depth_spec_parity() -> None:
+    """Llama-2 7B at full depth (32 layers) in f32, random weights from
+    seed 0, with the llama-68m-shaped draft in f32: four greedy requests
+    through a plain and a speculating paged engine (serve_spec's
+    geometry) must give equal streams of 32 tokens."""
+    from paddle_tpu_torch.serving import Engine, SamplingParams
+
+    model = Engine.resolve_model("llama:llama2-7b", device="cuda",
+                                 dtype=torch.float32, seed=0)
+    draft = spec_draft_68m("cuda", torch.float32)
+    reqs = [(p, SamplingParams()) for p, _ in make_requests(
+        model.config.vocab_size, 4, 128, [64, 300, 128, 200], seed=0)]
+    kw = {k: v for k, v in SPEC_ENGINE.items() if k != "kv_layout"}
+    res = drive_spec_parity(model, draft, "paged", reqs, 32, **kw)
+    check_spec_parity(res, "llama2-7b, 32 layers, f32")
+    emit("spec_parity", model="llama2-7b, 32 layers", dtype="float32",
+         layout="paged", draft="llama-68m shape", requests=len(reqs),
+         identical=res["identical"], compile_cache=res["compile_cache"],
+         speculation=res["speculation"], allocator=res["allocator"],
+         launches=res["launches"])
+    del model, draft, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_spec_parity() -> None:
+    """f32, 2 layers, Llama-2 7B's and GPT-2 345M's widths: greedy
+    speculative streams equal the plain engine's in both layouts, with an
+    independent 1-layer draft of the same width and with the target as
+    its own draft; the verify route against the plain verify at
+    serve_spec's shape (f32 and bf16, timed in bf16 against the gather +
+    plain attention); K4's tickets across decode and verify graphs."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    route = {}
+    for dt in BOTH:
+        res = check_verify_route(gen, dt)
+        tol = TOLERANCE[dt]
+        key = str(dt).split(".")[-1]
+        route[key] = {"max_abs_err": res["err"], "tolerance": tol}
+        if not res["err"] <= tol:
+            raise AssertionError(f"spec_parity: verify route ({key}) err "
+                                 f"{res['err']} > {tol}")
+        if dt == torch.bfloat16:
+            route[key].update(
+                ms=cuda_ms(res["kern"]), gather_plain_ms=cuda_ms(
+                    res["plain"], iters=3),
+                bound_ms=res["bound"][0], bound_by=res["bound"][1])
+        del res
+    tickets = ticket_replay(torch.device("cuda"), torch.bfloat16)
+    emit("spec_parity", part="verify_route",
+         shape="8 slots, W 5, lengths <= 2045 (the first past max_seq "
+               "2048), H = Hkv = 32, D 128, bs 16",
+         route=route, tickets=tickets)
+    if not tickets["all_equal"] or tickets["tickets_nonzero"]:
+        raise AssertionError(f"spec_parity: ticket replay {tickets}")
+    full_depth_spec_parity()
+    for label, build in parity_models():
+        model = build()
+        cfg = model.config
+        dgen = torch.Generator(device="cuda").manual_seed(2)
+        draft = type(model)(dataclasses.replace(cfg, num_hidden_layers=1),
+                            device="cuda", dtype=torch.float32,
+                            generator=dgen).eval()
+        reqs = spec_parity_requests(cfg.vocab_size, 256, seed=3)
+        for layout in ("paged", "contiguous"):
+            for dname, d in (("1-layer draft", draft), ("self", model)):
+                res = drive_spec_parity(model, d, layout, reqs, 12,
+                                        num_slots=4, max_seq=256,
+                                        min_bucket=16, block_size=16)
+                check_spec_parity(res, f"{label}, {layout}, {dname}")
+                emit("spec_parity", model=label, dtype="float32",
+                     layout=layout, draft=dname, requests=len(reqs),
+                     identical=res["identical"],
+                     capacity_retire_tokens=len(res["spec"][-1]),
+                     compile_cache=res["compile_cache"],
+                     speculation=res["speculation"],
+                     allocator=res.get("allocator"),
+                     launches=res["launches"])
+        del model, draft
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # -- phases 12, 13 and 14: training ----------------------------------------
 
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -2368,11 +2802,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     durable = phase_serve_durable(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = phase_serve_spec(model, paged["outputs"])
     del model
     gc.collect()
     torch.cuda.empty_cache()
     drill = phase_sigkill_drill()
     phase_overload_parity()
+    phase_spec_parity()
     train = phase_train()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2384,6 +2822,7 @@ def main() -> int:
                 **{n: train["launches"][n] for n in TRAIN_KERNELS}}
     by_phase = {"serve_paged": paged["launches"],
                 "serve_durable": durable["launches"],
+                "serve_spec": spec,
                 "sigkill_drill": drill["launches"],
                 "train": train["launches"]}
     kernels_line = [{**rec, "launches": launches[name],

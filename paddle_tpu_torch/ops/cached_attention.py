@@ -2,16 +2,18 @@
 kernel dispatch.
 
 Port of ``paddle_tpu/ops/cached_attention.py``.  The plain PyTorch
-versions (:func:`cached_attention`, :func:`gather_block_kv`,
-:func:`block_prefill_attention`) are the ``kernel="reference"`` path and
-the oracle the CUDA kernels are held against.  They upcast to f32 before
+versions (:func:`cached_attention`, :func:`verify_attention`,
+:func:`gather_block_kv`, :func:`block_prefill_attention`) are the
+``kernel="reference"`` path and the oracle the CUDA kernels are held
+against.  They upcast to f32 before
 the products, as the kernels do (the jnp oracles of the JAX package round
 the logits in the input dtype first; in f32 the two agree).
 
 :func:`paged_decode_attention` (K4) and :func:`paged_prefill_attention`
 (K5) consume the block table inside a hand-written CUDA kernel
 (``csrc/paged_attention.cu``) when their tensors lie on a CUDA device; for
-CPU tensors they run the plain gather + attention.  There is no fallback
+CPU tensors they run the plain gather + attention.
+:func:`paged_verify_attention` runs a speculative window as rows of K4.  There is no fallback
 from the device: a CUDA tensor the kernel does not take raises.
 
 GQA everywhere: kv head ``h // (H // Hkv)`` serves query head ``h`` (a
@@ -23,8 +25,9 @@ import torch
 
 from . import kernels
 
-__all__ = ["cached_attention", "gather_block_kv", "block_prefill_attention",
-           "paged_decode_attention", "paged_prefill_attention", "NEG_INF"]
+__all__ = ["cached_attention", "verify_attention", "gather_block_kv",
+           "block_prefill_attention", "paged_decode_attention",
+           "paged_verify_attention", "paged_prefill_attention", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -62,6 +65,26 @@ def cached_attention(query: torch.Tensor, k_cache: torch.Tensor,
     valid = pos[None, :] <= lengths.to(query.device).long()[:, None]
     return _masked_attention(query, k_cache, v_cache,
                              valid[:, None, None, :])
+
+
+def verify_attention(query: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """A speculative verify window of attention for a batch of cache
+    slots: :func:`cached_attention` with W queries per slot.
+
+    ``query`` ``[B, W, H, D]``, the window's queries at absolute positions
+    ``lengths[b] .. lengths[b] + W - 1``; ``k_cache``/``v_cache``
+    ``[B, T, Hkv, D]`` with the window already written; ``lengths`` ``[B]``
+    int, the window's first position.  Query ``i`` sees keys ``kpos <=
+    lengths[b] + i``.  Returns ``[B, W, H, D]``; at W = 1 it is
+    :func:`cached_attention`."""
+    W, T = query.shape[1], k_cache.shape[1]
+    qpos = lengths.to(query.device).long()[:, None] + torch.arange(
+        W, device=query.device)[None, :]
+    kpos = torch.arange(T, device=query.device)
+    valid = kpos[None, None, :] <= qpos[:, :, None]          # [B, W, T]
+    return _masked_attention(query, k_cache, v_cache, valid[:, None])
 
 
 def gather_block_kv(pool_layer: torch.Tensor,
@@ -103,6 +126,28 @@ def paged_decode_attention(query: torch.Tensor, k_pool: torch.Tensor,
                                     lengths)
     return cached_attention(query, gather_block_kv(k_pool, block_tables),
                             gather_block_kv(v_pool, block_tables), lengths)
+
+
+def paged_verify_attention(query: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """A speculative verify window straight off the block pool, as decode
+    rows of K4: ``query`` ``[B, W, H, D]`` becomes ``B·W`` rows of one
+    query, row ``(b, i)`` taking slot ``b``'s table row and the window
+    ``0 .. lengths[b] + i`` (clamped to the table's last position: such a
+    row's query sits past ``max_seq``, where the round emits nothing).
+    Each window query is one decode query, so this is
+    :func:`verify_attention` over the gathered pool; CPU tensors run K4's
+    plain version.  Returns ``[B, W, H, D]``."""
+    B, W, H, D = query.shape
+    T = block_tables.shape[1] * k_pool.shape[1]
+    rows = block_tables.repeat_interleave(W, dim=0)
+    lens = (lengths.long()[:, None] + torch.arange(
+        W, device=lengths.device)[None, :]).clamp_max(T - 1)
+    out = paged_decode_attention(query.reshape(B * W, 1, H, D), k_pool,
+                                 v_pool, rows,
+                                 lens.reshape(-1).to(torch.int32))
+    return out.reshape(B, W, H, D)
 
 
 def paged_prefill_attention(query: torch.Tensor, k_pool: torch.Tensor,

@@ -1,5 +1,6 @@
 """Continuous-batching serving of the port: engine, caches, sampling,
-the overload regime, the request tracer and the request journal."""
+the overload regime, the request tracer, the request journal and
+speculative decoding."""
 from .engine import (
     PRIORITY_HIGH, PRIORITY_LOW, PRIORITY_NORMAL, Engine, EngineStopped,
     QueueFull, Request, ShedReject,
@@ -10,6 +11,7 @@ from .metrics import ServingMetrics
 from .paging import BlockAllocator, PagedCacheContext, PagedKVCache
 from .prefix_cache import PrefixCache
 from .sampling import DeviceSampler, SamplingParams
+from .spec_decode import SpecConfig, SpecState
 from .tracing import (
     NULL_TRACER, FlightRecorder, RequestTracer, validate_trace,
 )
@@ -19,5 +21,6 @@ __all__ = ["Engine", "Request", "QueueFull", "ShedReject", "EngineStopped",
            "PRIORITY_NORMAL", "PRIORITY_HIGH", "CacheContext", "KVCache",
            "BlockAllocator", "PagedCacheContext", "PagedKVCache",
            "PrefixCache", "DeviceSampler", "SamplingParams",
-           "ServingMetrics", "RequestTracer", "NULL_TRACER",
+           "ServingMetrics", "SpecConfig", "SpecState", "RequestTracer",
+           "NULL_TRACER",
            "FlightRecorder", "validate_trace"]

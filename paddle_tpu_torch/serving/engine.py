@@ -58,10 +58,23 @@ idle engine.  A captured CUDA graph reads the parameters at the
 addresses it saw at capture, so a swap writes every parameter in place
 (``copy_``) on the stream the programs replay on, synchronises it, and
 raises if a parameter moved; the JAX engine could rebind its buffers.
+A self-speculating draft is the target module, so it follows the swap.
+
+Speculative decoding, as in the JAX engine (``speculation=SpecConfig(
+draft_model, k)``, :mod:`.spec_decode`): every request is served in
+rounds of ``k`` draft-decode programs and one verify program, whose
+``[slots, k+1]`` target forward and rejection-sampling acceptance emit 1
+to ``k+1`` tokens per slot; the host pulls one ``[slots, k+2]`` int32
+array a round.  A round replaces the decode program; the draft's prefill
+runs after the target's at each admission.  A round's retry rewinds all
+``k+1`` programs (the target's lanes as for a decode, the draft's length,
+token and counter lanes to the target's), a preemption falls between
+rounds, and the journal gets one token record per round.
 
 The opt-in subsystems of the JAX engine that are not part of this port
-yet: speculation, adapters, grammars, the mesh, fault plans, the
-sanitizer and the watchdog, the prefix-lookup timeout, and ``Fleet``.
+yet: adapters and grammars (ROADMAP.md A.3 step 5), fault plans, the
+sanitizer and the watchdog (step 6), the prefix-lookup timeout,
+``Fleet`` (step 7) and the mesh (step 8).
 """
 from __future__ import annotations
 
@@ -82,10 +95,11 @@ from .kv_cache import CacheContext, KVCache
 from .metrics import ServingMetrics
 from .programs import StepPrograms
 from .sampling import DeviceSampler, SamplingParams
+from .spec_decode import SpecConfig, SpecState
 from .tracing import NULL_TRACER, FlightRecorder, RequestTracer
 
-__all__ = ["Engine", "Request", "SamplingParams", "QueueFull", "ShedReject",
-           "EngineStopped", "PRIORITY_LOW", "PRIORITY_NORMAL",
+__all__ = ["Engine", "Request", "SamplingParams", "SpecConfig", "QueueFull",
+           "ShedReject", "EngineStopped", "PRIORITY_LOW", "PRIORITY_NORMAL",
            "PRIORITY_HIGH"]
 
 _engine_counter = itertools.count()
@@ -339,6 +353,13 @@ class Engine:
             request is journaled (its replay recipe, one token record
             per engine step, its end) so that a fresh process can
             :meth:`recover` it.  ``None`` journals nothing.
+        speculation: a :class:`~.spec_decode.SpecConfig`: serve in
+            speculative rounds (draft propose, one verify step, acceptance
+            on the device).  ``None`` decodes one token a step.
+        adapters, grammars, step_timeout_s, fault_plan, mesh: not
+            ported; anything but ``None`` raises ``NotImplementedError``
+            naming its ROADMAP.md item (and so does a speculating engine
+            under ``PADDLE_TPU_SANITIZE``).
     """
 
     def __init__(self, model: nn.Module, *, num_slots: int = 4,
@@ -359,7 +380,27 @@ class Engine:
                  priority_aging_s: Optional[float] = 5.0,
                  tracer=None,
                  flight_recorder_steps: int = 256,
-                 journal=None):
+                 journal=None,
+                 speculation: Optional[SpecConfig] = None,
+                 adapters=None, grammars=None, step_timeout_s=None,
+                 fault_plan=None, mesh=None):
+        for what, value, item in (
+                ("adapters", adapters, "A.3 step 5, tenancy"),
+                ("grammars", grammars, "A.3 step 5, tenancy"),
+                ("step_timeout_s", step_timeout_s,
+                 "A.3 step 6, the step watchdog"),
+                ("fault_plan", fault_plan, "A.3 step 6, fault plans"),
+                ("mesh", mesh, "A.3 step 8, sharded serving")):
+            if value is not None:
+                raise NotImplementedError(
+                    f"Engine({what}=...) is not ported yet (ROADMAP.md "
+                    f"{item})")
+        if speculation is not None and os.environ.get("PADDLE_TPU_SANITIZE",
+                                                      "0") not in ("", "0"):
+            raise NotImplementedError(
+                "PADDLE_TPU_SANITIZE asks for the sync sanitizer's window "
+                "around a speculative round, which is not ported yet "
+                "(ROADMAP.md A.3 step 6, the sanitizer)")
         cfg = getattr(model, "config", None)
         if cfg is None:
             raise TypeError("Engine needs a model carrying a .config "
@@ -428,9 +469,14 @@ class Engine:
                 self.prefix_cache = PrefixCache(self.cache.allocator,
                                                 self.block_size)
         else:
+            # a speculative window runs up to k positions past max_seq:
+            # the headroom takes those writes (the paged pool sends them
+            # to its scratch block)
             self.cache = KVCache(self.num_slots, cfg.num_hidden_layers,
                                  self.max_seq, kv_heads, cfg.head_dim,
-                                 cache_dtype, device=self.device)
+                                 cache_dtype, device=self.device,
+                                 headroom=(0 if speculation is None
+                                           else int(speculation.k)))
         self.name = name or f"engine-{next(_engine_counter)}"
         self.metrics = ServingMetrics(self.name, num_slots=self.num_slots)
         self.sampler = DeviceSampler(self.num_slots, device=self.device)
@@ -466,6 +512,12 @@ class Engine:
         self.mesh_shape: Optional[str] = None
         self.state = "active"    # active | draining | stopped | unhealthy
         self._unhealthy_reason: Optional[str] = None
+        # speculative decoding: the draft, its cache, sampler and
+        # proposals lane; None keeps the one-token decode step
+        self.spec: Optional[SpecState] = None
+        if speculation is not None:
+            self.spec = SpecState(self, speculation)
+            self.metrics.spec_cb = self.spec.snapshot
 
     # -- buckets -----------------------------------------------------------
 
@@ -548,6 +600,10 @@ class Engine:
             if lane.is_cuda:
                 src = src.pin_memory()
             lane.copy_(src, non_blocking=True)
+        if self.spec is not None:
+            # a round's retry: the draft's lanes are the target's at the
+            # round's start
+            self.spec.restore_lanes()
 
     def _run_prefill(self, ids: np.ndarray, slot: int, length: int,
                      start: int = 0) -> torch.Tensor:
@@ -558,6 +614,21 @@ class Engine:
 
     def _run_decode(self, active: np.ndarray) -> torch.Tensor:
         return self.programs.run(("decode",), self._decode_step, active)
+
+    def _run_draft_prefill(self, ids: np.ndarray, slot: int,
+                           length: int) -> torch.Tensor:
+        """The draft prefill program of ``ids``'s bucket."""
+        meta = np.array([slot, length], dtype=np.int32)
+        return self.programs.run(("draft_prefill", ids.shape[1]),
+                                 self.spec.draft_prefill, ids, meta)
+
+    def _run_draft_decode(self, active: np.ndarray, j: int) -> torch.Tensor:
+        return self.programs.run(("draft_decode",), self.spec.draft_decode,
+                                 active, np.array([j], dtype=np.int32))
+
+    def _run_verify(self, active: np.ndarray,
+                    cap: np.ndarray) -> torch.Tensor:
+        return self.programs.run(("verify",), self.spec.verify, active, cap)
 
     def _step_call(self, point: str, call: Callable[[], torch.Tensor],
                    undo: Callable[[], None]) -> torch.Tensor:
@@ -832,13 +903,27 @@ class Engine:
                     self.cache.release_slot(0)
             else:
                 int(self._run_prefill(ids, 0, 1))
-        self._run_decode(np.zeros(self.num_slots, dtype=np.int32)).cpu()
+        idle = np.zeros(self.num_slots, dtype=np.int32)
+        if self.spec is None:
+            self._run_decode(idle).cpu()
+            programs = ["prefill", "decode"]
+        else:
+            # a round replaces the decode program: the draft's prefill
+            # per bucket, its one decode and the verify
+            for b in use:
+                self._run_draft_prefill(np.zeros((1, b), dtype=np.int64),
+                                        0, 1).cpu()
+            self._run_draft_decode(idle, 0).cpu()
+            self._run_verify(idle, np.ones_like(idle)).cpu()
+            self.spec.reset()
+            programs = ["prefill", "draft_prefill", "draft_decode",
+                        "verify"]
         self.cache.reset()
         self.sampler.reset()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._warm_misses = self.metrics.compile_misses
-        return {"buckets": use, "programs": ["prefill", "decode"],
+        return {"buckets": use, "programs": programs,
                 "compile_misses": self.metrics.compile_misses}
 
     # -- deadlines, cancellation ---------------------------------------------
@@ -1008,6 +1093,10 @@ class Engine:
             self._mark_block_corruption(
                 f"release_slot({slot}) failed on preemption: "
                 f"{type(e).__name__}: {e}")
+        if self.spec is not None:
+            # the draft's K/V is never resumed: the replay from the prompt
+            # prefills it again
+            self.spec.release_slot(slot)
         self.running.pop(slot, None)
         if slot not in self.free_slots:
             self.free_slots.append(slot)
@@ -1118,6 +1207,8 @@ class Engine:
                 return None
         # waits for the prefill; read before any other program runs
         tok = int(tok_t)
+        if self.spec is not None and not self._spec_admit(req, L):
+            return None
         now = time.perf_counter()
         self.metrics.prefill_time_s += now - t0
         req.state, req.prefill_bucket = "running", bucket
@@ -1138,6 +1229,31 @@ class Engine:
         if self._done_after_emit(req):
             self._retire(req)
         return None
+
+    def _spec_admit(self, req: Request, L: int) -> bool:
+        """The draft's half of a speculating admission: stage its lanes
+        (the same on a first admission, a resume and a recovery replay)
+        and prefill the whole prompt into its cache (no prefix cache: the
+        draft's K/V is cheap and never kept).  A failure past the retries
+        retires the request and returns False."""
+        self.spec.stage_slot(req.slot, req.sampling, self._seed_for(req))
+        ids = np.zeros((1, self.bucket_for(L)), dtype=np.int64)
+        ids[0, :L] = req.prompt_ids
+        try:
+            self._step_call(
+                "serving.spec_draft_prefill",
+                lambda: self._run_draft_prefill(ids, req.slot, L),
+                lambda: self.spec.stage_slot(req.slot, req.sampling,
+                                             self._seed_for(req)))
+        except Exception as e:           # noqa: BLE001 — isolation boundary
+            n = self.max_step_retries
+            self._retire(req, "failed",
+                         error=f"draft prefill failed after {n} "
+                               f"retr{'y' if n == 1 else 'ies'}: "
+                               f"{type(e).__name__}: {e}",
+                         kind="replica")
+            return False
+        return True
 
     def _emit_token(self, req: Request, tok: int, now: float) -> bool:
         """Record one token and run the stream callback; a raising
@@ -1189,6 +1305,8 @@ class Engine:
                 self._mark_block_corruption(
                     f"release_slot({slot}) failed: "
                     f"{type(e).__name__}: {e}")
+            if self.spec is not None:
+                self.spec.release_slot(slot)
         if state == "finished":
             self.metrics.on_complete()
         elif state == "cancelled":
@@ -1294,6 +1412,139 @@ class Engine:
             if self._done_after_emit(req):
                 self._retire(req)
 
+    # -- speculative rounds --------------------------------------------------
+
+    def _prepare_spec_paged(self) -> None:
+        """Before a paged round, each running slot must own alone the
+        blocks of its whole window ``[len, len+k]`` (the verify writes all
+        ``k+1`` positions whatever it accepts): fresh blocks appended,
+        shared ones copied on extend, as a decode's one position.
+        Positions at or past ``max_seq`` go to scratch and need none.  A
+        slot the pool cannot serve fails its request."""
+        k = self.spec.k
+        for slot, req in list(self.running.items()):
+            ok = True
+            try:
+                last = min(req._seq_len + k, self.max_seq - 1)
+                for pos in range(req._seq_len, last + 1):
+                    if not self.cache.ensure_capacity(slot, pos):
+                        ok = False
+                        break
+            except Exception as e:       # noqa: BLE001 — accounting bug
+                self._mark_block_corruption(
+                    f"ensure_capacity({slot}) failed: "
+                    f"{type(e).__name__}: {e}")
+                ok = False
+            if not ok:
+                self.tracer.on_block_pressure(req, self.name,
+                                              kind="pool_exhausted",
+                                              position=req._seq_len)
+                self._retire(req, "failed",
+                             error="KV block pool exhausted: no block "
+                                   "free for the verify window at "
+                                   f"position {req._seq_len} (even "
+                                   "after prefix-cache eviction)")
+
+    def _spec_round_body(self):
+        """Dispatch one speculative round, ``k`` draft-decode programs and
+        the verify, as one call with the bounded retry: a retry rewinds
+        the whole round (:meth:`_restore_lanes` sets the target's lanes
+        and the draft's to the round's start).  Returns ``(out, t0)``, or
+        None when nothing ran or the retries were exhausted (then every
+        request of the batch failed)."""
+        spec = self.spec
+        if self.kv_layout == "paged":
+            self._prepare_spec_paged()
+        if not self.running:
+            return None
+        active = np.zeros((self.num_slots,), dtype=np.int32)
+        cap = np.ones((self.num_slots,), dtype=np.int32)
+        for slot, req in self.running.items():
+            active[slot] = 1
+            # the emission cap, host ints only: the token budget and the
+            # cache's room (each >= 1 for a running request, which
+            # _done_after_emit retires at either boundary)
+            cap[slot] = max(1, min(spec.k + 1,
+                                   req.max_new_tokens - len(req.output_ids),
+                                   self.max_seq - req._seq_len))
+
+        def round_() -> torch.Tensor:
+            for j in range(spec.k):
+                self._run_draft_decode(active, j)
+            return self._run_verify(active, cap)
+
+        t0 = time.perf_counter()
+        try:
+            out = self._step_call("serving.spec_round", round_,
+                                  self._restore_lanes)
+        except Exception as e:           # noqa: BLE001 — isolation boundary
+            n = self.max_step_retries
+            msg = (f"speculative round failed after {n} "
+                   f"retr{'y' if n == 1 else 'ies'}: "
+                   f"{type(e).__name__}: {e}")
+            for req in list(self.running.values()):
+                self._retire(req, "failed", error=msg, kind="replica")
+            return None
+        return out, t0
+
+    def _deliver_spec(self, out: torch.Tensor, t0: float) -> None:
+        """Pull the round's ``[slots, k+2]`` result (its one device to host
+        copy), then the host's half of the round: a stream cut after its
+        stop token, one journal record and one tracer event for the round,
+        the lengths mirrored, the paged table truncated past the accepted
+        length, the emits and the retirements."""
+        arr = out.cpu().numpy()
+        now = time.perf_counter()
+        spec = self.spec
+        running = list(self.running.items())
+        step_s = now - t0
+        delivered: Dict[int, List[int]] = {}
+        accepted = 0
+        for slot, req in running:
+            m = int(arr[slot, 0])
+            accepted += max(0, m - 1)
+            toks = [int(t) for t in arr[slot, 1:1 + m]]
+            if req.eos_token_id is not None and req.eos_token_id in toks:
+                # the round ran past the stop token: what follows it is
+                # never delivered, as the one-token loop would stop there
+                toks = toks[:toks.index(req.eos_token_id) + 1]
+            delivered[slot] = toks
+        if self.journal is not None:
+            # one record per round, each request's burst in it, before
+            # the emits
+            tokmap = {r.journal_id: delivered[s] for s, r in running
+                      if r.journal_id is not None and delivered[s]}
+            if tokmap:
+                self.journal.record_tokens(self.name, self._step_counter,
+                                           tokmap)
+        proposed = spec.k * len(running)
+        self.metrics.on_spec_round(
+            step_s, draft_steps=spec.k, proposed=proposed,
+            accepted=accepted,
+            delivered=[len(delivered[s]) for s, _ in running])
+        if self.tracer.enabled:
+            # one event per round, never one per token
+            self.tracer.on_verify_step(self.name, self._step_counter,
+                                       [s for s, _ in running], step_s,
+                                       proposed=proposed, accepted=accepted)
+        for slot, req in running:
+            req._seq_len += int(arr[slot, 0])    # the program's advance
+            if self.kv_layout == "paged":
+                try:
+                    self.cache.truncate_blocks(slot, req._seq_len)
+                except Exception as e:   # noqa: BLE001 — accounting bug
+                    self._mark_block_corruption(
+                        f"truncate_blocks({slot}) failed: "
+                        f"{type(e).__name__}: {e}")
+            # the cap fitted the burst to the budget and the cache, and it
+            # ends at a stop token if it holds one: the whole burst is
+            # delivered, then the one-token loop's stop checks
+            for tok in delivered[slot]:
+                if not self._emit_token(req, tok, now) or req.done:
+                    break                # its callback failed or cancelled
+            if not req.done and self._done_after_emit(req):
+                self._retire(req)
+
     # -- scheduling --------------------------------------------------------
 
     def step(self) -> bool:
@@ -1358,7 +1609,11 @@ class Engine:
                                        "pool can supply")
                 break
         self.metrics.on_slots(len(self.running))
-        if self.running:
+        if self.running and self.spec is not None:
+            res = self._spec_round_body()
+            if res is not None:
+                self._deliver_spec(*res)
+        elif self.running:
             res = self._decode_body()
             if res is not None:
                 self._deliver_tokens(*res)

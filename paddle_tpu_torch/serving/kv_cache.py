@@ -8,9 +8,20 @@ JAX cache rebound immutable arrays, this one is updated in place.
 Write discipline (why stale bytes are never read): prefill writes
 positions ``0..bucket-1`` of a slot and sets ``lengths[slot]``; decode
 writes each slot's token at ``lengths[slot]`` and then advances the
-lengths by the active mask; attention reads positions ``<= lengths[slot]``
-only.  Every readable position was written by the current request, so a
-reused slot needs no zeroing.
+lengths by the active mask; a speculative verify writes a window of W
+tokens at ``lengths[slot]..`` and advances by the accepted count;
+attention reads positions ``<= lengths[slot]`` (in a window, ``<=`` each
+query's own position) only.  Every readable position was written by the
+current request, so a reused slot needs no zeroing.
+
+Positions past the end.  A speculating slot's window (and its draft's
+decode steps) reach up to ``k`` positions past ``max_seq - 1``; JAX drops
+such a write and clamps such a read, where CUDA asserts.  A cache made
+with ``headroom=k`` holds ``k`` more positions that take those writes;
+attention reads the first ``max_seq`` positions only, and the position
+ids of a window (and of any step on a cache with headroom) are clamped to
+``max_seq - 1``, inside every rope and position table.  Whatever a query
+at or past ``max_seq`` computes is junk the round's cap never emits.
 
 The prefill surface takes its slot, length and start as int32 tensors of
 one element on the cache's device (:func:`check_scalar`), and writes
@@ -25,7 +36,7 @@ from typing import Optional
 import torch
 
 from ..ops.attention import flash_attention
-from ..ops.cached_attention import cached_attention
+from ..ops.cached_attention import cached_attention, verify_attention
 
 __all__ = ["KVCache", "CacheContext", "check_scalar"]
 
@@ -48,22 +59,28 @@ class KVCache:
     """Preallocated per-slot KV storage shared by all layers of one model.
 
     ``dtype`` is the cache dtype and ``device`` where it lives (given
-    explicitly; the engine passes its model's)."""
+    explicitly; the engine passes its model's).  ``headroom`` positions
+    past ``max_seq`` take a speculative window's writes past the end."""
 
     def __init__(self, num_slots: int, num_layers: int, max_seq: int,
                  num_kv_heads: int, head_dim: int,
-                 dtype: torch.dtype = torch.float32, *, device="cuda"):
+                 dtype: torch.dtype = torch.float32, *, device="cuda",
+                 headroom: int = 0):
         if num_slots < 1 or num_layers < 1 or max_seq < 1:
             raise ValueError("num_slots/num_layers/max_seq must be >= 1")
+        if headroom < 0:
+            raise ValueError(f"headroom must be >= 0, got {headroom}")
         self.num_slots = int(num_slots)
         self.num_layers = int(num_layers)
         self.max_seq = int(max_seq)
+        self.headroom = int(headroom)
         self.num_kv_heads = int(num_kv_heads)
         self.head_dim = int(head_dim)
         self.dtype = dtype
         self.device = torch.device(device)
-        shape = (self.num_slots, self.num_layers, self.max_seq,
-                 self.num_kv_heads, self.head_dim)
+        shape = (self.num_slots, self.num_layers,
+                 self.max_seq + self.headroom, self.num_kv_heads,
+                 self.head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v = torch.zeros(shape, dtype=dtype, device=self.device)
         self.lengths = torch.zeros((self.num_slots,), dtype=torch.int32,
@@ -93,7 +110,34 @@ class KVCache:
         k_layer, v_layer = self.k[:, layer_idx], self.v[:, layer_idx]
         k_layer[rows, pos] = k[:, 0].to(self.dtype)
         v_layer[rows, pos] = v[:, 0].to(self.dtype)
-        return k_layer, v_layer, self.lengths
+        T = self.max_seq
+        return k_layer[:, :T], v_layer[:, :T], self.lengths
+
+    def verify_write(self, layer_idx: int, k: torch.Tensor,
+                     v: torch.Tensor):
+        """Write a speculative window, W tokens per slot (``[slots, W,
+        Hkv, D]``), at positions ``lengths[slot] .. lengths[slot] + W - 1``,
+        in place; a position past the headroom (never one a round can
+        emit) is clamped onto the last one.  Returns the layer's caches
+        ``[slots, max_seq, Hkv, D]`` (views) and the window-start lengths
+        — what :func:`ops.cached_attention.verify_attention` takes."""
+        W = k.shape[1]
+        rows = torch.arange(self.num_slots, device=self.device)[:, None]
+        pos = (self.lengths.long()[:, None]
+               + torch.arange(W, device=self.device)[None, :]).clamp_max(
+                   self.max_seq + self.headroom - 1)
+        k_layer, v_layer = self.k[:, layer_idx], self.v[:, layer_idx]
+        k_layer[rows, pos] = k.to(self.dtype)
+        v_layer[rows, pos] = v.to(self.dtype)
+        T = self.max_seq
+        return k_layer[:, :T], v_layer[:, :T], self.lengths
+
+    def verify_attention(self, layer_idx: int, q: torch.Tensor,
+                         k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """One verify window of attention for this layer: write the
+        window, then the plain per-slot offset causal attention."""
+        k_full, v_full, lens = self.verify_write(layer_idx, k, v)
+        return verify_attention(q, k_full, v_full, lens)
 
     def advance(self, active: torch.Tensor) -> None:
         """Grow the lengths by the ``[slots]`` int32 active mask (in place,
@@ -119,19 +163,23 @@ class KVCache:
 class CacheContext:
     """Per-forward routing handle threaded through the model's layers.
 
-    ``mode`` is ``"prefill"`` (causal forward writing K/V into ``slot``)
-    or ``"decode"`` (one token for every slot at once).  ``layer_idx`` is
-    set by the model's layer loop.  Models only duck-type this object."""
+    ``mode`` is ``"prefill"`` (causal forward writing K/V into ``slot``),
+    ``"decode"`` (one token for every slot at once) or ``"verify"`` (a
+    speculative window of ``width`` tokens per slot, each slot's at its
+    own offset).  ``layer_idx`` is set by the model's layer loop.  Models
+    only duck-type this object: they route every mode but prefill through
+    :meth:`decode_attention` and :meth:`positions`."""
 
     cache: object
-    mode: str                          # "prefill" | "decode"
+    mode: str                          # "prefill" | "decode" | "verify"
     slot: Optional[torch.Tensor] = None  # prefill: int32, one element
     layer_idx: int = 0
+    width: int = 1                     # verify: tokens per slot (k + 1)
 
     def __post_init__(self):
-        if self.mode not in ("prefill", "decode"):
+        if self.mode not in ("prefill", "decode", "verify"):
             raise ValueError(f"CacheContext mode {self.mode!r} "
-                             "(want 'prefill' or 'decode')")
+                             "(want 'prefill', 'decode' or 'verify')")
         if self.mode == "prefill":
             self.slot = check_scalar("slot", self.slot)
 
@@ -142,7 +190,11 @@ class CacheContext:
                          v: torch.Tensor) -> torch.Tensor:
         """Write this layer's token K/V, then attend over each slot's
         window.  A cache with its own ``decode_attention`` (the paged
-        pool's kernel-or-reference routing) takes the whole step."""
+        pool's kernel-or-reference routing) takes the whole step; in
+        ``verify`` mode the cache's ``verify_attention`` takes the
+        window."""
+        if self.mode == "verify":
+            return self.cache.verify_attention(self.layer_idx, q, k, v)
         cache_fn = getattr(self.cache, "decode_attention", None)
         if cache_fn is not None:
             return cache_fn(self.layer_idx, q, k, v)
@@ -150,8 +202,16 @@ class CacheContext:
         return cached_attention(q, k_full, v_full, lens)
 
     def positions(self) -> torch.Tensor:
-        """Decode position ids ``[slots, 1]``: the pre-advance lengths."""
-        return self.cache.lengths[:, None]
+        """Position ids: in decode ``[slots, 1]``, the pre-advance lengths;
+        in verify ``[slots, width]``, ``lengths[slot] + i``.  A window's
+        (and a cache with headroom's) are clamped to ``max_seq - 1``."""
+        pos = self.cache.lengths[:, None]
+        if self.mode == "verify":
+            pos = pos + torch.arange(self.width, dtype=pos.dtype,
+                                     device=pos.device)[None, :]
+        if self.mode == "verify" or getattr(self.cache, "headroom", 0):
+            pos = pos.clamp_max(self.cache.max_seq - 1)
+        return pos
 
     def prefill_positions(self, seq_len: int) -> Optional[torch.Tensor]:
         """Prefill position ids, or None for ``0..S-1`` (the paged context

@@ -6,7 +6,8 @@ and the failure-path and overload counters (cancelled, rejected and
 deadline-expired requests, step failures and retries by point,
 preemptions and sheds), and the durability counters (requests recovered
 from a journal, the outcomes banked from it, weight swaps and the
-model version).
+model version), and the speculative rounds' counters (rounds, draft and
+verify steps, proposed and accepted draft tokens).
 
 A slice of ``paddle_tpu/serving/metrics.py``.  Times are host clock
 (``perf_counter``) around work that ends in a device synchronisation: a
@@ -81,6 +82,15 @@ class ServingMetrics:
         self.prefills_by_bucket: Dict[int, int] = {}
         self.compile_hits = 0
         self.compile_misses = 0
+        # speculative decoding: per-round proposal and acceptance counts;
+        # spec_cb (set by an engine that speculates) gives the
+        # configuration half of the section
+        self.spec_rounds = 0
+        self.spec_draft_steps = 0
+        self.spec_verify_steps = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_cb = None
         self.ttft_s: deque = deque(maxlen=_LATENCY_WINDOW)
         self.itl_s: deque = deque(maxlen=_LATENCY_WINDOW)
         self._occupancy_sum = 0.0
@@ -107,6 +117,46 @@ class ServingMetrics:
         self.decode_tokens += n_active
         self.decode_time_s += step_s
         self.itl_s.extend([step_s] * n_active)
+
+    def on_spec_round(self, step_s: float, *, draft_steps: int,
+                      proposed: int, accepted: int, delivered) -> None:
+        """One speculative round: ``draft_steps`` draft steps and one
+        verify step delivered ``delivered[i]`` tokens to each running slot
+        (``accepted`` of the ``proposed`` draft tokens survived).  Folds
+        into the decode counters as a decode step does, a burst of ``n``
+        tokens pricing each at ``step_s / n`` in the ITL window, so
+        tokens/s and ITL compare across modes."""
+        self.spec_rounds += 1
+        self.spec_draft_steps += int(draft_steps)
+        self.spec_verify_steps += 1
+        self.spec_proposed += int(proposed)
+        self.spec_accepted += int(accepted)
+        self.decode_steps += 1
+        self.decode_time_s += step_s
+        for n in delivered:
+            if n > 0:
+                self.decode_tokens += n
+                self.itl_s.extend([step_s / n] * n)
+
+    def _speculation_section(self):
+        """The speculative counters, or None when the engine does not
+        speculate (the snapshot's shape says which mode served)."""
+        if self.spec_cb is None:
+            return None
+        out = dict(self.spec_cb())
+        out.update({
+            "rounds": self.spec_rounds,
+            "draft_steps": self.spec_draft_steps,
+            "verify_steps": self.spec_verify_steps,
+            "proposed": self.spec_proposed,
+            "accepted": self.spec_accepted,
+            "accept_rate": round(self.spec_accepted / self.spec_proposed, 4)
+            if self.spec_proposed else 0.0,
+            "mean_accepted_per_round": round(
+                self.spec_accepted / self.spec_rounds, 4)
+            if self.spec_rounds else 0.0,
+        })
+        return out
 
     def on_compile(self, miss: bool) -> None:
         """One step-program call: a miss builds the program (a CUDA graph
@@ -229,6 +279,7 @@ class ServingMetrics:
                 "weight_swaps": self.weight_swaps,
                 "model_version": self.model_version,
             },
+            "speculation": self._speculation_section(),
             "queue_depth": self.queue_depth,
             "queue_depth_max": self.queue_depth_max,
             "slot_occupancy": round(self.occupancy(), 4),

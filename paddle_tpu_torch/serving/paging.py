@@ -11,12 +11,17 @@ block boundary ``start // block_size``; decode writes each slot's token at
 ``lengths[slot]`` through its table; attention reads positions
 ``<= lengths[slot]``.  Block 0 is a reserved scratch block: idle slots'
 rows point at it with length 0, so the all-slots decode write never lands
-on live storage and the decode kernel reads only scratch for them.
+on live storage and the decode kernel reads only scratch for them.  A
+speculative verify writes a window of W tokens at ``lengths[slot]..``
+through the table (a position at or past ``max_seq`` goes to scratch),
+and after the round the host drops the blocks past the accepted length
+(:meth:`PagedKVCache.truncate_blocks`).
 
-Attention runs through the CUDA kernels K4 (decode) and K5 (tail
-prefill) with ``kernel="cuda"`` (they read the pool through the table;
-for CPU tensors the same call runs the plain gather + attention), or
-through the plain gather + attention with ``kernel="reference"``.
+Attention runs through the CUDA kernels K4 (decode, and a verify window
+as ``slots·W`` decode rows) and K5 (tail prefill) with ``kernel="cuda"``
+(they read the pool through the table; for CPU tensors the same call runs
+the plain gather + attention), or through the plain gather + attention
+with ``kernel="reference"``.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ import torch
 
 from ..ops.cached_attention import (
     block_prefill_attention, cached_attention, gather_block_kv,
-    paged_decode_attention, paged_prefill_attention,
+    paged_decode_attention, paged_prefill_attention, paged_verify_attention,
+    verify_attention,
 )
 from .kv_cache import CacheContext, check_scalar
 
@@ -294,6 +300,24 @@ class PagedKVCache:
             self.copy_on_extends += 1
         return True
 
+    def truncate_blocks(self, slot: int, n_tokens: int) -> int:
+        """Speculative rollback: drop the slot's blocks past those that
+        cover positions ``0..n_tokens-1`` (a rejected window's tail), with
+        no copy: refcounts and the table row's tail, written in place.
+        The engine passes the accepted length, which covers the whole
+        prompt, so a block the prefix cache registered is never among
+        those dropped.  Returns how many blocks were released."""
+        owned = self._slot_blocks[slot]
+        keep = -(-int(n_tokens) // self.block_size)
+        if len(owned) <= keep:
+            return 0
+        drop = owned[keep:]
+        del owned[keep:]
+        self.block_tables[slot, keep:].fill_(SCRATCH_BLOCK)
+        for b in drop:
+            self.allocator.unref(b)
+        return len(drop)
+
     def reset(self) -> None:
         """Release every slot (cached prefix blocks stay with their
         owner)."""
@@ -362,6 +386,40 @@ class PagedKVCache:
             return paged_decode_attention(q, k_layer, v_layer, tbl, lens)
         k_full, v_full, lens = self.decode_write(layer_idx, k, v)
         return cached_attention(q, k_full, v_full, lens)
+
+    def _verify_token_write(self, layer_idx: int, k: torch.Tensor,
+                            v: torch.Tensor):
+        """Write a window of W tokens per slot (``[slots, W, Hkv, D]``) at
+        ``lengths[slot] + i`` through the table, in place; a position at or
+        past ``max_seq`` goes to the scratch block.  The engine made every
+        running slot own the blocks of its window's positions below
+        ``max_seq`` (``ensure_capacity``, copy on extend included).
+        Returns the layer's pool views, the tables and the lengths."""
+        bs = self.block_size
+        W = k.shape[1]
+        pos = self.lengths.long()[:, None] + torch.arange(
+            W, device=self.device)[None, :]
+        bidx = (pos // bs).clamp(0, self.max_blocks_per_slot - 1)
+        block_ids = self.block_tables.gather(1, bidx).long()
+        block_ids = torch.where(pos < self.max_seq, block_ids,
+                                torch.full_like(block_ids, SCRATCH_BLOCK))
+        off = pos % bs
+        k_layer, v_layer = self.k[:, layer_idx], self.v[:, layer_idx]
+        k_layer[block_ids, off] = k.to(self.dtype)
+        v_layer[block_ids, off] = v.to(self.dtype)
+        return k_layer, v_layer, self.block_tables, self.lengths
+
+    def verify_attention(self, layer_idx: int, q: torch.Tensor,
+                         k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """One verify window of attention for this layer: write the window,
+        then attend (K4 over ``slots·W`` rows, or the gather + plain
+        :func:`verify_attention`)."""
+        k_layer, v_layer, tbl, lens = self._verify_token_write(layer_idx,
+                                                               k, v)
+        if self.kernel == "cuda":
+            return paged_verify_attention(q, k_layer, v_layer, tbl, lens)
+        return verify_attention(q, gather_block_kv(k_layer, tbl),
+                                gather_block_kv(v_layer, tbl), lens)
 
     def advance(self, active: torch.Tensor) -> None:
         self.lengths += active

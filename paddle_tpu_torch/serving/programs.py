@@ -31,6 +31,7 @@ another's output: the caller reads each program's output (``int(tok)``,
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -124,9 +125,17 @@ class StepPrograms:
         out.record_stream(cur)
         before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(graph, pool=self._pool,
-                                               stream=side):
-            output = body(*statics)
+        # the cyclic collector must not run inside a capture: freeing an
+        # unreachable engine's graphs there invalidates it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.no_grad(), torch.cuda.graph(graph, pool=self._pool,
+                                                   stream=side):
+                output = body(*statics)
+        finally:
+            if collecting:
+                gc.enable()
         after = kernels.launch_counts()
         launches = {n: after[n] - before[n] for n in after
                     if after[n] != before[n]}

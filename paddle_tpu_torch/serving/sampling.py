@@ -22,11 +22,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["SamplingParams", "sample", "masked_logits", "gumbel_noise",
-           "device_sample", "DeviceSampler"]
+__all__ = ["SamplingParams", "sample", "masked_logits", "uniform_noise",
+           "gumbel_noise", "device_sample", "DeviceSampler",
+           "ACCEPT_SEED_SALT", "RESAMPLE_SEED_SALT"]
 
 _NEG_INF = -1e30
 _MASK32 = 0xFFFFFFFF
+
+#: XORed into a slot's seed for the speculative acceptance uniforms and
+#: for the resample noise of a round (:meth:`DeviceSampler.accept_speculative`):
+#: two streams independent of each other and of the plain decode noise at
+#: the slot's own seed.  The salts sit in the seed's high 32 bits, which a
+#: small request seed leaves at zero.
+ACCEPT_SEED_SALT = 0x41CCE97A << 32
+RESAMPLE_SEED_SALT = 0x2E5A4D1F << 32
 
 
 @dataclass
@@ -121,22 +130,28 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def gumbel_noise(seeds: torch.Tensor, counters: torch.Tensor,
-                 vocab: int) -> torch.Tensor:
-    """``[N, vocab]`` f32 standard Gumbel noise, a counter-based hash of
-    (``seeds[n]``, ``counters[n]``, vocabulary index): ``seeds`` and
-    ``counters`` are ``[N]`` int64.  Every lane is a 32-bit value kept in
-    int64 and masked after each step, so no op relies on signed overflow;
-    the uniform takes the hash's top 23 bits into the open interval
-    (0, 1): ``(h + 0.5) / 2**23``, from 2**-24 to 1 - 2**-24."""
+def uniform_noise(seeds: torch.Tensor, counters: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """``[N, n]`` f32 uniforms, a counter-based hash of (``seeds[i]``,
+    ``counters[i]``, column index): ``seeds`` and ``counters`` are
+    ``[N]`` int64.  Every lane is a 32-bit value kept in int64 and masked
+    after each step, so no op relies on signed overflow; the uniform
+    takes the hash's top 23 bits into the open interval (0, 1):
+    ``(h + 0.5) / 2**23``, from 2**-24 to 1 - 2**-24."""
     lo = seeds & _MASK32
     hi = (seeds >> 32) & _MASK32
     key = _mix32(_mix32(_mix32(lo ^ 0x9E3779B9) ^ hi)
                  ^ (counters & _MASK32))
-    idx = _mix32(torch.arange(vocab, device=seeds.device) + 0x85EBCA6B)
+    idx = _mix32(torch.arange(n, device=seeds.device) + 0x85EBCA6B)
     h = _mix32(key[:, None] ^ idx[None, :])
-    u = ((h >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
-    return -torch.log(-torch.log(u))
+    return ((h >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
+
+
+def gumbel_noise(seeds: torch.Tensor, counters: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """``[N, vocab]`` f32 standard Gumbel noise from the uniforms of
+    :func:`uniform_noise` at (``seeds[n]``, ``counters[n]``)."""
+    return -torch.log(-torch.log(uniform_noise(seeds, counters, vocab)))
 
 
 def device_sample(logits: torch.Tensor, temps: torch.Tensor,
@@ -227,3 +242,109 @@ class DeviceSampler:
         self.tokens.copy_(toks)
         self.counters += drew
         return toks
+
+    def masked_probs(self, logits: torch.Tensor) -> torch.Tensor:
+        """The laws a slot draws from, over a ``[S, W, V]`` verify window:
+        each slot's temperature, top-k and top-p applied at every window
+        position (:func:`masked_logits`, a greedy slot at temperature 1),
+        then the softmax.  Port of ``DeviceSampler._masked_probs``."""
+        S, W, V = logits.shape
+        temps = torch.where(self.temps <= 0.0, torch.ones_like(self.temps),
+                            self.temps)
+        z = masked_logits(logits.reshape(S * W, V).float(),
+                          temps.repeat_interleave(W),
+                          self.top_ks.repeat_interleave(W),
+                          self.top_ps.repeat_interleave(W))
+        return torch.softmax(z, dim=-1).reshape(S, W, V)
+
+    def accept_speculative(self, target_logits: torch.Tensor,
+                           draft_logits: torch.Tensor,
+                           draft_tokens: torch.Tensor, cap: torch.Tensor,
+                           active: torch.Tensor, draft_sampler
+                           ) -> "tuple[torch.Tensor, torch.Tensor]":
+        """Rejection-sampling acceptance of one speculative round, on the
+        device with no host read (it runs inside the verify program).
+
+        ``target_logits``/``draft_logits`` ``[S, W, V]`` score the window
+        (position ``i`` scores the token after input ``i``, W = k + 1);
+        ``draft_tokens`` ``[S, k]`` are the round's proposals, ``cap``
+        ``[S]`` int32 the most tokens a slot may emit this round (its
+        token budget and cache room), ``active`` ``[S]`` int32 the running
+        slots.  Returns ``(emitted [S, W] int32, m [S] int32)``:
+        ``emitted[:m]`` is the round's stream, ``1 <= m <= max(cap, 1)``.
+
+        A greedy slot accepts a proposal iff it is the target argmax and
+        emits the argmax on rejection, so every token it emits is the
+        target argmax at its position: speculative greedy output is the
+        plain engine's.  A sampling slot accepts proposal ``i`` with
+        probability ``min(1, p_t/p_d)`` and on rejection draws from the
+        normalised residual ``max(p_t - p_d, 0)``; past the last proposal
+        it draws the bonus from ``p_t`` (the draft's mass there is zeroed,
+        so one formula covers both); a residual with no mass (identical
+        laws) falls back to ``p_t``.  Every emitted position is marginally
+        the target law, and truncating the stream to ``cap`` keeps that.
+
+        Where the randomness comes from.  A slot's counter ``c`` is the
+        number of tokens it has emitted (the plain engine's rule, which
+        ``Engine._restore_lanes`` rebuilds), and window position ``i``
+        decides emitted token ``c + i``.  Its acceptance uniform and its
+        resample Gumbel noise are drawn at counter ``c + i`` under the
+        seeds ``seed ^ ACCEPT_SEED_SALT`` and ``seed ^ RESAMPLE_SEED_SALT``;
+        the draft drew proposal ``i`` at its own counter ``c + i`` under
+        ``seed ^ DRAFT_SEED_SALT``.  The tokens emitted this round are
+        decided by the draws at positions ``0 .. m-1`` alone (position
+        ``m-1`` is the first rejection or the bonus; the acceptance
+        uniforms past it only move ``n_acc`` past the cap or the first
+        rejection, which no emitted token reads).  The counter then
+        advances by ``m`` in both samplers, so the next round starts at
+        ``c + m`` and never reuses a draw that decided an emitted token:
+        the draws it does reuse (positions ``m ..`` of this round) decided
+        nothing that was emitted, so given everything emitted they are
+        still fresh.  A seeded round replays the same from the same lanes.
+
+        Writes the pending token (``emitted[m-1]``) into both samplers'
+        token lanes and the advanced counter into both counter lanes."""
+        S, W, V = target_logits.shape
+        k = W - 1
+        dev = target_logits.device
+        greedy = self.temps <= 0.0
+        tl = target_logits.float()
+        pt = self.masked_probs(tl)
+        pd = draft_sampler.masked_probs(draft_logits.float())
+        # no proposal at position k: zero draft mass makes the residual
+        # there the target law itself (the bonus draw)
+        pd = torch.cat([pd[:, :k], torch.zeros_like(pd[:, k:])], dim=1)
+        g = torch.argmax(tl, dim=-1).to(torch.int32)            # [S, W]
+        dt = draft_tokens.long()[..., None]
+        pt_d = pt[:, :k].gather(2, dt)[..., 0]
+        pd_d = pd[:, :k].gather(2, dt)[..., 0]
+        counters = self.counters[:, None] + torch.arange(W, device=dev)
+        u = uniform_noise((self.seeds ^ ACCEPT_SEED_SALT)
+                          .repeat_interleave(k),
+                          counters[:, :k].reshape(-1), 1).reshape(S, k)
+        ratio = pt_d / pd_d.clamp_min(1e-30)
+        accept = torch.where(greedy[:, None],
+                             draft_tokens.to(torch.int32) == g[:, :k],
+                             u < ratio.clamp_max(1.0))
+        n_acc = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1)
+        res = (pt - pd).clamp_min(0.0)
+        res = torch.where(res.sum(dim=-1, keepdim=True) <= 0.0, pt, res)
+        noise = gumbel_noise((self.seeds ^ RESAMPLE_SEED_SALT)
+                             .repeat_interleave(W),
+                             counters.reshape(-1), V).reshape(S, W, V)
+        # log(0) is -inf: a token outside the residual's support never wins
+        rep = torch.argmax(torch.log(res) + noise, dim=-1).to(torch.int32)
+        rep = torch.where(greedy[:, None], g, rep)
+        d_pad = torch.cat([draft_tokens.to(torch.int32),
+                           torch.zeros_like(draft_tokens[:, :1],
+                                            dtype=torch.int32)], dim=1)
+        idx = torch.arange(W, device=dev)[None, :]
+        emitted = torch.where(idx < n_acc[:, None], d_pad, rep)
+        m = torch.minimum(n_acc.to(torch.int32) + 1,
+                          cap.to(torch.int32).clamp_min(1))
+        pend = emitted.gather(1, (m - 1).long()[:, None])[:, 0]
+        self.tokens.copy_(pend)
+        draft_sampler.tokens.copy_(pend)
+        self.counters += m * active
+        draft_sampler.counters.copy_(self.counters)
+        return emitted, m

@@ -14,6 +14,15 @@ with ``torch.profiler``:
   is taken without the profiler, on a like request admitted before any
   tracing (the profiler slows the host).
 
+- ``--rounds`` speculative rounds (``chip_smoke.py``'s serve_spec
+  engine over the same model: paged, max_seq 2048, k 4, a draft of
+  JackFram/llama-68m's shape) with all 8 slots running, traced as the
+  decode steps are, and split by part: the device ms of the round's
+  draft-decode programs and of its verify program (CUDA events around
+  each program call), and of the acceptance alone (the verify's
+  ``accept_speculative`` at its shapes, captured into a graph of its own
+  and replayed).
+
 For each it prints one JSON line: host wall time per step (synchronised),
 device busy time per step (the union of kernel intervals), the idle
 share, the device launches per step (kernels the profiler saw, those of
@@ -28,6 +37,7 @@ kernels.  No phase falls back to the CPU.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import sys
 import time
@@ -155,9 +165,87 @@ def trace(fn, n_steps: int, plain=None, enqueue=None) -> dict:
     }
 
 
+def acceptance_ms(eng) -> float:
+    """Device ms of one round's acceptance at ``eng``'s verify shapes
+    (``[slots, k+1, vocab]`` f32 logits of both models), on samplers
+    staged like the serve_spec traffic's (greedy, temperature, top-k,
+    top-p in turn), captured into a CUDA graph and replayed."""
+    from paddle_tpu_torch.serving import DeviceSampler
+
+    S, W, V = eng.num_slots, eng.spec.k + 1, eng.config.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tl, dl = (torch.randn((S, W, V), generator=gen, device="cuda")
+              for _ in range(2))
+    props = torch.randint(0, V, (S, W - 1), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    cap = torch.full((S,), W, dtype=torch.int32, device="cuda")
+    active = torch.ones(S, dtype=torch.int32, device="cuda")
+    tgt, drf = (DeviceSampler(S, device="cuda") for _ in range(2))
+    laws = chip_smoke.sampling_laws(0)
+    for slot in range(S):
+        tgt.stage_slot(slot, laws[slot % len(laws)], slot)
+        drf.stage_slot(slot, laws[slot % len(laws)], slot + 100)
+
+    def accept():
+        tgt.accept_speculative(tl, dl, props, cap, active, drf)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        accept()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        accept()
+    return chip_smoke.cuda_ms(graph.replay)
+
+
+def profile_rounds(model, card: str, n_rounds: int) -> None:
+    """serve_spec's engine over ``model`` with its 8 slots running: the
+    rounds traced, and each split into draft steps, verify and
+    acceptance."""
+    from paddle_tpu_torch.serving import Engine, SpecConfig
+
+    eng = Engine(model, **chip_smoke.SPEC_ENGINE,
+                 speculation=SpecConfig(
+                     draft_model=chip_smoke.spec_draft_68m(
+                         "cuda", torch.bfloat16), k=chip_smoke.SPEC_K))
+    eng.warmup()
+    reqs = chip_smoke.make_requests(eng.config.vocab_size, 8, 512,
+                                    chip_smoke.PAGED_TAILS, seed=0)
+    for p, smp in reqs:
+        eng.add_request(p, sampling=smp, max_new_tokens=400)
+    for _ in range(3):
+        eng.step()
+    if len(eng.running) != 8:
+        raise RuntimeError(f"expected 8 running slots, got "
+                           f"{len(eng.running)}")
+    calls = chip_smoke.record_programs(eng)
+    rounds0 = eng.metrics.spec_rounds
+    accepted0 = eng.metrics.spec_accepted
+    for _ in range(n_rounds):
+        eng.step()
+    by_kind = chip_smoke.program_ms(calls)
+    del eng.programs.run
+    n = eng.metrics.spec_rounds - rounds0
+    traced = trace(eng.step, n_rounds)
+    print(json.dumps({
+        "phase": "spec_rounds", "card": card, "k": eng.spec.k,
+        "draft": "llama-68m shape", "active_slots": 8,
+        "accepted_per_round": (eng.metrics.spec_accepted - accepted0) / n,
+        "split_ms_per_round": {
+            "draft_steps": by_kind["draft_decode"]["ms"] / n,
+            "verify": by_kind["verify"]["ms"] / n,
+            "acceptance_in_verify": acceptance_ms(eng)},
+        **traced}), flush=True)
+    if eng.stats()["compile_cache"]["after_warmup"] != 0:
+        raise RuntimeError("a program was built after warmup")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--rounds", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
@@ -238,6 +326,11 @@ def main() -> int:
                       "compile_cache": cc}), flush=True)
     if cc["after_warmup"] != 0:
         raise RuntimeError(f"step programs built after warmup: {cc}")
+    model = eng.model
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_rounds(model, card, args.rounds)
     print(card)
     return 0
 

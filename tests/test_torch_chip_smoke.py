@@ -410,3 +410,84 @@ def test_sigkill_drill_on_tiny_cpu(tmp_path):
     assert res["killed_by"] == 9 and res["replayed"] == 3
     assert res["continues_sent"] and res["sent_tokens"] > 0
     assert res["launches"] == {n: 0 for n in kernels.KERNELS}
+
+
+def test_serve_spec_phase_on_tiny_cpu():
+    """serve_spec's drive at its own geometry (serve_paged's traffic, 8
+    slots, max_seq 2048, k 4) over ``llama_tiny`` with an independent
+    1-layer draft: the speculation counters, a clean pool, every program
+    built at warmup, and the greedy streams equal to the plain engine's
+    (f32 on the CPU: no near-tie parts them)."""
+    model = _tiny_llama(0)
+    draft = LlamaForCausalLM(llama_tiny(num_hidden_layers=1,
+                                        max_position_embeddings=2048),
+                             device="cpu",
+                             generator=torch.Generator().manual_seed(1)
+                             ).eval()
+    reqs = chip_smoke.make_requests(128, 12, 512, chip_smoke.PAGED_TAILS,
+                                    seed=0)
+    plain = chip_smoke.serve(create_engine(
+        model, device="cpu", **{**chip_smoke.SPEC_ENGINE}), reqs, 8)
+    eng, res = chip_smoke.run_serve_spec(model, draft, reqs, 8,
+                                         plain["outputs"])
+    assert res["greedy"] == {"greedy_requests": 3, "equal_share": 1.0,
+                             "first_divergence": None}
+    sp = res["speculation"]
+    assert sp["k"] == chip_smoke.SPEC_K and sp["rounds"] > 0
+    assert sp["draft_steps"] == chip_smoke.SPEC_K * sp["rounds"]
+    assert res["compile_cache"]["misses"] == 2 * len(eng.buckets) + 2
+    assert res["allocator"] == {"invariants": "ok", "blocks_in_use": 0}
+    assert res["device_ms_per_round"] is None       # no CUDA events here
+    assert res["launches"] == {n: 0 for n in kernels.KERNELS}
+
+
+def test_greedy_agreement_names_the_first_divergence():
+    from paddle_tpu_torch.serving import SamplingParams
+
+    g, t = SamplingParams(), SamplingParams(temperature=1.0, seed=1)
+    reqs = [([1], g), ([2], t), ([3], g)]
+    out = chip_smoke.greedy_agreement(reqs, [[1, 2], [5], [7, 8, 9]],
+                                      [[1, 2], [6], [7, 0, 9]])
+    assert out == {"greedy_requests": 2, "equal_share": 0.5,
+                   "first_divergence": {"request": 2, "token": 1}}
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+@pytest.mark.parametrize("family", ["llama", "gpt"])
+def test_spec_parity_phase_on_tiny_cpu(family, layout):
+    """spec_parity's drive: greedy speculative streams (an independent
+    1-layer draft, and the target as its own) equal the plain engine's,
+    the last request retiring on capacity past max_seq."""
+    cfg = dict(max_position_embeddings=256)
+    gen = torch.Generator().manual_seed(1)
+    dgen = torch.Generator().manual_seed(2)
+    if family == "llama":
+        model = LlamaForCausalLM(llama_tiny(**cfg), device="cpu",
+                                 generator=gen).eval()
+        draft = LlamaForCausalLM(llama_tiny(num_hidden_layers=1, **cfg),
+                                 device="cpu", generator=dgen).eval()
+    else:
+        model = GPTForCausalLM(gpt_tiny(**cfg), device="cpu",
+                               generator=gen).eval()
+        draft = GPTForCausalLM(gpt_tiny(num_hidden_layers=1, **cfg),
+                               device="cpu", generator=dgen).eval()
+    reqs = chip_smoke.spec_parity_requests(128, 256, seed=3)
+    assert len(reqs[-1][0]) == 253
+    for d in (draft, model):
+        res = chip_smoke.drive_spec_parity(model, d, layout, reqs, 12,
+                                           num_slots=4, max_seq=256,
+                                           min_bucket=16, block_size=16)
+        chip_smoke.check_spec_parity(res, f"{family}, {layout}")
+        assert len(res["spec"][-1]) == 4       # 253 + 3 = max_seq
+
+
+def test_ticket_replay_on_cpu():
+    """The ticket drive's order and comparisons (on the CPU the programs
+    run their bodies, and K4's plain version runs)."""
+    res = chip_smoke.ticket_replay(torch.device("cpu"), torch.float32,
+                                   lengths=[30, 7, 0], H=4, Hkv=2, D=8,
+                                   bs=8, max_seq=32)
+    assert [c[:2] for c in res["calls"]] == [
+        ("decode", "capture"), ("verify", "capture"), ("decode", "replay"),
+        ("verify", "replay"), ("decode", "replay")]
+    assert res["all_equal"] and res["tickets_nonzero"] == 0

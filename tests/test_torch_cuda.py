@@ -15,6 +15,9 @@ the plain version's largest value: 1e-4 in f32, 2e-2 in bf16 (the bf16
 K2/K3 run on tensor cores and round p and ds where the plain versions
 do).
 """
+import dataclasses
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -29,7 +32,9 @@ from paddle_tpu_torch.ops.attention import (
     _flash_bwd_dkv_reference, _flash_bwd_dq_reference, _sdpa_reference,
     flash_attention,
 )
-from paddle_tpu_torch.serving import Engine, RequestJournal, SamplingParams
+from paddle_tpu_torch.serving import (
+    Engine, RequestJournal, SamplingParams, SpecConfig,
+)
 
 
 @pytest.fixture
@@ -831,3 +836,113 @@ def test_recovered_streams_equal_eager_bodies(cuda_device, layout,
     assert [r.output_ids for r in info["requests"]] == eager
     assert journal.audit()["pending"] == 0
     assert eng.stats()["compile_cache"]["after_warmup"] == 0
+
+
+# -- speculative decoding ----------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("hkv", [8, 2])
+def test_verify_route_matches_plain(cuda_device, dtype, tol, hkv):
+    """The paged verify window as ``slots·W`` K4 rows against the plain
+    ``verify_attention`` over the gathered pool, one window past the
+    table's end, at head dim 64."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    res = chip_smoke.check_verify_route(g, dtype, lengths=[250, 61, 17, 0],
+                                        H=8, Hkv=hkv, D=64, max_seq=256)
+    assert res["err"] <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_spec_greedy_equals_plain(cuda_device, family, layout):
+    """Greedy requests through the speculating engine's graphs (a 1-layer
+    draft, and the target as its own) equal the plain engine's streams in
+    f32; no program is built after warmup and the pool ends clean."""
+    model = _small_model(family, cuda_device)
+    cfg = model.config
+    draft = type(model)(dataclasses.replace(cfg, num_hidden_layers=1),
+                        device=cuda_device,
+                        generator=torch.Generator(
+                            device=cuda_device).manual_seed(2)).eval()
+    reqs = chip_smoke.spec_parity_requests(cfg.vocab_size, 256, seed=4)
+    for d in (draft, model):
+        res = chip_smoke.drive_spec_parity(model, d, layout, reqs, 10,
+                                           **_ENGINE_KW)
+        chip_smoke.check_spec_parity(res, f"{family}, {layout}")
+        assert res["compile_cache"]["after_warmup"] == 0
+        assert len(res["spec"][-1]) == 4           # retired at max_seq
+        if layout == "paged":
+            assert res["launches"]["paged_decode"] > 0
+
+
+@pytest.mark.cuda
+def test_decode_verify_ticket_reuse_across_replays(cuda_device):
+    """K4's tickets: a decode graph, then a verify graph whose first call
+    outgrows the decode's buffer, replayed decode → verify → decode, each
+    bitwise equal to an eager call; every ticket is 0 after."""
+    res = chip_smoke.ticket_replay(cuda_device, torch.bfloat16,
+                                   lengths=[250, 61, 17, 0], H=8, Hkv=2,
+                                   D=64, max_seq=256)
+    assert res["all_equal"], res["calls"]
+    assert res["tickets_nonzero"] == 0
+
+
+@pytest.mark.cuda
+def test_spec_round_retry_restores_replayed_lanes(cuda_device):
+    """A verify replay that fails after it ran (its lanes moved) is retried
+    as a whole round: the seeded and greedy streams equal an engine's that
+    never failed."""
+    model = _small_model("llama", cuda_device)
+    draft = _small_model("llama", cuda_device, seed=3)
+    reqs = chip_smoke.make_requests(512, 3, 20, [3, 30, 17], seed=6)
+
+    def serve(fail):
+        eng = Engine(model, kv_layout="paged", **_ENGINE_KW,
+                     speculation=SpecConfig(draft_model=draft, k=3))
+        eng.warmup()
+        run, verifies = eng.programs.run, []
+
+        def flaky(key, body, *inputs):
+            out = run(key, body, *inputs)
+            if key == ("verify",):
+                verifies.append(key)
+                # the first round's verify, and the second round's (the
+                # first round's retry is the second call)
+                if fail and len(verifies) in (1, 3):
+                    raise RuntimeError("injected after the replay")
+            return out
+
+        eng.programs.run = flaky
+        rs_ = [eng.add_request(p, sampling=s, max_new_tokens=9)
+               for p, s in reqs]
+        eng.run()
+        assert all(r.finished for r in rs_)
+        return [r.output_ids for r in rs_], eng.stats()
+
+    want, _ = serve(False)
+    got, st = serve(True)
+    assert got == want
+    assert st["failures"]["retries_by_point"] == {"serving.spec_round": 2}
+    assert st["compile_cache"]["after_warmup"] == 0
+
+
+@pytest.mark.cuda
+def test_capture_runs_with_the_cyclic_collector_paused(cuda_device):
+    """A program's first call runs its body eagerly with the collector on,
+    then captures it with the collector off (a graph freed inside a
+    capture invalidates it), and turns the collector back on."""
+    from paddle_tpu_torch.serving.programs import StepPrograms
+
+    seen = []
+
+    def body(x):
+        seen.append(gc.isenabled())
+        return x * 2
+
+    progs = StepPrograms(cuda_device, lambda miss: None)
+    out = progs.run(("double",), body, np.ones(4, dtype=np.float32))
+    assert seen == [True, False] and gc.isenabled()
+    assert out.cpu().tolist() == [2.0] * 4

@@ -115,6 +115,30 @@ Phases, each printing one JSON line with the card's name and power limit:
               ``max_seq`` until it retires on capacity; and Llama-2 7B at
               full depth in f32 with the llama-68m-shaped draft, four
               greedy streams of 32 tokens.
+17. serve_tenancy — serve_paged's Llama-2 7B (after serve_spec) and
+              engine with 4 LoRA adapter lanes of rank 16 (``t1``-``t3``
+              loaded from seeds 1-3, factors N(0, 0.05)) and the bounded
+              JSON grammar (eos 2): (a) serve_paged's 12 requests with no
+              tenant, streams bitwise the plain engine's, the two served
+              in turns (ITL, TTFT, tokens/s); (b) the same prompts round
+              robin over base, ``t1``-``t3`` and json, greedy and at
+              temperature 0.8: per-tenant TTFT and ITL, tokens/s, K4/K5
+              launches, every json stream accepted by the grammar's
+              oracle, the base greedy stream the plain engine's; (c) the
+              prefix probe sees each tenant's domain and no other; (d) a
+              hot swap and an unload mid-flight fail their requests with
+              the JAX engine's ``error_ctx``, move no lane and build no
+              program, and the reloaded v1 factors give the v1 streams
+              back (swap ms).  It fails on a program built after warmup
+              and unless the pool audits clean.
+18. tenancy_parity — f32, 2 layers, both widths, paged and contiguous:
+              lanes-off streams equal the plain engine's; a speculating
+              tenancy engine (1-layer independent draft, k 3) gives the
+              non-speculative greedy streams for base, ``t1`` and json; a
+              preempted low ``t1`` request resumes to its stream alone;
+              programs failing before and after they ran, with json and
+              ``t1`` in flight, give the streams alone; a journaled engine
+              dropped after 2 tokens recovers the tenant streams.
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
 ``{"kernels": [...]}`` line (each kernel's ``launches`` on its main path,
@@ -1029,7 +1053,8 @@ def serve_bodies(engine, requests, max_new_tokens: int):
     as :func:`drive_paged` calls the model: every request is staged into
     slot ``i`` and prefilled from position 0 (no prefix reuse), then all
     decode together until each has ``max_new_tokens``.  The engine's
-    programs are never run.  Returns the token streams in request
+    programs are never run (a tenancy engine's adapter lane is staged
+    too).  Returns the token streams in request
     order."""
     from paddle_tpu_torch.serving import Request
 
@@ -1044,6 +1069,8 @@ def serve_bodies(engine, requests, max_new_tokens: int):
         req = Request(np.asarray(prompt), max_new_tokens, law,
                       request_id=slot)
         engine.sampler.stage_slot(slot, law, engine._seed_for(req))
+        if engine.adapter_pool is not None:
+            engine.adapter_pool.stage_slot(slot, law.adapter)
         L = len(prompt)
         bucket = engine.bucket_for(L)
         if paged and not engine.cache.begin_sequence(slot, [], 0, bucket):
@@ -2232,6 +2259,17 @@ def greedy_agreement(requests, streams, reference) -> dict:
             "first_divergence": first}
 
 
+def pool_audit(engine, phase: str) -> dict:
+    """The paged pool after a phase's run: its invariants hold and no
+    block is in use, or the phase fails."""
+    audit = engine.cache.check_invariants()
+    used = engine.cache.allocator.stats()["used"]
+    if audit or used:
+        raise AssertionError(f"{phase}: pool after the run: {audit}, "
+                             f"{used} blocks in use")
+    return {"invariants": "ok", "blocks_in_use": used}
+
+
 def run_serve_spec(model, draft, requests, max_new_tokens: int, reference,
                    **engine_kw) -> tuple:
     """A paged speculating engine (``SPEC_ENGINE`` updated by
@@ -2254,14 +2292,9 @@ def run_serve_spec(model, draft, requests, max_new_tokens: int, reference,
     st = eng.stats()
     spec = st["speculation"]
     rounds = max(spec["rounds"], 1)
-    audit = eng.cache.check_invariants()
-    used = eng.cache.allocator.stats()["used"]
-    if audit or used:
-        raise AssertionError(f"serve_spec: pool after the run: {audit}, "
-                             f"{used} blocks in use")
     res.update({
         "speculation": spec,
-        "allocator": {"invariants": audit or "ok", "blocks_in_use": used},
+        "allocator": pool_audit(eng, "serve_spec"),
         "programs_ms": by_kind,
         "device_ms_per_round": (None if not by_kind else {
             "draft_steps": by_kind.get("draft_decode", {}).get("ms", 0.0)
@@ -2554,6 +2587,482 @@ def phase_spec_parity() -> None:
         torch.cuda.empty_cache()
 
 
+# -- phases 17 and 18: multi-tenant serving ----------------------------------
+
+#: serve_tenancy's adapter pool: 4 lanes of rank 16 beside the base lane
+TENANCY_ADAPTERS = dict(max_adapters=4, rank=16)
+#: the adapters' factors are drawn N(0, 0.05) (``make_lora_weights``), so
+#: that a delta ``(x @ A) @ B`` is of the order of a projection's output
+#: at these widths and every greedy stream under an adapter parts from
+#: the base model's (the default 0.02 moves the logits far less)
+TENANCY_SCALE = 0.05
+#: the tenants of the mixed traffic, round robin: base, three adapters,
+#: the JSON grammar
+TENANTS = (None, "t1", "t2", "t3", "json")
+
+
+def tenancy_engine(model, eos: int, scale: float = TENANCY_SCALE,
+                   **engine_kw):
+    """An engine over ``model`` with ``TENANCY_ADAPTERS`` and the bounded
+    JSON grammar (``eos`` its stop token), warmed, then ``t1``-``t3``
+    loaded from seeds 1-3 at ``init_scale=scale`` (written in place after
+    the capture)."""
+    from paddle_tpu_torch.serving import (
+        Engine, JsonArrayGrammar, make_lora_weights,
+    )
+
+    eng = Engine(model, **engine_kw, adapters=TENANCY_ADAPTERS,
+                 grammars={"json": JsonArrayGrammar(eos_token_id=eos)})
+    eng.warmup()
+    for i, name in enumerate(("t1", "t2", "t3"), start=1):
+        eng.load_adapter(name, make_lora_weights(
+            eng.adapter_pool, seed=i, init_scale=scale))
+    return eng
+
+
+def tenant_law(tenant, law):
+    """``law`` (a ``SamplingParams``) under ``tenant``: an adapter's name,
+    ``"json"`` (the grammar) or None (the base model)."""
+    if tenant == "json":
+        return dataclasses.replace(law, grammar="json")
+    return dataclasses.replace(law, adapter=tenant)
+
+
+def mixed_requests(requests, seed: int):
+    """``requests``' prompts round robin over ``TENANTS``, greedy and at
+    temperature 0.8 (seeded) in turn: ``(prompt, tenant, law)``."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    out = []
+    for i, (prompt, _) in enumerate(requests):
+        law = (SamplingParams() if i % 2 == 0
+               else SamplingParams(temperature=0.8, seed=seed + i))
+        tenant = TENANTS[i % len(TENANTS)]
+        out.append((prompt, tenant, tenant_law(tenant, law)))
+    return out
+
+
+def serve_mixed(engine, mixed, max_new_tokens: int) -> dict:
+    """Serve ``mixed`` (``mixed_requests``) on the warmed tenancy
+    ``engine`` from a cold prefix cache.  Every stream must finish, the
+    JSON ones accepted by the grammar's oracle (they stop at its eos), the
+    others at ``max_new_tokens``.  Returns per-tenant TTFT and client ITL
+    (the gaps between a stream's tokens at its callback), the run's
+    tokens/s, launches and streams."""
+    from paddle_tpu_torch.ops import kernels
+
+    spec = engine.grammar_table.spec_of("json")
+    vocab = engine.config.vocab_size
+    if engine.prefix_cache is not None:
+        engine.prefix_cache.clear()
+    m = engine.metrics
+    tokens0, time0 = m.decode_tokens, m.decode_time_s
+    stamps = {}
+
+    def cb(tok, req):
+        stamps.setdefault(req.request_id, []).append(time.perf_counter())
+
+    cuda = engine.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    reqs = [engine.add_request(p, sampling=law, stream_cb=cb,
+                               max_new_tokens=max_new_tokens)
+            for p, _, law in mixed]
+    engine.run()
+    if cuda:
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    problems = []
+    by = {}
+    for (_, tenant, law), r in zip(mixed, reqs):
+        label = r.tenant
+        if r.state != "finished":
+            problems.append(f"request {r.request_id} ({label}) {r.state}: "
+                            f"{r.error}")
+        elif tenant == "json":
+            if not spec.accepts(r.output_ids, vocab):
+                problems.append(f"json stream {r.output_ids} rejected")
+        elif len(r.output_ids) != max_new_tokens:
+            problems.append(f"request {r.request_id} ({label}): "
+                            f"{len(r.output_ids)} tokens")
+        ts = stamps.get(r.request_id, [])
+        d = by.setdefault(label, {"ttft": [], "gaps": [], "tokens": 0})
+        d["ttft"].append(r.ttft_s)
+        d["gaps"] += [b - a for a, b in zip(ts, ts[1:])]
+        d["tokens"] += len(r.output_ids)
+    if problems:
+        raise AssertionError("serve_tenancy (mixed): " + "; ".join(problems))
+    st = engine.stats()
+    return {"per_tenant": {
+                t: {"requests": len(d["ttft"]), "tokens": d["tokens"],
+                    "ttft": _percentiles(d["ttft"]),
+                    "client_itl": _percentiles(d["gaps"])}
+                for t, d in sorted(by.items())},
+            "decode_tokens_per_sec": round(
+                (m.decode_tokens - tokens0) / (m.decode_time_s - time0), 2),
+            "tenants": st["tenants"]["by_tenant"],
+            "launches": launches,
+            "outputs": [r.output_ids for r in reqs]}
+
+
+def salted_domains(engine, system, prompt) -> dict:
+    """``system`` was served under every tenant; ``prompt`` is served now
+    under ``t1`` alone.  The prefix probe must see ``system`` in each
+    adapter's domain and the base one, and ``prompt`` in ``t1``'s only."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    r = engine.add_request(prompt, max_new_tokens=2,
+                           sampling=SamplingParams(adapter="t1"))
+    engine.run()
+    res = {"system": {str(t): engine.prefix_probe(system + [0], adapter=t)
+                      for t in (None, "t1", "t2", "t3")},
+           "t1_only": {str(t): engine.prefix_probe(prompt, adapter=t)
+                       for t in (None, "t1", "t2", "t3")}}
+    if r.state != "finished" or min(res["system"].values()) <= 0 or \
+            res["t1_only"]["t1"] <= 0 or any(
+                v for t, v in res["t1_only"].items() if t != "t1"):
+        raise AssertionError(f"serve_tenancy (salted domains): {res}")
+    return res
+
+
+def tenant_swaps(engine, prompt, max_new_tokens: int,
+                 scale: float = TENANCY_SCALE) -> dict:
+    """On the idle tenancy ``engine``: ``prompt``'s greedy stream under
+    the base model and under ``t1``-``t3`` (each adapter's must part from
+    the base's and from the others'); a ``t1`` request hot-swapped
+    mid-flight (to seed 4's factors) and a ``t2`` request unloaded
+    mid-flight must fail with the JAX engine's ``error_ctx``; reloading
+    the v1 factors must give the v1 streams back.  No lane may move and
+    no program may be built."""
+    from paddle_tpu_torch.serving import SamplingParams, make_lora_weights
+
+    pool = engine.adapter_pool
+    ptrs, misses = pool._lane_ptrs(), engine.metrics.compile_misses
+    cuda = engine.device.type == "cuda"
+
+    def stream(tenant):
+        # from a cold prefix cache: every stream prefills the same way
+        if engine.prefix_cache is not None:
+            engine.prefix_cache.clear()
+        r = engine.add_request(prompt, max_new_tokens=max_new_tokens,
+                               sampling=tenant_law(tenant, SamplingParams()))
+        engine.run()
+        return r.output_ids
+
+    def timed(fn, *args):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, round((time.perf_counter() - t0) * 1e3, 3)
+
+    base = stream(None)
+    v1 = {t: stream(t) for t in ("t1", "t2", "t3")}
+    differ = all(s != base for s in v1.values()) and \
+        len({tuple(s) for s in v1.values()}) == 3
+    r1 = engine.add_request(prompt, max_new_tokens=4 * max_new_tokens,
+                            sampling=SamplingParams(adapter="t1"))
+    engine.step()
+    engine.step()
+    t4 = make_lora_weights(pool, seed=4, init_scale=scale)
+    swap_v, swap_ms = timed(engine.load_adapter, "t1", t4)
+    r2 = engine.add_request(prompt, max_new_tokens=4 * max_new_tokens,
+                            sampling=SamplingParams(adapter="t2"))
+    engine.step()
+    unload_v, unload_ms = timed(engine.unload_adapter, "t2")
+    swapped = stream("t1")
+    for i, name in ((1, "t1"), (2, "t2")):
+        engine.load_adapter(name, make_lora_weights(
+            pool, seed=i, init_scale=scale))
+    back = {t: stream(t) for t in ("t1", "t2")}
+    engine.run()
+    res = {"adapters_differ_from_base": differ,
+           "hot_swap": {"state": r1.state, "error_ctx": r1.error_ctx,
+                        "new_version": swap_v, "ms": swap_ms,
+                        "new_stream_differs": swapped != v1["t1"]},
+           "unload": {"state": r2.state, "error_ctx": r2.error_ctx,
+                      "version": unload_v, "ms": unload_ms},
+           "v1_back": {t: back[t] == v1[t] for t in back},
+           "versions": pool.loaded,
+           "lanes_moved": pool._lane_ptrs() != ptrs,
+           "new_programs": engine.metrics.compile_misses - misses,
+           "after_warmup": engine.stats()["compile_cache"]["after_warmup"]}
+    problems = []
+    if not differ:
+        problems.append(f"adapter streams {v1} vs base {base}")
+    if r1.state != "failed" or r1.error_ctx != {"adapter": "t1",
+                                                "version": 1}:
+        problems.append(f"hot swap left {r1.state} {r1.error_ctx}")
+    if r2.state != "failed" or r2.error_ctx != {"adapter": "t2",
+                                                "version": 1}:
+        problems.append(f"unload left {r2.state} {r2.error_ctx}")
+    if not res["hot_swap"]["new_stream_differs"]:
+        problems.append("the swapped-in factors gave the v1 stream")
+    if not all(res["v1_back"].values()):
+        problems.append(f"reloaded v1 factors gave {back}, not {v1}")
+    if res["versions"] != {"t1": 3, "t2": 2, "t3": 1}:
+        problems.append(f"versions {res['versions']}")
+    if res["lanes_moved"] or res["new_programs"] or res["after_warmup"]:
+        problems.append(f"lanes moved {res['lanes_moved']}, "
+                        f"{res['new_programs']} new programs")
+    if problems:
+        raise AssertionError("serve_tenancy (swaps): " + "; ".join(problems))
+    return res
+
+
+def run_serve_tenancy(model, requests, max_new_tokens: int, eos: int,
+                      scale: float = TENANCY_SCALE, **engine_kw) -> dict:
+    """serve_tenancy's four checks over ``model`` with ``engine_kw``:
+    (a) ``requests`` with no tenant through a plain engine and a tenancy
+    engine (lanes loaded, none selected) in turns (plain, tenancy,
+    tenancy, plain), each from a cold prefix cache (``timed_run``):
+    every stream bitwise the
+    plain's; (b) the same prompts over ``TENANTS`` (``serve_mixed``), the
+    base greedy stream bitwise the plain's; (c) ``salted_domains``; (d)
+    ``tenant_swaps``.  Returns the figures."""
+    from paddle_tpu_torch.serving import Engine
+
+    plain = Engine(model, **engine_kw)
+    plain.warmup()
+    ten = tenancy_engine(model, eos, scale, **engine_kw)
+    runs = {"plain": [], "lanes_off": []}
+    for eng in (plain, ten, ten, plain):
+        res = timed_run(eng, requests, max_new_tokens)
+        runs["plain" if eng is plain else "lanes_off"].append(res)
+    base = runs["plain"][0]["outputs"]
+    bitwise = all(r["outputs"] == base for rs in runs.values() for r in rs)
+    if not bitwise:
+        raise AssertionError("serve_tenancy (lanes off): streams differ from "
+                             "the plain engine's")
+    del plain
+    gc.collect()
+    if ten.device.type == "cuda":
+        torch.cuda.empty_cache()
+    mixed = mixed_requests(requests, seed=7)
+    mix = serve_mixed(ten, mixed, max_new_tokens)
+    if mix["outputs"][0] != base[0]:
+        raise AssertionError("serve_tenancy (mixed): the base greedy stream "
+                             "differs from the plain engine's")
+    system = os.path.commonprefix([p for p, _ in requests])
+    rs = np.random.RandomState(5)
+    fresh = rs.randint(0, model.config.vocab_size, (64,)).tolist()
+    salts = salted_domains(ten, system, fresh)
+    swaps = tenant_swaps(ten, requests[0][0], 16, scale)
+    audit = (pool_audit(ten, "serve_tenancy") if ten.kv_layout == "paged"
+             else None)
+    st = ten.stats()
+    if st["compile_cache"]["after_warmup"] != 0:
+        raise AssertionError(f"serve_tenancy: programs built after warmup: "
+                             f"{st['compile_cache']}")
+    summary = {k: [{f: r[f] for f in ("ttft_p50_ms", "itl", "client_itl",
+                                      "decode_tokens_per_sec")}
+                   for r in rs_] for k, rs_ in runs.items()}
+    return {"lanes_off": {"bitwise_plain": bitwise, "turns": summary},
+            "mixed": {k: v for k, v in mix.items() if k != "outputs"},
+            "salted_domains": salts, "swaps": swaps, "allocator": audit,
+            "lanes_gb": round(ten.adapter_pool.nbytes() / 2 ** 30, 3),
+            "compile_cache": st["compile_cache"],
+            "tenancy": st["tenancy"], "launches": mix["launches"]}
+
+
+def phase_serve_tenancy(model) -> dict:
+    """serve_paged's Llama-2 7B and engine, with 4 adapter lanes of rank
+    16 and the JSON grammar (eos 2): serve_paged's 12 requests with lanes
+    off against the plain engine, then mixed over the tenants; salted
+    prefix domains; a hot swap and an unload mid-flight.  Returns the
+    mixed run's launches."""
+    reqs = make_requests(model.config.vocab_size, 12, 512, PAGED_TAILS,
+                         seed=0)
+    res = run_serve_tenancy(model, reqs, 64, eos=2, kv_layout="paged",
+                            block_size=16, min_bucket=16, num_slots=8)
+    for name in ("paged_decode", "paged_prefill"):
+        if res["launches"][name] < 1:
+            raise AssertionError(f"serve_tenancy did not run {name}: "
+                                 f"{res['launches']}")
+    emit("serve_tenancy", model="llama2-7b", dtype="bfloat16",
+         adapters=TENANCY_ADAPTERS, init_scale=TENANCY_SCALE,
+         grammar="JsonArrayGrammar(eos_token_id=2)", **res)
+    return res["launches"]
+
+
+def drive_tenancy_parity(model, layout: str, draft, eos: int,
+                         **engine_kw) -> dict:
+    """f32 tenancy on one engine geometry (2 slots): the lanes-off streams
+    against a plain engine's; a speculating tenancy engine (``draft``,
+    k 3) against the plain tenancy engine's greedy streams for base,
+    ``t1`` and json; a low ``t1`` request preempted by a high one, against
+    its stream alone; ``json`` and ``t1`` requests while programs fail
+    before and after they ran, against their streams alone; a journaled
+    engine dropped after 2 tokens and recovered, against the same
+    requests served uninterrupted on the recovering engine from a cold
+    prefix cache.  Each reference is served twice and the second kept: it
+    takes the prefix hits the checked run takes (paged), so both prefill
+    alike.  Returns what each gave and what it should have."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import (
+        Engine, RequestJournal, SamplingParams, SpecConfig,
+    )
+
+    kw = dict(kv_layout=layout, num_slots=2, **engine_kw)
+    vocab = model.config.vocab_size
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(0, vocab, (n,)).tolist() for n in (40, 70, 23)]
+    greedy = SamplingParams()
+    json_len = 2 + 3 * 3                     # JsonArrayGrammar's max_tokens
+
+    def one(eng, prompt, tenant, **req):
+        r = eng.add_request(prompt, sampling=tenant_law(tenant, greedy),
+                            max_new_tokens=json_len if tenant == "json"
+                            else 12, **req)
+        eng.run()
+        return r
+
+    def streams(eng):
+        for _ in range(2):
+            out = {t: [one(eng, p, t).output_ids for p in prompts]
+                   for t in (None, "t1", "json")}
+        return out
+
+    out = {}
+    kernels.reset_launches()
+    plain = Engine(model, **kw)
+    plain.warmup()
+    ten = tenancy_engine(model, eos, max_preemptions=2,
+                         priority_aging_s=30, **kw)
+    alone = streams(ten)
+    for _ in range(2):
+        base = [one(plain, p, None).output_ids for p in prompts]
+    out["lanes_off"] = (base, alone[None])
+    spec = tenancy_engine(model, eos, speculation=SpecConfig(
+        draft_model=draft, k=3), **kw)
+    out["spec"] = (streams(spec), alone)
+    out["spec_rounds"] = spec.stats()["speculation"]["rounds"]
+    del spec, plain
+    # preemption: two low t1 requests running, a high base one arrives
+    lo = [ten.add_request(p, max_new_tokens=12, priority="low",
+                          sampling=tenant_law("t1", greedy))
+          for p in prompts[:2]]
+    ten.step()
+    ten.step()
+    hi = ten.add_request(prompts[2], max_new_tokens=4, priority="high")
+    ten.run()
+    out["preempt"] = ([r.output_ids for r in lo], alone["t1"][:2])
+    out["preempted"] = [r.preemptions for r in lo] + [hi.state]
+    # programs failing before and after they ran, json and t1 in flight
+    run, calls = ten.programs.run, {}
+    faults = {("prefill", 2): "after", ("decode", 2): "before",
+              ("decode", 5): "after"}
+
+    def flaky(key, body, *inputs):
+        calls[key[0]] = calls.get(key[0], 0) + 1
+        when = faults.get((key[0], calls[key[0]]))
+        if when == "before":
+            raise RuntimeError(f"injected fault before {key}")
+        res = run(key, body, *inputs)
+        if when == "after":
+            raise RuntimeError(f"injected fault after {key}")
+        return res
+
+    before = ten.stats()["failures"]["step_retries"]
+    ten.programs.run = flaky
+    try:
+        rj = ten.add_request(prompts[0], max_new_tokens=json_len,
+                             sampling=tenant_law("json", greedy))
+        rt = ten.add_request(prompts[1], max_new_tokens=12,
+                             sampling=tenant_law("t1", greedy))
+        ten.run()
+    finally:
+        del ten.programs.run
+    out["retry"] = ([rj.output_ids, rt.output_ids],
+                    [alone["json"][0], alone["t1"][1]])
+    out["retries"] = ten.stats()["failures"]["step_retries"] - before
+    out["after_warmup"] = ten.stats()["compile_cache"]["after_warmup"]
+    out["audit"] = (ten.cache.check_invariants() or "ok"
+                    if layout == "paged" else "ok")
+    del ten
+    # a journaled engine dropped after 2 tokens, recovered by a new one
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "journal")
+        crashed = tenancy_engine(model, eos, journal=RequestJournal(path),
+                                 **kw)
+        reqs = [crashed.add_request(prompts[1], max_new_tokens=12,
+                                    sampling=tenant_law("t1", greedy)),
+                crashed.add_request(prompts[0], max_new_tokens=json_len,
+                                    sampling=tenant_law("json", greedy))]
+        while any(len(r.output_ids) < 2 for r in reqs):
+            crashed.step()
+        del reqs, crashed
+        rec = tenancy_engine(model, eos, journal=RequestJournal(path), **kw)
+        info = rec.recover()
+        rec.run()
+        if rec.prefix_cache is not None:
+            rec.prefix_cache.clear()
+        out["recovery"] = ([r.output_ids for r in info["requests"]],
+                           [one(rec, prompts[1], "t1").output_ids,
+                            one(rec, prompts[0], "json").output_ids])
+        out["recovered"] = (info["replayed"], len(info["invalid"]),
+                            rec.journal.audit()["pending"])
+        out["after_warmup"] += rec.stats()["compile_cache"]["after_warmup"]
+        rec.journal.close()
+        del rec
+    out["launches"] = kernels.launch_counts()
+    return out
+
+
+def check_tenancy_parity(res: dict, label: str) -> None:
+    problems = [f"{k}: {res[k][0]} != {res[k][1]}"
+                for k in ("lanes_off", "spec", "preempt", "retry",
+                          "recovery") if res[k][0] != res[k][1]]
+    if res["spec_rounds"] < 1:
+        problems.append("no speculative round ran")
+    if res["preempted"][-1] != "finished" or not any(res["preempted"][:2]):
+        problems.append(f"preemptions {res['preempted']}")
+    if res["retries"] != 3:
+        problems.append(f"{res['retries']} retries, want 3")
+    if res["recovered"] != (2, 0, 0):
+        problems.append(f"recovery (replayed, invalid, pending) "
+                        f"{res['recovered']}")
+    if res["after_warmup"] != 0 or res["audit"] != "ok":
+        problems.append(f"after warmup {res['after_warmup']}, pool "
+                        f"{res['audit']}")
+    if problems:
+        raise AssertionError(f"tenancy_parity ({label}): "
+                             + "; ".join(problems))
+
+
+def phase_tenancy_parity() -> None:
+    """f32, 2 layers, Llama-2 7B's and GPT-2 345M's widths, paged and
+    contiguous: ``drive_tenancy_parity`` with an independent 1-layer
+    draft of the same width."""
+    for label, build in parity_models():
+        model = build()
+        cfg = model.config
+        dgen = torch.Generator(device="cuda").manual_seed(2)
+        draft = type(model)(dataclasses.replace(cfg, num_hidden_layers=1),
+                            device="cuda", dtype=torch.float32,
+                            generator=dgen).eval()
+        for layout in ("paged", "contiguous"):
+            res = drive_tenancy_parity(model, layout, draft, eos=2,
+                                       max_seq=256, min_bucket=16,
+                                       block_size=16)
+            check_tenancy_parity(res, f"{label}, {layout}")
+            want = ("paged_decode", "paged_prefill") if layout == "paged" \
+                else ("flash_fwd",)
+            if any(res["launches"][k] < 1 for k in want):
+                raise AssertionError(f"tenancy_parity ({label}, {layout}) "
+                                     f"did not launch {want}: "
+                                     f"{res['launches']}")
+            emit("tenancy_parity", model=label, dtype="float32",
+                 layout=layout, identical=True,
+                 spec_rounds=res["spec_rounds"],
+                 preempted=res["preempted"], retries=res["retries"],
+                 recovered=res["recovered"], launches=res["launches"])
+        del model, draft
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # -- phases 12, 13 and 14: training ----------------------------------------
 
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -2805,12 +3314,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     spec = phase_serve_spec(model, paged["outputs"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    tenancy = phase_serve_tenancy(model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     drill = phase_sigkill_drill()
     phase_overload_parity()
     phase_spec_parity()
+    phase_tenancy_parity()
     train = phase_train()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2823,6 +3336,7 @@ def main() -> int:
     by_phase = {"serve_paged": paged["launches"],
                 "serve_durable": durable["launches"],
                 "serve_spec": spec,
+                "serve_tenancy": tenancy,
                 "sigkill_drill": drill["launches"],
                 "train": train["launches"]}
     kernels_line = [{**rec, "launches": launches[name],

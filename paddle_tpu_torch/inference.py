@@ -21,7 +21,8 @@ def create_engine(config, *, device="cuda", dtype=torch.float32,
     journals every accepted request for ``Engine.recover``;
     ``speculation`` (a :class:`~.serving.SpecConfig`) serves in
     speculative rounds; ``engine_kwargs`` go to :class:`Engine`
-    (``kv_layout``, ``block_size``, ``num_slots``, ...)."""
+    (``kv_layout``, ``block_size``, ``num_slots``, ``adapters``,
+    ``grammars``, ...)."""
     return Engine.from_config(config, device=device, dtype=dtype, seed=seed,
                               journal=journal, speculation=speculation,
                               **engine_kwargs)

@@ -1,11 +1,14 @@
 """Continuous-batching serving of the port: engine, caches, sampling,
-the overload regime, the request tracer, the request journal and
-speculative decoding."""
+the overload regime, the request tracer, the request journal,
+speculative decoding and multi-tenant serving (LoRA adapter lanes,
+grammar-constrained decoding)."""
+from .adapters import AdapterConfig, AdapterPool, make_lora_weights
 from .engine import (
     PRIORITY_HIGH, PRIORITY_LOW, PRIORITY_NORMAL, Engine, EngineStopped,
     QueueFull, Request, ShedReject,
 )
 from .journal import JournalCorrupt, RequestJournal
+from .grammar import GrammarTable, JsonArrayGrammar
 from .kv_cache import CacheContext, KVCache
 from .metrics import ServingMetrics
 from .paging import BlockAllocator, PagedCacheContext, PagedKVCache
@@ -22,5 +25,6 @@ __all__ = ["Engine", "Request", "QueueFull", "ShedReject", "EngineStopped",
            "BlockAllocator", "PagedCacheContext", "PagedKVCache",
            "PrefixCache", "DeviceSampler", "SamplingParams",
            "ServingMetrics", "SpecConfig", "SpecState", "RequestTracer",
-           "NULL_TRACER",
-           "FlightRecorder", "validate_trace"]
+           "NULL_TRACER", "FlightRecorder", "validate_trace",
+           "AdapterConfig", "AdapterPool", "make_lora_weights",
+           "GrammarTable", "JsonArrayGrammar"]

@@ -71,10 +71,24 @@ runs after the target's at each admission.  A round's retry rewinds all
 token and counter lanes to the target's), a preemption falls between
 rounds, and the journal gets one token record per round.
 
+Multi-tenant serving, as in the JAX engine (``adapters=``, an
+:class:`~.adapters.AdapterConfig` or its keywords; ``grammars=``, a dict
+of grammar specs): per-request LoRA
+adapters (``SamplingParams.adapter``) through per-target factor lanes and
+a per-slot id lane that the decoder layers' linears read through forward
+hooks, constrained decoding (``SamplingParams.grammar``) through token
+masks and a per-slot automaton state lane in the sampler, per-tenant SLO
+accounting (``stats()["tenants"]``), the prefix cache salted per adapter
+version, and :meth:`Engine.load_adapter`/:meth:`Engine.unload_adapter`
+writing lane rows in place under the CUDA graphs (a hot swap or an unload
+fails the adapter's in-flight requests with ``error_ctx``).  Every lane
+is data the programs read: one set of programs serves every tenant mix,
+and with no tenant selected the streams are the plain engine's, bitwise.
+
 The opt-in subsystems of the JAX engine that are not part of this port
-yet: adapters and grammars (ROADMAP.md A.3 step 5), fault plans, the
-sanitizer and the watchdog (step 6), the prefix-lookup timeout,
-``Fleet`` (step 7) and the mesh (step 8).
+yet: fault plans, the sanitizer and the watchdog (ROADMAP.md A.3 step
+6), the prefix-lookup timeout, ``Fleet`` (step 7) and the mesh (step 8),
+with it the sharded tenancy of ``TestShardedTenancy``.
 """
 from __future__ import annotations
 
@@ -91,6 +105,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .adapters import AdapterConfig, AdapterPool
+from .grammar import GrammarTable
 from .kv_cache import CacheContext, KVCache
 from .metrics import ServingMetrics
 from .programs import StepPrograms
@@ -248,6 +264,13 @@ class Request:
     recovered: bool = False
     #: weight version the engine held when this request was admitted
     model_version: int = 0
+    #: tenant label for SLO accounting: the adapter's name, else
+    #: ``"grammar:<name>"``, else ``"base"``
+    tenant: str = "base"
+    #: the adapter version pinned at enqueue (None without an adapter): a
+    #: hot swap or unload of that adapter fails the request, and recovery
+    #: replays it onto that version only
+    adapter_version: Optional[int] = None
     error: Optional[str] = None
     #: machine-readable context of a backpressure or shed rejection
     #: (``{"depth": int, "retry_after_s": float}``)
@@ -356,10 +379,20 @@ class Engine:
         speculation: a :class:`~.spec_decode.SpecConfig`: serve in
             speculative rounds (draft propose, one verify step, acceptance
             on the device).  ``None`` decodes one token a step.
-        adapters, grammars, step_timeout_s, fault_plan, mesh: not
-            ported; anything but ``None`` raises ``NotImplementedError``
-            naming its ROADMAP.md item (and so does a speculating engine
-            under ``PADDLE_TPU_SANITIZE``).
+        adapters: an :class:`~.adapters.AdapterConfig` (or its keywords
+            as a dict): LoRA adapter lanes hooked into the decoder layers'
+            linears; requests pick a loaded adapter by
+            ``SamplingParams.adapter``.  ``None`` adds no hook.
+        grammars: a dict of grammar name to spec
+            (:class:`~.grammar.JsonArrayGrammar`), stacked into a
+            :class:`~.grammar.GrammarTable` at the model's vocabulary on
+            its device: constrained decoding;
+            requests pick one by ``SamplingParams.grammar``.  ``None``
+            adds no grammar lane.
+        step_timeout_s, fault_plan, mesh: not ported; anything but
+            ``None`` raises ``NotImplementedError`` naming its ROADMAP.md
+            item (and so does a speculating engine under
+            ``PADDLE_TPU_SANITIZE``).
     """
 
     def __init__(self, model: nn.Module, *, num_slots: int = 4,
@@ -385,8 +418,6 @@ class Engine:
                  adapters=None, grammars=None, step_timeout_s=None,
                  fault_plan=None, mesh=None):
         for what, value, item in (
-                ("adapters", adapters, "A.3 step 5, tenancy"),
-                ("grammars", grammars, "A.3 step 5, tenancy"),
                 ("step_timeout_s", step_timeout_s,
                  "A.3 step 6, the step watchdog"),
                 ("fault_plan", fault_plan, "A.3 step 6, fault plans"),
@@ -479,7 +510,23 @@ class Engine:
                                            else int(speculation.k)))
         self.name = name or f"engine-{next(_engine_counter)}"
         self.metrics = ServingMetrics(self.name, num_slots=self.num_slots)
-        self.sampler = DeviceSampler(self.num_slots, device=self.device)
+        # constrained decoding: the grammars' stacked tables, which the
+        # sampler masks with inside the steps; None adds no lane
+        self.grammar_table: Optional[GrammarTable] = None
+        if grammars is not None:
+            self.grammar_table = GrammarTable(cfg.vocab_size, grammars,
+                                              device=self.device)
+        self.sampler = DeviceSampler(self.num_slots, device=self.device,
+                                     grammar=self.grammar_table)
+        # multi-LoRA: the adapter lanes and the per-slot id lane, hooked
+        # into the decoder layers' linears; None adds no hook
+        self.adapter_pool: Optional[AdapterPool] = None
+        if adapters is not None:
+            acfg = (adapters if isinstance(adapters, AdapterConfig)
+                    else AdapterConfig(**dict(adapters)))
+            self.adapter_pool = AdapterPool(
+                self.model, self.num_slots, max_adapters=acfg.max_adapters,
+                rank=acfg.rank)
         self.programs = StepPrograms(self.device, self.metrics.on_compile)
         self._warm_misses: Optional[int] = None
         self.queue: deque = deque()
@@ -558,7 +605,15 @@ class Engine:
                                     start=start)
         else:
             ctx = CacheContext(self.cache, "prefill", slot=slot)
-        logits = self.model(ids, cache_ctx=ctx)
+        pool = self.adapter_pool
+        if pool is not None:
+            # the slot's adapter lane: a [1] row id read on the device
+            pool.set_rows(pool.adapter_ids.index_select(0, slot.long()))
+        try:
+            logits = self.model(ids, cache_ctx=ctx)
+        finally:
+            if pool is not None:
+                pool.clear_rows()
         self.cache.set_length(slot, length)
         last = logits[0].index_select(0, (length - start - 1).long())
         return self.sampler.sample_slot(slot.long(), last.float())
@@ -570,8 +625,15 @@ class Engine:
         counter moves.  Returns the sampled ``[slots]`` int32 tokens (also
         written into the token lane)."""
         tokens = self.sampler.tokens[:, None].long()
-        logits = self.model(tokens, cache_ctx=CacheContext(self.cache,
-                                                           "decode"))
+        pool = self.adapter_pool
+        if pool is not None:
+            pool.set_rows(pool.adapter_ids)      # every slot's lane at once
+        try:
+            logits = self.model(tokens, cache_ctx=CacheContext(self.cache,
+                                                               "decode"))
+        finally:
+            if pool is not None:
+                pool.clear_rows()
         self.cache.advance(active)
         return self.sampler.sample_all(logits[:, -1, :].float(), active)
 
@@ -579,23 +641,32 @@ class Engine:
         """Rewrite the ``[slots]`` lanes a decode writes in place as the
         last successful step left them, from the host's bookkeeping: a
         running slot's length is its request's ``_seq_len``, its token
-        the request's last emitted token (the next decode's input) and
-        its draw counter the number of tokens it emitted (one draw each);
-        an idle slot's are 0.  Whether the failed call ran or not, the
-        retry then writes the same K/V rows at the same positions and
-        draws at the same counters.  Host-to-device copies only, on the
-        retry path alone."""
+        the request's last emitted token (the next decode's input), its
+        draw counter the number of tokens it emitted (one draw each) and,
+        with grammars, its automaton state the host's walk of its grammar
+        over those tokens; an idle slot's are 0.  Whether the failed call
+        ran or not, the retry then writes the same K/V rows at the same
+        positions and draws at the same counters from the same states.
+        Host-to-device copies only, on the retry path alone."""
         n = self.num_slots
         lengths = np.zeros(n, dtype=np.int32)
         tokens = np.zeros(n, dtype=np.int32)
         counters = np.zeros(n, dtype=np.int64)
+        states = np.zeros(n, dtype=np.int32)
+        gt = self.grammar_table
         for slot, req in self.running.items():
             lengths[slot] = req._seq_len
             tokens[slot] = req.output_ids[-1]
             counters[slot] = len(req.output_ids)
-        for lane, values in ((self.cache.lengths, lengths),
-                             (self.sampler.tokens, tokens),
-                             (self.sampler.counters, counters)):
+            if gt is not None:
+                states[slot] = gt.walk(gt.gid_of(req.sampling.grammar),
+                                       req.output_ids)
+        lanes = [(self.cache.lengths, lengths),
+                 (self.sampler.tokens, tokens),
+                 (self.sampler.counters, counters)]
+        if gt is not None:
+            lanes.append((self.sampler.grammar_states, states))
+        for lane, values in lanes:
             src = torch.from_numpy(values)
             if lane.is_cuda:
                 src = src.pin_memory()
@@ -730,6 +801,29 @@ class Engine:
                 return (f"prompt needs {need} KV blocks (bucket {bucket}, "
                         f"block_size {self.block_size}) but the pool "
                         f"holds {usable}")
+        s = req.sampling
+        if s.adapter is not None:
+            if self.adapter_pool is None:
+                return (f"sampling.adapter={s.adapter!r} but this engine "
+                        "has no adapter pool (Engine(adapters=...))")
+            try:
+                self.adapter_pool.resolve(s.adapter)
+            except KeyError as e:
+                return e.args[0]
+        if s.grammar is not None:
+            if self.grammar_table is None:
+                return (f"sampling.grammar={s.grammar!r} but this engine "
+                        "has no grammar table (Engine(grammars=...))")
+            try:
+                spec = self.grammar_table.spec_of(s.grammar)
+            except KeyError as e:
+                return e.args[0]
+            g_eos = getattr(spec, "eos_token_id", None)
+            if (g_eos is not None and req.eos_token_id is not None
+                    and req.eos_token_id != g_eos):
+                return (f"grammar {s.grammar!r} terminates on eos token "
+                        f"{g_eos} but the request sets "
+                        f"eos_token_id={req.eos_token_id}")
         return None
 
     def _reject(self, req: Request, reason: str) -> None:
@@ -784,6 +878,20 @@ class Engine:
                       deadline_s=(deadline_s if deadline_s is not None
                                   else self.default_deadline_s),
                       priority=prio, request_id=next(self._req_counter))
+        # the tenant label (adapter, else grammar, else base)
+        req.tenant = (sampling.adapter if sampling.adapter is not None
+                      else (f"grammar:{sampling.grammar}"
+                            if sampling.grammar is not None else "base"))
+        if (sampling.grammar is not None and req.eos_token_id is None
+                and self.grammar_table is not None):
+            # a grammar ends on its own eos token: the request's stop
+            # condition defaults to it (a mismatch is rejected in
+            # _validate)
+            try:
+                spec = self.grammar_table.spec_of(sampling.grammar)
+                req.eos_token_id = getattr(spec, "eos_token_id", None)
+            except KeyError:
+                pass                     # an unknown grammar: _validate
         req.t_enqueue = time.perf_counter()
         origin_wall = None
         jr = self.journal
@@ -806,6 +914,12 @@ class Engine:
             err = ValueError(problem)
             err.request = req
             raise err
+        if sampling.adapter is not None:
+            # the adapter version is pinned at enqueue: a hot swap or an
+            # unload of this name fails the request, and a recovery
+            # replays it onto this version only
+            req.adapter_version = self.adapter_pool.resolve(
+                sampling.adapter)[1]
         wait = None if req.recovered else self._shed_wait_s(req)
         if wait is not None:
             depth = len(self.queue)
@@ -846,18 +960,24 @@ class Engine:
             # request is queued.  A failing write must not leave the
             # engine serving a request its caller was told failed
             s = req.sampling
+            samp = {"temperature": s.temperature, "top_k": s.top_k,
+                    "top_p": s.top_p, "seed": s.seed}
+            # the tenancy keys go in only when set: a base request's
+            # record is as it was before tenancy, and as the JAX engine's
+            if s.adapter is not None:
+                samp["adapter"] = s.adapter
+            if s.grammar is not None:
+                samp["grammar"] = s.grammar
             try:
                 jr.record_admission(
                     req.journal_id, prompt_ids=req.prompt_ids,
-                    sampling={"temperature": s.temperature,
-                              "top_k": s.top_k, "top_p": s.top_p,
-                              "seed": s.seed},
-                    seed_effective=self._seed_for(req),
+                    sampling=samp, seed_effective=self._seed_for(req),
                     priority=req.priority, deadline_s=req.deadline_s,
                     max_new_tokens=req.max_new_tokens,
                     eos_token_id=req.eos_token_id, engine=self.name,
                     model_version=self.model_version,
-                    recovered=req.recovered, mesh_shape=self.mesh_shape)
+                    recovered=req.recovered, mesh_shape=self.mesh_shape,
+                    adapter_version=req.adapter_version)
             except Exception as e:       # noqa: BLE001 — storage failure
                 req.journal_id = None    # nothing durable to audit
                 self._reject(req, f"journal admission write failed: "
@@ -920,6 +1040,8 @@ class Engine:
                         "verify"]
         self.cache.reset()
         self.sampler.reset()
+        if self.adapter_pool is not None:
+            self.adapter_pool.reset_slots()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._warm_misses = self.metrics.compile_misses
@@ -1086,7 +1208,8 @@ class Engine:
         slot = victim.slot
         if self.prefix_cache is not None:
             self.prefix_cache.register(victim.prompt_ids,
-                                       self.cache.owned_blocks(slot))
+                                       self.cache.owned_blocks(slot),
+                                       salt=self._tenant_salt(victim))
         try:
             self.cache.release_slot(slot)
         except Exception as e:           # noqa: BLE001 — accounting bug
@@ -1118,15 +1241,54 @@ class Engine:
 
     # -- admission ---------------------------------------------------------
 
+    def _tenant_salt(self, req: Request) -> bytes:
+        """The prefix-cache salt of ``req``'s adapter (``b""`` for the base
+        model): tenant K/V never hits across adapters or versions.  A name
+        unloaded since still salts a domain of its own."""
+        a = req.sampling.adapter
+        if a is None or self.adapter_pool is None:
+            return b""
+        try:
+            return self.adapter_pool.salt(a)
+        except KeyError:
+            v = self.adapter_pool.last_version(a)
+            return f"{a}@v{v}#unloaded".encode()
+
     def _prefix_lookup(self, req: Request):
         if self.prefix_cache is None:
             return 0, []
-        return self.prefix_cache.lookup(req.prompt_ids, count=False)
+        return self.prefix_cache.lookup(req.prompt_ids, count=False,
+                                        salt=self._tenant_salt(req))
 
     def _stage(self, req: Request) -> None:
         """Stage the request's sampling lanes into its slot: its
-        parameters, its seed and a zero draw counter."""
+        parameters, its seed, a zero draw counter and, with grammars, its
+        grammar id at state 0."""
         self.sampler.stage_slot(req.slot, req.sampling, self._seed_for(req))
+
+    def _stage_adapter(self, req: Request) -> bool:
+        """Write the slot's adapter lane id.  A request whose adapter was
+        unloaded, or hot-swapped past its pinned version, since its
+        enqueue fails here with ``error_ctx`` (False) instead of decoding
+        under other weights."""
+        a = req.sampling.adapter
+        try:
+            if a is not None and req.adapter_version is not None:
+                _, v = self.adapter_pool.resolve(a)
+                if v != req.adapter_version:
+                    raise KeyError(
+                        f"adapter {a!r} was hot-swapped to v{v} (request "
+                        f"pinned v{req.adapter_version})")
+            self.adapter_pool.stage_slot(req.slot, a)
+        except KeyError as e:
+            req.error_ctx = {
+                "adapter": a,
+                "version": (req.adapter_version
+                            if req.adapter_version is not None
+                            else self.adapter_pool.last_version(a))}
+            self._retire(req, "failed", error=str(e.args[0]))
+            return False
+        return True
 
     def _prefill_call(self, req: Request, ids: np.ndarray, L: int,
                       start: int = 0) -> Optional[torch.Tensor]:
@@ -1174,7 +1336,8 @@ class Engine:
             return "failed", None, bucket, P
         if self.prefix_cache is not None:
             self.prefix_cache.register(req.prompt_ids,
-                                       self.cache.owned_blocks(req.slot))
+                                       self.cache.owned_blocks(req.slot),
+                                       salt=self._tenant_salt(req))
         return "ok", tok, bucket, P
 
     def _admit(self, req: Request) -> Optional[bool]:
@@ -1192,6 +1355,8 @@ class Engine:
         t0 = time.perf_counter()
         prefix_hit = 0
         self._stage(req)
+        if self.adapter_pool is not None and not self._stage_adapter(req):
+            return None
         if self.kv_layout == "paged":
             status, tok_t, bucket, prefix_hit = self._paged_prefill(req, L)
             if status == "deferred":
@@ -1225,7 +1390,7 @@ class Engine:
                                        {req.journal_id: tok})
         if not self._emit_token(req, tok, now):
             return None
-        self.metrics.on_first_token(req.ttft_s)
+        self.metrics.on_first_token(req.ttft_s, tenant=req.tenant)
         if self._done_after_emit(req):
             self._retire(req)
         return None
@@ -1308,11 +1473,12 @@ class Engine:
             if self.spec is not None:
                 self.spec.release_slot(slot)
         if state == "finished":
-            self.metrics.on_complete()
+            self.metrics.on_complete(tenant=req.tenant,
+                                     n_tokens=len(req.output_ids))
         elif state == "cancelled":
             self.metrics.on_cancel()
         elif state == "failed":
-            self.metrics.on_fail()
+            self.metrics.on_fail(tenant=req.tenant)
         self.tracer.on_retired(req, self.name, state, req.error)
         if self.journal is not None and req.journal_id is not None:
             # a request a fleet router owns ends only its attempt here
@@ -1746,14 +1912,11 @@ class Engine:
                 journal.begin_attempt(jid, recovered=True,
                                       origin_wall=rec.get("wall"))
                 try:
-                    self._validate_replay_tenancy(s)
+                    self._validate_replay_tenancy(rec, s)
                     r = self.add_request(
                         rec["prompt_ids"],
                         max_new_tokens=rec["max_new_tokens"],
-                        sampling=SamplingParams(
-                            temperature=s["temperature"],
-                            top_k=s["top_k"], top_p=s["top_p"],
-                            seed=s["seed"]),
+                        sampling=SamplingParams(**s),
                         eos_token_id=rec["eos_token_id"],
                         deadline_s=rec["deadline_s"],
                         priority=rec["priority"])
@@ -1785,16 +1948,43 @@ class Engine:
                 "cross_mesh": sum(len(v) for v in cross.values()),
                 "outcomes": outcomes}
 
-    @staticmethod
-    def _validate_replay_tenancy(s: dict) -> None:
-        """A journaled adapter or grammar cannot replay here: the port
-        has neither (ROADMAP.md A.3 step 5).  Raises ValueError, which
-        fails that request finally in :meth:`recover`."""
-        for what in ("adapter", "grammar"):
-            if s.get(what) is not None:
-                raise ValueError(
-                    f"journaled {what} {s[what]!r}: adapters and grammars "
-                    f"are not ported (ROADMAP.md A.3 step 5)")
+    def _validate_replay_tenancy(self, rec: dict, s: dict) -> None:
+        """The replay gate of a journaled tenant request: its adapter must
+        be loaded here at the journaled version (other weights would serve
+        other tokens than the crashed run promised) and its grammar must
+        be registered.  Raises ValueError (with ``error_ctx`` for an
+        adapter), which fails that request finally in :meth:`recover`."""
+        a = s.get("adapter")
+        if a is not None:
+            want = rec.get("adapter_version")
+            msg = None
+            if self.adapter_pool is None:
+                msg = (f"journaled adapter {a!r} but this engine has no "
+                       "adapter pool")
+            else:
+                try:
+                    _, v = self.adapter_pool.resolve(a)
+                except KeyError:
+                    v = None
+                if v is None:
+                    msg = (f"journaled adapter {a!r} (v{want}) is not "
+                           "loaded on the recovering engine")
+                elif want is not None and v != want:
+                    msg = (f"journaled adapter {a!r} v{want} != loaded "
+                           f"v{v}: bitwise replay impossible")
+            if msg is not None:
+                e = ValueError(msg)
+                e.error_ctx = {"adapter": a, "version": want}
+                raise e
+        g = s.get("grammar")
+        if g is not None:
+            if self.grammar_table is None:
+                raise ValueError(f"journaled grammar {g!r} but this engine "
+                                 "has no grammar table")
+            try:
+                self.grammar_table.spec_of(g)
+            except KeyError as e:
+                raise ValueError(e.args[0]) from None
 
     def update_weights(self, state_or_path) -> int:
         """Swap the model's weights in place on an idle engine.
@@ -1832,6 +2022,84 @@ class Engine:
         if self.journal is not None:
             self.journal.record_weight_swap(self.name, self.model_version)
         return self.model_version
+
+    # -- multi-LoRA adapter lifecycle ----------------------------------------
+
+    def _fail_adapter_inflight(self, name: str, why: str) -> int:
+        """Fail every queued and running request of adapter ``name`` with
+        ``error_ctx = {"adapter", "version"}``: a lane about to be zeroed
+        or overwritten must not go on serving a request pinned to the old
+        version (a torn mix of two adapters).  Runs between programs.
+        Returns how many requests failed."""
+        v = self.adapter_pool.last_version(name)
+        failed = 0
+        for q in [q for q in self.queue if q.sampling.adapter == name]:
+            self.queue.remove(q)
+            q.error_ctx = {"adapter": name, "version": v}
+            self._retire(q, "failed", error=f"adapter {name!r} {why} "
+                                            f"while queued (was v{v})")
+            failed += 1
+        for r in [r for r in self.running.values()
+                  if r.sampling.adapter == name]:
+            r.error_ctx = {"adapter": name, "version": v}
+            self._retire(r, "failed", error=f"adapter {name!r} {why} "
+                                            f"mid-flight (was v{v})")
+            failed += 1
+        self.metrics.queue_depth = len(self.queue)
+        return failed
+
+    def _require_pool(self) -> AdapterPool:
+        if self.adapter_pool is None:
+            raise RuntimeError(f"engine {self.name!r} has no adapter pool "
+                               "(construct with Engine(adapters=...))")
+        return self.adapter_pool
+
+    def load_adapter(self, name: str, weights, *,
+                     scale: float = 1.0) -> int:
+        """Load (or hot-swap) LoRA adapter ``name`` into a lane: ``weights``
+        maps every target's module path to its ``(A [in, rank], B [rank,
+        out])`` pair (:func:`~.adapters.make_lora_weights`), ``scale`` is
+        folded into B.  The lane rows are written in place on the stream
+        the programs replay on, which is synchronised, so every program
+        built at warmup stays valid and none is built.  A hot swap first
+        fails the adapter's in-flight requests.  Bumps the name's version
+        (retiring its prefix-cache salt) and returns it."""
+        pool = self._require_pool()
+        if name in pool.loaded:
+            self._fail_adapter_inflight(name, "hot-swapped")
+        _lane, version = pool.load(name, weights, scale=scale)
+        self.metrics.on_adapter_load()
+        self.tracer.on_adapter_load(self.name, name, version)
+        return version
+
+    def unload_adapter(self, name: str) -> int:
+        """Unload adapter ``name``: fail its in-flight requests (with
+        ``error_ctx``), zero its lane in place and free it.  The name's
+        version survives for a later load, so the unloaded version's salt
+        is never minted again.  Returns the unloaded version."""
+        pool = self._require_pool()
+        pool.resolve(name)               # KeyError if not loaded
+        self._fail_adapter_inflight(name, "unloaded")
+        version = pool.unload(name)
+        self.metrics.on_adapter_unload()
+        self.tracer.on_adapter_unload(self.name, name, version)
+        return version
+
+    def prefix_probe(self, prompt_ids: Sequence[int],
+                     adapter: Optional[str] = None) -> int:
+        """The longest prompt prefix, in tokens, this engine's prefix
+        cache holds in ``adapter``'s domain (the base model's for None),
+        with no side effect.  0 for the contiguous layout, without a
+        prefix cache, or for an adapter not loaded."""
+        if self.prefix_cache is None:
+            return 0
+        salt = b""
+        if adapter is not None and self.adapter_pool is not None:
+            try:
+                salt = self.adapter_pool.salt(adapter)
+            except KeyError:
+                return 0
+        return self.prefix_cache.probe(prompt_ids, salt=salt)
 
     # -- introspection -----------------------------------------------------
 
@@ -1883,6 +2151,13 @@ class Engine:
         snap["health"] = self.health()
         snap["paging"] = (self._paging_snapshot()
                           if self.kv_layout == "paged" else None)
+        if self.adapter_pool is not None or self.grammar_table is not None:
+            pool, gt = self.adapter_pool, self.grammar_table
+            snap["tenancy"] = {
+                "adapters": pool.loaded if pool is not None else {},
+                "adapter_lanes": (pool.max_adapters if pool is not None
+                                  else 0),
+                "grammars": list(gt.names) if gt is not None else []}
         if self.journal is not None:
             snap["durability"]["journal"] = self.journal.stats()
         if self.tracer.enabled:

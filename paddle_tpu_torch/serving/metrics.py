@@ -6,8 +6,11 @@ and the failure-path and overload counters (cancelled, rejected and
 deadline-expired requests, step failures and retries by point,
 preemptions and sheds), and the durability counters (requests recovered
 from a journal, the outcomes banked from it, weight swaps and the
-model version), and the speculative rounds' counters (rounds, draft and
-verify steps, proposed and accepted draft tokens).
+model version), the speculative rounds' counters (rounds, draft and
+verify steps, proposed and accepted draft tokens), and the per-tenant
+section (``tenants``: TTFT, completed, failed and tokens by tenant label,
+the adapter name, ``"grammar:<name>"`` or ``"base"``; adapter loads and
+unloads).
 
 A slice of ``paddle_tpu/serving/metrics.py``.  Times are host clock
 (``perf_counter``) around work that ends in a device synchronisation: a
@@ -19,7 +22,7 @@ from __future__ import annotations
 import copy
 import time
 from collections import deque
-from typing import Dict
+from typing import Dict, Optional
 
 __all__ = ["ServingMetrics"]
 
@@ -91,6 +94,11 @@ class ServingMetrics:
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_cb = None
+        # multi-tenant serving: per-tenant SLO accounting (a tenant shows
+        # at its first request) and the adapter lifecycle counters
+        self.tenants: Dict[str, dict] = {}
+        self.adapter_loads = 0
+        self.adapter_unloads = 0
         self.ttft_s: deque = deque(maxlen=_LATENCY_WINDOW)
         self.itl_s: deque = deque(maxlen=_LATENCY_WINDOW)
         self._occupancy_sum = 0.0
@@ -109,8 +117,19 @@ class ServingMetrics:
             self.prefills_by_bucket.get(bucket, 0) + 1
         self.queue_depth = depth
 
-    def on_first_token(self, ttft_s: float) -> None:
+    def _tenant(self, tenant: str) -> dict:
+        t = self.tenants.get(tenant)
+        if t is None:
+            t = self.tenants[tenant] = {
+                "ttft_s": deque(maxlen=_LATENCY_WINDOW),
+                "completed": 0, "failed": 0, "tokens": 0}
+        return t
+
+    def on_first_token(self, ttft_s: float,
+                       tenant: Optional[str] = None) -> None:
         self.ttft_s.append(ttft_s)
+        if tenant is not None:
+            self._tenant(tenant)["ttft_s"].append(ttft_s)
 
     def on_decode_step(self, n_active: int, step_s: float) -> None:
         self.decode_steps += 1
@@ -166,11 +185,39 @@ class ServingMetrics:
         else:
             self.compile_hits += 1
 
-    def on_complete(self) -> None:
+    def on_complete(self, tenant: Optional[str] = None,
+                    n_tokens: int = 0) -> None:
         self.requests_completed += 1
+        if tenant is not None:
+            t = self._tenant(tenant)
+            t["completed"] += 1
+            t["tokens"] += int(n_tokens)
 
-    def on_fail(self) -> None:
+    def on_fail(self, tenant: Optional[str] = None) -> None:
         self.requests_failed += 1
+        if tenant is not None:
+            self._tenant(tenant)["failed"] += 1
+
+    def on_adapter_load(self) -> None:
+        """A LoRA adapter was loaded (or hot-swapped) into a lane."""
+        self.adapter_loads += 1
+
+    def on_adapter_unload(self) -> None:
+        self.adapter_unloads += 1
+
+    def _tenants_section(self) -> dict:
+        """Per-tenant gauges by tenant label and the adapter counters;
+        always present (``by_tenant`` empty before the first request)."""
+        by_tenant = {}
+        for name in sorted(self.tenants):
+            t = self.tenants[name]
+            by_tenant[name] = {"completed": t["completed"],
+                               "failed": t["failed"],
+                               "tokens": t["tokens"],
+                               "ttft_ms": _ms(_dist(t["ttft_s"]))}
+        return {"adapter_loads": self.adapter_loads,
+                "adapter_unloads": self.adapter_unloads,
+                "by_tenant": by_tenant}
 
     def on_reject(self) -> None:
         self.requests_rejected += 1
@@ -280,6 +327,7 @@ class ServingMetrics:
                 "model_version": self.model_version,
             },
             "speculation": self._speculation_section(),
+            "tenants": self._tenants_section(),
             "queue_depth": self.queue_depth,
             "queue_depth_max": self.queue_depth_max,
             "slot_occupancy": round(self.occupancy(), 4),

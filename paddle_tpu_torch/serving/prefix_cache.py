@@ -1,8 +1,7 @@
 """Cross-request prefix reuse: a host-side hash-chained block cache.
 
 The port's own copy of ``paddle_tpu/serving/prefix_cache.py`` (numpy and
-hashlib only), without the tenant salt (adapters are ROADMAP.md A.3
-step 5).
+hashlib only).
 
 - **Whole blocks only**: a block of ``block_size`` tokens is the unit of
   storage and of matching.
@@ -19,6 +18,12 @@ step 5).
   registered under older weights can be hit: its KV was computed by
   other weights.  Entries a live slot still pins keep their reference
   until the slot releases, unreachable either way.
+- **Tenant salt**: a LoRA adapter changes the K/V a prompt computes, so
+  :meth:`PrefixCache.lookup`, :meth:`~PrefixCache.register` and
+  :meth:`~PrefixCache.probe` take a ``salt`` (``b""`` for the base
+  model, ``b"name@vN"`` from ``AdapterPool.salt``) folded into the chain
+  root after the epoch: one prompt lives in one disjoint hash domain per
+  tenant and adapter version.
 """
 from __future__ import annotations
 
@@ -66,9 +71,10 @@ class PrefixCache:
         self.evictions = 0
         allocator.evict_cb = self._evict_for_alloc
 
-    def _keys_for(self, prompt: np.ndarray, n_blocks: int) -> List[bytes]:
+    def _keys_for(self, prompt: np.ndarray, n_blocks: int,
+                  salt: bytes = b"") -> List[bytes]:
         bs, keys = self.block_size, []
-        parent = _ROOT + self.epoch.to_bytes(8, "little")
+        parent = _ROOT + self.epoch.to_bytes(8, "little") + salt
         for i in range(n_blocks):
             parent = _chain_hash(parent, prompt[i * bs:(i + 1) * bs])
             keys.append(parent)
@@ -82,17 +88,18 @@ class PrefixCache:
         self.hit_blocks_total += int(hit_tokens) // self.block_size
         self.hit_tokens_total += int(hit_tokens)
 
-    def lookup(self, prompt: Sequence[int],
-               count: bool = True) -> Tuple[int, List[int]]:
-        """Longest cached prefix of ``prompt``: ``(n_tokens, block_ids)``.
-        Refreshes the hit entries' recency but takes no references."""
+    def lookup(self, prompt: Sequence[int], count: bool = True,
+               salt: bytes = b"") -> Tuple[int, List[int]]:
+        """Longest cached prefix of ``prompt`` in ``salt``'s domain:
+        ``(n_tokens, block_ids)``.  Refreshes the hit entries' recency but
+        takes no references."""
         prompt = np.asarray(list(prompt), dtype=np.int64).reshape(-1)
         if count:
             self.lookups += 1
             self.lookup_tokens_total += int(prompt.size)
         max_hit = max(0, (int(prompt.size) - 1) // self.block_size)
         block_ids: List[int] = []
-        for key in self._keys_for(prompt, max_hit):
+        for key in self._keys_for(prompt, max_hit, salt):
             e = self._entries.get(key)
             if e is None:
                 break
@@ -103,15 +110,29 @@ class PrefixCache:
             self.hit_tokens_total += len(block_ids) * self.block_size
         return len(block_ids) * self.block_size, block_ids
 
-    def register(self, prompt: Sequence[int],
-                 block_ids: Sequence[int]) -> int:
-        """Make ``prompt``'s whole blocks hittable; ``block_ids`` cover
-        them in order.  Keys already present are left alone (first writer
-        wins: the bytes are the same).  Returns the entries created."""
+    def probe(self, prompt: Sequence[int], salt: bytes = b"") -> int:
+        """Longest cached prefix of ``prompt`` in ``salt``'s domain, in
+        tokens, with no side effect: no recency refresh, no counter, no
+        reference."""
+        prompt = np.asarray(list(prompt), dtype=np.int64).reshape(-1)
+        max_hit = max(0, (int(prompt.size) - 1) // self.block_size)
+        n = 0
+        for key in self._keys_for(prompt, max_hit, salt):
+            if key not in self._entries:
+                break
+            n += 1
+        return n * self.block_size
+
+    def register(self, prompt: Sequence[int], block_ids: Sequence[int],
+                 salt: bytes = b"") -> int:
+        """Make ``prompt``'s whole blocks hittable in ``salt``'s domain;
+        ``block_ids`` cover them in order.  Keys already present are left
+        alone (first writer wins: the bytes are the same).  Returns the
+        entries created."""
         prompt = np.asarray(list(prompt), dtype=np.int64).reshape(-1)
         n_full = min(int(prompt.size) // self.block_size, len(block_ids))
         created, parent = 0, None
-        for depth, key in enumerate(self._keys_for(prompt, n_full)):
+        for depth, key in enumerate(self._keys_for(prompt, n_full, salt)):
             e = self._entries.get(key)
             if e is not None:
                 self._entries.move_to_end(key)

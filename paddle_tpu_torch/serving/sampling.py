@@ -11,6 +11,13 @@ stream depends only on its own seed and its own draws.  The two
 frameworks give different numbers from one seed, so only the laws (and
 the same-seed replay within the port) carry over.
 
+Constrained decoding (``DeviceSampler(grammar=)``, a
+:class:`~.grammar.GrammarTable`): two more ``[slots] int32`` lanes hold
+each slot's grammar id and automaton state.  Logits are masked before
+:func:`device_sample` (so greedy argmaxes the masked row and a draw
+comes from the masked law) and the state advances right after, inside
+the step.  Grammar 0 masks nothing, bitwise.
+
 :func:`sample` is the host reference (float32 numpy) the device path is
 held against.
 """
@@ -43,12 +50,20 @@ class SamplingParams:
     """Per-request decoding strategy: ``temperature == 0`` is greedy
     argmax; ``top_k > 0`` keeps the k most probable tokens; ``top_p < 1``
     keeps the smallest nucleus reaching ``top_p`` (after top-k, on the
-    tempered law); ``seed`` fixes the request's random stream."""
+    tempered law); ``seed`` fixes the request's random stream.
+
+    Tenancy: ``adapter`` names a LoRA adapter loaded in the engine's
+    :class:`~.adapters.AdapterPool` (None: the base model); ``grammar``
+    names a grammar of its :class:`~.grammar.GrammarTable` (None:
+    unconstrained).  Both are per-slot lane values, never part of a step
+    program, and both are journaled with the admission."""
 
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
     seed: Optional[int] = None
+    adapter: Optional[str] = None
+    grammar: Optional[str] = None
 
     def __post_init__(self):
         if self.temperature < 0:
@@ -57,6 +72,11 @@ class SamplingParams:
             raise ValueError("top_k must be >= 0")
         if not (0.0 < self.top_p <= 1.0):
             raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
+        for f in ("adapter", "grammar"):
+            v = getattr(self, f)
+            if v is not None and not isinstance(v, str):
+                raise ValueError(f"{f} must be a name (str) or None, "
+                                 f"got {type(v).__name__}")
 
 
 def _host_masked_logits(logits: np.ndarray,
@@ -191,9 +211,11 @@ class DeviceSampler:
     The step methods take the slot as data (a ``[1]`` device index) and
     make no host read, so they can be captured into a CUDA graph."""
 
-    def __init__(self, num_slots: int, *, device="cuda"):
+    def __init__(self, num_slots: int, *, device="cuda", grammar=None):
         self.num_slots = int(num_slots)
         self.device = torch.device(device)
+        #: a :class:`~.grammar.GrammarTable` or None (no grammar lanes)
+        self.grammar = grammar
         n, dev = self.num_slots, self.device
         self.temps = torch.zeros(n, dtype=torch.float32, device=dev)
         self.top_ks = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -201,6 +223,8 @@ class DeviceSampler:
         self.tokens = torch.zeros(n, dtype=torch.int32, device=dev)
         self.seeds = torch.zeros(n, dtype=torch.int64, device=dev)
         self.counters = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.grammar_ids = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.grammar_states = torch.zeros(n, dtype=torch.int32, device=dev)
 
     def stage_slot(self, slot: int, params: SamplingParams,
                    seed: int) -> None:
@@ -209,11 +233,16 @@ class DeviceSampler:
         self.temps[slot] = float(params.temperature)
         self.top_ks[slot] = int(params.top_k)
         self.top_ps[slot] = float(params.top_p)
+        if self.grammar is not None:
+            # the grammar id and the start state: staged the same at a
+            # resume or a recovery, so the replay walks the same path
+            self.grammar_ids[slot] = self.grammar.gid_of(params.grammar)
+            self.grammar_states[slot] = 0
 
     def reset(self) -> None:
         """Forget all slots (warmup scribbles over slot 0)."""
         for lane in (self.temps, self.top_ks, self.tokens, self.seeds,
-                     self.counters):
+                     self.counters, self.grammar_ids, self.grammar_states):
             lane.zero_()
         self.top_ps.fill_(1.0)
 
@@ -226,9 +255,18 @@ class DeviceSampler:
         lanes = [t.index_select(0, slot) for t in (
             self.temps, self.top_ks, self.top_ps, self.seeds,
             self.counters)]
+        g = self.grammar
+        if g is not None:
+            # mask before the draw (greedy argmaxes the masked row too)
+            gid = self.grammar_ids.index_select(0, slot)
+            gst = self.grammar_states.index_select(0, slot)
+            logits_row = g.mask_rows(logits_row, gid, gst)
         tok = device_sample(logits_row, *lanes)
         self.tokens.index_copy_(0, slot, tok)
         self.counters.index_copy_(0, slot, lanes[-1] + 1)
+        if g is not None:
+            self.grammar_states.index_copy_(0, slot,
+                                            g.advance(gid, gst, tok))
         return tok
 
     def sample_all(self, logits: torch.Tensor,
@@ -237,17 +275,28 @@ class DeviceSampler:
         rewrite the token lane (idle slots sample tokens nobody reads) and
         advance the counters of the slots in the ``[slots]`` int mask
         ``drew``.  Returns the ``[slots]`` int32 tokens."""
+        g = self.grammar
+        if g is not None:
+            logits = g.mask_rows(logits, self.grammar_ids,
+                                 self.grammar_states)
         toks = device_sample(logits, self.temps, self.top_ks, self.top_ps,
                              self.seeds, self.counters)
         self.tokens.copy_(toks)
         self.counters += drew
+        if g is not None:
+            # every slot's state moves, as in the JAX sampler: an idle
+            # slot's is staged anew at its next admission
+            self.grammar_states.copy_(g.advance(self.grammar_ids,
+                                                self.grammar_states, toks))
         return toks
 
     def masked_probs(self, logits: torch.Tensor) -> torch.Tensor:
         """The laws a slot draws from, over a ``[S, W, V]`` verify window:
         each slot's temperature, top-k and top-p applied at every window
         position (:func:`masked_logits`, a greedy slot at temperature 1),
-        then the softmax.  Port of ``DeviceSampler._masked_probs``."""
+        then the softmax.  Port of ``DeviceSampler._masked_probs``; the
+        grammar mask is applied upstream, to the logits of both models
+        (:meth:`accept_speculative`)."""
         S, W, V = logits.shape
         temps = torch.where(self.temps <= 0.0, torch.ones_like(self.temps),
                             self.temps)
@@ -302,6 +351,14 @@ class DeviceSampler:
         nothing that was emitted, so given everything emitted they are
         still fresh.  A seeded round replays the same from the same lanes.
 
+        With a grammar table, both models' logits are masked at every
+        window position by the state the draft held when it drew that
+        position's proposal: the round-start state folded through the
+        proposals.  Both laws then live on the same legal support, so the
+        acceptance argument holds as it stands; the states folded through
+        the emitted tokens (the first ``m``) go into both samplers' state
+        lanes.
+
         Writes the pending token (``emitted[m-1]``) into both samplers'
         token lanes and the advanced counter into both counter lanes."""
         S, W, V = target_logits.shape
@@ -309,8 +366,21 @@ class DeviceSampler:
         dev = target_logits.device
         greedy = self.temps <= 0.0
         tl = target_logits.float()
+        dl = draft_logits.float()
+        gt = self.grammar
+        if gt is not None:
+            gids, st = self.grammar_ids, self.grammar_states
+            g_start, legal = st, []
+            for j in range(W):
+                legal.append(gt.mask[gids.long(), st.long()])
+                if j < k:
+                    st = gt.advance(gids, st, draft_tokens[:, j])
+            legal = torch.stack(legal, dim=1)                 # [S, W, V]
+            neg = tl.new_full((), _NEG_INF)
+            tl = torch.where(legal, tl, neg)
+            dl = torch.where(legal, dl, neg)
         pt = self.masked_probs(tl)
-        pd = draft_sampler.masked_probs(draft_logits.float())
+        pd = draft_sampler.masked_probs(dl)
         # no proposal at position k: zero draft mass makes the residual
         # there the target law itself (the bonus draw)
         pd = torch.cat([pd[:, :k], torch.zeros_like(pd[:, k:])], dim=1)
@@ -347,4 +417,11 @@ class DeviceSampler:
         draft_sampler.tokens.copy_(pend)
         self.counters += m * active
         draft_sampler.counters.copy_(self.counters)
+        if gt is not None:
+            st = g_start
+            for j in range(W):
+                st = torch.where(j < m, gt.advance(gids, st, emitted[:, j]),
+                                 st)
+            self.grammar_states.copy_(st)
+            draft_sampler.grammar_states.copy_(st)
         return emitted, m

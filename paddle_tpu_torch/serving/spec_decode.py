@@ -38,6 +38,14 @@ emitted tokens).
   K/V for all ``k+1`` positions, so both caches end every round at the
   same length with one pending token.
 
+Tenancy: the draft sampler shares the engine's grammar table, so the
+proposals are drawn from the masked law the verify prices; the draft's
+automaton state is the target's after the draft prefill, and both are
+set to the state folded through the round's emitted tokens at its end.
+The verify's target forward runs under each slot's adapter rows; the
+draft runs under none (the acceptance prices the draft's own law, so an
+un-adapted draft costs acceptance, never correctness).
+
 Durability: the draft's K/V is never journaled.  A preempted or recovered
 request replays from its prompt, and its re-admission prefills the draft
 again (a full-prompt prefill, no prefix cache, through the contiguous
@@ -135,7 +143,11 @@ class SpecState:
         self.cache = KVCache(engine.num_slots, dcfg.num_hidden_layers,
                              engine.max_seq, kv_heads, dcfg.head_dim, dtype,
                              device=engine.device, headroom=self.k)
-        self.sampler = DeviceSampler(engine.num_slots, device=engine.device)
+        # the engine's grammar table: one stacked trans/mask pair serves
+        # both samplers
+        self.sampler = DeviceSampler(engine.num_slots, device=engine.device,
+                                     grammar=engine.sampler.grammar)
+        self.target_pool = engine.adapter_pool
         self.proposals = torch.zeros((engine.num_slots, self.k),
                                      dtype=torch.int32, device=engine.device)
 
@@ -157,12 +169,15 @@ class SpecState:
 
     def restore_lanes(self) -> None:
         """After the target's lanes were rewritten for a retry
-        (``Engine._restore_lanes``), set the draft's length, token and
-        counter lanes to the target's: at a round's start the two are in
-        lockstep."""
+        (``Engine._restore_lanes``), set the draft's length, token,
+        counter and automaton-state lanes to the target's: at a round's
+        start the two are in lockstep."""
         self.cache.lengths.copy_(self.target_cache.lengths)
         self.sampler.tokens.copy_(self.target_sampler.tokens)
         self.sampler.counters.copy_(self.target_sampler.counters)
+        if self.sampler.grammar is not None:
+            self.sampler.grammar_states.copy_(
+                self.target_sampler.grammar_states)
 
     def reset(self) -> None:
         """Forget everything (warmup scribbles over slot 0's lanes)."""
@@ -179,8 +194,10 @@ class SpecState:
         slot, set its length, and chain the draft's token and counter
         lanes off the target's (its prefill sampled the first token and
         counted one draw), so the round's first draft step feeds on the
-        device.  ``meta`` is the ``[2]`` int32 device tensor ``(slot,
-        length)``.  Returns the slot's pending token ``[1]`` int32."""
+        device; with grammars, its automaton state too (the target's
+        prefill advanced past the first token).  ``meta`` is the ``[2]``
+        int32 device tensor ``(slot, length)``.  Returns the slot's
+        pending token ``[1]`` int32."""
         slot, length = meta[0:1], meta[1:2]
         self.model(ids, cache_ctx=CacheContext(self.cache, "prefill",
                                                slot=slot))
@@ -191,6 +208,9 @@ class SpecState:
         self.sampler.tokens.index_copy_(0, idx, tok)
         self.sampler.counters.index_copy_(
             0, idx, target.counters.index_select(0, idx))
+        if self.sampler.grammar is not None:
+            self.sampler.grammar_states.index_copy_(
+                0, idx, target.grammar_states.index_select(0, idx))
         return tok
 
     @torch.no_grad()
@@ -221,8 +241,15 @@ class SpecState:
         W = self.k + 1
         window = torch.cat([sampler.tokens[:, None], self.proposals],
                            dim=1).long()
-        tlogits = self.target_model(window, cache_ctx=CacheContext(
-            cache, "verify", width=W))
+        pool = self.target_pool
+        if pool is not None:
+            pool.set_rows(pool.adapter_ids)   # the target's rows only
+        try:
+            tlogits = self.target_model(window, cache_ctx=CacheContext(
+                cache, "verify", width=W))
+        finally:
+            if pool is not None:
+                pool.clear_rows()
         # the draft's k steps advanced it: rewind to the round's start
         self.cache.lengths.copy_(cache.lengths)
         dlogits = self.model(window, cache_ctx=CacheContext(

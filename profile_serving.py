@@ -7,6 +7,14 @@ Builds the paged Llama-2 7B engine of ``chip_smoke.py``'s serve phase
 (bf16, random weights from seed 0, 8 slots, block size 16), and traces
 with ``torch.profiler``:
 
+- first, ``--steps`` decode steps of ``chip_smoke.py``'s serve_tenancy
+  engine (the same geometry, 4 LoRA adapter lanes of rank 16 and the
+  JSON grammar) with all 8 slots running over base and three adapters
+  (the json slots of its traffic run as base: a json stream ends within
+  11 tokens), traced as the plain decode steps below are; and the
+  sampler's device ms for one decode step's ``[8, vocab]`` logits with
+  and without the grammar table (``sample_all`` captured into a graph of
+  its own and replayed), the grammar mask's share of it;
 - ``--steps`` decode steps with all 8 slots running, timed first
   without the profiler and then traced;
 - one admission step: a 1000-token tail prefilled after a 512-token
@@ -37,6 +45,7 @@ kernels.  No phase falls back to the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import sys
@@ -59,6 +68,10 @@ GROUPS = (("K4 paged_decode", ("paged_decode_kernel",)),
                                   "unrolled", "index", "scatter", "gather",
                                   "cat", "copy", "fill", "softmax", "sort",
                                   "argmax", "distribution")))
+
+
+#: seconds of idle card at the start of every profiler window
+WINDOW_LEAD_S = 0.05
 
 
 def port_kernel_counts(events) -> dict:
@@ -112,6 +125,10 @@ def trace(fn, n_steps: int, plain=None, enqueue=None) -> dict:
     port_kernels.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the profiler can lose the first device records of its window (a
+        # prefix of ~700 of a decode step's, in 2 of 80 one-step windows
+        # on an H100), never with the card idle the window's first 50 ms
+        time.sleep(WINDOW_LEAD_S)
         t0 = time.perf_counter()
         for _ in range(n_steps):
             fn()
@@ -242,6 +259,77 @@ def profile_rounds(model, card: str, n_rounds: int) -> None:
         raise RuntimeError("a program was built after warmup")
 
 
+def sampler_ms(vocab: int, slots: int, grammar) -> float:
+    """Device ms of one decode step's sampling (``sample_all`` over
+    ``[slots, vocab]`` f32 logits, laws staged as serve_tenancy's mixed
+    traffic), captured into a CUDA graph and replayed; ``grammar`` a
+    ``GrammarTable`` or None."""
+    from paddle_tpu_torch.serving import DeviceSampler
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((slots, vocab), generator=gen, device="cuda")
+    drew = torch.ones(slots, dtype=torch.int32, device="cuda")
+    smp = DeviceSampler(slots, device="cuda", grammar=grammar)
+    for slot, (_, tenant, law) in enumerate(chip_smoke.mixed_requests(
+            [([0], None)] * slots, seed=0)):
+        if grammar is None:
+            law = dataclasses.replace(law, grammar=None)
+        smp.stage_slot(slot, law, slot)
+
+    def draw():
+        smp.sample_all(logits, drew)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        draw()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        draw()
+    return chip_smoke.cuda_ms(graph.replay)
+
+
+def profile_tenancy(model, card: str, n_steps: int) -> None:
+    """serve_tenancy's engine over ``model`` with its 8 slots running
+    over the tenants: the decode steps traced; the sampler's ms with and
+    without the grammar table."""
+    eng = chip_smoke.tenancy_engine(model, eos=2, kv_layout="paged",
+                                    block_size=16, min_bucket=16,
+                                    num_slots=8)
+    reqs = chip_smoke.make_requests(eng.config.vocab_size, 8, 512,
+                                    chip_smoke.PAGED_TAILS, seed=0)
+    for p, tenant, law in chip_smoke.mixed_requests(reqs, seed=7):
+        if tenant == "json":
+            # a json stream ends within 11 tokens: keep its slot busy with
+            # the base model instead, so that 8 slots decode throughout
+            law = dataclasses.replace(law, grammar=None)
+        eng.add_request(p, sampling=law, max_new_tokens=400)
+    for _ in range(3):
+        eng.step()
+    if len(eng.running) != 8:
+        raise RuntimeError(f"expected 8 running slots, got "
+                           f"{len(eng.running)}")
+    tenants = sorted(r.tenant for r in eng.running.values())
+    traced = trace(eng.step, n_steps)
+    from paddle_tpu_torch.serving import GrammarTable, JsonArrayGrammar
+
+    vocab = eng.config.vocab_size
+    with_g = sampler_ms(vocab, 8, GrammarTable(
+        vocab, {"json": JsonArrayGrammar(eos_token_id=2)}, device="cuda"))
+    without = sampler_ms(vocab, 8, None)
+    print(json.dumps({
+        "phase": "tenancy_steps", "card": card, "active_slots": 8,
+        "tenants": tenants,
+        "adapter_targets": len(eng.adapter_pool.banks),
+        "adapter_lanes_gb": eng.adapter_pool.nbytes() / 2 ** 30,
+        "sampler_ms": {"grammar_table": with_g, "none": without,
+                       "grammar_share": 1.0 - without / with_g},
+        **traced}), flush=True)
+    if eng.stats()["compile_cache"]["after_warmup"] != 0:
+        raise RuntimeError("a program was built after warmup")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -251,11 +339,16 @@ def main() -> int:
         print("profile_serving: no CUDA device", file=sys.stderr)
         return 2
     from paddle_tpu_torch import create_engine
+    from paddle_tpu_torch.serving import Engine
 
     card = chip_smoke.card_line()
-    eng = create_engine("llama:llama2-7b", device="cuda",
-                        dtype=torch.bfloat16, kv_layout="paged",
-                        block_size=16, min_bucket=16, num_slots=8, seed=0)
+    model = Engine.resolve_model("llama:llama2-7b", device="cuda",
+                                 dtype=torch.bfloat16, seed=0)
+    profile_tenancy(model, card, args.steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = create_engine(model, kv_layout="paged", block_size=16,
+                        min_bucket=16, num_slots=8)
     warm = eng.warmup()
     # the host's enqueue: the seconds of each step program's call
     enqueue, run = [], eng.programs.run
@@ -326,7 +419,6 @@ def main() -> int:
                       "compile_cache": cc}), flush=True)
     if cc["after_warmup"] != 0:
         raise RuntimeError(f"step programs built after warmup: {cc}")
-    model = eng.model
     del eng
     gc.collect()
     torch.cuda.empty_cache()

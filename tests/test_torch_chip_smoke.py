@@ -491,3 +491,72 @@ def test_ticket_replay_on_cpu():
         ("decode", "capture"), ("verify", "capture"), ("decode", "replay"),
         ("verify", "replay"), ("decode", "replay")]
     assert res["all_equal"] and res["tickets_nonzero"] == 0
+
+
+def test_serve_tenancy_phase_on_tiny_cpu():
+    """serve_tenancy's drive over ``llama_tiny`` (4 slots, paged): lanes
+    off bitwise the plain engine in turns, the mixed tenants with every
+    json stream accepted, salted prefix domains, a hot swap and an unload
+    mid-flight with the JAX engine's ``error_ctx``, a clean pool, no
+    program after warmup.  ``scale`` 0.5 moves the tiny model's argmax
+    (the 7B's 0.05 does not at width 64)."""
+    model = _tiny_llama(0)
+    reqs = chip_smoke.make_requests(128, 12, 32, [3, 9, 17, 30], seed=0)
+    res = chip_smoke.run_serve_tenancy(
+        model, reqs, 12, eos=2, scale=0.5, kv_layout="paged", block_size=8,
+        min_bucket=8, num_slots=4, max_seq=128)
+    assert res["lanes_off"]["bitwise_plain"]
+    assert [len(v) for v in res["lanes_off"]["turns"].values()] == [2, 2]
+    per = res["mixed"]["per_tenant"]
+    assert sorted(per) == ["base", "grammar:json", "t1", "t2", "t3"]
+    assert sum(d["requests"] for d in per.values()) == 12
+    assert res["mixed"]["tenants"]["t1"]["completed"] == 3
+    assert res["salted_domains"]["t1_only"] == {
+        "None": 0, "t1": res["salted_domains"]["t1_only"]["t1"], "t2": 0,
+        "t3": 0}
+    sw = res["swaps"]
+    assert sw["hot_swap"]["error_ctx"] == {"adapter": "t1", "version": 1}
+    assert sw["unload"]["error_ctx"] == {"adapter": "t2", "version": 1}
+    assert sw["v1_back"] == {"t1": True, "t2": True}
+    assert res["allocator"] == {"invariants": "ok", "blocks_in_use": 0}
+    assert res["compile_cache"]["after_warmup"] == 0
+    assert res["tenancy"]["adapters"] == {"t1": 3, "t2": 2, "t3": 1}
+    assert res["launches"] == {n: 0 for n in kernels.KERNELS}
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+@pytest.mark.parametrize("family", ["llama", "gpt"])
+def test_tenancy_parity_phase_on_tiny_cpu(family, layout):
+    """tenancy_parity's drive: lanes off, speculation, preempt-resume,
+    step retries and crash recovery, each against its reference."""
+    cfg = dict(max_position_embeddings=256)
+    gen = torch.Generator().manual_seed(1)
+    dgen = torch.Generator().manual_seed(2)
+    if family == "llama":
+        model = LlamaForCausalLM(llama_tiny(**cfg), device="cpu",
+                                 generator=gen).eval()
+        draft = LlamaForCausalLM(llama_tiny(num_hidden_layers=1, **cfg),
+                                 device="cpu", generator=dgen).eval()
+    else:
+        model = GPTForCausalLM(gpt_tiny(**cfg), device="cpu",
+                               generator=gen).eval()
+        draft = GPTForCausalLM(gpt_tiny(num_hidden_layers=1, **cfg),
+                               device="cpu", generator=dgen).eval()
+    res = chip_smoke.drive_tenancy_parity(model, layout, draft, eos=2,
+                                          max_seq=256, min_bucket=16,
+                                          block_size=16)
+    chip_smoke.check_tenancy_parity(res, f"{family}, {layout}")
+    assert res["spec"][0]["t1"] != res["spec"][0][None]
+    assert res["launches"] == {n: 0 for n in kernels.KERNELS}
+
+
+def test_check_tenancy_parity_names_what_differs():
+    res = {"lanes_off": ([[1]], [[1]]), "spec": ({}, {}),
+           "preempt": ([[2]], [[3]]), "retry": ([], []),
+           "recovery": ([], []), "spec_rounds": 1,
+           "preempted": [1, 0, "finished"], "retries": 3,
+           "recovered": (2, 0, 0), "after_warmup": 0, "audit": "ok"}
+    with pytest.raises(AssertionError, match="preempt: \\[\\[2\\]\\]"):
+        chip_smoke.check_tenancy_parity(res, "x")
+    res["preempt"] = ([[3]], [[3]])
+    chip_smoke.check_tenancy_parity(res, "x")

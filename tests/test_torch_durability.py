@@ -705,8 +705,9 @@ def test_cross_mesh_and_tenant_replays(models, tmp_path, cross_mesh):
     """A request journaled at another mesh shape replays under
     ``cross_mesh`` (a ``mesh_reshard`` record keeps the audit whole) and
     fails finally without it; a journaled adapter cannot replay on an
-    engine without one (the port names ROADMAP.md A.3 step 5).  Both
-    packages dispose of every request alike."""
+    engine without an adapter pool, nor a journaled grammar on one
+    without a grammar table.  Both packages dispose of every request
+    alike."""
     want = _jax_once(f"foreign-{cross_mesh}", lambda: _foreign_replays(
         JAX, models["jax"], tmp_path / "jax", cross_mesh))
     got = _foreign_replays(PORT, models["port"], tmp_path / "port",
@@ -719,8 +720,9 @@ def test_cross_mesh_and_tenant_replays(models, tmp_path, cross_mesh):
         assert got["replayed"] == ["e9:b1:r2"]
         assert got["invalid"] == ["e9:b1:r0", "e9:b1:r1"]
     assert got == want
-    with pytest.raises(ValueError, match="A.3 step 5"):
-        PORT.Engine._validate_replay_tenancy({"grammar": "json"})
+    with pytest.raises(ValueError, match="no grammar table"):
+        _mk_engine(PORT, models["port"])._validate_replay_tenancy(
+            {}, {"grammar": "json"})
 
 
 def _greedy_recovery(api, model, jdir, layout="contiguous"):

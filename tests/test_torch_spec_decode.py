@@ -750,8 +750,7 @@ class TestConfig:
                 eng_cls(model, **ENG,
                         speculation=spec_cls(draft_model=draft, k=K))
 
-    @pytest.mark.parametrize("kw", ["adapters", "grammars",
-                                    "step_timeout_s", "fault_plan", "mesh"])
+    @pytest.mark.parametrize("kw", ["step_timeout_s", "fault_plan", "mesh"])
     def test_unported_subsystems_raise(self, gpt, gpt_draft, kw):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
             Engine(gpt[1], **ENG, **{kw: object()},

@@ -22,7 +22,12 @@ Phases, each printing one JSON line with the card's name and power limit:
               and on a table whose blocks walk several splits (these three
               also in f32), and require two calls on the same inputs to
               agree bitwise; hold and time K4 and K5 at ``serve_gpt``'s
-              shapes too (16 heads of 64, a 1024-position table).
+              shapes too (16 heads of 64, a 1024-position table).  A
+              kernel, its plain version and the library call are timed
+              cold, each call alone after ``L2_FLUSH_BYTES`` are written
+              outside its events; the kernel also alone and warm
+              (``warm_ms``) and back to back (``batched_ms``, how earlier
+              runs timed it).
 3. serve_paged — Llama-2 7B at full width (random weights from a seed),
               bf16, paged KV: 12 requests sharing a 512-token system
               prompt; the K4/K5 launch counts of this run are read.
@@ -139,6 +144,27 @@ Phases, each printing one JSON line with the card's name and power limit:
               programs failing before and after they ran, with json and
               ``t1`` in flight, give the streams alone; a journaled engine
               dropped after 2 tokens recovers the tenant streams.
+19. serve_resilience — serve_paged's Llama-2 7B (after serve_tenancy) on
+              paged engines of 8 slots: (a) an engine armed from
+              ``PADDLE_TPU_FT_SERVING_FAULTS`` (decode call #2 fails once,
+              callback call #3 raises): that request alone fails, every
+              other stream equals an unfaulted engine's, the pool is
+              clean, no program is built after warmup; (b) a decode
+              failing both attempts fails its batch only, and the next
+              request gets its unfaulted stream; (c) a raising and a
+              stalled (past 10 ms) prefix lookup serve as misses; (d) the
+              step watchdog (0.5 s) fires on a 3 s host stall and (e) on a
+              3 s ``torch.cuda._sleep`` enqueued after a decode replay
+              (the replay returns at once; the host waits at the token
+              read), each engine turning sticky unhealthy, its shutdown
+              cancelling the request and joining the thread; (f) strict
+              sanitized engines, plain and speculating (the
+              llama-68m-shaped draft, k 4): 0.0 host transfers a decode
+              step, and a control that reads the replay's output inside
+              the window, counted at its line and failing its batch under
+              the strict guard; (g) ITL, tokens/s and TTFT of
+              serve_paged's traffic with nothing armed, a 5 s watchdog,
+              ``PADDLE_TPU_SANITIZE=1`` and ``=strict``, in turns.
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
 ``{"kernels": [...]}`` line (each kernel's ``launches`` on its main path,
@@ -188,25 +214,50 @@ def emit(phase: str, **fields) -> None:
 #: timed run (~25 ms at the H100's 1.98 GHz boost clock)
 SPIN_CYCLES = 50_000_000
 
+#: bytes written between cold timed calls: twice the H100's 50 MB L2
+L2_FLUSH_BYTES = 2 * 50 * 10 ** 6
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2, alone: bool = False,
+            flush: bool = False) -> float:
     """Mean device milliseconds of ``fn()`` on the current stream (CUDA
     events).  A spin kernel (``torch.cuda._sleep``) keeps the card busy
-    while the host enqueues the ``iters`` calls, so the calls run back to
-    back and the host's own time per call (a wrapper's checks, the launch)
-    does not show as device time unless it exceeds the spin."""
+    while the host enqueues the timed calls, so the host's own time per
+    call (a wrapper's checks, the launch) does not show as device time
+    unless it exceeds the spin.  By default the ``iters`` calls run back
+    to back between two events (each call's head overlapping the last
+    one's tail, and finding its data in L2).  ``alone`` times each call
+    between its own pair of events, all of them queued behind one longer
+    spin; ``flush`` (which implies ``alone``) also writes
+    ``L2_FLUSH_BYTES`` before each call, outside its events, as a caller
+    between two steps finds the cache: the two ``alone`` times differ by
+    the L2's effect only."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(iters):
+    if not (alone or flush):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+    buf = torch.empty(L2_FLUSH_BYTES // 4 if flush else 1,
+                      dtype=torch.int32, device="cuda")
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(4 * SPIN_CYCLES)
+    for start, end in events:
+        if flush:
+            buf.zero_()
+        start.record()
         fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -735,12 +786,16 @@ def phase_kernels(hgmma: dict) -> dict:
                     bound_ms, bound_by = res["bound"]
                     lib = (shape, library_call)
                     if lib not in library_ms:
-                        library_ms[lib] = cuda_ms(res["library"], iters=5)
+                        library_ms[lib] = cuda_ms(res["library"], iters=5,
+                                                  flush=True)
                     timed.append({
                         "case": label, "shape": shape + " bf16",
                         "max_abs_err": res["err"], "tolerance": tol,
-                        "ms": cuda_ms(res["kern"]),
-                        "plain_ms": cuda_ms(res["plain"], iters=3),
+                        "ms": cuda_ms(res["kern"], flush=True),
+                        "warm_ms": cuda_ms(res["kern"], alone=True),
+                        "batched_ms": cuda_ms(res["kern"]),
+                        "plain_ms": cuda_ms(res["plain"], iters=3,
+                                            flush=True),
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library_ms[lib],
                         "library_call": library_call})
@@ -3063,6 +3118,425 @@ def phase_tenancy_parity() -> None:
         torch.cuda.empty_cache()
 
 
+# -- phase 19: resilience ------------------------------------------------------
+
+#: serve_resilience's engines: serve_paged's (paged, block 16, buckets
+#: from 16, 8 slots); at max_seq 2048 for the chaos traffic and the
+#: arming cost, at max_seq 256 for the watchdog and sanitizer engines
+RESILIENCE_ENGINE = dict(kv_layout="paged", block_size=16, min_bucket=16,
+                         num_slots=8)
+#: (a)'s environment: decode call #2 fails once, callback call #3 raises
+RESILIENCE_CHAOS = "serving.decode@2,serving.stream_cb@3"
+#: the watchdog's deadline in (d) and (e), and the stalls it must catch
+WATCHDOG_TIMEOUT_S = 0.5
+STALL_S = 3.0
+#: (g)'s four arming configurations: (name, step_timeout_s,
+#: PADDLE_TPU_SANITIZE at construction)
+ARMINGS = (("none", None, None), ("watchdog_5s", 5.0, None),
+           ("sanitize", None, "1"), ("sanitize_strict", None, "strict"))
+
+
+def _with_env(name: str, value, build):
+    """``build()`` with ``os.environ[name]`` set to ``value`` (None: unset)
+    for the construction only."""
+    saved = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
+    try:
+        return build()
+    finally:
+        os.environ.pop(name, None)
+        if saved is not None:
+            os.environ[name] = saved
+
+
+def stream_all(engine, requests, max_new_tokens: int) -> tuple:
+    """Serve ``requests`` on ``engine`` with a stream callback; returns
+    the handles and each request's streamed tokens."""
+    streamed = {}
+
+    def cb(tok, req):
+        streamed.setdefault(req.request_id, []).append(tok)
+
+    reqs = [engine.add_request(p, sampling=s, max_new_tokens=max_new_tokens,
+                               stream_cb=cb) for p, s in requests]
+    engine.run()
+    return reqs, [streamed.get(r.request_id, []) for r in reqs]
+
+
+def served_alone(engine, request, max_new_tokens: int) -> list:
+    """``request`` served alone from a cold prefix cache: a full prefill,
+    so its stream compares with any other engine's built the same way."""
+    engine.prefix_cache.clear()
+    r = engine.add_request(request[0], sampling=request[1],
+                           max_new_tokens=max_new_tokens)
+    engine.run()
+    if r.state != "finished":
+        raise AssertionError(f"served alone: {r.state} ({r.error})")
+    return r.output_ids
+
+
+def finish(engine, phase: str) -> dict:
+    """Shut ``engine`` down and check that its watchdog thread is joined
+    and that no sync debug mode leaked out of its guard."""
+    wd = engine._watchdog
+    engine.shutdown(timeout_s=0.0)
+    if engine._watchdog is not None or (wd is not None
+                                        and wd._thread.is_alive()):
+        raise AssertionError(f"{phase}: the watchdog thread outlived "
+                             f"shutdown")
+    if engine.device.type == "cuda" and torch.cuda.get_sync_debug_mode():
+        raise AssertionError(f"{phase}: the sync debug mode leaked: "
+                             f"{torch.cuda.get_sync_debug_mode()}")
+    return {"state": engine.state, "watchdog_joined": True}
+
+
+def chaos_checks(engine, requests, max_new_tokens: int, reference,
+                 alone) -> dict:
+    """(a)-(c) on ``engine`` (armed from ``RESILIENCE_CHAOS`` at its
+    construction, not warmed).  ``reference`` are the streams of
+    ``requests`` on an unfaulted engine built the same way, ``alone``
+    that engine's stream of ``requests[-1]`` from a cold cache."""
+    from paddle_tpu_torch.distributed.fault_tolerance import (
+        ServingFaultPlan,
+    )
+
+    if not engine.fault_plan.armed:
+        raise AssertionError("chaos: the plan was not read from "
+                             "PADDLE_TPU_FT_SERVING_FAULTS")
+    engine.warmup()
+    misses = engine.metrics.compile_misses
+    reqs, streamed = stream_all(engine, requests, max_new_tokens)
+    st = engine.stats()
+    failed = [i for i, r in enumerate(reqs) if r.state != "finished"]
+    # the first tokens are emitted in admission order: callback call #3
+    # is the third request's first token
+    if failed != [2] or not reqs[2].error.startswith(
+            "stream_cb raised: InjectedFault: injected fault: "
+            "serving.stream_cb call #3"):
+        raise AssertionError(f"chaos: failed {failed}: "
+                             f"{[r.error for r in reqs]}")
+    for i, r in enumerate(reqs):
+        if i != 2 and (r.output_ids != reference[i]
+                       or streamed[i] != r.output_ids):
+            raise AssertionError(f"chaos: request {i}'s stream differs "
+                                 f"from the unfaulted engine's")
+    if st["failures"]["retries_by_point"] != {"serving.decode": 1}:
+        raise AssertionError(f"chaos: retries {st['failures']}")
+    if engine.metrics.compile_misses != misses or \
+            st["compile_cache"]["after_warmup"] != 0:
+        raise AssertionError(f"chaos: programs built after warmup: "
+                             f"{st['compile_cache']}")
+    chaos = {"failed": failed, "error": reqs[2].error,
+             "retries_by_point": st["failures"]["retries_by_point"],
+             "step_failures": st["failures"]["step_failures"],
+             "callback_errors": st["failures"]["callback_errors"],
+             "streams_equal_unfaulted": len(reqs) - 1,
+             "allocator": pool_audit(engine, "serve_resilience (a)"),
+             "compile_cache": st["compile_cache"]}
+    # (b) both attempts of the next decode fail: that batch fails, the
+    # next request is served with its unfaulted stream
+    engine.fault_plan = ServingFaultPlan().add("serving.decode", 1, times=2)
+    batch = [engine.add_request(p, sampling=s, max_new_tokens=max_new_tokens)
+             for p, s in requests[:2]]
+    engine.run()
+    if any(r.state != "failed" or not r.error.startswith(
+            "decode step failed after 1 retry") for r in batch):
+        raise AssertionError(f"exhausted retries: "
+                             f"{[(r.state, r.error) for r in batch]}")
+    after = served_alone(engine, requests[-1], max_new_tokens)
+    if after != alone:
+        raise AssertionError("exhausted retries: the next request's stream "
+                             "differs from the unfaulted engine's")
+    exhausted = {"batch": [r.state for r in batch], "next_equal": True}
+    # (c) a raising lookup, then one stalled past a 10 ms budget: misses
+    errors0 = engine.metrics.prefix_lookup_errors
+    engine.fault_plan = ServingFaultPlan().add("serving.prefix_lookup", 1)
+    raised = served_alone(engine, requests[-1], max_new_tokens)
+    engine.fault_plan = ServingFaultPlan().add("serving.prefix_lookup", 1,
+                                               stall_s=0.05)
+    engine.prefix_lookup_timeout_s = 0.01
+    r = engine.add_request(requests[-1][0], sampling=requests[-1][1],
+                           max_new_tokens=max_new_tokens)
+    engine.run()                         # its blocks are cached: a miss all
+    engine.prefix_lookup_timeout_s = 0.25
+    engine.fault_plan = ServingFaultPlan()
+    st = engine.stats()
+    lookup = {"errors": engine.metrics.prefix_lookup_errors - errors0,
+              "streams_equal": raised == r.output_ids == alone,
+              "kv_block_invariants": st["health"]["kv_block_invariants"]}
+    if lookup != {"errors": 2, "streams_equal": True,
+                  "kv_block_invariants": "ok"}:
+        raise AssertionError(f"prefix lookup: {lookup}")
+    lookup["allocator"] = pool_audit(engine, "serve_resilience (c)")
+    return {"chaos": chaos, "exhausted": exhausted, "prefix_lookup": lookup}
+
+
+def sleep_cycles(seconds: float) -> int:
+    """``torch.cuda._sleep`` cycles that hold the card ``seconds``,
+    calibrated with CUDA events on a 50 M-cycle sleep."""
+    n = SPIN_CYCLES
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(n)
+    end.record()
+    end.synchronize()
+    return int(n * seconds * 1e3 / start.elapsed_time(end))
+
+
+def watchdog_stall(engine, prompt, where: str) -> dict:
+    """(d) or (e): ``engine`` (``step_timeout_s`` set; for ``"host"`` its
+    plan stalls decode call #3) serves ``prompt``.  For ``"device"`` a
+    wrapper of ``programs.run`` enqueues ``STALL_S`` of
+    ``torch.cuda._sleep`` after decode replay #3: the replay returns at
+    once, and the watchdog must fire while the host waits for the
+    tokens.  The engine must turn and stay ``unhealthy``, and shutdown
+    must cancel the request, free its slot and join the thread."""
+    from paddle_tpu_torch.serving import EngineStopped
+
+    engine.warmup()
+    stalled_at = []
+    if where == "device":
+        cycles, run, calls = sleep_cycles(STALL_S), engine.programs.run, [0]
+
+        def stalls(key, body, *inputs):
+            out = run(key, body, *inputs)
+            if key[0] == "decode":
+                calls[0] += 1
+                if calls[0] == 3:
+                    stalled_at.append(time.time())
+                    torch.cuda._sleep(cycles)
+            return out
+
+        engine.programs.run = stalls
+    r = engine.add_request(prompt, max_new_tokens=16)
+    t0 = time.perf_counter()
+    try:
+        engine.run()
+        raise AssertionError(f"watchdog ({where} stall): did not fire: "
+                             f"{engine.health()}")
+    except EngineStopped:
+        pass                             # the expected outcome
+    wall = time.perf_counter() - t0
+    if where == "device":
+        del engine.programs.run
+    health = engine.health()
+    if engine.state != "unhealthy" or "watchdog" not in health["reason"] \
+            or health["watchdog_armed"] is not False \
+            or not engine._watchdog.fired:
+        raise AssertionError(f"watchdog ({where} stall): {health}")
+    slots = engine.num_slots
+    out = {"state": engine.state, "reason": health["reason"],
+           "watchdog_armed": health["watchdog_armed"],
+           "wall_s": round(wall, 3), "tokens_before": len(r.output_ids),
+           **finish(engine, f"watchdog ({where} stall)")}
+    if stalled_at:
+        # the flight dump's wall time is the watchdog's firing
+        out["fired_after_s"] = round(
+            engine.flight.dumps[-1]["wall_time"] - stalled_at[0], 3)
+    if r.state != "cancelled" or len(engine.free_slots) != slots or \
+            engine.state != "unhealthy":
+        raise AssertionError(f"watchdog ({where} stall): after shutdown "
+                             f"{r.state}, {len(engine.free_slots)} free, "
+                             f"{engine.state}")
+    out["request"] = r.state
+    return out
+
+
+def sanitized_run(engine, requests, max_new_tokens: int) -> dict:
+    """(f): a strict sanitized engine serves ``requests``: 0.0 host
+    transfers per decode step, no guard violation, every decode step (or
+    round) of this run counted."""
+    engine.warmup()
+    steps0 = engine.metrics.decode_steps
+    counted0 = engine.sanitizer.decode_steps
+    reqs = [engine.add_request(p, sampling=s, max_new_tokens=max_new_tokens)
+            for p, s in requests]
+    engine.run()
+    rep = engine.stats()["sanitizer"]
+    steps = engine.metrics.decode_steps - steps0
+    counted = rep["decode_steps"] - counted0
+    if not rep["strict"] or rep["per_decode_step"] != 0.0 or \
+            rep["guard_violations"] != 0 or counted != steps or \
+            any(r.state != "finished" for r in reqs):
+        raise AssertionError(f"sanitizer: {rep}, {counted} of {steps} "
+                             f"steps counted, {[r.state for r in reqs]}")
+    return {**rep, "steps_run": steps}
+
+
+def sanitizer_control(engine, request, max_new_tokens: int) -> dict:
+    """(f)'s negative control on a strict sanitized engine: a wrapper of
+    ``programs.run`` reads the decode replay's output on the host
+    (``.item()``) inside the dispatch.  It must be counted and attributed
+    to this file's line; on the card the strict guard turns it into an
+    error that fails the batch after its retry (``guard_violations``
+    1)."""
+    run, line = engine.programs.run, []
+
+    def reads(key, body, *inputs):
+        out = run(key, body, *inputs)
+        if key[0] == "decode":
+            line.append(sys._getframe().f_lineno + 1)
+            out[0].item()                # a sync inside the window
+        return out
+
+    before = dict(engine.sanitizer.report())
+    engine.programs.run = reads
+    r = engine.add_request(request[0], sampling=request[1],
+                           max_new_tokens=max_new_tokens)
+    engine.run()
+    del engine.programs.run
+    rep = engine.sanitizer.report()
+    site = f"chip_smoke.py:{line[0]}"
+    sites = [s for s in rep["by_site"] if s.endswith(site)]
+    counted = rep["host_transfers"] - before["host_transfers"]
+    out = {"request": r.state, "error": r.error, "counted": counted,
+           "by_site": rep["by_site"],
+           "guard_violations": rep["guard_violations"]}
+    if engine.device.type == "cuda":
+        # the read fails both attempts of the first decode: the batch fails
+        ok = (r.state == "failed" and counted == 2
+              and "called a synchronizing CUDA operation" in r.error
+              and rep["guard_violations"] == 1)
+    else:                                # no guard off the card: counted
+        ok = r.state == "finished" and counted == len(r.output_ids) - 1
+    if not ok or len(sites) != 1:
+        raise AssertionError(f"sanitizer control: {out}")
+    return out
+
+
+def arming_cost(engines: dict, requests, max_new_tokens: int,
+                rounds: int) -> dict:
+    """(g): ``engines`` (name → a warmed engine built under that arming)
+    serve ``requests`` in turns (ABCD DCBA, ``rounds`` times), each run
+    from a cold prefix cache (``timed_run``); per arming the medians and
+    quartiles of ITL p50, tokens/s and TTFT p50."""
+    names = list(engines)
+    runs = {n: [] for n in names}
+    for _ in range(rounds):
+        for n in names + names[::-1]:
+            res = timed_run(engines[n], requests, max_new_tokens)
+            runs[n].append({"itl_p50_ms": res["itl"]["p50_ms"],
+                            "tokens_per_s": res["decode_tokens_per_sec"],
+                            "ttft_p50_ms": res["ttft_p50_ms"]})
+
+    def quartiles(xs):
+        q = np.percentile(xs, [25, 50, 75])
+        return {"median": round(float(q[1]), 3),
+                "q1": round(float(q[0]), 3), "q3": round(float(q[2]), 3)}
+
+    return {n: {m: quartiles([r[m] for r in rs]) for m in rs[0]}
+            for n, rs in runs.items()}
+
+
+def run_serve_resilience(model, draft, requests, max_new_tokens: int,
+                         timing_requests, timing_tokens: int, rounds: int,
+                         big: dict, small: dict) -> dict:
+    """serve_resilience over ``model`` (engines: ``big`` for (a)-(c) and
+    (g), ``small`` for (d)-(f)); on the card also (e) and the strict
+    guard of (f)'s control.  Returns the figures."""
+    from paddle_tpu_torch.distributed.fault_tolerance import (
+        ENV_SERVING_FAULTS, ServingFaultPlan,
+    )
+    from paddle_tpu_torch.serving import Engine, SpecConfig
+
+    cuda = next(model.parameters()).is_cuda
+
+    def collect():
+        # a dropped engine's pool and graphs go before the next is built
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    plain = Engine(model, **big)
+    plain.warmup()
+    reference = [r.output_ids for r in stream_all(plain, requests,
+                                                  max_new_tokens)[0]]
+    alone = served_alone(plain, requests[-1], max_new_tokens)
+    chaotic = _with_env(ENV_SERVING_FAULTS, RESILIENCE_CHAOS,
+                        lambda: Engine(model, **big))
+    out = chaos_checks(chaotic, requests, max_new_tokens, reference, alone)
+    finish(chaotic, "serve_resilience (a)-(c)")
+    del chaotic
+    collect()
+    prompt = requests[0][0][:100]
+    out["watchdog_host"] = watchdog_stall(Engine(
+        model, **small, step_timeout_s=WATCHDOG_TIMEOUT_S,
+        fault_plan=ServingFaultPlan().add("serving.decode", 3,
+                                          stall_s=STALL_S)), prompt, "host")
+    if cuda:
+        out["watchdog_device"] = watchdog_stall(Engine(
+            model, **small, step_timeout_s=WATCHDOG_TIMEOUT_S), prompt,
+            "device")
+    collect()
+    short = [(p[:200], s) for p, s in requests]
+    sanitized = {}
+    for label, kw in (("plain", {}), (f"spec k={SPEC_K}", {
+            "speculation": SpecConfig(draft_model=draft, k=SPEC_K)})):
+        eng = _with_env("PADDLE_TPU_SANITIZE", "strict",
+                        lambda: Engine(model, **small, **kw))
+        sanitized[label] = sanitized_run(eng, short, max_new_tokens)
+        if label == "plain":
+            sanitized["control"] = sanitizer_control(eng, short[0],
+                                                     max_new_tokens)
+        finish(eng, f"sanitizer ({label})")
+        del eng
+        collect()
+    out["sanitizer"] = sanitized
+    engines = {"none": plain}
+    for name, timeout, sanitize in ARMINGS[1:]:
+        engines[name] = _with_env(
+            "PADDLE_TPU_SANITIZE", sanitize,
+            lambda: Engine(model, **big, step_timeout_s=timeout))
+        engines[name].warmup()
+    out["arming_cost"] = arming_cost(engines, timing_requests,
+                                     timing_tokens, rounds)
+    reports = {n: e.stats()["sanitizer"] for n, e in engines.items()
+               if e.sanitizer is not None}
+    if any(r["per_decode_step"] != 0.0 or r["guard_violations"]
+           for r in reports.values()):
+        raise AssertionError(f"arming cost: sanitizer {reports}")
+    out["arming_cost"]["sanitizer_reports"] = reports
+    for n, e in engines.items():
+        finish(e, f"arming cost ({n})")
+    del plain
+    engines.clear()
+    collect()
+    return out
+
+
+def phase_serve_resilience(model) -> dict:
+    """serve_paged's Llama-2 7B on paged engines of 8 slots, armed: (a) a
+    chaos plan from the environment, (b) exhausted retries, (c) a raising
+    and a stalled prefix lookup, (d) the watchdog on a host stall, (e) on
+    a device stall, (f) strict sanitized engines, plain and speculating
+    (the llama-68m-shaped draft), with a negative control, (g) what
+    arming costs.  Returns the K4/K5 launches of the phase."""
+    from paddle_tpu_torch.ops import kernels
+
+    vocab = model.config.vocab_size
+    draft = spec_draft_68m("cuda", torch.bfloat16)
+    kernels.reset_launches()
+    res = run_serve_resilience(
+        model, draft, make_requests(vocab, 4, 128, [64, 300, 17, 200],
+                                    seed=11), 32,
+        make_requests(vocab, 12, 512, PAGED_TAILS, seed=0), 64, rounds=3,
+        big=dict(RESILIENCE_ENGINE, max_seq=2048),
+        small=dict(RESILIENCE_ENGINE, max_seq=256))
+    launches = kernels.launch_counts()
+    for name in ("paged_decode", "paged_prefill"):
+        if launches[name] < 1:
+            raise AssertionError(f"serve_resilience did not run {name}: "
+                                 f"{launches}")
+    del draft
+    emit("serve_resilience", model="llama2-7b", dtype="bfloat16",
+         chaos_env=RESILIENCE_CHAOS, watchdog_timeout_s=WATCHDOG_TIMEOUT_S,
+         stall_s=STALL_S, launches=launches, **res)
+    return launches
+
+
 # -- phases 12, 13 and 14: training ----------------------------------------
 
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -3317,6 +3791,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tenancy = phase_serve_tenancy(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resilience = phase_serve_resilience(model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3337,6 +3814,7 @@ def main() -> int:
                 "serve_durable": durable["launches"],
                 "serve_spec": spec,
                 "serve_tenancy": tenancy,
+                "serve_resilience": resilience,
                 "sigkill_drill": drill["launches"],
                 "train": train["launches"]}
     kernels_line = [{**rec, "launches": launches[name],

@@ -62,7 +62,7 @@ def cached_attention(query: torch.Tensor, k_cache: torch.Tensor,
     first); ``lengths`` ``[B]`` int.  Returns ``[B, 1, H, D]``."""
     T = k_cache.shape[1]
     pos = torch.arange(T, device=query.device)
-    valid = pos[None, :] <= lengths.to(query.device).long()[:, None]
+    valid = pos[None, :] <= lengths.long()[:, None]
     return _masked_attention(query, k_cache, v_cache,
                              valid[:, None, None, :])
 
@@ -80,7 +80,7 @@ def verify_attention(query: torch.Tensor, k_cache: torch.Tensor,
     lengths[b] + i``.  Returns ``[B, W, H, D]``; at W = 1 it is
     :func:`cached_attention`."""
     W, T = query.shape[1], k_cache.shape[1]
-    qpos = lengths.to(query.device).long()[:, None] + torch.arange(
+    qpos = lengths.long()[:, None] + torch.arange(
         W, device=query.device)[None, :]
     kpos = torch.arange(T, device=query.device)
     valid = kpos[None, None, :] <= qpos[:, :, None]          # [B, W, T]

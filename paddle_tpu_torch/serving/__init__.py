@@ -1,7 +1,7 @@
 """Continuous-batching serving of the port: engine, caches, sampling,
 the overload regime, the request tracer, the request journal,
-speculative decoding and multi-tenant serving (LoRA adapter lanes,
-grammar-constrained decoding)."""
+speculative decoding, multi-tenant serving (LoRA adapter lanes,
+grammar-constrained decoding) and the sync sanitizer."""
 from .adapters import AdapterConfig, AdapterPool, make_lora_weights
 from .engine import (
     PRIORITY_HIGH, PRIORITY_LOW, PRIORITY_NORMAL, Engine, EngineStopped,
@@ -14,6 +14,7 @@ from .metrics import ServingMetrics
 from .paging import BlockAllocator, PagedCacheContext, PagedKVCache
 from .prefix_cache import PrefixCache
 from .sampling import DeviceSampler, SamplingParams
+from .sanitize import SyncSanitizer
 from .spec_decode import SpecConfig, SpecState
 from .tracing import (
     NULL_TRACER, FlightRecorder, RequestTracer, validate_trace,
@@ -27,4 +28,4 @@ __all__ = ["Engine", "Request", "QueueFull", "ShedReject", "EngineStopped",
            "ServingMetrics", "SpecConfig", "SpecState", "RequestTracer",
            "NULL_TRACER", "FlightRecorder", "validate_trace",
            "AdapterConfig", "AdapterPool", "make_lora_weights",
-           "GrammarTable", "JsonArrayGrammar"]
+           "GrammarTable", "JsonArrayGrammar", "SyncSanitizer"]

@@ -85,10 +85,30 @@ fails the adapter's in-flight requests with ``error_ctx``).  Every lane
 is data the programs read: one set of programs serves every tenant mix,
 and with no tenant selected the streams are the plain engine's, bitwise.
 
-The opt-in subsystems of the JAX engine that are not part of this port
-yet: fault plans, the sanitizer and the watchdog (ROADMAP.md A.3 step
-6), the prefix-lookup timeout, ``Fleet`` (step 7) and the mesh (step 8),
-with it the sharded tenancy of ``TestShardedTenancy``.
+Resilience, as in the JAX engine: a serving fault plan
+(``fault_plan=``, default :meth:`~..distributed.fault_tolerance.injection.
+ServingFaultPlan.from_env`, ``PADDLE_TPU_FT_SERVING_FAULTS``) checked at
+the same fault points, an injected failure taking the retry and lane
+rewrite of any failed call; a step watchdog (``step_timeout_s=``) that
+turns the engine sticky ``unhealthy`` when a step does not finish in
+time; the sync sanitizer (``PADDLE_TPU_SANITIZE``, :mod:`.sanitize`),
+which counts host coercions in each decode dispatch and runs the card
+under CUDA's sync debug mode around the step call; and the prefix
+cache's degraded mode (a lookup that raises or takes longer than
+``prefix_lookup_timeout_s`` serves as a miss, a registration that raises
+is counted and the request goes on).
+
+A replay returns once its work is enqueued, so on the card a step's
+device time is paid at the host's read of its output.  The watchdog's
+window therefore runs from the step call until that read has returned
+(:meth:`Engine._step_call` arms it, :meth:`Engine._disarm_watchdog`
+after the read ends it), while the sanitizer's counting window keeps
+the JAX engine's boundary and closes before the read: the two windows
+end at different places.  A program's build (its kernels' compile, its
+graph's capture) is not a step: the heartbeat pauses over it.
+
+Not part of this port yet: ``Fleet`` (ROADMAP.md A.3 step 7) and the
+mesh (step 8), with it the sharded tenancy of ``TestShardedTenancy``.
 """
 from __future__ import annotations
 
@@ -98,6 +118,7 @@ import os
 import time
 import weakref
 from collections import OrderedDict, deque
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -105,12 +126,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed.fault_tolerance.injection import ServingFaultPlan
 from .adapters import AdapterConfig, AdapterPool
 from .grammar import GrammarTable
 from .kv_cache import CacheContext, KVCache
 from .metrics import ServingMetrics
 from .programs import StepPrograms
 from .sampling import DeviceSampler, SamplingParams
+from .sanitize import SyncSanitizer
 from .spec_decode import SpecConfig, SpecState
 from .tracing import NULL_TRACER, FlightRecorder, RequestTracer
 
@@ -347,6 +370,15 @@ class Engine:
             program call is retried (with exponential backoff) before the
             requests it serves fail.
         retry_backoff_s: backoff before the first retry.
+        step_timeout_s: the step watchdog's deadline: a step call whose
+            output has not reached the host within it (``startup_factor``
+            times it for the first two steps) turns the engine sticky
+            ``unhealthy`` (``step`` then raises :class:`EngineStopped`).
+            ``None`` starts no watchdog.
+        fault_plan: a :class:`~..distributed.fault_tolerance.injection.
+            ServingFaultPlan` checked at the engine's fault points;
+            default the env-armed plan (``PADDLE_TPU_FT_SERVING_FAULTS``;
+            unset arms nothing).
         kv_layout: ``"contiguous"`` (one ``max_seq`` stripe per slot) or
             ``"paged"`` (block pool, block tables, prefix reuse).
         kernel: paged attention path: ``"auto"``/``"cuda"`` (kernels K4
@@ -358,6 +390,9 @@ class Engine:
             ``num_slots * max_seq / block_size + 1`` (the scratch block).
         enable_prefix_cache: paged only: serve repeated prompt prefixes
             from shared blocks and prefill only the uncached tail.
+        prefix_lookup_timeout_s: a prefix lookup that raises or takes
+            longer than this serves as a miss
+            (``paging.prefix_lookup_errors``).
         max_preemptions: how many times one request may be evicted for a
             higher-priority admission; past it the request is immune.  0
             turns preemption off.
@@ -389,10 +424,12 @@ class Engine:
             its device: constrained decoding;
             requests pick one by ``SamplingParams.grammar``.  ``None``
             adds no grammar lane.
-        step_timeout_s, fault_plan, mesh: not ported; anything but
-            ``None`` raises ``NotImplementedError`` naming its ROADMAP.md
-            item (and so does a speculating engine under
-            ``PADDLE_TPU_SANITIZE``).
+        mesh: not ported; anything but ``None`` raises
+            ``NotImplementedError`` naming its ROADMAP.md item.
+
+    ``PADDLE_TPU_SANITIZE=1|strict`` arms the sync sanitizer
+    (``self.sanitizer``, :class:`~.sanitize.SyncSanitizer`) at
+    construction, speculating or not.
     """
 
     def __init__(self, model: nn.Module, *, num_slots: int = 4,
@@ -405,33 +442,24 @@ class Engine:
                  default_deadline_s: Optional[float] = None,
                  max_step_retries: int = 1,
                  retry_backoff_s: float = 0.05,
+                 step_timeout_s: Optional[float] = None,
+                 fault_plan=None,
                  kv_layout: str = "contiguous",
                  kernel: str = "auto", block_size: int = 16,
                  num_kv_blocks: Optional[int] = None,
                  enable_prefix_cache: bool = True,
+                 prefix_lookup_timeout_s: float = 0.25,
                  max_preemptions: int = 2,
                  priority_aging_s: Optional[float] = 5.0,
                  tracer=None,
                  flight_recorder_steps: int = 256,
                  journal=None,
                  speculation: Optional[SpecConfig] = None,
-                 adapters=None, grammars=None, step_timeout_s=None,
-                 fault_plan=None, mesh=None):
-        for what, value, item in (
-                ("step_timeout_s", step_timeout_s,
-                 "A.3 step 6, the step watchdog"),
-                ("fault_plan", fault_plan, "A.3 step 6, fault plans"),
-                ("mesh", mesh, "A.3 step 8, sharded serving")):
-            if value is not None:
-                raise NotImplementedError(
-                    f"Engine({what}=...) is not ported yet (ROADMAP.md "
-                    f"{item})")
-        if speculation is not None and os.environ.get("PADDLE_TPU_SANITIZE",
-                                                      "0") not in ("", "0"):
+                 adapters=None, grammars=None, mesh=None):
+        if mesh is not None:
             raise NotImplementedError(
-                "PADDLE_TPU_SANITIZE asks for the sync sanitizer's window "
-                "around a speculative round, which is not ported yet "
-                "(ROADMAP.md A.3 step 6, the sanitizer)")
+                "Engine(mesh=...) is not ported yet (ROADMAP.md A.3 step 8, "
+                "sharded serving)")
         cfg = getattr(model, "config", None)
         if cfg is None:
             raise TypeError("Engine needs a model carrying a .config "
@@ -459,6 +487,8 @@ class Engine:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if max_step_retries < 0:
             raise ValueError("max_step_retries must be >= 0")
+        if step_timeout_s is not None and step_timeout_s <= 0:
+            raise ValueError("step_timeout_s must be > 0")
         if max_preemptions < 0:
             raise ValueError("max_preemptions must be >= 0")
         if priority_aging_s is not None and priority_aging_s <= 0:
@@ -479,6 +509,7 @@ class Engine:
         kv_heads = getattr(cfg, "n_kv_heads", None) or \
             cfg.num_attention_heads
         self.prefix_cache = None
+        self.prefix_lookup_timeout_s = float(prefix_lookup_timeout_s)
         if kv_layout == "paged":
             from .paging import PagedKVCache
             from .prefix_cache import PrefixCache
@@ -541,6 +572,18 @@ class Engine:
         self.default_deadline_s = default_deadline_s
         self.max_step_retries = int(max_step_retries)
         self.retry_backoff_s = float(retry_backoff_s)
+        self.step_timeout_s = step_timeout_s
+        # the watchdog thread starts at the first armed step; _armed says
+        # whether its heartbeat runs now (a step call until its read)
+        self._watchdog = None
+        self._arm_counter = 0
+        self._armed = False
+        if fault_plan is None:
+            fault_plan = ServingFaultPlan.from_env()
+        self.fault_plan = fault_plan
+        # the sync sanitizer (PADDLE_TPU_SANITIZE=1|strict); None costs
+        # nothing
+        self.sanitizer = SyncSanitizer.from_env()
         self.max_preemptions = int(max_preemptions)
         self.priority_aging_s = None if priority_aging_s is None \
             else float(priority_aging_s)
@@ -676,40 +719,137 @@ class Engine:
             # round's start
             self.spec.restore_lanes()
 
+    def _program(self, key, body, *inputs) -> torch.Tensor:
+        """Run step program ``key`` (:meth:`StepPrograms.run`); its first
+        call, which builds it, runs under :meth:`_building`."""
+        if key in self.programs:
+            return self.programs.run(key, body, *inputs)
+        with self._building():
+            return self.programs.run(key, body, *inputs)
+
     def _run_prefill(self, ids: np.ndarray, slot: int, length: int,
                      start: int = 0) -> torch.Tensor:
         """The prefill program of ``ids``'s bucket on this admission."""
         meta = np.array([slot, length, start], dtype=np.int32)
-        return self.programs.run(("prefill", ids.shape[1]),
-                                 self._prefill_step, ids, meta)
+        return self._program(("prefill", ids.shape[1]), self._prefill_step,
+                             ids, meta)
 
     def _run_decode(self, active: np.ndarray) -> torch.Tensor:
-        return self.programs.run(("decode",), self._decode_step, active)
+        return self._program(("decode",), self._decode_step, active)
 
     def _run_draft_prefill(self, ids: np.ndarray, slot: int,
                            length: int) -> torch.Tensor:
         """The draft prefill program of ``ids``'s bucket."""
         meta = np.array([slot, length], dtype=np.int32)
-        return self.programs.run(("draft_prefill", ids.shape[1]),
-                                 self.spec.draft_prefill, ids, meta)
+        return self._program(("draft_prefill", ids.shape[1]),
+                             self.spec.draft_prefill, ids, meta)
 
     def _run_draft_decode(self, active: np.ndarray, j: int) -> torch.Tensor:
-        return self.programs.run(("draft_decode",), self.spec.draft_decode,
-                                 active, np.array([j], dtype=np.int32))
+        return self._program(("draft_decode",), self.spec.draft_decode,
+                             active, np.array([j], dtype=np.int32))
 
     def _run_verify(self, active: np.ndarray,
                     cap: np.ndarray) -> torch.Tensor:
-        return self.programs.run(("verify",), self.spec.verify, active, cap)
+        return self._program(("verify",), self.spec.verify, active, cap)
+
+    # -- resilience plumbing -------------------------------------------------
+
+    def _fault(self, point: str) -> None:
+        if self.fault_plan is not None and self.fault_plan.armed:
+            self.fault_plan.check(point)
+
+    def _mark_wedged(self) -> None:
+        """The watchdog fired (on its own thread, while this engine's
+        thread is stalled in a step or blocked in the read of its output):
+        the engine turns sticky ``unhealthy``, freezes its flight ring and
+        tells the tracer.  Host work only: nothing here touches the
+        device, which may be the thing that is stalled."""
+        if self.state != "unhealthy":
+            self._unhealthy_reason = (
+                f"step watchdog fired: no step completion within "
+                f"{self.step_timeout_s}s (stacks dumped to stderr)")
+            self.state = "unhealthy"
+            self.flight.dump(self._unhealthy_reason)
+            self.tracer.on_unhealthy(self.name, self._unhealthy_reason)
+
+    def _arm_watchdog(self) -> None:
+        """Start the heartbeat of one step call (a new boundary); the
+        watchdog thread starts at the first."""
+        if self.step_timeout_s is None:
+            return
+        if self._watchdog is None:
+            from ..distributed.fault_tolerance.watchdog import StepWatchdog
+
+            # the thread must not pin the engine (model, KV cache,
+            # graphs): its callbacks reach it through a weakref, and a
+            # collected engine's thread is told to exit (Event.set is
+            # safe in a finalizer; joining is not)
+            wref = weakref.ref(self)
+
+            def _on_timeout():
+                eng = wref()
+                if eng is not None:
+                    eng._mark_wedged()
+
+            def _last_program():
+                eng = wref()
+                return None if eng is None else eng.programs.last_key
+
+            self._watchdog = StepWatchdog(
+                self.step_timeout_s, hard_exit=False,
+                on_timeout=_on_timeout, last_op=_last_program)
+            self._watchdog.start()
+            weakref.finalize(self, self._watchdog.request_stop)
+        self._arm_counter += 1
+        self._watchdog.notify(self._arm_counter)
+        self._armed = True
+
+    def _disarm_watchdog(self) -> None:
+        """End the heartbeat: the step's output has reached the host (or
+        the call failed)."""
+        if self._watchdog is not None:
+            self._watchdog.pause()
+        self._armed = False
+
+    def _stop_watchdog(self) -> None:
+        """Join and drop the watchdog thread, so that a stopped engine
+        holds no thread (nor, through it, its graphs)."""
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = None
+        self._armed = False
+
+    @contextmanager
+    def _building(self):
+        """A program's build (its kernels' compile at their first use, its
+        graph's capture) is not a step: an armed heartbeat pauses over it
+        and restarts after."""
+        armed = self._armed
+        if armed:
+            self._watchdog.pause()
+        try:
+            yield
+        finally:
+            if armed:
+                self._watchdog.notify(self._arm_counter)
 
     def _step_call(self, point: str, call: Callable[[], torch.Tensor],
-                   undo: Callable[[], None]) -> torch.Tensor:
-        """One step program call (``call``) with a bounded retry.  A
-        program writes its state in place while it runs, so a failed call
-        may have moved it (if it failed after its replay was enqueued) or
-        not (if it failed before): ``undo`` rewrites that state as the
-        failed call found it, which is right either way, before the next
-        attempt.  Adds no device-to-host sync.  Raises the last error once
-        ``max_step_retries`` retries failed."""
+                   undo: Callable[[], None], *,
+                   check: bool = True) -> torch.Tensor:
+        """One step program call (``call``) with the watchdog armed, the
+        fault plan's ``point`` checked before it (unless ``check`` is
+        False: a round's ``call`` checks its own points), and a bounded
+        retry.
+        A program writes its state in place while it runs, so a failed
+        call may have moved it (if it failed after its replay was
+        enqueued) or not (if it failed before, an injected fault
+        included): ``undo`` rewrites that state as the failed call found
+        it, which is right either way, before the next attempt.  Adds no
+        device-to-host sync.  Returns with the watchdog still armed: a
+        replay returns before the device has run it, so the caller
+        disarms once it has read the output (:meth:`_disarm_watchdog`).
+        Raises the last error, disarmed, once ``max_step_retries``
+        retries failed."""
         last_err = None
         for attempt in range(self.max_step_retries + 1):
             if attempt:
@@ -717,8 +857,12 @@ class Engine:
                 time.sleep(self.retry_backoff_s * (2 ** (attempt - 1)))
                 undo()
             try:
+                self._arm_watchdog()
+                if check:
+                    self._fault(point)
                 out = call()
             except Exception as e:       # noqa: BLE001 — isolated upstream
+                self._disarm_watchdog()
                 last_err = e
                 self._consecutive_failures += 1
                 self.metrics.on_step_failure(point)
@@ -1207,9 +1351,12 @@ class Engine:
         scratch.  The next decode finds the slot inactive."""
         slot = victim.slot
         if self.prefix_cache is not None:
-            self.prefix_cache.register(victim.prompt_ids,
-                                       self.cache.owned_blocks(slot),
-                                       salt=self._tenant_salt(victim))
+            try:
+                self.prefix_cache.register(victim.prompt_ids,
+                                           self.cache.owned_blocks(slot),
+                                           salt=self._tenant_salt(victim))
+            except Exception:            # noqa: BLE001 — isolation boundary
+                self.metrics.on_prefix_register_error()
         try:
             self.cache.release_slot(slot)
         except Exception as e:           # noqa: BLE001 — accounting bug
@@ -1255,10 +1402,29 @@ class Engine:
             return f"{a}@v{v}#unloaded".encode()
 
     def _prefix_lookup(self, req: Request):
+        """The longest cached prefix of the prompt, ``(n_tokens,
+        block_ids)``.  A lookup that raises, or that returns after
+        ``prefix_lookup_timeout_s``, serves as a plain miss: the request
+        prefills its whole prompt, no block was referenced (a lookup takes
+        no reference), and ``prefix_lookup_errors`` counts it.  The
+        hit-rate is recorded by the caller after the partial-hit cap, so a
+        discarded result counts as a miss there."""
         if self.prefix_cache is None:
             return 0, []
-        return self.prefix_cache.lookup(req.prompt_ids, count=False,
-                                        salt=self._tenant_salt(req))
+        t0 = time.perf_counter()
+        try:
+            self._fault("serving.prefix_lookup")
+            hit = self.prefix_cache.lookup(req.prompt_ids, count=False,
+                                           salt=self._tenant_salt(req))
+        except Exception:                # noqa: BLE001 — isolation boundary
+            self.metrics.on_prefix_lookup_error()
+            return 0, []
+        if time.perf_counter() - t0 > self.prefix_lookup_timeout_s:
+            # over budget: a degraded subsystem; its late result is
+            # discarded (the lookup is synchronous, its stall is spent)
+            self.metrics.on_prefix_lookup_error()
+            return 0, []
+        return hit
 
     def _stage(self, req: Request) -> None:
         """Stage the request's sampling lanes into its slot: its
@@ -1335,9 +1501,14 @@ class Engine:
         if tok is None:
             return "failed", None, bucket, P
         if self.prefix_cache is not None:
-            self.prefix_cache.register(req.prompt_ids,
-                                       self.cache.owned_blocks(req.slot),
-                                       salt=self._tenant_salt(req))
+            # this prompt's whole blocks become hittable; a registration
+            # that raises costs later requests their hit, not this one
+            try:
+                self.prefix_cache.register(req.prompt_ids,
+                                           self.cache.owned_blocks(req.slot),
+                                           salt=self._tenant_salt(req))
+            except Exception:            # noqa: BLE001 — isolation boundary
+                self.metrics.on_prefix_register_error()
         return "ok", tok, bucket, P
 
     def _admit(self, req: Request) -> Optional[bool]:
@@ -1370,8 +1541,12 @@ class Engine:
             tok_t = self._prefill_call(req, ids, L)
             if tok_t is None:
                 return None
-        # waits for the prefill; read before any other program runs
-        tok = int(tok_t)
+        # waits for the prefill; read before any other program runs.  The
+        # prefill's watchdog window ends here, where its device time is paid
+        try:
+            tok = int(tok_t)
+        finally:
+            self._disarm_watchdog()
         if self.spec is not None and not self._spec_admit(req, L):
             return None
         now = time.perf_counter()
@@ -1410,6 +1585,9 @@ class Engine:
                 lambda: self._run_draft_prefill(ids, req.slot, L),
                 lambda: self.spec.stage_slot(req.slot, req.sampling,
                                              self._seed_for(req)))
+            # its output is never read: its device time is paid at the
+            # next read, under that step's heartbeat
+            self._disarm_watchdog()
         except Exception as e:           # noqa: BLE001 — isolation boundary
             n = self.max_step_retries
             self._retire(req, "failed",
@@ -1428,6 +1606,7 @@ class Engine:
         req.output_ids.append(int(tok))
         if req.stream_cb is not None:
             try:
+                self._fault("serving.stream_cb")
                 req.stream_cb(int(tok), req)
             except Exception as e:       # noqa: BLE001 — per-request boundary
                 self.metrics.on_callback_error()
@@ -1535,11 +1714,18 @@ class Engine:
         for slot in self.running:
             active[slot] = 1
         t0 = time.perf_counter()
+        san = self.sanitizer
         try:
-            out = self._step_call("serving.decode",
-                                  lambda: self._run_decode(active),
-                                  self._restore_lanes)
+            # the step call must not read the card: the sanitizer runs it
+            # under CUDA's sync debug mode (an error when strict)
+            with (nullcontext() if san is None
+                  else san.compiled_guard(self.device)):
+                out = self._step_call("serving.decode",
+                                      lambda: self._run_decode(active),
+                                      self._restore_lanes)
         except Exception as e:           # noqa: BLE001 — isolation boundary
+            if san is not None:
+                san.count_violation(e)
             n = self.max_step_retries
             msg = (f"decode step failed after {n} "
                    f"retr{'y' if n == 1 else 'ies'}: "
@@ -1547,13 +1733,19 @@ class Engine:
             for req in list(self.running.values()):
                 self._retire(req, "failed", error=msg, kind="replica")
             return None
+        if san is not None:
+            san.note_step()
         return out, t0
 
     def _deliver_tokens(self, out: torch.Tensor, t0: float) -> None:
         """Pull the ``[slots]`` sampled tokens (the step's one device to
-        host copy, before any other program runs), then run callbacks and
-        stop checks."""
-        toks = out.cpu().numpy()
+        host copy, before any other program runs, outside the sanitizer's
+        window and the end of the watchdog's), then run callbacks and stop
+        checks."""
+        try:
+            toks = out.cpu().numpy()
+        finally:
+            self._disarm_watchdog()
         now = time.perf_counter()
         if self.journal is not None:
             # one batched record per engine step for every running slot,
@@ -1635,15 +1827,23 @@ class Engine:
                                    self.max_seq - req._seq_len))
 
         def round_() -> torch.Tensor:
+            # the JAX engine's fault points: each draft step, the verify
             for j in range(spec.k):
+                self._fault("serving.spec_draft")
                 self._run_draft_decode(active, j)
+            self._fault("serving.spec_verify")
             return self._run_verify(active, cap)
 
         t0 = time.perf_counter()
+        san = self.sanitizer
         try:
-            out = self._step_call("serving.spec_round", round_,
-                                  self._restore_lanes)
+            with (nullcontext() if san is None
+                  else san.compiled_guard(self.device)):
+                out = self._step_call("serving.spec_round", round_,
+                                      self._restore_lanes, check=False)
         except Exception as e:           # noqa: BLE001 — isolation boundary
+            if san is not None:
+                san.count_violation(e)
             n = self.max_step_retries
             msg = (f"speculative round failed after {n} "
                    f"retr{'y' if n == 1 else 'ies'}: "
@@ -1651,6 +1851,8 @@ class Engine:
             for req in list(self.running.values()):
                 self._retire(req, "failed", error=msg, kind="replica")
             return None
+        if san is not None:
+            san.note_step()              # one round is one counted step
         return out, t0
 
     def _deliver_spec(self, out: torch.Tensor, t0: float) -> None:
@@ -1659,7 +1861,10 @@ class Engine:
         stop token, one journal record and one tracer event for the round,
         the lengths mirrored, the paged table truncated past the accepted
         length, the emits and the retirements."""
-        arr = out.cpu().numpy()
+        try:
+            arr = out.cpu().numpy()
+        finally:
+            self._disarm_watchdog()
         now = time.perf_counter()
         spec = self.spec
         running = list(self.running.items())
@@ -1775,14 +1980,17 @@ class Engine:
                                        "pool can supply")
                 break
         self.metrics.on_slots(len(self.running))
-        if self.running and self.spec is not None:
-            res = self._spec_round_body()
-            if res is not None:
-                self._deliver_spec(*res)
-        elif self.running:
-            res = self._decode_body()
-            if res is not None:
+        if self.running:
+            # the dispatch runs in the sanitizer's counting window; the
+            # delivery's token pull comes after it
+            san = self.sanitizer
+            with (nullcontext() if san is None else san.decode_window()):
+                res = (self._decode_body() if self.spec is None
+                       else self._spec_round_body())
+            if res is not None and self.spec is None:
                 self._deliver_tokens(*res)
+            elif res is not None:
+                self._deliver_spec(*res)
         self._step_counter += 1
         summary = dict(step=self._step_counter, running=len(self.running),
                        queued=len(self.queue))
@@ -1824,6 +2032,7 @@ class Engine:
                 break                    # unhealthy mid-drain: sticky
         if self.state == "draining" and not (self.running or self.queue):
             self.state = "stopped"
+            self._stop_watchdog()
         return self.stats()
 
     def shutdown(self, timeout_s: Optional[float] = None) -> dict:
@@ -1850,6 +2059,7 @@ class Engine:
         self.metrics.queue_depth = 0
         if self.state != "unhealthy":
             self.state = "stopped"
+        self._stop_watchdog()
         return self.stats()
 
     # -- durability: crash recovery and weight hot swap --------------------
@@ -2111,19 +2321,29 @@ class Engine:
                 "blocks": al, "blocks_in_use": al["used"] + al["cached"],
                 "copy_on_extends": self.cache.copy_on_extends,
                 "prefix": (self.prefix_cache.stats()
-                           if self.prefix_cache is not None else None)}
+                           if self.prefix_cache is not None else None),
+                "prefix_lookup_errors": self.metrics.prefix_lookup_errors,
+                "prefix_register_errors":
+                    self.metrics.prefix_register_errors}
 
     def health(self) -> dict:
         """Liveness snapshot: the engine's ``state`` (and why it is
-        unhealthy), steps, failures and capacity; in the paged layout
-        also the block allocator's invariant audit (``"ok"`` or the
-        violations), a violation turning the engine ``unhealthy``."""
+        unhealthy), steps, failures and capacity, and whether the step
+        watchdog protects the next steps (``watchdog_armed``: configured,
+        the engine still stepping, the monitor not fired or stopped); in
+        the paged layout also the block allocator's invariant audit
+        (``"ok"`` or the violations), a violation turning the engine
+        ``unhealthy``."""
         out = {"state": self.state, "reason": self._unhealthy_reason,
                "steps": self._step_counter,
                "consecutive_step_failures": self._consecutive_failures,
                "queue_depth": len(self.queue),
                "slots_free": len(self.free_slots),
-               "slots_total": self.num_slots}
+               "slots_total": self.num_slots,
+               "watchdog_armed": bool(
+                   self.step_timeout_s is not None
+                   and self.state in ("active", "draining")
+                   and (self._watchdog is None or self._watchdog.alive))}
         if self.kv_layout == "paged":
             violations = self.cache.check_invariants()
             if violations:
@@ -2138,8 +2358,8 @@ class Engine:
 
     def stats(self) -> dict:
         """``/stats``-style snapshot: the serving metrics, the health
-        audit, paged, the pool and prefix-cache gauges, and, with a live
-        tracer, its summary."""
+        audit, paged, the pool and prefix-cache gauges, with a sanitizer
+        its report, and, with a live tracer, its summary."""
         self.metrics._slots_busy = len(self.running)
         self.metrics.queue_depth = len(self.queue)
         snap = self.metrics.snapshot()
@@ -2160,6 +2380,8 @@ class Engine:
                 "grammars": list(gt.names) if gt is not None else []}
         if self.journal is not None:
             snap["durability"]["journal"] = self.journal.stats()
+        if self.sanitizer is not None:
+            snap["sanitizer"] = self.sanitizer.report()
         if self.tracer.enabled:
             snap["tracing"] = self.tracer.snapshot()
         return snap

@@ -10,7 +10,9 @@ model version), the speculative rounds' counters (rounds, draft and
 verify steps, proposed and accepted draft tokens), and the per-tenant
 section (``tenants``: TTFT, completed, failed and tokens by tenant label,
 the adapter name, ``"grammar:<name>"`` or ``"base"``; adapter loads and
-unloads).
+unloads), and the prefix cache's degraded mode (lookups that raised or
+ran past their budget and served as misses, and registrations that
+raised), which ``stats()["paging"]`` shows.
 
 A slice of ``paddle_tpu/serving/metrics.py``.  Times are host clock
 (``perf_counter``) around work that ends in a device synchronisation: a
@@ -62,6 +64,10 @@ class ServingMetrics:
         self.requests_cancelled = 0
         self.deadline_expired = 0
         self.callback_errors = 0
+        # the prefix cache's degraded mode: lookups that raised or ran past
+        # their budget (served as misses) and registrations that raised
+        self.prefix_lookup_errors = 0
+        self.prefix_register_errors = 0
         # preemption evictions and SLO-shed admissions (a shed also
         # counts as a rejection; this counter names the cause)
         self.requests_preempted = 0
@@ -230,6 +236,18 @@ class ServingMetrics:
 
     def on_callback_error(self) -> None:
         self.callback_errors += 1
+
+    def on_prefix_lookup_error(self) -> None:
+        """A raising or over-budget prefix-cache lookup served as a miss
+        (the request prefills its whole prompt)."""
+        self.prefix_lookup_errors += 1
+
+    def on_prefix_register_error(self) -> None:
+        """Registering a prompt's blocks for reuse raised: the request is
+        unaffected, later requests just cannot hit this prompt.  Counted
+        apart from lookup errors, so the two degraded modes stay
+        distinguishable."""
+        self.prefix_register_errors += 1
 
     def on_preempt(self, depth: int) -> None:
         """A running request was evicted for a higher-priority admission

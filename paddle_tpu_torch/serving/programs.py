@@ -32,7 +32,7 @@ another's output: the caller reads each program's output (``int(tok)``,
 from __future__ import annotations
 
 import gc
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,12 +64,19 @@ class StepPrograms:
         self.device = torch.device(device)
         self._on_compile = on_compile
         self._programs: Dict[Tuple, _Program] = {}
+        #: the key of the last program called: what a stalled step was
+        #: running, in the step watchdog's report
+        self.last_key: Optional[Tuple] = None
         if self.device.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
 
     def keys(self) -> List[Tuple]:
         return list(self._programs)
+
+    def __contains__(self, key: Tuple) -> bool:
+        """Whether program ``key`` is built (its next call replays)."""
+        return key in self._programs
 
     def run(self, key: Tuple, body: Callable[..., torch.Tensor],
             *inputs: np.ndarray) -> torch.Tensor:
@@ -78,6 +85,7 @@ class StepPrograms:
         ``body`` maps the device buffers to one output tensor; it is run
         or captured only at the key's first call.  Returns the output,
         valid until the next program of this registry runs."""
+        self.last_key = key
         prog = self._programs.get(key)
         if prog is None:
             statics = [torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,

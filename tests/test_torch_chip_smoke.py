@@ -560,3 +560,53 @@ def test_check_tenancy_parity_names_what_differs():
         chip_smoke.check_tenancy_parity(res, "x")
     res["preempt"] = ([[3]], [[3]])
     chip_smoke.check_tenancy_parity(res, "x")
+
+
+def test_serve_resilience_phase_on_tiny_cpu():
+    """serve_resilience's drive over ``llama_tiny`` with a 1-layer draft
+    (paged, 8 slots, block 8): the chaos plan from the environment,
+    exhausted retries, the raising and stalled prefix lookups, the
+    watchdog on a host stall, the strict sanitized engines and the
+    arming cost in turns.  Two parts are card-only and skipped here: (e),
+    the device stall (``torch.cuda._sleep``), and the strict guard's
+    error in (f)'s control (on the CPU the guard is a null context, so
+    the control's reads are counted and its request finishes)."""
+    model = _tiny_llama(0)
+    draft = LlamaForCausalLM(llama_tiny(num_hidden_layers=1,
+                                        max_position_embeddings=2048),
+                             device="cpu",
+                             generator=torch.Generator().manual_seed(1)
+                             ).eval()
+    engine = dict(kv_layout="paged", block_size=8, min_bucket=8,
+                  num_slots=8)
+    res = chip_smoke.run_serve_resilience(
+        model, draft, chip_smoke.make_requests(128, 4, 24, [8, 30, 3, 17],
+                                               seed=11), 8,
+        chip_smoke.make_requests(128, 6, 16, [5, 20, 9], seed=0), 6,
+        rounds=1, big=dict(engine, max_seq=128),
+        small=dict(engine, max_seq=64))
+    a = res["chaos"]
+    assert a["failed"] == [2] and a["streams_equal_unfaulted"] == 3
+    assert a["retries_by_point"] == {"serving.decode": 1}
+    assert a["allocator"] == {"invariants": "ok", "blocks_in_use": 0}
+    assert a["compile_cache"]["after_warmup"] == 0
+    assert res["exhausted"] == {"batch": ["failed", "failed"],
+                                "next_equal": True}
+    assert res["prefix_lookup"]["errors"] == 2
+    wd = res["watchdog_host"]
+    assert (wd["state"], wd["watchdog_armed"], wd["request"]) == (
+        "unhealthy", False, "cancelled")
+    assert "watchdog_device" not in res          # card-only
+    san = res["sanitizer"]
+    for label in ("plain", f"spec k={chip_smoke.SPEC_K}"):
+        assert san[label]["per_decode_step"] == 0.0
+        assert san[label]["decode_steps"] == san[label]["steps_run"] > 0
+    ctl = san["control"]
+    assert ctl["request"] == "finished" and ctl["guard_violations"] == 0
+    assert ctl["counted"] == 7                   # one read a decode step
+    cost = res["arming_cost"]
+    assert [n for n in cost if n != "sanitizer_reports"] == [
+        n for n, _, _ in chip_smoke.ARMINGS]
+    assert set(cost["none"]) == {"itl_p50_ms", "tokens_per_s",
+                                 "ttft_p50_ms"}
+    assert cost["sanitizer_reports"]["sanitize_strict"]["strict"]

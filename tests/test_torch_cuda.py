@@ -1044,3 +1044,85 @@ def test_tenant_graph_streams_equal_eager_bodies(cuda_device, layout):
             assert spec.accepts(g, 512), g
             e = e[:e.index(2) + 1] if 2 in e else e
         assert g == e
+
+
+# -- resilience: the watchdog and the sync sanitizer over replayed graphs ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_watchdog_fires_on_a_device_stall(cuda_device, layout):
+    """A ~3 s ``torch.cuda._sleep`` enqueued after decode replay #3: the
+    replay returns at once and the step's time is paid at the token read,
+    inside the heartbeat, so the 0.5 s watchdog fires; the engine stays
+    unhealthy and shutdown joins the thread.  (A heartbeat that ends at
+    the call would not fire here.)"""
+    eng = Engine(_small_model("llama", cuda_device), kv_layout=layout,
+                 **_ENGINE_KW, step_timeout_s=chip_smoke.WATCHDOG_TIMEOUT_S)
+    res = chip_smoke.watchdog_stall(eng, list(range(20)), "device")
+    assert res["state"] == "unhealthy" and res["request"] == "cancelled"
+    assert res["wall_s"] >= chip_smoke.STALL_S * 0.8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_step_timeout_without_warmup_does_not_fire(cuda_device, layout):
+    """``step_timeout_s=0.5`` and no ``warmup()``: every program is built
+    (its kernels loaded, its graph captured) at its first call, inside a
+    step, which the heartbeat does not count; serving finishes healthy."""
+    eng = Engine(_small_model("gpt", cuda_device), kv_layout=layout,
+                 **_ENGINE_KW, step_timeout_s=0.5)
+    rs = np.random.RandomState(3)           # no shared prefix: 4 buckets
+    reqs = [eng.add_request(rs.randint(0, 512, (n,)).tolist(),
+                            max_new_tokens=6) for n in (5, 40, 100, 200)]
+    eng.run()
+    assert all(r.finished for r in reqs)
+    assert eng.state == "active" and not eng._watchdog.fired
+    assert eng.health()["watchdog_armed"]
+    assert len(eng.programs.keys()) == 5         # 16, 64, 128, 256, decode
+    eng.shutdown()
+    assert eng._watchdog is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_strict_sanitizer_sees_no_sync(cuda_device, monkeypatch, layout,
+                                       spec):
+    """Strict engines built under ``PADDLE_TPU_SANITIZE=strict``, warmed
+    or not: every replayed decode step or round runs under
+    ``set_sync_debug_mode("error")`` without a sync, 0.0 host transfers a
+    step, and the previous debug mode is back after."""
+    model = _small_model("llama", cuda_device)
+    kw = {"speculation": SpecConfig(draft_model=_small_model(
+        "llama", cuda_device, seed=3), k=3)} if spec else {}
+    monkeypatch.setenv("PADDLE_TPU_SANITIZE", "strict")
+    eng = Engine(model, kv_layout=layout, **_ENGINE_KW, **kw)
+    monkeypatch.delenv("PADDLE_TPU_SANITIZE")
+    reqs = chip_smoke.make_requests(512, 3, 20, [3, 30, 17], seed=6)
+    cold = [eng.add_request(p, sampling=s, max_new_tokens=8)
+            for p, s in reqs]
+    eng.run()                                   # builds inside the steps
+    assert all(r.finished for r in cold)
+    rep = chip_smoke.sanitized_run(eng, reqs, 8)
+    assert rep["per_decode_step"] == 0.0 and rep["guard_violations"] == 0
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_strict_guard_fails_a_syncing_batch(cuda_device, monkeypatch):
+    """The negative control: a read of the replay's output on the host
+    inside the dispatch is counted at its line and, under the strict
+    guard, raises; the batch fails after its retry (one violation) and
+    the engine serves the next request."""
+    monkeypatch.setenv("PADDLE_TPU_SANITIZE", "strict")
+    eng = Engine(_small_model("gpt", cuda_device), kv_layout="paged",
+                 **_ENGINE_KW)
+    monkeypatch.delenv("PADDLE_TPU_SANITIZE")
+    eng.warmup()
+    reqs = chip_smoke.make_requests(512, 2, 20, [5, 9], seed=7)
+    res = chip_smoke.sanitizer_control(eng, reqs[0], 8)
+    assert res["request"] == "failed" and res["guard_violations"] == 1
+    r = eng.add_request(reqs[1][0], sampling=reqs[1][1], max_new_tokens=8)
+    eng.run()
+    assert r.finished and eng.state == "active"
+    assert torch.cuda.get_sync_debug_mode() == 0

@@ -11,11 +11,11 @@ stated where they arise: a sampled stream is compared within the port
 falls between two decode steps by the host clock, each side's tokens
 must be a prefix of the other's.
 
-Failures are injected into the JAX engine through its fault plan, which
-raises before a step program runs.  The port's are injected by wrapping
-``engine.programs.run``, raising either before the program or after it
-ran (its replay enqueued, its in-place state moved): the streams must be
-the same either way.
+Failures are injected into both engines through their fault plans, which
+raise before a step program runs.  The port's are also injected by
+wrapping ``engine.programs.run`` and raising after the program ran (its
+replay enqueued, its in-place state moved): the streams must be the same
+either way.
 
 Two module-scope pairs of engines serve the compiled scenarios: a paged
 one (2 slots, buckets 16 and 32) and a contiguous one (2 slots, one
@@ -36,6 +36,9 @@ from paddle_tpu.distributed.fault_tolerance.injection import (
 )
 from paddle_tpu.models import gpt as jax_gpt
 import paddle_tpu_torch.serving as port_serving
+from paddle_tpu_torch.distributed.fault_tolerance.injection import (
+    ServingFaultPlan as PortServingFaultPlan,
+)
 from paddle_tpu_torch.models import (
     GPTForCausalLM, from_jax_state_dict, gpt_tiny,
 )
@@ -165,11 +168,15 @@ class Flaky:
 
 def _inject(api, eng, kind, at_call, times, when):
     """Fail ``times`` calls of ``kind`` from the ``at_call``-th on; returns
-    what undoes it."""
-    if api is JAX:
-        eng.fault_plan = ServingFaultPlan().add(f"serving.{kind}",
-                                                at_call=at_call, times=times)
-        return lambda: setattr(eng, "fault_plan", ServingFaultPlan())
+    what undoes it.  A failure ``before`` the program is the fault plan's,
+    in either package; one ``after`` it ran (its replay enqueued, its
+    in-place state moved) has no JAX counterpart and wraps the port's
+    ``programs.run``."""
+    if api is JAX or when == "before":
+        plan = ServingFaultPlan if api is JAX else PortServingFaultPlan
+        eng.fault_plan = plan().add(f"serving.{kind}", at_call=at_call,
+                                    times=times)
+        return lambda: setattr(eng, "fault_plan", plan())
     return Flaky(eng, kind, range(at_call, at_call + times), when).remove
 
 

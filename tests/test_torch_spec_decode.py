@@ -750,18 +750,31 @@ class TestConfig:
                 eng_cls(model, **ENG,
                         speculation=spec_cls(draft_model=draft, k=K))
 
-    @pytest.mark.parametrize("kw", ["step_timeout_s", "fault_plan", "mesh"])
+    @pytest.mark.parametrize("kw", ["mesh"])
     def test_unported_subsystems_raise(self, gpt, gpt_draft, kw):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
             Engine(gpt[1], **ENG, **{kw: object()},
                    speculation=SpecConfig(draft_model=gpt_draft[1], k=K))
 
-    def test_sanitized_rounds_raise(self, gpt, gpt_draft, monkeypatch):
+    @pytest.mark.parametrize("layout", ["contiguous", "paged"])
+    def test_sanitized_rounds_raise(self, gpt, gpt_draft, monkeypatch,
+                                    layout):
+        """A speculating engine under ``PADDLE_TPU_SANITIZE`` constructs in
+        both packages, and its rounds raise no host transfer: 0.0 per
+        decode step (a round is one counted step), the same report as
+        the JAX engine's."""
         monkeypatch.setenv("PADDLE_TPU_SANITIZE", "1")
-        with pytest.raises(NotImplementedError, match="A.3 step 6"):
-            Engine(gpt[1], **ENG,
-                   speculation=SpecConfig(draft_model=gpt_draft[1], k=K))
-        Engine(gpt[1], **ENG)            # without speculation: no window
+        kw = dict(ENG, **(PAGED if layout == "paged" else {}))
+        reps = []
+        for eng_cls, spec_cls, i in ((JaxEngine, JaxSpecConfig, 0),
+                                     (Engine, SpecConfig, 1)):
+            eng = eng_cls(gpt[i], **kw, speculation=spec_cls(
+                draft_model=gpt_draft[i], k=K))
+            eng.generate(PROMPTS[:2], max_new_tokens=8)
+            reps.append(eng.stats()["sanitizer"])
+        assert reps[1] == reps[0]
+        assert reps[1]["decode_steps"] > 0
+        assert reps[1]["per_decode_step"] == 0.0, reps[1]
 
 
 # -- module parity --------------------------------------------------------------

@@ -165,6 +165,28 @@ Phases, each printing one JSON line with the card's name and power limit:
               the strict guard; (g) ITL, tokens/s and TTFT of
               serve_paged's traffic with nothing armed, a 5 s watchdog,
               ``PADDLE_TPU_SANITIZE=1`` and ``=strict``, in turns.
+20. serve_fleet — serve_paged's Llama-2 7B (after serve_resilience) as
+              the template of a weight-isolated ``Fleet`` of two paged
+              replicas (8 slots, max_seq 2048) with a request tracer: (a)
+              serve_paged's 12 requests in two waves of 6 (the second,
+              after the first's prefills, routed by prefix affinity), in
+              turns with a bare engine of the same kwargs (FEEF × 2):
+              dispatches per replica, affinity hits, TTFT of the hits
+              against the first wave, ITL, client ITL, TTFT and tokens/s,
+              the host ms of a supervision pass; (b) three failover
+              cycles: replica 1's decode fails both attempts mid-stream
+              (the first request pinned to it), every request ends once,
+              finished, with the stream it had in (a) (each engine primed
+              with the system prompt, so a stream does not depend on its
+              replica), ejection, replay and rebuild once a cycle, no
+              program built past warmup, ``memory_allocated()`` back
+              within 256 MiB, the recovery split into ejection, copy,
+              build and warmup; (c) a rolling update to the weights of
+              seed 2 under live streams: roll ms, the stall, no capture,
+              versions, prefix epochs, post-roll streams equal a bare
+              engine's on the new weights; (d) a journaled fleet dropped
+              mid-decode and recovered by a new one, each replay once and
+              equal to the uninterrupted stream.
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
 ``{"kernels": [...]}`` line (each kernel's ``launches`` on its main path,
@@ -1232,6 +1254,13 @@ def _percentiles(xs) -> dict:
     q = lambda p: s[min(len(s) - 1, int(p * (len(s) - 1) + 0.5))]  # noqa
     return {"count": len(s), "p50_ms": round(q(0.5) * 1e3, 3),
             "p99_ms": round(q(0.99) * 1e3, 3)}
+
+
+def _quartiles(xs) -> dict:
+    """The median and quartiles of ``xs``."""
+    q = np.percentile(xs, [25, 50, 75])
+    return {"median": round(float(q[1]), 3), "q1": round(float(q[0]), 3),
+            "q3": round(float(q[2]), 3)}
 
 
 def preempt_causes(tracer) -> dict:
@@ -3422,12 +3451,7 @@ def arming_cost(engines: dict, requests, max_new_tokens: int,
                             "tokens_per_s": res["decode_tokens_per_sec"],
                             "ttft_p50_ms": res["ttft_p50_ms"]})
 
-    def quartiles(xs):
-        q = np.percentile(xs, [25, 50, 75])
-        return {"median": round(float(q[1]), 3),
-                "q1": round(float(q[0]), 3), "q3": round(float(q[2]), 3)}
-
-    return {n: {m: quartiles([r[m] for r in rs]) for m in rs[0]}
+    return {n: {m: _quartiles([r[m] for r in rs]) for m in rs[0]}
             for n, rs in runs.items()}
 
 
@@ -3536,6 +3560,511 @@ def phase_serve_resilience(model) -> dict:
          stall_s=STALL_S, launches=launches, **res)
     return launches
 
+
+# -- phase 20: serve_fleet ---------------------------------------------------
+
+#: serve_fleet's fleet: two replicas of serve_paged's engine
+FLEET_REPLICAS = dict(num_replicas=2, eject_after_failures=2,
+                      max_redispatch=2)
+#: (b): replica 1's decode call, counted from a cycle's start, whose two
+#: attempts fail
+FLEET_FAULT_AT = 20
+FAILOVER_CYCLES = 3
+#: (b): how far memory_allocated() may be from its level before the first
+#: fault once a rebuild is done
+MEMORY_SLACK = 256 * 2 ** 20
+
+
+def _engines(target) -> list:
+    return ([rep.engine for rep in target.replicas]
+            if hasattr(target, "replicas") else [target])
+
+
+def prime(target, system, clear: bool = True) -> None:
+    """Every engine of ``target`` (a fleet or an engine) holding the
+    system prompt's blocks from one prefill of the system prompt alone
+    (from a cold prefix cache unless ``clear`` is False): each later
+    request of the traffic then prefills its tail over the same prefix
+    K/V on any replica, so its stream does not depend on where it runs or
+    what ran before."""
+    if clear:
+        for eng in _engines(target):
+            eng.prefix_cache.clear()
+    if hasattr(target, "replicas"):
+        for k in range(len(target.replicas)):
+            target.submit(system, max_new_tokens=1, replica=k)
+    else:
+        target.add_request(system, max_new_tokens=1)
+    target.run()
+
+
+def serve_waves(target, requests, max_new_tokens: int, *, system=None,
+                clear: bool = True, pin_first: bool = False) -> dict:
+    """Serve ``requests`` on ``target`` (a warmed fleet or engine) in two
+    waves: the second goes in once every request of the first has its
+    first token.  From a cold prefix cache (unless ``clear`` is False),
+    primed with ``system`` when given (:func:`prime`); ``pin_first`` pins
+    the first request to replica 1.  Returns the handles, each attempt's
+    streamed tokens, each request's ``done_cb`` calls, and the run's
+    figures: TTFT from submit to the first streamed token, the engines'
+    decode-step ITL, the client ITL (gaps between a stream's tokens),
+    decode tokens/s (decode tokens over the summed decode-step time of
+    every engine) and the generated tokens over the wall time."""
+    fleet = hasattr(target, "replicas")
+    engines = _engines(target)
+    if system is not None:
+        prime(target, system, clear)
+    elif clear:
+        for eng in engines:
+            eng.prefix_cache.clear()
+    for eng in engines:
+        eng.metrics.itl_s.clear()
+    tok0 = sum(e.metrics.decode_tokens for e in engines)
+    time0 = sum(e.metrics.decode_time_s for e in engines)
+    stamps, streamed, submitted, done = {}, {}, {}, []
+
+    def cb(tok, req):
+        stamps.setdefault(req.request_id, []).append(time.perf_counter())
+        key = (req.request_id, getattr(req, "redispatches", 0))
+        streamed.setdefault(key, []).append(tok)
+
+    def submit(i, prompt, law):
+        kw = dict(sampling=law, max_new_tokens=max_new_tokens, stream_cb=cb)
+        if fleet:
+            r = target.submit(prompt, **kw,
+                              replica=1 if pin_first and i == 0 else None,
+                              done_cb=lambda q: done.append(q.request_id))
+        else:
+            r = target.add_request(prompt, **kw)
+        submitted[r.request_id] = time.perf_counter()
+        return r
+
+    half = len(requests) // 2
+    t0 = time.perf_counter()
+    first = [submit(i, p, s) for i, (p, s) in enumerate(requests[:half])]
+    while not all(r.output_ids or r.done for r in first):
+        target.step()
+    second = [submit(half + i, p, s)
+              for i, (p, s) in enumerate(requests[half:])]
+    target.run()
+    wall = time.perf_counter() - t0
+    reqs = first + second
+    ttft = [stamps[r.request_id][0] - submitted[r.request_id]
+            for r in reqs if r.request_id in stamps]
+    gaps = [b - a for ts in stamps.values() for a, b in zip(ts, ts[1:])]
+    tokens = sum(e.metrics.decode_tokens for e in engines) - tok0
+    step_s = sum(e.metrics.decode_time_s for e in engines) - time0
+    return {"reqs": reqs, "streamed": streamed, "done": done,
+            "ttft_s": ttft, "ttft_p50_ms": _percentiles(ttft)["p50_ms"],
+            "itl": _percentiles([x for e in engines
+                                 for x in e.metrics.itl_s]),
+            "client_itl": _percentiles(gaps),
+            "decode_tokens_per_sec": round(tokens / max(step_s, 1e-9), 2),
+            "tokens_per_sec_wall": round(
+                sum(len(r.output_ids) for r in reqs) / wall, 2)}
+
+
+def _wrap_timed(obj, name: str, spent: list, cuda: bool = False) -> None:
+    """Append each call's host seconds of ``obj.<name>`` to ``spent``
+    (device work synchronised when ``cuda``); undo with ``delattr``."""
+    fn = getattr(obj, name)
+
+    def timed(*args):
+        t = time.perf_counter()
+        out = fn(*args)
+        if cuda:
+            torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def fleet_dispatch(fleet, engine, requests, max_new_tokens: int,
+                   rounds: int) -> dict:
+    """(a): the fleet and a bare engine of the same kwargs serve the same
+    traffic in turns (FEEF, ``rounds`` times), each run from a cold prefix
+    cache; the first fleet run also gives the dispatch figures (dispatches
+    per replica, affinity hits and tokens, the TTFT of the second wave,
+    routed by affinity, against the first's) and the host time of each
+    supervision pass.  Per target, the medians and quartiles of each
+    run's ITL p50, client ITL p50, TTFT p50 and tokens/s."""
+    runs = {"fleet": [], "engine": []}
+    first, spent = None, []
+    half = len(requests) // 2
+    for _ in range(rounds):
+        for name in ("fleet", "engine", "engine", "fleet"):
+            target = fleet if name == "fleet" else engine
+            probe = first is None and name == "fleet"
+            if probe:
+                d0 = fleet.metrics.snapshot()["dispatch"]
+                _wrap_timed(fleet, "_supervise", spent)
+            res = serve_waves(target, requests, max_new_tokens)
+            if any(q.state != "finished" or len(q.output_ids) !=
+                   max_new_tokens for q in res["reqs"]):
+                raise AssertionError(f"serve_fleet (a) {name}: "
+                                     f"{[q.state for q in res['reqs']]}")
+            if probe:
+                del fleet._supervise
+                d1 = fleet.metrics.snapshot()["dispatch"]
+                per = {}
+                for q in res["reqs"]:
+                    per[q.replica_history[0]] = \
+                        per.get(q.replica_history[0], 0) + 1
+                first = {
+                    "dispatches": per,
+                    "affinity_hits": d1["affinity_hits"]
+                    - d0["affinity_hits"],
+                    "affinity_hit_tokens": d1["affinity_hit_tokens"]
+                    - d0["affinity_hit_tokens"],
+                    "ttft_p50_ms_wave1": _percentiles(
+                        res["ttft_s"][:half])["p50_ms"],
+                    "ttft_p50_ms_wave2_hits": _percentiles(
+                        res["ttft_s"][half:])["p50_ms"],
+                    "supervise_pass_ms": _percentiles(spent),
+                    "fleet_steps": len(spent)}
+            runs[name].append({
+                "itl_p50_ms": res["itl"]["p50_ms"],
+                "client_itl_p50_ms": res["client_itl"]["p50_ms"],
+                "ttft_p50_ms": res["ttft_p50_ms"],
+                "decode_tokens_per_sec": res["decode_tokens_per_sec"],
+                "tokens_per_sec_wall": res["tokens_per_sec_wall"]})
+    if first["affinity_hits"] != len(requests) - half or \
+            len(first["dispatches"]) != len(fleet.replicas):
+        raise AssertionError(f"serve_fleet (a): the first wave did not "
+                             f"spread or the second did not route by "
+                             f"affinity: {first}")
+    return {**first, "in_turns": {
+        n: {m: _quartiles([x[m] for x in rs]) for m in rs[0]}
+        for n, rs in runs.items()}}
+
+
+def failover(fleet, requests, max_new_tokens: int, system, reference,
+             cycles: int, fault_at: int) -> dict:
+    """(b): ``cycles`` times, replica 1's decode fails both its attempts
+    ``fault_at`` decode calls into the cycle, while the fleet serves
+    primed traffic with the first request pinned to replica 1 (all of
+    ``requests`` in the first cycle, the first 4 after).  Each request
+    must end once, finished, with its stream of ``reference``;
+    redispatched streams restart at token 0, marked; replica 1 is ejected
+    and rebuilt once a cycle; the survivor and the rebuilt replica build
+    no program past warmup; on the card ``memory_allocated()`` is back
+    within ``MEMORY_SLACK`` of its level before the first fault.  Each
+    cycle's recovery is split into the ejection (export, shutdown, the
+    device memory freed), the model copy, the engine build and the
+    warmup."""
+    cuda = next(fleet.model.parameters()).is_cuda
+    base = torch.cuda.memory_allocated() if cuda else 0
+    plan = fleet.fault_plan
+    out = []
+    for c in range(cycles):
+        reqs_c = requests if c == 0 else requests[:4]
+        plan.add("serving.r1.decode",
+                 plan.calls("serving.r1.decode") + fault_at, times=2)
+        m = fleet.metrics
+        before = (m.ejections, m.rebuilds, m.redispatches,
+                  m.duplicate_terminals)
+        times = {"clone": [], "make": [], "rebuild": []}
+        for key, name in (("clone", "_replica_model"),
+                          ("make", "_make_engine"),
+                          ("rebuild", "_rebuild")):
+            _wrap_timed(fleet, name, times[key], cuda)
+        res = serve_waves(fleet, reqs_c, max_new_tokens, system=system,
+                          pin_first=True)
+        for name in ("_replica_model", "_make_engine", "_rebuild"):
+            delattr(fleet, name)
+        reqs = res["reqs"]
+        moved = [q for q in reqs if q.redispatches]
+        recovery = m.last_recovery_s or 0.0
+        clone, make, rebuild = (times[k][-1] if times[k] else 0.0
+                                for k in ("clone", "make", "rebuild"))
+        row = {"states": sorted({q.state for q in reqs}),
+               "ejections": m.ejections - before[0],
+               "rebuilds": m.rebuilds - before[1],
+               "redispatches": m.redispatches - before[2],
+               "duplicate_terminals": m.duplicate_terminals - before[3],
+               "done_cb_once": sorted(res["done"]) == sorted(
+                   q.request_id for q in reqs),
+               "redispatched_requests": len(moved),
+               "restarts_marked": all(
+                   q.redispatched and res["streamed"].get(
+                       (q.request_id, q.redispatches)) == q.output_ids
+                   for q in moved),
+               "streams_equal_reference": sum(
+                   q.output_ids == ref for q, ref in zip(reqs, reference)),
+               "requests": len(reqs),
+               "after_warmup": [
+                   rep.engine.stats()["compile_cache"]["after_warmup"]
+                   for rep in fleet.replicas],
+               "recovery_ms": round(recovery * 1e3, 3),
+               "eject_ms": round((recovery - rebuild) * 1e3, 3),
+               "clone_ms": round(clone * 1e3, 3),
+               "build_ms": round((make - clone) * 1e3, 3),
+               "warmup_ms": round((rebuild - make) * 1e3, 3)}
+        if cuda:
+            row["memory_allocated_delta_mib"] = round(
+                (torch.cuda.memory_allocated() - base) / 2 ** 20, 3)
+        if not (row["states"] == ["finished"] and row["ejections"] == 1
+                and row["rebuilds"] == 1 and row["redispatches"] >= 1
+                and moved and row["restarts_marked"]
+                and row["done_cb_once"]
+                and row["duplicate_terminals"] == 0
+                and row["streams_equal_reference"] == len(reqs)
+                and row["after_warmup"] == [0, 0]
+                and fleet.replicas[1].state == "active"
+                and (not cuda or abs(torch.cuda.memory_allocated() - base)
+                     <= MEMORY_SLACK)):
+            raise AssertionError(f"serve_fleet (b) cycle {c}: {row}")
+        out.append(row)
+    return {"cycles": out,
+            "memory_allocated_before_gib": round(base / 2 ** 30, 3)}
+
+
+def rolling_update(fleet, new_model, requests, max_new_tokens: int,
+                   system, max_drain_steps: int) -> dict:
+    """(c): streams live on both replicas while ``fleet.update_weights``
+    rolls ``new_model``'s weights through them (replica 1's requests ask
+    for twice the tokens, so its streams are still live when replica 0,
+    drained first, takes the weights).  No program is built on
+    any replica and no parameter moves (the write raises if one does);
+    the in-flight requests finish at version 0; every replica's prefix
+    epoch is 1, and its first admission after the roll (the system
+    prompt, :func:`prime` without clearing) hits no block from before it.
+    Returns the roll ms, the stall (the worst gap between two tokens of a
+    stream in flight across the roll) and the handles of ``requests``
+    served after the roll."""
+    misses = [rep.engine.metrics.compile_misses for rep in fleet.replicas]
+    for eng in _engines(fleet):
+        eng.prefix_cache.clear()
+    stamps = {}
+
+    def cb(tok, req):
+        stamps.setdefault(req.request_id, []).append(time.perf_counter())
+
+    half = len(requests) // 2
+    live = [fleet.submit(p, sampling=s, stream_cb=cb,
+                         max_new_tokens=max_new_tokens * (1 + (i >= half)),
+                         replica=int(i >= half))
+            for i, (p, s) in enumerate(requests)]
+    for _ in range(2):
+        fleet.step()
+    t_roll = time.perf_counter()
+    roll = fleet.update_weights(new_model.state_dict(),
+                                max_drain_steps=max_drain_steps)
+    t_end = time.perf_counter()
+    fleet.run()
+    stall = max((b - a for ts in stamps.values() for a, b in zip(ts, ts[1:])
+                 if b >= t_roll and a <= t_end), default=0.0)
+    hits0 = [rep.engine.prefix_cache.hit_tokens_total
+             for rep in fleet.replicas]
+    prime(fleet, system, clear=False)
+    hits = [rep.engine.prefix_cache.hit_tokens_total - h
+            for rep, h in zip(fleet.replicas, hits0)]
+    post = serve_waves(fleet, requests, max_new_tokens, clear=False)
+    out = {"roll_ms": roll["roll_ms"],
+           "model_version": roll["model_version"],
+           "replicas_updated": roll["replicas_updated"],
+           "stall_ms": round(stall * 1e3, 3),
+           "live_streams": len(stamps),
+           "live": sorted({(r.state, r.model_version) for r in live}),
+           "post": sorted({(r.state, r.model_version)
+                           for r in post["reqs"]}),
+           "epochs": [rep.engine.prefix_cache.epoch
+                      for rep in fleet.replicas],
+           "first_admission_hit_tokens": hits,
+           "captures_added": [rep.engine.metrics.compile_misses - n
+                              for rep, n in zip(fleet.replicas, misses)]}
+    n = len(fleet.replicas)
+    if (roll["replicas_updated"] != n or out["live"] != [("finished", 0)]
+            or out["post"] != [("finished", 1)] or out["epochs"] != [1] * n
+            or hits != [0] * n or out["captures_added"] != [0] * n
+            or len(stamps) != len(requests)):
+        raise AssertionError(f"serve_fleet (c): {out}")
+    return out, post["reqs"]
+
+
+def fleet_crash_recovery(make_fleet, requests, max_new_tokens: int,
+                         root: str) -> dict:
+    """(d): a fleet journaling into ``root`` (``fsync="rotate"``) serves
+    ``requests`` and is dropped mid-decode, as a crash leaves it (no
+    shutdown, no final record; what its engines hold on the device is
+    freed).  A new fleet over the reopened journal recovers: every
+    request replays once (the journal's audit shows no pending request
+    and no duplicate terminal), each replay's stream begins with the
+    tokens its client had before the crash, and equals the same request
+    served uninterrupted (the same traffic on the new fleet from a cold
+    prefix cache, dispatched the same way)."""
+    from paddle_tpu_torch.serving import RequestJournal
+
+    j = RequestJournal(root, fsync="rotate")
+    f1 = make_fleet(j)
+    f1.warmup()
+    reqs = [f1.submit(p, sampling=s, max_new_tokens=max_new_tokens)
+            for p, s in requests]
+    while not all(len(r.output_ids) >= 2 for r in reqs):
+        f1.step()
+    before = [list(r.output_ids) for r in reqs]
+    for rep in f1.replicas:
+        rep.engine._release_device()
+    cuda = next(f1.model.parameters()).is_cuda
+    del f1, reqs
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    j2 = RequestJournal(root, fsync="rotate")
+    f2 = make_fleet(j2)
+    f2.warmup()
+    info = f2.recover()
+    f2.run()
+    audit = j2.audit()
+    for rep in f2.replicas:
+        rep.engine.prefix_cache.clear()
+    again = [f2.submit(p, sampling=s, max_new_tokens=max_new_tokens)
+             for p, s in requests]
+    f2.run()
+    replays = info["requests"]
+    out = {"replayed": info["replayed"], "recovery_ms": info["recovery_ms"],
+           "tokens_before_crash": [len(b) for b in before],
+           "states": sorted({r.state for r in replays}),
+           "recovered": all(r.recovered for r in replays),
+           "pending": audit["pending"],
+           "duplicate_terminals": audit["duplicate_terminals"],
+           "prefix_kept": sum(r.output_ids[:len(b)] == b
+                              for r, b in zip(replays, before)),
+           "streams_equal_uninterrupted": sum(
+               r.output_ids == a.output_ids
+               for r, a in zip(replays, again))}
+    f2.shutdown(timeout_s=0.0)
+    for rep in f2.replicas:
+        rep.engine._release_device()
+    j.close()
+    j2.close()
+    n = len(requests)
+    if not (out["replayed"] == n and out["states"] == ["finished"]
+            and out["recovered"] and out["pending"] == 0
+            and out["duplicate_terminals"] == 0 and out["prefix_kept"] == n
+            and out["streams_equal_uninterrupted"] == n):
+        raise AssertionError(f"serve_fleet (d): {out}")
+    return out
+
+
+def run_serve_fleet(model, build_new, requests, max_new_tokens: int, *,
+                    system_len: int, rounds: int, cycles: int,
+                    fault_at: int, engine: dict, root: str,
+                    max_drain_steps: int = 2000) -> dict:
+    """serve_fleet over the template ``model``: a weight-isolated
+    2-replica fleet (``engine`` its replicas' kwargs) with a request
+    tracer, through (a) dispatch and the router's cost beside a bare
+    engine, (b) failover, (c) a rolling update to ``build_new()``'s
+    weights (the template takes them) and (d) fleet crash recovery.
+    Returns the figures."""
+    from paddle_tpu_torch.distributed.fault_tolerance import (
+        ServingFaultPlan,
+    )
+    from paddle_tpu_torch.serving import (
+        Engine, Fleet, RequestTracer, validate_trace,
+    )
+
+    cuda = next(model.parameters()).is_cuda
+
+    def collect():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def make_fleet(journal=None, tracer=None):
+        return Fleet(model, **FLEET_REPLICAS, **engine,
+                     fault_plan=ServingFaultPlan(), tracer=tracer,
+                     journal=journal)
+
+    system = requests[0][0][:system_len]
+    tracer = RequestTracer()
+    t0 = time.perf_counter()
+    fleet = make_fleet(tracer=tracer)
+    if not fleet.weights_isolated:
+        raise AssertionError("serve_fleet: the fleet shares its weights")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet.warmup()
+    out = {"fleet_build_s": round(build_s, 3),
+           "fleet_warmup_s": round(time.perf_counter() - t0, 3)}
+    bare = Engine(model, **engine)
+    bare.warmup()
+    out["dispatch"] = fleet_dispatch(fleet, bare, requests, max_new_tokens,
+                                     rounds)
+    del bare
+    collect()
+    ref = serve_waves(fleet, requests, max_new_tokens, system=system)
+    reference = [r.output_ids for r in ref["reqs"]]
+    out["failover"] = failover(fleet, requests, max_new_tokens, system,
+                               reference, cycles, fault_at)
+    if cuda:
+        out["failover"]["max_memory_allocated_gib"] = round(
+            torch.cuda.max_memory_allocated() / 2 ** 30, 3)
+    new = build_new()
+    out["roll"], post = rolling_update(fleet, new, requests[:4],
+                                       max_new_tokens, system,
+                                       max_drain_steps)
+    del new
+    collect()
+    bare = Engine(model, **engine)       # the template took the new weights
+    bare.warmup()
+    alone = serve_waves(bare, requests[:4], max_new_tokens, system=system)
+    equal = sum(a.output_ids == b.output_ids
+                for a, b in zip(post, alone["reqs"]))
+    out["roll"]["streams_equal_bare_engine"] = equal
+    if equal != 4:
+        raise AssertionError(f"serve_fleet (c): {equal} of 4 post-roll "
+                             f"streams equal the bare engine's")
+    del bare, alone
+    problems = validate_trace(tracer)
+    out["trace"] = {"events": len(tracer.events), "dropped": tracer.dropped,
+                    "problems": problems[:5]}
+    if problems:
+        raise AssertionError(f"serve_fleet: trace chain {problems[:5]}")
+    fleet.shutdown(timeout_s=0.0)
+    for rep in fleet.replicas:
+        rep.engine._release_device()
+    del fleet
+    collect()
+    out["crash"] = fleet_crash_recovery(make_fleet, requests[:4],
+                                        max_new_tokens, root)
+    collect()
+    return out
+
+
+def phase_serve_fleet(model) -> dict:
+    """serve_paged's Llama-2 7B as the template of a 2-replica fleet of
+    serve_paged's engines at max_seq 2048: (a) dispatch and the router's
+    cost beside a bare engine, (b) three failover cycles, (c) a rolling
+    update to weights of seed 2, (d) fleet crash recovery.  Returns the
+    K4/K5 launches of the phase."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import Engine
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory() as root:
+        res = run_serve_fleet(
+            model, lambda: Engine.resolve_model(
+                "llama:llama2-7b", device="cuda", dtype=torch.bfloat16,
+                seed=2),
+            make_requests(model.config.vocab_size, 12, 512, PAGED_TAILS,
+                          seed=0), 64, system_len=512, rounds=2,
+            cycles=FAILOVER_CYCLES, fault_at=FLEET_FAULT_AT,
+            engine=dict(kv_layout="paged", block_size=16, min_bucket=16,
+                        num_slots=8, max_seq=2048), root=root)
+    launches = kernels.launch_counts()
+    for name in ("paged_decode", "paged_prefill"):
+        if launches[name] < 1:
+            raise AssertionError(f"serve_fleet did not run {name}: "
+                                 f"{launches}")
+    emit("serve_fleet", model="llama2-7b", dtype="bfloat16",
+         replicas=FLEET_REPLICAS, fault_at=FLEET_FAULT_AT,
+         max_memory_allocated_gib=round(
+             torch.cuda.max_memory_allocated() / 2 ** 30, 3),
+         launches=launches, **res)
+    return launches
 
 # -- phases 12, 13 and 14: training ----------------------------------------
 
@@ -3794,6 +4323,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     resilience = phase_serve_resilience(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet = phase_serve_fleet(model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3815,6 +4347,7 @@ def main() -> int:
                 "serve_spec": spec,
                 "serve_tenancy": tenancy,
                 "serve_resilience": resilience,
+                "serve_fleet": fleet,
                 "sigkill_drill": drill["launches"],
                 "train": train["launches"]}
     kernels_line = [{**rec, "launches": launches[name],

@@ -1,7 +1,8 @@
 """Continuous-batching serving of the port: engine, caches, sampling,
 the overload regime, the request tracer, the request journal,
 speculative decoding, multi-tenant serving (LoRA adapter lanes,
-grammar-constrained decoding) and the sync sanitizer."""
+grammar-constrained decoding), the sync sanitizer and the fleet of
+supervised engine replicas."""
 from .adapters import AdapterConfig, AdapterPool, make_lora_weights
 from .engine import (
     PRIORITY_HIGH, PRIORITY_LOW, PRIORITY_NORMAL, Engine, EngineStopped,
@@ -10,9 +11,10 @@ from .engine import (
 from .journal import JournalCorrupt, RequestJournal
 from .grammar import GrammarTable, JsonArrayGrammar
 from .kv_cache import CacheContext, KVCache
-from .metrics import ServingMetrics
+from .metrics import FleetMetrics, ServingMetrics
 from .paging import BlockAllocator, PagedCacheContext, PagedKVCache
 from .prefix_cache import PrefixCache
+from .router import Fleet, FleetRequest
 from .sampling import DeviceSampler, SamplingParams
 from .sanitize import SyncSanitizer
 from .spec_decode import SpecConfig, SpecState
@@ -28,4 +30,5 @@ __all__ = ["Engine", "Request", "QueueFull", "ShedReject", "EngineStopped",
            "ServingMetrics", "SpecConfig", "SpecState", "RequestTracer",
            "NULL_TRACER", "FlightRecorder", "validate_trace",
            "AdapterConfig", "AdapterPool", "make_lora_weights",
-           "GrammarTable", "JsonArrayGrammar", "SyncSanitizer"]
+           "GrammarTable", "JsonArrayGrammar", "SyncSanitizer", "Fleet",
+           "FleetRequest", "FleetMetrics"]

@@ -107,8 +107,15 @@ the JAX engine's boundary and closes before the read: the two windows
 end at different places.  A program's build (its kernels' compile, its
 graph's capture) is not a step: the heartbeat pauses over it.
 
-Not part of this port yet: ``Fleet`` (ROADMAP.md A.3 step 7) and the
-mesh (step 8), with it the sharded tenancy of ``TestShardedTenancy``.
+A fleet (:class:`~.router.Fleet`) puts replicas of this engine behind one
+submit surface.  Its hooks here are the JAX engine's:
+:meth:`Engine.export_requests` (the ejection hook),
+``update_weights(version=)`` and ``Engine(model_version=)``; and
+:meth:`Engine._release_device`, which frees what an ejected engine holds
+on the card before its successor is built.
+
+Not part of this port yet: the mesh (ROADMAP.md A.3 step 8), with it the
+sharded tenancy of ``TestShardedTenancy``.
 """
 from __future__ import annotations
 
@@ -424,12 +431,21 @@ class Engine:
             its device: constrained decoding;
             requests pick one by ``SamplingParams.grammar``.  ``None``
             adds no grammar lane.
+        model_version: the weight version this engine starts at (a
+            fleet's replica rebuilt after a rolling update joins at the
+            fleet's version).
         mesh: not ported; anything but ``None`` raises
             ``NotImplementedError`` naming its ROADMAP.md item.
 
     ``PADDLE_TPU_SANITIZE=1|strict`` arms the sync sanitizer
     (``self.sanitizer``, :class:`~.sanitize.SyncSanitizer`) at
     construction, speculating or not.
+
+    Engines on one card share their graphs' merge tickets (see
+    :mod:`.programs`): two of them may serve from two threads only on one
+    stream; a step program called on another stream while another
+    engine's is still running raises ``RuntimeError``.  A fleet steps its
+    replicas in turn and never meets it.
     """
 
     def __init__(self, model: nn.Module, *, num_slots: int = 4,
@@ -455,7 +471,8 @@ class Engine:
                  flight_recorder_steps: int = 256,
                  journal=None,
                  speculation: Optional[SpecConfig] = None,
-                 adapters=None, grammars=None, mesh=None):
+                 adapters=None, grammars=None, model_version: int = 0,
+                 mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "Engine(mesh=...) is not ported yet (ROADMAP.md A.3 step 8, "
@@ -594,9 +611,9 @@ class Engine:
         # the request journal: None journals nothing and costs nothing;
         # its writes are host file I/O between programs
         self.journal = journal
-        #: weight version this engine serves, from 0 (``update_weights``
-        #: bumps it; each request records the version that served it)
-        self.model_version = 0
+        #: weight version this engine serves (``update_weights`` bumps
+        #: it; each request records the version that served it)
+        self.model_version = int(model_version)
         #: the mesh-shape key a sharded engine journals; the port serves
         #: on one card (ROADMAP.md A.3 step 8)
         self.mesh_shape: Optional[str] = None
@@ -2062,6 +2079,49 @@ class Engine:
         self._stop_watchdog()
         return self.stats()
 
+    # -- fleet hooks ---------------------------------------------------------
+
+    def export_requests(self) -> List[Request]:
+        """Strip every non-terminal request off this engine for replay
+        elsewhere: the ejection hook of :class:`~.router.Fleet`.  Queued
+        and running requests come back in scheduling order (the queue
+        first, then the running slots), each retired here ``cancelled``
+        with ``error_kind="replica"``, so the one retire path reclaims
+        their slots and blocks and the handles carry no engine state."""
+        out = [r for r in self.queue if not r.done]
+        out.extend(r for r in self.running.values() if not r.done)
+        self.queue.clear()
+        for req in out:
+            self._retire(req, "cancelled",
+                         error=f"exported from engine {self.name!r} "
+                               "on replica ejection",
+                         kind="replica")
+        self.metrics.queue_depth = 0
+        return out
+
+    def _release_device(self) -> None:
+        """Free what this engine holds on the device, so that a successor
+        can be built in its place: its step programs (CUDA graphs, their
+        static buffers and pool), the KV cache's tensors, its model (a
+        fleet replica's own clone, unless something else holds it), its
+        adapter lanes and its speculation state.  Host bookkeeping stays
+        readable (``name``, ``metrics``, ``flight``, ``health()``,
+        ``stats()``); the engine serves nothing after this.  Used on a
+        stopped engine, or on one abandoned as a crash would leave it."""
+        self._stop_watchdog()
+        if self.state != "unhealthy":
+            self.state = "stopped"
+        self.programs.clear()
+        for name, value in list(vars(self.cache).items()):
+            if isinstance(value, torch.Tensor):
+                setattr(self.cache, name, None)
+        if self.spec is not None:
+            snap = self.spec.snapshot()
+            self.metrics.spec_cb = lambda: snap
+            self.spec = None
+        self.adapter_pool = None
+        self.model = None
+
     # -- durability: crash recovery and weight hot swap --------------------
 
     def recover(self, journal=None, *, cross_mesh: bool = True) -> dict:
@@ -2196,7 +2256,8 @@ class Engine:
             except KeyError as e:
                 raise ValueError(e.args[0]) from None
 
-    def update_weights(self, state_or_path) -> int:
+    def update_weights(self, state_or_path, *,
+                       version: Optional[int] = None) -> int:
         """Swap the model's weights in place on an idle engine.
 
         ``state_or_path`` is a state dict with the names and layouts of
@@ -2208,9 +2269,10 @@ class Engine:
         one).  So every program built at warmup stays valid: no program
         is built.  The prefix-cache epoch is bumped, so no later request
         hits KV computed under the old weights, and ``model_version``
-        advances by one.  Queued or running work
-        raises: its KV was computed under the old weights.  Returns the
-        new version."""
+        advances by one (or is set to ``version``: a fleet's rolling
+        update tags every replica with the fleet's version).  Queued or
+        running work raises: its KV was computed under the old weights.
+        Returns the new version."""
         if self.running or self.queue:
             raise RuntimeError(
                 f"engine {self.name!r} has in-flight work "
@@ -2219,14 +2281,17 @@ class Engine:
                 "prefilled under old weights with new weights would "
                 "serve a torn response")
         _write_state_dict(self.model, _resolve_weights(state_or_path))
-        return self._mark_weights_swapped()
+        return self._mark_weights_swapped(version)
 
-    def _mark_weights_swapped(self) -> int:
+    def _mark_weights_swapped(self, version: Optional[int] = None) -> int:
         """The bookkeeping half of a swap: prefix epoch, version tag,
-        metrics, tracer and journal."""
+        metrics, tracer and journal.  Apart so that a fleet whose
+        replicas share one parameter set writes the weights once and
+        still gives every engine its own epoch and version."""
         if self.prefix_cache is not None:
             self.prefix_cache.bump_epoch()
-        self.model_version += 1
+        self.model_version = (int(version) if version is not None
+                              else self.model_version + 1)
         self.metrics.on_weight_swap(self.model_version)
         self.tracer.on_weight_swap(self.name, self.model_version)
         if self.journal is not None:

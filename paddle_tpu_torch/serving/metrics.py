@@ -12,7 +12,10 @@ section (``tenants``: TTFT, completed, failed and tokens by tenant label,
 the adapter name, ``"grammar:<name>"`` or ``"base"``; adapter loads and
 unloads), and the prefix cache's degraded mode (lookups that raised or
 ran past their budget and served as misses, and registrations that
-raised), which ``stats()["paging"]`` shows.
+raised), which ``stats()["paging"]`` shows; and :class:`FleetMetrics`,
+the sink of one :class:`~.router.Fleet` (request outcomes counted exactly
+once, dispatch decisions, the supervision loop's ejections, rebuilds and
+failover recovery time, crash recoveries and weight rolls).
 
 A slice of ``paddle_tpu/serving/metrics.py``.  Times are host clock
 (``perf_counter``) around work that ends in a device synchronisation: a
@@ -26,7 +29,7 @@ import time
 from collections import deque
 from typing import Dict, Optional
 
-__all__ = ["ServingMetrics"]
+__all__ = ["ServingMetrics", "FleetMetrics"]
 
 _LATENCY_WINDOW = 4096
 
@@ -361,4 +364,166 @@ class ServingMetrics:
                 self.prefills_by_bucket.items())),
             "compile_cache": {"hits": self.compile_hits,
                               "misses": self.compile_misses},
+        })
+
+
+class FleetMetrics:
+    """Mutable metric sink for one ``serving.router.Fleet``.
+
+    Counts the fleet's request outcomes (a terminal state is recorded
+    here exactly once per request; ``duplicate_terminals`` is the audit
+    that the contract held), its dispatch decisions (all, by prefix
+    affinity, pinned by the caller) and the supervision loop's actions:
+    ejections, rebuilds with the measured eject-to-rejoin time (the
+    failover recovery), redispatches; crash recoveries and weight rolls.
+    The ``degraded`` section stays at zero: a degraded rebuild needs a
+    mesh (ROADMAP.md A.3 step 8)."""
+
+    def __init__(self, name: str = "fleet", num_replicas: int = 1):
+        self.name = name
+        self.num_replicas = num_replicas
+        self.t_start = time.perf_counter()
+        self.submitted = 0
+        self.completed = 0
+        self.failed = 0
+        self.cancelled = 0
+        self.rejected = 0
+        self.duplicate_terminals = 0     # must stay 0: exactly-once audit
+        self.dispatches = 0
+        self.affinity_hits = 0
+        self.affinity_hit_tokens = 0
+        self.pinned_dispatches = 0
+        self.redispatches = 0
+        self.ejections = 0
+        self.rebuilds = 0
+        self.rebuild_failures = 0
+        self.last_recovery_s: Optional[float] = None
+        self.total_recovery_s = 0.0
+        self.banked_outcomes: Dict[str, int] = {}
+        self.requests_recovered = 0
+        self.crash_recoveries = 0
+        self.last_crash_recovery_s: Optional[float] = None
+        self.weight_rolls = 0
+        self.last_roll_s: Optional[float] = None
+        self.model_version = 0
+        #: the router's per-replica table (state, queue, occupancy)
+        self.replicas_cb = None
+
+    def on_submit(self) -> None:
+        self.submitted += 1
+
+    def on_terminal(self, state: str) -> None:
+        if state == "finished":
+            self.completed += 1
+        elif state == "failed":
+            self.failed += 1
+        elif state == "cancelled":
+            self.cancelled += 1
+        elif state == "rejected":
+            self.rejected += 1
+
+    def on_duplicate_terminal(self) -> None:
+        self.duplicate_terminals += 1
+
+    def on_dispatch(self, affinity_tokens: int = 0,
+                    pinned: bool = False) -> None:
+        self.dispatches += 1
+        if pinned:
+            self.pinned_dispatches += 1
+        elif affinity_tokens > 0:
+            self.affinity_hits += 1
+            self.affinity_hit_tokens += affinity_tokens
+
+    def on_redispatch(self) -> None:
+        self.redispatches += 1
+
+    def on_eject(self) -> None:
+        self.ejections += 1
+
+    def on_rebuild(self, recovery_s: float, ok: bool = True) -> None:
+        if ok:
+            self.rebuilds += 1
+            self.last_recovery_s = recovery_s
+            self.total_recovery_s += recovery_s
+        else:
+            self.rebuild_failures += 1
+
+    def bank_outcomes(self, outcomes: Dict[str, int]) -> None:
+        """Fold a recovered journal's pre-crash final outcomes into the
+        counters (``Fleet.recover``), so they stay monotone across a
+        process restart."""
+        total = 0
+        for state, n in outcomes.items():
+            self.banked_outcomes[state] = \
+                self.banked_outcomes.get(state, 0) + int(n)
+            total += int(n)
+        self.submitted += total
+        self.completed += int(outcomes.get("finished", 0))
+        self.failed += int(outcomes.get("failed", 0))
+        self.cancelled += int(outcomes.get("cancelled", 0))
+        self.rejected += int(outcomes.get("rejected", 0))
+
+    def on_crash_recovery(self, replayed: int, recovery_s: float) -> None:
+        self.crash_recoveries += 1
+        self.requests_recovered += int(replayed)
+        self.last_crash_recovery_s = recovery_s
+
+    def on_weight_roll(self, version: int, roll_s: float) -> None:
+        self.weight_rolls += 1
+        self.last_roll_s = roll_s
+        self.model_version = int(version)
+
+    def affinity_hit_rate(self) -> float:
+        """The share of routed dispatches (pins excluded: they bypass the
+        policy) that landed on a replica already holding a prompt
+        prefix."""
+        routed = self.dispatches - self.pinned_dispatches
+        return self.affinity_hits / routed if routed else 0.0
+
+    def snapshot(self) -> dict:
+        """JSON-ready snapshot, deep-copied: mutating it cannot touch the
+        live counters or the replica table."""
+        def ms(s):
+            return None if s is None else round(s * 1e3, 3)
+
+        return copy.deepcopy({
+            "name": self.name,
+            "uptime_s": round(time.perf_counter() - self.t_start, 3),
+            "requests": {
+                "submitted": self.submitted,
+                "completed": self.completed,
+                "failed": self.failed,
+                "cancelled": self.cancelled,
+                "rejected": self.rejected,
+                "duplicate_terminals": self.duplicate_terminals,
+            },
+            "dispatch": {
+                "total": self.dispatches,
+                "affinity_hits": self.affinity_hits,
+                "affinity_hit_tokens": self.affinity_hit_tokens,
+                "affinity_hit_rate": round(self.affinity_hit_rate(), 4),
+                "pinned": self.pinned_dispatches,
+                "redispatches": self.redispatches,
+            },
+            "supervision": {
+                "ejections": self.ejections,
+                "rebuilds": self.rebuilds,
+                "rebuild_failures": self.rebuild_failures,
+                "last_recovery_ms": ms(self.last_recovery_s),
+                "total_recovery_ms": round(self.total_recovery_s * 1e3, 3),
+            },
+            "degraded": {"degrades": 0, "last_old_mp": None,
+                         "last_mp": None, "last_degrade_ms": None,
+                         "total_degrade_ms": 0.0},
+            "durability": {
+                "crash_recoveries": self.crash_recoveries,
+                "recovered": self.requests_recovered,
+                "last_crash_recovery_ms": ms(self.last_crash_recovery_s),
+                "banked": dict(sorted(self.banked_outcomes.items())),
+                "weight_rolls": self.weight_rolls,
+                "last_roll_ms": ms(self.last_roll_s),
+                "model_version": self.model_version,
+            },
+            "replicas": (self.replicas_cb()
+                         if self.replicas_cb is not None else None),
         })

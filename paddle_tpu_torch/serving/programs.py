@@ -28,6 +28,17 @@ All the programs of one registry share one graph memory pool.  They never
 run at once, but one program's replay may overwrite the memory that holds
 another's output: the caller reads each program's output (``int(tok)``,
 ``out.cpu()``) before it runs the next program.
+
+Every registry on a device captures on the same side stream, and what a
+stream collects for good (its cuBLAS workspace, 32 MiB on Hopper; K4's
+merge tickets) is then made once a device: a stream of its own per
+registry left both behind each engine a fleet rebuilt.  The graphs of
+every registry on a device therefore share K4's tickets, and two of their
+replays must never run at once: programs of different registries run on
+one stream (the device then runs them in turn), or each after the
+other's has ended.  :meth:`StepPrograms.run` holds to that rule: it
+raises when the last program run on the device belongs to another
+registry, was run on another stream and has not ended yet.
 """
 from __future__ import annotations
 
@@ -40,6 +51,24 @@ import torch
 from ..ops import kernels
 
 __all__ = ["StepPrograms"]
+
+#: the capture stream of each device, shared by every registry on it
+_capture_streams: Dict[int, "torch.cuda.Stream"] = {}
+#: per device, the last program run there: its registry's event, recorded
+#: after it, and the stream it ran on
+_last_run: Dict[int, Tuple["torch.cuda.Event", int]] = {}
+
+
+def _device_index(device: torch.device) -> int:
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    index = _device_index(device)
+    if index not in _capture_streams:
+        _capture_streams[index] = torch.cuda.Stream(index)
+    return _capture_streams[index]
 
 
 class _Program:
@@ -58,7 +87,10 @@ class StepPrograms:
     """The registry of one engine's step programs.
 
     ``on_compile(miss)`` is told of every call: ``True`` for the first
-    call of a key (a capture on the card), ``False`` for the others."""
+    call of a key (a capture on the card), ``False`` for the others.  On
+    the card, a call raises ``RuntimeError`` while another registry's
+    program still runs on another stream of the device (the module's
+    rule)."""
 
     def __init__(self, device, on_compile: Callable[[bool], None]):
         self.device = torch.device(device)
@@ -69,10 +101,19 @@ class StepPrograms:
         self.last_key: Optional[Tuple] = None
         if self.device.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(self.device)
+            self._stream = _capture_stream(self.device)
+            self._index = _device_index(self.device)
+            self._done = torch.cuda.Event()
 
     def keys(self) -> List[Tuple]:
         return list(self._programs)
+
+    def clear(self) -> None:
+        """Drop every program: its graph, its static buffers and its
+        output.  Once no graph of the pool is left, the pool's memory
+        goes back to the allocator."""
+        self._programs.clear()
+        self.last_key = None
 
     def __contains__(self, key: Tuple) -> bool:
         """Whether program ``key`` is built (its next call replays)."""
@@ -86,13 +127,17 @@ class StepPrograms:
         or captured only at the key's first call.  Returns the output,
         valid until the next program of this registry runs."""
         self.last_key = key
+        on_card = self.device.type == "cuda"
+        if on_card:
+            stream = self._claim_device()
         prog = self._programs.get(key)
         if prog is None:
             statics = [torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
                                    device=self.device) for a in inputs]
             self._copy_in(statics, inputs)
-            if self.device.type == "cuda":
+            if on_card:
                 prog, out = self._capture(body, statics)
+                self._ran_on(stream)
             else:
                 prog, out = _Program(statics), body(*statics)
             self._programs[key] = prog
@@ -103,10 +148,29 @@ class StepPrograms:
             out = body(*prog.inputs)
         else:
             prog.graph.replay()
+            self._ran_on(stream)
             kernels.add_launches(prog.launches)
             out = prog.output
         self._on_compile(False)
         return out
+
+    def _claim_device(self) -> "torch.cuda.Stream":
+        """The current stream, once no other registry's program can still
+        be running beside a program of this one (the module's rule)."""
+        stream = torch.cuda.current_stream(self.device)
+        last = _last_run.get(self._index)
+        if (last is not None and last[0] is not self._done
+                and last[1] != stream.cuda_stream and not last[0].query()):
+            raise RuntimeError(
+                f"a step program of another engine on cuda:{self._index} "
+                "is still running on another stream; engines on one "
+                "device share K4's merge tickets, so their programs run "
+                "on one stream or one after the other")
+        return stream
+
+    def _ran_on(self, stream: "torch.cuda.Stream") -> None:
+        self._done.record(stream)
+        _last_run[self._index] = (self._done, stream.cuda_stream)
 
     @staticmethod
     def _copy_in(statics: List[torch.Tensor], inputs) -> None:

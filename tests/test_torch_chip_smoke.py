@@ -610,3 +610,54 @@ def test_serve_resilience_phase_on_tiny_cpu():
     assert set(cost["none"]) == {"itl_p50_ms", "tokens_per_s",
                                  "ttft_p50_ms"}
     assert cost["sanitizer_reports"]["sanitize_strict"]["strict"]
+
+
+def test_serve_fleet_phase_on_tiny_cpu(tmp_path):
+    """serve_fleet's drive over ``llama_tiny`` (paged, 8 slots, block 8,
+    a 16-token system prompt): (a) dispatch beside a bare engine in turns,
+    (b) two failover cycles, (c) a rolling update to the weights of seed
+    2, (d) fleet crash recovery.  The memory checks of (b) are card-only."""
+    res = chip_smoke.run_serve_fleet(
+        _tiny_llama(0), lambda: _tiny_llama(2),
+        chip_smoke.make_requests(128, 12, 16, [5, 20, 9, 30], seed=0), 8,
+        system_len=16, rounds=1, cycles=2, fault_at=3,
+        engine=dict(kv_layout="paged", block_size=8, min_bucket=8,
+                    num_slots=8, max_seq=128), root=str(tmp_path))
+    d = res["dispatch"]
+    assert sorted(d["dispatches"].values()) == [6, 6]
+    assert d["affinity_hits"] == 6 and d["affinity_hit_tokens"] == 6 * 16
+    assert d["supervise_pass_ms"]["count"] == d["fleet_steps"] > 0
+    assert set(d["in_turns"]) == {"fleet", "engine"}
+    for row in res["failover"]["cycles"]:
+        assert (row["ejections"], row["rebuilds"]) == (1, 1)
+        assert row["streams_equal_reference"] == row["requests"]
+        assert row["after_warmup"] == [0, 0] and row["restarts_marked"]
+        assert row["recovery_ms"] >= row["warmup_ms"] > 0
+        assert "memory_allocated_delta_mib" not in row   # card-only
+    roll = res["roll"]
+    assert roll["model_version"] == 1 and roll["replicas_updated"] == 2
+    assert roll["live_streams"] == 4 and roll["stall_ms"] > 0
+    assert roll["streams_equal_bare_engine"] == 4
+    assert res["trace"]["problems"] == [] and res["trace"]["dropped"] == 0
+    crash = res["crash"]
+    assert crash["replayed"] == 4
+    assert crash["streams_equal_uninterrupted"] == 4
+    assert crash["prefix_kept"] == 4
+
+
+def test_prime_makes_streams_independent_of_placement():
+    """A primed request prefills its tail over the same prefix K/V on any
+    engine: its stream is the same served alone or in the fleet's waves."""
+    from paddle_tpu_torch.serving import Engine
+
+    model = _tiny_llama(0)
+    reqs = chip_smoke.make_requests(128, 4, 16, [5, 20, 9, 30], seed=3)
+    kw = dict(kv_layout="paged", block_size=8, min_bucket=8, num_slots=8,
+              max_seq=128)
+    eng = Engine(model, **kw)
+    eng.warmup()
+    system = reqs[0][0][:16]
+    together = chip_smoke.serve_waves(eng, reqs, 6, system=system)["reqs"]
+    alone = [chip_smoke.serve_waves(eng, [r], 6, system=system)["reqs"][0]
+             for r in reqs]
+    assert [r.output_ids for r in together] == [r.output_ids for r in alone]

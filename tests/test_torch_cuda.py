@@ -1126,3 +1126,206 @@ def test_strict_guard_fails_a_syncing_batch(cuda_device, monkeypatch):
     eng.run()
     assert r.finished and eng.state == "active"
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# -- the fleet: supervised replicas over replayed graphs ----------------------
+
+_FLEET_KW = dict(num_replicas=2, eject_after_failures=2, max_redispatch=2,
+                 kv_layout="paged", **_ENGINE_KW)
+
+
+def _fleet_prompts(n, seed=4):
+    rs = np.random.RandomState(seed)
+    return [rs.randint(0, 512, (L,)).tolist()
+            for L in [7, 33, 12, 50, 21, 9, 40, 18][:n]]
+
+
+@pytest.mark.cuda
+def test_fleet_device_stall_ejects_and_rebuilds(cuda_device):
+    """A ~3 s ``torch.cuda._sleep`` after replica 1's decode replay #3,
+    under ``step_timeout_s``: the fleet's one host thread waits at that
+    step's token read, the watchdog marks replica 1 unhealthy meanwhile,
+    and the next supervision pass ejects it, replays its requests and
+    rebuilds it; every request finishes once, and the streams that never
+    left replica 0 equal an unfaulted fleet's."""
+    from paddle_tpu_torch.serving import Fleet
+
+    model = _small_model("llama", cuda_device)
+    prompts = _fleet_prompts(6)
+
+    def serve(fleet):
+        fleet.warmup()
+        reqs = [fleet.submit(p, max_new_tokens=12) for p in prompts]
+        fleet.run()
+        return reqs
+
+    calm = serve(Fleet(model, **_FLEET_KW,
+                       step_timeout_s=chip_smoke.WATCHDOG_TIMEOUT_S))
+    fleet = Fleet(model, **_FLEET_KW,
+                  step_timeout_s=chip_smoke.WATCHDOG_TIMEOUT_S)
+    wedged = fleet.replicas[1].engine
+    cycles, run, calls = chip_smoke.sleep_cycles(chip_smoke.STALL_S), \
+        wedged.programs.run, [0]
+
+    def stalls(key, body, *inputs):
+        out = run(key, body, *inputs)
+        if key[0] == "decode":
+            calls[0] += 1
+            if calls[0] == 3:
+                torch.cuda._sleep(cycles)
+        return out
+
+    wedged.programs.run = stalls
+    t0 = time.perf_counter()
+    reqs = serve(fleet)
+    assert time.perf_counter() - t0 >= chip_smoke.STALL_S * 0.8
+    st = fleet.stats()
+    assert st["supervision"]["ejections"] == 1
+    assert st["supervision"]["rebuilds"] == 1
+    assert st["requests"]["completed"] == 6
+    assert st["requests"]["duplicate_terminals"] == 0
+    assert wedged.state == "unhealthy"
+    assert "watchdog" in wedged._unhealthy_reason
+    assert wedged._watchdog is None              # joined at the ejection
+    assert fleet.replicas[1].engine is not wedged
+    assert fleet.replicas[1].engine.health()["watchdog_armed"]
+    moved = [r for r in reqs if r.redispatches]
+    assert moved and all(r.replica_history[0].endswith(".r1")
+                         for r in moved)
+    stayed = [(r, c) for r, c in zip(reqs, calm)
+              if len(r.replica_history) == len(c.replica_history) == 1
+              and r.replica_history[0].endswith(".r0")
+              and c.replica_history[0].endswith(".r0")]
+    assert stayed
+    for r, c in stayed:
+        assert r.output_ids == c.output_ids
+    assert all(r.finished and len(r.output_ids) == 12 for r in reqs)
+
+
+@pytest.mark.cuda
+def test_fleet_memory_back_after_rebuilds(cuda_device):
+    """Eject/rebuild cycles of replica 1: ``memory_allocated()`` comes back
+    to its level each time (the ejected engine's graphs, KV pool and model
+    copy are freed before the successor allocates, and the successor
+    captures on the same side stream, so no new stream's cuBLAS workspace
+    stays behind); K4's merge tickets of that stream are 0 after every
+    launch, and the rebuilt replica streams what the first one did."""
+    from paddle_tpu_torch.serving import Fleet
+
+    fleet = Fleet(_small_model("gpt", cuda_device), **_FLEET_KW)
+    fleet.warmup()
+    prompt = _fleet_prompts(1)[0]
+    stream = fleet.replicas[1].engine.programs._stream
+    outs, base = [], None
+    for _ in range(4):
+        rep = fleet.replicas[1]
+        r = fleet.submit(prompt, max_new_tokens=8, replica=1)
+        fleet.run()
+        outs.append(r.output_ids)
+        torch.cuda.synchronize()
+        gc.collect()
+        if base is None:
+            base = torch.cuda.memory_allocated()
+        assert abs(torch.cuda.memory_allocated() - base) <= 2 ** 20
+        fleet._eject(rep, "test ejection")
+        fleet._supervise()
+        assert rep.state == "active"
+        assert rep.engine.programs._stream == stream
+    assert all(o == outs[0] for o in outs)
+    assert all(int(t.abs().sum()) == 0
+               for t in kernels._decode_tickets.values())
+    assert fleet.stats()["supervision"]["rebuilds"] == 4
+
+
+@pytest.mark.cuda
+def test_fleet_rolling_swap_over_graphs(cuda_device):
+    """A rolling ``update_weights`` over captured graphs: no capture on
+    any replica, no parameter of any replica moves, in-flight requests
+    end at version 0, and the requests after the roll stream what an
+    engine warmed over the new weights streams."""
+    from paddle_tpu_torch.serving import Fleet
+
+    model = _small_model("llama", cuda_device)
+    other = _small_model("llama", cuda_device, seed=1)
+    fleet = Fleet(model, **_FLEET_KW)
+    fleet.warmup()
+    assert fleet.weights_isolated
+    ptrs = [{k: p.data_ptr() for k, p in rep.engine.model.named_parameters()}
+            for rep in fleet.replicas]
+    misses = [rep.engine.metrics.compile_misses for rep in fleet.replicas]
+    prompts = _fleet_prompts(4)
+    live = [fleet.submit(p, max_new_tokens=16) for p in prompts]
+    fleet.step()
+    res = fleet.update_weights(other.state_dict(), max_drain_steps=500)
+    post = [fleet.submit(p, max_new_tokens=10) for p in prompts]
+    fleet.run()
+    assert res["replicas_updated"] == 2
+    assert all(r.finished and r.model_version == 0 for r in live)
+    assert all(r.finished and r.model_version == 1 for r in post)
+    assert [rep.engine.metrics.compile_misses
+            for rep in fleet.replicas] == misses
+    assert [{k: p.data_ptr() for k, p in rep.engine.model.named_parameters()}
+            for rep in fleet.replicas] == ptrs
+    fresh = Engine(other, kv_layout="paged", **_ENGINE_KW)
+    fresh.warmup()
+    want = fresh.generate(prompts, max_new_tokens=10)
+    assert [r.output_ids for r in post] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+def test_fleet_clone_keeps_dtype_and_device(cuda_device, family):
+    """A replica's copy of a bf16 template on the card: bf16, on the card,
+    the template's attention route, equal tensors in other memory, and
+    the same logits."""
+    from paddle_tpu_torch.serving import Fleet
+
+    model = _small_model(family, cuda_device).to(torch.bfloat16)
+    if family == "gpt":
+        for m in model.modules():
+            if hasattr(m, "kernel"):
+                m.kernel = "reference"
+    fleet = Fleet(model, num_replicas=2, num_slots=2, max_seq=64,
+                  min_bucket=16)
+    clone = fleet.replicas[1].engine.model
+    assert clone is not model
+    for (n, t), (_, s) in zip(clone.state_dict().items(),
+                              model.state_dict().items()):
+        assert t.dtype == s.dtype and t.device == s.device, n
+        assert torch.equal(t, s) and t.data_ptr() != s.data_ptr(), n
+    if family == "gpt":
+        assert {m.kernel for m in clone.modules()
+                if hasattr(m, "kernel")} == {"reference"}
+    ids = torch.arange(1, 33, device=cuda_device)[None]
+    with torch.no_grad():
+        assert torch.equal(clone(ids), model(ids))
+
+
+@pytest.mark.cuda
+def test_step_programs_of_two_engines_never_overlap(cuda_device):
+    """Registries on one card share K4's merge tickets: a program called
+    on another stream while another registry's still runs raises; on the
+    same stream, or once the other's has ended, it runs."""
+    from paddle_tpu_torch.serving.programs import StepPrograms
+
+    a, b = (StepPrograms(cuda_device, lambda miss: None) for _ in range(2))
+    x = np.arange(8, dtype=np.float32)
+
+    def body(t):
+        return t * 2
+
+    a.run(("k",), body, x)
+    b.run(("k",), body, x)
+    side = torch.cuda.Stream(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(chip_smoke.sleep_cycles(0.5))
+    a.run(("k",), body, x)
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match="another stream"):
+            b.run(("k",), body, x)
+    b.run(("k",), body, x)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        out = a.run(("k",), body, x)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), torch.from_numpy(x * 2))

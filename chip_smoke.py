@@ -27,7 +27,12 @@ Phases, each printing one JSON line with the card's name and power limit:
               cold, each call alone after ``L2_FLUSH_BYTES`` are written
               outside its events; the kernel also alone and warm
               (``warm_ms``) and back to back (``batched_ms``, how earlier
-              runs timed it).
+              runs timed it).  K1-K3's dropout instances are held at the
+              train shape at p 0.1 on one draw (seed, offset) against
+              their plain versions on the same draw (to the p = 0 rows'
+              tolerances), on a ragged full-mask shape, and K1's mask
+              exactly at S 64 (q = k = 0 and V one-hot by key, so that O
+              exposes the mask).
 3. serve_paged — Llama-2 7B at full width (random weights from a seed),
               bf16, paged KV: 12 requests sharing a 512-token system
               prompt; the K4/K5 launch counts of this run are read.
@@ -83,9 +88,22 @@ Phases, each printing one JSON line with the card's name and power limit:
               mid-decode, the other rebuilds the model, recovers and
               holds the streams to uninterrupted runs.
 12. train   — GPT-2 345M at full width (24 layers, random weights from a
-              seed), batch 8 x 1024, bf16 AMP O2 with f32 masters, AdamW:
-              3 warm-up and 10 timed steps on one batch; the K1/K2/K3
-              launch counts of these 13 steps are read.
+              seed), batch 8 x 1024, bf16 AMP O2 with f32 masters, AdamW,
+              the step compiled by ``jit.to_static`` (a CUDA graph from
+              its second call): 3 warm-up and 10 timed steps on one
+              batch, one program and one capture; the K1/K2/K3 launch
+              counts of these 13 steps are read; the first 3 losses must
+              equal the same step's run eagerly.
+12b. train_recipe — the same model at the GPT-2 recipe: dropout 0.1
+              (hidden, and attention in K1-K3's dropout instances), 4
+              warm-up steps then a cosine decay, a global-norm clip of
+              1.0, through ``to_static``, 20 steps with recompute off and
+              then on (step ms after the eager call and the capture,
+              peak): finite losses, each step read the scheduler's
+              rate, the clipped norm is at most 1.0 (one eager backward
+              after the run), the first loss bitwise equal in both runs,
+              a lower peak with recompute; the dropout instances' launch
+              counts of the two runs are read.
 13. train_parity — GPT-2 345M width at 2 layers in f32: loss, every
               gradient and the parameters after one AdamW step on the
               kernel path against ``kernel="reference"``.
@@ -189,8 +207,9 @@ Phases, each printing one JSON line with the card's name and power limit:
               equal to the uninterrupted stream.
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
-``{"kernels": [...]}`` line (each kernel's ``launches`` on its main path,
-and ``launches_by_phase``); the last line is
+``{"kernels": [...]}`` line (K1-K5 and K1-K3's dropout instances: each
+kernel's ``launches`` on its main path, ``train_recipe`` for the dropout
+instances, and ``launches_by_phase``); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 without that line.  No phase falls back to the CPU.
 """
@@ -377,7 +396,11 @@ def phase_build() -> dict:
 TENSOR_CORE_KERNELS = (("flash_attention_fwd", "flash_fwd_kernel"),
                        ("paged_attention", "paged_prefill_kernel"),
                        ("flash_attention_bwd", "flash_bwd_dkv_kernel"),
-                       ("flash_attention_bwd", "flash_bwd_dq_kernel"))
+                       ("flash_attention_bwd", "flash_bwd_dq_kernel"),
+                       ("flash_attention_fwd", "flash_fwd_dropout_kernel"),
+                       ("flash_attention_bwd",
+                        "flash_bwd_dkv_dropout_kernel"),
+                       ("flash_attention_bwd", "flash_bwd_dq_dropout_kernel"))
 
 
 def check_tensor_cores(hgmma: dict) -> None:
@@ -497,9 +520,21 @@ def check_prefill(gen, H, Hkv, dtype, start, S, D=128, bs=16, max_seq=4096):
             "bound": bound(nbytes, 4 * H * D * keys, dtype)}
 
 
-def check_flash(gen, B, S, H, dtype, D=128, causal=True, fused=False):
+#: the dropout draw the kernels phase holds K1-K3's dropout instances with
+DROPOUT_SNAPSHOT = (1234, 5)
+
+
+def _snapshot():
+    return torch.tensor(DROPOUT_SNAPSHOT, dtype=torch.int64, device="cuda")
+
+
+def check_flash(gen, B, S, H, dtype, D=128, causal=True, fused=False,
+                dropout_p=0.0):
     """K1 on separate q/k/v, or (``fused``) on strided views of one
-    ``[B, S, H, 3*D]`` projection as the GPT model hands them over."""
+    ``[B, S, H, 3*D]`` projection as the GPT model hands them over;
+    ``dropout_p > 0``: K1's dropout instance and the plain version on the
+    draw ``DROPOUT_SNAPSHOT`` (the library call: SDPA with the same rate,
+    its own mask)."""
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.attention import _sdpa_reference
 
@@ -510,16 +545,18 @@ def check_flash(gen, B, S, H, dtype, D=128, causal=True, fused=False):
         q, k, v = (torch.randn((B, S, H, D), generator=gen,
                                device="cuda").to(dtype) for _ in range(3))
 
+    snap = _snapshot() if dropout_p else None
+
     def kern():
-        return kernels.flash_fwd(q, k, v, causal=causal)
+        return kernels.flash_fwd(q, k, v, causal, dropout_p, snap)
 
     def plain():
-        return _sdpa_reference(q, k, v, causal, return_lse=True)
+        return _sdpa_reference(q, k, v, causal, True, dropout_p, snap)
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal).transpose(1, 2)
+            is_causal=causal, dropout_p=dropout_p).transpose(1, 2)
 
     (o, lse), (o_ref, lse_ref) = kern(), plain()
     err = (o.float() - o_ref.float()).abs().max().item()
@@ -527,8 +564,11 @@ def check_flash(gen, B, S, H, dtype, D=128, causal=True, fused=False):
     isz = torch.finfo(dtype).bits // 8
     keys = B * (S * (S + 1) // 2 if causal else S * S)
     nbytes = 4 * B * S * H * D * isz + B * H * S * 4
+    # dropout multiplies every kept probability, and so O, by 1 / (1 - p):
+    # the p = 0 tolerance on that scale (one bf16 ulp of an output in
+    # [4, 8) is 2**-5, past the unscaled 3e-2)
     return {"err": err, "lse_err": lse_err, "kern": kern, "plain": plain,
-            "library": library,
+            "library": library, "tol": TOLERANCE[dtype] / (1 - dropout_p),
             "bound": bound(nbytes, 4 * H * D * keys, dtype)}
 
 
@@ -537,24 +577,28 @@ def check_flash(gen, B, S, H, dtype, D=128, causal=True, fused=False):
 BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64, causal=True):
+def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64, causal=True,
+                    dropout_p=0.0):
     """K2 (``which="flash_bwd_dkv"``) or K3 (``"flash_bwd_dq"``) on q/k/v
     taken as strided views of one fused ``[B, S, H, 3*D]`` projection, as
     the GPT model hands them over, with lse and delta from the plain
     forward.  The library call is one ``torch.autograd.grad`` through
     SDPA giving dq, dk and dv together; its forward runs at the first
-    call (a warm-up call of the timing)."""
+    call (a warm-up call of the timing).  ``dropout_p > 0``: the dropout
+    instances and plain versions on the draw ``DROPOUT_SNAPSHOT`` (SDPA
+    with the same rate for the library)."""
     from paddle_tpu_torch.ops import attention as att
     from paddle_tpu_torch.ops import kernels
 
     q, k, v = torch.randn((B, S, H, 3 * D), generator=gen,
                           device="cuda").to(dtype).split(D, dim=-1)
     do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
-    o, lse = att._sdpa_reference(q, k, v, causal, return_lse=True)
+    snap = _snapshot() if dropout_p else None
+    o, lse = att._sdpa_reference(q, k, v, causal, True, dropout_p, snap)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
         .contiguous().view(B * H, S)
     del o
-    args = (q, k, v, do, lse, delta, causal)
+    args = (q, k, v, do, lse, delta, causal, dropout_p, snap)
     if which == "flash_bwd_dkv":
         def kern():
             return kernels.flash_bwd_dkv(*args)
@@ -579,7 +623,7 @@ def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64, causal=True):
             qkv = [t.transpose(1, 2).detach().requires_grad_()
                    for t in (q, k, v)]
             graph.append((torch.nn.functional.scaled_dot_product_attention(
-                *qkv, is_causal=causal), qkv))
+                *qkv, is_causal=causal, dropout_p=dropout_p), qkv))
         out, qkv = graph[0]
         return torch.autograd.grad(out, qkv, do.transpose(1, 2),
                                    retain_graph=True)
@@ -593,12 +637,36 @@ def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64, causal=True):
             "bound": bound(nbytes, flops_per_pair * H * pairs, dtype)}
 
 
+def check_dropout_mask(dtype, S=64, H=2, p=0.25):
+    """K1's dropout instance with every probability of a row equal (q = k
+    = 0) and V one-hot by key (``[S, D]`` the identity, D = S = 64), so
+    that ``O[q, key] = P[q, key] * M[q, key] / (1 - p)`` exposes the mask:
+    the count of causal (q, key) where O is nonzero and the plain mask
+    drops it, or the reverse (0 holds it exactly)."""
+    from paddle_tpu_torch import rng
+    from paddle_tpu_torch.ops import kernels
+
+    q = torch.zeros((1, S, H, 64), dtype=dtype, device="cuda")
+    v = torch.eye(64, dtype=dtype, device="cuda")[None, :, None, :] \
+        .expand(1, S, H, 64).contiguous()
+    snap = _snapshot()
+    o, _ = kernels.flash_fwd(q, q, v, True, p, snap)
+    keep = (rng.attention_dropout_factor(snap, H, S, S, p) > 0) & \
+        torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    got = o.float()[0].permute(1, 0, 2) != 0        # [H, q, key]
+    mismatch = int((got != keep).sum().item())
+    return {"err": float(mismatch), "tol": 0.0,
+            "kept_share": keep.sum().item() / (H * S * (S + 1) / 2)}
+
+
 DECODE_LENGTHS = [2047, 1800, 1536, 1200, 1024, 700, 333, 0]
 #: serve_gpt's 8 slots 32 tokens into their decode: the 256-token system
 #: prompt plus tails of 32, 600, 150, 77, 400, 256, 500 and 64
 GPT_DECODE_LENGTHS = [320, 888, 438, 365, 688, 544, 788, 352]
 #: the GPT-2 345M train step's attention shape: batch, seq, heads, head dim
 TRAIN_ATTN = (8, 1024, 16, 64)
+#: the GPT-2 recipe's attention dropout (train_recipe)
+RECIPE_DROPOUT = 0.1
 
 
 #: a case checked in f32 and bf16, or in bf16 only
@@ -714,8 +782,14 @@ def phase_kernels(hgmma: dict) -> dict:
     gather_sdpa = "index_select + scaled_dot_product_attention with a " \
         "mask (2 calls)"
 
-    def bwd(which):
-        return lambda dt: check_flash_bwd(gen, which, B, S, H, dt, D)
+    def bwd(which, p=0.0):
+        return lambda dt: check_flash_bwd(gen, which, B, S, H, dt, D,
+                                          dropout_p=p)
+
+    P = RECIPE_DROPOUT
+    train_p = f"{train}, dropout {P} (draw {DROPOUT_SNAPSHOT})"
+    sdpa_p = f"{sdpa_causal} dropout_p={P} (its own mask)"
+    sdpa_grad_p = f"{sdpa_grad}, dropout_p={P} (its own mask)"
 
     def prefill(H, Hkv, start, S_, dtypes=BF16, timed=False, D_=128,
                 max_seq=4096, label=""):
@@ -782,6 +856,35 @@ def phase_kernels(hgmma: dict) -> dict:
                            BOTH, True), *bwd_edges(gen, "flash_bwd_dkv")],
         "flash_bwd_dq": [("train", bwd("flash_bwd_dq"), train, sdpa_grad,
                           BOTH, True), *bwd_edges(gen, "flash_bwd_dq")],
+        # the dropout instances: the train shape at the recipe's rate, a
+        # ragged full-mask shape, and (K1) the exact mask
+        "flash_fwd_dropout": [
+            ("train", lambda dt: check_flash(gen, B, S, H, dt, D,
+                                             dropout_p=P),
+             train_p, sdpa_p, BOTH, True),
+            ("S1000/full/D128", lambda dt: check_flash(
+                gen, 2, 1000, 4, dt, 128, causal=False, dropout_p=P),
+             f"B=2 S=1000 H=4 D=128 full, dropout {P}", sdpa_p, BOTH,
+             False),
+            ("exact_mask", check_dropout_mask,
+             "B=1 S=64 H=2 D=64 causal, dropout 0.25, q=k=0, V one-hot",
+             sdpa_p, BOTH, False)],
+        "flash_bwd_dkv_dropout": [
+            ("train", bwd("flash_bwd_dkv", P), train_p, sdpa_grad_p, BOTH,
+             True),
+            ("S1000/full/D128", lambda dt: check_flash_bwd(
+                gen, "flash_bwd_dkv", 2, 1000, 4, dt, 128, causal=False,
+                dropout_p=P),
+             f"B=2 S=1000 H=4 D=128 full, dropout {P}", sdpa_grad_p, BF16,
+             False)],
+        "flash_bwd_dq_dropout": [
+            ("train", bwd("flash_bwd_dq", P), train_p, sdpa_grad_p, BOTH,
+             True),
+            ("S1000/full/D128", lambda dt: check_flash_bwd(
+                gen, "flash_bwd_dq", 2, 1000, 4, dt, 128, causal=False,
+                dropout_p=P),
+             f"B=2 S=1000 H=4 D=128 full, dropout {P}", sdpa_grad_p, BF16,
+             False)],
     }
     out, library_ms = {}, {}      # one library figure per (shape, call)
     for name, shapes in cases.items():
@@ -4072,22 +4175,27 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 
 
 def run_train(config: str, batch: int, seq: int, device: str, warmup: int,
-              steps: int) -> dict:
-    """``build_train_step`` for ``config``; zero the launch counts, run
-    ``warmup`` then ``steps`` timed steps on the one seeded batch, and
-    check the losses: finite, the last below the first.  Returns the
-    run's figures and the launch counts of these steps alone."""
+              steps: int, to_static: bool = True, check_fall: bool = True,
+              **build_kw) -> dict:
+    """``build_train_step`` for ``config`` (``build_kw``: its recipe
+    options); zero the launch counts, run ``warmup`` then ``steps`` timed
+    steps on the one seeded batch, and check the losses: finite, and
+    (``check_fall``) the last below the first.  Returns the run's figures,
+    the launch counts of these steps alone and, for a compiled step, its
+    program-cache counts.  The peak is taken from the model's build on,
+    so a graph's pool is in it."""
     from paddle_tpu_torch import build_train_step
     from paddle_tpu_torch.ops import kernels
 
-    t0 = time.perf_counter()
-    ts = build_train_step(config, batch=batch, seq=seq, device=device)
-    build_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in ts.model.parameters())
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ts = build_train_step(config, batch=batch, seq=seq, device=device,
+                          to_static=to_static, **build_kw)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in ts.model.parameters())
     kernels.reset_launches()
     losses = [ts.train_step(ts.x, ts.y) for _ in range(warmup)]
     if cuda:
@@ -4101,33 +4209,185 @@ def run_train(config: str, batch: int, seq: int, device: str, warmup: int,
     losses = [float(v) for v in losses]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train: non-finite loss {losses}")
-    if not losses[-1] < losses[0]:
+    if check_fall and not losses[-1] < losses[0]:
         raise AssertionError(f"train: loss did not fall {losses}")
     tokens_per_s = steps * batch * seq / wall
     res = {"params": n_params, "steps": warmup + steps, "timed_steps": steps,
-           "model_build_s": round(build_s, 3),
+           "to_static": to_static, "model_build_s": round(build_s, 3),
            "step_ms": wall * 1e3 / steps, "tokens_per_s": tokens_per_s,
            "mfu": tokens_per_s * 6 * n_params / PEAK_FLOPS[torch.bfloat16],
            "losses": losses, "launches": launches,
            "layers": ts.model.config.num_hidden_layers}
+    if to_static:
+        f = ts.train_step
+        res["program_cache"] = {"programs": len(f.program_cache),
+                                "misses": f.misses, "hits": f.hits,
+                                "captures": f.captures}
     if cuda:
         res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     return res
 
 
+#: the eager steps ``train`` holds the compiled step's first losses to
+TRAIN_EAGER_STEPS = 3
+
+
 def phase_train() -> dict:
+    """GPT-2 345M's bench step through ``jit.to_static`` (a CUDA graph a
+    step after the first two calls): 3 warm-up and 10 timed steps, one
+    program and one capture; its first 3 losses against the same step run
+    eagerly (bitwise expected: the same kernels in the same order)."""
+    eager = run_train("gpt2-345m", batch=8, seq=1024, device="cuda",
+                      warmup=0, steps=TRAIN_EAGER_STEPS, to_static=False,
+                      check_fall=False)
+    gc.collect()
+    torch.cuda.empty_cache()
     res = run_train("gpt2-345m", batch=8, seq=1024, device="cuda", warmup=3,
                     steps=10)
+    diff = max(abs(a - b) for a, b in zip(res["losses"], eager["losses"]))
     want = res["layers"] * res["steps"]
     emit("train", model="gpt2-345m", dtype="bfloat16 (AMP O2, f32 masters)",
          batch=8, seq=1024, mfu_peak="989e12 bf16 dense, 6N flops/token",
-         **res)
+         eager_losses=eager["losses"], eager_max_abs_diff=diff, **res)
+    if res["program_cache"] != {"programs": 1, "misses": 1,
+                                "hits": res["steps"] - 1, "captures": 1}:
+        raise AssertionError(f"train: program cache {res['program_cache']} "
+                             f"(want one program, one capture)")
+    if diff != 0.0:
+        raise AssertionError(f"train: the compiled step's first losses "
+                             f"{res['losses'][:3]} differ from the eager "
+                             f"step's {eager['losses']}")
     for name in TRAIN_KERNELS:
         if res["launches"][name] != want:
             raise AssertionError(f"train: {name} launched "
                                  f"{res['launches'][name]} times, want "
                                  f"{want} (one per layer per step)")
     return res
+
+
+RECIPE_STEPS = 20
+#: a compiled step's first two calls (the eager step and the capture) are
+#: not in ``step_ms``
+RECIPE_UNTIMED = 2
+RECIPE_KERNELS = tuple(f"{n}_dropout" for n in TRAIN_KERNELS)
+
+
+def recipe_schedule():
+    """The GPT-2 recipe's rate: 4 linear warm-up steps to 1.5e-4, then a
+    cosine decay over the rest of the run."""
+    from paddle_tpu_torch.optimizer import lr
+
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(1.5e-4, T_max=16), 4,
+                           0.0, 1.5e-4)
+
+
+def run_recipe(recompute: bool, config: str = "gpt2-345m", batch: int = 8,
+               seq: int = 1024, device: str = "cuda",
+               steps: int = RECIPE_STEPS) -> dict:
+    """``config`` at the GPT-2 recipe (dropout 0.1, ``recipe_schedule``,
+    a global-norm clip of 1.0), through ``to_static``: ``steps`` steps,
+    the scheduler stepped after each; the device rate each step read is
+    copied aside (no host read inside the loop).  ``step_ms`` is that of
+    the steps after the first two (the eager call and the capture).  Then,
+    outside the timing, one eager backward whose clipped gradients'
+    global norm is read once.  The peak (on the card) is taken from the
+    build on."""
+    from paddle_tpu_torch import build_train_step
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    sched = recipe_schedule()
+    clip = ClipGradByGlobalNorm(1.0)
+    ts = build_train_step(config, batch=batch, seq=seq, device=device,
+                          dropout=RECIPE_DROPOUT, recompute=recompute,
+                          lr=sched, grad_clip=clip)
+    lr_t = sched._lr_tensor(ts.x.device)
+    want_lrs, seen_lrs, losses = [], [], []
+    for i in range(steps):
+        if i == RECIPE_UNTIMED:
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        want_lrs.append(sched())
+        seen_lrs.append(lr_t.clone())
+        losses.append(ts.train_step(ts.x, ts.y))
+        sched.step()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+    losses = [float(v) for v in losses]
+    seen = [float(v) for v in seen_lrs]
+    loss = ts.model.compute_loss(ts.x, ts.y)
+    loss.backward()
+    pairs = ts.optimizer._params_grads()
+    norm_before = clip.global_norm([g for _, g in pairs]).item()
+    norm_after = clip.global_norm([g for _, g in clip(pairs)]).item()
+    ts.optimizer.clear_grad()
+    f = ts.train_step
+    return {"recompute": recompute, "losses": losses,
+            "step_ms": wall * 1e3 / (steps - RECIPE_UNTIMED),
+            "peak_memory_gb": peak, "lr_seen": seen,
+            "lr_max_abs_err": max(abs(a - float(np.float32(b)))
+                                  for a, b in zip(seen, want_lrs)),
+            "grad_norm_before_clip": norm_before,
+            "grad_norm_after_clip": norm_after,
+            "program_cache": {"programs": len(f.program_cache),
+                              "misses": f.misses, "captures": f.captures}}
+
+
+def phase_train_recipe() -> dict:
+    """(c): ``run_recipe`` with recompute off, then on.  Fails unless
+    every loss is finite, each step read the scheduler's rate, the clipped
+    norm is at most 1.0, the first loss is bitwise equal in the two runs
+    (the same masks: a region draws its dropout offsets outside the
+    checkpoint), recompute lowers the peak, and the dropout instances of
+    K1-K3 ran.  Returns the launch counts of the two runs' steps."""
+    from paddle_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    runs = []
+    for recompute in (False, True):
+        runs.append(run_recipe(recompute))
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = kernels.launch_counts()
+    off, on = runs
+    emit("train_recipe", model="gpt2-345m", batch=8, seq=1024,
+         dtype="bfloat16 (AMP O2, f32 masters)", dropout=RECIPE_DROPOUT,
+         schedule="LinearWarmup(4, 0 -> 1.5e-4) then "
+                  "CosineAnnealingDecay(T_max=16)",
+         grad_clip="ClipGradByGlobalNorm(1.0)", steps=RECIPE_STEPS,
+         recompute_off=off, recompute_on=on,
+         first_loss_bitwise=off["losses"][0] == on["losses"][0],
+         launches={n: launches[n] for n in RECIPE_KERNELS + TRAIN_KERNELS})
+    for run in runs:
+        tag = f"train_recipe (recompute {run['recompute']})"
+        if not all(np.isfinite(run["losses"])):
+            raise AssertionError(f"{tag}: non-finite loss {run['losses']}")
+        if run["lr_max_abs_err"] != 0.0:
+            raise AssertionError(f"{tag}: a step read a rate other than "
+                                 f"the scheduler's: {run['lr_seen']}")
+        if not run["grad_norm_after_clip"] <= 1.0 + 1e-6:   # f32 rounding
+            raise AssertionError(f"{tag}: clipped global norm "
+                                 f"{run['grad_norm_after_clip']} > 1.0")
+        if run["program_cache"] != {"programs": 1, "misses": 1,
+                                    "captures": 1}:
+            raise AssertionError(f"{tag}: {run['program_cache']}")
+    if off["losses"][0] != on["losses"][0]:
+        raise AssertionError(f"train_recipe: first loss {off['losses'][0]} "
+                             f"without recompute, {on['losses'][0]} with")
+    if not on["peak_memory_gb"] < off["peak_memory_gb"]:
+        raise AssertionError(f"train_recipe: recompute did not lower the "
+                             f"peak ({on['peak_memory_gb']} GiB against "
+                             f"{off['peak_memory_gb']})")
+    for name in RECIPE_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"train_recipe: {name} never launched")
+    return launches
 
 
 #: train_parity tolerances (f32): loss relative; each gradient relative to
@@ -4336,12 +4596,16 @@ def main() -> int:
     train = phase_train()
     gc.collect()
     torch.cuda.empty_cache()
+    recipe = phase_train_recipe()
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_train_parity()
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_parity_bf16()
     launches = {**paged["launches"],
-                **{n: train["launches"][n] for n in TRAIN_KERNELS}}
+                **{n: train["launches"][n] for n in TRAIN_KERNELS},
+                **{n: recipe[n] for n in RECIPE_KERNELS}}
     by_phase = {"serve_paged": paged["launches"],
                 "serve_durable": durable["launches"],
                 "serve_spec": spec,
@@ -4349,7 +4613,8 @@ def main() -> int:
                 "serve_resilience": resilience,
                 "serve_fleet": fleet,
                 "sigkill_drill": drill["launches"],
-                "train": train["launches"]}
+                "train": train["launches"],
+                "train_recipe": recipe}
     kernels_line = [{**rec, "launches": launches[name],
                      "launches_by_phase": {ph: c[name]
                                            for ph, c in by_phase.items()

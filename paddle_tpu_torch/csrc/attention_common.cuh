@@ -88,6 +88,102 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// -- attention dropout -------------------------------------------------------
+//
+// Philox-4x32-10 (Salmon et al., SC'11; the Random123 constants) of a
+// 128-bit counter under a 64-bit key: the same function as the plain
+// version in paddle_tpu_torch/rng.py.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// No attention dropout: the kernels' p == 0 instances, whose code does not
+// change.
+struct NoDropout {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ void set_head(int) {}
+};
+
+// Attention dropout with rate p.  The bit of probability (row, col) of head
+// row bh = b * H + h depends only on those coordinates and the draw, never on
+// a kernel's tiles: it is word ((row >> 3) & 1) * 2 + (col & 1) of Philox at
+// counter (col >> 1, (row >> 4) * 8 + (row & 7), bh, offset_lo) under key
+// (seed_lo, seed_hi ^ offset_hi), so one counter covers rows row and row + 8
+// (row % 16 < 8) and columns col and col + 1 (col even): the four values one
+// thread of a tensor-core fragment holds.  The probability is kept iff the
+// whole 32-bit word is >= threshold = round(p * 2^32) (an 8-bit threshold
+// would bias the keep rate) and then multiplied by 1 / (1 - p).  Seed and
+// offset are read from device memory (the generator's snapshot), so a
+// captured graph draws new masks at every replay.
+class Dropout {
+ public:
+  static constexpr bool kOn = true;
+
+  // rng: int64 [seed, offset] on the device
+  __device__ __forceinline__ Dropout(const long long* __restrict__ rng,
+                                     long long threshold, float scale)
+      : threshold_(threshold), scale_(scale) {
+    const unsigned long long seed = rng[0], off = rng[1];
+    key_ = make_uint2(static_cast<uint32_t>(seed),
+                      static_cast<uint32_t>(seed >> 32) ^
+                          static_cast<uint32_t>(off >> 32));
+    offset_ = static_cast<uint32_t>(off);
+  }
+
+  __device__ __forceinline__ void set_head(int bh) { bh_ = bh; }
+
+  // The words of the counter that covers (row, col).
+  __device__ __forceinline__ uint4 words(int row, int col) const {
+    return philox4x32_10(
+        make_uint4(static_cast<uint32_t>(col) >> 1,
+                   (static_cast<uint32_t>(row) >> 4) * 8 + (row & 7), bh_,
+                   offset_),
+        key_);
+  }
+
+  __device__ __forceinline__ bool keep(uint32_t word) const {
+    return static_cast<long long>(word) >= threshold_;
+  }
+
+  // Bits 0..3: the keep bits of words x, y, z, w.
+  __device__ __forceinline__ uint32_t keep4(uint4 w) const {
+    return static_cast<uint32_t>(keep(w.x)) |
+           static_cast<uint32_t>(keep(w.y)) << 1 |
+           static_cast<uint32_t>(keep(w.z)) << 2 |
+           static_cast<uint32_t>(keep(w.w)) << 3;
+  }
+
+  // 1 / (1 - p) if `bit` is set, else 0.
+  __device__ __forceinline__ float factor(uint32_t bit) const {
+    return bit ? scale_ : 0.f;
+  }
+
+  // The factor of one element (a whole Philox call for it).
+  __device__ __forceinline__ float at(int row, int col) const {
+    const uint4 w = words(row, col);
+    const int i = ((row >> 3) & 1) * 2 + (col & 1);
+    const uint32_t x = i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+    return keep(x) ? scale_ : 0.f;
+  }
+
+ private:
+  uint2 key_;
+  uint32_t offset_;
+  uint32_t bh_ = 0;
+  long long threshold_;
+  float scale_;
+};
+
 // Rows are padded by one float so that a warp reading 32 different rows at
 // the same column hits 32 different banks.
 template <int D>
@@ -116,13 +212,15 @@ struct TileSmem {
 //       in k_base and v_base (the kv head already applied); returns false
 //       when the position has no storage.
 //   lse_rows: where to write m + log(l) per row, or nullptr.
-template <typename T, int D, typename KeyAt>
+//   drop:    attention dropout (Dropout, its head set) or NoDropout;
+//       row and column of a probability are qpos0 + r and the key position.
+template <typename T, int D, typename KeyAt, typename Drop = NoDropout>
 __device__ __forceinline__ void attend_tile(
     TileSmem<D>& sm, const T* __restrict__ q_rows, long long q_stride,
     int n_rows, int qpos0, int horizon, bool causal,
     const T* __restrict__ k_base, const T* __restrict__ v_base, KeyAt key_at,
     float scale, T* __restrict__ o_rows, long long o_stride,
-    float* __restrict__ lse_rows) {
+    float* __restrict__ lse_rows, const Drop& drop = Drop{}) {
   static_assert(kChunkK == 32, "the softmax step maps one key per lane");
   static_assert((kTileQ * D) % kThreads == 0, "accumulator split");
   constexpr int kAcc = kTileQ * D / kThreads;
@@ -177,8 +275,11 @@ __device__ __forceinline__ void attend_tile(
       const float m_prev = sm.m[r];
       const float m_new = fmaxf(m_prev, warp_max(s));
       const float p = expf(s - m_new);
-      const float psum = warp_sum(p);
-      sm.p[r][lane] = p;
+      const float psum = warp_sum(p);  // l and lse: the undropped p
+      if constexpr (Drop::kOn)
+        sm.p[r][lane] = p * drop.at(qpos0 + r, c0 + lane);
+      else
+        sm.p[r][lane] = p;
       if (lane == 0) {
         const float corr = expf(m_prev - m_new);
         sm.corr[r] = corr;

@@ -235,14 +235,18 @@ struct TileCopy {
 // One 64-query tile against keys 0..horizon, on tensor cores.  Arguments as
 // `attend_tile` (attention_common.cuh), plus `smem`: Smem<D>::kAlloc bytes
 // of dynamic shared memory.  `key_at.limit()` is the first position with no
-// storage.
-template <int D, typename KeyAt>
+// storage.  With `Dropout`, each thread forms the keep bits
+// of its 32 fragment values (one Philox call per 8-column group: rows
+// qpos0 + r0 and + 8, which share a counter since qpos0 is a multiple of 64)
+// and multiplies p by them before rounding it for P V; l, and so lse, keep
+// the undropped p.
+template <int D, typename KeyAt, typename Drop = NoDropout>
 __device__ __forceinline__ void attend_tile(
     uint8_t* smem, const bf16* __restrict__ q_rows, long long q_stride,
     int n_rows, int qpos0, int horizon, bool causal,
     const bf16* __restrict__ k_base, const bf16* __restrict__ v_base,
     KeyAt key_at, float scale, bf16* __restrict__ o_rows, long long o_stride,
-    float* __restrict__ lse_rows) {
+    float* __restrict__ lse_rows, const Drop& drop = Drop{}) {
   using L = Smem<D>;
   constexpr int kSteps = D / 16;  // k16 steps of Q K^T
   const int tid = threadIdx.x;
@@ -347,13 +351,23 @@ __device__ __forceinline__ void attend_tile(
       m[i] = mx[i];
       l[i] *= corr[i];
     }
+    uint32_t keep = 0;  // bit e: fragment value e is kept
+    if constexpr (Drop::kOn) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        keep |= drop.keep4(drop.words(qpos0 + r0, c0 + 8 * j + cq)) << (4 * j);
+    }
     uint32_t p[4][4];  // A fragments of P, one per 16 keys
 #pragma unroll
     for (int e = 0; e < 32; e += 2) {
       const int row = (e / 2) % 2;
-      const float p0 = exp2f(s[e] - m[row]);
-      const float p1 = exp2f(s[e + 1] - m[row]);
+      float p0 = exp2f(s[e] - m[row]);
+      float p1 = exp2f(s[e + 1] - m[row]);
       l[row] += p0 + p1;
+      if constexpr (Drop::kOn) {
+        p0 *= drop.factor((keep >> e) & 1u);
+        p1 *= drop.factor((keep >> (e + 1)) & 1u);
+      }
       p[e / 8][(e % 8) / 2] = pack_bf16(p0, p1);
     }
 #pragma unroll

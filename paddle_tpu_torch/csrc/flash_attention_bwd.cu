@@ -49,6 +49,16 @@
 //   * K2 holds two D-wide f32 accumulators.  At D 128 it waits for dV's
 //     product before it forms dP^T, so the packed P^T is dead by then.
 //
+// Attention dropout (the `*_dropout_kernel` instances, FlashAttention-2's):
+// with Z = M / (1 - p), M the forward's Philox keep bits (`Dropout`,
+// attention_common.cuh, at the same global coordinates), K2 forms
+// dV += (P o Z)^T dO and dP = (dO V^T) o Z, and both form
+// dS = P o (dP - delta) * scale; delta = rowsum(dO o O) still equals
+// sum_j P_ij dP_ij.  Each thread forms its fragment's 32 keep bits once a
+// tile (K3: one Philox call per 8-key group; K2, whose fragment is the
+// transpose, one per key row and query pair) and keeps them in one
+// register.  The p == 0 kernels are unchanged.
+//
 // What this leaves: the products of a warpgroup run one after another (no
 // overlap of the exponentials with the next wgmma), K3 recomputes the S and
 // dP that K2 formed, and the loads are cp.async rather than TMA.
@@ -258,7 +268,7 @@ __device__ __forceinline__ void store_acc(const float (&d)[D / 2],
 //
 // Fragment coordinates (a thread's s[4j + 2i + c]): key row r0 + 8i of the
 // tile, query column 8j + cq + c.
-template <int D>
+template <int D, typename Drop>
 __device__ __forceinline__ void dkv_tile(
     uint8_t* smem, const bf16* __restrict__ q_bh, long long q_ss,
     const bf16* __restrict__ do_bh, long long do_ss,
@@ -266,7 +276,7 @@ __device__ __forceinline__ void dkv_tile(
     const bf16* __restrict__ k_rows, long long k_ss,
     const bf16* __restrict__ v_rows, long long v_ss, int S, int k0,
     bool causal, float scale, bf16* __restrict__ dk_rows, long long dk_ss,
-    bf16* __restrict__ dv_rows, long long dv_ss) {
+    bf16* __restrict__ dv_rows, long long dv_ss, const Drop& drop) {
   using L = BwdSmem<D>;
   const int tid = threadIdx.x;
   const uint32_t raw = smem_u32(smem);
@@ -329,7 +339,28 @@ __device__ __forceinline__ void dkv_tile(
     wgmma_wait_all();
     fence_regs(s);
 
+    // dropout's keep bits: bit 4j + 2i + c for (key r0 + 8i, query
+    // 8j + cq + c); queries q and q + 8 (groups 2jj, 2jj + 1) share a counter
+    uint32_t keep = 0;
+    if constexpr (Drop::kOn) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = k0 + r0 + 8 * i;
+            const uint4 w = drop.words(c0 + 16 * jj + cq + c, key);
+            const int bit = 8 * jj + 2 * i + c;
+            keep |= static_cast<uint32_t>(drop.keep(key & 1 ? w.y : w.x))
+                    << bit;
+            keep |= static_cast<uint32_t>(drop.keep(key & 1 ? w.w : w.z))
+                    << (bit + 4);
+          }
+    }
+
     // p on the fragment (kept f32 in s for ds) and P^T as bf16 A fragments
+    // (times the keep factor under dropout)
     const bool masked = c0 + kTileM > S || (causal && c0 == k0);
     uint32_t pt[4][4];
 #pragma unroll
@@ -349,7 +380,12 @@ __device__ __forceinline__ void dkv_tile(
           }
           s[e + c] = p;
         }
-        pt[j / 2][(j % 2) * 2 + i] = pack_bf16(s[e], s[e + 1]);
+        if constexpr (Drop::kOn)
+          pt[j / 2][(j % 2) * 2 + i] =
+              pack_bf16(s[e] * drop.factor((keep >> e) & 1u),
+                        s[e + 1] * drop.factor((keep >> (e + 1)) & 1u));
+        else
+          pt[j / 2][(j % 2) * 2 + i] = pack_bf16(s[e], s[e + 1]);
       }
     }
 
@@ -370,7 +406,8 @@ __device__ __forceinline__ void dkv_tile(
     fence_regs(dv);
     fence_regs(dp);
 
-    // dS^T on the fragment, then dK += dS^T Q
+    // dS^T on the fragment (dP^T times the keep factor under dropout),
+    // then dK += dS^T Q
     uint32_t dst[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -378,9 +415,13 @@ __device__ __forceinline__ void dkv_tile(
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int e = 4 * j + 2 * i;
-        dst[j / 2][(j % 2) * 2 + i] =
-            pack_bf16(s[e] * (dp[e] - d2.x) * scale,
-                      s[e + 1] * (dp[e + 1] - d2.y) * scale);
+        float dp0 = dp[e], dp1 = dp[e + 1];
+        if constexpr (Drop::kOn) {
+          dp0 *= drop.factor((keep >> e) & 1u);
+          dp1 *= drop.factor((keep >> (e + 1)) & 1u);
+        }
+        dst[j / 2][(j % 2) * 2 + i] = pack_bf16(s[e] * (dp0 - d2.x) * scale,
+                                                s[e + 1] * (dp1 - d2.y) * scale);
       }
     }
     fence_regs(dk);
@@ -400,14 +441,15 @@ __device__ __forceinline__ void dkv_tile(
 //
 // Fragment coordinates (a thread's s[4j + 2i + c]): query row r0 + 8i of
 // the tile, key column 8j + cq + c.
-template <int D>
+template <int D, typename Drop>
 __device__ __forceinline__ void dq_tile(
     uint8_t* smem, const bf16* __restrict__ q_rows, long long q_ss,
     const bf16* __restrict__ do_rows, long long do_ss,
     const float* __restrict__ lse_rows, const float* __restrict__ delta_rows,
     int n_rows, int q0, const bf16* __restrict__ k_bh, long long k_ss,
     const bf16* __restrict__ v_bh, long long v_ss, int S, bool causal,
-    float scale, bf16* __restrict__ dq_rows, long long dq_ss) {
+    float scale, bf16* __restrict__ dq_rows, long long dq_ss,
+    const Drop& drop) {
   using L = BwdSmem<D>;
   const int tid = threadIdx.x;
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
@@ -468,7 +510,17 @@ __device__ __forceinline__ void dq_tile(
     fence_regs(s);
     fence_regs(dp);
 
-    // dS on the fragment as bf16 A fragments
+    // dropout's keep bits: bit 4j + 2i + c for (query r0 + 8i, key
+    // 8j + cq + c), one counter per 8-key group
+    uint32_t keep = 0;
+    if constexpr (Drop::kOn) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        keep |= drop.keep4(drop.words(q0 + r0, c0 + 8 * j + cq)) << (4 * j);
+    }
+
+    // dS on the fragment as bf16 A fragments (dP times the keep factor
+    // under dropout)
     const bool masked = c0 + kTileN > n_keys ||
                         (causal && c0 + kTileN - 1 > q0);
     uint32_t ds[4][4];
@@ -487,7 +539,9 @@ __device__ __forceinline__ void dq_tile(
                             (!causal || kpos <= q0 + r0 + 8 * i);
             p = ok ? p : 0.f;
           }
-          v[c] = p * (dp[e + c] - delta[i]) * scale;
+          float dpc = dp[e + c];
+          if constexpr (Drop::kOn) dpc *= drop.factor((keep >> (e + c)) & 1u);
+          v[c] = p * (dpc - delta[i]) * scale;
         }
         ds[j / 2][(j % 2) * 2 + i] = pack_bf16(v[0], v[1]);
       }
@@ -508,30 +562,42 @@ __device__ __forceinline__ void dq_tile(
 
 // -- kernels ------------------------------------------------------------------
 
+#define PT_DKV_PARAMS                                                       \
+  const T *__restrict__ q, const T *__restrict__ k,                         \
+      const T *__restrict__ v, const T *__restrict__ dout,                  \
+      const float *__restrict__ lse, const float *__restrict__ delta,       \
+      T *__restrict__ dk, T *__restrict__ dv, int S, int H, int causal,     \
+      long long q_sb, long long q_ss, long long q_sh, long long k_sb,       \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss,       \
+      long long v_sh, long long do_sb, long long do_ss, long long do_sh,    \
+      long long dk_sb, long long dk_ss, long long dk_sh, long long dv_sb,   \
+      long long dv_ss, long long dv_sh, float scale
+#define PT_DKV_FORWARD                                                      \
+  q, k, v, dout, lse, delta, dk, dv, S, H, causal, q_sb, q_ss, q_sh, k_sb,  \
+      k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dk_sb, dk_ss,      \
+      dk_sh, dv_sb, dv_ss, dv_sh, scale
+
 // K2: one block per (key tile, head, batch) accumulates its dK and dV rows
-// over the query tiles that can see them.
-template <typename T, int D>
-__global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int S, int H, int causal, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, long long do_sb, long long do_ss,
-    long long do_sh, long long dk_sb, long long dk_ss, long long dk_sh,
-    long long dv_sb, long long dv_ss, long long dv_sh, float scale) {
+// over the query tiles that can see them.  `drop`: NoDropout, or Dropout
+// (its head row set here): dV takes P times the keep factor, dP^T is
+// multiplied by it before dS^T.
+template <typename T, int D, typename Drop>
+__device__ __forceinline__ void flash_bwd_dkv_block(PT_DKV_PARAMS,
+                                                    Drop drop) {
   extern __shared__ float smem[];
   if constexpr (tc::kOnTensorCores<T>) {
     int h, b;
     // rank 0 is key tile 0, which sees every query tile under a causal mask
     const int k0 = tc::tile_rank(h, b) * kBwdTile;
     const long long row0 = ((long long)b * H + h) * S;
+    drop.set_head(b * H + h);
     tc::dkv_tile<D>(reinterpret_cast<uint8_t*>(smem), q + b * q_sb + h * q_sh,
                     q_ss, dout + b * do_sb + h * do_sh, do_ss, lse + row0,
                     delta + row0, k + b * k_sb + k0 * k_ss + h * k_sh, k_ss,
                     v + b * v_sb + k0 * v_ss + h * v_sh, v_ss, S, k0,
                     causal != 0, scale, dk + b * dk_sb + k0 * dk_ss + h * dk_sh,
-                    dk_ss, dv + b * dv_sb + k0 * dv_ss + h * dv_sh, dv_ss);
+                    dk_ss, dv + b * dv_sb + k0 * dv_ss + h * dv_sh, dv_ss,
+                    drop);
   } else {
     using L = BwdLayout<D>;
     float* sk = smem;
@@ -545,6 +611,7 @@ __global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dkv_kernel(
 
     const int k0 = blockIdx.x * kBwdTile, h = blockIdx.y, b = blockIdx.z;
     const int n_keys = min(kBwdTile, S - k0);
+    drop.set_head(b * H + h);
     const int tid = threadIdx.x, tm = tid / kSide, tn = tid % kSide;
     const long long row0 = ((long long)b * H + h) * S;  // lse / delta row
     const T* q_bh = q + b * q_sb + h * q_sh;
@@ -582,8 +649,10 @@ __global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dkv_kernel(
           const bool valid = kj < n_keys && qr < n_q &&
                              (!causal || k0 + kj <= c0 + qr);
           const float p = valid ? expf(st[i][j] * scale - slse[qr]) : 0.f;
-          const float ds = p * (dpt[i][j] - sdelta[qr]) * scale;
-          sp[kj * L::kLdP + qr] = round_to<T>(p);
+          float z = 1.f;
+          if constexpr (Drop::kOn) z = drop.at(c0 + qr, k0 + kj);
+          const float ds = p * (dpt[i][j] * z - sdelta[qr]) * scale;
+          sp[kj * L::kLdP + qr] = round_to<T>(p * z);
           sds[kj * L::kLdP + qr] = round_to<T>(ds);
         }
       }
@@ -598,31 +667,54 @@ __global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dkv_kernel(
   }
 }
 
-// K3: one block per (query tile, head, batch) accumulates its dQ rows over
-// the key tiles up to its causal horizon.
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int S, int H,
-    int causal, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, long long do_sb, long long do_ss,
-    long long do_sh, long long dq_sb, long long dq_ss, long long dq_sh,
-    float scale) {
+__global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dkv_kernel(
+    PT_DKV_PARAMS) {
+  flash_bwd_dkv_block<T, D>(PT_DKV_FORWARD, NoDropout{});
+}
+
+// K2 with attention dropout (rng: the draw's [seed, offset] on the device).
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dkv_dropout_kernel(
+    PT_DKV_PARAMS, const long long* __restrict__ rng, long long threshold,
+    float keep_scale) {
+  flash_bwd_dkv_block<T, D>(PT_DKV_FORWARD,
+                            Dropout(rng, threshold, keep_scale));
+}
+
+#define PT_DQ_PARAMS                                                        \
+  const T *__restrict__ q, const T *__restrict__ k,                         \
+      const T *__restrict__ v, const T *__restrict__ dout,                  \
+      const float *__restrict__ lse, const float *__restrict__ delta,       \
+      T *__restrict__ dq, int S, int H, int causal, long long q_sb,         \
+      long long q_ss, long long q_sh, long long k_sb, long long k_ss,       \
+      long long k_sh, long long v_sb, long long v_ss, long long v_sh,       \
+      long long do_sb, long long do_ss, long long do_sh, long long dq_sb,   \
+      long long dq_ss, long long dq_sh, float scale
+#define PT_DQ_FORWARD                                                       \
+  q, k, v, dout, lse, delta, dq, S, H, causal, q_sb, q_ss, q_sh, k_sb,      \
+      k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dq_sb, dq_ss,      \
+      dq_sh, scale
+
+// K3: one block per (query tile, head, batch) accumulates its dQ rows over
+// the key tiles up to its causal horizon.  `drop` as K2's: dP is multiplied
+// by the keep factor before dS.
+template <typename T, int D, typename Drop>
+__device__ __forceinline__ void flash_bwd_dq_block(PT_DQ_PARAMS, Drop drop) {
   extern __shared__ float smem[];
   if constexpr (tc::kOnTensorCores<T>) {
     int h, b;
     // rank 0 is the last query tile, which sees every key tile
     const int q0 = (gridDim.x - 1 - tc::tile_rank(h, b)) * kBwdTile;
     const long long row0 = ((long long)b * H + h) * S + q0;
+    drop.set_head(b * H + h);
     tc::dq_tile<D>(reinterpret_cast<uint8_t*>(smem),
                    q + b * q_sb + q0 * q_ss + h * q_sh, q_ss,
                    dout + b * do_sb + q0 * do_ss + h * do_sh, do_ss,
                    lse + row0, delta + row0, min(kBwdTile, S - q0), q0,
                    k + b * k_sb + h * k_sh, k_ss, v + b * v_sb + h * v_sh,
                    v_ss, S, causal != 0, scale,
-                   dq + b * dq_sb + q0 * dq_ss + h * dq_sh, dq_ss);
+                   dq + b * dq_sb + q0 * dq_ss + h * dq_sh, dq_ss, drop);
   } else {
     using L = BwdLayout<D>;
     float* sq = smem;
@@ -637,6 +729,7 @@ __global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dq_kernel(
     const int n_rows = min(kBwdTile, S - q0);
     const int tid = threadIdx.x, tm = tid / kSide, tn = tid % kSide;
     const long long row0 = ((long long)b * H + h) * S + q0;
+    drop.set_head(b * H + h);
     load_rows<T, D>(sq, q + b * q_sb + q0 * q_ss + h * q_sh, q_ss, n_rows);
     load_rows<T, D>(sdo, dout + b * do_sb + q0 * do_ss + h * do_sh, do_ss,
                     n_rows);
@@ -672,8 +765,10 @@ __global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dq_kernel(
           const bool valid = r < n_rows && c < n_keys &&
                              (!causal || c0 + c <= q0 + r);
           const float p = valid ? expf(s[i][j] * scale - slse[r]) : 0.f;
+          float z = 1.f;
+          if constexpr (Drop::kOn) z = drop.at(q0 + r, c0 + c);
           sds[r * L::kLdP + c] =
-              round_to<T>(p * (dp[i][j] - sdelta[r]) * scale);
+              round_to<T>(p * (dp[i][j] * z - sdelta[r]) * scale);
         }
       }
       __syncthreads();
@@ -682,6 +777,20 @@ __global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dq_kernel(
     store_rows<T, D>(dq + b * dq_sb + q0 * dq_ss + h * dq_sh, dq_ss, n_rows,
                      tm, tn, acc);
   }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dq_kernel(
+    PT_DQ_PARAMS) {
+  flash_bwd_dq_block<T, D>(PT_DQ_FORWARD, NoDropout{});
+}
+
+// K3 with attention dropout.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dq_dropout_kernel(
+    PT_DQ_PARAMS, const long long* __restrict__ rng, long long threshold,
+    float keep_scale) {
+  flash_bwd_dq_block<T, D>(PT_DQ_FORWARD, Dropout(rng, threshold, keep_scale));
 }
 
 // Dynamic shared memory of a K2/K3 instance (`products` [tile, tile] f32
@@ -708,18 +817,32 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v,
                          long long do_sb, long long do_ss, long long do_sh,
                          long long dk_sb, long long dk_ss, long long dk_sh,
                          long long dv_sb, long long dv_ss, long long dv_sh,
-                         float scale, cudaStream_t stream) {
-  static SmemOptIn opt_in;
-  const int smem = bwd_smem<T, D>(flash_bwd_dkv_kernel<T, D>, 2, opt_in);
-  if (smem < 0) return -smem;
+                         float scale, const void* rng, long long threshold,
+                         float keep_scale, cudaStream_t stream) {
   const dim3 grid((S + kBwdTile - 1) / kBwdTile, H, B);
-  flash_bwd_dkv_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, causal, q_sb, q_ss,
-      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dk_sb,
-      dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale);
+#define PT_DKV_ARGS                                                          \
+  static_cast<const T*>(q), static_cast<const T*>(k),                        \
+      static_cast<const T*>(v), static_cast<const T*>(dout),                 \
+      static_cast<const float*>(lse), static_cast<const float*>(delta),      \
+      static_cast<T*>(dk), static_cast<T*>(dv), S, H, causal, q_sb, q_ss,    \
+      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dk_sb,  \
+      dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale
+  if (rng == nullptr) {
+    static SmemOptIn opt_in;
+    const int smem = bwd_smem<T, D>(flash_bwd_dkv_kernel<T, D>, 2, opt_in);
+    if (smem < 0) return -smem;
+    flash_bwd_dkv_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(
+        PT_DKV_ARGS);
+  } else {
+    static SmemOptIn opt_in;
+    const int smem =
+        bwd_smem<T, D>(flash_bwd_dkv_dropout_kernel<T, D>, 2, opt_in);
+    if (smem < 0) return -smem;
+    flash_bwd_dkv_dropout_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(
+        PT_DKV_ARGS, static_cast<const long long*>(rng), threshold,
+        keep_scale);
+  }
+#undef PT_DKV_ARGS
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -732,17 +855,31 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v,
                         long long v_sb, long long v_ss, long long v_sh,
                         long long do_sb, long long do_ss, long long do_sh,
                         long long dq_sb, long long dq_ss, long long dq_sh,
-                        float scale, cudaStream_t stream) {
-  static SmemOptIn opt_in;
-  const int smem = bwd_smem<T, D>(flash_bwd_dq_kernel<T, D>, 1, opt_in);
-  if (smem < 0) return -smem;
+                        float scale, const void* rng, long long threshold,
+                        float keep_scale, cudaStream_t stream) {
   const dim3 grid((S + kBwdTile - 1) / kBwdTile, H, B);
-  flash_bwd_dq_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), S, H, causal, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-      v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, scale);
+#define PT_DQ_ARGS_                                                          \
+  static_cast<const T*>(q), static_cast<const T*>(k),                        \
+      static_cast<const T*>(v), static_cast<const T*>(dout),                 \
+      static_cast<const float*>(lse), static_cast<const float*>(delta),      \
+      static_cast<T*>(dq), S, H, causal, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, \
+      v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, scale
+  if (rng == nullptr) {
+    static SmemOptIn opt_in;
+    const int smem = bwd_smem<T, D>(flash_bwd_dq_kernel<T, D>, 1, opt_in);
+    if (smem < 0) return -smem;
+    flash_bwd_dq_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(
+        PT_DQ_ARGS_);
+  } else {
+    static SmemOptIn opt_in;
+    const int smem =
+        bwd_smem<T, D>(flash_bwd_dq_dropout_kernel<T, D>, 1, opt_in);
+    if (smem < 0) return -smem;
+    flash_bwd_dq_dropout_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(
+        PT_DQ_ARGS_, static_cast<const long long*>(rng), threshold,
+        keep_scale);
+  }
+#undef PT_DQ_ARGS_
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -750,8 +887,11 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Each returns the cudaError_t of the
-// launch, or -1 for a (dtype, head_dim) pair that has no instance.
+// dtype: 0 = float32, 1 = bfloat16.  rng: NULL for no dropout, else the
+// draw's int64 [seed, offset] on the device (the forward's), with the keep
+// threshold round(p * 2^32) and keep_scale 1 / (1 - p).  Each returns the
+// cudaError_t of the launch, or -1 for a (dtype, head_dim) pair that has no
+// instance.
 #define PT_BWD_DISPATCH(fn, ARGS)                                           \
   if (dtype == 0 && head_dim == 64) return pt::fn<float, 64>(ARGS);        \
   if (dtype == 0 && head_dim == 128) return pt::fn<float, 128>(ARGS);      \
@@ -763,8 +903,8 @@ extern "C" {
 #define PT_DKV_ARGS                                                        \
   q, k, v, dout, lse, delta, dk, dv, B, S, H, causal, q_sb, q_ss, q_sh,    \
       k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dk_sb,      \
-      dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale,                            \
-      static_cast<cudaStream_t>(stream)
+      dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale, rng, threshold,            \
+      keep_scale, static_cast<cudaStream_t>(stream)
 
 int pt_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
                      const void* v, const void* dout, const void* lse,
@@ -775,14 +915,16 @@ int pt_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
                      long long v_sh, long long do_sb, long long do_ss,
                      long long do_sh, long long dk_sb, long long dk_ss,
                      long long dk_sh, long long dv_sb, long long dv_ss,
-                     long long dv_sh, float scale, void* stream) {
+                     long long dv_sh, float scale, const void* rng,
+                     long long threshold, float keep_scale, void* stream) {
   PT_BWD_DISPATCH(launch_flash_bwd_dkv, PT_DKV_ARGS)
 }
 
 #define PT_DQ_ARGS                                                         \
   q, k, v, dout, lse, delta, dq, B, S, H, causal, q_sb, q_ss, q_sh, k_sb,  \
       k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dq_sb, dq_ss,     \
-      dq_sh, scale, static_cast<cudaStream_t>(stream)
+      dq_sh, scale, rng, threshold, keep_scale,                            \
+      static_cast<cudaStream_t>(stream)
 
 int pt_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                     const void* v, const void* dout, const void* lse,
@@ -792,7 +934,8 @@ int pt_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                     long long k_sh, long long v_sb, long long v_ss,
                     long long v_sh, long long do_sb, long long do_ss,
                     long long do_sh, long long dq_sb, long long dq_ss,
-                    long long dq_sh, float scale, void* stream) {
+                    long long dq_sh, float scale, const void* rng,
+                    long long threshold, float keep_scale, void* stream) {
   PT_BWD_DISPATCH(launch_flash_bwd_dq, PT_DQ_ARGS)
 }
 

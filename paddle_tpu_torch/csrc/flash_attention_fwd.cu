@@ -19,9 +19,17 @@
 // batch) runs `tc::attend_tile` (attention_wgmma.cuh): wgmma for Q K^T and
 // P V, a two-stage cp.async ring of swizzled K/V tiles, the softmax on the
 // accumulator fragment.  Rows must be 16-byte aligned (the wrapper checks).
-// The heaviest (last) causal query tiles are scheduled first.  f32 keeps
-// the CUDA-core loop `attend_tile` (attention_common.cuh), 16 queries per
-// block, which the f32 parity checks use.
+// The heaviest (last) causal query tiles are scheduled first.
+//
+// Attention dropout (`flash_fwd_dropout_kernel`, FlashAttention-2's): the
+// tile's p is multiplied by M / (1 - p) before P V, M the Philox keep bits
+// of `Dropout` (attention_common.cuh) at the probabilities' global
+// coordinates; the row sum l, and so lse, stays that of the undropped p, as
+// the backward kernels need it.  Seed and offset come from device memory.
+// The p == 0 kernel is the same code as before, with no dropout compiled in.
+//
+// f32 keeps the CUDA-core loop `attend_tile` (attention_common.cuh), 16
+// queries per block, which the f32 parity checks use.
 #include "attention_wgmma.cuh"
 
 namespace pt {
@@ -40,14 +48,16 @@ struct DenseKeyAt {
   }
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+// One block: a query tile of one (head, batch).  `drop` is NoDropout, or
+// Dropout with its head row set here.
+template <typename T, int D, typename Drop>
+__device__ __forceinline__ void flash_fwd_block(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int S, int H, int causal,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-    float scale) {
+    float scale, Drop drop) {
   constexpr int kTile = tc::kQueryTile<T>;
   // last query tile first: under a causal mask it has the most keys
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
@@ -59,16 +69,42 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const T* q_rows = q + b * q_sb + q0 * q_ss + h * q_sh;
   T* o_rows = o + b * o_sb + q0 * o_ss + h * o_sh;
   float* lse_rows = lse + ((long long)b * H + h) * S + q0;
+  drop.set_head(b * H + h);
   if constexpr (tc::kOnTensorCores<T>) {
     extern __shared__ uint8_t dyn_smem[];
     tc::attend_tile<D>(dyn_smem, q_rows, q_ss, n_rows, q0, horizon,
                        causal != 0, k, v, key_at, scale, o_rows, o_ss,
-                       lse_rows);
+                       lse_rows, drop);
   } else {
     __shared__ TileSmem<D> sm;
     attend_tile<T, D>(sm, q_rows, q_ss, n_rows, q0, horizon, causal != 0, k,
-                      v, key_at, scale, o_rows, o_ss, lse_rows);
+                      v, key_at, scale, o_rows, o_ss, lse_rows, drop);
   }
+}
+
+#define PT_FWD_PARAMS                                                        \
+  const T *__restrict__ q, const T *__restrict__ k,                          \
+      const T *__restrict__ v, T *__restrict__ o, float *__restrict__ lse,   \
+      int S, int H, int causal, long long q_sb, long long q_ss,              \
+      long long q_sh, long long k_sb, long long k_ss, long long k_sh,        \
+      long long v_sb, long long v_ss, long long v_sh, long long o_sb,        \
+      long long o_ss, long long o_sh, float scale
+#define PT_FWD_FORWARD                                                       \
+  q, k, v, o, lse, S, H, causal, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,   \
+      v_ss, v_sh, o_sb, o_ss, o_sh, scale
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(PT_FWD_PARAMS) {
+  flash_fwd_block<T, D>(PT_FWD_FORWARD, NoDropout{});
+}
+
+// K1 with attention dropout: p times the keep factor before P V (rng: the
+// draw's [seed, offset] on the device; keep iff word >= threshold).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_dropout_kernel(
+    PT_FWD_PARAMS, const long long* __restrict__ rng, long long threshold,
+    float keep_scale) {
+  flash_fwd_block<T, D>(PT_FWD_FORWARD, Dropout(rng, threshold, keep_scale));
 }
 
 template <typename T, int D>
@@ -78,16 +114,29 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
                      long long k_sb, long long k_ss, long long k_sh,
                      long long v_sb, long long v_ss, long long v_sh,
                      long long o_sb, long long o_ss, long long o_sh,
-                     float scale, cudaStream_t stream) {
-  static SmemOptIn opt_in;
-  const int smem = tc::dynamic_smem<T, D>(flash_fwd_kernel<T, D>, opt_in);
-  if (smem < 0) return -smem;
+                     float scale, const void* rng, long long threshold,
+                     float keep_scale, cudaStream_t stream) {
   const dim3 grid((S + tc::kQueryTile<T> - 1) / tc::kQueryTile<T>, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, H, causal, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-      o_sb, o_ss, o_sh, scale);
+#define PT_FWD_ARGS                                                          \
+  static_cast<const T*>(q), static_cast<const T*>(k),                        \
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse), \
+      S, H, causal, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,     \
+      o_sb, o_ss, o_sh, scale
+  if (rng == nullptr) {
+    static SmemOptIn opt_in;
+    const int smem = tc::dynamic_smem<T, D>(flash_fwd_kernel<T, D>, opt_in);
+    if (smem < 0) return -smem;
+    flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(PT_FWD_ARGS);
+  } else {
+    static SmemOptIn opt_in;
+    const int smem =
+        tc::dynamic_smem<T, D>(flash_fwd_dropout_kernel<T, D>, opt_in);
+    if (smem < 0) return -smem;
+    flash_fwd_dropout_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        PT_FWD_ARGS, static_cast<const long long*>(rng), threshold,
+        keep_scale);
+  }
+#undef PT_FWD_ARGS
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -95,12 +144,14 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch,
-// or -1 for a (dtype, head_dim) pair that has no instance.
+// dtype: 0 = float32, 1 = bfloat16.  rng: NULL for no dropout, else the
+// draw's int64 [seed, offset] on the device, with the keep threshold
+// round(p * 2^32) and keep_scale 1 / (1 - p).  Returns the cudaError_t of
+// the launch, or -1 for a (dtype, head_dim) pair that has no instance.
 #define PT_FLASH_ARGS                                                      \
   q, k, v, o, lse, B, S, H, causal, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,    \
-      v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale,                           \
-      static_cast<cudaStream_t>(stream)
+      v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, rng, threshold,           \
+      keep_scale, static_cast<cudaStream_t>(stream)
 
 int pt_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                  const void* v, void* o, void* lse, int B, int S, int H,
@@ -108,6 +159,7 @@ int pt_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                  long long k_sb, long long k_ss, long long k_sh,
                  long long v_sb, long long v_ss, long long v_sh,
                  long long o_sb, long long o_ss, long long o_sh, float scale,
+                 const void* rng, long long threshold, float keep_scale,
                  void* stream) {
   if (dtype == 0 && head_dim == 64)
     return pt::launch_flash_fwd<float, 64>(PT_FLASH_ARGS);

@@ -1,6 +1,9 @@
 """paddle_tpu_torch.distributed: the port's slice of
-``paddle_tpu.distributed``; so far the serving engine's fault tolerance
-(:mod:`.fault_tolerance`)."""
-from . import fault_tolerance
+``paddle_tpu.distributed``: the serving engine's fault tolerance
+(:mod:`.fault_tolerance`), and ``fleet`` at one card (:mod:`.fleet`:
+``init``, ``distributed_model``, ``distributed_optimizer``,
+``recompute``) with its :class:`DistributedStrategy`."""
+from . import fault_tolerance, fleet
+from .strategy import DistributedStrategy
 
-__all__ = ["fault_tolerance"]
+__all__ = ["DistributedStrategy", "fault_tolerance", "fleet"]

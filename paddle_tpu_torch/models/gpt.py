@@ -13,9 +13,17 @@ flash kernels read through their strides.
 Attention runs through :func:`ops.attention.flash_attention` (kernels K1,
 K2 and K3 on CUDA, or the plain versions with ``kernel="reference"`` and
 on the CPU); the loss through :func:`ops.fused.fused_linear_cross_entropy`
-on the head weight, so no ``[B, S, V]`` logits are made.  Dropout and
-activation recompute are not ported (ROADMAP.md A.6): a config asking for
-either raises.
+on the head weight, so no ``[B, S, V]`` logits are made.
+
+Dropout sits where the JAX model has it (``paddle_tpu/models/gpt.py``):
+on the embeddings' sum (``hidden_dropout_prob``), on the attention
+probabilities inside the flash kernels (``attention_probs_dropout_prob``),
+and on the attention and MLP outputs before each residual add; each draws
+from the device's generator (:mod:`..rng`), and ``model.eval()`` turns all
+of them off.  With ``config.recompute`` a training forward runs each
+decoder layer as one activation-recompute region
+(:func:`..distributed.fleet.recompute.recompute`), whose recomputed
+forward draws the same dropout masks.
 
 Serving passes a cache context (``serving.kv_cache.CacheContext`` or
 ``serving.paging.PagedCacheContext``) that routes the K/V writes and the
@@ -34,6 +42,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..distributed.fleet.recompute import recompute
+from ..nn.common import Dropout
 from ..nn.norm import LayerNorm
 from ..ops.attention import flash_attention
 from ..ops.fused import fused_linear_cross_entropy
@@ -106,6 +116,7 @@ class GPTAttention(nn.Module):
         h = config.hidden_size
         self.qkv_proj = nn.Linear(h, 3 * h, device=device, dtype=dtype)
         self.out_proj = nn.Linear(h, h, device=device, dtype=dtype)
+        self.dropout_p = config.attention_probs_dropout_prob
 
     def forward(self, x: torch.Tensor, cache_ctx=None) -> torch.Tensor:
         B, S, _ = x.shape
@@ -113,7 +124,8 @@ class GPTAttention(nn.Module):
         q, k, v = qkv.split(self.head_dim, dim=-1)          # [B, S, H, D]
         if cache_ctx is None:
             ctx = flash_attention(q, k, v, is_causal=True,
-                                  kernel=self.kernel)
+                                  dropout_p=self.dropout_p,
+                                  kernel=self.kernel, training=self.training)
         elif cache_ctx.mode == "prefill":
             cache_ctx.write_prefill(k, v)
             ctx = cache_ctx.prefill_attention(q, k, v)
@@ -135,7 +147,8 @@ class GPTMLP(nn.Module):
 
 
 class GPTDecoderLayer(nn.Module):
-    """Pre-LN block: ``x + attn(ln1(x))``; ``x + mlp(ln2(x))``."""
+    """Pre-LN block: ``x + dropout(attn(ln1(x)))``;
+    ``x + dropout(mlp(ln2(x)))``."""
 
     def __init__(self, config: GPTConfig, *, device=None, dtype=None,
                  kernel: str = "cuda"):
@@ -146,10 +159,11 @@ class GPTDecoderLayer(nn.Module):
                                  kernel=kernel)
         self.ln2 = LayerNorm(h, eps, device=device, dtype=dtype)
         self.mlp = GPTMLP(config, device=device, dtype=dtype)
+        self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, x: torch.Tensor, cache_ctx=None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), cache_ctx)
-        return x + self.mlp(self.ln2(x))
+        x = x + self.dropout(self.attn(self.ln1(x), cache_ctx))
+        return x + self.dropout(self.mlp(self.ln2(x)))
 
 
 class GPTEmbeddings(nn.Module):
@@ -160,6 +174,7 @@ class GPTEmbeddings(nn.Module):
         self.position_embeddings = nn.Embedding(
             config.max_position_embeddings, config.hidden_size,
             device=device, dtype=dtype)
+        self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, input_ids: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -170,8 +185,8 @@ class GPTEmbeddings(nn.Module):
                 raise ValueError(f"sequence length {S} exceeds "
                                  f"max_position_embeddings {max_pos}")
             position_ids = torch.arange(S, device=input_ids.device)[None, :]
-        return self.word_embeddings(input_ids) + \
-            self.position_embeddings(position_ids)
+        return self.dropout(self.word_embeddings(input_ids)
+                            + self.position_embeddings(position_ids))
 
 
 class GPTModel(nn.Module):
@@ -204,7 +219,11 @@ class GPTModel(nn.Module):
         for i, layer in enumerate(self.layers):
             if cache_ctx is not None:
                 cache_ctx.layer_idx = i
-            h = layer(h, cache_ctx)
+                h = layer(h, cache_ctx)
+            elif self.config.recompute and self.training:
+                h = recompute(layer, h)
+            else:
+                h = layer(h)
         return self.final_ln(h)
 
 
@@ -221,16 +240,6 @@ class GPTForCausalLM(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  kernel: str = "cuda"):
         super().__init__()
-        if config.hidden_dropout_prob > 0 or \
-                config.attention_probs_dropout_prob > 0:
-            raise NotImplementedError(
-                "GPTForCausalLM: dropout is not ported (ROADMAP.md A.6); "
-                "pass hidden_dropout_prob=0.0 and "
-                "attention_probs_dropout_prob=0.0")
-        if config.recompute:
-            raise NotImplementedError(
-                "GPTForCausalLM: activation recompute is not ported "
-                "(ROADMAP.md A.6); pass recompute=False")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

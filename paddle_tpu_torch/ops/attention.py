@@ -13,13 +13,25 @@ versions: :func:`_sdpa_reference` and the whole-sequence rewrites of
 ``_p_ds`` (:func:`_flash_bwd_dkv_reference`,
 :func:`_flash_bwd_dq_reference`).
 
-As on the JAX package's Pallas route, the kernel path takes causal or full
-self-attention with no mask and no dropout.
+The kernel path takes causal or full self-attention with no mask.
+Attention dropout (``dropout_p > 0`` in training; the JAX package runs it
+on its XLA oracle only, ``paddle_tpu/ops/pallas/__init__.py:35-110``) runs
+the dropout instances of K1-K3 on the card: each call draws one
+``[seed, offset]`` snapshot from the device's generator (:mod:`..rng`),
+which the forward saves for its backward, and every kernel and plain
+version reads the same Philox keep bits from it.  The plain versions apply
+the mask to the materialised probabilities (``P * M / (1-p)``, then
+``@ V``), as ``_sdpa_reference`` does; ``lse`` stays that of the
+undropped probabilities, and ``delta = rowsum(dO * O)`` still equals
+``sum_j P_ij dP_ij``.
 """
 from __future__ import annotations
 
 import torch
 
+from typing import Optional
+
+from .. import rng as rng_mod
 from . import kernels
 from .cached_attention import NEG_INF
 
@@ -28,12 +40,23 @@ __all__ = ["flash_attention", "supports"]
 _KERNEL_CHOICES = ("cuda", "reference")
 
 
+def _dropout_factor(rng: torch.Tensor, B: int, H: int, Sq: int, Sk: int,
+                    p: float) -> torch.Tensor:
+    """``[B, H, Sq, Sk]`` f32: ``1/(1-p)`` where the draw ``rng`` keeps a
+    probability, 0 where it drops it (the kernels' bits)."""
+    return rng_mod.attention_dropout_factor(rng, B * H, Sq, Sk, p) \
+        .view(B, H, Sq, Sk)
+
+
 def _sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    is_causal: bool, return_lse: bool = False):
+                    is_causal: bool, return_lse: bool = False,
+                    dropout_p: float = 0.0,
+                    rng: Optional[torch.Tensor] = None):
     """Plain attention over ``[B, S, H, D]`` in f32, output in q's dtype.
     The causal mask is ``tril(k=Sk-Sq)`` as in the JAX oracle.  With
     ``return_lse`` also returns the ``[B*H, Sq]`` f32 logsumexp rows the
-    flash kernel emits."""
+    flash kernel emits (undropped).  ``dropout_p > 0`` multiplies the
+    probabilities by :func:`_dropout_factor` of the draw ``rng``."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
@@ -43,17 +66,20 @@ def _sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             device=q.device).tril(diagonal=Sk - Sq)
         logits = torch.where(causal, logits, torch.full_like(logits,
                                                              NEG_INF))
-    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1),
-                       v.float()).to(q.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0:
+        probs = probs * _dropout_factor(rng, B, H, Sq, Sk, dropout_p)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
     if return_lse:
         return out, torch.logsumexp(logits, dim=-1).reshape(B * H, Sq)
     return out
 
 
-def _p_ds(q, k, v, do, lse, delta, causal: bool):
+def _p_ds(q, k, v, do, lse, delta, causal: bool, z=None):
     """``_p_ds`` over the whole sequence in f32: ``p = exp(s - lse)`` and
-    ``ds = p * (dO v^T - delta) * scale`` as ``[B, H, S, S]``, with the
-    f32 ``[B, H, S, D]`` copies of q and dO they were made from."""
+    ``ds = p * (dO v^T * z - delta) * scale`` as ``[B, H, S, S]`` (``z``:
+    the dropout factors, or None), with the f32 ``[B, H, S, D]`` copies of
+    q and dO they were made from."""
     B, S, H, D = q.shape
     scale = 1.0 / D ** 0.5
     qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
@@ -63,26 +89,41 @@ def _p_ds(q, k, v, do, lse, delta, causal: bool):
         s = torch.where(keep, s, torch.full_like(s, NEG_INF))
     p = torch.exp(s - lse.reshape(B, H, S, 1))
     dp = torch.matmul(dof, vf.transpose(-1, -2))
+    if z is not None:
+        dp = dp * z
     ds = p * (dp - delta.reshape(B, H, S, 1)) * scale
     return p, ds, qf, dof
 
 
-def _flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = True):
+def _bwd_factor(q, dropout_p: float, rng):
+    B, S, H, _ = q.shape
+    return (_dropout_factor(rng, B, H, S, S, dropout_p) if dropout_p > 0.0
+            else None)
+
+
+def _flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = True,
+                             dropout_p: float = 0.0, rng=None):
     """K2's plain version: ``(dk, dv)`` ``[B, S, H, D]`` in the input
     dtype.  ``lse`` and ``delta`` are f32 ``[B*H, S]``.  As in the Pallas
     kernel, p is rounded to dO's dtype before ``dV = p^T dO`` and ds to
-    q's before ``dK = ds^T q``; the sums are f32."""
-    p, ds, qf, dof = _p_ds(q, k, v, do, lse, delta, causal)
+    q's before ``dK = ds^T q``; the sums are f32.  Under dropout (the
+    forward's ``dropout_p`` and draw ``rng``) dV takes ``p * z``."""
+    z = _bwd_factor(q, dropout_p, rng)
+    p, ds, qf, dof = _p_ds(q, k, v, do, lse, delta, causal, z)
+    if z is not None:
+        p = p * z
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qf)
     return (dk.transpose(1, 2).to(k.dtype).contiguous(),
             dv.transpose(1, 2).to(v.dtype).contiguous())
 
 
-def _flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool = True):
+def _flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool = True,
+                            dropout_p: float = 0.0, rng=None):
     """K3's plain version: ``dq`` ``[B, S, H, D]`` in the input dtype;
-    ds is rounded to k's dtype before ``dQ = ds k``."""
-    _, ds, _, _ = _p_ds(q, k, v, do, lse, delta, causal)
+    ds is rounded to k's dtype before ``dQ = ds k``; dropout as K2's."""
+    _, ds, _, _ = _p_ds(q, k, v, do, lse, delta, causal,
+                        _bwd_factor(q, dropout_p, rng))
     dq = torch.matmul(ds.to(k.dtype).float(), k.float().transpose(1, 2))
     return dq.transpose(1, 2).to(q.dtype).contiguous()
 
@@ -93,7 +134,7 @@ def _use_kernel(t: torch.Tensor, kernel: str) -> bool:
 
 class _FlashAttention(torch.autograd.Function):
     """K1 forward, K2 + K3 backward (``_flash``'s custom_vjp): the forward
-    saves ``(q, k, v, o, lse)``; the backward forms
+    saves ``(q, k, v, o, lse)`` and the dropout draw; the backward forms
     ``delta = rowsum(dO * O)`` in f32 as ``[B*H, S]`` (a torch op, as the
     JAX package forms it outside its kernels) and runs K2 then K3.  The
     three gradients come back as separate contiguous tensors, so a caller
@@ -101,33 +142,32 @@ class _FlashAttention(torch.autograd.Function):
     the split's backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, kernel: str):
+    def forward(ctx, q, k, v, causal: bool, kernel: str, dropout_p: float,
+                rng: Optional[torch.Tensor]):
         if _use_kernel(q, kernel):
-            o, lse = kernels.flash_fwd(q, k, v, causal=causal)
+            o, lse = kernels.flash_fwd(q, k, v, causal, dropout_p, rng)
         else:
-            o, lse = _sdpa_reference(q, k, v, causal, return_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.kernel = causal, kernel
+            o, lse = _sdpa_reference(q, k, v, causal, True, dropout_p, rng)
+        ctx.save_for_backward(q, k, v, o, lse, rng)
+        ctx.causal, ctx.kernel, ctx.dropout_p = causal, kernel, dropout_p
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, rng = ctx.saved_tensors
         B, S, H, _ = q.shape
         if do.stride(-1) != 1:          # never so on the GPT path
             do = do.contiguous()
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
             .contiguous().view(B * H, S)
+        args = (q, k, v, do, lse, delta, ctx.causal, ctx.dropout_p, rng)
         if _use_kernel(q, ctx.kernel):
-            dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                           ctx.causal)
-            dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal)
+            dk, dv = kernels.flash_bwd_dkv(*args)
+            dq = kernels.flash_bwd_dq(*args)
         else:
-            dk, dv = _flash_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                              ctx.causal)
-            dq = _flash_bwd_dq_reference(q, k, v, do, lse, delta,
-                                         ctx.causal)
-        return dq, dk, dv, None, None
+            dk, dv = _flash_bwd_dkv_reference(*args)
+            dq = _flash_bwd_dq_reference(*args)
+        return dq, dk, dv, None, None, None, None
 
 
 def supports(q_shape, k_shape) -> bool:
@@ -139,23 +179,32 @@ def supports(q_shape, k_shape) -> bool:
 
 def flash_attention(query: torch.Tensor, key: torch.Tensor,
                     value: torch.Tensor, is_causal: bool = False,
-                    dropout_p: float = 0.0,
-                    kernel: str = "cuda") -> torch.Tensor:
+                    dropout_p: float = 0.0, kernel: str = "cuda",
+                    training: bool = True,
+                    generator: Optional[rng_mod.Generator] = None,
+                    attn_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """Attention over ``[B, S, H, D]`` (kv heads already expanded).
 
     ``kernel="cuda"`` runs K1 (and K2/K3 in the backward) for CUDA
     tensors; CPU tensors, and ``kernel="reference"``, take the plain
-    versions.  A CUDA call with shapes the kernels do not take raises, and
-    so does attention dropout (not ported: ROADMAP.md A.6).  When no input
-    requires a gradient, or under ``torch.no_grad()``, nothing is saved
-    for a backward."""
+    versions.  A CUDA call with shapes the kernels do not take raises.
+    ``dropout_p`` applies when ``training``: one draw from ``generator``
+    (default: the query's device's) feeds the dropout instances of the
+    kernels (or the plain versions).  When no input requires a gradient,
+    or under ``torch.no_grad()``, nothing is saved for a backward.
+    ``attn_mask`` is not ported (ROADMAP.md A.6): a mask raises."""
+    if attn_mask is not None:
+        raise NotImplementedError(
+            "flash_attention: attn_mask is not ported (ROADMAP.md A.6)")
     if kernel not in _KERNEL_CHOICES:
         raise ValueError(f"kernel must be one of {_KERNEL_CHOICES}, got "
                          f"{kernel!r}")
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "flash_attention: attention dropout is not ported (ROADMAP.md "
-            "A.6); the Pallas route also requires dropout_p == 0")
+    p = float(dropout_p) if training else 0.0
+    rng_mod.keep_threshold(p)          # checks 0 <= p <= 1
+    rng = None
+    if p > 0.0:
+        rng = (generator or rng_mod.default_generator(query.device)).draw()
     if _use_kernel(query, kernel) and not supports(tuple(query.shape),
                                                    tuple(key.shape)):
         raise ValueError(
@@ -164,7 +213,8 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
             f"{tuple(query.shape)} / {tuple(key.shape)}")
     if torch.is_grad_enabled() and (query.requires_grad or key.requires_grad
                                     or value.requires_grad):
-        return _FlashAttention.apply(query, key, value, is_causal, kernel)
+        return _FlashAttention.apply(query, key, value, is_causal, kernel, p,
+                                     rng)
     if _use_kernel(query, kernel):
-        return kernels.flash_fwd(query, key, value, causal=is_causal)[0]
-    return _sdpa_reference(query, key, value, is_causal)
+        return kernels.flash_fwd(query, key, value, is_causal, p, rng)[0]
+    return _sdpa_reference(query, key, value, is_causal, False, p, rng)

@@ -12,13 +12,15 @@ kernel does not take (device, dtype, shape, strides): the choice between a
 kernel and its plain PyTorch version is made one level up, by the device
 of the tensors (``ops.cached_attention``, ``ops.attention``).  Each
 wrapper counts its launches in :data:`KERNELS`, so a run can show that it
-went through the kernel.
+went through the kernel; K1-K3 with attention dropout launch their
+dropout instances and count them under ``<name>_dropout``.
 
 The wrappers can be captured into a CUDA graph (``serving.programs``):
 they read nothing back from the device, allocate their outputs and
 scratch with ``torch.empty`` and make their one launch on the current
-stream; K5 reads its ``start`` from device memory, and K4's merge tickets
-are made outside any capture.  A count is taken on the host, so a
+stream; K5 reads its ``start`` from device memory, K1-K3's dropout
+instances their draw's seed and offset, and K4's merge tickets are made
+outside any capture.  A count is taken on the host, so a
 capture counts its launches once and a replay none: the program that
 replays a graph adds the launches its capture made (``add_launches``).
 """
@@ -77,14 +79,14 @@ _LIBRARIES = {
     }),
     "flash_attention_fwd": ("flash_attention_fwd.cu", {
         "pt_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I]
-                        + [_L] * 12 + [_F, _P],
+                        + [_L] * 12 + [_F, _P, _L, _F, _P],
         "pt_flash_error_string": [_I],
     }),
     "flash_attention_bwd": ("flash_attention_bwd.cu", {
         "pt_flash_bwd_dkv": [_I, _I] + [_P] * 8 + [_I] * 4 + [_L] * 18
-                            + [_F, _P],
+                            + [_F, _P, _L, _F, _P],
         "pt_flash_bwd_dq": [_I, _I] + [_P] * 7 + [_I] * 4 + [_L] * 15
-                           + [_F, _P],
+                           + [_F, _P, _L, _F, _P],
         "pt_flash_bwd_error_string": [_I],
     }),
 }
@@ -116,6 +118,19 @@ KERNELS: Dict[str, KernelInfo] = {
         "paddle_tpu/ops/pallas/flash_attention_kernel.py:170"),
     "flash_bwd_dq": KernelInfo(
         "flash_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention_kernel.py:210"),
+    # K1-K3 with attention dropout (the Pallas kernels take p == 0 only;
+    # they replace the same functions)
+    "flash_fwd_dropout": KernelInfo(
+        "flash_fwd_dropout", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention_kernel.py:128"),
+    "flash_bwd_dkv_dropout": KernelInfo(
+        "flash_bwd_dkv_dropout",
+        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention_kernel.py:170"),
+    "flash_bwd_dq_dropout": KernelInfo(
+        "flash_bwd_dq_dropout",
+        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "paddle_tpu/ops/pallas/flash_attention_kernel.py:210"),
 }
 
@@ -467,16 +482,40 @@ def _check_rows(what: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
                  f"{tuple(t.shape)}")
 
 
+def _dropout_args(what: str, q: torch.Tensor, dropout_p: float,
+                  rng: Optional[torch.Tensor]):
+    """The kernels' dropout arguments ``(rng pointer, threshold, 1/(1-p))``
+    and the launch's kernel name suffix: ``(None, 0, 0.0)`` and ``""`` for
+    ``dropout_p == 0``.  ``rng`` is the draw's ``int64[2]`` ``[seed,
+    offset]`` on q's device (``rng.Generator.draw``), read by the kernel."""
+    if dropout_p == 0.0:
+        return (None, 0, 0.0), ""
+    from ..rng import keep_threshold
+    threshold = keep_threshold(dropout_p)
+    _require(isinstance(rng, torch.Tensor) and rng.dtype == torch.int64
+             and tuple(rng.shape) == (2,) and rng.device == q.device
+             and rng.is_contiguous(), what,
+             "dropout needs rng, a contiguous int64 [seed, offset] tensor "
+             f"on {q.device}")
+    scale = 1.0 / (1.0 - dropout_p) if dropout_p < 1.0 else 0.0
+    return (rng.data_ptr(), threshold, scale), "_dropout"
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = True):
+              causal: bool = True, dropout_p: float = 0.0,
+              rng: Optional[torch.Tensor] = None):
     """K1: flash attention forward over ``[B, S, H, D]`` q/k/v, read
     through their strides (head dim contiguous).  Returns ``(o, lse)``:
-    ``o`` ``[B, S, H, D]`` in the input dtype, ``lse`` ``[B*H, S]`` f32.
-    bf16 runs on tensor cores and needs 16-byte aligned rows
-    (:func:`_check_rows16`); f32 runs the CUDA-core loop."""
+    ``o`` ``[B, S, H, D]`` in the input dtype, ``lse`` ``[B*H, S]`` f32
+    (of the undropped probabilities).  ``dropout_p > 0`` launches the
+    dropout instance, which reads the draw ``rng`` (:func:`_dropout_args`)
+    and counts as ``flash_fwd_dropout``.  bf16 runs on tensor cores and
+    needs 16-byte aligned rows (:func:`_check_rows16`); f32 runs the
+    CUDA-core loop."""
     what = "flash_fwd"
     D = _check_dense(what, q, k, v)
     _check_rows16(what, q, k, v)
+    drop, suffix = _dropout_args(what, q, dropout_p, rng)
     B, S, H, _ = q.shape
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
@@ -485,25 +524,29 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), B, S, H, int(bool(causal)),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        1.0 / D ** 0.5, _stream(q))
+        1.0 / D ** 0.5, *drop, _stream(q))
     _raise_on(rc, lib, "pt_flash_error_string", what)
-    KERNELS["flash_fwd"].launches += 1
+    KERNELS["flash_fwd" + suffix].launches += 1
     return o, lse
 
 
 def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                  causal: bool = True):
+                  causal: bool = True, dropout_p: float = 0.0,
+                  rng: Optional[torch.Tensor] = None):
     """K2: dK and dV of flash attention.  ``q``/``k``/``v``/``do``
     ``[B, S, H, D]`` read through their strides (head dims contiguous);
     ``lse`` (K1's) and ``delta = rowsum(do * o)`` contiguous f32
     ``[B*H, S]``.  Returns ``(dk, dv)``, contiguous ``[B, S, H, D]`` in
-    the input dtype.  bf16 runs on tensor cores and needs 16-byte aligned
-    rows (:func:`_check_rows16`); f32 runs the CUDA-core loop."""
+    the input dtype.  ``dropout_p``/``rng``: the forward's (the dropout
+    instance, counted as ``flash_bwd_dkv_dropout``).  bf16 runs on tensor
+    cores and needs 16-byte aligned rows (:func:`_check_rows16`); f32 runs
+    the CUDA-core loop."""
     what = "flash_bwd_dkv"
     D = _check_dense(what, q, k, v, do)
     _check_rows16(what, q, k, v, do)
     _check_rows(what, q, lse, delta)
+    drop, suffix = _dropout_args(what, q, dropout_p, rng)
     B, S, H, _ = q.shape
     dk = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -513,22 +556,25 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, S, H, int(bool(causal)),
         *[s for t in (q, k, v, do, dk, dv) for s in t.stride()[:3]],
-        1.0 / D ** 0.5, _stream(q))
+        1.0 / D ** 0.5, *drop, _stream(q))
     _raise_on(rc, lib, "pt_flash_bwd_error_string", what)
-    KERNELS["flash_bwd_dkv"].launches += 1
+    KERNELS["flash_bwd_dkv" + suffix].launches += 1
     return dk, dv
 
 
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                 causal: bool = True) -> torch.Tensor:
-    """K3: dQ of flash attention; arguments as :func:`flash_bwd_dkv`.
-    Returns ``dq``, contiguous ``[B, S, H, D]`` in the input dtype; bf16
-    needs 16-byte aligned rows, as there."""
+                 causal: bool = True, dropout_p: float = 0.0,
+                 rng: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3: dQ of flash attention; arguments as :func:`flash_bwd_dkv`
+    (dropout counted as ``flash_bwd_dq_dropout``).  Returns ``dq``,
+    contiguous ``[B, S, H, D]`` in the input dtype; bf16 needs 16-byte
+    aligned rows, as there."""
     what = "flash_bwd_dq"
     D = _check_dense(what, q, k, v, do)
     _check_rows16(what, q, k, v, do)
     _check_rows(what, q, lse, delta)
+    drop, suffix = _dropout_args(what, q, dropout_p, rng)
     B, S, H, _ = q.shape
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = _library("flash_attention_bwd")
@@ -537,7 +583,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B,
         S, H, int(bool(causal)),
         *[s for t in (q, k, v, do, dq) for s in t.stride()[:3]],
-        1.0 / D ** 0.5, _stream(q))
+        1.0 / D ** 0.5, *drop, _stream(q))
     _raise_on(rc, lib, "pt_flash_bwd_error_string", what)
-    KERNELS["flash_bwd_dq"].launches += 1
+    KERNELS["flash_bwd_dq" + suffix].launches += 1
     return dq

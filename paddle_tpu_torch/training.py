@@ -1,11 +1,17 @@
 """The GPT train step: model, AdamW, AMP O2 and the seeded batch.
 
 Port of ``bench.py`` ``build_bench`` (:140-205), the step the JAX package
-was built and benchmarked around: ``GPTForCausalLM`` with dropout 0 and
-no recompute, ``compute_loss`` (fused vocab-blocked cross-entropy) under
-AMP O2 (bf16 parameters, f32 masters), backward, ``AdamW``.  The step runs
-eagerly; ``jit.to_static``, CUDA graphs and the fleet wrappers (identity
-at one card) are not part of this port (ROADMAP.md A.6).
+was built and benchmarked around: ``fleet.init``, ``GPTForCausalLM``
+through ``fleet.distributed_model``, ``AdamW`` through
+``fleet.distributed_optimizer`` (both the identity on one card),
+``amp.decorate`` O2 (bf16 parameters, f32 masters), and a step of
+``compute_loss`` (fused vocab-blocked cross-entropy), backward,
+``step`` and ``clear_grad`` compiled with ``jit.to_static`` (on the card
+one CUDA graph a step; ``to_static=False`` runs it eagerly).  The bench
+step has dropout 0 and no recompute; the GPT-2 training recipe (dropout,
+a learning-rate schedule, gradient clipping, activation recompute) is
+asked for with ``dropout``, ``lr`` (a scheduler), ``grad_clip`` and
+``recompute``.
 """
 from __future__ import annotations
 
@@ -14,9 +20,11 @@ from typing import Callable, NamedTuple, Union
 import numpy as np
 import torch
 
-from . import amp
+from . import amp, jit, rng
+from .distributed import fleet
 from .models.gpt import GPT_CONFIGS, GPTForCausalLM
 from .optimizer import AdamW
+from .optimizer.lr import LRScheduler
 
 __all__ = ["TrainStep", "build_train_step"]
 
@@ -31,18 +39,26 @@ class TrainStep(NamedTuple):
 
 def build_train_step(config: str = "gpt2-345m", *, batch: int = 8,
                      seq: int = 1024, device="cuda", amp_level: str = "O2",
-                     lr: float = 1e-4,
+                     lr: Union[float, LRScheduler] = 1e-4,
                      moment_dtype: Union[None, str, torch.dtype] = None,
-                     seed: int = 0, kernel: str = "cuda") -> TrainStep:
+                     seed: int = 0, kernel: str = "cuda",
+                     to_static: bool = True, dropout: float = 0.0,
+                     recompute: bool = False, grad_clip=None) -> TrainStep:
     """Build the train step of ``bench.py`` for a ``GPT_CONFIGS`` name.
 
     Weights are drawn from ``torch.Generator(device).manual_seed(seed)``;
     the batch ``x, y`` (``[batch, seq]`` token ids) from
     ``np.random.RandomState(seed)``, ``x`` then ``y``, as ``bench.py``
-    draws them.  ``amp_level`` is ``"O2"`` (bf16 parameters, f32 masters)
-    or ``"O0"`` (f32).  ``train_step(x, y)`` runs ``compute_loss``,
-    backward, the optimizer step and clears the gradients; it returns the
-    loss (f32, on the device, not synchronised).  ``device`` defaults to
+    draws them; the dropout generator is seeded with ``seed``
+    (``rng.seed``).  ``amp_level`` is ``"O2"`` (bf16 parameters, f32
+    masters) or ``"O0"`` (f32).  ``train_step(x, y)`` runs
+    ``compute_loss``, backward, the optimizer step and clears the
+    gradients; it returns the loss (f32, on the device, not
+    synchronised).  It is a ``jit.to_static`` function unless
+    ``to_static=False``.  ``dropout`` is the hidden and the attention
+    dropout rate, ``recompute`` runs each layer as a recompute region,
+    ``lr`` is a float or an ``LRScheduler`` (the caller steps it),
+    ``grad_clip`` a clip of ``nn.clip``.  ``device`` defaults to
     ``"cuda"`` and raises where there is no card."""
     if amp_level == "O1":
         raise NotImplementedError("amp O1 (per-op auto_cast) is not ported "
@@ -53,11 +69,17 @@ def build_train_step(config: str = "gpt2-345m", *, batch: int = 8,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_train_step: device 'cuda' asked for, but "
                            "no CUDA device is available (pass device='cpu')")
-    cfg = GPT_CONFIGS[config](recompute=False, hidden_dropout_prob=0.0,
-                              attention_probs_dropout_prob=0.0)
+    fleet.init(is_collective=True, strategy=fleet.DistributedStrategy())
+    rng.seed(seed)
+    cfg = GPT_CONFIGS[config](recompute=recompute,
+                              hidden_dropout_prob=dropout,
+                              attention_probs_dropout_prob=dropout)
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = GPTForCausalLM(cfg, device=device, generator=gen, kernel=kernel)
-    opt = AdamW(model.parameters(), lr=lr, moment_dtype=moment_dtype)
+    model = fleet.distributed_model(
+        GPTForCausalLM(cfg, device=device, generator=gen, kernel=kernel))
+    opt = fleet.distributed_optimizer(
+        AdamW(model.parameters(), lr=lr, moment_dtype=moment_dtype,
+              grad_clip=grad_clip))
     if amp_level == "O2":
         model, opt = amp.decorate(model, opt, level="O2")
     rs = np.random.RandomState(seed)
@@ -69,7 +91,9 @@ def build_train_step(config: str = "gpt2-345m", *, batch: int = 8,
         loss = model.compute_loss(inputs, labels)
         loss.backward()
         opt.step()
-        opt.zero_grad(set_to_none=True)
+        opt.clear_grad()
         return loss.detach()
 
+    if to_static:
+        train_step = jit.to_static(train_step)
     return TrainStep(model, opt, train_step, x.to(device), y.to(device))

@@ -62,6 +62,9 @@ GROUPS = (("K4 paged_decode", ("paged_decode_kernel",)),
           ("K1 flash_fwd", ("flash_fwd_kernel",)),
           ("K2 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
           ("K3 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+          ("K1 flash_fwd_dropout", ("flash_fwd_dropout_kernel",)),
+          ("K2 flash_bwd_dkv_dropout", ("flash_bwd_dkv_dropout_kernel",)),
+          ("K3 flash_bwd_dq_dropout", ("flash_bwd_dq_dropout_kernel",)),
           ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet",
                       "sm90_")),
           ("elementwise/reduce", ("elementwise", "vectorized", "reduce",

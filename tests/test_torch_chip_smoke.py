@@ -661,3 +661,44 @@ def test_prime_makes_streams_independent_of_placement():
     alone = [chip_smoke.serve_waves(eng, [r], 6, system=system)["reqs"][0]
              for r in reqs]
     assert [r.output_ids for r in together] == [r.output_ids for r in alone]
+
+
+def test_train_recipe_runs_on_tiny_cpu():
+    """train_recipe's helper: finite losses, each step read the
+    scheduler's rate, the clipped norm at most 1.0, and the first loss
+    bitwise equal with recompute on and off (the same dropout masks)."""
+    runs = [chip_smoke.run_recipe(rc, "tiny", 2, 16, "cpu", steps=4)
+            for rc in (False, True)]
+    for run in runs:
+        assert all(np.isfinite(run["losses"]))
+        assert run["lr_max_abs_err"] == 0.0
+        assert run["grad_norm_after_clip"] <= 1.0 + 1e-6
+        assert run["grad_norm_before_clip"] > 1.0
+        assert run["program_cache"] == {"programs": 1, "misses": 1,
+                                        "captures": 0}
+    assert runs[0]["losses"] == runs[1]["losses"]
+    assert len(set(runs[0]["lr_seen"])) > 1
+    json.dumps(runs)
+
+
+def test_train_phase_compares_compiled_and_eager_losses_on_tiny_cpu():
+    eager = chip_smoke.run_train("tiny", batch=2, seq=16, device="cpu",
+                                 warmup=0, steps=3, to_static=False,
+                                 check_fall=False)
+    graph = chip_smoke.run_train("tiny", batch=2, seq=16, device="cpu",
+                                 warmup=1, steps=2)
+    assert graph["losses"] == eager["losses"]
+    assert graph["program_cache"] == {"programs": 1, "misses": 1, "hits": 2,
+                                      "captures": 0}
+    assert "program_cache" not in eager
+
+
+def test_kernels_line_covers_the_dropout_instances():
+    assert chip_smoke.RECIPE_KERNELS == (
+        "flash_fwd_dropout", "flash_bwd_dkv_dropout", "flash_bwd_dq_dropout")
+    assert set(chip_smoke.RECIPE_KERNELS) <= set(kernels.KERNELS)
+    labels = {k for _, k in chip_smoke.TENSOR_CORE_KERNELS}
+    assert {f"{n}_kernel" for n in chip_smoke.RECIPE_KERNELS} <= labels
+    assert chip_smoke.kernel_label(
+        "_ZN2pt24flash_fwd_dropout_kernelI13__nv_bfloat16Li64EEEvPKT_"
+    ) == "flash_fwd_dropout_kernel<bf16,64>"

@@ -13,7 +13,8 @@ cores), 1e-3 on the f32 lse.  The backward
 kernels' gradients sum over up to S rows, so they are held relative to
 the plain version's largest value: 1e-4 in f32, 2e-2 in bf16 (the bf16
 K2/K3 run on tensor cores and round p and ds where the plain versions
-do).
+do).  Under attention dropout the kept probabilities, and so O, are
+scaled by 1/(1-p), and O's tolerance with them.
 """
 import dataclasses
 import gc
@@ -1329,3 +1330,208 @@ def test_step_programs_of_two_engines_never_overlap(cuda_device):
         out = a.run(("k",), body, x)
     torch.cuda.synchronize()
     assert torch.equal(out.cpu(), torch.from_numpy(x * 2))
+
+
+# -- slice 13: attention dropout, the compiled train step ---------------------
+
+def _snap(device, seed=77, offset=3):
+    return torch.tensor([seed, offset], dtype=torch.int64, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,causal", [(200, True), (130, False)])
+def test_dropout_kernels_match_plain(cuda_device, dtype, D, S, causal):
+    """K1-K3's dropout instances against the plain versions on the same
+    draw (p 0.2): O to the bf16/f32 tolerance on O's scale (1/(1-p)),
+    lse unchanged, the gradients relative to the largest."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v, do = (torch.randn((2, S, 3, D), generator=g,
+                               device=cuda_device).to(dtype)
+                   for _ in range(4))
+    p, snap = 0.2, _snap(cuda_device)
+    tol = (1e-4 if dtype == torch.float32 else 3e-2) / (1 - p)
+    o, lse = kernels.flash_fwd(q, k, v, causal, p, snap)
+    o_ref, lse_ref = _sdpa_reference(q, k, v, causal, True, p, snap)
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2) \
+        .contiguous().view(-1, S)
+    args = (q, k, v, do, lse_ref, delta, causal, p, snap)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in zip((*kernels.flash_bwd_dkv(*args),
+                          kernels.flash_bwd_dq(*args)),
+                         (*_flash_bwd_dkv_reference(*args),
+                          _flash_bwd_dq_reference(*args))):
+        top = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= rel * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_mask_is_exact(cuda_device, dtype):
+    res = chip_smoke.check_dropout_mask(dtype)
+    assert res["err"] == 0.0
+    assert 0.65 < res["kept_share"] < 0.85
+
+
+@pytest.mark.cuda
+def test_dropout_counts_its_own_launches(cuda_device):
+    x = torch.randn((1, 64, 2, 64), device=cuda_device,
+                    dtype=torch.bfloat16, requires_grad=True)
+    kernels.reset_launches()
+    flash_attention(x, x, x, is_causal=True, dropout_p=0.1).sum().backward()
+    counts = kernels.launch_counts()
+    assert {n: c for n, c in counts.items() if c} == {
+        "flash_fwd_dropout": 1, "flash_bwd_dkv_dropout": 1,
+        "flash_bwd_dq_dropout": 1}
+
+
+def _recipe_step(device, to_static, recompute=True, p=0.1, seed=0):
+    from paddle_tpu_torch import build_train_step
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import lr
+
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-3, T_max=8), 2, 0.0,
+                            1e-3)
+    ts = build_train_step("tiny", batch=2, seq=64, device=device,
+                          to_static=to_static, dropout=p,
+                          recompute=recompute, lr=sched, seed=seed,
+                          grad_clip=ClipGradByGlobalNorm(1.0))
+    return ts, sched
+
+
+@pytest.mark.cuda
+def test_to_static_steps_equal_the_eager_steps(cuda_device):
+    """A tiny GPT at head dim 64 (hidden 256) in bf16 O2 at the whole
+    recipe: the graph's losses equal the eager loop's bitwise, with one
+    program, one capture, the scheduler's rate read at each replay and
+    fresh dropout masks at each replay."""
+    from paddle_tpu_torch.models import gpt as gpt_mod
+
+    tiny = gpt_mod.GPT_CONFIGS["tiny"]
+    gpt_mod.GPT_CONFIGS["tiny"] = lambda **kw: tiny(
+        **{"hidden_size": 256, **kw})
+    try:
+        runs = {}
+        for to_static in (False, True):
+            ts, sched = _recipe_step(cuda_device, to_static)
+            losses = []
+            for _ in range(5):
+                losses.append(ts.train_step(ts.x, ts.y))
+                sched.step()
+            runs[to_static] = ([float(v) for v in losses], ts)
+    finally:
+        gpt_mod.GPT_CONFIGS["tiny"] = tiny
+    (eager, _), (graph, ts) = runs[False], runs[True]
+    assert graph == eager and len(set(graph)) == 5
+    f = ts.train_step
+    assert (len(f.program_cache), f.misses, f.hits, f.captures) == \
+        (1, 1, 4, 1)
+
+
+@pytest.mark.cuda
+def test_replays_read_the_new_rate_and_draw_new_masks(cuda_device):
+    from paddle_tpu_torch import jit, rng
+    from paddle_tpu_torch.nn.functional import dropout
+    from paddle_tpu_torch.optimizer import SGD, lr
+
+    sched = lr.StepDecay(0.5, step_size=1, gamma=0.5)
+    w = torch.nn.Parameter(torch.zeros(4, device=cuda_device))
+    opt = SGD([w], lr=sched)
+
+    @jit.to_static
+    def step(g):
+        w.grad = g
+        opt.step()
+        opt.clear_grad()
+        return dropout(torch.ones(4096, device=g.device), 0.5)
+
+    g = torch.ones(4, device=cuda_device)
+    masks = []
+    for want in (-0.5, -0.75, -0.875, -0.9375):
+        masks.append(step(g))
+        sched.step()
+        torch.cuda.synchronize()
+        assert torch.allclose(w.detach(), torch.full_like(w, want))
+    assert step.captures == 1
+    assert len({tuple(m.nonzero().flatten().tolist()) for m in masks}) == 4
+    assert rng.default_generator(cuda_device).get_state()[1].item() >= 4
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_and_the_card_recovers(cuda_device):
+    from paddle_tpu_torch import jit
+
+    w = torch.zeros(4, device=cuda_device)
+
+    @jit.to_static
+    def reads_the_host(x):
+        y = (w + x).sum()
+        if y.item() > 1e9:        # a host read: no graph can hold it
+            return y * 2
+        return y
+
+    x = torch.ones(4, device=cuda_device)
+    assert reads_the_host(x).item() == 4.0       # the eager first call
+    with pytest.raises(jit.CaptureError, match="host"):
+        reads_the_host(x)
+    with pytest.raises(jit.CaptureError):          # no eager stand-in
+        reads_the_host(x)
+    a = torch.randn(32, 32, device=cuda_device)    # torch's generator
+    q = torch.randn((1, 64, 2, 64), device=cuda_device, dtype=torch.bfloat16)
+    kernels.flash_fwd(q, q, q)
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all()
+
+
+@pytest.mark.cuda
+def test_state_made_inside_a_capture_raises(cuda_device):
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.optimizer import AdamW
+
+    a, b = (torch.nn.Parameter(torch.zeros(4, device=cuda_device))
+            for _ in range(2))
+    opt = AdamW([a, b], lr=0.1)
+    both = [False]
+
+    @jit.to_static
+    def step(g):
+        a.grad = g
+        if both[0]:
+            b.grad = g * 2
+        opt.step()
+        opt.clear_grad()
+        return a * 1
+
+    g = torch.ones(4, device=cuda_device)
+    step(g)
+    both[0] = True
+    with pytest.raises(jit.CaptureError, match="optimizer state"):
+        step(g)
+
+
+@pytest.mark.cuda
+def test_set_lr_refuses_once_a_float_rate_is_captured(cuda_device):
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.optimizer import SGD
+
+    w = torch.nn.Parameter(torch.zeros(2, device=cuda_device))
+    opt = SGD([w], lr=0.5)
+    opt.set_lr(0.25)
+
+    @jit.to_static
+    def step(g):
+        w.grad = g
+        opt.step()
+        opt.clear_grad()
+        return w * 1
+
+    g = torch.ones(2, device=cuda_device)
+    step(g)
+    step(g)
+    with pytest.raises(RuntimeError, match="captured"):
+        opt.set_lr(0.1)
+    torch.cuda.synchronize()
+    assert torch.allclose(w.detach(), torch.full_like(w, -0.5))

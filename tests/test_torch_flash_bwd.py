@@ -134,11 +134,22 @@ def test_no_grad_saves_nothing():
 
 
 def test_dropout_and_unknown_kernel_raise():
-    x = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        flash_attention(x, x, x, is_causal=True, dropout_p=0.1)
+    """Attention dropout, refused before it was ported, runs (its law and
+    gradients are held in test_torch_dropout.py); a rate outside [0, 1]
+    and an unknown kernel raise."""
+    x = torch.ones(1, 8, 2, 16)
+    out = flash_attention(x, x, x, is_causal=True, dropout_p=0.1)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="dropout"):
+        flash_attention(x, x, x, is_causal=True, dropout_p=1.5)
     with pytest.raises(ValueError, match="kernel"):
         flash_attention(x, x, x, kernel="triton")
+
+
+def test_attention_mask_is_refused():
+    x = torch.ones(1, 8, 2, 16)
+    with pytest.raises(NotImplementedError, match="A.6"):
+        flash_attention(x, x, x, attn_mask=torch.ones(8, 8, dtype=bool))
 
 
 def test_backward_wrappers_refuse_cpu_tensors():

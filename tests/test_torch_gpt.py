@@ -157,10 +157,17 @@ def test_tanh_gelu_matches():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        GPTForCausalLM(gpt_tiny(hidden_dropout_prob=0.1), device="cpu")
-    with pytest.raises(NotImplementedError, match="recompute"):
-        GPTForCausalLM(gpt_tiny(recompute=True), device="cpu")
+    """Dropout and recompute, refused before they were ported, now build
+    and train; what is still refused raises."""
+    x = torch.zeros(1, 16, dtype=torch.long)
+    for cfg in (gpt_tiny(hidden_dropout_prob=0.1),
+                gpt_tiny(attention_probs_dropout_prob=0.1),
+                gpt_tiny(recompute=True)):
+        m = GPTForCausalLM(cfg, device="cpu")
+        loss = m.compute_loss(x, x)
+        loss.backward()
+        assert torch.isfinite(loss)
+        assert all(p.grad is not None for p in m.parameters())
     m = GPTForCausalLM(gpt_tiny(), device="cpu")
     with pytest.raises(ValueError, match="max_position_embeddings"):
         m(torch.zeros(1, 65, dtype=torch.long))

@@ -135,3 +135,120 @@ def test_decorate_levels():
     assert out == (m, "opt") and m.weight.dtype == torch.bfloat16
     with pytest.raises(ValueError):
         amp.decorate(m, level="O3")
+
+
+# -- the optimizer base: schedules, clips, SGD and Adam ----------------------
+
+def _recipe_jax(name, w0, grads, wd):
+    from paddle_tpu import nn as jnn
+    from paddle_tpu.optimizer import lr as jlr
+
+    params = [jnn.Parameter(w.copy()) for w in w0]
+    sched = jlr.LinearWarmup(jlr.CosineAnnealingDecay(0.05, T_max=8), 2,
+                             0.0, 0.05)
+    clip = jnn.ClipGradByGlobalNorm(1.0)
+    kw = dict(learning_rate=sched, parameters=params, grad_clip=clip)
+    if wd is not None:
+        kw["weight_decay"] = wd
+    opt = getattr(paddle.optimizer, name)(**kw)
+    for gs in grads:
+        for p, g in zip(params, gs):
+            p.grad = paddle.to_tensor(g)
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+    return [np.asarray(p.numpy()) for p in params], opt.state_dict()
+
+
+def _recipe_port(name, w0, grads, wd):
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import lr as plr
+
+    params = [torch.nn.Parameter(torch.from_numpy(w.copy())) for w in w0]
+    sched = plr.LinearWarmup(plr.CosineAnnealingDecay(0.05, T_max=8), 2,
+                             0.0, 0.05)
+    kw = dict(lr=sched, grad_clip=ClipGradByGlobalNorm(1.0))
+    if wd is not None:
+        kw["weight_decay"] = wd
+    opt = getattr(popt, name)(params, **kw)
+    for gs in grads:
+        for p, g in zip(params, gs):
+            p.grad = torch.from_numpy(g)
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+    return [p.detach().numpy() for p in params], opt, sched
+
+
+@pytest.mark.parametrize("name,wd", [("SGD", None), ("SGD", 0.1),
+                                     ("Adam", None), ("Adam", 0.1),
+                                     ("AdamW", 0.01), ("AdamW", 0.0)])
+def test_five_steps_under_a_schedule_and_a_clip_match_jax(name, wd):
+    """f32, 5 steps under ``LinearWarmup(CosineAnnealingDecay)`` with a
+    global-norm clip of 1.0 (the gradients' norm is ~4, so every step
+    clips): 1e-6 absolute.  Adam's weight decay is L2 on the gradient,
+    AdamW's decoupled."""
+    rs = np.random.RandomState(1)
+    w0 = [rs.randn(4, 3).astype(np.float32), rs.randn(6).astype(np.float32)]
+    grads = [[rs.randn(*w.shape).astype(np.float32) for w in w0]
+             for _ in range(5)]
+    ref, jsd = _recipe_jax(name, w0, grads, wd)
+    got, opt, sched = _recipe_port(name, w0, grads, wd)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r, rtol=0, atol=1e-6)
+    assert opt.get_lr() == sched()
+    sd = opt.state_dict()
+    assert sd["@lr_scheduler"]["last_epoch"] == 5
+    assert sd["@lr_scheduler"] == {k: v for k, v in jsd["@lr_scheduler"]
+                                   .items() if k in sd["@lr_scheduler"]}
+
+
+def test_state_dict_restores_the_scheduler_and_set_lr_refuses():
+    from paddle_tpu_torch.optimizer import SGD, lr as plr
+
+    w = torch.nn.Parameter(torch.zeros(2))
+    sched = plr.StepDecay(0.5, step_size=1, gamma=0.5)
+    opt = SGD([w], lr=sched)
+    sched.step()
+    sched.step()
+    sd = opt.state_dict()
+    fresh_sched = plr.StepDecay(0.5, step_size=1, gamma=0.5)
+    fresh = SGD([w], lr=fresh_sched)
+    fresh.set_state_dict(sd)
+    assert fresh.get_lr() == opt.get_lr() == 0.125
+    assert fresh_sched._lr_tensor("cpu").item() == 0.125
+    with pytest.raises(RuntimeError, match="LRScheduler"):
+        opt.set_lr(0.1)
+    plain = SGD([w], lr=0.5)
+    plain.set_lr(0.25)
+    assert plain.get_lr() == 0.25
+
+
+def test_scheduler_rate_is_read_from_the_device_tensor():
+    """Under a scheduler the update reads the scheduler's f32 tensor, so a
+    rate written there (as ``step()`` writes it) is the rate used."""
+    from paddle_tpu_torch.optimizer import SGD, lr as plr
+
+    w = torch.nn.Parameter(torch.zeros(1))
+    sched = plr.StepDecay(0.5, step_size=1, gamma=0.5)
+    opt = SGD([w], lr=sched)
+    sched._lr_tensor("cpu").fill_(2.0)
+    w.grad = torch.ones(1)
+    opt.step()
+    assert w.item() == -2.0
+
+
+def test_need_clip_and_params_without_grad():
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import SGD
+
+    a, b, c = (torch.nn.Parameter(torch.zeros(2)) for _ in range(3))
+    b.need_clip = False
+    opt = SGD([a, b, c], lr=1.0, grad_clip=ClipGradByGlobalNorm(1.0))
+    a.grad = torch.full((2,), 3.0)
+    b.grad = torch.full((2,), 3.0)
+    opt.step()
+    assert torch.allclose(a.detach(), torch.full((2,), -2 ** -0.5))
+    assert torch.equal(b.detach(), torch.full((2,), -3.0))
+    assert torch.equal(c.detach(), torch.zeros(2))

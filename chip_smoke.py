@@ -32,7 +32,11 @@ Phases, each printing one JSON line with the card's name and power limit:
               their plain versions on the same draw (to the p = 0 rows'
               tolerances), on a ragged full-mask shape, and K1's mask
               exactly at S 64 (q = k = 0 and V one-hot by key, so that O
-              exposes the mask).
+              exposes the mask).  The f16 instances of K1-K3 (p 0 and
+              dropout) are held and timed at the train shape (SDPA at
+              f16 the library call), on a ragged full shape, and K2/K3
+              under an f16 overflow (outputs non-finite where the plain
+              versions' are: never clamped); their HGMMA is required too.
 3. serve_paged — Llama-2 7B at full width (random weights from a seed),
               bf16, paged KV: 12 requests sharing a 512-token system
               prompt; the K4/K5 launch counts of this run are read.
@@ -104,6 +108,23 @@ Phases, each printing one JSON line with the card's name and power limit:
               after the run), the first loss bitwise equal in both runs,
               a lower peak with recompute; the dropout instances' launch
               counts of the two runs are read.
+12c. train_o1 — the bench step at AMP O1 (f32 parameters, no masters,
+              ``compute_loss`` under ``amp.auto_cast(bfloat16, O1)``)
+              through ``to_static``: 3 warm-up and 10 timed steps, one
+              program and one capture, the first 3 losses bitwise the
+              eager step's, the bf16 K1-K3 launched layers x steps
+              times; then the O1 and O2 graph steps in turns (O1 O2 O2
+              O1, twice): medians and quartiles.
+12d. train_fp16_scaler — the same model at O1 float16 with
+              ``amp.GradScaler`` from a scale of 2^32, the step of
+              ``tests/test_amp.py:150-158`` through ``to_static``, 20
+              steps: skipped steps leave parameters, moments and
+              ``beta*_pow`` bitwise as they were (device checksums read
+              after the loop), the scale follows the JAX rule replayed on
+              the host, some step skips and some applies, finite losses
+              once steps apply, one program and one capture, the f16
+              K1-K3 launched layers x steps times; then 4 steps at
+              dropout 0.1 (the f16 dropout instances).
 13. train_parity — GPT-2 345M width at 2 layers in f32: loss, every
               gradient and the parameters after one AdamW step on the
               kernel path against ``kernel="reference"``.
@@ -233,8 +254,11 @@ import torch
 # published peaks of one H100 SXM (dense): HBM bytes/s and flops/s by the
 # inputs' type (f32 outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.float16: 989e12}
+#: max abs error of a kernel's output against its plain version: f16 keeps
+#: three more mantissa bits than bf16, so its bound is a third of bf16's
+TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 1e-2}
 LSE_TOLERANCE = 1e-3
 
 CARD = ""
@@ -327,18 +351,20 @@ def _cuobjdump() -> str:
 
 def kernel_label(mangled: str) -> str:
     """``_ZN2pt16flash_fwd_kernelI13__nv_bfloat16Li64EE...`` ->
-    ``flash_fwd_kernel<bf16,64>`` (and ``...Li128ELi4EE...`` ->
-    ``<bf16,128,4>``); other names are returned as they are."""
+    ``flash_fwd_kernel<bf16,64>`` (``I6__half`` -> ``f16``, ``If`` ->
+    ``f32``; and ``...Li128ELi4EE...`` -> ``<bf16,128,4>``); other names
+    are returned as they are."""
     m = re.search(r"_ZN2pt(\d+)", mangled)
     if m is None:
         return mangled
     name = mangled[m.end():m.end() + int(m.group(1))]
-    t = re.match(r"I(13__nv_bfloat16|f)((?:Li\d+E)+)", mangled[m.end()
-                                                              + len(name):])
+    t = re.match(r"I(13__nv_bfloat16|6__half|f)((?:Li\d+E)+)",
+                 mangled[m.end() + len(name):])
     if t is None:
         return name
     ints = ",".join(re.findall(r"Li(\d+)E", t.group(2)))
-    return f"{name}<{'f32' if t.group(1) == 'f' else 'bf16'},{ints}>"
+    dtype = {"f": "f32", "6__half": "f16"}.get(t.group(1), "bf16")
+    return f"{name}<{dtype},{ints}>"
 
 
 def hgmma_counts(lib_path: str) -> dict:
@@ -404,14 +430,19 @@ TENSOR_CORE_KERNELS = (("flash_attention_fwd", "flash_fwd_kernel"),
 
 
 def check_tensor_cores(hgmma: dict) -> None:
+    """Every bf16 instance of ``TENSOR_CORE_KERNELS``, and every f16 one
+    (K1-K3: all but the paged prefill), has HGMMA instructions."""
     from paddle_tpu_torch.ops.kernels import HEAD_DIMS
 
     for lib, kernel in TENSOR_CORE_KERNELS:
-        for d in HEAD_DIMS:
-            label = f"{kernel}<bf16,{d}>"
-            if not hgmma.get(lib, {}).get(label, 0) > 0:
-                raise AssertionError(f"{label} in {lib} has no HGMMA "
-                                     f"instruction: {hgmma.get(lib)}")
+        for dtype in ("bf16", "f16"):
+            if dtype == "f16" and lib == "paged_attention":
+                continue
+            for d in HEAD_DIMS:
+                label = f"{kernel}<{dtype},{d}>"
+                if not hgmma.get(lib, {}).get(label, 0) > 0:
+                    raise AssertionError(f"{label} in {lib} has no HGMMA "
+                                         f"instruction: {hgmma.get(lib)}")
 
 
 # -- phase 2: kernels against their plain versions ------------------------
@@ -536,7 +567,7 @@ def check_flash(gen, B, S, H, dtype, D=128, causal=True, fused=False,
     draw ``DROPOUT_SNAPSHOT`` (the library call: SDPA with the same rate,
     its own mask)."""
     from paddle_tpu_torch.ops import kernels
-    from paddle_tpu_torch.ops.attention import _sdpa_reference
+    from paddle_tpu_torch.ops.attention import _flash_fwd_reference
 
     if fused:
         q, k, v = torch.randn((B, S, H, 3 * D), generator=gen,
@@ -551,7 +582,7 @@ def check_flash(gen, B, S, H, dtype, D=128, causal=True, fused=False,
         return kernels.flash_fwd(q, k, v, causal, dropout_p, snap)
 
     def plain():
-        return _sdpa_reference(q, k, v, causal, True, dropout_p, snap)
+        return _flash_fwd_reference(q, k, v, causal, dropout_p, snap)
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
@@ -574,7 +605,8 @@ def check_flash(gen, B, S, H, dtype, D=128, causal=True, fused=False,
 
 #: K2/K3 gradients are sums over up to S rows: held relative to the plain
 #: version's largest value
-BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2,
+                 torch.float16: 1e-2}
 
 
 def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64, causal=True,
@@ -594,7 +626,7 @@ def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64, causal=True,
                           device="cuda").to(dtype).split(D, dim=-1)
     do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
     snap = _snapshot() if dropout_p else None
-    o, lse = att._sdpa_reference(q, k, v, causal, True, dropout_p, snap)
+    o, lse = att._flash_fwd_reference(q, k, v, causal, dropout_p, snap)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
         .contiguous().view(B * H, S)
     del o
@@ -659,6 +691,51 @@ def check_dropout_mask(dtype, S=64, H=2, p=0.25):
             "kept_share": keep.sum().item() / (H * S * (S + 1) / 2)}
 
 
+#: the share of K2/K3's outputs whose finiteness may differ from the plain
+#: version's under an f16 overflow: a ds at f16's edge may round to either
+#: side in another summation order
+OVERFLOW_MISMATCH_SHARE = 1e-3
+
+
+def check_f16_overflow(gen, which: str, B=2, S=256, H=4, D=64):
+    """K2 or K3 at f16 with a finite dO of 2e4 a unit (clamped inside
+    f16's range), as a large loss scale makes it, q of 4 a unit (peaked
+    probabilities) and v of 30: dP ~ 5e6 in f32, so ds (rounded to f16
+    before dS^T Q and dS K) and the sums pass 65504, and the outputs must
+    hold inf or NaN where the plain version's do (never clamped, so that a
+    loss scaler sees the overflow).  ``err`` is the share of elements
+    whose finiteness differs, beside the counts of non-finite elements."""
+    from paddle_tpu_torch.ops import attention as att
+    from paddle_tpu_torch.ops import kernels
+
+    scale = torch.tensor([4.0] * D + [1.0] * D + [30.0] * D, device="cuda")
+    q, k, v = (torch.randn((B, S, H, 3 * D), generator=gen, device="cuda")
+               * scale).half().split(D, dim=-1)
+    o, lse = att._flash_fwd_reference(q, k, v, True)
+    do = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+          * 2e4).clamp(-6e4, 6e4).half()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+        .contiguous().view(B * H, S)
+    args = (q, k, v, do, lse, delta, True, 0.0, None)
+    if which == "flash_bwd_dkv":
+        got, want = kernels.flash_bwd_dkv(*args), \
+            att._flash_bwd_dkv_reference(*args)
+    else:
+        got, want = (kernels.flash_bwd_dq(*args),), \
+            (att._flash_bwd_dq_reference(*args),)
+    bad_kern = sum(int((~torch.isfinite(a)).sum()) for a in got)
+    bad_plain = sum(int((~torch.isfinite(a)).sum()) for a in want)
+    differ = sum(int((torch.isfinite(a) != torch.isfinite(b)).sum())
+                 for a, b in zip(got, want))
+    n = sum(a.numel() for a in got)
+    if not (bad_kern > 0 and bad_plain > 0):
+        raise AssertionError(f"{which} f16 overflow: non-finite outputs "
+                             f"kernel {bad_kern}, plain {bad_plain}: no "
+                             f"overflow reached the gradients")
+    return {"err": differ / n, "tol": OVERFLOW_MISMATCH_SHARE,
+            "nonfinite_kernel": bad_kern, "nonfinite_plain": bad_plain}
+
+
 DECODE_LENGTHS = [2047, 1800, 1536, 1200, 1024, 700, 333, 0]
 #: serve_gpt's 8 slots 32 tokens into their decode: the 256-token system
 #: prompt plus tails of 32, 600, 150, 77, 400, 256, 500 and 64
@@ -669,8 +746,10 @@ TRAIN_ATTN = (8, 1024, 16, 64)
 RECIPE_DROPOUT = 0.1
 
 
-#: a case checked in f32 and bf16, or in bf16 only
+#: a case checked in f32 and bf16, or in bf16 only, or in f16 only
 BOTH, BF16 = (torch.float32, torch.bfloat16), (torch.bfloat16,)
+F16 = (torch.float16,)
+SHORT = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def flash_edges(gen):
@@ -766,8 +845,10 @@ def bwd_edges(gen, which: str):
 def phase_kernels(hgmma: dict) -> dict:
     """Every main-path case is checked in f32 and bf16 and timed in bf16;
     the edge cases of the bf16 tensor-core kernels (K1, K5, K2, K3) are
-    checked in bf16, and some timed.  ``hgmma`` (from the build phase)
-    must show wgmma in all four.  Returns per kernel the record for the
+    checked in bf16, and some timed.  The f16 instances of K1-K3 (p 0 and
+    dropout) are checked and timed in f16 at the train shape, on a ragged
+    full shape, and (K2/K3) under an overflow.  ``hgmma`` (from the build
+    phase) must show wgmma in all the 16-bit instances.  Returns per kernel the record for the
     final ``{"kernels": [...]}`` line (minus ``launches``): that of its
     main-path case, the first listed."""
     from paddle_tpu_torch.ops.kernels import KERNELS
@@ -886,6 +967,35 @@ def phase_kernels(hgmma: dict) -> dict:
              f"B=2 S=1000 H=4 D=128 full, dropout {P}", sdpa_grad_p, BF16,
              False)],
     }
+    # the f16 instances of K1-K3 (AMP O1 at float16 with a loss scaler):
+    # the train shape on the fused projection's views at p 0 and at the
+    # recipe's p, a ragged full shape, and (K2/K3) an overflow
+    fused = train + ", q/k/v views of a fused [B, S, H, 3D] projection"
+    ragged = "B=2 S=1000 H=4 D=128 full"
+    for p_, sfx, sdpa, grad in ((0.0, "", sdpa_causal, sdpa_grad),
+                                (P, "_dropout", sdpa_p, sdpa_grad_p)):
+        drop = f", dropout {P} (draw {DROPOUT_SNAPSHOT})" if p_ else ""
+        cases[f"flash_fwd{sfx}_f16"] = [
+            ("train", lambda dt, p_=p_: check_flash(
+                gen, B, S, H, dt, D, fused=True, dropout_p=p_),
+             fused + drop, sdpa, F16, True),
+            ("S1000/full/D128", lambda dt, p_=p_: check_flash(
+                gen, 2, 1000, 4, dt, 128, causal=False, dropout_p=p_),
+             ragged + drop, sdpa.replace("is_causal", "full"), F16, False)]
+        for which in ("flash_bwd_dkv", "flash_bwd_dq"):
+            cases[f"{which}{sfx}_f16"] = [
+                ("train", bwd(which, p_), train + drop, grad, F16, True),
+                ("S1000/full/D128", lambda dt, w=which, p_=p_:
+                 check_flash_bwd(gen, w, 2, 1000, 4, dt, 128, causal=False,
+                                 dropout_p=p_),
+                 ragged + drop, grad, F16, False)]
+            if not p_:
+                cases[f"{which}_f16"].append(
+                    ("overflow", lambda dt, w=which: check_f16_overflow(
+                        gen, w),
+                     "B=2 S=256 H=4 D=64 causal, q ~ 4, v ~ 30, dO ~ 2e4 "
+                     "(ds past 65504)",
+                     grad, F16, False))
     out, library_ms = {}, {}      # one library figure per (shape, call)
     for name, shapes in cases.items():
         errors, tolerances, lse_errors, timed = {}, {}, {}, []
@@ -907,14 +1017,15 @@ def phase_kernels(hgmma: dict) -> dict:
                         raise AssertionError(
                             f"{name} {key}: lse err {res['lse_err']} > "
                             f"{LSE_TOLERANCE}")
-                if dt == torch.bfloat16 and is_timed:
+                if dt != torch.float32 and is_timed:
                     bound_ms, bound_by = res["bound"]
                     lib = (shape, library_call)
                     if lib not in library_ms:
                         library_ms[lib] = cuda_ms(res["library"], iters=5,
                                                   flush=True)
                     timed.append({
-                        "case": label, "shape": shape + " bf16",
+                        "case": label,
+                        "shape": f"{shape} {SHORT[dt]}",
                         "max_abs_err": res["err"], "tolerance": tol,
                         "ms": cuda_ms(res["kern"], flush=True),
                         "warm_ms": cuda_ms(res["kern"], alone=True),
@@ -4176,14 +4287,15 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 
 def run_train(config: str, batch: int, seq: int, device: str, warmup: int,
               steps: int, to_static: bool = True, check_fall: bool = True,
-              **build_kw) -> dict:
+              keep_step: bool = False, **build_kw) -> dict:
     """``build_train_step`` for ``config`` (``build_kw``: its recipe
-    options); zero the launch counts, run ``warmup`` then ``steps`` timed
-    steps on the one seeded batch, and check the losses: finite, and
-    (``check_fall``) the last below the first.  Returns the run's figures,
-    the launch counts of these steps alone and, for a compiled step, its
-    program-cache counts.  The peak is taken from the model's build on,
-    so a graph's pool is in it."""
+    options and AMP level); zero the launch counts, run ``warmup`` then
+    ``steps`` timed steps on the one seeded batch, and check the losses:
+    finite, and (``check_fall``) the last below the first.  Returns the
+    run's figures, the launch counts of these steps alone and, for a
+    compiled step, its program-cache counts (``keep_step``: also the
+    ``TrainStep`` under ``"ts"``).  The peak is taken from the model's
+    build on, so a graph's pool is in it."""
     from paddle_tpu_torch import build_train_step
     from paddle_tpu_torch.ops import kernels
 
@@ -4225,6 +4337,8 @@ def run_train(config: str, batch: int, seq: int, device: str, warmup: int,
                                 "captures": f.captures}
     if cuda:
         res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if keep_step:
+        res["ts"] = ts
     return res
 
 
@@ -4263,6 +4377,269 @@ def phase_train() -> dict:
                                  f"{res['launches'][name]} times, want "
                                  f"{want} (one per layer per step)")
     return res
+
+
+def timed_steps(ts, n_steps: int) -> float:
+    """Host ms a step over ``n_steps`` steps of a warmed ``TrainStep``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        ts.train_step(ts.x, ts.y)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_steps
+
+
+#: turns of ``train_o1``: O1 O2 O2 O1, twice, 5 timed steps a turn
+O1_TURN_STEPS, O1_ROUNDS = 5, 2
+
+
+def level_turns(steps: dict, n_params: int) -> dict:
+    """``steps`` (level -> warmed compiled step) timed in turns, first,
+    second, second, first, ``O1_ROUNDS`` times: per level the ms of every
+    turn, the median and quartiles, tokens/s and MFU at the median."""
+    a, b = list(steps)
+    ms = {a: [], b: []}
+    for _ in range(O1_ROUNDS):
+        for name in (a, b, b, a):
+            ms[name].append(timed_steps(steps[name], O1_TURN_STEPS))
+    tokens = 8 * 1024
+    out = {}
+    for name, xs in ms.items():
+        q = _quartiles(xs)
+        out[name] = {"step_ms": xs, **q,
+                     "tokens_per_s": tokens / q["median"] * 1e3,
+                     "mfu": tokens / q["median"] * 1e3 * 6 * n_params
+                     / PEAK_FLOPS[torch.bfloat16]}
+    return out
+
+
+def phase_train_o1() -> dict:
+    """GPT-2 345M's bench step at AMP O1 (``PADDLE_TPU_BENCH_AMP=O1``: f32
+    parameters, no masters, ``compute_loss`` under ``auto_cast(bfloat16,
+    O1)``) through ``to_static``: 3 warm-up and 10 timed steps, one
+    program and one capture, the first 3 losses bitwise equal to the same
+    step run eagerly, and K1-K3's bf16 instances launched layers x steps
+    times; then the O1 and the O2 graph steps in turns.  Returns the
+    launch counts of the 13 steps."""
+    eager = run_train("gpt2-345m", batch=8, seq=1024, device="cuda",
+                      warmup=0, steps=TRAIN_EAGER_STEPS, to_static=False,
+                      check_fall=False, amp_level="O1")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = run_train("gpt2-345m", batch=8, seq=1024, device="cuda", warmup=3,
+                    steps=10, keep_step=True, amp_level="O1")
+    o1 = res.pop("ts")
+    o2 = run_train("gpt2-345m", batch=8, seq=1024, device="cuda", warmup=3,
+                   steps=1, check_fall=False, keep_step=True)["ts"]
+    turns = level_turns({"O1": o1, "O2": o2}, res["params"])
+    del o1, o2
+    gc.collect()
+    torch.cuda.empty_cache()
+    diff = max(abs(a - b) for a, b in zip(res["losses"], eager["losses"]))
+    want = res["layers"] * res["steps"]
+    emit("train_o1", model="gpt2-345m",
+         dtype="f32 parameters, bfloat16 per-op policy (AMP O1, no masters)",
+         batch=8, seq=1024, mfu_peak="989e12 bf16 dense, 6N flops/token",
+         eager_losses=eager["losses"], eager_max_abs_diff=diff,
+         turns={"order": "O1 O2 O2 O1", "rounds": O1_ROUNDS,
+                "steps_per_turn": O1_TURN_STEPS, **turns}, **res)
+    if res["program_cache"] != {"programs": 1, "misses": 1,
+                                "hits": res["steps"] - 1, "captures": 1}:
+        raise AssertionError(f"train_o1: program cache "
+                             f"{res['program_cache']} (want one program, "
+                             f"one capture)")
+    if diff != 0.0:
+        raise AssertionError(f"train_o1: the compiled step's first losses "
+                             f"{res['losses'][:3]} differ from the eager "
+                             f"step's {eager['losses']}")
+    for name in TRAIN_KERNELS:
+        if res["launches"][name] != want:
+            raise AssertionError(f"train_o1: {name} launched "
+                                 f"{res['launches'][name]} times, want "
+                                 f"{want} (one per layer per step)")
+    return res["launches"]
+
+
+#: train_fp16_scaler: GradScaler settings (an initial scale past the
+#: step's f16 range, so that the first steps overflow; each overflow
+#: halves it; 4 good steps double it) and the run's steps
+SCALER_KW = dict(init_loss_scaling=2.0 ** 32, decr_every_n_nan_or_inf=1,
+                 incr_every_n_steps=4)
+SCALER_STEPS = 20
+SCALER_DROPOUT_STEPS = 4
+F16_KERNELS = tuple(f"{n}_f16" for n in TRAIN_KERNELS)
+F16_DROPOUT_KERNELS = tuple(f"{n}_dropout_f16" for n in TRAIN_KERNELS)
+
+
+def scaler_rule(found, init: float, incr_ratio: float = 2.0,
+                decr_ratio: float = 0.5, incr_every_n_steps: int = 1000,
+                decr_every_n_nan_or_inf: int = 2, **_) -> list:
+    """The JAX ``GradScaler.update`` rule (``paddle_tpu/amp/grad_scaler.
+    py:151-171``) replayed on the host in f32 from the ``found_inf``
+    sequence: the scale after each step."""
+    scale, good, bad, out = np.float32(init), 0, 0, []
+    for f in found:
+        good, bad = (0, bad + 1) if f else (good + 1, 0)
+        if bad >= decr_every_n_nan_or_inf:
+            scale, bad = max(np.float32(scale * np.float32(decr_ratio)),
+                             np.float32(1.0)), 0
+        if good >= incr_every_n_steps:
+            scale, good = np.float32(scale * np.float32(incr_ratio)), 0
+        out.append(float(scale))
+    return out
+
+
+def state_checksums(model, opt) -> torch.Tensor:
+    """Three int64 sums on the device: of the bits of every parameter, of
+    every moment (AdamW's, zeros before they are born) and of every
+    ``beta*_pow`` (ones before they are born): equal iff (with certainty
+    in practice) the state is bitwise equal."""
+    def bits(t):
+        return t.detach().view(torch.int32).sum(dtype=torch.int64)
+
+    params = list(model.parameters())
+    zero = torch.zeros((), dtype=torch.int64, device=params[0].device)
+    one = bits(torch.ones((), device=zero.device))
+    moments, pows = zero.clone(), zero.clone()
+    for p in params:
+        st = opt.state.get(p, {})
+        if "moment1" in st:
+            moments += bits(st["moment1"]) + bits(st["moment2"])
+            pows += bits(st["beta1_pow"]) + bits(st["beta2_pow"])
+        else:
+            pows += 2 * one
+    return torch.stack([sum(bits(p) for p in params), moments, pows])
+
+
+def run_fp16_scaler(steps: int, init: float, dropout: float = 0.0,
+                    config: str = "gpt2-345m", batch: int = 8,
+                    seq: int = 1024, device: str = "cuda") -> dict:
+    """GPT-2 345M at AMP O1 in float16 with a ``GradScaler``: the step of
+    ``tests/test_amp.py:150-158`` (``auto_cast`` around the loss, the
+    scaled backward, ``scaler.step``, ``scaler.update``, ``clear_grad``),
+    which also returns ``found_inf``, through ``to_static``.  Between
+    steps (outside the graph, on the device) the state's checksums and
+    the scale are copied aside; every device value is read after the
+    loop.  ``init``: the scaler's initial scale (the rest of
+    ``SCALER_KW`` as it is).  The peak (on the card) is taken from the
+    build on."""
+    from paddle_tpu_torch import amp, build_train_step, jit
+    from paddle_tpu_torch.ops import kernels
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ts = build_train_step(config, batch=batch, seq=seq, device=device,
+                          amp_level="O1", to_static=False, dropout=dropout)
+    model, opt = ts.model, ts.optimizer
+    scaler = amp.GradScaler(**{**SCALER_KW, "init_loss_scaling": init})
+
+    @jit.to_static
+    def step(x, y):
+        with amp.auto_cast(dtype="float16", level="O1"):
+            loss = model.compute_loss(x, y)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        found = scaler.found_inf
+        scaler.update()
+        opt.clear_grad()
+        return loss, found
+
+    kernels.reset_launches()
+    sums = [state_checksums(model, opt)]
+    losses, found, scales = [], [], []
+    for i in range(steps):
+        if i == 2:
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        loss, f = step(ts.x, ts.y)
+        losses.append(loss)
+        found.append(f)
+        scales.append(scaler.scale_tensor.clone())
+        sums.append(state_checksums(model, opt))
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    return {"dropout": dropout, "steps": steps, "init_loss_scaling": init,
+            "losses": [float(v.detach()) for v in losses],
+            "found_inf": [bool(v) for v in found],
+            "scales": [float(v) for v in scales],
+            "checksums": [[int(x) for x in c] for c in sums],
+            "step_ms": wall * 1e3 / (steps - 2),
+            "peak_memory_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
+                               if cuda else None),
+            "program_cache": {"programs": len(step.program_cache),
+                              "misses": step.misses, "hits": step.hits,
+                              "captures": step.captures},
+            "launches": launches, "cuda": cuda,
+            "layers": model.config.num_hidden_layers}
+
+
+def check_fp16_scaler(run: dict, tag: str, both: bool = True) -> None:
+    """A skipped step left the parameters, moments and ``beta*_pow``
+    bitwise as they were (checksums), an applied one moved the
+    parameters; the scale followed the JAX rule; some step applied (and,
+    with ``both``, some skipped); the losses are finite from the first
+    applied step on; one program, one capture (on the card; none on the
+    CPU, where a program runs its body)."""
+    found, sums = run["found_inf"], run["checksums"]
+    for i, f in enumerate(found):
+        if f and sums[i + 1] != sums[i]:
+            raise AssertionError(f"{tag}: step {i} overflowed but changed "
+                                 f"the state: {sums[i]} -> {sums[i + 1]}")
+        if not f and sums[i + 1][0] == sums[i][0]:
+            raise AssertionError(f"{tag}: step {i} applied but left the "
+                                 f"parameters as they were")
+    rule = scaler_rule(found, **SCALER_KW, init=run["init_loss_scaling"])
+    if run["scales"] != rule:
+        raise AssertionError(f"{tag}: scale trajectory {run['scales']} is "
+                             f"not the JAX rule's {rule} for {found}")
+    if all(found) or (both and not any(found)):
+        raise AssertionError(f"{tag}: want an applied step"
+                             f"{' and a skipped one' if both else ''}, got "
+                             f"found_inf {found}")
+    first = found.index(False)
+    if not all(np.isfinite(run["losses"][first:])):
+        raise AssertionError(f"{tag}: non-finite loss after the first "
+                             f"applied step: {run['losses']}")
+    if run["program_cache"] != {"programs": 1, "misses": 1,
+                                "hits": run["steps"] - 1,
+                                "captures": int(run["cuda"])}:
+        raise AssertionError(f"{tag}: {run['program_cache']}")
+
+
+def phase_train_fp16_scaler() -> dict:
+    """(d): ``run_fp16_scaler`` for ``SCALER_STEPS`` steps at dropout 0
+    from ``SCALER_KW``'s initial scale (K1-K3's f16 instances launched
+    layers x steps times), then ``SCALER_DROPOUT_STEPS`` at the recipe's
+    0.1 from the scale the first run ended at (their f16 dropout
+    instances); both held by ``check_fp16_scaler``, the second needing
+    only an applied step.  Returns the launch counts of the two runs."""
+    plain = run_fp16_scaler(SCALER_STEPS, SCALER_KW["init_loss_scaling"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    drop = run_fp16_scaler(SCALER_DROPOUT_STEPS, plain["scales"][-1],
+                           RECIPE_DROPOUT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_fp16_scaler", model="gpt2-345m", batch=8, seq=1024,
+         dtype="f32 parameters, float16 per-op policy (AMP O1) with "
+               "GradScaler", scaler=SCALER_KW,
+         **{k: v for k, v in plain.items() if k != "checksums"},
+         dropout_run={k: v for k, v in drop.items() if k != "checksums"})
+    check_fp16_scaler(plain, "train_fp16_scaler")
+    check_fp16_scaler(drop, "train_fp16_scaler (dropout)", both=False)
+    for run, names in ((plain, F16_KERNELS), (drop, F16_DROPOUT_KERNELS)):
+        want = run["layers"] * run["steps"]
+        for name in names:
+            if run["launches"][name] != want:
+                raise AssertionError(
+                    f"train_fp16_scaler: {name} launched "
+                    f"{run['launches'][name]} times, want {want}")
+    return _sum_launches(plain["launches"], drop["launches"])
 
 
 RECIPE_STEPS = 20
@@ -4596,6 +4973,12 @@ def main() -> int:
     train = phase_train()
     gc.collect()
     torch.cuda.empty_cache()
+    train_o1 = phase_train_o1()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp16 = phase_train_fp16_scaler()
+    gc.collect()
+    torch.cuda.empty_cache()
     recipe = phase_train_recipe()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4605,7 +4988,8 @@ def main() -> int:
     phase_train_parity_bf16()
     launches = {**paged["launches"],
                 **{n: train["launches"][n] for n in TRAIN_KERNELS},
-                **{n: recipe[n] for n in RECIPE_KERNELS}}
+                **{n: recipe[n] for n in RECIPE_KERNELS},
+                **{n: fp16[n] for n in F16_KERNELS + F16_DROPOUT_KERNELS}}
     by_phase = {"serve_paged": paged["launches"],
                 "serve_durable": durable["launches"],
                 "serve_spec": spec,
@@ -4614,6 +4998,8 @@ def main() -> int:
                 "serve_fleet": fleet,
                 "sigkill_drill": drill["launches"],
                 "train": train["launches"],
+                "train_o1": train_o1,
+                "train_fp16_scaler": fp16,
                 "train_recipe": recipe}
     kernels_line = [{**rec, "launches": launches[name],
                      "launches_by_phase": {ph: c[name]

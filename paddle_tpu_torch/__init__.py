@@ -8,16 +8,20 @@ kernel of the JAX package:
 - K1 flash attention forward (``csrc/flash_attention_fwd.cu``),
 - K2 (dK, dV) and K3 (dQ) flash attention backward
   (``csrc/flash_attention_bwd.cu``), K1-K3 each also with attention
-  dropout on a Philox generator (:mod:`.rng`),
+  dropout on a Philox generator (:mod:`.rng`), each in f32, bf16 and
+  f16,
 - K4 paged decode and K5 fused paged prefill (``csrc/paged_attention.cu``).
 
 Entry points: :func:`inference.create_engine` serves GPT and Llama
 models, each engine step a CUDA graph on the card;
 :func:`training.build_train_step` trains GPT (the GPT-2 345M step of
 ``bench.py``, compiled by :func:`jit.to_static`: one CUDA graph a step on
-the card), and so does a user's own loop of ``GPTForCausalLM``,
-``optimizer.AdamW(lr=optimizer.lr.<scheduler>, grad_clip=nn.Clip...)``,
-``amp.decorate`` and ``jit.to_static``; :func:`seed` seeds dropout.  Everything runs on ``cuda`` unless the caller passes
+the card; AMP O2 or O1), and so does a user's own loop of
+``GPTForCausalLM``, an optimizer of :mod:`.optimizer` (ten classes,
+parameter groups, ``lr=optimizer.lr.<scheduler>``,
+``grad_clip=nn.Clip...``), ``amp.decorate`` or ``amp.auto_cast`` (the
+JAX package's per-op lists), ``amp.GradScaler`` and ``jit.to_static``;
+:func:`seed` seeds dropout.  Everything runs on ``cuda`` unless the caller passes
 ``device="cpu"``; on CPU tensors each kernel's plain PyTorch version runs
 instead.
 """

@@ -5,7 +5,7 @@
 // paged_attention_kernel.py): softmax in f32, scale 1/sqrt(D), masked
 // scores filled with -1e30, online softmax (running max m, running sum l,
 // f32 accumulator), and the l == 0 guard at the end.  Inputs and outputs
-// are f32 or bf16.
+// are f32, bf16 or (K1-K3) f16.
 //
 // `attend_tile` is the f32 query-tile loop shared by the paged prefill
 // kernel (K5, paged_attention.cu) and the flash forward kernel (K1,
@@ -16,11 +16,12 @@
 // addressed through a functor, so the paged kernel reads them through the
 // block table and the flash kernel reads a strided [B, S, H, D] tensor,
 // with one loop for both.  Only the f32 instances, which the parity checks
-// use, run it: the bf16 instances run the tensor-core loop of
+// use, run it: the bf16 and f16 instances run the tensor-core loop of
 // attention_wgmma.cuh through the same functors.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,6 +68,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -75,6 +77,12 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+// round to nearest; past f16's range the value becomes inf, never clamped
+// (a loss scaler must see the overflow)
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -1,7 +1,11 @@
-// The bf16 tensor-core tile loop shared by K1 (flash forward,
+// The 16-bit tensor-core tile loop shared by K1 (flash forward,
 // flash_attention_fwd.cu) and K5 (paged prefill, paged_attention.cu), and
-// the PTX pieces (wgmma, descriptors, cp.async, TileCopy) that the bf16
-// backward kernels K2/K3 (flash_attention_bwd.cu) build on too.
+// the PTX pieces (wgmma, descriptors, cp.async, TileCopy) that the 16-bit
+// backward kernels K2/K3 (flash_attention_bwd.cu) build on too.  The
+// element type T is a template parameter, __nv_bfloat16 or __half: the
+// layouts, tiles and fragments are the same for both (two bytes an
+// element), and only the wgmma type suffix (.bf16 / .f16) and the
+// conversions differ.  K1-K3 have instances of both; K5 of bf16 only.
 //
 // Same function as `attend_tile` in attention_common.cuh, which the f32
 // instances keep: scale 1/sqrt(D), masked scores -1e30, online softmax
@@ -10,16 +14,16 @@
 // where the products run:
 //
 //   * One warpgroup (128 threads) owns 64 queries of one head: the M = 64
-//     of `wgmma`.  Q is loaded once into shared memory as bf16.
+//     of `wgmma`.  Q is loaded once into shared memory as T.
 //   * The keys are walked 64 at a time up to the tile's horizon.  Tiles
 //     wholly past it are never visited; only the diagonal and the ragged
 //     last tile are masked.
-//   * S = Q K^T is `wgmma.mma_async` m64n64k16 (bf16 in, f32 out), D/16
+//   * S = Q K^T is `wgmma.mma_async` m64n64k16 (T in, f32 out), D/16
 //     steps, both operands K-major in shared memory.
 //   * The online softmax runs on the accumulator fragment: a row's 64
 //     scores sit in one quad of threads, so its max is two shuffles, and
 //     the quad's partial sums are added once at the end.
-//   * p is rounded to bf16 in registers and is the register A operand of
+//   * p is rounded to T in registers and is the register A operand of
 //     O += P V (m64nDk16).  V is stored [keys][D], MN-major for B, so the
 //     instruction transposes it.  O stays an f32 register accumulator,
 //     rescaled by corr each tile.
@@ -27,7 +31,7 @@
 //     copies whose rows are addressed by the caller's functor (a strided
 //     row, or a row through the block table), so tile n+1 loads while tile
 //     n computes.  Rows past the horizon or the table are zero-filled
-//     (src-size 0), never left uninitialised: a stray bf16 NaN pattern
+//     (src-size 0), never left uninitialised: a stray 16-bit NaN pattern
 //     survives a zero probability.
 //
 // Shared memory holds every tile in the layout a `wgmma` descriptor with
@@ -36,9 +40,10 @@
 // Q 16 KB + 2 x (K 16 KB + V 16 KB) = 80 KB, so the launcher opts in past
 // 48 KB.
 //
-// Rounding: p is rounded to bf16 before P V.  The Pallas flash forward
+// Rounding: p is rounded to T before P V.  The Pallas flash forward
 // rounds p to v's dtype there too; the Pallas paged prefill keeps p in f32,
-// so K5 departs from it by that one rounding.
+// so K5 departs from it by that one rounding.  Every rounding to f16 is to
+// nearest and overflows to inf, as a Pallas astype does.
 #pragma once
 
 #include <type_traits>
@@ -49,11 +54,15 @@ namespace pt {
 namespace tc {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, f16>::value;
 
 constexpr int kTileM = 64;       // queries per block (wgmma M)
 constexpr int kTileN = 64;       // keys per step
 constexpr int kStages = 2;       // K/V ring depth
-constexpr int kRowBytes = 128;   // one swizzle row: 64 bf16
+constexpr int kRowBytes = 128;   // one swizzle row: 64 16-bit elements
 constexpr int kBlockBytes = kTileM * kRowBytes;  // 64 rows of one column block
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -140,72 +149,106 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
+// The three products, for T = bf16 or f16 (AB: the PTX type of A and B).
 // d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                             uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : PT_ACC8(0), PT_ACC8(8), PT_ACC8(16), PT_ACC8(24)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
+#define PT_WGMMA_SS_N64(AB)                                               \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "         \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                            \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                          \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                         \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                     \
+      : PT_ACC8(0), PT_ACC8(8), PT_ACC8(16), PT_ACC8(24)                  \
+      : "l"(a), "l"(b), "r"(scale_d))
 
 // d[64 x 64] += A[64 x 16] (registers) B[16 x 64], B MN-major in shared
+#define PT_WGMMA_RS_N64(AB)                                               \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "         \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                            \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                          \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                         \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                       \
+      : PT_ACC8(0), PT_ACC8(8), PT_ACC8(16), PT_ACC8(24)                  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+// d[64 x 128] += A[64 x 16] (registers) B[16 x 128], B MN-major in shared
+#define PT_WGMMA_RS_N128(AB)                                              \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " "        \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                            \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                          \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                          \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                          \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                          \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                          \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                         \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                       \
+      : PT_ACC8(0), PT_ACC8(8), PT_ACC8(16), PT_ACC8(24), PT_ACC8(32),    \
+        PT_ACC8(40), PT_ACC8(48), PT_ACC8(56)                             \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  if constexpr (kIsHalf<T>)
+    PT_WGMMA_SS_N64("f16");
+  else
+    PT_WGMMA_SS_N64("bf16");
+}
+
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : PT_ACC8(0), PT_ACC8(8), PT_ACC8(16), PT_ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (kIsHalf<T>)
+    PT_WGMMA_RS_N64("f16");
+  else
+    PT_WGMMA_RS_N64("bf16");
 }
 
-// d[64 x 128] += A[64 x 16] (registers) B[16 x 128], B MN-major in shared
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                               const uint32_t (&a)[4],
                                               uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : PT_ACC8(0), PT_ACC8(8), PT_ACC8(16), PT_ACC8(24), PT_ACC8(32),
-        PT_ACC8(40), PT_ACC8(48), PT_ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (kIsHalf<T>)
+    PT_WGMMA_RS_N128("f16");
+  else
+    PT_WGMMA_RS_N128("bf16");
 }
 
+#undef PT_WGMMA_SS_N64
+#undef PT_WGMMA_RS_N64
+#undef PT_WGMMA_RS_N128
 #undef PT_ACC8
 
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
   if constexpr (D == 64)
-    wgmma_rs_n64(d, a, b);
+    wgmma_rs_n64<T>(d, a, b);
   else
-    wgmma_rs_n128(d, a, b);
+    wgmma_rs_n128<T>(d, a, b);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// Two f32 values rounded to T (to nearest; f16 overflows to inf) and packed
+// into one 32-bit register, `lo` in the low half: an A-fragment register,
+// or two adjacent output elements.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<T>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
 // -- the tile loop ---------------------------------------------------------
@@ -240,12 +283,12 @@ struct TileCopy {
 // qpos0 + r0 and + 8, which share a counter since qpos0 is a multiple of 64)
 // and multiplies p by them before rounding it for P V; l, and so lse, keep
 // the undropped p.
-template <int D, typename KeyAt, typename Drop = NoDropout>
+template <typename T, int D, typename KeyAt, typename Drop = NoDropout>
 __device__ __forceinline__ void attend_tile(
-    uint8_t* smem, const bf16* __restrict__ q_rows, long long q_stride,
+    uint8_t* smem, const T* __restrict__ q_rows, long long q_stride,
     int n_rows, int qpos0, int horizon, bool causal,
-    const bf16* __restrict__ k_base, const bf16* __restrict__ v_base,
-    KeyAt key_at, float scale, bf16* __restrict__ o_rows, long long o_stride,
+    const T* __restrict__ k_base, const T* __restrict__ v_base,
+    KeyAt key_at, float scale, T* __restrict__ o_rows, long long o_stride,
     float* __restrict__ lse_rows, const Drop& drop = Drop{}) {
   using L = Smem<D>;
   constexpr int kSteps = D / 16;  // k16 steps of Q K^T
@@ -317,7 +360,7 @@ __device__ __forceinline__ void attend_tile(
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk) {
       const uint32_t off = (kk / 4) * kBlockBytes + (kk % 4) * 32;
-      wgmma_ss_n64(s, desc_sw128(q_sm + off, 16, 1024),
+      wgmma_ss_n64<T>(s, desc_sw128(q_sm + off, 16, 1024),
                    desc_sw128(k_sm + off, 16, 1024), kk > 0);
     }
     wgmma_commit();
@@ -368,7 +411,7 @@ __device__ __forceinline__ void attend_tile(
         p0 *= drop.factor((keep >> e) & 1u);
         p1 *= drop.factor((keep >> (e + 1)) & 1u);
       }
-      p[e / 8][(e % 8) / 2] = pack_bf16(p0, p1);
+      p[e / 8][(e % 8) / 2] = pack2<T>(p0, p1);
     }
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e / 2) % 2];
@@ -378,7 +421,7 @@ __device__ __forceinline__ void attend_tile(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTileN / 16; ++kk)
-      wgmma_rs<D>(o, p[kk], desc_sw128(v_sm + kk * 16 * kRowBytes,
+      wgmma_rs<T, D>(o, p[kk], desc_sw128(v_sm + kk * 16 * kRowBytes,
                                        kBlockBytes, 1024));
     wgmma_commit();
     wgmma_wait_all();
@@ -393,22 +436,22 @@ __device__ __forceinline__ void attend_tile(
     const float li = l[i] == 0.f ? 1.f : l[i];
     if (r < n_rows) {
       const float inv = 1.f / li;
-      bf16* out = o_rows + r * o_stride + cq;
+      T* out = o_rows + r * o_stride + cq;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
-            __floats2bfloat162_rn(o[4 * j + 2 * i] * inv,
-                                  o[4 * j + 2 * i + 1] * inv);
+        *reinterpret_cast<uint32_t*>(out + 8 * j) = pack2<T>(
+            o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
       if (lse_rows != nullptr && cq == 0)
         lse_rows[r] = (m[i] + log2f(fmaxf(li, 1e-30f))) * kLn2;
     }
   }
 }
 
-// Which loop an instance of K1 or K5 runs: bf16 on tensor cores (this
-// file), f32 on the CUDA cores (attention_common.cuh).
+// Which loop an instance of K1-K3 or K5 runs: bf16 and f16 on tensor cores
+// (this file), f32 on the CUDA cores (attention_common.cuh).
 template <typename T>
-constexpr bool kOnTensorCores = std::is_same<T, bf16>::value;
+constexpr bool kOnTensorCores =
+    std::is_same<T, bf16>::value || std::is_same<T, f16>::value;
 template <typename T>
 constexpr int kQueryTile = kOnTensorCores<T> ? kTileM : kTileQ;
 

@@ -15,14 +15,18 @@
 // in f32.  K2 accumulates dV += p^T dO and dK += ds^T q; K3 accumulates
 // dQ += ds k.  As in the Pallas kernels, p is rounded to dO's dtype before
 // the dV product and ds to q's (k's) dtype before the dK (dQ) product; the
-// sums stay f32 and the results are rounded once to the input dtype.
+// sums stay f32 and the results are rounded once to the input dtype.  In
+// f16 a ds (or a result) past 65504 rounds to inf, as a Pallas astype
+// does, and is never clamped: under a large loss scale the overflow must
+// reach the gradients, where the scaler finds it and skips the step.
 //
 // Bound by operations: K2 does 8D flops per live (q, k) pair (four
 // products), K3 6D (three).  At the GPT-2 345M shape (B 8, S 1024, H 16,
 // D 64, causal) that is 34.4 and 25.8 GFLOP against ~50 MB each reads
-// once, so the tensor cores are the only way near the bound.  The bf16
-// instances run every product on `wgmma` (the PTX pieces of
-// attention_wgmma.cuh, as K1 does):
+// once, so the tensor cores are the only way near the bound.  The bf16 and
+// f16 instances run every product on `wgmma` (the PTX pieces of
+// attention_wgmma.cuh, as K1 does), with the element type T a template
+// parameter of one tile loop:
 //
 //   * One warpgroup (128 threads) owns 64 output rows.  K2: one block per
 //     (64-key tile, head, batch) walks the query tiles from its diagonal to
@@ -173,11 +177,11 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst,
   }
 }
 
-// -- bf16: tensor cores -----------------------------------------------------
+// -- bf16 and f16: tensor cores ----------------------------------------------
 
 namespace tc {
 
-// Shared memory of a bf16 K2/K3 block: its own pair of [64][D] tiles, a
+// Shared memory of a 16-bit K2/K3 block: its own pair of [64][D] tiles, a
 // two-stage ring of the walked pair, and (K2) each stage's 64 lse and 64
 // delta floats.  Every tile starts on a 1024-byte swizzle period.
 template <int D>
@@ -207,10 +211,10 @@ __device__ __forceinline__ int tile_rank(int& h, int& b) {
 
 // Rows 0..63 of a strided [rows, D] slice into a swizzled tile; rows from
 // n_rows on are zero-filled.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void load_tile(uint32_t tile,
                                           const TileCopy<D>& cp,
-                                          const bf16* __restrict__ rows,
+                                          const T* __restrict__ rows,
                                           long long stride, int n_rows) {
 #pragma unroll
   for (int i = 0; i < TileCopy<D>::kIters; ++i) {
@@ -222,33 +226,33 @@ __device__ __forceinline__ void load_tile(uint32_t tile,
 }
 
 // d[64 x 64] = A B^T over D: A and B [64][D] tiles, both K-major.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void mma_nt(float (&d)[32], uint32_t a,
                                        uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * kBlockBytes + (kk % 4) * 32;
-    wgmma_ss_n64(d, desc_sw128(a + off, 16, 1024),
+    wgmma_ss_n64<T>(d, desc_sw128(a + off, 16, 1024),
                  desc_sw128(b + off, 16, 1024), kk > 0);
   }
 }
 
 // d[64 x D] += A B over 64: A as four register fragments of 16 columns,
 // B a [64][D] tile read MN-major.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void mma_rs(float (&d)[D / 2],
                                        const uint32_t (&a)[4][4],
                                        uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < kTileN / 16; ++kk)
-    wgmma_rs<D>(d, a[kk], desc_sw128(b + kk * 16 * kRowBytes, kBlockBytes,
-                                     1024));
+    wgmma_rs<T, D>(d, a[kk], desc_sw128(b + kk * 16 * kRowBytes,
+                                        kBlockBytes, 1024));
 }
 
-// Rows 0..n_rows-1 of a [64 x D] accumulator to a strided bf16 output.
-template <int D>
+// Rows 0..n_rows-1 of a [64 x D] accumulator to a strided T output.
+template <typename T, int D>
 __device__ __forceinline__ void store_acc(const float (&d)[D / 2],
-                                          bf16* __restrict__ rows,
+                                          T* __restrict__ rows,
                                           long long stride, int n_rows,
                                           int r0, int cq) {
 #pragma unroll
@@ -257,8 +261,8 @@ __device__ __forceinline__ void store_acc(const float (&d)[D / 2],
     if (r >= n_rows) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(rows + r * stride + 8 * j + cq) =
-          __floats2bfloat162_rn(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(rows + r * stride + 8 * j + cq) =
+          pack2<T>(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
   }
 }
 
@@ -268,15 +272,15 @@ __device__ __forceinline__ void store_acc(const float (&d)[D / 2],
 //
 // Fragment coordinates (a thread's s[4j + 2i + c]): key row r0 + 8i of the
 // tile, query column 8j + cq + c.
-template <int D, typename Drop>
+template <typename T, int D, typename Drop>
 __device__ __forceinline__ void dkv_tile(
-    uint8_t* smem, const bf16* __restrict__ q_bh, long long q_ss,
-    const bf16* __restrict__ do_bh, long long do_ss,
+    uint8_t* smem, const T* __restrict__ q_bh, long long q_ss,
+    const T* __restrict__ do_bh, long long do_ss,
     const float* __restrict__ lse_bh, const float* __restrict__ delta_bh,
-    const bf16* __restrict__ k_rows, long long k_ss,
-    const bf16* __restrict__ v_rows, long long v_ss, int S, int k0,
-    bool causal, float scale, bf16* __restrict__ dk_rows, long long dk_ss,
-    bf16* __restrict__ dv_rows, long long dv_ss, const Drop& drop) {
+    const T* __restrict__ k_rows, long long k_ss,
+    const T* __restrict__ v_rows, long long v_ss, int S, int k0,
+    bool causal, float scale, T* __restrict__ dk_rows, long long dk_ss,
+    T* __restrict__ dv_rows, long long dv_ss, const Drop& drop) {
   using L = BwdSmem<D>;
   const int tid = threadIdx.x;
   const uint32_t raw = smem_u32(smem);
@@ -293,10 +297,10 @@ __device__ __forceinline__ void dkv_tile(
   auto load_q = [&](int t) {
     const int c0 = first + t * kTileM;
     const int st = t % kStages;
-    load_tile<D>(base + L::kRing0 + st * L::kTile, cp, q_bh + c0 * q_ss, q_ss,
-                 S - c0);
-    load_tile<D>(base + L::kRing1 + st * L::kTile, cp, do_bh + c0 * do_ss,
-                 do_ss, S - c0);
+    load_tile<T, D>(base + L::kRing0 + st * L::kTile, cp, q_bh + c0 * q_ss,
+                    q_ss, S - c0);
+    load_tile<T, D>(base + L::kRing1 + st * L::kTile, cp, do_bh + c0 * do_ss,
+                    do_ss, S - c0);
     const int pos = c0 + tid % kTileM;
     const bool live = pos < S;
     cp_async4(base + L::kRows + (st * L::kRowFloats + tid) * 4,
@@ -305,8 +309,8 @@ __device__ __forceinline__ void dkv_tile(
     cp_async_commit();
   };
 
-  load_tile<D>(k_sm, cp, k_rows, k_ss, n_keys);
-  load_tile<D>(v_sm, cp, v_rows, v_ss, n_keys);
+  load_tile<T, D>(k_sm, cp, k_rows, k_ss, n_keys);
+  load_tile<T, D>(v_sm, cp, v_rows, v_ss, n_keys);
   load_q(0);  // one group with K and V
 
   const int warp = tid / 32, lane = tid % 32;
@@ -334,7 +338,7 @@ __device__ __forceinline__ void dkv_tile(
     // S^T = K Q^T
     fence_regs(s);
     wgmma_fence();
-    mma_nt<D>(s, k_sm, q_sm);
+    mma_nt<T, D>(s, k_sm, q_sm);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -359,7 +363,7 @@ __device__ __forceinline__ void dkv_tile(
           }
     }
 
-    // p on the fragment (kept f32 in s for ds) and P^T as bf16 A fragments
+    // p on the fragment (kept f32 in s for ds) and P^T as T A fragments
     // (times the keep factor under dropout)
     const bool masked = c0 + kTileM > S || (causal && c0 == k0);
     uint32_t pt[4][4];
@@ -382,10 +386,10 @@ __device__ __forceinline__ void dkv_tile(
         }
         if constexpr (Drop::kOn)
           pt[j / 2][(j % 2) * 2 + i] =
-              pack_bf16(s[e] * drop.factor((keep >> e) & 1u),
-                        s[e + 1] * drop.factor((keep >> (e + 1)) & 1u));
+              pack2<T>(s[e] * drop.factor((keep >> e) & 1u),
+                       s[e + 1] * drop.factor((keep >> (e + 1)) & 1u));
         else
-          pt[j / 2][(j % 2) * 2 + i] = pack_bf16(s[e], s[e + 1]);
+          pt[j / 2][(j % 2) * 2 + i] = pack2<T>(s[e], s[e + 1]);
       }
     }
 
@@ -393,14 +397,14 @@ __device__ __forceinline__ void dkv_tile(
     fence_regs(dv);
     fence_regs(dp);
     wgmma_fence();
-    mma_rs<D>(dv, pt, do_sm);
+    mma_rs<T, D>(dv, pt, do_sm);
     if constexpr (D > 64) {  // P^T's registers are free before dP^T's
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(dv);
       wgmma_fence();
     }
-    mma_nt<D>(dp, v_sm, do_sm);
+    mma_nt<T, D>(dp, v_sm, do_sm);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dv);
@@ -420,19 +424,19 @@ __device__ __forceinline__ void dkv_tile(
           dp0 *= drop.factor((keep >> e) & 1u);
           dp1 *= drop.factor((keep >> (e + 1)) & 1u);
         }
-        dst[j / 2][(j % 2) * 2 + i] = pack_bf16(s[e] * (dp0 - d2.x) * scale,
-                                                s[e + 1] * (dp1 - d2.y) * scale);
+        dst[j / 2][(j % 2) * 2 + i] = pack2<T>(s[e] * (dp0 - d2.x) * scale,
+                                               s[e + 1] * (dp1 - d2.y) * scale);
       }
     }
     fence_regs(dk);
     wgmma_fence();
-    mma_rs<D>(dk, dst, q_sm);
+    mma_rs<T, D>(dk, dst, q_sm);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dk);
   }
-  store_acc<D>(dk, dk_rows, dk_ss, n_keys, r0, cq);
-  store_acc<D>(dv, dv_rows, dv_ss, n_keys, r0, cq);
+  store_acc<T, D>(dk, dk_rows, dk_ss, n_keys, r0, cq);
+  store_acc<T, D>(dv, dv_rows, dv_ss, n_keys, r0, cq);
 }
 
 // K3 for one 64-query tile at q0 (n_rows of it live) of one (batch, head):
@@ -441,14 +445,14 @@ __device__ __forceinline__ void dkv_tile(
 //
 // Fragment coordinates (a thread's s[4j + 2i + c]): query row r0 + 8i of
 // the tile, key column 8j + cq + c.
-template <int D, typename Drop>
+template <typename T, int D, typename Drop>
 __device__ __forceinline__ void dq_tile(
-    uint8_t* smem, const bf16* __restrict__ q_rows, long long q_ss,
-    const bf16* __restrict__ do_rows, long long do_ss,
+    uint8_t* smem, const T* __restrict__ q_rows, long long q_ss,
+    const T* __restrict__ do_rows, long long do_ss,
     const float* __restrict__ lse_rows, const float* __restrict__ delta_rows,
-    int n_rows, int q0, const bf16* __restrict__ k_bh, long long k_ss,
-    const bf16* __restrict__ v_bh, long long v_ss, int S, bool causal,
-    float scale, bf16* __restrict__ dq_rows, long long dq_ss,
+    int n_rows, int q0, const T* __restrict__ k_bh, long long k_ss,
+    const T* __restrict__ v_bh, long long v_ss, int S, bool causal,
+    float scale, T* __restrict__ dq_rows, long long dq_ss,
     const Drop& drop) {
   using L = BwdSmem<D>;
   const int tid = threadIdx.x;
@@ -461,15 +465,15 @@ __device__ __forceinline__ void dq_tile(
   auto load_kv = [&](int t) {
     const int c0 = t * kTileN;
     const int st = t % kStages;
-    load_tile<D>(base + L::kRing0 + st * L::kTile, cp, k_bh + c0 * k_ss, k_ss,
-                 n_keys - c0);
-    load_tile<D>(base + L::kRing1 + st * L::kTile, cp, v_bh + c0 * v_ss, v_ss,
-                 n_keys - c0);
+    load_tile<T, D>(base + L::kRing0 + st * L::kTile, cp, k_bh + c0 * k_ss,
+                    k_ss, n_keys - c0);
+    load_tile<T, D>(base + L::kRing1 + st * L::kTile, cp, v_bh + c0 * v_ss,
+                    v_ss, n_keys - c0);
     cp_async_commit();
   };
 
-  load_tile<D>(q_sm, cp, q_rows, q_ss, n_rows);
-  load_tile<D>(do_sm, cp, do_rows, do_ss, n_rows);
+  load_tile<T, D>(q_sm, cp, q_rows, q_ss, n_rows);
+  load_tile<T, D>(do_sm, cp, do_rows, do_ss, n_rows);
   load_kv(0);  // one group with Q and dO
 
   const int warp = tid / 32, lane = tid % 32;
@@ -503,8 +507,8 @@ __device__ __forceinline__ void dq_tile(
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
-    mma_nt<D>(s, q_sm, k_sm);
-    mma_nt<D>(dp, do_sm, v_sm);
+    mma_nt<T, D>(s, q_sm, k_sm);
+    mma_nt<T, D>(dp, do_sm, v_sm);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -519,7 +523,7 @@ __device__ __forceinline__ void dq_tile(
         keep |= drop.keep4(drop.words(q0 + r0, c0 + 8 * j + cq)) << (4 * j);
     }
 
-    // dS on the fragment as bf16 A fragments (dP times the keep factor
+    // dS on the fragment as T A fragments (dP times the keep factor
     // under dropout)
     const bool masked = c0 + kTileN > n_keys ||
                         (causal && c0 + kTileN - 1 > q0);
@@ -543,19 +547,19 @@ __device__ __forceinline__ void dq_tile(
           if constexpr (Drop::kOn) dpc *= drop.factor((keep >> (e + c)) & 1u);
           v[c] = p * (dpc - delta[i]) * scale;
         }
-        ds[j / 2][(j % 2) * 2 + i] = pack_bf16(v[0], v[1]);
+        ds[j / 2][(j % 2) * 2 + i] = pack2<T>(v[0], v[1]);
       }
     }
 
     // dQ += dS K
     fence_regs(dq);
     wgmma_fence();
-    mma_rs<D>(dq, ds, k_sm);
+    mma_rs<T, D>(dq, ds, k_sm);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dq);
   }
-  store_acc<D>(dq, dq_rows, dq_ss, n_rows, r0, cq);
+  store_acc<T, D>(dq, dq_rows, dq_ss, n_rows, r0, cq);
 }
 
 }  // namespace tc
@@ -591,13 +595,13 @@ __device__ __forceinline__ void flash_bwd_dkv_block(PT_DKV_PARAMS,
     const int k0 = tc::tile_rank(h, b) * kBwdTile;
     const long long row0 = ((long long)b * H + h) * S;
     drop.set_head(b * H + h);
-    tc::dkv_tile<D>(reinterpret_cast<uint8_t*>(smem), q + b * q_sb + h * q_sh,
-                    q_ss, dout + b * do_sb + h * do_sh, do_ss, lse + row0,
-                    delta + row0, k + b * k_sb + k0 * k_ss + h * k_sh, k_ss,
-                    v + b * v_sb + k0 * v_ss + h * v_sh, v_ss, S, k0,
-                    causal != 0, scale, dk + b * dk_sb + k0 * dk_ss + h * dk_sh,
-                    dk_ss, dv + b * dv_sb + k0 * dv_ss + h * dv_sh, dv_ss,
-                    drop);
+    tc::dkv_tile<T, D>(
+        reinterpret_cast<uint8_t*>(smem), q + b * q_sb + h * q_sh, q_ss,
+        dout + b * do_sb + h * do_sh, do_ss, lse + row0, delta + row0,
+        k + b * k_sb + k0 * k_ss + h * k_sh, k_ss,
+        v + b * v_sb + k0 * v_ss + h * v_sh, v_ss, S, k0, causal != 0, scale,
+        dk + b * dk_sb + k0 * dk_ss + h * dk_sh, dk_ss,
+        dv + b * dv_sb + k0 * dv_ss + h * dv_sh, dv_ss, drop);
   } else {
     using L = BwdLayout<D>;
     float* sk = smem;
@@ -708,13 +712,13 @@ __device__ __forceinline__ void flash_bwd_dq_block(PT_DQ_PARAMS, Drop drop) {
     const int q0 = (gridDim.x - 1 - tc::tile_rank(h, b)) * kBwdTile;
     const long long row0 = ((long long)b * H + h) * S + q0;
     drop.set_head(b * H + h);
-    tc::dq_tile<D>(reinterpret_cast<uint8_t*>(smem),
-                   q + b * q_sb + q0 * q_ss + h * q_sh, q_ss,
-                   dout + b * do_sb + q0 * do_ss + h * do_sh, do_ss,
-                   lse + row0, delta + row0, min(kBwdTile, S - q0), q0,
-                   k + b * k_sb + h * k_sh, k_ss, v + b * v_sb + h * v_sh,
-                   v_ss, S, causal != 0, scale,
-                   dq + b * dq_sb + q0 * dq_ss + h * dq_sh, dq_ss, drop);
+    tc::dq_tile<T, D>(reinterpret_cast<uint8_t*>(smem),
+                      q + b * q_sb + q0 * q_ss + h * q_sh, q_ss,
+                      dout + b * do_sb + q0 * do_ss + h * do_sh, do_ss,
+                      lse + row0, delta + row0, min(kBwdTile, S - q0), q0,
+                      k + b * k_sb + h * k_sh, k_ss, v + b * v_sb + h * v_sh,
+                      v_ss, S, causal != 0, scale,
+                      dq + b * dq_sb + q0 * dq_ss + h * dq_sh, dq_ss, drop);
   } else {
     using L = BwdLayout<D>;
     float* sq = smem;
@@ -887,8 +891,9 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  rng: NULL for no dropout, else the
-// draw's int64 [seed, offset] on the device (the forward's), with the keep
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  rng: NULL for no dropout,
+// else the draw's int64 [seed, offset] on the device (the forward's), with
+// the keep
 // threshold round(p * 2^32) and keep_scale 1 / (1 - p).  Each returns the
 // cudaError_t of the launch, or -1 for a (dtype, head_dim) pair that has no
 // instance.
@@ -898,6 +903,8 @@ extern "C" {
   if (dtype == 1 && head_dim == 64) return pt::fn<__nv_bfloat16, 64>(ARGS); \
   if (dtype == 1 && head_dim == 128)                                        \
     return pt::fn<__nv_bfloat16, 128>(ARGS);                                \
+  if (dtype == 2 && head_dim == 64) return pt::fn<__half, 64>(ARGS);       \
+  if (dtype == 2 && head_dim == 128) return pt::fn<__half, 128>(ARGS);     \
   return -1;
 
 #define PT_DKV_ARGS                                                        \

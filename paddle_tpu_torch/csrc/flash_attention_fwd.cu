@@ -15,10 +15,12 @@
 // fused [B, S, H, 3D] projection, Llama's kv split): no transpose to
 // [B*H, S, D].
 //
-// bf16 runs on tensor cores: one warpgroup per (64-query tile, head,
-// batch) runs `tc::attend_tile` (attention_wgmma.cuh): wgmma for Q K^T and
-// P V, a two-stage cp.async ring of swizzled K/V tiles, the softmax on the
-// accumulator fragment.  Rows must be 16-byte aligned (the wrapper checks).
+// bf16 and f16 run on tensor cores: one warpgroup per (64-query tile, head,
+// batch) runs `tc::attend_tile` (attention_wgmma.cuh) with the element type
+// as its template parameter: wgmma for Q K^T and P V, a two-stage cp.async
+// ring of swizzled K/V tiles, the softmax on the accumulator fragment.  As
+// in the Pallas kernel, p is rounded to the input dtype before P V.  Rows
+// must be 16-byte aligned (the wrapper checks).
 // The heaviest (last) causal query tiles are scheduled first.
 //
 // Attention dropout (`flash_fwd_dropout_kernel`, FlashAttention-2's): the
@@ -72,7 +74,7 @@ __device__ __forceinline__ void flash_fwd_block(
   drop.set_head(b * H + h);
   if constexpr (tc::kOnTensorCores<T>) {
     extern __shared__ uint8_t dyn_smem[];
-    tc::attend_tile<D>(dyn_smem, q_rows, q_ss, n_rows, q0, horizon,
+    tc::attend_tile<T, D>(dyn_smem, q_rows, q_ss, n_rows, q0, horizon,
                        causal != 0, k, v, key_at, scale, o_rows, o_ss,
                        lse_rows, drop);
   } else {
@@ -144,7 +146,8 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  rng: NULL for no dropout, else the
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  rng: NULL for no
+// dropout, else the
 // draw's int64 [seed, offset] on the device, with the keep threshold
 // round(p * 2^32) and keep_scale 1 / (1 - p).  Returns the cudaError_t of
 // the launch, or -1 for a (dtype, head_dim) pair that has no instance.
@@ -169,6 +172,10 @@ int pt_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
     return pt::launch_flash_fwd<__nv_bfloat16, 64>(PT_FLASH_ARGS);
   if (dtype == 1 && head_dim == 128)
     return pt::launch_flash_fwd<__nv_bfloat16, 128>(PT_FLASH_ARGS);
+  if (dtype == 2 && head_dim == 64)
+    return pt::launch_flash_fwd<__half, 64>(PT_FLASH_ARGS);
+  if (dtype == 2 && head_dim == 128)
+    return pt::launch_flash_fwd<__half, 128>(PT_FLASH_ARGS);
   return -1;
 }
 

@@ -402,9 +402,9 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   const int horizon = start + q0 + n_rows - 1;
   if constexpr (tc::kOnTensorCores<T>) {
     extern __shared__ uint8_t dyn_smem[];
-    tc::attend_tile<D>(dyn_smem, q_rows, q_ss, n_rows, start + q0, horizon,
-                       /*causal=*/true, k_pool, v_pool, key_at, scale,
-                       o_rows, o_ss, nullptr);
+    tc::attend_tile<T, D>(dyn_smem, q_rows, q_ss, n_rows, start + q0,
+                          horizon, /*causal=*/true, k_pool, v_pool, key_at,
+                          scale, o_rows, o_ss, nullptr);
   } else {
     __shared__ TileSmem<D> sm;
     attend_tile<T, D>(sm, q_rows, q_ss, n_rows, start + q0, horizon,

@@ -13,7 +13,11 @@ first tensor argument's device.  The region's draws run on a copy of that
 snapshot, made anew each time the region runs, so its forward and its
 recomputation take the same offsets; the generator then moves past the
 draws the region made.  The offsets equal those of the same forward
-without recompute, so recompute on and off draw identical masks.
+without recompute, so recompute on and off draw identical masks.  In the
+same way the region runs under the AMP policy (:mod:`...amp.auto_cast`)
+it was entered with, also when the backward recomputes it (outside the
+``auto_cast`` block, perhaps on another thread), so the recomputed
+activations have the dtypes the forward saved.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 import torch.utils.checkpoint
 
 from ... import rng as rng_mod
+from ...amp.auto_cast import _policy, amp_state
 
 __all__ = ["recompute"]
 
@@ -37,13 +42,15 @@ def recompute(function, *args, preserve_rng_state: bool = True,
         raise ValueError("recompute: the region needs a tensor argument")
     gen = rng_mod.default_generator(tensors[0].device)
     base = gen.get_state()
+    policy = amp_state()
     draws = []
 
     def region(base_state, *a):
         outer = gen.swap_state(base_state.clone())
         before = gen.draws
         try:
-            out = function(*a, **kwargs)
+            with _policy(policy):
+                out = function(*a, **kwargs)
         finally:
             draws.append(gen.draws - before)
             gen.draws = before

@@ -14,6 +14,7 @@ from typing import Optional, Sequence, Union
 import torch
 
 from .. import rng as rng_mod
+from ..amp.auto_cast import amp_op
 
 __all__ = ["dropout"]
 
@@ -40,6 +41,11 @@ def dropout(x: torch.Tensor, p: float = 0.5,
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)
         return x
+    return _dropout(x, p, axis, mode, generator)
+
+
+@amp_op("dropout")
+def _dropout(x, p, axis, mode, generator):
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     if p == 1.0:
         return torch.where(torch.zeros((), dtype=torch.bool,

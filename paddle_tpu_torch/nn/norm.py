@@ -18,9 +18,12 @@ from typing import Sequence, Union
 import torch
 from torch import nn
 
+from ..amp.auto_cast import amp_op
+
 __all__ = ["rms_norm", "RMSNorm", "layer_norm", "LayerNorm"]
 
 
+@amp_op("rms_norm")
 def rms_norm(x: torch.Tensor, weight: torch.Tensor = None,
              epsilon: float = 1e-6) -> torch.Tensor:
     xf = x.float()
@@ -43,6 +46,7 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.weight, self.epsilon)
 
 
+@amp_op("layer_norm")
 def layer_norm(x: torch.Tensor, normalized_shape: Union[int, Sequence[int]],
                weight: torch.Tensor = None, bias: torch.Tensor = None,
                epsilon: float = 1e-5) -> torch.Tensor:

@@ -9,11 +9,18 @@ Port of ``_sdpa_reference`` and ``flash_attention`` from
 (``csrc/flash_attention_bwd.cu``), tied together by one
 ``torch.autograd.Function`` as ``_flash`` ties the Pallas kernels.  On CPU
 tensors, or with ``kernel="reference"``, the same Function runs the plain
-versions: :func:`_sdpa_reference` and the whole-sequence rewrites of
+versions: :func:`_flash_fwd_reference` and the whole-sequence rewrites of
 ``_p_ds`` (:func:`_flash_bwd_dkv_reference`,
-:func:`_flash_bwd_dq_reference`).
+:func:`_flash_bwd_dq_reference`).  The kernels and their plain versions
+take f32, bf16 and f16, and round where the Pallas kernels round: p to
+the input dtype before P V (K1) and before P^T dO (K2), ds before ds^T Q
+(K2) and ds K (K3), each product summed in f32.
 
-The kernel path takes causal or full self-attention with no mask.
+The kernel path takes causal or full self-attention with no mask.  A call
+with ``attn_mask`` takes the JAX package's own route for it, the XLA
+oracle (``paddle_tpu/ops/pallas/__init__.py:35-57, 94-109``), in plain
+torch ops on every device: :func:`_sdpa_reference` with the mask, its
+gradients by autograd.
 Attention dropout (``dropout_p > 0`` in training; the JAX package runs it
 on its XLA oracle only, ``paddle_tpu/ops/pallas/__init__.py:35-110``) runs
 the dropout instances of K1-K3 on the card: each call draws one
@@ -32,6 +39,7 @@ import torch
 from typing import Optional
 
 from .. import rng as rng_mod
+from ..amp.auto_cast import amp_op
 from . import kernels
 from .cached_attention import NEG_INF
 
@@ -51,21 +59,18 @@ def _dropout_factor(rng: torch.Tensor, B: int, H: int, Sq: int, Sk: int,
 def _sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     is_causal: bool, return_lse: bool = False,
                     dropout_p: float = 0.0,
-                    rng: Optional[torch.Tensor] = None):
+                    rng: Optional[torch.Tensor] = None,
+                    mask: Optional[torch.Tensor] = None):
     """Plain attention over ``[B, S, H, D]`` in f32, output in q's dtype.
-    The causal mask is ``tril(k=Sk-Sq)`` as in the JAX oracle.  With
-    ``return_lse`` also returns the ``[B*H, Sq]`` f32 logsumexp rows the
-    flash kernel emits (undropped).  ``dropout_p > 0`` multiplies the
-    probabilities by :func:`_dropout_factor` of the draw ``rng``."""
+    The causal mask is ``tril(k=Sk-Sq)`` as in the JAX oracle; ``mask``
+    (broadcast to ``[B, H, Sq, Sk]``) then fills ``-1e30`` where a bool
+    mask is False, or is added in f32.  With ``return_lse`` also returns
+    the ``[B*H, Sq]`` f32 logsumexp rows the flash kernel emits
+    (undropped).  ``dropout_p > 0`` multiplies the probabilities by
+    :func:`_dropout_factor` of the draw ``rng``."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-        * (1.0 / D ** 0.5)
-    if is_causal:
-        causal = torch.ones((Sq, Sk), dtype=torch.bool,
-                            device=q.device).tril(diagonal=Sk - Sq)
-        logits = torch.where(causal, logits, torch.full_like(logits,
-                                                             NEG_INF))
+    logits = _logits(q, k, is_causal, mask)
     probs = torch.softmax(logits, dim=-1)
     if dropout_p > 0.0:
         probs = probs * _dropout_factor(rng, B, H, Sq, Sk, dropout_p)
@@ -73,6 +78,50 @@ def _sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if return_lse:
         return out, torch.logsumexp(logits, dim=-1).reshape(B * H, Sq)
     return out
+
+
+def _logits(q, k, is_causal: bool, mask: Optional[torch.Tensor] = None):
+    """``[B, H, Sq, Sk]`` f32 scores ``q k^T / sqrt(D)``, causal-filled,
+    then masked (see :func:`_sdpa_reference`)."""
+    Sq, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * (1.0 / D ** 0.5)
+    if is_causal:
+        causal = torch.ones((Sq, Sk), dtype=torch.bool,
+                            device=q.device).tril(diagonal=Sk - Sq)
+        logits = torch.where(causal, logits, torch.full_like(logits,
+                                                             NEG_INF))
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            logits = torch.where(mask, logits, torch.full_like(logits,
+                                                               NEG_INF))
+        else:
+            logits = logits + mask.float()
+    return logits
+
+
+def _flash_fwd_reference(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, causal: bool,
+                         dropout_p: float = 0.0,
+                         rng: Optional[torch.Tensor] = None):
+    """K1's plain version: ``(o, lse)`` as :func:`_sdpa_reference` with
+    ``return_lse``.  For bf16 and f16 inputs it rounds where the Pallas
+    kernel rounds: the probabilities ``p = exp(s - max)`` (times the
+    dropout factors) to v's dtype before ``P V``, the product summed in
+    f32 and divided by the f32 sum of the unrounded p.  In f32 that
+    rounding is the identity and the function is ``_sdpa_reference``."""
+    if v.dtype == torch.float32:
+        return _sdpa_reference(q, k, v, causal, True, dropout_p, rng)
+    B, Sq, H, _ = q.shape
+    logits = _logits(q, k, causal)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if dropout_p > 0.0:
+        p = p * _dropout_factor(rng, B, H, Sq, k.shape[1], dropout_p)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    out = (pv / l.transpose(1, 2)).to(q.dtype)
+    return out, (m + torch.log(l)).reshape(B * H, Sq)
 
 
 def _p_ds(q, k, v, do, lse, delta, causal: bool, z=None):
@@ -147,7 +196,7 @@ class _FlashAttention(torch.autograd.Function):
         if _use_kernel(q, kernel):
             o, lse = kernels.flash_fwd(q, k, v, causal, dropout_p, rng)
         else:
-            o, lse = _sdpa_reference(q, k, v, causal, True, dropout_p, rng)
+            o, lse = _flash_fwd_reference(q, k, v, causal, dropout_p, rng)
         ctx.save_for_backward(q, k, v, o, lse, rng)
         ctx.causal, ctx.kernel, ctx.dropout_p = causal, kernel, dropout_p
         return o
@@ -177,6 +226,7 @@ def supports(q_shape, k_shape) -> bool:
             and q_shape[-1] in kernels.HEAD_DIMS)
 
 
+@amp_op("flash_attention")
 def flash_attention(query: torch.Tensor, key: torch.Tensor,
                     value: torch.Tensor, is_causal: bool = False,
                     dropout_p: float = 0.0, kernel: str = "cuda",
@@ -193,10 +243,11 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
     (default: the query's device's) feeds the dropout instances of the
     kernels (or the plain versions).  When no input requires a gradient,
     or under ``torch.no_grad()``, nothing is saved for a backward.
-    ``attn_mask`` is not ported (ROADMAP.md A.6): a mask raises."""
-    if attn_mask is not None:
-        raise NotImplementedError(
-            "flash_attention: attn_mask is not ported (ROADMAP.md A.6)")
+    ``attn_mask`` (bool: False drops a score; float: added to the scores;
+    broadcast to ``[B, H, Sq, Sk]``) takes the JAX package's route for a
+    mask, the plain :func:`_sdpa_reference` with autograd, on every
+    device, and so may have ``Sk != Sq``.  Under :func:`..amp.auto_cast`
+    the call is the white-listed op ``"flash_attention"``."""
     if kernel not in _KERNEL_CHOICES:
         raise ValueError(f"kernel must be one of {_KERNEL_CHOICES}, got "
                          f"{kernel!r}")
@@ -205,6 +256,9 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
     rng = None
     if p > 0.0:
         rng = (generator or rng_mod.default_generator(query.device)).draw()
+    if attn_mask is not None:
+        return _sdpa_reference(query, key, value, is_causal, False, p, rng,
+                               attn_mask)
     if _use_kernel(query, kernel) and not supports(tuple(query.shape),
                                                    tuple(key.shape)):
         raise ValueError(
@@ -217,4 +271,4 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
                                      rng)
     if _use_kernel(query, kernel):
         return kernels.flash_fwd(query, key, value, is_causal, p, rng)[0]
-    return _sdpa_reference(query, key, value, is_causal, False, p, rng)
+    return _flash_fwd_reference(query, key, value, is_causal, p, rng)[0]

@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from ..amp.auto_cast import amp_op
+
 __all__ = ["fused_linear_cross_entropy"]
 
 DEFAULT_BLOCK = 2048
@@ -84,6 +86,7 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
         return dh.to(h.dtype), dw, None, None, None
 
 
+@amp_op("fused_linear_cross_entropy")
 def fused_linear_cross_entropy(hidden: torch.Tensor, weight: torch.Tensor,
                                label: torch.Tensor,
                                loss_mask: Optional[torch.Tensor] = None,
@@ -99,8 +102,12 @@ def fused_linear_cross_entropy(hidden: torch.Tensor, weight: torch.Tensor,
     ``transpose_weight=True``; ``label`` ``[...]`` ints, where
     ``ignore_index`` positions add no loss and no gradient;
     ``loss_mask`` ``[...]`` multiplies the per-token losses.  The products
-    run in hidden's dtype when it is bf16 or f16, else in f32.  Returns
-    the f32 mean over the valid (or mask-weighted) positions."""
+    run in hidden's dtype when it is bf16 or f16, else in f32: under
+    :func:`..amp.auto_cast` O1 the op is gray, so bf16 or f16 hidden
+    states and the f32 tied embedding arrive as they are and the weight is
+    cast to the hidden states' dtype here, as the JAX ``_primal`` does
+    (``paddle_tpu/ops/fused.py:155``).  Returns the f32 mean over the
+    valid (or mask-weighted) positions."""
     w = weight.t() if transpose_weight else weight
     N = label.numel()
     cdt = hidden.dtype if hidden.dtype in (torch.bfloat16, torch.float16) \

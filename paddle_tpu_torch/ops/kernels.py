@@ -13,7 +13,9 @@ kernel and its plain PyTorch version is made one level up, by the device
 of the tensors (``ops.cached_attention``, ``ops.attention``).  Each
 wrapper counts its launches in :data:`KERNELS`, so a run can show that it
 went through the kernel; K1-K3 with attention dropout launch their
-dropout instances and count them under ``<name>_dropout``.
+dropout instances and count them under ``<name>_dropout``, and K1-K3 on
+float16 tensors count their f16 instances under ``<name>_f16`` (and
+``<name>_dropout_f16``).  K4 and K5 take float32 and bfloat16 only.
 
 The wrappers can be captured into a CUDA graph (``serving.programs``):
 they read nothing back from the device, allocate their outputs and
@@ -62,7 +64,12 @@ DECODE_SPLIT_KEYS = 512
 #: K4's grid holds about this many blocks at most (slots x kv heads x
 #: grid_splits); past it each block walks several splits
 DECODE_GRID_BLOCKS = 2048
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the dtypes of K4/K5 (paged) and of K1-K3 (flash)
+PAGED_DTYPES = (torch.float32, torch.bfloat16)
+FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+#: the dtypes whose instances run on tensor cores and copy 16-byte rows
+_TC_DTYPES = (torch.bfloat16, torch.float16)
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -133,6 +140,12 @@ KERNELS: Dict[str, KernelInfo] = {
         "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "paddle_tpu/ops/pallas/flash_attention_kernel.py:210"),
 }
+# the float16 instances of K1-K3, p == 0 and dropout alike (the Pallas
+# kernels are dtype-generic; they replace the same functions)
+for _name in [n for n in KERNELS if n.startswith("flash_")]:
+    KERNELS[_name + "_f16"] = KernelInfo(
+        _name + "_f16", KERNELS[_name].source, KERNELS[_name].replaces)
+del _name
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -232,14 +245,15 @@ def _require(cond: bool, what: str, msg: str) -> None:
         raise ValueError(f"{what}: {msg}")
 
 
-def _check_common(what: str, q: torch.Tensor, *others: torch.Tensor) -> int:
+def _check_common(what: str, q: torch.Tensor, *others: torch.Tensor,
+                  dtypes=PAGED_DTYPES) -> int:
     _require(q.is_cuda, what, f"the kernel takes CUDA tensors, got "
              f"{q.device}")
     for t in others:
         _require(t.device == q.device, what,
                  f"tensors on {q.device} and {t.device}")
-    _require(q.dtype in _DTYPE_CODE, what,
-             f"dtype {q.dtype} (want float32 or bfloat16)")
+    _require(q.dtype in dtypes, what,
+             f"dtype {q.dtype} (want one of {dtypes})")
     D = q.shape[-1]
     _require(D in HEAD_DIMS, what, f"head_dim {D} (want one of "
              f"{HEAD_DIMS})")
@@ -277,10 +291,10 @@ def _check_pool(what: str, q, k_pool, v_pool, D: int):
 
 
 def _check_rows16(what: str, *tensors: torch.Tensor,
-                  dtypes=(torch.bfloat16,)) -> None:
-    """The bf16 tensor-core kernels (K1, K5, K2, K3), and K4 in both
-    dtypes, copy rows in 16-byte pieces: every row of each operand of a
-    dtype in ``dtypes`` must start 16-byte aligned."""
+                  dtypes=_TC_DTYPES) -> None:
+    """The 16-bit tensor-core kernels (K1, K5, K2, K3), and K4 in both
+    its dtypes, copy rows in 16-byte pieces: every row of each operand of
+    a dtype in ``dtypes`` must start 16-byte aligned."""
     for t in tensors:
         if t.dtype not in dtypes:
             continue
@@ -388,7 +402,7 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     _check_index(what, lengths, 1, "lengths")
     _require(block_tables.shape[0] == B and lengths.shape[0] == B, what,
              "block_tables/lengths batch != q batch")
-    _check_rows16(what, q, k_pool, v_pool, dtypes=tuple(_DTYPE_CODE))
+    _check_rows16(what, q, k_pool, v_pool, dtypes=PAGED_DTYPES)
     bs, MB = k_pool.shape[1], block_tables.shape[1]
     plan = decode_plan(B, H, Hkv, D, MB, bs)
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
@@ -458,9 +472,10 @@ def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 def _check_dense(what: str, q: torch.Tensor, *others: torch.Tensor) -> int:
-    """Equal ``[B, S, H, D]`` tensors of one dtype, head dims contiguous
-    (any other strides are read as they are)."""
-    D = _check_common(what, q, *others)
+    """Equal ``[B, S, H, D]`` tensors of one dtype of
+    :data:`FLASH_DTYPES`, head dims contiguous (any other strides are read
+    as they are)."""
+    D = _check_common(what, q, *others, dtypes=FLASH_DTYPES)
     _require(q.dim() == 4 and all(t.shape == q.shape for t in others), what,
              f"shapes {[tuple(t.shape) for t in (q, *others)]} (want equal "
              f"[B, S, H, D])")
@@ -480,6 +495,12 @@ def _check_rows(what: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
                  f"lse/delta must be contiguous float32 [B*H, S] = "
                  f"[{B * H}, {S}] on {q.device}, got {t.dtype} "
                  f"{tuple(t.shape)}")
+
+
+def _instance(q: torch.Tensor, suffix: str) -> str:
+    """The count a K1-K3 launch adds to: ``suffix`` (the dropout's), then
+    ``_f16`` for a float16 instance."""
+    return suffix + ("_f16" if q.dtype == torch.float16 else "")
 
 
 def _dropout_args(what: str, q: torch.Tensor, dropout_p: float,
@@ -509,9 +530,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``o`` ``[B, S, H, D]`` in the input dtype, ``lse`` ``[B*H, S]`` f32
     (of the undropped probabilities).  ``dropout_p > 0`` launches the
     dropout instance, which reads the draw ``rng`` (:func:`_dropout_args`)
-    and counts as ``flash_fwd_dropout``.  bf16 runs on tensor cores and
-    needs 16-byte aligned rows (:func:`_check_rows16`); f32 runs the
-    CUDA-core loop."""
+    and counts as ``flash_fwd_dropout``.  bf16 and f16 run on tensor cores
+    (p rounded to the input dtype before P V) and need 16-byte aligned
+    rows (:func:`_check_rows16`); f32 runs the CUDA-core loop.  A float16
+    launch counts as ``flash_fwd_f16`` (``flash_fwd_dropout_f16``)."""
     what = "flash_fwd"
     D = _check_dense(what, q, k, v)
     _check_rows16(what, q, k, v)
@@ -526,7 +548,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         1.0 / D ** 0.5, *drop, _stream(q))
     _raise_on(rc, lib, "pt_flash_error_string", what)
-    KERNELS["flash_fwd" + suffix].launches += 1
+    KERNELS["flash_fwd" + _instance(q, suffix)].launches += 1
     return o, lse
 
 
@@ -539,9 +561,11 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lse`` (K1's) and ``delta = rowsum(do * o)`` contiguous f32
     ``[B*H, S]``.  Returns ``(dk, dv)``, contiguous ``[B, S, H, D]`` in
     the input dtype.  ``dropout_p``/``rng``: the forward's (the dropout
-    instance, counted as ``flash_bwd_dkv_dropout``).  bf16 runs on tensor
-    cores and needs 16-byte aligned rows (:func:`_check_rows16`); f32 runs
-    the CUDA-core loop."""
+    instance, counted as ``flash_bwd_dkv_dropout``).  bf16 and f16 run on
+    tensor cores and need 16-byte aligned rows (:func:`_check_rows16`); f32
+    runs the CUDA-core loop.  In f16 a ds past the dtype's range rounds to
+    inf, as in the Pallas kernel, so an overflow under a loss scale reaches
+    the gradients.  A float16 launch counts under ``..._f16``."""
     what = "flash_bwd_dkv"
     D = _check_dense(what, q, k, v, do)
     _check_rows16(what, q, k, v, do)
@@ -558,7 +582,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *[s for t in (q, k, v, do, dk, dv) for s in t.stride()[:3]],
         1.0 / D ** 0.5, *drop, _stream(q))
     _raise_on(rc, lib, "pt_flash_bwd_error_string", what)
-    KERNELS["flash_bwd_dkv" + suffix].launches += 1
+    KERNELS["flash_bwd_dkv" + _instance(q, suffix)].launches += 1
     return dk, dv
 
 
@@ -568,8 +592,9 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  rng: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3: dQ of flash attention; arguments as :func:`flash_bwd_dkv`
     (dropout counted as ``flash_bwd_dq_dropout``).  Returns ``dq``,
-    contiguous ``[B, S, H, D]`` in the input dtype; bf16 needs 16-byte
-    aligned rows, as there."""
+    contiguous ``[B, S, H, D]`` in the input dtype; bf16 and f16 need
+    16-byte aligned rows, as there (a float16 launch counts under
+    ``..._f16``)."""
     what = "flash_bwd_dq"
     D = _check_dense(what, q, k, v, do)
     _check_rows16(what, q, k, v, do)
@@ -585,5 +610,5 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *[s for t in (q, k, v, do, dq) for s in t.stride()[:3]],
         1.0 / D ** 0.5, *drop, _stream(q))
     _raise_on(rc, lib, "pt_flash_bwd_error_string", what)
-    KERNELS["flash_bwd_dq" + suffix].launches += 1
+    KERNELS["flash_bwd_dq" + _instance(q, suffix)].launches += 1
     return dq

@@ -1,7 +1,12 @@
 """Optimizers and learning-rate schedulers of the port
-(``paddle_tpu/optimizer``): :class:`Optimizer`, :class:`SGD`,
-:class:`Adam`, :class:`AdamW` and :mod:`.lr`."""
+(``paddle_tpu/optimizer``): :class:`Optimizer` and its ten classes, and
+:mod:`.lr`."""
 from . import lr
-from .optimizer import SGD, Adam, AdamW, Optimizer
+from .optimizer import (
+    SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb, Lars,
+    LarsMomentumOptimizer, Momentum, Optimizer, RMSProp,
+)
 
-__all__ = ["Adam", "AdamW", "Optimizer", "SGD", "lr"]
+__all__ = ["Adadelta", "Adagrad", "Adam", "Adamax", "AdamW", "Lamb", "Lars",
+           "LarsMomentumOptimizer", "Momentum", "Optimizer", "RMSProp", "SGD",
+           "lr"]

@@ -1,8 +1,12 @@
-"""Optimizers with Paddle's semantics: SGD, Adam and AdamW, f32 masters.
+"""Optimizers with Paddle's semantics, f32 masters.
 
-Port of ``paddle_tpu/optimizer/optimizer.py`` ``Optimizer`` (:23-375),
-``SGD`` (:379), ``Adam`` and ``AdamW`` (:415-485) and its master weights
-(:263-288), as ``torch.optim.Optimizer`` subclasses.  What the base adds:
+Port of ``paddle_tpu/optimizer/optimizer.py``: the ``Optimizer`` base
+(:23-375) with its master weights (:263-288) and parameter groups
+(:27-60), and all ten classes: ``SGD`` (:379), ``Momentum`` (:391),
+``Adam`` and ``AdamW`` (:415-485), ``Adamax`` (:488), ``Adagrad`` (:511),
+``RMSProp`` (:532), ``Adadelta`` (:559), ``Lars`` (:580, alias
+``LarsMomentumOptimizer``) and ``Lamb`` (:632), as
+``torch.optim.Optimizer`` subclasses.  What the base adds:
 
 - ``lr`` is a float or an :class:`~.lr.LRScheduler`.  Under a scheduler
   every update reads the rate from the scheduler's f32 scalar on the
@@ -14,7 +18,21 @@ Port of ``paddle_tpu/optimizer/optimizer.py`` ``Optimizer`` (:23-375),
 - ``grad_clip`` (:mod:`..nn.clip`) maps the ``(parameter, gradient)``
   pairs before the update (``optimizer.py:200-201``).
 - ``get_lr``, ``clear_grad`` and a ``state_dict`` that carries the
-  scheduler's under ``"@lr_scheduler"`` (:312, :357).
+  scheduler's under ``"@lr_scheduler"`` (:312, :357); loading one keeps
+  each state tensor's own dtype (an f32 master of a bf16 parameter stays
+  f32) and writes in place where the tensor exists, so a captured step
+  reads the restored values.
+- parameter groups as Paddle defines them: ``params`` may be a list of
+  dicts, each with a ``"params"`` list; a group's ``learning_rate``
+  multiplies the global rate (in f32), and ``weight_decay``, ``beta1``,
+  ``beta2``, ``epsilon`` and ``momentum`` override the optimizer's for
+  that group.  A dict without ``"params"`` raises, and so does a
+  parameter in two groups.
+- a loss scaler's overflow gate: while :class:`..amp.GradScaler` runs a
+  step, every write of a parameter, master or accumulator goes through
+  ``torch.where(found_inf, old, new)`` (:meth:`Optimizer._write`), so an
+  overflowing step leaves the state exactly as it was, an accumulator
+  born in it at its initial value, with no host read.
 - a bf16 or f16 parameter gets an f32 master copy, made from its value at
   its first step.  Gradients are widened to f32 and all update math is in
   f32; the parameter receives the master rounded to its dtype.  Without
@@ -35,13 +53,16 @@ be zeroed at every replay, so that raises.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Union
+from typing import Callable, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+           "Adagrad", "RMSProp", "Adadelta", "Lars", "LarsMomentumOptimizer",
+           "Lamb"]
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -63,19 +84,45 @@ def _capturing(p: torch.Tensor) -> bool:
 class Optimizer(torch.optim.Optimizer):
     """The base: ``params`` are tensors, or ``(name, tensor)`` pairs such
     as ``model.named_parameters()`` (the names are what
-    ``apply_decay_param_fun`` is given); ``defaults`` go to every group."""
+    ``apply_decay_param_fun`` and Lars's ``exclude_from_weight_decay``
+    are given), or a list of group dicts (see the module); ``defaults``
+    go to every group."""
 
     def __init__(self, params, lr: LearningRate, defaults: dict,
                  grad_clip=None):
         params = list(params)
         self._names = {}
-        if params and isinstance(params[0], tuple):
-            self._names = {id(p): n for n, p in params}
-            params = [p for _, p in params]
-        super().__init__(params, defaults)
+        if params and isinstance(params[0], dict):
+            groups = []
+            for group in params:
+                if "params" not in group:
+                    raise ValueError(
+                        "each optimizer parameter group dict needs a "
+                        f"'params' key; got keys {sorted(group)}")
+                g = dict(group)
+                ps = g["params"]
+                g["params"] = self._unname(
+                    [ps] if isinstance(ps, torch.Tensor) else list(ps))
+                groups.append(g)
+            params = groups
+        else:
+            params = self._unname(params)
+        super().__init__(params, {"learning_rate": 1.0, **defaults})
         self._learning_rate = lr
         self._grad_clip = grad_clip
         self._captured = False
+        self._found_inf: Optional[torch.Tensor] = None
+
+    def _unname(self, params: list) -> list:
+        """Tensors of ``params``, recording the names of ``(name, tensor)``
+        pairs."""
+        if params and isinstance(params[0], tuple):
+            self._names.update({id(p): n for n, p in params})
+            return [p for _, p in params]
+        return params
+
+    def _name(self, p: torch.Tensor) -> str:
+        return self._names.get(id(p), "")
 
     # -- lr ------------------------------------------------------------------
 
@@ -97,12 +144,15 @@ class Optimizer(torch.optim.Optimizer):
                 "compiled step")
         self._learning_rate = float(value)
 
-    def _lr(self, p: torch.Tensor):
+    def _lr(self, p: torch.Tensor, group: dict):
         """The rate of ``p``'s update: the scheduler's device scalar, or
-        the float."""
+        the float, times the group's ``learning_rate`` factor in f32."""
+        factor = group["learning_rate"]
         if isinstance(self._learning_rate, LRScheduler):
-            return self._learning_rate._lr_tensor(p.device)
-        return float(self._learning_rate)
+            lr = self._learning_rate._lr_tensor(p.device)
+            return lr if factor == 1.0 else lr * np.float32(factor)
+        lr = np.float32(self._learning_rate)
+        return float(lr if factor == 1.0 else lr * np.float32(factor))
 
     # -- state ---------------------------------------------------------------
 
@@ -132,12 +182,29 @@ class Optimizer(torch.optim.Optimizer):
         master = st.get("master_weight")
         return master if master is not None else p.float()
 
-    @staticmethod
-    def _apply(p: torch.Tensor, st: dict, new32: torch.Tensor) -> None:
+    def _write(self, t: torch.Tensor, new) -> None:
+        """``t <- new`` in place; while a loss scaler found an overflow in
+        this step (``_found_inf``, a device bool), ``t`` keeps its value."""
+        if self._found_inf is not None:
+            new = torch.where(self._found_inf, t, new)
+        t.copy_(new)
+
+    def _apply(self, p: torch.Tensor, st: dict, new32: torch.Tensor) -> None:
+        """The parameter's new f32 value: into its master, if it has one,
+        and rounded into the parameter."""
         master = st.get("master_weight")
         if master is not None:
-            master.copy_(new32)
-        p.copy_(new32)
+            self._write(master, new32)
+        self._write(p, new32)
+
+    def _decayed(self, p: torch.Tensor, g32: torch.Tensor,
+                 group: dict) -> torch.Tensor:
+        """The gradient with the group's L2 weight decay folded in
+        (``_decayed_grad``, the SGD/Momentum/Adam family's coupled
+        decay)."""
+        if group["weight_decay"]:
+            return g32 + group["weight_decay"] * p.float()
+        return g32
 
     # -- step ----------------------------------------------------------------
 
@@ -184,7 +251,24 @@ class Optimizer(torch.optim.Optimizer):
     def load_state_dict(self, state_dict: dict) -> None:
         state_dict = dict(state_dict)
         sched = state_dict.pop("@lr_scheduler", None)
+        params = [p for g in self.param_groups for p in g["params"]]
+        live = {i: self.state.get(p, {}) for i, p in enumerate(params)}
         super().load_state_dict(state_dict)
+        # torch casts every float state tensor to its parameter's dtype;
+        # the port's keep their own (f32 masters and moments of bf16
+        # parameters), and existing ones are written in place
+        for i, st in state_dict["state"].items():
+            p = params[i]
+            for key, v in st.items():
+                if not isinstance(v, torch.Tensor):
+                    continue
+                old = live[i].get(key)
+                if old is not None and old.shape == v.shape \
+                        and old.dtype == v.dtype:
+                    old.copy_(v)
+                    self.state[p][key] = old
+                else:
+                    self.state[p][key] = v.to(p.device, copy=True)
         if sched is not None and isinstance(self._learning_rate,
                                             LRScheduler):
             self._learning_rate.set_state_dict(sched)
@@ -203,9 +287,38 @@ class SGD(Optimizer):
 
     def _update(self, p, g32, group):
         st = self._state(p)
-        if group["weight_decay"]:
-            g32 = g32 + group["weight_decay"] * p.float()
-        self._apply(p, st, self._param32(p, st) - self._lr(p) * g32)
+        g32 = self._decayed(p, g32, group)
+        self._apply(p, st, self._param32(p, st) - self._lr(p, group) * g32)
+
+
+class Momentum(Optimizer):
+    """``Momentum(params, lr=1e-3, momentum=0.9, use_nesterov=False,
+    weight_decay=None, grad_clip=None)``: ``v = momentum * v + g`` (g with
+    the L2 decay), ``p -= lr * v`` (Nesterov: ``lr * (g + momentum *
+    v)``); the velocity is f32."""
+
+    def __init__(self, params, lr: LearningRate = 1e-3,
+                 momentum: float = 0.9, use_nesterov: bool = False,
+                 weight_decay: Optional[float] = None, grad_clip=None):
+        super().__init__(params, lr, dict(momentum=momentum,
+                                          weight_decay=weight_decay or 0.0),
+                         grad_clip)
+        self.use_nesterov = use_nesterov
+
+    _ACCUMULATORS = ("velocity",)
+
+    def _make_state(self, p):
+        return {"velocity": torch.zeros(p.shape, dtype=torch.float32,
+                                        device=p.device)}
+
+    def _update(self, p, g32, group):
+        st = self._state(p)
+        g32 = self._decayed(p, g32, group)
+        mu = group["momentum"]
+        v = mu * st["velocity"] + g32
+        self._write(st["velocity"], v)
+        upd = g32 + mu * v if self.use_nesterov else v
+        self._apply(p, st, self._param32(p, st) - self._lr(p, group) * upd)
 
 
 class Adam(Optimizer):
@@ -233,21 +346,20 @@ class Adam(Optimizer):
                 "beta2_pow": torch.ones((), **f32)}
 
     def _update(self, p, g32, group):
-        if group["weight_decay"]:
-            g32 = g32 + group["weight_decay"] * p.float()
-        self._adam(p, g32, group, 0.0)
+        self._adam(p, self._decayed(p, g32, group), group, 0.0)
 
     def _adam(self, p, g32, group, decoupled_wd: float) -> None:
         st = self._state(p)
-        lr, b1, b2 = self._lr(p), group["beta1"], group["beta2"]
+        lr, b1, b2 = self._lr(p, group), group["beta1"], group["beta2"]
         m = st["moment1"].float() * b1 + (1 - b1) * g32
         v = st["moment2"].float() * b2 + (1 - b2) * g32.square()
-        st["beta1_pow"].mul_(b1)
-        st["beta2_pow"].mul_(b2)
-        st["moment1"].copy_(m)
-        st["moment2"].copy_(v)
-        m_hat = m / (1.0 - st["beta1_pow"])
-        v_hat = v / (1.0 - st["beta2_pow"])
+        b1p, b2p = st["beta1_pow"] * b1, st["beta2_pow"] * b2
+        self._write(st["beta1_pow"], b1p)
+        self._write(st["beta2_pow"], b2p)
+        self._write(st["moment1"], m)
+        self._write(st["moment2"], v)
+        m_hat = m / (1.0 - b1p)
+        v_hat = v / (1.0 - b2p)
         p32 = self._param32(p, st)
         if decoupled_wd:
             p32 = p32 * (1.0 - lr * decoupled_wd)
@@ -279,3 +391,257 @@ class AdamW(Adam):
                 not self.apply_decay_param_fun(self._names[id(p)]):
             wd = 0.0
         self._adam(p, g32, group, wd)
+
+
+def _f32_zeros(p: torch.Tensor, init: float = 0.0) -> torch.Tensor:
+    return torch.full(p.shape, init, dtype=torch.float32, device=p.device)
+
+
+def _f32_one(p: torch.Tensor) -> torch.Tensor:
+    return torch.ones((), dtype=torch.float32, device=p.device)
+
+
+class Adamax(Optimizer):
+    """``Adamax(params, lr=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8,
+    weight_decay=None, grad_clip=None)``: ``u = max(beta2 * u, |g|)``,
+    ``p -= lr / (1 - beta1_pow) * m / (u + epsilon)``."""
+
+    def __init__(self, params, lr: LearningRate = 1e-3, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8,
+                 weight_decay: Optional[float] = None, grad_clip=None):
+        super().__init__(params, lr, dict(beta1=beta1, beta2=beta2,
+                                          epsilon=epsilon,
+                                          weight_decay=weight_decay or 0.0),
+                         grad_clip)
+
+    _ACCUMULATORS = ("moment", "inf_norm", "beta1_pow")
+
+    def _make_state(self, p):
+        return {"moment": _f32_zeros(p), "inf_norm": _f32_zeros(p),
+                "beta1_pow": _f32_one(p)}
+
+    def _update(self, p, g32, group):
+        st = self._state(p)
+        g32 = self._decayed(p, g32, group)
+        b1, b2 = group["beta1"], group["beta2"]
+        m = b1 * st["moment"] + (1 - b1) * g32
+        u = torch.maximum(b2 * st["inf_norm"], g32.abs())
+        b1p = st["beta1_pow"] * b1
+        self._write(st["moment"], m)
+        self._write(st["inf_norm"], u)
+        self._write(st["beta1_pow"], b1p)
+        self._apply(p, st, self._param32(p, st) - self._lr(p, group)
+                    / (1 - b1p) * m / (u + group["epsilon"]))
+
+
+class Adagrad(Optimizer):
+    """``Adagrad(params, lr, epsilon=1e-6, weight_decay=None,
+    grad_clip=None, initial_accumulator_value=0.0)``: ``acc += g^2``,
+    ``p -= lr * g / (sqrt(acc) + epsilon)``."""
+
+    def __init__(self, params, lr: LearningRate, epsilon: float = 1e-6,
+                 weight_decay: Optional[float] = None, grad_clip=None,
+                 initial_accumulator_value: float = 0.0):
+        super().__init__(params, lr, dict(epsilon=epsilon,
+                                          weight_decay=weight_decay or 0.0),
+                         grad_clip)
+        self.initial_accumulator_value = float(initial_accumulator_value)
+
+    _ACCUMULATORS = ("moment",)
+
+    def _make_state(self, p):
+        return {"moment": _f32_zeros(p, self.initial_accumulator_value)}
+
+    def _update(self, p, g32, group):
+        st = self._state(p)
+        g32 = self._decayed(p, g32, group)
+        acc = st["moment"] + g32.square()
+        self._write(st["moment"], acc)
+        self._apply(p, st, self._param32(p, st) - self._lr(p, group) * g32
+                    / (acc.sqrt() + group["epsilon"]))
+
+
+class RMSProp(Optimizer):
+    """``RMSProp(params, lr, rho=0.95, epsilon=1e-6, momentum=0.0,
+    centered=False, weight_decay=None, grad_clip=None)``: ``ms = rho * ms
+    + (1 - rho) g^2`` (centered: minus the square of the running mean
+    gradient), ``mom = momentum * mom + lr * g / sqrt(ms + epsilon)``,
+    ``p -= mom``."""
+
+    def __init__(self, params, lr: LearningRate, rho: float = 0.95,
+                 epsilon: float = 1e-6, momentum: float = 0.0,
+                 centered: bool = False,
+                 weight_decay: Optional[float] = None, grad_clip=None):
+        super().__init__(params, lr, dict(epsilon=epsilon, momentum=momentum,
+                                          weight_decay=weight_decay or 0.0),
+                         grad_clip)
+        self.rho, self.centered = rho, centered
+
+    _ACCUMULATORS = ("mean_square", "momentum")
+
+    def _make_state(self, p):
+        st = {"mean_square": _f32_zeros(p), "momentum": _f32_zeros(p)}
+        if self.centered:
+            st["mean_grad"] = _f32_zeros(p)
+        return st
+
+    def _update(self, p, g32, group):
+        st = self._state(p)
+        g32 = self._decayed(p, g32, group)
+        rho = self.rho
+        ms = rho * st["mean_square"] + (1 - rho) * g32.square()
+        self._write(st["mean_square"], ms)
+        denom = ms
+        if self.centered:
+            mg = rho * st["mean_grad"] + (1 - rho) * g32
+            self._write(st["mean_grad"], mg)
+            denom = ms - mg.square()
+        upd = group["momentum"] * st["momentum"] + self._lr(p, group) * g32 \
+            / (denom + group["epsilon"]).sqrt()
+        self._write(st["momentum"], upd)
+        self._apply(p, st, self._param32(p, st) - upd)
+
+
+class Adadelta(Optimizer):
+    """``Adadelta(params, lr=1e-3, epsilon=1e-6, rho=0.95,
+    weight_decay=None, grad_clip=None)``: ``upd = -sqrt((E[dx^2] + eps) /
+    (E[g^2] + eps)) * g``, ``p += lr * upd``."""
+
+    def __init__(self, params, lr: LearningRate = 1e-3,
+                 epsilon: float = 1e-6, rho: float = 0.95,
+                 weight_decay: Optional[float] = None, grad_clip=None):
+        super().__init__(params, lr, dict(epsilon=epsilon,
+                                          weight_decay=weight_decay or 0.0),
+                         grad_clip)
+        self.rho = rho
+
+    _ACCUMULATORS = ("avg_squared_grad", "avg_squared_update")
+
+    def _make_state(self, p):
+        return {"avg_squared_grad": _f32_zeros(p),
+                "avg_squared_update": _f32_zeros(p)}
+
+    def _update(self, p, g32, group):
+        st = self._state(p)
+        g32 = self._decayed(p, g32, group)
+        rho, eps = self.rho, group["epsilon"]
+        asg = rho * st["avg_squared_grad"] + (1 - rho) * g32.square()
+        upd = -((st["avg_squared_update"] + eps) / (asg + eps)).sqrt() * g32
+        asu = rho * st["avg_squared_update"] + (1 - rho) * upd.square()
+        self._write(st["avg_squared_grad"], asg)
+        self._write(st["avg_squared_update"], asu)
+        self._apply(p, st, self._param32(p, st) + self._lr(p, group) * upd)
+
+
+class Lars(Optimizer):
+    """LARS momentum (reference: fluid/optimizer.py:1969
+    LarsMomentumOptimizer; kernel lars_momentum_op.h):
+
+        local_lr = lr * lars_coeff * ||p|| / (eps + ||g|| + wd * ||p||)
+        velocity = mu * velocity + local_lr * (g + wd * p)
+        p       -= velocity
+
+    with the plain ``lr`` where either norm is 0.  ``Lars(params, lr,
+    momentum, lars_coeff=0.001, lars_weight_decay=0.0005,
+    grad_clip=None, exclude_from_weight_decay=None, epsilon=0,
+    multi_precision=False, rescale_grad=1.0)``; a parameter whose name
+    (from ``(name, tensor)`` pairs) contains a string of
+    ``exclude_from_weight_decay`` has no decay.  A group's
+    ``weight_decay`` overrides ``lars_weight_decay``, its ``epsilon`` and
+    ``momentum`` the optimizer's."""
+
+    def __init__(self, params, lr: LearningRate, momentum: float,
+                 lars_coeff: float = 0.001,
+                 lars_weight_decay: float = 0.0005, grad_clip=None,
+                 exclude_from_weight_decay: Optional[Sequence[str]] = None,
+                 epsilon: float = 0, multi_precision: bool = False,
+                 rescale_grad: float = 1.0):
+        super().__init__(params, lr,
+                         dict(momentum=float(momentum),
+                              weight_decay=float(lars_weight_decay),
+                              epsilon=float(epsilon)),
+                         grad_clip)
+        self.lars_coeff = float(lars_coeff)
+        self.exclude = list(exclude_from_weight_decay or [])
+        self.rescale_grad = float(rescale_grad)
+
+    _ACCUMULATORS = ("velocity",)
+
+    def _make_state(self, p):
+        return {"velocity": _f32_zeros(p)}
+
+    def _update(self, p, g32, group):
+        st = self._state(p)
+        lr = self._lr(p, group)
+        g32 = g32 * self.rescale_grad
+        p32 = self._param32(p, st)
+        wd = group["weight_decay"]
+        if any(tok in self._name(p) for tok in self.exclude):
+            wd = 0.0
+        p_norm = p32.square().sum().sqrt()
+        g_norm = g32.square().sum().sqrt()
+        # reference kernel guard: the plain lr when either norm is zero
+        local_lr = torch.where(
+            (p_norm > 0) & (g_norm > 0),
+            lr * self.lars_coeff * p_norm
+            / (group["epsilon"] + g_norm + wd * p_norm),
+            lr)
+        v = group["momentum"] * st["velocity"] + local_lr * (g32 + wd * p32)
+        self._write(st["velocity"], v)
+        self._apply(p, st, p32 - v)
+
+
+# reference class name (fluid/optimizer.py:1969)
+LarsMomentumOptimizer = Lars
+
+
+class Lamb(Optimizer):
+    """Layer-wise adaptive moments (reference: optimizer/lamb.py):
+    ``r = m_hat / (sqrt(v_hat) + epsilon) + wd * p``, ``p -= lr * trust *
+    r`` with ``trust = ||p|| / ||r||`` (1 where either is 0).
+    ``Lamb(params, lr=1e-3, lamb_weight_decay=0.01, beta1=0.9,
+    beta2=0.999, epsilon=1e-6, grad_clip=None,
+    exclude_from_weight_decay_fn=None)``; the function is given the
+    parameter.  A group's ``weight_decay`` overrides
+    ``lamb_weight_decay``."""
+
+    def __init__(self, params, lr: LearningRate = 1e-3,
+                 lamb_weight_decay: float = 0.01, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-6,
+                 grad_clip=None,
+                 exclude_from_weight_decay_fn: Optional[
+                     Callable[[torch.Tensor], bool]] = None):
+        super().__init__(params, lr, dict(beta1=beta1, beta2=beta2,
+                                          epsilon=epsilon,
+                                          weight_decay=lamb_weight_decay),
+                         grad_clip)
+        self.exclude_fn = exclude_from_weight_decay_fn
+
+    _ACCUMULATORS = ("moment1", "moment2", "beta1_pow", "beta2_pow")
+
+    def _make_state(self, p):
+        return {"moment1": _f32_zeros(p), "moment2": _f32_zeros(p),
+                "beta1_pow": _f32_one(p), "beta2_pow": _f32_one(p)}
+
+    def _update(self, p, g32, group):
+        st = self._state(p)
+        lr, b1, b2 = self._lr(p, group), group["beta1"], group["beta2"]
+        m = b1 * st["moment1"] + (1 - b1) * g32
+        v = b2 * st["moment2"] + (1 - b2) * g32.square()
+        b1p, b2p = st["beta1_pow"] * b1, st["beta2_pow"] * b2
+        self._write(st["moment1"], m)
+        self._write(st["moment2"], v)
+        self._write(st["beta1_pow"], b1p)
+        self._write(st["beta2_pow"], b2p)
+        m_hat = m / (1 - b1p)
+        v_hat = v / (1 - b2p)
+        p32 = self._param32(p, st)
+        wd = group["weight_decay"]
+        if self.exclude_fn is not None and self.exclude_fn(p):
+            wd = 0.0
+        r = m_hat / (v_hat.sqrt() + group["epsilon"]) + wd * p32
+        w_norm = p32.square().sum().sqrt()
+        r_norm = r.square().sum().sqrt()
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            1.0)
+        self._apply(p, st, p32 - lr * trust * r)

@@ -1,13 +1,15 @@
-"""The GPT train step: model, AdamW, AMP O2 and the seeded batch.
+"""The GPT train step: model, AdamW, AMP and the seeded batch.
 
 Port of ``bench.py`` ``build_bench`` (:140-205), the step the JAX package
 was built and benchmarked around: ``fleet.init``, ``GPTForCausalLM``
 through ``fleet.distributed_model``, ``AdamW`` through
-``fleet.distributed_optimizer`` (both the identity on one card),
-``amp.decorate`` O2 (bf16 parameters, f32 masters), and a step of
-``compute_loss`` (fused vocab-blocked cross-entropy), backward,
-``step`` and ``clear_grad`` compiled with ``jit.to_static`` (on the card
-one CUDA graph a step; ``to_static=False`` runs it eagerly).  The bench
+``fleet.distributed_optimizer`` (both the identity on one card), the AMP
+level of ``PADDLE_TPU_BENCH_AMP`` (:183-194: O2 is ``amp.decorate``, bf16
+parameters and f32 masters; O1 keeps f32 parameters and no masters), and
+a step of ``compute_loss`` inside ``amp.auto_cast(dtype="bfloat16",
+level=amp_level)`` (the fused vocab-blocked cross-entropy),
+backward, ``step`` and ``clear_grad`` compiled with ``jit.to_static`` (on
+the card one CUDA graph a step; ``to_static=False`` runs it eagerly).  The bench
 step has dropout 0 and no recompute; the GPT-2 training recipe (dropout,
 a learning-rate schedule, gradient clipping, activation recompute) is
 asked for with ``dropout``, ``lr`` (a scheduler), ``grad_clip`` and
@@ -51,7 +53,9 @@ def build_train_step(config: str = "gpt2-345m", *, batch: int = 8,
     ``np.random.RandomState(seed)``, ``x`` then ``y``, as ``bench.py``
     draws them; the dropout generator is seeded with ``seed``
     (``rng.seed``).  ``amp_level`` is ``"O2"`` (bf16 parameters, f32
-    masters) or ``"O0"`` (f32).  ``train_step(x, y)`` runs
+    masters), ``"O1"`` (f32 parameters, the per-op bf16 policy of
+    ``amp.auto_cast`` around ``compute_loss``) or ``"O0"`` (f32).
+    ``train_step(x, y)`` runs
     ``compute_loss``, backward, the optimizer step and clears the
     gradients; it returns the loss (f32, on the device, not
     synchronised).  It is a ``jit.to_static`` function unless
@@ -60,11 +64,9 @@ def build_train_step(config: str = "gpt2-345m", *, batch: int = 8,
     ``lr`` is a float or an ``LRScheduler`` (the caller steps it),
     ``grad_clip`` a clip of ``nn.clip``.  ``device`` defaults to
     ``"cuda"`` and raises where there is no card."""
-    if amp_level == "O1":
-        raise NotImplementedError("amp O1 (per-op auto_cast) is not ported "
-                                  "(ROADMAP.md A.6); use O2 or O0")
-    if amp_level not in ("O0", "O2"):
-        raise ValueError(f"amp_level must be O0 or O2, got {amp_level!r}")
+    if amp_level not in ("O0", "O1", "O2"):
+        raise ValueError(f"amp_level must be O0, O1 or O2, got "
+                         f"{amp_level!r}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_train_step: device 'cuda' asked for, but "
@@ -88,7 +90,8 @@ def build_train_step(config: str = "gpt2-345m", *, batch: int = 8,
 
     def train_step(inputs: torch.Tensor, labels: torch.Tensor
                    ) -> torch.Tensor:
-        loss = model.compute_loss(inputs, labels)
+        with amp.auto_cast(dtype="bfloat16", level=amp_level):
+            loss = model.compute_loss(inputs, labels)
         loss.backward()
         opt.step()
         opt.clear_grad()

@@ -41,7 +41,6 @@ import argparse
 import gc
 import json
 import sys
-import time
 
 import numpy as np
 import torch
@@ -89,15 +88,6 @@ def build(to_static: bool, **kw):
     return ts, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
 
 
-def timed(ts, n_steps: int) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        ts.train_step(ts.x, ts.y)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / n_steps
-
-
 def turns(targets: dict, n_steps: int, rounds: int) -> dict:
     """``targets`` (name -> warmed step) timed in turns: first, second,
     second, first, ``rounds`` times."""
@@ -105,7 +95,7 @@ def turns(targets: dict, n_steps: int, rounds: int) -> dict:
     ms = {a: [], b: []}
     for _ in range(rounds):
         for name in (a, b, b, a):
-            ms[name].append(timed(targets[name], n_steps))
+            ms[name].append(chip_smoke.timed_steps(targets[name], n_steps))
     n_params = sum(p.numel() for p in targets[a].model.parameters())
     out = {}
     for name, xs in ms.items():

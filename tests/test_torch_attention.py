@@ -207,3 +207,68 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels._nvcc()
+
+
+# -- attn_mask: the JAX package's route for a mask ----------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+def test_masked_attention_matches_the_jax_route(kind, causal):
+    """``flash_attention(attn_mask=)`` against ``paddle_tpu.ops.pallas.
+    flash_attention`` with the same mask, whose route for a mask is its
+    XLA oracle: a bool ``[B, 1, S, S]`` mask (False drops the score; key
+    0 kept, so that no causal row is empty) and an additive f32
+    ``[B, H, S, S]`` one, with and without ``is_causal``, at p 0.  The
+    output and the gradients of q, k and v (of ``sum(out * dO)``) to
+    1e-5."""
+    import paddle_tpu as paddle
+    from paddle_tpu.ops.pallas import flash_attention as jax_flash
+
+    rs = np.random.RandomState(7)
+    B, S, H, D = 2, 12, 2, 16
+    q, k, v, do = (rs.randn(B, S, H, D).astype(np.float32)
+                   for _ in range(4))
+    if kind == "bool":
+        mask = rs.rand(B, 1, S, S) > 0.3
+        mask[..., 0] = True
+    else:
+        mask = (2.0 * rs.randn(B, H, S, S)).astype(np.float32)
+    jq, jk, jv = (paddle.to_tensor(a, stop_gradient=False)
+                  for a in (q, k, v))
+    ref = jax_flash(jq, jk, jv, attn_mask=paddle.to_tensor(mask),
+                    is_causal=causal)
+    (ref * paddle.to_tensor(do)).sum().backward()
+    tq, tk, tv = (torch.from_numpy(a.copy()).requires_grad_()
+                  for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, is_causal=causal,
+                          attn_mask=torch.from_numpy(mask))
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), ref.numpy(), rtol=0,
+                               atol=F32_TOL)
+    for got, want in ((tq, jq), (tk, jk), (tv, jv)):
+        np.testing.assert_allclose(got.grad.numpy(), want.grad.numpy(),
+                                   rtol=0, atol=F32_TOL)
+
+
+def test_masked_attention_with_dropout_draws_the_port_generator():
+    """Under a mask, attention dropout draws one ``[seed, offset]`` from
+    the port's generator and multiplies the masked probabilities by the
+    kernels' keep factors: re-seeding the generator repeats the output,
+    and the dropped probabilities are those of ``rng.attention_dropout_
+    factor`` of the draw."""
+    from paddle_tpu_torch import rng
+
+    rs = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(rs.randn(1, 16, 2, 16).astype(np.float32))
+               for _ in range(3))
+    mask = torch.from_numpy(rs.rand(1, 1, 16, 16) > 0.2)
+    outs = []
+    for _ in range(2):
+        rng.seed(3)
+        snap = rng.default_generator("cpu").get_state().clone()
+        outs.append(flash_attention(q, k, v, is_causal=True, dropout_p=0.3,
+                                    attn_mask=mask))
+    assert torch.equal(outs[0], outs[1])
+    want = _sdpa_reference(q, k, v, True, False, 0.3, snap, mask)
+    np.testing.assert_allclose(outs[0].numpy(), want.numpy(), rtol=0,
+                               atol=F32_TOL)

@@ -210,6 +210,8 @@ def test_script_alone_fails(tmp_path):
      "paged_prefill_kernel<f32,128>"),
     ("_ZN2pt19paged_decode_kernelI13__nv_bfloat16Li128ELi4EEEvPKT_S4_",
      "paged_decode_kernel<bf16,128,4>"),
+    ("_ZN2pt19flash_bwd_dq_kernelI6__halfLi64EEEvPKT_S4_S4_S4_PKfS6_PS2_",
+     "flash_bwd_dq_kernel<f16,64>"),
     ("some_other_symbol", "some_other_symbol"),
 ])
 def test_kernel_label_names_instances(mangled, label):
@@ -217,10 +219,14 @@ def test_kernel_label_names_instances(mangled, label):
 
 
 def _hgmma_everywhere():
+    """HGMMA counts in every 16-bit instance the build has: bf16 for all
+    four kernels, f16 for K1-K3 (the paged prefill has no f16 one)."""
     out = {}
     for lib, kernel in chip_smoke.TENSOR_CORE_KERNELS:
+        dtypes = ("bf16",) if lib == "paged_attention" else ("bf16", "f16")
         out.setdefault(lib, {}).update(
-            {f"{kernel}<bf16,{d}>": 8 for d in kernels.HEAD_DIMS})
+            {f"{kernel}<{t},{d}>": 8 for d in kernels.HEAD_DIMS
+             for t in dtypes})
     return out
 
 
@@ -229,10 +235,14 @@ def _hgmma_everywhere():
     ("flash_attention_fwd", "flash_fwd_kernel<bf16,64>"),
     ("flash_attention_bwd", "flash_bwd_dkv_kernel<bf16,64>"),
     ("flash_attention_bwd", "flash_bwd_dq_kernel<bf16,128>"),
+    ("flash_attention_fwd", "flash_fwd_kernel<f16,128>"),
+    ("flash_attention_bwd", "flash_bwd_dkv_dropout_kernel<f16,64>"),
+    ("flash_attention_bwd", "flash_bwd_dq_kernel<f16,128>"),
 ])
 def test_check_tensor_cores_wants_hgmma_in_bf16_k1_and_k5(lib, label):
-    """The bf16 K1, K5, K2 and K3 must each hold HGMMA at both head dims;
-    one instance without any fails the check, and names itself."""
+    """The bf16 K1, K5, K2 and K3, and the f16 K1, K2 and K3, must each
+    hold HGMMA at both head dims; one instance without any fails the
+    check, and names itself."""
     good = _hgmma_everywhere()
     assert {lib for lib, _ in chip_smoke.TENSOR_CORE_KERNELS} == {
         "paged_attention", "flash_attention_fwd", "flash_attention_bwd"}
@@ -702,3 +712,43 @@ def test_kernels_line_covers_the_dropout_instances():
     assert chip_smoke.kernel_label(
         "_ZN2pt24flash_fwd_dropout_kernelI13__nv_bfloat16Li64EEEvPKT_"
     ) == "flash_fwd_dropout_kernel<bf16,64>"
+
+
+def test_fp16_scaler_phase_on_tiny_cpu():
+    """``train_fp16_scaler``'s run and checks on ``gpt_tiny`` on the CPU
+    (no graph there: the body runs every call): from a scale past the
+    f16 range the first steps overflow, leave the state's checksums as
+    they were and halve the scale, then steps apply; the trajectory is the
+    JAX rule's, and the JAX scaler fed the same ``found_inf`` sequence
+    gives the same scales."""
+    import paddle_tpu as paddle
+    import paddle_tpu.nn as jnn
+
+    run = chip_smoke.run_fp16_scaler(8, 2.0 ** 22, config="tiny", batch=2,
+                                     seq=16, device="cpu")
+    assert run["found_inf"][0] and not run["found_inf"][-1]
+    chip_smoke.check_fp16_scaler(run, "cpu")
+    bad = {**run, "checksums": [[0, 0, 0]] + run["checksums"][1:]}
+    with pytest.raises(AssertionError, match="changed the state"):
+        chip_smoke.check_fp16_scaler(bad, "cpu")
+    with pytest.raises(AssertionError, match="JAX rule"):
+        chip_smoke.check_fp16_scaler({**run, "scales": run["scales"][::-1]},
+                                     "cpu")
+    # the rule replayed on the host is the JAX scaler's own
+    kw = chip_smoke.SCALER_KW
+    scaler = paddle.amp.GradScaler(**{**kw, "init_loss_scaling": 2.0 ** 22})
+    lin = jnn.Linear(2, 1)
+    opt = paddle.optimizer.SGD(learning_rate=0.0,
+                               parameters=lin.parameters())
+    jax_scales = []
+    for f in run["found_inf"]:
+        scaler.scale(lin(paddle.to_tensor(np.ones((1, 2), np.float32)))
+                     .sum()).backward()
+        if f:
+            lin.weight.grad = np.full((2, 1), np.inf, np.float32)
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        jax_scales.append(scaler.get_loss_scaling())
+    assert jax_scales == run["scales"] == chip_smoke.scaler_rule(
+        run["found_inf"], **{**kw, "init": 2.0 ** 22})

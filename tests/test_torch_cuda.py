@@ -14,7 +14,10 @@ kernels' gradients sum over up to S rows, so they are held relative to
 the plain version's largest value: 1e-4 in f32, 2e-2 in bf16 (the bf16
 K2/K3 run on tensor cores and round p and ds where the plain versions
 do).  Under attention dropout the kept probabilities, and so O, are
-scaled by 1/(1-p), and O's tolerance with them.
+scaled by 1/(1-p), and O's tolerance with them.  The f16 instances of
+K1-K3 are held to 1e-2 (O) and 1e-2 of the largest gradient: f16 keeps
+three more mantissa bits than bf16, and both sides round p and ds to f16
+at the same points.
 """
 import dataclasses
 import gc
@@ -1535,3 +1538,162 @@ def test_set_lr_refuses_once_a_float_rate_is_captured(cuda_device):
         opt.set_lr(0.1)
     torch.cuda.synchronize()
     assert torch.allclose(w.detach(), torch.full_like(w, -0.5))
+
+
+# -- float16 K1-K3, AMP O1, the loss scaler, masks --------------------------
+
+def _tiny_d64(hidden=256):
+    """``GPT_CONFIGS["tiny"]`` at head dim 64 (4 heads of 64) while the
+    context is open, so that the flash kernels take it."""
+    import contextlib
+
+    from paddle_tpu_torch.models import gpt as gpt_mod
+
+    @contextlib.contextmanager
+    def patched():
+        tiny = gpt_mod.GPT_CONFIGS["tiny"]
+        gpt_mod.GPT_CONFIGS["tiny"] = lambda **kw: tiny(
+            **{"hidden_size": hidden, **kw})
+        try:
+            yield
+        finally:
+            gpt_mod.GPT_CONFIGS["tiny"] = tiny
+    return patched()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.2])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,causal", [(200, True), (130, False)])
+def test_f16_kernels_match_plain(cuda_device, p, D, S, causal):
+    """K1-K3's f16 instances (p 0 and dropout) against the plain versions
+    on the same f16 inputs and draw; each launch counts as ``..._f16``."""
+    from paddle_tpu_torch.ops.attention import _flash_fwd_reference
+
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v, do = (torch.randn((2, S, 3, D), generator=g,
+                               device=cuda_device).half() for _ in range(4))
+    snap = _snap(cuda_device) if p else None
+    kernels.reset_launches()
+    o, lse = kernels.flash_fwd(q, k, v, causal, p, snap)
+    o_ref, lse_ref = _flash_fwd_reference(q, k, v, causal, p, snap)
+    assert o.dtype == torch.float16
+    assert (o.float() - o_ref.float()).abs().max().item() <= 1e-2 / (1 - p)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2) \
+        .contiguous().view(-1, S)
+    args = (q, k, v, do, lse_ref, delta, causal, p, snap)
+    for got, want in zip((*kernels.flash_bwd_dkv(*args),
+                          kernels.flash_bwd_dq(*args)),
+                         (*_flash_bwd_dkv_reference(*args),
+                          _flash_bwd_dq_reference(*args))):
+        assert got.dtype == torch.float16
+        top = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= 1e-2 * top
+    sfx = "_dropout_f16" if p else "_f16"
+    assert {n: c for n, c in kernels.launch_counts().items() if c} == {
+        f"flash_fwd{sfx}": 1, f"flash_bwd_dkv{sfx}": 1,
+        f"flash_bwd_dq{sfx}": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["flash_bwd_dkv", "flash_bwd_dq"])
+def test_f16_overflow_reaches_the_gradients(cuda_device, which):
+    """Under a dO a large loss scale makes, K2/K3's f16 outputs hold inf
+    or NaN where the plain versions' do: never clamped."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    res = chip_smoke.check_f16_overflow(g, which)
+    assert res["nonfinite_kernel"] > 0
+    assert res["err"] <= res["tol"]
+
+
+@pytest.mark.cuda
+def test_o1_graph_steps_equal_the_eager_steps(cuda_device):
+    """``build_train_step(amp_level="O1")`` on a tiny GPT at head dim 64:
+    f32 parameters, the graph's losses equal the eager step's bitwise,
+    one program and one capture, K1-K3's bf16 instances per layer and
+    step."""
+    from paddle_tpu_torch import build_train_step
+
+    runs = {}
+    with _tiny_d64():
+        for to_static in (False, True):
+            ts = build_train_step("tiny", batch=2, seq=64, device=cuda_device,
+                                  amp_level="O1", to_static=to_static)
+            kernels.reset_launches()
+            runs[to_static] = ([float(ts.train_step(ts.x, ts.y))
+                                for _ in range(4)], ts,
+                               kernels.launch_counts())
+    (eager, _, _), (graph, ts, counts) = runs[False], runs[True]
+    assert {p.dtype for p in ts.model.parameters()} == {torch.float32}
+    assert graph == eager and graph[-1] < graph[0]
+    f = ts.train_step
+    assert (len(f.program_cache), f.captures) == (1, 1)
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert counts[name] == 2 * 4
+
+
+@pytest.mark.cuda
+def test_scaler_skip_inside_a_graph(cuda_device):
+    """``train_fp16_scaler``'s run on a tiny GPT at head dim 64: from a
+    scale past f16's range the first steps overflow inside the captured
+    step, leave the state bitwise as it was and halve the scale (no host
+    read of ``found_inf``), then steps apply; the f16 K1-K3 ran."""
+    with _tiny_d64():
+        run = chip_smoke.run_fp16_scaler(10, 2.0 ** 26, config="tiny",
+                                         batch=2, seq=64, device="cuda")
+    chip_smoke.check_fp16_scaler(run, "card")
+    assert run["program_cache"]["captures"] == 1
+    for name in chip_smoke.F16_KERNELS:
+        assert run["launches"][name] == 2 * 10
+
+
+@pytest.mark.cuda
+def test_scaler_state_made_inside_a_capture_raises(cuda_device):
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.optimizer import SGD
+
+    w = torch.nn.Parameter(torch.ones(4, device=cuda_device))
+    opt = SGD([w], lr=0.1)
+    scaler = amp.GradScaler()
+    first = [True]
+
+    @jit.to_static
+    def step(x):
+        loss = (w * x).sum()
+        if first[0]:
+            first[0] = False
+            loss.backward()
+        else:
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+        opt.clear_grad()
+        return loss.detach()
+
+    x = torch.ones(4, device=cuda_device)
+    step(x)
+    with pytest.raises(jit.CaptureError, match="GradScaler"):
+        step(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+def test_masked_attention_on_the_card(cuda_device, kind):
+    """``flash_attention(attn_mask=)`` on CUDA tensors takes the plain
+    route (no kernel launches) and gives the CPU's output and gradients
+    (f32, 1e-4)."""
+    g = torch.Generator().manual_seed(4)
+    q, k, v, do = (torch.randn(2, 40, 2, 64, generator=g) for _ in range(4))
+    mask = (torch.rand(2, 1, 40, 40, generator=g) > 0.3) if kind == "bool" \
+        else torch.randn(2, 2, 40, 40, generator=g)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        ts = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        kernels.reset_launches()
+        out = flash_attention(*ts, is_causal=True, attn_mask=mask.to(dev))
+        out.backward(do.to(dev))
+        outs.append([t.detach().cpu() for t in (out, *[x.grad for x in ts])])
+        assert not any(kernels.launch_counts().values())
+    for a, b in zip(*outs):
+        assert (a - b).abs().max().item() <= 1e-4

@@ -9,7 +9,10 @@ fused ``[B, S, H, 3*D]`` projection, as in the GPT model.  Tolerance:
 1e-5 absolute in f32 (the same sums in other orders; measured ~7e-7); in
 bf16, 2e-2 of each gradient's largest value (p and ds are rounded to bf16
 at the same points on both sides, but an f32 sum in another order can put
-a value on the other side of a bf16 rounding boundary).
+a value on the other side of a bf16 rounding boundary); in f16, which
+keeps three more mantissa bits, 5e-3 of the largest value, forward (K1's
+plain version against ``_fwd``, p rounded to f16 before P V on both
+sides) and backward.
 K2/K3 themselves are held against these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -51,20 +54,23 @@ def _split(qkv):
 
 
 BF16_REL_TOL = 2e-2
+F16_REL_TOL = 5e-3
+REL_TOL = {"bfloat16": BF16_REL_TOL, "float16": F16_REL_TOL}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_backward_matches_pallas_bwd(causal, dtype):
     """``_flash_bwd_dkv_reference`` / ``_flash_bwd_dq_reference`` against
     ``_bwd``, fed the Pallas forward's O and lse, with delta formed as the
     autograd Function forms it (``[B*H, S]``, row ``b*H + h``).  In bf16
     both sides get the same seeded inputs rounded to bf16: this pins the
-    rounding points of p and ds that the card's K2/K3 share with Pallas."""
+    rounding points of p and ds that the card's K2/K3 share with Pallas;
+    so in f16."""
     qkv, do = _inputs(0)
-    if dtype == "bfloat16":
-        qkv = np.asarray(jnp.asarray(qkv, jnp.bfloat16))
-        do = np.asarray(jnp.asarray(do, jnp.bfloat16))
+    if dtype != "float32":
+        qkv = np.asarray(jnp.asarray(qkv, dtype))
+        do = np.asarray(jnp.asarray(do, dtype))
     q, k, v = _split(qkv)
     o, lse = _fwd(_to_bh(q), _to_bh(k), _to_bh(v), scale=D ** -0.5,
                   causal=causal, block_q=8, block_k=8, interpret=True)
@@ -89,7 +95,54 @@ def test_plain_backward_matches_pallas_bwd(causal, dtype):
             np.testing.assert_allclose(got, want, rtol=0, atol=F32_TOL)
         else:
             assert np.abs(got - want).max() <= \
-                BF16_REL_TOL * np.abs(want).max()
+                REL_TOL[dtype] * np.abs(want).max()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_f16_plain_forward_matches_pallas_fwd(causal):
+    """K1's plain version at f16 (``_flash_fwd_reference``: p rounded to
+    f16 before P V, the sums f32) against ``_fwd`` in interpret mode on
+    the same f16 inputs: O in f16 and the f32 lse."""
+    from paddle_tpu_torch.ops.attention import _flash_fwd_reference
+
+    qkv, _ = _inputs(3)
+    qkv = np.asarray(jnp.asarray(qkv, jnp.float16))
+    q, k, v = _split(qkv)
+    o, lse = _fwd(_to_bh(q), _to_bh(k), _to_bh(v), scale=D ** -0.5,
+                  causal=causal, block_q=8, block_k=8, interpret=True)
+    assert o.dtype == jnp.float16
+    tq, tk, tv = torch.from_numpy(qkv.copy()).split(D, dim=-1)
+    to, tlse = _flash_fwd_reference(tq, tk, tv, causal)
+    assert to.dtype == torch.float16
+    want = _from_bh(o).astype(np.float32)
+    assert np.abs(to.float().numpy() - want).max() <= \
+        F16_REL_TOL * np.abs(want).max()
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(lse), rtol=0,
+                               atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_f16_flash_attention_grads_match_flash_vjp(causal):
+    """At f16, the port's ``flash_attention`` (K1-K3's plain versions on
+    CPU tensors) against ``jax.vjp`` of ``_flash`` in interpret mode: O
+    and dQ/dK/dV, each in f16, to 5e-3 of its largest value."""
+    qkv, do = _inputs(4)
+    qkv = np.asarray(jnp.asarray(qkv, jnp.float16))
+    do = np.asarray(jnp.asarray(do, jnp.float16))
+    q, k, v = _split(qkv)
+    o, vjp = jax.vjp(lambda a, b, c: _flash(a, b, c, causal, 8, 8, True),
+                     _to_bh(q), _to_bh(k), _to_bh(v))
+    grads = vjp(_to_bh(do))
+    assert all(g.dtype == jnp.float16 for g in grads)
+    t = torch.from_numpy(qkv).requires_grad_()
+    out = flash_attention(*t.split(D, dim=-1), is_causal=causal)
+    out.backward(torch.from_numpy(do))
+    assert out.dtype == t.grad.dtype == torch.float16
+    for got, want in ((out.detach(), o),
+                      *zip(t.grad.split(D, dim=-1), grads)):
+        want = _from_bh(want).astype(np.float32)
+        assert np.abs(got.float().numpy() - want).max() <= \
+            F16_REL_TOL * np.abs(want).max()
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -147,9 +200,22 @@ def test_dropout_and_unknown_kernel_raise():
 
 
 def test_attention_mask_is_refused():
-    x = torch.ones(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        flash_attention(x, x, x, attn_mask=torch.ones(8, 8, dtype=bool))
+    """A mask, refused before it was ported, runs on the JAX package's
+    route for it (the plain attention, autograd through it): an all-True
+    bool mask and a zero additive mask give the unmasked full attention,
+    forward and gradients (its parity with the JAX route is held in
+    test_torch_attention.py)."""
+    qkv, do = _inputs(5)
+    outs = []
+    for mask in (None, torch.ones(S, S, dtype=torch.bool),
+                 torch.zeros(B, 1, S, S)):
+        t = torch.from_numpy(qkv).requires_grad_()
+        out = flash_attention(*t.split(D, dim=-1), attn_mask=mask)
+        out.backward(torch.from_numpy(do))
+        outs.append((out.detach(), t.grad))
+    for out, grad in outs[1:]:
+        torch.testing.assert_close(out, outs[0][0], rtol=0, atol=F32_TOL)
+        torch.testing.assert_close(grad, outs[0][1], rtol=0, atol=F32_TOL)
 
 
 def test_backward_wrappers_refuse_cpu_tensors():

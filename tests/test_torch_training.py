@@ -3,8 +3,8 @@ as a whole.
 
 The JAX side composes the step that ``bench.py`` times (:173-199), eagerly
 and without the fleet wrappers (identity on one device): ``gpt_tiny``,
-``AdamW(learning_rate=1e-4)``, ``amp.decorate`` O2, ``auto_cast`` O2,
-``compute_loss``, backward, step, clear.  The port runs
+``AdamW(learning_rate=1e-4)``, ``amp.decorate`` O2 (not at O1 or O0),
+``auto_cast`` at the level, ``compute_loss``, backward, step, clear.  The port runs
 ``build_train_step("tiny", device="cpu")`` with the JAX model's weights
 carried in by ``from_jax_state_dict``, on the same batch.  Three steps.
 
@@ -25,6 +25,9 @@ to.
   ~2 lr.  Losses 2e-3 relative (measured 1.4e-4); the f32 masters 2 lr
   per step per element, and 0.1 lr on the mean of each tensor (measured:
   at most 1.9 lr and 0.06 lr).
+- bf16 (O1: f32 parameters, the per-op policy casting each linear's and
+  embedding's weights to bf16): the O2 bounds, on the f32 parameters
+  themselves (there are no masters).
 """
 import numpy as np
 import pytest
@@ -85,7 +88,7 @@ def _jax_steps(level, x, y):
     return state, losses, masters
 
 
-@pytest.mark.parametrize("level", ["O0", "O2"])
+@pytest.mark.parametrize("level", ["O0", "O2", "O1"])
 def test_three_steps_match_the_jax_step(level):
     ts = build_train_step("tiny", batch=BATCH, seq=SEQ, device="cpu",
                           amp_level=level)
@@ -121,8 +124,18 @@ def test_batch_is_drawn_as_the_bench_draws_it():
 
 
 def test_unported_levels_and_missing_card_raise():
-    with pytest.raises(NotImplementedError, match="O1"):
-        build_train_step("tiny", device="cpu", amp_level="O1")
+    """O1, refused before it was ported, builds f32 parameters with no
+    masters and trains (its parity is held above); an unknown level and a
+    missing card raise."""
+    ts = build_train_step("tiny", batch=2, seq=8, device="cpu",
+                          amp_level="O1", to_static=False)
+    assert {p.dtype for p in ts.model.parameters()} == {torch.float32}
+    losses = [ts.train_step(ts.x, ts.y).item() for _ in range(3)]
+    assert losses[-1] < losses[0]
+    assert not any("master_weight" in st
+                   for st in ts.optimizer.state.values())
+    with pytest.raises(ValueError, match="O3"):
+        build_train_step("tiny", device="cpu", amp_level="O3")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             build_train_step("tiny")

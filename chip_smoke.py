@@ -37,6 +37,13 @@ Phases, each printing one JSON line with the card's name and power limit:
               f16 the library call), on a ragged full shape, and K2/K3
               under an f16 overflow (outputs non-finite where the plain
               versions' are: never clamped); their HGMMA is required too.
+              The f16 instances of K4 and K5 are held and timed at the
+              main path's and ``serve_gpt``'s shapes (SDPA at f16 the
+              library call), K4 also at its edges (windows about one
+              split long, a length past the table, query groups 1-8,
+              block size 32; a bitwise repeat at each), and both under
+              an overflow (+inf V rows: outputs non-finite exactly where
+              the plain versions' are); the f16 K5 must hold HGMMA.
 3. serve_paged — Llama-2 7B at full width (random weights from a seed),
               bf16, paged KV: 12 requests sharing a 512-token system
               prompt; the K4/K5 launch counts of this run are read.
@@ -227,10 +234,37 @@ Phases, each printing one JSON line with the card's name and power limit:
               mid-decode and recovered by a new one, each replay once and
               equal to the uninterrupted stream.
 
+21. serve_f16 — after serve_fleet releases the bf16 7B: Llama-2 7B at
+              full width in float16, paged, on serve_paged's traffic, then
+              GPT-2 345M in float16 on serve_gpt's (TTFT, ITL, tokens/s,
+              peak); a device counter of the non-finite logits the steps
+              hand the sampler (inside the graphs) must read 0 (else the
+              first module that overflowed is named: nothing is clamped
+              or rescaled), no program is built after warmup, and the f16
+              K4 and K5 must launch.
+22. parity_f16 — both widths at 2 layers in float16 (after
+              tenancy_parity): the paged kernel path (f16 K4/K5) and the
+              contiguous one (f16 K1 prefill) against the paged
+              ``kernel="reference"`` path within
+              ``PARITY_F16_TOLERANCE``; the graphs give the step bodies'
+              token streams, paged and contiguous.
+23. predictor — GPT-2 345M at full width made f16 by
+              ``amp.decorate(level="O2", dtype="float16")``, ``jit.save``d
+              into the temporary directory and served through
+              ``inference.Config`` (``enable_use_gpu(precision=Half)``),
+              ``create_predictor`` and the handles on seeded ``[4, 1024]``
+              ids: logits against the eager forward and against
+              ``kernel="reference"``, ``flash_fwd_f16`` launched 24 times
+              a run (one a layer) and nothing else, a
+              ``PredictorPool(config, 2)`` loading once; then a small f16
+              GPT saved on the CPU, served on the card with K1.
+
 Before the last line it prints the card line of ``nvidia-smi`` and one
-``{"kernels": [...]}`` line (K1-K5 and K1-K3's dropout instances: each
-kernel's ``launches`` on its main path, ``train_recipe`` for the dropout
-instances, and ``launches_by_phase``); the last line is
+``{"kernels": [...]}`` line (K1-K5, K1-K3's dropout instances and every
+f16 instance: each kernel's ``launches`` on its main path,
+``train_recipe`` for the dropout instances, ``train_fp16_scaler`` for
+K1-K3's f16 ones, ``serve_f16``'s 7B run for K4/K5's, and
+``launches_by_phase``); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 without that line.  No phase falls back to the CPU.
 """
@@ -323,6 +357,20 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2, alone: bool = False,
         end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def host_ms(fn, iters: int = 5) -> float:
+    """Mean host milliseconds ``fn()`` takes to return (its device work
+    enqueued, not waited for), after a call and a sync."""
+    fn()
+    torch.cuda.synchronize()
+    spent = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        spent += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return spent / iters * 1e3
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -430,14 +478,12 @@ TENSOR_CORE_KERNELS = (("flash_attention_fwd", "flash_fwd_kernel"),
 
 
 def check_tensor_cores(hgmma: dict) -> None:
-    """Every bf16 instance of ``TENSOR_CORE_KERNELS``, and every f16 one
-    (K1-K3: all but the paged prefill), has HGMMA instructions."""
+    """Every bf16 and every f16 instance of ``TENSOR_CORE_KERNELS`` (K1,
+    K5, K2, K3 and K1-K3's dropout instances) has HGMMA instructions."""
     from paddle_tpu_torch.ops.kernels import HEAD_DIMS
 
     for lib, kernel in TENSOR_CORE_KERNELS:
         for dtype in ("bf16", "f16"):
-            if dtype == "f16" and lib == "paged_attention":
-                continue
             for d in HEAD_DIMS:
                 label = f"{kernel}<{dtype},{d}>"
                 if not hgmma.get(lib, {}).get(label, 0) > 0:
@@ -456,12 +502,15 @@ def _pool(rs_gen, n_blocks, bs, hkv, d, dtype, layers=2):
 
 
 def check_decode(gen, H, Hkv, dtype, lengths, D=128, bs=16, max_seq=4096,
-                 shared_blocks=0):
+                 shared_blocks=0, inf_at=0):
     """K4 against ``gather_block_kv`` + ``cached_attention`` on a strided
     one-layer view of a two-layer pool, the slots' blocks shuffled.
     ``shared_blocks``: every table row starts with row 0's first blocks
     (a prefix-cache hit).  Two calls on the same inputs must agree bitwise
-    (``res["bitwise"]``)."""
+    (``res["bitwise"]``).  ``inf_at``: that many live V rows of slot 0
+    hold +inf in lane 0 of kv head 0 (as a projection that overflowed f16
+    writes them), and ``err`` is the share of outputs whose finiteness
+    differs from the plain version's (:func:`_finite_mismatch`)."""
     from paddle_tpu_torch.ops import cached_attention as ca
     from paddle_tpu_torch.ops import kernels
 
@@ -474,6 +523,9 @@ def check_decode(gen, H, Hkv, dtype, lengths, D=128, bs=16, max_seq=4096,
         tables[:, :shared_blocks] = tables[0, :shared_blocks].clone()
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(dtype)
+    for p in range(inf_at):
+        pos = (p + 1) * min(lengths[0], MB * bs - 1) // (inf_at + 1)
+        vp[int(tables[0, pos // bs]), pos % bs, 0, 0] = float("inf")
 
     def kern():
         return kernels.paged_decode(q, kp, vp, tables, lens)
@@ -495,7 +547,9 @@ def check_decode(gen, H, Hkv, dtype, lengths, D=128, bs=16, max_seq=4096,
             attn_mask=valid, enable_gqa=H != Hkv).transpose(1, 2)
 
     got = kern()
-    err = (got.float() - plain().float()).abs().max().item()
+    over = _finite_mismatch(got, plain()) if inf_at else {}
+    err = over["err"] if inf_at else \
+        (got.float() - plain().float()).abs().max().item()
     bitwise = torch.equal(got, kern())
     # the bound reads each live K/V row once: a row shared by several
     # slots' tables counts once
@@ -509,10 +563,28 @@ def check_decode(gen, H, Hkv, dtype, lengths, D=128, bs=16, max_seq=4096,
         + tables.numel() * 4 + B * 4
     return {"err": err, "bitwise": bitwise, "kern": kern, "plain": plain,
             "library": library,
-            "bound": bound(nbytes, 4 * H * D * keys, dtype)}
+            "bound": bound(nbytes, 4 * H * D * keys, dtype), **over}
 
 
-def check_prefill(gen, H, Hkv, dtype, start, S, D=128, bs=16, max_seq=4096):
+def _finite_mismatch(got, want) -> dict:
+    """Outputs that must be non-finite exactly where the plain version's
+    are (never clamped): ``err`` is the share of elements whose finiteness
+    differs (held to 0), beside the non-finite counts; some must exist."""
+    bad_kern = int((~torch.isfinite(got)).sum())
+    bad_plain = int((~torch.isfinite(want)).sum())
+    if not (bad_kern > 0 and bad_plain > 0):
+        raise AssertionError(f"overflow: non-finite outputs kernel "
+                             f"{bad_kern}, plain {bad_plain}: the inf did "
+                             f"not reach the outputs")
+    differ = int((torch.isfinite(got) != torch.isfinite(want)).sum())
+    return {"err": differ / got.numel(), "tol": 0.0,
+            "nonfinite_kernel": bad_kern, "nonfinite_plain": bad_plain}
+
+
+def check_prefill(gen, H, Hkv, dtype, start, S, D=128, bs=16, max_seq=4096,
+                  inf_at=0):
+    """K5 against ``gather_block_kv`` + ``block_prefill_attention``;
+    ``inf_at`` as :func:`check_decode` (V rows of the cached prefix)."""
     from paddle_tpu_torch.ops import cached_attention as ca
     from paddle_tpu_torch.ops import kernels
 
@@ -521,6 +593,9 @@ def check_prefill(gen, H, Hkv, dtype, start, S, D=128, bs=16, max_seq=4096):
     row = (torch.randperm(4 * MB, generator=gen, device="cuda")[:MB]
            + 1).to(torch.int32)
     q = torch.randn((1, S, H, D), generator=gen, device="cuda").to(dtype)
+    for p in range(inf_at):
+        pos = (p + 1) * start // (inf_at + 1)
+        vp[int(row[pos // bs]), pos % bs, 0, 0] = float("inf")
 
     start_t = torch.tensor([start], dtype=torch.int32, device="cuda")
 
@@ -543,12 +618,14 @@ def check_prefill(gen, H, Hkv, dtype, start, S, D=128, bs=16, max_seq=4096):
             q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
             attn_mask=valid, enable_gqa=H != Hkv).transpose(1, 2)
 
-    err = (kern().float() - plain().float()).abs().max().item()
+    over = _finite_mismatch(kern(), plain()) if inf_at else {}
+    err = over["err"] if inf_at else \
+        (kern().float() - plain().float()).abs().max().item()
     isz = torch.finfo(dtype).bits // 8
     keys = sum(start + i + 1 for i in range(S))
     nbytes = (start + S) * Hkv * D * 2 * isz + 2 * S * H * D * isz + MB * 4
     return {"err": err, "kern": kern, "plain": plain, "library": library,
-            "bound": bound(nbytes, 4 * H * D * keys, dtype)}
+            "bound": bound(nbytes, 4 * H * D * keys, dtype), **over}
 
 
 #: the dropout draw the kernels phase holds K1-K3's dropout instances with
@@ -749,6 +826,12 @@ RECIPE_DROPOUT = 0.1
 #: a case checked in f32 and bf16, or in bf16 only, or in f16 only
 BOTH, BF16 = (torch.float32, torch.bfloat16), (torch.bfloat16,)
 F16 = (torch.float16,)
+#: K4's edge cases of :func:`decode_edges` the f16 instance is held at too:
+#: windows about one split long, a length past the table, query groups
+#: 1-8 at both head dims, block size 32
+F16_DECODE_EDGES = ("lenP-1,P,P+1", "past_table", "G1/D64", "G1/D128",
+                    "G2/D128", "G3/D128", "G4/D128", "G8/D64", "G8/D128",
+                    "bs32")
 SHORT = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
@@ -996,7 +1079,31 @@ def phase_kernels(hgmma: dict) -> dict:
                      "B=2 S=256 H=4 D=64 causal, q ~ 4, v ~ 30, dO ~ 2e4 "
                      "(ds past 65504)",
                      grad, F16, False))
-    out, library_ms = {}, {}      # one library figure per (shape, call)
+    # the f16 instances of K4/K5 (f16 serving): the main path's and
+    # serve_gpt's shapes, K4's edges, and an overflow
+    cases["paged_decode_f16"] = [
+        (label, make, shape, lib, F16, timed)
+        for label, make, shape, lib, _, timed in cases["paged_decode"]
+        if label in ("H32/Hkv32", "gpt345m")] + [
+        (label, make, shape, lib, F16, False)
+        for label, make, shape, lib, _, _ in decode_edges(gen)
+        if label in F16_DECODE_EDGES] + [
+        ("overflow", lambda dt: check_decode(gen, 32, 32, dt,
+                                             DECODE_LENGTHS, inf_at=3),
+         "B=8 lengths<=2047 H=Hkv=32 D=128 bs=16, 3 V rows of slot 0 "
+         "+inf (outputs non-finite where the plain version's are)",
+         gather_sdpa, F16, False)]
+    cases["paged_prefill_f16"] = [
+        (label, make, shape, lib, F16, timed)
+        for label, make, shape, lib, _, timed in cases["paged_prefill"]
+        if label in ("H32/Hkv32", "gpt345m/S512/start256",
+                     "S16/start0/H64/Hkv8", "S32/start1008/H64/Hkv8")] + [
+        ("overflow", lambda dt: check_prefill(gen, 32, 32, dt, 512, 512,
+                                              inf_at=3),
+         "S=512 start=512 H=Hkv=32 D=128 bs=16, 3 V rows of the prefix "
+         "+inf (outputs non-finite where the plain version's are)",
+         gather_sdpa, F16, False)]
+    out, library_ms = {}, {}      # one figure per (shape, call, dtype)
     for name, shapes in cases.items():
         errors, tolerances, lse_errors, timed = {}, {}, {}, []
         for label, make, shape, library_call, dtypes, is_timed in shapes:
@@ -1019,7 +1126,7 @@ def phase_kernels(hgmma: dict) -> dict:
                             f"{LSE_TOLERANCE}")
                 if dt != torch.float32 and is_timed:
                     bound_ms, bound_by = res["bound"]
-                    lib = (shape, library_call)
+                    lib = (shape, library_call, dt)
                     if lib not in library_ms:
                         library_ms[lib] = cuda_ms(res["library"], iters=5,
                                                   flush=True)
@@ -1237,10 +1344,11 @@ def drive_paged(model, kernel: str, prompt, shared_len: int, tail,
     )
 
     cfg, bs = model.config, 16
-    dev = next(model.parameters()).device
+    param = next(model.parameters())
+    dev = param.device
     kv_heads = getattr(cfg, "n_kv_heads", None) or cfg.num_attention_heads
     cache = PagedKVCache(2, cfg.num_hidden_layers, 1024, kv_heads,
-                         cfg.head_dim, torch.float32, block_size=bs,
+                         cfg.head_dim, param.dtype, block_size=bs,
                          kernel=kernel, device=dev)
 
     def prefill(slot, ids, start, length):
@@ -1281,10 +1389,11 @@ def drive_paged(model, kernel: str, prompt, shared_len: int, tail,
     return out, fed
 
 
-def parity_models():
+def parity_models(dtype=torch.float32):
     """The full-width configurations held at 2 layers in f32 by ``parity``
-    and ``graph_parity``: Llama-2 7B's (D 128) and GPT-2 345M's (D 64),
-    each built on the card with random weights from a seed."""
+    and ``graph_parity`` (in f16 by ``parity_f16``): Llama-2 7B's (D 128)
+    and GPT-2 345M's (D 64), each built on the card with random weights
+    from a seed."""
     from paddle_tpu_torch.models import (
         GPTForCausalLM, LlamaForCausalLM, gpt2_345m, llama2_7b,
     )
@@ -1292,7 +1401,7 @@ def parity_models():
     def llama():
         gen = torch.Generator(device="cuda").manual_seed(1)
         return LlamaForCausalLM(llama2_7b(num_hidden_layers=2),
-                                device="cuda", dtype=torch.float32,
+                                device="cuda", dtype=dtype,
                                 generator=gen).eval()
 
     def gpt():
@@ -1300,7 +1409,7 @@ def parity_models():
         return GPTForCausalLM(
             gpt2_345m(num_hidden_layers=2, hidden_dropout_prob=0.0,
                       attention_probs_dropout_prob=0.0),
-            device="cuda", dtype=torch.float32, generator=gen).eval()
+            device="cuda", dtype=dtype, generator=gen).eval()
 
     return [("llama2-7b width, 2 layers", llama),
             ("gpt2-345m width, 2 layers", gpt)]
@@ -4280,6 +4389,434 @@ def phase_serve_fleet(model) -> dict:
          launches=launches, **res)
     return launches
 
+# -- phases 21, 22 and 23: float16 serving and the deployment path ----------
+
+#: the f16 instances of K4/K5 the f16 engines must launch
+F16_SERVE_KERNELS = ("paged_decode_f16", "paged_prefill_f16")
+
+
+def count_nonfinite_logits(engine) -> torch.Tensor:
+    """A device counter of the non-finite logits every step of ``engine``
+    hands its sampler (prefill and decode).  Call it before ``warmup()``:
+    the count is an op of each step's body, so each CUDA graph captures it
+    and every replay adds to it."""
+    bad = torch.zeros((), dtype=torch.int64, device=engine.device)
+    sampler = engine.sampler
+
+    def counted(fn, pos: int):
+        def inner(*args, **kwargs):
+            bad.add_((~torch.isfinite(args[pos])).sum())
+            return fn(*args, **kwargs)
+        return inner
+
+    sampler.sample_slot = counted(sampler.sample_slot, 1)
+    sampler.sample_all = counted(sampler.sample_all, 0)
+    return bad
+
+
+@torch.no_grad()
+def first_nonfinite(model, prompt) -> str:
+    """The first module of ``model``'s forward on ``prompt`` whose output
+    holds a non-finite value, or ``""``: where an overflow starts."""
+    found = []
+
+    def hook(name):
+        def fn(mod, args, out):
+            if not found and isinstance(out, torch.Tensor) and \
+                    out.is_floating_point() and \
+                    not bool(torch.isfinite(out).all()):
+                found.append(f"{name} ({type(mod).__name__})")
+        return fn
+
+    handles = [m.register_forward_hook(hook(n))
+               for n, m in model.named_modules() if n]
+    try:
+        dev = next(model.parameters()).device
+        model(torch.tensor([prompt], device=dev))
+    finally:
+        for h in handles:
+            h.remove()
+    return found[0] if found else ""
+
+
+def run_serve_f16(engine, requests, max_new_tokens: int) -> dict:
+    """``serve`` with the non-finite logits counted on the device; fails
+    on any (naming the first module whose output overflowed, never
+    clamping or rescaling), and on the card unless the f16 K4 and K5
+    launched."""
+    bad = count_nonfinite_logits(engine)
+    res = serve(engine, requests, max_new_tokens)
+    res["nonfinite_logits"] = int(bad.item())
+    if res["nonfinite_logits"]:
+        raise AssertionError(
+            f"f16 serving: {res['nonfinite_logits']} non-finite logits; the "
+            f"first module with a non-finite output: "
+            f"{first_nonfinite(engine.model, requests[0][0]) or 'none'}")
+    if engine.device.type == "cuda" and \
+            min(res["launches"][n] for n in F16_SERVE_KERNELS) < 1:
+        raise AssertionError(f"f16 serving did not run the f16 K4/K5: "
+                             f"{res['launches']}")
+    return res
+
+
+def phase_serve_f16() -> dict:
+    """Llama-2 7B at full width in float16 (built after the bf16 7B is
+    released), paged, on serve_paged's traffic; then GPT-2 345M in f16 on
+    serve_gpt's.  Returns both runs' launch counts by model."""
+    from paddle_tpu_torch import create_engine
+
+    out = {}
+    for model, spec, kw, prefix, tails, seed in (
+            ("llama2-7b", "llama:llama2-7b", {}, 512, PAGED_TAILS, 0),
+            ("gpt2-345m", "gpt:gpt2-345m", dict(max_seq=1024), 256,
+             [32, 600, 150, 77, 400, 256, 500, 64], 2)):
+        t0 = time.perf_counter()
+        eng = create_engine(spec, device="cuda", dtype=torch.float16,
+                            kv_layout="paged", block_size=16, min_bucket=16,
+                            num_slots=8, seed=0, **kw)
+        build_s = time.perf_counter() - t0
+        reqs = make_requests(eng.config.vocab_size, 12, prefix, tails,
+                             seed=seed)
+        res = run_serve_f16(eng, reqs, max_new_tokens=64)
+        emit("serve_f16", model=model, dtype="float16",
+             head_dim=eng.config.head_dim, model_build_s=round(build_s, 3),
+             max_seq=eng.max_seq,
+             kv_pool_gb=round(eng.cache.nbytes() / 2 ** 30, 3),
+             **{k: v for k, v in res.items() if k != "outputs"})
+        out[model] = res["launches"]
+        del eng, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+#: f16 logits, kernel path against ``kernel="reference"`` (2 layers at
+#: full width; |logits| < ~4, where an f16 ulp is 2^-9): the two paths
+#: round attention's output to f16 in another order, and K4 keeps p in
+#: f32 where both K5s round it
+PARITY_F16_TOLERANCE = 2e-2
+
+
+@torch.no_grad()
+def drive_contiguous(model, prompt, steps: int, feed):
+    """Slot 0 of a contiguous cache prefills ``prompt`` (K1 through the
+    registered op on the card) and decodes the tokens of ``feed`` (slot
+    0's of :func:`drive_paged`); the last-position logits of each
+    forward."""
+    from paddle_tpu_torch.serving import CacheContext, KVCache
+
+    cfg, bs = model.config, 16
+    param = next(model.parameters())
+    dev = param.device
+    kv_heads = getattr(cfg, "n_kv_heads", None) or cfg.num_attention_heads
+    cache = KVCache(1, cfg.num_hidden_layers, 1024, kv_heads, cfg.head_dim,
+                    param.dtype, device=dev)
+    L = len(prompt)
+    x = torch.zeros((1, -(-L // bs) * bs), dtype=torch.int64, device=dev)
+    x[0, :L] = torch.tensor(prompt, device=dev)
+    slot = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = [model(x, cache_ctx=CacheContext(cache, "prefill",
+                                           slot=slot))[0, L - 1]]
+    cache.set_length(slot, torch.tensor([L], dtype=torch.int32, device=dev))
+    for i in range(steps):
+        tok = feed[i][:1].reshape(1, 1).long()
+        out.append(model(tok, cache_ctx=CacheContext(cache, "decode"))[0,
+                                                                       -1])
+        cache.advance(torch.ones(1, dtype=torch.int32, device=dev))
+    return out
+
+
+def drive_parity_f16(model, prompt, shared_len: int, tail,
+                     steps: int = 4) -> dict:
+    """The paged kernel path (K4/K5 f16) and the contiguous one (K1 f16
+    prefill) against the paged ``kernel="reference"`` path on the same
+    tokens; max abs logit errors, finiteness and the launches of each."""
+    from paddle_tpu_torch.ops import kernels
+
+    ref, fed = drive_paged(model, "reference", prompt, shared_len, tail,
+                           steps)
+    kernels.reset_launches()
+    got, _ = drive_paged(model, "cuda", prompt, shared_len, tail, steps,
+                         feed=fed)
+    paged = kernels.launch_counts()
+    kernels.reset_launches()
+    cont = drive_contiguous(model, prompt, steps, fed)
+    contiguous = kernels.launch_counts()
+    return {"paged_err": max((a.float() - b.float()).abs().max().item()
+                             for a, b in zip(got, ref)),
+            "contiguous_err": max((a.float() - b[0].float()).abs().max()
+                                  .item() for a, b in zip(cont, ref)),
+            "finite": all(bool(torch.isfinite(t).all())
+                          for t in [*ref, *got, *cont]),
+            "forwards": len(ref), "launches_paged": paged,
+            "launches_contiguous": contiguous}
+
+
+def check_parity_f16(res: dict, label: str, cuda: bool) -> None:
+    if not res["finite"]:
+        raise AssertionError(f"parity_f16 ({label}): non-finite logits")
+    for key in ("paged_err", "contiguous_err"):
+        if not res[key] <= PARITY_F16_TOLERANCE:
+            raise AssertionError(f"parity_f16 ({label}): {key} {res[key]} "
+                                 f"> {PARITY_F16_TOLERANCE}")
+    if cuda and (min(res["launches_paged"][n] for n in F16_SERVE_KERNELS)
+                 < 1 or res["launches_contiguous"]["flash_fwd_f16"] < 1):
+        raise AssertionError(f"parity_f16 ({label}): the f16 kernels did "
+                             f"not run: {res['launches_paged']} "
+                             f"{res['launches_contiguous']}")
+
+
+def phase_parity_f16() -> None:
+    """Both widths at 2 layers in float16: the kernel paths against the
+    reference path (paged and contiguous), then the engine's CUDA graphs
+    against its step bodies run eagerly (both layouts, as
+    ``graph_parity``)."""
+    for label, build in parity_models(torch.float16):
+        model = build()
+        rs = np.random.RandomState(2)
+        prompt = rs.randint(0, model.config.vocab_size, (300,)).tolist()
+        tail = rs.randint(0, model.config.vocab_size, (100,)).tolist()
+        res = drive_parity_f16(model, prompt, 256, tail)
+        emit("parity_f16", model=label, dtype="float16",
+             head_dim=model.config.head_dim,
+             tolerance=PARITY_F16_TOLERANCE, **res)
+        check_parity_f16(res, label, cuda=True)
+        reqs = make_requests(model.config.vocab_size, 4, 48,
+                             [5, 40, 17, 90], seed=3)
+        for layout in ("paged", "contiguous"):
+            g = drive_graph_parity(model, layout, reqs, 12, num_slots=4,
+                                   max_seq=256, min_bucket=16,
+                                   block_size=16)
+            emit("parity_f16", model=label, dtype="float16", layout=layout,
+                 graph_identical=g["identical"],
+                 compile_cache=g["compile_cache"], launches=g["launches"])
+            if not g["identical"] or g["compile_cache"]["after_warmup"]:
+                raise AssertionError(
+                    f"parity_f16 ({label}, {layout}): the programs gave "
+                    f"{g['programs']}, the eager bodies {g['eager']}, "
+                    f"{g['compile_cache']}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+#: the predictor's inputs: seeded ids ``[batch, seq]``
+PREDICTOR_IDS = (4, 1024)
+#: the predictor's f16 logits against the eager forward on the same
+#: kernels (the same ops on the same device: one f16 ulp at |x| < 4)
+PREDICTOR_EAGER_TOLERANCE = 2e-3
+#: ... and against ``kernel="reference"`` (24 layers: K1 rounds p to f16
+#: before P V at every layer, the plain attention keeps f32 p)
+PREDICTOR_REFERENCE_TOLERANCE = 5e-2
+
+
+def _set_kernel(model, kernel: str) -> None:
+    for m in model.modules():
+        if hasattr(m, "kernel"):
+            m.kernel = kernel
+
+
+def _predictor_config(path: str, device: torch.device):
+    from paddle_tpu_torch import inference
+
+    cfg = inference.Config(path)
+    if device.type == "cuda":
+        cfg.enable_use_gpu(256, device.index or 0,
+                           inference.PrecisionType.Half)
+    else:
+        cfg.disable_gpu()
+    return cfg
+
+
+def _timed_run(pred, device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def run_predictor(model, ids: np.ndarray, root: str) -> dict:
+    """``jit.save`` ``model`` (symbolic batch) into ``root``, serve it
+    through ``Config``, ``create_predictor`` and the handles on ``ids``
+    (a first run, then one counted and timed on the host's clock, the
+    logits' copy to the host included; on the card also the program's and
+    the eager forward's ms between CUDA events and the host ms each takes
+    to enqueue a call: where the host's exceed the events', the call is
+    bound by the host), and hold the logits to the eager
+    forward and to ``kernel="reference"``; then a
+    ``PredictorPool(config, 2)``, whose loads are counted.  The model
+    and the predictors run on the model's device."""
+    from paddle_tpu_torch import inference, jit, static
+    from paddle_tpu_torch.ops import kernels
+
+    dev = next(model.parameters()).device
+    path = os.path.join(root, "model")
+    t0 = time.perf_counter()
+    jit.save(model, path, input_spec=[
+        static.InputSpec([None, ids.shape[1]], "int64", name="input_ids")])
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = _predictor_config(path, dev)
+    pred = inference.create_predictor(cfg)
+    load_s = time.perf_counter() - t0
+    names = pred.get_input_names()
+    pred.get_input_handle(names[0]).copy_from_cpu(ids)
+    first_ms = _timed_run(pred, dev)
+    kernels.reset_launches()
+    run_ms = _timed_run(pred, dev)
+    launches = kernels.launch_counts()
+    out = pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
+    x = torch.from_numpy(ids).to(dev)
+    with torch.no_grad():
+        eager = model(x).float().cpu().numpy()
+        _set_kernel(model, "reference")
+        try:
+            ref = model(x).float().cpu().numpy()
+        finally:
+            _set_kernel(model, "cuda")
+    got = out.astype(np.float32)
+    program_ms = eager_ms = program_host_ms = eager_host_ms = None
+    if dev.type == "cuda":      # the logits left on the card
+        with torch.no_grad():
+            program_ms = cuda_ms(lambda: pred._layer(x), iters=3, warmup=1)
+            eager_ms = cuda_ms(lambda: model(x), iters=3, warmup=1)
+            program_host_ms = host_ms(lambda: pred._layer(x))
+            eager_host_ms = host_ms(lambda: model(x))
+    loads = []
+    orig = jit.load
+
+    def counting(*a, **k):
+        loads.append(a[0])
+        return orig(*a, **k)
+
+    jit.load = counting
+    try:
+        pool = inference.PredictorPool(cfg, 2)
+    finally:
+        jit.load = orig
+    pool_out = pool.retrieve(1).run([ids])[0]
+    return {"input_names": names, "out_shape": list(out.shape),
+            "out_dtype": str(out.dtype),
+            "finite": bool(np.isfinite(got).all()),
+            "eager_err": float(np.abs(got - eager).max()),
+            "reference_err": float(np.abs(got - ref).max()),
+            "max_abs_logit": float(np.abs(ref).max()),
+            "pool_loads": len(loads),
+            "pool_shares_layer": pool.retrieve(0)._layer
+            is pool.retrieve(1)._layer,
+            "pool_equal": bool(np.array_equal(pool_out, out)),
+            "launches": launches, "save_s": round(save_s, 3),
+            "load_s": round(load_s, 3), "first_run_ms": round(first_ms, 3),
+            "run_ms": round(run_ms, 3), "program_ms": program_ms,
+            "eager_ms": eager_ms, "program_host_ms": program_host_ms,
+            "eager_host_ms": eager_host_ms,
+            "program_mb": round(os.path.getsize(path + ".pdmodel") / 2 ** 20,
+                                3),
+            "params_mb": round(os.path.getsize(path + ".pdiparams")
+                               / 2 ** 20, 3),
+            "device": str(pred._layer.device)}
+
+
+def check_predictor(res: dict, layers: int, cuda: bool, tag: str) -> None:
+    if not res["finite"]:
+        raise AssertionError(f"{tag}: non-finite logits")
+    for key, tol in (("eager_err", PREDICTOR_EAGER_TOLERANCE),
+                     ("reference_err", PREDICTOR_REFERENCE_TOLERANCE)):
+        if not res[key] <= tol:
+            raise AssertionError(f"{tag}: {key} {res[key]} > {tol}")
+    if res["pool_loads"] != 1 or not res["pool_shares_layer"] or \
+            not res["pool_equal"]:
+        raise AssertionError(f"{tag}: PredictorPool(config, 2) loaded "
+                             f"{res['pool_loads']} times (want 1), "
+                             f"shared {res['pool_shares_layer']}, equal "
+                             f"{res['pool_equal']}")
+    want = {n: 0 for n in res["launches"]}
+    if cuda:
+        want["flash_fwd_f16"] = layers
+    if res["launches"] != want:
+        raise AssertionError(f"{tag}: one run launched "
+                             f"{ {n: c for n, c in res['launches'].items() if c} }"
+                             f", want flash_fwd_f16 x {layers if cuda else 0}"
+                             f" and nothing else")
+
+
+def cpu_artifact_on_card(root: str, device) -> dict:
+    """A small f16 GPT (head dim 64) saved on the CPU, served by a CPU
+    predictor and by one on ``device``: the latter runs K1 (one launch a
+    layer), its logits within ``TOLERANCE[float16]`` of the CPU run's (the
+    plain version there)."""
+    from paddle_tpu_torch import inference, jit, static
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=128, num_hidden_layers=2,
+                    num_attention_heads=2, max_position_embeddings=128,
+                    hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    model = GPTForCausalLM(cfg, device="cpu", dtype=torch.float16,
+                           generator=torch.Generator().manual_seed(4)).eval()
+    path = os.path.join(root, "tiny")
+    jit.save(model, path, input_spec=[static.InputSpec([None, 64], "int64")])
+    ids = np.random.RandomState(5).randint(0, 128, (2, 64))
+    want = inference.create_predictor(
+        _predictor_config(path, torch.device("cpu"))).run([ids])[0]
+    pred = inference.create_predictor(_predictor_config(path,
+                                                        torch.device(device)))
+    kernels.reset_launches()
+    got = pred.run([ids])[0]
+    launches = kernels.launch_counts()
+    err = float(np.abs(got.astype(np.float32) - want.astype(np.float32))
+                .max())
+    return {"device": str(pred._layer.device), "err": err,
+            "tolerance": TOLERANCE[torch.float16], "launches": launches,
+            "layers": cfg.num_hidden_layers}
+
+
+def phase_predictor() -> dict:
+    """GPT-2 345M at full width made f16 by ``amp.decorate(level="O2",
+    dtype="float16")``, saved by ``jit.save`` into the temporary
+    directory and served through ``Config`` /
+    ``enable_use_gpu(precision=Half)`` / ``create_predictor`` and the
+    handles on seeded ``PREDICTOR_IDS``: logits against the eager forward
+    and ``kernel="reference"``, ``flash_fwd_f16`` launched once a layer a
+    run and nothing else, a pool of 2 loading once; then a CPU-saved
+    artifact on the card.  Returns the run's launch counts."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_345m
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(gpt2_345m(hidden_dropout_prob=0.0,
+                                     attention_probs_dropout_prob=0.0),
+                           device="cuda", dtype=torch.float32,
+                           generator=gen).eval()
+    model = amp.decorate(model, level="O2", dtype="float16")
+    ids = np.random.RandomState(6).randint(
+        0, model.config.vocab_size, PREDICTOR_IDS)
+    layers = model.config.num_hidden_layers
+    with tempfile.TemporaryDirectory() as root:
+        res = run_predictor(model, ids, root)
+        emit("predictor", model="gpt2-345m", dtype="float16 (amp.decorate "
+             "O2)", ids=list(PREDICTOR_IDS),
+             eager_tolerance=PREDICTOR_EAGER_TOLERANCE,
+             reference_tolerance=PREDICTOR_REFERENCE_TOLERANCE, **res)
+        check_predictor(res, layers, cuda=True, tag="predictor")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        tiny = cpu_artifact_on_card(root, "cuda")
+    emit("predictor", artifact="saved on the CPU, served on the card",
+         **tiny)
+    if not (tiny["err"] <= tiny["tolerance"] and tiny["device"]
+            .startswith("cuda") and tiny["launches"]["flash_fwd_f16"]
+            == tiny["layers"]):
+        raise AssertionError(f"predictor: the CPU-saved artifact on the "
+                             f"card: {tiny}")
+    return res["launches"]
+
+
 # -- phases 12, 13 and 14: training ----------------------------------------
 
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -4966,10 +5503,15 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    f16 = phase_serve_f16()
     drill = phase_sigkill_drill()
     phase_overload_parity()
     phase_spec_parity()
     phase_tenancy_parity()
+    phase_parity_f16()
+    predictor = phase_predictor()
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_train()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4989,8 +5531,11 @@ def main() -> int:
     launches = {**paged["launches"],
                 **{n: train["launches"][n] for n in TRAIN_KERNELS},
                 **{n: recipe[n] for n in RECIPE_KERNELS},
-                **{n: fp16[n] for n in F16_KERNELS + F16_DROPOUT_KERNELS}}
+                **{n: fp16[n] for n in F16_KERNELS + F16_DROPOUT_KERNELS},
+                **{n: f16["llama2-7b"][n] for n in F16_SERVE_KERNELS}}
     by_phase = {"serve_paged": paged["launches"],
+                "serve_f16": _sum_launches(*f16.values()),
+                "predictor": predictor,
                 "serve_durable": durable["launches"],
                 "serve_spec": spec,
                 "serve_tenancy": tenancy,

@@ -10,10 +10,16 @@ kernel of the JAX package:
   (``csrc/flash_attention_bwd.cu``), K1-K3 each also with attention
   dropout on a Philox generator (:mod:`.rng`), each in f32, bf16 and
   f16,
-- K4 paged decode and K5 fused paged prefill (``csrc/paged_attention.cu``).
+- K4 paged decode and K5 fused paged prefill (``csrc/paged_attention.cu``),
+  each in f32, bf16 and f16.
 
 Entry points: :func:`inference.create_engine` serves GPT and Llama
-models, each engine step a CUDA graph on the card;
+models in f32, bf16 or f16, each engine step a CUDA graph on the card;
+the deployment path :func:`jit.save` → ``inference.Config`` →
+:func:`inference.create_predictor` → ``Predictor.run`` serves a saved
+model in one call (its attention K1, through the registered op
+``paddle_tpu_torch::flash_fwd``), and :func:`framework.save`/``load``
+read and write the JAX package's tensor files;
 :func:`training.build_train_step` trains GPT (the GPT-2 345M step of
 ``bench.py``, compiled by :func:`jit.to_static`: one CUDA graph a step on
 the card; AMP O2 or O1), and so does a user's own loop of
@@ -26,12 +32,13 @@ JAX package's per-op lists), ``amp.GradScaler`` and ``jit.to_static``;
 instead.
 """
 from . import (
-    amp, distributed, jit, models, nn, obs, ops, optimizer, rng, serving,
+    amp, distributed, framework, inference, jit, models, nn, obs, ops,
+    optimizer, rng, serving, static,
 )
 from .inference import create_engine
 from .rng import seed
 from .training import build_train_step
 
 __all__ = ["amp", "build_train_step", "create_engine", "distributed",
-           "jit", "models", "nn", "obs", "ops", "optimizer", "rng", "seed",
-           "serving"]
+           "framework", "inference", "jit", "models", "nn", "obs", "ops",
+           "optimizer", "rng", "seed", "serving", "static"]

@@ -5,7 +5,7 @@
 // paged_attention_kernel.py): softmax in f32, scale 1/sqrt(D), masked
 // scores filled with -1e30, online softmax (running max m, running sum l,
 // f32 accumulator), and the l == 0 guard at the end.  Inputs and outputs
-// are f32, bf16 or (K1-K3) f16.
+// are f32, bf16 or f16.
 //
 // `attend_tile` is the f32 query-tile loop shared by the paged prefill
 // kernel (K5, paged_attention.cu) and the flash forward kernel (K1,

@@ -62,12 +62,16 @@
 // flops.  One block per (query tile, head) walks the key tiles up to the
 // tile's causal horizon start + last_row; the Pallas kernel instead holds
 // all S queries in VMEM, which S = 4096 would not fit in shared memory.
-// bf16 runs on tensor cores through `tc::attend_tile` (attention_wgmma.cuh),
-// the loop K1 runs: 64 queries per warpgroup, wgmma for both products, K/V
-// rows fetched by cp.async through the block table (a 64-key tile spans
-// four 16-row pool blocks).  It rounds p to bf16 before P V, where the
-// Pallas kernel keeps p in f32: one bf16 rounding of p apart.  f32 keeps the
+// bf16 and f16 run on tensor cores through `tc::attend_tile<T, D>`
+// (attention_wgmma.cuh), the loop K1 runs: 64 queries per warpgroup, wgmma
+// for both products, K/V rows fetched by cp.async through the block table
+// (a 64-key tile spans four 16-row pool blocks).  It rounds p to the input
+// dtype before P V, where the Pallas kernel keeps p in f32: one 16-bit
+// rounding of p apart (the plain version rounds it too).  f32 keeps the
 // CUDA-core loop `attend_tile` (attention_common.cuh), 16 queries a block.
+//
+// Every dtype rounds its output once, to nearest (`from_f32<T>`); in f16 a
+// value past 65504 becomes inf, never clamped.
 #include "attention_wgmma.cuh"
 
 namespace pt {
@@ -75,20 +79,40 @@ namespace pt {
 constexpr int kMaxGroup = 8;        // query heads per kv head a block holds
 constexpr int kMaxSplitKeys = 512;  // positions one decode block may walk
 
-// 16 bytes of a K/V/q row as f32: 4 floats or 8 bf16 (bf16 -> f32 is a
-// 16-bit shift, the low half first).
-__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[4]) {
+// 16 bytes of a K/V/q row as f32, widened by the row's element type T
+// (never by the element count: bf16 and f16 both take 8 to the 16 bytes):
+// 4 floats; 8 bf16, each a 16-bit shift, the low half first; or 8 f16,
+// two at a time by __half22float2, the low half first.
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& u,
+                                         float (&f)[16 / sizeof(T)]);
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& u,
+                                                float (&f)[4]) {
   f[0] = __uint_as_float(u.x);
   f[1] = __uint_as_float(u.y);
   f[2] = __uint_as_float(u.z);
   f[3] = __uint_as_float(u.w);
 }
-__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[8]) {
+template <>
+__device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& u,
+                                                        float (&f)[8]) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     f[2 * i] = __uint_as_float(w[i] << 16);
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+template <>
+__device__ __forceinline__ void unpack16<__half>(const uint4& u,
+                                                 float (&f)[8]) {
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __half22float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
   }
 }
 
@@ -156,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     if (g0 + g < G)
       u = __ldg(reinterpret_cast<const uint4*>(
           q + b * q_sb + (long long)(hkv * G + g0 + g) * q_sh + sub * kVec));
-    unpack16(u, qf[g]);
+    unpack16<T>(u, qf[g]);
 #pragma unroll
     for (int i = 0; i < kVec; ++i) qf[g][i] *= scale_log2;
   }
@@ -209,7 +233,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
       for (int u = 0; u < kLoads; ++u) {
         float kf[kVec];
-        unpack16(kr[u], kf);
+        unpack16<T>(kr[u], kf);
         const bool live = t0 + u * kKeysPerLoad + kslot < s1;
 #pragma unroll
         for (int g = 0; g < kRows; ++g) {
@@ -247,7 +271,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
       for (int u = 0; u < kLoads; ++u) {
         float vf[kVec];
-        unpack16(vr[u], vf);
+        unpack16<T>(vr[u], vf);
 #pragma unroll
         for (int g = 0; g < kRows; ++g)
 #pragma unroll
@@ -474,8 +498,8 @@ int launch_prefill(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace pt
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch,
-// or -1 for a (dtype, head_dim) pair that has no instance.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns the cudaError_t
+// of the launch, or -1 for a (dtype, head_dim) pair that has no instance.
 #define PT_DISPATCH(FN, ...)                                              \
   if (dtype == 0 && head_dim == 64) return FN<float, 64>(__VA_ARGS__);    \
   if (dtype == 0 && head_dim == 128) return FN<float, 128>(__VA_ARGS__);  \
@@ -483,6 +507,8 @@ int launch_prefill(const void* q, const void* k_pool, const void* v_pool,
     return FN<__nv_bfloat16, 64>(__VA_ARGS__);                            \
   if (dtype == 1 && head_dim == 128)                                      \
     return FN<__nv_bfloat16, 128>(__VA_ARGS__);                           \
+  if (dtype == 2 && head_dim == 64) return FN<__half, 64>(__VA_ARGS__);   \
+  if (dtype == 2 && head_dim == 128) return FN<__half, 128>(__VA_ARGS__); \
   return -1;
 
 extern "C" {

@@ -41,13 +41,41 @@ constant of the graph.  A body must not read a device value on the host
 synchronize: its capture then fails and the call raises
 :class:`CaptureError` naming that cause (the JAX package's tracer-leak
 errors, :25-34); the program keeps raising, and no eager step stands in.
-``save``, ``load``, ``TracedLayer`` and dy2static control flow are not
-ported (ROADMAP.md A.5).
+
+``save``, ``load`` and ``TranslatedLayer`` (:302-450) are the deployment
+format.  ``save(layer, path, input_spec)`` exports, with ``torch.export``,
+a function of ``(state, inputs)`` that calls the layer through
+``torch.func.functional_call`` (the JAX ``pure(state_arrays,
+in_arrays)``), so that:
+
+- ``<path>.pdmodel`` is a weight-free ``torch.export`` archive (the
+  layer's parameters and buffers are its inputs, never its constants);
+- ``<path>.pdiparams`` is the state in :mod:`.framework.io`'s format;
+- ``<path>.pdmeta.json`` is the JAX sidecar's ``format: 1`` (input names,
+  shapes with ``None`` where a dim is symbolic, dtypes).
+
+An ``InputSpec`` dim given as ``None`` or ``-1`` becomes a
+``torch.export.Dim`` of range 1.. (traced at size 2: ``torch.export``
+specializes a dim whose example is 1).  Attention in the program is the
+registered op ``paddle_tpu_torch::flash_fwd``, whose implementation the
+dispatcher picks by device when the program runs (K1 on the card).
+``load(path, device)`` moves the program and the state to ``device``
+(``"cuda"`` unless the caller asks for the CPU), so a program exported on
+the CPU runs K1 on the card.  A ``.pdmodel`` the JAX package wrote
+(serialized StableHLO) is refused, naming what it is; its ``.pdiparams``
+and ``.pdmeta.json`` still load (:func:`.framework.load`).  A forward
+whose Python control flow depends on a tensor's value cannot be exported:
+the JAX package rewrites it (``jit/dy2static.py``), which is not ported
+(ROADMAP.md A.5), and ``save`` raises naming that.  ``TracedLayer``
+(``jit/trace.py``) is not ported either.
 """
 from __future__ import annotations
 
 import functools
 import gc
+import io
+import json
+import os
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -56,8 +84,8 @@ from torch import nn
 from .ops import kernels
 from .serving.programs import _capture_stream
 
-__all__ = ["CaptureError", "InputSpec", "StaticFunction", "enable_to_static",
-           "not_to_static", "to_static"]
+__all__ = ["CaptureError", "InputSpec", "StaticFunction", "TranslatedLayer",
+           "enable_to_static", "load", "not_to_static", "save", "to_static"]
 
 _enabled = {"to_static": True}
 
@@ -323,3 +351,215 @@ def enable_to_static(enable: bool = True) -> None:
     """Turn compilation on or off for every :class:`StaticFunction`: off,
     each runs its function."""
     _enabled["to_static"] = bool(enable)
+
+
+# -- save / load: the deployment format --------------------------------------
+
+def _is_symbolic(d) -> bool:
+    return d is None or (isinstance(d, int) and d < 0)
+
+
+def _example(spec) -> torch.Tensor:
+    """An input to trace with: zeros of the spec's shape, a symbolic dim
+    at size 2 (``torch.export`` specializes a dim whose example is 0 or
+    1); a tensor given in place of a spec is taken as it is."""
+    if isinstance(spec, torch.Tensor):
+        return spec
+    return torch.zeros([2 if _is_symbolic(d) else int(d)
+                        for d in spec.shape], dtype=spec.dtype)
+
+
+class _Call(nn.Module):
+    """The layer as a submodule (so that ``functional_call`` swaps its
+    tensors) and the forward to call."""
+
+    def __init__(self, net: Optional[nn.Module], fn: Callable):
+        super().__init__()
+        self.net = net
+        self.fn = fn
+
+    def forward(self, *inputs):
+        return self.fn(*inputs)
+
+
+class _Pure(nn.Module):
+    """``(state, *inputs) -> fn(*inputs)`` with the layer's tensors taken
+    from ``state`` (in ``names`` order).  The layer is held outside the
+    module tree, so the exported program owns none of its tensors."""
+
+    def __init__(self, call: _Call, names: List[str]):
+        super().__init__()
+        object.__setattr__(self, "_call", call)
+        self._names = names
+
+    def forward(self, state, *inputs):
+        return torch.func.functional_call(
+            self._call, {f"net.{n}": t for n, t in zip(self._names, state)},
+            inputs)
+
+
+def _data_dependent(e: BaseException) -> bool:
+    text = " ".join(str(x) for x in (e, e.__cause__, e.__context__)
+                    if x is not None).lower()
+    return "data-dependent" in text or "data dependent" in text
+
+
+def save(layer, path: str, input_spec=None, **configs) -> None:
+    """``paddle.jit.save``: export ``layer`` (an ``nn.Module``, its bound
+    forward, or a :func:`to_static` function) for ``input_spec`` (a list of
+    :class:`InputSpec` or example tensors) to ``<path>.pdmodel``,
+    ``<path>.pdiparams`` and ``<path>.pdmeta.json`` (module docstring).
+    The layer is traced in eval mode with no gradient, on the device its
+    tensors are on."""
+    from .framework.io import save as _fsave
+
+    if isinstance(layer, nn.Module):
+        fwd, net = layer.forward, layer
+    else:
+        fwd, net = layer, getattr(layer, "__self__", None)
+    if input_spec is None and isinstance(fwd, StaticFunction):
+        input_spec = fwd._input_spec
+    if input_spec is None:
+        raise ValueError("jit.save requires input_spec")
+    raw_fn = fwd._fn if isinstance(fwd, StaticFunction) else fwd
+    state = {} if net is None else {**dict(net.named_parameters()),
+                                    **dict(net.named_buffers())}
+    names = sorted(state)
+    devices = {t.device for t in state.values()}
+    if len(devices) > 1:
+        raise ValueError(f"jit.save: the layer's tensors lie on "
+                         f"{sorted(map(str, devices))}")
+    device = devices.pop() if devices else torch.device("cpu")
+    examples = [_example(s).to(device) for s in input_spec]
+    dims = iter(torch.export.Dim(f"_d{i}", min=1) for i in range(64))
+    dynamic = [{a: next(dims) for a, d in enumerate(s.shape)
+                if _is_symbolic(d)} or None
+               if isinstance(s, InputSpec) else None for s in input_spec]
+    was_training = net.training if net is not None else False
+    if net is not None:
+        net.eval()
+    try:
+        with torch.no_grad():
+            program = torch.export.export(
+                _Pure(_Call(net, raw_fn), names),
+                ([state[n].detach() for n in names], *examples),
+                dynamic_shapes=([None] * len(names), tuple(dynamic)),
+                strict=False)
+    except Exception as e:
+        if _data_dependent(e):
+            raise NotImplementedError(
+                f"jit.save: the forward's Python control flow depends on a "
+                f"tensor's value, which torch.export cannot trace; the JAX "
+                f"package rewrites such control flow (jit/dy2static.py), "
+                f"which is not ported (ROADMAP.md A.5): "
+                f"{str(e).splitlines()[0]}") from e
+        raise
+    finally:
+        if net is not None and was_training:
+            net.train()
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    # the archive keeps no tensor: not the traced examples (the state
+    # among them), which torch.export would otherwise store with it
+    program.example_inputs = None
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    with open(path + ".pdmodel", "wb") as f:
+        f.write(buf.getvalue())
+    _fsave({n: state[n] for n in names}, path + ".pdiparams")
+    in_names = [getattr(s, "name", None) or f"x{i}"
+                for i, s in enumerate(input_spec)]
+    meta = {"format": 1, "input_names": in_names,
+            "inputs": [{"name": name,
+                        "shape": [None if _is_symbolic(d) else int(d)
+                                  for d in (s.shape
+                                            if isinstance(s, InputSpec)
+                                            else ex.shape)],
+                        "dtype": str(ex.dtype).split(".")[-1]}
+                       for name, s, ex in zip(in_names, input_spec,
+                                              examples)]}
+    with open(path + ".pdmeta.json", "w") as f:
+        json.dump(meta, f, indent=1)
+
+
+class TranslatedLayer:
+    """An inference-only callable loaded by :func:`load` (reference:
+    ``fluid/dygraph/io.py:1137``): the exported program, its state on one
+    device, and the input dtypes of the sidecar."""
+
+    def __init__(self, program, state: Dict[str, torch.Tensor],
+                 device: torch.device, input_dtypes=None):
+        self._program = program
+        self._module = program.module()
+        self._names = sorted(state)
+        self._state = state
+        self._device = device
+        self._input_dtypes = input_dtypes
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def _input(self, i: int, x) -> torch.Tensor:
+        t = torch.as_tensor(x)
+        dtype = (self._input_dtypes[i] if self._input_dtypes
+                 and i < len(self._input_dtypes) else t.dtype)
+        return t.to(self._device, dtype=dtype)
+
+    def __call__(self, *inputs):
+        args = [self._input(i, x) for i, x in enumerate(inputs)]
+        with torch.no_grad():
+            out = self._module([self._state[n] for n in self._names], *args)
+        if isinstance(out, (list, tuple)):
+            return out[0] if len(out) == 1 else list(out)
+        return out
+
+    forward = __call__
+
+    def eval(self) -> "TranslatedLayer":
+        return self
+
+    def train(self):
+        raise RuntimeError("TranslatedLayer is inference-only")
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        return dict(self._state)
+
+
+def load(path: str, device="cuda", **configs) -> TranslatedLayer:
+    """``paddle.jit.load``: what :func:`save` wrote, as a
+    :class:`TranslatedLayer` on ``device`` (``"cuda"`` unless the caller
+    asks for the CPU; no card raises).  The program's recorded devices are
+    rewritten to ``device``, so a program exported on the CPU runs on the
+    card.  A ``.pdmodel`` of the JAX package (serialized StableHLO) raises
+    ``ValueError``."""
+    from torch.export.passes import move_to_device_pass
+
+    from .framework.io import load as _fload
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"jit.load: device {device!r} asked for, but no "
+                           f"CUDA device is available (pass device='cpu' "
+                           f"to run on the CPU)")
+    with open(path + ".pdmodel", "rb") as f:
+        blob = f.read()
+    if not blob.startswith(b"PK"):
+        raise ValueError(
+            f"jit.load: {path}.pdmodel is not a torch.export archive; the "
+            f"JAX package writes its programs as serialized StableHLO, "
+            f"which this package does not run (its .pdiparams loads with "
+            f"paddle_tpu_torch.framework.load, its .pdmeta.json as JSON)")
+    program = torch.export.load(io.BytesIO(blob))
+    program = move_to_device_pass(program, dev)
+    state = {n: t.detach().to(dev)
+             for n, t in _fload(path + ".pdiparams").items()}
+    dtypes = None
+    try:
+        with open(path + ".pdmeta.json") as f:
+            dtypes = [getattr(torch, i["dtype"])
+                      for i in json.load(f)["inputs"]]
+    except (OSError, ValueError, KeyError, TypeError, AttributeError):
+        pass
+    return TranslatedLayer(program, state, dev, dtypes)

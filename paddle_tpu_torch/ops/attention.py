@@ -16,6 +16,16 @@ take f32, bf16 and f16, and round where the Pallas kernels round: p to
 the input dtype before P V (K1) and before P^T dO (K2), ds before ds^T Q
 (K2) and ds K (K3), each product summed in f32.
 
+Without a gradient to take, :func:`flash_attention` calls K1 through the
+registered op ``torch.ops.paddle_tpu_torch.flash_fwd`` (:func:`flash_fwd`):
+the dispatcher picks its implementation by the tensors' device at run
+time, ``kernels.flash_fwd`` on CUDA tensors and the plain
+:func:`_flash_fwd_reference` on CPU ones, so a program traced on one
+device (``torch.export``, ``jit.save``) holds the op and not the choice,
+and runs K1 wherever it is loaded on the card.  Its fake implementation
+gives ``torch.export`` the shapes: ``o`` like ``q`` (contiguous) and
+``lse`` f32 ``[B*H, S]``.
+
 The kernel path takes causal or full self-attention with no mask.  A call
 with ``attn_mask`` takes the JAX package's own route for it, the XLA
 oracle (``paddle_tpu/ops/pallas/__init__.py:35-57, 94-109``), in plain
@@ -36,14 +46,14 @@ from __future__ import annotations
 
 import torch
 
-from typing import Optional
+from typing import Optional, Tuple
 
 from .. import rng as rng_mod
 from ..amp.auto_cast import amp_op
 from . import kernels
 from .cached_attention import NEG_INF
 
-__all__ = ["flash_attention", "supports"]
+__all__ = ["flash_attention", "flash_fwd", "supports"]
 
 _KERNEL_CHOICES = ("cuda", "reference")
 
@@ -181,6 +191,34 @@ def _use_kernel(t: torch.Tensor, kernel: str) -> bool:
     return t.is_cuda and kernel == "cuda"
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, dropout_p: float = 0.0,
+              rng: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as a registered op, ``(o, lse)`` as :func:`kernels.flash_fwd`
+    returns them.  This body is the CPU implementation: the plain
+    :func:`_flash_fwd_reference`; CUDA tensors launch the kernel
+    (:func:`_flash_fwd_cuda`), and any other device has none."""
+    o, lse = _flash_fwd_reference(q, k, v, causal, dropout_p, rng)
+    return o.contiguous(), lse.contiguous()
+
+
+@flash_fwd.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, causal, dropout_p=0.0, rng=None):
+    """The CUDA implementation: K1, and nothing else (a shape or dtype the
+    kernel does not take raises)."""
+    return kernels.flash_fwd(q, k, v, causal, dropout_p, rng)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, dropout_p=0.0, rng=None):
+    B, S, H, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((B * H, S), dtype=torch.float32))
+
+
 class _FlashAttention(torch.autograd.Function):
     """K1 forward, K2 + K3 backward (``_flash``'s custom_vjp): the forward
     saves ``(q, k, v, o, lse)`` and the dropout draw; the backward forms
@@ -242,7 +280,9 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
     ``dropout_p`` applies when ``training``: one draw from ``generator``
     (default: the query's device's) feeds the dropout instances of the
     kernels (or the plain versions).  When no input requires a gradient,
-    or under ``torch.no_grad()``, nothing is saved for a backward.
+    or under ``torch.no_grad()``, nothing is saved for a backward, and
+    ``kernel="cuda"`` calls the registered op :func:`flash_fwd` (K1 on
+    the card, the plain version on the CPU, chosen by the dispatcher).
     ``attn_mask`` (bool: False drops a score; float: added to the scores;
     broadcast to ``[B, H, Sq, Sk]``) takes the JAX package's route for a
     mask, the plain :func:`_sdpa_reference` with autograd, on every
@@ -269,6 +309,6 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
                                     or value.requires_grad):
         return _FlashAttention.apply(query, key, value, is_causal, kernel, p,
                                      rng)
-    if _use_kernel(query, kernel):
-        return kernels.flash_fwd(query, key, value, is_causal, p, rng)[0]
+    if kernel == "cuda":
+        return flash_fwd(query, key, value, is_causal, p, rng)[0]
     return _flash_fwd_reference(query, key, value, is_causal, p, rng)[0]

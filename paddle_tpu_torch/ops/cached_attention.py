@@ -7,7 +7,12 @@ versions (:func:`cached_attention`, :func:`verify_attention`,
 ``kernel="reference"`` path and the oracle the CUDA kernels are held
 against.  They upcast to f32 before
 the products, as the kernels do (the jnp oracles of the JAX package round
-the logits in the input dtype first; in f32 the two agree).
+the logits in the input dtype first; in f32 the two agree).  For bf16 and
+f16 inputs :func:`block_prefill_attention` also rounds the unnormalised
+probabilities to the input dtype before P V, as K5's tensor-core loop
+does (the Pallas ``_prefill_kernel`` keeps them in f32); the decode
+versions keep them in f32, as K4 does.  All three dtypes, f32, bf16 and
+f16, take the kernels on the card.
 
 :func:`paged_decode_attention` (K4) and :func:`paged_prefill_attention`
 (K5) consume the block table inside a hand-written CUDA kernel
@@ -40,16 +45,23 @@ def _expand_gqa(k: torch.Tensor, v: torch.Tensor, n_heads: int):
     return (k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2))
 
 
-def _masked_attention(q, k, v, valid):
+def _masked_attention(q, k, v, valid, round_p: bool = False):
     """softmax(mask(q k^T / sqrt(D))) v in f32; ``valid`` broadcasts
-    against the ``[B, H, Sq, T]`` logits.  Output in q's dtype."""
+    against the ``[B, H, Sq, T]`` logits.  Output in q's dtype.
+    ``round_p``: the unnormalised ``p = exp(s - max)`` is rounded to v's
+    dtype before P V (the product summed in f32) and divided by the f32
+    sum of the unrounded p, as the 16-bit tensor-core loop computes."""
     D = q.shape[-1]
     k, v = _expand_gqa(k, v, q.shape[2])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
         * (1.0 / D ** 0.5)
     logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+    if not round_p or v.dtype == torch.float32:
+        probs = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return (pv / p.sum(dim=-1, keepdim=True).transpose(1, 2)).to(q.dtype)
 
 
 def cached_attention(query: torch.Tensor, k_cache: torch.Tensor,
@@ -106,13 +118,15 @@ def block_prefill_attention(query: torch.Tensor, k_cache: torch.Tensor,
     ``kpos <= qpos`` (the cached prefix and the causal tail in one mask).
     ``query`` ``[1, S, H, D]``, caches ``[1, T, Hkv, D]``; ``start`` an
     integer tensor of one element, read on the device as K5 reads it (a
-    negative start counts as 0, in both)."""
+    negative start counts as 0, in both).  bf16 and f16 round p before
+    P V, as K5 does (:func:`_masked_attention`)."""
     S, T = query.shape[1], k_cache.shape[1]
     start = start.reshape(()).long().clamp_min(0)
     qpos = start + torch.arange(S, device=query.device)
     kpos = torch.arange(T, device=query.device)
     valid = kpos[None, :] <= qpos[:, None]
-    return _masked_attention(query, k_cache, v_cache, valid[None, None])
+    return _masked_attention(query, k_cache, v_cache, valid[None, None],
+                             round_p=True)
 
 
 def paged_decode_attention(query: torch.Tensor, k_pool: torch.Tensor,

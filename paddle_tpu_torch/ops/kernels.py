@@ -13,9 +13,10 @@ kernel and its plain PyTorch version is made one level up, by the device
 of the tensors (``ops.cached_attention``, ``ops.attention``).  Each
 wrapper counts its launches in :data:`KERNELS`, so a run can show that it
 went through the kernel; K1-K3 with attention dropout launch their
-dropout instances and count them under ``<name>_dropout``, and K1-K3 on
-float16 tensors count their f16 instances under ``<name>_f16`` (and
-``<name>_dropout_f16``).  K4 and K5 take float32 and bfloat16 only.
+dropout instances and count them under ``<name>_dropout``, and every
+kernel on float16 tensors counts its f16 instance under ``<name>_f16``
+(K1-K3 with dropout: ``<name>_dropout_f16``).  All five take float32,
+bfloat16 and float16.
 
 The wrappers can be captured into a CUDA graph (``serving.programs``):
 they read nothing back from the device, allocate their outputs and
@@ -66,7 +67,7 @@ DECODE_SPLIT_KEYS = 512
 DECODE_GRID_BLOCKS = 2048
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the dtypes of K4/K5 (paged) and of K1-K3 (flash)
-PAGED_DTYPES = (torch.float32, torch.bfloat16)
+PAGED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: the dtypes whose instances run on tensor cores and copy 16-byte rows
 _TC_DTYPES = (torch.bfloat16, torch.float16)
@@ -140,9 +141,9 @@ KERNELS: Dict[str, KernelInfo] = {
         "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "paddle_tpu/ops/pallas/flash_attention_kernel.py:210"),
 }
-# the float16 instances of K1-K3, p == 0 and dropout alike (the Pallas
-# kernels are dtype-generic; they replace the same functions)
-for _name in [n for n in KERNELS if n.startswith("flash_")]:
+# the float16 instances of K1-K5, K1-K3 at p == 0 and with dropout alike
+# (the Pallas kernels are dtype-generic; they replace the same functions)
+for _name in list(KERNELS):
     KERNELS[_name + "_f16"] = KernelInfo(
         _name + "_f16", KERNELS[_name].source, KERNELS[_name].replaces)
 del _name
@@ -389,7 +390,8 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     the window being ``0..lengths[b]``.  Returns ``[B, 1, H, D]``.  The
     kernel copies rows in 16-byte pieces, so q's and the pools' rows must
     start 16-byte aligned (:func:`_check_rows16`).  The split-K launch
-    comes from :func:`decode_plan`.  One device launch."""
+    comes from :func:`decode_plan`.  One device launch; a float16 launch
+    counts as ``paged_decode_f16``."""
     what = "paged_decode"
     D = _check_common(what, q, k_pool, v_pool, block_tables, lengths)
     _require(q.dim() == 4 and q.shape[1] == 1, what,
@@ -424,7 +426,7 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         block_tables.stride(0), k_pool.stride(0), k_pool.stride(1),
         k_pool.stride(2), _LOG2E / D ** 0.5, stream)
     _raise_on(rc, lib, "pt_paged_error_string", what)
-    KERNELS["paged_decode"].launches += 1
+    KERNELS["paged_decode" + _instance(q, "")].launches += 1
     return out
 
 
@@ -438,9 +440,10 @@ def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
     ``[max_blocks]`` int32, the slot's table row; ``start`` an int32
     tensor of one element on the device, which the kernel reads at entry
     (a negative value counts as 0), so that one CUDA graph of a bucket
-    serves every prefix length.  Returns ``[1, S, H, D]``.  bf16 runs on
-    tensor cores and needs 16-byte aligned rows (:func:`_check_rows16`);
-    f32 runs the CUDA-core loop."""
+    serves every prefix length.  Returns ``[1, S, H, D]``.  bf16 and f16
+    run on tensor cores (p rounded to the input dtype before P V) and need
+    16-byte aligned rows (:func:`_check_rows16`); f32 runs the CUDA-core
+    loop.  A float16 launch counts as ``paged_prefill_f16``."""
     what = "paged_prefill"
     D = _check_common(what, q, k_pool, v_pool, block_row)
     _require(q.dim() == 4 and q.shape[0] == 1, what,
@@ -467,7 +470,7 @@ def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
         out.stride(1), out.stride(2), k_pool.stride(0), k_pool.stride(1),
         k_pool.stride(2), 1.0 / D ** 0.5, _stream(q))
     _raise_on(rc, lib, "pt_paged_error_string", what)
-    KERNELS["paged_prefill"].launches += 1
+    KERNELS["paged_prefill" + _instance(q, "")].launches += 1
     return out
 
 
@@ -498,8 +501,8 @@ def _check_rows(what: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
 
 
 def _instance(q: torch.Tensor, suffix: str) -> str:
-    """The count a K1-K3 launch adds to: ``suffix`` (the dropout's), then
-    ``_f16`` for a float16 instance."""
+    """The count a launch adds to, after the kernel's name: ``suffix``
+    (K1-K3's dropout's), then ``_f16`` for a float16 instance."""
     return suffix + ("_f16" if q.dtype == torch.float16 else "")
 
 

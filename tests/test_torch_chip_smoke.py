@@ -219,14 +219,13 @@ def test_kernel_label_names_instances(mangled, label):
 
 
 def _hgmma_everywhere():
-    """HGMMA counts in every 16-bit instance the build has: bf16 for all
-    four kernels, f16 for K1-K3 (the paged prefill has no f16 one)."""
+    """HGMMA counts in every 16-bit instance the build has: bf16 and f16
+    for all four kernels (the paged prefill's f16 instance included)."""
     out = {}
     for lib, kernel in chip_smoke.TENSOR_CORE_KERNELS:
-        dtypes = ("bf16",) if lib == "paged_attention" else ("bf16", "f16")
         out.setdefault(lib, {}).update(
             {f"{kernel}<{t},{d}>": 8 for d in kernels.HEAD_DIMS
-             for t in dtypes})
+             for t in ("bf16", "f16")})
     return out
 
 
@@ -238,11 +237,13 @@ def _hgmma_everywhere():
     ("flash_attention_fwd", "flash_fwd_kernel<f16,128>"),
     ("flash_attention_bwd", "flash_bwd_dkv_dropout_kernel<f16,64>"),
     ("flash_attention_bwd", "flash_bwd_dq_kernel<f16,128>"),
+    ("paged_attention", "paged_prefill_kernel<f16,64>"),
+    ("paged_attention", "paged_prefill_kernel<f16,128>"),
 ])
 def test_check_tensor_cores_wants_hgmma_in_bf16_k1_and_k5(lib, label):
-    """The bf16 K1, K5, K2 and K3, and the f16 K1, K2 and K3, must each
-    hold HGMMA at both head dims; one instance without any fails the
-    check, and names itself."""
+    """The bf16 and the f16 K1, K5, K2 and K3 must each hold HGMMA at
+    both head dims; one instance without any fails the check, and names
+    itself."""
     good = _hgmma_everywhere()
     assert {lib for lib, _ in chip_smoke.TENSOR_CORE_KERNELS} == {
         "paged_attention", "flash_attention_fwd", "flash_attention_bwd"}
@@ -712,6 +713,111 @@ def test_kernels_line_covers_the_dropout_instances():
     assert chip_smoke.kernel_label(
         "_ZN2pt24flash_fwd_dropout_kernelI13__nv_bfloat16Li64EEEvPKT_"
     ) == "flash_fwd_dropout_kernel<bf16,64>"
+
+
+def test_kernels_line_covers_the_f16_paged_instances():
+    """The f16 K4/K5 are kernels of their own in the registry and in the
+    kernels phase, and serve_f16 requires both."""
+    assert chip_smoke.F16_SERVE_KERNELS == ("paged_decode_f16",
+                                            "paged_prefill_f16")
+    for name in chip_smoke.F16_SERVE_KERNELS:
+        info = kernels.KERNELS[name]
+        assert info.source.endswith("csrc/paged_attention.cu")
+        assert info.replaces == kernels.KERNELS[name[:-4]].replaces
+    assert torch.float16 in kernels.PAGED_DTYPES
+    labels = {c[0] for c in chip_smoke.decode_edges(torch.Generator())}
+    assert set(chip_smoke.F16_DECODE_EDGES) <= labels
+
+
+def _f16_engine(family: str, **kw):
+    return create_engine(f"{family}:tiny", device="cpu", dtype=torch.float16,
+                         kv_layout="paged", block_size=8, min_bucket=8,
+                         max_seq=64, num_slots=4, **kw)
+
+
+@pytest.mark.parametrize("family", ["llama", "gpt"])
+def test_serve_f16_phase_on_tiny_cpu(family):
+    """``serve_f16``'s run at tiny size in f16: every logit the steps hand
+    the sampler is finite (the device counter reads 0), every program is
+    built at warmup and none after, prefix hits and a clean pool."""
+    eng = _f16_engine(family)
+    reqs = chip_smoke.make_requests(128, 6, 16, [3, 9, 17, 30], seed=0)
+    res = chip_smoke.run_serve_f16(eng, reqs, max_new_tokens=4)
+    assert res["nonfinite_logits"] == 0
+    assert res["compile_cache"]["after_warmup"] == 0
+    assert res["prefix_hit_rate"] > 0 and len(res["outputs"]) == 6
+    assert eng.cache.dtype == torch.float16
+
+
+def test_serve_f16_names_where_an_overflow_starts():
+    """An f16 model whose second layer's MLP writes inf (as a projection
+    past 65504 rounds to): the counter sees the non-finite logits and the
+    error names the first module whose output is not finite, without
+    clamping anything."""
+    eng = _f16_engine("llama")
+    with torch.no_grad():
+        eng.model.llama.layers[1].mlp.down_proj.weight[0, 0] = float("inf")
+    reqs = chip_smoke.make_requests(128, 2, 16, [3, 9], seed=0)
+    with pytest.raises(AssertionError, match=r"non-finite logits.*"
+                       r"layers\.1\.mlp\.down_proj"):
+        chip_smoke.run_serve_f16(eng, reqs, max_new_tokens=2)
+
+
+@pytest.mark.parametrize("family", ["llama", "gpt"])
+def test_parity_f16_phase_on_tiny_cpu(family):
+    """``parity_f16``'s drive at tiny size: the kernel routes (the plain
+    versions here) and the contiguous route against the paged reference,
+    all finite and within the phase's tolerance."""
+    cls, cfg = ((LlamaForCausalLM, llama_tiny) if family == "llama"
+                else (GPTForCausalLM, gpt_tiny))
+    model = cls(cfg(max_position_embeddings=512), device="cpu",
+                dtype=torch.float16,
+                generator=torch.Generator().manual_seed(1)).eval()
+    rs = np.random.RandomState(2)
+    prompt = rs.randint(0, 128, (40,)).tolist()
+    tail = rs.randint(0, 128, (9,)).tolist()
+    res = chip_smoke.drive_parity_f16(model, prompt, 32, tail, steps=3)
+    assert res["forwards"] == 4 and res["finite"]
+    assert res["paged_err"] == 0.0          # one plain route on the CPU
+    chip_smoke.check_parity_f16(res, family, cuda=False)
+    with pytest.raises(AssertionError, match="contiguous_err"):
+        chip_smoke.check_parity_f16({**res, "contiguous_err": 1.0}, family,
+                                    cuda=False)
+
+
+def test_predictor_phase_on_tiny_cpu(tmp_path):
+    """``predictor``'s run on a small f16 GPT on the CPU: the artifact
+    served through the handles equals the eager forward and is held to
+    the reference path, a pool of 2 loads once, no kernel launches on the
+    CPU; the checker refuses a second load or a stray launch."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTConfig
+
+    model = GPTForCausalLM(GPTConfig(vocab_size=128, hidden_size=64,
+                                     num_hidden_layers=2,
+                                     num_attention_heads=2,
+                                     max_position_embeddings=64,
+                                     hidden_dropout_prob=0.0,
+                                     attention_probs_dropout_prob=0.0),
+                           device="cpu",
+                           generator=torch.Generator().manual_seed(0)).eval()
+    model = amp.decorate(model, level="O2", dtype="float16")
+    ids = np.random.RandomState(6).randint(0, 128, (2, 32))
+    res = chip_smoke.run_predictor(model, ids, str(tmp_path))
+    assert res["input_names"] == ["input_ids"]
+    assert res["out_shape"] == [2, 32, 128] and res["out_dtype"] == "float16"
+    assert res["eager_err"] == 0.0 and res["device"] == "cpu"
+    chip_smoke.check_predictor(res, 2, cuda=False, tag="cpu")
+    with pytest.raises(AssertionError, match="loaded 2 times"):
+        chip_smoke.check_predictor({**res, "pool_loads": 2}, 2, cuda=False,
+                                   tag="cpu")
+    stray = {**res["launches"], "flash_fwd": 1}
+    with pytest.raises(AssertionError, match="launched"):
+        chip_smoke.check_predictor({**res, "launches": stray}, 2,
+                                   cuda=False, tag="cpu")
+    tiny = chip_smoke.cpu_artifact_on_card(str(tmp_path), "cpu")
+    assert tiny["err"] == 0.0 and tiny["device"] == "cpu"
+    assert sum(tiny["launches"].values()) == 0
 
 
 def test_fp16_scaler_phase_on_tiny_cpu():

@@ -17,7 +17,9 @@ do).  Under attention dropout the kept probabilities, and so O, are
 scaled by 1/(1-p), and O's tolerance with them.  The f16 instances of
 K1-K3 are held to 1e-2 (O) and 1e-2 of the largest gradient: f16 keeps
 three more mantissa bits than bf16, and both sides round p and ds to f16
-at the same points.
+at the same points; so are the f16 K4 and K5 (K5 and its plain version
+round p to f16 before P V alike), and under an f16 overflow their
+outputs must be non-finite exactly where the plain versions' are.
 """
 import dataclasses
 import gc
@@ -52,7 +54,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 3e-2)])
+                                       (torch.bfloat16, 3e-2),
+                                       (torch.float16, 1e-2)])
 @pytest.mark.parametrize("hkv,h", [(8, 8), (1, 8)])
 def test_kernels_match_plain(cuda_device, dtype, tol, hkv, h):
     """K4, K5 and K1 against their plain versions at head_dim 64, on a
@@ -160,7 +163,8 @@ DECODE_EDGES = {
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 3e-2)])
+                                       (torch.bfloat16, 3e-2),
+                                       (torch.float16, 1e-2)])
 @pytest.mark.parametrize("case", sorted(DECODE_EDGES))
 def test_paged_decode_edges_match_plain(cuda_device, dtype, tol, case):
     """The split-K K4 against ``gather_block_kv`` + ``cached_attention``,
@@ -330,6 +334,125 @@ def test_paged_prefill_bf16_tensor_cores_match_plain(cuda_device, S, start,
                                       start)
     assert torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,start", [(16, 0), (32, 1008), (128, 512)])
+@pytest.mark.parametrize("hkv,h", [(8, 8), (2, 8)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_prefill_f16_tensor_cores_match_plain(cuda_device, S, start,
+                                                    hkv, h, d):
+    """The f16 K5 (the wgmma tile loop at f16) against
+    ``block_prefill_attention``, which rounds p to f16 before P V as the
+    kernel does, at the bf16 test's tails and both head dims; a launch
+    counts as ``paged_prefill_f16``."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    n_blocks = (start + S) // 16 + 8
+
+    def pool():
+        return torch.randn((n_blocks + 1, 2, 16, hkv, d), generator=g,
+                           device=cuda_device).half()[:, 1]
+
+    kp, vp = pool(), pool()
+    row = (torch.randperm(n_blocks, generator=g, device=cuda_device) + 1
+           ).to(torch.int32)
+    q = torch.randn((1, S, h, d), generator=g, device=cuda_device).half()
+    start = torch.tensor([start], dtype=torch.int32, device=cuda_device)
+    kernels.reset_launches()
+    got = kernels.paged_prefill(q, kp, vp, row, start)
+    assert kernels.KERNELS["paged_prefill_f16"].launches == 1
+    assert kernels.KERNELS["paged_prefill"].launches == 0
+    want = ca.block_prefill_attention(q, ca.gather_block_kv(kp, row[None]),
+                                      ca.gather_block_kv(vp, row[None]),
+                                      start)
+    assert got.dtype == torch.float16 and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_paged_f16_overflow_is_never_clamped(cuda_device):
+    """A +inf V row (a projection past 65504 rounds to inf): K4's and
+    K5's f16 outputs are non-finite exactly where the plain versions'
+    are, and finite elsewhere."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    dec = chip_smoke.check_decode(g, 32, 32, torch.float16,
+                                  [700, 1500, 33], inf_at=2)
+    pre = chip_smoke.check_prefill(g, 8, 8, torch.float16, 512, 128,
+                                   max_seq=1024, inf_at=2)
+    for res in (dec, pre):
+        assert res["err"] == 0.0 and res["nonfinite_kernel"] > 0
+        assert res["nonfinite_kernel"] == res["nonfinite_plain"]
+
+
+@pytest.mark.cuda
+def test_registered_op_launches_k1_on_the_card(cuda_device):
+    """``paddle_tpu_torch::flash_fwd`` on CUDA tensors runs K1 and nothing
+    else: one launch counted per call (``flash_fwd_f16`` at f16), the
+    kernel's own output; no-grad attention goes through it; a shape K1
+    does not take raises instead of running the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v = (torch.randn((2, 100, 4, 64), generator=g, device=cuda_device)
+               .half() for _ in range(3))
+    kernels.reset_launches()
+    o, lse = torch.ops.paddle_tpu_torch.flash_fwd(q, k, v, True)
+    assert kernels.launch_counts()["flash_fwd_f16"] == 1
+    ko, klse = kernels.flash_fwd(q, k, v, True)
+    assert torch.equal(o, ko) and torch.equal(lse, klse)
+    kernels.reset_launches()
+    with torch.no_grad():
+        out = flash_attention(q, k, v, is_causal=True)
+    assert torch.equal(out, ko)
+    assert kernels.launch_counts() == {
+        n: int(n == "flash_fwd_f16") for n in kernels.KERNELS}
+    odd = torch.zeros((1, 8, 2, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        torch.ops.paddle_tpu_torch.flash_fwd(odd, odd, odd, True)
+
+
+@pytest.mark.cuda
+def test_cpu_saved_artifact_runs_on_the_card(cuda_device, tmp_path):
+    """A small f16 GPT saved on the CPU, loaded by a predictor on the
+    card: its program's CPU devices are moved, it runs K1 once a layer,
+    and its logits agree with the CPU predictor's within 1e-2."""
+    res = chip_smoke.cpu_artifact_on_card(str(tmp_path), "cuda")
+    assert res["device"].startswith("cuda")
+    assert res["launches"]["flash_fwd_f16"] == res["layers"]
+    assert res["err"] <= res["tolerance"]
+
+
+@pytest.mark.cuda
+def test_f16_engines_run_the_f16_kernels(cuda_device):
+    """A GQA Llama at head dim 64 in f16: the paged engine launches only
+    the f16 K4/K5 and gives the greedy tokens of its reference path where
+    they do not part on a near tie (at least 3 of 4 streams), and the
+    contiguous engine's prefill runs the f16 K1."""
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      intermediate_size=512, max_position_embeddings=256)
+    model = LlamaForCausalLM(
+        cfg, device=cuda_device, dtype=torch.float16,
+        generator=torch.Generator(device=cuda_device).manual_seed(0))
+    rs = np.random.RandomState(0)
+    prefix = rs.randint(0, 512, (40,)).tolist()
+    prompts = [prefix + rs.randint(0, 512, (n,)).tolist()
+               for n in (3, 20, 57, 9)]
+    kw = dict(num_slots=2, max_seq=256, min_bucket=16, block_size=16)
+
+    def run(layout, kernel):
+        eng = Engine(model, kv_layout=layout, kernel=kernel, **kw)
+        kernels.reset_launches()
+        out = eng.generate(prompts, max_new_tokens=8)
+        return out, kernels.launch_counts()
+
+    ref, ref_launches = run("paged", "reference")
+    got, launches = run("paged", "cuda")
+    assert sum(ref_launches.values()) == 0
+    assert launches["paged_decode_f16"] > 0
+    assert launches["paged_prefill_f16"] > 0
+    assert launches["paged_decode"] == launches["paged_prefill"] == 0
+    assert sum(a == b for a, b in zip(got, ref)) >= 3
+    _, c_launches = run("contiguous", "auto")
+    assert c_launches["flash_fwd_f16"] > 0 and c_launches["flash_fwd"] == 0
 
 
 def _rel_err(got, want):

@@ -51,6 +51,19 @@ Phases, each printing one JSON line with the card's name and power limit:
               warmup captures one per prefill bucket and one decode, and
               each serve phase prints ``compile_cache`` and fails if a
               program is built after warmup.
+3b. serve_mesh — the same model (serve_paged's engine released) and
+              traffic through ``Engine(mesh=serving_mesh(1))``: an NCCL
+              world of one on a ``HashStore``, the tensor-parallel layers
+              sharing the model's tensors, their all-reduces and the
+              head's all-gather captured in the CUDA graphs; in turns with
+              the plain engine (plain, mesh, mesh, plain: ITL p50, TTFT
+              p50, decode tokens/s, medians and quartiles).  Every turn's
+              streams must equal serve_paged's bitwise (all four sampling
+              laws), no program may be built after warmup, K4/K5 must
+              launch and the decode program must hold its collectives
+              (their count a decode step is printed).  Then GPT-2 345M
+              contiguous at mesh one against its plain engine (K1 in the
+              prefill), the same checks.
 4. serve_contiguous — a few requests through the same model with the
               contiguous layout, whose prefill runs K1.
 5. serve_gpt — GPT-2 345M at full width (random weights from a seed),
@@ -1323,6 +1336,149 @@ def phase_serve_gpt():
          kv_pool_gb=round(eng.cache.nbytes() / 2 ** 30, 3),
          **{k: v for k, v in res.items() if k != "outputs"})
     return res
+
+
+# -- phase 3b: sharded serving on a mesh of one --------------------------------
+
+#: the turns of serve_mesh's timing: plain, mesh, mesh, plain
+MESH_TURNS = ("plain", "mesh", "mesh", "plain")
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def run_serve_mesh(plain, meshed, requests, max_new_tokens: int,
+                   reference) -> dict:
+    """Warm a plain engine and a mesh engine of the same kwargs over one
+    model, then serve ``requests`` on each in :data:`MESH_TURNS`, from a
+    cold prefix cache each time (:func:`timed_run`).  Every turn's
+    streams must equal ``reference`` (the plain engine's, all four
+    sampling laws) bitwise, no program may be built after warmup, and
+    the mesh engine's step programs must hold its collectives (each
+    captured program records the collectives it issues; a decode step
+    replays its program's).  The kernel launch and collective counts are
+    set to 0 before each turn and read after it.  Returns the turns,
+    each engine's medians and quartiles, the mesh turns' launches and
+    collectives, and the collectives of one decode step."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_layers
+    from paddle_tpu_torch.ops import kernels
+
+    engines = {"plain": plain, "mesh": meshed}
+    for name, eng in engines.items():
+        warm = eng.warmup()
+        if warm["compile_misses"] != expected_programs(eng):
+            raise AssertionError(f"serve_mesh: the {name} engine's warmup "
+                                 f"built {warm['compile_misses']} programs")
+    decode = meshed.programs._programs[("decode",)]
+    per_step = dict(decode.collectives)
+    if not per_step.get("all_reduce"):
+        raise AssertionError(f"serve_mesh: the decode program holds no "
+                             f"all_reduce ({per_step})")
+    turns, launches, collectives = [], {}, {}
+    for name in MESH_TURNS:
+        eng = engines[name]
+        kernels.reset_launches()
+        mp_layers.reset_collectives()
+        res = timed_run(eng, requests, max_new_tokens)
+        counts = _nonzero(kernels.launch_counts())
+        colls = _nonzero(mp_layers.collective_counts())
+        if res.pop("outputs") != reference:
+            raise AssertionError(f"serve_mesh: the {name} engine's streams "
+                                 f"differ from the plain engine's")
+        if name == "mesh":
+            launches = _sum_launches(launches, counts)
+            collectives = _sum_launches(collectives, colls)
+            if colls.get("all_reduce", 0) < per_step["all_reduce"] \
+                    * res["decode_steps"]:
+                raise AssertionError(f"serve_mesh: {colls} collectives for "
+                                     f"{res['decode_steps']} decode steps")
+        elif colls:
+            raise AssertionError(f"serve_mesh: the plain engine issued "
+                                 f"collectives {colls}")
+        res["engine"] = name
+        turns.append(res)
+    for name, eng in engines.items():
+        after = eng.stats()["compile_cache"]["after_warmup"]
+        if after != 0:
+            raise AssertionError(f"serve_mesh: the {name} engine built "
+                                 f"{after} programs after warmup")
+    summary = {}
+    for name in engines:
+        mine = [t for t in turns if t["engine"] == name]
+        summary[name] = {
+            "itl_p50_ms": _quartiles([t["itl"]["p50_ms"] for t in mine]),
+            "ttft_p50_ms": _quartiles([t["ttft_p50_ms"] for t in mine]),
+            "decode_tokens_per_sec": _quartiles(
+                [t["decode_tokens_per_sec"] for t in mine])}
+    return {"turns": turns, "summary": summary, "launches": launches,
+            "collectives": collectives,
+            "collectives_per_decode_step": per_step,
+            "programs_after_warmup": 0}
+
+
+def phase_serve_mesh(model, reference) -> dict:
+    """serve_paged's Llama-2 7B (its engine released) on serve_paged's
+    traffic through ``Engine(mesh=serving_mesh(1))``: an NCCL world of one
+    made on a ``HashStore``, the tensor-parallel layers (sharing the
+    model's tensors) issuing their all-reduces and the head's all-gather
+    inside the engine's CUDA graphs, K4/K5 on the mesh's pool; in turns
+    with the plain engine.  Then GPT-2 345M contiguous (K1 prefill) at
+    mesh one against its plain engine.  Returns the 7B mesh turns' launch
+    counts, both runs' summed."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.serving import Engine, serving_mesh
+
+    t0 = time.perf_counter()
+    mesh = serving_mesh(1)
+    init_s = time.perf_counter() - t0
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"serve_mesh: world {dist.get_backend()} of "
+                             f"{dist.get_world_size()}")
+    reqs = make_requests(model.config.vocab_size, 12, 512, PAGED_TAILS,
+                         seed=0)
+    plain, meshed = paged_engine(model), paged_engine(model, mesh=mesh)
+    shared = [p.data_ptr() for p in meshed.model.parameters()] == \
+        [p.data_ptr() for p in model.parameters()]
+    if not shared:
+        raise AssertionError("serve_mesh: the mesh-one model copied the "
+                             "weights")
+    res = run_serve_mesh(plain, meshed, reqs, 64, reference)
+    if not (res["launches"].get("paged_decode")
+            and res["launches"].get("paged_prefill")):
+        raise AssertionError(f"serve_mesh did not run K4/K5: "
+                             f"{res['launches']}")
+    emit("serve_mesh", model="llama2-7b", dtype="bfloat16",
+         mesh_shape=meshed.mesh_shape, backend=dist.get_backend(),
+         world_init_s=round(init_s, 3), shares_weights=shared,
+         streams_equal_plain=True, **res)
+    launches = res["launches"]
+    del plain, meshed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # GPT-2 345M, contiguous: K1 in the prefill at mesh one
+    gpt = Engine.resolve_model("gpt:gpt2-345m", device="cuda",
+                               dtype=torch.bfloat16, seed=0)
+    greqs = make_requests(gpt.config.vocab_size, 4, 256, [100, 400, 250],
+                          seed=1)
+    kw = dict(kv_layout="contiguous", num_slots=4, max_seq=1024,
+              min_bucket=16)
+    ref = serve(Engine(gpt, **kw), greqs, max_new_tokens=32)
+    gres = run_serve_mesh(Engine(gpt, **kw), Engine(gpt, mesh=mesh, **kw),
+                          greqs, 32, ref["outputs"])
+    if not gres["launches"].get("flash_fwd"):
+        raise AssertionError(f"serve_mesh (345M contiguous) did not run "
+                             f"K1: {gres['launches']}")
+    emit("serve_mesh", model="gpt2-345m", dtype="bfloat16",
+         kv_layout="contiguous", mesh_shape="model=1",
+         streams_equal_plain=True, **gres)
+    del gpt
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return _sum_launches(launches, gres["launches"])
 
 
 # -- phase 6: model parity, kernel path against the reference path --------
@@ -5476,6 +5632,7 @@ def main() -> int:
     model, paged = phase_serve_paged()
     gc.collect()
     torch.cuda.empty_cache()
+    meshed = phase_serve_mesh(model, paged["outputs"])
     phase_serve_contiguous(model)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5534,6 +5691,7 @@ def main() -> int:
                 **{n: fp16[n] for n in F16_KERNELS + F16_DROPOUT_KERNELS},
                 **{n: f16["llama2-7b"][n] for n in F16_SERVE_KERNELS}}
     by_phase = {"serve_paged": paged["launches"],
+                "serve_mesh": meshed,
                 "serve_f16": _sum_launches(*f16.values()),
                 "predictor": predictor,
                 "serve_durable": durable["launches"],

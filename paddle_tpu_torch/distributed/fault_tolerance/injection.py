@@ -37,8 +37,9 @@ ENV_SERVING_FAULTS = "PADDLE_TPU_FT_SERVING_FAULTS"
 #: checks ``serving.prefill`` and ``serving.decode`` before each step
 #: call, ``serving.stream_cb`` before a stream callback and
 #: ``serving.prefix_lookup`` inside the paged prefix lookup (a raising or
-#: stalling lookup is a plain miss); ``serving.shard_fail`` belongs to a
-#: sharded engine, which the port does not have yet.  A speculating
+#: stalling lookup is a plain miss); a sharded engine checks
+#: ``serving.shard_fail`` at the start of each step (a firing loses its
+#: mesh's highest rank).  A speculating
 #: engine also checks ``serving.spec_draft``, ``serving.spec_verify`` and
 #: ``serving.spec_draft_prefill``, which :meth:`ServingFaultPlan.check`
 #: counts though ``add`` does not take them, as in the JAX package.

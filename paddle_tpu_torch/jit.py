@@ -78,6 +78,7 @@ import json
 import os
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -94,6 +95,16 @@ class CaptureError(RuntimeError):
     """A compiled step's body could not be captured as a CUDA graph."""
 
 
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a name (``"int64"``), a numpy dtype or type
+    (``np.float32``) or a torch dtype.  A 64-bit type stays 64-bit (the
+    JAX package narrows it to 32)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    return getattr(torch, name)
+
+
 class InputSpec:
     """Declarative input signature (``paddle.static.InputSpec``): kept
     with the function, as the JAX package keeps it for its concrete
@@ -102,8 +113,7 @@ class InputSpec:
     def __init__(self, shape, dtype="float32", name=None,
                  stop_gradient=True):
         self.shape = list(shape)
-        self.dtype = getattr(torch, dtype) if isinstance(dtype, str) \
-            else dtype
+        self.dtype = _torch_dtype(dtype)
         self.name = name
         self.stop_gradient = stop_gradient
 

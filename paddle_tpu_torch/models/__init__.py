@@ -1,5 +1,8 @@
 """Models of the port."""
-from .convert import from_jax_state_dict, port_state_dict_from_jax
+from .convert import (
+    from_jax_state_dict, port_state_dict_from_jax, shard_model,
+    shard_state_dict, unshard_state_dict,
+)
 from .gpt import (
     GPT_CONFIGS, GPTConfig, GPTForCausalLM, GPTModel, gpt2_345m, gpt3_13b,
     gpt_tiny,
@@ -9,7 +12,8 @@ from .llama import (
     llama2_70b, llama2_7b, llama_tiny,
 )
 
-__all__ = ["from_jax_state_dict", "port_state_dict_from_jax", "GPT_CONFIGS",
+__all__ = ["from_jax_state_dict", "port_state_dict_from_jax", "shard_model",
+           "shard_state_dict", "unshard_state_dict", "GPT_CONFIGS",
            "GPTConfig", "GPTForCausalLM", "GPTModel", "gpt2_345m", "gpt3_13b",
            "gpt_tiny",
            "LLAMA_CONFIGS", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",

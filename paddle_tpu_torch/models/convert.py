@@ -7,16 +7,46 @@ Paddle keeps a linear weight as ``[in, out]`` and ``nn.Linear`` as
 weights are taken as they are.  The fused layouts (head-major ``kv_proj``,
 ``[gate | up]`` ``gate_up_proj``) live on the output axis and survive the
 transpose unchanged.
+
+Tensor parallelism: :func:`shard_state_dict` cuts a port state dict into
+rank r's shard of an ``mp``-way model (the layout of
+``mp_layers``: a column layer's out-features, a row layer's in-features,
+the vocabulary's rows; ``gate_up_proj`` as gate's r-th slice then up's
+r-th slice), :func:`unshard_state_dict` puts the shards back together,
+and :func:`shard_model` turns a whole model into the rank's shard on a
+mesh.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["port_state_dict_from_jax", "from_jax_state_dict"]
+__all__ = ["port_state_dict_from_jax", "from_jax_state_dict",
+           "shard_rule", "shard_state_dict", "unshard_state_dict",
+           "shard_model"]
+
+#: (module name, parameter) -> (dim split, equal parts of that dim), in
+#: the port's ``[out, in]`` layout; every other tensor is whole on every
+#: rank
+_TP_RULES = {
+    # GPT
+    ("word_embeddings", "weight"): (0, 1),
+    ("qkv_proj", "weight"): (0, 1), ("qkv_proj", "bias"): (0, 1),
+    ("out_proj", "weight"): (1, 1),
+    ("fc1", "weight"): (0, 1), ("fc1", "bias"): (0, 1),
+    ("fc2", "weight"): (1, 1),
+    # Llama
+    ("embed_tokens", "weight"): (0, 1),
+    ("q_proj", "weight"): (0, 1), ("kv_proj", "weight"): (0, 1),
+    ("o_proj", "weight"): (1, 1),
+    ("gate_up_proj", "weight"): (0, 2),
+    ("down_proj", "weight"): (1, 1),
+    # both (an untied head: its vocabulary columns)
+    ("lm_head", "weight"): (0, 1),
+}
 
 
 def port_state_dict_from_jax(model: nn.Module, state: Dict[str, np.ndarray]
@@ -57,3 +87,102 @@ def from_jax_state_dict(model: nn.Module,
     for name, t in port_state_dict_from_jax(model, state).items():
         params[name].copy_(t)
     return model
+
+
+def shard_rule(name: str) -> Optional[Tuple[int, int]]:
+    """``(dim, parts)`` along which parameter ``name`` splits over the
+    model axis, or None when it is whole on every rank."""
+    parts = name.rsplit(".", 2)
+    if len(parts) < 2:
+        return None
+    return _TP_RULES.get((parts[-2], parts[-1]))
+
+
+def _shard(t: torch.Tensor, rule, rank: int, mp: int) -> torch.Tensor:
+    from ..distributed.fleet.meta_parallel.mp_layers import shard_index
+
+    if rule is None or mp == 1:
+        return t
+    dim, parts = rule
+    idx = shard_index(t.shape[dim], rank, mp, parts).to(t.device)
+    return t.index_select(dim, idx)
+
+
+def shard_state_dict(state: Dict[str, torch.Tensor], rank: int,
+                     mp: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s shard of a whole port state dict for an ``mp``-way
+    model (each split tensor a copy of its rows or columns, the names
+    saying where each splits, :func:`shard_rule`; whole ones are the same
+    tensors; ``mp == 1`` gives the tensors back as they are)."""
+    if not 0 <= rank < mp:
+        raise ValueError(f"rank {rank} outside [0, {mp})")
+    out = {}
+    for name, t in state.items():
+        if not isinstance(t, torch.Tensor):
+            t = torch.from_numpy(np.array(t))
+        out[name] = _shard(t, shard_rule(name), rank, mp)
+    return out
+
+
+def unshard_state_dict(shards: Sequence[Dict[str, torch.Tensor]]
+                       ) -> Dict[str, torch.Tensor]:
+    """The whole state dict from every rank's shard (``shards[r]`` rank
+    r's), the inverse of :func:`shard_state_dict`."""
+    from ..distributed.fleet.meta_parallel.mp_layers import shard_index
+
+    mp = len(shards)
+    out = {}
+    for name, t0 in shards[0].items():
+        rule = shard_rule(name)
+        if rule is None or mp == 1:
+            out[name] = t0
+            continue
+        dim, parts = rule
+        shape = list(t0.shape)
+        shape[dim] *= mp
+        full = torch.empty(shape, dtype=t0.dtype, device=t0.device)
+        for r, sd in enumerate(shards):
+            full.index_copy_(dim, shard_index(shape[dim], r, mp,
+                                              parts).to(t0.device),
+                             sd[name])
+        out[name] = full
+    return out
+
+
+@torch.no_grad()
+def shard_model(model: nn.Module, mesh) -> nn.Module:
+    """The rank's tensor-parallel shard of a whole ``model`` on ``mesh``:
+    a model of the same class built with ``mesh=`` on the ``meta`` device
+    (GPT with the same attention route), whose every tensor is the rank's
+    share of ``model``'s, on its device and in its dtype.  On a mesh of
+    one each tensor is ``model``'s own (nothing is copied); otherwise a
+    split tensor is a copy of its rows or columns.  Buffers (Llama's RoPE
+    tables) are taken as they are."""
+    from ..distributed.mesh import mesh_ranks
+
+    mp = mesh.size()
+    rank = mesh_ranks(mesh).index(torch.distributed.get_rank())
+    kwargs = {"device": "meta", "mesh": mesh}
+    kernel = getattr(getattr(model, "gpt", None), "layers", None)
+    if kernel is not None and len(kernel):
+        kwargs["kernel"] = kernel[0].attn.kernel
+    shell = type(model)(model.config, **kwargs)
+    src = dict(model.named_parameters())
+    src.update(model.named_buffers())
+    for prefix, mod in shell.named_modules():
+        prefix = f"{prefix}." if prefix else ""
+        for table in (mod._parameters, mod._buffers):
+            for name, t in list(table.items()):
+                if t is None:
+                    continue
+                full = src[prefix + name]
+                local = _shard(full.detach(), shard_rule(prefix + name)
+                               if name in mod._parameters else None,
+                               rank, mp)
+                if tuple(local.shape) != tuple(t.shape):
+                    raise ValueError(f"{prefix}{name}: the shard has "
+                                     f"{tuple(local.shape)}, the model "
+                                     f"{tuple(t.shape)}")
+                table[name] = (nn.Parameter(local, t.requires_grad)
+                               if isinstance(t, nn.Parameter) else local)
+    return shell.eval()

@@ -1,10 +1,17 @@
 """GPT decoder-only transformer (pre-LN, tanh-gelu MLP, tied LM head) as
 ``nn.Module``s, for training and serving.
 
-Port of ``paddle_tpu/models/gpt.py`` for one device (model parallel 1):
+Port of ``paddle_tpu/models/gpt.py``.  Without a mesh,
 ``ColumnParallelLinear``/``RowParallelLinear`` become ``nn.Linear``
 (weight ``[out, in]``; the JAX layout is ``[in, out]``, see
 ``convert.py``) and ``VocabParallelEmbedding`` becomes ``nn.Embedding``.
+With ``mesh=`` (a one-axis ``"model"`` mesh, :mod:`..serving.sharding`)
+they are the tensor-parallel layers of
+:mod:`..distributed.fleet.meta_parallel.mp_layers` at the rank's share:
+``H/mp`` heads (the head-major ``qkv_proj`` splits into whole heads), the
+MLP's ``ffn/mp`` columns, the vocabulary's ``V/mp`` rows; the tied head's
+logits are all-gathered over the vocabulary before they leave the
+model.
 Module and parameter names are the JAX ``state_dict()``'s.  The fused
 ``qkv_proj`` keeps the JAX output layout, head-major ``[H, 3*D]``, so q, k
 and v are strided ``[B, S, H, D]`` views of one projection, which the
@@ -42,6 +49,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..distributed.fleet.meta_parallel.mp_layers import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    gather_last,
+)
 from ..distributed.fleet.recompute import recompute
 from ..nn.common import Dropout
 from ..nn.norm import LayerNorm
@@ -108,14 +119,21 @@ class GPTAttention(nn.Module):
     """Causal self-attention off one fused, head-major qkv projection."""
 
     def __init__(self, config: GPTConfig, *, device=None, dtype=None,
-                 kernel: str = "cuda"):
+                 kernel: str = "cuda", group=None):
         super().__init__()
         self.n_heads = config.num_attention_heads
         self.head_dim = config.head_dim
         self.kernel = kernel
         h = config.hidden_size
-        self.qkv_proj = nn.Linear(h, 3 * h, device=device, dtype=dtype)
-        self.out_proj = nn.Linear(h, h, device=device, dtype=dtype)
+        if group is None:
+            self.qkv_proj = nn.Linear(h, 3 * h, device=device, dtype=dtype)
+            self.out_proj = nn.Linear(h, h, device=device, dtype=dtype)
+        else:
+            self.qkv_proj = ColumnParallelLinear(h, 3 * h, group=group,
+                                                 device=device, dtype=dtype)
+            self.out_proj = RowParallelLinear(h, h, group=group,
+                                              device=device, dtype=dtype)
+            self.n_heads //= self.qkv_proj.mp
         self.dropout_p = config.attention_probs_dropout_prob
 
     def forward(self, x: torch.Tensor, cache_ctx=None) -> torch.Tensor:
@@ -135,12 +153,18 @@ class GPTAttention(nn.Module):
 
 
 class GPTMLP(nn.Module):
-    def __init__(self, config: GPTConfig, *, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, *, device=None, dtype=None,
+                 group=None):
         super().__init__()
-        self.fc1 = nn.Linear(config.hidden_size, config.ffn_size,
-                             device=device, dtype=dtype)
-        self.fc2 = nn.Linear(config.ffn_size, config.hidden_size,
-                             device=device, dtype=dtype)
+        h, f = config.hidden_size, config.ffn_size
+        if group is None:
+            self.fc1 = nn.Linear(h, f, device=device, dtype=dtype)
+            self.fc2 = nn.Linear(f, h, device=device, dtype=dtype)
+        else:
+            self.fc1 = ColumnParallelLinear(h, f, group=group,
+                                            device=device, dtype=dtype)
+            self.fc2 = RowParallelLinear(f, h, group=group, device=device,
+                                         dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(nn.functional.gelu(self.fc1(x), approximate="tanh"))
@@ -151,14 +175,14 @@ class GPTDecoderLayer(nn.Module):
     ``x + dropout(mlp(ln2(x)))``."""
 
     def __init__(self, config: GPTConfig, *, device=None, dtype=None,
-                 kernel: str = "cuda"):
+                 kernel: str = "cuda", group=None):
         super().__init__()
         eps, h = config.layer_norm_epsilon, config.hidden_size
         self.ln1 = LayerNorm(h, eps, device=device, dtype=dtype)
         self.attn = GPTAttention(config, device=device, dtype=dtype,
-                                 kernel=kernel)
+                                 kernel=kernel, group=group)
         self.ln2 = LayerNorm(h, eps, device=device, dtype=dtype)
-        self.mlp = GPTMLP(config, device=device, dtype=dtype)
+        self.mlp = GPTMLP(config, device=device, dtype=dtype, group=group)
         self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, x: torch.Tensor, cache_ctx=None) -> torch.Tensor:
@@ -167,10 +191,17 @@ class GPTDecoderLayer(nn.Module):
 
 
 class GPTEmbeddings(nn.Module):
-    def __init__(self, config: GPTConfig, *, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, *, device=None, dtype=None,
+                 group=None):
         super().__init__()
-        self.word_embeddings = nn.Embedding(
-            config.vocab_size, config.hidden_size, device=device, dtype=dtype)
+        if group is None:
+            self.word_embeddings = nn.Embedding(
+                config.vocab_size, config.hidden_size, device=device,
+                dtype=dtype)
+        else:
+            self.word_embeddings = VocabParallelEmbedding(
+                config.vocab_size, config.hidden_size, group=group,
+                device=device, dtype=dtype)
         self.position_embeddings = nn.Embedding(
             config.max_position_embeddings, config.hidden_size,
             device=device, dtype=dtype)
@@ -191,13 +222,14 @@ class GPTEmbeddings(nn.Module):
 
 class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig, *, device=None, dtype=None,
-                 kernel: str = "cuda"):
+                 kernel: str = "cuda", group=None):
         super().__init__()
         self.config = config
-        self.embeddings = GPTEmbeddings(config, device=device, dtype=dtype)
+        self.embeddings = GPTEmbeddings(config, device=device, dtype=dtype,
+                                        group=group)
         self.layers = nn.ModuleList(
             [GPTDecoderLayer(config, device=device, dtype=dtype,
-                             kernel=kernel)
+                             kernel=kernel, group=group)
              for _ in range(config.num_hidden_layers)])
         self.final_ln = LayerNorm(config.hidden_size,
                                   config.layer_norm_epsilon, device=device,
@@ -233,12 +265,14 @@ class GPTForCausalLM(nn.Module):
     ``device`` defaults to ``"cuda"``; pass ``device="cpu"`` to run on the
     CPU.  Asking for CUDA on a machine without a card raises.  ``kernel``
     (``"cuda"`` or ``"reference"``) picks the attention path on the card;
-    CPU tensors always take the plain versions."""
+    CPU tensors always take the plain versions.  ``mesh`` (a serving mesh)
+    builds the rank's tensor-parallel shard; ``generator`` then draws the
+    shard's own values."""
 
     def __init__(self, config: GPTConfig, *, device="cuda",
                  dtype=torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 kernel: str = "cuda"):
+                 kernel: str = "cuda", mesh=None):
         super().__init__()
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -246,10 +280,20 @@ class GPTForCausalLM(nn.Module):
                 "GPTForCausalLM: device 'cuda' asked for, but no CUDA "
                 "device is available (pass device='cpu' to run on the CPU)")
         self.config = config
-        self.gpt = GPTModel(config, device=device, dtype=dtype, kernel=kernel)
-        self.lm_head = None if config.tie_word_embeddings else nn.Linear(
-            config.hidden_size, config.vocab_size, bias=False, device=device,
-            dtype=dtype)
+        self.mesh = mesh
+        self.group = group = None if mesh is None \
+            else mesh.get_group("model")
+        self.gpt = GPTModel(config, device=device, dtype=dtype, kernel=kernel,
+                            group=group)
+        if config.tie_word_embeddings:
+            self.lm_head = None
+        elif group is None:
+            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+                                     bias=False, device=device, dtype=dtype)
+        else:
+            self.lm_head = ColumnParallelLinear(
+                config.hidden_size, config.vocab_size, bias=False,
+                group=group, device=device, dtype=dtype)
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -277,15 +321,23 @@ class GPTForCausalLM(nn.Module):
                 cache_ctx=None) -> torch.Tensor:
         """Logits ``[B, S, V]`` (serving and tests; training calls
         :meth:`compute_loss`, which never makes them).  ``cache_ctx``
-        routes a serving step through the KV cache."""
-        return self.gpt(input_ids, cache_ctx=cache_ctx) \
+        routes a serving step through the KV cache.  With a mesh, the
+        rank's vocabulary columns are all-gathered."""
+        logits = self.gpt(input_ids, cache_ctx=cache_ctx) \
             @ self._head_weight().t()
+        return logits if self.group is None else \
+            gather_last(logits, self.group)
 
     def compute_loss(self, input_ids: torch.Tensor, labels: torch.Tensor,
                      loss_mask: Optional[torch.Tensor] = None,
                      ignore_index: int = -100) -> torch.Tensor:
         """Forward + causal-LM loss (f32 scalar) through the vocab-blocked
-        fused cross-entropy."""
+        fused cross-entropy.  A sharded model raises: its loss needs the
+        vocab-parallel cross-entropy (ROADMAP.md A.5 step 6)."""
+        if self.group is not None:
+            raise NotImplementedError(
+                "compute_loss on a tensor-parallel GPT needs "
+                "ParallelCrossEntropy (ROADMAP.md A.5 step 6)")
         return fused_linear_cross_entropy(
             self.gpt(input_ids), self._head_weight(), labels,
             loss_mask=loss_mask, ignore_index=ignore_index)

@@ -1,12 +1,22 @@
 """Llama decoder-only transformer (RMSNorm + SwiGLU + rotary, GQA) as
 ``nn.Module``s.
 
-Port of ``paddle_tpu/models/llama.py`` for one device: the column/row
-parallel linears become ``nn.Linear`` (weight ``[out, in]``; the JAX
-layout is ``[in, out]``, see ``convert.py``) and the vocab-parallel
-embedding becomes ``nn.Embedding``.  The fused layouts are kept:
-``kv_proj`` is head-major (K then V for each kv head) and
-``gate_up_proj`` splits its output into ``[gate | up]``.
+Port of ``paddle_tpu/models/llama.py``.  Without a mesh the column/row
+parallel linears are ``nn.Linear`` (weight ``[out, in]``; the JAX layout
+is ``[in, out]``, see ``convert.py``) and the vocab-parallel embedding is
+``nn.Embedding``.  The fused layouts are kept: ``kv_proj`` is head-major
+(K then V for each kv head) and ``gate_up_proj`` splits its output into
+``[gate | up]``.
+
+With ``mesh=`` the rank holds its tensor-parallel shard (the layers of
+:mod:`..distributed.fleet.meta_parallel.mp_layers`): ``H/mp`` query heads
+and ``Hkv/mp`` whole kv heads (head-major, so a contiguous column shard
+is whole heads), the vocabulary's ``V/mp`` rows of the embedding and of
+the head (whose logits are all-gathered before they leave the model).
+``gate_up_proj`` is not contiguous in ``[gate | up]``: rank r holds
+gate's r-th slice and up's r-th slice (``parts=2``), so the SwiGLU needs
+no communication.  The JAX package shards it contiguously and lets GSPMD
+reshard after the split; the values are the same, the layout is not.
 
 Every module is built on the ``device`` and in the ``dtype`` it is given.
 Weights are drawn from ``generator`` (normal, std ``initializer_range``;
@@ -26,6 +36,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed.fleet.meta_parallel.mp_layers import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    gather_last,
+)
 from ..nn.norm import RMSNorm
 from ..ops.attention import flash_attention
 from ..ops.rotary import rotary_embedding
@@ -116,23 +130,37 @@ def _rope_cache(seq_len: int, dim: int, theta: float):
     return np.cos(emb).astype(np.float32), np.sin(emb).astype(np.float32)
 
 
-def _linear(n_in: int, n_out: int, device, dtype) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=False, device=device, dtype=dtype)
+def _linear(n_in: int, n_out: int, device, dtype, group=None,
+            kind: str = "column", parts: int = 1) -> nn.Linear:
+    """A bias-free projection: ``nn.Linear`` without a group, else the
+    ``kind`` (``"column"`` or ``"row"``) tensor-parallel layer."""
+    if group is None:
+        return nn.Linear(n_in, n_out, bias=False, device=device, dtype=dtype)
+    if kind == "row":
+        return RowParallelLinear(n_in, n_out, bias=False, group=group,
+                                 device=device, dtype=dtype)
+    return ColumnParallelLinear(n_in, n_out, bias=False, group=group,
+                                parts=parts, device=device, dtype=dtype)
 
 
 class LlamaAttention(nn.Module):
     """Rotary causal self-attention with grouped-query KV."""
 
-    def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None,
+                 group=None):
         super().__init__()
         self.n_heads = config.num_attention_heads
         self.n_kv = config.n_kv_heads
         self.head_dim = config.head_dim
         h = config.hidden_size
-        self.q_proj = _linear(h, self.n_heads * self.head_dim, device, dtype)
+        self.q_proj = _linear(h, self.n_heads * self.head_dim, device, dtype,
+                              group)
         self.kv_proj = _linear(h, self.n_kv * 2 * self.head_dim, device,
-                               dtype)
-        self.o_proj = _linear(h, h, device, dtype)
+                               dtype, group)
+        self.o_proj = _linear(h, h, device, dtype, group, "row")
+        if group is not None:
+            self.n_heads //= self.q_proj.mp
+            self.n_kv //= self.q_proj.mp
         self.rope_theta = config.rope_theta
         cos, sin = _rope_cache(config.max_position_embeddings, self.head_dim,
                                self.rope_theta)
@@ -180,12 +208,16 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     """SwiGLU: ``down(silu(gate(x)) * up(x))`` with gate/up fused."""
 
-    def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None,
+                 group=None):
         super().__init__()
         self.ffn = config.ffn_size
         self.gate_up_proj = _linear(config.hidden_size, 2 * self.ffn, device,
-                                    dtype)
-        self.down_proj = _linear(self.ffn, config.hidden_size, device, dtype)
+                                    dtype, group, parts=2)
+        self.down_proj = _linear(self.ffn, config.hidden_size, device, dtype,
+                                 group, "row")
+        if group is not None:
+            self.ffn //= self.down_proj.mp
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gate, up = self.gate_up_proj(x).split(self.ffn, dim=-1)
@@ -195,15 +227,17 @@ class LlamaMLP(nn.Module):
 class LlamaDecoderLayer(nn.Module):
     """Pre-RMSNorm block: ``x + attn(norm(x))``; ``x + mlp(norm(x))``."""
 
-    def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None,
+                 group=None):
         super().__init__()
         eps = config.rms_norm_eps
         self.input_layernorm = RMSNorm(config.hidden_size, eps,
                                        device=device, dtype=dtype)
-        self.self_attn = LlamaAttention(config, device=device, dtype=dtype)
+        self.self_attn = LlamaAttention(config, device=device, dtype=dtype,
+                                        group=group)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
                                                 device=device, dtype=dtype)
-        self.mlp = LlamaMLP(config, device=device, dtype=dtype)
+        self.mlp = LlamaMLP(config, device=device, dtype=dtype, group=group)
 
     def forward(self, x: torch.Tensor, cache_ctx=None) -> torch.Tensor:
         x = x + self.self_attn(self.input_layernorm(x), cache_ctx)
@@ -211,14 +245,21 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, config: LlamaConfig, *, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None,
+                 group=None):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size, device=device,
-                                         dtype=dtype)
+        if group is None:
+            self.embed_tokens = nn.Embedding(config.vocab_size,
+                                             config.hidden_size,
+                                             device=device, dtype=dtype)
+        else:
+            self.embed_tokens = VocabParallelEmbedding(
+                config.vocab_size, config.hidden_size, group=group,
+                device=device, dtype=dtype)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, device=device, dtype=dtype)
+            [LlamaDecoderLayer(config, device=device, dtype=dtype,
+                               group=group)
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=device, dtype=dtype)
@@ -236,11 +277,13 @@ class LlamaForCausalLM(nn.Module):
     """LlamaModel + an untied LM head.
 
     ``device`` defaults to ``"cuda"``; pass ``device="cpu"`` to run on the
-    CPU.  Asking for CUDA on a machine without a card raises."""
+    CPU.  Asking for CUDA on a machine without a card raises.  ``mesh`` (a
+    serving mesh) builds the rank's tensor-parallel shard; ``generator``
+    then draws the shard's own values."""
 
     def __init__(self, config: LlamaConfig, *, device="cuda",
                  dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -248,9 +291,13 @@ class LlamaForCausalLM(nn.Module):
                 "LlamaForCausalLM: device 'cuda' asked for, but no CUDA "
                 "device is available (pass device='cpu' to run on the CPU)")
         self.config = config
-        self.llama = LlamaModel(config, device=device, dtype=dtype)
+        self.mesh = mesh
+        self.group = group = None if mesh is None \
+            else mesh.get_group("model")
+        self.llama = LlamaModel(config, device=device, dtype=dtype,
+                                group=group)
         self.lm_head = _linear(config.hidden_size, config.vocab_size, device,
-                               dtype)
+                               dtype, group)
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -266,4 +313,6 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 cache_ctx=None) -> torch.Tensor:
-        return self.lm_head(self.llama(input_ids, cache_ctx=cache_ctx))
+        logits = self.lm_head(self.llama(input_ids, cache_ctx=cache_ctx))
+        return logits if self.group is None else \
+            gather_last(logits, self.group)

@@ -29,6 +29,15 @@ Port of ``paddle_tpu/serving/adapters.py``.  One deployment serves up to
   cache's chain root, so tenant K/V never hits another tenant's, nor a
   stale version of its own.
 
+On a tensor-parallel model (``Engine(mesh=...)``) a bank shards like the
+layer it modifies: a column layer's bank holds the rank's columns of
+``B`` (its out-features), a row layer's the rank's rows of ``A`` (its
+in-features), the other factor whole.  The hook of a tensor-parallel
+layer is its ``lora`` attribute, which it applies to its own output
+before the all-gather or the all-reduce: a row layer's delta joins the
+rank's partial product and is summed with it.  :meth:`AdapterPool.load`
+takes whole factors and writes the rank's share.
+
 The banks and the id lane are the pool's own tensors, not parameters or
 buffers of the model: ``model.named_parameters()``, ``state_dict()`` and
 ``update_weights``' cover check see the model as it was.  Not supported,
@@ -68,10 +77,14 @@ class _Bank:
     """One target linear's stacked factors."""
 
     key: str                  # module path of the target layer
-    in_features: int
+    in_features: int          # whole (the factors a load takes)
     out_features: int
-    A: torch.Tensor           # [L, in, rank]
-    B: torch.Tensor           # [L, rank, out]
+    A: torch.Tensor           # [L, in, rank] (the rank's in-rows: row)
+    B: torch.Tensor           # [L, rank, out] (the rank's out-cols: column)
+    #: a tensor-parallel layer's kind ("column" or "row") and the whole
+    #: dim's indices this rank holds; None for a plain linear
+    kind: Optional[str] = None
+    index: Optional[torch.Tensor] = None
 
 
 def _f32(w) -> torch.Tensor:
@@ -84,6 +97,25 @@ def _f32(w) -> torch.Tensor:
 def _remove_hooks(handles) -> None:
     for h in handles:
         h.remove()
+
+
+class _LoraHandle:
+    """Removes a tensor-parallel layer's ``lora`` hook."""
+
+    def __init__(self, layer):
+        self.layer = weakref.ref(layer)
+
+    def remove(self) -> None:
+        layer = self.layer()
+        if layer is not None:
+            layer.lora = None
+
+
+def _tp_kind(layer) -> Optional[str]:
+    """``"column"``/``"row"`` for a tensor-parallel linear, else None."""
+    if not hasattr(layer, "lora"):
+        return None
+    return "row" if hasattr(layer, "full_in_features") else "column"
 
 
 def lora_targets(model: nn.Module) -> Dict[str, nn.Linear]:
@@ -120,9 +152,18 @@ class AdapterPool:
                             dtype=self.dtype, device=self.device)
             B = torch.zeros((self.num_lanes, self.rank, layer.out_features),
                             dtype=self.dtype, device=self.device)
-            self.banks[path] = _Bank(path, layer.in_features,
-                                     layer.out_features, A, B)
-            handles.append(layer.register_forward_hook(self._hook(me, path)))
+            kind = _tp_kind(layer)
+            self.banks[path] = _Bank(
+                path, getattr(layer, "full_in_features", layer.in_features),
+                getattr(layer, "full_out_features", layer.out_features), A,
+                B, kind, None if kind is None else layer.local_index())
+            if kind is None:
+                handles.append(
+                    layer.register_forward_hook(self._hook(me, path)))
+            else:
+                # applied by the layer before its gather or reduce
+                layer.lora = self._hook(me, path)
+                handles.append(_LoraHandle(layer))
         # the hooks leave the model with the pool
         self._unhook = weakref.finalize(self, _remove_hooks, handles)
         self.adapter_ids = torch.zeros(self.num_slots, dtype=torch.int32,
@@ -220,7 +261,8 @@ class AdapterPool:
                    for key in self.banks}
         for key, bank in self.banks.items():
             A, B = factors[key]
-            want_a, want_b = tuple(bank.A.shape[1:]), tuple(bank.B.shape[1:])
+            want_a = (bank.in_features, self.rank)
+            want_b = (self.rank, bank.out_features)
             if tuple(A.shape) != want_a or tuple(B.shape) != want_b:
                 raise ValueError(
                     f"adapter {name!r} target {key!r}: want A {want_a} / "
@@ -236,6 +278,10 @@ class AdapterPool:
         before = self._lane_ptrs()
         for key, bank in self.banks.items():
             A, B = factors[key]
+            if bank.kind == "row":
+                A = A.index_select(0, bank.index)
+            elif bank.kind == "column":
+                B = B.index_select(1, bank.index)
             bank.A[lane].copy_(A)
             # scaled in f32, then rounded once to the lane's dtype
             bank.B[lane].copy_(B * float(scale))

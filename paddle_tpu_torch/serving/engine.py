@@ -114,8 +114,17 @@ submit surface.  Its hooks here are the JAX engine's:
 :meth:`Engine._release_device`, which frees what an ejected engine holds
 on the card before its successor is built.
 
-Not part of this port yet: the mesh (ROADMAP.md A.3 step 8), with it the
-sharded tenancy of ``TestShardedTenancy``.
+Tensor-parallel sharded serving, as in the JAX engine (``mesh=``, a
+serving mesh from :func:`~.sharding.serving_mesh`; :mod:`.sharding`):
+every rank of the mesh runs this engine on its shard of the model (its
+heads, its KV pool at ``kv_heads/mp``), fed the same calls.  Every host
+decision is the same on every rank: a decision that reads a clock or a
+thread reads the values rank 0 had at the decision exchange that starts
+each step and each ``add_request`` (:meth:`Engine._exchange`), which also
+compares the ranks' scheduling digests and raises on a divergence.  The
+logits are all-gathered over the vocabulary inside the model, so each
+rank samples the same tokens from the same whole lanes.  A mesh of one
+makes no exchange and serves the plain engine's streams bitwise.
 """
 from __future__ import annotations
 
@@ -124,6 +133,7 @@ import itertools
 import os
 import time
 import weakref
+import zlib
 from collections import OrderedDict, deque
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
@@ -434,8 +444,12 @@ class Engine:
         model_version: the weight version this engine starts at (a
             fleet's replica rebuilt after a rolling update joins at the
             fleet's version).
-        mesh: not ported; anything but ``None`` raises
-            ``NotImplementedError`` naming its ROADMAP.md item.
+        mesh: a serving mesh (:func:`~.sharding.serving_mesh`): serve
+            tensor-parallel on its ranks, each rank running this engine on
+            its shard (a whole model is cut into the rank's shard,
+            :meth:`~.sharding.ServingShard.place_model`; on a mesh of one
+            it shares the model's tensors).  ``None`` serves on one
+            device with no collective.
 
     ``PADDLE_TPU_SANITIZE=1|strict`` arms the sync sanitizer
     (``self.sanitizer``, :class:`~.sanitize.SyncSanitizer`) at
@@ -473,14 +487,23 @@ class Engine:
                  speculation: Optional[SpecConfig] = None,
                  adapters=None, grammars=None, model_version: int = 0,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Engine(mesh=...) is not ported yet (ROADMAP.md A.3 step 8, "
-                "sharded serving)")
         cfg = getattr(model, "config", None)
         if cfg is None:
             raise TypeError("Engine needs a model carrying a .config "
                             "(GPTForCausalLM, LlamaForCausalLM)")
+        kv_heads = getattr(cfg, "n_kv_heads", None) or \
+            cfg.num_attention_heads
+        #: the model as the caller gave it (a self-speculating draft names
+        #: it), held weakly
+        self._source_ref = weakref.ref(model)
+        #: the engine's sharding (None: one device)
+        self.shard = None
+        if mesh is not None:
+            from .sharding import ServingShard
+
+            self.shard = ServingShard(mesh, kv_heads=kv_heads,
+                                      num_heads=cfg.num_attention_heads)
+            model = self.shard.place_model(model)
         self.model = model.eval()
         self.config = cfg
         param = next(model.parameters())
@@ -523,8 +546,13 @@ class Engine:
                        else ("cuda" if kernel == "auto" else kernel))
         self.block_size = int(block_size)
         cache_dtype = cache_dtype or param.dtype
-        kv_heads = getattr(cfg, "n_kv_heads", None) or \
-            cfg.num_attention_heads
+        if self.shard is not None:
+            if self.shard.device_type != self.device.type:
+                raise ValueError(
+                    f"the mesh is on {self.shard.device_type!r}, the model "
+                    f"on {self.device.type!r}")
+            # the rank's whole kv heads
+            kv_heads = self.shard.local_heads(kv_heads)
         self.prefix_cache = None
         self.prefix_lookup_timeout_s = float(prefix_lookup_timeout_s)
         if kv_layout == "paged":
@@ -614,9 +642,17 @@ class Engine:
         #: weight version this engine serves (``update_weights`` bumps
         #: it; each request records the version that served it)
         self.model_version = int(model_version)
-        #: the mesh-shape key a sharded engine journals; the port serves
-        #: on one card (ROADMAP.md A.3 step 8)
-        self.mesh_shape: Optional[str] = None
+        #: the mesh-shape key ("model=2") journaled per admission and
+        #: checked by recover(); None for an unsharded engine
+        self.mesh_shape: Optional[str] = \
+            None if self.shard is None else self.shard.key
+        #: ranks this engine lost (the ``serving.shard_fail`` point): the
+        #: fleet's degraded rebuild leaves them out
+        self.lost_devices: List[int] = []
+        # the decision exchange's values (a mesh of more than one rank):
+        # rank 0's clock reading and mean inter-token latency
+        self._agreed_now: Optional[float] = None
+        self._agreed_itl: Optional[float] = None
         self.state = "active"    # active | draining | stopped | unhealthy
         self._unhealthy_reason: Optional[str] = None
         # speculative decoding: the draft, its cache, sampler and
@@ -774,6 +810,93 @@ class Engine:
     def _fault(self, point: str) -> None:
         if self.fault_plan is not None and self.fault_plan.armed:
             self.fault_plan.check(point)
+
+    # -- one decision stream across a mesh's ranks --------------------------
+
+    @property
+    def source_model(self) -> Optional[nn.Module]:
+        return self._source_ref()
+
+    def model_parallel(self) -> int:
+        """The engine's model-parallel degree (1 without a mesh)."""
+        return 1 if self.shard is None else self.shard.mp
+
+    def _exchanging(self) -> bool:
+        return self.shard is not None and self.shard.mp > 1
+
+    def _clock(self) -> float:
+        """The time a scheduling decision reads: the clock, or on a mesh of
+        more than one rank rank 0's reading at the last exchange."""
+        if self._agreed_now is None:
+            return time.perf_counter()
+        return self._agreed_now
+
+    def _local_itl(self) -> Optional[float]:
+        itl = self.metrics.itl_s
+        return sum(itl) / len(itl) if itl else None
+
+    def _itl_mean(self) -> Optional[float]:
+        """The mean inter-token latency shedding prices a wait at (rank
+        0's on a mesh of more than one rank); None before any decode."""
+        return self._agreed_itl if self._exchanging() else self._local_itl()
+
+    def _digest(self) -> int:
+        """The scheduling state every rank must share: the step count, the
+        running slots with their requests and token counts, the queue and
+        the free slots."""
+        state = (self._step_counter,
+                 sorted((s, r.request_id, len(r.output_ids))
+                        for s, r in self.running.items()),
+                 [q.request_id for q in self.queue],
+                 sorted(self.free_slots))
+        return zlib.crc32(repr(state).encode())
+
+    def _exchange(self) -> None:
+        """The decision exchange of a mesh of more than one rank (no-op
+        otherwise): every rank's clock, mean inter-token latency, state and
+        scheduling digest are gathered; decisions then read rank 0's clock
+        and latency, a rank turned unhealthy (its watchdog fired) turns
+        every rank unhealthy, and differing digests raise: the ranks would
+        issue different collectives."""
+        if not self._exchanging():
+            return
+        frames = self.shard.agree({
+            "now": time.perf_counter(), "itl": self._local_itl(),
+            "state": self.state, "reason": self._unhealthy_reason,
+            "digest": self._digest()})
+        digests = [f["digest"] for f in frames]
+        if len(set(digests)) > 1:
+            raise RuntimeError(
+                f"engine {self.name!r}: the ranks {self.shard.ranks} of mesh "
+                f"{self.mesh_shape} diverged (scheduling digests {digests})")
+        self._agreed_now = frames[0]["now"]
+        self._agreed_itl = frames[0]["itl"]
+        for f in frames:
+            if f["state"] == "unhealthy" and self.state != "unhealthy":
+                self.state = "unhealthy"
+                self._unhealthy_reason = f["reason"]
+                self.flight.dump(self._unhealthy_reason)
+
+    def _any_rank(self, flag: bool) -> bool:
+        """``flag`` on any rank of the mesh (the flag itself without an
+        exchange)."""
+        if not self._exchanging():
+            return bool(flag)
+        return any(self.shard.agree(bool(flag)))
+
+    def _mark_shard_lost(self, reason) -> None:
+        """Device loss on a sharded engine (the ``serving.shard_fail``
+        point): the mesh's highest rank is lost, recorded in
+        ``lost_devices`` for the fleet's degraded rebuild, and the engine
+        turns sticky ``unhealthy`` as a wedged one does."""
+        lost = self.shard.ranks[-1]
+        self.lost_devices = [lost]
+        self._unhealthy_reason = (
+            f"shard failure: lost rank {lost} of mesh "
+            f"{self.mesh_shape!r} ({reason})")
+        self.state = "unhealthy"
+        self.flight.dump(self._unhealthy_reason)
+        self.tracer.on_unhealthy(self.name, self._unhealthy_reason)
 
     def _mark_wedged(self) -> None:
         """The watchdog fired (on its own thread, while this engine's
@@ -1026,6 +1149,7 @@ class Engine:
         queued; if that write fails the request is rejected and the
         storage error raised."""
         prio = _as_priority(priority)
+        self._exchange()
         if self.state != "active":
             raise EngineStopped(
                 f"engine {self.name!r} is {self.state}: not admitting "
@@ -1053,7 +1177,7 @@ class Engine:
                 req.eos_token_id = getattr(spec, "eos_token_id", None)
             except KeyError:
                 pass                     # an unknown grammar: _validate
-        req.t_enqueue = time.perf_counter()
+        req.t_enqueue = self._clock()
         origin_wall = None
         jr = self.journal
         if jr is not None:
@@ -1099,9 +1223,9 @@ class Engine:
             if self.queue_policy == "block":
                 budget = self.block_timeout_s if block_timeout_s is None \
                     else float(block_timeout_s)
-                t_end = time.perf_counter() + budget
+                t_end = self._clock() + budget
                 while len(self.queue) >= self.max_queue:
-                    if time.perf_counter() >= t_end:
+                    if self._clock() >= t_end:
                         break
                     self.step()
             if len(self.queue) >= self.max_queue:
@@ -1304,14 +1428,14 @@ class Engine:
         latency and spread over the decode batch width.  A cold engine
         (no decode measured yet) estimates 0.0, so admission never sheds
         on a guess, and so does a request the free slots can take now."""
-        if not self.metrics.itl_s:
+        itl = self._itl_mean()
+        if itl is None:
             return 0.0
-        now = time.perf_counter()
+        now = self._clock()
         queued_ahead = [q for q in self.queue
                         if self._effective_priority(q, now) >= int(priority)]
         if len(queued_ahead) < len(self.free_slots):
             return 0.0
-        itl = sum(self.metrics.itl_s) / len(self.metrics.itl_s)
         tokens = sum(max(0, r.max_new_tokens - len(r.output_ids))
                      for r in self.running.values())
         tokens += sum(q.max_new_tokens for q in queued_ahead)
@@ -1327,7 +1451,7 @@ class Engine:
         class and a victim of its own)."""
         if req.deadline_s is None:
             return None
-        now = time.perf_counter()
+        now = self._clock()
         if self._pick_victim(req) is not None and not any(
                 not q.done and self._effective_priority(q, now)
                 >= req.priority and self._pick_victim(q) is not None
@@ -1429,16 +1553,19 @@ class Engine:
         if self.prefix_cache is None:
             return 0, []
         t0 = time.perf_counter()
+        hit = (0, [])
         try:
             self._fault("serving.prefix_lookup")
             hit = self.prefix_cache.lookup(req.prompt_ids, count=False,
                                            salt=self._tenant_salt(req))
         except Exception:                # noqa: BLE001 — isolation boundary
-            self.metrics.on_prefix_lookup_error()
-            return 0, []
-        if time.perf_counter() - t0 > self.prefix_lookup_timeout_s:
+            failed = True
+        else:
             # over budget: a degraded subsystem; its late result is
             # discarded (the lookup is synchronous, its stall is spent)
+            failed = time.perf_counter() - t0 > self.prefix_lookup_timeout_s
+        # on a mesh, a miss on any rank is a miss on every rank
+        if self._any_rank(failed):
             self.metrics.on_prefix_lookup_error()
             return 0, []
         return hit
@@ -1536,7 +1663,7 @@ class Engine:
         if req._cancel:                  # cancelled between pop and prefill
             self._retire(req, "cancelled")
             return None
-        if self._deadline_expired(req, time.perf_counter()):
+        if self._deadline_expired(req, self._clock()):
             self._fail_deadline(req)
             return None
         L = int(req.prompt_ids.size)
@@ -1941,13 +2068,29 @@ class Engine:
         lower-priority victim when no slot or no block is free), then one
         decode step for the running slots.  True while work remains.
         Raises :class:`EngineStopped` once the engine is unhealthy."""
+        self._exchange()
         if self.state == "unhealthy":
             raise EngineStopped(
                 f"engine {self.name!r} is unhealthy: "
                 f"{self._unhealthy_reason}")
-        self._reap(time.perf_counter())
+        if self.shard is not None and self.fault_plan is not None \
+                and self.fault_plan.armed:
+            # a simulated device loss (serving.shard_fail@N): the engine
+            # loses its mesh's highest rank and turns unhealthy; a fleet
+            # ejects it and rebuilds the group at a smaller viable mp
+            from ..distributed.fault_tolerance.injection import \
+                InjectedFault
+
+            try:
+                self.fault_plan.check("serving.shard_fail")
+            except InjectedFault as e:
+                self._mark_shard_lost(e)
+                raise EngineStopped(
+                    f"engine {self.name!r} is unhealthy: "
+                    f"{self._unhealthy_reason}") from e
+        self._reap(self._clock())
         while self.queue:
-            now = time.perf_counter()
+            now = self._clock()
             i = self._best_queued_index(now)
             req = self.queue[i]
             if req.done:                 # cancelled or expired while queued
@@ -2059,9 +2202,9 @@ class Engine:
         if self.state == "active":
             self.state = "draining"
         deadline = None if timeout_s is None \
-            else time.perf_counter() + float(timeout_s)
+            else self._clock() + float(timeout_s)
         while (self.running or self.queue) and self.state == "draining":
-            if deadline is not None and time.perf_counter() >= deadline:
+            if deadline is not None and self._clock() >= deadline:
                 break
             try:
                 self.step()
@@ -2272,7 +2415,8 @@ class Engine:
         advances by one (or is set to ``version``: a fleet's rolling
         update tags every replica with the fleet's version).  Queued or
         running work raises: its KV was computed under the old weights.
-        Returns the new version."""
+        A sharded engine takes the whole state dict and writes its rank's
+        shard of it.  Returns the new version."""
         if self.running or self.queue:
             raise RuntimeError(
                 f"engine {self.name!r} has in-flight work "
@@ -2280,7 +2424,11 @@ class Engine:
                 "queued): drain before update_weights; decoding KV "
                 "prefilled under old weights with new weights would "
                 "serve a torn response")
-        _write_state_dict(self.model, _resolve_weights(state_or_path))
+        sd = _resolve_weights(state_or_path)
+        if self.shard is not None:
+            # a whole state dict: this rank's shard of it
+            sd = self.shard.shard_weights(sd)
+        _write_state_dict(self.model, sd)
         return self._mark_weights_swapped(version)
 
     def _mark_weights_swapped(self, version: Optional[int] = None) -> int:
@@ -2423,7 +2571,8 @@ class Engine:
 
     def stats(self) -> dict:
         """``/stats``-style snapshot: the serving metrics, the health
-        audit, paged, the pool and prefix-cache gauges, with a sanitizer
+        audit, paged, the pool and prefix-cache gauges, sharded, the mesh
+        shape and model-parallel degree (``"sharding"``), with a sanitizer
         its report, and, with a live tracer, its summary."""
         self.metrics._slots_busy = len(self.running)
         self.metrics.queue_depth = len(self.queue)
@@ -2445,6 +2594,9 @@ class Engine:
                 "grammars": list(gt.names) if gt is not None else []}
         if self.journal is not None:
             snap["durability"]["journal"] = self.journal.stats()
+        if self.shard is not None:
+            snap["sharding"] = {"mesh_shape": self.mesh_shape,
+                                "model_parallel": self.shard.mp}
         if self.sanitizer is not None:
             snap["sanitizer"] = self.sanitizer.report()
         if self.tracer.enabled:

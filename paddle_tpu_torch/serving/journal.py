@@ -32,9 +32,9 @@ Format: append-only segments of CRC-framed JSON lines.
   requests a fleet router owns, whose router writes the one final),
   ``weights`` (a hot-swap version bump), ``mesh_reshard`` (a replay
   across a mesh-shape change) and ``compacted`` (cumulative totals of
-  what compaction pruned).  The port has no fleet and no mesh yet
-  (ROADMAP.md A.3 steps 7 and 8): their records and bookkeeping are
-  kept here as data, so that their journals read the same.
+  what compaction pruned).  A sharded engine journals its mesh shape
+  with each admission; every rank of a mesh writes the same records, so
+  each rank is given a journal directory of its own.
 - **Segment rotation + compaction**: the active segment rotates after
   ``segment_records`` appends; on rotation (and on explicit
   :meth:`compact`) the longest *prefix* of closed segments whose every

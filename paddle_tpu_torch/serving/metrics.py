@@ -375,9 +375,9 @@ class FleetMetrics:
     that the contract held), its dispatch decisions (all, by prefix
     affinity, pinned by the caller) and the supervision loop's actions:
     ejections, rebuilds with the measured eject-to-rejoin time (the
-    failover recovery), redispatches; crash recoveries and weight rolls.
-    The ``degraded`` section stays at zero: a degraded rebuild needs a
-    mesh (ROADMAP.md A.3 step 8)."""
+    failover recovery), redispatches; crash recoveries and weight rolls;
+    and the degraded rebuilds of shard groups (a group rebuilt at a smaller
+    viable model-parallel degree after it lost a device)."""
 
     def __init__(self, name: str = "fleet", num_replicas: int = 1):
         self.name = name
@@ -399,6 +399,11 @@ class FleetMetrics:
         self.rebuild_failures = 0
         self.last_recovery_s: Optional[float] = None
         self.total_recovery_s = 0.0
+        self.degrades = 0
+        self.last_degrade_old_mp: Optional[int] = None
+        self.last_degrade_mp: Optional[int] = None
+        self.last_degrade_s: Optional[float] = None
+        self.total_degrade_s = 0.0
         self.banked_outcomes: Dict[str, int] = {}
         self.requests_recovered = 0
         self.crash_recoveries = 0
@@ -447,6 +452,17 @@ class FleetMetrics:
             self.total_recovery_s += recovery_s
         else:
             self.rebuild_failures += 1
+
+    def on_degrade(self, old_mp: int, new_mp: int,
+                   recovery_s: float) -> None:
+        """A shard group was rebuilt at ``new_mp < old_mp`` on its
+        surviving ranks; ``recovery_s`` is the eject-to-rejoin time that
+        ``on_rebuild`` records too (a degrade is also a rebuild)."""
+        self.degrades += 1
+        self.last_degrade_old_mp = int(old_mp)
+        self.last_degrade_mp = int(new_mp)
+        self.last_degrade_s = recovery_s
+        self.total_degrade_s += recovery_s
 
     def bank_outcomes(self, outcomes: Dict[str, int]) -> None:
         """Fold a recovered journal's pre-crash final outcomes into the
@@ -512,9 +528,13 @@ class FleetMetrics:
                 "last_recovery_ms": ms(self.last_recovery_s),
                 "total_recovery_ms": round(self.total_recovery_s * 1e3, 3),
             },
-            "degraded": {"degrades": 0, "last_old_mp": None,
-                         "last_mp": None, "last_degrade_ms": None,
-                         "total_degrade_ms": 0.0},
+            "degraded": {
+                "degrades": self.degrades,
+                "last_old_mp": self.last_degrade_old_mp,
+                "last_mp": self.last_degrade_mp,
+                "last_degrade_ms": ms(self.last_degrade_s),
+                "total_degrade_ms": round(self.total_degrade_s * 1e3, 3),
+            },
             "durability": {
                 "crash_recoveries": self.crash_recoveries,
                 "recovered": self.requests_recovered,

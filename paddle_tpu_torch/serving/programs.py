@@ -22,7 +22,12 @@ sampler's lanes) a replay writes again at the addresses it had at
 capture, so that state is never reallocated.  A body's host side effects
 happen at capture only.  The kernels' launch counts are such an effect:
 the capture's launches are taken back (it launched nothing) and added
-again at every replay, so the counts stay per device launch.
+again at every replay, so the counts stay per device launch; so are the
+collectives a tensor-parallel model issues (``mp_layers.COLLECTIVES``).
+A sharded engine's graphs hold its NCCL collectives: the eager first
+run of each body issues the same collectives before its capture, which
+readies the communicator, and every rank captures the same programs in
+the same order.
 
 All the programs of one registry share one graph memory pool.  They never
 run at once, but one program's replay may overwrite the memory that holds
@@ -48,6 +53,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributed.fleet.meta_parallel import mp_layers
 from ..ops import kernels
 
 __all__ = ["StepPrograms"]
@@ -71,16 +77,25 @@ def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
     return _capture_streams[index]
 
 
+def _delta(before: Dict[str, int]) -> Dict[str, int]:
+    """The collectives issued since ``before`` was read, by kind."""
+    after = mp_layers.collective_counts()
+    return {n: after[n] - before[n] for n in after if after[n] != before[n]}
+
+
 class _Program:
     """One key's static inputs and, on the card, its graph, the graph's
-    output and the kernel launches one replay makes."""
+    output and the kernel launches one replay makes; the collectives one
+    call issues."""
 
     def __init__(self, inputs: List[torch.Tensor], graph=None, output=None,
-                 launches: Dict[str, int] = None):
+                 launches: Dict[str, int] = None,
+                 collectives: Dict[str, int] = None):
         self.inputs = inputs
         self.graph = graph
         self.output = output
         self.launches = launches or {}
+        self.collectives = collectives or {}
 
 
 class StepPrograms:
@@ -139,7 +154,9 @@ class StepPrograms:
                 prog, out = self._capture(body, statics)
                 self._ran_on(stream)
             else:
-                prog, out = _Program(statics), body(*statics)
+                before = mp_layers.collective_counts()
+                out = body(*statics)
+                prog = _Program(statics, collectives=_delta(before))
             self._programs[key] = prog
             self._on_compile(True)
             return out
@@ -150,6 +167,7 @@ class StepPrograms:
             prog.graph.replay()
             self._ran_on(stream)
             kernels.add_launches(prog.launches)
+            mp_layers.add_collectives(prog.collectives)
             out = prog.output
         self._on_compile(False)
         return out
@@ -196,6 +214,7 @@ class StepPrograms:
         cur.wait_stream(side)
         out.record_stream(cur)
         before = kernels.launch_counts()
+        coll_before = mp_layers.collective_counts()
         graph = torch.cuda.CUDAGraph()
         # the cyclic collector must not run inside a capture: freeing an
         # unreachable engine's graphs there invalidates it
@@ -213,4 +232,6 @@ class StepPrograms:
                     if after[n] != before[n]}
         # the capture launched nothing: its counts move to the replays
         kernels.add_launches({n: -c for n, c in launches.items()})
-        return _Program(statics, graph, output, launches), out
+        collectives = _delta(coll_before)
+        mp_layers.add_collectives({n: -c for n, c in collectives.items()})
+        return _Program(statics, graph, output, launches, collectives), out

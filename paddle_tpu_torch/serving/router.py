@@ -43,9 +43,34 @@ as a unit that can fail, be ejected and be rebuilt:
 The replicas run on one host thread: a fleet step steps each replica in
 turn, and each engine step reads its tokens on the host before the next
 replica steps, so on one card the replicas share the device and never
-run at once.  A replica is one engine on one device; shard groups
-(``shards_per_group > 1``) need the mesh, which is not ported
-(ROADMAP.md A.3 step 8).
+run at once.
+
+**Shard groups** (``shards_per_group=mp > 1``): every replica is a
+tensor-parallel engine (``Engine(mesh=...)``) on its own ranks of a
+``torch.distributed`` world, group g on ranks ``[g*mp, (g+1)*mp)``.
+Every rank of the world builds the same fleet and is fed the same calls
+(SPMD); a rank runs the engine of its own group and holds a stand-in
+(:class:`_RemoteEngine`) for the others.  The fleet's host view is the
+same on every rank: once per fleet step each group's first rank sends
+its replica's state, load and attempts (tokens, terminal states) to the
+whole world, and every rank's router applies them in one order, so every
+dispatch, reap, ejection and rebuild is decided the same everywhere.  A
+dispatch's prefix probes and a submit's outcome are exchanged the same
+way.  ``dist.new_group`` is collective over the world, so every group a
+degrade can reach (for each group and each viable mp, its first mp
+ranks) is made at construction.
+
+**Degraded rebuild**: a group that loses a rank (the
+``serving.shard_fail`` point loses its highest) is ejected and rebuilt at
+the largest viable mp (:func:`~.sharding.degrade_step`) on its surviving
+ranks; the lost rank leaves its group's engine but goes on taking part
+in the world's exchanges.  A group with no survivor is ``dead`` with an
+error naming the viability ladder.  The degrade is journaled
+(``mesh_reshard``), counted (``stats()["degraded"]``) and weighs the
+group's load by ``configured / current`` mp in dispatch.  Each rank
+journals into the journal it was given; give each rank its own
+directory.  :meth:`Fleet.recover` of a shard-group fleet is not ported
+(each rank's journal holds its own group's requests).
 """
 from __future__ import annotations
 
@@ -57,6 +82,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .engine import (
@@ -140,14 +166,59 @@ class FleetRequest:
         return True
 
 
+class _Attempt:
+    """A shard-group fleet's view of one engine attempt, the same on every
+    rank: its fields come from the world exchange after each fleet step.
+    A rank of the serving group also holds the engine's request
+    (``local``), which a cancel reaches."""
+
+    __slots__ = ("local", "state", "error", "error_kind", "error_ctx",
+                 "output_ids", "preempted", "preemptions", "_cancel")
+
+    def __init__(self, local: Optional[Request] = None):
+        self.local = local
+        self.state = "queued"
+        self.error: Optional[str] = None
+        self.error_kind: Optional[str] = None
+        self.error_ctx: Optional[dict] = None
+        self.output_ids: List[int] = []
+        self.preempted = False
+        self.preemptions = 0
+        self._cancel = False
+
+    @property
+    def done(self) -> bool:
+        return self.state in TERMINAL_STATES
+
+    def cancel(self) -> bool:
+        if self.done or self._cancel:
+            return False
+        self._cancel = True
+        if self.local is not None:
+            self.local.cancel()
+        return True
+
+
+class _RemoteEngine:
+    """A replica's engine as a rank outside its group sees it: a name, a
+    weight version and a mesh shape.  What else the router reads of it
+    comes from the world exchange."""
+
+    def __init__(self, name: str, model_version: int,
+                 mesh_shape: Optional[str]):
+        self.name = name
+        self.model_version = model_version
+        self.mesh_shape = mesh_shape
+
+
 class _Replica:
     """One supervised engine slot of the fleet's rotation."""
 
     __slots__ = ("index", "engine", "state", "ejections", "rebuilds",
                  "rebuild_attempts", "last_error", "_eject_t",
-                 "flight_dumps")
+                 "flight_dumps", "degraded", "mp", "live")
 
-    def __init__(self, index: int, engine: Engine):
+    def __init__(self, index: int, engine, mp: int = 1):
         self.index = index
         self.engine = engine
         self.state = "active"            # active | updating | ejected | dead
@@ -159,9 +230,24 @@ class _Replica:
         #: flight-recorder dumps frozen at each ejection (newest last):
         #: the post-mortem outlives the ejected engine
         self.flight_dumps: List[dict] = []
+        #: a degraded rebuild left the group below ``shards_per_group``
+        self.degraded = False
+        #: the group's model-parallel degree
+        self.mp = int(mp)
+        #: a shard group's live engine requests on this rank, by fleet
+        #: request id
+        self.live: Dict[int, Request] = {}
+
+    @property
+    def local(self) -> bool:
+        """Whether this rank runs the replica's engine."""
+        return isinstance(self.engine, Engine)
 
     def load(self) -> int:
         return len(self.engine.queue) + len(self.engine.running)
+
+    def model_parallel(self) -> int:
+        return self.mp
 
 
 def _meta_model(model: nn.Module) -> nn.Module:
@@ -248,10 +334,16 @@ class Fleet:
             decided once, here: a copy that fails later (out of memory at
             a rebuild) fails that rebuild and never turns the fleet to
             shared weights.
-        shards_per_group: tensor-parallel width of a replica; more than 1
-            raises ``NotImplementedError`` (ROADMAP.md A.3 step 8).
+        shards_per_group: tensor-parallel width of a replica.  Above 1
+            every replica is a shard group: ``Engine(mesh=...)`` over its
+            own ``shards_per_group`` ranks of the ``torch.distributed``
+            world (which must hold ``num_replicas * shards_per_group``
+            ranks; every rank builds the same fleet).  The width must be
+            on the model's viability ladder (it divides both head
+            counts).  A shard group's replicas always own their weights.
         device, dtype, seed: where and how a template built from a config
-            or name is made (a model passes through as it is).
+            or name is made (a model passes through as it is); ``device``
+            is also the shard groups' mesh device.
         **engine_kwargs: passed to every replica's ``Engine(...)``
             (``num_slots``, ``max_seq``, ``kv_layout``, ...).  ``name``,
             ``fault_plan``, ``tracer``, ``journal``, ``model_version`` and
@@ -278,11 +370,6 @@ class Fleet:
         if shards_per_group < 1:
             raise ValueError(f"shards_per_group must be >= 1, "
                              f"got {shards_per_group}")
-        if shards_per_group > 1:
-            raise NotImplementedError(
-                "Fleet(shards_per_group > 1) needs the serving mesh, which "
-                "is not ported yet (ROADMAP.md A.3 step 8, sharded "
-                "serving)")
         if max_redispatch < 0:
             raise ValueError("max_redispatch must be >= 0")
         if eject_after_failures < 1:
@@ -296,11 +383,17 @@ class Fleet:
                                  "Fleet, not through engine kwargs")
         self.model = Engine.resolve_model(model_or_config, device=device,
                                           dtype=dtype, seed=seed)
+        self.device = device
+        self.shards_per_group = int(shards_per_group)
+        #: ranks recorded lost at ejection (``engine.lost_devices``): never
+        #: handed to a rebuilt mesh again
+        self._failed_devices: set = set()
+        self._shard_groups(int(num_replicas))
         #: the fleet's weight version (bumped by update_weights; replicas,
         #: rebuilt ones too, join at it)
         self.model_version = 0
-        self.weights_isolated = self._isolation(isolate_weights,
-                                                num_replicas)
+        self.weights_isolated = True if self._spmd else self._isolation(
+            isolate_weights, num_replicas)
         self.name = name or f"fleet-{next(_fleet_counter)}"
         self.num_replicas = int(num_replicas)
         self.max_redispatch = int(max_redispatch)
@@ -323,7 +416,7 @@ class Fleet:
         self.tracer = tracer
         self.journal = journal
         self.replicas: List[_Replica] = [
-            _Replica(k, self._make_engine(k))
+            _Replica(k, self._make_engine(k), self._group_mp(k))
             for k in range(self.num_replicas)]
         self.metrics = FleetMetrics(self.name,
                                     num_replicas=self.num_replicas)
@@ -343,6 +436,180 @@ class Fleet:
         self._banked_preemptions = 0
         #: shed submits, once per request
         self._sheds = 0
+
+    # -- shard groups: the world, its groups and the exchange ---------------
+
+    def _shard_groups(self, num_replicas: int) -> None:
+        """Check and lay out the shard groups (``shards_per_group > 1``):
+        the width on the viability ladder, enough ranks, group g's ranks,
+        every group a degrade can reach made now, and each group's mesh
+        (None on a rank outside it)."""
+        spg = self.shards_per_group
+        self._spmd = spg > 1
+        #: each group's ranks as built, its current mesh's ranks, its mesh
+        self._group_devices: List[Optional[list]] = [None] * num_replicas
+        self._group_ranks: List[Optional[list]] = [None] * num_replicas
+        self._group_meshes: list = [None] * num_replicas
+        #: the live attempts of shard groups, by (replica, fleet request id)
+        self._mirrors: Dict[Tuple[int, int], Tuple[_Attempt,
+                                                   FleetRequest]] = {}
+        #: each group's last exchanged view
+        self._views: Dict[int, dict] = {}
+        if not self._spmd:
+            return
+        from ..distributed.mesh import process_group
+        from .sharding import serving_mesh, viable_ladder
+
+        kv, nh = self._head_counts()
+        ladder = viable_ladder(kv, nh)
+        if spg not in ladder:
+            raise ValueError(
+                f"shards_per_group={spg} is not a viable model-parallel "
+                f"degree for this model (kv_heads={kv}, "
+                f"num_attention_heads={nh}): the viable ladder is {ladder} "
+                f"— every mp must divide both head counts so the KV pool "
+                f"shards whole GQA groups")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        need = num_replicas * spg
+        if world < need:
+            raise ValueError(
+                f"shards_per_group={spg} with num_replicas={num_replicas} "
+                f"needs {need} devices (one rank each, disjoint per-group "
+                f"meshes), the torch.distributed world has {world}")
+        self._rank = dist.get_rank()
+        self._group_devices = [list(range(g * spg, (g + 1) * spg))
+                               for g in range(num_replicas)]
+        # dist.new_group is collective over the world: a rank lost later
+        # could not take part, so every mesh a degrade can reach (the
+        # group's first mp ranks, the lost rank being the highest) exists
+        # from the start
+        for devs in self._group_devices:
+            for mp in ladder:
+                if mp <= spg:
+                    process_group(devs[:mp])
+        self._group_ranks = [list(d) for d in self._group_devices]
+        self._group_meshes = [serving_mesh(spg, ranks=d, device=self.device)
+                              for d in self._group_devices]
+
+    def _head_counts(self) -> Tuple[int, int]:
+        """``(kv_heads, num_attention_heads)`` of the served model."""
+        cfg = self.model.config
+        kv = getattr(cfg, "n_kv_heads", None) or cfg.num_attention_heads
+        return int(kv), int(cfg.num_attention_heads)
+
+    def _group_mp(self, index: int) -> int:
+        ranks = self._group_ranks[index]
+        return 1 if ranks is None else len(ranks)
+
+    def _leads(self, rep: _Replica) -> bool:
+        """Whether this rank speaks for ``rep`` in the exchange: the first
+        rank of its current mesh (always, without shard groups)."""
+        if not self._spmd:
+            return True
+        return rep.local and self._group_ranks[rep.index][0] == self._rank
+
+    def _world_gather(self, obj) -> list:
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, obj)
+        return out
+
+    def _gather_groups(self, fn: Callable[[_Replica], object],
+                       reps: Optional[Sequence[_Replica]] = None
+                       ) -> Dict[int, object]:
+        """``{replica index: fn(replica)}`` for ``reps`` (default all),
+        each computed where the replica's engine runs.  With shard groups
+        this is a world exchange: every rank must call it at the same
+        point with the same ``reps``."""
+        reps = self.replicas if reps is None else reps
+        if not self._spmd:
+            return {rep.index: fn(rep) for rep in reps}
+        # every rank of a group runs fn (it may issue the group's
+        # collectives); the first one's value goes out
+        mine = {}
+        for rep in reps:
+            if rep.local:
+                value = fn(rep)
+                if self._leads(rep):
+                    mine[rep.index] = value
+        out: Dict[int, object] = {}
+        for part in self._world_gather(mine):
+            out.update(part)
+        return out
+
+    def _view(self, rep: _Replica) -> dict:
+        """What a shard group's first rank tells the world after a fleet
+        step: its engine's health, load, lost ranks and each live
+        attempt's state with the tokens the world has not seen, ``(start,
+        tokens)`` (the whole stream from 0 after a preemption restarted
+        it)."""
+        eng = rep.engine
+        attempts = {}
+        for fid, ereq in rep.live.items():
+            att = self._attempt_of(rep, fid)
+            start = 0 if att is None or ereq.preemptions != \
+                att.preemptions else len(att.output_ids)
+            attempts[fid] = (ereq.state, ereq.error, ereq.error_kind,
+                             getattr(ereq, "error_ctx", None),
+                             ereq.preempted, ereq.preemptions, start,
+                             list(ereq.output_ids[start:]))
+        return {"health": eng.health(), "load": rep.load(),
+                "lost": list(eng.lost_devices),
+                "preemptions": eng.metrics.requests_preempted,
+                "attempts": attempts}
+
+    def _attempt_of(self, rep: _Replica, fid: int) -> Optional[_Attempt]:
+        entry = self._mirrors.get((rep.index, fid))
+        return None if entry is None else entry[0]
+
+    def _sync_attempts(self, reps: Sequence[_Replica]) -> None:
+        """The fleet step's world exchange (shard groups): every active
+        group's view, applied on every rank in one order: each attempt's
+        fields, the new tokens mirrored onto its fleet handle (the user's
+        stream callback called for each), and the health the supervision
+        reads."""
+        views = self._gather_groups(self._view, reps)
+        self._views = views
+        for rep in reps:
+            for fid, st in views[rep.index]["attempts"].items():
+                entry = self._mirrors.get((rep.index, fid))
+                if entry is None:
+                    continue
+                att, freq = entry
+                (att.state, att.error, att.error_kind, att.error_ctx,
+                 att.preempted, preemptions, start, tail) = st
+                toks = att.output_ids[:start] + tail
+                att.preemptions = preemptions
+                if not freq.done and freq._attempt is att:
+                    self._mirror_tokens(freq, att, toks)
+                att.output_ids = toks
+                if att.done:
+                    del self._mirrors[(rep.index, fid)]
+            # the engine's finished requests leave its live table
+            for fid in [f for f, r in rep.live.items() if r.done]:
+                del rep.live[fid]
+
+    def _mirror_tokens(self, freq: FleetRequest, att: _Attempt,
+                       toks: List[int]) -> None:
+        """Put an attempt's new tokens on its fleet handle, calling the
+        user's stream callback for each; a restarted stream (a
+        preemption) resyncs.  A raising callback fails the request (it is
+        never replayed) and cancels the attempt."""
+        if toks[:len(freq.output_ids)] != freq.output_ids:
+            freq.output_ids = []
+        freq.preempted = freq.preempted or att.preempted
+        freq.preemptions = att.preemptions
+        for tok in toks[len(freq.output_ids):]:
+            freq.output_ids.append(int(tok))
+            if freq.stream_cb is None:
+                continue
+            try:
+                freq.stream_cb(int(tok), freq)
+            except Exception as e:       # noqa: BLE001 — per-request
+                att.cancel()
+                self._attempts.pop(att, None)
+                self._finish(freq, "failed", error=f"stream_cb raised: "
+                             f"{type(e).__name__}: {e}")
+                return
 
     # -- replica construction ----------------------------------------------
 
@@ -377,20 +644,26 @@ class Fleet:
             return self.model
         return _clone_model(self.model)
 
-    def _make_engine(self, index: int) -> Engine:
-        return Engine(self._replica_model(),
-                      name=f"{self.name}.r{index}",
+    def _make_engine(self, index: int):
+        name = f"{self.name}.r{index}"
+        mesh = self._group_meshes[index]
+        if self._spmd and mesh is None:
+            # another group's engine
+            return _RemoteEngine(name, self.model_version,
+                                 f"model={self._group_mp(index)}")
+        return Engine(self._replica_model(), name=name,
                       fault_plan=self.fault_plan.scoped(index),
                       tracer=self.tracer, journal=self.journal,
-                      model_version=self.model_version,
+                      model_version=self.model_version, mesh=mesh,
                       **self._engine_kwargs)
 
     def warmup(self) -> dict:
         """Warm every active replica (build every step program), so that
         steady serving, and serving on the survivors after a failover,
         builds none."""
-        return {rep.engine.name: rep.engine.warmup()
-                for rep in self.replicas if rep.state == "active"}
+        active = [rep for rep in self.replicas if rep.state == "active"]
+        got = self._gather_groups(lambda rep: rep.engine.warmup(), active)
+        return {rep.engine.name: got[rep.index] for rep in active}
 
     # -- dispatch ----------------------------------------------------------
 
@@ -415,15 +688,34 @@ class Fleet:
         cands = self._active(exclude)
         if not cands:
             return None, 0
-        probed = [(rep, rep.engine.prefix_probe(prompt_ids, adapter=adapter))
-                  for rep in cands]
+        got = self._gather_groups(
+            lambda rep: (rep.engine.prefix_probe(prompt_ids,
+                                                 adapter=adapter),
+                         rep.load()), cands)
+        probed = [(rep, got[rep.index][0]) for rep in cands]
+
+        def load(rep):
+            return self._effective_load(rep, got[rep.index][1])
+
         best_hit = max(hit for _, hit in probed)
         if best_hit > 0:
             tied = [rep for rep, hit in probed if hit == best_hit]
-            return min(tied, key=_Replica.load), best_hit
+            return min(tied, key=load), best_hit
         self._rr += 1
         k = self._rr % len(cands)
-        return min(cands[k:] + cands[:k], key=_Replica.load), 0
+        return min(cands[k:] + cands[:k], key=load), 0
+
+    def _effective_load(self, rep: _Replica,
+                        load: Optional[int] = None) -> float:
+        """The load dispatch compares: a degraded group's queued and
+        running count weighed by ``configured / current`` mp, so the
+        full-width groups take more of the traffic."""
+        if load is None:
+            load = self._gather_groups(_Replica.load, [rep])[rep.index]
+        mp = rep.model_parallel()
+        if mp >= self.shards_per_group:
+            return float(load)
+        return load * (self.shards_per_group / max(mp, 1))
 
     def _wrap_stream(self, freq: FleetRequest):
         """The attempt's stream callback: mirrors its tokens onto the
@@ -489,9 +781,12 @@ class Fleet:
                     recovered=freq.recovered,
                     origin_wall=freq._origin_wall)
             try:
-                ereq = rep.engine.add_request(
-                    freq.prompt_ids, stream_cb=self._wrap_stream(freq),
-                    **freq.kwargs)
+                if self._spmd:
+                    ereq = self._spmd_add(rep, freq)
+                else:
+                    ereq = rep.engine.add_request(
+                        freq.prompt_ids, stream_cb=self._wrap_stream(freq),
+                        **freq.kwargs)
             except ValueError as e:
                 # enqueue validation: final, with the engine handle's
                 # machine-readable context carried over
@@ -526,6 +821,45 @@ class Fleet:
                                     redispatch=redispatch,
                                     affinity=affinity)
             return
+
+    def _spmd_add(self, rep: _Replica, freq: FleetRequest) -> _Attempt:
+        """A shard group's enqueue: its ranks call ``add_request`` (the
+        tokens reach the fleet handle through the exchange, not a
+        callback), and the outcome the group's first rank saw, a request
+        or the exception, is the outcome on every rank."""
+        def add(r: _Replica):
+            try:
+                r.live[freq.request_id] = r.engine.add_request(
+                    freq.prompt_ids, **freq.kwargs)
+            except ShedReject as e:
+                return ("shed", str(e), e.depth, e.retry_after_s)
+            except QueueFull as e:
+                return ("full", str(e), e.depth, e.retry_after_s)
+            except EngineStopped as e:
+                return ("stopped", str(e))
+            except ValueError as e:
+                er = getattr(e, "request", None)
+                return ("invalid", str(e), getattr(er, "error", None),
+                        getattr(er, "error_ctx", None))
+            return ("ok",)
+
+        out = self._gather_groups(add, [rep])[rep.index]
+        if out[0] == "ok":
+            att = _Attempt(rep.live.get(freq.request_id))
+            self._mirrors[(rep.index, freq.request_id)] = (att, freq)
+            return att
+        rep.live.pop(freq.request_id, None)
+        if out[0] in ("shed", "full"):
+            cls = ShedReject if out[0] == "shed" else QueueFull
+            raise cls(out[1], out[2], retry_after_s=out[3])
+        if out[0] == "stopped":
+            raise EngineStopped(out[1])
+        err = ValueError(out[1])
+        err.request = _Attempt()
+        err.request.state = "rejected"
+        err.request.error = out[2] if out[2] is not None else out[1]
+        err.request.error_ctx = out[3]
+        raise err
 
     # -- public API --------------------------------------------------------
 
@@ -579,12 +913,15 @@ class Fleet:
             e.request = freq
             raise
         if self.max_queue is not None:
-            depth = sum(len(rep.engine.queue) for rep in self._active())
+            got = self._gather_groups(
+                lambda rep: (len(rep.engine.queue),
+                             rep.engine.estimate_queue_wait_s(prio)),
+                self._active())
+            depth = sum(q for q, _ in got.values())
             if depth >= self.max_queue:
                 # the soonest any active replica expects the backlog ahead
                 # of this request's class to clear
-                waits = [rep.engine.estimate_queue_wait_s(prio)
-                         for rep in self._active()]
+                waits = [w for _, w in got.values()]
                 retry = round(min(waits), 3) if waits else 0.0
                 msg = (f"fleet queue full: {depth} >= "
                        f"max_queue={self.max_queue} across "
@@ -618,11 +955,13 @@ class Fleet:
         request is in flight."""
         if self.state == "stopped":
             raise EngineStopped(f"fleet {self.name!r} is stopped")
-        for rep in list(self.replicas):
+        serving = [rep for rep in self.replicas
+                   if rep.state in ("active", "updating")]
+        for rep in serving:
             # an "updating" replica (draining for a weight roll) steps its
             # in-flight work and takes no new dispatch
-            if rep.state not in ("active", "updating"):
-                continue
+            if not rep.local:
+                continue                 # another rank's group
             eng = rep.engine
             if (eng.queue or eng.running) and eng.state in (
                     "active", "draining"):
@@ -630,7 +969,13 @@ class Fleet:
                     eng.step()
                 except EngineStopped:
                     pass                 # unhealthy: supervision ejects it
-            self._reap(rep)
+            if not self._spmd:
+                self._reap(rep)
+        if self._spmd:
+            # every group's attempts onto every rank, then one reap order
+            self._sync_attempts(serving)
+            for rep in serving:
+                self._reap(rep)
         self._tick += 1
         if self._tick % self.supervise_every == 0:
             self._supervise()
@@ -780,10 +1125,14 @@ class Fleet:
         collected for replay), rebuild every ejected replica, then replay
         the orphans on the healed fleet."""
         orphans: List[Tuple[FleetRequest, str]] = []
-        for rep in self.replicas:
-            if rep.state not in ("active", "updating"):
-                continue
-            h = rep.engine.health()      # also audits the block pool
+        orphan_jids: Dict[int, List[str]] = {}
+        serving = [rep for rep in self.replicas
+                   if rep.state in ("active", "updating")]
+        # also audits each block pool
+        healths = self._gather_groups(lambda rep: rep.engine.health(),
+                                      serving)
+        for rep in serving:
+            h = healths[rep.index]
             if h["state"] == "unhealthy":
                 reason = h.get("reason") or "unhealthy"
             elif h["consecutive_step_failures"] >= \
@@ -792,10 +1141,13 @@ class Fleet:
                           "compiled-step failures")
             else:
                 continue
-            orphans.extend(self._eject(rep, reason))
+            mine = self._eject(rep, reason)
+            orphans.extend(mine)
+            orphan_jids[rep.index] = [freq.journal_id for freq, _ in mine
+                                      if freq.journal_id is not None]
         for rep in self.replicas:
             if rep.state == "ejected":
-                self._rebuild(rep)
+                self._rebuild(rep, orphan_jids.get(rep.index, ()))
         for freq, err in orphans:
             self._redispatch_or_fail(freq, err)
 
@@ -809,6 +1161,8 @@ class Fleet:
         rep._eject_t = time.perf_counter()
         rep.last_error = reason
         eng = rep.engine
+        if self._spmd:
+            return self._eject_group(rep, reason)
         # its preemptions are banked (the rebuilt engine counts from 0)
         # and its flight ring frozen: the post-mortem outlives it
         self._banked_preemptions += eng.metrics.requests_preempted
@@ -835,14 +1189,100 @@ class Fleet:
         eng._release_device()
         return orphans
 
-    def _rebuild(self, rep: _Replica) -> None:
+    def _eject_group(self, rep: _Replica, reason: str
+                     ) -> List[Tuple[FleetRequest, str]]:
+        """A shard group's ejection, the same on every rank: its lost
+        ranks (from the last exchange) leave the pool, its attempts are
+        the orphans; its ranks export, stop and release the engine."""
+        view = self._views.get(rep.index, {})
+        self._failed_devices.update(view.get("lost", ()))
+        self._banked_preemptions += view.get("preemptions", 0)
+        eng = rep.engine
+        if rep.local:
+            rep.flight_dumps.append(eng.flight.dump(f"ejected: {reason}"))
+            del rep.flight_dumps[:-8]
+        self.metrics.on_eject()
+        self.tracer.on_eject(eng.name, reason)
+        err = f"replica {eng.name!r} ejected: {reason}"
+        orphans = []
+        for att, (freq, r) in list(self._attempts.items()):
+            if r is not rep:
+                continue
+            del self._attempts[att]
+            self._mirrors.pop((rep.index, freq.request_id), None)
+            freq._attempt = None
+            if not freq.done:
+                orphans.append((freq, err))
+        if rep.local:
+            eng.export_requests()
+            try:
+                eng.shutdown(timeout_s=0.0)
+            except Exception:            # noqa: BLE001 — already ejected
+                pass
+            eng._release_device()
+        rep.live.clear()
+        return orphans
+
+    def _degrade_plan(self, rep: _Replica):
+        """A shard group's rebuild mesh: ``(ranks, old_mp, new_mp,
+        old_key)`` with ``new_mp < old_mp`` when its survivors no longer
+        hold its mesh (the largest viable mp on them), ``(ranks, None,
+        None, None)`` when they do, or None when not even mp 1 fits."""
+        from .sharding import degrade_step
+
+        ranks = self._group_ranks[rep.index]
+        survivors = [d for d in self._group_devices[rep.index]
+                     if d not in self._failed_devices]
+        old_mp = len(ranks)
+        if all(r in survivors for r in ranks):
+            return ranks, None, None, None
+        kv, nh = self._head_counts()
+        new_mp = degrade_step(kv, nh, len(survivors))
+        if new_mp is None:
+            return None
+        return survivors[:new_mp], old_mp, new_mp, f"model={old_mp}"
+
+    def _rebuild(self, rep: _Replica,
+                 orphan_jids: Sequence[str] = ()) -> None:
         """Heal an ejected replica: a new engine (new pool, prefix cache
         and programs) at the fleet's current weights, warmed, back in
         rotation.  The eject-to-rejoin wall time is the failover
-        recovery."""
+        recovery.
+
+        A shard group whose ranks were lost is rebuilt degraded: at the
+        largest viable mp its surviving ranks hold (the mesh of its first
+        survivors, made at construction), the shape change journaled as
+        a ``mesh_reshard`` record, counted and traced.  With no survivor
+        the group is ``dead``, its error naming the viability ladder."""
+        degrade = None
+        if self._spmd:
+            from .sharding import serving_mesh, viable_ladder
+
+            plan = self._degrade_plan(rep)
+            if plan is None:
+                kv, nh = self._head_counts()
+                rep.state = "dead"
+                survivors = [d for d in self._group_devices[rep.index]
+                             if d not in self._failed_devices]
+                rep.last_error = (
+                    f"no viable degraded mesh: {len(survivors)} surviving "
+                    f"device(s) in the group, viable ladder "
+                    f"{viable_ladder(kv, nh)}")
+                self.metrics.on_rebuild(0.0, ok=False)
+                self.tracer.on_rebuild(rep.engine.name, 0.0, ok=False)
+                return
+            ranks, old_mp, new_mp, old_key = plan
+            if new_mp is not None:
+                degrade = (old_mp, new_mp, old_key)
+            self._group_ranks[rep.index] = ranks
+            self._group_meshes[rep.index] = serving_mesh(
+                len(ranks), ranks=ranks, device=self.device)
         try:
-            eng = self._make_engine(rep.index)
-            eng.warmup()
+            if self._spmd:
+                eng = self._build_group(rep)
+            else:
+                eng = self._make_engine(rep.index)
+                eng.warmup()
         except Exception as e:           # noqa: BLE001 — isolation boundary
             rep.rebuild_attempts += 1
             rep.state = ("dead" if rep.rebuild_attempts >=
@@ -855,6 +1295,7 @@ class Fleet:
             self.tracer.on_rebuild(rep.engine.name, 0.0, ok=False)
             return
         rep.engine = eng
+        rep.mp = self._group_mp(rep.index)
         rep.state = "active"
         rep.rebuilds += 1
         rep.rebuild_attempts = 0
@@ -863,6 +1304,36 @@ class Fleet:
         rep._eject_t = None
         self.metrics.on_rebuild(recovery)
         self.tracer.on_rebuild(eng.name, recovery)
+        if degrade is not None:
+            old_mp, new_mp, old_key = degrade
+            rep.degraded = new_mp < self.shards_per_group
+            self.metrics.on_degrade(old_mp, new_mp, recovery)
+            self.tracer.on_degrade(eng.name, old_mp, new_mp, recovery)
+            if self.journal is not None:
+                self.journal.record_mesh_reshard(
+                    eng.name, old_key, eng.mesh_shape,
+                    {jid: "redispatched" for jid in orphan_jids})
+
+    def _build_group(self, rep: _Replica):
+        """A shard group's new engine, built and warmed by the ranks of
+        its new mesh (a stand-in elsewhere); a failure on its first rank
+        is the failure on every rank."""
+        eng = self._make_engine(rep.index)
+
+        def warm(r: _Replica):
+            try:
+                eng.warmup()
+            except Exception as e:       # noqa: BLE001 — agreed below
+                return f"{type(e).__name__}: {e}"
+            return None
+
+        probe = _Replica(rep.index, eng)
+        err = self._gather_groups(warm, [probe])[rep.index]
+        if err is not None:
+            if probe.local:
+                eng._release_device()
+            raise RuntimeError(err)
+        return eng
 
     # -- durability: crash recovery and the rolling weight swap ------------
 
@@ -875,6 +1346,11 @@ class Fleet:
         spans the crash.  The journal's final outcomes are banked into
         the metrics.  Call after :meth:`warmup`, before new traffic.
         Returns ``{"replayed", "requests", "outcomes", "recovery_ms"}``."""
+        if self._spmd:
+            raise NotImplementedError(
+                "Fleet.recover of a shard-group fleet is not ported: each "
+                "rank's journal holds its own group's requests (ROADMAP.md "
+                "A.3 step 9)")
         journal = journal if journal is not None else self.journal
         if journal is None:
             raise ValueError("recover() needs a RequestJournal (pass "
@@ -997,10 +1473,10 @@ class Fleet:
             raise EngineStopped(
                 f"fleet {self.name!r} is {self.state}: cannot load "
                 "adapters")
-        version = None
-        for rep in self.replicas:
-            if rep.state in ("active", "updating"):
-                version = rep.engine.load_adapter(name, weights, scale=scale)
+        got = self._gather_groups(
+            lambda rep: rep.engine.load_adapter(name, weights, scale=scale),
+            [r for r in self.replicas if r.state in ("active", "updating")])
+        version = max(got.values()) if got else None
         if version is None:
             raise EngineStopped(
                 f"fleet {self.name!r} has no active replica to load "
@@ -1015,10 +1491,10 @@ class Fleet:
             raise EngineStopped(
                 f"fleet {self.name!r} is {self.state}: cannot unload "
                 "adapters")
-        version = None
-        for rep in self.replicas:
-            if rep.state in ("active", "updating"):
-                version = rep.engine.unload_adapter(name)
+        got = self._gather_groups(
+            lambda rep: rep.engine.unload_adapter(name),
+            [r for r in self.replicas if r.state in ("active", "updating")])
+        version = max(got.values()) if got else None
         if version is None:
             raise EngineStopped(
                 f"fleet {self.name!r} has no active replica to unload "
@@ -1062,7 +1538,10 @@ class Fleet:
                 try:
                     self._drain_replica(rep, max_drain_steps)
                     if rep.state == "updating":
-                        rep.engine.update_weights(sd, version=new_version)
+                        self._gather_groups(
+                            lambda r: r.engine.update_weights(
+                                sd, version=new_version), [rep])
+                        rep.engine.model_version = new_version
                         updated += 1
                 finally:
                     if rep.state == "updating":
@@ -1099,17 +1578,20 @@ class Fleet:
         """Drive fleet steps until ``rep`` holds no queued or running
         work (the whole fleet steps; only new dispatches avoid ``rep``).
         An ejection mid-drain ends it: the rebuilt engine is empty."""
+        def busy() -> int:
+            if rep.state != "updating":
+                return 0
+            return self._gather_groups(_Replica.load, [rep])[rep.index]
+
         n = 0
-        while rep.state == "updating" and (rep.engine.queue or
-                                           rep.engine.running):
+        while busy():
             self.step()
             n += 1
             if max_drain_steps is not None and n >= max_drain_steps:
                 raise RuntimeError(
                     f"replica {rep.engine.name!r} did not drain within "
-                    f"{max_drain_steps} fleet steps (still "
-                    f"{len(rep.engine.running)} running, "
-                    f"{len(rep.engine.queue)} queued)")
+                    f"{max_drain_steps} fleet steps (still {busy()} "
+                    f"running or queued)")
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -1126,14 +1608,16 @@ class Fleet:
             n += 1
             if max_steps is not None and n >= max_steps:
                 break
-        for rep in self.replicas:
-            if rep.state == "active":
+        active = [rep for rep in self.replicas if rep.state == "active"]
+        for rep in active:
+            if rep.local:
                 rep.engine.drain()
         # the engines' drains may have finished work the loop never saw
         # (max_steps cut it short): reap it, so every done_cb fires
-        for rep in self.replicas:
-            if rep.state == "active":
-                self._reap(rep)
+        if self._spmd:
+            self._sync_attempts(active)
+        for rep in active:
+            self._reap(rep)
         if not (self._attempts or self._repatriate):
             self.state = "stopped"
         return self.stats()
@@ -1158,7 +1642,7 @@ class Fleet:
                 self._finish(freq, "cancelled", error="fleet shutdown")
         self._repatriate.clear()
         for rep in self.replicas:
-            if rep.state == "active":
+            if rep.state == "active" and rep.local:
                 try:
                     rep.engine.shutdown(timeout_s=0.0)
                 except Exception:        # noqa: BLE001 — best effort
@@ -1173,55 +1657,66 @@ class Fleet:
         """Accepted requests not yet terminal."""
         return len(self._attempts) + len(self._repatriate)
 
+    @staticmethod
+    def _engine_row(rep: _Replica) -> dict:
+        """The part of a replica's row its engine knows."""
+        eng = rep.engine
+        m = eng.metrics
+        last = rep.flight_dumps[-1] if rep.flight_dumps else None
+        return {
+            "engine_state": eng.state,
+            "queue_depth": len(eng.queue),
+            "slots_busy": len(eng.running),
+            "slots_total": eng.num_slots,
+            "occupancy": round(m.occupancy(), 4),
+            "compile_misses": m.compile_misses,
+            "mesh_shape": eng.mesh_shape,
+            "preemptions": m.requests_preempted,
+            "shed": m.requests_shed,
+            # a summary of the dump frozen at the last ejection
+            "last_flight_record": (
+                None if last is None else
+                {"reason": last["reason"],
+                 "steps_seen": last["steps_seen"],
+                 "events": len(last["events"])}),
+        }
+
     def _replica_rows(self) -> List[dict]:
+        # a shard group's engine row comes from its first rank (a world
+        # exchange); an ejected or dead group's from the engine it left
+        live = [rep for rep in self.replicas if rep.local or self._spmd]
+        got = self._gather_groups(self._engine_row, live)
         rows = []
         for rep in self.replicas:
-            eng = rep.engine
-            m = eng.metrics
-            last = rep.flight_dumps[-1] if rep.flight_dumps else None
-            rows.append({
-                "index": rep.index,
-                "name": eng.name,
-                "state": rep.state,
-                "engine_state": eng.state,
-                "ejections": rep.ejections,
-                "rebuilds": rep.rebuilds,
-                "last_error": rep.last_error,
-                "queue_depth": len(eng.queue),
-                "slots_busy": len(eng.running),
-                "slots_total": eng.num_slots,
-                "occupancy": round(m.occupancy(), 4),
-                "compile_misses": m.compile_misses,
-                "mesh_shape": eng.mesh_shape,
-                "preemptions": m.requests_preempted,
-                "shed": m.requests_shed,
-                # a summary of the dump frozen at the last ejection
-                "last_flight_record": (
-                    None if last is None else
-                    {"reason": last["reason"],
-                     "steps_seen": last["steps_seen"],
-                     "events": len(last["events"])}),
-            })
+            row = {"index": rep.index, "name": rep.engine.name,
+                   "state": rep.state, "ejections": rep.ejections,
+                   "rebuilds": rep.rebuilds, "last_error": rep.last_error,
+                   "model_parallel": rep.model_parallel(),
+                   "degraded": rep.degraded}
+            row.update(got.get(rep.index, {}))
+            rows.append(row)
         return rows
 
     def _overload_section(self) -> dict:
         """Preemptions of every engine the fleet ran (banked from the
         ejected ones) and the fleet's shed submits (once per request)."""
-        pre = self._banked_preemptions + sum(
-            rep.engine.metrics.requests_preempted
-            for rep in self.replicas if rep.state == "active")
+        got = self._gather_groups(
+            lambda rep: rep.engine.metrics.requests_preempted,
+            [rep for rep in self.replicas if rep.state == "active"])
+        pre = self._banked_preemptions + sum(got.values())
         return {"preemptions": pre, "shed": self._sheds}
 
     def health(self) -> dict:
         """Fleet liveness: its state, pending depth and each replica's
         ``health()``."""
+        got = self._gather_groups(lambda rep: rep.engine.health())
         return {
             "state": self.state,
             "pending": self.pending,
             "active_replicas": len(self._active()),
             "replicas": {rep.engine.name: {
                 "replica_state": rep.state,
-                **rep.engine.health(),
+                **got.get(rep.index, {}),
             } for rep in self.replicas},
         }
 
@@ -1235,8 +1730,17 @@ class Fleet:
         if self.journal is not None:
             out["durability"]["journal"] = self.journal.stats()
         out["overload"] = self._overload_section()
+        # the degraded view: each group's current and configured mp and
+        # the ranks the fleet has written off
+        out["degraded"]["failed_devices"] = len(self._failed_devices)
+        out["degraded"]["groups"] = {
+            rep.engine.name: {"model_parallel": rep.model_parallel(),
+                              "configured": self.shards_per_group,
+                              "degraded": rep.degraded, "state": rep.state}
+            for rep in self.replicas}
         if self.tracer.enabled:
             out["tracing"] = self.tracer.snapshot()
-        out["engines"] = {rep.engine.name: rep.engine.stats()
-                          for rep in self.replicas}
+        got = self._gather_groups(lambda rep: rep.engine.stats())
+        out["engines"] = {rep.engine.name: got[rep.index]
+                          for rep in self.replicas if rep.index in got}
         return out

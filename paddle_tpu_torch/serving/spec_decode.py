@@ -46,6 +46,11 @@ The verify's target forward runs under each slot's adapter rows; the
 draft runs under none (the acceptance prices the draft's own law, so an
 un-adapted draft costs acceptance, never correctness).
 
+Sharding: on a mesh the draft is cut into the rank's shard where the mesh
+divides its heads and vocabulary (its cache then holds the rank's kv
+heads), and otherwise runs whole on every rank; the proposals lane is
+whole on every rank.
+
 Durability: the draft's K/V is never journaled.  A preempted or recovered
 request replays from its prompt, and its re-admission prefills the draft
 again (a full-prompt prefill, no prefix cache, through the contiguous
@@ -126,6 +131,18 @@ class SpecState:
                 f"draft max_position_embeddings {max_pos} < engine "
                 f"max_seq {engine.max_seq}: the draft must cover every "
                 "position it verifies")
+        shard = engine.shard
+        if shard is not None:
+            if config.draft_model is engine.source_model:
+                # self-speculation: the target's own shard
+                model = engine.model
+            elif shard.divides(dcfg.num_attention_heads,
+                               getattr(dcfg, "n_kv_heads", None)
+                               or dcfg.num_attention_heads,
+                               dcfg.vocab_size):
+                # the draft shards like the target where its heads divide
+                # the mesh; otherwise it runs whole on every rank
+                model = shard.place_model(model)
         dparam = next(model.parameters())
         if dparam.device != engine.device:
             raise ValueError(f"draft model on {dparam.device}, the engine "
@@ -140,6 +157,8 @@ class SpecState:
         dtype = config.draft_cache_dtype or dparam.dtype
         kv_heads = getattr(dcfg, "n_kv_heads", None) or \
             dcfg.num_attention_heads
+        if getattr(self.model, "mesh", None) is not None:
+            kv_heads = shard.local_heads(kv_heads)
         self.cache = KVCache(engine.num_slots, dcfg.num_hidden_layers,
                              engine.max_seq, kv_heads, dcfg.head_dim, dtype,
                              device=engine.device, headroom=self.k)

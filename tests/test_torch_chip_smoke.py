@@ -858,3 +858,47 @@ def test_fp16_scaler_phase_on_tiny_cpu():
         jax_scales.append(scaler.get_loss_scaling())
     assert jax_scales == run["scales"] == chip_smoke.scaler_rule(
         run["found_inf"], **{**kw, "init": 2.0 ** 22})
+
+
+@pytest.mark.parametrize("family,layout", [("llama", "paged"),
+                                           ("gpt", "contiguous")])
+def test_serve_mesh_phase_on_tiny_cpu(family, layout):
+    """serve_mesh's helper on a gloo world of one (``serving_mesh(1)``
+    with no process group, on the CPU): the plain and mesh engines in
+    turns give the plain engine's streams (all four laws), the mesh's
+    step programs issue the all-reduces and the all-gather (counted a
+    decode step and over each turn), the plain engine none, and no
+    program is built after warmup."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_layers
+    from paddle_tpu_torch.serving import Engine, serving_mesh
+
+    cls, cfg = ((LlamaForCausalLM, llama_tiny) if family == "llama"
+                else (GPTForCausalLM, gpt_tiny))
+    model = cls(cfg(), device="cpu",
+                generator=torch.Generator().manual_seed(0)).eval()
+    kw = dict(kv_layout=layout, num_slots=4, max_seq=64, min_bucket=8,
+              block_size=8)
+    reqs = chip_smoke.make_requests(128, 6, 16, [3, 9, 17, 30], seed=0)
+    assert not dist.is_initialized()
+    try:
+        mesh = serving_mesh(1, device="cpu")
+        ref = chip_smoke.serve(Engine(model, **kw), reqs, max_new_tokens=4)
+        res = chip_smoke.run_serve_mesh(Engine(model, **kw),
+                                        Engine(model, mesh=mesh, **kw),
+                                        reqs, 4, ref["outputs"])
+    finally:
+        mp_layers.reset_collectives()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    layers = model.config.num_hidden_layers
+    assert res["collectives_per_decode_step"] == {
+        "all_reduce": 2 * layers + 1, "all_gather": 1}
+    assert [t["engine"] for t in res["turns"]] == list(chip_smoke.MESH_TURNS)
+    mesh_steps = sum(t["decode_steps"] for t in res["turns"]
+                     if t["engine"] == "mesh")
+    assert res["collectives"]["all_reduce"] >= \
+        mesh_steps * (2 * layers + 1)
+    assert res["launches"] == {}         # the CPU runs the plain versions
+    assert set(res["summary"]) == {"plain", "mesh"}

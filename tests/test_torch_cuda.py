@@ -1820,3 +1820,47 @@ def test_masked_attention_on_the_card(cuda_device, kind):
         assert not any(kernels.launch_counts().values())
     for a, b in zip(*outs):
         assert (a - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_mesh_of_one_is_the_plain_engine_under_graphs(cuda_device, layout):
+    """``Engine(mesh=serving_mesh(1))`` on an NCCL world of one (made on a
+    ``HashStore``) over a small bf16 GPT: its CUDA graphs hold the
+    tensor-parallel layers' all-reduces and the head's all-gather, it
+    launches the kernels of the plain engine, and its streams (greedy and
+    the three seeded laws) equal the plain engine's bitwise."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_layers
+    from paddle_tpu_torch.serving import serving_mesh
+
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=256,
+                    hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    model = GPTForCausalLM(
+        cfg, device=cuda_device, dtype=torch.bfloat16,
+        generator=torch.Generator(device=cuda_device).manual_seed(0))
+    reqs = chip_smoke.make_requests(512, 4, 40, [3, 20, 57, 9], seed=0)
+    kw = dict(kv_layout=layout, num_slots=2, max_seq=256, min_bucket=16,
+              block_size=16)
+    try:
+        mesh = serving_mesh(1)
+        assert dist.get_backend() == "nccl"
+        plain, meshed = Engine(model, **kw), Engine(model, mesh=mesh, **kw)
+        ref = chip_smoke.serve(plain, reqs, max_new_tokens=8)
+        res = chip_smoke.run_serve_mesh(Engine(model, **kw), meshed, reqs, 8,
+                                        ref["outputs"])
+        decode = meshed.programs._programs[("decode",)]
+        assert decode.graph is not None
+        assert res["collectives_per_decode_step"] == {
+            "all_reduce": 2 * cfg.num_hidden_layers + 1, "all_gather": 1}
+        want = "paged_decode" if layout == "paged" else "flash_fwd"
+        assert res["launches"].get(want, 0) > 0
+        assert set(res["launches"]) == set(
+            n for n, c in ref["launches"].items() if c)
+    finally:
+        mp_layers.reset_collectives()
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -996,9 +996,18 @@ def test_engine_fleet_hooks(models):
 # -- port only ----------------------------------------------------------------
 
 def test_shards_per_group_raises(models):
-    """Shard groups need the serving mesh: ROADMAP.md A.3 step 8."""
-    with pytest.raises(NotImplementedError, match="A.3 step 8"):
+    """Shard groups need a rank per device: in a world of one the port
+    raises the JAX package's ``needs N devices`` (the JAX package, on its
+    8 virtual devices, raises it past 8); a width off the viability
+    ladder raises naming the ladder in both packages."""
+    with pytest.raises(ValueError, match="needs 4 devices"):
         PORT.Fleet(models["gpt"]["port"], shards_per_group=2, **SMALL)
+    for api in APIS:
+        with pytest.raises(ValueError, match="needs 16 devices"):
+            api.Fleet(models["gpt"][api.name], num_replicas=8,
+                      shards_per_group=2, **SMALL)
+        with pytest.raises(ValueError, match=r"ladder is \[1, 2, 4\]"):
+            api.Fleet(models["gpt"][api.name], shards_per_group=3, **SMALL)
     with pytest.raises(ValueError, match="fleet-managed"):
         PORT.Fleet(models["gpt"]["port"], mesh=object(), **SMALL)
     with pytest.raises(ValueError, match="shards_per_group"):

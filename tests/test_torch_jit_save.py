@@ -71,6 +71,34 @@ class TestJitSaveLoad:
         np.testing.assert_allclose(loaded(x).numpy(), want.numpy(),
                                    rtol=1e-5, atol=1e-6)
 
+    @pytest.mark.parametrize("np_dtype", [np.float32, np.int64])
+    def test_numpy_dtype_spec(self, tmp_path, np_dtype):
+        """A numpy dtype in the spec, as the JAX ``InputSpec`` takes it
+        (``convert_dtype``): saved and loaded; the port keeps int64 where
+        the JAX package narrows it to int32."""
+        jspec = paddle.jit.InputSpec([None, 4], np_dtype)
+        spec = jit.InputSpec([None, 4], np_dtype)
+        want = {np.float32: torch.float32, np.int64: torch.int64}[np_dtype]
+        assert spec.dtype == want
+        assert jspec.dtype == np.dtype({np.float32: np.float32,
+                                        np.int64: np.int32}[np_dtype])
+        if np_dtype is np.float32:
+            net = _mlp()
+            x = torch.from_numpy(np.random.RandomState(1).randn(3, 4)
+                                 .astype(np.float32))
+        else:
+            torch.manual_seed(0)
+            net = nn.Sequential(nn.Embedding(16, 3), nn.Flatten()).eval()
+            x = torch.from_numpy(np.random.RandomState(1)
+                                 .randint(0, 16, (3, 4)))
+        path = str(tmp_path / "np_spec")
+        jit.save(net, path, input_spec=[spec])
+        loaded = jit.load(path, device="cpu")
+        with torch.no_grad():
+            want_out = net(x)
+        np.testing.assert_allclose(loaded(x).numpy(), want_out.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
     @pytest.mark.parametrize("family", ["gpt", "llama"])
     def test_symbolic_batch_round_trip(self, tmp_path, family):
         """``InputSpec([None, 16], "int64")``: batches 1, 2 and 5 give the

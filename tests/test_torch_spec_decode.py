@@ -752,7 +752,10 @@ class TestConfig:
 
     @pytest.mark.parametrize("kw", ["mesh"])
     def test_unported_subsystems_raise(self, gpt, gpt_draft, kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
+        """A mesh without a ``model`` axis is refused as the JAX
+        ``ServingShard`` refuses it (sharded speculation itself runs in
+        tests/test_torch_sharded_serving.py)."""
+        with pytest.raises(ValueError, match="needs a 'model' axis"):
             Engine(gpt[1], **ENG, **{kw: object()},
                    speculation=SpecConfig(draft_model=gpt_draft[1], k=K))
 

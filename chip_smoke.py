@@ -656,6 +656,7 @@ def check_flash(gen, B, S, H, dtype, D=128, causal=True, fused=False,
     ``dropout_p > 0``: K1's dropout instance and the plain version on the
     draw ``DROPOUT_SNAPSHOT`` (the library call: SDPA with the same rate,
     its own mask)."""
+    from paddle_tpu_torch.obs.cost import attention_cost
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.attention import _flash_fwd_reference
 
@@ -682,15 +683,13 @@ def check_flash(gen, B, S, H, dtype, D=128, causal=True, fused=False,
     (o, lse), (o_ref, lse_ref) = kern(), plain()
     err = (o.float() - o_ref.float()).abs().max().item()
     lse_err = (lse - lse_ref).abs().max().item()
-    isz = torch.finfo(dtype).bits // 8
-    keys = B * (S * (S + 1) // 2 if causal else S * S)
-    nbytes = 4 * B * S * H * D * isz + B * H * S * 4
+    flops, nbytes = attention_cost("fwd", q, causal)
     # dropout multiplies every kept probability, and so O, by 1 / (1 - p):
     # the p = 0 tolerance on that scale (one bf16 ulp of an output in
     # [4, 8) is 2**-5, past the unscaled 3e-2)
     return {"err": err, "lse_err": lse_err, "kern": kern, "plain": plain,
             "library": library, "tol": TOLERANCE[dtype] / (1 - dropout_p),
-            "bound": bound(nbytes, 4 * H * D * keys, dtype)}
+            "bound": bound(nbytes, flops, dtype)}
 
 
 #: K2/K3 gradients are sums over up to S rows: held relative to the plain
@@ -709,6 +708,7 @@ def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64, causal=True,
     call (a warm-up call of the timing).  ``dropout_p > 0``: the dropout
     instances and plain versions on the draw ``DROPOUT_SNAPSHOT`` (SDPA
     with the same rate for the library)."""
+    from paddle_tpu_torch.obs.cost import attention_cost
     from paddle_tpu_torch.ops import attention as att
     from paddle_tpu_torch.ops import kernels
 
@@ -749,14 +749,11 @@ def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64, causal=True,
         out, qkv = graph[0]
         return torch.autograd.grad(out, qkv, do.transpose(1, 2),
                                    retain_graph=True)
-    isz = torch.finfo(dtype).bits // 8
-    pairs = B * (S * (S + 1) // 2 if causal else S * S)
-    n_out, flops_per_pair = (2, 8 * D) if which == "flash_bwd_dkv" \
-        else (1, 6 * D)
-    nbytes = (4 + n_out) * B * S * H * D * isz + 2 * B * H * S * 4
+    flops, nbytes = attention_cost(
+        "bwd_dkv" if which == "flash_bwd_dkv" else "bwd_dq", q, causal)
     return {"err": err, "tol": BWD_TOLERANCE[dtype] * scale,
             "kern": kern, "plain": plain, "library": library,
-            "bound": bound(nbytes, flops_per_pair * H * pairs, dtype)}
+            "bound": bound(nbytes, flops, dtype)}
 
 
 def check_dropout_mask(dtype, S=64, H=2, p=0.25):
@@ -5613,6 +5610,395 @@ def phase_train_parity_bf16() -> None:
                                  f"launch {name}: {res['launches']}")
 
 
+#: train_resilience: the rollback drill's NaN step and length, the resume
+#: drill's preempted step, length and cadence, and the timed steps of a
+#: turn of the sentry's cost (each turn runs one untimed step first)
+RESILIENCE_NAN_STEP, RESILIENCE_STEPS = 5, 10
+PREEMPT_AT, PREEMPT_STEPS, PREEMPT_SAVE_EVERY = 4, 8, 3
+SENTRY_TURN_STEPS = 20
+
+
+def resilience_rig(config: str, batch: int, seq: int, device: str,
+                   dropout: float = 0.0, amp_level: str = "O2"):
+    """``build_train_step(config, to_static=False)``'s model, optimizer
+    and batch, and ``make(sentry)``: the drill's body compiled with
+    ``jit.to_static``, ``compute_loss(x, y) * w`` (``w`` an f32 ``[1]``
+    loss weight, 1.0 unless a ``train.nan`` fault poisons it), backward,
+    ``sentry.observe(loss, grad_norm=global_grad_norm(params))`` when a
+    sentry is given, ``step`` and ``clear_grad``."""
+    from paddle_tpu_torch import amp, build_train_step, jit
+    from paddle_tpu_torch.distributed.fault_tolerance import (
+        global_grad_norm,
+    )
+
+    ts = build_train_step(config, batch=batch, seq=seq, device=device,
+                          dropout=dropout, amp_level=amp_level,
+                          to_static=False)
+    model, opt = ts.model, ts.optimizer
+
+    def make(sentry=None):
+        def body(x, y, w):
+            with amp.auto_cast(dtype="bfloat16", level=amp_level):
+                loss = model.compute_loss(x, y)
+            loss = loss * w
+            loss.backward()
+            if sentry is not None:
+                sentry.observe(loss, grad_norm=global_grad_norm(
+                    model.parameters()))
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+        return jit.to_static(body)
+
+    def state_fn():
+        return {"model": model.state_dict(), "opt": opt.state_dict()}
+
+    def restore_fn(state):
+        model.load_state_dict(state["model"])
+        opt.set_state_dict(state["opt"])
+
+    return ts, make, state_fn, restore_fn
+
+
+def resilience_checksums(ts, sentry=None) -> torch.Tensor:
+    """One int64 sum of the bits of each tensor of the training state, on
+    the device: the parameters, every optimizer state tensor (f32 masters,
+    moments, ``beta*_pow``), the sentry's window, counts and EMA, and the
+    generators' ``[seed, offset]``."""
+    from paddle_tpu_torch import rng
+
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+    def bits(t):
+        t = t.detach()
+        return t.view(view[t.element_size()]).sum(dtype=torch.int64)
+
+    tensors = list(ts.model.state_dict().values())
+    for st in ts.optimizer.state.values():
+        tensors += [st[k] for k in sorted(st)
+                    if isinstance(st[k], torch.Tensor)]
+    if sentry is not None:
+        sd = sentry.state_dict()
+        tensors += [sd[k] for k in ("hist", "n", "gn", "gema")]
+    dev = tensors[0].device
+    tensors += [t.to(dev) for _, t in sorted(rng.get_rng_state().items())]
+    return torch.stack([bits(t) for t in tensors])
+
+
+def _state_tensors(obj) -> list:
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        return [t for v in obj.values() for t in _state_tensors(v)]
+    if isinstance(obj, (list, tuple)):
+        return [t for v in obj for t in _state_tensors(v)]
+    return []
+
+
+def drive_train_resilience(config: str = "gpt2-345m", batch: int = 8,
+                           seq: int = 1024, device: str = "cuda",
+                           amp_level: str = "O2",
+                           reference_loss=None) -> dict:
+    """The three parts of ``train_resilience`` (``phase_train_resilience``
+    holds them); every figure the phase prints.
+
+    (a) The bench's rollback drill at ``config``: ``RESILIENCE_STEPS``
+    steps under ``ResilientLoop`` with a ``DivergenceSentry``
+    (``snapshot_every=2``, ``ring_capacity=2``, ``max_rollbacks=2``), a
+    ``train.nan`` fault at ``RESILIENCE_NAN_STEP``, a ``StepTimeline`` and
+    a ``CompileLedger``; then the oracle, a second model of the same seed
+    run through the same schedule with that step skipped, and the
+    sentry's cost: the oracle's step with and without the sentry in turns
+    (no sentry, sentry, sentry, no sentry; an untimed step, then
+    ``SENTRY_TURN_STEPS`` timed steps a turn, each step's host ms to its
+    end: the sentry's poll, or a synchronize).  The cost is ``resolved``
+    only where the sentry's median lies outside the no-sentry steps'
+    quartiles; else the turns cannot tell it from the host's spread.  ``reference_loss``: the bench step's first loss
+    (``build_train_step``'s), which the drill's first must equal (one is
+    built when None).
+    (c) A ``CostLedger`` of the oracle's warm sentry step.
+    (b) Preemption at dropout 0.1: ``PADDLE_TPU_FT_DIE_AT_STEP`` sends
+    SIGTERM at ``PREEMPT_AT`` to a loop saving every
+    ``PREEMPT_SAVE_EVERY`` steps (``keep_last=1``); it commits and raises
+    ``SystemExit(101)``; every tensor of the live state is then zeroed and
+    a new loop on the same objects resumes and runs to ``PREEMPT_STEPS``;
+    the oracle is a third model run ``PREEMPT_STEPS`` steps.  Launches are
+    counted over all of it; those of the cost ledger's eager run (it
+    launches K1-K3 as an eager step does) are also reported on their
+    own."""
+    from paddle_tpu_torch import build_train_step, obs, rng
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.distributed.fault_tolerance import (
+        DivergenceSentry, FaultPlan, ResilientLoop,
+    )
+    from paddle_tpu_torch.ops import kernels
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    if reference_loss is None:
+        ref = build_train_step(config, batch=batch, seq=seq, device=device,
+                               amp_level=amp_level)
+        reference_loss = float(ref.train_step(ref.x, ref.y))
+        del ref
+        free()
+    kernels.reset_launches()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="train_resilience_") as tmp:
+        # (a) the rollback drill
+        kw = dict(snapshot_every=2, ring_capacity=2, max_rollbacks=2,
+                  device=device)
+        sentry = DivergenceSentry(**kw)
+        ts, make, state_fn, restore_fn = resilience_rig(
+            config, batch, seq, device, amp_level=amp_level)
+        step = make(sentry)
+        w = torch.ones(1, dtype=torch.float32, device=device)
+        plan = FaultPlan().add_train_fault("train.nan",
+                                           RESILIENCE_NAN_STEP)
+        losses = {}
+
+        def drill_step(i):
+            losses[i] = step(ts.x, ts.y, plan.corrupt_batch(i, w))
+
+        timeline, ledger = obs.StepTimeline(), obs.CompileLedger()
+        loop = ResilientLoop(os.path.join(tmp, "drill"), state_fn,
+                             restore_fn, save_every=None, save_final=False,
+                             sentry=sentry, timeline=timeline,
+                             compile_ledger=ledger, verbose=False)
+        t0 = time.perf_counter()
+        loop.run(drill_step, RESILIENCE_STEPS)
+        sync()
+        chrome = obs.chrome_trace(timeline)
+        snaps = sentry.ring.taken
+        snap_ms = [round((sp["t_end"] - sp["t_start"]) * 1e3, 3)
+                   for _, sp in sorted(timeline.spans.items())
+                   if sp["name"] == "snapshot_capture"]
+        out["drill"] = {
+            "counters": sentry.counters(),
+            "seconds": round(time.perf_counter() - t0, 3),
+            "first_loss": float(losses[0].reshape(-1)[0]),
+            "reference_loss": reference_loss,
+            "losses": [float(losses[i].reshape(-1)[0])
+                       for i in sorted(losses)],
+            "restore_ms": round(loop.last_rollback_recovery_s * 1e3, 3),
+            "snapshot_ms_each": snap_ms,
+            "snapshot_ms": _quartiles(snap_ms)["median"],
+            "snapshots": snaps,
+            "snapshot_gb": round(sentry.ring.nbytes() / 2 ** 30
+                                 / max(len(sentry.ring), 1), 3),
+            "programs": len(step.program_cache), "captures": step.captures,
+            "compiles": ledger.stats(),
+            "timeline_problems": obs.validate_timeline(timeline),
+            "rolled_back_spans": sum(
+                1 for e in chrome["traceEvents"] if e.get("ph") == "X"
+                and e["args"]["state"] == "rolled_back"),
+            "timeline": timeline.counters()}
+        drill_sums = resilience_checksums(ts, sentry).cpu()
+        sentry.ring.clear()
+        del ts, make, step, loop, sentry, state_fn, restore_fn, timeline
+        free()
+
+        # the oracle: the same seed, step RESILIENCE_NAN_STEP skipped
+        sentry_b = DivergenceSentry(**kw)
+        tsb, make_b, _, _ = resilience_rig(config, batch, seq, device,
+                                           amp_level=amp_level)
+        step_b = make_b(sentry_b)
+        for i in range(RESILIENCE_STEPS):
+            if i != RESILIENCE_NAN_STEP:
+                step_b(tsb.x, tsb.y, w)
+                sentry_b.poll()
+        sync()
+        out["drill"]["bitwise"] = bool(torch.equal(
+            drill_sums, resilience_checksums(tsb, sentry_b).cpu()))
+
+        # the sentry's cost, in turns
+        plain_b = make_b(None)
+        for _ in range(2):                # its eager call and its capture
+            plain_b(tsb.x, tsb.y, w)
+        ms = {"no_sentry": [], "sentry": []}
+        for name in ("no_sentry", "sentry", "sentry", "no_sentry"):
+            f = step_b if name == "sentry" else plain_b
+            for j in range(SENTRY_TURN_STEPS + 1):
+                t0 = time.perf_counter()
+                f(tsb.x, tsb.y, w)
+                if name == "sentry":
+                    sentry_b.poll()
+                else:
+                    sync()
+                if j:
+                    ms[name].append(
+                        round((time.perf_counter() - t0) * 1e3, 3))
+        out["sentry_cost"] = {k: {"step_ms": v, **_quartiles(v)}
+                              for k, v in ms.items()}
+        base, with_s = (out["sentry_cost"][k]
+                        for k in ("no_sentry", "sentry"))
+        out["sentry_cost"]["cost_pct"] = round(
+            (with_s["median"] / base["median"] - 1) * 100, 3)
+        out["sentry_cost"]["resolved"] = not (
+            base["q1"] <= with_s["median"] <= base["q3"])
+
+        # (c) the cost ledger of the warm sentry step
+        n_params = sum(p.numel() for p in tsb.model.parameters())
+        before = (len(step_b.program_cache), step_b.captures,
+                  kernels.launch_counts())
+        t0 = time.perf_counter()
+        cost = obs.CostLedger(chip="h100").add(
+            "train_step", step_b, tsb.x, tsb.y, w,
+            tokens_per_step=batch * seq, n_params=n_params)
+        out["cost"] = {**{k: cost[k] for k in (
+            "flops", "bytes_accessed", "attention_flops", "attention_calls",
+            "analytic_mfu", "bound", "roofline_step_ms",
+            "arithmetic_intensity", "flops_vs_6nd", "model_flops_6nd",
+            "op_counts", "fingerprint", "restored_tensors")},
+            "n_params": n_params, "tokens_per_step": batch * seq,
+            "seconds": round(time.perf_counter() - t0, 3),
+            "new_programs": len(step_b.program_cache) - before[0],
+            "new_captures": step_b.captures - before[1],
+            "eager_run_launches": {n: c - before[2][n] for n, c
+                         in kernels.launch_counts().items()
+                         if c != before[2][n]}}
+        del tsb, make_b, step_b, plain_b, sentry_b
+        free()
+
+        # (b) preemption and resume at dropout 0.1
+        launches_b0 = kernels.launch_counts()
+        ts2, make2, state_fn2, restore_fn2 = resilience_rig(
+            config, batch, seq, device, dropout=RECIPE_DROPOUT,
+            amp_level=amp_level)
+        step2 = make2(None)
+        root = os.path.join(tmp, "preempt")
+        handler = signal.getsignal(signal.SIGTERM)
+        tl2 = obs.StepTimeline()
+        os.environ["PADDLE_TPU_FT_DIE_AT_STEP"] = str(PREEMPT_AT)
+        try:
+            loop1 = ResilientLoop(root, state_fn2, restore_fn2,
+                                  save_every=PREEMPT_SAVE_EVERY, keep_last=1,
+                                  timeline=tl2, verbose=False)
+        finally:
+            del os.environ["PADDLE_TPU_FT_DIE_AT_STEP"]
+        exit_code = None
+        try:
+            loop1.run(lambda i: step2(ts2.x, ts2.y, w), PREEMPT_STEPS)
+        except SystemExit as e:
+            exit_code = e.code
+        gens = ckpt.list_generations(root)
+        path = ckpt.generation_dir(root, gens[-1])
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        t0 = time.perf_counter()
+        problems = ckpt.verify_checkpoint(path)
+        verify_s = time.perf_counter() - t0
+        # the resume must write every byte: zero the live state first
+        with torch.no_grad():
+            for t in _state_tensors(state_fn2()):
+                t.zero_()
+            for gen in rng._generators.values():
+                gen._state.zero_()
+        loop2 = ResilientLoop(root, state_fn2, restore_fn2, save_every=None,
+                              save_final=False, verbose=False)
+        completed = loop2.run(lambda i: step2(ts2.x, ts2.y, w),
+                              PREEMPT_STEPS)
+        sync()
+        resumed = resilience_checksums(ts2).cpu()
+        out["preempt"] = {
+            "exit_code": exit_code, "generations": gens,
+            "handler_restored": signal.getsignal(signal.SIGTERM) is handler,
+            "commit_s": round(loop1.last_commit_s, 3),
+            "commits_s_each": [
+                round(sp["t_end"] - sp["t_start"], 3)
+                for _, sp in sorted(tl2.spans.items())
+                if sp["name"] == "checkpoint_commit"],
+            "gb_written": round(nbytes / 1e9, 3),
+            "verify_s": round(verify_s, 3), "verify_problems": problems,
+            "resume_s": round(loop2.last_resume_s, 3),
+            "completed": completed,
+            "programs": len(step2.program_cache), "captures": step2.captures}
+        del ts2, make2, step2, loop1, loop2, state_fn2, restore_fn2
+        free()
+        ts3, make3, _, _ = resilience_rig(config, batch, seq, device,
+                                          dropout=RECIPE_DROPOUT,
+                                          amp_level=amp_level)
+        step3 = make3(None)
+        for _ in range(PREEMPT_STEPS):
+            step3(ts3.x, ts3.y, w)
+        sync()
+        out["preempt"]["bitwise"] = bool(torch.equal(
+            resumed, resilience_checksums(ts3).cpu()))
+        after = kernels.launch_counts()
+        out["preempt"]["dropout_launches"] = {
+            n: after[n] - launches_b0[n] for n in RECIPE_KERNELS}
+        del ts3, make3, step3
+        free()
+    out["launches"] = kernels.launch_counts()
+    return out
+
+
+def phase_train_resilience(reference_loss=None) -> dict:
+    """Training resilience on GPT-2 345M (bf16 O2, 8 x 1024) through one
+    CUDA graph a step (``drive_train_resilience``).  Holds: one anomaly,
+    rollback and skip; the rolled-back state bitwise equal to the oracle's
+    and the drill's first loss to the bench step's; one program, one
+    capture and no steady-state compile anomaly; a valid timeline with a
+    ``rolled_back`` span in its Perfetto export; the preempted run exits
+    101, its handler restored, its generation valid, and the resumed
+    state bitwise equal to the uninterrupted run's; the cost ledger adds
+    no program; K1-K3 (and their dropout instances) launched.  Returns
+    the launch counts."""
+    t0 = time.perf_counter()
+    res = drive_train_resilience(reference_loss=reference_loss)
+    seconds = round(time.perf_counter() - t0, 3)
+    drill, pre, cost = res["drill"], res["preempt"], res["cost"]
+    emit("train_resilience", part="a", model="gpt2-345m", batch=8, seq=1024,
+         dtype="bfloat16 (AMP O2, f32 masters)",
+         nan_step=RESILIENCE_NAN_STEP, steps=RESILIENCE_STEPS, **drill)
+    emit("train_resilience", part="a_sentry_cost",
+         turns="no_sentry sentry sentry no_sentry",
+         steps_per_turn=SENTRY_TURN_STEPS, **res["sentry_cost"])
+    emit("train_resilience", part="b", dropout=RECIPE_DROPOUT,
+         preempt_at=PREEMPT_AT, steps=PREEMPT_STEPS,
+         save_every=PREEMPT_SAVE_EVERY, keep_last=1, **pre)
+    emit("train_resilience", part="c", chip="h100 (989e12 bf16 dense, "
+         "3.35e12 B/s)", attention="K1-K3 by obs.cost.attention_cost",
+         **cost)
+    counters = drill["counters"]
+    holds = {
+        "anomalies_rollbacks_skips": (counters["anomalies"],
+                                      counters["rollbacks"],
+                                      counters["skipped_steps"]) == (1, 1, 1),
+        "rollback_bitwise": drill["bitwise"],
+        "first_loss_bitwise": drill["first_loss"] == drill["reference_loss"],
+        "one_program_one_capture": (drill["programs"],
+                                    drill["captures"]) == (1, 1),
+        "no_steady_compile": drill["compiles"]["compiles"] == 1
+        and drill["compiles"]["steady_state_misses"] == 0,
+        "timeline_valid": drill["timeline_problems"] == [],
+        "rolled_back_span": drill["rolled_back_spans"] >= 1,
+        "preempt_exit_101": pre["exit_code"] == 101,
+        "handler_restored": pre["handler_restored"],
+        "generation_valid": pre["verify_problems"] == [],
+        "resume_bitwise": pre["bitwise"],
+        "dropout_kernels": all(v > 0 for v in
+                               pre["dropout_launches"].values()),
+        "cost_adds_no_program": cost["new_programs"] == 0
+        and cost["new_captures"] == 0,
+        "k1_k3_launched": all(res["launches"][n] > 0
+                              for n in TRAIN_KERNELS),
+    }
+    emit("train_resilience", part="holds", seconds=seconds, **holds)
+    broken = [k for k, ok in holds.items() if not ok]
+    if broken:
+        raise AssertionError(f"train_resilience: {broken} broken")
+    return res["launches"]
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -5685,6 +6071,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_parity_bf16()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_res = phase_train_resilience(train["losses"][0])
     launches = {**paged["launches"],
                 **{n: train["launches"][n] for n in TRAIN_KERNELS},
                 **{n: recipe[n] for n in RECIPE_KERNELS},
@@ -5703,7 +6092,8 @@ def main() -> int:
                 "train": train["launches"],
                 "train_o1": train_o1,
                 "train_fp16_scaler": fp16,
-                "train_recipe": recipe}
+                "train_recipe": recipe,
+                "train_resilience": train_res}
     kernels_line = [{**rec, "launches": launches[name],
                      "launches_by_phase": {ph: c[name]
                                            for ph, c in by_phase.items()

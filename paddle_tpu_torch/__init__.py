@@ -27,13 +27,17 @@ the card; AMP O2 or O1), and so does a user's own loop of
 parameter groups, ``lr=optimizer.lr.<scheduler>``,
 ``grad_clip=nn.Clip...``), ``amp.decorate`` or ``amp.auto_cast`` (the
 JAX package's per-op lists), ``amp.GradScaler`` and ``jit.to_static``;
-:func:`seed` seeds dropout.  Everything runs on ``cuda`` unless the caller passes
+:func:`seed` seeds dropout.  A training loop survives faults under
+``distributed.fault_tolerance.ResilientLoop`` (format-2 checkpoints of
+:mod:`distributed.checkpoint`, preemption, the divergence sentry's
+rollback), observed by :mod:`obs` (``StepTimeline``, ``CompileLedger``,
+``CostLedger``) and :mod:`profiler`.  Everything runs on ``cuda`` unless the caller passes
 ``device="cpu"``; on CPU tensors each kernel's plain PyTorch version runs
 instead.
 """
 from . import (
     amp, distributed, framework, inference, jit, models, nn, obs, ops,
-    optimizer, rng, serving, static,
+    optimizer, profiler, rng, serving, static,
 )
 from .inference import create_engine
 from .rng import seed
@@ -41,4 +45,4 @@ from .training import build_train_step
 
 __all__ = ["amp", "build_train_step", "create_engine", "distributed",
            "framework", "inference", "jit", "models", "nn", "obs", "ops",
-           "optimizer", "rng", "seed", "serving", "static"]
+           "optimizer", "profiler", "rng", "seed", "serving", "static"]

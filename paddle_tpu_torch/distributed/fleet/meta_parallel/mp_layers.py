@@ -27,13 +27,19 @@ The layers serve: they run forward only (under ``no_grad``), and no
 gradient flows through their collectives; training through them, with
 ``ParallelCrossEntropy``, is ROADMAP.md A.5 step 6.
 
+:func:`shard_layout` gives the global shape and index ranges of a
+layer's sharded parameter (or a tensor sharing its memory, as
+``state_dict()`` gives it): what a checkpoint records for the rank's
+blocks (:mod:`paddle_tpu_torch.distributed.checkpoint`).
+
 Every collective adds one to :data:`COLLECTIVES` (host side, where it is
 issued).  The step programs capture these calls in CUDA graphs: a capture
 moves its counts to the replays, as they do with the kernels' launches.
 """
 from __future__ import annotations
 
-from typing import Dict
+import weakref
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -42,7 +48,49 @@ from torch.nn import functional as F
 
 __all__ = ["COLLECTIVES", "collective_counts", "add_collectives",
            "reset_collectives", "ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding", "gather_last", "shard_index"]
+           "VocabParallelEmbedding", "gather_last", "shard_index",
+           "shard_layout"]
+
+#: every live tensor-parallel layer, for :func:`shard_layout`
+_LAYERS: "weakref.WeakSet" = weakref.WeakSet()
+
+#: a sharded tensor's ``(global shape, [box, ...], spec)``: each box a
+#: ``[lo, hi)`` range per dim, in the order the rank's tensor holds them
+Layout = Tuple[List[int], List[List[List[int]]], List[Optional[str]]]
+
+
+def _blocks(full: int, rank: int, mp: int, parts: int, dim: int,
+            other: Optional[int]) -> List[List[List[int]]]:
+    """The boxes of a rank's ``1/mp`` of each of ``parts`` equal blocks
+    along ``dim`` of a 2-D (``other`` the other dim's size) or 1-D
+    tensor."""
+    part, n = full // parts, full // (parts * mp)
+    boxes = []
+    for p in range(parts):
+        rng = [p * part + rank * n, p * part + (rank + 1) * n]
+        box = [rng] if other is None else \
+            ([rng, [0, other]] if dim == 0 else [[0, other], rng])
+        boxes.append(box)
+    return boxes
+
+
+def shard_layout(t: torch.Tensor) -> Optional[Layout]:
+    """``(global shape, boxes, spec)`` of ``t`` if it is (or shares the
+    memory of) a sharded parameter of a tensor-parallel layer on a group
+    of more than one rank; else None."""
+    if t.device.type == "meta":
+        return None
+    ptr, shape = t.data_ptr(), tuple(t.shape)
+    for layer in list(_LAYERS):
+        if layer.mp == 1:
+            continue
+        for pname in ("weight", "bias"):
+            p = getattr(layer, pname, None)
+            if p is not None and p.data_ptr() == ptr \
+                    and tuple(p.shape) == shape:
+                return layer._layout(pname)
+    return None
+
 
 #: collectives issued, by kind
 COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
@@ -125,10 +173,21 @@ class ColumnParallelLinear(nn.Linear):
         self.parts = int(parts)
         self.gather_output = gather_output
         self.lora = None
+        _LAYERS.add(self)
 
     def local_index(self) -> torch.Tensor:
         return shard_index(self.full_out_features, self.rank, self.mp,
                            self.parts)
+
+    def _layout(self, pname: str) -> Layout:
+        full = self.full_out_features
+        if pname == "weight":
+            return ([full, self.in_features],
+                    _blocks(full, self.rank, self.mp, self.parts, 0,
+                            self.in_features),
+                    ["model", None])
+        return ([full], _blocks(full, self.rank, self.mp, self.parts, 0,
+                                None), ["model"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.linear(x, self.weight, self.bias)
@@ -154,9 +213,18 @@ class RowParallelLinear(nn.Linear):
         self.group, self.mp, self.rank = group, mp, rank
         self.full_in_features = in_features
         self.lora = None
+        _LAYERS.add(self)
 
     def local_index(self) -> torch.Tensor:
         return shard_index(self.full_in_features, self.rank, self.mp)
+
+    def _layout(self, pname: str) -> Optional[Layout]:
+        if pname != "weight":
+            return None                   # the bias is whole on every rank
+        full = self.full_in_features
+        return ([self.out_features, full],
+                _blocks(full, self.rank, self.mp, 1, 1, self.out_features),
+                [None, "model"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fused = self.mp == 1
@@ -186,6 +254,13 @@ class VocabParallelEmbedding(nn.Embedding):
         self.group, self.mp, self.rank = group, mp, rank
         self.full_num_embeddings = num_embeddings
         self.vocab_start = rank * (num_embeddings // mp)
+        _LAYERS.add(self)
+
+    def _layout(self, pname: str) -> Layout:
+        full = self.full_num_embeddings
+        return ([full, self.embedding_dim],
+                _blocks(full, self.rank, self.mp, 1, 0, self.embedding_dim),
+                ["model", None])
 
     def local_index(self) -> torch.Tensor:
         return shard_index(self.full_num_embeddings, self.rank, self.mp)

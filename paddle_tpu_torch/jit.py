@@ -42,6 +42,14 @@ synchronize: its capture then fails and the call raises
 :class:`CaptureError` naming that cause (the JAX package's tracer-leak
 errors, :25-34); the program keeps raising, and no eager step stands in.
 
+A program's build is its key's first call plus, on the card, its capture
+at the second call.  :func:`subscribe_compiles` listeners (the port's
+``obs.CompileLedger``, as in ``paddle_tpu/jit/__init__.py:40-75``) get one
+record at the first call (``event: "build"``, the eager call's seconds)
+and, on the card, one at the capture (``event: "capture"``, its seconds),
+both naming the same ``program``; with no listener the miss path pays one
+falsy check.
+
 ``save``, ``load`` and ``TranslatedLayer`` (:302-450) are the deployment
 format.  ``save(layer, path, input_spec)`` exports, with ``torch.export``,
 a function of ``(state, inputs)`` that calls the layer through
@@ -73,9 +81,14 @@ from __future__ import annotations
 
 import functools
 import gc
+import hashlib
 import io
+import itertools
 import json
 import os
+import sys
+import time
+import traceback
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -86,9 +99,64 @@ from .ops import kernels
 from .serving.programs import _capture_stream
 
 __all__ = ["CaptureError", "InputSpec", "StaticFunction", "TranslatedLayer",
-           "enable_to_static", "load", "not_to_static", "save", "to_static"]
+           "enable_to_static", "load", "not_to_static", "save", "to_static",
+           "subscribe_compiles", "unsubscribe_compiles"]
 
 _enabled = {"to_static": True}
+
+# -- program builds, for the compile ledger -----------------------------------
+
+_compile_listeners: List[Callable[[dict], None]] = []
+_program_serials = itertools.count(1)
+
+
+def subscribe_compiles(listener: Callable[[dict], None]) -> None:
+    """Register ``listener(record)`` for every program build: a key's
+    first call (``record["event"] == "build"``) and, on the card, its
+    capture (``"capture"``), the two naming the same ``record["program"]``
+    (see :class:`paddle_tpu_torch.obs.compile_ledger.CompileLedger`).
+    Idempotent per listener object."""
+    if listener not in _compile_listeners:
+        _compile_listeners.append(listener)
+
+
+def unsubscribe_compiles(listener: Callable[[dict], None]) -> None:
+    try:
+        _compile_listeners.remove(listener)
+    except ValueError:
+        pass
+
+
+def _compile_call_site() -> str:
+    """The innermost stack frame outside this package and torch: who asked
+    for the build."""
+    skip = (os.sep + "paddle_tpu_torch" + os.sep, os.sep + "torch" + os.sep)
+    for fr in reversed(traceback.extract_stack()):
+        if not any(s in fr.filename for s in skip):
+            return f"{fr.filename}:{fr.lineno}"
+    return "<framework>"
+
+
+def _arg_specs_str(leaves: List[torch.Tensor]) -> str:
+    return ",".join(f"{str(t.dtype).replace('torch.', '')}"
+                    f"[{','.join(str(d) for d in t.shape)}]" for t in leaves)
+
+
+def _notify_compile(static_fn, prog, leaves, seconds: float,
+                    event: str) -> None:
+    fn = static_fn._fn
+    rec = {"fn": getattr(fn, "__qualname__", getattr(fn, "__name__", "<fn>")),
+           "key": prog.digest, "program": prog.serial, "event": event,
+           "arg_specs": _arg_specs_str(leaves),
+           "seconds": round(seconds, 6), "site": _compile_call_site(),
+           "cache_size": len(static_fn._programs)}
+    for cb in list(_compile_listeners):
+        try:
+            cb(rec)
+        except Exception as e:  # noqa: BLE001 — an observer never breaks
+            # a step (nor masks its real exception)
+            print(f"paddle_tpu_torch.jit: compile listener {cb!r} raised "
+                  f"{type(e).__name__}: {e} (ignored)", file=sys.stderr)
 
 
 class CaptureError(RuntimeError):
@@ -177,8 +245,10 @@ class _Program:
     input buffers, the graph and its output, the kernel launches one
     replay makes, and the capture's error if it failed."""
 
-    def __init__(self, device: Optional[torch.device]):
+    def __init__(self, device: Optional[torch.device], key):
         self.device = device
+        self.serial = next(_program_serials)
+        self.digest = hashlib.sha1(repr(key).encode()).hexdigest()[:12]
         self.calls = 0
         self.statics: List[torch.Tensor] = []
         self.graph = None
@@ -228,13 +298,33 @@ class StaticFunction:
                self._extra_key(args))
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._programs[key] = _Program(self._device(leaves))
+            prog = self._programs[key] = _Program(self._device(leaves), key)
             self.misses += 1
         else:
             self.hits += 1
         if prog.device is None:
-            return self._fn(*args, **kwargs)
-        return self._run(prog, args, kwargs, leaves)
+            build = prog.calls == 0
+            prog.calls += 1
+            if not (build and _compile_listeners):
+                return self._fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            try:
+                return self._fn(*args, **kwargs)
+            finally:
+                _notify_compile(self, prog, leaves,
+                                time.perf_counter() - t0, "build")
+        if not (prog.calls < 2 and _compile_listeners):
+            return self._run(prog, args, kwargs, leaves)
+        # a build on the card: the eager first call, or the capture (and
+        # the first replay) at the second
+        event = "capture" if prog.calls else "build"
+        t0 = time.perf_counter()
+        try:
+            return self._run(prog, args, kwargs, leaves)
+        finally:
+            torch.cuda.current_stream(prog.device).synchronize()
+            _notify_compile(self, prog, leaves, time.perf_counter() - t0,
+                            event)
 
     @staticmethod
     def _device(leaves: List[torch.Tensor]) -> Optional[torch.device]:

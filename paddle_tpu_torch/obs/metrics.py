@@ -15,18 +15,26 @@ a dashboard binds to either package the same way.
     from paddle_tpu_torch import obs
     print(obs.render_metrics(engine.stats()))
     # paddle_tpu_serving_queue_depth{engine="engine-0"} 0
+
+:func:`render_all_metrics` walks every live engine, fleet and training
+loop through :mod:`paddle_tpu_torch.profiler`: the process-wide
+``/metrics`` body, serving snapshots under ``paddle_tpu_serving*`` and the
+training observatory (timeline, compile ledger, cost ledger, sentry)
+under ``paddle_tpu_train``.
 """
 from __future__ import annotations
 
 import re
 from typing import Dict, Iterator, Optional, Tuple
 
-__all__ = ["render_metrics"]
+__all__ = ["render_metrics", "render_all_metrics"]
 
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_]")
 
 #: string leaves exported as ``<name>_info{value="..."} 1``
-_INFO_KEYS = ("state", "kv_block_invariants", "kv_layout", "kernel")
+_INFO_KEYS = ("state", "kv_block_invariants", "kv_layout", "kernel",
+              "engine_state", "replica_state", "fingerprint", "chip",
+              "bound")
 
 
 def _metric_name(*parts: str) -> str:
@@ -82,3 +90,23 @@ def render_metrics(snapshot: dict, *, prefix: str = "paddle_tpu_serving",
             name = _metric_name(prefix, *path) + "_info"
             lines.append(f"{name}{_labels({**labels, 'value': v})} 1")
     return "\n".join(lines) + ("\n" if lines else "")
+
+
+def render_all_metrics(prefix: str = "paddle_tpu_serving") -> str:
+    """The process-wide ``/metrics`` body: every live engine's, fleet's and
+    training loop's snapshot, flattened.  Training metrics render under
+    ``paddle_tpu_train`` whatever ``prefix`` is, so one scrape covers both
+    stacks without name collisions."""
+    from .. import profiler
+
+    chunks = []
+    for name, snap in profiler.serving_stats().items():
+        chunks.append(render_metrics(snap, prefix=prefix,
+                                     labels={"engine": name}))
+    for name, snap in profiler.serving_fleet().items():
+        chunks.append(render_metrics(snap, prefix=prefix + "_fleet",
+                                     labels={"fleet": name}))
+    for name, snap in profiler.train_stats().items():
+        chunks.append(render_metrics(snap, prefix="paddle_tpu_train",
+                                     labels={"loop": name}))
+    return "".join(chunks)

@@ -219,6 +219,11 @@ def _flash_fwd_fake(q, k, v, causal, dropout_p=0.0, rng=None):
             q.new_empty((B * H, S), dtype=torch.float32))
 
 
+#: a cost analysis's probe (``obs.cost``), or None: told of each K1, K2
+#: and K3 call, which it counts by formula
+_cost_probe = None
+
+
 class _FlashAttention(torch.autograd.Function):
     """K1 forward, K2 + K3 backward (``_flash``'s custom_vjp): the forward
     saves ``(q, k, v, o, lse)`` and the dropout draw; the backward forms
@@ -231,10 +236,15 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, kernel: str, dropout_p: float,
                 rng: Optional[torch.Tensor]):
+        probe = _cost_probe
+        if probe is not None:
+            probe.begin()
         if _use_kernel(q, kernel):
             o, lse = kernels.flash_fwd(q, k, v, causal, dropout_p, rng)
         else:
             o, lse = _flash_fwd_reference(q, k, v, causal, dropout_p, rng)
+        if probe is not None:
+            probe.end(("fwd",), q, causal)
         ctx.save_for_backward(q, k, v, o, lse, rng)
         ctx.causal, ctx.kernel, ctx.dropout_p = causal, kernel, dropout_p
         return o
@@ -242,6 +252,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, rng = ctx.saved_tensors
+        probe = _cost_probe
+        if probe is not None:
+            probe.begin()
         B, S, H, _ = q.shape
         if do.stride(-1) != 1:          # never so on the GPT path
             do = do.contiguous()
@@ -254,6 +267,8 @@ class _FlashAttention(torch.autograd.Function):
         else:
             dk, dv = _flash_bwd_dkv_reference(*args)
             dq = _flash_bwd_dq_reference(*args)
+        if probe is not None:
+            probe.end(("bwd_dkv", "bwd_dq"), q, ctx.causal)
         return dq, dk, dv, None, None, None, None
 
 

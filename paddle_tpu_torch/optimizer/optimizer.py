@@ -17,11 +17,13 @@ Port of ``paddle_tpu/optimizer/optimizer.py``: the ``Optimizer`` base
   was captured (the program would keep the old constant).
 - ``grad_clip`` (:mod:`..nn.clip`) maps the ``(parameter, gradient)``
   pairs before the update (``optimizer.py:200-201``).
-- ``get_lr``, ``clear_grad`` and a ``state_dict`` that carries the
-  scheduler's under ``"@lr_scheduler"`` (:312, :357); loading one keeps
-  each state tensor's own dtype (an f32 master of a bf16 parameter stays
-  f32) and writes in place where the tensor exists, so a captured step
-  reads the restored values.
+- ``get_lr``, ``clear_grad`` (``clear_gradients``), ``minimize`` and a
+  ``state_dict`` that carries the scheduler's under ``"@lr_scheduler"``
+  (:312, :357); loading one keeps each state tensor's own dtype (an f32
+  master of a bf16 parameter stays f32) and writes in place where the
+  tensor exists, so a captured step reads the restored values.  A state
+  dict in the JAX package's key format (``"{param}/{accumulator}"``,
+  :306-330) loads too, its parameters paired with these by position.
 - parameter groups as Paddle defines them: ``params`` may be a list of
   dicts, each with a ``"params"`` list; a group's ``learning_rate``
   multiplies the global rate (in f32), and ``weight_decay``, ``beta1``,
@@ -240,6 +242,23 @@ class Optimizer(torch.optim.Optimizer):
         """Drop every gradient (``set_to_zero``: zero it in place)."""
         self.zero_grad(set_to_none=not set_to_zero)
 
+    clear_gradients = clear_grad
+
+    def minimize(self, loss: torch.Tensor, startup_program=None,
+                 parameters=None, no_grad_set=None):
+        """``loss.backward()`` then :meth:`step` (the dygraph
+        ``minimize``); the gradients stay until :meth:`clear_grad`.
+        Returns ``(None, None)`` as the JAX package's dygraph path does.
+        ``parameters`` is ignored (this optimizer was built with its
+        own, as the JAX one keeps a list it already has)."""
+        if startup_program is not None or no_grad_set is not None:
+            raise NotImplementedError(
+                "minimize: startup_program and no_grad_set belong to the "
+                "static-graph API, which is not ported")
+        loss.backward()
+        self.step()
+        return None, None
+
     # -- state dict ------------------------------------------------------------
 
     def state_dict(self) -> dict:
@@ -249,29 +268,114 @@ class Optimizer(torch.optim.Optimizer):
         return sd
 
     def load_state_dict(self, state_dict: dict) -> None:
+        """Load a state dict of this optimizer, or one in the JAX package's
+        key format (``"{param}/{accumulator}"``, ``"@global_step"``,
+        ``"@lr_scheduler"``).  Existing state tensors are written in
+        place, so a captured step reads the loaded values."""
         state_dict = dict(state_dict)
+        if "state" not in state_dict:
+            self._load_jax_state(state_dict)
+            return
         sched = state_dict.pop("@lr_scheduler", None)
-        params = [p for g in self.param_groups for p in g["params"]]
-        live = {i: self.state.get(p, {}) for i, p in enumerate(params)}
-        super().load_state_dict(state_dict)
-        # torch casts every float state tensor to its parameter's dtype;
-        # the port's keep their own (f32 masters and moments of bf16
-        # parameters), and existing ones are written in place
-        for i, st in state_dict["state"].items():
-            p = params[i]
-            for key, v in st.items():
-                if not isinstance(v, torch.Tensor):
-                    continue
-                old = live[i].get(key)
-                if old is not None and old.shape == v.shape \
-                        and old.dtype == v.dtype:
-                    old.copy_(v)
-                    self.state[p][key] = old
-                else:
-                    self.state[p][key] = v.to(p.device, copy=True)
+        groups, saved_groups = self.param_groups, state_dict["param_groups"]
+        if len(groups) != len(saved_groups) or any(
+                len(g["params"]) != len(sg["params"])
+                for g, sg in zip(groups, saved_groups)):
+            raise ValueError("loaded state dict's parameter groups do not "
+                             "match this optimizer's")
+        for g, sg in zip(groups, saved_groups):
+            g.update({k: v for k, v in sg.items() if k != "params"})
+        # a state dict read back from a checkpoint has its integer keys
+        # as strings.  torch's own load would cast every float state
+        # tensor to its parameter's dtype on a new copy; the port's keep
+        # their own dtype (f32 masters and moments of bf16 parameters) and
+        # are written in place
+        params = [p for g in groups for p in g["params"]]
+        saved = {int(i): st for i, st in state_dict["state"].items()}
+        for i, p in enumerate(params):
+            live = self.state[p]
+            if i not in saved:
+                if live:
+                    # saved before this parameter's first step: its state
+                    # goes back to what that step makes, in place
+                    self._reset_state(p, live)
+                continue
+            for key, v in saved[i].items():
+                live[key] = self._put(live.get(key), v, p) \
+                    if isinstance(v, torch.Tensor) else v
         if sched is not None and isinstance(self._learning_rate,
                                             LRScheduler):
             self._learning_rate.set_state_dict(sched)
+
+    @torch.no_grad()
+    def _reset_state(self, p: torch.Tensor, live: dict) -> None:
+        """``p``'s state as its first step makes it (the master from the
+        parameter's current value), written into the live tensors."""
+        fresh = dict(self._make_state(p))
+        if "master_weight" in live:
+            fresh["master_weight"] = p.detach().float()
+        for key, v in fresh.items():
+            if key in live:
+                live[key].copy_(v)
+
+    @staticmethod
+    def _put(old: Optional[torch.Tensor], v, p: torch.Tensor
+             ) -> torch.Tensor:
+        """``v`` into ``old`` in place when it fits, else a new tensor on
+        ``p``'s device (in ``v``'s dtype)."""
+        v = torch.as_tensor(v)
+        if old is not None and old.shape == v.shape \
+                and old.dtype == v.dtype:
+            old.copy_(v)
+            return old
+        return v.to(p.device, copy=True)
+
+    def _load_jax_state(self, sd: dict) -> None:
+        """The JAX package's optimizer state: accumulators keyed
+        ``"{param}/{name}"`` (its ``param_<n>``/layer names, paired with
+        this optimizer's parameters by position, as the JAX package
+        pairs renamed parameters), ``"@global_step"`` and
+        ``"@lr_scheduler"``.  The pairing needs one saved parameter for
+        each of this optimizer's: a JAX run makes a parameter's
+        accumulators at its first step, so a state that leaves one out
+        (frozen, or never given a gradient) cannot be paired and is
+        refused.  A parameter's JAX accumulator shape must equal its own
+        (a JAX linear weight is the transpose of the port's: load its
+        moments through the model's conversion)."""
+        params = [p for g in self.param_groups for p in g["params"]]
+        keys: list = []
+        for k in sd:
+            if not k.startswith("@"):
+                pk = k.rsplit("/", 1)[0]
+                if pk not in keys:
+                    keys.append(pk)
+        if keys and len(keys) != len(params):
+            raise ValueError(
+                f"optimizer state names {len(keys)} parameters, this "
+                f"optimizer has {len(params)}: the JAX state is paired by "
+                f"position, which needs the same number")
+        by_key = dict(zip(keys, params))
+        for k, v in sd.items():
+            if k == "@global_step":
+                # the port counts no global step: its updates read the
+                # per-parameter beta powers, which load below
+                continue
+            if k == "@lr_scheduler":
+                if isinstance(self._learning_rate, LRScheduler):
+                    self._learning_rate.set_state_dict(v)
+                continue
+            pk, name = k.rsplit("/", 1)
+            p = by_key[pk]
+            v = torch.as_tensor(np.asarray(v)) \
+                if not isinstance(v, torch.Tensor) else v
+            if v.dim() and tuple(v.shape) != tuple(p.shape):
+                raise ValueError(
+                    f"optimizer state {k!r} (shape {tuple(v.shape)}) does "
+                    f"not fit parameter {params.index(p)} (shape "
+                    f"{tuple(p.shape)}); the saved state appears to be for "
+                    f"a different model")
+            st = self.state[p]
+            st[name] = self._put(st.get(name), v, p)
 
     set_state_dict = load_state_dict
 

@@ -40,7 +40,8 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["Generator", "default_generator", "seed", "philox4x32_10",
-           "keep_threshold", "dropout_keep", "attention_dropout_factor"]
+           "keep_threshold", "dropout_keep", "attention_dropout_factor",
+           "get_rng_state", "set_rng_state"]
 
 _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57        # Philox-4x32 multipliers
@@ -151,6 +152,11 @@ class Generator:
     def get_state(self) -> torch.Tensor:
         return self._state.clone()
 
+    def set_state(self, state) -> None:
+        """Load a :meth:`get_state` value in place (a captured graph keeps
+        reading the same state tensor)."""
+        self._state.copy_(torch.as_tensor(state).to(torch.int64).reshape(2))
+
     def draw(self) -> torch.Tensor:
         """A snapshot ``[seed, offset]`` for one random op; the offset then
         moves on by one, on the device."""
@@ -200,3 +206,32 @@ def seed(s: int) -> None:
     _seed = int(s)
     for gen in _generators.values():
         gen.manual_seed(_seed)
+
+
+def get_rng_state() -> Dict[str, torch.Tensor]:
+    """``paddle.get_rng_state``: every device generator's state, ``{device:
+    int64[2] [seed, offset]}`` (copies, on their devices)."""
+    return {str(d): g.get_state() for d, g in _generators.items()}
+
+
+def set_rng_state(state) -> None:
+    """Load a :func:`get_rng_state` value in place into each named
+    device's generator (one it does not name, made since, is reseeded
+    with the last :func:`seed` at offset 0).  A JAX PRNG key (what the JAX package's
+    ``get_rng_state`` gives, and its checkpoints hold under ``@rng``) is
+    not a Philox ``[seed, offset]`` state: it raises."""
+    if not isinstance(state, dict):
+        raise ValueError(
+            "set_rng_state: expected {device: [seed, offset]} (this "
+            "package's get_rng_state), got "
+            f"{type(state).__name__}; a JAX PRNG key, as the JAX package's "
+            "checkpoints hold under '@rng', cannot seed this package's "
+            "Philox generators (resume such a generation with "
+            "include_rng=False)")
+    for device, s in state.items():
+        default_generator(device).set_state(s)
+    # a generator made after the state was taken had not drawn then: it
+    # goes back to its first state
+    for device, gen in _generators.items():
+        if str(device) not in state:
+            gen.manual_seed(0 if _seed is None else _seed)

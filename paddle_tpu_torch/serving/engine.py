@@ -143,6 +143,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import profiler
 from ..distributed.fault_tolerance.injection import ServingFaultPlan
 from .adapters import AdapterConfig, AdapterPool
 from .grammar import GrammarTable
@@ -183,26 +184,53 @@ def _as_priority(priority) -> int:
     return int(priority)
 
 
-def _resolve_weights(state_or_path):
+def _resolve_weights(state_or_path, model: Optional[nn.Module] = None):
     """Normalize ``update_weights`` input to a flat state dict: a dict
-    passes through and an ``.npz`` path loads its arrays.  A directory
-    (a ``distributed.checkpoint`` of the JAX package) raises: that
-    format's reader is not ported."""
+    passes through, an ``.npz`` path loads its arrays, and a directory is
+    a ``distributed.checkpoint`` (format 2, written by either package)
+    read whole on the host.  A checkpoint in the port's names and layouts
+    is used as it is; one that does not fit ``model`` but fits it in the
+    JAX package's layouts (a JAX model's state dict: linear weights
+    transposed) is converted (``models.port_state_dict_from_jax``)."""
     if isinstance(state_or_path, dict):
         return state_or_path
     if isinstance(state_or_path, (str, os.PathLike)):
         p = os.fspath(state_or_path)
         if os.path.isdir(p):
-            raise NotImplementedError(
-                f"update_weights: {p!r} is a directory; the "
-                "distributed.checkpoint format is not ported (ROADMAP.md "
-                "A.5): pass a state dict or an .npz path")
+            from ..distributed.checkpoint import (
+                load_state_dict, verify_checkpoint,
+            )
+
+            problems = verify_checkpoint(p)
+            if problems:
+                raise ValueError(f"update_weights: {p!r} is not a valid "
+                                 f"checkpoint: {problems[0]}")
+            sd = load_state_dict(p, return_numpy=True)
+            if model is not None and not _fits(model, sd):
+                from ..models.convert import port_state_dict_from_jax
+
+                try:
+                    return port_state_dict_from_jax(
+                        model, {k: np.asarray(v) if not isinstance(
+                            v, torch.Tensor) else v.float().numpy()
+                            for k, v in sd.items()})
+                except ValueError:
+                    pass             # _write_state_dict names the misfit
+            return sd
         if p.endswith(".npz"):
             with np.load(p) as z:
                 return {k: z[k] for k in z.files}
-        raise ValueError(f"update_weights: {p!r} is not an .npz file")
-    raise TypeError("update_weights wants a state dict or an .npz path, "
-                    f"got {type(state_or_path).__name__}")
+        raise ValueError(f"update_weights: {p!r} is not an .npz file "
+                         "or a checkpoint directory")
+    raise TypeError("update_weights wants a state dict, an .npz path or a "
+                    f"checkpoint directory, got {type(state_or_path).__name__}")
+
+
+def _fits(model: nn.Module, sd) -> bool:
+    """Whether ``sd`` has ``model.state_dict()``'s names and shapes."""
+    targets = model.state_dict()
+    return set(targets) == set(sd) and all(
+        tuple(np.shape(sd[n])) == tuple(t.shape) for n, t in targets.items())
 
 
 @torch.no_grad()
@@ -586,6 +614,7 @@ class Engine:
                                            else int(speculation.k)))
         self.name = name or f"engine-{next(_engine_counter)}"
         self.metrics = ServingMetrics(self.name, num_slots=self.num_slots)
+        profiler._register_serving_metrics(self)
         # constrained decoding: the grammars' stacked tables, which the
         # sampler masks with inside the steps; None adds no lane
         self.grammar_table: Optional[GrammarTable] = None
@@ -2405,7 +2434,9 @@ class Engine:
 
         ``state_or_path`` is a state dict with the names and layouts of
         the port's ``model.state_dict()`` (torch tensors on any device,
-        or numpy arrays) or an ``.npz`` path of one.  Every parameter is
+        or numpy arrays), an ``.npz`` path of one, or a checkpoint
+        directory of :mod:`paddle_tpu_torch.distributed.checkpoint` written
+        by either package (a JAX model's layouts are converted).  Every parameter is
         written in place on the stream the step programs replay on, which
         is synchronised before this returns; a parameter that moved in
         memory raises (a captured graph would go on reading the old
@@ -2424,7 +2455,8 @@ class Engine:
                 "queued): drain before update_weights; decoding KV "
                 "prefilled under old weights with new weights would "
                 "serve a torn response")
-        sd = _resolve_weights(state_or_path)
+        sd = _resolve_weights(state_or_path,
+                              self.model if self.shard is None else None)
         if self.shard is not None:
             # a whole state dict: this rank's shard of it
             sd = self.shard.shard_weights(sd)

@@ -500,6 +500,18 @@ class RequestJournal:
         stream restart) — the delivered stream of the current attempt."""
         return list(self._tokens.get(jid, ()))
 
+    def final_states(self) -> Dict[str, str]:
+        """The final state of every request with a final end in the live
+        segments, by journal id (what :meth:`outcomes` counts, per
+        request, so that several ranks' journals can be merged without
+        counting a request twice)."""
+        return {jid: self._final_state.get(jid, "finished")
+                for jid, n in self._finals.items() if n}
+
+    def compacted_outcomes(self) -> Dict[str, int]:
+        """Final counts by state of the requests compacted away."""
+        return dict(self._compacted_outcomes)
+
     def outcomes(self) -> Dict[str, int]:
         """Final terminal counts by state (``finished``/``failed``/...):
         what a recovered engine banks into its metrics so the counters

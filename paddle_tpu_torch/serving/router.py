@@ -69,14 +69,15 @@ error naming the viability ladder.  The degrade is journaled
 (``mesh_reshard``), counted (``stats()["degraded"]``) and weighs the
 group's load by ``configured / current`` mp in dispatch.  Each rank
 journals into the journal it was given; give each rank its own
-directory.  :meth:`Fleet.recover` of a shard-group fleet is not ported
-(each rank's journal holds its own group's requests).
+directory: :meth:`Fleet.recover` gathers the pending requests of every
+rank's journal and replays their union in one order on every rank.
 """
 from __future__ import annotations
 
 import itertools
 import time
 import weakref
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -85,6 +86,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from .. import profiler
 from .engine import (
     PRIORITY_NORMAL, TERMINAL_STATES, Engine, EngineStopped, QueueFull,
     Request, ShedReject, _as_priority, _resolve_weights, _write_state_dict,
@@ -421,6 +423,7 @@ class Fleet:
         self.metrics = FleetMetrics(self.name,
                                     num_replicas=self.num_replicas)
         self.metrics.replicas_cb = self._replica_rows
+        profiler._register_fleet_metrics(self)
         self.state = "active"            # active | draining | stopped
         #: live attempt -> (fleet request, replica): the reap table
         self._attempts: Dict[Request, Tuple[FleetRequest, _Replica]] = {}
@@ -1345,12 +1348,17 @@ class Fleet:
         its original journal id, so that the journal's exactly-once audit
         spans the crash.  The journal's final outcomes are banked into
         the metrics.  Call after :meth:`warmup`, before new traffic.
-        Returns ``{"replayed", "requests", "outcomes", "recovery_ms"}``."""
-        if self._spmd:
-            raise NotImplementedError(
-                "Fleet.recover of a shard-group fleet is not ported: each "
-                "rank's journal holds its own group's requests (ROADMAP.md "
-                "A.3 step 9)")
+        Returns ``{"replayed", "requests", "outcomes", "recovery_ms"}``.
+
+        With shard groups each rank journals its own group's requests, so
+        every rank calls this with its own reopened journal: the pending
+        sets and final outcomes of all the world's journals are gathered
+        first (a request final on any rank is final), and every rank
+        replays the union in one order, by admission wall time, as the
+        world's routers take every decision in one order.  Each replay is
+        journaled by the ranks of the group it lands on; a rank whose
+        journal held the request's old admission records its final end
+        too, so every journal's pending set drains."""
         journal = journal if journal is not None else self.journal
         if journal is None:
             raise ValueError("recover() needs a RequestJournal (pass "
@@ -1358,10 +1366,11 @@ class Fleet:
         if self.state != "active":
             raise EngineStopped(
                 f"fleet {self.name!r} is {self.state}: cannot recover")
-        if self._attempts or self._repatriate or any(
-                rep.engine.queue or rep.engine.running
-                for rep in self.replicas
-                if rep.state in ("active", "updating")):
+        busy = self._gather_groups(
+            lambda rep: bool(rep.engine.queue or rep.engine.running),
+            [rep for rep in self.replicas
+             if rep.state in ("active", "updating")])
+        if self._attempts or self._repatriate or any(busy.values()):
             # a replay under a live request's journal id would be a second
             # terminal of that id
             raise RuntimeError(
@@ -1379,15 +1388,47 @@ class Fleet:
                 "fleet was constructed with (or construct the fleet "
                 "with the journal being recovered)")
         t0 = time.perf_counter()
-        outcomes = journal.outcomes()
+        if self._spmd:
+            pending, outcomes = self._world_journal(journal)
+        else:
+            pending, outcomes = journal.pending(), journal.outcomes()
         self.metrics.bank_outcomes(outcomes)
         replayed = [self._submit_recovered(jid, rec)
-                    for jid, rec in journal.pending().items()]
+                    for jid, rec in pending.items()]
         dt = time.perf_counter() - t0
         self.metrics.on_crash_recovery(len(replayed), dt)
         return {"replayed": len(replayed), "requests": replayed,
                 "outcomes": outcomes,
                 "recovery_ms": round(dt * 1e3, 3)}
+
+    def _world_journal(self, journal) -> Tuple["OrderedDict", dict]:
+        """The world's pending requests (in admission wall-time order) and
+        final outcome counts, gathered from every rank's journal: each
+        request counted once, a request final on any rank not pending.
+        Every rank gets the same lists and merges them the same way.  The
+        counts of compacted segments come from each group's first
+        rank."""
+        leads = self._rank in {ranks[0] for ranks in self._group_ranks
+                               if ranks}
+        parts = self._world_gather(
+            (list(journal.pending().items()), journal.final_states(),
+             journal.compacted_outcomes() if leads else {}))
+        finals: Dict[str, str] = {}
+        outcomes: Dict[str, int] = {}
+        for _, fin, compacted in parts:
+            finals.update(fin)
+            for st, n in compacted.items():
+                outcomes[st] = outcomes.get(st, 0) + n
+        for st in finals.values():
+            outcomes[st] = outcomes.get(st, 0) + 1
+        pending: Dict[str, dict] = {}
+        for pend, _, _ in parts:
+            for jid, rec in pend:
+                if jid not in finals and jid not in pending:
+                    pending[jid] = rec
+        order = sorted(pending.items(),
+                       key=lambda kv: (kv[1].get("wall") or 0.0, kv[0]))
+        return OrderedDict(order), outcomes
 
     def _submit_recovered(self, jid: str, rec: dict) -> FleetRequest:
         """One journal replay: a new handle with the original journal id
@@ -1436,28 +1477,29 @@ class Fleet:
         a = s.get("adapter")
         if a is not None:
             want = rec.get("adapter_version")
-            for rep in self._active():
+
+            def version(rep: _Replica):
                 pool = rep.engine.adapter_pool
                 if pool is None:
-                    continue
+                    return None
                 try:
-                    _, v = pool.resolve(a)
+                    return pool.resolve(a)[1]
                 except KeyError:
-                    continue
-                if want is None or v == want:
-                    break
-            else:
+                    return None
+
+            got = self._gather_groups(version, self._active())
+            if not any(v is not None and (want is None or v == want)
+                       for v in got.values()):
                 return (f"recovery replay rejected: journaled adapter "
                         f"{a!r} (v{want}) is not loaded at that version "
                         f"on any active replica",
                         {"adapter": a, "version": want})
         g = s.get("grammar")
         if g is not None:
-            for rep in self._active():
-                table = rep.engine.grammar_table
-                if table is not None and g in table.names:
-                    break
-            else:
+            got = self._gather_groups(
+                lambda rep: rep.engine.grammar_table is not None
+                and g in rep.engine.grammar_table.names, self._active())
+            if not any(got.values()):
                 return (f"recovery replay rejected: journaled grammar "
                         f"{g!r} is not registered on any active "
                         f"replica", {"grammar": g})
@@ -1524,7 +1566,7 @@ class Fleet:
             raise EngineStopped(
                 f"fleet {self.name!r} is {self.state}: cannot roll "
                 "weights")
-        sd = _resolve_weights(state_or_path)
+        sd = _resolve_weights(state_or_path, self.model)
         new_version = self.model_version + 1
         t0 = time.perf_counter()
         updated = 0

@@ -902,3 +902,77 @@ def test_serve_mesh_phase_on_tiny_cpu(family, layout):
         mesh_steps * (2 * layers + 1)
     assert res["launches"] == {}         # the CPU runs the plain versions
     assert set(res["summary"]) == {"plain", "mesh"}
+
+
+@pytest.fixture(scope="module")
+def resilience_tiny():
+    return chip_smoke.drive_train_resilience("tiny", batch=2, seq=16,
+                                             device="cpu")
+
+
+def test_train_resilience_phase_on_tiny_cpu(resilience_tiny):
+    """train_resilience's helper at gpt_tiny on the CPU: one anomaly,
+    rollback and skip; the rolled-back state and the resumed state bitwise
+    equal to their oracles'; the drill's first loss the bench step's; one
+    program (no capture off the card) and no steady-state compile; the
+    preempted loop exits 101 with its handler restored and a valid
+    generation; the cost ledger adds no program; no kernel launched on
+    CPU tensors; every figure JSON-ready."""
+    res = resilience_tiny
+    drill, pre, cost = res["drill"], res["preempt"], res["cost"]
+    c = drill["counters"]
+    assert (c["anomalies"], c["rollbacks"], c["skipped_steps"]) == (1, 1, 1)
+    assert c["blocklist"] == [chip_smoke.RESILIENCE_NAN_STEP]
+    assert drill["bitwise"] and pre["bitwise"]
+    assert drill["first_loss"] == drill["reference_loss"]
+    assert np.isnan(drill["losses"][chip_smoke.RESILIENCE_NAN_STEP])
+    assert (drill["programs"], drill["captures"]) == (1, 0)
+    assert drill["compiles"]["compiles"] == 1
+    assert drill["compiles"]["steady_state_misses"] == 0
+    assert drill["timeline_problems"] == [] and drill["rolled_back_spans"]
+    assert drill["restore_ms"] > 0 and drill["snapshot_ms"] > 0
+    assert set(res["sentry_cost"]) == {"no_sentry", "sentry", "cost_pct",
+                                       "resolved"}
+    for k in ("no_sentry", "sentry"):
+        v = res["sentry_cost"][k]
+        assert len(v["step_ms"]) == 2 * chip_smoke.SENTRY_TURN_STEPS
+        assert v["q1"] <= v["median"] <= v["q3"]
+    assert isinstance(res["sentry_cost"]["resolved"], bool)
+    assert pre["exit_code"] == 101 and pre["handler_restored"]
+    assert pre["generations"] == [chip_smoke.PREEMPT_AT + 1]
+    assert pre["verify_problems"] == []
+    assert pre["completed"] == chip_smoke.PREEMPT_STEPS
+    assert pre["gb_written"] > 0 and pre["resume_s"] > 0
+    assert cost["new_programs"] == cost["new_captures"] == 0
+    assert cost["eager_run_launches"] == {}    # no kernel on the CPU
+    assert cost["attention_calls"] == 3 * gpt_tiny().num_hidden_layers
+    assert 1.0 < cost["flops_vs_6nd"] < 4.0
+    assert res["launches"] == {n: 0 for n in kernels.KERNELS}
+    json.dumps(res)
+
+
+def test_train_resilience_phase_fails_on_a_broken_hold(resilience_tiny,
+                                                       monkeypatch, capsys):
+    """The phase prints its four parts and its holds, and raises naming
+    every broken hold (here the card-only ones a CPU run breaks: no
+    capture, no kernel launched); with them mended it passes."""
+    monkeypatch.setattr(chip_smoke, "drive_train_resilience",
+                        lambda reference_loss=None: resilience_tiny)
+    with pytest.raises(AssertionError) as ei:
+        chip_smoke.phase_train_resilience()
+    for hold in ("one_program_one_capture", "dropout_kernels",
+                 "k1_k3_launched"):
+        assert hold in str(ei.value)
+    assert "rollback_bitwise" not in str(ei.value)
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [ln["part"] for ln in lines
+            if ln["phase"] == "train_resilience"] == [
+        "a", "a_sentry_cost", "b", "c", "holds"]
+    mended = json.loads(json.dumps(resilience_tiny))
+    mended["drill"]["captures"] = 1
+    mended["preempt"]["dropout_launches"] = {
+        n: 1 for n in chip_smoke.RECIPE_KERNELS}
+    mended["launches"] = {n: 1 for n in kernels.KERNELS}
+    monkeypatch.setattr(chip_smoke, "drive_train_resilience",
+                        lambda reference_loss=None: mended)
+    assert chip_smoke.phase_train_resilience() == mended["launches"]

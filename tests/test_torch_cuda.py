@@ -1864,3 +1864,124 @@ def test_mesh_of_one_is_the_plain_engine_under_graphs(cuda_device, layout):
         mp_layers.reset_collectives()
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _small_gpt_rig(device, dropout=0.0):
+    """A 2-layer GPT-2-shaped (D 64) rig of ``chip_smoke.resilience_rig``
+    on the card, bf16 O2."""
+    cfg = dict(config="gpt2-345m", batch=2, seq=128, device=device,
+               dropout=dropout)
+    from paddle_tpu_torch.models import gpt
+
+    orig = gpt.GPT_CONFIGS["gpt2-345m"]
+    gpt.GPT_CONFIGS["gpt2-345m"] = \
+        lambda **kw: orig(**{**kw, "num_hidden_layers": 2})
+    try:
+        return chip_smoke.resilience_rig(**cfg)
+    finally:
+        gpt.GPT_CONFIGS["gpt2-345m"] = orig
+
+
+@pytest.mark.cuda
+def test_captured_step_rolled_back_then_replayed_is_bitwise(cuda_device):
+    """A captured step (its graph replaying on fixed addresses) rolled back
+    from a host snapshot, in place, and replayed ends bitwise equal to the
+    uninterrupted run: the parameters, masters, moments, ``beta*_pow``,
+    the sentry's state and the dropout generator all restored where the
+    graph reads them."""
+    from paddle_tpu_torch.distributed.fault_tolerance import (
+        DivergenceSentry, MemorySnapshotRing, pack_state,
+        restore_packed_state,
+    )
+
+    runs = []
+    for rollback in (True, False):
+        sentry = DivergenceSentry(device=cuda_device)
+        ts, make, state_fn, restore_fn = _small_gpt_rig(cuda_device, 0.1)
+        step = make(sentry)
+        w = torch.ones(1, device=cuda_device)
+        ring = MemorySnapshotRing(1)
+        for i in range(6):
+            if rollback and i == 3:
+                snap = pack_state(state_fn(), i)
+                snap["@sentry"] = sentry.state_dict()
+                ring.take(snap)
+                ptrs = [p.data_ptr() for p in ts.model.parameters()]
+                for _ in range(2):           # two steps, thrown away
+                    step(ts.x, ts.y, w)
+                    sentry.poll()
+                restore_packed_state(ring.newest(copy=False), restore_fn,
+                                     sentry=sentry)
+                assert [p.data_ptr() for p in ts.model.parameters()] == ptrs
+            step(ts.x, ts.y, w)
+            sentry.poll()
+        assert step.captures == 1 and len(step.program_cache) == 1
+        runs.append(chip_smoke.resilience_checksums(ts, sentry).cpu())
+        del ts, make, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_bf16_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """bf16 and f32 card tensors through a format-2 checkpoint: loaded on
+    the card (the template's device) bitwise, and the bf16 file holds the
+    uint16 bits the JAX package reads."""
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    state = {"w": torch.randn(64, 96, generator=g, device=cuda_device)
+             .to(torch.bfloat16),
+             "m": torch.randn(96, generator=g, device=cuda_device),
+             "step": 3}
+    path = str(tmp_path / "ck")
+    ckpt.save_state_dict(state, path)
+    assert ckpt.verify_checkpoint(path) == []
+    tmpl = {"w": torch.empty_like(state["w"]),
+            "m": torch.empty_like(state["m"]), "step": None}
+    got = ckpt.load_state_dict(path, tmpl)
+    assert got["w"].device.type == "cuda" and got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"], state["w"])
+    assert torch.equal(got["m"], state["m"]) and got["step"] == 3
+    bits = np.load(str(tmp_path / "ck" / "w.s0.full.npy"))
+    assert bits.dtype == np.uint16
+    assert np.array_equal(bits, state["w"].cpu().view(torch.int16).numpy()
+                          .view(np.uint16))
+
+
+@pytest.mark.cuda
+def test_cost_ledger_counts_the_kernels_by_formula(cuda_device):
+    """On the card K1-K3 are invisible to FlopCounterMode: the cost
+    ledger counts each by ``attention_cost`` (2 layers: 2 forward and
+    2 + 2 backward calls), its eager run launches each of K1-K3 once a
+    layer and counts those launches, and its guarded run leaves the
+    step's program and state as they were."""
+    from paddle_tpu_torch.distributed.fault_tolerance import DivergenceSentry
+    from paddle_tpu_torch.obs import CostLedger
+    from paddle_tpu_torch.obs.cost import attention_cost
+
+    sentry = DivergenceSentry(device=cuda_device)
+    ts, make, state_fn, _ = _small_gpt_rig(cuda_device)
+    step = make(sentry)
+    w = torch.ones(1, device=cuda_device)
+    for _ in range(3):
+        step(ts.x, ts.y, w)
+    before = chip_smoke.resilience_checksums(ts, sentry)
+    launches = kernels.launch_counts()
+    rec = CostLedger().add("train_step", step, ts.x, ts.y, w,
+                           tokens_per_step=ts.x.numel(),
+                           n_params=sum(p.numel()
+                                        for p in ts.model.parameters()))
+    cfg = ts.model.config
+    H = cfg.num_attention_heads
+    q = torch.empty(2, 128, H, cfg.hidden_size // H, dtype=torch.bfloat16)
+    want = sum(attention_cost(k, q, True)[0]
+               for k in ("fwd", "bwd_dkv", "bwd_dq")) * 2
+    assert rec["attention_flops"] == want and rec["attention_calls"] == 6
+    assert rec["flops"] > rec["attention_flops"] > 0
+    assert len(step.program_cache) == 1 and step.captures == 1
+    after = kernels.launch_counts()
+    assert {n: c - launches[n] for n, c in after.items()
+            if c != launches[n]} == {n: 2 for n in chip_smoke.TRAIN_KERNELS}
+    assert torch.equal(chip_smoke.resilience_checksums(ts, sentry), before)

@@ -207,7 +207,7 @@ def _degraded_worker(rank: int, world: int, workdir: str) -> dict:
         out = {"mp": fl.replicas[0].model_parallel(), "recover": None}
         try:
             fl.recover()
-        except NotImplementedError as e:
+        except ValueError as e:
             out["recover"] = str(e)
         fl.shutdown()
         return out
@@ -275,6 +275,39 @@ def _degraded_worker(rank: int, world: int, workdir: str) -> dict:
 
     dist.barrier()
     scenario(res, "zero", zero_survivors)
+
+    def fleet_recover():
+        # two groups, each rank journaling its own group's requests: the
+        # recovery gathers the pending sets of all four journals
+        def fleet(journal):
+            return Fleet(port_model(inputs, "gpt"), name="fleet",
+                         num_replicas=2, shards_per_group=2, device="cpu",
+                         journal=journal, **ENGINE_KW)
+
+        path = jdir("recover")
+        f1 = fleet(RequestJournal(path))
+        f1.warmup()
+        for i in range(4):
+            f1.submit(PROMPTS[i % 3], max_new_tokens=MAX_NEW)
+        for _ in range(2):
+            f1.step()
+        f1.journal.close()
+        j2 = RequestJournal(path)
+        own = len(j2.pending())
+        f2 = fleet(j2)
+        f2.warmup()
+        info = f2.recover()
+        f2.run(max_steps=200)
+        a = j2.audit()
+        return {"own_pending": own, "replayed": info["replayed"],
+                "jids": [r.journal_id for r in info["requests"]],
+                "outs": [r.output_ids for r in info["requests"]],
+                "done": all(r.finished and r.recovered
+                            for r in info["requests"]),
+                "audit": (a["pending"], a["duplicate_terminals"])}
+
+    dist.barrier()
+    scenario(res, "fleet_recover", fleet_recover)
     return res
 
 
@@ -378,8 +411,9 @@ class TestViabilityLadder:
         assert "[1, 2, 4]" in msg and "shards_per_group" in msg
         got = _agree(ctx, "viable")
         assert got["mp"] == 2
-        # each rank journals its own group: a fleet recovery is refused
-        assert "A.3 step 9" in got["recover"]
+        # a shard-group fleet recovers (tests/test_torch_fleet_recover.py),
+        # and without a journal refuses as the JAX fleet does
+        assert "needs a RequestJournal" in got["recover"]
 
 
 # ---------------------------------------------------------------------------
@@ -468,6 +502,24 @@ class TestDegradedFleet:
         assert got["load"] == 1
         assert got["effective_load"] == pytest.approx(2.0)
         assert got["reopen_reshards"] >= 1
+
+    def test_recover_gathers_every_groups_journal(self, ctx):
+        """Two groups of two ranks journal their own requests (two each);
+        after the crash every rank recovers all four, once each, in one
+        order, with the JAX engine's greedy streams, and every rank's
+        journal drains with no duplicate terminal."""
+        vals = [_get(ctx["world"], "fleet_recover", r)
+                for r in range(WORLD)]
+        own = [v.pop("own_pending") for v in vals]
+        assert own == [2, 2, 2, 2]
+        for v in vals[1:]:
+            assert v == vals[0]
+        got = vals[0]
+        assert got["replayed"] == 4 and got["done"]
+        assert len(set(got["jids"])) == 4
+        assert sorted(got["outs"]) == sorted(
+            ctx["jax"]["plain"][i % 3] for i in range(4))
+        assert got["audit"] == (0, 0)
 
     def test_zero_survivors_is_dead_with_ladder_error(self, ctx):
         got = _agree(ctx, "zero")

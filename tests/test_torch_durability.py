@@ -822,7 +822,9 @@ def test_shape_mismatch_and_checkpoint_directory_refused(models,
                                                          new_weights,
                                                          tmp_path):
     """The port's own refusals: a wrong shape (before anything is
-    written) and a ``distributed.checkpoint`` directory (not ported)."""
+    written) and a directory that holds no committed
+    ``distributed.checkpoint`` (a committed one loads:
+    ``tests/test_torch_checkpoint.py``)."""
     own = _own_copy(PORT, models)
     eng = _mk_engine(PORT, own)
     bad = dict(new_weights["port"])
@@ -833,7 +835,7 @@ def test_shape_mismatch_and_checkpoint_directory_refused(models,
         eng.update_weights(bad)
     assert all(torch.equal(before[k], v)
                for k, v in own.state_dict().items())
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(ValueError, match="not a valid checkpoint"):
         eng.update_weights(str(tmp_path))
     path = str(tmp_path / "w.npz")
     np.savez(path, **{k: v.numpy() for k, v in new_weights["port"].items()})

@@ -272,12 +272,30 @@ Phases, each printing one JSON line with the card's name and power limit:
               ``PredictorPool(config, 2)`` loading once; then a small f16
               GPT saved on the CPU, served on the card with K1.
 
+24. nn_encoder — BERT-base's masked-LM model (``bert-base-uncased``:
+              hidden 768, 12 layers of 12 heads, FFN 3072, vocabulary
+              30522, 512 positions; random weights from seed 0) built
+              from the port's ``nn`` only (``Embedding``s, ``LayerNorm``,
+              ``Dropout(0.1)``, ``TransformerEncoder`` of
+              ``TransformerEncoderLayer``, an untied ``Linear`` head,
+              ``CrossEntropyLoss`` over 15 % of the positions), 8 x 512,
+              bf16 O2, AdamW, through ``jit.to_static``: 13 steps (one
+              program, one capture, the first 3 losses bitwise the eager
+              step's, falling losses), K1-K3's bf16 dropout instances
+              launched 12 times a step and the plain attention route
+              never; ``eval()`` and a no-grad forward (``flash_fwd`` 12);
+              a 2-layer ``nn.Transformer`` forward with a causal target
+              mask (Sq 128, Sk 512: the decoder's attention on the plain
+              route, 4 calls; the encoder's on K1); the f32 2-layer loss
+              and gradients on the card against the CPU.
+
 Before the last line it prints the card line of ``nvidia-smi`` and one
 ``{"kernels": [...]}`` line (K1-K5, K1-K3's dropout instances and every
 f16 instance: each kernel's ``launches`` on its main path,
 ``train_recipe`` for the dropout instances, ``train_fp16_scaler`` for
 K1-K3's f16 ones, ``serve_f16``'s 7B run for K4/K5's, and
-``launches_by_phase``); the last line is
+``launches_by_phase``, ``nn_encoder``'s train steps among them); the
+last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 without that line.  No phase falls back to the CPU.
 """
@@ -962,6 +980,11 @@ def phase_kernels(hgmma: dict) -> dict:
 
     P = RECIPE_DROPOUT
     train_p = f"{train}, dropout {P} (draw {DROPOUT_SNAPSHOT})"
+    # nn_encoder's attention: BERT-base's heads at its train batch, full
+    nB, nS = NN_TRAIN
+    nH = BERT_BASE["num_attention_heads"]
+    nD = BERT_BASE["hidden_size"] // nH
+    nn_p = f"B={nB} S={nS} H={nH} D={nD} full, dropout {P} (nn_encoder)"
     sdpa_p = f"{sdpa_causal} dropout_p={P} (its own mask)"
     sdpa_grad_p = f"{sdpa_grad}, dropout_p={P} (its own mask)"
 
@@ -1030,12 +1053,16 @@ def phase_kernels(hgmma: dict) -> dict:
                            BOTH, True), *bwd_edges(gen, "flash_bwd_dkv")],
         "flash_bwd_dq": [("train", bwd("flash_bwd_dq"), train, sdpa_grad,
                           BOTH, True), *bwd_edges(gen, "flash_bwd_dq")],
-        # the dropout instances: the train shape at the recipe's rate, a
-        # ragged full-mask shape, and (K1) the exact mask
+        # the dropout instances: the train shape at the recipe's rate,
+        # nn_encoder's full-mask shape (bf16, as it runs there), a ragged
+        # full-mask shape, and (K1) the exact mask
         "flash_fwd_dropout": [
             ("train", lambda dt: check_flash(gen, B, S, H, dt, D,
                                              dropout_p=P),
              train_p, sdpa_p, BOTH, True),
+            ("nn_encoder", lambda dt: check_flash(
+                gen, nB, nS, nH, dt, nD, causal=False, dropout_p=P),
+             nn_p, sdpa_p, BF16, False),
             ("S1000/full/D128", lambda dt: check_flash(
                 gen, 2, 1000, 4, dt, 128, causal=False, dropout_p=P),
              f"B=2 S=1000 H=4 D=128 full, dropout {P}", sdpa_p, BOTH,
@@ -1046,6 +1073,9 @@ def phase_kernels(hgmma: dict) -> dict:
         "flash_bwd_dkv_dropout": [
             ("train", bwd("flash_bwd_dkv", P), train_p, sdpa_grad_p, BOTH,
              True),
+            ("nn_encoder", lambda dt: check_flash_bwd(
+                gen, "flash_bwd_dkv", nB, nS, nH, dt, nD, causal=False,
+                dropout_p=P), nn_p, sdpa_grad_p, BF16, False),
             ("S1000/full/D128", lambda dt: check_flash_bwd(
                 gen, "flash_bwd_dkv", 2, 1000, 4, dt, 128, causal=False,
                 dropout_p=P),
@@ -1054,6 +1084,9 @@ def phase_kernels(hgmma: dict) -> dict:
         "flash_bwd_dq_dropout": [
             ("train", bwd("flash_bwd_dq", P), train_p, sdpa_grad_p, BOTH,
              True),
+            ("nn_encoder", lambda dt: check_flash_bwd(
+                gen, "flash_bwd_dq", nB, nS, nH, dt, nD, causal=False,
+                dropout_p=P), nn_p, sdpa_grad_p, BF16, False),
             ("S1000/full/D128", lambda dt: check_flash_bwd(
                 gen, "flash_bwd_dq", 2, 1000, 4, dt, 128, causal=False,
                 dropout_p=P),
@@ -5999,6 +6032,360 @@ def phase_train_resilience(reference_loss=None) -> dict:
     return res["launches"]
 
 
+#: PaddleNLP's ``bert-base-uncased`` (Devlin et al. 2019), the masked-LM
+#: model ``nn_encoder`` trains: hidden 768, 12 layers of 12 heads (head
+#: dim 64, a kernel head dim), FFN 3072, GELU, dropout 0.1, vocabulary
+#: 30522, 512 positions, 2 token types
+BERT_BASE = {"vocab_size": 30522, "hidden_size": 768,
+             "num_hidden_layers": 12, "num_attention_heads": 12,
+             "intermediate_size": 3072, "max_position_embeddings": 512,
+             "type_vocab_size": 2, "hidden_dropout_prob": 0.1,
+             "attention_probs_dropout_prob": 0.1}
+#: the share of positions a masked-LM batch predicts (the rest carry
+#: ``ignore_index``)
+MLM_SHARE = 0.15
+#: the nn_encoder phase's shapes: the train batch, the cross-attention
+#: call (batch, target and source lengths) and the f32 parity batch
+NN_TRAIN = (8, 512)
+NN_CROSS = (4, 128, 512)
+NN_PARITY = (2, 256)
+#: the flash kernels' bf16 dropout instances a training step launches
+NN_TRAIN_KERNELS = tuple(f"{n}_dropout" for n in TRAIN_KERNELS)
+
+
+def masked_lm(cfg: dict):
+    """A BERT-shaped masked-LM model built from the port's ``nn`` only, as
+    PaddleNLP's ``BertModel`` stacks it: word, position and token-type
+    ``Embedding``s summed, ``LayerNorm`` (eps 1e-12) and ``Dropout``, a
+    ``TransformerEncoder`` of ``TransformerEncoderLayer(hidden, heads,
+    ffn, dropout, activation="gelu", attn_dropout, act_dropout=0)``, and
+    an untied ``Linear`` head; ``forward(ids, types, labels)`` returns
+    ``CrossEntropyLoss`` (ignore_index -100) over the labelled
+    positions, without labels the logits.  Parameters are drawn from the
+    port's init generator (seed it with ``paddle_tpu_torch.seed``) on
+    torch's default device."""
+    from paddle_tpu_torch import nn
+
+    h = cfg["hidden_size"]
+
+    class MaskedLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word_embeddings = nn.Embedding(cfg["vocab_size"], h)
+            self.position_embeddings = nn.Embedding(
+                cfg["max_position_embeddings"], h)
+            self.token_type_embeddings = nn.Embedding(
+                cfg["type_vocab_size"], h)
+            self.layer_norm = nn.LayerNorm(h, epsilon=1e-12)
+            self.dropout = nn.Dropout(cfg["hidden_dropout_prob"])
+            layer = nn.TransformerEncoderLayer(
+                h, cfg["num_attention_heads"], cfg["intermediate_size"],
+                dropout=cfg["hidden_dropout_prob"], activation="gelu",
+                attn_dropout=cfg["attention_probs_dropout_prob"],
+                act_dropout=0)
+            self.encoder = nn.TransformerEncoder(layer,
+                                                 cfg["num_hidden_layers"])
+            self.head = nn.Linear(h, cfg["vocab_size"])
+            self.loss = nn.CrossEntropyLoss()
+
+        def forward(self, ids, types, labels=None):
+            pos = torch.arange(ids.shape[1], device=ids.device)
+            x = (self.word_embeddings(ids) + self.position_embeddings(pos)
+                 + self.token_type_embeddings(types))
+            logits = self.head(self.encoder(self.dropout(
+                self.layer_norm(x))))
+            return logits if labels is None else self.loss(logits, labels)
+
+    return MaskedLM()
+
+
+def mlm_batch(cfg: dict, batch: int, seq: int, device, seed: int = 0):
+    """Seeded token ids, token types and labels (``MLM_SHARE`` of the
+    positions keep their id, the rest -100)."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, cfg["vocab_size"], (batch, seq))
+    types = rs.randint(0, cfg["type_vocab_size"], (batch, seq))
+    labels = np.where(rs.rand(batch, seq) < MLM_SHARE, ids, -100)
+    return tuple(torch.from_numpy(a).to(device) for a in (ids, types,
+                                                          labels))
+
+
+def build_masked_lm(cfg: dict, device, seed: int = 0):
+    """``masked_lm(cfg)`` from ``seed`` on ``device`` at AMP O2 (bf16
+    parameters, ``amp.decorate``) with AdamW (lr 1e-4), and its train
+    step: the loss under ``amp.auto_cast(bfloat16, O2)``, backward, step,
+    clear.  Returns ``(model, optimizer, step)``."""
+    from paddle_tpu_torch import amp, device_guard, rng
+    from paddle_tpu_torch.optimizer import AdamW
+
+    rng.seed(seed)
+    with device_guard(device):
+        model = masked_lm(cfg)
+    opt = AdamW(model.parameters(), lr=1e-4)
+    model, opt = amp.decorate(model, opt, level="O2")
+
+    def train_step(ids, types, labels):
+        with amp.auto_cast(dtype="bfloat16", level="O2"):
+            loss = model(ids, types, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    return model, opt, train_step
+
+
+def _counts():
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+
+    return kernels.launch_counts(), dict(F.ATTENTION_ROUTES)
+
+
+def _moved(before, after) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+def _step_ms(fn, cuda: bool):
+    """``fn()``'s result and its milliseconds (CUDA events on the card,
+    the host clock on the CPU)."""
+    if not cuda:
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def drive_nn_encoder(cfg: dict, batch: int, seq: int, device: str,
+                     warmup: int = 3, steps: int = 10) -> dict:
+    """Train ``masked_lm(cfg)`` at O2 through ``jit.to_static`` (one CUDA
+    graph a step on the card): ``warmup`` then ``steps`` timed steps on
+    one seeded batch, after the same model's first ``TRAIN_EAGER_STEPS``
+    steps run eagerly; then ``eval()`` and one forward under
+    ``torch.no_grad()``, and its timing.  Returns the losses, the launch
+    and route counts of each part, step and eval ms."""
+    from paddle_tpu_torch import jit
+
+    cuda = torch.device(device).type == "cuda"
+    data = mlm_batch(cfg, batch, seq, device)
+    model, _, eager_step = build_masked_lm(cfg, device)
+    eager = [float(eager_step(*data)) for _ in range(TRAIN_EAGER_STEPS)]
+    del model, eager_step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    model, _, body = build_masked_lm(cfg, device)
+    step = jit.to_static(body)
+    before = _counts()
+    losses, ms = [], []
+    for i in range(warmup + steps):
+        loss, t = _step_ms(lambda: step(*data), cuda)
+        losses.append(loss)
+        if i >= warmup:
+            ms.append(t)
+    after = _counts()
+    losses = [float(v) for v in losses]
+    res = {"params": sum(p.numel() for p in model.parameters()),
+           "losses": losses, "eager_losses": eager,
+           "eager_max_abs_diff": max(abs(a - b) for a, b in
+                                     zip(losses, eager)),
+           "program_cache": {"programs": len(step.program_cache),
+                             "misses": step.misses, "hits": step.hits,
+                             "captures": step.captures},
+           "train_launches": _moved(before[0], after[0]),
+           "train_routes": _moved(before[1], after[1]),
+           "step_ms": _quartiles(ms),
+           "tokens_per_s": batch * seq / (float(np.median(ms)) / 1e3)}
+    if cuda:
+        res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.eval()
+    before = _counts()
+    with torch.no_grad():
+        logits = model(data[0], data[1])
+    after = _counts()
+    res["eval_launches"] = _moved(before[0], after[0])
+    res["eval_routes"] = _moved(before[1], after[1])
+    if not torch.isfinite(logits).all() or tuple(logits.shape) != (
+            batch, seq, cfg["vocab_size"]):
+        raise AssertionError(f"nn_encoder: eval logits {logits.shape} "
+                             f"finite={bool(torch.isfinite(logits).all())}")
+    if cuda:
+        with torch.no_grad():
+            res["eval_ms"] = cuda_ms(lambda: model(data[0], data[1]),
+                                     iters=5, warmup=1)
+    return res
+
+
+def check_nn_encoder(res: dict, layers: int, cuda: bool) -> None:
+    """The train and eval holds of ``nn_encoder`` (see the phase)."""
+    steps = len(res["losses"])
+    if not all(np.isfinite(res["losses"])) or \
+            not res["losses"][-1] < res["losses"][0]:
+        raise AssertionError(f"nn_encoder: losses {res['losses']}")
+    if res["eager_max_abs_diff"] != 0.0:
+        raise AssertionError(
+            f"nn_encoder: the compiled step's first losses "
+            f"{res['losses'][:TRAIN_EAGER_STEPS]} differ from the eager "
+            f"step's {res['eager_losses']}")
+    if cuda and res["program_cache"] != {"programs": 1, "misses": 1,
+                                         "hits": steps - 1, "captures": 1}:
+        raise AssertionError(f"nn_encoder: program cache "
+                             f"{res['program_cache']} (want one program, "
+                             f"one capture)")
+    if res["train_routes"].get("plain") or res["eval_routes"].get("plain"):
+        raise AssertionError(f"nn_encoder: the plain attention route ran "
+                             f"({res['train_routes']}, "
+                             f"{res['eval_routes']})")
+    if res["eval_routes"].get("kernel") != layers:
+        raise AssertionError(f"nn_encoder: eval routes "
+                             f"{res['eval_routes']}, want {layers} kernel")
+    if not cuda:
+        return
+    want = {n: layers * steps for n in NN_TRAIN_KERNELS}
+    if res["train_launches"] != want:
+        raise AssertionError(f"nn_encoder: train launches "
+                             f"{res['train_launches']}, want {want} "
+                             f"(one per layer per step)")
+    if res["eval_launches"] != {"flash_fwd": layers}:
+        raise AssertionError(f"nn_encoder: eval launches "
+                             f"{res['eval_launches']}, want flash_fwd "
+                             f"{layers}")
+
+
+def drive_nn_cross(cfg: dict, batch: int, tgt_len: int, src_len: int,
+                   device: str, layers: int = 2) -> dict:
+    """A ``layers``-layer ``nn.Transformer`` at ``cfg``'s widths (bf16,
+    eval, dropout 0), one forward under ``torch.no_grad()`` with a causal
+    target mask: the encoder's self-attention takes the kernel route,
+    the decoder's masked self-attention and its cross-attention (``Sq !=
+    Sk``) the plain one."""
+    from paddle_tpu_torch import device_guard, nn
+
+    with device_guard(device):
+        model = nn.Transformer(
+            cfg["hidden_size"], cfg["num_attention_heads"], layers, layers,
+            cfg["intermediate_size"], dropout=0.0)
+    model = model.to(dtype=torch.bfloat16).eval()
+    gen = torch.Generator(device=device).manual_seed(0)
+    src = torch.randn(batch, src_len, cfg["hidden_size"], generator=gen,
+                      device=device, dtype=torch.bfloat16)
+    tgt = torch.randn(batch, tgt_len, cfg["hidden_size"], generator=gen,
+                      device=device, dtype=torch.bfloat16)
+    mask = nn.Transformer.generate_square_subsequent_mask(tgt_len, device)
+    before = _counts()
+    with torch.no_grad():
+        out = model(src, tgt, tgt_mask=mask)
+    after = _counts()
+    if not torch.isfinite(out).all() or tuple(out.shape) != tuple(tgt.shape):
+        raise AssertionError(f"nn_encoder cross: output {out.shape}")
+    res = {"launches": _moved(before[0], after[0]),
+           "routes": _moved(before[1], after[1])}
+    if res["routes"] != {"kernel": layers, "plain": 2 * layers}:
+        raise AssertionError(f"nn_encoder cross: routes {res['routes']}, "
+                             f"want {layers} kernel and {2 * layers} plain")
+    if torch.device(device).type == "cuda" and \
+            res["launches"] != {"flash_fwd": layers}:
+        raise AssertionError(f"nn_encoder cross: launches "
+                             f"{res['launches']}")
+    return res
+
+
+def drive_nn_parity(cfg: dict, batch: int, seq: int, device: str) -> dict:
+    """``masked_lm`` at ``cfg``'s widths, 2 layers, dropout 0, f32: one
+    forward and backward on ``device`` and on the CPU from the same
+    weights and batch.  Returns the loss's relative difference and the
+    largest gradient difference relative to its tensor's largest value,
+    or to ``SIGNAL`` times the model's largest where that is larger (and
+    which tensor), with the device run's launches."""
+    import copy
+
+    from paddle_tpu_torch import device_guard, rng
+    from paddle_tpu_torch.ops import kernels
+
+    small = {**cfg, "num_hidden_layers": 2, "hidden_dropout_prob": 0.0,
+             "attention_probs_dropout_prob": 0.0}
+    rng.seed(0)
+    with device_guard("cpu"):
+        ref = masked_lm(small)
+    dev = copy.deepcopy(ref).to(device)
+    runs = {}
+    for name, model in (("cpu", ref), ("device", dev)):
+        data = mlm_batch(small, batch, seq, "cpu" if model is ref
+                         else device)
+        kernels.reset_launches()
+        loss = model(*data)
+        loss.backward()
+        runs[name] = (float(loss.detach()), {n: p.grad.cpu() for n, p in
+                                    model.named_parameters()},
+                      kernels.launch_counts())
+    (ref_loss, ref_g, _), (loss, got_g, launches) = runs["cpu"], \
+        runs["device"]
+    # a tensor whose gradient is zero in exact arithmetic (k_proj.bias:
+    # softmax ignores a constant added to a row's scores) holds rounding
+    # noise only; each difference is taken relative to the larger of the
+    # tensor's largest gradient and SIGNAL times the model's
+    floor = SIGNAL * max(float(g.abs().max()) for g in ref_g.values())
+    worst, where = 0.0, ""
+    for n, g in ref_g.items():
+        err = float((got_g[n] - g).abs().max()) / max(float(g.abs().max()),
+                                                      floor)
+        if err > worst:
+            worst, where = err, n
+    return {"loss": loss, "loss_rel_err": abs(loss - ref_loss)
+            / abs(ref_loss), "grad_rel_err": worst, "worst_grad": where,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def phase_nn_encoder(cfg: dict = BERT_BASE, device: str = "cuda",
+                     train=NN_TRAIN, cross=NN_CROSS,
+                     parity=NN_PARITY) -> dict:
+    """BERT-base's masked-LM model from the port's ``nn`` (``masked_lm``):
+    (1) 13 train steps at O2 through one CUDA graph (3 warm-up: the eager
+    call and the capture; one program, one capture; the first 3 losses
+    bitwise the eager step's; finite, falling losses; K1-K3's bf16
+    dropout instances launched once a layer a step; the plain route
+    never); (2) ``eval()`` and one no-grad forward (the registered
+    ``flash_fwd``, once a layer); (3) a 2-layer ``nn.Transformer``
+    forward with a causal target mask (``drive_nn_cross``); (4) the f32
+    card-vs-CPU parity of a 2-layer model (``drive_nn_parity``) within
+    ``TRAIN_PARITY_TOLERANCE``.  Returns the train steps' launch
+    counts."""
+    t0 = time.perf_counter()
+    layers = cfg["num_hidden_layers"]
+    cuda = torch.device(device).type == "cuda"
+    res = drive_nn_encoder(cfg, *train, device)
+    check_nn_encoder(res, layers, cuda)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    res["cross"] = drive_nn_cross(cfg, *cross, device)
+    par = drive_nn_parity(cfg, *parity, device)
+    res["parity"] = par
+    tol = TRAIN_PARITY_TOLERANCE
+    if not (par["loss_rel_err"] <= tol["loss"]
+            and par["grad_rel_err"] <= tol["grad"]):
+        raise AssertionError(f"nn_encoder parity: {par} (tolerance "
+                             f"{tol})")
+    if cuda and not all(par["launches"].get(n) for n in TRAIN_KERNELS):
+        raise AssertionError(f"nn_encoder parity: launches "
+                             f"{par['launches']}")
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit("nn_encoder", model="bert-base-uncased masked LM (port nn)",
+         dtype="bfloat16 (AMP O2, f32 masters)", batch=train[0],
+         seq=train[1], layers=layers, cross_shape=list(cross),
+         parity_shape=list(parity), parity_tolerance=tol, **res)
+    return res
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -6074,6 +6461,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_res = phase_train_resilience(train["losses"][0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    nn_enc = phase_nn_encoder()
     launches = {**paged["launches"],
                 **{n: train["launches"][n] for n in TRAIN_KERNELS},
                 **{n: recipe[n] for n in RECIPE_KERNELS},
@@ -6093,7 +6483,8 @@ def main() -> int:
                 "train_o1": train_o1,
                 "train_fp16_scaler": fp16,
                 "train_recipe": recipe,
-                "train_resilience": train_res}
+                "train_resilience": train_res,
+                "nn_encoder": nn_enc["train_launches"]}
     kernels_line = [{**rec, "launches": launches[name],
                      "launches_by_phase": {ph: c[name]
                                            for ph, c in by_phase.items()

@@ -31,18 +31,27 @@ JAX package's per-op lists), ``amp.GradScaler`` and ``jit.to_static``;
 ``distributed.fault_tolerance.ResilientLoop`` (format-2 checkpoints of
 :mod:`distributed.checkpoint`, preemption, the divergence sentry's
 rollback), observed by :mod:`obs` (``StepTimeline``, ``CompileLedger``,
-``CostLedger``) and :mod:`profiler`.  Everything runs on ``cuda`` unless the caller passes
-``device="cpu"``; on CPU tensors each kernel's plain PyTorch version runs
-instead.
+``CostLedger``) and :mod:`profiler`.  :mod:`nn` is Paddle's layers,
+functionals and initializers as ``torch.nn.Module``s (the attention
+layers on K1-K3 through ``nn.functional.scaled_dot_product_attention``),
+with :mod:`regularizer`'s ``L1Decay``/``L2Decay`` for the optimizers.
+Everything runs on ``cuda`` unless the caller passes
+``device="cpu"`` (for :mod:`nn`'s layers, :func:`set_device` or
+:func:`device_guard` with ``"cpu"``; with no card, building on the
+default device raises); on CPU tensors each kernel's plain PyTorch
+version runs instead.
 """
 from . import (
-    amp, distributed, framework, inference, jit, models, nn, obs, ops,
-    optimizer, profiler, rng, serving, static,
+    amp, device, distributed, framework, inference, jit, models, nn, obs,
+    ops, optimizer, profiler, regularizer, rng, serving, static,
 )
+from .device import device_guard, get_device, set_device
 from .inference import create_engine
 from .rng import seed
 from .training import build_train_step
 
-__all__ = ["amp", "build_train_step", "create_engine", "distributed",
-           "framework", "inference", "jit", "models", "nn", "obs", "ops",
-           "optimizer", "profiler", "rng", "seed", "serving", "static"]
+__all__ = ["amp", "build_train_step", "create_engine", "device",
+           "device_guard", "distributed", "framework", "get_device",
+           "inference", "jit", "models", "nn", "obs", "ops", "optimizer",
+           "profiler", "regularizer", "rng", "seed", "serving",
+           "set_device", "static"]

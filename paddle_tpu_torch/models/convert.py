@@ -1,10 +1,11 @@
 """Carry weights of the JAX package's models into the port.
 
 The JAX ``state_dict()`` names match the port's module tree
-(``llama.layers.0.self_attn.kv_proj.weight``, ``lm_head.weight``, ...).
-Paddle keeps a linear weight as ``[in, out]`` and ``nn.Linear`` as
-``[out, in]``, so linear weights are transposed; embeddings and norm
-weights are taken as they are.  The fused layouts (head-major ``kv_proj``,
+(``llama.layers.0.self_attn.kv_proj.weight``, ``lm_head.weight``, and
+for the ``nn`` layers ``layers.0.self_attn.q_proj.weight``, ``_mean``,
+...).  Paddle keeps a linear weight as ``[in, out]`` and ``nn.Linear`` as
+``[out, in]``, so linear weights are transposed; embeddings, convs and
+norm weights are taken as they are.  The fused layouts (head-major ``kv_proj``,
 ``[gate | up]`` ``gate_up_proj``) live on the output axis and survive the
 transpose unchanged.
 
@@ -49,30 +50,45 @@ _TP_RULES = {
 }
 
 
+def _named_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Parameters (a shared one under its first name, as the JAX
+    ``state_dict`` names it) and persistable buffers."""
+    state = dict(model.named_parameters())
+    every = {n for n, _ in model.named_parameters(remove_duplicate=False)}
+    state.update((k, v) for k, v in model.state_dict(keep_vars=True).items()
+                 if k not in every)
+    return state
+
+
 def port_state_dict_from_jax(model: nn.Module, state: Dict[str, np.ndarray]
                              ) -> Dict[str, torch.Tensor]:
-    """A JAX-package state dict (name → numpy array) in the port's names
-    and layouts: the state dict ``model.state_dict()`` would give, as CPU
-    tensors (linear weights transposed).  Touches nothing of ``model``.
-    Raises unless the names cover the model exactly and every shape
-    matches."""
-    linear = {f"{name}.weight" for name, m in model.named_modules()
+    """A JAX-package state dict (name → numpy array) of any layer tree in
+    the port's names and layouts: the state dict ``model.state_dict()``
+    would give (parameters and persistable buffers, such as a batch
+    norm's ``_mean``/``_variance``; non-persistable buffers are in
+    neither), as CPU tensors.  Every 2-D tensor of an ``nn.Linear`` is
+    transposed (its ``weight``, or a weight-normed ``weight_v`` or
+    spectral-normed ``weight_orig``; ``weight_g`` is 1-D); conv,
+    transposed-conv, ``Bilinear`` and ``Embedding`` weights, norms and
+    buffers are taken as they are.  Touches nothing of ``model``.  Raises
+    unless the names cover the model exactly and every shape matches."""
+    linear = {name for name, m in model.named_modules()
               if isinstance(m, nn.Linear)}
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(state))
-    unexpected = sorted(set(state) - set(params))
+    own = _named_state(model)
+    missing = sorted(set(own) - set(state))
+    unexpected = sorted(set(state) - set(own))
     if missing or unexpected:
         raise ValueError(f"state dict does not cover the model "
                          f"(missing={missing[:5]}, "
                          f"unexpected={unexpected[:5]})")
     out = {}
-    for name, p in params.items():
+    for name, t in own.items():
         arr = np.asarray(state[name])
-        if name in linear:
+        if name.rpartition(".")[0] in linear and arr.ndim == 2:
             arr = arr.T
-        if tuple(arr.shape) != tuple(p.shape):
+        if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"{name}: shape {arr.shape} after layout "
-                             f"change, model has {tuple(p.shape)}")
+                             f"change, model has {tuple(t.shape)}")
         out[name] = torch.from_numpy(np.array(arr))    # a writable copy
     return out
 
@@ -81,11 +97,11 @@ def port_state_dict_from_jax(model: nn.Module, state: Dict[str, np.ndarray]
 def from_jax_state_dict(model: nn.Module,
                         state: Dict[str, np.ndarray]) -> nn.Module:
     """Write a JAX-package state dict (name → numpy array) into ``model``
-    in place, on the model's device and in its dtype
+    in place, on the model's device and in its dtypes
     (:func:`port_state_dict_from_jax`, then ``copy_``)."""
-    params = dict(model.named_parameters())
+    own = _named_state(model)
     for name, t in port_state_dict_from_jax(model, state).items():
-        params[name].copy_(t)
+        own[name].copy_(t)
     return model
 
 

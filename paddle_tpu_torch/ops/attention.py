@@ -301,7 +301,8 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
     ``attn_mask`` (bool: False drops a score; float: added to the scores;
     broadcast to ``[B, H, Sq, Sk]``) takes the JAX package's route for a
     mask, the plain :func:`_sdpa_reference` with autograd, on every
-    device, and so may have ``Sk != Sq``.  Under :func:`..amp.auto_cast`
+    device, and so may have ``Sk != Sq``; so does ``kernel="reference"``
+    with ``Sk != Sq``.  Under :func:`..amp.auto_cast`
     the call is the white-listed op ``"flash_attention"``."""
     if kernel not in _KERNEL_CHOICES:
         raise ValueError(f"kernel must be one of {_KERNEL_CHOICES}, got "
@@ -311,7 +312,8 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
     rng = None
     if p > 0.0:
         rng = (generator or rng_mod.default_generator(query.device)).draw()
-    if attn_mask is not None:
+    if attn_mask is not None or (kernel == "reference"
+                                 and key.shape[1] != query.shape[1]):
         return _sdpa_reference(query, key, value, is_causal, False, p, rng,
                                attn_mask)
     if _use_kernel(query, kernel) and not supports(tuple(query.shape),

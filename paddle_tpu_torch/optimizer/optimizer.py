@@ -30,6 +30,12 @@ Port of ``paddle_tpu/optimizer/optimizer.py``: the ``Optimizer`` base
   ``beta2``, ``epsilon`` and ``momentum`` override the optimizer's for
   that group.  A dict without ``"params"`` raises, and so does a
   parameter in two groups.
+- ``weight_decay`` may be a :mod:`..regularizer` ``L1Decay`` or
+  ``L2Decay`` (``paddle_tpu/optimizer/optimizer.py:68-77``): the coupled
+  decay folds its ``_grad_term`` into the gradient, a decoupled one
+  (AdamW, Lars, Lamb) takes its coefficient.  A parameter's own
+  ``regularizer`` (``nn.ParamAttr(regularizer=)``) is not read, as the
+  JAX optimizer reads none (``_decayed_grad``, ``:293-301``).
 - a loss scaler's overflow gate: while :class:`..amp.GradScaler` runs a
   step, every write of a parameter, master or accumulator goes through
   ``torch.where(found_inf, old, new)`` (:meth:`Optimizer._write`), so an
@@ -110,6 +116,13 @@ class Optimizer(torch.optim.Optimizer):
         else:
             params = self._unname(params)
         super().__init__(params, {"learning_rate": 1.0, **defaults})
+        for group in self.param_groups:
+            # an L1Decay/L2Decay: its coefficient for the decoupled
+            # decays, its gradient term for the coupled one (_decayed)
+            wd = group.get("weight_decay")
+            group["regularizer"] = wd if hasattr(wd, "_grad_term") else None
+            if group["regularizer"] is not None:
+                group["weight_decay"] = wd.coeff
         self._learning_rate = lr
         self._grad_clip = grad_clip
         self._captured = False
@@ -201,9 +214,13 @@ class Optimizer(torch.optim.Optimizer):
 
     def _decayed(self, p: torch.Tensor, g32: torch.Tensor,
                  group: dict) -> torch.Tensor:
-        """The gradient with the group's L2 weight decay folded in
-        (``_decayed_grad``, the SGD/Momentum/Adam family's coupled
-        decay)."""
+        """The gradient with the coupled decay folded in (``_decayed_grad``,
+        the SGD/Momentum/Adam family's): the group's ``L1Decay`` or
+        ``L2Decay`` (``_grad_term``), else its float ``weight_decay`` as
+        L2."""
+        reg = group.get("regularizer")
+        if reg is not None:
+            return g32 + reg._grad_term(p.float())
         if group["weight_decay"]:
             return g32 + group["weight_decay"] * p.float()
         return g32

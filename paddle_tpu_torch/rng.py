@@ -181,6 +181,11 @@ class Generator:
 _generators: Dict[torch.device, Generator] = {}
 _seed: Optional[int] = None
 
+#: the CPU generator that parameter initializers draw from
+#: (``nn.initializer``) unless given one of their own; :func:`seed` seeds
+#: it too
+init_generator = torch.Generator().manual_seed(0)
+
 
 def _key(device) -> torch.device:
     device = torch.device(device)
@@ -201,9 +206,10 @@ def default_generator(device) -> Generator:
 
 def seed(s: int) -> None:
     """``paddle.seed``: seed every device's dropout generator with ``s``,
-    offset 0 (those made later too)."""
+    offset 0 (those made later too), and :data:`init_generator`."""
     global _seed
     _seed = int(s)
+    init_generator.manual_seed(_seed)
     for gen in _generators.values():
         gen.manual_seed(_seed)
 

@@ -31,7 +31,13 @@ It prints one JSON line for each of:
 - ``cross_entropy``: the fused LM-head cross-entropy forward + backward
   alone at the step's shapes (hidden ``[8192, 1024]``, head
   ``[50304, 1024]``, bf16), traced the same way;
-- ``optimizer``: ``AdamW.step()`` alone over the model's gradients.
+- ``optimizer``: ``AdamW.step()`` alone over the model's gradients;
+- ``nn_encoder_step_graph``: ``chip_smoke.py``'s ``nn_encoder`` step
+  (BERT-base's masked-LM model from the port's ``nn``, 8 x 512, bf16 O2,
+  AdamW, dropout 0.1, one CUDA graph a step) traced the same way, with
+  its AdamW step alone and its 25 hidden dropouts' device time alone at
+  the step's shape (``nn_encoder_step``; alone: ``python3 -c "import
+  profile_training as p; p.nn_encoder_step(10)"``).
 
 No phase falls back to the CPU.
 """
@@ -147,6 +153,42 @@ def recipe(to_static: bool):
                  grad_clip=ClipGradByGlobalNorm(1.0))
 
 
+def nn_encoder_step(n_steps: int) -> dict:
+    """Trace ``nn_encoder``'s compiled step after 3 warm-up steps; time
+    its AdamW step alone (after one eager backward) and one hidden
+    dropout at ``[8, 512, 768]`` bf16 (CUDA events), times the step's 25
+    (the embeddings' and two a layer).  Prints and returns the line."""
+    from paddle_tpu_torch import jit, rng
+    from paddle_tpu_torch.nn import functional as F
+
+    cfg = chip_smoke.BERT_BASE
+    batch, seq = chip_smoke.NN_TRAIN
+    data = chip_smoke.mlm_batch(cfg, batch, seq, "cuda")
+    model, opt, body = chip_smoke.build_masked_lm(cfg, "cuda")
+    step = jit.to_static(body)
+    for _ in range(3):
+        step(*data)
+    res = trace(lambda: step(*data), n_steps)
+    x = torch.randn((batch, seq, cfg["hidden_size"]), device="cuda") \
+        .to(torch.bfloat16)
+    draws = 1 + 2 * cfg["num_hidden_layers"]
+    res["hidden_dropout_ms_per_step"] = draws * chip_smoke.cuda_ms(
+        lambda: F.dropout(x, cfg["hidden_dropout_prob"]), iters=n_steps)
+    res["philox_ms_per_step"] = draws * chip_smoke.cuda_ms(
+        lambda: rng.dropout_keep(rng.default_generator("cuda").draw(),
+                                 list(x.shape),
+                                 cfg["hidden_dropout_prob"]),
+        iters=n_steps)
+    body(*data)                      # an eager step leaves the moments
+    model(*data).backward()
+    res["optimizer"] = trace(opt.step, n_steps)
+    line = {"phase": "nn_encoder_step_graph", "card": chip_smoke.card_line(),
+            "model": "bert-base-uncased masked LM (port nn)",
+            "batch": batch, "seq": seq, **res}
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -207,6 +249,7 @@ def main() -> int:
         del ts
         gc.collect()
         torch.cuda.empty_cache()
+    nn_encoder_step(args.steps)
     print(card)
     return 0
 

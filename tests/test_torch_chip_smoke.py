@@ -976,3 +976,43 @@ def test_train_resilience_phase_fails_on_a_broken_hold(resilience_tiny,
     monkeypatch.setattr(chip_smoke, "drive_train_resilience",
                         lambda reference_loss=None: mended)
     assert chip_smoke.phase_train_resilience() == mended["launches"]
+
+
+#: a BERT-shaped masked-LM model at a tiny width (head dim 64, a kernel
+#: head dim, so the encoder takes the kernel route)
+BERT_TINY = {"vocab_size": 64, "hidden_size": 128, "num_hidden_layers": 2,
+             "num_attention_heads": 2, "intermediate_size": 64,
+             "max_position_embeddings": 32, "type_vocab_size": 2,
+             "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1}
+
+
+def test_nn_encoder_phase_on_tiny_cpu():
+    """``phase_nn_encoder`` at a tiny width on the CPU (the kernels' plain
+    versions): the compiled step's first losses bitwise the eager
+    step's, losses finite and falling, the kernel route every layer of
+    every step and of the eval forward, the plain route only in the
+    decoder's masked and cross attention, the f32 parity within
+    tolerance."""
+    res = chip_smoke.phase_nn_encoder(BERT_TINY, "cpu", (2, 16),
+                                      (2, 8, 16), (2, 16))
+    steps = len(res["losses"])
+    assert steps == 13 and res["eager_max_abs_diff"] == 0.0
+    assert res["train_routes"] == {"kernel": 2 * steps}
+    assert res["eval_routes"] == {"kernel": 2}
+    assert res["cross"]["routes"] == {"kernel": 2, "plain": 4}
+    assert res["parity"]["grad_rel_err"] <= \
+        chip_smoke.TRAIN_PARITY_TOLERANCE["grad"]
+    assert not res["train_launches"] and not res["eval_launches"]
+
+
+def test_nn_encoder_holds_refuse_a_plain_route():
+    res = {"losses": [2.0, 1.0], "eager_max_abs_diff": 0.0,
+           "eager_losses": [2.0], "program_cache": {},
+           "train_routes": {"kernel": 4, "plain": 1},
+           "eval_routes": {"kernel": 2}}
+    with pytest.raises(AssertionError, match="plain attention route"):
+        chip_smoke.check_nn_encoder(res, 2, cuda=False)
+    res["train_routes"] = {"kernel": 4}
+    res["losses"] = [1.0, 2.0]
+    with pytest.raises(AssertionError, match="losses"):
+        chip_smoke.check_nn_encoder(res, 2, cuda=False)

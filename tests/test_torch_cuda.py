@@ -1985,3 +1985,154 @@ def test_cost_ledger_counts_the_kernels_by_formula(cuda_device):
     assert {n: c - launches[n] for n, c in after.items()
             if c != launches[n]} == {n: 2 for n in chip_smoke.TRAIN_KERNELS}
     assert torch.equal(chip_smoke.resilience_checksums(ts, sentry), before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multi_head_attention_runs_k1_k3(cuda_device, dtype):
+    """``nn.MultiHeadAttention`` self-attention at head dim 64: K1 in the
+    forward, K2 and K3 in the backward (their dropout instances at
+    dropout 0.1), the kernel route counted; against the same layer on
+    the CPU (the plain versions)."""
+    from paddle_tpu_torch import device_guard, nn, rng
+    from paddle_tpu_torch.nn import functional as F
+
+    rng.seed(0)
+    with device_guard("cpu"):
+        cpu = nn.MultiHeadAttention(128, 2).eval()
+    dev = nn.MultiHeadAttention(128, 2).to(cuda_device, dtype=dtype).eval()
+    dev.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 128, 128, generator=torch.Generator().manual_seed(1))
+    xd = x.to(cuda_device, dtype).requires_grad_()
+    routes = dict(F.ATTENTION_ROUTES)
+    kernels.reset_launches()
+    out = dev(xd)
+    out.float().square().sum().backward()
+    counts = kernels.launch_counts()
+    assert {n: counts[n] for n in chip_smoke.TRAIN_KERNELS} == \
+        dict.fromkeys(chip_smoke.TRAIN_KERNELS, 1)
+    assert F.ATTENTION_ROUTES["kernel"] == routes["kernel"] + 1
+    assert F.ATTENTION_ROUTES["plain"] == routes["plain"]
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float().cpu(), cpu(x), atol=tol,
+                               rtol=tol)
+    dev.train()
+    dev.dropout = 0.1
+    kernels.reset_launches()
+    dev(xd).float().sum().backward()
+    counts = kernels.launch_counts()
+    assert all(counts[n] == 1 for n in chip_smoke.NN_TRAIN_KERNELS)
+
+
+@pytest.mark.cuda
+def test_nn_layers_default_to_the_card(cuda_device):
+    """With no ``device=`` and no ``set_device``, a layer's parameters
+    and buffers are made on the card."""
+    from paddle_tpu_torch import device_guard, get_device, nn
+
+    assert get_device() == f"gpu:{torch.cuda.current_device()}"
+    net = nn.Sequential(nn.Linear(4, 4), nn.BatchNorm1D(4),
+                        nn.TransformerEncoderLayer(64, 1, 128))
+    assert all(t.is_cuda for t in net.state_dict().values())
+    assert nn.Transformer.generate_square_subsequent_mask(4).is_cuda
+    with device_guard("cpu"):
+        assert not nn.Linear(4, 4).weight.is_cuda
+    assert nn.Linear(4, 4).weight.is_cuda
+
+
+@pytest.mark.cuda
+def test_other_head_dims_take_the_plain_route(cuda_device):
+    """Maskless self-attention at a head dim the kernels are not built
+    for (32) takes the plain route on CUDA tensors (counted, no launch),
+    as the JAX package falls back to its reference."""
+    from paddle_tpu_torch.nn import functional as F
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(2, 64, 4, 32, generator=gen, device=cuda_device,
+                           requires_grad=True) for _ in range(3))
+    routes = dict(F.ATTENTION_ROUTES)
+    kernels.reset_launches()
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    out.sum().backward()
+    assert F.ATTENTION_ROUTES["plain"] == routes["plain"] + 1
+    assert F.ATTENTION_ROUTES["kernel"] == routes["kernel"]
+    assert not any(kernels.launch_counts().values())
+    want = F.scaled_dot_product_attention(q.cpu(), k.cpu(), v.cpu(),
+                                          is_causal=True)
+    torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cross_and_masked_attention_take_the_plain_route(cuda_device):
+    from paddle_tpu_torch import device_guard, nn
+    from paddle_tpu_torch.nn import functional as F
+
+    mha = nn.MultiHeadAttention(128, 2).to(cuda_device).eval()
+    q = torch.randn(2, 16, 128, device=cuda_device)
+    kv = torch.randn(2, 40, 128, device=cuda_device)
+    mask = nn.Transformer.generate_square_subsequent_mask(16, cuda_device)
+    routes = dict(F.ATTENTION_ROUTES)
+    kernels.reset_launches()
+    with torch.no_grad():
+        cross = mha(q, kv, kv)
+        masked = mha(q, attn_mask=mask)
+    assert F.ATTENTION_ROUTES["plain"] == routes["plain"] + 2
+    assert F.ATTENTION_ROUTES["kernel"] == routes["kernel"]
+    assert not any(kernels.launch_counts().values())
+    with device_guard("cpu"):
+        cpu = nn.MultiHeadAttention(128, 2).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in mha.state_dict().items()})
+    torch.testing.assert_close(cross.cpu(), cpu(q.cpu(), kv.cpu(), kv.cpu()),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(masked.cpu(), cpu(q.cpu(),
+                                                 attn_mask=mask.cpu()),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_batch_norm_step_under_to_static_updates_running_stats(cuda_device):
+    """A Conv2D + BatchNorm2D + Linear step through ``jit.to_static``
+    (eager first call, capture, replays) updates ``_mean``/``_variance``
+    in place at every replay, equal to the same step run eagerly."""
+    from paddle_tpu_torch import device_guard, jit, nn, rng
+    from paddle_tpu_torch.optimizer import Momentum
+
+    def build():
+        rng.seed(0)
+        with device_guard(cuda_device):
+            net = nn.Sequential(nn.Conv2D(3, 8, 3, padding=1),
+                                nn.BatchNorm2D(8), nn.ReLU(), nn.Flatten(),
+                                nn.Linear(8 * 36, 4))
+        opt = Momentum(net.parameters(), lr=0.05)
+
+        def step(x, y):
+            loss = nn.functional.cross_entropy(net(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+        return net, step
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    xs = [torch.randn(16, 3, 6, 6, generator=gen, device=cuda_device) * 2
+          + 1 for _ in range(5)]
+    y = torch.randint(0, 4, (16,), generator=gen, device=cuda_device)
+    eager_net, eager_step = build()
+    eager = [eager_step(x, y) for x in xs]
+    net, body = build()
+    step = jit.to_static(body)
+    bn = net[1]
+    mean_ptr = bn._mean.data_ptr()
+    means = []
+    losses = []
+    for x in xs:
+        losses.append(step(x, y))
+        means.append(bn._mean.clone())
+    assert step.captures == 1 and bn._mean.data_ptr() == mean_ptr
+    assert not torch.equal(means[-1], means[-2])      # replays update it
+    torch.testing.assert_close(torch.stack(losses), torch.stack(eager),
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(bn._mean, eager_net[1]._mean, atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(bn._variance, eager_net[1]._variance,
+                               atol=1e-5, rtol=1e-5)

@@ -288,13 +288,37 @@ Phases, each printing one JSON line with the card's name and power limit:
               mask (Sq 128, Sk 512: the decoder's attention on the plain
               route, 4 calls; the encoder's on K1); the f32 2-layer loss
               and gradients on the card against the CPU.
+25. seq2seq — PaddleNLP's LSTM attention translator
+              (``examples/machine_translation/seq2seq``) at its IWSLT'15
+              widths (vocabularies 17,191 and 7,709, embeddings and hidden
+              512, 2 layers, dropout 0.2; random weights from seed 0; f32)
+              from the port's ``nn`` (``nn.LSTM``, ``LSTMCell``s):
+              ``paddle.Model.fit`` over a 2-worker ``io.DataLoader`` of
+              seeded pairs (lengths 10-50, batch 128), 13 batches, every
+              one through the shared-memory ring, with a
+              ``StepTimeline``; the first 3 losses within 1e-4 of a CPU
+              twin's; beam search (``BeamSearchDecoder``, beam 10,
+              ``dynamic_decode`` up to 50 steps) over one batch on the
+              card and on a CPU copy: ids and parents equal wherever the
+              CPU's K-th/(K+1)-th margins exceed 1e-4, scores within
+              1e-4, ``gather_tree`` consistent with the parents.  No
+              kernel of the port runs here.
+26. hapi_fit — BERT-base's masked LM (``nn_encoder``'s layers, logits at
+              80 positions a sample) through ``paddle.Model``: bf16 O2,
+              AdamW on a ``LinearWarmup`` rate, ``Accuracy``; ``fit``
+              over 6 batches of 8 x 512 (eager) with ``ModelCheckpoint``,
+              ``LRScheduler`` and ``EarlyStopping``; ``evaluate``,
+              ``predict``, the checkpoint loaded bitwise, ``summary``;
+              K1-K3's bf16 dropout instances 12 a train batch each, K1 12
+              an eval or predict batch, the plain route never.
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
 ``{"kernels": [...]}`` line (K1-K5, K1-K3's dropout instances and every
 f16 instance: each kernel's ``launches`` on its main path,
 ``train_recipe`` for the dropout instances, ``train_fp16_scaler`` for
 K1-K3's f16 ones, ``serve_f16``'s 7B run for K4/K5's, and
-``launches_by_phase``, ``nn_encoder``'s train steps among them); the
+``launches_by_phase``, ``nn_encoder``'s train steps and ``hapi_fit``'s
+fit among them); the
 last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 without that line.  No phase falls back to the CPU.
@@ -6386,6 +6410,759 @@ def phase_nn_encoder(cfg: dict = BERT_BASE, device: str = "cuda",
     return res
 
 
+# ---- seq2seq: PaddleNLP's LSTM attention translator through paddle.Model --
+
+#: PaddleNLP ``examples/machine_translation/seq2seq`` at its README's
+#: train and predict settings on IWSLT'15 English-Vietnamese: vocabularies
+#: of 17,191 and 7,709 tokens, embeddings and hidden 512, 2 LSTM layers,
+#: dropout 0.2, uniform init ±0.1, batch 128, Adam at 1e-3 with
+#: ``ClipGradByGlobalNorm(5.0)``, beam 10, at most 50 decoded steps;
+#: sentences of 10–50 tokens (the corpus is absent: seeded ids), BOS 1,
+#: EOS 2 (also the padding)
+SEQ2SEQ = {"src_vocab": 17191, "trg_vocab": 7709, "embed": 512,
+           "hidden": 512, "layers": 2, "dropout": 0.2, "init_scale": 0.1,
+           "batch": 128, "beam": 10, "max_out": 50, "lr": 1e-3,
+           "max_grad_norm": 5.0, "min_len": 10, "max_len": 50, "bos": 1,
+           "eos": 2}
+#: ``Model.fit`` iterations: the warm-up, then the timed ones
+SEQ2SEQ_ITERS = (3, 10)
+#: the CPU twin's train steps, and the holds against it: the first losses
+#: (relative), the beam scores (relative to max(1, |score|)) and the
+#: K-th/(K+1)-th score margin past which ids must agree
+SEQ2SEQ_TWIN_STEPS = 3
+SEQ2SEQ_TOLERANCE = {"loss": 1e-4, "score": 1e-4, "margin": 1e-4}
+#: the DataLoader's worker processes
+SEQ2SEQ_WORKERS = 2
+
+
+class Seq2SeqPairs:
+    """Seeded translation pairs (numpy only: the loader's workers import
+    this module).  Source lengths are uniform in ``[min_len, max_len]``,
+    target contents in ``[min_len, max_len - 1]`` (so that BOS + content
+    and content + EOS fit ``max_len`` steps); ids are uniform past EOS;
+    every row is padded with EOS to ``max_len``.  Sample ``i`` is
+    ``((src, src_len, trg_in), (trg_out, trg_mask))``."""
+
+    def __init__(self, cfg: dict, n: int, seed: int = 0):
+        rs = np.random.RandomState(seed)
+        L, eos = cfg["max_len"], cfg["eos"]
+        self.src_len = rs.randint(cfg["min_len"], L + 1, n).astype(np.int64)
+        trg_len = rs.randint(cfg["min_len"], L, n)
+        src = rs.randint(eos + 1, cfg["src_vocab"], (n, L))
+        trg = rs.randint(eos + 1, cfg["trg_vocab"], (n, L))
+        cols = np.arange(L)[None, :]
+        self.src = np.where(cols < self.src_len[:, None], src, eos)
+        content = np.where(cols < trg_len[:, None], trg, eos)
+        self.trg_in = np.concatenate(
+            [np.full((n, 1), cfg["bos"]), content[:, :-1]], 1)
+        self.trg_out = content                  # content, then EOS
+        self.trg_mask = (cols <= trg_len[:, None]).astype(np.float32)
+
+    def __getitem__(self, i):
+        return ((self.src[i], self.src_len[i], self.trg_in[i]),
+                (self.trg_out[i], self.trg_mask[i]))
+
+    def __len__(self):
+        return len(self.src)
+
+
+def seq2seq_model(cfg: dict):
+    """PaddleNLP's ``Seq2SeqAttnModel`` from the port's ``nn``: source and
+    target ``Embedding``s, the encoder ``nn.LSTM(embed, hidden, layers,
+    dropout)``, a decoder cell of ``layers`` ``LSTMCell``s (the first fed
+    ``[embedding; previous attention output]``, each output through
+    ``Dropout``) and a dot-product attention of the top state over the
+    projected encoder outputs (masked past each source length), giving
+    ``tanh(Linear([context; h]))``; then the bias-free vocabulary
+    projection.  Embeddings and linears are drawn from ``Uniform(±0.1)``,
+    the LSTMs from their default.  The example projects the encoder
+    outputs inside the cell, at every step; here once a batch
+    (``encode``), the same values.  The decoder's time loop is a Python
+    loop over the cell, as ``BeamSearchDecoder`` drives it."""
+    from paddle_tpu_torch import nn
+
+    s, E, H, layers = (cfg["init_scale"], cfg["embed"], cfg["hidden"],
+                       cfg["layers"])
+
+    def uniform():
+        return nn.ParamAttr(initializer=nn.initializer.Uniform(-s, s))
+
+    class AttentionLayer(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.input_proj = nn.Linear(H, H, weight_attr=uniform(),
+                                        bias_attr=False)
+            self.output_proj = nn.Linear(2 * H, H, weight_attr=uniform(),
+                                         bias_attr=False)
+
+        def forward(self, hidden, keys, mask):
+            scores = torch.matmul(hidden.unsqueeze(1),
+                                  keys.transpose(1, 2)) + mask
+            ctx = torch.matmul(torch.softmax(scores, dim=-1), keys)
+            return torch.tanh(self.output_proj(
+                torch.cat([ctx.squeeze(1), hidden], dim=1)))
+
+    class DecoderCell(nn.RNNCellBase):
+        def __init__(self):
+            super().__init__()
+            self.hidden_size = H
+            self.dropout = nn.Dropout(cfg["dropout"])
+            self.lstm_cells = nn.LayerList([
+                nn.LSTMCell(E + H if i == 0 else H, H)
+                for i in range(layers)])
+            self.attention_layer = AttentionLayer()
+
+        def forward(self, step_input, states, encoder_output,
+                    encoder_padding_mask):
+            lstm_states, input_feed = states
+            x = torch.cat([step_input, input_feed], dim=1)
+            new_states = []
+            for i, cell in enumerate(self.lstm_cells):
+                out, st = cell(x, lstm_states[i])
+                x = self.dropout(out)
+                new_states.append(st)
+            out = self.attention_layer(x, encoder_output,
+                                       encoder_padding_mask)
+            return out, [new_states, out]
+
+    class Seq2SeqAttnModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.src_embedder = nn.Embedding(cfg["src_vocab"], E,
+                                             weight_attr=uniform())
+            self.encoder = nn.LSTM(E, H, num_layers=layers,
+                                   dropout=cfg["dropout"] if layers > 1
+                                   else 0.0)
+            self.trg_embedder = nn.Embedding(cfg["trg_vocab"], E,
+                                             weight_attr=uniform())
+            self.cell = DecoderCell()
+            self.output_layer = nn.Linear(H, cfg["trg_vocab"],
+                                          weight_attr=uniform(),
+                                          bias_attr=False)
+
+        def encode(self, src, src_len):
+            """The attention keys (projected encoder outputs), the
+            decoder's first states (the encoder's final ones, a zero
+            attention output) and the additive source mask ``[B, 1, S]``."""
+            out, (h, c) = self.encoder(self.src_embedder(src),
+                                       sequence_length=src_len)
+            states = [[(h[i], c[i]) for i in range(layers)],
+                      self.cell.get_initial_states(out)]
+            cols = torch.arange(src.shape[1], device=src.device)
+            mask = torch.where(cols[None, :] < src_len[:, None], 0.0,
+                               -1e9)[:, None, :]
+            return self.cell.attention_layer.input_proj(out), states, mask
+
+        def forward(self, src, src_len, trg):
+            keys, states, mask = self.encode(src, src_len)
+            emb = self.trg_embedder(trg)
+            outs = []
+            for t in range(trg.shape[1]):
+                out, states = self.cell(emb[:, t], states, keys, mask)
+                outs.append(out)
+            return self.output_layer(torch.stack(outs, dim=1))
+
+    return Seq2SeqAttnModel()
+
+
+def seq2seq_loss(logits, label, mask):
+    """The example's ``CrossEntropyCriterion``: token cross-entropy times
+    the target mask, averaged over the batch and summed over the steps."""
+    from paddle_tpu_torch.nn import functional as F
+
+    cost = F.cross_entropy(logits, label, reduction="none")
+    return (cost * mask).mean(dim=0).sum()
+
+
+def perplexity_metric(eos: int):
+    """The example's perplexity as a ``metric.Metric``: exp of the summed
+    token cross-entropy over the target tokens (each target's tokens run
+    through its first EOS); one host read a batch."""
+    from paddle_tpu_torch.metric import Metric
+    from paddle_tpu_torch.nn import functional as F
+
+    class Perplexity(Metric):
+        def __init__(self):
+            self.reset()
+
+        def reset(self):
+            self.total, self.words = 0.0, 0
+
+        def name(self):
+            return "ppl"
+
+        def compute(self, pred, label):
+            is_eos = (label == eos).long()
+            valid = (torch.cumsum(is_eos, dim=1) - is_eos) == 0
+            ce = F.cross_entropy(pred.float(), label, reduction="none")
+            return torch.stack([(ce * valid).sum(),
+                                valid.sum().float()]).tolist()
+
+        def update(self, stats):
+            self.total += stats[0]
+            self.words += int(stats[1])
+
+        def accumulate(self):
+            return float(np.exp(self.total / max(self.words, 1)))
+
+    return Perplexity()
+
+
+def step_clock():
+    """A ``hapi`` callback keeping each train batch's loss and its host
+    milliseconds (``on_train_batch_begin`` to ``_end``: the step and its
+    loss read, which waits for the card), and the seconds from the start
+    of training to the first batch (a loader's workers start in them)."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepClock(Callback):
+        def __init__(self):
+            super().__init__()
+            self.ms, self.losses, self._t0 = [], [], None
+            #: seconds from the start of training to its first batch
+            self.start_s = None
+
+        def on_train_begin(self, logs=None):
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_begin(self, step, logs=None):
+            if self.start_s is None:
+                self.start_s = time.perf_counter() - self._t0
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.ms.append((time.perf_counter() - self._t0) * 1e3)
+            self.losses.append(logs["loss"])
+
+    return StepClock()
+
+
+def seq2seq_trainer(net, cfg: dict):
+    """``paddle.Model(net)`` prepared as the example prepares it."""
+    from paddle_tpu_torch import Model, nn
+    from paddle_tpu_torch.optimizer import Adam
+
+    opt = Adam(net.parameters(), lr=cfg["lr"],
+               grad_clip=nn.ClipGradByGlobalNorm(cfg["max_grad_norm"]))
+    return Model(net).prepare(opt, seq2seq_loss,
+                              metrics=perplexity_metric(cfg["eos"]))
+
+
+def margin_beam_search():
+    """``nn.BeamSearchDecoder`` that keeps, a step, the K+1 best scores of
+    each row (to find the near-ties) and the raw step outputs before the
+    backtrace."""
+    from paddle_tpu_torch import nn
+
+    class MarginBeamSearch(nn.BeamSearchDecoder):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.tops, self.raw = [], None
+
+        def _top_k(self, flat, k):
+            scores, idx = super()._top_k(flat, k + 1)
+            self.tops.append(scores)
+            return scores[:, :k], idx[:, :k]
+
+        def finalize(self, outputs, final_states, sequence_lengths):
+            self.raw = outputs
+            return super().finalize(outputs, final_states, sequence_lengths)
+
+    return MarginBeamSearch
+
+
+def beam_decode(net, cfg: dict, src, src_len):
+    """The example's inference: encode, tile keys and mask by the beam
+    (``tile_beam_merge_with_batch``), ``BeamSearchDecoder(cell, BOS, EOS,
+    beam, embedding_fn=, output_fn=)`` and ``dynamic_decode(max_step_num=
+    max_out)`` with the keys and mask as the cell's kwargs.  Returns the
+    decoder (its ``tops`` and ``raw``) and the backtraced ids ``[B, T,
+    K]``."""
+    from paddle_tpu_torch import nn
+
+    K = cfg["beam"]
+    net.eval()
+    with torch.no_grad():
+        keys, states, mask = net.encode(src, src_len)
+        tile = nn.BeamSearchDecoder.tile_beam_merge_with_batch
+        dec = margin_beam_search()(
+            net.cell, cfg["bos"], cfg["eos"], K,
+            embedding_fn=net.trg_embedder, output_fn=net.output_layer)
+        seqs, _ = nn.dynamic_decode(
+            dec, inits=states, max_step_num=cfg["max_out"],
+            encoder_output=tile(keys, K), encoder_padding_mask=tile(mask, K))
+    return dec, seqs
+
+
+def backtrace(ids: np.ndarray, parents: np.ndarray) -> np.ndarray:
+    """``gather_tree`` in numpy: ``[T, B, K]`` ids and parents to each
+    final beam's sequence."""
+    T, B, K = ids.shape
+    out = np.empty_like(ids)
+    beam = np.tile(np.arange(K), (B, 1))
+    rows = np.arange(B)[:, None]
+    for t in range(T - 1, -1, -1):
+        out[t] = ids[t][rows, beam]
+        beam = parents[t][rows, beam]
+    return out
+
+
+def compare_beams(dev, ref, tol: dict) -> dict:
+    """Hold ``dev``'s beam search to ``ref``'s (the CPU twin's, over the
+    first rows and steps of ``dev``'s) where it is decided: row b at step
+    t counts while every step up to t had, in ``ref``, all gaps among its
+    K+1 best scores above ``tol["margin"]`` (past a near-tie the two may
+    take either branch).  There ids and parents must be equal and scores
+    within ``tol["score"]`` of max(1, |score|).  Returns the counts."""
+    r_ids = ref.raw.predicted_ids.cpu().numpy()
+    T, B, _ = r_ids.shape
+
+    def dev_rows(t):
+        return t[:T, :B].cpu().numpy()
+
+    d_ids, d_par, d_sc = (dev_rows(getattr(dev.raw, f)) for f in (
+        "predicted_ids", "parent_ids", "scores"))
+    r_par, r_sc = (getattr(ref.raw, f).cpu().numpy() for f in (
+        "parent_ids", "scores"))
+    if d_ids.shape != r_ids.shape:
+        raise AssertionError(f"seq2seq decode: the device ran "
+                             f"{d_ids.shape[0]} steps of rows the CPU "
+                             f"decoded in {T}")
+    gaps = np.stack([(-np.diff(t.cpu().numpy(), axis=1)).min(axis=1)
+                     for t in ref.tops])                        # [T, B]
+    decided = np.logical_and.accumulate(gaps > tol["margin"], axis=0)
+    where = np.broadcast_to(decided[:, :, None], r_ids.shape)
+    bad_ids = int(((r_ids != d_ids) | (r_par != d_par))[where].sum())
+    err = np.abs(d_sc - r_sc) / np.maximum(1.0, np.abs(r_sc))
+    worst = float(err[where].max()) if where.any() else 0.0
+    if bad_ids or worst > tol["score"]:
+        raise AssertionError(
+            f"seq2seq decode: {bad_ids} decided ids or parents differ from "
+            f"the CPU twin's; worst decided score error {worst:.3e} "
+            f"(tolerance {tol})")
+    return {"decided_share": round(float(decided.mean()), 4),
+            "rows_decided_to_the_end": int(decided[-1].sum()),
+            "score_rel_err": worst}
+
+
+def device_profile(fn) -> dict:
+    """What ``fn()`` puts on the card (kernels, copies and fills), counted
+    by ``torch.profiler``, and the milliseconds the card was busy with
+    them (their union); the card idles 50 ms at the window's start (the
+    profiler can lose a window's first records)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    if not spans:
+        raise RuntimeError("the profiler recorded no device time")
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo, hi = busy + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    return {"launches": len(spans), "busy_ms": (busy + hi - lo) / 1e3}
+
+
+#: source rows the CPU copy decodes (rows are independent: the card's
+#: first rows are held to them)
+SEQ2SEQ_CPU_ROWS = 16
+
+
+def decode_and_compare(net, cpu_net, cfg: dict, data: Seq2SeqPairs,
+                       device) -> dict:
+    """Beam-decode the first batch of ``data`` with ``net`` on ``device``
+    and its first ``SEQ2SEQ_CPU_ROWS`` rows with ``cpu_net`` (the same
+    weights on the CPU); hold ``gather_tree``'s sequences to the parents'
+    backtrace and the device's decided beams to the CPU's
+    (``compare_beams``).  Returns ms, steps and the comparison."""
+    cuda = torch.device(device).type == "cuda"
+    B, rows = cfg["batch"], min(SEQ2SEQ_CPU_ROWS, cfg["batch"])
+    src, src_len = (torch.from_numpy(a[:B]) for a in (data.src,
+                                                      data.src_len))
+    (dec, seqs), ms = _step_ms(
+        lambda: beam_decode(net, cfg, src.to(device), src_len.to(device)),
+        cuda)
+    ids = dec.raw.predicted_ids.cpu().numpy()
+    if not np.array_equal(seqs.transpose(0, 1).cpu().numpy(),
+                          backtrace(ids, dec.raw.parent_ids.cpu().numpy())):
+        raise AssertionError("seq2seq decode: gather_tree's sequences "
+                             "disagree with the parents' backtrace")
+    if not torch.isfinite(dec.raw.scores).all():
+        raise AssertionError("seq2seq decode: non-finite beam scores")
+    ref, _ = beam_decode(cpu_net, cfg, src[:rows], src_len[:rows])
+    return {"ms": round(ms, 3), "steps": int(ids.shape[0]),
+            "cpu_rows": rows, **compare_beams(dec, ref, SEQ2SEQ_TOLERANCE)}
+
+
+def drive_seq2seq(cfg: dict, device: str, iters=SEQ2SEQ_ITERS,
+                  workers: int = SEQ2SEQ_WORKERS,
+                  twin_steps: int = SEQ2SEQ_TWIN_STEPS) -> dict:
+    """Train ``seq2seq_model(cfg)`` on ``device`` through ``Model.fit``
+    over a ``DataLoader`` of ``workers`` processes (shared-memory ring),
+    ``sum(iters)`` batches, with a ``StepTimeline``; hold its first
+    ``twin_steps`` losses to the same model's CPU twin (from the same
+    weights and generator seed); then beam-decode the first batch on the
+    device and on a CPU copy of the trained model.  Returns the figures."""
+    import copy
+
+    from paddle_tpu_torch import device_guard, io, obs, rng
+
+    cuda = torch.device(device).type == "cuda"
+    warm, timed = iters
+    B = cfg["batch"]
+    data = Seq2SeqPairs(cfg, B * (warm + timed))
+    rng.seed(0)
+    with device_guard(device):
+        net = seq2seq_model(cfg)
+    twin_net = copy.deepcopy(net).to("cpu")
+    # the untrained model's beams do not end: a full-length decode
+    res = {"decode_untrained": decode_and_compare(net, twin_net, cfg, data,
+                                                  device)}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    model = seq2seq_trainer(net, cfg)
+    loader = io.DataLoader(data, batch_size=B, num_workers=workers,
+                           timeout=300)
+    clock, tl = step_clock(), obs.StepTimeline()
+    before = _counts()
+    rng.seed(0)
+    t0 = time.perf_counter()
+    model.fit(loader, epochs=1, verbose=0, num_iters=warm + timed,
+              timeline=tl, callbacks=[clock])
+    fit_s = time.perf_counter() - t0
+    after = _counts()
+    res.update({"params": sum(p.numel() for p in net.parameters()),
+           "losses": clock.losses, "transport": dict(loader.transport),
+           "launches": _moved(before[0], after[0]),
+           "routes": _moved(before[1], after[1]),
+           "fit_s": round(fit_s, 3), "ppl": model._metrics[0].accumulate(),
+           "warmup_step_ms": [round(t, 3) for t in clock.ms[:warm]],
+           "start_s": round(clock.start_s, 3)})
+    ms = clock.ms[warm:]
+    res["step_ms"] = _quartiles(ms)
+    tokens = float(data.trg_mask[B * warm:].sum()) / timed
+    res["target_tokens_per_s"] = round(tokens / (float(np.median(ms))
+                                                 / 1e3), 1)
+    phases = {ph: 0.0 for ph in ("data_fetch", "step_dispatch",
+                                 "device_wait")}
+    for sp in tl.spans.values():
+        step = sp["trace"].rpartition(":s")[2]
+        if sp["name"] in phases and step.isdigit() and int(step) >= warm:
+            phases[sp["name"]] += sp["t_end"] - sp["t_start"]
+    res["data_fetch_share"] = round(phases["data_fetch"]
+                                    / sum(phases.values()), 5)
+    res["warmup_fetch_s"] = round(tl.phase_seconds["data_fetch"]
+                                  - phases["data_fetch"], 3)
+    if twin_steps:
+        twin, tclock = seq2seq_trainer(twin_net, cfg), step_clock()
+        rng.seed(0)
+        twin.fit(data, batch_size=B, epochs=1, verbose=0, shuffle=False,
+                 num_iters=twin_steps, callbacks=[tclock])
+        res["twin_losses"] = tclock.losses
+        res["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(
+            clock.losses[:twin_steps], tclock.losses))
+    if cuda:
+        x, y = next(iter(io.DataLoader(data, batch_size=B)))
+        prof = device_profile(lambda: model.train_batch(x, y))
+        res["launches_per_step"] = prof["launches"]
+        res["device_busy_ms"] = round(prof["busy_ms"], 3)
+        res["idle_share"] = round(1.0 - prof["busy_ms"]
+                                  / res["step_ms"]["median"], 4)
+    res["decode"] = decode_and_compare(net, copy.deepcopy(net).to("cpu"),
+                                       cfg, data, device)
+    if cuda:
+        res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+def check_seq2seq(res: dict, n_batches: int, workers: int) -> None:
+    """The train holds of ``seq2seq`` (the decode's are in
+    ``drive_seq2seq``)."""
+    if not np.all(np.isfinite(res["losses"])):
+        raise AssertionError(f"seq2seq: losses {res['losses']}")
+    if res.get("loss_rel_err", 0.0) > SEQ2SEQ_TOLERANCE["loss"]:
+        raise AssertionError(
+            f"seq2seq: the first losses {res['losses'][:3]} differ from the "
+            f"CPU twin's {res['twin_losses']} by {res['loss_rel_err']:.3e} "
+            f"(tolerance {SEQ2SEQ_TOLERANCE['loss']})")
+    want = {"ring": n_batches, "queue": 0} if workers else \
+        {"ring": 0, "queue": 0}
+    if res["transport"] != want:
+        raise AssertionError(f"seq2seq: batches came {res['transport']}, "
+                             f"want {want} (every batch through the "
+                             f"shared-memory ring)")
+
+
+def phase_seq2seq(cfg: dict = SEQ2SEQ, device: str = "cuda",
+                  iters=SEQ2SEQ_ITERS, workers: int = SEQ2SEQ_WORKERS
+                  ) -> dict:
+    """PaddleNLP's LSTM attention translator at its published widths
+    (``SEQ2SEQ``), f32 as the example trains: ``Model.fit`` over a
+    2-worker ``DataLoader`` for 13 batches (every one through the
+    shared-memory ring) with a ``StepTimeline``, its first 3 losses within
+    1e-4 of a CPU twin's; then beam search (beam 10, at most 50 steps) over
+    one batch of 128, on the card and on a CPU copy: the decided ids and
+    parents equal, scores within 1e-4, ``gather_tree``'s sequences those
+    of the parents' backtrace.  Prints the step's milliseconds, target
+    tokens/s, launches a step, the ``data_fetch`` share, the decode's
+    milliseconds and steps, and the peak memory."""
+    t0 = time.perf_counter()
+    res = drive_seq2seq(cfg, device, iters, workers)
+    check_seq2seq(res, sum(iters), workers)
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit("seq2seq", model="PaddleNLP seq2seq attention (IWSLT'15 en-vi "
+         "widths, port nn)", dtype="float32", cfg=cfg, iters=list(iters),
+         workers=workers, tolerance=SEQ2SEQ_TOLERANCE, **res)
+    return res
+
+
+# ---- hapi_fit: BERT-base's masked LM through paddle.Model -----------------
+
+#: hapi_fit's shapes: batches of 8 x 512 with 80 predicted positions a
+#: sample (BERT's ``max_predictions_per_seq`` at 512), 6 train batches, 2
+#: eval batches, 1 predict batch
+HAPI_FIT = {"batch": 8, "seq": 512, "predictions": 80, "train": 6,
+            "eval": 2, "predict": 1}
+
+
+class MlmSamples:
+    """Seeded masked-LM samples (numpy only): ids, token types, ``P``
+    sorted positions a sample and the ids there as labels.  Sample ``i``
+    is ``((ids, types, positions), labels)``."""
+
+    def __init__(self, cfg: dict, n: int, seq: int, predictions: int,
+                 seed: int = 0):
+        rs = np.random.RandomState(seed)
+        self.ids = rs.randint(0, cfg["vocab_size"], (n, seq))
+        self.types = rs.randint(0, cfg["type_vocab_size"], (n, seq))
+        self.pos = np.sort(np.stack([rs.choice(seq, predictions,
+                                               replace=False)
+                                     for _ in range(n)]), axis=1)
+        self.labels = np.take_along_axis(self.ids, self.pos, axis=1)
+
+    def __getitem__(self, i):
+        return (self.ids[i], self.types[i], self.pos[i]), self.labels[i]
+
+    def __len__(self):
+        return len(self.ids)
+
+
+def mlm_predictions(cfg: dict):
+    """``masked_lm(cfg)``'s layers with BERT pre-training's head input:
+    ``forward(ids, types, positions)`` gives the logits at the
+    ``positions`` only, ``[B, P, vocab]``."""
+    from paddle_tpu_torch import nn
+
+    class MaskedLMPredictions(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.mlm = masked_lm(cfg)
+
+        def forward(self, ids, types, positions):
+            m = self.mlm
+            pos = torch.arange(ids.shape[1], device=ids.device)
+            x = (m.word_embeddings(ids) + m.position_embeddings(pos)
+                 + m.token_type_embeddings(types))
+            h = m.encoder(m.dropout(m.layer_norm(x)))
+            h = h.gather(1, positions[..., None].expand(-1, -1, h.shape[-1]))
+            return m.head(h)
+
+    return MaskedLMPredictions()
+
+
+def mlm_loss(logits, labels):
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.cross_entropy(logits.float(), labels)
+
+
+def build_hapi_mlm(cfg: dict, device, seed: int = 0):
+    """``mlm_predictions(cfg)`` from ``seed`` at AMP O2 (bf16 parameters)
+    with AdamW on a ``LinearWarmup`` rate, in ``paddle.Model`` prepared
+    with the masked-LM loss, ``Accuracy`` and O2 bf16."""
+    from paddle_tpu_torch import Model, amp, device_guard, metric, rng
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    rng.seed(seed)
+    with device_guard(device):
+        net = mlm_predictions(cfg)
+    opt = AdamW(net.parameters(), lr=lr.LinearWarmup(
+        learning_rate=1e-4, warmup_steps=10, start_lr=0.0, end_lr=1e-4))
+    net, opt = amp.decorate(net, opt, level="O2")
+    return Model(net).prepare(opt, mlm_loss, metrics=metric.Accuracy(),
+                              amp_configs={"level": "O2"})
+
+
+def _states_equal(a, b) -> bool:
+    """Two (nested) state dicts hold the same keys and bitwise tensors."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(
+            _states_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_states_equal(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and \
+            torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def drive_hapi_fit(cfg: dict, device: str, shape: dict = HAPI_FIT) -> dict:
+    """``build_hapi_mlm`` trained through ``Model.fit`` (``shape["train"]``
+    batches, an ``eval_data`` of ``shape["eval"]`` batches at the epoch's
+    end) with ``ModelCheckpoint`` (its final save only), ``LRScheduler``
+    and ``EarlyStopping`` armed; then ``evaluate``, ``predict``, a fresh
+    model's ``load`` of the checkpoint (bitwise, the optimizer too) and
+    ``summary``.  Returns the launch and route counts of each part, the ms
+    a batch and the counts."""
+    import contextlib
+    import io as stdio
+    import os
+
+    from paddle_tpu_torch.hapi import callbacks as cbs
+    from paddle_tpu_torch.io import DataLoader
+
+    cuda = torch.device(device).type == "cuda"
+    B, S, P = shape["batch"], shape["seq"], shape["predictions"]
+    train = MlmSamples(cfg, B * shape["train"], S, P, seed=0)
+    evals = MlmSamples(cfg, B * shape["eval"], S, P, seed=1)
+    preds = MlmSamples(cfg, B * shape["predict"], S, P, seed=2)
+    model = build_hapi_mlm(cfg, device)
+    sched = model._optimizer._learning_rate
+    clock = step_clock()
+    res = {"params": sum(p.numel() for p in model.network.parameters())}
+    with tempfile.TemporaryDirectory() as tmp:
+        before = _counts()
+        model.fit(train, eval_data=evals, batch_size=B, epochs=1,
+                  verbose=0, shuffle=False, callbacks=[
+                      cbs.ModelCheckpoint(save_freq=2, save_dir=tmp),
+                      cbs.LRScheduler(),
+                      cbs.EarlyStopping(monitor="loss", patience=2,
+                                        verbose=0), clock])
+        after = _counts()
+        res["fit_launches"] = _moved(before[0], after[0])
+        res["fit_routes"] = _moved(before[1], after[1])
+        res["losses"] = clock.losses
+        res["batch_ms"] = _quartiles(clock.ms[1:])
+        res["first_batch_ms"] = round(clock.ms[0], 3)
+        res["lr_steps"] = sched.last_epoch
+        before = _counts()
+        res["eval_logs"] = model.evaluate(evals, batch_size=B, verbose=0)
+        after = _counts()
+        res["eval_launches"] = _moved(before[0], after[0])
+        res["eval_routes"] = _moved(before[1], after[1])
+        before = _counts()
+        out = model.predict(preds, batch_size=B)
+        after = _counts()
+        res["predict_launches"] = _moved(before[0], after[0])
+        res["predict_routes"] = _moved(before[1], after[1])
+        logits = out[0][0]
+        if logits.shape != (B, P, cfg["vocab_size"]) or \
+                not np.isfinite(logits).all():
+            raise AssertionError(f"hapi_fit: predict gave {logits.shape}, "
+                                 f"finite={bool(np.isfinite(logits).all())}")
+        fresh = build_hapi_mlm(cfg, device, seed=1)
+        t0 = time.perf_counter()
+        fresh.load(os.path.join(tmp, "final"))
+        res["load_s"] = round(time.perf_counter() - t0, 3)
+        res["checkpoint_gb"] = round(sum(
+            os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+            / 1e9, 3)
+        res["load_bitwise"] = (
+            _states_equal(model.network.state_dict(),
+                          fresh.network.state_dict())
+            and _states_equal(model._optimizer.state_dict(),
+                              fresh._optimizer.state_dict()))
+        del fresh
+    with contextlib.redirect_stdout(stdio.StringIO()) as table:
+        info = model.summary(input_size=[(1, S), (1, S), (1, P)],
+                             dtype=["int64"] * 3)
+    res["summary"] = {**info, "rows": table.getvalue().count("\n")}
+    res["stop_training"] = model.stop_training
+    if cuda:
+        res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        x, y = next(iter(DataLoader(train, batch_size=B)))
+        prof = device_profile(lambda: model.train_batch(x, y))
+        res["launches_per_batch"] = prof["launches"]
+        res["device_busy_ms"] = round(prof["busy_ms"], 3)
+        res["idle_share"] = round(1.0 - prof["busy_ms"]
+                                  / res["batch_ms"]["median"], 4)
+    return res
+
+
+def check_hapi_fit(res: dict, cfg: dict, shape: dict, cuda: bool) -> None:
+    """The holds of ``hapi_fit`` (see the phase)."""
+    layers = cfg["num_hidden_layers"]
+    if len(res["losses"]) != shape["train"] or \
+            not np.all(np.isfinite(res["losses"])):
+        raise AssertionError(f"hapi_fit: losses {res['losses']}")
+    if res["lr_steps"] != shape["train"]:
+        raise AssertionError(f"hapi_fit: LRScheduler stepped "
+                             f"{res['lr_steps']} times")
+    if not res["load_bitwise"]:
+        raise AssertionError("hapi_fit: the loaded model or optimizer "
+                             "differs from the saved one")
+    want = 132_363_066 if cfg == BERT_BASE else res["params"]
+    if res["summary"]["total_params"] != want or res["params"] != want:
+        raise AssertionError(f"hapi_fit: summary counts "
+                             f"{res['summary']} ({res['params']} "
+                             f"parameters), want {want}")
+    for part in ("fit", "eval", "predict"):
+        if res[f"{part}_routes"].get("plain"):
+            raise AssertionError(f"hapi_fit: the plain attention route ran "
+                                 f"in {part} ({res[f'{part}_routes']})")
+    if not cuda:
+        return
+    want = {**{n: layers * shape["train"] for n in NN_TRAIN_KERNELS},
+            "flash_fwd": layers * shape["eval"]}
+    if res["fit_launches"] != want:
+        raise AssertionError(f"hapi_fit: fit launches {res['fit_launches']}"
+                             f", want {want} (12 a train batch each, K1 12 "
+                             f"an eval batch)")
+    for part in ("eval", "predict"):
+        want = {"flash_fwd": layers * shape[part]}
+        if res[f"{part}_launches"] != want:
+            raise AssertionError(f"hapi_fit: {part} launches "
+                                 f"{res[f'{part}_launches']}, want {want}")
+
+
+def phase_hapi_fit(cfg: dict = BERT_BASE, device: str = "cuda",
+                   shape: dict = HAPI_FIT) -> dict:
+    """BERT-base's masked LM (``masked_lm``'s layers, logits at 80
+    positions a sample) through ``paddle.Model``: bf16 O2, AdamW on a
+    ``LinearWarmup`` rate, ``Accuracy``; ``fit`` over 6 batches of 8 x 512
+    (eager, as the reference's ``fit``) with ``ModelCheckpoint``,
+    ``LRScheduler`` and ``EarlyStopping``, the epoch's evaluation of 2
+    batches; ``evaluate`` (2 batches), ``predict`` (1), a fresh model's
+    ``load`` of the final checkpoint (bitwise, optimizer included) and
+    ``summary`` (132,363,066 parameters).  Holds: K1-K3's bf16 dropout
+    instances 12 a train batch each, K1 12 an eval or predict batch, the
+    plain attention route never.  Returns the fit's launches."""
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    res = drive_hapi_fit(cfg, device, shape)
+    check_hapi_fit(res, cfg, shape, cuda)
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit("hapi_fit", model="bert-base-uncased masked LM through "
+         "paddle.Model (port nn, hapi)", dtype="bfloat16 (AMP O2)",
+         shape=shape, **res)
+    return res
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -6464,6 +7241,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     nn_enc = phase_nn_encoder()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_seq2seq()
+    gc.collect()
+    torch.cuda.empty_cache()
+    hapi = phase_hapi_fit()
     launches = {**paged["launches"],
                 **{n: train["launches"][n] for n in TRAIN_KERNELS},
                 **{n: recipe[n] for n in RECIPE_KERNELS},
@@ -6484,7 +7267,8 @@ def main() -> int:
                 "train_fp16_scaler": fp16,
                 "train_recipe": recipe,
                 "train_resilience": train_res,
-                "nn_encoder": nn_enc["train_launches"]}
+                "nn_encoder": nn_enc["train_launches"],
+                "hapi_fit": hapi["fit_launches"]}
     kernels_line = [{**rec, "launches": launches[name],
                      "launches_by_phase": {ph: c[name]
                                            for ph, c in by_phase.items()

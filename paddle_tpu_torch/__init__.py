@@ -34,7 +34,13 @@ rollback), observed by :mod:`obs` (``StepTimeline``, ``CompileLedger``,
 ``CostLedger``) and :mod:`profiler`.  :mod:`nn` is Paddle's layers,
 functionals and initializers as ``torch.nn.Module``s (the attention
 layers on K1-K3 through ``nn.functional.scaled_dot_product_attention``),
-with :mod:`regularizer`'s ``L1Decay``/``L2Decay`` for the optimizers.
+with :mod:`regularizer`'s ``L1Decay``/``L2Decay`` for the optimizers,
+the recurrent layers and beam search (``nn.LSTM``, ``nn.BeamSearchDecoder``,
+``nn.dynamic_decode``).  The high-level path trains any such network:
+:class:`Model` (``prepare``, ``fit``, ``evaluate``, ``predict``, callbacks
+of :mod:`callbacks`) over :mod:`io`'s ``DataLoader`` (spawned workers
+handing batches over a shared-memory ring), with :mod:`metric`,
+:func:`summary` and :func:`flops`.
 Everything runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (for :mod:`nn`'s layers, :func:`set_device` or
 :func:`device_guard` with ``"cpu"``; with no card, building on the
@@ -42,16 +48,19 @@ default device raises); on CPU tensors each kernel's plain PyTorch
 version runs instead.
 """
 from . import (
-    amp, device, distributed, framework, inference, jit, models, nn, obs,
-    ops, optimizer, profiler, regularizer, rng, serving, static,
+    amp, device, distributed, framework, hapi, inference, io, jit, metric,
+    models, nn, obs, ops, optimizer, profiler, regularizer, rng, serving,
+    static,
 )
 from .device import device_guard, get_device, set_device
+from .hapi import Model, callbacks, flops, summary
 from .inference import create_engine
 from .rng import seed
 from .training import build_train_step
 
-__all__ = ["amp", "build_train_step", "create_engine", "device",
-           "device_guard", "distributed", "framework", "get_device",
-           "inference", "jit", "models", "nn", "obs", "ops", "optimizer",
-           "profiler", "regularizer", "rng", "seed", "serving",
-           "set_device", "static"]
+__all__ = ["Model", "amp", "build_train_step", "callbacks",
+           "create_engine", "device", "device_guard", "distributed", "flops",
+           "framework", "get_device", "hapi", "inference", "io", "jit",
+           "metric", "models", "nn", "obs", "ops", "optimizer", "profiler",
+           "regularizer", "rng", "seed", "serving", "set_device", "static",
+           "summary"]

@@ -8,9 +8,10 @@ and shapes (torch's ``[out, in]`` for ``Linear``), so a JAX layer tree's
 functionals, :mod:`.initializer` the parameter laws, :mod:`.utils` weight
 and spectral norm, :mod:`.clip` gradient clipping.  The attention layers
 reach the flash kernels through
-:func:`.functional.scaled_dot_product_attention`.  Not ported yet: the
-RNN layers and cells, ``BeamSearchDecoder`` and ``dynamic_decode``
-(``nn/layer/rnn.py``, ``nn/layer/decode.py``; ROADMAP A.5 step 3b).
+:func:`.functional.scaled_dot_product_attention`.  The recurrent layers
+(:mod:`.layer.rnn`: the cells, ``RNN``, ``BiRNN``, ``SimpleRNN``,
+``LSTM``, ``GRU``) loop torch ops over time; ``BeamSearchDecoder`` and
+``dynamic_decode`` (:mod:`.layer.decode`) decode over a cell.
 """
 from . import functional, initializer, utils
 from .clip import (
@@ -30,6 +31,7 @@ from .layer.common import (
     Upsample, UpsamplingBilinear2D, UpsamplingNearest2D, ZeroPad2D,
 )
 from .layer.container import LayerDict, LayerList, ParameterList, Sequential
+from .layer.decode import BeamSearchDecoder, Decoder, dynamic_decode
 from .layer.conv import (
     Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
     Conv3DTranspose,
@@ -51,6 +53,10 @@ from .layer.pooling import (
     AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
     AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D, MaxUnPool1D,
     MaxUnPool2D, MaxUnPool3D,
+)
+from .layer.rnn import (
+    GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell, RNNCellBase, SimpleRNN,
+    SimpleRNNCell,
 )
 from .layer.transformer import (
     MultiHeadAttention, Transformer, TransformerDecoder,

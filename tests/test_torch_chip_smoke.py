@@ -1016,3 +1016,127 @@ def test_nn_encoder_holds_refuse_a_plain_route():
     res["losses"] = [1.0, 2.0]
     with pytest.raises(AssertionError, match="losses"):
         chip_smoke.check_nn_encoder(res, 2, cuda=False)
+
+
+#: seq2seq at a tiny width: 2 layers, hidden 32, vocabularies of 64
+SEQ2SEQ_TINY = {**chip_smoke.SEQ2SEQ, "src_vocab": 64, "trg_vocab": 64,
+                "embed": 32, "hidden": 32, "batch": 8, "beam": 4,
+                "max_out": 12, "min_len": 4, "max_len": 12}
+
+
+def test_seq2seq_phase_on_tiny_cpu():
+    """``phase_seq2seq`` at a tiny width on the CPU: ``Model.fit`` over two
+    workers (every batch through the ring), the losses equal to the CPU
+    twin's (the same device: bitwise), the beam search held to its CPU
+    copy's (every step decided or not, ids equal) and its backtrace."""
+    res = chip_smoke.phase_seq2seq(SEQ2SEQ_TINY, "cpu", (1, 2))
+    assert len(res["losses"]) == 3 and res["loss_rel_err"] == 0.0
+    assert res["transport"] == {"ring": 3, "queue": 0}
+    assert res["decode_untrained"]["steps"] == SEQ2SEQ_TINY["max_out"]
+    for part in ("decode_untrained", "decode"):
+        assert res[part]["cpu_rows"] == 8
+        assert res[part]["score_rel_err"] == 0.0
+    assert 0.0 <= res["data_fetch_share"] < 1.0
+    assert not res["launches"] and not res["routes"]
+
+
+def test_seq2seq_model_matches_a_hand_loop():
+    """The decoder's teacher-forced forward equals stepping its cell by
+    hand, and the loss is the example's (masked, batch mean, step sum)."""
+    from paddle_tpu_torch import device_guard, rng
+
+    cfg = SEQ2SEQ_TINY
+    data = chip_smoke.Seq2SeqPairs(cfg, 4)
+    rng.seed(0)
+    with device_guard("cpu"):
+        net = chip_smoke.seq2seq_model(cfg).eval()
+    src, src_len, trg = (torch.from_numpy(a[:4]) for a in (
+        data.src, data.src_len, data.trg_in))
+    logits = net(src, src_len, trg)
+    keys, states, mask = net.encode(src, src_len)
+    for b in range(4):
+        row, n = mask[b, 0], int(src_len[b])
+        assert (row[:n] == 0).all() and (row[n:] == -1e9).all()
+    for t in range(trg.shape[1]):
+        out, states = net.cell(net.trg_embedder(trg[:, t]), states, keys,
+                               mask)
+        torch.testing.assert_close(net.output_layer(out), logits[:, t],
+                                   rtol=0, atol=0)
+    label, tmask = (torch.from_numpy(a[:4]) for a in (data.trg_out,
+                                                      data.trg_mask))
+    ce = torch.nn.functional.cross_entropy(logits.transpose(1, 2), label,
+                                           reduction="none")
+    torch.testing.assert_close(chip_smoke.seq2seq_loss(logits, label, tmask),
+                               (ce * tmask).sum() / 4)
+    assert (data.trg_out[data.trg_mask == 0] == cfg["eos"]).all()
+    assert data.trg_mask.sum(1).min() >= cfg["min_len"] + 1
+
+
+def test_compare_beams_refuses_a_decided_difference():
+    """Where the CPU's margins are wide, a differing id fails; past a
+    near-tie it does not."""
+    from types import SimpleNamespace
+
+    def dec(ids, scores, tops):
+        ids = torch.tensor(ids)
+        return SimpleNamespace(raw=SimpleNamespace(
+            predicted_ids=ids, parent_ids=torch.zeros_like(ids),
+            scores=torch.tensor(scores)), tops=[torch.tensor(t)
+                                                for t in tops])
+
+    tops = [[[0.0, -1.0, -2.0]], [[-1.0, -1.00001, -3.0]]]
+    ref = dec([[[1, 2]], [[3, 4]]], [[[0.0, -1.0]], [[-1.0, -1.00001]]],
+              tops)
+    swapped = dec([[[1, 2]], [[4, 3]]], [[[0.0, -1.0]], [[-1.00001, -1.0]]],
+                  tops)
+    got = chip_smoke.compare_beams(swapped, ref, chip_smoke.SEQ2SEQ_TOLERANCE)
+    assert got["decided_share"] == 0.5
+    wrong = dec([[[2, 1]], [[3, 4]]], [[[0.0, -1.0]], [[-1.0, -1.00001]]],
+                tops)
+    with pytest.raises(AssertionError, match="decided ids"):
+        chip_smoke.compare_beams(wrong, ref, chip_smoke.SEQ2SEQ_TOLERANCE)
+
+
+#: hapi_fit at a tiny width (BERT 2 layers of 64)
+HAPI_TINY = {"batch": 2, "seq": 16, "predictions": 4, "train": 3, "eval": 2,
+             "predict": 1}
+BERT_TINY_64 = {**BERT_TINY, "hidden_size": 64, "num_attention_heads": 1}
+
+
+def test_hapi_fit_phase_on_tiny_cpu():
+    """``phase_hapi_fit`` at a tiny width on the CPU: fit with the three
+    callbacks, evaluate, predict, the checkpoint's load bitwise, summary's
+    count, the kernel route in every attention call."""
+    res = chip_smoke.phase_hapi_fit(BERT_TINY_64, "cpu", HAPI_TINY)
+    assert len(res["losses"]) == 3 and res["lr_steps"] == 3
+    assert res["load_bitwise"]
+    assert res["summary"]["total_params"] == res["params"]
+    # 2 layers: 3 train batches, the epoch's 2 eval batches
+    assert res["fit_routes"] == {"kernel": 2 * (3 + 2)}
+    assert res["eval_routes"] == {"kernel": 4}
+    assert res["predict_routes"] == {"kernel": 2}
+    assert set(res["eval_logs"]) == {"loss", "acc"}
+    assert not res["fit_launches"]
+
+
+def test_hapi_fit_holds_want_twelve_launches_a_batch():
+    res = {"losses": [1.0] * 6, "lr_steps": 6, "load_bitwise": True,
+           "params": 132_363_066,
+           "summary": {"total_params": 132_363_066},
+           "fit_routes": {"kernel": 96}, "eval_routes": {"kernel": 24},
+           "predict_routes": {"kernel": 12},
+           "fit_launches": {**{n: 72 for n in chip_smoke.NN_TRAIN_KERNELS},
+                            "flash_fwd": 24},
+           "eval_launches": {"flash_fwd": 24},
+           "predict_launches": {"flash_fwd": 12}}
+    chip_smoke.check_hapi_fit(res, chip_smoke.BERT_BASE, chip_smoke.HAPI_FIT,
+                              cuda=True)
+    res["fit_launches"] = {**res["fit_launches"], "flash_fwd_dropout": 71}
+    with pytest.raises(AssertionError, match="fit launches"):
+        chip_smoke.check_hapi_fit(res, chip_smoke.BERT_BASE,
+                                  chip_smoke.HAPI_FIT, cuda=True)
+    res["fit_launches"]["flash_fwd_dropout"] = 72
+    res["predict_routes"] = {"kernel": 11, "plain": 1}
+    with pytest.raises(AssertionError, match="plain attention route"):
+        chip_smoke.check_hapi_fit(res, chip_smoke.BERT_BASE,
+                                  chip_smoke.HAPI_FIT, cuda=True)

@@ -2136,3 +2136,155 @@ def test_batch_norm_step_under_to_static_updates_running_stats(cuda_device):
                                rtol=1e-5)
     torch.testing.assert_close(bn._variance, eager_net[1]._variance,
                                atol=1e-5, rtol=1e-5)
+
+
+# ---- the high-level path: RNN, beam search, io workers, Model.fit ---------
+
+def _rnn_pair(cls, cuda_device, **kw):
+    """``cls(**kw)`` on the card and its CPU twin (the same draw)."""
+    import copy
+
+    from paddle_tpu_torch import device_guard, rng
+
+    rng.seed(0)
+    with device_guard(cuda_device):
+        net = cls(**kw)
+    return net, copy.deepcopy(net).to("cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["LSTM", "GRU"])
+@pytest.mark.parametrize("direction", ["forward", "bidirect"])
+def test_rnn_forward_backward_on_the_card_match_the_cpu(cuda_device, kind,
+                                                        direction):
+    from paddle_tpu_torch import nn
+
+    card, cpu = _rnn_pair(getattr(nn, kind), cuda_device, input_size=48,
+                          hidden_size=64, num_layers=2, direction=direction)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 30, 48, generator=gen)
+    c = torch.randn(4, 30, 64 * (2 if direction == "bidirect" else 1),
+                    generator=gen)
+    outs = {}
+    for name, net, dev in (("card", card, cuda_device), ("cpu", cpu, "cpu")):
+        xi = x.to(dev).requires_grad_()
+        out, _ = net(xi)
+        (out * c.to(dev)).sum().backward()
+        outs[name] = (out.detach().cpu(), xi.grad.cpu(),
+                      {n: p.grad.cpu() for n, p in net.named_parameters()})
+    assert card.fw_cells[0].weight_ih.device.type == "cuda"
+    torch.testing.assert_close(outs["card"][0], outs["cpu"][0], atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(outs["card"][1], outs["cpu"][1], atol=1e-4,
+                               rtol=1e-4)
+    for n, g in outs["cpu"][2].items():
+        scale = max(float(g.abs().max()), 1e-3)
+        err = float((outs["card"][2][n] - g).abs().max()) / scale
+        assert err <= 1e-4, (n, err)
+
+
+@pytest.mark.cuda
+def test_beam_search_ties_on_the_card_equal_the_cpu(cuda_device):
+    """The deterministic cell's table (every step ties exactly): the
+    card's stable sort keeps ``lax.top_k``'s order, as the CPU's does."""
+    from paddle_tpu_torch import nn
+
+    V, B, K = 9, 3, 5
+    tbl = torch.full((V, V), -5.0)
+    for t in range(V):
+        tbl[t, (t + 1) % V] = 5.0
+
+    def decode(dev):
+        table = tbl.to(dev)
+
+        class Recording(nn.BeamSearchDecoder):
+            def finalize(self, outputs, final_states, lengths):
+                self.raw = outputs
+                return super().finalize(outputs, final_states, lengths)
+
+        dec = Recording(lambda ids, st: (table.index_select(0, ids), st),
+                        0, V - 1, K)
+        seqs, _, lens = nn.dynamic_decode(
+            dec, inits=torch.zeros(B, 1, device=dev), max_step_num=12,
+            return_length=True)
+        return [t.cpu() for t in (seqs, dec.raw.predicted_ids,
+                                  dec.raw.parent_ids, dec.raw.scores, lens)]
+
+    card, cpu = decode(cuda_device), decode("cpu")
+    for a, b in zip(card[:3] + card[4:], cpu[:3] + cpu[4:]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(card[3], cpu[3], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_two_workers_feed_a_card_model(cuda_device):
+    """Two spawned workers load through the shared-memory ring, without
+    CUDA in either, and their batches train a model on the card."""
+    import os
+
+    import torch_io_data
+    from paddle_tpu_torch import Model, device_guard, io, nn, rng
+    from paddle_tpu_torch.optimizer import SGD
+
+    probe = io.DataLoader(torch_io_data.WorkerProbe(8), batch_size=2,
+                          num_workers=2, timeout=60)
+    batches = list(probe)
+    assert probe.transport == {"ring": 4, "queue": 0}
+    assert all(int(b[2].sum()) == 0 and int(b[3].min()) == 1
+               for b in batches)
+    assert os.getpid() not in {int(v) for b in batches for v in b[1]}
+    rng.seed(0)
+    with device_guard(cuda_device):
+        net = nn.Linear(1, 3)
+    model = Model(net).prepare(SGD(net.parameters(), lr=0.1),
+                               nn.CrossEntropyLoss())
+    loader = io.DataLoader(torch_io_data.RangeDataset(24), batch_size=6,
+                           num_workers=2, timeout=60)
+    model.fit(loader, epochs=1, verbose=0)
+    assert loader.transport == {"ring": 4, "queue": 0}
+    assert net.weight.device.type == "cuda" and torch.isfinite(
+        net.weight).all()
+
+
+@pytest.mark.cuda
+def test_model_fit_on_the_card_matches_the_cpu(cuda_device):
+    """A classifier on the card trains, evaluates and predicts through
+    ``Model`` as its CPU twin does (f32, 1e-5)."""
+    import copy
+
+    from paddle_tpu_torch import Model, device_guard, metric, nn, rng
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.optimizer import Adam
+
+    class Losses(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+
+    rs = np.random.RandomState(0)
+    x = rs.randn(64, 16).astype(np.float32)
+    y = (x @ rs.randn(16) > 0).astype(np.int64)
+    data = list(zip(x, y))
+    rng.seed(0)
+    with device_guard(cuda_device):
+        net = nn.Sequential(nn.Linear(16, 32), nn.ReLU(), nn.Linear(32, 2))
+    runs = {}
+    for name, n in (("card", net), ("cpu", copy.deepcopy(net).to("cpu"))):
+        m = Model(n).prepare(Adam(n.parameters(), lr=0.01),
+                             nn.CrossEntropyLoss(), metrics=metric.Accuracy())
+        rec = Losses()
+        m.fit(data, batch_size=16, epochs=2, verbose=0, shuffle=False,
+              callbacks=[rec])
+        runs[name] = (rec.losses, m.evaluate(data, batch_size=32, verbose=0),
+                      m.predict(data, batch_size=32, stack_outputs=True)[0])
+    np.testing.assert_allclose(runs["card"][0], runs["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    assert runs["card"][1]["acc"] == runs["cpu"][1]["acc"]
+    np.testing.assert_allclose(runs["card"][1]["loss"], runs["cpu"][1]["loss"],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(runs["card"][2], runs["cpu"][2], rtol=1e-5,
+                               atol=1e-5)
+    assert net.parameters()[0].device.type == "cuda"

@@ -1,7 +1,7 @@
 """The port's ``nn`` against the JAX package's, on the CPU.
 
 Spec: ``tests/test_nn.py`` and ``tests/test_nn_extras.py`` (the RNN cases
-excepted: ``nn/layer/rnn.py`` is not ported yet).  Every case builds its
+are in ``tests/test_torch_rnn.py``).  Every case builds its
 inputs from a seeded ``numpy.random.RandomState`` and runs them through a
 JAX functional or layer and its port; a layer's weights go from the JAX
 layer's ``state_dict()`` through ``models.port_state_dict_from_jax`` into
@@ -38,10 +38,10 @@ torch.set_num_threads(2)
 ELEMENTWISE = 1e-5
 REDUCING = 1e-4
 
-#: the names of ``paddle_tpu.nn`` whose port is ROADMAP A.5 step 3b
-STEP_3B = {"RNNCellBase", "SimpleRNNCell", "LSTMCell", "GRUCell", "RNN",
-           "BiRNN", "SimpleRNN", "LSTM", "GRU", "Decoder",
-           "BeamSearchDecoder", "dynamic_decode"}
+#: the names of ``paddle_tpu.nn`` still to port (ROADMAP A.5 step 3b, the
+#: recurrent and decode layers, is done: ``tests/test_torch_rnn.py`` and
+#: ``tests/test_torch_decode.py`` hold them)
+STEP_3B = set()
 
 
 @pytest.fixture(autouse=True)

@@ -271,6 +271,22 @@ Phases, each printing one JSON line with the card's name and power limit:
               a run (one a layer) and nothing else, a
               ``PredictorPool(config, 2)`` loading once; then a small f16
               GPT saved on the CPU, served on the card with K1.
+23b. dy2static_generate — GPT-2 345M f16 (as ``predictor``) generating
+              greedily with ``greedy_search`` (PaddleNLP's
+              ``GenerationMixin.greedy_search`` loop: a tensor test, a
+              tensor-predicated ``break``) on a ``[4, 256]`` id buffer with
+              a 64-token prompt: eagerly (a host read a trip), through
+              ``jit.to_static`` (the eager first call, then one CUDA graph
+              whose WHILE node runs the forward, K1 24 times a trip, and
+              the break's IF pair) and ``jit.save`` → ``create_predictor``
+              (``torch.while_loop`` run by torch's own path): the ids and
+              the final ``cur_len`` bitwise equal; K1 launched 24 × trips
+              in a replay; a batch-1 run whose eos is the token the eager
+              run emits at step 40 stops, replayed, at the eager loop's
+              ``cur_len``.  Then ``graph_control``: the WHILE node's cost
+              a trip over a one-kernel body against the same body
+              unrolled (a bare replay), the plain loop and
+              ``torch.while_loop``, and its build's seconds.
 
 24. nn_encoder — BERT-base's masked-LM model (``bert-base-uncased``:
               hidden 768, 12 layers of 12 heads, FFN 3072, vocabulary
@@ -313,8 +329,10 @@ Phases, each printing one JSON line with the card's name and power limit:
               an eval or predict batch, the plain route never.
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
-``{"kernels": [...]}`` line (K1-K5, K1-K3's dropout instances and every
-f16 instance: each kernel's ``launches`` on its main path,
+``{"kernels": [...]}`` line (K1-K5, K1-K3's dropout instances, every
+f16 instance and the conditional nodes' kernel ``graph_conditional``
+(``dy2static_generate``'s replay): each kernel's ``launches`` on its main
+path,
 ``train_recipe`` for the dropout instances, ``train_fp16_scaler`` for
 K1-K3's f16 ones, ``serve_f16``'s 7B run for K4/K5's, and
 ``launches_by_phase``, ``nn_encoder``'s train steps and ``hapi_fit``'s
@@ -351,6 +369,8 @@ TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 1e-2}
 LSE_TOLERANCE = 1e-3
 
 CARD = ""
+#: nvcc's seconds per library in this run's build phase
+BUILD_SECONDS: dict = {}
 
 
 def card_line() -> str:
@@ -518,6 +538,7 @@ def phase_build() -> dict:
     emit("build", seconds=round(secs, 3),
          per_library={n: r["seconds"] for n, r in info.items()},
          ptxas=ptxas, hgmma=hgmma)
+    BUILD_SECONDS.update({n: r["seconds"] for n, r in info.items()})
     return hgmma
 
 
@@ -5027,6 +5048,288 @@ def phase_predictor() -> dict:
     return res["launches"]
 
 
+# -- phase 23b: dy2static_generate ------------------------------------------
+
+#: the id buffer of the generation loop, and its prompt's length
+GEN_IDS = (4, 256)
+GEN_PROMPT = 64
+#: the early-stop run: its eos is the token the eager run emits here
+GEN_EARLY_STEP = 40
+#: trips of the graph_control loop (a one-kernel body)
+NODE_TRIPS = 1000
+
+
+def greedy_step(model, input_ids, unfinished_flag, cur_len, eos_token_id):
+    """One token of greedy decoding over a fixed id buffer: a full causal
+    forward, the argmax at ``cur_len - 1``, written at ``cur_len`` by a
+    device select (a finished row writes ``eos``).  The causal mask keeps
+    the buffer's unfilled tail out of every written position."""
+    logits = model(input_ids)
+    next_token_logits = logits.index_select(
+        1, (cur_len - 1).reshape(1))[:, 0]
+    next_tokens = next_token_logits.argmax(-1)
+    next_tokens = torch.where(unfinished_flag, next_tokens, eos_token_id)
+    positions = torch.arange(input_ids.shape[1], device=input_ids.device)
+    input_ids = torch.where(positions == cur_len, next_tokens[:, None],
+                            input_ids)
+    unfinished_flag = unfinished_flag & (next_tokens != eos_token_id)
+    return input_ids, unfinished_flag, cur_len + 1
+
+
+def greedy_search(model, input_ids, cur_len, max_length: int,
+                  eos_token_id):
+    """PaddleNLP ``GenerationMixin.greedy_search``'s loop: generate until
+    ``max_length`` or until every row has emitted ``eos_token_id`` (a
+    tensor-predicated early stop).  ``cur_len`` is a 0-d int64 tensor, so
+    the loop's test is a tensor's value: Python's loop on the CPU and at a
+    program's eager call, a WHILE node (its break an IF pair inside it)
+    captured on the card, ``torch.while_loop`` in a saved program."""
+    unfinished_flag = input_ids[:, 0] == input_ids[:, 0]
+    while cur_len < max_length:
+        input_ids, unfinished_flag, cur_len = greedy_step(
+            model, input_ids, unfinished_flag, cur_len, eos_token_id)
+        if not unfinished_flag.any():
+            break
+    return input_ids, cur_len
+
+
+class GreedyGenerator(torch.nn.Module):
+    """``greedy_search`` over a model as a layer (``jit.save`` exports a
+    layer's forward): ``(input_ids, cur_len, eos_token_id) -> (ids,
+    cur_len)``."""
+
+    def __init__(self, model, max_length: int):
+        super().__init__()
+        self.model = model
+        self.max_length = max_length
+
+    def forward(self, input_ids, cur_len, eos_token_id):
+        return greedy_search(self.model, input_ids, cur_len,
+                             self.max_length, eos_token_id)
+
+
+def gen_inputs(ids: np.ndarray, prompt: int, eos: int, device):
+    buf = torch.zeros(ids.shape, dtype=torch.int64, device=device)
+    buf[:, :prompt] = torch.from_numpy(ids[:, :prompt]).to(device)
+    return (buf, torch.tensor(prompt, dtype=torch.int64, device=device),
+            torch.tensor(eos, dtype=torch.int64, device=device))
+
+
+def timed_call(fn, *args):
+    """``(fn(*args), host ms)`` with the card synchronized around."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def drive_generate(gen, ids: np.ndarray, prompt: int, eos: int, device,
+                   root: str, predictor: bool = True) -> dict:
+    """``gen`` (a :class:`GreedyGenerator`) on ``ids``' prompt: eagerly,
+    through ``jit.to_static`` (the eager first call, the capture, then
+    replays) and, with ``predictor``, ``jit.save`` → ``create_predictor``.
+    Returns the ids and final ``cur_len`` of each, the replay's K1
+    launches and the times."""
+    from paddle_tpu_torch import inference, jit, static
+    from paddle_tpu_torch.ops import kernels
+
+    dev = torch.device(device)
+    args = gen_inputs(ids, prompt, eos, dev)
+    res = {}
+    with torch.no_grad():
+        (e_ids, e_len), res["eager_ms"] = timed_call(gen, *args)
+        res["eager_ids"], res["eager_len"] = e_ids.cpu().numpy(), int(e_len)
+        static_fn = jit.to_static(gen.forward)
+        (_, _), res["first_call_ms"] = timed_call(static_fn, *args)
+        (s_ids, s_len), res["capture_ms"] = timed_call(static_fn, *args)
+        kernels.reset_launches()
+        (s_ids, s_len), res["replay_ms"] = timed_call(static_fn, *args)
+        res["replay_launches"] = {n: c for n, c in
+                                  kernels.launch_counts().items() if c}
+        res["static_ids"], res["static_len"] = (s_ids.cpu().numpy(),
+                                                int(s_len))
+        res["captures"] = static_fn.captures
+        res["programs"] = len(static_fn.program_cache)
+    if not predictor:
+        return res
+    path = os.path.join(root, "generate")
+    t0 = time.perf_counter()
+    jit.save(gen, path, input_spec=[
+        static.InputSpec(list(ids.shape), "int64", name="input_ids"),
+        static.InputSpec([], "int64", name="cur_len"),
+        static.InputSpec([], "int64", name="eos_token_id")])
+    res["save_s"] = time.perf_counter() - t0
+    cfg = inference.Config(path)
+    if dev.type == "cuda":
+        cfg.enable_use_gpu(256, dev.index or 0)
+    else:
+        cfg.disable_gpu()
+    pred = inference.create_predictor(cfg)
+    host = [a.cpu().numpy() for a in args]
+    for name, a in zip(pred.get_input_names(), host):
+        pred.get_input_handle(name).copy_from_cpu(a)
+    res["predictor_first_ms"] = _timed_run(pred, dev)
+    kernels.reset_launches()
+    res["predictor_ms"] = _timed_run(pred, dev)
+    res["predictor_launches"] = {n: c for n, c in
+                                 kernels.launch_counts().items() if c}
+    outs = [pred.get_output_handle(n).copy_to_cpu()
+            for n in pred.get_output_names()]
+    res["predictor_ids"], res["predictor_len"] = outs[0], int(outs[1])
+    return res
+
+
+def check_generate(res: dict, layers: int, tag: str, cuda: bool) -> None:
+    for other in ("static", "predictor"):
+        if other + "_ids" not in res:
+            continue
+        if not (np.array_equal(res[other + "_ids"], res["eager_ids"])
+                and res[other + "_len"] == res["eager_len"]):
+            raise AssertionError(f"{tag}: {other} ids or cur_len differ "
+                                 f"from the eager loop's")
+    if cuda:
+        trips = res["static_len"] - GEN_PROMPT
+        k1 = res["replay_launches"].get("flash_fwd_f16", 0)
+        if k1 != layers * trips or res["captures"] != 1:
+            raise AssertionError(f"{tag}: K1 launched {k1} times in a "
+                                 f"replay of {trips} trips ({layers} "
+                                 f"layers), captures {res['captures']}")
+
+
+def node_cost(device) -> dict:
+    """The WHILE node's cost a trip: a loop of ``NODE_TRIPS`` trips over a
+    one-kernel body (``x + 1`` on 256 floats, the counter, the test)
+    captured with a WHILE node, against the same body unrolled into a
+    graph (a bare replay), the plain version (Python's loop, one host read
+    a trip) and ``torch.while_loop`` (its eager path), each per trip."""
+    from paddle_tpu_torch.static import nn as snn
+
+    x0 = torch.zeros(256, device=device)
+    n = torch.tensor(NODE_TRIPS, device=device)
+
+    def c(i, x):
+        return i < n
+
+    def b(i, x):
+        return i + 1, x + 1.0
+
+    def fresh():
+        return [torch.zeros((), dtype=torch.int64, device=device), x0]
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    g_while, g_flat = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    start = fresh()
+    nodes = snn.Nodes(device)
+    with nodes, torch.cuda.graph(g_while, stream=side):
+        w_out = snn.while_loop(c, b, start)
+    flat = fresh()
+    with torch.cuda.graph(g_flat, stream=side):
+        i, x = flat
+        for _ in range(NODE_TRIPS):
+            i, x = b(i, x)
+            c(i, x)
+    while_ms = cuda_ms(g_while.replay, iters=5) / NODE_TRIPS
+    flat_ms = cuda_ms(g_flat.replay, iters=5) / NODE_TRIPS
+    torch.cuda.synchronize()
+    plain = fresh()
+    t0 = time.perf_counter()
+    out = snn.while_loop(c, b, plain)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / NODE_TRIPS
+    t0 = time.perf_counter()
+    lib = torch.while_loop(c, b, tuple(fresh()))
+    torch.cuda.synchronize()
+    library_ms = (time.perf_counter() - t0) * 1e3 / NODE_TRIPS
+    err = max(float((w_out[1] - out[1]).abs().max()),
+              float((lib[1] - out[1]).abs().max()),
+              abs(int(w_out[0]) - NODE_TRIPS))
+    del g_while, w_out
+    nodes.release()
+    return {"trips": NODE_TRIPS, "while_ms_per_trip": while_ms,
+            "unrolled_ms_per_trip": flat_ms,
+            "node_ms_per_trip": while_ms - flat_ms,
+            "plain_ms_per_trip": plain_ms, "library_ms_per_trip": library_ms,
+            "max_abs_err": err}
+
+
+def phase_dy2static_generate(build: dict) -> dict:
+    """GPT-2 345M f16 (``amp.decorate`` O2, as ``predictor``) generating
+    greedily with :func:`greedy_search` on a ``[4, 256]`` buffer with a
+    64-token prompt: eager, through ``to_static`` (one CUDA graph whose
+    WHILE node runs K1 in its body, 24 launches a trip) and saved /
+    served by ``create_predictor``, the ids bitwise equal; then a batch-1
+    run whose eos is the token the eager run emits at step 40, stopped by
+    the replayed graph's own predicate at the eager loop's ``cur_len``;
+    then the WHILE node's cost a trip (``graph_control``).  Returns the
+    kernels-line record of the conditional kernel and the launches of the
+    main run's replay."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_345m
+    from paddle_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(gpt2_345m(hidden_dropout_prob=0.0,
+                                     attention_probs_dropout_prob=0.0),
+                           device="cuda", dtype=torch.float32,
+                           generator=gen).eval()
+    model = amp.decorate(model, level="O2", dtype="float16")
+    layers = model.config.num_hidden_layers
+    ids = np.random.RandomState(7).randint(0, model.config.vocab_size,
+                                           GEN_IDS)
+    generator = GreedyGenerator(model, GEN_IDS[1])
+    with tempfile.TemporaryDirectory() as root:
+        res = drive_generate(generator, ids, GEN_PROMPT, -1, "cuda", root)
+    check_generate(res, layers, "dy2static_generate", cuda=True)
+    emit("dy2static_generate", model="gpt2-345m", dtype="float16 (amp."
+         "decorate O2)", ids=list(GEN_IDS), prompt=GEN_PROMPT,
+         cur_len=res["eager_len"], trips=res["static_len"] - GEN_PROMPT,
+         ids_equal=True, replay_launches=res["replay_launches"],
+         predictor_launches=res["predictor_launches"],
+         **{k: round(res[k], 3) for k in (
+             "eager_ms", "first_call_ms", "capture_ms", "replay_ms",
+             "save_s", "predictor_first_ms", "predictor_ms")})
+    main_launches = res["replay_launches"]
+    # the early stop: batch 1, eos = the token emitted at step 40
+    eos = int(res["eager_ids"][0, GEN_PROMPT + GEN_EARLY_STEP])
+    early = drive_generate(generator, ids[:1], GEN_PROMPT, eos, "cuda",
+                           "", predictor=False)
+    check_generate(early, layers, "dy2static_generate/early", cuda=True)
+    if not early["static_len"] < GEN_IDS[1]:
+        raise AssertionError("dy2static_generate: the early-stop run did "
+                             "not stop early")
+    emit("dy2static_generate", run="early stop", batch=1, eos=eos,
+         cur_len=early["static_len"], eager_cur_len=early["eager_len"],
+         stop_step=early["static_len"] - GEN_PROMPT,
+         replay_launches=early["replay_launches"],
+         **{k: round(early[k], 3) for k in (
+             "eager_ms", "capture_ms", "replay_ms")})
+    del model, generator
+    gc.collect()
+    torch.cuda.empty_cache()
+    cost = node_cost(torch.device("cuda"))
+    emit("graph_control", build_s=build.get("graph_control"), **cost)
+    if not cost["max_abs_err"] == 0:
+        raise AssertionError(f"graph_control: the WHILE node's loop differs "
+                             f"from the plain loop's: {cost}")
+    info = kernels.KERNELS["graph_conditional"]
+    record = {"name": info.name, "route": "cuda", "source": info.source,
+              "replaces": info.replaces,
+              "case": f"WHILE node, {NODE_TRIPS} trips of a one-kernel "
+                      f"body, per trip",
+              "max_abs_err": cost["max_abs_err"], "tolerance": 0,
+              "ms": cost["while_ms_per_trip"],
+              "plain_ms": cost["plain_ms_per_trip"],
+              # one bool read a trip
+              "bound_ms": 1 / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+              "library_ms": cost["library_ms_per_trip"],
+              "library_call": "torch.while_loop (eager)"}
+    return {"record": record, "launches": main_launches}
+
+
 # -- phases 12, 13 and 14: training ----------------------------------------
 
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -7219,6 +7522,9 @@ def main() -> int:
     predictor = phase_predictor()
     gc.collect()
     torch.cuda.empty_cache()
+    generate = phase_dy2static_generate(BUILD_SECONDS)
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_train()
     gc.collect()
     torch.cuda.empty_cache()
@@ -7251,11 +7557,15 @@ def main() -> int:
                 **{n: train["launches"][n] for n in TRAIN_KERNELS},
                 **{n: recipe[n] for n in RECIPE_KERNELS},
                 **{n: fp16[n] for n in F16_KERNELS + F16_DROPOUT_KERNELS},
-                **{n: f16["llama2-7b"][n] for n in F16_SERVE_KERNELS}}
+                **{n: f16["llama2-7b"][n] for n in F16_SERVE_KERNELS},
+                "graph_conditional":
+                    generate["launches"].get("graph_conditional", 0)}
+    records["graph_conditional"] = generate["record"]
     by_phase = {"serve_paged": paged["launches"],
                 "serve_mesh": meshed,
                 "serve_f16": _sum_launches(*f16.values()),
                 "predictor": predictor,
+                "dy2static_generate": generate["launches"],
                 "serve_durable": durable["launches"],
                 "serve_spec": spec,
                 "serve_tenancy": tenancy,

@@ -1,9 +1,17 @@
 """``jit.to_static``: a step compiled once per input spec, on the card a
 CUDA graph.
 
-Port of ``paddle_tpu/jit/__init__.py`` ``to_static``, ``StaticFunction``,
-``InputSpec``, ``not_to_static`` and ``enable_to_static`` (:127-290,
-:453-475).  The JAX package traces a function (a model forward, or a whole
+Port of ``paddle_tpu/jit/__init__.py`` (``to_static``,
+``StaticFunction``, ``InputSpec``, ``not_to_static``, ``save``, ``load``,
+``TranslatedLayer``, ``ProgramTranslator``, ``enable_to_static``,
+``set_code_level``, ``set_verbosity``, ``TracedLayer``).  A
+:class:`StaticFunction` converts its function's Python control flow over
+tensors at construction (:mod:`.dy2static`, the JAX package's AST
+rewrite), into calls of ``static.nn.cond`` / ``while_loop``: on the CPU
+and at a program's eager first call they run Python's own control flow;
+captured on the card they become CUDA graph IF and WHILE nodes, so one
+graph follows the data at every replay; under ``torch.export`` (``save``)
+they become ``torch.cond`` / ``torch.while_loop``.  The JAX package traces a function (a model forward, or a whole
 train step with backward and ``optimizer.step()``) into one XLA program
 per input spec.  Here a program is one per key: the tensor arguments'
 shapes, dtypes and devices, the other arguments' values, and the mode bits
@@ -72,18 +80,19 @@ dispatcher picks by device when the program runs (K1 on the card).
 the CPU runs K1 on the card.  A ``.pdmodel`` the JAX package wrote
 (serialized StableHLO) is refused, naming what it is; its ``.pdiparams``
 and ``.pdmeta.json`` still load (:func:`.framework.load`).  A forward
-whose Python control flow depends on a tensor's value cannot be exported:
-the JAX package rewrites it (``jit/dy2static.py``), which is not ported
-(ROADMAP.md A.5), and ``save`` raises naming that.  ``TracedLayer``
-(``jit/trace.py``) is not ported either.
+whose Python control flow depends on a tensor's value is exported after
+the same conversion as ``to_static``'s: its branches and loops are the
+archive's ``torch.cond`` / ``torch.while_loop``, which a loaded program
+runs through torch's own higher-order-op path on either device.  A
+construct the conversion leaves as Python (``dy2static``'s bail rules)
+that a traced tensor reaches raises :class:`.dy2static.Dy2StaticError`
+naming the construct and the user's line.
 """
 from __future__ import annotations
 
 import functools
 import gc
-import hashlib
 import io
-import itertools
 import json
 import os
 import sys
@@ -95,19 +104,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from .ops import kernels
-from .serving.programs import _capture_stream
+from ..ops import kernels
+from ..serving.programs import _capture_stream
+from .trace import _Program
 
-__all__ = ["CaptureError", "InputSpec", "StaticFunction", "TranslatedLayer",
-           "enable_to_static", "load", "not_to_static", "save", "to_static",
+__all__ = ["CaptureError", "InputSpec", "ProgramTranslator",
+           "StaticFunction", "TracedLayer", "TranslatedLayer",
+           "declarative", "enable_to_static", "load", "not_to_static",
+           "save", "set_code_level", "set_verbosity", "to_static",
            "subscribe_compiles", "unsubscribe_compiles"]
-
-_enabled = {"to_static": True}
 
 # -- program builds, for the compile ledger -----------------------------------
 
 _compile_listeners: List[Callable[[dict], None]] = []
-_program_serials = itertools.count(1)
 
 
 def subscribe_compiles(listener: Callable[[dict], None]) -> None:
@@ -240,30 +249,18 @@ def _tensors(obj) -> List[torch.Tensor]:
     return out
 
 
-class _Program:
-    """One key's program.  On the card: ``calls`` so far, the static
-    input buffers, the graph and its output, the kernel launches one
-    replay makes, and the capture's error if it failed."""
-
-    def __init__(self, device: Optional[torch.device], key):
-        self.device = device
-        self.serial = next(_program_serials)
-        self.digest = hashlib.sha1(repr(key).encode()).hexdigest()[:12]
-        self.calls = 0
-        self.statics: List[torch.Tensor] = []
-        self.graph = None
-        self.output = None
-        self.launches: Dict[str, int] = {}
-        self.error: Optional[CaptureError] = None
-
-
 class StaticFunction:
     """A function compiled by :func:`to_static`: call it as the function.
     ``program_cache``: key -> program; ``misses``, ``hits``,
     ``captures``: counts over this function's calls."""
 
     def __init__(self, fn: Callable, input_spec=None):
-        self._fn = fn
+        from .dy2static import convert_function
+
+        # the JAX package's rewrite of tensor control flow (a no-op on a
+        # function without it)
+        self._raw = fn
+        self._fn = convert_function(fn)
         self._input_spec = input_spec
         self._programs: Dict[Tuple, _Program] = {}
         self._enabled = True
@@ -276,9 +273,45 @@ class StaticFunction:
         return self._programs
 
     def rollback(self) -> Callable:
-        """Stop compiling: later calls run the function itself."""
+        """Stop compiling: later calls run the function (converted, which
+        in eager code computes what the function does); returns the
+        function itself."""
         self._enabled = False
-        return self._fn
+        return self._raw
+
+    def last_program(self) -> _Program:
+        """The program built last (for :meth:`_Program.compiled_stats`)."""
+        if not self._programs:
+            raise RuntimeError("no program compiled yet — call the "
+                               "function once first")
+        return next(reversed(self._programs.values()))
+
+    def _key(self, args, kwargs, leaves):
+        return (_flatten(args, leaves), _flatten(kwargs, leaves),
+                self._extra_key(args))
+
+    def get_concrete_program(self, *args, **kwargs) -> _Program:
+        """The program for these arguments' key, made (not run) if it is
+        new: its build is its first call, as every program's is."""
+        leaves: List[torch.Tensor] = []
+        key = self._key(args, kwargs, leaves)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = _Program(self._device(leaves), key,
+                                                  self._fn)
+        return prog
+
+    def concrete_program_specify_input_spec(self, input_spec=None
+                                            ) -> _Program:
+        """:meth:`get_concrete_program` at zeros of ``input_spec`` (the
+        function's own by default), a symbolic dim at 1."""
+        spec = input_spec or self._input_spec
+        if spec is None:
+            raise ValueError("input_spec required")
+        tensors = [torch.zeros([1 if _is_symbolic(d) else int(d)
+                                for d in s.shape], dtype=s.dtype)
+                   if isinstance(s, InputSpec) else s for s in spec]
+        return self.get_concrete_program(*tensors)
 
     def _extra_key(self, args) -> Tuple:
         """Mode bits that change what the body runs: grad mode, and the
@@ -291,17 +324,20 @@ class StaticFunction:
         return tuple(bits)
 
     def __call__(self, *args, **kwargs):
-        if not (self._enabled and _enabled["to_static"]):
+        if not (self._enabled and ProgramTranslator.enable_to_static):
             return self._fn(*args, **kwargs)
         leaves: List[torch.Tensor] = []
-        key = (_flatten(args, leaves), _flatten(kwargs, leaves),
-               self._extra_key(args))
+        key = self._key(args, kwargs, leaves)
         prog = self._programs.get(key)
-        if prog is None:
-            prog = self._programs[key] = _Program(self._device(leaves), key)
+        if prog is None or prog.calls == 0:
+            if prog is None:
+                prog = self._programs[key] = _Program(self._device(leaves),
+                                                      key, self._fn)
             self.misses += 1
         else:
             self.hits += 1
+        if prog.calls == 0:
+            prog.args = (args, kwargs)
         if prog.device is None:
             build = prog.calls == 0
             prog.calls += 1
@@ -346,9 +382,12 @@ class StaticFunction:
         side = _capture_stream(prog.device)
         cur = torch.cuda.current_stream(prog.device)
         if prog.calls == 1:
-            # the real first step, on the capture stream
+            # the real first step, on the capture stream; a branch over a
+            # device value also warms its untaken side there
+            from ..static import nn as snn
+
             side.wait_stream(cur)
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), snn.warming():
                 out = self._fn(*args, **kwargs)
             cur.wait_stream(side)
             for t in _tensors(out):
@@ -366,13 +405,21 @@ class StaticFunction:
     def _capture(self, prog: _Program, args, kwargs, leaves, side, cur):
         """Copy the arguments into static buffers and capture the body on
         ``side`` into a graph of this function's pool."""
+        from ..static import nn as snn
+
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        prog.pool = self._pool
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             prog.statics = [t.detach().clone() for t in leaves]
+            # the conditional nodes' run counters and body pools live as
+            # long as the program's graph
+            prog.nodes = snn.Nodes(prog.device)
         it = iter(prog.statics)
         s_args, s_kwargs = _replace(args, it), _replace(kwargs, it)
+        # what compiled_stats runs at: the buffers each replay refills
+        prog.args = (s_args, s_kwargs)
         graph = torch.cuda.CUDAGraph()
         before = kernels.launch_counts()
         # the cyclic collector must not run inside a capture
@@ -380,11 +427,14 @@ class StaticFunction:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+            with prog.nodes, torch.cuda.graph(graph, pool=self._pool,
+                                              stream=side):
                 output = self._fn(*s_args, **s_kwargs)
         except Exception as e:      # any failure leaves no usable program
             prog.error = _capture_error(self._fn, e)
             _end_failed_capture(prog.device, side)
+            del graph
+            prog.nodes.release()
             raise prog.error from e
         finally:
             if collecting:
@@ -411,13 +461,23 @@ def _end_failed_capture(device: torch.device, stream) -> None:
 
 
 def _capture_error(fn, e: BaseException) -> CaptureError:
+    """The failed capture named; a host read of a device value in control
+    flow the conversion left as Python also names that statement
+    (``dy2static.map_trace_error``)."""
+    from .dy2static import Dy2StaticError, map_trace_error
+
     name = getattr(fn, "__qualname__", getattr(fn, "__name__", repr(fn)))
     text = " | ".join(str(x) for x in (e, e.__context__) if x is not None)
-    if "captur" in text:
+    if isinstance(e, Dy2StaticError):
+        cause = "its control flow could not be converted"
+    elif "captur" in text:
         cause = ("its body reads a device value on the host or "
                  "synchronizes (.item(), float(), int(), bool(), .tolist(), "
                  ".cpu(), printing a tensor, torch.cuda.synchronize()), "
                  "which a CUDA graph capture forbids")
+        mapped = map_trace_error(e)
+        if mapped is not None:
+            text = f"{text}\n{mapped}"
     else:
         cause = "its body raised during the capture"
     return CaptureError(f"to_static: {name} could not be captured as a CUDA "
@@ -439,18 +499,71 @@ def to_static(function=None, input_spec=None, **kwargs):
     return _decorate(function) if function is not None else _decorate
 
 
+declarative = to_static
+
 
 def not_to_static(fn):
-    """Mark ``fn`` as not to be converted (the JAX package's dy2static
-    marker; the port converts no control flow)."""
+    """Mark ``fn`` as not to be converted: a call of it from converted code
+    runs it as it is (``dy2static.convert_call``)."""
     fn._not_to_static = True
     return fn
+
+
+class ProgramTranslator:
+    """The reference's dygraph-to-static singleton: ``enable(False)`` makes
+    every :class:`StaticFunction` run its function eagerly."""
+
+    _instance = None
+    enable_to_static = True
+
+    @classmethod
+    def get_instance(cls) -> "ProgramTranslator":
+        if cls._instance is None:
+            cls._instance = cls()
+        return cls._instance
+
+    def enable(self, enable_to_static: bool) -> None:
+        type(self).enable_to_static = bool(enable_to_static)
 
 
 def enable_to_static(enable: bool = True) -> None:
     """Turn compilation on or off for every :class:`StaticFunction`: off,
     each runs its function."""
-    _enabled["to_static"] = bool(enable)
+    ProgramTranslator.get_instance().enable(enable)
+
+
+def set_code_level(level=100, also_to_stdout=False) -> None:
+    """The reference's debug knob for printing transformed code; accepted
+    and ignored, as in the JAX package."""
+
+
+def set_verbosity(level=0, also_to_stdout=False) -> None:
+    """The reference's dy2static logging verbosity; accepted and ignored,
+    as in the JAX package."""
+
+
+class TracedLayer:
+    """The reference's ``TracedLayer`` (trace, then save for inference):
+    :meth:`trace` runs the layer once eagerly and compiles a function
+    that calls it (the layer itself is left as it is: its direct calls
+    stay eager); ``save_inference_model`` is :func:`save` of that
+    function at the traced inputs."""
+
+    def __init__(self, layer, inputs):
+        self._layer = layer
+        self._static = to_static(lambda *a, **k: layer(*a, **k))
+        self._inputs = list(inputs)
+
+    @staticmethod
+    def trace(layer, inputs):
+        outs = layer(*inputs)
+        return outs, TracedLayer(layer, inputs)
+
+    def __call__(self, *args, **kwargs):
+        return self._static(*args, **kwargs)
+
+    def save_inference_model(self, path, feed=None, fetch=None, **kwargs):
+        save(self._layer, path, input_spec=self._inputs)
 
 
 # -- save / load: the deployment format --------------------------------------
@@ -498,10 +611,25 @@ class _Pure(nn.Module):
             inputs)
 
 
-def _data_dependent(e: BaseException) -> bool:
-    text = " ".join(str(x) for x in (e, e.__cause__, e.__context__)
-                    if x is not None).lower()
-    return "data-dependent" in text or "data dependent" in text
+def export_program(module: nn.Module, args: tuple, dynamic_shapes=None):
+    """``torch.export.export`` (non-strict, no grad) of ``module`` at
+    ``args``.  A traced tensor that reaches control flow the conversion
+    left as Python raises :class:`.dy2static.Dy2StaticError` naming the
+    construct and the user's line."""
+    from .dy2static import Dy2StaticError, host_read_error, map_trace_error
+
+    try:
+        with torch.no_grad():
+            return torch.export.export(module, args,
+                                       dynamic_shapes=dynamic_shapes,
+                                       strict=False)
+    except Dy2StaticError:
+        raise
+    except Exception as e:
+        mapped = map_trace_error(e) if host_read_error(e) else None
+        if mapped is not None:
+            raise mapped from e
+        raise
 
 
 def save(layer, path: str, input_spec=None, **configs) -> None:
@@ -511,7 +639,9 @@ def save(layer, path: str, input_spec=None, **configs) -> None:
     ``<path>.pdiparams`` and ``<path>.pdmeta.json`` (module docstring).
     The layer is traced in eval mode with no gradient, on the device its
     tensors are on."""
-    from .framework.io import save as _fsave
+    from ..framework.io import save as _fsave
+
+    from .dy2static import convert_function
 
     if isinstance(layer, nn.Module):
         fwd, net = layer.forward, layer
@@ -521,7 +651,10 @@ def save(layer, path: str, input_spec=None, **configs) -> None:
         input_spec = fwd._input_spec
     if input_spec is None:
         raise ValueError("jit.save requires input_spec")
-    raw_fn = fwd._fn if isinstance(fwd, StaticFunction) else fwd
+    # the same conversion as to_static's: tensor control flow exports as
+    # torch.cond / torch.while_loop
+    raw_fn = fwd._fn if isinstance(fwd, StaticFunction) else \
+        convert_function(fwd)
     state = {} if net is None else {**dict(net.named_parameters()),
                                     **dict(net.named_buffers())}
     names = sorted(state)
@@ -539,21 +672,10 @@ def save(layer, path: str, input_spec=None, **configs) -> None:
     if net is not None:
         net.eval()
     try:
-        with torch.no_grad():
-            program = torch.export.export(
-                _Pure(_Call(net, raw_fn), names),
-                ([state[n].detach() for n in names], *examples),
-                dynamic_shapes=([None] * len(names), tuple(dynamic)),
-                strict=False)
-    except Exception as e:
-        if _data_dependent(e):
-            raise NotImplementedError(
-                f"jit.save: the forward's Python control flow depends on a "
-                f"tensor's value, which torch.export cannot trace; the JAX "
-                f"package rewrites such control flow (jit/dy2static.py), "
-                f"which is not ported (ROADMAP.md A.5): "
-                f"{str(e).splitlines()[0]}") from e
-        raise
+        program = export_program(
+            _Pure(_Call(net, raw_fn), names),
+            ([state[n].detach() for n in names], *examples),
+            ([None] * len(names), tuple(dynamic)))
     finally:
         if net is not None and was_training:
             net.train()
@@ -636,7 +758,7 @@ def load(path: str, device="cuda", **configs) -> TranslatedLayer:
     ``ValueError``."""
     from torch.export.passes import move_to_device_pass
 
-    from .framework.io import load as _fload
+    from ..framework.io import load as _fload
 
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -26,6 +26,10 @@ instances their draw's seed and offset, and K4's merge tickets are made
 outside any capture.  A count is taken on the host, so a
 capture counts its launches once and a replay none: the program that
 replays a graph adds the launches its capture made (``add_launches``).
+The launches inside a conditional node's body (``graph_control.cu``, the
+IF and WHILE nodes of ``static.nn``) count once a run of the body: its
+node keeps a device counter of runs, and :func:`launch_counts` reads the
+counters of the graphs still alive (a synchronization) when there are any.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import os
 import shutil
 import subprocess
 import time
+import weakref
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -43,7 +48,8 @@ import torch
 
 __all__ = ["KERNELS", "build", "reset_launches", "launch_counts",
            "add_launches", "paged_decode", "paged_prefill", "flash_fwd",
-           "flash_bwd_dkv", "flash_bwd_dq",
+           "flash_bwd_dkv", "flash_bwd_dq", "graph_stream",
+           "graph_node_begin", "graph_node_end", "count_per_run",
            "decode_plan", "DecodePlan", "HEAD_DIMS", "MAX_GROUP",
            "DECODE_SPLIT_KEYS", "DECODE_GRID_BLOCKS"]
 
@@ -97,6 +103,12 @@ _LIBRARIES = {
                            + [_F, _P, _L, _F, _P],
         "pt_flash_bwd_error_string": [_I],
     }),
+    "graph_control": ("graph_control.cu", {
+        "pt_graph_stream_create": [_P],
+        "pt_graph_node_begin": [_P, _P, _I, _P, _I, _P, _P],
+        "pt_graph_node_end": [_P, _I, ctypes.c_ulonglong, _P, _P],
+        "pt_graph_error_string": [_I],
+    }),
 }
 
 
@@ -147,16 +159,52 @@ for _name in list(KERNELS):
     KERNELS[_name + "_f16"] = KernelInfo(
         _name + "_f16", KERNELS[_name].source, KERNELS[_name].replaces)
 del _name
+# the conditional nodes' one-thread kernel (IF and WHILE alike): it sets a
+# node's condition from a device bool; it replaces no Pallas kernel, but the
+# lax.cond / lax.while_loop the JAX package lowers a tensor branch or loop to
+KERNELS["graph_conditional"] = KernelInfo(
+    "graph_conditional", "paddle_tpu_torch/csrc/graph_control.cu",
+    "paddle_tpu/static/nn.py:217")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+# what holds the launches of conditional node bodies (``static.nn.Nodes``,
+# one per captured graph), held weakly: each has a ``per_run`` list of
+# [counts one run of a body makes, its device int64 counter of runs, the
+# runs already counted], and goes with its graph
+_per_run_sources: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def count_per_run(source) -> None:
+    """Count the launches ``source.per_run`` lists once for every run of
+    their bodies, as their device counters tell: read when the counts are
+    next asked for outside a capture, while ``source`` lives."""
+    _per_run_sources.add(source)
+
+
+def _fold_per_run() -> None:
+    sources = [s for s in list(_per_run_sources) if s.per_run]
+    if not sources or torch.cuda.is_current_stream_capturing():
+        return
+    torch.cuda.synchronize()
+    for source in sources:
+        seen = torch.stack([e[1].reshape(()) for e in source.per_run]
+                           ).tolist()
+        for entry, n in zip(source.per_run, seen):
+            for name, c in entry[0].items():
+                KERNELS[name].launches += c * (n - entry[2])
+            entry[2] = n
+
+
 def reset_launches() -> None:
+    _fold_per_run()
     for k in KERNELS.values():
         k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
+    _fold_per_run()
     return {n: k.launches for n, k in KERNELS.items()}
 
 
@@ -615,3 +663,70 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(rc, lib, "pt_flash_bwd_error_string", what)
     KERNELS["flash_bwd_dq" + _instance(q, suffix)].launches += 1
     return dq
+
+
+# -- conditional nodes of a CUDA graph (csrc/graph_control.cu) ---------------
+
+_graph_streams: Dict[Tuple[int, int], torch.cuda.ExternalStream] = {}
+
+
+def _graph_call(fn: str, *args) -> None:
+    lib = _library("graph_control")
+    rc = getattr(lib, fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA graph conditional node failed "
+                           f"({rc}: {lib.pt_graph_error_string(rc).decode()})")
+
+
+def graph_stream(device: torch.device, depth: int) -> torch.cuda.Stream:
+    """The stream a conditional body at nesting ``depth`` is captured on:
+    one of the port's own per (device, depth), made once."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    s = _graph_streams.get((index, depth))
+    if s is None:
+        ptr = ctypes.c_void_p()
+        with torch.cuda.device(index):
+            _graph_call("pt_graph_stream_create", ctypes.byref(ptr))
+        s = torch.cuda.ExternalStream(ptr.value, device=torch.device(
+            "cuda", index))
+        _graph_streams[(index, depth)] = s
+    return s
+
+
+def _bool_ptr(what: str, pred: torch.Tensor) -> int:
+    _require(pred.is_cuda and pred.dtype == torch.bool and pred.numel() == 1,
+             what, f"the condition must be one CUDA bool, got {pred.dtype} "
+             f"{tuple(pred.shape)} on {pred.device}")
+    return pred.data_ptr()
+
+
+def graph_node_begin(parent: torch.cuda.Stream, child: torch.cuda.Stream,
+                     is_while: bool, pred: torch.Tensor, negate: bool = False,
+                     runs: Optional[torch.Tensor] = None) -> int:
+    """Add an IF (``is_while`` False) or WHILE node to the graph ``parent``
+    is capturing into, its condition set from ``pred`` (negated if
+    ``negate``) by the conditional kernel just before it; ``child`` then
+    captures the node's body.  ``runs`` (int64, one element) counts the
+    body's runs.  Returns the node's handle."""
+    what = "graph_node_begin"
+    handle = ctypes.c_ulonglong()
+    _graph_call("pt_graph_node_begin", parent.cuda_stream, child.cuda_stream,
+                int(is_while), _bool_ptr(what, pred), int(negate),
+                None if runs is None else runs.data_ptr(),
+                ctypes.byref(handle))
+    KERNELS["graph_conditional"].launches += 1
+    return handle.value
+
+
+def graph_node_end(child: torch.cuda.Stream, is_while: bool, handle: int,
+                   pred: Optional[torch.Tensor] = None,
+                   runs: Optional[torch.Tensor] = None) -> None:
+    """Close the body ``child`` captures; a WHILE body ends with the
+    conditional kernel setting the next trip's condition from ``pred``."""
+    what = "graph_node_end"
+    ptr = _bool_ptr(what, pred) if is_while else None
+    _graph_call("pt_graph_node_end", child.cuda_stream, int(is_while),
+                handle, ptr, None if runs is None else runs.data_ptr())
+    if is_while:
+        KERNELS["graph_conditional"].launches += 1

@@ -1140,3 +1140,26 @@ def test_hapi_fit_holds_want_twelve_launches_a_batch():
     with pytest.raises(AssertionError, match="plain attention route"):
         chip_smoke.check_hapi_fit(res, chip_smoke.BERT_BASE,
                                   chip_smoke.HAPI_FIT, cuda=True)
+
+
+def test_dy2static_generate_phase_on_tiny_cpu(tmp_path):
+    """``dy2static_generate``'s drive at 2 layers on the CPU: the eager
+    loop, ``to_static`` (its body run eagerly here) and the saved program
+    served by ``create_predictor`` give the same ids and ``cur_len``, and
+    an eos taken from the eager run stops the loop early; no kernel
+    launches on the CPU."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
+
+    torch.manual_seed(0)
+    model = GPTForCausalLM(gpt_tiny(), device="cpu").eval()
+    gen = chip_smoke.GreedyGenerator(model, 24)
+    ids = np.random.RandomState(7).randint(0, 128, (2, 24))
+    res = chip_smoke.drive_generate(gen, ids, 6, -1, "cpu", str(tmp_path))
+    chip_smoke.check_generate(res, 2, "tiny", cuda=False)
+    assert res["eager_len"] == 24 and res["captures"] == 0
+    assert res["replay_launches"] == {} and res["predictor_launches"] == {}
+    eos = int(res["eager_ids"][0, 6 + 4])
+    early = chip_smoke.drive_generate(gen, ids[:1], 6, eos, "cpu", "",
+                                      predictor=False)
+    chip_smoke.check_generate(early, 2, "tiny/early", cuda=False)
+    assert early["eager_len"] <= 6 + 5

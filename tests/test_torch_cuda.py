@@ -2288,3 +2288,298 @@ def test_model_fit_on_the_card_matches_the_cpu(cuda_device):
     np.testing.assert_allclose(runs["card"][2], runs["cpu"][2], rtol=1e-5,
                                atol=1e-5)
     assert net.parameters()[0].device.type == "cuda"
+
+
+# -- dygraph-to-static: tensor control flow as CUDA graph IF / WHILE nodes ---
+
+class _CfNet(torch.nn.Module):
+    """``tests/test_jit.py:249``'s forward: an early return on a tensor's
+    sign, else a loop."""
+
+    def __init__(self):
+        super().__init__()
+        self.lin = torch.nn.Linear(4, 4)
+
+    def forward(self, x):
+        h = self.lin(x)
+        if h.sum() > 0:
+            return h * 2
+        i = 0
+        while i < 2:
+            h = h + 1
+            i += 1
+        return h
+
+
+@pytest.mark.cuda
+def test_tensor_branch_captured_and_saved(cuda_device, tmp_path):
+    """One CUDA graph takes either branch at replay (IF nodes), equal to
+    the eager forward (1e-6); the saved program (``torch.cond``) loaded on
+    the card too, both signs and a batch of 7."""
+    from paddle_tpu_torch import jit, static
+
+    torch.manual_seed(0)
+    net = _CfNet().to(cuda_device)
+    f = jit.to_static(net.forward)
+    pos = torch.ones(2, 4, device=cuda_device)
+    neg = -10 * torch.ones(2, 4, device=cuda_device)
+    with torch.no_grad():
+        want = {s: net(x) for s, x in (("pos", pos), ("neg", neg))}
+        kernels.reset_launches()
+        for s in ("pos", "pos", "pos", "neg", "pos", "neg"):
+            got = f(pos if s == "pos" else neg)
+            assert torch.allclose(got, want[s], rtol=0, atol=1e-6), s
+    assert f.captures == 1 and len(f.program_cache) == 1
+    assert kernels.launch_counts()["graph_conditional"] > 0
+    stats = f.last_program().compiled_stats()
+    assert "hlo" not in stats and stats["temp_bytes"] > 0
+    path = str(tmp_path / "cf")
+    jit.save(net, path, input_spec=[static.InputSpec([None, 4], "float32")])
+    loaded = jit.load(path, device="cuda")
+    for s, x in (("pos", pos), ("neg", neg)):
+        assert torch.allclose(loaded(x), want[s], rtol=0, atol=1e-6)
+    assert loaded(torch.ones(7, 4)).shape == (7, 4)
+
+
+class _BranchyNet(torch.nn.Module):
+    """``tests/test_dy2static.py``'s ``BranchyNet``."""
+
+    def __init__(self):
+        super().__init__()
+        self.a = torch.nn.Linear(4, 4)
+        self.b = torch.nn.Linear(4, 4)
+
+    def forward(self, x):
+        if x.mean() > 0:
+            h = self.a(x)
+        else:
+            h = self.b(x)
+        return h.sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", [1.0, -1.0])
+def test_branchy_train_step_captured_both_ways(cuda_device, first):
+    """The train step (forward, backward) captured with the branch taken
+    one way at its eager call and capture, then replayed both ways: loss
+    and every gradient equal the eager step's on a copy of the net
+    (1e-6; the untaken layer's gradient is zero in the graph, unset in the
+    eager step).  The captured ``cond``'s backward is its second IF
+    pair."""
+    import copy
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.jit import dy2static
+
+    torch.manual_seed(0)
+    net = _BranchyNet().to(cuda_device)
+    ref = copy.deepcopy(net)
+    fwd = dy2static.convert_function(net.forward)
+
+    @jit.to_static
+    def step(x):
+        loss = fwd(x)
+        loss.backward()
+        return loss
+
+    x0 = torch.randn(2, 4, device=cuda_device).abs()
+    for sign in (first, first, first, -first, first, -first):
+        x = x0 * sign
+        for p in net.parameters():
+            if p.grad is not None:
+                p.grad.zero_()
+        ref.zero_grad(set_to_none=True)
+        loss = step(x)
+        want = ref(x)
+        want.backward()
+        torch.cuda.synchronize()
+        assert abs(float(loss) - float(want)) <= 1e-6
+        for p, q in zip(net.parameters(), ref.parameters()):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            h = q.grad if q.grad is not None else torch.zeros_like(q)
+            assert torch.allclose(g, h, rtol=0, atol=1e-6)
+    assert step.captures == 1
+
+
+@pytest.mark.cuda
+def test_untaken_branch_is_warmed_before_the_capture(cuda_device):
+    """At a program's eager first call the untaken branch runs once under
+    a relaxed capture that is thrown away (its kernels never run): here a
+    matmul of a shape the card has not run, on the body stream.  The
+    capture then finds its library state made, and the graph's two
+    branches equal the eager function's (1e-5: cuBLAS may pick other
+    kernels on another stream)."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.static import nn as snn
+
+    wa = torch.randn(48, 80, device=cuda_device)
+    wb = torch.randn(48, 112, device=cuda_device)
+
+    def body(x):
+        if x.sum() > 0:
+            y = (x @ wa).sum(dim=1)
+        else:
+            y = (x @ wb).sum(dim=1)
+        return y
+
+    f = jit.to_static(body)
+    before = snn.warmups
+    pos = torch.ones(24, 48, device=cuda_device)
+    with torch.no_grad():
+        want = {1: body(pos), -1: body(-pos)}
+        f(pos)
+        assert snn.warmups == before + 1       # the untaken side, warmed
+        for s in (1, 1, -1, 1, -1):
+            got = f(pos * s)
+            assert torch.allclose(got, want[s], rtol=1e-5, atol=1e-5)
+    assert f.captures == 1
+
+
+@pytest.mark.cuda
+def test_while_node_trips_follow_the_data(cuda_device):
+    """A loop over a tensor's value with K1 in its body, captured once
+    (one WHILE node): replays at 3, 5 and 0 trips equal the eager loop
+    (exactly: the same kernels in the same order), and K1's launches count
+    once a trip."""
+    from paddle_tpu_torch import jit
+
+    q = torch.randn(1, 64, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+
+    def loop(x, n):
+        # no temporary: a name first bound in a loop's body needs a value
+        # before the loop (the JAX package's rule)
+        while n > 0:
+            x = x + kernels.flash_fwd(q, q, q + x)[0]
+            n = n - 1
+        return x
+
+    f = jit.to_static(loop)
+    x = torch.zeros_like(q)
+    for n in (3, 3, 3, 5, 0):
+        nt = torch.tensor(n, device=cuda_device)
+        want = loop(x, nt)
+        kernels.reset_launches()
+        got = f(x, nt)
+        counts = kernels.launch_counts()
+        assert torch.equal(got, want)
+        if f.captures:
+            assert counts["flash_fwd"] == n, (n, counts)
+    assert f.captures == 1
+
+
+@pytest.mark.cuda
+def test_backward_through_a_captured_while_raises(cuda_device):
+    """A captured WHILE node is forward-only: the capture of a step whose
+    backward runs through one fails, naming the limit (the eager first
+    call, a Python loop, differentiates)."""
+    from paddle_tpu_torch import jit
+
+    w = torch.nn.Parameter(torch.ones(4, device=cuda_device))
+
+    @jit.to_static
+    def step(x, n):
+        s = x * 0
+        while n > 0:
+            s = s + w * x
+            n = n - 1
+        loss = s.sum()
+        loss.backward()
+        return loss
+
+    x, n = torch.ones(4, device=cuda_device), torch.tensor(2, device=cuda_device)
+    assert float(step(x, n)) == 8.0 and torch.equal(
+        w.grad, torch.full_like(w, 2.0))
+    with pytest.raises(jit.CaptureError, match="forward-only"):
+        step(x, n)
+
+
+@pytest.mark.cuda
+def test_conditional_node_counters_belong_to_their_program(cuda_device,
+                                                           monkeypatch):
+    """Each program takes its conditional nodes' run counters from a bank
+    of its own, made before its capture.  With banks of 2: three programs
+    of one tensor ``if`` (an IF pair each) capture, equal the eager
+    function (exactly: the same kernels) and count K1 once a taken branch;
+    a program of two ``if``s (4 nodes) fails its capture naming the bank,
+    and a program made after it still captures.  The programs' counts go
+    with them."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.static import nn as snn
+
+    monkeypatch.setattr(snn, "COUNTERS", 2)
+    q = torch.randn(1, 64, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+
+    def one(x):
+        if x.sum() > 0:
+            y = kernels.flash_fwd(q, q, q + x)[0]
+        else:
+            y = x * 2
+        return y
+
+    def two(x):
+        if x.sum() > 0:
+            y = x + 1
+        else:
+            y = x - 1
+        if y.sum() > 0:
+            y = y * 2
+        else:
+            y = y * 3
+        return y
+
+    gc.collect()
+    sources = len(kernels._per_run_sources)
+    x = torch.full_like(q, 0.5)
+    want = {1: one(x), -1: one(-x)}
+
+    def check(f):
+        f(x)
+        f(x)
+        for s in (1, -1, 1):
+            kernels.reset_launches()
+            assert torch.equal(f(x * s), want[s])
+            assert kernels.launch_counts()["flash_fwd"] == (s > 0)
+        assert f.captures == 1
+
+    fs = [jit.to_static(one) for _ in range(3)]
+    for f in fs:
+        check(f)
+    g = jit.to_static(two)
+    g(x)
+    with pytest.raises(jit.CaptureError, match="more than 2 conditional"):
+        g(x)
+    h = jit.to_static(one)
+    check(h)
+    del fs, g, h, f
+    gc.collect()
+    assert len(kernels._per_run_sources) == sources
+
+
+@pytest.mark.cuda
+def test_untaken_branch_making_module_state_raises(cuda_device):
+    """A warm-up runs no kernels, so tensor state that the untaken branch
+    makes while it is warmed would hold no values: a buffer registered
+    lazily there is taken out again and the first call raises, naming
+    it.  The module is as it was, and its eager calls are unchanged."""
+    from paddle_tpu_torch import jit
+
+    class Lazy(torch.nn.Module):
+        def forward(self, x):
+            if x.sum() > 0:
+                y = x * 2
+            else:
+                if not hasattr(self, "scale"):
+                    self.register_buffer("scale", torch.full_like(x, 3.0))
+                y = x * self.scale
+            return y
+
+    net = Lazy()
+    f = jit.to_static(net.forward)
+    pos = torch.ones(8, device=cuda_device)
+    with torch.no_grad():
+        with pytest.raises(jit.CaptureError, match="Lazy.scale"):
+            f(pos)
+        assert "scale" not in dict(net.named_buffers())
+        assert not hasattr(net, "scale")
+        assert torch.equal(net(-pos), -3 * pos)
+        assert torch.equal(net(pos), 2 * pos)

@@ -10,7 +10,8 @@ package's 64-to-32-bit canonicalization; the program archive holds no
 tensor (the state is an input, as in the JAX ``pure(state_arrays,
 in_arrays)``) and calls attention as the registered op
 ``paddle_tpu_torch::flash_fwd``; a forward whose control flow reads a
-tensor's value is refused, naming ROADMAP A.5; a JAX ``.pdmodel``
+tensor's value is converted as ``to_static`` converts it and saved with
+``torch.cond``, following the data after a load; a JAX ``.pdmodel``
 (serialized StableHLO) is refused and its ``.pdiparams`` read, without
 importing the JAX package in the port.  ``framework.io`` round-trips
 f32, bf16, f16 and integer tensors in nested containers, reads the JAX
@@ -209,8 +210,13 @@ def test_registered_op_dispatches_by_device():
 
 
 def test_control_flow_on_a_tensor_value_is_refused(tmp_path):
-    """The forward of ``tests/test_jit.py:249-283``: its ``if h.sum() > 0``
-    needs the JAX package's dy2static rewrite, which is not ported."""
+    """The forward of ``tests/test_jit.py:249-283``, whose ``if h.sum() >
+    0`` returns early: ``jit.save`` converts it as ``to_static`` does (the
+    early return a ``torch.cond`` over the flag), and the loaded program
+    follows the data, as the JAX package's does, for both signs of input
+    and under a symbolic batch of 7: within 1e-6 of the eager forward
+    (and of the JAX package's saved program, same weights, 1e-5).  Kept
+    under its old name: it held the refusal this replaces."""
 
     class Net(nn.Module):
         def __init__(self):
@@ -227,10 +233,49 @@ def test_control_flow_on_a_tensor_value_is_refused(tmp_path):
                 i += 1
             return h
 
-    with pytest.raises(NotImplementedError, match="A.5") as ei:
-        jit.save(Net(), str(tmp_path / "cf"),
-                 input_spec=[static.InputSpec([None, 4], "float32")])
-    assert "dy2static" in str(ei.value)
+    class JNet(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.lin = paddle.nn.Linear(4, 4)
+
+        def forward(self, x):
+            h = self.lin(x)
+            if h.sum() > 0:
+                return h * 2
+            i = 0
+            while i < 2:
+                h = h + 1
+                i += 1
+            return h
+
+    paddle.seed(0)
+    jnet = JNet()
+    net = Net()
+    with torch.no_grad():
+        net.lin.weight.copy_(torch.from_numpy(
+            np.asarray(jnet.lin.weight.numpy()).T))
+        net.lin.bias.copy_(torch.from_numpy(np.asarray(jnet.lin.bias.numpy())))
+    x = np.ones((2, 4), np.float32)
+    xneg = -np.ones((2, 4), np.float32) * 10
+    path = str(tmp_path / "cf")
+    jit.save(net, path, input_spec=[static.InputSpec([None, 4], "float32")])
+    loaded = jit.load(path, device="cpu")
+    jpath = str(tmp_path / "jcf")
+    paddle.jit.save(jnet, jpath, input_spec=[
+        paddle.static.InputSpec([None, 4], "float32")])
+    jloaded = paddle.jit.load(jpath)
+    for a in (x, xneg):
+        want = net(torch.from_numpy(a)).detach()
+        got = loaded(torch.from_numpy(a))
+        assert torch.allclose(got, want, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(jloaded(paddle.to_tensor(a)).numpy()),
+            rtol=1e-5, atol=1e-5)
+    assert loaded(torch.ones(7, 4)).shape[0] == 7
+    # the branch and the loop are the archive's, not a trace of one path
+    ops = {str(n.target) for n in loaded._program.graph.nodes
+           if n.op == "call_function"}
+    assert any("cond" in o for o in ops)
 
 
 @pytest.fixture(scope="module")

@@ -5060,19 +5060,25 @@ NODE_TRIPS = 1000
 
 
 def greedy_step(model, input_ids, unfinished_flag, cur_len, eos_token_id):
-    """One token of greedy decoding over a fixed id buffer: a full causal
-    forward, the argmax at ``cur_len - 1``, written at ``cur_len`` by a
-    device select (a finished row writes ``eos``).  The causal mask keeps
-    the buffer's unfilled tail out of every written position."""
+    """One token of greedy decoding over a fixed id buffer, in Paddle's
+    ops as a PaddleNLP user writes it: a full causal forward, the argmax
+    at ``cur_len - 1``, written at ``cur_len`` by a device select (a
+    finished row writes ``eos``).  The causal mask keeps the buffer's
+    unfilled tail out of every written position.  ``paddle.arange`` makes
+    its positions on the port's current device (``drive_generate`` sets
+    it)."""
+    import paddle_tpu_torch as paddle
+
     logits = model(input_ids)
-    next_token_logits = logits.index_select(
-        1, (cur_len - 1).reshape(1))[:, 0]
-    next_tokens = next_token_logits.argmax(-1)
-    next_tokens = torch.where(unfinished_flag, next_tokens, eos_token_id)
-    positions = torch.arange(input_ids.shape[1], device=input_ids.device)
-    input_ids = torch.where(positions == cur_len, next_tokens[:, None],
-                            input_ids)
-    unfinished_flag = unfinished_flag & (next_tokens != eos_token_id)
+    next_token_logits = paddle.index_select(
+        logits, (cur_len - 1).reshape([1]), axis=1)[:, 0]
+    next_tokens = paddle.argmax(next_token_logits, axis=-1)
+    next_tokens = paddle.where(unfinished_flag, next_tokens, eos_token_id)
+    positions = paddle.arange(input_ids.shape[1])
+    input_ids = paddle.where(positions == cur_len, next_tokens[:, None],
+                             input_ids)
+    unfinished_flag = paddle.logical_and(unfinished_flag,
+                                         next_tokens != eos_token_id)
     return input_ids, unfinished_flag, cur_len + 1
 
 
@@ -5133,13 +5139,13 @@ def drive_generate(gen, ids: np.ndarray, prompt: int, eos: int, device,
     replays) and, with ``predictor``, ``jit.save`` → ``create_predictor``.
     Returns the ids and final ``cur_len`` of each, the replay's K1
     launches and the times."""
-    from paddle_tpu_torch import inference, jit, static
+    from paddle_tpu_torch import device_guard, inference, jit, static
     from paddle_tpu_torch.ops import kernels
 
     dev = torch.device(device)
     args = gen_inputs(ids, prompt, eos, dev)
     res = {}
-    with torch.no_grad():
+    with torch.no_grad(), device_guard(dev):
         (e_ids, e_len), res["eager_ms"] = timed_call(gen, *args)
         res["eager_ids"], res["eager_len"] = e_ids.cpu().numpy(), int(e_len)
         static_fn = jit.to_static(gen.forward)
@@ -5157,10 +5163,11 @@ def drive_generate(gen, ids: np.ndarray, prompt: int, eos: int, device,
         return res
     path = os.path.join(root, "generate")
     t0 = time.perf_counter()
-    jit.save(gen, path, input_spec=[
-        static.InputSpec(list(ids.shape), "int64", name="input_ids"),
-        static.InputSpec([], "int64", name="cur_len"),
-        static.InputSpec([], "int64", name="eos_token_id")])
+    with device_guard(dev):
+        jit.save(gen, path, input_spec=[
+            static.InputSpec(list(ids.shape), "int64", name="input_ids"),
+            static.InputSpec([], "int64", name="cur_len"),
+            static.InputSpec([], "int64", name="eos_token_id")])
     res["save_s"] = time.perf_counter() - t0
     cfg = inference.Config(path)
     if dev.type == "cuda":
@@ -7466,6 +7473,243 @@ def phase_hapi_fit(cfg: dict = BERT_BASE, device: str = "cuda",
     return res
 
 
+# ---- ops: the op suites' schema rows on the card --------------------------
+
+#: the card's gradients against the CPU's (both the port's autograd, f32);
+#: forward outputs are held at each row's own rtol/atol
+OPS_GRAD_TOLERANCE = {"rtol": 1e-4, "atol": 1e-5}
+
+
+def op_rows():
+    """``tests/torch_op_rows.py``: the rows of ``tests/test_op_suite.py``
+    and ``tests/test_op_suite_extra.py`` read as data, ``paddle`` bound to
+    the port (it imports no JAX)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_op_rows
+
+    return torch_op_rows
+
+
+def drive_ops(device: str = "cuda", other: str = "cpu", names=None) -> dict:
+    """Every row (or those ``names``) on ``device`` and on ``other`` from
+    the same seeded numpy inputs, each side's generators seeded alike: the
+    forward outputs held at the row's tolerance (integers and bools
+    exactly), a differentiable row's gradients at ``OPS_GRAD_TOLERANCE``,
+    a random row's draws to their law.  Returns the counts, the failures
+    and the worst row."""
+    from paddle_tpu_torch import rng
+
+    R = op_rows()
+    rows = R.load_rows()
+    names = sorted(rows) if names is None else list(names)
+    failed, worst = {}, {"row": None, "max_abs_err": 0.0}
+    for name in names:
+        spec = rows[name]
+        try:
+            rng.seed(0)
+            got = R.run_row(spec, device)
+            rng.seed(0)
+            want = R.run_row(spec, other)
+            err = R.compare(spec, got, want, spec.rtol, spec.atol,
+                            OPS_GRAD_TOLERANCE["rtol"],
+                            OPS_GRAD_TOLERANCE["atol"])
+        except Exception as e:              # noqa: BLE001 — counted, raised
+            failed[name] = f"{type(e).__name__}: {str(e)[:400]}"
+            continue
+        if err > worst["max_abs_err"]:
+            worst = {"row": name, "max_abs_err": err, "rtol": spec.rtol,
+                     "atol": spec.atol}
+    return {"ops": len(names), "failed": len(failed), "failures": failed,
+            "worst": worst,
+            "grad_rows": sum(1 for n in names if rows[n].grad),
+            "random_rows": sorted(R.RANDOM & set(names))}
+
+
+def phase_ops(device: str = "cuda") -> dict:
+    """Every schema row of the op suites (362) on the card against the
+    CPU: forward and, for the differentiable rows, gradients.  Prints the
+    count, the failures (there must be none), the worst max abs error with
+    its row's tolerance, and the seconds."""
+    t0 = time.perf_counter()
+    res = drive_ops(device)
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit("ops", against="cpu", grad_tolerance=OPS_GRAD_TOLERANCE, **res)
+    if res["failed"]:
+        raise AssertionError(f"ops: {res['failed']} rows differ between "
+                             f"the card and the CPU: {res['failures']}")
+    return res
+
+
+# ---- resnet_fit: ResNet-50 through paddle.Model ------------------------------
+
+#: PaddleClas's ImageNet ResNet50 recipe at one card's share (8 cards x 64):
+#: Momentum 0.9, lr 0.1, L2Decay 1e-4, batch 64 at 224 x 224, 1000
+#: classes; 12 train batches over ``distinct`` batches' worth of FakeData
+#: images, so the labels can be memorised (over two alternating batches
+#: the loss at lr 0.1 swung between 5.2 and 9.8 on an H100), 2 eval
+#: batches (the first the trained one), 4 loader workers; the first
+#: ``warm`` steps are untimed, ``traced`` steps profiled
+RESNET_FIT = {"depth": 50, "classes": 1000, "image": (3, 224, 224),
+              "batch": 64, "train": 12, "eval": 2, "distinct": 1,
+              "workers": 4, "lr": 0.1, "momentum": 0.9, "l2": 1e-4,
+              "warm": 2, "traced": 3}
+
+
+class Cycled:
+    """``base``'s samples over and over: sample ``i`` is ``base[i %
+    len(base)]`` (numpy only; the loader's workers unpickle it)."""
+
+    def __init__(self, base, n: int):
+        self.base, self.n = base, n
+
+    def __getitem__(self, i):
+        return self.base[i % len(self.base)]
+
+    def __len__(self):
+        return self.n
+
+
+def drive_resnet_fit(shape: dict, device: str) -> dict:
+    """``vision.resnet<depth>`` trained through ``Model.fit`` over a
+    ``DataLoader`` of ``FakeData`` with ``shape["workers"]`` workers, with
+    a ``StepTimeline``; ``evaluate``; ``summary``; one worker's time to
+    draw a batch; on the card a profile of ``traced`` warm steps."""
+    import contextlib
+    import io as stdio
+
+    from paddle_tpu_torch import (Model, device_guard, io, metric, nn, obs,
+                                  optimizer, regularizer, rng, summary,
+                                  vision)
+
+    cuda = torch.device(device).type == "cuda"
+    B, warm = shape["batch"], shape["warm"]
+    rng.seed(0)
+    with device_guard(device):
+        net = getattr(vision, f"resnet{shape['depth']}")(
+            num_classes=shape["classes"])
+    res = {"params": sum(p.numel() for p in net.parameters())}
+    with contextlib.redirect_stdout(stdio.StringIO()) as table:
+        info = summary(net, (1,) + tuple(shape["image"]))
+    res["summary"] = {**info, "rows": table.getvalue().count("\n")}
+    opt = optimizer.Momentum(net.parameters(), lr=shape["lr"],
+                             momentum=shape["momentum"],
+                             weight_decay=regularizer.L2Decay(shape["l2"]))
+    model = Model(net).prepare(opt, nn.CrossEntropyLoss(),
+                               metrics=metric.Accuracy(topk=(1, 5)))
+    base = vision.datasets.FakeData(B * shape["distinct"], shape["image"],
+                                    shape["classes"])
+    evals = vision.datasets.FakeData(B * shape["eval"], shape["image"],
+                                     shape["classes"])
+    t0 = time.perf_counter()
+    np.stack([base[i][0] for i in range(B)])
+    res["one_worker_batch_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+    loader = io.DataLoader(Cycled(base, B * shape["train"]), batch_size=B,
+                           num_workers=shape["workers"], timeout=300)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    clock, tl = step_clock(), obs.StepTimeline()
+    before = _counts()
+    t0 = time.perf_counter()
+    model.fit(loader, epochs=1, verbose=0, num_iters=shape["train"],
+              timeline=tl, callbacks=[clock])
+    res["fit_s"] = round(time.perf_counter() - t0, 3)
+    after = _counts()
+    res.update({"losses": [float(v) for v in clock.losses],
+                "launches": _moved(before[0], after[0]),
+                "routes": _moved(before[1], after[1]),
+                "transport": dict(loader.transport),
+                "start_s": round(clock.start_s, 3),
+                "warmup_step_ms": [round(t, 3) for t in clock.ms[:warm]]})
+    ms = clock.ms[warm:]
+    res["step_ms"] = _quartiles(ms)
+    res["images_per_s"] = round(B / (res["step_ms"]["median"] / 1e3), 1)
+    phases = {ph: 0.0 for ph in ("data_fetch", "step_dispatch",
+                                 "device_wait")}
+    for sp in tl.spans.values():
+        step = sp["trace"].rpartition(":s")[2]
+        if sp["name"] in phases and step.isdigit() and int(step) >= warm:
+            phases[sp["name"]] += sp["t_end"] - sp["t_start"]
+    timed = len(ms)
+    res["loader_wait_ms_per_batch"] = round(phases["data_fetch"] * 1e3
+                                            / timed, 3)
+    res["wall_ms_per_batch"] = round(sum(phases.values()) * 1e3 / timed, 3)
+    res["wall_images_per_s"] = round(B / (res["wall_ms_per_batch"] / 1e3),
+                                     1)
+    res["data_fetch_share"] = round(phases["data_fetch"]
+                                    / sum(phases.values()), 5)
+    before = _counts()
+    logs = model.evaluate(evals, batch_size=B, verbose=0)
+    res["eval_logs"] = {k: float(np.asarray(v).reshape(-1)[0])
+                        for k, v in logs.items()}
+    res["eval_accuracy_top1_top5"] = [
+        float(a) for a in model._metrics[0].accumulate()]
+    after = _counts()
+    res["eval_routes"] = _moved(before[1], after[1])
+    if cuda:
+        res["peak_memory_gb"] = round(torch.cuda.max_memory_allocated()
+                                      / 2 ** 30, 3)
+        x, y = next(iter(io.DataLoader(base, batch_size=B)))
+        n = shape["traced"]
+        prof = device_profile(lambda: [model.train_batch(x, y)
+                                       for _ in range(n)])
+        res["launches_per_step"] = prof["launches"] / n
+        res["device_busy_ms_per_step"] = round(prof["busy_ms"] / n, 3)
+        res["idle_share"] = round(1.0 - prof["busy_ms"] / n
+                                  / res["step_ms"]["median"], 4)
+    return res
+
+
+def check_resnet_fit(res: dict, shape: dict) -> None:
+    """The holds of ``resnet_fit``: ``summary`` and the model agree on the
+    parameter count (25,557,032 for ResNet-50 at 1000 classes), every loss
+    is finite and the last three's mean is below the first loss, every
+    batch came through the workers' ring, and no plain attention route
+    ran (the network has none)."""
+    want = 25_557_032 if (shape["depth"], shape["classes"]) == (50, 1000) \
+        else res["params"]
+    if res["params"] != want or res["summary"]["total_params"] != want:
+        raise AssertionError(f"resnet_fit: {res['params']} parameters, "
+                             f"summary {res['summary']}, want {want}")
+    losses = res["losses"]
+    if len(losses) != shape["train"] or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"resnet_fit: losses {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"resnet_fit: the loss did not fall: {losses}")
+    want = {"ring": shape["train"], "queue": 0} if shape["workers"] else \
+        {"ring": 0, "queue": 0}
+    if res["transport"] != want:
+        raise AssertionError(f"resnet_fit: batches came {res['transport']}"
+                             f", want {want}")
+    for part in ("routes", "eval_routes"):
+        if res[part].get("plain"):
+            raise AssertionError(f"resnet_fit: a plain route ran ({part} "
+                                 f"{res[part]})")
+
+
+def phase_resnet_fit(shape: dict = RESNET_FIT, device: str = "cuda") -> dict:
+    """ResNet-50 (``vision.resnet50(num_classes=1000)``) trained through
+    ``paddle.Model`` on ``FakeData`` at PaddleClas's per-card recipe, f32
+    (the TF32 switches printed as they stand): ``fit`` for 12 batches of
+    64 at 224 x 224 with ``Accuracy(topk=(1, 5))`` over 4 loader workers,
+    then ``evaluate`` on 2 batches.  Prints the warm step's milliseconds,
+    images/s (the step's and the wall clock's), the loader's wait and one
+    worker's draw of a batch, peak memory, the card's idle share over 3
+    traced warm steps and the launches a step."""
+    t0 = time.perf_counter()
+    res = drive_resnet_fit(shape, device)
+    check_resnet_fit(res, shape)
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit("resnet_fit", model=f"resnet{shape['depth']} (port vision, "
+         f"hapi)", dtype="float32", shape=shape,
+         tf32={"cudnn": torch.backends.cudnn.allow_tf32,
+               "matmul": torch.backends.cuda.matmul.allow_tf32}, **res)
+    return res
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -7553,6 +7797,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     hapi = phase_hapi_fit()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_ops()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_resnet_fit()
     launches = {**paged["launches"],
                 **{n: train["launches"][n] for n in TRAIN_KERNELS},
                 **{n: recipe[n] for n in RECIPE_KERNELS},

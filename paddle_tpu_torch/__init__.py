@@ -40,27 +40,38 @@ the recurrent layers and beam search (``nn.LSTM``, ``nn.BeamSearchDecoder``,
 :class:`Model` (``prepare``, ``fit``, ``evaluate``, ``predict``, callbacks
 of :mod:`callbacks`) over :mod:`io`'s ``DataLoader`` (spawned workers
 handing batches over a shared-memory ring), with :mod:`metric`,
-:func:`summary` and :func:`flops`.
+:func:`summary` and :func:`flops`.  Paddle's tensor ops are plain
+functions on ``torch.Tensor`` at the top level (``paddle.concat``,
+``paddle.topk``, ..., :mod:`.ops`), with the dtype names, :func:`to_tensor`
+and ``paddle.linalg``; :mod:`vision` has the ResNet family and the
+datasets.
 Everything runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (for :mod:`nn`'s layers, :func:`set_device` or
 :func:`device_guard` with ``"cpu"``; with no card, building on the
 default device raises); on CPU tensors each kernel's plain PyTorch
 version runs instead.
 """
-from . import (
-    amp, device, distributed, framework, hapi, inference, io, jit, metric,
-    models, nn, obs, ops, optimizer, profiler, regularizer, rng, serving,
-    static,
+from . import tensor as _tensor
+from .ops import *  # noqa: F401,F403 — the paddle.* op surface
+from .ops import linalg
+from .tensor import *  # noqa: F401,F403 — dtypes, to_tensor, helpers
+from . import (  # noqa: E402
+    amp, device, distributed, framework, hapi, incubate, inference, io, jit,
+    metric, models, nn, obs, ops, optimizer, profiler, regularizer, rng,
+    serving, static, sysconfig, version, vision,
 )
-from .device import device_guard, get_device, set_device
-from .hapi import Model, callbacks, flops, summary
-from .inference import create_engine
-from .rng import seed
-from .training import build_train_step
+from .batch import batch  # noqa: E402
+from .device import device_guard, get_device, set_device  # noqa: E402
+from .hapi import Model, callbacks, flops, summary  # noqa: E402
+from .inference import create_engine  # noqa: E402
+from .rng import get_rng_state, seed, set_rng_state  # noqa: E402
+from .training import build_train_step  # noqa: E402
 
-__all__ = ["Model", "amp", "build_train_step", "callbacks",
+__all__ = ["Model", "amp", "batch", "build_train_step", "callbacks",
            "create_engine", "device", "device_guard", "distributed", "flops",
-           "framework", "get_device", "hapi", "inference", "io", "jit",
-           "metric", "models", "nn", "obs", "ops", "optimizer", "profiler",
-           "regularizer", "rng", "seed", "serving", "set_device", "static",
-           "summary"]
+           "framework", "get_device", "get_rng_state", "hapi", "incubate",
+           "inference", "io", "jit", "linalg", "metric", "models", "nn",
+           "obs", "ops", "optimizer", "profiler", "regularizer", "rng",
+           "seed", "serving", "set_device", "set_rng_state", "static",
+           "summary", "sysconfig", "version", "vision"] \
+    + ops.OPS + _tensor.__all__

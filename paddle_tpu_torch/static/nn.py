@@ -28,7 +28,10 @@ has no tracer: where the predicate lives decides.
   aliases an input).  A loop becomes one WHILE node
   (``csrc/graph_control.cu``): its carried tensors are copied into buffers
   of their own before the node, each trip copies the body's results back
-  into them, and the trip's last kernel sets the test for the next.  The
+  into them (a result that shares storage with another buffer cloned
+  first, so ``a, b = b, a`` reads no overwritten buffer), and the trip's
+  last kernel sets the test for the next.  :func:`host_replay` runs the
+  same path on the CPU.  The
   bodies are captured on a stream of their own per nesting depth, and
   their allocations go to a memory pool per node (torch's
   ``_cuda_beginAllocateCurrentThreadToPool``).  The nodes' run counters
@@ -54,7 +57,8 @@ import torch.utils._pytree as pytree
 
 from ..ops import kernels
 
-__all__ = ["cond", "while_loop", "case", "switch_case", "Nodes"]
+__all__ = ["cond", "while_loop", "case", "switch_case", "Nodes",
+           "host_replay"]
 
 _local = threading.local()
 #: untaken branches warmed so far (:func:`_warm`)
@@ -89,9 +93,33 @@ def exporting(v=None) -> bool:
 
 
 def capturing(v) -> bool:
-    """True when ``v`` is a CUDA tensor and the current stream captures."""
-    return (isinstance(v, torch.Tensor) and v.is_cuda and not exporting(v)
-            and torch.cuda.is_current_stream_capturing())
+    """True when ``v`` is a CUDA tensor and the current stream captures,
+    or ``v`` is any tensor inside :func:`host_replay`."""
+    if not isinstance(v, torch.Tensor) or exporting(v):
+        return False
+    if replaying():
+        return True
+    return v.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+def replaying() -> bool:
+    """True inside :func:`host_replay`."""
+    return getattr(_local, "replay", False)
+
+
+@contextlib.contextmanager
+def host_replay():
+    """Inside, a tensor predicate takes the captured path on any device,
+    each node's body run by Python where the card would replay it: an IF
+    pair runs both bodies and selects, a WHILE node runs its trips over
+    the same carry buffers and the same staged write-back.  The CPU's
+    twin of a capture, for tests of what a node computes."""
+    prev = replaying()
+    _local.replay = True
+    try:
+        yield
+    finally:
+        _local.replay = prev
 
 
 def traced(v) -> bool:
@@ -286,6 +314,8 @@ class _Node:
 
 
 def _if_body(pred: torch.Tensor, fn: Callable, negate: bool):
+    if replaying():
+        return fn()
     node = _Node(pred, False, negate)
     with node.body():
         out = fn()
@@ -634,13 +664,27 @@ class _ForwardOnly(torch.autograd.Function):
             "values")
 
 
+def _stage(pairs):
+    """``pairs`` of (buffer, body result) with every result that shares
+    storage with a buffer cloned, unless it is that buffer itself: the
+    copies that follow then read no buffer an earlier copy wrote
+    (``a, b = b, a``, or ``prev = cur; cur = cur * 2`` with the loop
+    variables in name order)."""
+    held = {b.untyped_storage().data_ptr() for b, _ in pairs}
+    return [(b, r if r is b or r.untyped_storage().data_ptr() not in held
+             else r.clone()) for b, r in pairs]
+
+
 def captured_while(cond_fn: Callable, body_fn: Callable, vars_: List,
                    fill=None) -> List:
     """Path (b): one WHILE node.  ``fill(i, value)`` (dy2static's) gives a
     buffer for a carry that enters unbound and leaves the body a tensor, or
-    raises."""
-    device = next(v.device for v in vars_ if isinstance(v, torch.Tensor)
-                  and v.is_cuda)
+    raises.  A trip runs the body, then copies each result into its
+    buffer, staged by :func:`_stage` inside the body (so the graph replays
+    the clones)."""
+    tensors = [v for v in vars_ if isinstance(v, torch.Tensor)]
+    device = next((v.device for v in tensors if v.is_cuda),
+                  tensors[0].device)
     vars_ = _promote(list(vars_), device)
     idx = [i for i, v in enumerate(vars_) if isinstance(v, torch.Tensor)]
     carries = [vars_[i].detach().clone() for i in idx]
@@ -648,40 +692,54 @@ def captured_while(cond_fn: Callable, body_fn: Callable, vars_: List,
     for j, i in enumerate(idx):
         cur[i] = carries[j]
     pred0 = _as_pred(cond_fn(*cur), device)
-    node = _Node(pred0, True, False)
     late = {}
-    with node.body():
-        with torch.no_grad():
-            res = body_fn(*cur)
-            res = list(res) if isinstance(res, (tuple, list)) else [res]
-            if len(res) != len(vars_):
-                raise ValueError(f"while_loop: the body returns {len(res)} "
-                                 f"values for {len(vars_)} loop variables")
-            for i, r in enumerate(res):
-                if i in idx:
-                    c = cur[i]
-                    if not isinstance(r, torch.Tensor):
-                        r = scalar(r, device, c.dtype)
-                    if r.shape != c.shape or r.dtype != c.dtype:
-                        raise ValueError(
-                            f"while_loop: loop variable {i} enters as "
-                            f"{c.dtype} {tuple(c.shape)} and leaves the "
-                            f"body as {r.dtype} {tuple(r.shape)}; a loop "
-                            f"captured as a WHILE node carries fixed shapes "
-                            f"and dtypes")
-                    c.copy_(r)
-                elif isinstance(r, torch.Tensor):
+
+    def trip() -> torch.Tensor:
+        res = body_fn(*cur)
+        res = list(res) if isinstance(res, (tuple, list)) else [res]
+        if len(res) != len(vars_):
+            raise ValueError(f"while_loop: the body returns {len(res)} "
+                             f"values for {len(vars_)} loop variables")
+        pairs = []
+        for i, r in enumerate(res):
+            if i in idx:
+                c = cur[i]
+                if not isinstance(r, torch.Tensor):
+                    r = scalar(r, device, c.dtype)
+                if r.shape != c.shape or r.dtype != c.dtype:
+                    raise ValueError(
+                        f"while_loop: loop variable {i} enters as "
+                        f"{c.dtype} {tuple(c.shape)} and leaves the "
+                        f"body as {r.dtype} {tuple(r.shape)}; a loop "
+                        f"captured as a WHILE node carries fixed shapes "
+                        f"and dtypes")
+                pairs.append((c, r))
+            elif isinstance(r, torch.Tensor):
+                if i not in late:
                     if fill is None:
                         raise ValueError(
                             f"while_loop: loop variable {i} enters as "
-                            f"{type(vars_[i]).__name__} and leaves the body "
-                            f"as a tensor")
-                    buf = fill(i, r)
-                    buf.copy_(r)
-                    late[i] = buf
-            nxt = [late.get(i, cur[i] if i in idx else r)
-                   for i, r in enumerate(res)]
-            node.end_pred = _as_pred(cond_fn(*nxt), device)
+                            f"{type(vars_[i]).__name__} and leaves the "
+                            f"body as a tensor")
+                    late[i] = fill(i, r)
+                pairs.append((late[i], r))
+        for buf, r in _stage(pairs):
+            if r is not buf:
+                buf.copy_(r)
+        nxt = [late.get(i, cur[i] if i in idx else r)
+               for i, r in enumerate(res)]
+        return _as_pred(cond_fn(*nxt), device)
+
+    if replaying():
+        with torch.no_grad():
+            pred = pred0
+            while bool(pred):
+                pred = trip()
+    else:
+        node = _Node(pred0, True, False)
+        with node.body():
+            with torch.no_grad():
+                node.end_pred = trip()
     out = list(cur)
     for i, b in late.items():
         out[i] = b

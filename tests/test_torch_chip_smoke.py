@@ -1163,3 +1163,53 @@ def test_dy2static_generate_phase_on_tiny_cpu(tmp_path):
                                       predictor=False)
     chip_smoke.check_generate(early, 2, "tiny/early", cuda=False)
     assert early["eager_len"] <= 6 + 5
+
+
+def test_ops_phase_on_cpu():
+    """``ops``' drive with the CPU on both sides: every row of both op
+    suites runs, and none differs from itself (on the card the same drive
+    holds the card to the CPU)."""
+    res = chip_smoke.drive_ops("cpu", "cpu")
+    assert res["ops"] == 362 and res["failed"] == 0, res["failures"]
+    assert res["grad_rows"] > 200 and "multinomial" in res["random_rows"]
+
+
+def test_ops_phase_names_a_differing_row(monkeypatch):
+    """A row that differs between the two devices is counted and named
+    (here the second side's ``lerp`` is off by 1e-3)."""
+    R = chip_smoke.op_rows()
+    run = R.run_row
+    calls = []
+
+    def skewed(spec, device, seed=0):
+        out = run(spec, device, seed)
+        calls.append(device)
+        if spec.name == "lerp" and len(calls) % 2 == 0:
+            out["out"] = [o + 1e-3 for o in out["out"]]
+        return out
+
+    monkeypatch.setattr(R, "run_row", skewed)
+    res = chip_smoke.drive_ops("cpu", "cpu", names=["lerp", "add"])
+    assert res["failed"] == 1 and list(res["failures"]) == ["lerp"]
+
+
+#: resnet_fit at a CPU's size: ResNet-18 at 64 x 64, batch 32 (at lr 0.1 a
+#: smaller batch diverges), 2 workers
+RESNET_TINY = dict(chip_smoke.RESNET_FIT, depth=18, image=(3, 64, 64),
+                   batch=32, workers=2)
+
+
+def test_resnet_fit_phase_on_tiny_cpu():
+    """``resnet_fit``'s drive and holds on the CPU: 12 batches through
+    ``Model.fit`` over 2 workers (every batch through the ring), the loss
+    falling on the memorised FakeData, ``summary``'s count the model's,
+    ``evaluate``'s top-1 and top-5, no kernel launches and no plain
+    route."""
+    res = chip_smoke.drive_resnet_fit(RESNET_TINY, "cpu")
+    chip_smoke.check_resnet_fit(res, RESNET_TINY)
+    assert res["params"] == 11_689_512 and res["launches"] == {}
+    assert len(res["eval_accuracy_top1_top5"]) == 2
+    assert res["images_per_s"] > 0 and res["loader_wait_ms_per_batch"] >= 0
+    bad = dict(res, losses=res["losses"][::-1])
+    with pytest.raises(AssertionError, match="did not fall"):
+        chip_smoke.check_resnet_fit(bad, RESNET_TINY)

@@ -2583,3 +2583,147 @@ def test_untaken_branch_making_module_state_raises(cuda_device):
         assert not hasattr(net, "scale")
         assert torch.equal(net(-pos), -3 * pos)
         assert torch.equal(net(pos), 2 * pos)
+
+
+# -- the WHILE node's carry write-back, the op surface, ResNet ------------
+
+def _shift_and_double(x, n):
+    cur = x
+    prev = x * 0
+    i = n * 0
+    while i < n:
+        prev = cur
+        cur = cur * 2
+        i = i + 1
+    return cur, prev
+
+
+@pytest.mark.cuda
+def test_carry_permutation_captured_through_to_static(cuda_device):
+    """``prev = cur; cur = cur * 2`` (dy2static carries ``cur, i, prev`` in
+    name order) and ``a, b = b, a`` captured as WHILE nodes: every replay
+    equals the eager call, exactly (before the staged write-back ``prev``
+    came out as the new ``cur``)."""
+    from paddle_tpu_torch import jit
+
+    def swap(a, b, n):
+        i = n * 0
+        while i < n:
+            a, b = b, a
+            i = i + 1
+        return a, b
+
+    x = torch.tensor([3.0, -1.5], device=cuda_device)
+    y = torch.tensor([7.0, 9.0], device=cuda_device)
+    f, g = jit.to_static(_shift_and_double), jit.to_static(swap)
+    for n in (1, 1, 3, 2, 0):
+        nt = torch.tensor(n, device=cuda_device)
+        for got, want in ((f(x, nt), _shift_and_double(x, nt)),
+                          (g(x, y, nt), swap(x, y, nt))):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (n, got, want)
+    assert f.captures == 1 and g.captures == 1
+
+
+@pytest.mark.cuda
+def test_carry_permutation_captured_through_while_loop(cuda_device):
+    """``static.nn.while_loop`` whose body permutes its carries (and passes
+    one through) captured in a graph of one's own: the replay equals the
+    eager loop."""
+    from paddle_tpu_torch import static
+
+    def body(i, a, b, c):
+        return i + 1, b, a * 2, c
+
+    def init():
+        return [torch.zeros((), dtype=torch.int64, device=cuda_device),
+                torch.tensor([1.0], device=cuda_device),
+                torch.tensor([5.0], device=cuda_device),
+                torch.tensor([8.0], device=cuda_device)]
+
+    n = torch.tensor(3, device=cuda_device)
+    want = static.while_loop(lambda i, a, b, c: i < n, body, init())
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    graph, start = torch.cuda.CUDAGraph(), init()
+    nodes = static.nn.Nodes(torch.device(cuda_device))
+    with nodes, torch.cuda.graph(graph, stream=side):
+        out = static.while_loop(lambda i, a, b, c: i < n, body, start)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, want):
+        assert torch.equal(a, b), (out, want)
+    assert [float(v) for v in out[1:]] == [10.0, 4.0, 8.0]
+    del graph
+    nodes.release()
+
+
+@pytest.mark.cuda
+def test_topk_argsort_tie_order_on_cuda(cuda_device):
+    """The tie orders of the JAX package on the card (as on the CPU):
+    ``topk`` lower index first, descending ``argsort`` the flip of the
+    stable ascending sort, over a row long enough for torch's multi-block
+    sort."""
+    import paddle_tpu_torch as paddle
+
+    rs = np.random.RandomState(0)
+    x = rs.randint(0, 4, (3, 5000)).astype(np.float32)
+    dev, cpu = torch.tensor(x, device=cuda_device), torch.tensor(x)
+    for k in (1, 7, 100):
+        for largest in (True, False):
+            v, i = paddle.topk(dev, k, largest=largest)
+            cv, ci = paddle.topk(cpu, k, largest=largest)
+            assert torch.equal(i.cpu(), ci) and torch.equal(v.cpu(), cv)
+    for desc in (False, True):
+        assert torch.equal(paddle.argsort(dev, descending=desc).cpu(),
+                           paddle.argsort(cpu, descending=desc))
+    stable = np.argsort(x, axis=-1, kind="stable")
+    assert np.array_equal(paddle.argsort(dev, descending=True).cpu().numpy(),
+                          stable[:, ::-1])
+
+
+@pytest.mark.cuda
+def test_resnet18_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One ``Model.train_batch`` of ResNet-18 (Momentum, ``L2Decay``) on the
+    card and on a CPU copy from the same weights, batch 8 at 64 x 64:
+    loss within 1e-4 relative, every parameter after the step within 1e-3
+    of its scale (f32 convolutions through cuDNN, TF32 off, and the
+    CPU's)."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False        # f32 on both sides
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _resnet18_step(cuda_device)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _resnet18_step(cuda_device):
+    import copy
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer, regularizer
+
+    paddle.seed(0)
+    with paddle.device_guard("cpu"):
+        cpu_net = paddle.vision.resnet18(num_classes=10)
+    dev_net = copy.deepcopy(cpu_net).to(cuda_device)
+    rs = np.random.RandomState(1)
+    x = rs.rand(8, 3, 64, 64).astype(np.float32)
+    y = rs.randint(0, 10, (8, 1)).astype(np.int64)
+    losses = []
+    for net in (dev_net, cpu_net):
+        m = paddle.Model(net).prepare(
+            optimizer.Momentum(net.parameters(), lr=0.01, momentum=0.9,
+                               weight_decay=regularizer.L2Decay(1e-4)),
+            paddle.nn.CrossEntropyLoss())
+        losses.append(float(np.asarray(m.train_batch([x], [y])[0])
+                            .reshape(-1)[0]))
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1]), losses
+    want = dict(cpu_net.named_parameters())
+    for name, p in dev_net.named_parameters():
+        w = want[name].detach()
+        err = float((p.detach().cpu() - w).abs().max())
+        assert err <= 1e-3 * float(w.abs().max()), (name, err)

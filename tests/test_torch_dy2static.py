@@ -30,7 +30,7 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu.distributed import mesh as mesh_mod
 from paddle_tpu.jit import dy2static as jdy
-from paddle_tpu_torch import jit
+from paddle_tpu_torch import device_guard, jit
 from paddle_tpu_torch.jit import dy2static as pdy
 
 torch.set_num_threads(2)
@@ -41,9 +41,12 @@ RTOL = 1e-6
 
 @pytest.fixture(autouse=True)
 def _single_device():
+    """No JAX mesh, and the port's current device the CPU (the greedy
+    loop's ``paddle.arange`` makes its positions there)."""
     saved = mesh_mod.get_global_mesh()
     mesh_mod.set_global_mesh(None)
-    yield
+    with device_guard("cpu"):
+        yield
     mesh_mod.set_global_mesh(saved)
 
 

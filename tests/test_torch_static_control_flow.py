@@ -207,6 +207,100 @@ class TestWhileLoop:
             exported(f, torch.tensor(3), torch.ones(2))
 
 
+def _shift_and_double(x, n):
+    """``prev = cur; cur = cur * 2`` for ``n`` trips: dy2static carries
+    ``cur, i, prev`` in name order, so ``cur``'s buffer is written before
+    ``prev`` reads it."""
+    cur = x
+    prev = x * 0
+    i = n * 0
+    while i < n:
+        prev = cur
+        cur = cur * 2
+        i = i + 1
+    return cur, prev
+
+
+def _swap(a, b, n):
+    i = n * 0
+    while i < n:
+        a, b = b, a
+        i = i + 1
+    return a, b
+
+
+class TestCapturedWriteBack:
+    """The WHILE node's carry write-back (each trip copies the body's
+    results into the carry buffers), run by ``static.nn.host_replay`` on
+    the CPU as the captured node runs it: a result that is another
+    carry's buffer (a permutation of the carries) must be read before that
+    buffer is written.  Held to the eager body and the JAX ``to_static``
+    (``lax.while_loop``) of the same function, exactly."""
+
+    def test_shift_and_double_through_to_static(self):
+        x = np.array([3.0, -1.5], np.float32)
+        for n in (1, 3):
+            jcur, jprev = paddle.jit.to_static(_shift_and_double)(
+                paddle.to_tensor(x), paddle.to_tensor(np.int32(n)))
+            args = (torch.from_numpy(x), torch.tensor(n))
+            eager = _shift_and_double(*args)
+            with static.nn.host_replay():
+                replay = jit.to_static(_shift_and_double)(*args)
+            for got in (eager, replay):
+                np.testing.assert_array_equal(got[0].numpy(), np_of(jcur))
+                np.testing.assert_array_equal(got[1].numpy(), np_of(jprev))
+        np.testing.assert_array_equal(replay[1].numpy(), x * 4)
+
+    @pytest.mark.parametrize("n", [1, 2, 3])
+    def test_swap_through_to_static(self, n):
+        a, b = np.float32([1.0, 2.0]), np.float32([7.0, 9.0])
+        ja, jb = paddle.jit.to_static(_swap)(
+            paddle.to_tensor(a), paddle.to_tensor(b),
+            paddle.to_tensor(np.int32(n)))
+        args = (torch.from_numpy(a), torch.from_numpy(b), torch.tensor(n))
+        with static.nn.host_replay():
+            ra, rb = jit.to_static(_swap)(*args)
+        ea, eb = _swap(*args)
+        for got_a, got_b in ((ea, eb), (ra, rb)):
+            np.testing.assert_array_equal(got_a.numpy(), np_of(ja))
+            np.testing.assert_array_equal(got_b.numpy(), np_of(jb))
+        np.testing.assert_array_equal(ra.numpy(), b if n % 2 else a)
+
+    def test_swap_through_while_loop(self):
+        """``static.nn.while_loop`` with the body returning the carries
+        permuted, and one carry passed through unchanged."""
+
+        def body(i, a, b, c):
+            return i + 1, b, a, c
+
+        init = [torch.tensor(0), torch.tensor([1.0]), torch.tensor([5.0]),
+                torch.tensor([8.0])]
+        ji, ja, jb, jc = jstatic.while_loop(
+            lambda i, a, b, c: i < 3, body,
+            [paddle.to_tensor(np.int32(0)),
+             *(paddle.to_tensor(t.numpy()) for t in init[1:])])
+        eager = static.while_loop(lambda i, a, b, c: i < 3, body, init)
+        with static.nn.host_replay():
+            replay = static.while_loop(lambda i, a, b, c: i < 3, body, init)
+        for got in (eager, replay):
+            assert int(got[0]) == int(ji) == 3
+            for g, w in zip(got[1:], (ja, jb, jc)):
+                np.testing.assert_array_equal(g.numpy(), np_of(w))
+        assert float(replay[1]) == 5.0 and float(init[1]) == 1.0
+
+    def test_if_pair_outputs_swapped(self):
+        """The IF pair's outputs are selected after it by ``torch.where``
+        into new tensors (no write-back): a branch that returns its
+        operands swapped gives the same under the replay."""
+        a, b = torch.tensor([1.0]), torch.tensor([2.0])
+        for pred in (True, False):
+            with static.nn.host_replay():
+                x, y = static.cond(torch.tensor(pred), lambda u, v: (v, u),
+                                   lambda u, v: (u, v), (a, b))
+            assert (float(x), float(y)) == ((2.0, 1.0) if pred
+                                             else (1.0, 2.0))
+
+
 class TestCaseAndSwitchCase:
     def test_case_and_switch_case(self):
         """``tests/test_static_control_flow.py``'s case and switch_case,

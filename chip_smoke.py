@@ -327,6 +327,22 @@ Phases, each printing one JSON line with the card's name and power limit:
               ``predict``, the checkpoint loaded bitwise, ``summary``;
               K1-K3's bf16 dropout instances 12 a train batch each, K1 12
               an eval or predict batch, the plain route never.
+27. ops     — the 362 schema rows of the op suites
+              (``tests/torch_op_rows.py``) on the card against the CPU.
+28. resnet_fit — ResNet-50 (f32, TF32 off) through ``paddle.Model`` at
+              PaddleClas's per-card recipe over ``FakeData`` and 4 loader
+              workers: step ms, images/s, the loader's wait, idle share,
+              launches a step, peak.
+29. mobilenet_fit — MobileNetV3-large (5,483,032 parameters) at
+              resnet_fit's recipe over 64 seeded images in 10 class
+              folders, read and augmented in 4 workers (RandomResizedCrop
+              224, flip, Normalize); the same figures, and every batch
+              ``[64, 3, 224, 224]`` float32 through the ring.
+30. vision_ops — the detection ops of ``vision.ops`` and Viterbi
+              decoding at YOLOv3, Faster R-CNN, R-FCN and DCNv2 shapes on
+              the card against the CPU (forward and gradient within
+              1e-4 of scale, ``nms`` and the paths equal), each op's warm
+              ms.  No kernel of the port runs in 27-30.
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
 ``{"kernels": [...]}`` line (K1-K5, K1-K3's dropout instances, every
@@ -7573,23 +7589,38 @@ class Cycled:
 
 
 def drive_resnet_fit(shape: dict, device: str) -> dict:
-    """``vision.resnet<depth>`` trained through ``Model.fit`` over a
-    ``DataLoader`` of ``FakeData`` with ``shape["workers"]`` workers, with
-    a ``StepTimeline``; ``evaluate``; ``summary``; one worker's time to
-    draw a batch; on the card a profile of ``traced`` warm steps."""
-    import contextlib
-    import io as stdio
+    """``vision.resnet<depth>`` trained through ``Model.fit`` over
+    ``FakeData`` (:func:`drive_image_fit`)."""
+    from paddle_tpu_torch import device_guard, rng, vision
 
-    from paddle_tpu_torch import (Model, device_guard, io, metric, nn, obs,
-                                  optimizer, regularizer, rng, summary,
-                                  vision)
-
-    cuda = torch.device(device).type == "cuda"
-    B, warm = shape["batch"], shape["warm"]
+    B = shape["batch"]
     rng.seed(0)
     with device_guard(device):
         net = getattr(vision, f"resnet{shape['depth']}")(
             num_classes=shape["classes"])
+    base = vision.datasets.FakeData(B * shape["distinct"], shape["image"],
+                                    shape["classes"])
+    evals = vision.datasets.FakeData(B * shape["eval"], shape["image"],
+                                     shape["classes"])
+    return drive_image_fit(shape, device, net, base, evals)
+
+
+def drive_image_fit(shape: dict, device: str, net, base, evals) -> dict:
+    """``net`` trained through ``Model.fit`` for ``shape["train"]`` batches
+    over a ``DataLoader`` of ``base``'s samples over and over with
+    ``shape["workers"]`` workers, with a ``StepTimeline``; ``evaluate`` on
+    ``evals``; ``summary``; one worker's time to draw a batch of ``base``
+    (its transforms included); each train batch's shape and dtype as the
+    network received it; on the card a profile of ``traced`` warm
+    steps."""
+    import contextlib
+    import io as stdio
+
+    from paddle_tpu_torch import (Model, io, metric, nn, obs, optimizer,
+                                  regularizer, summary)
+
+    cuda = torch.device(device).type == "cuda"
+    B, warm = shape["batch"], shape["warm"]
     res = {"params": sum(p.numel() for p in net.parameters())}
     with contextlib.redirect_stdout(stdio.StringIO()) as table:
         info = summary(net, (1,) + tuple(shape["image"]))
@@ -7599,10 +7630,6 @@ def drive_resnet_fit(shape: dict, device: str) -> dict:
                              weight_decay=regularizer.L2Decay(shape["l2"]))
     model = Model(net).prepare(opt, nn.CrossEntropyLoss(),
                                metrics=metric.Accuracy(topk=(1, 5)))
-    base = vision.datasets.FakeData(B * shape["distinct"], shape["image"],
-                                    shape["classes"])
-    evals = vision.datasets.FakeData(B * shape["eval"], shape["image"],
-                                     shape["classes"])
     t0 = time.perf_counter()
     np.stack([base[i][0] for i in range(B)])
     res["one_worker_batch_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
@@ -7612,16 +7639,24 @@ def drive_resnet_fit(shape: dict, device: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     clock, tl = step_clock(), obs.StepTimeline()
+    batches = []
+    hook = net.register_forward_pre_hook(
+        lambda m, inp: batches.append([list(inp[0].shape),
+                                       str(inp[0].dtype)]))
     before = _counts()
     t0 = time.perf_counter()
-    model.fit(loader, epochs=1, verbose=0, num_iters=shape["train"],
-              timeline=tl, callbacks=[clock])
+    try:
+        model.fit(loader, epochs=1, verbose=0, num_iters=shape["train"],
+                  timeline=tl, callbacks=[clock])
+    finally:
+        hook.remove()
     res["fit_s"] = round(time.perf_counter() - t0, 3)
     after = _counts()
     res.update({"losses": [float(v) for v in clock.losses],
                 "launches": _moved(before[0], after[0]),
                 "routes": _moved(before[1], after[1]),
                 "transport": dict(loader.transport),
+                "batches": batches,
                 "start_s": round(clock.start_s, 3),
                 "warmup_step_ms": [round(t, 3) for t in clock.ms[:warm]]})
     ms = clock.ms[warm:]
@@ -7707,6 +7742,336 @@ def phase_resnet_fit(shape: dict = RESNET_FIT, device: str = "cuda") -> dict:
          f"hapi)", dtype="float32", shape=shape,
          tf32={"cudnn": torch.backends.cudnn.allow_tf32,
                "matmul": torch.backends.cuda.matmul.allow_tf32}, **res)
+    return res
+
+
+# ---- mobilenet_fit: MobileNetV3-large through paddle.Model -----------------
+
+#: resnet_fit's recipe (Momentum 0.9, lr 0.1, L2Decay 1e-4, batch 64 at
+#: 224 x 224, 12 train and 2 eval batches, 4 workers) on MobileNetV3-large
+#: over an augmenting loader: ``images`` seeded uint8 HWC ``.npy`` images
+#: with sides drawn from ``sides``, in ``folders`` class folders, read by
+#: ``DatasetFolder`` through PaddleClas's ImageNet train transforms
+#: (RandomResizedCrop 224, a random horizontal flip, ToTensor, Normalize)
+#: and its eval ones (Resize 256, CenterCrop 224)
+MOBILENET_FIT = {"arch": "mobilenet_v3_large", "classes": 1000,
+                 "image": (3, 224, 224), "batch": 64, "train": 12,
+                 "eval": 2, "workers": 4, "lr": 0.1, "momentum": 0.9,
+                 "l2": 1e-4, "warm": 2, "traced": 3, "images": 64,
+                 "folders": 10, "sides": (256, 512), "resize": 256}
+
+#: MobileNetV3-large's parameters at 1000 classes (5,507,432 with the
+#: batch norms' buffers)
+MOBILENET_V3_LARGE_PARAMS = 5_483_032
+
+IMAGENET_MEAN = [0.485, 0.456, 0.406]
+IMAGENET_STD = [0.229, 0.224, 0.225]
+
+
+def write_image_folder(root: str, n: int, folders: int, sides, seed=0):
+    """``n`` seeded uint8 HWC RGB images, each side drawn from ``sides``
+    (inclusive), as ``root/class<k>/<i>.npy``, image ``i`` in class ``i %
+    folders``."""
+    rs = np.random.RandomState(seed)
+    for i in range(n):
+        h, w = rs.randint(sides[0], sides[1] + 1, 2)
+        d = os.path.join(root, f"class{i % folders:02d}")
+        os.makedirs(d, exist_ok=True)
+        np.save(os.path.join(d, f"{i:04d}.npy"),
+                rs.randint(0, 256, (h, w, 3), dtype=np.uint8))
+
+
+def image_folder_sets(root: str, shape: dict):
+    """The train and eval ``DatasetFolder``s over ``root`` with
+    PaddleClas's ImageNet transforms at ``shape``'s sizes."""
+    from paddle_tpu_torch.vision import datasets, transforms as T
+
+    side = shape["image"][1]
+    norm = [T.ToTensor(), T.Normalize(mean=IMAGENET_MEAN, std=IMAGENET_STD)]
+    train = datasets.DatasetFolder(root, transform=T.Compose(
+        [T.RandomResizedCrop(side), T.RandomHorizontalFlip()] + norm))
+    evals = datasets.DatasetFolder(root, transform=T.Compose(
+        [T.Resize(shape["resize"]), T.CenterCrop(side)] + norm))
+    return train, evals
+
+
+def drive_mobilenet_fit(shape: dict, device: str, root: str) -> dict:
+    """``vision.<arch>`` trained through ``Model.fit`` over seeded images
+    written to ``root`` (:func:`drive_image_fit`)."""
+    from paddle_tpu_torch import device_guard, rng, vision
+
+    write_image_folder(root, shape["images"], shape["folders"],
+                       shape["sides"])
+    train, evals = image_folder_sets(root, shape)
+    rng.seed(0)
+    with device_guard(device):
+        net = getattr(vision, shape["arch"])(num_classes=shape["classes"])
+    return drive_image_fit(shape, device, net, train,
+                           Cycled(evals, shape["batch"] * shape["eval"]))
+
+
+def check_mobilenet_fit(res: dict, shape: dict) -> None:
+    """The holds of ``mobilenet_fit``: ``summary`` and the model agree on
+    the parameter count (5,483,032 for MobileNetV3-large at 1000
+    classes), every loss is finite and the last three's mean is below the
+    first loss, every batch came through the workers' ring, and the
+    network received every train batch as ``[batch, *image]`` float32."""
+    want = MOBILENET_V3_LARGE_PARAMS \
+        if (shape["arch"], shape["classes"]) == ("mobilenet_v3_large",
+                                                 1000) else res["params"]
+    if res["params"] != want or res["summary"]["total_params"] != want:
+        raise AssertionError(f"mobilenet_fit: {res['params']} parameters, "
+                             f"summary {res['summary']}, want {want}")
+    losses = res["losses"]
+    if len(losses) != shape["train"] or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"mobilenet_fit: losses {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"mobilenet_fit: the loss did not fall: "
+                             f"{losses}")
+    want = {"ring": shape["train"], "queue": 0} if shape["workers"] else \
+        {"ring": 0, "queue": 0}
+    if res["transport"] != want:
+        raise AssertionError(f"mobilenet_fit: batches came "
+                             f"{res['transport']}, want {want}")
+    batch = [[shape["batch"], *shape["image"]], "torch.float32"]
+    if len(res["batches"]) != shape["train"] or \
+            any(b != batch for b in res["batches"]):
+        raise AssertionError(f"mobilenet_fit: the network received "
+                             f"{res['batches']}, want {shape['train']} x "
+                             f"{batch}")
+
+
+def phase_mobilenet_fit(shape: dict = MOBILENET_FIT,
+                        device: str = "cuda") -> dict:
+    """MobileNetV3-large (``vision.mobilenet_v3_large(num_classes=1000)``)
+    trained through ``paddle.Model`` at resnet_fit's recipe, f32, over a
+    4-worker loader whose workers read 64 seeded images of sides 256-512
+    from 10 class folders and augment them (random resized crop to 224,
+    flip, normalize); ``evaluate`` on 2 batches (resize 256, centre crop
+    224).  Prints the warm step's milliseconds, images/s (the step's and
+    the wall clock's), the loader's wait, one worker's draw of a
+    transformed batch, peak memory, the card's idle share over 3 traced
+    warm steps and the launches a step."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        res = drive_mobilenet_fit(shape, device, root)
+    check_mobilenet_fit(res, shape)
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    res["batches"] = f"{len(res['batches'])} x {res['batches'][0]}"
+    emit("mobilenet_fit", model=f"{shape['arch']} (port vision, hapi, "
+         f"transforms)", dtype="float32", shape=shape,
+         tf32={"cudnn": torch.backends.cudnn.allow_tf32,
+               "matmul": torch.backends.cuda.matmul.allow_tf32}, **res)
+    return res
+
+
+# ---- vision_ops: the detection ops on the card against the CPU -------------
+
+#: the nine COCO anchors of YOLOv3 and each head's three
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_MASKS = [[6, 7, 8], [3, 4, 5], [0, 1, 2]]
+
+#: the shapes detectors run: YOLOv3-DarkNet53 at 608 (three heads of 80
+#: classes, 50 padded ground-truth boxes an image), Faster R-CNN R50-FPN's
+#: P2 level (512 RoIs an image of sides 16-112 px), R-FCN's
+#: position-sensitive map (10 x 7 x 7 channels), DCNv2 at ResNet-50's res5,
+#: multiclass NMS of 1000 boxes in 80 categories, a CRF's 64 x 128 x 60
+#: emissions
+VISION_OPS = {
+    "yolo": {"batch": 8, "grids": (19, 38, 76), "down": (32, 16, 8),
+             "classes": 80, "image": 608, "conf_thresh": 0.005,
+             "gt_boxes": 50, "ignore_thresh": 0.7},
+    "nms": {"boxes": 1000, "categories": 80, "iou": 0.45, "top_k": 100,
+            "image": 608},
+    "roi": {"feat": (2, 256, 200, 272), "scale": 0.25, "rois": 512,
+            "sides": (16, 112), "output": 7, "sampling_ratio": -1},
+    "psroi": {"feat": (2, 490, 200, 272), "output": 7},
+    "deform": {"x": (2, 512, 25, 34), "cout": 512, "k": 3},
+    "viterbi": {"batch": 64, "seq": 128, "tags": 60},
+}
+
+#: the card's forward against the CPU's (both the port's f32 torch ops,
+#: sums in another order), of each output's scale; the gradients of
+#: ``sum(out * c)`` likewise
+VISION_OPS_TOLERANCE = {"fwd": 1e-4, "grad": 1e-4}
+
+
+def vision_op_cases(shape: dict) -> dict:
+    """Each op of the phase as ``(fn, floats, others, grad)``:
+    ``fn(*floats, *others)`` on tensors made from seeded numpy; with
+    ``grad`` the ``floats`` are differentiated, ``others`` never."""
+    from paddle_tpu_torch import text
+    from paddle_tpu_torch.vision import ops as V
+
+    rs = np.random.RandomState(0)
+    cases = {}
+    y = shape["yolo"]
+    ncls, N = y["classes"], y["batch"]
+    img = np.full((N, 2), y["image"], np.int32)
+    gt = np.zeros((N, y["gt_boxes"], 4), np.float32)
+    label = np.zeros((N, y["gt_boxes"]), np.int64)
+    for n in range(N):
+        k = rs.randint(5, y["gt_boxes"] + 1)
+        gt[n, :k, :2] = rs.uniform(0.05, 0.95, (k, 2))
+        gt[n, :k, 2:] = rs.uniform(0.01, 0.5, (k, 2))
+        label[n, :k] = rs.randint(0, ncls, k)
+    for grid, down, mask in zip(y["grids"], y["down"], YOLO_MASKS):
+        head = (0.5 * rs.randn(N, 3 * (5 + ncls), grid, grid)).astype(
+            np.float32)
+        anchors = [YOLO_ANCHORS[2 * a + i] for a in mask for i in (0, 1)]
+        cases[f"yolo_box_{grid}"] = (
+            lambda x, im, a=anchors, d=down: V.yolo_box(
+                x, im, a, ncls, y["conf_thresh"], d), [head], [img], False)
+        cases[f"yolo_loss_{grid}"] = (
+            lambda x, b, l, m=mask, d=down: V.yolo_loss(
+                x, b, l, YOLO_ANCHORS, m, ncls, y["ignore_thresh"], d),
+            [head], [gt, label], True)
+    s = shape["nms"]
+    xy = rs.uniform(0, s["image"] - 64, (s["boxes"], 2))
+    wh = rs.uniform(8, 160, (s["boxes"], 2))
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    cases["nms"] = (lambda b, sc, c: V.nms(
+        b, s["iou"], sc, c, list(range(s["categories"])), s["top_k"]),
+        [], [boxes, rs.rand(s["boxes"]).astype(np.float32),
+             rs.randint(0, s["categories"], s["boxes"])], False)
+    r = shape["roi"]
+    N, C, H, W = r["feat"]
+    lo, hi = r["sides"]
+    side = rs.uniform(lo, hi, (N * r["rois"], 2))
+    corner = rs.uniform(0, 1, (N * r["rois"], 2)) \
+        * (np.array([W, H]) / r["scale"] - side)
+    rois = np.concatenate([corner, corner + side], 1).astype(np.float32)
+    num = np.full(N, r["rois"], np.int32)
+    feat = rs.randn(*r["feat"]).astype(np.float32)
+    cases["roi_align"] = (lambda f, b, n: V.roi_align(
+        f, b, n, r["output"], r["scale"], r["sampling_ratio"], True),
+        [feat, rois], [num], True)
+    cases["roi_pool"] = (lambda f, b, n: V.roi_pool(
+        f, b, n, r["output"], r["scale"]), [feat], [rois, num], True)
+    p = shape["psroi"]
+    cases["psroi_pool"] = (lambda f, b, n: V.psroi_pool(
+        f, b, n, p["output"], r["scale"]),
+        [rs.randn(*p["feat"]).astype(np.float32)], [rois, num], True)
+    d = shape["deform"]
+    N, C, H, W = d["x"]
+    k = d["k"]
+    cases["deform_conv2d"] = (
+        lambda x, o, m, w: V.deform_conv2d(x, o, w, padding=k // 2,
+                                           mask=m),
+        [rs.randn(N, C, H, W).astype(np.float32),
+         (2 * rs.randn(N, 2 * k * k, H, W)).astype(np.float32),
+         rs.rand(N, k * k, H, W).astype(np.float32),
+         (rs.randn(d["cout"], C, k, k) / np.sqrt(C * k * k)).astype(
+             np.float32)], [], True)
+    v = shape["viterbi"]
+    cases["viterbi_decode"] = (
+        lambda pot, tr, ln: text.viterbi_decode(pot, tr, ln, True), [],
+        [rs.randn(v["batch"], v["seq"], v["tags"]).astype(np.float32),
+         rs.randn(v["tags"], v["tags"]).astype(np.float32),
+         rs.randint(1, v["seq"] + 1, v["batch"]).astype(np.int64)], False)
+    return cases
+
+
+def _run_case(case, device: str, seed: int = 1):
+    """A case on ``device``: its outputs and, where it has a gradient, the
+    gradients of ``sum(out * c)`` (``c`` seeded), as CPU tensors."""
+    fn, floats, others, grad = case
+    xs = [torch.tensor(a, device=device, requires_grad=grad)
+          for a in floats]
+    outs = fn(*xs, *[torch.tensor(a, device=device) for a in others])
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    grads = []
+    if grad:
+        rs = np.random.RandomState(seed)
+        loss = sum((o * torch.tensor(rs.rand(*o.shape).astype(np.float32),
+                                     device=device)).sum() for o in outs)
+        grads = torch.autograd.grad(loss, xs, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(xs, grads)]
+    return [o.detach().cpu() for o in outs], [g.cpu() for g in grads]
+
+
+def _max_rel_err(got, want) -> float:
+    scale = max(float(want.abs().max()) if want.numel() else 0.0, 1e-6)
+    return float((got.double() - want.double()).abs().max()) / scale \
+        if want.numel() else 0.0
+
+
+def drive_vision_ops(shape: dict = VISION_OPS, device: str = "cuda",
+                     other: str = "cpu", reps: int = 5) -> dict:
+    """Each case on ``device`` and on ``other`` from the same seeded
+    inputs: float outputs and gradients held at ``VISION_OPS_TOLERANCE``
+    of their scale, integer outputs (``nms``'s indices, Viterbi's paths)
+    equal; each op's warm forward milliseconds on ``device`` (median of
+    ``reps``; with the backward too where it has one).  Returns each op's
+    numbers and the failures."""
+    cuda = torch.device(device).type == "cuda"
+    out, failed = {}, {}
+    for name, case in vision_op_cases(shape).items():
+        try:
+            got, got_g = _run_case(case, device)
+            want, want_g = _run_case(case, other)
+            res = {"max_abs_err": 0.0, "fwd_rel_err": 0.0,
+                   "grad_rel_err": 0.0, "outputs": [list(o.shape)
+                                                    for o in want]}
+            for g, w in zip(got, want):
+                if g.shape != w.shape or g.dtype != w.dtype:
+                    raise AssertionError(f"output {list(g.shape)} "
+                                         f"{g.dtype}, want {list(w.shape)} "
+                                         f"{w.dtype}")
+                if not w.is_floating_point():
+                    if not torch.equal(g, w):
+                        raise AssertionError(
+                            f"{int((g != w).sum())} of {w.numel()} "
+                            f"integer outputs differ")
+                    continue
+                res["max_abs_err"] = max(res["max_abs_err"], float(
+                    (g - w).abs().max()) if w.numel() else 0.0)
+                res["fwd_rel_err"] = max(res["fwd_rel_err"],
+                                         _max_rel_err(g, w))
+            for g, w in zip(got_g, want_g):
+                res["grad_rel_err"] = max(res["grad_rel_err"],
+                                          _max_rel_err(g, w))
+            if res["fwd_rel_err"] > VISION_OPS_TOLERANCE["fwd"] or \
+                    res["grad_rel_err"] > VISION_OPS_TOLERANCE["grad"]:
+                raise AssertionError(f"beyond {VISION_OPS_TOLERANCE}: {res}")
+            fn, floats, others, grad = case
+            xs = [torch.tensor(a, device=device, requires_grad=grad)
+                  for a in floats]
+            args = xs + [torch.tensor(a, device=device) for a in others]
+            res["ms"] = _quartiles([_step_ms(lambda: fn(*args), cuda)[1]
+                                    for _ in range(reps)])["median"]
+            if grad:
+                def step():
+                    outs = fn(*args)
+                    outs = outs if isinstance(outs, tuple) else (outs,)
+                    sum(o.sum() for o in outs).backward()
+                res["ms_with_grad"] = _quartiles(
+                    [_step_ms(step, cuda)[1] for _ in range(reps)])["median"]
+            out[name] = res
+        except Exception as e:              # noqa: BLE001 — counted, raised
+            failed[name] = f"{type(e).__name__}: {str(e)[:400]}"
+    return {"ops": out, "failed": failed}
+
+
+def phase_vision_ops(shape: dict = VISION_OPS, device: str = "cuda") -> dict:
+    """The detection ops at the shapes detectors run (``VISION_OPS``) on
+    the card against the CPU: yolo_box and yolo_loss at each YOLOv3 head,
+    multiclass nms, roi_align/roi_pool at Faster R-CNN's P2 level,
+    psroi_pool at R-FCN's map, deform_conv2d at DCNv2's res5 and Viterbi
+    decoding; forwards and gradients within ``VISION_OPS_TOLERANCE``,
+    nms's indices and the Viterbi paths equal.  Prints each op's warm
+    milliseconds and errors, and the seconds."""
+    t0 = time.perf_counter()
+    res = drive_vision_ops(shape, device)
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit("vision_ops", against="cpu", tolerance=VISION_OPS_TOLERANCE,
+         shape=shape, **res)
+    if res["failed"]:
+        raise AssertionError(f"vision_ops: {len(res['failed'])} ops differ "
+                             f"between the card and the CPU or fail: "
+                             f"{res['failed']}")
     return res
 
 
@@ -7803,6 +8168,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_resnet_fit()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mobilenet_fit()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_vision_ops()
     launches = {**paged["launches"],
                 **{n: train["launches"][n] for n in TRAIN_KERNELS},
                 **{n: recipe[n] for n in RECIPE_KERNELS},

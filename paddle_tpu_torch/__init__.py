@@ -43,8 +43,9 @@ handing batches over a shared-memory ring), with :mod:`metric`,
 :func:`summary` and :func:`flops`.  Paddle's tensor ops are plain
 functions on ``torch.Tensor`` at the top level (``paddle.concat``,
 ``paddle.topk``, ..., :mod:`.ops`), with the dtype names, :func:`to_tensor`
-and ``paddle.linalg``; :mod:`vision` has the ResNet family and the
-datasets.
+and ``paddle.linalg``; :mod:`vision` has the model zoo, the transforms,
+the datasets, the detection operators and the image backend, and
+:mod:`text` Viterbi decoding and the text datasets.
 Everything runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (for :mod:`nn`'s layers, :func:`set_device` or
 :func:`device_guard` with ``"cpu"``; with no card, building on the
@@ -58,7 +59,7 @@ from .tensor import *  # noqa: F401,F403 — dtypes, to_tensor, helpers
 from . import (  # noqa: E402
     amp, device, distributed, framework, hapi, incubate, inference, io, jit,
     metric, models, nn, obs, ops, optimizer, profiler, regularizer, rng,
-    serving, static, sysconfig, version, vision,
+    serving, static, sysconfig, text, version, vision,
 )
 from .batch import batch  # noqa: E402
 from .device import device_guard, get_device, set_device  # noqa: E402
@@ -73,5 +74,5 @@ __all__ = ["Model", "amp", "batch", "build_train_step", "callbacks",
            "inference", "io", "jit", "linalg", "metric", "models", "nn",
            "obs", "ops", "optimizer", "profiler", "regularizer", "rng",
            "seed", "serving", "set_device", "set_rng_state", "static",
-           "summary", "sysconfig", "version", "vision"] \
+           "summary", "sysconfig", "text", "version", "vision"] \
     + ops.OPS + _tensor.__all__

@@ -1,7 +1,11 @@
-"""``paddle.vision`` (port of ``paddle_tpu/vision``): the ResNet family
-(:mod:`.models`) and the datasets (:mod:`.datasets`).  The other model
-files, ``transforms``, ``vision.ops`` and ``image`` are not ported yet."""
-from . import datasets, models
+"""``paddle.vision`` (port of ``paddle_tpu/vision``): the model zoo
+(:mod:`.models`), :mod:`.transforms` (host-side numpy), the datasets
+(:mod:`.datasets`), the detection operators (:mod:`.ops`) and the image
+backend (:mod:`.image`)."""
+from . import datasets, image, models, ops, transforms
+from .image import get_image_backend, image_load, set_image_backend
 from .models import *  # noqa: F401,F403
 
-__all__ = ["datasets", "models"] + models.__all__
+__all__ = ["datasets", "image", "models", "ops", "transforms",
+           "get_image_backend", "image_load",
+           "set_image_backend"] + models.__all__

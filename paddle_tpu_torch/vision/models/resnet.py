@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from ... import nn
 from ...ops.manipulation import flatten
+from ._pretrained import no_pretrained
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18",
            "resnet34", "resnet50", "resnet101", "resnet152",
@@ -136,10 +137,7 @@ class ResNet(nn.Layer):
 
 
 def _resnet(block, depth, pretrained=False, **kwargs):
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained weights need a download; load a local checkpoint "
-            "with set_state_dict instead")
+    no_pretrained(pretrained)
     return ResNet(block, depth, **kwargs)
 
 

@@ -1213,3 +1213,101 @@ def test_resnet_fit_phase_on_tiny_cpu():
     bad = dict(res, losses=res["losses"][::-1])
     with pytest.raises(AssertionError, match="did not fall"):
         chip_smoke.check_resnet_fit(bad, RESNET_TINY)
+
+
+#: mobilenet_fit at a CPU's size: MobileNetV3-small, batch 16 of 64 x 64
+#: crops from 16 images of sides 72-96 (resized to 72 for eval), 2 workers
+MOBILENET_TINY = dict(chip_smoke.MOBILENET_FIT, arch="mobilenet_v3_small",
+                      image=(3, 64, 64), resize=72, batch=16, images=16,
+                      sides=(72, 96), workers=2)
+
+
+def test_mobilenet_fit_phase_on_tiny_cpu(tmp_path):
+    """``mobilenet_fit``'s drive and holds on the CPU: 12 batches of
+    augmented images through ``Model.fit`` over 2 workers (every batch
+    through the ring, each ``[16, 3, 64, 64]`` float32 at the network),
+    the loss falling, ``summary``'s count the model's, no kernel launches
+    and no plain route."""
+    res = chip_smoke.drive_mobilenet_fit(MOBILENET_TINY, "cpu",
+                                         str(tmp_path))
+    chip_smoke.check_mobilenet_fit(res, MOBILENET_TINY)
+    assert res["launches"] == {} and not res["routes"]
+    assert len(os.listdir(tmp_path)) == 10
+    assert res["images_per_s"] > 0 and res["one_worker_batch_ms"] > 0
+    assert len(res["eval_accuracy_top1_top5"]) == 2
+    bad = dict(res, batches=res["batches"][:-1] + [[[16, 3, 60, 64],
+                                                    "torch.float32"]])
+    with pytest.raises(AssertionError, match="received"):
+        chip_smoke.check_mobilenet_fit(bad, MOBILENET_TINY)
+
+
+def test_mobilenet_fit_counts_the_large_model():
+    """At its card shape the phase holds MobileNetV3-large at 1000 classes
+    to 5,483,032 parameters."""
+    res = {"params": 5_483_032, "summary": {"total_params": 5_483_032},
+           "losses": [6.9] + [5.0] * 11,
+           "transport": {"ring": 12, "queue": 0},
+           "batches": [[[64, 3, 224, 224], "torch.float32"]] * 12}
+    chip_smoke.check_mobilenet_fit(res, chip_smoke.MOBILENET_FIT)
+    with pytest.raises(AssertionError, match="parameters"):
+        chip_smoke.check_mobilenet_fit(dict(res, params=5_483_033),
+                                       chip_smoke.MOBILENET_FIT)
+
+
+#: vision_ops at a CPU's size: the same ops, the detectors' shapes cut
+VISION_OPS_TINY = {
+    "yolo": dict(chip_smoke.VISION_OPS["yolo"], batch=2, grids=(2, 4, 8),
+                 classes=6, image=64, gt_boxes=8),
+    "nms": dict(chip_smoke.VISION_OPS["nms"], boxes=120, categories=5,
+                top_k=20),
+    "roi": dict(chip_smoke.VISION_OPS["roi"], feat=(2, 8, 20, 24), rois=16,
+                sides=(8, 48)),
+    "psroi": dict(chip_smoke.VISION_OPS["psroi"], feat=(2, 98, 20, 24)),
+    "deform": dict(chip_smoke.VISION_OPS["deform"], x=(2, 8, 6, 7),
+                   cout=8),
+    "viterbi": dict(chip_smoke.VISION_OPS["viterbi"], batch=4, seq=10,
+                    tags=6),
+}
+
+
+def test_vision_ops_phase_on_cpu():
+    """``vision_ops``' drive with the CPU on both sides at small shapes:
+    every op runs, with its gradient where it has one, and none differs
+    from itself (on the card the same drive holds the card to the
+    CPU)."""
+    res = chip_smoke.drive_vision_ops(VISION_OPS_TINY, "cpu", "cpu",
+                                      reps=1)
+    assert not res["failed"], res["failed"]
+    ops = res["ops"]
+    assert len(ops) == 12 and all(r["max_abs_err"] == 0 for r in
+                                  ops.values())
+    assert "ms_with_grad" in ops["roi_align"] \
+        and "ms_with_grad" not in ops["nms"]
+    assert ops["roi_align"]["outputs"] == [[32, 8, 7, 7]]
+    assert ops["psroi_pool"]["outputs"] == [[32, 2, 7, 7]]
+
+
+def test_vision_ops_phase_names_a_differing_op(monkeypatch):
+    """An op whose second run differs is named: a float output beyond the
+    tolerance, and an nms index (integers must be equal)."""
+    from paddle_tpu_torch.vision import ops as V
+
+    calls = {"roi_align": 0, "nms": 0}
+    align, nms = V.roi_align, V.nms
+
+    def skewed_align(*a, **k):
+        calls["roi_align"] += 1
+        out = align(*a, **k)
+        return out * 1.01 if calls["roi_align"] == 2 else out
+
+    def skewed_nms(*a, **k):
+        calls["nms"] += 1
+        out = nms(*a, **k)
+        return out.flip(0) if calls["nms"] == 2 else out
+
+    monkeypatch.setattr(V, "roi_align", skewed_align)
+    monkeypatch.setattr(V, "nms", skewed_nms)
+    res = chip_smoke.drive_vision_ops(VISION_OPS_TINY, "cpu", "cpu",
+                                      reps=1)
+    assert sorted(res["failed"]) == ["nms", "roi_align"]
+    assert "integer outputs differ" in res["failed"]["nms"]

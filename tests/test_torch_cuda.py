@@ -2727,3 +2727,231 @@ def _resnet18_step(cuda_device):
         w = want[name].detach()
         err = float((p.detach().cpu() - w).abs().max())
         assert err <= 1e-3 * float(w.abs().max()), (name, err)
+
+
+#: vision_ops' drive at a card test's size (the phase runs the detectors'
+#: shapes): every op on the card against the CPU
+VISION_OPS_SMALL = {
+    "yolo": dict(chip_smoke.VISION_OPS["yolo"], batch=2, grids=(4, 8, 16),
+                 image=128, gt_boxes=12),
+    "nms": dict(chip_smoke.VISION_OPS["nms"], boxes=300),
+    "roi": dict(chip_smoke.VISION_OPS["roi"], feat=(2, 32, 50, 68),
+                rois=64),
+    "psroi": dict(chip_smoke.VISION_OPS["psroi"], feat=(2, 98, 50, 68)),
+    "deform": dict(chip_smoke.VISION_OPS["deform"], x=(2, 64, 12, 17),
+                   cout=32),
+    "viterbi": dict(chip_smoke.VISION_OPS["viterbi"], batch=16, seq=40),
+}
+
+
+@pytest.mark.cuda
+def test_vision_ops_on_the_card_match_the_cpu(cuda_device):
+    """Every detection op of ``vision_ops`` on the card against the CPU,
+    forward and gradient within ``chip_smoke.VISION_OPS_TOLERANCE`` of
+    their scale (TF32 off), nms's indices and the Viterbi paths equal."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = chip_smoke.drive_vision_ops(VISION_OPS_SMALL, "cuda", "cpu",
+                                          reps=1)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    assert not res["failed"], res["failed"]
+    assert len(res["ops"]) == 12
+
+
+def _captured_equals_eager(fn, args, tol):
+    """``fn`` through ``jit.to_static``: its eager first call, its capture
+    at the second and a replay at the third give the same values."""
+    from paddle_tpu_torch import jit
+
+    prog = jit.to_static(fn)
+    eager = [o.clone() for o in prog(*args)]
+    prog(*args)
+    replay = prog(*args)
+    assert prog.captures == 1 and prog.hits >= 1
+    for a, b in zip(replay, eager):
+        err = float((a - b).abs().max())
+        assert err <= tol * max(float(b.abs().max()), 1.0), err
+
+
+@pytest.mark.cuda
+def test_roi_ops_in_a_capture_use_the_map_bound(cuda_device):
+    """Inside a CUDA graph the RoI ops read no boxes on the host: windows
+    and roi_align's adaptive grid take the feature map's bound, and the
+    replay gives the eager values (1e-5 of scale: more zero terms in the
+    window sums)."""
+    from paddle_tpu_torch.vision import ops as V
+
+    rs = np.random.RandomState(0)
+    feat = torch.tensor(rs.randn(2, 8, 24, 30).astype(np.float32),
+                        device=cuda_device)
+    xy = rs.uniform(-4, 80, (10, 2))
+    boxes = torch.tensor(np.concatenate(
+        [xy, xy + rs.uniform(6, 60, (10, 2))], 1).astype(np.float32),
+        device=cuda_device)
+    num = torch.tensor([6, 4], dtype=torch.int32, device=cuda_device)
+    ps = torch.tensor(rs.randn(2, 8 * 4, 24, 30).astype(np.float32),
+                      device=cuda_device)
+
+    def f(feat, ps, boxes, num):
+        return (V.roi_align(feat, boxes, num, 4, 0.25, -1, True),
+                V.roi_pool(feat, boxes, num, 3, 0.25),
+                V.psroi_pool(ps, boxes, num, 2, 0.25))
+
+    _captured_equals_eager(f, (feat, ps, boxes, num), 1e-5)
+
+
+@pytest.mark.cuda
+def test_yolo_ops_in_a_capture(cuda_device):
+    """``yolo_box`` and ``yolo_loss`` make their anchors on the device by
+    fills, so they capture; the replay gives the eager values (1e-6 of
+    scale)."""
+    from paddle_tpu_torch.vision import ops as V
+
+    rs = np.random.RandomState(3)
+    x = torch.tensor(rs.randn(2, 3 * 9, 8, 8).astype(np.float32),
+                     device=cuda_device)
+    img = torch.tensor([[256, 256], [200, 240]], dtype=torch.int32,
+                       device=cuda_device)
+    gt = torch.tensor(np.concatenate([rs.uniform(0.1, 0.9, (2, 5, 2)),
+                                      rs.uniform(0.05, 0.5, (2, 5, 2))],
+                                     2).astype(np.float32),
+                      device=cuda_device)
+    label = torch.tensor(rs.randint(0, 4, (2, 5)), device=cuda_device)
+    anchors = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119]
+
+    def f(x, img, gt, label):
+        boxes, scores = V.yolo_box(x, img, anchors[:6], 4, 0.01, 32)
+        return boxes, scores, V.yolo_loss(x, gt, label, anchors, [0, 1, 2],
+                                          4, 0.7, 32)
+
+    _captured_equals_eager(f, (x, img, gt, label), 1e-6)
+
+
+@pytest.mark.cuda
+def test_nms_refuses_a_capture(cuda_device):
+    """``nms`` reads its suppression mask on the host, so inside a CUDA
+    graph it raises ``CaptureError`` (its eager call runs)."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.vision import ops as V
+
+    boxes = torch.tensor([[0, 0, 10, 10], [1, 1, 11, 11], [20, 20, 30, 30]],
+                         dtype=torch.float32, device=cuda_device)
+    scores = torch.tensor([0.9, 0.8, 0.7], device=cuda_device)
+    def keep(b, s):
+        return V.nms(b, 0.5, s) + 0
+
+    prog = jit.to_static(keep)
+    assert prog(boxes, scores).tolist() == [0, 2]
+    with pytest.raises(jit.CaptureError, match="nms"):
+        prog(boxes, scores)
+
+
+@pytest.mark.cuda
+def test_viterbi_ties_and_capture_on_the_card(cuda_device):
+    """Viterbi on the card: integer potentials (many ties) decode to the
+    CPU's paths (both take the first tag); in a CUDA graph the paths keep
+    all S steps (no host read of the lengths) and equal the eager ones
+    there."""
+    from paddle_tpu_torch import text
+
+    rs = np.random.RandomState(1)
+    pot = rs.randint(0, 3, (8, 12, 7)).astype(np.float32)
+    trans = rs.randint(0, 2, (7, 7)).astype(np.float32)
+    lens = rs.randint(1, 11, 8).astype(np.int64)
+    for include in (False, True):
+        cs, cp = text.viterbi_decode(torch.tensor(pot), torch.tensor(trans),
+                                     torch.tensor(lens), include)
+        ds, dp = text.viterbi_decode(
+            torch.tensor(pot, device=cuda_device),
+            torch.tensor(trans, device=cuda_device),
+            torch.tensor(lens, device=cuda_device), include)
+        assert torch.equal(dp.cpu(), cp) and torch.equal(ds.cpu(), cs)
+    from paddle_tpu_torch import jit
+
+    args = [torch.tensor(a, device=cuda_device) for a in (pot, trans, lens)]
+    def decode(p, t, n):
+        return text.viterbi_decode(p, t, n)
+
+    prog = jit.to_static(decode)
+    s0, p0 = prog(*args)
+    prog(*args)
+    s2, p2 = prog(*args)
+    assert tuple(p2.shape) == (8, 12) and tuple(p0.shape) == (8, 10)
+    assert torch.equal(p2[:, :10], p0) and (p2[:, 10:] == 0).all()
+    assert torch.equal(s2, s0)
+
+
+@pytest.mark.cuda
+def test_mobilenet_v3_small_train_step_on_the_card_matches_the_cpu(
+        cuda_device):
+    """One ``Model.train_batch`` of MobileNetV3 small (depthwise
+    convolutions, Hardswish, squeeze-excite; dropout at p = 0) on the card
+    and on a CPU copy from the same weights, batch 8 at 64 x 64: loss
+    within 1e-4 relative, every parameter after the step within 1e-3 of
+    its scale, at least 1e-6 (f32, TF32 off; a batch norm's bias that
+    feeds another batch norm through a linear map has a zero gradient in
+    exact arithmetic and holds rounding noise, ~5e-10, after the
+    step)."""
+    import copy
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer, regularizer
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        paddle.seed(0)
+        with paddle.device_guard("cpu"):
+            cpu_net = paddle.vision.mobilenet_v3_small(num_classes=10)
+        for m in cpu_net.sublayers():
+            if isinstance(m, paddle.nn.Dropout):
+                m.p = 0.0
+        dev_net = copy.deepcopy(cpu_net).to(cuda_device)
+        rs = np.random.RandomState(1)
+        x = rs.rand(8, 3, 64, 64).astype(np.float32)
+        y = rs.randint(0, 10, (8, 1)).astype(np.int64)
+        losses = []
+        for net in (dev_net, cpu_net):
+            m = paddle.Model(net).prepare(
+                optimizer.Momentum(net.parameters(), lr=0.01, momentum=0.9,
+                                   weight_decay=regularizer.L2Decay(1e-4)),
+                paddle.nn.CrossEntropyLoss())
+            losses.append(float(np.asarray(m.train_batch([x], [y])[0])
+                                .reshape(-1)[0]))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1]), losses
+    want = dict(cpu_net.named_parameters())
+    for name, p in dev_net.named_parameters():
+        w = want[name].detach()
+        err = float((p.detach().cpu() - w).abs().max())
+        assert err <= 1e-3 * max(float(w.abs().max()), 1e-6), (name, err)
+
+
+@pytest.mark.cuda
+def test_image_tensors_land_on_the_card(cuda_device, tmp_path):
+    """``image_load(backend="tensor")``, ``read_file`` and ``decode_jpeg``
+    give CHW uint8 tensors on the current device, the card by default."""
+    from PIL import Image
+
+    from paddle_tpu_torch.vision import image, ops as V
+
+    img = np.random.RandomState(2).randint(0, 256, (5, 7, 3)).astype(
+        np.uint8)
+    png, jpg = str(tmp_path / "x.png"), str(tmp_path / "x.jpg")
+    Image.fromarray(img).save(png)
+    Image.fromarray(img).save(jpg)
+    t = image.image_load(png, backend="tensor")
+    assert t.is_cuda and t.dtype == torch.uint8
+    assert np.array_equal(t.cpu().numpy(), img.transpose(2, 0, 1))
+    data = V.read_file(jpg)
+    dec = V.decode_jpeg(data, mode="rgb")
+    assert data.is_cuda and dec.is_cuda and tuple(dec.shape) == (3, 5, 7)

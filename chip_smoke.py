@@ -118,6 +118,20 @@ Phases, each printing one JSON line with the card's name and power limit:
               batch, one program and one capture; the K1/K2/K3 launch
               counts of these 13 steps are read; the first 3 losses must
               equal the same step's run eagerly.
+12a. hybrid_train — the same step through fleet in a launched world of
+              one (``python -m paddle_tpu_torch.distributed.launch
+              --nproc_per_node 1`` on
+              ``paddle_tpu_torch/distributed/launch/hybrid_train.py``,
+              NCCL): ``fleet.init`` at every degree 1 and sharding stage
+              1, ``distributed_model``, ``distributed_optimizer(AdamW)``,
+              3 + 10 graph steps whose losses must be bitwise train's and
+              whose K1-K3 launches are one per layer per step; gradient
+              merge (k 4, f32, SGD 1e-2) over 4 micro-batches of 2
+              within 1e-5 of one update on the batch of 8, and its
+              refusal of a compiled step; every collective on the card,
+              and an all-reduce captured in a CUDA graph on a side stream
+              and replayed; K1-K3 against their plain versions at the
+              path's shape.
 12b. train_recipe — the same model at the GPT-2 recipe: dropout 0.1
               (hidden, and attention in K1-K3's dropout instances), 4
               warm-up steps then a cosine decay, a global-norm clip of
@@ -351,8 +365,8 @@ f16 instance and the conditional nodes' kernel ``graph_conditional``
 path,
 ``train_recipe`` for the dropout instances, ``train_fp16_scaler`` for
 K1-K3's f16 ones, ``serve_f16``'s 7B run for K4/K5's, and
-``launches_by_phase``, ``nn_encoder``'s train steps and ``hapi_fit``'s
-fit among them); the
+``launches_by_phase``, ``hybrid_train``'s fleet steps, ``nn_encoder``'s
+train steps and ``hapi_fit``'s fit among them); the
 last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 without that line.  No phase falls back to the CPU.
@@ -5452,6 +5466,103 @@ def phase_train() -> dict:
     return res
 
 
+#: the port's worker that hybrid_train starts through the launcher
+HYBRID_WORKER = os.path.join("paddle_tpu_torch", "distributed", "launch",
+                             "hybrid_train.py")
+#: seconds the launched worker may take
+HYBRID_TIMEOUT_S = 300
+#: gradient merge against one full-batch update: max abs over parameters
+MERGE_TOLERANCE = 1e-5
+
+
+def phase_hybrid_train(train: dict) -> dict:
+    """GPT-2 345M through fleet in a launched NCCL world of one
+    (``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 1``
+    on ``hybrid_train.py``): (a) the bench step built through
+    ``fleet.init`` (every degree 1, sharding stage 1),
+    ``distributed_model`` and ``distributed_optimizer(AdamW)``, 3 + 10
+    steps as one CUDA graph a step, whose losses must be bitwise the
+    ``train`` phase's (at degree 1 the wrappers add no work) and whose
+    K1-K3 launches are one per layer per step; (b) gradient merge (k 4,
+    avg) over 4 micro-batches of 2 against one SGD update on the batch of
+    8, f32, within ``MERGE_TOLERANCE``, and its refusal of a compiled
+    step; (c) every collective on the card, and one all-reduce captured
+    in a CUDA graph on a side stream and replayed.  K1-K3 are held
+    against their plain versions at the path's shape (bf16, B 8, S 1024,
+    16 heads of 64) here, outside the counted run."""
+    import shutil
+
+    root = tempfile.mkdtemp(prefix="hybrid_train_")
+    out = os.path.join(root, "result.json")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "1", "--log_dir", root, HYBRID_WORKER,
+         "--out", out], env=env, capture_output=True, text=True,
+        timeout=HYBRID_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    log = ""
+    if os.path.exists(os.path.join(root, "workerlog.0")):
+        with open(os.path.join(root, "workerlog.0")) as f:
+            log = f.read()
+    if proc.returncode != 0 or not os.path.exists(out):
+        raise AssertionError(f"hybrid_train: the launched worker failed "
+                             f"(rc {proc.returncode}):\n{log[-3000:]}\n"
+                             f"{proc.stderr[-2000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps(res), flush=True)          # the worker's line
+    fl, merge = res["fleet"], res["merge"]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    held = {"flash_fwd": check_flash(gen, 8, 1024, 16, torch.bfloat16, D=64,
+                                     fused=True),
+            "flash_bwd_dkv": check_flash_bwd(gen, "flash_bwd_dkv", 8, 1024,
+                                             16, torch.bfloat16),
+            "flash_bwd_dq": check_flash_bwd(gen, "flash_bwd_dq", 8, 1024,
+                                            16, torch.bfloat16)}
+    kernel_errs = {n: {"max_abs_err": c["err"], "tol": c["tol"]}
+                   for n, c in held.items()}
+    del held
+    emit("hybrid_train", model="gpt2-345m",
+         dtype="bfloat16 (AMP O2, f32 masters)", batch=8, seq=1024,
+         world=res["world"], wrappers=[fl["model"], fl["optimizer"]],
+         step_ms=fl["step_ms"], losses=fl["losses"],
+         train_losses=train["losses"], launches=fl["launches"],
+         program_cache=fl["program_cache"], merge=merge,
+         collectives=res["collectives"], capture=res["capture"],
+         kernels_vs_plain=kernel_errs, worker_seconds=res["seconds"],
+         phase_seconds=seconds)
+    if res["world"] != {"backend": "nccl", "size": 1}:
+        raise AssertionError(f"hybrid_train: world {res['world']}")
+    if fl["losses"] != train["losses"]:
+        raise AssertionError(f"hybrid_train: the fleet step's losses "
+                             f"{fl['losses']} are not bitwise the train "
+                             f"phase's {train['losses']}")
+    want = fl["layers"] * len(fl["losses"])
+    for name in TRAIN_KERNELS:
+        if fl["launches"][name] != want:
+            raise AssertionError(f"hybrid_train: {name} launched "
+                                 f"{fl['launches'][name]} times, want "
+                                 f"{want}")
+    if fl["program_cache"]["captures"] != 1:
+        raise AssertionError(f"hybrid_train: program cache "
+                             f"{fl['program_cache']}")
+    if not merge["max_abs_diff"] <= MERGE_TOLERANCE or \
+            not merge["refuses_to_static"]:
+        raise AssertionError(f"hybrid_train: gradient merge {merge}")
+    bad = [n for n, ok in res["collectives"].items() if not ok]
+    if bad or not res["capture"]["equal"]:
+        raise AssertionError(f"hybrid_train: collectives failed {bad}, "
+                             f"capture {res['capture']}")
+    for n, e in kernel_errs.items():
+        if not e["max_abs_err"] <= e["tol"]:
+            raise AssertionError(f"hybrid_train: {n} {e}")
+    return {"launches": fl["launches"], "step_ms": fl["step_ms"]}
+
+
 def timed_steps(ts, n_steps: int) -> float:
     """Host ms a step over ``n_steps`` steps of a warmed ``TrainStep``."""
     torch.cuda.synchronize()
@@ -8137,6 +8248,7 @@ def main() -> int:
     train = phase_train()
     gc.collect()
     torch.cuda.empty_cache()
+    hybrid = phase_hybrid_train(train)
     train_o1 = phase_train_o1()
     gc.collect()
     torch.cuda.empty_cache()
@@ -8194,6 +8306,7 @@ def main() -> int:
                 "serve_fleet": fleet,
                 "sigkill_drill": drill["launches"],
                 "train": train["launches"],
+                "hybrid_train": hybrid["launches"],
                 "train_o1": train_o1,
                 "train_fp16_scaler": fp16,
                 "train_recipe": recipe,

@@ -15,7 +15,8 @@ recomputation take the same offsets; the generator then moves past the
 draws the region made.  The offsets equal those of the same forward
 without recompute, so recompute on and off draw identical masks.  In the
 same way the region runs under the AMP policy (:mod:`...amp.auto_cast`)
-it was entered with, also when the backward recomputes it (outside the
+and the dropout coordinates (:func:`...rng.shard_coordinates`) it was
+entered with, also when the backward recomputes it (outside the
 ``auto_cast`` block, perhaps on another thread), so the recomputed
 activations have the dtypes the forward saved.
 """
@@ -43,13 +44,14 @@ def recompute(function, *args, preserve_rng_state: bool = True,
     gen = rng_mod.default_generator(tensors[0].device)
     base = gen.get_state()
     policy = amp_state()
+    coords = rng_mod.shard_state()
     draws = []
 
     def region(base_state, *a):
         outer = gen.swap_state(base_state.clone())
         before = gen.draws
         try:
-            with _policy(policy):
+            with _policy(policy), rng_mod.shard_coordinates(**coords):
                 out = function(*a, **kwargs)
         finally:
             draws.append(gen.draws - before)

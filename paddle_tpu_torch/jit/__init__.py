@@ -112,7 +112,7 @@ __all__ = ["CaptureError", "InputSpec", "ProgramTranslator",
            "StaticFunction", "TracedLayer", "TranslatedLayer",
            "declarative", "enable_to_static", "load", "not_to_static",
            "save", "set_code_level", "set_verbosity", "to_static",
-           "subscribe_compiles", "unsubscribe_compiles"]
+           "subscribe_compiles", "unsubscribe_compiles", "in_to_static"]
 
 # -- program builds, for the compile ledger -----------------------------------
 
@@ -249,6 +249,16 @@ def _tensors(obj) -> List[torch.Tensor]:
     return out
 
 
+#: how many compiled functions' bodies are running now (:func:`in_to_static`)
+_static_depth = [0]
+
+
+def in_to_static() -> bool:
+    """Whether the caller runs inside a :func:`to_static` function's body
+    (on the card: its eager build, its capture; on the CPU: every call)."""
+    return _static_depth[0] > 0
+
+
 class StaticFunction:
     """A function compiled by :func:`to_static`: call it as the function.
     ``program_cache``: key -> program; ``misses``, ``hits``,
@@ -324,6 +334,13 @@ class StaticFunction:
         return tuple(bits)
 
     def __call__(self, *args, **kwargs):
+        _static_depth[0] += 1
+        try:
+            return self._call(args, kwargs)
+        finally:
+            _static_depth[0] -= 1
+
+    def _call(self, args, kwargs):
         if not (self._enabled and ProgramTranslator.enable_to_static):
             return self._fn(*args, **kwargs)
         leaves: List[torch.Tensor] = []

@@ -16,10 +16,17 @@ the vocabulary's rows; ``gate_up_proj`` as gate's r-th slice then up's
 r-th slice), :func:`unshard_state_dict` puts the shards back together,
 and :func:`shard_model` turns a whole model into the rank's shard on a
 mesh.
+
+Hybrid models: :func:`shard_state_dict_from_jax` takes a JAX model's full
+numpy state straight to one rank's shard of a port model (built under
+``fleet.init`` at some model degree, perhaps holding one pipeline
+stage): each of the model's own tensors is looked up by name (mapped by
+``rename``, e.g. :func:`gpt_pipe_jax_name` for ``GPTForCausalLMPipe``),
+transposed if it is a linear weight, and cut as its layer splits it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +34,8 @@ from torch import nn
 
 __all__ = ["port_state_dict_from_jax", "from_jax_state_dict",
            "shard_rule", "shard_state_dict", "unshard_state_dict",
-           "shard_model"]
+           "shard_model", "shard_state_dict_from_jax", "layer_rules",
+           "gpt_pipe_jax_name"]
 
 #: (module name, parameter) -> (dim split, equal parts of that dim), in
 #: the port's ``[out, in]`` layout; every other tensor is whole on every
@@ -202,3 +210,74 @@ def shard_model(model: nn.Module, mesh) -> nn.Module:
                 table[name] = (nn.Parameter(local, t.requires_grad)
                                if isinstance(t, nn.Parameter) else local)
     return shell.eval()
+
+
+def shard_state_dict_from_jax(model: nn.Module, state: Dict[str, np.ndarray],
+                              rank: int = 0, mp: int = 1,
+                              rename: Optional[Callable[[str], str]] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s shard (of ``mp``) of a JAX-package state dict, for
+    exactly the tensors ``model`` holds: each one's JAX name is
+    ``rename(name)`` (the name itself by default), a linear weight is
+    transposed, and a tensor of a tensor-parallel layer is cut as its
+    class splits it (as :func:`shard_state_dict` cuts the model's by
+    name).  CPU tensors; raises when a shape does not match the
+    model's."""
+    modules = dict(model.named_modules())
+    rules = layer_rules(model)
+    out = {}
+    for name, t in _named_state(model).items():
+        src = rename(name) if rename is not None else name
+        if src not in state:
+            raise ValueError(f"{name}: {src!r} is not in the state dict")
+        arr = np.asarray(state[src])
+        if isinstance(modules.get(name.rpartition(".")[0]), nn.Linear) \
+                and arr.ndim == 2:
+            arr = arr.T
+        local = _shard(torch.from_numpy(np.array(arr)), rules.get(name),
+                       rank, mp)
+        if tuple(local.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: the shard has {tuple(local.shape)}, "
+                             f"the model {tuple(t.shape)}")
+        out[name] = local
+    return out
+
+
+def layer_rules(model: nn.Module) -> Dict[str, Tuple[int, int]]:
+    """``{name: (dim, parts)}`` of every tensor of ``model`` that a
+    tensor-parallel layer splits, by the layer's class (the names need
+    not be those :data:`_TP_RULES` knows)."""
+    from ..distributed.fleet.meta_parallel.mp_layers import (
+        ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    )
+
+    rules = {}
+    for prefix, mod in model.named_modules():
+        prefix = f"{prefix}." if prefix else ""
+        if isinstance(mod, ColumnParallelLinear):
+            rules[prefix + "weight"] = (0, mod.parts)
+            if mod.bias is not None:
+                rules[prefix + "bias"] = (0, mod.parts)
+        elif isinstance(mod, RowParallelLinear):
+            rules[prefix + "weight"] = (1, 1)
+        elif isinstance(mod, VocabParallelEmbedding):
+            rules[prefix + "weight"] = (0, 1)
+    return rules
+
+
+def gpt_pipe_jax_name(num_layers: int) -> Callable[[str], str]:
+    """The JAX ``GPTForCausalLMPipe`` name of a port
+    ``GPTForCausalLMPipe`` tensor: the tied embeddings
+    (``shared_layers.embed.*``) are the JAX model's layer 0, an untied
+    head (index ``num_layers + 2``) its layer ``num_layers + 1`` (the JAX
+    head holds the final norm and the head in one layer); every other
+    name is the same."""
+    head = str(num_layers + 2)
+
+    def rename(name: str) -> str:
+        if name.startswith("shared_layers.embed."):
+            return "0." + name[len("shared_layers.embed."):]
+        idx, _, rest = name.partition(".")
+        return f"{num_layers + 1}.{rest}" if idx == head else name
+
+    return rename

@@ -11,7 +11,11 @@ they are the tensor-parallel layers of
 ``H/mp`` heads (the head-major ``qkv_proj`` splits into whole heads), the
 MLP's ``ffn/mp`` columns, the vocabulary's ``V/mp`` rows; the tied head's
 logits are all-gathered over the vocabulary before they leave the
-model.
+model.  Without a mesh, a model built after ``fleet.init`` at a model
+degree above 1 is that degree's shard, and :meth:`GPTForCausalLM.
+compute_loss` takes the vocab-parallel path (the rank's vocabulary
+columns of the logits through ``ParallelCrossEntropy``);
+:func:`GPTForCausalLMPipe` is the pipeline-parallel model.
 Module and parameter names are the JAX ``state_dict()``'s.  The fused
 ``qkv_proj`` keeps the JAX output layout, head-major ``[H, 3*D]``, so q, k
 and v are strided ``[B, S, H, D]`` views of one projection, which the
@@ -43,15 +47,17 @@ qkv projection, which the kernels read through their strides.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 from torch import nn
 
+from .. import rng as rng_mod
 from ..distributed.fleet.meta_parallel.mp_layers import (
-    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
-    gather_last,
+    ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+    VocabParallelEmbedding, c_identity, default_group, gather_output,
 )
 from ..distributed.fleet.recompute import recompute
 from ..nn.common import Dropout
@@ -59,8 +65,9 @@ from ..nn.norm import LayerNorm
 from ..ops.attention import flash_attention
 from ..ops.fused import fused_linear_cross_entropy
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "gpt_tiny",
-           "gpt2_345m", "gpt3_13b", "GPT_CONFIGS"]
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTForCausalLMPipe", "GPTModel",
+           "GPTPretrainingCriterion", "gpt_tiny", "gpt2_345m", "gpt3_13b",
+           "GPT_CONFIGS"]
 
 
 @dataclass
@@ -134,6 +141,10 @@ class GPTAttention(nn.Module):
             self.out_proj = RowParallelLinear(h, h, group=group,
                                               device=device, dtype=dtype)
             self.n_heads //= self.qkv_proj.mp
+        #: a shard's first head among all (its dropout draws there)
+        self.head_start = None if group is None else \
+            self.qkv_proj.rank * self.n_heads
+        self.heads_total = config.num_attention_heads
         self.dropout_p = config.attention_probs_dropout_prob
 
     def forward(self, x: torch.Tensor, cache_ctx=None) -> torch.Tensor:
@@ -141,9 +152,14 @@ class GPTAttention(nn.Module):
         qkv = self.qkv_proj(x).view(B, S, self.n_heads, 3 * self.head_dim)
         q, k, v = qkv.split(self.head_dim, dim=-1)          # [B, S, H, D]
         if cache_ctx is None:
-            ctx = flash_attention(q, k, v, is_causal=True,
-                                  dropout_p=self.dropout_p,
-                                  kernel=self.kernel, training=self.training)
+            coords = contextlib.nullcontext() if self.head_start is None \
+                else rng_mod.shard_coordinates(head_start=self.head_start,
+                                               heads_total=self.heads_total)
+            with coords:
+                ctx = flash_attention(q, k, v, is_causal=True,
+                                      dropout_p=self.dropout_p,
+                                      kernel=self.kernel,
+                                      training=self.training)
         elif cache_ctx.mode == "prefill":
             cache_ctx.write_prefill(k, v)
             ctx = cache_ctx.prefill_attention(q, k, v)
@@ -259,6 +275,48 @@ class GPTModel(nn.Module):
         return self.final_ln(h)
 
 
+def _fleet_group():
+    """The process group of ``fleet.init``'s model axis, or None."""
+    g = default_group()
+    return None if g is None else g.process_group
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, std: float,
+                 generator: Optional[torch.Generator] = None) -> None:
+    """Every weight matrix and embedding of ``module`` from N(0, std);
+    biases zero; LayerNorm weight one, bias zero."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Embedding)):
+            m.weight.normal_(0.0, std, generator=generator)
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """The causal-LM loss over the head's logits (the rank's vocabulary
+    columns under tensor parallelism): :class:`ParallelCrossEntropy` per
+    token, averaged over the tokens whose label is not ``ignore_index``
+    (or weighted by ``loss_mask``), as the JAX package's criterion."""
+
+    def __init__(self, ignore_index: int = -100, group=None):
+        super().__init__()
+        self.ce = ParallelCrossEntropy(mp_group=group,
+                                       ignore_index=ignore_index)
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = self.ce(logits, labels).squeeze(-1)
+        if loss_mask is not None:
+            m = loss_mask.float()
+            return (loss * m).sum() / m.sum().clamp(min=1.0)
+        denom = (labels != self.ignore_index).float().sum()
+        return loss.sum() / denom.clamp(min=1.0)
+
+
 class GPTForCausalLM(nn.Module):
     """GPTModel + the LM head, tied to the word embedding by default.
 
@@ -266,8 +324,9 @@ class GPTForCausalLM(nn.Module):
     CPU.  Asking for CUDA on a machine without a card raises.  ``kernel``
     (``"cuda"`` or ``"reference"``) picks the attention path on the card;
     CPU tensors always take the plain versions.  ``mesh`` (a serving mesh)
-    builds the rank's tensor-parallel shard; ``generator`` then draws the
-    shard's own values."""
+    builds the rank's tensor-parallel shard; without one, a model built
+    after ``fleet.init`` with a model degree above 1 is that degree's
+    shard.  ``generator`` then draws the shard's own values."""
 
     def __init__(self, config: GPTConfig, *, device="cuda",
                  dtype=torch.float32,
@@ -281,7 +340,7 @@ class GPTForCausalLM(nn.Module):
                 "device is available (pass device='cpu' to run on the CPU)")
         self.config = config
         self.mesh = mesh
-        self.group = group = None if mesh is None \
+        self.group = group = _fleet_group() if mesh is None \
             else mesh.get_group("model")
         self.gpt = GPTModel(config, device=device, dtype=dtype, kernel=kernel,
                             group=group)
@@ -296,20 +355,11 @@ class GPTForCausalLM(nn.Module):
                 group=group, device=device, dtype=dtype)
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Draw every weight matrix and embedding from
         N(0, initializer_range); biases zero; LayerNorm weight one, bias
         zero."""
-        std = self.config.initializer_range
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Embedding)):
-                m.weight.normal_(0.0, std, generator=generator)
-                if getattr(m, "bias", None) is not None:
-                    m.bias.zero_()
-            elif isinstance(m, LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
+        init_weights(self, self.config.initializer_range, generator)
 
     def _head_weight(self) -> torch.Tensor:
         """The ``[V, H]`` head weight: the word embedding when tied."""
@@ -323,21 +373,118 @@ class GPTForCausalLM(nn.Module):
         :meth:`compute_loss`, which never makes them).  ``cache_ctx``
         routes a serving step through the KV cache.  With a mesh, the
         rank's vocabulary columns are all-gathered."""
-        logits = self.gpt(input_ids, cache_ctx=cache_ctx) \
-            @ self._head_weight().t()
-        return logits if self.group is None else \
-            gather_last(logits, self.group)
+        h = self.gpt(input_ids, cache_ctx=cache_ctx)
+        if self.group is None:
+            return h @ self._head_weight().t()
+        logits = c_identity(h, self.group) @ self._head_weight().t()
+        return gather_output(logits, self.group)
 
     def compute_loss(self, input_ids: torch.Tensor, labels: torch.Tensor,
                      loss_mask: Optional[torch.Tensor] = None,
                      ignore_index: int = -100) -> torch.Tensor:
-        """Forward + causal-LM loss (f32 scalar) through the vocab-blocked
-        fused cross-entropy.  A sharded model raises: its loss needs the
-        vocab-parallel cross-entropy (ROADMAP.md A.5 step 6)."""
-        if self.group is not None:
-            raise NotImplementedError(
-                "compute_loss on a tensor-parallel GPT needs "
-                "ParallelCrossEntropy (ROADMAP.md A.5 step 6)")
-        return fused_linear_cross_entropy(
-            self.gpt(input_ids), self._head_weight(), labels,
-            loss_mask=loss_mask, ignore_index=ignore_index)
+        """Forward + causal-LM loss (f32 scalar): through the vocab-blocked
+        fused cross-entropy, or, on a tensor-parallel model, through the
+        rank's vocabulary columns of the logits and
+        :class:`ParallelCrossEntropy` (the JAX package's vocab-parallel
+        path)."""
+        h = self.gpt(input_ids)
+        if self.group is None:
+            return fused_linear_cross_entropy(
+                h, self._head_weight(), labels, loss_mask=loss_mask,
+                ignore_index=ignore_index)
+        logits = c_identity(h, self.group) @ self._head_weight().t()
+        crit = GPTPretrainingCriterion(ignore_index, self.group)
+        return crit(logits, labels, loss_mask)
+
+
+class _GPTFinalNorm(nn.Module):
+    def __init__(self, config: GPTConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.final_ln = LayerNorm(config.hidden_size,
+                                  config.layer_norm_epsilon, device=device,
+                                  dtype=dtype)
+
+    def forward(self, x):
+        return self.final_ln(x)
+
+
+class _GPTLMHead(nn.Module):
+    """The untied head: the rank's vocabulary columns."""
+
+    def __init__(self, config: GPTConfig, *, device=None, dtype=None,
+                 group=None):
+        super().__init__()
+        self.group = group
+        if group is None:
+            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+                                     bias=False, device=device, dtype=dtype)
+        else:
+            self.lm_head = ColumnParallelLinear(
+                config.hidden_size, config.vocab_size, bias=False,
+                group=group, device=device, dtype=dtype)
+
+    def forward(self, h):
+        return self.lm_head(h)
+
+
+def _tied_head(embeddings: GPTEmbeddings, h: torch.Tensor) -> torch.Tensor:
+    """The tied head on the last stage's copy of the embeddings: the
+    rank's vocabulary columns of the logits."""
+    w = embeddings.word_embeddings.weight
+    group = getattr(embeddings.word_embeddings, "group", None)
+    return c_identity(h, group) @ w.t()
+
+
+def GPTForCausalLMPipe(config: GPTConfig, topology=None,
+                       num_stages: Optional[int] = None,
+                       recompute_interval: int = 0,
+                       num_virtual_pipeline_stages: Optional[int] = None, *,
+                       device="cuda", dtype=torch.float32,
+                       generator: Optional[torch.Generator] = None,
+                       kernel: str = "cuda"):
+    """The pipeline-parallel GPT (the JAX package's
+    ``GPTForCausalLMPipe``, ``models/gpt.py:342-365``): a
+    :class:`PipelineLayer` of the embeddings, the decoder layers, the
+    final norm and the head, cut before evenly spaced decoder layers.
+    The tied head is a ``SharedLayerDesc`` of the embeddings (key
+    ``"embed"``): the first and last stage each hold a copy, and the
+    word embedding's gradient is summed between them.  Under a model
+    degree above 1 the layers are that degree's shards and the loss is
+    :class:`GPTPretrainingCriterion` over the local logits.  The state
+    dict names are the JAX model's but the embeddings' (under
+    ``shared_layers.embed.`` when tied) and an untied head's (one index
+    on); :func:`..models.convert.gpt_pipe_jax_name` maps them."""
+    from ..distributed.fleet.meta_parallel import (
+        LayerDesc, PipelineLayer, SharedLayerDesc,
+    )
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("GPTForCausalLMPipe: device 'cuda' asked for, but "
+                           "no CUDA device is available (pass device='cpu')")
+    group = _fleet_group()
+    kw = dict(device=device, dtype=dtype)
+    if config.tie_word_embeddings:
+        layers = [SharedLayerDesc("embed", GPTEmbeddings, None,
+                                  "word_embeddings.weight", config,
+                                  group=group, **kw)]
+    else:
+        layers = [LayerDesc(GPTEmbeddings, config, group=group, **kw)]
+    layers += [LayerDesc(GPTDecoderLayer, config, kernel=kernel, group=group,
+                         **kw) for _ in range(config.num_hidden_layers)]
+    layers.append(LayerDesc(_GPTFinalNorm, config, **kw))
+    if config.tie_word_embeddings:
+        layers.append(SharedLayerDesc("embed", GPTEmbeddings, _tied_head,
+                                      "word_embeddings.weight", config,
+                                      group=group, **kw))
+    else:
+        layers.append(LayerDesc(_GPTLMHead, config, group=group, **kw))
+    crit = GPTPretrainingCriterion(group=group)
+    pipe = PipelineLayer(layers, num_stages=num_stages, topology=topology,
+                         loss_fn=crit, seg_method="layer:GPTDecoderLayer",
+                         recompute_interval=recompute_interval,
+                         num_virtual_pipeline_stages=
+                         num_virtual_pipeline_stages)
+    init_weights(pipe, config.initializer_range, generator)
+    pipe.config = config
+    return pipe

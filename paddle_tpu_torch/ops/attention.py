@@ -62,8 +62,8 @@ def _dropout_factor(rng: torch.Tensor, B: int, H: int, Sq: int, Sk: int,
                     p: float) -> torch.Tensor:
     """``[B, H, Sq, Sk]`` f32: ``1/(1-p)`` where the draw ``rng`` keeps a
     probability, 0 where it drops it (the kernels' bits)."""
-    return rng_mod.attention_dropout_factor(rng, B * H, Sq, Sk, p) \
-        .view(B, H, Sq, Sk)
+    return rng_mod.attention_dropout_factor(rng, B * H, Sq, Sk, p,
+                                            heads=H).view(B, H, Sq, Sk)
 
 
 def _sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -312,6 +312,12 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
     rng = None
     if p > 0.0:
         rng = (generator or rng_mod.default_generator(query.device)).draw()
+        rng = rng_mod.with_coordinates(rng, query.shape[2])
+        if rng.numel() > 2 and _use_kernel(query, kernel):
+            raise NotImplementedError(
+                "flash_attention: K1-K3's dropout instances draw at the "
+                "rank's own coordinates; a sharded model's attention "
+                "dropout on the card is not ported (ROADMAP.md A.5 step 6)")
     if attn_mask is not None or (kernel == "reference"
                                  and key.shape[1] != query.shape[1]):
         return _sdpa_reference(query, key, value, is_causal, False, p, rng,

@@ -26,6 +26,17 @@ element), never on how a kernel tiles the work:
   attention kernels hold them (``csrc/attention_common.cuh``,
   ``pt::Dropout``, computes the same words).
 
+A rank of a sharded model draws at the coordinates the element has in
+the whole tensor (:func:`shard_coordinates`): a hidden dropout's index is
+offset by the rank's batch start times the size of one sample, and an
+attention head row is ``(batch_start + b) * heads_total + head_start +
+h``.  So the union of the ranks' masks is the one-process mask, as a
+sharded dropout mask of the JAX package is one logical mask, partitioned
+(``fleet/meta_parallel/parallel_layers/random.py:1-11``).  The attention
+draw carries its coordinates in its snapshot (``int64[5]``: ``[seed,
+offset, batch_start, head_start, heads_total]``), so a backward that
+recomputes the factors away from the context draws the same bits.
+
 An element is kept iff its full 32-bit word is ``>= round(p * 2**32)``,
 so the keep rate is ``1 - p`` to within ``2**-32``.  Everything here is
 plain PyTorch on 32-bit lanes held in int64 (as
@@ -35,13 +46,15 @@ overflow.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
 
 __all__ = ["Generator", "default_generator", "seed", "philox4x32_10",
            "keep_threshold", "dropout_keep", "attention_dropout_factor",
-           "get_rng_state", "set_rng_state"]
+           "get_rng_state", "set_rng_state", "shard_coordinates",
+           "shard_state", "with_coordinates"]
 
 _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57        # Philox-4x32 multipliers
@@ -89,31 +102,92 @@ def keep_threshold(p: float) -> int:
     return int(round(p * 2 ** 32))
 
 
+#: this rank's place in the whole tensors: ``batch_start`` (the first
+#: sample it holds), ``head_start`` and ``heads_total`` (its attention
+#: heads among all; None: all of them)
+_shard = {"batch_start": 0, "head_start": 0, "heads_total": None}
+
+
+@contextlib.contextmanager
+def shard_coordinates(**coords):
+    """Draw inside the block at the given coordinates (``batch_start``,
+    ``head_start``, ``heads_total``; the others stay as they are).  Where
+    nothing changes, nothing is written (a traced or exported region sees
+    no state change)."""
+    unknown = set(coords) - set(_shard)
+    if unknown:
+        raise TypeError(f"shard_coordinates: unknown {sorted(unknown)}")
+    new = {k: v for k, v in coords.items()
+           if v is not None and _shard[k] != v}
+    if not new:
+        yield
+        return
+    old = dict(_shard)
+    _shard.update(new)
+    try:
+        yield
+    finally:
+        _shard.clear()
+        _shard.update(old)
+
+
+def shard_state() -> dict:
+    """The coordinates now in force (to re-enter them later)."""
+    return dict(_shard)
+
+
+def with_coordinates(snap: torch.Tensor, heads: int) -> torch.Tensor:
+    """An attention draw with the coordinates now in force for a tensor of
+    ``heads`` local heads: ``snap`` itself at the origin, else
+    ``[seed, offset, batch_start, head_start, heads_total]``."""
+    b0, h0 = _shard["batch_start"], _shard["head_start"]
+    total = _shard["heads_total"] or heads
+    if not (b0 or h0 or total != heads):
+        return snap
+    return torch.cat([snap, torch.tensor([b0, h0, total], dtype=torch.int64)
+                      .to(snap.device)])
+
+
 def dropout_keep(snap: torch.Tensor, shape, p: float) -> torch.Tensor:
     """The bool keep mask of ``shape`` for the draw ``snap``
     (``int64[2]``, :meth:`Generator.draw`): element ``i`` of the
     flattened shape is kept iff word ``i % 4`` of Philox at counter
-    ``(i // 4, 0, 0, offset)`` is ``>= keep_threshold(p)``."""
+    ``(i // 4, 0, 0, offset)`` is ``>= keep_threshold(p)``; inside
+    :func:`shard_coordinates` ``i`` is offset by ``batch_start`` samples
+    (dim 0 of ``shape``)."""
     n = 1
     for s in shape:
         n *= int(s)
+    base = 0
+    if _shard["batch_start"] and len(shape) and int(shape[0]):
+        base = _shard["batch_start"] * (n // int(shape[0]))
     k0, k1, off = _key_and_offset(snap)
-    calls = torch.arange((n + 3) // 4, dtype=torch.int64, device=snap.device)
+    first, end = base // 4, (base + n + 3) // 4
+    calls = torch.arange(first, end, dtype=torch.int64, device=snap.device)
     words = philox4x32_10(calls & _MASK32, calls >> 32,
                           torch.zeros_like(off), off, k0, k1)
-    words = torch.stack(words, dim=-1).reshape(-1)[:n]
+    lead = base - 4 * first
+    words = torch.stack(words, dim=-1).reshape(-1)[lead:lead + n]
     return (words >= keep_threshold(p)).reshape(tuple(shape))
 
 
 def attention_dropout_factor(snap: torch.Tensor, bh: int, rows: int,
-                             cols: int, p: float) -> torch.Tensor:
+                             cols: int, p: float,
+                             heads: Optional[int] = None) -> torch.Tensor:
     """``[bh, rows, cols]`` f32 factors of attention dropout: ``1/(1-p)``
     where the probability at (head row, query, key) is kept, 0 where it is
-    dropped (the words of the module docstring)."""
+    dropped (the words of the module docstring).  A snapshot with
+    coordinates (:func:`with_coordinates`) places head row ``b * heads +
+    h`` at its row in the whole tensor."""
     k0, k1, off = _key_and_offset(snap)
     dev = snap.device
     nb, cp = (rows + 15) // 16, (cols + 1) // 2
-    heads = torch.arange(bh, dtype=torch.int64, device=dev).view(bh, 1, 1)
+    heads_idx = torch.arange(bh, dtype=torch.int64, device=dev)
+    if snap.numel() > 2:
+        b0, h0, total = snap[2], snap[3], snap[4]
+        h = heads or bh
+        heads_idx = (b0 + heads_idx // h) * total + h0 + heads_idx % h
+    heads = heads_idx.view(bh, 1, 1)
     grp = torch.arange(nb * 8, dtype=torch.int64, device=dev).view(1, -1, 1)
     pair = torch.arange(cp, dtype=torch.int64, device=dev).view(1, 1, cp)
     words = philox4x32_10(pair, grp, heads, off, k0, k1)

@@ -3,7 +3,8 @@
 Port of ``bench.py`` ``build_bench`` (:140-205), the step the JAX package
 was built and benchmarked around: ``fleet.init``, ``GPTForCausalLM``
 through ``fleet.distributed_model``, ``AdamW`` through
-``fleet.distributed_optimizer`` (both the identity on one card), the AMP
+``fleet.distributed_optimizer`` (the identity in one process; under a
+launcher, the wrappers, which add no work at degree 1), the AMP
 level of ``PADDLE_TPU_BENCH_AMP`` (:183-194: O2 is ``amp.decorate``, bf16
 parameters and f32 masters; O1 keeps f32 parameters and no masters), and
 a step of ``compute_loss`` inside ``amp.auto_cast(dtype="bfloat16",
@@ -17,7 +18,7 @@ asked for with ``dropout``, ``lr`` (a scheduler), ``grad_clip`` and
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -45,7 +46,9 @@ def build_train_step(config: str = "gpt2-345m", *, batch: int = 8,
                      moment_dtype: Union[None, str, torch.dtype] = None,
                      seed: int = 0, kernel: str = "cuda",
                      to_static: bool = True, dropout: float = 0.0,
-                     recompute: bool = False, grad_clip=None) -> TrainStep:
+                     recompute: bool = False, grad_clip=None,
+                     strategy: Optional[fleet.DistributedStrategy] = None,
+                     num_layers: Optional[int] = None) -> TrainStep:
     """Build the train step of ``bench.py`` for a ``GPT_CONFIGS`` name.
 
     Weights are drawn from ``torch.Generator(device).manual_seed(seed)``;
@@ -62,8 +65,12 @@ def build_train_step(config: str = "gpt2-345m", *, batch: int = 8,
     ``to_static=False``.  ``dropout`` is the hidden and the attention
     dropout rate, ``recompute`` runs each layer as a recompute region,
     ``lr`` is a float or an ``LRScheduler`` (the caller steps it),
-    ``grad_clip`` a clip of ``nn.clip``.  ``device`` defaults to
-    ``"cuda"`` and raises where there is no card."""
+    ``grad_clip`` a clip of ``nn.clip``.  ``strategy`` is the one
+    ``fleet.init`` gets (default: every degree 1); under a launcher (one
+    process a rank) ``fleet.init`` makes the world, and the model and the
+    optimizer come back wrapped.  ``num_layers`` cuts the configuration's
+    depth (its widths stay).  ``device`` defaults to ``"cuda"`` and
+    raises where there is no card."""
     if amp_level not in ("O0", "O1", "O2"):
         raise ValueError(f"amp_level must be O0, O1 or O2, got "
                          f"{amp_level!r}")
@@ -71,11 +78,15 @@ def build_train_step(config: str = "gpt2-345m", *, batch: int = 8,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_train_step: device 'cuda' asked for, but "
                            "no CUDA device is available (pass device='cpu')")
-    fleet.init(is_collective=True, strategy=fleet.DistributedStrategy())
+    fleet.init(is_collective=True,
+               strategy=strategy or fleet.DistributedStrategy(),
+               device=device)
     rng.seed(seed)
     cfg = GPT_CONFIGS[config](recompute=recompute,
                               hidden_dropout_prob=dropout,
                               attention_probs_dropout_prob=dropout)
+    if num_layers is not None:
+        cfg.num_hidden_layers = int(num_layers)
     gen = torch.Generator(device=device).manual_seed(seed)
     model = fleet.distributed_model(
         GPTForCausalLM(cfg, device=device, generator=gen, kernel=kernel))

@@ -2955,3 +2955,83 @@ def test_image_tensors_land_on_the_card(cuda_device, tmp_path):
     data = V.read_file(jpg)
     dec = V.decode_jpeg(data, mode="rgb")
     assert data.is_cuda and dec.is_cuda and tuple(dec.shape) == (3, 5, 7)
+
+
+# -- distributed: the launcher's NCCL world of one ------------------------------
+
+def _launch_hybrid(tmp_path, *args):
+    """``hybrid_train.py`` through the launcher on the card (GPT-2 345M's
+    widths at 2 layers, S 64)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / "res.json")
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "1", "--log_dir", str(tmp_path),
+         os.path.join("paddle_tpu_torch", "distributed", "launch",
+                      "hybrid_train.py"), "--out", out, "--config",
+         "gpt2-345m", "--layers", "2", "--seq", "64", *args], cwd=repo, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, (tmp_path / "workerlog.0").read_text()[-3000:]
+    with open(out) as f:
+        return json.load(f)
+
+
+@pytest.mark.cuda
+def test_launcher_nccl_world_of_one(cuda_device, tmp_path):
+    """A launched worker joins an NCCL world of one: every collective of
+    ``distributed.collective`` on the card gives its expected value, an
+    all-reduce captured in a CUDA graph replays to the eager result,
+    gradient merge equals one full-batch update (f32, 1e-5) and refuses a
+    compiled step; the fleet step at degree 1 runs through the wrappers
+    and is bitwise the step built in this process without them."""
+    from paddle_tpu_torch import build_train_step
+
+    res = _launch_hybrid(tmp_path, "--warmup", "2", "--steps", "3")
+    assert res["world"] == {"backend": "nccl", "size": 1}
+    assert all(res["collectives"].values()), res["collectives"]
+    assert res["capture"]["equal"], res["capture"]
+    assert res["merge"]["max_abs_diff"] <= 1e-5
+    assert res["merge"]["refuses_to_static"]
+    fl = res["fleet"]
+    assert (fl["model"], fl["optimizer"]) == ("TensorParallel",
+                                              "HybridParallelOptimizer")
+    assert fl["program_cache"]["captures"] == 1
+    ts = build_train_step("gpt2-345m", batch=8, seq=64, device="cuda",
+                          num_layers=2)
+    assert type(ts.model).__name__ == "GPTForCausalLM"    # no launcher
+    losses = [float(ts.train_step(ts.x, ts.y)) for _ in range(5)]
+    assert losses == fl["losses"]
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert fl["launches"][name] == fl["layers"] * 5
+
+
+@pytest.mark.cuda
+def test_all_reduce_captured_in_a_graph(cuda_device):
+    """In this process's world of one (NCCL): the capture and its replay."""
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.launch.hybrid_train import (
+        capture_all_reduce,
+    )
+
+    mesh.ensure_world("cuda")
+    res = capture_all_reduce("cuda")
+    assert res["equal"] and res["max_abs_diff"] == 0.0
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_dropout_refuses_the_card(cuda_device):
+    """K1-K3's dropout instances draw at the rank's own coordinates: a
+    sharded draw on the card raises rather than drawing other bits."""
+    from paddle_tpu_torch import rng
+    from paddle_tpu_torch.ops.attention import flash_attention
+
+    q = torch.randn(1, 64, 2, 64, device="cuda", dtype=torch.bfloat16)
+    with rng.shard_coordinates(head_start=2, heads_total=4):
+        with pytest.raises(NotImplementedError, match="A.5"):
+            flash_attention(q, q, q, is_causal=True, dropout_p=0.1)

@@ -24,10 +24,7 @@ tests fail.
 import os
 import pickle
 import shutil
-import subprocess
 import sys
-import time
-import traceback
 
 import numpy as np
 import pytest
@@ -41,6 +38,9 @@ from paddle_tpu_torch.models.convert import shard_rule
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS)
+sys.path.insert(0, TESTS)
+import torch_world  # noqa: E402
+from torch_world import get as _get, scenario  # noqa: E402
 
 #: ranks of the module's world
 WORLD = 4
@@ -77,92 +77,13 @@ def _kw(layout):
     return kw
 
 
-# -- the world: launch, and what a worker loads --------------------------------
+# -- the world (tests/torch_world.py), and what a worker loads ----------------
 
 def run_world(module: str, func: str, workdir: str, nprocs: int = WORLD):
-    """Start ``nprocs`` worker processes of a gloo world; each runs
-    ``<module>.<func>(rank, nprocs, workdir)`` (this directory on its
-    path) and pickles what it returns to ``workdir/out<rank>.pkl``.
-    Returns a handle whose ``results()`` waits (killing every worker past
-    :data:`WORLD_TIMEOUT_S`) and gives each rank's result."""
-    code = (f"import sys; sys.path.insert(0, {TESTS!r}); "
-            f"import test_torch_sharded_serving as w, {module} as m; "
-            f"w._worker_main(m.{func}, int(sys.argv[1]), int(sys.argv[2]), "
-            f"sys.argv[3])")
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    logs = [open(os.path.join(workdir, f"log{r}.txt"), "w")
-            for r in range(nprocs)]
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(r),
-                               str(nprocs), workdir], cwd=REPO, env=env,
-                              stdout=logs[r], stderr=subprocess.STDOUT)
-             for r in range(nprocs)]
-
-    class _World:
-        _done = None
-
-        def results(self):
-            if self._done is None:
-                deadline = time.monotonic() + WORLD_TIMEOUT_S
-                killed = []
-                for r, p in enumerate(procs):
-                    try:
-                        p.wait(max(0.0, deadline - time.monotonic()))
-                    except subprocess.TimeoutExpired:
-                        killed.append(r)
-                for r in killed:
-                    procs[r].kill()
-                    procs[r].wait()
-                for f in logs:
-                    f.close()
-                out = []
-                for r in range(nprocs):
-                    path = os.path.join(workdir, f"out{r}.pkl")
-                    if r in killed or not os.path.exists(path):
-                        with open(os.path.join(workdir,
-                                               f"log{r}.txt")) as f:
-                            tail = f.read()[-3000:]
-                        out.append({"_error": f"rank {r} "
-                                    f"{'killed' if r in killed else 'died'}"
-                                    f" (rc {procs[r].returncode}):\n{tail}"})
-                        continue
-                    with open(path, "rb") as f:
-                        out.append(pickle.load(f))
-                self._done = out
-            return self._done
-
-    return _World()
-
-
-def _worker_main(func, rank: int, world: int, workdir: str) -> None:
-    """A worker: join the gloo world, run ``func``, pickle its result."""
-    import datetime
-
-    import torch.distributed as dist
-
-    torch.set_num_threads(1)
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
-        rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=60))
-    try:
-        out = func(rank, world, workdir)
-    except BaseException:                # noqa: BLE001 — reported below
-        out = {"_error": traceback.format_exc()}
-    with open(os.path.join(workdir, f"out{rank}.pkl"), "wb") as f:
-        pickle.dump(out, f)
-    try:
-        dist.destroy_process_group()
-    except Exception:                    # noqa: BLE001 — exiting anyway
-        pass
-
-
-def scenario(results: dict, name: str, fn, *args) -> None:
-    """Run one scenario into ``results[name]``; an exception is kept as
-    ``{"_error": traceback}`` and the others go on."""
-    try:
-        results[name] = fn(*args)
-    except Exception:                    # noqa: BLE001 — reported per test
-        results[name] = {"_error": traceback.format_exc()}
+    """The module's world of :data:`WORLD` gloo ranks
+    (:func:`torch_world.run_world`)."""
+    return torch_world.run_world(module, func, workdir, nprocs,
+                                 timeout_s=WORLD_TIMEOUT_S)
 
 
 def port_model(inputs: dict, tag: str):
@@ -186,17 +107,6 @@ def greedy_chain_ok(model, prompt, out_ids) -> bool:
     L = len(prompt)
     return all(int(torch.argmax(logits[L - 1 + i])) == int(t)
                for i, t in enumerate(out_ids))
-
-
-def _get(world_results, name, rank=0):
-    """A scenario's result on ``rank``, failing the test on an error."""
-    res = world_results[rank]
-    if "_error" in res:
-        pytest.fail(res["_error"])
-    val = res[name]
-    if isinstance(val, dict) and "_error" in val:
-        pytest.fail(f"rank {rank} {name}:\n{val['_error']}")
-    return val
 
 
 # -- the port's worker: every scenario -----------------------------------------

@@ -32,7 +32,11 @@ Phases, each printing one JSON line with the card's name and power limit:
               their plain versions on the same draw (to the p = 0 rows'
               tolerances), on a ragged full-mask shape, and K1's mask
               exactly at S 64 (q = k = 0 and V one-hot by key, so that O
-              exposes the mask).  The f16 instances of K1-K3 (p 0 and
+              exposes the mask), and at a rank's coordinates: each of the
+              2 batch x 2 head quarters of the train shape, drawing at its
+              ``[batch_start, head_start, heads_total]``, against the
+              slice of the whole problem's output on one draw and against
+              the plain version at the same coordinates.  The f16 instances of K1-K3 (p 0 and
               dropout) are held and timed at the train shape (SDPA at
               f16 the library call), on a ragged full shape, and K2/K3
               under an f16 overflow (outputs non-finite where the plain
@@ -132,6 +136,34 @@ Phases, each printing one JSON line with the card's name and power limit:
               and an all-reduce captured in a CUDA graph on a side stream
               and replayed; K1-K3 against their plain versions at the
               path's shape.
+12e. elastic_train — the same step (train's recipe, 13 steps) in a
+              worker of ``python -m paddle_tpu_torch.distributed.launch
+              --elastic_coordinator <tmp> --np 1 --job_id smoke
+              --max_restarts 2`` (``.../launch/elastic_train.py``) under
+              ``ResilientLoop(mesh_watchdog=MeshWatchdog(FileCoordinator))``
+              with a format-2 generation every 4 steps: a
+              ``train.straggler`` stall of 8 s at step 6 outlasts the
+              watchdog's 5 s deadline, the worker exits 101, the launcher
+              relaunches it and it resumes from step 4.  Held: exit 0, two
+              lives, the 13 losses and the redone steps' bitwise train's,
+              no sample lost, one capture and K1-K3 once per layer per
+              step in the second life.  Reported: the seconds to detect
+              the stall, from it to the first resumed step, of the load;
+              the steps redone; the step ms of each life.
+12f. ring_attention — ring attention at GPT-2 345M's heads (16 x 64,
+              bf16, causal) over 8192 positions cut into 4 sep chunks of
+              2048, B 1, in one process: forward and backward against one
+              K1-K3 call over the whole 8192 and against the plain ring,
+              each of K1-K3 launched once per visible tick (10); the ms of
+              the ring and of the whole call, and per tick.
+12g. auto_parallel_train — the same model, optimizer and batch through
+              ``auto_parallel.Engine(body, inputs_spec=["dp"])
+              .prepare(AdamW, loss).fit`` on ``ProcessMesh([0], ["dp"])``
+              (``body``: the decoder under ``auto_cast``; ``loss``: the
+              fused cross-entropy over the tied head): one program, one
+              capture, K1-K3 once per layer per step, and the 13 losses
+              against train's (bitwise, or the largest relative
+              difference within 1e-5).
 12b. train_recipe — the same model at the GPT-2 recipe: dropout 0.1
               (hidden, and attention in K1-K3's dropout instances), 4
               warm-up steps then a cosine decay, a global-norm clip of
@@ -871,6 +903,76 @@ def check_dropout_mask(dtype, S=64, H=2, p=0.25):
             "kept_share": keep.sum().item() / (H * S * (S + 1) / 2)}
 
 
+#: K1-K3's dropout at a rank's coordinates: the whole ``[B, S, H, D]``
+#: split as 2 batch halves x 2 head halves
+COORDS_SPLIT = (2, 2)
+
+
+def check_dropout_coords(gen, which: str, dtype, B=8, S=1024, H=16, D=64,
+                         p=0.1):
+    """A dropout instance of K1 (``which="flash_fwd"``), K2 or K3 on each
+    quarter of a whole ``[B, S, H, D]`` problem (``COORDS_SPLIT``), each
+    drawing at its coordinates (``rng.with_coordinates``: the draw's
+    ``[seed, offset]`` then ``[batch_start, head_start, heads_total]``),
+    held against the matching slice of the kernel's output on the whole
+    problem (one draw) and against the plain version on the quarter with
+    the same coordinates.  ``err`` is the larger of the two differences;
+    ``slice_bitwise`` whether every quarter equals its slice exactly."""
+    from paddle_tpu_torch import rng
+    from paddle_tpu_torch.ops import attention as att
+    from paddle_tpu_torch.ops import kernels
+
+    q, k, v, do = (torch.randn((B, S, H, D), generator=gen,
+                               device="cuda").to(dtype) for _ in range(4))
+    snap = _snapshot()
+    o, lse = att._flash_fwd_reference(q, k, v, True, p, snap)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+        .contiguous().view(B * H, S)
+
+    def run(q_, k_, v_, do_, lse_, delta_, draw, kernel: bool):
+        if which == "flash_fwd":
+            f = kernels.flash_fwd if kernel else att._flash_fwd_reference
+            return (f(q_, k_, v_, True, p, draw)[0],)
+        args = (q_, k_, v_, do_, lse_, delta_, True, p, draw)
+        if which == "flash_bwd_dkv":
+            f = kernels.flash_bwd_dkv if kernel \
+                else att._flash_bwd_dkv_reference
+            return f(*args)
+        f = kernels.flash_bwd_dq if kernel else att._flash_bwd_dq_reference
+        return (f(*args),)
+
+    whole = run(q, k, v, do, lse, delta, snap, True)
+    nb, nh = COORDS_SPLIT
+    b_, h_ = B // nb, H // nh
+    lse4 = lse.view(B, H, S)
+    delta4 = delta.view(B, H, S)
+    err = slice_err = 0.0
+    scale = max(w.float().abs().max().item() for w in whole)
+    bitwise = True
+    for bi in range(nb):
+        for hi in range(nh):
+            bs, hs = slice(bi * b_, (bi + 1) * b_), slice(hi * h_,
+                                                          (hi + 1) * h_)
+            part = [t[bs, :, hs] for t in (q, k, v, do)]
+            rows = [t[bs, hs].reshape(b_ * h_, S).contiguous()
+                    for t in (lse4, delta4)]
+            with rng.shard_coordinates(batch_start=bi * b_,
+                                       head_start=hi * h_, heads_total=H):
+                draw = rng.with_coordinates(snap, h_)
+            got = run(*part, *rows, draw, True)
+            ref = run(*part, *rows, draw, False)
+            for g, r, w in zip(got, ref, whole):
+                ws = w[bs, :, hs]
+                err = max(err, (g.float() - r.float()).abs().max().item())
+                d = (g.float() - ws.float()).abs().max().item()
+                slice_err = max(slice_err, d)
+                bitwise = bitwise and d == 0.0
+    tol = (TOLERANCE[dtype] / (1 - p) if which == "flash_fwd"
+           else BWD_TOLERANCE[dtype] * scale)
+    return {"err": max(err, slice_err), "plain_err": err,
+            "slice_err": slice_err, "slice_bitwise": bitwise, "tol": tol}
+
+
 #: the share of K2/K3's outputs whose finiteness may differ from the plain
 #: version's under an f16 overflow: a ds at f16's edge may round to either
 #: side in another summation order
@@ -1062,6 +1164,9 @@ def phase_kernels(hgmma: dict) -> dict:
     nn_p = f"B={nB} S={nS} H={nH} D={nD} full, dropout {P} (nn_encoder)"
     sdpa_p = f"{sdpa_causal} dropout_p={P} (its own mask)"
     sdpa_grad_p = f"{sdpa_grad}, dropout_p={P} (its own mask)"
+    coords_p = (f"{train_p}, each of {COORDS_SPLIT[0]} batch x "
+                f"{COORDS_SPLIT[1]} head quarters at its coordinates, "
+                "against the whole draw's slice")
 
     def prefill(H, Hkv, start, S_, dtypes=BF16, timed=False, D_=128,
                 max_seq=4096, label=""):
@@ -1144,7 +1249,10 @@ def phase_kernels(hgmma: dict) -> dict:
              False),
             ("exact_mask", check_dropout_mask,
              "B=1 S=64 H=2 D=64 causal, dropout 0.25, q=k=0, V one-hot",
-             sdpa_p, BOTH, False)],
+             sdpa_p, BOTH, False),
+            ("coords", lambda dt: check_dropout_coords(gen, "flash_fwd",
+                                                       dt, B, S, H, D, P),
+             coords_p, sdpa_p, BF16, False)],
         "flash_bwd_dkv_dropout": [
             ("train", bwd("flash_bwd_dkv", P), train_p, sdpa_grad_p, BOTH,
              True),
@@ -1155,7 +1263,10 @@ def phase_kernels(hgmma: dict) -> dict:
                 gen, "flash_bwd_dkv", 2, 1000, 4, dt, 128, causal=False,
                 dropout_p=P),
              f"B=2 S=1000 H=4 D=128 full, dropout {P}", sdpa_grad_p, BF16,
-             False)],
+             False),
+            ("coords", lambda dt: check_dropout_coords(
+                gen, "flash_bwd_dkv", dt, B, S, H, D, P), coords_p,
+             sdpa_grad_p, BF16, False)],
         "flash_bwd_dq_dropout": [
             ("train", bwd("flash_bwd_dq", P), train_p, sdpa_grad_p, BOTH,
              True),
@@ -1166,7 +1277,10 @@ def phase_kernels(hgmma: dict) -> dict:
                 gen, "flash_bwd_dq", 2, 1000, 4, dt, 128, causal=False,
                 dropout_p=P),
              f"B=2 S=1000 H=4 D=128 full, dropout {P}", sdpa_grad_p, BF16,
-             False)],
+             False),
+            ("coords", lambda dt: check_dropout_coords(
+                gen, "flash_bwd_dq", dt, B, S, H, D, P), coords_p,
+             sdpa_grad_p, BF16, False)],
     }
     # the f16 instances of K1-K3 (AMP O1 at float16 with a loss scaler):
     # the train shape on the fused projection's views at p 0 and at the
@@ -5563,6 +5677,344 @@ def phase_hybrid_train(train: dict) -> dict:
     return {"launches": fl["launches"], "step_ms": fl["step_ms"]}
 
 
+#: elastic_train: the port's worker that the elastic launcher starts, the
+#: steps (train's 3 + 10), the checkpoint cadence, the straggler's step and
+#: stall, and the mesh watchdog's deadline (a stall past it exits 101)
+ELASTIC_WORKER = os.path.join("paddle_tpu_torch", "distributed", "launch",
+                              "elastic_train.py")
+ELASTIC_STEPS, ELASTIC_SAVE_EVERY = 13, 4
+ELASTIC_STALL_AT, ELASTIC_STALL_S, ELASTIC_DEADLINE_S = 6, 8.0, 5.0
+#: seconds the elastic launcher may take
+ELASTIC_TIMEOUT_S = 420
+
+
+def drive_elastic_train(config: str, device: str, root: str, batch: int = 8,
+                        seq: int = 1024, layers=None,
+                        stall: float = ELASTIC_STALL_S,
+                        deadline: float = ELASTIC_DEADLINE_S,
+                        timeout: float = ELASTIC_TIMEOUT_S) -> dict:
+    """``python -m paddle_tpu_torch.distributed.launch --elastic_coordinator
+    <root>/coord --np 1 --job_id smoke --max_restarts 2`` on
+    ``elastic_train.py``: life 1 stalls at step ``ELASTIC_STALL_AT`` past
+    the watchdog's deadline and exits 101; the launcher relaunches it and
+    life 2 resumes from the newest generation.  Returns the run read from
+    the worker's events: each step's loss from the last life that ran it,
+    the redone steps' losses in both lives, the times (detection,
+    relaunch to the first resumed step, the resume's load), the step ms
+    of each life, each life's launches, and ``lost_samples`` of the
+    committed segments on an ``ElasticDataSchedule`` of the batch."""
+    from paddle_tpu_torch.distributed.reshard import ElasticDataSchedule
+
+    coord, run = os.path.join(root, "coord"), os.path.join(root, "run")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--elastic_coordinator", coord, "--np", "1", "--job_id", "smoke",
+           "--max_restarts", "2", "--log_dir", os.path.join(root, "logs"),
+           ELASTIC_WORKER, "--root", run, "--coord", coord, "--job_id",
+           "smoke", "--config", config, "--device", device, "--batch",
+           str(batch), "--seq", str(seq), "--steps", str(ELASTIC_STEPS),
+           "--save_every", str(ELASTIC_SAVE_EVERY), "--stall_at",
+           str(ELASTIC_STALL_AT), "--stall", str(stall), "--deadline",
+           str(deadline)] + (["--layers", str(layers)] if layers else [])
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    seconds = time.perf_counter() - t0
+    events = []
+    path = os.path.join(run, "events.jsonl")
+    if os.path.exists(path):
+        with open(path) as f:
+            events = [json.loads(ln) for ln in f if ln.strip()]
+    log = ""
+    if os.path.exists(os.path.join(root, "logs", "workerlog.0")):
+        with open(os.path.join(root, "logs", "workerlog.0")) as f:
+            log = f.read()
+    lives = sorted({e["life"] for e in events if e["event"] == "start"})
+    steps = {life: [e for e in events if e["event"] == "step"
+                    and e["life"] == life] for life in lives}
+    done = [e for e in events if e["event"] == "done"]
+    fired = [e for e in events if e["event"] == "fired"]
+    res = {"rc": proc.returncode, "seconds": seconds, "lives": len(lives),
+           "launcher_log": proc.stderr[-1500:], "worker_log": log[-3000:]}
+    if proc.returncode != 0 or len(lives) != 2 or not done or not fired:
+        return res
+    first, second = steps[1], steps[2]
+    resume = second[0]["step"]
+    losses = [e["loss"] for e in first if e["step"] < resume] + \
+        [e["loss"] for e in second]
+
+    def step_ms(ss):
+        """The median host interval between a life's steps after its eager
+        call and its capture."""
+        return float(np.median([(b["t"] - a["t"]) * 1e3
+                                for a, b in zip(ss[2:], ss[3:])]))
+
+    sched = ElasticDataSchedule(batch)
+    res.update({
+        "losses": losses, "resume_step": resume,
+        "steps_redone": len([e for e in first if e["step"] >= resume]),
+        "redone_life1": [e["loss"] for e in first if e["step"] >= resume],
+        "redone_life2": [e["loss"] for e in second
+                         if e["step"] < first[-1]["step"] + 1],
+        "detect_s": fired[0]["t"] - first[-1]["t"],
+        "relaunch_to_first_step_s": second[0]["t"] - fired[0]["t"],
+        "load_s": done[0]["resume_s"],
+        "step_ms_before": step_ms(first), "step_ms_after": step_ms(second),
+        "launches": {"life1": first[-1]["launches"],
+                     "life2": done[0]["launches"]},
+        "program_cache": done[0]["program_cache"],
+        "wrapper": done[0]["model"], "layers": done[0]["layers"],
+        "lost_samples": sched.lost_samples(
+            [(0, resume, 1), (resume, ELASTIC_STEPS, 1)])})
+    return res
+
+
+def phase_elastic_train(train: dict) -> dict:
+    """GPT-2 345M under the elastic launcher (see
+    :func:`drive_elastic_train`) at ``train``'s recipe: a ``train.straggler``
+    stall at step 6 outlasts the mesh watchdog's deadline, the worker
+    exits 101, the launcher relaunches it and it resumes from the format-2
+    generation of step 4.  Held: exit 0, two lives, the 13 losses bitwise
+    ``train``'s (and the redone steps' bitwise in both lives), no sample
+    lost, one capture in the second life and its K1-K3 launches one per
+    layer per step."""
+    import shutil
+
+    root = tempfile.mkdtemp(prefix="elastic_train_")
+    res = drive_elastic_train("gpt2-345m", "cuda", root)
+    shutil.rmtree(root, ignore_errors=True)
+    report = {k: v for k, v in res.items()
+              if k not in ("launcher_log", "worker_log")}
+    emit("elastic_train", model="gpt2-345m",
+         dtype="bfloat16 (AMP O2, f32 masters)", batch=8, seq=1024,
+         stall_at=ELASTIC_STALL_AT, stall_s=ELASTIC_STALL_S,
+         deadline_s=ELASTIC_DEADLINE_S, save_every=ELASTIC_SAVE_EVERY,
+         train_losses=train["losses"], **report)
+    if res["rc"] != 0 or res["lives"] != 2 or "losses" not in res:
+        raise AssertionError(f"elastic_train: rc {res['rc']}, lives "
+                             f"{res['lives']}\n{res['worker_log']}\n"
+                             f"{res['launcher_log']}")
+    if res["losses"] != train["losses"]:
+        raise AssertionError(f"elastic_train: losses {res['losses']} are not "
+                             f"bitwise train's {train['losses']}")
+    if res["redone_life1"] != res["redone_life2"] or res["lost_samples"]:
+        raise AssertionError(f"elastic_train: redone steps "
+                             f"{res['redone_life1']} / {res['redone_life2']},"
+                             f" lost samples {res['lost_samples']}")
+    if res["program_cache"]["captures"] != 1:
+        raise AssertionError(f"elastic_train: program cache "
+                             f"{res['program_cache']}")
+    want = res["layers"] * (ELASTIC_STEPS - res["resume_step"])
+    for name in TRAIN_KERNELS:
+        if res["launches"]["life2"].get(name) != want:
+            raise AssertionError(f"elastic_train: {name} launched "
+                                 f"{res['launches']['life2'].get(name)} "
+                                 f"times in the second life, want {want}")
+    return res
+
+
+#: ring_attention: GPT-2 345M's attention heads over 8192 positions cut
+#: into 4 sep chunks of 2048, B 1, bf16, causal
+RING_SHAPE, RING_CHUNKS = (1, 8192, 16, 64), 4
+
+
+def drive_ring_attention(device: str, shape=RING_SHAPE,
+                         chunks: int = RING_CHUNKS,
+                         dtype=torch.bfloat16, timed: bool = False) -> dict:
+    """The in-process ring (``ring_flash_attention(..., chunks=p)``: K1 a
+    tick forward, K2 and K3 a tick backward) on seeded ``[B, S, H, D]``
+    inputs, held forward and backward against one K1-K3 call over the
+    whole sequence (``flash_attention``) and against the plain ring
+    (``ring_attention_reference``).  Returns the errors (outputs absolute,
+    gradients relative to the largest whole-sequence gradient), the
+    ring's launches (counted from 0), and with ``timed`` the ring's and
+    the whole call's ms."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.attention import flash_attention
+    from paddle_tpu_torch.ops.ring_attention import (
+        ring_attention_reference, ring_flash_attention,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(24)
+    base = [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for _ in range(4)]
+    do = base[3]
+
+    def run(fn, **kw):
+        q, k, v = (t.clone().requires_grad_() for t in base[:3])
+        o = fn(q, k, v, True, **kw)
+        o.backward(do)
+        return o.detach(), [t.grad for t in (q, k, v)]
+
+    kernels.reset_launches()
+    ring, ring_g = run(ring_flash_attention, chunks=chunks)
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    whole, whole_g = run(lambda q, k, v, c: flash_attention(
+        q, k, v, is_causal=c))
+    plain, plain_g = run(ring_attention_reference, chunks=chunks)
+    scale = max(g.float().abs().max().item() for g in whole_g)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    res = {"shape": list(shape), "chunks": chunks,
+           "dtype": str(dtype).split(".")[-1],
+           "ticks": chunks * (chunks + 1) // 2,
+           "out_err_whole": err(ring, whole), "out_err_plain": err(ring,
+                                                                    plain),
+           "grad_rel_err_whole": max(err(a, b) for a, b in
+                                     zip(ring_g, whole_g)) / scale,
+           "grad_rel_err_plain": max(err(a, b) for a, b in
+                                     zip(ring_g, plain_g)) / scale,
+           "launches": launches}
+    del ring_g, whole_g, plain_g, plain
+    if timed:
+        q, k, v = base[:3]
+
+        def ring_fwd():
+            with torch.no_grad():
+                return ring_flash_attention(q, k, v, True, chunks=chunks)
+
+        def whole_fwd():
+            with torch.no_grad():
+                return flash_attention(q, k, v, is_causal=True)
+
+        def ring_step():
+            run(ring_flash_attention, chunks=chunks)
+
+        def whole_step():
+            run(lambda a, b, c, d: flash_attention(a, b, c, is_causal=d))
+
+        res.update({"ring_fwd_ms": cuda_ms(ring_fwd, iters=5),
+                    "whole_fwd_ms": cuda_ms(whole_fwd, iters=5),
+                    "ring_fwd_bwd_ms": cuda_ms(ring_step, iters=3),
+                    "whole_fwd_bwd_ms": cuda_ms(whole_step, iters=3)})
+        res["ring_ms_per_tick"] = res["ring_fwd_ms"] / res["ticks"]
+        res["ring_fwd_bwd_ms_per_tick"] = res["ring_fwd_bwd_ms"] / \
+            res["ticks"]
+    return res
+
+
+def phase_ring_attention() -> dict:
+    """Ring attention at GPT-2 345M's attention shape over 8192 positions
+    (sep 4 chunks of 2048, in one process: :func:`drive_ring_attention`):
+    the ring's output within the bf16 K1 tolerance of the whole-sequence
+    K1 call and of the plain ring, its gradients within K2/K3's relative
+    tolerance, each of K1-K3 launched once a visible tick (10)."""
+    t0 = time.perf_counter()
+    res = drive_ring_attention("cuda", timed=True)
+    res["seconds"] = time.perf_counter() - t0
+    tol = {"out": TOLERANCE[torch.bfloat16],
+           "grad_rel": BWD_TOLERANCE[torch.bfloat16]}
+    emit("ring_attention", tolerance=tol, **res)
+    for key, limit in (("out_err_whole", tol["out"]),
+                       ("out_err_plain", tol["out"]),
+                       ("grad_rel_err_whole", tol["grad_rel"]),
+                       ("grad_rel_err_plain", tol["grad_rel"])):
+        if not res[key] <= limit:
+            raise AssertionError(f"ring_attention: {key} {res[key]} > "
+                                 f"{limit}")
+    for name in TRAIN_KERNELS:
+        if res["launches"].get(name) != res["ticks"]:
+            raise AssertionError(f"ring_attention: {name} launched "
+                                 f"{res['launches'].get(name)} times, want "
+                                 f"{res['ticks']}")
+    return res
+
+
+def drive_auto_parallel_train(config: str, batch: int, seq: int,
+                              device: str, steps: int = 13) -> dict:
+    """``build_train_step``'s model and optimizer (AMP O2, the seeded
+    batch) through ``auto_parallel.Engine(body, inputs_spec=["dp"])
+    .prepare(optimizer, loss).fit`` on ``ProcessMesh([0], ["dp"])``:
+    ``body`` is the model's decoder under ``auto_cast`` and ``loss`` the
+    fused cross-entropy over its tied head, so that a step does what
+    ``compute_loss`` does.  Returns the losses, the step's program cache
+    and the launches of the fit (counted from 0)."""
+    from paddle_tpu_torch import amp, build_train_step
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.fused import fused_linear_cross_entropy
+
+    ts = build_train_step(config, batch=batch, seq=seq, device=device,
+                          to_static=False)
+    model = ts.model
+
+    class Body(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.m = model
+
+        def forward(self, x):
+            with amp.auto_cast(dtype="bfloat16", level="O2"):
+                return self.m.gpt(x)
+
+    def loss(h, y):
+        with amp.auto_cast(dtype="bfloat16", level="O2"):
+            return fused_linear_cross_entropy(h, model._head_weight(), y)
+
+    saved = ap._default_process_mesh
+    ap._default_process_mesh = None
+    try:
+        ap.ProcessMesh([0], ["dp"])
+        eng = ap.Engine(Body(), inputs_spec=["dp"])
+        eng.prepare(optimizer=ts.optimizer, loss=loss)
+        xs = np.tile(ts.x.cpu().numpy(), (steps, 1))
+        ys = np.tile(ts.y.cpu().numpy(), (steps, 1))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        losses = eng.fit((xs, ys), batch_size=batch, epochs=1)
+        wall = time.perf_counter() - t0
+    finally:
+        ap._default_process_mesh = saved
+    f = eng._train_step
+    return {"losses": losses, "seconds": wall,
+            "launches": {k: v for k, v in kernels.launch_counts().items()
+                         if v},
+            "program_cache": {"programs": len(f.program_cache),
+                              "misses": f.misses, "hits": f.hits,
+                              "captures": f.captures},
+            "layers": model.config.num_hidden_layers}
+
+
+def phase_auto_parallel_train(train: dict) -> dict:
+    """GPT-2 345M through ``auto_parallel.Engine`` on a process mesh of one
+    (:func:`drive_auto_parallel_train`), 13 steps on ``train``'s batch:
+    one program, one capture, K1-K3 launched once per layer per step, and
+    the losses against ``train``'s (bitwise expected: the same ops in the
+    same order; otherwise the largest relative difference is reported and
+    held within the bf16 step's tolerance)."""
+    t0 = time.perf_counter()
+    res = drive_auto_parallel_train("gpt2-345m", 8, 1024, "cuda")
+    res["phase_seconds"] = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                  train["losses"]))
+    res["bitwise"] = res["losses"] == train["losses"]
+    res["max_rel_err"] = rel
+    emit("auto_parallel_train", model="gpt2-345m",
+         dtype="bfloat16 (AMP O2, f32 masters)", batch=8, seq=1024,
+         mesh="ProcessMesh([0], ['dp'])", train_losses=train["losses"],
+         **res)
+    if res["program_cache"] != {"programs": 1, "misses": 1,
+                                "hits": len(res["losses"]) - 1,
+                                "captures": 1}:
+        raise AssertionError(f"auto_parallel_train: program cache "
+                             f"{res['program_cache']}")
+    if not res["bitwise"] and not rel <= TRAIN_PARITY_TOLERANCE["loss"]:
+        raise AssertionError(f"auto_parallel_train: losses {res['losses']}"
+                             f" differ from train's by {rel}")
+    want = res["layers"] * len(res["losses"])
+    for name in TRAIN_KERNELS:
+        if res["launches"].get(name) != want:
+            raise AssertionError(f"auto_parallel_train: {name} launched "
+                                 f"{res['launches'].get(name)} times, want "
+                                 f"{want}")
+    return res
+
+
 def timed_steps(ts, n_steps: int) -> float:
     """Host ms a step over ``n_steps`` steps of a warmed ``TrainStep``."""
     torch.cuda.synchronize()
@@ -8249,6 +8701,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     hybrid = phase_hybrid_train(train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    elastic = phase_elastic_train(train)
+    ring = phase_ring_attention()
+    gc.collect()
+    torch.cuda.empty_cache()
+    auto = phase_auto_parallel_train(train)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_o1 = phase_train_o1()
     gc.collect()
     torch.cuda.empty_cache()
@@ -8307,6 +8768,10 @@ def main() -> int:
                 "sigkill_drill": drill["launches"],
                 "train": train["launches"],
                 "hybrid_train": hybrid["launches"],
+                "elastic_train": _sum_launches(
+                    *elastic["launches"].values()),
+                "ring_attention": ring["launches"],
+                "auto_parallel_train": auto["launches"],
                 "train_o1": train_o1,
                 "train_fp16_scaler": fp16,
                 "train_recipe": recipe,

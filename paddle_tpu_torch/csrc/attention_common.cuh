@@ -119,7 +119,7 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 // change.
 struct NoDropout {
   static constexpr bool kOn = false;
-  __device__ __forceinline__ void set_head(int) {}
+  __device__ __forceinline__ void set_head(int, int, int) {}
 };
 
 // Attention dropout with rate p.  The bit of probability (row, col) of head
@@ -132,23 +132,38 @@ struct NoDropout {
 // whole 32-bit word is >= threshold = round(p * 2^32) (an 8-bit threshold
 // would bias the keep rate) and then multiplied by 1 / (1 - p).  Seed and
 // offset are read from device memory (the generator's snapshot), so a
-// captured graph draws new masks at every replay.
+// captured graph draws new masks at every replay.  A rank that holds a slice
+// of the whole tensors draws at its place in them: with `coords` the draw is
+// int64 [seed, offset, batch_start, head_start, heads_total], and head h of
+// local sample b takes the head row (batch_start + b) * heads_total +
+// head_start + h of the whole [B, H] (rng.with_coordinates).
 class Dropout {
  public:
   static constexpr bool kOn = true;
 
-  // rng: int64 [seed, offset] on the device
+  // rng: int64 [seed, offset] on the device, followed by [batch_start,
+  // head_start, heads_total] when `coords` is nonzero
   __device__ __forceinline__ Dropout(const long long* __restrict__ rng,
-                                     long long threshold, float scale)
+                                     int coords, long long threshold,
+                                     float scale)
       : threshold_(threshold), scale_(scale) {
     const unsigned long long seed = rng[0], off = rng[1];
     key_ = make_uint2(static_cast<uint32_t>(seed),
                       static_cast<uint32_t>(seed >> 32) ^
                           static_cast<uint32_t>(off >> 32));
     offset_ = static_cast<uint32_t>(off);
+    if (coords) {
+      batch_start_ = static_cast<uint32_t>(rng[2]);
+      head_start_ = static_cast<uint32_t>(rng[3]);
+      heads_total_ = static_cast<uint32_t>(rng[4]);
+    }
   }
 
-  __device__ __forceinline__ void set_head(int bh) { bh_ = bh; }
+  // Head h of local sample b, of H local heads.
+  __device__ __forceinline__ void set_head(int b, int h, int H) {
+    const uint32_t total = heads_total_ ? heads_total_ : H;
+    bh_ = (batch_start_ + b) * total + head_start_ + h;
+  }
 
   // The words of the counter that covers (row, col).
   __device__ __forceinline__ uint4 words(int row, int col) const {
@@ -188,6 +203,7 @@ class Dropout {
   uint2 key_;
   uint32_t offset_;
   uint32_t bh_ = 0;
+  uint32_t batch_start_ = 0, head_start_ = 0, heads_total_ = 0;
   long long threshold_;
   float scale_;
 };

@@ -594,7 +594,7 @@ __device__ __forceinline__ void flash_bwd_dkv_block(PT_DKV_PARAMS,
     // rank 0 is key tile 0, which sees every query tile under a causal mask
     const int k0 = tc::tile_rank(h, b) * kBwdTile;
     const long long row0 = ((long long)b * H + h) * S;
-    drop.set_head(b * H + h);
+    drop.set_head(b, h, H);
     tc::dkv_tile<T, D>(
         reinterpret_cast<uint8_t*>(smem), q + b * q_sb + h * q_sh, q_ss,
         dout + b * do_sb + h * do_sh, do_ss, lse + row0, delta + row0,
@@ -615,7 +615,7 @@ __device__ __forceinline__ void flash_bwd_dkv_block(PT_DKV_PARAMS,
 
     const int k0 = blockIdx.x * kBwdTile, h = blockIdx.y, b = blockIdx.z;
     const int n_keys = min(kBwdTile, S - k0);
-    drop.set_head(b * H + h);
+    drop.set_head(b, h, H);
     const int tid = threadIdx.x, tm = tid / kSide, tn = tid % kSide;
     const long long row0 = ((long long)b * H + h) * S;  // lse / delta row
     const T* q_bh = q + b * q_sb + h * q_sh;
@@ -680,10 +680,10 @@ __global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dkv_kernel(
 // K2 with attention dropout (rng: the draw's [seed, offset] on the device).
 template <typename T, int D>
 __global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dkv_dropout_kernel(
-    PT_DKV_PARAMS, const long long* __restrict__ rng, long long threshold,
-    float keep_scale) {
+    PT_DKV_PARAMS, const long long* __restrict__ rng, int rng_coords,
+    long long threshold, float keep_scale) {
   flash_bwd_dkv_block<T, D>(PT_DKV_FORWARD,
-                            Dropout(rng, threshold, keep_scale));
+                            Dropout(rng, rng_coords, threshold, keep_scale));
 }
 
 #define PT_DQ_PARAMS                                                        \
@@ -711,7 +711,7 @@ __device__ __forceinline__ void flash_bwd_dq_block(PT_DQ_PARAMS, Drop drop) {
     // rank 0 is the last query tile, which sees every key tile
     const int q0 = (gridDim.x - 1 - tc::tile_rank(h, b)) * kBwdTile;
     const long long row0 = ((long long)b * H + h) * S + q0;
-    drop.set_head(b * H + h);
+    drop.set_head(b, h, H);
     tc::dq_tile<T, D>(reinterpret_cast<uint8_t*>(smem),
                       q + b * q_sb + q0 * q_ss + h * q_sh, q_ss,
                       dout + b * do_sb + q0 * do_ss + h * do_sh, do_ss,
@@ -733,7 +733,7 @@ __device__ __forceinline__ void flash_bwd_dq_block(PT_DQ_PARAMS, Drop drop) {
     const int n_rows = min(kBwdTile, S - q0);
     const int tid = threadIdx.x, tm = tid / kSide, tn = tid % kSide;
     const long long row0 = ((long long)b * H + h) * S + q0;
-    drop.set_head(b * H + h);
+    drop.set_head(b, h, H);
     load_rows<T, D>(sq, q + b * q_sb + q0 * q_ss + h * q_sh, q_ss, n_rows);
     load_rows<T, D>(sdo, dout + b * do_sb + q0 * do_ss + h * do_sh, do_ss,
                     n_rows);
@@ -792,9 +792,10 @@ __global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dq_kernel(
 // K3 with attention dropout.
 template <typename T, int D>
 __global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dq_dropout_kernel(
-    PT_DQ_PARAMS, const long long* __restrict__ rng, long long threshold,
-    float keep_scale) {
-  flash_bwd_dq_block<T, D>(PT_DQ_FORWARD, Dropout(rng, threshold, keep_scale));
+    PT_DQ_PARAMS, const long long* __restrict__ rng, int rng_coords,
+    long long threshold, float keep_scale) {
+  flash_bwd_dq_block<T, D>(PT_DQ_FORWARD,
+                           Dropout(rng, rng_coords, threshold, keep_scale));
 }
 
 // Dynamic shared memory of a K2/K3 instance (`products` [tile, tile] f32
@@ -821,7 +822,8 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v,
                          long long do_sb, long long do_ss, long long do_sh,
                          long long dk_sb, long long dk_ss, long long dk_sh,
                          long long dv_sb, long long dv_ss, long long dv_sh,
-                         float scale, const void* rng, long long threshold,
+                         float scale, const void* rng, int rng_coords,
+                         long long threshold,
                          float keep_scale, cudaStream_t stream) {
   const dim3 grid((S + kBwdTile - 1) / kBwdTile, H, B);
 #define PT_DKV_ARGS                                                          \
@@ -843,7 +845,7 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v,
         bwd_smem<T, D>(flash_bwd_dkv_dropout_kernel<T, D>, 2, opt_in);
     if (smem < 0) return -smem;
     flash_bwd_dkv_dropout_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(
-        PT_DKV_ARGS, static_cast<const long long*>(rng), threshold,
+        PT_DKV_ARGS, static_cast<const long long*>(rng), rng_coords, threshold,
         keep_scale);
   }
 #undef PT_DKV_ARGS
@@ -859,7 +861,8 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v,
                         long long v_sb, long long v_ss, long long v_sh,
                         long long do_sb, long long do_ss, long long do_sh,
                         long long dq_sb, long long dq_ss, long long dq_sh,
-                        float scale, const void* rng, long long threshold,
+                        float scale, const void* rng, int rng_coords,
+                        long long threshold,
                         float keep_scale, cudaStream_t stream) {
   const dim3 grid((S + kBwdTile - 1) / kBwdTile, H, B);
 #define PT_DQ_ARGS_                                                          \
@@ -880,7 +883,7 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v,
         bwd_smem<T, D>(flash_bwd_dq_dropout_kernel<T, D>, 1, opt_in);
     if (smem < 0) return -smem;
     flash_bwd_dq_dropout_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(
-        PT_DQ_ARGS_, static_cast<const long long*>(rng), threshold,
+        PT_DQ_ARGS_, static_cast<const long long*>(rng), rng_coords, threshold,
         keep_scale);
   }
 #undef PT_DQ_ARGS_
@@ -892,11 +895,11 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  rng: NULL for no dropout,
-// else the draw's int64 [seed, offset] on the device (the forward's), with
-// the keep
-// threshold round(p * 2^32) and keep_scale 1 / (1 - p).  Each returns the
-// cudaError_t of the launch, or -1 for a (dtype, head_dim) pair that has no
-// instance.
+// else the draw's int64 [seed, offset] on the device (the forward's;
+// followed by [batch_start, head_start, heads_total] when rng_coords is
+// nonzero), with the keep threshold round(p * 2^32) and keep_scale
+// 1 / (1 - p).  Each returns the cudaError_t of the launch, or -1 for a
+// (dtype, head_dim) pair that has no instance.
 #define PT_BWD_DISPATCH(fn, ARGS)                                           \
   if (dtype == 0 && head_dim == 64) return pt::fn<float, 64>(ARGS);        \
   if (dtype == 0 && head_dim == 128) return pt::fn<float, 128>(ARGS);      \
@@ -910,7 +913,7 @@ extern "C" {
 #define PT_DKV_ARGS                                                        \
   q, k, v, dout, lse, delta, dk, dv, B, S, H, causal, q_sb, q_ss, q_sh,    \
       k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dk_sb,      \
-      dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale, rng, threshold,            \
+      dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale, rng, rng_coords, threshold,  \
       keep_scale, static_cast<cudaStream_t>(stream)
 
 int pt_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
@@ -923,14 +926,15 @@ int pt_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
                      long long do_sh, long long dk_sb, long long dk_ss,
                      long long dk_sh, long long dv_sb, long long dv_ss,
                      long long dv_sh, float scale, const void* rng,
-                     long long threshold, float keep_scale, void* stream) {
+                     int rng_coords, long long threshold,
+                     float keep_scale, void* stream) {
   PT_BWD_DISPATCH(launch_flash_bwd_dkv, PT_DKV_ARGS)
 }
 
 #define PT_DQ_ARGS                                                         \
   q, k, v, dout, lse, delta, dq, B, S, H, causal, q_sb, q_ss, q_sh, k_sb,  \
       k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dq_sb, dq_ss,     \
-      dq_sh, scale, rng, threshold, keep_scale,                            \
+      dq_sh, scale, rng, rng_coords, threshold, keep_scale,                  \
       static_cast<cudaStream_t>(stream)
 
 int pt_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
@@ -942,7 +946,8 @@ int pt_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                     long long v_sh, long long do_sb, long long do_ss,
                     long long do_sh, long long dq_sb, long long dq_ss,
                     long long dq_sh, float scale, const void* rng,
-                    long long threshold, float keep_scale, void* stream) {
+                    int rng_coords, long long threshold,
+                    float keep_scale, void* stream) {
   PT_BWD_DISPATCH(launch_flash_bwd_dq, PT_DQ_ARGS)
 }
 

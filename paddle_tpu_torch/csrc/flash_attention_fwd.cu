@@ -71,7 +71,7 @@ __device__ __forceinline__ void flash_fwd_block(
   const T* q_rows = q + b * q_sb + q0 * q_ss + h * q_sh;
   T* o_rows = o + b * o_sb + q0 * o_ss + h * o_sh;
   float* lse_rows = lse + ((long long)b * H + h) * S + q0;
-  drop.set_head(b * H + h);
+  drop.set_head(b, h, H);
   if constexpr (tc::kOnTensorCores<T>) {
     extern __shared__ uint8_t dyn_smem[];
     tc::attend_tile<T, D>(dyn_smem, q_rows, q_ss, n_rows, q0, horizon,
@@ -104,9 +104,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(PT_FWD_PARAMS) {
 // draw's [seed, offset] on the device; keep iff word >= threshold).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_dropout_kernel(
-    PT_FWD_PARAMS, const long long* __restrict__ rng, long long threshold,
-    float keep_scale) {
-  flash_fwd_block<T, D>(PT_FWD_FORWARD, Dropout(rng, threshold, keep_scale));
+    PT_FWD_PARAMS, const long long* __restrict__ rng, int rng_coords,
+    long long threshold, float keep_scale) {
+  flash_fwd_block<T, D>(PT_FWD_FORWARD,
+                        Dropout(rng, rng_coords, threshold, keep_scale));
 }
 
 template <typename T, int D>
@@ -116,7 +117,8 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
                      long long k_sb, long long k_ss, long long k_sh,
                      long long v_sb, long long v_ss, long long v_sh,
                      long long o_sb, long long o_ss, long long o_sh,
-                     float scale, const void* rng, long long threshold,
+                     float scale, const void* rng, int rng_coords,
+                     long long threshold,
                      float keep_scale, cudaStream_t stream) {
   const dim3 grid((S + tc::kQueryTile<T> - 1) / tc::kQueryTile<T>, H, B);
 #define PT_FWD_ARGS                                                          \
@@ -135,7 +137,7 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
         tc::dynamic_smem<T, D>(flash_fwd_dropout_kernel<T, D>, opt_in);
     if (smem < 0) return -smem;
     flash_fwd_dropout_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        PT_FWD_ARGS, static_cast<const long long*>(rng), threshold,
+        PT_FWD_ARGS, static_cast<const long long*>(rng), rng_coords, threshold,
         keep_scale);
   }
 #undef PT_FWD_ARGS
@@ -147,13 +149,14 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  rng: NULL for no
-// dropout, else the
-// draw's int64 [seed, offset] on the device, with the keep threshold
-// round(p * 2^32) and keep_scale 1 / (1 - p).  Returns the cudaError_t of
-// the launch, or -1 for a (dtype, head_dim) pair that has no instance.
+// dropout, else the draw's int64 [seed, offset] on the device (followed by
+// [batch_start, head_start, heads_total] when rng_coords is nonzero), with
+// the keep threshold round(p * 2^32) and keep_scale 1 / (1 - p).  Returns
+// the cudaError_t of the launch, or -1 for a (dtype, head_dim) pair that has
+// no instance.
 #define PT_FLASH_ARGS                                                      \
   q, k, v, o, lse, B, S, H, causal, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,    \
-      v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, rng, threshold,           \
+      v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, rng, rng_coords, threshold, \
       keep_scale, static_cast<cudaStream_t>(stream)
 
 int pt_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
@@ -162,8 +165,8 @@ int pt_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                  long long k_sb, long long k_ss, long long k_sh,
                  long long v_sb, long long v_ss, long long v_sh,
                  long long o_sb, long long o_ss, long long o_sh, float scale,
-                 const void* rng, long long threshold, float keep_scale,
-                 void* stream) {
+                 const void* rng, int rng_coords, long long threshold,
+                 float keep_scale, void* stream) {
   if (dtype == 0 && head_dim == 64)
     return pt::launch_flash_fwd<float, 64>(PT_FLASH_ARGS);
   if (dtype == 0 && head_dim == 128)

@@ -10,9 +10,12 @@ tensor-parallel and pipeline layers, the hybrid and meta optimizers
 (:mod:`.fleet`), ZeRO (:mod:`.sharding`), the launcher (:mod:`.launch`),
 :func:`spawn`, :func:`wait`, :func:`split`, the ``gloo_*`` helpers, the
 parameter-server names (which raise, as in the JAX package), fault
-tolerance (:mod:`.fault_tolerance`), the format-2 checkpoints
-(:mod:`.checkpoint`), and what sharded serving stands on (:mod:`.mesh`,
-:mod:`.sharding_spec`).
+tolerance (:mod:`.fault_tolerance`, with the elastic mesh watchdog), the
+format-2 checkpoints (:mod:`.checkpoint`), the elastic resharding proofs
+and data schedule (:mod:`.reshard`), semi-automatic parallelism on
+DTensor (:mod:`.auto_parallel`: ``ProcessMesh``, ``shard_tensor``,
+``shard_op``, ``Engine``), and the meshes and sharding annotations
+(:mod:`.mesh`, :mod:`.sharding_spec`).
 """
 from __future__ import annotations
 
@@ -22,7 +25,11 @@ import socket
 import torch
 import torch.distributed as dist
 
-from . import checkpoint, fault_tolerance, fleet, launch, sharding
+from . import (
+    auto_parallel, checkpoint, fault_tolerance, fleet, launch, reshard,
+    sharding,
+)
+from .auto_parallel import Engine, ProcessMesh, shard_op, shard_tensor
 from .collective import (
     Group, ReduceOp, all_gather, all_reduce, all_reduce_chunked, alltoall,
     barrier, broadcast, get_group, new_group, ppermute, recv, reduce,
@@ -30,7 +37,18 @@ from .collective import (
 )
 from .env import ParallelEnv, get_rank, get_world_size, is_initialized
 from .fleet.topology import ParallelMode
+from .mesh import (
+    HYBRID_AXES, axis_size, get_global_mesh, hybrid_mesh, set_global_mesh,
+)
 from .parallel import DataParallel, init_parallel_env
+from .reshard import (
+    ElasticDataSchedule, diff_digests, state_digests, tensor_digest,
+    verify_resharded, world_descriptor,
+)
+from .sharding_spec import (
+    batch_spec, get_param_spec, mark_sharding, set_param_spec,
+    shard_parameter,
+)
 from .strategy import DistributedStrategy
 
 __all__ = ["DistributedStrategy", "ParallelEnv", "get_rank",
@@ -42,7 +60,13 @@ __all__ = ["DistributedStrategy", "ParallelEnv", "get_rank",
            "gloo_init_parallel_env", "gloo_barrier", "gloo_release",
            "ParallelMode", "checkpoint", "fault_tolerance", "fleet",
            "launch", "sharding", "InMemoryDataset", "QueueDataset",
-           "CountFilterEntry", "ProbabilityEntry", "ShowClickEntry"]
+           "CountFilterEntry", "ProbabilityEntry", "ShowClickEntry",
+           "auto_parallel", "ProcessMesh", "shard_tensor", "shard_op",
+           "Engine", "reshard", "tensor_digest", "state_digests",
+           "diff_digests", "verify_resharded", "world_descriptor",
+           "ElasticDataSchedule", "mark_sharding", "shard_parameter",
+           "set_param_spec", "get_param_spec", "batch_spec", "hybrid_mesh",
+           "axis_size", "HYBRID_AXES", "get_global_mesh", "set_global_mesh"]
 
 
 def _spawn_entry(rank: int, nprocs: int, master: str, func, args) -> None:

@@ -8,8 +8,9 @@ deterministic chaos injection (:class:`FaultPlan` for training,
 and the cheap recovery tier: the divergence latch inside the step
 (:class:`DivergenceSentry`), host-RAM snapshot rollback
 (:class:`MemorySnapshotRing`) and :class:`SentryEscalation` after
-``max_rollbacks`` consecutive rollbacks.  The elastic mesh watchdog
-(``MeshWatchdog``) is not ported (ROADMAP.md A.5 step 6).
+``max_rollbacks`` consecutive rollbacks, and the elastic mesh tier
+(:class:`MeshWatchdog`: per-host heartbeats through the elastic
+coordinator, the wedged-collective deadline, the straggler EMA).
 """
 from .injection import (
     ELASTIC_FAULT_POINTS, ENV_SERVING_FAULTS, ENV_TRAIN_FAULTS,
@@ -17,6 +18,7 @@ from .injection import (
     ReplicaScopedFaultPlan, ServingFaultPlan, corrupt_shard,
 )
 from .memory_checkpoint import MemorySnapshotRing, restore_packed_state
+from .mesh_watchdog import MeshWatchdog
 from .resilient_loop import ResilientLoop, pack_state, world_descriptor
 from .sentry import (
     ANOMALY_GRAD_RATIO, ANOMALY_LOSS_SPIKE, ANOMALY_NONFINITE_GRAD,
@@ -26,7 +28,7 @@ from .sentry import (
 from .watchdog import ELASTIC_EXIT_CODE, StepWatchdog, dump_all_stacks
 
 __all__ = [
-    "ResilientLoop", "StepWatchdog", "FaultPlan", "ServingFaultPlan",
+    "ResilientLoop", "StepWatchdog", "MeshWatchdog", "FaultPlan", "ServingFaultPlan",
     "ReplicaScopedFaultPlan", "InjectedFault", "SERVING_FAULT_POINTS",
     "TRAIN_FAULT_POINTS", "ELASTIC_FAULT_POINTS", "ENV_SERVING_FAULTS",
     "ENV_TRAIN_FAULTS", "corrupt_shard", "dump_all_stacks",

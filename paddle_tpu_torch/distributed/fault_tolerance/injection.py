@@ -24,8 +24,12 @@ Training (:class:`FaultPlan`, step keyed, consulted by ``ResilientLoop``):
   scaled by F, default 1e4).  The tensor keeps its shape, dtype and
   device, so a compiled step sees the fault with no new program.  Each
   rule fires at most once per step.  ``train.straggler@N[xM][:stall=S]``
-  and ``elastic.heartbeat@N[xM]`` parse as in the JAX package; nothing in
-  the port consumes them until the mesh watchdog is ported.
+  sleeps S seconds (default 0.25) at the start of each step of its
+  window (``ResilientLoop`` calls :meth:`FaultPlan.fire`), the slow host
+  the mesh watchdog's deadline and straggler EMA must catch;
+  ``elastic.heartbeat@N[xM]`` drops a :class:`~.mesh_watchdog.MeshWatchdog`'s
+  heartbeats N..N+M-1 (1-based) when the watchdog is given the plan
+  (:meth:`FaultPlan.should_drop_heartbeat`).
 
 Every die or stall fires at most once per process.
 

@@ -46,7 +46,10 @@ memory.  ``restore_fn`` must therefore load, not rebind::
         sentry=DivergenceSentry(snapshot_every=25, ring_capacity=2))
     loop.run(train_one_step, num_steps=10_000)
 
-``mesh_watchdog=`` (the elastic mesh tier) is not ported and raises.
+With ``mesh_watchdog=`` (a :class:`~.mesh_watchdog.MeshWatchdog`, the
+elastic mesh tier) the loop starts it, feeds it every step boundary
+beside the step watchdog, pauses it over commits and restores, stops it at
+the end, and reports its counters under ``elastic_stats()["watchdog"]``.
 """
 from __future__ import annotations
 
@@ -60,6 +63,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from .. import checkpoint as ckpt
+from ..reshard import world_descriptor
 from ...obs.flight import FlightRecorder
 from ...obs.train import StepTimeline, resolve_timeline
 from .injection import FaultPlan
@@ -68,28 +72,6 @@ from .sentry import DivergenceSentry, SentryEscalation
 from .watchdog import ELASTIC_EXIT_CODE, StepWatchdog
 
 __all__ = ["ResilientLoop", "pack_state", "world_descriptor"]
-
-
-def world_descriptor() -> Dict[str, Any]:
-    """The topology a state was packed under: the ``torch.distributed``
-    world's processes, the devices one process sees, and the axes of the
-    global mesh (:func:`..mesh.get_global_mesh`): literal values only, it
-    rides inside the checkpoint."""
-    import torch.distributed as dist
-
-    from ..mesh import get_global_mesh
-
-    desc: Dict[str, Any] = {
-        "processes": dist.get_world_size()
-        if dist.is_available() and dist.is_initialized() else 1,
-        "devices": torch.cuda.device_count()
-        if torch.cuda.is_available() else 1,
-    }
-    m = get_global_mesh()
-    if m is not None:
-        for axis, size in zip(m.mesh_dim_names or (), m.mesh.shape):
-            desc[f"mesh_{axis}"] = int(size)
-    return desc
 
 
 def pack_state(user_state: Dict[str, Any], step: int,
@@ -142,11 +124,6 @@ class ResilientLoop:
                  compile_ledger=None,
                  cost_ledger=None,
                  mesh_watchdog=None):
-        if mesh_watchdog is not None:
-            raise NotImplementedError(
-                "ResilientLoop(mesh_watchdog=...): the elastic mesh "
-                "watchdog and its coordinator are not ported (ROADMAP.md "
-                "A.5 step 6)")
         if save_every is not None and save_every < 1:
             raise ValueError("save_every must be >= 1 (or None to disable)")
         if keep_last is not None and keep_last < 1:
@@ -178,6 +155,9 @@ class ResilientLoop:
         self.timeline = resolve_timeline(timeline)
         self.compile_ledger = compile_ledger
         self.cost_ledger = cost_ledger
+        #: a MeshWatchdog: heartbeat, wedged-collective deadline and
+        #: straggler EMA, fed the step boundaries beside the StepWatchdog
+        self.mesh_watchdog = mesh_watchdog
         #: resumes from a generation packed on another world
         self.reconfigs = 0
         self.last_reconfig_s: Optional[float] = None
@@ -187,7 +167,8 @@ class ResilientLoop:
         self._fault_plan = FaultPlan.from_env()
         # join profiler.train_stats() only when something is armed
         if self.timeline.enabled or sentry is not None \
-                or compile_ledger is not None or cost_ledger is not None:
+                or compile_ledger is not None or cost_ledger is not None \
+                or mesh_watchdog is not None:
             from ... import profiler
 
             profiler._register_train_stats(self)
@@ -322,8 +303,9 @@ class ResilientLoop:
         return out
 
     def elastic_stats(self) -> dict:
-        """JSON-ready reconfiguration counters from :meth:`resume` (empty
-        when there was none)."""
+        """JSON-ready reconfiguration counters from :meth:`resume`, and the
+        mesh watchdog's counters under ``"watchdog"`` (empty when there
+        is neither)."""
         out: Dict[str, Any] = {}
         if self.reconfigs:
             out["reconfigs"] = self.reconfigs
@@ -332,6 +314,8 @@ class ResilientLoop:
             out["dropped_axis_tensors"] = sum(
                 1 for r in self.reshard_report.values()
                 if r.get("dropped_axes"))
+        if self.mesh_watchdog is not None:
+            out["watchdog"] = self.mesh_watchdog.stats()
         return out
 
     def train_stats(self) -> dict:
@@ -413,6 +397,7 @@ class ResilientLoop:
                                  exit_code=self.exit_code,
                                  on_timeout=self._on_watchdog_timeout)
                     if self.watchdog_timeout else None)
+        mesh_wd = self.mesh_watchdog
         saved_handlers = self._install_handlers()
         completed = start
         reconfig = self._reconfigured
@@ -422,13 +407,20 @@ class ResilientLoop:
             # a commit may legally be slow: never under the step deadline
             if watchdog is not None:
                 watchdog.pause()
+            if mesh_wd is not None:
+                mesh_wd.pause()
             self._save(n)
-            if resume_step is not None and watchdog is not None:
-                watchdog.notify(resume_step)
+            if resume_step is not None:
+                if watchdog is not None:
+                    watchdog.notify(resume_step)
+                if mesh_wd is not None:
+                    mesh_wd.notify(resume_step)
 
         try:
             if watchdog is not None:
                 watchdog.start()
+            if mesh_wd is not None:
+                mesh_wd.start()
             if sentry is not None:
                 # seed the ring: a rollback target exists from step one
                 self._mem_snapshot(start)
@@ -451,6 +443,8 @@ class ResilientLoop:
                 else:
                     if watchdog is not None:
                         watchdog.notify(step)
+                    if mesh_wd is not None:
+                        mesh_wd.notify(step)
                     self._fault_plan.fire(step)
                     with tl.phase("step_dispatch"):
                         step_fn(step)
@@ -464,10 +458,12 @@ class ResilientLoop:
                                                loss=report.loss,
                                                grad_norm=report.grad_norm,
                                                scale=report.scale)
+                            # a restore or an escalation commit may
+                            # legally be slow
                             if watchdog is not None:
-                                # a restore or an escalation commit may
-                                # legally be slow
                                 watchdog.pause()
+                            if mesh_wd is not None:
+                                mesh_wd.pause()
                             if action == "escalate":
                                 self._escalate(step, report)
                             target = self._restore_newest_snapshot()
@@ -520,11 +516,16 @@ class ResilientLoop:
                 step += 1
             if self.save_final and num_steps > start:
                 _commit(num_steps)
-            elif watchdog is not None:
-                watchdog.pause()
+            else:
+                if watchdog is not None:
+                    watchdog.pause()
+                if mesh_wd is not None:
+                    mesh_wd.pause()
         finally:
             if watchdog is not None:
                 watchdog.stop()
+            if mesh_wd is not None:
+                mesh_wd.stop()
             if self.compile_ledger is not None:
                 self.compile_ledger.detach()
             self._restore_handlers(saved_handlers)

@@ -27,12 +27,9 @@ import time
 import traceback
 from typing import Callable, Optional
 
-__all__ = ["StepWatchdog", "dump_all_stacks", "ELASTIC_EXIT_CODE"]
+from ..fleet.elastic.manager import ELASTIC_EXIT_CODE
 
-#: the relaunch-needed exit code (the JAX package's
-#: ``fleet/elastic/manager.py`` value, copied: the port imports nothing of
-#: it)
-ELASTIC_EXIT_CODE = 101
+__all__ = ["StepWatchdog", "dump_all_stacks", "ELASTIC_EXIT_CODE"]
 
 
 def dump_all_stacks(file=None):

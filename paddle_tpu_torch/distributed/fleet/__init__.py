@@ -9,9 +9,12 @@ helpers, the role makers and ``UtilBase``) for one process per rank:
   ``device="cpu"``) and the five-axis topology ``[data, pipe, sharding,
   sep, model]`` over it (``dp_degree=-1``: the world over the other
   degrees).  A strategy whose degrees ask for more ranks than the world
-  has raises ``ValueError``.  Still refused (``NotImplementedError``,
-  ROADMAP.md A.5 step 6): ``sep_degree > 1`` and
-  ``tensor_parallel_configs.overlap_chunks > 1``.
+  has raises ``ValueError``.  Under ``sep_degree > 1`` each rank keeps a
+  chunk of the sequence (:func:`shard_sequence`), attention runs the ring
+  over the sep group (:mod:`...ops.ring_attention`), the loss is the
+  token-weighted mean over the sep group, and gradients are averaged over
+  data x sharding x sep.  Still refused (``NotImplementedError``,
+  ROADMAP.md A.5 step 6): ``tensor_parallel_configs.overlap_chunks > 1``.
 - :func:`distributed_model` wraps the model for the topology: a
   :class:`PipelineLayer` over a pipe degree above 1 in the pipeline
   engine, a ZeRO stage-3 model in ``ShardingParallel``, any other in
@@ -39,12 +42,14 @@ from .. import collective
 from ..env import ParallelEnv, get_rank, get_world_size
 from ..parallel import init_parallel_env
 from ..strategy import DistributedStrategy
-from . import meta_parallel, utils
+from . import elastic, meta_parallel, utils
 from .hybrid_optimizer import HybridParallelOptimizer
 from .meta_parallel import (
     PipelineLayer, PipelineParallel, ShardingParallel, TensorParallel,
 )
-from .meta_parallel.tensor_parallel import place_parameters, shard_batch
+from .meta_parallel.tensor_parallel import (
+    place_parameters, shard_batch, shard_sequence,
+)
 from .recompute import recompute
 from .topology import (
     HYBRID_AXES, CommunicateTopology, HybridCommunicateGroup, ParallelMode,
@@ -59,17 +64,14 @@ __all__ = ["DistributedStrategy", "init", "is_initialized",
            "util", "Fleet", "CommunicateTopology", "HybridCommunicateGroup",
            "ParallelMode", "HybridParallelOptimizer", "TensorParallel",
            "ShardingParallel", "PipelineLayer", "PipelineParallel",
-           "meta_parallel", "utils", "place_parameters", "shard_batch"]
+           "meta_parallel", "utils", "place_parameters", "shard_batch",
+           "shard_sequence", "elastic"]
 
 _fleet_initialized = False
 _user_strategy: Optional[DistributedStrategy] = None
 
 
 def _refuse(strategy: DistributedStrategy) -> None:
-    if strategy.hybrid_configs.sep_degree > 1:
-        raise NotImplementedError(
-            "fleet: sep_degree > 1 (sequence parallelism over ring "
-            "attention) is not ported (ROADMAP.md A.5 step 6)")
     if strategy.tensor_parallel_configs.overlap_chunks > 1:
         raise NotImplementedError(
             "fleet: tensor_parallel_configs.overlap_chunks > 1 (the chunked "

@@ -9,9 +9,10 @@ accumulators on the mesh; here, as in Paddle's
 group (:func:`partition`: greedy by size, in parameter order), and only
 its owner keeps its optimizer state and runs its update.  A step:
 
-1. averages the gradients over the batch ranks: over data x sharding
-   (stage 1), or over data and then, to the owner only, over sharding
-   (stages 2 and 3: the other ranks drop the gradient);
+1. averages the gradients over the batch ranks: over data x sharding (x
+   sep, whose ranks hold chunks of the same samples) at stage 1, or over
+   data (and sep) and then, to the owner only, over sharding (stages 2
+   and 3: the other ranks drop the gradient);
 2. with a ``ClipGradByGlobalNorm`` on the inner optimizer, computes the
    global norm over the model, pipe and sharding groups: a parameter split
    over the model group (``is_distributed``) counts on every model rank,
@@ -112,9 +113,13 @@ class HybridParallelOptimizer:
             sharding_stage = strategy.sharding_configs.stage \
                 if strategy is not None else 1
         self._stage = int(sharding_stage) if _size(sharding_group) > 1 else 0
-        # the batch ranks: data x sharding
-        self._batch = hcg.get_check_parallel_group() if hcg is not None \
+        # the batch ranks: data x sharding (x sep, whose ranks hold
+        # chunks of the same samples)
+        self._batch = hcg.get_dp_sep_parallel_group() if hcg is not None \
             else (sharding_group if self._stage else dp_group)
+        self._sep = hcg.get_sep_parallel_group() \
+            if hcg is not None and hcg.get_sep_parallel_world_size() > 1 \
+            else None
         self._params = [p for g in optimizer.param_groups
                         for p in g["params"]]
         self._owners = partition(self._params, _size(sharding_group)) \
@@ -135,8 +140,9 @@ class HybridParallelOptimizer:
                 average_gradients(self._params, self._batch,
                                   self._comm_dtype)
             return
-        if _size(self._dp) > 1:
-            average_gradients(self._params, self._dp, self._comm_dtype)
+        for g in (self._dp, self._sep):
+            if _size(g) > 1:
+                average_gradients(self._params, g, self._comm_dtype)
         for i, p in enumerate(self._params):
             if p.grad is None:
                 continue

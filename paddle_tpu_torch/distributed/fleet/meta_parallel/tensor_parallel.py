@@ -7,15 +7,19 @@ Port of ``paddle_tpu/distributed/fleet/meta_parallel/tensor_parallel.py``
 
 - :func:`place_parameters` makes the ranks agree when the wrapper is made:
   every parameter and buffer is broadcast from the first rank of its
-  data x sharding group, and one that is whole on every model rank (not
-  ``is_distributed``) from the first rank of its model group too.
+  data x sharding (x sep) group, and one that is whole on every model
+  rank (not ``is_distributed``) from the first rank of its model group
+  too.
 - Each data-parallel rank keeps its own slice of the batch: a wrapper
   runs the model on what it is given, the rank's local batch;
   :func:`shard_batch` cuts that slice (over data, then sharding, as the
   JAX package's ``("data", "sharding")`` batch axes order it) out of a
   global batch for a caller that holds the whole one.  While the wrapped
   model runs, dropout draws at the slice's place in the global batch
-  (:func:`....rng.shard_coordinates`).
+  (:func:`....rng.shard_coordinates`).  Under a sep degree each rank
+  keeps its chunk of the sequence (dim 1), which :func:`shard_sequence`
+  cuts out of a whole one; the model places it at its global positions
+  and attention runs the ring over the sep group.
 - At ZeRO stage 3 each rank keeps its own parameters between steps (the
   hybrid optimizer releases the others after its update); the wrapper's
   forward gathers them back from their owners first.
@@ -36,8 +40,8 @@ from ... import collective
 from ..topology import get_hybrid_communicate_group
 from .mp_layers import is_split
 
-__all__ = ["place_parameters", "shard_batch", "TensorParallel",
-           "ShardingParallel"]
+__all__ = ["place_parameters", "shard_batch", "shard_sequence",
+           "TensorParallel", "ShardingParallel"]
 
 
 @torch.no_grad()
@@ -47,7 +51,7 @@ def place_parameters(model: nn.Module, hcg=None) -> nn.Module:
     hcg = hcg or get_hybrid_communicate_group()
     if hcg is None:
         return model
-    check = hcg.get_check_parallel_group()
+    check = hcg.get_dp_sep_parallel_group()
     mp = hcg.get_model_parallel_group()
     for t in list(model.parameters()) + list(model.buffers()):
         if check.nranks > 1:
@@ -74,6 +78,24 @@ def shard_batch(t, hcg=None):
                          f"{n} data x sharding ranks")
     local = size // n
     return t.narrow(0, hcg.get_batch_rank() * local, local)
+
+
+def shard_sequence(t, hcg=None, dim: int = 1):
+    """This rank's chunk of the sequence dim of ``t`` (sep rank ``r`` of
+    ``p`` takes the ``r``-th of ``p`` equal chunks); ``t`` itself when
+    the sep axis has one rank, or ``t`` is not a tensor."""
+    hcg = hcg or get_hybrid_communicate_group()
+    if not isinstance(t, torch.Tensor) or hcg is None or t.dim() <= dim:
+        return t
+    p = hcg.get_sep_parallel_world_size()
+    if p == 1:
+        return t
+    size = t.shape[dim]
+    if size % p:
+        raise ValueError(f"shard_sequence: sequence {size} does not split "
+                         f"over {p} sep ranks")
+    s = size // p
+    return t.narrow(dim, hcg.get_sep_parallel_rank() * s, s)
 
 
 class _ParallelWrapperBase(nn.Module):

@@ -123,14 +123,12 @@ class HybridCommunicateGroup:
         self._groups: Dict[str, Group] = {}
         for name in names:
             self._groups[name] = self._make(topology.get_comm_list(name))
-        # data x sharding: the ranks that share this rank's other
-        # coordinates (the batch axes, over which gradients are averaged)
-        fixed = [n for n in names if n not in ("data", "sharding")]
-        lines = collections.OrderedDict()
-        for c, r in sorted(topology._coord2rank.items(), key=lambda x: x[1]):
-            lines.setdefault(tuple(getattr(c, n) for n in fixed),
-                             []).append(r)
-        self._check_group = self._make(list(lines.values()))
+        # data x sharding: the batch axes, over which gradients are
+        # averaged; x sep when the sequence is cut over sep (Paddle's fused
+        # dp-sep group: its ranks hold chunks of the same samples)
+        self._check_group = self._span(("data", "sharding"))
+        self._dp_sep_group = self._span(("data", "sharding", "sep")) \
+            if self._sep_degree > 1 else self._check_group
         # the pipe line's second group, for gradients
         self._pipe_grad_group = self._groups["pipe"]
         if self._pp_degree > 1:
@@ -140,6 +138,18 @@ class HybridCommunicateGroup:
                 if self.global_rank in ranks:
                     mine = Group(ranks, gid=-1, pg=pg)
             self._pipe_grad_group = mine
+
+    def _span(self, axes) -> Group:
+        """The group of the ranks that share this rank's coordinates on
+        every axis but ``axes`` (made on every rank, one per line)."""
+        fixed = [n for n in self._topo.get_hybrid_group_names()
+                 if n not in axes]
+        lines = collections.OrderedDict()
+        for c, r in sorted(self._topo._coord2rank.items(),
+                           key=lambda x: x[1]):
+            lines.setdefault(tuple(getattr(c, n) for n in fixed),
+                             []).append(r)
+        return self._make(list(lines.values()))
 
     def _make(self, rank_lists: List[List[int]]) -> Group:
         """One group per rank list, made on every rank in order; this
@@ -199,6 +209,11 @@ class HybridCommunicateGroup:
     def get_sep_parallel_group(self): return self._groups["sep"]
 
     def get_check_parallel_group(self): return self._check_group
+
+    def get_dp_sep_parallel_group(self):
+        """data x sharding x sep: the group over which gradients are
+        averaged (the check group when the sep degree is 1)."""
+        return self._dp_sep_group
 
     def get_batch_rank(self) -> int:
         """This rank's position over the batch axes (data, then sharding):

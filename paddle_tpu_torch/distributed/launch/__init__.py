@@ -2,9 +2,8 @@
 a job on this node, watch them, restart the set on a failure.
 
 Port of ``paddle_tpu/distributed/launch/__init__.py`` (``launch`` :294,
-``_build_workers`` :133) without its elastic coordinator mode
-(``_launch_elastic`` :173, with ``fleet/elastic/``: ROADMAP.md A.5 step 6,
-``--elastic_coordinator`` raises).  One worker is one process, one rank:
+``_build_workers`` :133, ``_launch_elastic`` :173).  One worker is one
+process, one rank:
 
     python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2 \\
         train.py --its-args
@@ -24,6 +23,21 @@ port, up to ``--max_restarts`` times (then it exits with the worker's
 code).  A worker that exits with :data:`ELASTIC_EXIT_CODE` asks to be
 relaunched (a preemption, a hang watchdog): that is honoured up to
 ``--max_relaunches`` times and does not use up ``--max_restarts``.
+
+The elastic mode (``--elastic_coordinator DIR``, a
+:class:`~..fleet.elastic.FileCoordinator` directory shared by the nodes):
+this node registers as ``--host:--start_port`` under ``--job_id`` with a
+lease of ``--lease_ttl`` seconds, and an
+:class:`~..fleet.elastic.ElasticManager` runs rounds.  A round waits until
+the membership is launchable (``--np N``, or ``min:max`` with
+``--elastic_timeout`` seconds of grace between them), regenerates the
+ranks (survivors keep theirs), starts this node's workers with the new
+world, and watches them and the membership: a worker's exit 101 or a
+membership change starts a new round; any other failure does too, up to
+``--max_restarts`` times (default 3); all workers ending well ends the
+job.  Every node derives the round's rendezvous from the shared
+membership (the rank-0 endpoint's host, its port + 10000 + a hash of the
+membership), unless ``--master`` is given.
 """
 from __future__ import annotations
 
@@ -36,10 +50,9 @@ import sys
 import time
 from typing import List, Optional
 
-__all__ = ["launch", "main", "ELASTIC_EXIT_CODE"]
+from ..fleet.elastic.manager import ELASTIC_EXIT_CODE
 
-#: a worker's exit code that asks for a relaunch (Paddle's elastic one)
-ELASTIC_EXIT_CODE = 101
+__all__ = ["launch", "main", "ELASTIC_EXIT_CODE"]
 
 
 def _parse(argv: Optional[List[str]] = None):
@@ -56,8 +69,9 @@ def _parse(argv: Optional[List[str]] = None):
                    help="comma-separated node hostnames, node_rank order "
                         "(required for --nnodes > 1)")
     p.add_argument("--log_dir", type=str, default=None)
-    p.add_argument("--max_restarts", type=int, default=0,
-                   help="restarts after a worker failure before giving up")
+    p.add_argument("--max_restarts", type=int, default=None,
+                   help="restarts after a worker failure before giving up "
+                        "(default: 0, or 3 in the elastic mode)")
     p.add_argument("--max_relaunches", type=int,
                    default=int(os.environ.get("PADDLE_TPU_MAX_RELAUNCHES",
                                               "100")),
@@ -68,7 +82,26 @@ def _parse(argv: Optional[List[str]] = None):
                    default=int(os.environ.get("PADDLE_START_PORT", "6170")))
     p.add_argument("--elastic_coordinator", type=str,
                    default=os.environ.get("PADDLE_ELASTIC_COORDINATOR"),
-                   help="elastic membership directory (not ported)")
+                   help="shared directory of the elastic membership (a "
+                        "FileCoordinator)")
+    p.add_argument("--np", type=str, default=None,
+                   help='elastic node count, "N" or "min:max" (with '
+                        "--elastic_coordinator)")
+    p.add_argument("--job_id", type=str,
+                   default=os.environ.get("PADDLE_ELASTIC_JOB_ID", "default"),
+                   help="elastic job id, the coordinator's namespace")
+    p.add_argument("--elastic_timeout", type=float,
+                   default=float(os.environ.get(
+                       "PADDLE_ELASTIC_TIMEOUT", "0") or 0) or None,
+                   help="seconds the membership may sit between min and max "
+                        "np before a round launches anyway (default 120)")
+    p.add_argument("--lease_ttl", type=float,
+                   default=float(os.environ.get(
+                       "PADDLE_ELASTIC_LEASE_TTL", "0") or 0) or None,
+                   help="node lease seconds: a dead node's membership "
+                        "lapses after this (default 60)")
+    p.add_argument("--host", type=str, default=os.environ.get("POD_IP"),
+                   help="this node's address in the elastic membership")
     p.add_argument("training_script", type=str)
     p.add_argument("training_script_args", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
@@ -165,16 +198,121 @@ def _watch(workers: List[_Worker]):
         time.sleep(0.2)
 
 
+def _launch_elastic(args) -> int:
+    """The membership-driven rounds of the elastic mode (see the module);
+    returns the exit code."""
+    import zlib
+
+    from ..fleet.elastic import (
+        ElasticManager, ElasticStatus, FileCoordinator, LauncherInterface,
+    )
+
+    host = args.host or socket.gethostname()
+    coord = FileCoordinator(args.elastic_coordinator)
+    kw = {}
+    if args.elastic_timeout is not None:
+        kw["elastic_timeout"] = args.elastic_timeout
+    if args.lease_ttl is not None:
+        kw["lease_ttl"] = args.lease_ttl
+    manager = ElasticManager(coord, job_id=args.job_id,
+                             np=args.np or str(args.nnodes),
+                             curr_host=f"{host}:{args.start_port}", **kw)
+    if args.max_restarts is not None:
+        # 0 is a real request: a deterministic crash ends the job
+        manager.max_faults = args.max_restarts
+
+    class _Launcher(LauncherInterface):
+        def __init__(self, workers: List[_Worker]):
+            self.workers = workers
+
+        def launch(self):
+            for w in self.workers:
+                w.start()
+
+        def watch(self):
+            alive = False
+            for w in self.workers:
+                rc = w.poll()
+                if rc is None:
+                    alive = True
+                elif rc != 0:
+                    return rc
+            return None if alive else 0
+
+        def stop(self):
+            for w in self.workers:
+                w.terminate()
+
+    current: List[_Launcher] = []
+
+    def _teardown(sig, _frame):
+        for launcher in current:
+            launcher.stop()
+        manager.exit()
+        coord.close()
+        sys.exit(128 + sig)
+
+    old_int = signal.signal(signal.SIGINT, _teardown)
+    old_term = signal.signal(signal.SIGTERM, _teardown)
+    try:
+        while True:
+            if not manager.wait(timeout=manager.elastic_timeout * 4):
+                print("[launch] elastic: the membership never became "
+                      "launchable", file=sys.stderr)
+                return 1
+            env = manager.sync()
+            if env is None:
+                # this node fell out of the regenerated membership (its
+                # lease lapsed during churn): stand by until a slot frees
+                time.sleep(max(manager.lease_ttl / 3.0, 0.05))
+                continue
+            os.environ.update(env)
+            hosts = env["PADDLE_TRAINER_ENDPOINTS"].split(",")
+            args.nnodes = len(hosts)
+            args.node_rank = int(env["PADDLE_TRAINER_ID"])
+            args.ips = ",".join(h.split(":")[0] for h in hosts)
+            if args.master:
+                master = args.master
+            else:
+                # from the shared membership only, so every node agrees;
+                # a new membership gets a new port
+                h0, p0 = hosts[0].rsplit(":", 1)
+                epoch = zlib.crc32(env["PADDLE_TRAINER_ENDPOINTS"].encode())
+                master = f"{h0}:{int(p0) + 10000 + epoch % 97}"
+            launcher = _Launcher(_build_workers(args, master))
+            current.append(launcher)
+            manager.run(launcher)
+            try:
+                status = manager.watch()
+            finally:
+                launcher.stop()
+                current.clear()
+            if status == ElasticStatus.COMPLETED:
+                return 0
+            if status == ElasticStatus.ERROR:
+                return 1
+            if status in (ElasticStatus.RESTART, ElasticStatus.HOLD):
+                print(f"[launch] elastic: {status}; resyncing the "
+                      "membership", file=sys.stderr)
+                continue
+            return 0
+    finally:
+        signal.signal(signal.SIGINT, old_int)
+        signal.signal(signal.SIGTERM, old_term)
+        manager.exit()
+        coord.close()
+
+
 def launch(argv: Optional[List[str]] = None) -> int:
     """Run the launcher; returns the exit code (0: every worker ended
     well)."""
     args = _parse(argv)
-    if args.elastic_coordinator:
-        raise NotImplementedError(
-            "launch --elastic_coordinator: the elastic mode and "
-            "fleet/elastic are not ported (ROADMAP.md A.5 step 6)")
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
+    if args.elastic_coordinator:
+        return _launch_elastic(args)
+    if args.max_restarts is None:
+        args.max_restarts = 0
     master = args.master or f"127.0.0.1:{_free_port()}"
     restarts = relaunches = 0
     while True:

@@ -1,10 +1,12 @@
 """Process groups and one-axis device meshes over ``torch.distributed``.
 
 Port of ``paddle_tpu/distributed/mesh.py`` (``build_mesh``,
-``set_global_mesh``/``get_global_mesh``) in PyTorch's idiom: one process
-per device, every rank running the same program (SPMD, as ``torchrun``
-starts it).  A mesh is a ``DeviceMesh`` with one dim, ``"model"``, whose
-``get_group("model")`` carries the collectives.
+``hybrid_mesh``, ``axis_size``, ``set_global_mesh``/``get_global_mesh``) in
+PyTorch's idiom: one process per device, every rank running the same
+program (SPMD, as ``torchrun`` starts it).  A serving mesh is a
+``DeviceMesh`` with one dim, ``"model"``, whose ``get_group("model")``
+carries the collectives; :func:`hybrid_mesh` is the five-axis training
+mesh ``[data, pipe, sharding, sep, model]`` over the whole world.
 
 ``dist.new_group`` is collective over the whole world: every rank must
 ask for the same groups in the same order, members or not.
@@ -28,8 +30,12 @@ import torch.distributed as dist
 
 from .sharding_spec import MODEL_AXIS
 
-__all__ = ["GROUP_TIMEOUT", "backend_for", "ensure_world", "process_group",
-           "build_mesh", "mesh_ranks", "set_global_mesh", "get_global_mesh"]
+__all__ = ["GROUP_TIMEOUT", "HYBRID_AXES", "backend_for", "ensure_world",
+           "process_group", "build_mesh", "hybrid_mesh", "axis_size",
+           "mesh_ranks", "set_global_mesh", "get_global_mesh"]
+
+#: the axes of the hybrid training mesh, outermost first
+HYBRID_AXES = ("data", "pipe", "sharding", "sep", "model")
 
 #: the timeout of every group this module makes
 GROUP_TIMEOUT = timedelta(seconds=60)
@@ -89,6 +95,36 @@ def build_mesh(ranks: Sequence[int], device_type: str):
         return None
     return DeviceMesh.from_group(group, device_type, mesh=ranks,
                                  mesh_dim_names=(MODEL_AXIS,))
+
+
+def hybrid_mesh(dp: int = 1, pp: int = 1, sharding: int = 1, sep: int = 1,
+                mp: int = 1, device_type: str = "cpu"):
+    """The five-axis ``DeviceMesh`` ``[data, pipe, sharding, sep, model]``
+    over the whole world, rank ``r`` at row-major position ``r``.  Degrees
+    of 1 keep their axis, so a spec may name any hybrid axis whatever the
+    strategy.  The degrees must multiply to the world's size (collective
+    over the world: every rank makes it)."""
+    import numpy as np
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dims = (dp, pp, sharding, sep, mp)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if int(np.prod(dims)) != world:
+        raise ValueError(f"hybrid_mesh: degrees {dims} multiply to "
+                         f"{int(np.prod(dims))}, the world has {world}")
+    if not dist.is_initialized():
+        ensure_world(device_type)
+    return DeviceMesh(device_type, np.arange(world).reshape(dims),
+                      mesh_dim_names=HYBRID_AXES)
+
+
+def axis_size(name: str, mesh=None) -> int:
+    """The size of axis ``name`` on ``mesh`` (default the global mesh); 1
+    when there is no mesh or it has no such axis."""
+    from .sharding_spec import mesh_axes
+
+    m = mesh if mesh is not None else _global_mesh
+    return int(mesh_axes(m).get(name, 1)) if m is not None else 1
 
 
 def mesh_ranks(mesh) -> list:

@@ -10,7 +10,8 @@ from .gpt import (
     GPTPretrainingCriterion, gpt2_345m, gpt3_13b, gpt_tiny,
 )
 from .llama import (
-    LLAMA_CONFIGS, LlamaConfig, LlamaForCausalLM, LlamaModel, llama2_13b,
+    LLAMA_CONFIGS, LlamaConfig, LlamaForCausalLM, LlamaModel,
+    LlamaPretrainingCriterion, llama2_13b,
     llama2_70b, llama2_7b, llama_tiny,
 )
 
@@ -22,4 +23,5 @@ __all__ = ["from_jax_state_dict", "port_state_dict_from_jax", "shard_model",
            "GPTPretrainingCriterion", "gpt2_345m", "gpt3_13b",
            "gpt_tiny",
            "LLAMA_CONFIGS", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
-           "llama2_13b", "llama2_70b", "llama2_7b", "llama_tiny"]
+           "llama2_13b", "llama2_70b", "llama2_7b", "llama_tiny",
+           "LlamaPretrainingCriterion"]

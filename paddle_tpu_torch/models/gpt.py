@@ -64,6 +64,7 @@ from ..nn.common import Dropout
 from ..nn.norm import LayerNorm
 from ..ops.attention import flash_attention
 from ..ops.fused import fused_linear_cross_entropy
+from ..ops.ring_attention import sep_group, sep_offset, sep_token_mean
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTForCausalLMPipe", "GPTModel",
            "GPTPretrainingCriterion", "gpt_tiny", "gpt2_345m", "gpt3_13b",
@@ -226,12 +227,15 @@ class GPTEmbeddings(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         if position_ids is None:
+            # under a sep degree this is a chunk: its global positions
             S = input_ids.shape[-1]
+            start = sep_offset(S)
             max_pos = self.position_embeddings.num_embeddings
-            if S > max_pos:
-                raise ValueError(f"sequence length {S} exceeds "
+            if start + S > max_pos:
+                raise ValueError(f"sequence length {start + S} exceeds "
                                  f"max_position_embeddings {max_pos}")
-            position_ids = torch.arange(S, device=input_ids.device)[None, :]
+            position_ids = torch.arange(start, start + S,
+                                        device=input_ids.device)[None, :]
         return self.dropout(self.word_embeddings(input_ids)
                             + self.position_embeddings(position_ids))
 
@@ -312,9 +316,10 @@ class GPTPretrainingCriterion(nn.Module):
         loss = self.ce(logits, labels).squeeze(-1)
         if loss_mask is not None:
             m = loss_mask.float()
-            return (loss * m).sum() / m.sum().clamp(min=1.0)
+            total, n = (loss * m).sum(), m.sum()
+            return sep_token_mean(total / n.clamp(min=1.0), n)
         denom = (labels != self.ignore_index).float().sum()
-        return loss.sum() / denom.clamp(min=1.0)
+        return sep_token_mean(loss.sum() / denom.clamp(min=1.0), denom)
 
 
 class GPTForCausalLM(nn.Module):
@@ -386,12 +391,19 @@ class GPTForCausalLM(nn.Module):
         fused cross-entropy, or, on a tensor-parallel model, through the
         rank's vocabulary columns of the logits and
         :class:`ParallelCrossEntropy` (the JAX package's vocab-parallel
-        path)."""
+        path).  Under a ``fleet`` sep degree the ids are this rank's chunk
+        of the sequence and the loss is the token-weighted mean over the
+        sep group (:func:`..ops.ring_attention.sep_token_mean`)."""
         h = self.gpt(input_ids)
         if self.group is None:
-            return fused_linear_cross_entropy(
+            loss = fused_linear_cross_entropy(
                 h, self._head_weight(), labels, loss_mask=loss_mask,
                 ignore_index=ignore_index)
+            if sep_group() is None:
+                return loss
+            count = (loss_mask.float().sum() if loss_mask is not None
+                     else (labels != ignore_index).float().sum())
+            return sep_token_mean(loss, count)
         logits = c_identity(h, self.group) @ self._head_weight().t()
         crit = GPTPretrainingCriterion(ignore_index, self.group)
         return crit(logits, labels, loss_mask)

@@ -38,13 +38,16 @@ from torch import nn
 
 from ..distributed.fleet.meta_parallel.mp_layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
-    gather_last,
+    gather_output,
 )
 from ..nn.norm import RMSNorm
 from ..ops.attention import flash_attention
+from ..ops.ring_attention import sep_offset
+from .gpt import GPTPretrainingCriterion
 from ..ops.rotary import rotary_embedding
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "llama_tiny",
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
+           "LlamaPretrainingCriterion", "llama_tiny",
            "llama2_7b", "llama2_13b", "llama2_70b", "LLAMA_CONFIGS"]
 
 
@@ -189,9 +192,16 @@ class LlamaAttention(nn.Module):
                                     position_ids=cache_ctx.positions())
             ctx = cache_ctx.decode_attention(q, k, v)
         else:
-            pos = None if cache_ctx is None else \
-                cache_ctx.prefill_positions(S)
-            cos, sin = self._tables(S)
+            pos, n = None, S
+            if cache_ctx is not None:
+                pos = cache_ctx.prefill_positions(S)
+            elif sep_offset(S):
+                # a sep chunk: its tokens at their global positions
+                start = sep_offset(S)
+                pos = torch.arange(start, start + S,
+                                   device=x.device).expand(B, S)
+                n = start + S
+            cos, sin = self._tables(n)
             q, k = rotary_embedding(q, k, cos, sin, position_ids=pos)
             if cache_ctx is not None:
                 cache_ctx.write_prefill(k, v)
@@ -315,4 +325,9 @@ class LlamaForCausalLM(nn.Module):
                 cache_ctx=None) -> torch.Tensor:
         logits = self.lm_head(self.llama(input_ids, cache_ctx=cache_ctx))
         return logits if self.group is None else \
-            gather_last(logits, self.group)
+            gather_output(logits, self.group)
+
+
+#: the causal-LM loss over Llama's logits: GPT's (the JAX package's
+#: ``paddle_tpu/models/llama.py:376`` alias)
+LlamaPretrainingCriterion = GPTPretrainingCriterion

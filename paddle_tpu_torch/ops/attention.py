@@ -40,7 +40,11 @@ version reads the same Philox keep bits from it.  The plain versions apply
 the mask to the materialised probabilities (``P * M / (1-p)``, then
 ``@ V``), as ``_sdpa_reference`` does; ``lse`` stays that of the
 undropped probabilities, and ``delta = rowsum(dO * O)`` still equals
-``sum_j P_ij dP_ij``.
+``sum_j P_ij dP_ij``.  A rank holding a slice of the batch or of the heads
+draws at its coordinates in the whole tensors
+(:func:`..rng.shard_coordinates`): the draw carries ``[batch_start,
+head_start, heads_total]`` after ``[seed, offset]``, and the kernels and
+plain versions offset their Philox counters by them.
 """
 from __future__ import annotations
 
@@ -279,6 +283,27 @@ def supports(q_shape, k_shape) -> bool:
             and q_shape[-1] in kernels.HEAD_DIMS)
 
 
+def _sep_route(query, key, attn_mask, p: float):
+    """The sep group when ``fleet``'s topology has a sep degree above 1
+    (the sequence is cut into chunks, one a rank): the ring takes a call
+    with no mask, no dropout and ``Sq == Sk``, as in the JAX package
+    (``paddle_tpu/ops/pallas/__init__.py:70-83``).  Any other call under a
+    sep degree raises (a chunk alone is not the sequence); None without
+    one."""
+    from .ring_attention import sep_group
+
+    g = sep_group()
+    if g is None:
+        return None
+    if attn_mask is not None or p > 0.0 or query.shape != key.shape:
+        raise NotImplementedError(
+            "flash_attention under a sep degree > 1 runs the ring, which "
+            "takes no attn_mask, no dropout and equal q/k shapes (got "
+            f"mask={attn_mask is not None}, dropout_p={p}, q "
+            f"{tuple(query.shape)}, k {tuple(key.shape)})")
+    return g
+
+
 @amp_op("flash_attention")
 def flash_attention(query: torch.Tensor, key: torch.Tensor,
                     value: torch.Tensor, is_causal: bool = False,
@@ -303,7 +328,10 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
     mask, the plain :func:`_sdpa_reference` with autograd, on every
     device, and so may have ``Sk != Sq``; so does ``kernel="reference"``
     with ``Sk != Sq``.  Under :func:`..amp.auto_cast`
-    the call is the white-listed op ``"flash_attention"``."""
+    the call is the white-listed op ``"flash_attention"``.  Under a
+    ``fleet`` sep degree above 1 the tensors are this rank's sequence
+    chunk and the call runs the ring over the sep group
+    (:func:`.ring_attention.ring_flash_attention`)."""
     if kernel not in _KERNEL_CHOICES:
         raise ValueError(f"kernel must be one of {_KERNEL_CHOICES}, got "
                          f"{kernel!r}")
@@ -313,11 +341,12 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
     if p > 0.0:
         rng = (generator or rng_mod.default_generator(query.device)).draw()
         rng = rng_mod.with_coordinates(rng, query.shape[2])
-        if rng.numel() > 2 and _use_kernel(query, kernel):
-            raise NotImplementedError(
-                "flash_attention: K1-K3's dropout instances draw at the "
-                "rank's own coordinates; a sharded model's attention "
-                "dropout on the card is not ported (ROADMAP.md A.5 step 6)")
+    sep = _sep_route(query, key, attn_mask, p)
+    if sep is not None:
+        from .ring_attention import ring_flash_attention
+
+        return ring_flash_attention(query, key, value, is_causal, group=sep,
+                                    kernel=kernel)
     if attn_mask is not None or (kernel == "reference"
                                  and key.shape[1] != query.shape[1]):
         return _sdpa_reference(query, key, value, is_causal, False, p, rng,

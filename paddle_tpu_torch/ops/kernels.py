@@ -93,14 +93,14 @@ _LIBRARIES = {
     }),
     "flash_attention_fwd": ("flash_attention_fwd.cu", {
         "pt_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I]
-                        + [_L] * 12 + [_F, _P, _L, _F, _P],
+                        + [_L] * 12 + [_F, _P, _I, _L, _F, _P],
         "pt_flash_error_string": [_I],
     }),
     "flash_attention_bwd": ("flash_attention_bwd.cu", {
         "pt_flash_bwd_dkv": [_I, _I] + [_P] * 8 + [_I] * 4 + [_L] * 18
-                            + [_F, _P, _L, _F, _P],
+                            + [_F, _P, _I, _L, _F, _P],
         "pt_flash_bwd_dq": [_I, _I] + [_P] * 7 + [_I] * 4 + [_L] * 15
-                           + [_F, _P, _L, _F, _P],
+                           + [_F, _P, _I, _L, _F, _P],
         "pt_flash_bwd_error_string": [_I],
     }),
     "graph_control": ("graph_control.cu", {
@@ -556,21 +556,26 @@ def _instance(q: torch.Tensor, suffix: str) -> str:
 
 def _dropout_args(what: str, q: torch.Tensor, dropout_p: float,
                   rng: Optional[torch.Tensor]):
-    """The kernels' dropout arguments ``(rng pointer, threshold, 1/(1-p))``
-    and the launch's kernel name suffix: ``(None, 0, 0.0)`` and ``""`` for
-    ``dropout_p == 0``.  ``rng`` is the draw's ``int64[2]`` ``[seed,
-    offset]`` on q's device (``rng.Generator.draw``), read by the kernel."""
+    """The kernels' dropout arguments ``(rng pointer, coordinates?,
+    threshold, 1/(1-p))`` and the launch's kernel name suffix: ``(None, 0,
+    0, 0.0)`` and ``""`` for ``dropout_p == 0``.  ``rng`` is the draw on
+    q's device, read by the kernel: ``int64[2]`` ``[seed, offset]``
+    (``rng.Generator.draw``), or ``int64[5]`` with the rank's ``[batch_start,
+    head_start, heads_total]`` after them (``rng.with_coordinates``), which
+    place q's samples and heads in the whole tensors' draw."""
     if dropout_p == 0.0:
-        return (None, 0, 0.0), ""
+        return (None, 0, 0, 0.0), ""
     from ..rng import keep_threshold
     threshold = keep_threshold(dropout_p)
     _require(isinstance(rng, torch.Tensor) and rng.dtype == torch.int64
-             and tuple(rng.shape) == (2,) and rng.device == q.device
+             and tuple(rng.shape) in ((2,), (5,)) and rng.device == q.device
              and rng.is_contiguous(), what,
-             "dropout needs rng, a contiguous int64 [seed, offset] tensor "
+             "dropout needs rng, a contiguous int64 [seed, offset] (or "
+             f"[seed, offset, batch_start, head_start, heads_total]) tensor "
              f"on {q.device}")
     scale = 1.0 / (1.0 - dropout_p) if dropout_p < 1.0 else 0.0
-    return (rng.data_ptr(), threshold, scale), "_dropout"
+    return (rng.data_ptr(), int(rng.numel() == 5), threshold, scale), \
+        "_dropout"
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1311,3 +1311,68 @@ def test_vision_ops_phase_names_a_differing_op(monkeypatch):
                                       reps=1)
     assert sorted(res["failed"]) == ["nms", "roi_align"]
     assert "integer outputs differ" in res["failed"]["nms"]
+
+
+def test_elastic_train_phase_on_tiny_cpu(tmp_path, monkeypatch):
+    """``elastic_train``'s drive on the CPU (gloo, the tiny GPT): the
+    straggler stalls life 1 past the deadline, the launcher relaunches
+    the worker, life 2 resumes from step 4; the 13 losses are bitwise the
+    same step built in this process (one thread, as the worker runs)."""
+    from paddle_tpu_torch import build_train_step
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    res = chip_smoke.drive_elastic_train("tiny", "cpu", str(tmp_path),
+                                         batch=8, seq=16, stall=3.0,
+                                         deadline=1.0, timeout=240)
+    assert res["rc"] == 0 and res["lives"] == 2, res
+    assert res["resume_step"] == 4 and res["steps_redone"] == 2
+    assert res["redone_life1"] == res["redone_life2"]
+    assert res["lost_samples"] == 0
+    assert res["detect_s"] >= 1.0 and res["load_s"] > 0
+    assert res["program_cache"]["misses"] == 1
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ts = build_train_step("tiny", batch=8, seq=16, device="cpu")
+        losses = [float(ts.train_step(ts.x, ts.y))
+                  for _ in range(chip_smoke.ELASTIC_STEPS)]
+    finally:
+        torch.set_num_threads(threads)
+    assert res["losses"] == losses
+
+
+def test_ring_attention_phase_on_tiny_cpu():
+    """``ring_attention``'s drive on the CPU in f32 (K1-K3's plain versions
+    a tick): the ring against the whole-sequence call and the plain ring,
+    and no kernel launched."""
+    res = chip_smoke.drive_ring_attention("cpu", shape=(1, 64, 2, 16),
+                                          chunks=4, dtype=torch.float32)
+    assert res["ticks"] == 10 and res["launches"] == {}
+    for key in ("out_err_whole", "out_err_plain"):
+        assert res[key] <= 1e-5, res
+    for key in ("grad_rel_err_whole", "grad_rel_err_plain"):
+        assert res[key] <= 1e-5, res
+
+
+def test_auto_parallel_train_phase_on_tiny_cpu():
+    """``auto_parallel_train``'s drive on the CPU: the Engine's step on a
+    process mesh of one gives the compiled bench step's losses bitwise.
+    The mesh's world of one and the global mesh it sets are taken down
+    after, so later tests in this process find none."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import build_train_step
+    from paddle_tpu_torch.distributed import mesh
+
+    had_world, saved = dist.is_initialized(), mesh.get_global_mesh()
+    try:
+        res = chip_smoke.drive_auto_parallel_train("tiny", 2, 16, "cpu",
+                                                   steps=4)
+    finally:
+        mesh.set_global_mesh(saved)
+        if not had_world and dist.is_initialized():
+            dist.destroy_process_group()
+    ts = build_train_step("tiny", batch=2, seq=16, device="cpu")
+    assert res["losses"] == [float(ts.train_step(ts.x, ts.y))
+                             for _ in range(4)]
+    assert res["program_cache"]["misses"] == 1

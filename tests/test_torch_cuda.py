@@ -3026,12 +3026,54 @@ def test_all_reduce_captured_in_a_graph(cuda_device):
 
 @pytest.mark.cuda
 def test_tensor_parallel_dropout_refuses_the_card(cuda_device):
-    """K1-K3's dropout instances draw at the rank's own coordinates: a
-    sharded draw on the card raises rather than drawing other bits."""
+    """K1-K3's dropout instances draw at the rank's own coordinates (no
+    longer refused): under ``shard_coordinates`` a head shard's attention
+    on the card equals the plain version at the same coordinates, and its
+    gradients reach the inputs."""
     from paddle_tpu_torch import rng
     from paddle_tpu_torch.ops.attention import flash_attention
 
-    q = torch.randn(1, 64, 2, 64, device="cuda", dtype=torch.bfloat16)
-    with rng.shard_coordinates(head_start=2, heads_total=4):
-        with pytest.raises(NotImplementedError, match="A.5"):
-            flash_attention(q, q, q, is_causal=True, dropout_p=0.1)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(2, 64, 2, 64, device="cuda", generator=gen)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    rng.default_generator("cuda").manual_seed(11)
+    before = kernels.KERNELS["flash_fwd_dropout"].launches
+    with rng.shard_coordinates(batch_start=2, head_start=2, heads_total=4):
+        out = flash_attention(q, q, q, is_causal=True, dropout_p=0.1)
+    assert kernels.KERNELS["flash_fwd_dropout"].launches == before + 1
+    rng.default_generator("cuda").manual_seed(11)
+    with rng.shard_coordinates(batch_start=2, head_start=2, heads_total=4):
+        ref = flash_attention(q, q, q, is_causal=True, dropout_p=0.1,
+                              kernel="reference")
+    assert (out.float() - ref.float()).abs().max().item() <= 3e-2 / 0.9
+    out.float().sum().backward()
+    assert torch.isfinite(q.grad.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["flash_fwd", "flash_bwd_dkv",
+                                   "flash_bwd_dq"])
+def test_dropout_at_coordinates_matches_the_whole_draw(cuda_device, which):
+    """Each quarter (2 batch x 2 head halves) of a problem, drawn at its
+    coordinates, equals the slice of the whole problem's kernel output,
+    and its plain version within the kernels' tolerances."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    res = chip_smoke.check_dropout_coords(gen, which, torch.bfloat16, B=4,
+                                          S=256, H=4, D=64, p=0.25)
+    assert res["slice_bitwise"], res
+    assert res["err"] <= res["tol"], res
+
+
+@pytest.mark.cuda
+def test_small_ring_on_the_card_matches_the_whole_call(cuda_device):
+    """The in-process ring (4 chunks of 128, bf16, causal) on K1-K3: its
+    output and gradients against one K1-K3 call over the whole 512 and
+    against the plain ring, each kernel launched once per visible tick."""
+    res = chip_smoke.drive_ring_attention("cuda", shape=(2, 512, 4, 64),
+                                          chunks=4)
+    assert res["launches"] == {"flash_fwd": 10, "flash_bwd_dkv": 10,
+                               "flash_bwd_dq": 10}
+    for key in ("out_err_whole", "out_err_plain"):
+        assert res[key] <= chip_smoke.TOLERANCE[torch.bfloat16], res
+    for key in ("grad_rel_err_whole", "grad_rel_err_plain"):
+        assert res[key] <= chip_smoke.BWD_TOLERANCE[torch.bfloat16], res

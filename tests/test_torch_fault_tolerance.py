@@ -327,6 +327,30 @@ class TestInjectionUnit:
         assert hits == [signal.SIGUSR1]
 
     def test_mesh_watchdog_is_refused(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="A.5 step 6"):
-            ResilientLoop(str(tmp_path), state_fn=dict,
-                          restore_fn=lambda s: None, mesh_watchdog=object())
+        """``mesh_watchdog=`` is taken (no longer refused): the loop
+        starts the watchdog, feeds it each step boundary, pauses it over
+        the commits, stops it at the end, and reports its counters under
+        ``elastic_stats()["watchdog"]``."""
+        from paddle_tpu_torch.distributed.fault_tolerance import MeshWatchdog
+        from paddle_tpu_torch.distributed.fleet.elastic import (
+            InMemoryCoordinator,
+        )
+
+        coord = InMemoryCoordinator()
+        wd = MeshWatchdog(coord, "job", "hostA", heartbeat_interval=30.0,
+                          hard_exit=False)
+        seen = []
+        loop = ResilientLoop(str(tmp_path), state_fn=dict,
+                             restore_fn=lambda s: None, save_every=2,
+                             verbose=False, mesh_watchdog=wd)
+
+        def step(i):
+            seen.append((i, set(wd.peers())))
+            time.sleep(0.01)
+
+        assert loop.run(step, 4) == 4
+        assert seen == [(i, {"hostA"}) for i in range(4)]
+        stats = loop.elastic_stats()["watchdog"]
+        assert stats["host"] == "hostA" and stats["heartbeats"] >= 1
+        assert stats["step_time_ema_ms"] > 0
+        assert wd.peers() == {}            # stopped: deregistered

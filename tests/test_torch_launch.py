@@ -1,13 +1,18 @@
 """``python -m paddle_tpu_torch.distributed.launch``: data-parallel
-training in two processes equals one process, and the failure watcher
-restarts a failed set and gives up after ``--max_restarts``.
+training in two processes equals one process, the failure watcher
+restarts a failed set and gives up after ``--max_restarts``, and the
+elastic mode (``--elastic_coordinator``) runs its rounds.
 
-Spec: the non-elastic cases of ``tests/test_launch.py`` (the elastic
-coordinator mode is not ported and raises: ROADMAP.md A.5 step 6).  The
-worker, ``tests/assets/torch_launch_dp_train.py``, imports the port only
-and trains on the CPU over gloo.  Two processes' losses (the mean over
-the ranks' slices) and final parameters are the one-process run's
-within ``rtol=1e-5, atol=1e-7`` (the JAX spec's tolerance).
+Spec: ``tests/test_launch.py`` and the elastic cases of
+``tests/test_collective_multiproc.py``.  The workers,
+``tests/assets/torch_launch_dp_train.py`` and
+``tests/assets/torch_elastic_resume_train.py``, import the port only and
+train on the CPU over gloo.  Two processes' losses (the mean over the
+ranks' slices) and final parameters are the one-process run's within
+``rtol=1e-5, atol=1e-7`` (the JAX spec's tolerance); a killed and
+resumed run's losses are the uninterrupted run's within ``rtol=1e-6,
+atol=1e-8`` (the spec's).  Like its spec, the two-worker kill drill under
+the coordinator is marked ``slow``.
 """
 import json
 import os
@@ -19,6 +24,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "tests", "assets", "torch_launch_dp_train.py")
+RESUME = os.path.join(REPO, "tests", "assets",
+                      "torch_elastic_resume_train.py")
 LAUNCH = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch"]
 
 
@@ -75,10 +82,23 @@ class TestLaunchCLI:
         assert "nproc_per_node" in r.stdout
 
     def test_elastic_mode_is_not_ported(self, tmp_path):
-        from paddle_tpu_torch.distributed.launch import launch
+        """The elastic mode (no longer refused): one round of one node at
+        ``--np 1`` trains the DP worker to the end and exits 0, and the
+        node's membership is gone from the coordinator after."""
+        from paddle_tpu_torch.distributed.fleet.elastic import (
+            FileCoordinator,
+        )
 
-        with pytest.raises(NotImplementedError, match="A.5"):
-            launch(["--elastic_coordinator", str(tmp_path), SCRIPT])
+        coord = str(tmp_path / "coord")
+        out = str(tmp_path / "out.json")
+        r = _run(LAUNCH + ["--elastic_coordinator", coord, "--np", "1",
+                           "--job_id", "solo", SCRIPT],
+                 {"PADDLE_TEST_OUT": out})
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert len(json.load(open(out))["losses"]) == 10
+        fc = FileCoordinator(coord)
+        assert fc.get_prefix("/paddle_tpu/elastic/solo/nodes/") == []
+        assert fc.get("/paddle_tpu/elastic/solo/completed")[0] == b"1"
 
     def test_worker_contract(self, monkeypatch):
         """Each worker's environment: its rank, local rank and card, the
@@ -103,6 +123,94 @@ class TestLaunchCLI:
 
         penv = ParallelEnv()
         assert (penv.rank, penv.world_size, penv.launched) == (1, 2, True)
+
+
+class TestElasticLaunch:
+    """``--elastic_coordinator`` drives the launcher through the
+    ``ElasticManager`` over a ``FileCoordinator`` directory (the JAX
+    spec's ``TestElasticLaunch`` and ``TestElasticResume``)."""
+
+    def test_single_node_elastic_completes(self, tmp_path):
+        script = tmp_path / "train.py"
+        script.write_text(
+            "import os\n"
+            "print('RANK', os.environ.get('PADDLE_TRAINER_ID'), 'WORLD',\n"
+            "      os.environ.get('PADDLE_TRAINERS_NUM'), 'LOCAL',\n"
+            "      os.environ.get('PADDLE_LOCAL_RANK'), flush=True)\n")
+        r = _run(LAUNCH + ["--nproc_per_node", "2", "--elastic_coordinator",
+                           str(tmp_path / "coord"), "--np", "1",
+                           str(script)], {})
+        assert r.returncode == 0, (r.stdout[-1500:], r.stderr[-1500:])
+        lines = sorted(ln for ln in r.stdout.splitlines()
+                       if ln.startswith("RANK"))
+        assert lines == ["RANK 0 WORLD 2 LOCAL 0", "RANK 1 WORLD 2 LOCAL 1"]
+
+    def test_two_launchers_rendezvous_via_coordinator(self, tmp_path):
+        """Two launchers (two nodes) find each other through the
+        coordinator, agree on the rank-0-derived rendezvous and on the
+        ranks, and both complete."""
+        script = tmp_path / "train.py"
+        script.write_text(
+            "import os\n"
+            "print('OK', os.environ['PADDLE_TRAINER_ID'],\n"
+            "      os.environ['PADDLE_TRAINERS_NUM'],\n"
+            "      os.environ['PADDLE_MASTER'], flush=True)\n")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("PADDLE_", "FLAGS_"))}
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        coord = str(tmp_path / "coord")
+        procs = [subprocess.Popen(
+            LAUNCH + ["--nproc_per_node", "1", "--elastic_coordinator",
+                      coord, "--np", "2", "--host", "127.0.0.1",
+                      "--start_port", str(port), str(script)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, cwd=REPO) for port in (6270, 6280)]
+        try:
+            outs = [p.communicate(timeout=120) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for p, (out, err) in zip(procs, outs):
+            assert p.returncode == 0, (out[-800:], err[-1500:])
+        oks = [ln.split() for out, _ in outs for ln in out.splitlines()
+               if ln.startswith("OK")]
+        assert sorted(o[1] for o in oks) == ["0", "1"]
+        assert {o[2] for o in oks} == {"2"}
+        assert len({o[3] for o in oks}) == 1, oks     # one rendezvous
+
+    def _resume(self, tmp_path, nproc, tag, kill_step=None):
+        env = {"PADDLE_TEST_CKPT_DIR": str(tmp_path / f"ck_{tag}"),
+               "PADDLE_TEST_OUT": str(tmp_path / f"{tag}.json")}
+        if kill_step is not None:
+            env.update({"PADDLE_TEST_KILL_STEP": str(kill_step),
+                        "PADDLE_TEST_KILL_MARKER": str(tmp_path / "died")})
+        r = _run(LAUNCH + ["--nproc_per_node", str(nproc), "--max_restarts",
+                           "2", "--elastic_coordinator",
+                           str(tmp_path / f"coord_{tag}"), "--np", "1",
+                           RESUME], env, timeout=300)
+        assert r.returncode == 0, (r.stdout[-1500:], r.stderr[-2500:])
+        return json.load(open(env["PADDLE_TEST_OUT"]))
+
+    def test_kill_resume_elastic_coordinator(self, tmp_path):
+        """One worker dies hard mid-run under the coordinator: the round
+        restarts it (a worker fault within ``--max_restarts``), it resumes
+        from the checkpoint, and the losses are the uninterrupted run's."""
+        ref = self._resume(tmp_path, 1, "ref")
+        got = self._resume(tmp_path, 1, "kill", kill_step=5)
+        assert os.path.exists(str(tmp_path / "died"))
+        assert len(got) == len(ref) == 10
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-8)
+
+    @pytest.mark.slow
+    def test_kill_resume_two_proc_elastic_coordinator(self, tmp_path):
+        """The same with two workers: rank 1 dies, the membership
+        regenerates, training resumes with loss continuity against an
+        uninterrupted two-worker run."""
+        ref = self._resume(tmp_path, 2, "ref")
+        got = self._resume(tmp_path, 2, "kill", kill_step=4)
+        assert os.path.exists(str(tmp_path / "died"))
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-8)
 
 
 def test_hybrid_train_worker_on_cpu(tmp_path):

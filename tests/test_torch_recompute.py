@@ -149,16 +149,10 @@ def test_fleet_is_the_identity_on_one_card():
                                     "dp_degree"])
 def test_fleet_refuses_hybrid_degrees(degree):
     """A degree above 1 needs a world of as many ranks (the gloo worlds of
-    tests/test_torch_fleet_hybrid.py run them): in one process without
-    one, ``fleet.init`` refuses the strategy.  ``sep_degree > 1`` is
-    still not ported."""
+    tests/test_torch_fleet_hybrid.py and tests/test_torch_ring_attention.py
+    run them): in one process without one, ``fleet.init`` refuses the
+    strategy, ``sep_degree`` like the others."""
     s = DistributedStrategy()
     s.hybrid_configs = {degree: 2}
-    if degree != "sep_degree":
-        with pytest.raises(ValueError, match="world"):
-            fleet.init(strategy=s)
-        return
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(ValueError, match="world"):
         fleet.init(strategy=s)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        fleet.distributed_optimizer(object(), s)

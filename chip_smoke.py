@@ -6015,6 +6015,337 @@ def phase_auto_parallel_train(train: dict) -> dict:
     return res
 
 
+#: the MoE transformer of ``moe_train``: GPT-2 345M's widths at full depth,
+#: the FFN of every other layer an ``MoELayer`` of 8 experts (GShard's
+#: layout)
+MOE_GPT = {"vocab": 50304, "positions": 1024, "hidden": 1024, "heads": 16,
+           "ffn": 4096, "layers": 24, "experts": 8}
+#: its step: batch x seq, compiled steps, LookAhead(AdamW) and the l_aux
+#: weight; the eager steps its first losses are held to; NaN-check turns
+MOE_TRAIN = {"batch": 8, "seq": 1024, "steps": 12, "lr": 1e-4, "k": 5,
+             "alpha": 0.5, "aux": 0.01, "eager_steps": 3, "turns": 3,
+             "turn_steps": 2}
+#: the graph's first losses against the eager step's, relative (bf16
+#: parameters: one step's rounding differs if any sum runs in another order)
+MOE_LOSS_TOLERANCE = 1e-3
+
+
+def moe_gpt_params(cfg: dict) -> int:
+    """Parameters of :func:`moe_gpt` reckoned from its widths."""
+    h, f, e = cfg["hidden"], cfg["ffn"], cfg["experts"]
+    ffn = h * f + f + f * h + h
+    block = 2 * 2 * h + h * 3 * h + 3 * h + h * h + h
+    n_moe = cfg["layers"] // 2
+    return ((cfg["vocab"] + cfg["positions"]) * h + 2 * h
+            + cfg["layers"] * block + (cfg["layers"] - n_moe) * ffn
+            + n_moe * (e * ffn + h * e + e))
+
+
+def moe_gpt(cfg: dict):
+    """A causal LM of ``cfg``'s widths built from the port's public API, as
+    a Paddle user builds one: pre-LN blocks, attention through
+    ``nn.functional.scaled_dot_product_attention(is_causal=True)`` (K1
+    forward, K2/K3 backward), the FFN of every odd layer an
+    ``incubate.distributed.models.moe.MoELayer`` of ``cfg["experts"]``
+    experts behind a GShard top-2 gate; each FFN is ``Linear``, a user
+    ``PyLayer`` GeLU with a hand-written backward, ``Linear``.  The head
+    is tied to the token embedding (both embeddings drawn N(0, 0.02), as
+    GPT-2's), its loss the fused LM cross-entropy, which
+    ``forward(ids, labels)`` returns; ``aux_loss()`` sums the layers'
+    ``l_aux`` in f32, for the step to add outside ``auto_cast`` (where
+    O2 would add in bf16).  Built on the current device."""
+    from paddle_tpu_torch import autograd, nn
+    from paddle_tpu_torch.incubate import fused_linear_cross_entropy
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+
+    F = nn.functional
+    H, heads = cfg["hidden"], cfg["heads"]
+
+    class GeLU(autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return F.gelu(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, = ctx.saved_tensor()
+            xf = x.float()
+            cdf = 0.5 * (1.0 + torch.erf(xf * 0.7071067811865476))
+            pdf = torch.exp(-0.5 * xf * xf) * 0.3989422804014327
+            return (g.float() * (cdf + xf * pdf)).to(g.dtype)
+
+    class Expert(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = nn.Linear(H, cfg["ffn"])
+            self.fc2 = nn.Linear(cfg["ffn"], H)
+
+        def forward(self, x):
+            return self.fc2(GeLU.apply(self.fc1(x)))
+
+    class Block(nn.Layer):
+        def __init__(self, moe: bool):
+            super().__init__()
+            self.ln1 = nn.LayerNorm(H)
+            self.qkv = nn.Linear(H, 3 * H)
+            self.proj = nn.Linear(H, H)
+            self.ln2 = nn.LayerNorm(H)
+            self.ffn = MoELayer(H, [Expert() for _ in range(cfg["experts"])],
+                                gate={"type": "gshard", "top_k": 2}) \
+                if moe else Expert()
+
+        def forward(self, x):
+            b, s = x.shape[0], x.shape[1]
+            q, k, v = self.qkv(self.ln1(x)).view(
+                b, s, heads, 3 * (H // heads)).split(H // heads, dim=-1)
+            a = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            x = x + self.proj(a.reshape(b, s, H))
+            return x + self.ffn(self.ln2(x).reshape(b * s, H)).reshape(
+                b, s, H)
+
+    class MoEGPT(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            init = nn.initializer.Normal(std=0.02)       # GPT-2's
+            self.emb = nn.Embedding(cfg["vocab"], H, weight_attr=init)
+            self.pos = nn.Embedding(cfg["positions"], H, weight_attr=init)
+            self.blocks = nn.LayerList([Block(i % 2 == 1)
+                                        for i in range(cfg["layers"])])
+            self.ln_f = nn.LayerNorm(H)
+
+        def moe_layers(self) -> list:
+            return [b.ffn for b in self.blocks if isinstance(b.ffn, MoELayer)]
+
+        def aux_loss(self):
+            """The layers' ``l_aux``, summed in f32."""
+            return torch.stack([m.l_aux.float()
+                                for m in self.moe_layers()]).sum()
+
+        def forward(self, ids, labels):
+            x = self.emb(ids) + self.pos.weight[:ids.shape[1]]
+            for blk in self.blocks:
+                x = blk(x)
+            return fused_linear_cross_entropy(self.ln_f(x), self.emb.weight,
+                                              labels)
+
+    return MoEGPT()
+
+
+def moe_state(model, opt) -> list:
+    """Every tensor a step of ``model`` under ``opt`` (a LookAhead) writes:
+    parameters, buffers, the inner optimizer's and LookAhead's state, the
+    dropout generators' states."""
+    from paddle_tpu_torch import rng
+
+    ts = [p.data for p in model.parameters()] + list(model.buffers())
+    ts += _state_tensors([dict(s) for s in
+                          opt.inner_optimizer.state.values()])
+    ts += _state_tensors([dict(s) for s in opt.state.values()])
+    ts += [opt._k_step] + [g._state for g in rng._generators.values()]
+    return ts
+
+
+def drive_moe_train(cfg: dict, shape: dict, device: str) -> dict:
+    """``moe_train``'s drive (:func:`phase_moe_train`; tiny ``cfg`` and
+    ``shape`` rehearse it on the CPU, where ``to_static`` runs the step
+    eagerly and the NaN check raises in the step itself)."""
+    from paddle_tpu_torch import amp, device as pdev, flags, incubate, jit, \
+        optimizer, rng
+    from paddle_tpu_torch.ops import kernels
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    rng.seed(0)
+    t0 = time.perf_counter()
+    with pdev.device_guard(device):
+        model = moe_gpt(cfg)
+    amp.decorate(model, level="O2")
+    build_s = time.perf_counter() - t0
+    moes = model.moe_layers()
+    rs = np.random.RandomState(0)
+    B, S = shape["batch"], shape["seq"]
+    x = torch.from_numpy(rs.randint(0, cfg["vocab"], (B, S))).to(device)
+    y = torch.from_numpy(rs.randint(0, cfg["vocab"], (B, S))).to(device)
+    init = [t.detach().clone() for t in model.state_dict().values()]
+
+    def make_opt():
+        return incubate.LookAhead(optimizer.AdamW(model.parameters(),
+                                                  lr=shape["lr"]),
+                                  alpha=shape["alpha"], k=shape["k"])
+
+    def body(opt):
+        def moe_step(ids, labels):
+            with amp.auto_cast(dtype="bfloat16", level="O2"):
+                loss = model(ids, labels)
+            loss = loss + shape["aux"] * model.aux_loss()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return moe_step
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # the eager reference: the first steps without a graph, then back to
+    # the initial weights and generator state
+    step = body(make_opt())
+    eager = [float(step(x, y)) for _ in range(shape["eager_steps"])]
+    with torch.no_grad():
+        for t, v in zip(model.state_dict().values(), init):
+            t.copy_(v)
+    # a gate's l_aux keeps its last graph alive, and with it the
+    # parameters' gradient-accumulation nodes of the eager steps' stream:
+    # the compiled steps run on another, so they start without it
+    for m in moes:
+        m.gate.set_loss(None)
+    del step, init
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    rng.seed(0)
+
+    opt = make_opt()
+    step = jit.to_static(body(opt))
+    kernels.reset_launches()
+    losses, step_ms, synced, dropped = [], [], [], []
+    for i in range(shape["steps"]):
+        sync()
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        gap = torch.stack([
+            (opt.state[p]["slow"] - opt.inner_optimizer._param32(
+                p, opt.inner_optimizer.state[p])).abs().max()
+            for p in model.parameters()]).max()
+        synced.append(float(gap) == 0.0)
+        dropped.append(torch.stack([m.dropped_tokens for m in moes])
+                       .tolist())
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    cache = {"programs": len(step.program_cache), "misses": step.misses,
+             "hits": step.hits, "captures": step.captures}
+    timed = step_ms[2:]
+    res = {"params": sum(p.numel() for p in model.parameters()),
+           "model_build_s": round(build_s, 3), "steps": shape["steps"],
+           "losses": losses, "eager_losses": eager,
+           "step_ms_each": [round(v, 3) for v in step_ms],
+           "step_ms": _quartiles(timed),
+           "tokens_per_s": B * S * 1e3 / float(np.median(timed)),
+           "synced_after_steps": [i + 1 for i, s in enumerate(synced) if s],
+           "dropped_per_layer_and_step": dropped,
+           "capacity": moes[0]._capacity(B * S), "launches": launches,
+           "program_cache": cache, "layers": cfg["layers"]}
+    if cuda:
+        res["peak_gb"] = pdev.cuda.max_memory_allocated() / 2 ** 30
+        res["torch_peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # FLAGS_check_nan_inf on the same model: a freshly captured program,
+    # timed in turns against the unscanned one
+    turns = {"off": [], "on": []}
+    for _ in range(shape["turns"]):
+        for flag in ("off", "on"):
+            flags.set_flags({"FLAGS_check_nan_inf": flag == "on"})
+            for _ in range(shape["turn_steps"]):
+                sync()
+                t0 = time.perf_counter()
+                float(step(x, y))
+                sync()
+                turns[flag].append((time.perf_counter() - t0) * 1e3)
+    flags.set_flags({"FLAGS_check_nan_inf": True})
+    # the first two calls of the scanned program build and capture it
+    res["nan_check_ms"] = {k: _quartiles(v[2:] if k == "on" else v)
+                           for k, v in turns.items()}
+    res["nan_check_programs"] = len(step.program_cache)
+    saved = [t.detach().to("cpu", copy=True)
+             for t in moe_state(model, opt)]
+    row = model.emb.weight[int(x[0, 0])].detach().clone()
+    with torch.no_grad():
+        model.emb.weight[int(x[0, 0])] = float("inf")
+    try:
+        step(x, y)
+        res["nan_raised"] = None
+    except FloatingPointError as e:
+        res["nan_raised"] = str(e)
+    with torch.no_grad():
+        model.emb.weight[int(x[0, 0])] = row
+        for t, v in zip(moe_state(model, opt), saved):
+            t.copy_(v)
+    del saved
+    res["nan_clean_loss"] = float(step(x, y))
+    flags.set_flags({"FLAGS_check_nan_inf": False})
+    return res
+
+
+def phase_moe_train() -> dict:
+    """A user's MoE training step on the card (:func:`moe_gpt` at full
+    width and depth, ~1.06 B parameters, bf16 O2): ``LookAhead(AdamW)``,
+    one CUDA graph a step through ``jit.to_static``, 12 steps on one
+    seeded batch.  Holds: the parameter count; the graph's first losses
+    against the eager step's; the loss falling; K1-K3 launched once a
+    layer a step; one capture; the slow weights equal to the fast ones
+    after steps 5 and 10 and no other; ``paddle.device.cuda``'s peak equal
+    to torch's; then ``FLAGS_check_nan_inf``: the scanned program's step
+    time in turns with the plain one's, a replay after an embedding row is
+    set to inf raising ``FloatingPointError`` naming an op, and a replay
+    after the state is restored passing."""
+    t0 = time.perf_counter()
+    res = drive_moe_train(MOE_GPT, MOE_TRAIN, "cuda")
+    res["phase_seconds"] = time.perf_counter() - t0
+    want_params = moe_gpt_params(MOE_GPT)
+    rel = [abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                              res["eager_losses"])]
+    res["eager_bitwise"] = res["losses"][:len(rel)] == res["eager_losses"]
+    res["eager_max_rel_err"] = max(rel)
+    emit("moe_train", model="moe-gpt (GPT-2 345M widths, 24 layers, 12 MoE "
+         "layers of 8 experts, GShard top-2)",
+         dtype="bfloat16 (AMP O2, f32 masters)",
+         optimizer="LookAhead(AdamW(lr 1e-4), k=5, alpha=0.5)",
+         batch=MOE_TRAIN["batch"], seq=MOE_TRAIN["seq"],
+         want_params=want_params, **res)
+    if res["params"] != want_params:
+        raise AssertionError(f"moe_train: {res['params']} parameters, want "
+                             f"{want_params}")
+    if not res["eager_bitwise"] and not max(rel) <= MOE_LOSS_TOLERANCE:
+        raise AssertionError(f"moe_train: the graph's first losses "
+                             f"{res['losses'][:len(rel)]} differ from the "
+                             f"eager step's {res['eager_losses']}")
+    if not (all(np.isfinite(res["losses"]))
+            and res["losses"][-1] < res["losses"][0]):
+        raise AssertionError(f"moe_train: losses {res['losses']}")
+    if res["program_cache"] != {"programs": 1, "misses": 1,
+                                "hits": res["steps"] - 1, "captures": 1}:
+        raise AssertionError(f"moe_train: program cache "
+                             f"{res['program_cache']}")
+    want = res["layers"] * res["steps"]
+    for name in TRAIN_KERNELS:
+        if res["launches"].get(name) != want:
+            raise AssertionError(f"moe_train: {name} launched "
+                                 f"{res['launches'].get(name)} times, want "
+                                 f"{want}")
+    k = MOE_TRAIN["k"]
+    if res["synced_after_steps"] != list(range(k, res["steps"] + 1, k)):
+        raise AssertionError(f"moe_train: slow == fast after steps "
+                             f"{res['synced_after_steps']}")
+    if res["peak_gb"] != res["torch_peak_gb"]:
+        raise AssertionError(f"moe_train: peaks {res['peak_gb']} / "
+                             f"{res['torch_peak_gb']}")
+    if res["nan_check_programs"] != 2:
+        raise AssertionError("moe_train: the NaN check did not capture a "
+                             "program of its own")
+    if not (res["nan_raised"] or "").startswith("Operator "):
+        raise AssertionError(f"moe_train: an inf embedding row raised "
+                             f"{res['nan_raised']!r}")
+    if not np.isfinite(res["nan_clean_loss"]):
+        raise AssertionError("moe_train: the restored step is not finite")
+    return res
+
+
 def timed_steps(ts, n_steps: int) -> float:
     """Host ms a step over ``n_steps`` steps of a warmed ``TrainStep``."""
     torch.cuda.synchronize()
@@ -8710,6 +9041,9 @@ def main() -> int:
     auto = phase_auto_parallel_train(train)
     gc.collect()
     torch.cuda.empty_cache()
+    moe = phase_moe_train()
+    gc.collect()
+    torch.cuda.empty_cache()
     train_o1 = phase_train_o1()
     gc.collect()
     torch.cuda.empty_cache()
@@ -8772,6 +9106,7 @@ def main() -> int:
                     *elastic["launches"].values()),
                 "ring_attention": ring["launches"],
                 "auto_parallel_train": auto["launches"],
+                "moe_train": moe["launches"],
                 "train_o1": train_o1,
                 "train_fp16_scaler": fp16,
                 "train_recipe": recipe,

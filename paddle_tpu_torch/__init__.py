@@ -57,22 +57,26 @@ from .ops import *  # noqa: F401,F403 — the paddle.* op surface
 from .ops import linalg
 from .tensor import *  # noqa: F401,F403 — dtypes, to_tensor, helpers
 from . import (  # noqa: E402
-    amp, device, distributed, framework, hapi, incubate, inference, io, jit,
-    metric, models, nn, obs, ops, optimizer, profiler, regularizer, rng,
-    serving, static, sysconfig, text, version, vision,
+    amp, autograd, device, distributed, flags, framework, hapi, incubate,
+    inference, io, jit, metric, models, nn, obs, ops, optimizer, profiler,
+    regularizer, rng, serving, static, sysconfig, text, utils, version,
+    vision,
 )
 from .batch import batch  # noqa: E402
 from .device import device_guard, get_device, set_device  # noqa: E402
+from .flags import define_flag, get_flags, set_flags  # noqa: E402
 from .hapi import Model, callbacks, flops, summary  # noqa: E402
 from .inference import create_engine  # noqa: E402
 from .rng import get_rng_state, seed, set_rng_state  # noqa: E402
 from .training import build_train_step  # noqa: E402
 
-__all__ = ["Model", "amp", "batch", "build_train_step", "callbacks",
-           "create_engine", "device", "device_guard", "distributed", "flops",
-           "framework", "get_device", "get_rng_state", "hapi", "incubate",
+__all__ = ["Model", "amp", "autograd", "batch", "build_train_step",
+           "callbacks", "create_engine", "define_flag", "device",
+           "device_guard", "distributed", "flags", "flops", "framework",
+           "get_device", "get_flags", "get_rng_state", "hapi", "incubate",
            "inference", "io", "jit", "linalg", "metric", "models", "nn",
            "obs", "ops", "optimizer", "profiler", "regularizer", "rng",
-           "seed", "serving", "set_device", "set_rng_state", "static",
-           "summary", "sysconfig", "text", "version", "vision"] \
+           "seed", "serving", "set_device", "set_flags", "set_rng_state",
+           "static", "summary", "sysconfig", "text", "utils", "version",
+           "vision"] \
     + ops.OPS + _tensor.__all__

@@ -51,6 +51,8 @@ from torch import nn
 from torch.nn import functional as F
 from torch.overrides import TorchFunctionMode
 
+from .. import flags
+
 __all__ = ["auto_cast", "amp_guard", "decorate", "amp_op", "amp_state",
            "WHITE_LIST", "BLACK_LIST", "LOW_DTYPES", "TORCH_OPS"]
 
@@ -215,11 +217,17 @@ def amp_op(name: str):
     name and its body runs with the policy suspended."""
     def deco(fn):
         @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
+        def run(*args, **kwargs):
             s = amp_state()
             if s is None or not s.enable:
                 return fn(*args, **kwargs)
             return _dispatch(name, fn, args, kwargs)
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if flags._mode is not None:     # FLAGS_check_nan_inf: one op
+                return flags.as_one_op(name, run, *args, **kwargs)
+            return run(*args, **kwargs)
         return wrapper
     return deco
 

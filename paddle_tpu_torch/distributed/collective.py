@@ -4,7 +4,11 @@ Port of ``paddle_tpu/distributed/collective.py``: ``ReduceOp`` (with
 ``PROD`` and ``AVG``), ``Group``, ``new_group``, ``get_group``,
 ``all_reduce``, ``all_reduce_chunked``, ``all_gather``, ``broadcast``,
 ``reduce``, ``scatter``, ``alltoall``, ``reduce_scatter``, ``barrier``,
-``send``, ``recv`` and ``ppermute``.
+``send``, ``recv`` and ``ppermute``, and two differentiable forms for
+layers that communicate inside a model's forward:
+:func:`all_reduce_autograd` (a sum whose backward all-reduces the
+gradient) and :func:`alltoall_autograd` (whose backward is the transposed
+exchange, another all-to-all).
 
 The data model is Paddle's own, not the JAX package's: every rank runs
 this code on its own tensor (one process per rank, NCCL on the card, gloo
@@ -34,7 +38,7 @@ from . import mesh as mesh_mod
 __all__ = ["ReduceOp", "Group", "new_group", "get_group", "all_reduce",
            "all_reduce_chunked", "all_gather", "broadcast", "reduce",
            "scatter", "alltoall", "reduce_scatter", "barrier", "send",
-           "recv", "ppermute"]
+           "recv", "ppermute", "all_reduce_autograd", "alltoall_autograd"]
 
 
 class ReduceOp:
@@ -350,3 +354,38 @@ def ppermute(tensor: torch.Tensor, perm: Sequence, group=None
     g = _group(group)
     perm = [(int(s), int(d)) for s, d in perm]
     return _PPermute.apply(tensor, perm, g)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, g):
+        ctx.g = g
+        return all_reduce(t.clone(), group=g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(), group=ctx.g), None
+
+
+def all_reduce_autograd(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """The group's sum of ``tensor``, a new tensor, differentiable: each
+    rank's loss adds to one total, so a rank's gradient of its input is the
+    group's sum of the gradients of the output."""
+    return _AllReduceSum.apply(tensor, _group(group))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, g):
+        ctx.g = g
+        return alltoall(t, group=g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return alltoall(grad.contiguous(), group=ctx.g), None
+
+
+def alltoall_autograd(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """:func:`alltoall` of a row tensor (row ``j`` to rank ``j``),
+    differentiable: the gradient goes back by the same exchange."""
+    return _AllToAll.apply(tensor, _group(group))

@@ -15,8 +15,11 @@ they become ``torch.cond`` / ``torch.while_loop``.  The JAX package traces a fun
 train step with backward and ``optimizer.step()``) into one XLA program
 per input spec.  Here a program is one per key: the tensor arguments'
 shapes, dtypes and devices, the other arguments' values, and the mode bits
-of ``_extra_key`` (grad mode, the ``training`` flags of the function's
-module and of module arguments), as the JAX cache keys it (:179-194).
+of ``_extra_key`` (grad mode, ``FLAGS_check_nan_inf``, the ``training``
+flags of the function's module and of module arguments), as the JAX cache
+keys it (:179-194).  A program captured with ``FLAGS_check_nan_inf`` on
+scans every op into a device flag buffer and raises after each replay
+that found a NaN or Inf (:mod:`..flags`).
 ``program_cache`` holds the programs; ``misses`` counts keys first seen
 (the JAX package's trace and compile), ``hits`` the other calls,
 ``captures`` the graphs made.
@@ -104,6 +107,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import flags
 from ..ops import kernels
 from ..serving.programs import _capture_stream
 from .trace import _Program
@@ -324,9 +328,12 @@ class StaticFunction:
         return self.get_concrete_program(*tensors)
 
     def _extra_key(self, args) -> Tuple:
-        """Mode bits that change what the body runs: grad mode, and the
-        ``training`` flags of the function's module and module arguments."""
-        bits: List[Any] = [torch.is_grad_enabled()]
+        """Mode bits that change what the body runs: grad mode,
+        ``FLAGS_check_nan_inf`` (a scanned capture is a program of its
+        own), and the ``training`` flags of the function's module and
+        module arguments."""
+        bits: List[Any] = [torch.is_grad_enabled(),
+                           flags.get_flag("check_nan_inf")]
         owner = getattr(self._fn, "__self__", None)
         for m in [owner, *args]:
             if isinstance(m, nn.Module):
@@ -417,6 +424,8 @@ class StaticFunction:
                 dst.copy_(src)
         prog.graph.replay()
         kernels.add_launches(prog.launches)
+        if prog.nan_check is not None:
+            prog.nan_check.raise_if_fired()
         return _copy_out(prog.output)
 
     def _capture(self, prog: _Program, args, kwargs, leaves, side, cur):
@@ -443,6 +452,9 @@ class StaticFunction:
         # (serving/programs.py)
         collecting = gc.isenabled()
         gc.disable()
+        if flags.get_flag("check_nan_inf"):
+            prog.nan_check = flags.CapturedCheck()
+        flags._Scan.sink = prog.nan_check
         try:
             with prog.nodes, torch.cuda.graph(graph, pool=self._pool,
                                               stream=side):
@@ -454,6 +466,7 @@ class StaticFunction:
             prog.nodes.release()
             raise prog.error from e
         finally:
+            flags._Scan.sink = None
             if collecting:
                 gc.enable()
             after = kernels.launch_counts()

@@ -68,6 +68,9 @@ class _Program:
         #: the conditional nodes' ``static.nn.Nodes`` (on the card, once
         #: captured)
         self.nodes = None
+        #: the NaN/Inf check captured with the graph
+        #: (``flags.CapturedCheck``; ``FLAGS_check_nan_inf`` on at capture)
+        self.nan_check = None
         self.fn = fn
         self.args: Optional[tuple] = None
 

@@ -20,7 +20,10 @@ momentum, so it is not asked to.)  The update is an in-place ``copy_`` of
 the buffers, so a step captured as a CUDA graph updates them at every
 replay.  ``instance_norm``, ``group_norm``, ``normalize`` and
 ``local_response_norm`` compute in the input dtype, as the JAX package
-does.
+does.  ``sync_batch_norm`` (for :class:`..layer.norm.SyncBatchNorm`) is
+``batch_norm`` in training over a group's whole batch: the per-channel
+count, sum and sum of squares are all-reduced (f32, differentiably, so
+the backward all-reduces their gradients) before normalising.
 """
 from __future__ import annotations
 
@@ -83,6 +86,40 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         return _bn_running(x, running_mean, running_var, weight, bias,
                            epsilon, channel_last)
     out, mean, var = _bn_batch(x, weight, bias, epsilon, channel_last)
+    with torch.no_grad():
+        for run, batch in ((running_mean, mean), (running_var, var)):
+            if run is not None:
+                run.copy_(run * momentum
+                          + batch.to(run.dtype) * (1 - momentum))
+    return out
+
+
+@amp_op("batch_norm")
+def _bn_synced(x, weight, bias, epsilon, channel_last, group):
+    """``_bn_batch`` with the statistics of ``group``'s whole batch."""
+    from ...distributed import collective
+
+    ch = x.dim() - 1 if channel_last else 1
+    axes = tuple(i for i in range(x.dim()) if i != ch)
+    xf = x.float()
+    count = xf.new_full((1,), float(x.numel() // x.shape[ch]))
+    stats = collective.all_reduce_autograd(
+        torch.cat([xf.sum(dim=axes), xf.square().sum(dim=axes), count]),
+        group)
+    c = x.shape[ch]
+    n = stats[-1]
+    mean = stats[:c] / n
+    var = (stats[c:2 * c] / n - mean.square()).clamp(min=0.0)
+    return (_normalize(x, mean, var, weight, bias, epsilon, channel_last),
+            mean, var)
+
+
+def sync_batch_norm(x, running_mean, running_var, weight, bias, group,
+                    momentum=0.9, epsilon=1e-5, data_format="NCHW"):
+    """``batch_norm`` in training over ``group``'s whole batch (module
+    docstring); the running statistics move by the whole batch's."""
+    out, mean, var = _bn_synced(x, weight, bias, epsilon,
+                                data_format in _CHANNEL_LAST, group)
     with torch.no_grad():
         for run, batch in ((running_mean, mean), (running_var, var)):
             if run is not None:

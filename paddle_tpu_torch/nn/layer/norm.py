@@ -5,14 +5,22 @@ and buffer names (their state dicts load as they are): batch norms keep
 ``weight``, ``bias`` and the persistable buffers ``_mean`` (zeros) and
 ``_variance`` (ones), updated in place in training
 (:func:`..functional.batch_norm`); instance norms call their weight
-``scale``.  ``SyncBatchNorm`` is ``BatchNorm`` on a world of one (the
-statistics of a multi-process batch are not all-reduced: ROADMAP A.5
-step 6).  ``LayerNorm`` and ``RMSNorm`` also take ``device=`` and
+``scale``.  ``SyncBatchNorm`` normalises by the whole data-parallel
+batch's statistics: in training, when a group of more than one rank is
+live (its ``group=``, else the ``torch.distributed`` world), each rank's
+per-channel count, sum and sum of squares (f32) are all-reduced over it
+before normalising (:func:`..functional.norm.sync_batch_stats`, as
+``torch.nn.SyncBatchNorm`` does), so every rank normalises by, and moves
+its running ``_mean`` and ``_variance`` by, the same statistics, those
+the JAX layer computes on the whole batch; the backward all-reduces the
+two per-channel gradient sums.  On a world of one, and in evaluation, it
+is ``BatchNorm``.  ``LayerNorm`` and ``RMSNorm`` also take ``device=`` and
 ``dtype=`` keywords, as the port's models build them.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ... import device as _device
 from .. import functional as F
@@ -101,6 +109,38 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
+    """Batch norm over the whole data-parallel batch (module docstring);
+    ``group``: the ranks to synchronise over (the world by default)."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, group=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format)
+        self._group = group
+
+    def _sync_group(self):
+        """The live group of more than one rank to reduce over, or None."""
+        from ...distributed import collective
+
+        g = self._group
+        if g is None:
+            if not (dist.is_available() and dist.is_initialized()) \
+                    or dist.get_world_size() == 1:
+                return None
+            g = collective.get_group(0)
+        return g if g.nranks > 1 and collective._live(g) else None
+
+    def forward(self, x):
+        group = self._sync_group() if self.training \
+            and not self._use_global_stats else None
+        if group is None:
+            return super().forward(x)
+        return F.norm.sync_batch_norm(
+            x, self._mean, self._variance, self.weight, self.bias, group,
+            momentum=self._momentum, epsilon=self._epsilon,
+            data_format=self._data_format)
+
     @classmethod
     def convert_sync_batchnorm(cls, layer):
         """``layer`` with every batch norm in it (itself included) made a

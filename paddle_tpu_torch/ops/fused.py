@@ -15,6 +15,12 @@ the accumulator (``preferred_element_type=f32``): on the card through
 bf16 values as f32 (the same exact products, summed in f32).  The block
 products are plain matrix products outside any kernel, as in the JAX
 package, where XLA runs them.
+
+``fused_bias_dropout_residual_layer_norm`` is the counterpart of
+``paddle_tpu/ops/pallas/__init__.py:112``: ``LayerNorm(residual +
+dropout(x + bias))`` in plain torch, as the JAX function is plain ``jnp``
+(no Pallas kernel, so no hand-written one here), its dropout one draw of
+the device's Philox generator (:mod:`..rng`).
 """
 from __future__ import annotations
 
@@ -22,9 +28,11 @@ from typing import Optional
 
 import torch
 
+from .. import rng as rng_mod
 from ..amp.auto_cast import amp_op
 
-__all__ = ["fused_linear_cross_entropy"]
+__all__ = ["fused_linear_cross_entropy",
+           "fused_bias_dropout_residual_layer_norm"]
 
 DEFAULT_BLOCK = 2048
 
@@ -122,3 +130,28 @@ def fused_linear_cross_entropy(hidden: torch.Tensor, weight: torch.Tensor,
         mask = loss_mask.reshape(N).float()
         return (loss * mask).sum() / mask.sum().clamp(min=1.0)
     return loss.sum() / valid.float().sum().clamp(min=1.0)
+
+
+def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
+                                           ln_scale=None, ln_bias=None,
+                                           dropout_rate=0.5, ln_epsilon=1e-5,
+                                           training=True, name=None):
+    """``LayerNorm(residual + dropout(x + bias))`` over the last dim, in
+    the inputs' dtype, the biased variance; dropout keeps an element with
+    probability ``1 - dropout_rate`` and scales it by ``1 / (1 - rate)``
+    (none outside training)."""
+    p = float(dropout_rate) if training else 0.0
+    a = x if bias is None else x + bias
+    if p > 0.0:
+        keep = rng_mod.dropout_keep(
+            rng_mod.default_generator(x.device).draw(), a.shape, p)
+        a = torch.where(keep, a / (1.0 - p), torch.zeros_like(a))
+    y = residual + a
+    mean = y.mean(dim=-1, keepdim=True)
+    var = (y - mean).square().mean(dim=-1, keepdim=True)
+    out = (y - mean) * torch.rsqrt(var + ln_epsilon)
+    if ln_scale is not None:
+        out = out * ln_scale
+    if ln_bias is not None:
+        out = out + ln_bias
+    return out

@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from . import rng
-from .device import _parse, current_device
+from .device import _parse, current_device, get_cudnn_version, \
+    is_compiled_with_cinn, is_compiled_with_cuda, is_compiled_with_npu, \
+    is_compiled_with_rocm, is_compiled_with_xpu
 from .ops._helpers import convert_dtype, get_default_dtype, \
     set_default_dtype
 
@@ -100,32 +102,6 @@ def finfo(dtype):
 def iinfo(dtype):
     """``torch.iinfo`` of an integer dtype (any spec)."""
     return torch.iinfo(convert_dtype(dtype))
-
-
-def is_compiled_with_cuda() -> bool:
-    return torch.backends.cuda.is_built() and torch.version.hip is None
-
-
-def is_compiled_with_rocm() -> bool:
-    return torch.version.hip is not None
-
-
-def is_compiled_with_xpu() -> bool:
-    return False
-
-
-def is_compiled_with_npu() -> bool:
-    return False
-
-
-def is_compiled_with_cinn() -> bool:
-    return False
-
-
-def get_cudnn_version():
-    """cuDNN's version as torch reports it (None without cuDNN)."""
-    return torch.backends.cudnn.version() if \
-        torch.backends.cudnn.is_available() else None
 
 
 def get_cuda_rng_state():

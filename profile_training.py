@@ -37,7 +37,12 @@ It prints one JSON line for each of:
   AdamW, dropout 0.1, one CUDA graph a step) traced the same way, with
   its AdamW step alone and its 25 hidden dropouts' device time alone at
   the step's shape (``nn_encoder_step``; alone: ``python3 -c "import
-  profile_training as p; p.nn_encoder_step(10)"``).
+  profile_training as p; p.nn_encoder_step(10)"``);
+- ``moe_step_graph``: ``chip_smoke.py``'s ``moe_train`` step (the 1.06 B
+  MoE transformer, ``LookAhead(AdamW)``, one CUDA graph a step) traced
+  the same way, with its optimizer step alone and one MoE layer's
+  forward and backward alone (alone: ``python3 -c "import
+  profile_training as p; p.moe_step(5)"``).
 
 No phase falls back to the CPU.
 """
@@ -189,6 +194,62 @@ def nn_encoder_step(n_steps: int) -> dict:
     return line
 
 
+def moe_step(n_steps: int) -> dict:
+    """Trace ``moe_train``'s compiled step (``chip_smoke.moe_gpt`` at
+    ``MOE_GPT``, ``MOE_TRAIN``'s batch, bf16 O2, ``LookAhead(AdamW)``)
+    after 3 warm-up steps, then its optimizer step alone (after one eager
+    backward) and one MoE layer's forward and backward alone at the
+    step's shapes.  Prints and returns the line."""
+    from paddle_tpu_torch import amp, device as pdev, incubate, jit, \
+        optimizer, rng
+
+    cfg, shape = chip_smoke.MOE_GPT, chip_smoke.MOE_TRAIN
+    rng.seed(0)
+    with pdev.device_guard("cuda"):
+        model = chip_smoke.moe_gpt(cfg)
+    amp.decorate(model, level="O2")
+    rs = np.random.RandomState(0)
+    B, S = shape["batch"], shape["seq"]
+    x = torch.from_numpy(rs.randint(0, cfg["vocab"], (B, S))).cuda()
+    y = torch.from_numpy(rs.randint(0, cfg["vocab"], (B, S))).cuda()
+    opt = incubate.LookAhead(optimizer.AdamW(model.parameters(),
+                                             lr=shape["lr"]),
+                             alpha=shape["alpha"], k=shape["k"])
+
+    def body(ids, labels):
+        with amp.auto_cast(dtype="bfloat16", level="O2"):
+            loss = model(ids, labels)
+        loss = loss + shape["aux"] * model.aux_loss()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    step = jit.to_static(body)
+    for _ in range(3):
+        step(x, y)
+    res = trace(lambda: step(x, y), n_steps)
+    with amp.auto_cast(dtype="bfloat16", level="O2"):
+        loss = model(x, y)
+    (loss + shape["aux"] * model.aux_loss()).backward()
+    res["optimizer"] = trace(opt.step, n_steps)
+    opt.clear_grad()
+    moe = model.moe_layers()[0]
+    h = torch.randn((B * S, cfg["hidden"]), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0)
+                    ).to(torch.bfloat16).requires_grad_()
+
+    def one_moe():
+        moe(h).float().sum().backward()
+
+    res["moe_layer"] = trace(one_moe, n_steps)
+    line = {"phase": "moe_step_graph", "card": chip_smoke.card_line(),
+            "model": "moe-gpt (chip_smoke.MOE_GPT)", "batch": B, "seq": S,
+            **res}
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -250,6 +311,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     nn_encoder_step(args.steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_step(args.steps)
     print(card)
     return 0
 

@@ -1376,3 +1376,28 @@ def test_auto_parallel_train_phase_on_tiny_cpu():
     assert res["losses"] == [float(ts.train_step(ts.x, ts.y))
                              for _ in range(4)]
     assert res["program_cache"]["misses"] == 1
+
+
+def test_moe_train_phase_on_tiny_cpu():
+    """``moe_train``'s drive on the CPU at tiny widths (4 layers, 2 of them
+    MoE): the compiled step's first losses equal the eager step's, the
+    loss falls, LookAhead's slow weights meet the fast ones after steps k
+    and 2k only, tokens drop at capacity 1.2, the NaN check keys a program
+    of its own, an inf embedding row raises naming an op, and the restored
+    state steps cleanly.  The parameter count is the formula's."""
+    cfg = {"vocab": 64, "positions": 16, "hidden": 32, "heads": 2,
+           "ffn": 64, "layers": 4, "experts": 4}
+    shape = dict(chip_smoke.MOE_TRAIN, batch=2, seq=16, steps=7, k=3,
+                 eager_steps=2, turns=2, lr=1e-2)
+    res = chip_smoke.drive_moe_train(cfg, shape, "cpu")
+    assert res["params"] == chip_smoke.moe_gpt_params(cfg)
+    assert res["losses"][:2] == res["eager_losses"]
+    assert res["losses"][-1] < res["losses"][0]
+    assert res["synced_after_steps"] == [3, 6]
+    assert len(res["dropped_per_layer_and_step"][0]) == 2
+    assert res["nan_check_programs"] == 2
+    assert res["nan_raised"].startswith("Operator ")
+    assert np.isfinite(res["nan_clean_loss"])
+    from paddle_tpu_torch import flags
+
+    assert flags._mode is None

@@ -3077,3 +3077,158 @@ def test_small_ring_on_the_card_matches_the_whole_call(cuda_device):
         assert res[key] <= chip_smoke.TOLERANCE[torch.bfloat16], res
     for key in ("grad_rel_err_whole", "grad_rel_err_plain"):
         assert res[key] <= chip_smoke.BWD_TOLERANCE[torch.bfloat16], res
+
+
+def _moe_model(device):
+    """A small MoE LM of :func:`chip_smoke.moe_gpt` (2 layers, one MoE of
+    4 experts with the PyLayer GeLU), bf16 O2."""
+    from paddle_tpu_torch import amp, device as pdev, rng
+
+    rng.seed(0)
+    cfg = {"vocab": 256, "positions": 64, "hidden": 128, "heads": 2,
+           "ffn": 256, "layers": 2, "experts": 4}
+    with pdev.device_guard(device):
+        model = chip_smoke.moe_gpt(cfg)
+    amp.decorate(model, level="O2")
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randint(0, 256, (2, 64))).to(device)
+    y = torch.from_numpy(rs.randint(0, 256, (2, 64))).to(device)
+    return model, x, y
+
+
+def _moe_step(model, k=5):
+    from paddle_tpu_torch import amp, incubate, optimizer
+
+    opt = incubate.LookAhead(optimizer.AdamW(model.parameters(), lr=1e-3),
+                             alpha=0.5, k=k)
+
+    def step(ids, labels):
+        with amp.auto_cast(dtype="bfloat16", level="O2"):
+            loss = model(ids, labels)
+        loss = loss + 0.01 * model.aux_loss()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return opt, step
+
+
+@pytest.mark.cuda
+def test_pylayer_and_moe_captured_step_equals_eager(cuda_device):
+    """A step with a PyLayer GeLU and an MoELayer (GShard, random routing
+    on: the draws are device ops, the same in both runs) captured by
+    to_static gives the eager step's losses, and the dropped-token count
+    lives on the device."""
+    from paddle_tpu_torch import jit, rng
+
+    losses = {}
+    for compiled in (False, True):
+        model, x, y = _moe_model(cuda_device)
+        rng.seed(0)
+        _, step = _moe_step(model)
+        if compiled:
+            step = jit.to_static(step)
+        losses[compiled] = [float(step(x, y)) for _ in range(4)]
+        moe = model.moe_layers()[0]
+        assert moe.dropped_tokens.is_cuda
+    if compiled:
+        assert step.captures == 1
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[True],
+                                                  losses[False]))
+    assert rel <= chip_smoke.MOE_LOSS_TOLERANCE, losses
+
+
+@pytest.mark.cuda
+def test_lookahead_syncs_inside_a_graph_at_multiples_of_k(cuda_device):
+    """11 replays of a captured LookAhead(AdamW) step (k = 3): the slow
+    weights equal the fast f32 masters after steps 3, 6 and 9 only."""
+    from paddle_tpu_torch import jit
+
+    model, x, y = _moe_model(cuda_device)
+    opt, step = _moe_step(model, k=3)
+    step = jit.to_static(step)
+    met = []
+    for _ in range(11):
+        step(x, y)
+        gap = max(float((opt.state[p]["slow"] - opt.inner_optimizer.state[p][
+            "master_weight"]).abs().max()) for p in model.parameters())
+        met.append(gap == 0.0)
+    assert step.captures == 1
+    assert [i + 1 for i, m in enumerate(met) if m] == [3, 6, 9]
+
+
+@pytest.mark.cuda
+def test_nan_check_in_a_captured_step(cuda_device):
+    """FLAGS_check_nan_inf captures a program of its own whose replay
+    raises naming an op once an embedding row is inf, with no host read
+    inside the capture; with the flag off the plain program replays."""
+    from paddle_tpu_torch import flags, jit
+
+    model, x, y = _moe_model(cuda_device)
+    _, step = _moe_step(model)
+    step = jit.to_static(step)
+    for _ in range(3):
+        step(x, y)
+    flags.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        for _ in range(3):
+            assert torch.isfinite(step(x, y))
+        assert step.captures == 2 and len(step.program_cache) == 2
+        prog = step.last_program()
+        assert prog.nan_check is not None and prog.nan_check.names
+        with torch.no_grad():
+            model.emb.weight[int(x[0, 0])] = float("inf")
+        with pytest.raises(FloatingPointError, match="Operator embedding"):
+            step(x, y)
+    finally:
+        flags.set_flags({"FLAGS_check_nan_inf": False})
+    assert flags._mode is None
+    step(x, y)                          # the unscanned program: no raise
+
+
+@pytest.mark.cuda
+def test_sync_batch_norm_world_of_one_is_batch_norm(cuda_device):
+    """On a world of one (and without one) SyncBatchNorm is BatchNorm,
+    bitwise, in training and evaluation."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import device as pdev, nn
+    from paddle_tpu_torch.distributed import mesh
+
+    x = torch.randn(8, 4, 5, 5, device=cuda_device,
+                    generator=torch.Generator("cuda").manual_seed(0))
+    had = dist.is_initialized()
+    if not had:
+        mesh.ensure_world(torch.device("cpu"))
+    try:
+        with pdev.device_guard(cuda_device):
+            a, b = nn.SyncBatchNorm(4), nn.BatchNorm2D(4)
+        for train in (True, False):
+            a.train(train)
+            b.train(train)
+            assert torch.equal(a(x), b(x))
+        assert torch.equal(a._mean, b._mean)
+        assert torch.equal(a._variance, b._variance)
+    finally:
+        if not had and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_samplers_and_segment_ops_refuse_a_capture(cuda_device):
+    """The host-side samplers raise CaptureError inside a CUDA graph
+    capture, as the segment ops do."""
+    from paddle_tpu_torch import incubate, jit
+
+    row = torch.tensor([1, 2, 3, 0], device=cuda_device)
+    colptr = torch.tensor([0, 2, 3, 4, 4], device=cuda_device)
+    nodes = torch.tensor([0, 1], device=cuda_device)
+
+    def sample(r, c, n):
+        return incubate.graph_sample_neighbors(r, c, n)[0] + 0
+
+    prog = jit.to_static(sample)
+    assert prog(row, colptr, nodes).tolist() == [1, 2, 3]
+    with pytest.raises(jit.CaptureError, match="graph_sample_neighbors"):
+        prog(row, colptr, nodes)

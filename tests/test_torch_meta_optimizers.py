@@ -3,7 +3,8 @@ fp16 all-reduce) and ``fleet.utils``' file systems against the JAX
 package's, on the CPU.
 
 Spec: ``tests/test_gradient_merge.py`` and ``tests/test_meta_optimizers.py``
-but its ASP cases (``incubate.asp`` is not part of this slice): each case
+but its ASP cases (``TestASP`` and ``test_asp_skips_embedding``, whose
+counterparts are in ``tests/test_torch_incubate.py``): each case
 has a counterpart here, run in this process on both packages from the
 same weights and inputs (parameters within ``1e-6``).  A gloo world of
 two processes (:mod:`torch_world`) adds what one process cannot show:

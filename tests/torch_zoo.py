@@ -8,7 +8,9 @@ of the time), its ``state_dict()`` carried into the port's model by
 buffer names and shapes (the port's model built on the meta device), the
 eval-mode outputs, and one train-mode step's loss and gradients.  Inputs
 are seeded numpy; every tolerance is relative to the largest magnitude of
-what it compares.
+what it compares.  The JAX side of those two checks runs its model as one
+program (``paddle_tpu.jit.to_static``): op by op it would compile each op
+of the model apart, which took most of these files' time.
 """
 import numpy as np
 import torch
@@ -98,7 +100,8 @@ def check_eval(tw: Twins, shape, seed=0, tol=FWD_TOL):
     tw.tnet.eval()
     with torch.no_grad():
         touts = _outs(tw.tnet(torch.tensor(x)))
-    jouts = _outs(tw.jnet(jpaddle.to_tensor(x)))
+    jouts = _outs(jpaddle.jit.to_static(lambda a: tw.jnet(a))(
+        jpaddle.to_tensor(x)))
     assert len(touts) == len(jouts)
     for k, (t, j) in enumerate(zip(touts, jouts)):
         close(_np(t), _np(j), tol, f"eval output {k}")
@@ -123,9 +126,14 @@ def check_train_step(tw: Twins, shape, classes, seed=1):
     no_dropout(tw.tnet, paddle.nn.Dropout)
     tw.jnet.train()
     tw.tnet.train()
-    jloss = jnn.functional.cross_entropy(tw.jnet(jpaddle.to_tensor(x)),
+
+    def jstep(a, b):
+        loss = jnn.functional.cross_entropy(tw.jnet(a), b)
+        loss.backward()
+        return loss
+
+    jloss = jpaddle.jit.to_static(jstep)(jpaddle.to_tensor(x),
                                          jpaddle.to_tensor(y))
-    jloss.backward()
     tloss = paddle.nn.functional.cross_entropy(tw.tnet(torch.tensor(x)),
                                                torch.tensor(y))
     tloss.backward()

@@ -389,6 +389,40 @@ Phases, each printing one JSON line with the card's name and power limit:
               the card against the CPU (forward and gradient within
               1e-4 of scale, ``nms`` and the paths equal), each op's warm
               ms.  No kernel of the port runs in 27-30.
+31. sparse_train — SECOND's sparse middle encoder (mmdet3d
+              ``SparseEncoder`` of ``hv_second_secfpn_6x8_80e_kitti-3d-car``:
+              ``sparse_shape`` [41, 1600, 1408], 4 input features, 8
+              SubmConv3D and 4 strided Conv3D, each with BatchNorm and
+              ReLU) from the port's ``sparse.nn``, f32, trained with AdamW
+              on batches of 6 KITTI-like scans (ray-cast ground, facades,
+              hedges, cars and pedestrians; up to 16,000 voxels each) for
+              12 steps on the mean square of the BEV map ``[6, 256, 200,
+              176]`` against a seeded target, every step building its
+              rulebooks on the card.  Prints the first layer's mean active
+              neighbours (at least 4), step ms (median and quartiles after
+              2 warm-up steps), ms building rulebooks against ms in
+              gather-GEMM-scatter, host reads and rulebooks a step (8 each),
+              active sites per layer, peak memory and the idle share; then
+              a batch-1 step against the CPU: every layer's sites and
+              rulebook pairs equal, the BEV map and every gradient within
+              1e-3 of their largest magnitude.
+32. signal_fft — Whisper's spectrogram front end (openai/whisper
+              ``audio.py``: 16 kHz, N_FFT 400, HOP_LENGTH 160, Hann window):
+              ``signal.stft`` of 16 seeded 30-s chunks, ``[16, 201, 3001]``
+              complex64, on the card against the CPU within 1e-4 of the
+              largest magnitude; ``istft(stft(x))``'s largest error
+              against x; ``fft.rfft2``, ``irfft2``, ``fftn`` and ``hfftn``
+              at ``[16, 512, 512]`` held the same way; each one's warm ms.
+33. distributions — 2**22 draws on the card from each of Normal,
+              Uniform, Categorical (1,000 classes), Multinomial, Beta and
+              Dirichlet, means and variances within 5 standard errors of
+              the closed forms (each draw's ms); ``log_prob``, ``entropy``
+              and every registered KL on the card against the CPU within
+              1e-5 of the largest magnitude; ``Normal.rsample`` inside a
+              ``jit.to_static`` CUDA graph: two replays drawing different
+              values that hold the law, the generator's offset one a call
+              as in eager mode.  No kernel of the port runs in 31-33; each
+              prints its seconds, and the ``done`` line their sum.
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
 ``{"kernels": [...]}`` line (K1-K5, K1-K3's dropout instances, every
@@ -8969,6 +9003,786 @@ def phase_vision_ops(shape: dict = VISION_OPS, device: str = "cuda") -> dict:
     return res
 
 
+# ---- sparse_train: SECOND's sparse middle encoder on KITTI-like scans -------
+
+#: mmdet3d's ``SparseEncoder`` as ``configs/second/hv_second_secfpn_6x8_80e_
+#: kitti-3d-car.py`` sets it: voxels of 0.05 x 0.05 x 0.1 m over x [0, 70.4],
+#: y [-40, 40], z [-3, 1] (``sparse_shape`` z, y, x), ``conv_input`` a
+#: SubMConv3d to 16 channels, four stages (a stride-2 SparseConv3d k3
+#: opening stages 2-4), ``conv_out`` (3, 1, 1) / (2, 1, 1) to 128; every
+#: convolution bias-free and followed by BatchNorm1d(eps 1e-3, momentum
+#: 0.01: Paddle's 0.99) and ReLU
+SECOND = {"in_channels": 4, "sparse_shape": (41, 1600, 1408),
+          "point_range": (0.0, -40.0, -3.0, 70.4, 40.0, 1.0),
+          "base_channels": 16, "out_channels": 128,
+          "encoder_channels": ((16,), (32, 32, 32), (64, 64, 64),
+                               (64, 64, 64)),
+          "encoder_paddings": ((1,), (1, 1, 1), (1, 1, 1),
+                               ((0, 1, 1), 1, 1)),
+          "bn_eps": 1e-3, "bn_momentum": 0.99}
+
+#: the config's ``samples_per_gpu`` 6 and training ``max_voxels`` 16000,
+#: its AdamW (lr 0.0018, weight decay 0.01); 2 warm-up and 10 timed steps
+#: over ``batches`` distinct seeded batches in turn (each step's tensors
+#: new, so each step builds its rulebooks), ``traced`` steps profiled
+SECOND_TRAIN = {"batch": 6, "max_voxels": 16000, "steps": 12, "warm": 2,
+                "lr": 0.0018, "weight_decay": 0.01, "batches": 2,
+                "traced": 2}
+
+#: the card's batch-1 step against the CPU's: the BEV map and every
+#: gradient within this share of their largest magnitude
+SPARSE_PARITY_TOLERANCE = 1e-3
+
+#: the least mean of active neighbours a first-layer site must have for a
+#: scan to count as surfaces rather than scattered points
+MIN_NEIGHBOURS = 4.0
+
+
+def _ray_box(d, centre, size, yaw):
+    """Distance along unit rays ``d`` ``[n, 3]`` from the origin to a box
+    of ``size`` (l, w, h) at ``centre`` turned by ``yaw``; inf where it
+    misses (the slab method in the box's frame)."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    o = rot.T @ (-np.asarray(centre))
+    dd = d @ rot
+    half = np.asarray(size) / 2
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t1, t2 = (-half - o) / dd, (half - o) / dd
+    near = np.nanmax(np.minimum(t1, t2), axis=1)
+    far = np.nanmin(np.maximum(t1, t2), axis=1)
+    return np.where((far >= near) & (near > 0), near, np.inf)
+
+
+def lidar_scan(rs, cfg: dict, max_voxels: int):
+    """One KITTI-like scan voxelised as mmdet3d's hard voxelisation does
+    it: a 64-beam sensor 1.73 m above the ground (HDL-64E: 32 beams +2 to
+    -8.33 deg, 32 beams -8.83 to -24.33 deg; 0.18 deg azimuth, KITTI's
+    ~2,000 returns a ring) over the front 90 deg, ray-cast against a
+    ground plane (far grazing returns fading), building facades on both
+    sides with hedges before them, cars parked along both curbs and
+    driving, pedestrians and cyclists; 2 cm range noise; the points
+    shuffled (``PointShuffle``) and voxelised in point order up to
+    ``max_voxels``, a voxel's features the mean of its points' (x, y, z,
+    intensity).  Returns the voxels' ``(z, y, x)`` indices and features."""
+    elev = np.deg2rad(np.concatenate([np.linspace(2.0, -8.33, 32),
+                                      np.linspace(-8.83, -24.33, 32)]))
+    az = np.deg2rad(np.arange(-45.0, 45.0, 0.18))
+    el, a = np.meshgrid(elev, az, indexing="ij")
+    d = np.stack([np.cos(el) * np.cos(a), np.cos(el) * np.sin(a),
+                  np.sin(el)], -1).reshape(-1, 3)
+    n = d.shape[0]
+    down = d[:, 2] < 0
+    t_ground = np.where(down, -1.73 / np.where(down, d[:, 2], -1.0), np.inf)
+    t = t_ground.copy()
+    boxes = []
+    for side in (-1, 1):
+        y_wall = side * rs.uniform(9.0, 18.0)
+        toward = d[:, 1] * side > 0
+        tw = np.where(toward, y_wall / np.where(toward, d[:, 1], 1.0),
+                      np.inf)
+        ok = (tw * d[:, 2] < 6.0) & (tw * d[:, 0] > 3.0)
+        t = np.minimum(t, np.where(ok, tw, np.inf))
+        x = rs.uniform(2.0, 6.0)
+        while x < 40.0:                       # hedges before the facade
+            length = rs.uniform(3.0, 8.0)
+            h = rs.uniform(0.8, 1.5)
+            boxes.append(((length, 0.8, h), (x + length / 2, y_wall - side
+                          * rs.uniform(1.0, 2.5), -1.73 + h / 2), 0.0))
+            x += length + rs.uniform(1.0, 6.0)
+        x = rs.uniform(3.0, 8.0)
+        while x < 50.0:                       # cars parked along the curb
+            boxes.append(((3.9, 1.6, 1.56), (x, side * rs.uniform(4.0, 6.5),
+                          -1.73 + 0.78), rs.normal(0, 0.1)
+                          + (0.0 if side > 0 else np.pi)))
+            x += rs.uniform(5.0, 12.0)
+    for _ in range(6):                        # cars on the road
+        boxes.append(((3.9, 1.6, 1.56), (rs.uniform(8, 45), rs.uniform(-3, 3),
+                      -1.73 + 0.78), rs.normal(0, 0.05) + np.pi
+                      * rs.randint(2)))
+    for size, count in (((0.8, 0.6, 1.73), 5), ((1.76, 0.6, 1.73), 3)):
+        for _ in range(count):                # pedestrians, cyclists
+            boxes.append((size, (rs.uniform(5, 35), rs.uniform(-8, 8),
+                                 -1.73 + size[2] / 2),
+                          rs.uniform(-np.pi, np.pi)))
+    for size, centre, yaw in boxes:
+        t = np.minimum(t, _ray_box(d, centre, size, yaw))
+    flat = np.hypot(d[:, 0], d[:, 1]) * t
+    fade = (t == t_ground) & (rs.uniform(0, 1, n) < np.clip(
+        (flat - 20.0) / 40.0, 0.0, 0.9))
+    keep = np.isfinite(t) & (t < 80.0) & ~fade
+    pts = d[keep] * t[keep, None] + rs.normal(0, 0.02, (int(keep.sum()), 3))
+    pts = np.concatenate([pts, rs.uniform(0, 1, (len(pts), 1))], 1)
+    lo, hi = np.array(cfg["point_range"][:3]), np.array(
+        cfg["point_range"][3:])
+    dims = np.array(cfg["sparse_shape"][::-1]) - np.array([0, 0, 1])
+    ijk = np.floor((pts[:, :3] - lo) / ((hi - lo) / dims)).astype(np.int64)
+    inside = np.all((ijk >= 0) & (ijk < dims), 1)
+    pts, ijk = pts[inside], ijk[inside]
+    perm = rs.permutation(len(pts))
+    pts, ijk = pts[perm], ijk[perm]
+    key = (ijk[:, 2] * dims[1] + ijk[:, 1]) * dims[0] + ijk[:, 0]
+    uniq, first, inv = np.unique(key, return_index=True, return_inverse=True)
+    order = np.argsort(first)                 # voxels in point order
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    vid = rank[inv]
+    n_vox = min(len(uniq), max_voxels)
+    kept = vid < n_vox
+    feats = np.zeros((n_vox, 4))
+    np.add.at(feats, vid[kept], pts[kept])
+    feats /= np.bincount(vid[kept], minlength=n_vox)[:, None]
+    u = uniq[order[:n_vox]]
+    zyx = np.stack([u // (dims[1] * dims[0]), (u // dims[0]) % dims[1],
+                    u % dims[0]], 1)
+    return zyx, feats.astype(np.float32)
+
+
+def scan_batch(cfg: dict, batch: int, max_voxels: int, seed: int):
+    """``batch`` scans (seeds ``seed * 1000 + b``) as one COO input:
+    indices ``int64 [4, N]`` (batch, z, y, x) and features ``[N, 4]``."""
+    idx, feats = [], []
+    for b in range(batch):
+        zyx, f = lidar_scan(np.random.RandomState(seed * 1000 + b), cfg,
+                            max_voxels)
+        idx.append(np.concatenate([np.full((len(zyx), 1), b), zyx], 1))
+        feats.append(f)
+    return (np.ascontiguousarray(np.concatenate(idx).T).astype(np.int64),
+            np.concatenate(feats))
+
+
+def second_convs(cfg: dict) -> list:
+    """The encoder's convolutions in order: ``(cin, cout, kernel, stride,
+    padding, subm)``."""
+    cin = cfg["base_channels"]
+    convs = [(cfg["in_channels"], cin, 3, 1, 1, True)]
+    for i, (chans, pads) in enumerate(zip(cfg["encoder_channels"],
+                                          cfg["encoder_paddings"])):
+        for j, (cout, pad) in enumerate(zip(chans, pads)):
+            strided = i != 0 and j == 0
+            convs.append((cin, cout, 3, 2 if strided else 1, pad,
+                          not strided))
+            cin = cout
+    convs.append((cin, cfg["out_channels"], (3, 1, 1), (2, 1, 1), 0,
+                  False))
+    return convs
+
+
+#: rulebooks SECOND's encoder builds a step: ``conv_input``'s (which the
+#: first stage's SubMConv3d shares), then a strided convolution's and a
+#: SubMConv3d's in each of stages 2-4 (its second SubMConv3d shares it),
+#: then ``conv_out``'s
+SECOND_RULEBOOKS = 8
+
+
+def second_encoder(cfg: dict):
+    """SECOND's sparse middle encoder from the port's ``sparse.nn`` layers,
+    on the port's current device: each convolution of
+    :func:`second_convs`, bias-free, followed by ``BatchNorm`` and
+    ``ReLU``."""
+    from paddle_tpu_torch import nn, sparse
+
+    S = sparse.nn
+    layers = []
+    for cin, cout, kernel, stride, padding, subm in second_convs(cfg):
+        layers.append(S.SubmConv3D(cin, cout, kernel, padding=padding,
+                                   bias_attr=False) if subm else
+                      S.Conv3D(cin, cout, kernel, stride=stride,
+                               padding=padding, bias_attr=False))
+        layers += [S.BatchNorm(cout, momentum=cfg["bn_momentum"],
+                               epsilon=cfg["bn_eps"]), S.ReLU()]
+    return nn.Sequential(*layers)
+
+
+def bev_shape(cfg: dict, batch: int) -> tuple:
+    """The BEV map's shape ``(N, C·D, H, W)``."""
+    from paddle_tpu_torch.sparse.nn import _triple
+
+    dims = list(cfg["sparse_shape"])
+    for _, cout, kernel, stride, padding, subm in second_convs(cfg):
+        if not subm:
+            dims = [(s + 2 * p - k) // st + 1 for s, p, k, st in
+                    zip(dims, _triple(padding), _triple(kernel),
+                        _triple(stride))]
+    return (batch, cfg["out_channels"] * dims[0], dims[1], dims[2])
+
+
+def bev_map(out) -> torch.Tensor:
+    """The encoder's output made dense as the BEV map ``[N, C·D, H, W]``
+    (mmdet3d's ``spatial_features.view(N, C * D, H, W)``)."""
+    dense = out.to_dense().permute(0, 4, 1, 2, 3)
+    n, c, d, h, w = dense.shape
+    return dense.reshape(n, c * d, h, w)
+
+
+def _conv_layers(net) -> list:
+    from paddle_tpu_torch import sparse
+
+    return [m for m in net if isinstance(m, sparse.nn._Conv3D)]
+
+
+def _timed_module(module, names, cuda: bool) -> tuple:
+    """Wrap ``module.<name>`` for each of ``names`` so that each call's
+    time is kept (a pair of CUDA events on the card, the host clock on
+    the CPU); returns ``(spans, restore)``."""
+    spans = {n: [] for n in names}
+    originals = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                spans[name].append((start, end))
+            else:
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                spans[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    for n, fn in originals.items():
+        setattr(module, n, wrap(n, fn))
+
+    def restore():
+        for n, fn in originals.items():
+            setattr(module, n, fn)
+    return spans, restore
+
+
+def _span_ms(spans: list, cuda: bool) -> float:
+    """The milliseconds of kept spans (after a sync), emptying them."""
+    ms = sum(s.elapsed_time(e) for s, e in spans) if cuda else \
+        sum(spans) * 1e3
+    spans.clear()
+    return ms
+
+
+def drive_sparse_train(cfg: dict, shape: dict, device: str) -> dict:
+    """``sparse_train``'s timed run (:func:`phase_sparse_train`; a tiny
+    ``cfg`` and ``shape`` rehearse it on the CPU)."""
+    from paddle_tpu_torch import device as pdev, optimizer, rng, sparse
+    from paddle_tpu_torch.ops import kernels
+
+    cuda = torch.device(device).type == "cuda"
+    rng.seed(0)
+    t0 = time.perf_counter()
+    batches = [scan_batch(cfg, shape["batch"], shape["max_voxels"], s)
+               for s in range(shape["batches"])]
+    res = {"data_s": round(time.perf_counter() - t0, 3),
+           "voxels_per_batch": [int(b[0].shape[1]) for b in batches]}
+    with pdev.device_guard(device):
+        net = second_encoder(cfg)
+    res["params"] = sum(p.numel() for p in net.parameters())
+    opt = optimizer.AdamW(net.parameters(), lr=shape["lr"],
+                          weight_decay=shape["weight_decay"])
+    dev_batches = [(torch.from_numpy(i).to(device),
+                    torch.from_numpy(f).to(device)) for i, f in batches]
+    full = (shape["batch"],) + tuple(cfg["sparse_shape"]) + \
+        (cfg["in_channels"],)
+    convs = _conv_layers(net)
+    sites = []
+    hooks = [m.register_forward_hook(lambda m, i, o: sites.append(o.nnz()))
+             for m in convs]
+    target = torch.randn(bev_shape(cfg, shape["batch"]), device=device,
+                         generator=torch.Generator(device).manual_seed(1))
+
+    def step(i):
+        idx, feats = dev_batches[i % len(dev_batches)]
+        # a new tensor over the indices: the step builds its rulebooks
+        x = sparse.SparseCooTensor(idx, feats, full)
+        loss = ((bev_map(net(x)) - target) ** 2).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    spans, restore = _timed_module(
+        sparse.nn, ("build_rulebook", "conv_forward", "conv_backward"), cuda)
+    losses, step_ms, rule_ms, gemm_ms, reads, books = [], [], [], [], [], []
+    before = dict(kernels.launch_counts())
+    try:
+        if cuda:
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+        for i in range(shape["steps"]):
+            r0 = dict(sparse.nn.HOST_READS)
+            sites.clear()
+            sync()
+            t0 = time.perf_counter()
+            loss = step(i)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.detach()))
+            rule_ms.append(_span_ms(spans["build_rulebook"], cuda))
+            gemm_ms.append(_span_ms(spans["conv_forward"], cuda)
+                           + _span_ms(spans["conv_backward"], cuda))
+            reads.append(sparse.nn.HOST_READS["reads"] - r0["reads"])
+            books.append(sparse.nn.HOST_READS["rulebooks"]
+                         - r0["rulebooks"])
+            if i == 0:
+                res["active_sites_per_layer"] = list(sites)
+    finally:
+        restore()
+        for h in hooks:
+            h.remove()
+    first = sparse.nn.build_rulebook(dev_batches[0][0], cfg["sparse_shape"],
+                                     3, 1, 1, True)
+    res["first_layer_neighbours"] = sum(first.counts) / first.n_out - 1.0
+    after = kernels.launch_counts()
+    res["launches"] = {k: v - before.get(k, 0) for k, v in after.items()
+                       if v != before.get(k, 0)}
+    warm = shape["warm"]
+    res.update({"losses": losses,
+                "step_ms_each": [round(v, 3) for v in step_ms],
+                "step_ms": _quartiles(step_ms[warm:]),
+                "rulebook_ms": _quartiles(rule_ms[warm:]),
+                "gather_gemm_scatter_ms": _quartiles(gemm_ms[warm:]),
+                "host_reads_per_step": reads,
+                "rulebooks_per_step": books,
+                "voxels_per_s": round(float(np.mean(
+                    res["voxels_per_batch"])) * 1e3
+                    / float(np.median(step_ms[warm:])), 1)})
+    if cuda:
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        n = shape["traced"]
+        prof = device_profile(lambda: [step(i) for i in range(n)])
+        res["device_busy_ms_per_step"] = round(prof["busy_ms"] / n, 3)
+        res["launches_per_step"] = prof["launches"] / n
+        res["idle_share"] = round(1.0 - prof["busy_ms"] / n
+                                  / res["step_ms"]["median"], 4)
+    return res
+
+
+def _sparse_step(net, idx, feats, full, target, device) -> dict:
+    """One training step's forward and backward of ``net`` on ``device``
+    (no optimizer step): each convolution's output sites and rulebook, the
+    BEV map, the loss and every parameter's gradient, as CPU tensors."""
+    from paddle_tpu_torch import sparse
+
+    convs = _conv_layers(net)
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.append(
+        (m, i[0], o))) for m in convs]
+    try:
+        x = sparse.SparseCooTensor(torch.from_numpy(idx).to(device),
+                                   torch.from_numpy(feats).to(device), full)
+        bev = bev_map(net(x))
+        loss = ((bev - torch.from_numpy(target).to(device)) ** 2).mean()
+        loss.backward()
+    finally:
+        for h in hooks:
+            h.remove()
+    layers = []
+    for m, inp, out in seen:
+        rb = sparse.nn.rulebook_of(inp, m._kernel, m._stride, m._padding,
+                                   m._subm)
+        layers.append({"sites": out.indices().cpu(),
+                       "in_rows": rb.in_rows.cpu(),
+                       "out_rows": rb.out_rows.cpu(), "counts": rb.counts})
+    return {"layers": layers, "bev": bev.detach().cpu(),
+            "loss": float(loss),
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in net.named_parameters()}}
+
+
+def drive_sparse_parity(cfg: dict, max_voxels: int, device: str,
+                        other: str = "cpu") -> dict:
+    """A batch-1 step of the encoder on ``device`` against the same step
+    on ``other`` (same weights, scan and target): each layer's output
+    sites and rulebook pairs, the BEV map's and every gradient's error
+    relative to its largest magnitude on ``other``."""
+    from paddle_tpu_torch import device as pdev, rng
+
+    rng.seed(0)
+    with pdev.device_guard(other):
+        ref = second_encoder(cfg)
+    with pdev.device_guard(device):
+        net = second_encoder(cfg)
+    net.load_state_dict(ref.state_dict())
+    idx, feats = scan_batch(cfg, 1, max_voxels, seed=100)
+    full = (1,) + tuple(cfg["sparse_shape"]) + (cfg["in_channels"],)
+    target = np.random.RandomState(2).standard_normal(
+        bev_shape(cfg, 1)).astype(np.float32)
+    t0 = time.perf_counter()
+    want = _sparse_step(ref, idx, feats, full, target, other)
+    res = {"voxels": int(idx.shape[1]),
+           "other_step_s": round(time.perf_counter() - t0, 3)}
+    got = _sparse_step(net, idx, feats, full, target, device)
+    res["differing_layers"] = [
+        i for i, (g, w) in enumerate(zip(got["layers"], want["layers"]))
+        if g["counts"] != w["counts"] or not all(
+            torch.equal(g[k], w[k]) for k in ("sites", "in_rows",
+                                              "out_rows"))]
+    res["sites_per_layer"] = [int(w["sites"].shape[1])
+                              for w in want["layers"]]
+    res["pairs_per_layer"] = [sum(w["counts"]) for w in want["layers"]]
+    res["losses"] = [got["loss"], want["loss"]]
+    res["bev_rel_err"] = _max_rel_err(got["bev"], want["bev"])
+    res["grad_rel_err"] = {n: _max_rel_err(got["grads"][n], w)
+                           for n, w in want["grads"].items()}
+    return res
+
+
+def check_sparse_train(res: dict, parity: dict, shape: dict) -> None:
+    """The holds of ``sparse_train`` (:func:`phase_sparse_train`)."""
+    if res["first_layer_neighbours"] < MIN_NEIGHBOURS:
+        raise AssertionError(f"sparse_train: {res['first_layer_neighbours']}"
+                             f" active neighbours a first-layer site, want "
+                             f">= {MIN_NEIGHBOURS}")
+    losses = res["losses"]
+    if not np.all(np.isfinite(losses)) or not losses[-2] < losses[0]:
+        raise AssertionError(f"sparse_train: losses {losses} (the last "
+                             f"step of batch 0 must be below its first)")
+    if set(res["host_reads_per_step"]) != {SECOND_RULEBOOKS} or \
+            res["host_reads_per_step"] != res["rulebooks_per_step"]:
+        raise AssertionError(
+            f"sparse_train: host reads a step {res['host_reads_per_step']}"
+            f", rulebooks {res['rulebooks_per_step']}; want one read for "
+            f"each of {SECOND_RULEBOOKS} rulebooks")
+    if parity["differing_layers"]:
+        raise AssertionError(f"sparse_train: layers "
+                             f"{parity['differing_layers']} differ in sites "
+                             f"or rulebook pairs between the card and the "
+                             f"CPU")
+    worst = max([parity["bev_rel_err"]] + list(
+        parity["grad_rel_err"].values()))
+    if worst > SPARSE_PARITY_TOLERANCE:
+        raise AssertionError(f"sparse_train: BEV map or gradient error "
+                             f"{worst} of the largest magnitude, above "
+                             f"{SPARSE_PARITY_TOLERANCE}")
+
+
+def phase_sparse_train(cfg: dict = SECOND, shape: dict = SECOND_TRAIN,
+                       device: str = "cuda") -> dict:
+    """SECOND's sparse middle encoder (``SECOND``) trained on the card:
+    batches of 6 KITTI-like scans (:func:`lidar_scan`, up to 16,000 voxels
+    each), 12 AdamW steps on the mean square of the BEV map ``[6, 256,
+    200, 176]`` against a seeded target, each step building its
+    rulebooks on the card.  Prints the first layer's mean active
+    neighbours, step ms (median and quartiles after 2 warm-up steps), the
+    ms building rulebooks against the ms in gather-GEMM-scatter (forward
+    and backward), host reads and rulebooks a step, active sites per
+    layer, peak memory, the idle share over 2 traced steps; then a batch-1
+    step against the CPU (TF32 off): every layer's sites and rulebook
+    pairs equal, the BEV map and every gradient within
+    ``SPARSE_PARITY_TOLERANCE`` of their largest magnitude."""
+    t0 = time.perf_counter()
+    res = drive_sparse_train(cfg, shape, device)
+    res["train_s"] = round(time.perf_counter() - t0, 3)
+    parity = drive_sparse_parity(cfg, shape["max_voxels"], device)
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit("sparse_train", model="SECOND SparseEncoder (mmdet3d hv_second_"
+         "secfpn_6x8_80e_kitti-3d-car)", dtype="float32",
+         tf32={"cudnn": torch.backends.cudnn.allow_tf32,
+               "matmul": torch.backends.cuda.matmul.allow_tf32},
+         sparse_shape=cfg["sparse_shape"], shape=shape, parity=parity,
+         **res)
+    check_sparse_train(res, parity, shape)
+    return res
+
+
+# ---- signal_fft: Whisper's spectrogram front end -----------------------------
+
+#: openai/whisper ``whisper/audio.py``: 16 kHz audio in 30-s chunks of
+#: 480,000 samples, ``N_FFT`` 400, ``HOP_LENGTH`` 160, a periodic Hann
+#: window (``torch.hann_window(N_FFT)``), centred reflect padding: an STFT
+#: of ``[chunks, 201, 3001]``; beside it the 2-D and n-D transforms at
+#: ``fft_shape``
+WHISPER = {"sample_rate": 16000, "n_fft": 400, "hop_length": 160,
+           "chunk_s": 30, "chunks": 16, "fft_shape": (16, 512, 512)}
+
+#: card against CPU: the largest error within this share of the largest
+#: magnitude
+SIGNAL_TOLERANCE = 1e-4
+
+
+def _timed_ms(fn, cuda: bool, reps: int = 5) -> float:
+    """``fn()``'s warm milliseconds: the median of ``reps`` calls after
+    one (CUDA events on the card, the host clock on the CPU)."""
+    fn()
+    return _quartiles([_step_ms(fn, cuda)[1] for _ in range(reps)])[
+        "median"]
+
+
+def drive_signal_fft(cfg: dict, device: str, other: str = "cpu") -> dict:
+    """``signal_fft``'s drive (:func:`phase_signal_fft`): each transform on
+    ``device`` against ``other`` on the same seeded input, its error
+    relative to the largest magnitude on ``other`` and its warm ms on
+    ``device``."""
+    from paddle_tpu_torch import fft, signal
+
+    cuda = torch.device(device).type == "cuda"
+    n = cfg["sample_rate"] * cfg["chunk_s"]
+    n_fft, hop = cfg["n_fft"], cfg["hop_length"]
+    rs = np.random.RandomState(0)
+    audio = (0.1 * rs.standard_normal((cfg["chunks"], n))).astype(np.float32)
+    grid = rs.standard_normal(cfg["fft_shape"]).astype(np.float32)
+    res = {}
+
+    def on(dev):
+        x = torch.from_numpy(audio).to(dev)
+        w = torch.hann_window(n_fft, device=dev)
+        spec = signal.stft(x, n_fft, hop_length=hop, window=w)
+        a = torch.from_numpy(grid).to(dev)
+        half = fft.rfft2(a)
+        return {
+            "stft": lambda: signal.stft(x, n_fft, hop_length=hop, window=w),
+            "istft": lambda: signal.istft(spec, n_fft, hop_length=hop,
+                                          window=w, length=n),
+            "rfft2": lambda: fft.rfft2(a),
+            "irfft2": lambda: fft.irfft2(half, s=a.shape[-2:]),
+            "fftn": lambda: fft.fftn(a),
+            "hfftn": lambda: fft.hfftn(half, s=a.shape[-2:], axes=(-2, -1)),
+        }
+
+    mine, ref = on(device), on(other)
+    for name, fn in mine.items():
+        got, want = fn(), ref[name]()
+        if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
+            raise AssertionError(f"signal_fft: {name} gave {list(got.shape)}"
+                                 f" {got.dtype}, the CPU {list(want.shape)}"
+                                 f" {want.dtype}")
+        res[name] = {"shape": list(got.shape), "dtype": str(got.dtype),
+                     "rel_err": _mag_err(got.cpu(), want),
+                     "ms": _timed_ms(fn, cuda)}
+    back = mine["istft"]().cpu()
+    res["istft"]["max_abs_vs_x"] = float((back - torch.from_numpy(audio))
+                                         .abs().max())
+    return res
+
+
+def _mag_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error's magnitude over the largest magnitude of
+    ``want`` (complex values by their modulus), in double precision."""
+    wide = torch.complex128 if want.is_complex() else torch.float64
+    got, want = got.to(wide), want.to(wide)
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    return float((got - want).abs().max()) / max(scale, 1e-30)
+
+
+def check_signal_fft(res: dict, cfg: dict) -> None:
+    n = cfg["sample_rate"] * cfg["chunk_s"]
+    want = [cfg["chunks"], cfg["n_fft"] // 2 + 1,
+            1 + n // cfg["hop_length"]]
+    if res["stft"]["shape"] != want or res["stft"]["dtype"] != \
+            "torch.complex64":
+        raise AssertionError(f"signal_fft: stft gave {res['stft']}, want "
+                             f"{want} complex64")
+    bad = {k: v["rel_err"] for k, v in res.items()
+           if v["rel_err"] > SIGNAL_TOLERANCE}
+    if bad:
+        raise AssertionError(f"signal_fft: card against CPU beyond "
+                             f"{SIGNAL_TOLERANCE}: {bad}")
+
+
+def phase_signal_fft(cfg: dict = WHISPER, device: str = "cuda") -> dict:
+    """Whisper's spectrogram front end (``WHISPER``): ``signal.stft`` of 16
+    seeded 30-s chunks (``[16, 201, 3001]`` complex64) on the card
+    against the CPU within ``SIGNAL_TOLERANCE`` of the largest magnitude,
+    ``istft(stft(x))``'s largest error against ``x``, and ``fft.rfft2``,
+    ``irfft2``, ``fftn`` and ``hfftn`` at ``[16, 512, 512]`` held the same
+    way; each one's warm ms."""
+    t0 = time.perf_counter()
+    res = drive_signal_fft(cfg, device)
+    emit("signal_fft", config="openai/whisper audio.py (16 kHz, N_FFT 400, "
+         "HOP_LENGTH 160, 30-s chunks)", against="cpu",
+         tolerance=SIGNAL_TOLERANCE, cfg=cfg, transforms=res,
+         seconds=round(time.perf_counter() - t0, 3))
+    check_signal_fft(res, cfg)
+    return res
+
+
+# ---- distributions: draws, densities and KLs on the card ---------------------
+
+#: draws a distribution makes on the card (each moment then has a standard
+#: error of about sd / 2048)
+DIST_SAMPLES = 2 ** 22
+#: moments within this many standard errors of the closed forms
+DIST_SIGMAS = 5.0
+#: log_prob, entropy and KL on the card against the CPU: the largest error
+#: within this share of the largest magnitude
+DIST_TOLERANCE = 1e-5
+
+
+def distribution_cases(device) -> dict:
+    """The six distributions of the phase (seeded parameters on
+    ``device``), each with the closed-form mean and variance of a draw
+    (per element, as numpy arrays) and a value to score."""
+    from paddle_tpu_torch import distribution as D
+
+    rs = np.random.RandomState(0)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    logits = rs.standard_normal(1000).astype(np.float32)
+    p = np.exp(logits.astype(np.float64) - logits.max())
+    p /= p.sum()
+    k = np.arange(1000)
+    cat_mean = float((p * k).sum())
+    probs = rs.uniform(0.2, 1.0, 8)
+    probs /= probs.sum()
+    a, b = np.array([0.5, 2.0, 5.0]), np.array([0.5, 3.0, 1.5])
+    conc = np.array([0.3, 1.0, 2.0, 4.0])
+    c0 = conc.sum()
+    loc, scale = np.array([0.5, -1.0]), np.array([1.0, 2.5])
+    low, high = np.array([-1.0, 2.0]), np.array([1.0, 5.0])
+    return {
+        "Normal": (D.Normal(t(loc), t(scale)), loc, scale ** 2,
+                   t([0.3, 1.0])),
+        "Uniform": (D.Uniform(t(low), t(high)), (low + high) / 2,
+                    (high - low) ** 2 / 12, t([0.5, 3.0])),
+        "Categorical": (D.Categorical(t(logits)), cat_mean,
+                        float((p * k * k).sum()) - cat_mean ** 2,
+                        torch.tensor([3, 999], device=device)),
+        "Multinomial": (D.Multinomial(10, t(probs)), 10 * probs,
+                        10 * probs * (1 - probs),
+                        t([1, 2, 0, 3, 1, 1, 2, 0])),
+        "Beta": (D.Beta(t(a), t(b)), a / (a + b),
+                 a * b / ((a + b) ** 2 * (a + b + 1)), t([0.3, 0.5, 0.9])),
+        "Dirichlet": (D.Dirichlet(t(conc)), conc / c0,
+                      conc * (c0 - conc) / (c0 ** 2 * (c0 + 1)),
+                      t([0.1, 0.2, 0.3, 0.4])),
+    }
+
+
+def _moments(x: torch.Tensor) -> tuple:
+    """Per element: the sample mean, variance and fourth central moment
+    (f64, on the draw's device), as numpy arrays."""
+    x = x.to(torch.float64).reshape(x.shape[0], -1)
+    m = x.mean(0)
+    c = x - m
+    v = (c * c).mean(0)
+    return (m.cpu().numpy(), v.cpu().numpy(),
+            (c ** 4).mean(0).cpu().numpy())
+
+
+def _law_sigmas(x: torch.Tensor, mean, var) -> tuple:
+    """How many standard errors the sample mean and variance lie from the
+    closed forms (the largest over elements)."""
+    n = x.shape[0]
+    m, v, m4 = _moments(x)
+    mean = np.broadcast_to(np.asarray(mean, np.float64),
+                           x.shape[1:]).reshape(-1)
+    var = np.broadcast_to(np.asarray(var, np.float64),
+                          x.shape[1:]).reshape(-1)
+    z_mean = np.abs(m - mean) / np.sqrt(var / n)
+    z_var = np.abs(v - var) / np.sqrt(np.maximum(m4 - v * v, 1e-300) / n)
+    return float(z_mean.max()), float(z_var.max())
+
+
+def _scores(cases: dict) -> dict:
+    """Each distribution's ``log_prob`` at its value and ``entropy``, and
+    every registered KL between two members, as CPU tensors."""
+    from paddle_tpu_torch import distribution as D
+    from paddle_tpu_torch.distribution import kl
+
+    out = {}
+    for name, (dist, _, _, value) in cases.items():
+        out[f"{name}.log_prob"] = dist.log_prob(value)
+        out[f"{name}.entropy"] = dist.entropy()
+    dev = cases["Normal"][0].loc.device
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    other = {"Normal": D.Normal(t([0.0, 1.0]), t([2.0, 0.5])),
+             "Uniform": D.Uniform(t([-2.0, 1.0]), t([2.0, 6.0])),
+             "Categorical": D.Categorical(cases["Categorical"][0].logits
+                                          .flip(0)),
+             "Beta": D.Beta(t([1.5, 1.0, 2.0]), t([2.5, 0.7, 3.0])),
+             "Dirichlet": D.Dirichlet(t([1.0, 0.5, 3.0, 2.0]))}
+    for name, q in other.items():
+        out[f"kl({name}, {name})"] = D.kl_divergence(cases[name][0], q)
+    for name in ("Beta", "Dirichlet"):
+        out[f"bregman({name}, {name})"] = kl._kl_expfamily_expfamily(
+            cases[name][0], other[name])
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def drive_distributions(device: str, n: int = DIST_SAMPLES,
+                        other: str = "cpu") -> dict:
+    """``distributions``' drive (:func:`phase_distributions`)."""
+    from paddle_tpu_torch import distribution as D, jit, rng
+
+    cuda = torch.device(device).type == "cuda"
+    cases = distribution_cases(device)
+    res = {"samples": n, "draws": {}}
+    for i, (name, (dist, mean, var, _)) in enumerate(cases.items()):
+        rng.seed(i)
+        x, ms = _step_ms(lambda: dist.sample((n,)), cuda)
+        z_mean, z_var = _law_sigmas(x, mean, var)
+        res["draws"][name] = {"shape": list(x.shape), "dtype": str(x.dtype),
+                              "ms": round(ms, 3), "mean_sigmas": z_mean,
+                              "var_sigmas": z_var}
+    mine, ref = _scores(cases), _scores(distribution_cases(other))
+    res["scores_rel_err"] = {k: _mag_err(mine[k], ref[k]) for k in ref}
+    # Normal.rsample inside a jit.to_static CUDA graph: the first call runs
+    # eagerly, the second captures and replays, the third replays
+    normal, mean, var, _ = cases["Normal"]
+    sample = jit.to_static(lambda loc, scale: D.Normal(loc, scale)
+                           .rsample((n,)))
+    gen = rng.default_generator(normal.loc.device)
+    offsets, draws = [int(gen.get_state()[1])], []
+    for _ in range(3):
+        draws.append(sample(normal.loc, normal.scale))
+        offsets.append(int(gen.get_state()[1]))
+    res["graph"] = {"captures": sample.captures, "hits": sample.hits,
+                    "offsets": offsets,
+                    "replays_differ": not torch.equal(draws[1], draws[2]),
+                    "sigmas": [_law_sigmas(d, mean, var) for d in draws]}
+    return res
+
+
+def check_distributions(res: dict, cuda: bool) -> None:
+    for name, d in res["draws"].items():
+        if max(d["mean_sigmas"], d["var_sigmas"]) > DIST_SIGMAS:
+            raise AssertionError(f"distributions: {name}'s draws lie "
+                                 f"{d['mean_sigmas']:.2f} / "
+                                 f"{d['var_sigmas']:.2f} standard errors "
+                                 f"from the closed-form mean / variance")
+    bad = {k: v for k, v in res["scores_rel_err"].items()
+           if v > DIST_TOLERANCE}
+    if bad:
+        raise AssertionError(f"distributions: beyond {DIST_TOLERANCE} of "
+                             f"the CPU: {bad}")
+    g = res["graph"]
+    steps = [b - a for a, b in zip(g["offsets"], g["offsets"][1:])]
+    if steps != [1, 1, 1] or not g["replays_differ"] or \
+            max(max(s) for s in g["sigmas"]) > DIST_SIGMAS:
+        raise AssertionError(f"distributions: rsample under to_static "
+                             f"{g}")
+    if cuda and g["captures"] != 1:
+        raise AssertionError(f"distributions: {g['captures']} captures")
+
+
+def phase_distributions(device: str = "cuda") -> dict:
+    """``DIST_SAMPLES`` draws on the card from each of Normal, Uniform,
+    Categorical (1,000 classes), Multinomial, Beta and Dirichlet, their
+    means and variances within ``DIST_SIGMAS`` standard errors of the
+    closed forms; ``log_prob``, ``entropy`` and every registered KL (and
+    the Bregman KL of the exponential family) on the card against the CPU
+    within ``DIST_TOLERANCE`` of the largest magnitude; ``Normal.rsample``
+    inside a ``jit.to_static`` CUDA graph: two replays drawing different
+    values that hold the law, the generator's offset moving one a call as
+    in eager mode.  Prints each draw's ms."""
+    t0 = time.perf_counter()
+    res = drive_distributions(device)
+    emit("distributions", against="cpu", tolerance=DIST_TOLERANCE,
+         sigmas=DIST_SIGMAS, seconds=round(time.perf_counter() - t0, 3),
+         **res)
+    check_distributions(res, torch.device(device).type == "cuda")
+    return res
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -9081,6 +9895,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_vision_ops()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_slice = time.perf_counter()
+    phase_sparse_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_signal_fft()
+    phase_distributions()
+    slice_s = round(time.perf_counter() - t_slice, 3)
     launches = {**paged["launches"],
                 **{n: train["launches"][n] for n in TRAIN_KERNELS},
                 **{n: recipe[n] for n in RECIPE_KERNELS},
@@ -9118,7 +9941,8 @@ def main() -> int:
                                            for ph, c in by_phase.items()
                                            if c.get(name)}}
                     for name, rec in records.items()]
-    emit("done", seconds=round(time.perf_counter() - t_start, 3))
+    emit("done", seconds=round(time.perf_counter() - t_start, 3),
+         sparse_signal_distribution_seconds=slice_s)
     print(CARD)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {

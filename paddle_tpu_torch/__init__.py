@@ -45,7 +45,10 @@ functions on ``torch.Tensor`` at the top level (``paddle.concat``,
 ``paddle.topk``, ..., :mod:`.ops`), with the dtype names, :func:`to_tensor`
 and ``paddle.linalg``; :mod:`vision` has the model zoo, the transforms,
 the datasets, the detection operators and the image backend, and
-:mod:`text` Viterbi decoding and the text datasets.
+:mod:`text` Viterbi decoding and the text datasets; :mod:`sparse` is
+COO/CSR tensors and the sparse 3-D convolutions (their rulebooks built
+on the card), :mod:`fft` and :mod:`signal` the transforms and the STFT,
+:mod:`distribution` the distributions, transforms and KL registry.
 Everything runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (for :mod:`nn`'s layers, :func:`set_device` or
 :func:`device_guard` with ``"cpu"``; with no card, building on the
@@ -57,10 +60,10 @@ from .ops import *  # noqa: F401,F403 — the paddle.* op surface
 from .ops import linalg
 from .tensor import *  # noqa: F401,F403 — dtypes, to_tensor, helpers
 from . import (  # noqa: E402
-    amp, autograd, device, distributed, flags, framework, hapi, incubate,
-    inference, io, jit, metric, models, nn, obs, ops, optimizer, profiler,
-    regularizer, rng, serving, static, sysconfig, text, utils, version,
-    vision,
+    amp, autograd, device, distributed, distribution, fft, flags, framework,
+    hapi, incubate, inference, io, jit, metric, models, nn, obs, ops,
+    optimizer, profiler, regularizer, rng, serving, signal, sparse, static,
+    sysconfig, text, utils, version, vision,
 )
 from .batch import batch  # noqa: E402
 from .device import device_guard, get_device, set_device  # noqa: E402
@@ -72,11 +75,12 @@ from .training import build_train_step  # noqa: E402
 
 __all__ = ["Model", "amp", "autograd", "batch", "build_train_step",
            "callbacks", "create_engine", "define_flag", "device",
-           "device_guard", "distributed", "flags", "flops", "framework",
+           "device_guard", "distributed", "distribution", "fft", "flags",
+           "flops", "framework",
            "get_device", "get_flags", "get_rng_state", "hapi", "incubate",
            "inference", "io", "jit", "linalg", "metric", "models", "nn",
            "obs", "ops", "optimizer", "profiler", "regularizer", "rng",
            "seed", "serving", "set_device", "set_flags", "set_rng_state",
-           "static", "summary", "sysconfig", "text", "utils", "version",
-           "vision"] \
+           "signal", "sparse", "static", "summary", "sysconfig", "text",
+           "utils", "version", "vision"] \
     + ops.OPS + _tensor.__all__

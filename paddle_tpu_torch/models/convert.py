@@ -78,7 +78,10 @@ def port_state_dict_from_jax(model: nn.Module, state: Dict[str, np.ndarray]
     transposed (its ``weight``, or a weight-normed ``weight_v`` or
     spectral-normed ``weight_orig``; ``weight_g`` is 1-D); conv,
     transposed-conv, ``Bilinear`` and ``Embedding`` weights, norms and
-    buffers are taken as they are.  Touches nothing of ``model``.  Raises
+    buffers are taken as they are, and so are ``sparse.nn``'s: a sparse
+    convolution's ``[kd, kh, kw, Cin, Cout]`` weight (both packages read
+    its offsets kz-major, so no permutation) and a sparse ``BatchNorm``'s
+    ``weight``, ``bias``, ``_mean`` and ``_variance``.  Touches nothing of ``model``.  Raises
     unless the names cover the model exactly and every shape matches."""
     linear = {name for name, m in model.named_modules()
               if isinstance(m, nn.Linear)}

@@ -1401,3 +1401,94 @@ def test_moe_train_phase_on_tiny_cpu():
     from paddle_tpu_torch import flags
 
     assert flags._mode is None
+
+
+SECOND_TINY = dict(chip_smoke.SECOND, sparse_shape=(41, 96, 88),
+                   base_channels=4, out_channels=8,
+                   encoder_channels=((4,), (8, 8, 8), (8, 8, 8), (8, 8, 8)))
+
+
+def test_sparse_train_phase_on_tiny_cpu():
+    """``sparse_train``'s drive on the CPU at SECOND's depth and narrow
+    widths over a coarse grid: 4 AdamW steps, each building the encoder's
+    8 rulebooks with one host read each; the loss of batch 0 falls; the
+    BEV map has the encoder's shape; the parity step against itself is
+    exact, layer by layer."""
+    shape = dict(chip_smoke.SECOND_TRAIN, batch=2, max_voxels=600, steps=4,
+                 warm=1)
+    res = chip_smoke.drive_sparse_train(SECOND_TINY, shape, "cpu")
+    assert res["host_reads_per_step"] == [chip_smoke.SECOND_RULEBOOKS] * 4
+    assert res["rulebooks_per_step"] == res["host_reads_per_step"]
+    assert res["losses"][2] < res["losses"][0]
+    assert len(res["active_sites_per_layer"]) == 12
+    assert res["active_sites_per_layer"][0] == res["voxels_per_batch"][0]
+    assert res["first_layer_neighbours"] > 1.0 and res["launches"] == {}
+    assert res["rulebook_ms"]["median"] > 0
+    parity = chip_smoke.drive_sparse_parity(SECOND_TINY, 600, "cpu")
+    assert parity["differing_layers"] == [] and parity["bev_rel_err"] == 0
+    assert len(parity["sites_per_layer"]) == 12
+    assert chip_smoke.bev_shape(chip_smoke.SECOND, 6) == (6, 256, 200, 176)
+    chip_smoke.check_sparse_train(dict(res, first_layer_neighbours=4.0),
+                                  parity, shape)
+    with pytest.raises(AssertionError, match="differ in sites"):
+        chip_smoke.check_sparse_train(
+            dict(res, first_layer_neighbours=4.0),
+            dict(parity, differing_layers=[3]), shape)
+    with pytest.raises(AssertionError, match="neighbours"):
+        chip_smoke.check_sparse_train(
+            dict(res, first_layer_neighbours=3.9), parity, shape)
+
+
+def test_lidar_scans_lie_on_surfaces():
+    """A full-size KITTI-like scan: at most 16,000 voxels inside SECOND's
+    grid, in point order (not sorted), features inside the point range,
+    and a first-layer site with at least 4 active neighbours on average
+    over a batch of 6."""
+    from paddle_tpu_torch.sparse import nn as snn
+
+    cfg = chip_smoke.SECOND
+    idx, feats = chip_smoke.scan_batch(cfg, 6, 16000, seed=0)
+    assert feats.shape == (idx.shape[1], 4) and idx.shape[0] == 4
+    for b in range(6):
+        assert (idx[0] == b).sum() <= 16000
+    assert np.all(idx[1:].T < np.array(cfg["sparse_shape"]))
+    assert not np.all(np.diff(idx[3][idx[0] == 0]) >= 0)
+    lo, hi = np.array(cfg["point_range"][:3]), np.array(
+        cfg["point_range"][3:])
+    assert np.all((feats[:, :3] >= lo) & (feats[:, :3] <= hi))
+    rb = snn.build_rulebook(torch.from_numpy(idx), cfg["sparse_shape"], 3, 1,
+                            1, True)
+    assert sum(rb.counts) / rb.n_out - 1 >= chip_smoke.MIN_NEIGHBOURS
+
+
+def test_signal_fft_phase_on_tiny_cpu():
+    """``signal_fft``'s drive with the CPU on both sides at 1-s chunks:
+    every transform runs with Whisper's STFT widths and agrees with
+    itself; the round trip recovers the audio."""
+    cfg = dict(chip_smoke.WHISPER, chunk_s=1, chunks=2,
+               fft_shape=(2, 32, 32))
+    res = chip_smoke.drive_signal_fft(cfg, "cpu")
+    chip_smoke.check_signal_fft(res, cfg)
+    assert res["stft"]["shape"] == [2, 201, 101]
+    assert res["hfftn"]["shape"] == [2, 32, 32]
+    assert res["istft"]["max_abs_vs_x"] < 1e-5
+    with pytest.raises(AssertionError, match="beyond"):
+        chip_smoke.check_signal_fft(
+            dict(res, fftn=dict(res["fftn"], rel_err=1e-3)), cfg)
+
+
+def test_distributions_phase_on_tiny_cpu():
+    """``distributions``' drive on the CPU at 2**15 draws: every law holds,
+    the scores agree with themselves, and ``to_static`` (eager on the CPU)
+    moves the generator's offset one a call with fresh draws."""
+    res = chip_smoke.drive_distributions("cpu", n=2 ** 15)
+    chip_smoke.check_distributions(res, cuda=False)
+    assert sorted(res["draws"]) == sorted(["Normal", "Uniform",
+                                           "Categorical", "Multinomial",
+                                           "Beta", "Dirichlet"])
+    assert res["draws"]["Dirichlet"]["shape"] == [2 ** 15, 4]
+    assert len(res["scores_rel_err"]) == 19
+    with pytest.raises(AssertionError, match="standard errors"):
+        bad = dict(res["draws"], Beta=dict(res["draws"]["Beta"],
+                                           mean_sigmas=6.0))
+        chip_smoke.check_distributions(dict(res, draws=bad), cuda=False)

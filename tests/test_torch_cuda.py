@@ -3232,3 +3232,154 @@ def test_samplers_and_segment_ops_refuse_a_capture(cuda_device):
     assert prog(row, colptr, nodes).tolist() == [1, 2, 3]
     with pytest.raises(jit.CaptureError, match="graph_sample_neighbors"):
         prog(row, colptr, nodes)
+
+
+def _scan_indices(batch, spatial, nnz, seed):
+    rs = np.random.RandomState(seed)
+    flat = rs.choice(batch * int(np.prod(spatial)), nnz, replace=False)
+    return np.stack(np.unravel_index(flat, (batch,) + spatial)).astype(
+        np.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [(3, 1, 1, True), (3, 2, 1, False),
+                                    ((3, 1, 1), (2, 1, 1), 0, False),
+                                    (2, 2, 0, False)])
+def test_sparse_rulebook_on_the_card_equals_the_cpu(cuda_device, window):
+    """A random scan's rulebook built on the card: output sites, spatial
+    shape, pairs and counts equal the CPU's, with one host sync (its
+    sizes), counted by torch's sync debug mode."""
+    import warnings
+
+    from paddle_tpu_torch.sparse import nn as snn
+
+    k, s, p, subm = window
+    idx = torch.from_numpy(_scan_indices(2, (41, 160, 140), 20000, 3))
+    want = snn.build_rulebook(idx, (41, 160, 140), k, s, p, subm)
+    dev_idx = idx.to(cuda_device)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = snn.build_rulebook(dev_idx, (41, 160, 140), k, s, p, subm)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if str(w.message).startswith(
+        "called a synchronizing CUDA operation")]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    assert got.out_spatial == want.out_spatial
+    assert got.counts == want.counts
+    for name in ("out_indices", "in_rows", "out_rows"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+
+
+@pytest.mark.cuda
+def test_sparse_conv_stack_on_the_card_matches_the_cpu(cuda_device):
+    """SubmConv3D → BatchNorm → ReLU → strided Conv3D → MaxPool3D on the
+    card and the CPU from the same weights: sites equal, values and
+    gradients within 1e-4 of their largest magnitude.  The first
+    convolution has no bias, as before a batch norm in SECOND: its
+    gradient would be zero in exact arithmetic, rounding noise here."""
+    from paddle_tpu_torch import nn, sparse
+    from paddle_tpu_torch.device import device_guard
+
+    def build():
+        S = sparse.nn
+        return nn.Sequential(S.SubmConv3D(4, 16, 3, padding=1,
+                                          bias_attr=False),
+                             S.BatchNorm(16), S.ReLU(),
+                             S.Conv3D(16, 32, 3, stride=2, padding=1),
+                             S.MaxPool3D(2, stride=2))
+
+    torch.manual_seed(0)
+    with device_guard("cpu"):
+        ref = build()
+    with device_guard(cuda_device):
+        net = build()
+    net.load_state_dict(ref.state_dict())
+    idx = _scan_indices(2, (21, 64, 64), 6000, 4)
+    vals = np.random.RandomState(4).randn(6000, 4).astype(np.float32)
+    outs = []
+    for model, dev in ((ref, "cpu"), (net, cuda_device)):
+        x = sparse.SparseCooTensor(torch.from_numpy(idx).to(dev),
+                                   torch.tensor(vals, device=dev,
+                                                requires_grad=True),
+                                   (2, 21, 64, 64, 4))
+        out = model(x)
+        out.values().square().sum().backward()
+        outs.append((out.indices().cpu(), out.values().detach().cpu(),
+                     x.values().grad.cpu(),
+                     [q.grad.cpu() for q in model.parameters()]))
+    (i0, v0, g0, p0), (i1, v1, g1, p1) = outs
+    assert torch.equal(i0, i1)
+    for a, b in [(v1, v0), (g1, g0)] + list(zip(p1, p0)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_sparse_matmul_and_masked_matmul_on_the_card(cuda_device):
+    from paddle_tpu_torch import sparse
+
+    rs = np.random.RandomState(5)
+    flat = rs.choice(300 * 200, 3000, replace=False)
+    idx = np.stack(np.unravel_index(flat, (300, 200)))
+    vals = rs.randn(3000).astype(np.float32)
+    dense = rs.randn(200, 64).astype(np.float32)
+    a, b = rs.randn(300, 32).astype(np.float32), \
+        rs.randn(32, 200).astype(np.float32)
+    res = []
+    for dev in ("cpu", cuda_device):
+        x = sparse.sparse_coo_tensor(torch.from_numpy(idx),
+                                     torch.tensor(vals, device=dev),
+                                     (300, 200), stop_gradient=False)
+        d = torch.tensor(dense, device=dev, requires_grad=True)
+        out = sparse.matmul(x.to_sparse_csr(), d)
+        out.square().sum().backward()
+        m = sparse.masked_matmul(torch.tensor(a, device=dev),
+                                 torch.tensor(b, device=dev),
+                                 x.to_sparse_csr())
+        res.append([out.detach().cpu(), d.grad.cpu(),
+                    m.crows().cpu(), m.cols().cpu(), m.values().cpu()])
+    (o0, d0, c0, k0, m0), (o1, d1, c1, k1, m1) = res
+    assert torch.equal(c0, c1) and torch.equal(k0, k1)
+    for got, want in ((o1, o0), (d1, d0), (m1, m0)):
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_stft_istft_on_the_card(cuda_device):
+    from paddle_tpu_torch import signal
+
+    x = torch.from_numpy(np.random.RandomState(6).randn(4, 32000)
+                         .astype(np.float32))
+    w = torch.hann_window(400)
+    spec = signal.stft(x, 400, hop_length=160, window=w)
+    got = signal.stft(x.to(cuda_device), 400, hop_length=160,
+                      window=w.to(cuda_device))
+    assert got.shape == spec.shape == (4, 201, 201)
+    assert float((got.cpu() - spec).abs().max()) <= \
+        1e-4 * float(spec.abs().max())
+    back = signal.istft(got, 400, hop_length=160, window=w.to(cuda_device),
+                        length=32000)
+    assert float((back.cpu() - x).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_normal_rsample_in_a_captured_graph_draws_afresh(cuda_device):
+    from paddle_tpu_torch import distribution as D, jit, rng
+
+    loc = torch.zeros(2, device=cuda_device)
+    scale = torch.ones(2, device=cuda_device)
+    f = jit.to_static(lambda a, b: D.Normal(a, b).rsample((4096,)))
+    gen = rng.default_generator(loc.device)
+    start = int(gen.get_state()[1])
+    draws = [f(loc, scale) for _ in range(4)]
+    assert f.captures == 1
+    assert int(gen.get_state()[1]) == start + 4
+    assert not torch.equal(draws[2], draws[3])
+    rng.seed(11)
+    eager = D.Normal(loc, scale).rsample((4096,))
+    rng.seed(11)
+    assert torch.equal(f(loc, scale), eager)

@@ -405,7 +405,9 @@ Phases, each printing one JSON line with the card's name and power limit:
               active sites per layer, peak memory and the idle share; then
               a batch-1 step against the CPU: every layer's sites and
               rulebook pairs equal, the BEV map and every gradient within
-              1e-3 of their largest magnitude.
+              1e-3 of their largest magnitude, the CPU on the card's ReLU
+              masks and every site where they differ from its own within
+              1e-3 of its layer's largest input.
 32. signal_fft — Whisper's spectrogram front end (openai/whisper
               ``audio.py``: 16 kHz, N_FFT 400, HOP_LENGTH 160, Hann window):
               ``signal.stft`` of 16 seeded 30-s chunks, ``[16, 201, 3001]``
@@ -423,6 +425,37 @@ Phases, each printing one JSON line with the card's name and power limit:
               values that hold the law, the generator's offset one a call
               as in eager mode.  No kernel of the port runs in 31-33; each
               prints its seconds, and the ``done`` line their sum.
+34. static_train — GPT-2 345M at full width (24 layers, f32, TF32 off)
+              built from ``models.gpt`` under ``enable_static()`` and
+              ``program_guard``: ``static.data`` feeds ``[8, 1024]``,
+              ``AdamW(None, lr=1e-4).minimize(loss)``, 12
+              ``Executor.run`` steps on seeded batches; the first 3 losses
+              within 1e-5 relative of the same model's eager steps, one
+              train program and one CUDA graph capture, K1-K3's f32
+              instances 24 launches a step; step ms (median and quartiles
+              past the two build calls), tokens/s, peak; four more steps
+              under the ported ``Profiler`` (CLOSED, READY, RECORD,
+              RECORD_AND_RETURN), each in a ``RecordEvent``:
+              ``static_step`` exactly 2 calls in the host table, each
+              K1-K3 f32 kernel exactly 48 in the device table, the
+              window's idle share, ``summary()``'s rows; the same window
+              without the READY step (its counts printed, not held); a
+              batch-1
+              forward program through ``save_inference_model`` and
+              ``load_inference_model`` onto the card, its logits within
+              1e-4 of the live program's and K1 launching 24 times.
+35. extensions — ``register_op`` with a ``vjp`` eagerly and in a
+              ``to_static`` program (eager call, capture, replay: values
+              and gradients equal); ``register_kernel("relu",
+              backend="gpu")`` taken by card tensors, not CPU ones;
+              ``cpp_extension.load`` of ``tests/test_custom_kernel.py``'s
+              C++ source: eager on card tensors within 1e-6 of
+              ``F.softsign``, refused in a capture (``CaptureError``
+              naming the op); ``hub.load`` of a local hubconf building a
+              port layer on the card.  The ``done`` line gives 34-35's
+              seconds.  The kernels phase also times K1-K3's f32
+              instances at the train shape (static_train's), listed in
+              the kernels line as ``*_f32``.
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
 ``{"kernels": [...]}`` line (K1-K5, K1-K3's dropout instances, every
@@ -1372,6 +1405,7 @@ def phase_kernels(hgmma: dict) -> dict:
     out, library_ms = {}, {}      # one figure per (shape, call, dtype)
     for name, shapes in cases.items():
         errors, tolerances, lse_errors, timed = {}, {}, {}, []
+        timed_f32 = []      # K1-K3 at the train shape in f32 (static_train)
         for label, make, shape, library_call, dtypes, is_timed in shapes:
             for dt in dtypes:
                 res = make(dt)
@@ -1390,15 +1424,17 @@ def phase_kernels(hgmma: dict) -> dict:
                         raise AssertionError(
                             f"{name} {key}: lse err {res['lse_err']} > "
                             f"{LSE_TOLERANCE}")
-                if dt != torch.float32 and is_timed:
+                f32_row = dt == torch.float32 and label == "train" and \
+                    name in TRAIN_KERNELS
+                if (dt != torch.float32 and is_timed) or f32_row:
                     bound_ms, bound_by = res["bound"]
                     lib = (shape, library_call, dt)
                     if lib not in library_ms:
                         library_ms[lib] = cuda_ms(res["library"], iters=5,
                                                   flush=True)
-                    timed.append({
+                    (timed_f32 if f32_row else timed).append({
                         "case": label,
-                        "shape": f"{shape} {SHORT[dt]}",
+                        "shape": f"{shape} {SHORT.get(dt, 'f32')}",
                         "max_abs_err": res["err"], "tolerance": tol,
                         "ms": cuda_ms(res["kern"], flush=True),
                         "warm_ms": cuda_ms(res["kern"], alone=True),
@@ -1415,10 +1451,15 @@ def phase_kernels(hgmma: dict) -> dict:
         info = KERNELS[name]
         out[name] = {"name": name, "route": "cuda", "source": info.source,
                      "replaces": info.replaces, **timed[0]}
+        if timed_f32:
+            # the f32 instance shares the launch counter of ``name``
+            out[f"{name}_f32"] = {"name": f"{name}_f32", "route": "cuda",
+                                  "source": info.source,
+                                  "replaces": info.replaces, **timed_f32[0]}
         emit("kernels", kernel=name, errors=errors, tolerances=tolerances,
              **({"lse_errors": lse_errors, "lse_tolerance": LSE_TOLERANCE}
                 if lse_errors else {}),
-             timed=timed)
+             timed=timed + timed_f32)
     return out
 
 
@@ -9361,16 +9402,32 @@ def drive_sparse_train(cfg: dict, shape: dict, device: str) -> dict:
     return res
 
 
-def _sparse_step(net, idx, feats, full, target, device) -> dict:
+def _sparse_step(net, idx, feats, full, target, device,
+                 masks=None) -> dict:
     """One training step's forward and backward of ``net`` on ``device``
-    (no optimizer step): each convolution's output sites and rulebook, the
-    BEV map, the loss and every parameter's gradient, as CPU tensors."""
+    (no optimizer step): each convolution's output sites and rulebook,
+    each ReLU's input and the mask it kept, the BEV map, the loss and
+    every parameter's gradient, as CPU tensors.  With ``masks`` (one
+    boolean tensor a ReLU, in order) each ReLU keeps the sites its mask
+    names instead of those whose input is above 0."""
     from paddle_tpu_torch import sparse
 
     convs = _conv_layers(net)
-    seen = []
+    seen, relus = [], []
+
+    def relu_hook(m, i, o):
+        v = i[0].values()
+        if masks is None:
+            relus.append((v.detach().cpu(), (v > 0).cpu()))
+            return None
+        keep = masks[len(relus)]
+        relus.append((v.detach().cpu(), keep))
+        return i[0]._replace_values(v * keep.to(v.device, v.dtype))
+
     hooks = [m.register_forward_hook(lambda m, i, o: seen.append(
         (m, i[0], o))) for m in convs]
+    hooks += [m.register_forward_hook(relu_hook) for m in net
+              if isinstance(m, sparse.nn.ReLU)]
     try:
         x = sparse.SparseCooTensor(torch.from_numpy(idx).to(device),
                                    torch.from_numpy(feats).to(device), full)
@@ -9387,18 +9444,32 @@ def _sparse_step(net, idx, feats, full, target, device) -> dict:
         layers.append({"sites": out.indices().cpu(),
                        "in_rows": rb.in_rows.cpu(),
                        "out_rows": rb.out_rows.cpu(), "counts": rb.counts})
-    return {"layers": layers, "bev": bev.detach().cpu(),
-            "loss": float(loss),
+    return {"layers": layers, "relus": relus, "bev": bev.detach().cpu(),
+            "loss": float(loss.detach()),
             "grads": {n: p.grad.detach().cpu()
                       for n, p in net.named_parameters()}}
 
 
 def drive_sparse_parity(cfg: dict, max_voxels: int, device: str,
-                        other: str = "cpu") -> dict:
+                        other: str = "cpu", scan=None,
+                        follow_masks: bool = True) -> dict:
     """A batch-1 step of the encoder on ``device`` against the same step
     on ``other`` (same weights, scan and target): each layer's output
     sites and rulebook pairs, the BEV map's and every gradient's error
-    relative to its largest magnitude on ``other``."""
+    relative to its largest magnitude on ``other``.
+
+    A ReLU is not differentiable at 0, so an input within rounding of 0
+    (the card's atomics sum in any order) can fall on either side, and
+    the gradients then differ by that site's whole term: a 1-ulp change
+    of the scan's features moves the batch-norm bias gradient after the
+    fifth convolution by 1.29e-3 of its largest magnitude on the card
+    alone.  So ``other`` runs with the card's ReLU masks, and the sites
+    where its own inputs would choose otherwise are counted
+    (``relu_flips``) with their largest input relative to the layer's
+    largest (``relu_flip_rel``), which must be within rounding too.
+    ``scan``: ``(indices, features)`` instead of the seeded scan;
+    ``follow_masks=False``: ``other`` on its own ReLU masks
+    (``probe_sparse_parity.py`` compares the two)."""
     from paddle_tpu_torch import device as pdev, rng
 
     rng.seed(0)
@@ -9407,15 +9478,26 @@ def drive_sparse_parity(cfg: dict, max_voxels: int, device: str,
     with pdev.device_guard(device):
         net = second_encoder(cfg)
     net.load_state_dict(ref.state_dict())
-    idx, feats = scan_batch(cfg, 1, max_voxels, seed=100)
+    idx, feats = scan if scan is not None else \
+        scan_batch(cfg, 1, max_voxels, seed=100)
     full = (1,) + tuple(cfg["sparse_shape"]) + (cfg["in_channels"],)
     target = np.random.RandomState(2).standard_normal(
         bev_shape(cfg, 1)).astype(np.float32)
+    got = _sparse_step(net, idx, feats, full, target, device)
     t0 = time.perf_counter()
-    want = _sparse_step(ref, idx, feats, full, target, other)
+    want = _sparse_step(ref, idx, feats, full, target, other,
+                        masks=[keep for _, keep in got["relus"]]
+                        if follow_masks else None)
     res = {"voxels": int(idx.shape[1]),
            "other_step_s": round(time.perf_counter() - t0, 3)}
-    got = _sparse_step(net, idx, feats, full, target, device)
+    flips, flip_rel = [], 0.0
+    for v, keep in want["relus"]:
+        off = (v > 0) != keep
+        flips.append(int(off.sum()))
+        if flips[-1]:
+            flip_rel = max(flip_rel, float(v[off].abs().max())
+                           / max(float(v.abs().max()), 1e-30))
+    res["relu_flips"], res["relu_flip_rel"] = flips, flip_rel
     res["differing_layers"] = [
         i for i, (g, w) in enumerate(zip(got["layers"], want["layers"]))
         if g["counts"] != w["counts"] or not all(
@@ -9452,12 +9534,12 @@ def check_sparse_train(res: dict, parity: dict, shape: dict) -> None:
                              f"{parity['differing_layers']} differ in sites "
                              f"or rulebook pairs between the card and the "
                              f"CPU")
-    worst = max([parity["bev_rel_err"]] + list(
+    worst = max([parity["bev_rel_err"], parity["relu_flip_rel"]] + list(
         parity["grad_rel_err"].values()))
     if worst > SPARSE_PARITY_TOLERANCE:
-        raise AssertionError(f"sparse_train: BEV map or gradient error "
-                             f"{worst} of the largest magnitude, above "
-                             f"{SPARSE_PARITY_TOLERANCE}")
+        raise AssertionError(f"sparse_train: BEV map, gradient or ReLU "
+                             f"flip error {worst} of the largest "
+                             f"magnitude, above {SPARSE_PARITY_TOLERANCE}")
 
 
 def phase_sparse_train(cfg: dict = SECOND, shape: dict = SECOND_TRAIN,
@@ -9473,7 +9555,10 @@ def phase_sparse_train(cfg: dict = SECOND, shape: dict = SECOND_TRAIN,
     layer, peak memory, the idle share over 2 traced steps; then a batch-1
     step against the CPU (TF32 off): every layer's sites and rulebook
     pairs equal, the BEV map and every gradient within
-    ``SPARSE_PARITY_TOLERANCE`` of their largest magnitude."""
+    ``SPARSE_PARITY_TOLERANCE`` of their largest magnitude, the CPU on the
+    card's ReLU masks (:func:`drive_sparse_parity`) and every ReLU input
+    where they differ from its own within that share of its layer's
+    largest."""
     t0 = time.perf_counter()
     res = drive_sparse_train(cfg, shape, device)
     res["train_s"] = round(time.perf_counter() - t0, 3)
@@ -9783,6 +9868,366 @@ def phase_distributions(device: str = "cuda") -> dict:
     return res
 
 
+
+# -- phases 34 and 35: the static program mode and the extension points --------
+
+#: GPT-2 345M trained through the static program mode, at full width, f32
+STATIC_TRAIN = {"config": "gpt2-345m", "batch": 8, "seq": 1024, "steps": 12,
+                "eager_steps": 3, "lr": 1e-4}
+#: the CPU rehearsal's model (tests/test_torch_static_program.py)
+STATIC_TINY = {"config": "tiny"}
+#: the program's first losses against the eager model's, relative
+STATIC_LOSS_RTOL = 1e-5
+#: the loaded inference program's logits against the live program's
+STATIC_INFER_TOL = 1e-4
+#: the static_train and extensions phases' budgets, seconds
+STATIC_BUDGET_S, EXTENSIONS_BUDGET_S = 60, 15
+
+
+def static_gpt(cfg: dict, device):
+    """GPT (dropout 0) with weights drawn from seed 0 on ``device``."""
+    from paddle_tpu_torch import models
+
+    config = models.GPT_CONFIGS[cfg["config"]](
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return models.GPTForCausalLM(config, device=device, generator=gen)
+
+
+def static_kernel_calls(stats) -> dict:
+    """Calls of K1-K3's f32 instances in a profile's device table, by
+    kernel (names demangled or not)."""
+    out = {n: 0 for n in TRAIN_KERNELS}
+    for name, ev in stats.device.items():
+        label = kernel_label(name)
+        for n in TRAIN_KERNELS:
+            if re.search(rf"\b{n}_kernel<(float|f32)\b", label):
+                out[n] += ev.call
+    return out
+
+
+def profile_static_steps(exe, main, loss, batches, root: str,
+                         ready: int = 1) -> dict:
+    """Steps under the ported ``Profiler``: CLOSED, ``ready`` READY (the
+    tracer's warm-up), RECORD, RECORD_AND_RETURN, each in a
+    ``RecordEvent("static_step")``; its host and device tables' counts and
+    the window's device busy share."""
+    from paddle_tpu_torch import profiler
+
+    prof = profiler.Profiler(
+        targets=[profiler.ProfilerTarget.CPU, profiler.ProfilerTarget.GPU],
+        scheduler=profiler.make_scheduler(closed=1, ready=ready, record=2,
+                                          repeat=1),
+        on_trace_ready=profiler.export_chrome_tracing(root))
+    prof.start()
+    for x, y in batches[:3 + ready]:
+        with profiler.RecordEvent("static_step"):
+            exe.run(main, feed={"input_ids": x, "labels": y},
+                    fetch_list=[loss])
+        prof.step()
+    prof.stop()
+    stats = prof.statistic_data()
+    prof.summary(row_limit=8)
+    step = stats.host.get("static_step")
+    return {"trace": prof.chrome_trace_path,
+            "static_step_calls": step.call if step else 0,
+            "kernel_calls": static_kernel_calls(stats),
+            "device_busy_ms": round(stats.device_busy_us / 1e3, 3),
+            "wall_ms": round(stats.wall_us / 1e3, 3),
+            "idle_share": round(1 - stats.device_busy_us / stats.wall_us, 4)}
+
+
+def drive_static_train(cfg: dict, batch: int, seq: int, device: str,
+                       steps: int, eager_steps: int, lr: float = 1e-4,
+                       profile: bool = False) -> dict:
+    """GPT through the static program mode: the eager model's first
+    ``eager_steps`` AdamW steps on seeded batches; then the same model
+    (same seed) built under ``enable_static()`` and ``program_guard``,
+    ``static.data`` feeds ``[batch, seq]``, ``AdamW(None).minimize(loss)``
+    and ``steps`` ``Executor.run`` calls on the same batches (launch counts
+    and step times of these); ``profile``: four more steps under the
+    ``Profiler``; then a forward-only program at batch 1 through
+    ``save_inference_model`` and ``load_inference_model`` onto the device,
+    its logits against the live program's."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    t_start = time.perf_counter()
+    vocab = pt.models.GPT_CONFIGS[cfg["config"]]().vocab_size
+    rs = np.random.RandomState(1)
+    batches = [(rs.randint(0, vocab, (batch, seq)).astype(np.int64),
+                rs.randint(0, vocab, (batch, seq)).astype(np.int64))
+               for _ in range(max(steps, 4))]
+    ref = static_gpt(cfg, dev)
+    opt = AdamW(ref.parameters(), lr=lr)
+    eager = []
+    for x, y in batches[:eager_steps]:
+        loss = ref.compute_loss(torch.from_numpy(x).to(dev),
+                                torch.from_numpy(y).to(dev))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        eager.append(float(loss.detach()))
+    del ref, opt, loss
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pt.enable_static()
+    try:
+        main, startup = static.Program(), static.Program()
+        with pt.device_guard(dev), static.program_guard(main, startup):
+            model = static_gpt(cfg, dev)
+            ids = static.data("input_ids", [batch, seq], "int64")
+            labels = static.data("labels", [batch, seq], "int64")
+            loss = model.compute_loss(ids, labels)
+            AdamW(None, lr=lr).minimize(loss)
+    finally:
+        pt.disable_static()
+    record_s = time.perf_counter() - t0
+    exe = static.Executor()
+    exe.run(startup)
+    kernels.reset_launches()
+    losses, ms = [], []
+    for x, y in batches[:steps]:
+        t0 = time.perf_counter()
+        lv, = exe.run(main, feed={"input_ids": x, "labels": y},
+                      fetch_list=[loss])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(lv))
+    launches = kernels.launch_counts()
+    step_fn, = main._train_cache.values()
+    res = {"model": cfg["config"], "params": sum(
+               p.numel() for p in model.parameters()),
+           "layers": model.config.num_hidden_layers, "batch": batch,
+           "seq": seq, "steps": steps, "ops": len(main.ops),
+           "leaves": len(main._leaves), "record_s": round(record_s, 3),
+           "eager_losses": eager, "losses": losses,
+           "loss_rel_err": max(abs(a - b) / abs(b)
+                               for a, b in zip(losses, eager)),
+           "train_programs": len(main._train_cache),
+           "captures": step_fn.captures, "hits": step_fn.hits,
+           "launches": {n: launches.get(n, 0) for n in TRAIN_KERNELS},
+           "step_ms_each": [round(m, 3) for m in ms],
+           # the first two calls build the program (eager, then capture)
+           "step_ms": _quartiles(ms[2:] if len(ms) > 4 else ms)}
+    res["tokens_per_s"] = round(batch * seq / (res["step_ms"]["median"]
+                                               / 1e3), 1)
+    if cuda:
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if profile:
+        with tempfile.TemporaryDirectory() as root:
+            res["profile"] = profile_static_steps(exe, main, loss, batches,
+                                                  root)
+            # the same window without the warm-up step (not held: what a
+            # cold start of the tracer loses)
+            res["profile_cold"] = profile_static_steps(
+                exe, main, loss, batches, root, ready=0)
+    pt.enable_static()
+    try:
+        infer = static.Program()
+        with pt.device_guard(dev), static.program_guard(infer):
+            ids1 = static.data("input_ids", [1, seq], "int64")
+            logits = model(ids1)
+    finally:
+        pt.disable_static()
+    x1 = batches[0][0][:1]
+    live, = exe.run(infer, feed={"input_ids": x1}, fetch_list=[logits])
+    with tempfile.TemporaryDirectory() as root:
+        prefix = os.path.join(root, "gpt")
+        t0 = time.perf_counter()
+        static.save_inference_model(prefix, [ids1], [logits], exe,
+                                    program=infer)
+        res["save_s"] = round(time.perf_counter() - t0, 3)
+        prog, names, fetches = static.load_inference_model(
+            prefix, static.Executor(), device=dev)
+    kernels.reset_launches()
+    got, = exe.run(prog, feed={"input_ids": x1}, fetch_list=fetches)
+    res["infer_launches"] = kernels.launch_counts().get("flash_fwd", 0)
+    res["infer_shape"] = list(got.shape)
+    res["infer_err"] = float(np.abs(got - live).max())
+    res["infer_finite"] = bool(np.isfinite(got).all())
+    res["seconds"] = round(time.perf_counter() - t_start, 3)
+    return res
+
+
+def check_static_train(res: dict, layers: int, steps: int) -> None:
+    holds = {
+        "losses": res["loss_rel_err"] <= STATIC_LOSS_RTOL,
+        "one_capture": res["train_programs"] == 1 and res["captures"] == 1,
+        "launches": all(res["launches"][n] == layers * steps
+                        for n in TRAIN_KERNELS),
+        "profile": res["profile"]["static_step_calls"] == 2 and all(
+            c == 2 * layers
+            for c in res["profile"]["kernel_calls"].values()),
+        "inference": res["infer_err"] <= STATIC_INFER_TOL
+        and res["infer_finite"] and res["infer_launches"] == layers}
+    emit("static_train_holds", **holds)
+    broken = [k for k, ok in holds.items() if not ok]
+    if broken:
+        raise AssertionError(f"static_train: {broken} do not hold")
+
+
+def phase_static_train() -> dict:
+    """GPT-2 345M (f32, TF32 off) trained through ``Executor.run``
+    (``STATIC_TRAIN``): the first 3 losses within ``STATIC_LOSS_RTOL`` of
+    the eager model's, one train program and one capture, K1-K3's f32
+    instances 24 launches a step; step ms (median and quartiles after the
+    two build calls), tokens/s, peak; four more steps under the
+    ``Profiler`` (``static_step`` exactly 2 calls, each of K1-K3 exactly
+    48, the window's idle share); the batch-1 inference program saved and
+    loaded onto the card, its logits against the live program's and K1
+    launching."""
+    c = STATIC_TRAIN
+    res = drive_static_train(c, c["batch"], c["seq"], "cuda", c["steps"],
+                             c["eager_steps"], c["lr"], profile=True)
+    emit("static_train", dtype="float32", tf32=False,
+         budget_s=STATIC_BUDGET_S, **res)
+    check_static_train(res, res["layers"], c["steps"])
+    return res
+
+
+#: the C++ source of tests/test_custom_kernel.py (read from the file: the
+#: test module imports the JAX package)
+def custom_kernel_cpp_src() -> str:
+    text = open(os.path.join("tests", "test_custom_kernel.py")).read()
+    return re.search(r'CPP_SRC = r"""(.*?)"""', text, re.S).group(1)
+
+
+HUBCONF = """
+import torch
+import paddle_tpu_torch as pt
+
+
+def tiny_mlp(hidden=8):
+    \"\"\"A 4 -> hidden -> 3 MLP of the port's layers, on the current
+    device.\"\"\"
+    return pt.nn.Sequential(pt.nn.Linear(4, hidden), pt.nn.ReLU(),
+                            pt.nn.Linear(hidden, 3))
+"""
+
+
+def drive_extensions(device: str, root: str) -> dict:
+    """The extension points on ``device``: a ``register_op`` with a
+    ``vjp`` eagerly and in a ``to_static`` program (on the card its
+    capture and replays), gradients equal; a ``register_kernel`` for
+    ``"relu"`` on the gpu backend taken by CUDA tensors only; a
+    ``cpp_extension`` op against ``F.softsign`` and refused in a capture
+    (``CaptureError`` naming it); ``hub.load`` of a local hubconf."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import hub, jit
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.utils import (cpp_extension, register_kernel,
+                                        register_op, unregister_kernel)
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    out = {}
+    cube = register_op("smoke_cube", lambda x: x ** 3,
+                       vjp=lambda xs, g: (3 * xs[0] ** 2 * g,))
+    x = torch.linspace(-2, 2, 4096, device=dev)
+
+    def value_and_grad(t):
+        t = t.detach().requires_grad_()
+        y = cube(t)
+        g, = torch.autograd.grad(y.sum(), t)
+        return y.detach(), g
+
+    want_y, want_g = value_and_grad(x)
+    compiled = jit.to_static(value_and_grad)
+    errs = []
+    for i in range(3):                       # eager, capture, replay
+        y, g = compiled(x + 0.0 * i)
+        errs.append(max(float((y - want_y).abs().max()),
+                        float((g - want_g).abs().max())))
+    out["register_op"] = {"max_abs_err": max(errs),
+                          "captures": compiled.captures,
+                          "grad_vs_3x2": float((want_g - 3 * x ** 2)
+                                               .abs().max())}
+    unregister_kernel("smoke_cube")
+    register_kernel("relu", lambda x, name=None: x * 0.0 + 42.0,
+                    backend="gpu")
+    try:
+        on_card = F.relu(torch.tensor([-1.0, 5.0], device=dev))
+        on_cpu = F.relu(torch.tensor([-1.0, 5.0]))
+    finally:
+        unregister_kernel("relu", backend="gpu")
+    out["register_kernel"] = {"card": on_card.tolist(),
+                              "cpu": on_cpu.tolist()}
+    src = os.path.join(root, "my_ops.cc")
+    with open(src, "w") as f:
+        f.write(custom_kernel_cpp_src())
+    t0 = time.perf_counter()
+    ext = cpp_extension.load("smoke_ops", [src],
+                             functions={"twice_plus_one": {},
+                                        "softsign_ref": {}},
+                             build_directory=root)
+    out["cpp_build_s"] = round(time.perf_counter() - t0, 3)
+    v = torch.randn(4096, generator=torch.Generator().manual_seed(0)) \
+        .to(dev)
+    out["cpp_softsign_err"] = float((ext.softsign_ref(v) - F.softsign(v))
+                                    .abs().max())
+    out["cpp_device"] = str(ext.softsign_ref(v).device)
+    twice = jit.to_static(lambda t: ext.twice_plus_one(t) * 2.0)
+    first = twice(v)
+    out["cpp_eager_err"] = float((first - (2 * v + 1) * 2).abs().max())
+    refused = None
+    if cuda:
+        try:
+            twice(v)
+        except jit.CaptureError as e:
+            refused = str(e)
+    out["cpp_capture_refused"] = refused
+    hub_dir = os.path.join(root, "hub")
+    os.makedirs(hub_dir)
+    with open(os.path.join(hub_dir, "hubconf.py"), "w") as f:
+        f.write(HUBCONF)
+    with pt.device_guard(device):
+        net = hub.load(hub_dir, "tiny_mlp", hidden=16)
+    out["hub"] = {"entries": hub.list(hub_dir),
+                  "device": str(net.parameters()[0].device),
+                  "out_shape": list(net(torch.ones(2, 4, device=dev))
+                                    .shape)}
+    return out
+
+
+def check_extensions(res: dict, cuda: bool) -> None:
+    holds = {
+        "register_op": res["register_op"]["max_abs_err"] <= 1e-6
+        and res["register_op"]["grad_vs_3x2"] <= 1e-5
+        and res["register_op"]["captures"] == (1 if cuda else 0),
+        "register_kernel": res["register_kernel"]["card" if cuda else "cpu"]
+        == ([42.0, 42.0] if cuda else [0.0, 5.0])
+        and res["register_kernel"]["cpu"] == [0.0, 5.0],
+        "cpp_extension": res["cpp_softsign_err"] <= 1e-6
+        and res["cpp_eager_err"] <= 1e-6,
+        "cpp_capture_refused": not cuda or (
+            res["cpp_capture_refused"] is not None
+            and "smoke_ops.twice_plus_one" in res["cpp_capture_refused"]),
+        "hub": res["hub"]["entries"] == ["tiny_mlp"]
+        and res["hub"]["out_shape"] == [2, 3]}
+    emit("extensions_holds", **holds)
+    broken = [k for k, ok in holds.items() if not ok]
+    if broken:
+        raise AssertionError(f"extensions: {broken} do not hold")
+
+
+def phase_extensions() -> dict:
+    """``drive_extensions`` on the card (module docstring, phase 35)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        res = drive_extensions("cuda", root)
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit("extensions", budget_s=EXTENSIONS_BUDGET_S, **res)
+    check_extensions(res, True)
+    return res
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -9904,13 +10349,22 @@ def main() -> int:
     phase_signal_fft()
     phase_distributions()
     slice_s = round(time.perf_counter() - t_slice, 3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_static = time.perf_counter()
+    static = phase_static_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_extensions()
+    static_s = round(time.perf_counter() - t_static, 3)
     launches = {**paged["launches"],
                 **{n: train["launches"][n] for n in TRAIN_KERNELS},
                 **{n: recipe[n] for n in RECIPE_KERNELS},
                 **{n: fp16[n] for n in F16_KERNELS + F16_DROPOUT_KERNELS},
                 **{n: f16["llama2-7b"][n] for n in F16_SERVE_KERNELS},
                 "graph_conditional":
-                    generate["launches"].get("graph_conditional", 0)}
+                    generate["launches"].get("graph_conditional", 0),
+                **{f"{n}_f32": static["launches"][n] for n in TRAIN_KERNELS}}
     records["graph_conditional"] = generate["record"]
     by_phase = {"serve_paged": paged["launches"],
                 "serve_mesh": meshed,
@@ -9935,14 +10389,17 @@ def main() -> int:
                 "train_recipe": recipe,
                 "train_resilience": train_res,
                 "nn_encoder": nn_enc["train_launches"],
-                "hapi_fit": hapi["fit_launches"]}
+                "hapi_fit": hapi["fit_launches"],
+                "static_train": {**static["launches"], **{
+                    f"{n}_f32": c for n, c in static["launches"].items()}}}
     kernels_line = [{**rec, "launches": launches[name],
                      "launches_by_phase": {ph: c[name]
                                            for ph, c in by_phase.items()
                                            if c.get(name)}}
                     for name, rec in records.items()]
     emit("done", seconds=round(time.perf_counter() - t_start, 3),
-         sparse_signal_distribution_seconds=slice_s)
+         sparse_signal_distribution_seconds=slice_s,
+         static_extensions_seconds=static_s)
     print(CARD)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {

@@ -49,6 +49,12 @@ the datasets, the detection operators and the image backend, and
 COO/CSR tensors and the sparse 3-D convolutions (their rulebooks built
 on the card), :mod:`fft` and :mod:`signal` the transforms and the STFT,
 :mod:`distribution` the distributions, transforms and KL registry.
+:func:`enable_static` turns on the program mode of :mod:`static`
+(``Program``, ``Executor``, the ``static.nn`` builders, ``minimize`` on a
+program, inference save and load); :mod:`profiler` has the ``Profiler``
+over ``torch.profiler``; :mod:`custom_kernel` (``utils.register_op``,
+``register_kernel``), ``utils.cpp_extension``, :mod:`hub` and
+:mod:`onnx` are the extension points.
 Everything runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (for :mod:`nn`'s layers, :func:`set_device` or
 :func:`device_guard` with ``"cpu"``; with no card, building on the
@@ -60,10 +66,11 @@ from .ops import *  # noqa: F401,F403 — the paddle.* op surface
 from .ops import linalg
 from .tensor import *  # noqa: F401,F403 — dtypes, to_tensor, helpers
 from . import (  # noqa: E402
-    amp, autograd, device, distributed, distribution, fft, flags, framework,
-    hapi, incubate, inference, io, jit, metric, models, nn, obs, ops,
-    optimizer, profiler, regularizer, rng, serving, signal, sparse, static,
-    sysconfig, text, utils, version, vision,
+    amp, autograd, custom_kernel, device, distributed, distribution, fft,
+    flags, framework, hapi, hub, incubate, inference, io, jit, metric,
+    models, nn, obs, onnx, ops, optimizer, profiler, regularizer, rng,
+    serving, signal, sparse, static, sysconfig, text, utils, version,
+    vision,
 )
 from .batch import batch  # noqa: E402
 from .device import device_guard, get_device, set_device  # noqa: E402
@@ -74,12 +81,12 @@ from .rng import get_rng_state, seed, set_rng_state  # noqa: E402
 from .training import build_train_step  # noqa: E402
 
 __all__ = ["Model", "amp", "autograd", "batch", "build_train_step",
-           "callbacks", "create_engine", "define_flag", "device",
-           "device_guard", "distributed", "distribution", "fft", "flags",
-           "flops", "framework",
-           "get_device", "get_flags", "get_rng_state", "hapi", "incubate",
+           "callbacks", "create_engine", "custom_kernel", "define_flag",
+           "device", "device_guard", "distributed", "distribution", "fft",
+           "flags", "flops", "framework", "get_device", "get_flags",
+           "get_rng_state", "hapi", "hub", "incubate",
            "inference", "io", "jit", "linalg", "metric", "models", "nn",
-           "obs", "ops", "optimizer", "profiler", "regularizer", "rng",
+           "obs", "onnx", "ops", "optimizer", "profiler", "regularizer", "rng",
            "seed", "serving", "set_device", "set_flags", "set_rng_state",
            "signal", "sparse", "static", "summary", "sysconfig", "text",
            "utils", "version", "vision"] \

@@ -38,6 +38,8 @@ from typing import Any, List
 
 import torch
 
+from ..ops import _helpers
+
 __all__ = ["PyLayer", "PyLayerContext", "LegacyPyLayer"]
 
 
@@ -156,6 +158,13 @@ class PyLayer(metaclass=PyLayerMeta):
 
     @classmethod
     def apply(cls, *args, **kwargs):
+        """Run the layer: its ``forward``, with its ``backward`` as the
+        gradient; a recording static program takes the call as one op."""
+        return _helpers.one_op(cls.__name__, cls.apply, cls._apply, args,
+                               kwargs)
+
+    @classmethod
+    def _apply(cls, *args, **kwargs):
         pctx = PyLayerContext()
         slots = [i for i, a in enumerate(args) if _requires_grad(a)]
         if not (torch.is_grad_enabled() and slots):

@@ -500,6 +500,8 @@ def _capture_error(fn, e: BaseException) -> CaptureError:
     text = " | ".join(str(x) for x in (e, e.__context__) if x is not None)
     if isinstance(e, Dy2StaticError):
         cause = "its control flow could not be converted"
+    elif isinstance(e, CaptureError):
+        cause = "an op of its body refused the capture"
     elif "captur" in text:
         cause = ("its body reads a device value on the host or "
                  "synchronizes (.item(), float(), int(), bool(), .tolist(), "

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 from torch.nn import functional as TF
+from ...ops._helpers import wrap_public
 
 __all__ = [
     "relu", "relu6", "relu_", "elu", "elu_", "selu", "celu", "gelu", "silu",
@@ -185,3 +186,6 @@ def sigmoid(x, name=None):
 
 def tanh(x, name=None):
     return torch.tanh(x)
+
+
+wrap_public(globals())

@@ -26,6 +26,7 @@ from torch.nn import functional as TF
 
 from ... import rng as rng_mod
 from ...amp.auto_cast import amp_op
+from ...ops._helpers import wrap_public
 
 __all__ = [
     "linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
@@ -379,3 +380,6 @@ def npair_loss(anchor, positive, labels, l2_reg=0.002):
     reg = l2_reg * (anchor.square().sum(dim=1).mean()
                     + positive.square().sum(dim=1).mean()) / 2
     return ce + reg
+
+
+wrap_public(globals())

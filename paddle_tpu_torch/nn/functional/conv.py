@@ -31,6 +31,7 @@ from torch.nn import functional as TF
 
 from ...amp.auto_cast import amp_op
 from .common import _ntuple
+from ...ops._helpers import wrap_public
 
 __all__ = ["conv1d", "conv2d", "conv3d",
            "conv1d_transpose", "conv2d_transpose", "conv3d_transpose"]
@@ -173,3 +174,6 @@ def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
                      output_size=None, data_format="NCDHW", name=None):
     return _CONV_T_OPS[3](x, weight, bias, stride, padding, output_padding,
                           dilation, groups, data_format, 3)
+
+
+wrap_public(globals())

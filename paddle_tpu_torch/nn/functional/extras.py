@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from ...ops._helpers import wrap_public
 
 __all__ = [
     "affine_grid", "bilinear", "diag_embed", "gather_tree", "grid_sample",
@@ -181,3 +182,6 @@ def sparse_attention(query, key, value, sparse_csr_offset,
 
 def tanh_(x, name=None):
     return x.tanh_()
+
+
+wrap_public(globals())

@@ -20,6 +20,7 @@ import torch
 from torch.nn import functional as TF
 
 from ...amp.auto_cast import amp_op
+from ...ops._helpers import wrap_public
 
 __all__ = [
     "cross_entropy", "softmax_with_cross_entropy", "mse_loss", "l1_loss",
@@ -284,3 +285,6 @@ def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
         return (loss / torch.clamp(label_lengths.to(loss.dtype),
                                    min=1.0)).mean()
     return _reduce(loss, reduction)
+
+
+wrap_public(globals())

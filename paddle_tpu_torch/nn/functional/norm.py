@@ -33,6 +33,7 @@ import torch
 from torch.nn import functional as TF
 
 from ...amp.auto_cast import amp_op
+from ...ops._helpers import wrap_public
 
 __all__ = [
     "batch_norm", "layer_norm", "instance_norm", "group_norm", "normalize",
@@ -206,3 +207,6 @@ def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
     pads = [0, 0] * (x.dim() - 1 - ch) + [half, size - 1 - half]
     summed = TF.pad(x.square(), pads).unfold(ch, size, 1).sum(dim=-1)
     return x / torch.pow(k + alpha * summed, beta)
+
+
+wrap_public(globals())

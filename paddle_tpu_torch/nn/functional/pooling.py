@@ -29,6 +29,7 @@ from torch.nn import functional as TF
 
 from .common import _ntuple
 from .conv import _flat, _resolve_padding, _same_pads
+from ...ops._helpers import wrap_public
 
 __all__ = [
     "avg_pool1d", "avg_pool2d", "avg_pool3d",
@@ -234,3 +235,6 @@ def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
 
 def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
     return _adaptive(x, 3, output_size, "max", "NCDHW", return_mask)
+
+
+wrap_public(globals())

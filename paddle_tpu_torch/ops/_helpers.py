@@ -7,10 +7,18 @@ records, so there is no wrap, unwrap or op-recording hook.  Paddle's dtype
 names map to ``torch.dtype`` (:func:`convert_dtype`); the port keeps
 64-bit integers where the JAX package, running with x64 off, narrows them
 to 32 bits.
+
+Every public op function passes through :func:`public_op` (applied to a
+module's ``__all__`` by :func:`wrap_public`): the one place where a
+kernel registered for the op (``custom_kernel.register_kernel``)
+replaces the op's own, and where a recording static program
+(:mod:`..static.program`) takes the call as one op.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+import functools
+import types
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,7 +27,9 @@ from ..device import _parse, current_device
 
 __all__ = ["convert_dtype", "get_default_dtype", "set_default_dtype",
            "as_int_list", "norm_axis", "dims", "device_of", "as_tensor",
-           "check_host_read", "paddle_reshape_shape"]
+           "check_host_read", "paddle_reshape_shape", "public_op",
+           "wrap_public", "backend_of", "one_op", "recorded",
+           "KERNEL_OVERRIDES"]
 
 _DTYPES = {
     "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -151,3 +161,73 @@ def paddle_reshape_shape(orig_shape, shape) -> List[int]:
     """Paddle's reshape rule: 0 keeps the original dim, -1 is inferred."""
     return [orig_shape[i] if isinstance(s, int) and s == 0 else s
             for i, s in enumerate(as_int_list(shape))]
+
+
+# -- the op boundary ------------------------------------------------------------
+
+#: ``(op name, backend or None) -> kernel`` that replaces the op's own
+#: (``custom_kernel.register_kernel``); a backend is ``"gpu"`` or ``"cpu"``
+KERNEL_OVERRIDES: Dict[Tuple[str, Optional[str]], Callable] = {}
+
+#: the static program recorder (``static.program._op_hook``) while static
+#: mode is on, else None: ``hook(name, op, impl, args, kwargs)`` runs
+#: ``impl`` and, while a program records, takes the call as one op that
+#: replays through ``op``
+record_hook: Optional[Callable] = None
+
+
+def backend_of(args, kwargs) -> Optional[str]:
+    """The backend of a call: ``"gpu"`` when its first tensor argument (in
+    the arguments or a list of them) lies on a CUDA device, else that
+    tensor's device type; None without a tensor."""
+    for a in (*args, *kwargs.values()):
+        for x in (a if isinstance(a, (list, tuple)) else (a,)):
+            if isinstance(x, torch.Tensor):
+                return "gpu" if x.is_cuda else x.device.type
+    return None
+
+
+def one_op(name: str, op: Callable, impl: Callable, args, kwargs):
+    """``impl(*args, **kwargs)``; while a static program records, the call
+    is one op of it that replays through ``op``."""
+    hook = record_hook
+    if hook is not None:
+        return hook(name, op, impl, args, kwargs)
+    return impl(*args, **kwargs)
+
+
+def recorded(name: str) -> Callable:
+    """Decorator: a call of the function is :func:`one_op` ``name``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def op(*args, **kwargs):
+            return one_op(name, op, fn, args, kwargs)
+        return op
+    return deco
+
+
+def public_op(name: str, fn: Callable) -> Callable:
+    """``fn`` as the public op ``name``: a kernel registered for
+    ``(name, backend of the call)`` or ``(name, None)`` runs in its place,
+    and a recording static program records the call as one op."""
+    @functools.wraps(fn)
+    def op(*args, **kwargs):
+        impl = fn
+        if KERNEL_OVERRIDES:
+            impl = KERNEL_OVERRIDES.get((name, backend_of(args, kwargs))) \
+                or KERNEL_OVERRIDES.get((name, None)) or fn
+        return one_op(name, op, impl, args, kwargs)
+
+    op.public_op = name
+    return op
+
+
+def wrap_public(namespace: dict) -> None:
+    """Pass every function of ``namespace["__all__"]`` through
+    :func:`public_op` (in place, so the module's own calls go through it
+    too)."""
+    for name in namespace["__all__"]:
+        fn = namespace.get(name)
+        if isinstance(fn, types.FunctionType) and \
+                not hasattr(fn, "public_op"):
+            namespace[name] = public_op(name, fn)

@@ -55,6 +55,7 @@ from typing import Optional, Tuple
 from .. import rng as rng_mod
 from ..amp.auto_cast import amp_op
 from . import kernels
+from ._helpers import public_op
 from .cached_attention import NEG_INF
 
 __all__ = ["flash_attention", "flash_fwd", "supports"]
@@ -364,3 +365,6 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
     if kernel == "cuda":
         return flash_fwd(query, key, value, is_causal, p, rng)[0]
     return _flash_fwd_reference(query, key, value, is_causal, p, rng)[0]
+
+
+flash_attention = public_op("flash_attention", flash_attention)

@@ -12,6 +12,7 @@ import torch
 
 from ._helpers import as_int_list, as_tensor, convert_dtype, device_of, \
     get_default_dtype
+from ._helpers import wrap_public
 
 __all__ = ["zeros", "ones", "full", "empty", "zeros_like", "ones_like",
            "full_like", "empty_like", "arange", "linspace", "logspace", "eye",
@@ -159,3 +160,6 @@ def triu_indices(row, col=None, offset=0, dtype="int64", device=None):
 
 def complex(real, imag, name=None):
     return torch.complex(real, imag)
+
+
+wrap_public(globals())

@@ -30,6 +30,7 @@ import torch
 
 from .. import rng as rng_mod
 from ..amp.auto_cast import amp_op
+from ._helpers import wrap_public
 
 __all__ = ["fused_linear_cross_entropy",
            "fused_bias_dropout_residual_layer_norm"]
@@ -155,3 +156,6 @@ def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
     if ln_bias is not None:
         out = out + ln_bias
     return out
+
+
+wrap_public(globals())

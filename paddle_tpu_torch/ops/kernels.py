@@ -46,6 +46,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ._helpers import recorded
+
 __all__ = ["KERNELS", "build", "reset_launches", "launch_counts",
            "add_launches", "paged_decode", "paged_prefill", "flash_fwd",
            "flash_bwd_dkv", "flash_bwd_dq", "graph_stream",
@@ -427,6 +429,7 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
+@recorded("paged_decode")
 def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  block_tables: torch.Tensor,
                  lengths: torch.Tensor) -> torch.Tensor:
@@ -478,6 +481,7 @@ def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     return out
 
 
+@recorded("paged_prefill")
 def paged_prefill(q: torch.Tensor, k_pool: torch.Tensor,
                   v_pool: torch.Tensor, block_row: torch.Tensor,
                   start: torch.Tensor) -> torch.Tensor:
@@ -578,6 +582,7 @@ def _dropout_args(what: str, q: torch.Tensor, dropout_p: float,
         "_dropout"
 
 
+@recorded("flash_fwd")
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, dropout_p: float = 0.0,
               rng: Optional[torch.Tensor] = None):
@@ -608,6 +613,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+@recorded("flash_bwd_dkv")
 def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   causal: bool = True, dropout_p: float = 0.0,
@@ -642,6 +648,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dk, dv
 
 
+@recorded("flash_bwd_dq")
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  causal: bool = True, dropout_p: float = 0.0,

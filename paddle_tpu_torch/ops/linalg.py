@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ._helpers import check_host_read
+from ._helpers import wrap_public
 
 __all__ = ["matmul", "bmm", "mm", "mv", "dot", "einsum", "norm", "dist",
            "cross", "cholesky", "cholesky_solve", "inv", "inverse", "det",
@@ -232,3 +233,6 @@ def lu_unpack(x, y, unpack_ludata=True, unpack_pivots=True, name=None):
     if unpack_ludata:
         outs += [L, U]
     return tuple(outs)
+
+
+wrap_public(globals())

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from .math import _pair
+from ._helpers import wrap_public
 
 __all__ = ["equal", "not_equal", "greater_than", "greater_equal",
            "less_than", "less_equal", "logical_and", "logical_or",
@@ -57,3 +58,6 @@ def is_empty(x, name=None):
 
 def is_tensor(x) -> bool:
     return isinstance(x, torch.Tensor)
+
+
+wrap_public(globals())

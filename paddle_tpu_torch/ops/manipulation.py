@@ -22,6 +22,7 @@ import torch
 
 from ._helpers import as_int_list, as_tensor, check_host_read, \
     convert_dtype, device_of, paddle_reshape_shape
+from ._helpers import wrap_public
 
 __all__ = [
     "cast", "astype", "reshape", "reshape_", "flatten", "transpose", "t",
@@ -453,3 +454,6 @@ def crop(x, shape=None, offsets=None, name=None):
         o = max(0, min(o, x.shape[d] - s))
         x = x.narrow(d, o, s)
     return x
+
+
+wrap_public(globals())

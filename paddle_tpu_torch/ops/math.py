@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ._helpers import as_tensor, convert_dtype, dims, norm_axis
+from ._helpers import wrap_public
 
 __all__ = [
     "add", "subtract", "multiply", "divide", "floor_divide", "remainder",
@@ -388,3 +389,6 @@ def diff(x, n=1, axis=-1, prepend=None, append=None, name=None):
         append = as_tensor(append, x)
     return torch.diff(x, n, axis, prepend, append)
 
+
+
+wrap_public(globals())

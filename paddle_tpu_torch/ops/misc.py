@@ -14,6 +14,7 @@ import torch
 from ._helpers import as_int_list
 from .linalg import lu_unpack
 from .math import _quantile
+from ._helpers import wrap_public
 
 __all__ = [
     "add_n", "broadcast_shape", "check_shape", "diagonal", "is_complex",
@@ -214,3 +215,6 @@ def put_along_axis_(arr, indices, values, axis, reduce="assign", name=None):
 
     return arr.copy_(put_along_axis(arr, indices, values, axis,
                                     reduce=reduce))
+
+
+wrap_public(globals())

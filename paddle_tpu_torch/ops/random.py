@@ -20,6 +20,7 @@ import torch
 from .. import rng
 from ._helpers import as_int_list, convert_dtype, device_of, \
     get_default_dtype
+from ._helpers import wrap_public
 
 __all__ = ["rand", "randn", "standard_normal", "normal", "uniform",
            "randint", "randint_like", "randperm", "bernoulli", "poisson",
@@ -249,3 +250,6 @@ def rand_like(x, dtype=None, name=None):
 
 def randn_like(x, dtype=None, name=None):
     return _randn(list(x.shape), convert_dtype(dtype) or x.dtype, x.device)
+
+
+wrap_public(globals())

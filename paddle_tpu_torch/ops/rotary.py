@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from ._helpers import wrap_public
+
 __all__ = ["rotary_embedding"]
 
 
@@ -41,3 +43,6 @@ def rotary_embedding(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
         return (xf * c + _rotate_half(xf) * s).to(x.dtype)
 
     return rot(q), rot(k)
+
+
+wrap_public(globals())

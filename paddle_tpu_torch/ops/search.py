@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ._helpers import check_host_read, convert_dtype
+from ._helpers import wrap_public
 
 __all__ = ["argmax", "argmin", "argsort", "sort", "topk", "kthvalue",
            "mode", "nonzero", "where", "masked_scatter", "searchsorted",
@@ -127,3 +128,6 @@ def index_fill(x, index, axis, value, name=None):
         torch.as_tensor(index, dtype=torch.int64)
     index = torch.where(index < 0, index + x.shape[axis], index)
     return x.index_fill(axis, index.to(x.device).reshape(-1), value)
+
+
+wrap_public(globals())

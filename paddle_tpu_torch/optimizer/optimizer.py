@@ -93,13 +93,24 @@ class Optimizer(torch.optim.Optimizer):
     """The base: ``params`` are tensors, or ``(name, tensor)`` pairs such
     as ``model.named_parameters()`` (the names are what
     ``apply_decay_param_fun`` and Lars's ``exclude_from_weight_decay``
-    are given), or a list of group dicts (see the module); ``defaults``
-    go to every group."""
+    are given), or a list of group dicts (see the module), or None in
+    static mode (``minimize`` then takes the program's parameters);
+    ``defaults`` go to every group."""
 
     def __init__(self, params, lr: LearningRate, defaults: dict,
                  grad_clip=None):
-        params = list(params)
         self._names = {}
+        if params is None:
+            # a static program's optimizer: minimize() gives it the
+            # program's parameters
+            from ..static import program
+
+            if not program.in_static_mode():
+                raise ValueError(
+                    f"{type(self).__name__}: parameters are required "
+                    f"outside static mode (paddle.enable_static())")
+            params = [{"params": []}]
+        params = list(params)
         if params and isinstance(params[0], dict):
             groups = []
             for group in params:
@@ -117,16 +128,20 @@ class Optimizer(torch.optim.Optimizer):
             params = self._unname(params)
         super().__init__(params, {"learning_rate": 1.0, **defaults})
         for group in self.param_groups:
-            # an L1Decay/L2Decay: its coefficient for the decoupled
-            # decays, its gradient term for the coupled one (_decayed)
-            wd = group.get("weight_decay")
-            group["regularizer"] = wd if hasattr(wd, "_grad_term") else None
-            if group["regularizer"] is not None:
-                group["weight_decay"] = wd.coeff
+            self._init_group(group)
         self._learning_rate = lr
         self._grad_clip = grad_clip
         self._captured = False
         self._found_inf: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def _init_group(group: dict) -> None:
+        # an L1Decay/L2Decay: its coefficient for the decoupled decays, its
+        # gradient term for the coupled one (_decayed)
+        wd = group.get("weight_decay")
+        group["regularizer"] = wd if hasattr(wd, "_grad_term") else None
+        if group["regularizer"] is not None:
+            group["weight_decay"] = wd.coeff
 
     def _unname(self, params: list) -> list:
         """Tensors of ``params``, recording the names of ``(name, tensor)``
@@ -263,18 +278,50 @@ class Optimizer(torch.optim.Optimizer):
 
     def minimize(self, loss: torch.Tensor, startup_program=None,
                  parameters=None, no_grad_set=None):
-        """``loss.backward()`` then :meth:`step` (the dygraph
-        ``minimize``); the gradients stay until :meth:`clear_grad`.
-        Returns ``(None, None)`` as the JAX package's dygraph path does.
-        ``parameters`` is ignored (this optimizer was built with its
-        own, as the JAX one keeps a list it already has)."""
-        if startup_program is not None or no_grad_set is not None:
+        """Dygraph: ``loss.backward()`` then :meth:`step`; the gradients
+        stay until :meth:`clear_grad`, and ``parameters`` is ignored (this
+        optimizer was built with its own, as the JAX one keeps a list it
+        already has).  While a static program records
+        (``paddle_tpu/optimizer/optimizer.py:211-240``): the program becomes
+        a train program, each ``Executor.run`` of it one step of this
+        optimizer over ``parameters``, else those it was built with, else
+        the program's trainable parameters; no step runs now (the
+        placeholders hold no data).  Returns ``(None, None)``."""
+        from ..static import program as static_program
+
+        prog = static_program._recording()
+        if prog is not None:
+            self._minimize_program(prog, loss, parameters)
+            return None, None
+        if no_grad_set is not None:
             raise NotImplementedError(
-                "minimize: startup_program and no_grad_set belong to the "
-                "static-graph API, which is not ported")
+                "minimize: no_grad_set belongs to the static-graph API")
         loss.backward()
         self.step()
         return None, None
+
+    def _minimize_program(self, prog, loss, parameters) -> None:
+        if parameters is not None:
+            params = list(parameters)
+        elif any(g["params"] for g in self.param_groups):
+            params = None
+        else:
+            params = [t for t in prog._leaves
+                      if isinstance(t, torch.nn.Parameter)
+                      and t.requires_grad]
+            if not params:
+                raise ValueError(
+                    "minimize() found no trainable parameter in the "
+                    "recording program (built without static.nn/"
+                    "create_parameter layers?); pass parameters= "
+                    "explicitly")
+        if params is not None:
+            self.param_groups = []
+            self.state.clear()
+            self.add_param_group({"params": params})
+            self._init_group(self.param_groups[0])
+        prog._train_spec = (loss, self)
+        prog._train_cache.clear()   # a second minimize replaces the spec
 
     # -- state dict ------------------------------------------------------------
 

@@ -1,5 +1,7 @@
 """``paddle.static.nn`` control flow: ``cond``, ``while_loop``, ``case`` and
-``switch_case``.
+``switch_case``; the layer builders of :mod:`.nn_compat` (``fc``,
+``embedding``, the convolutions, the norms...) are re-exported here, as in
+the JAX package.
 
 Port of ``paddle_tpu/static/nn.py:99-230`` and
 ``paddle_tpu/static/nn_compat.py:264-300``.  The JAX package runs a branch
@@ -44,6 +46,11 @@ has no tracer: where the predicate lives decides.
 - **Exported** (``torch.compiler.is_exporting()``, or a fake tensor): the
   branch lowers to ``torch.cond`` and the loop to ``torch.while_loop``,
   which a saved program (:func:`..jit.save`) keeps.
+- **Recorded** (a tensor while a static program records,
+  :mod:`.program`): the branches, or the test and the body, are recorded
+  as sub-programs, and the call is one op of the program whose replay
+  calls ``cond`` / ``while_loop`` again on the replayed values, so it
+  takes one of the paths above at every run.
 """
 from __future__ import annotations
 
@@ -56,9 +63,13 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..ops import kernels
+from . import program as _program
+
+from .nn_compat import *  # noqa: F401,F403 — fluid-style builders
+from . import nn_compat as _nn_compat
 
 __all__ = ["cond", "while_loop", "case", "switch_case", "Nodes",
-           "host_replay"]
+           "host_replay"] + list(_nn_compat.__all__)
 
 _local = threading.local()
 #: untaken branches warmed so far (:func:`_warm`)
@@ -622,6 +633,8 @@ def cond(pred, true_fn: Callable, false_fn: Callable, operands: Sequence = (),
     for the JAX signature; the port finds the tensors a branch closes over
     itself."""
     operands = tuple(operands)
+    if _program.records(pred):
+        return _program.record_cond(pred, true_fn, false_fn, operands)
     if isinstance(pred, torch.Tensor) and exporting(pred):
         return _export_cond(pred, true_fn, false_fn, operands)
     if capturing(pred):
@@ -792,6 +805,8 @@ def while_loop(cond_fn: Callable, body_fn: Callable, loop_vars: Sequence,
     """``while cond_fn(*vars): vars = body_fn(*vars)``; returns the loop
     variables (module docstring for how each device runs it)."""
     vars_ = list(loop_vars)
+    if _program.records(*vars_):
+        return _program.record_while(cond_fn, body_fn, vars_)
     tensors = [v for v in vars_ if isinstance(v, torch.Tensor)]
     if any(exporting(v) for v in tensors):
         return _export_while(cond_fn, body_fn, vars_)

@@ -31,6 +31,7 @@ __all__ = [
     "is_compiled_with_xpu", "is_compiled_with_npu", "is_compiled_with_rocm",
     "is_compiled_with_cinn", "get_cudnn_version", "get_cuda_rng_state",
     "set_cuda_rng_state", "disable_signal_handler", "in_dynamic_mode",
+    "enable_static", "disable_static",
 ]
 
 bfloat16, float16, float32, float64 = (torch.bfloat16, torch.float16,
@@ -83,15 +84,13 @@ def reverse(x, axis, name=None):
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
                      default_initializer=None):
     """A parameter made as a layer's ``create_parameter`` makes it, on the
-    current device."""
+    current device.  ``name`` is not kept: a torch tensor's ``name`` is not
+    writable (a layer's ``named_parameters`` names its parameters)."""
     from .nn import layer_base
 
-    p = layer_base.Layer().create_parameter(
+    return layer_base.Layer().create_parameter(
         shape, attr=attr, dtype=dtype, is_bias=is_bias,
         default_initializer=default_initializer)
-    if name:
-        p.name = name
-    return p
 
 
 def finfo(dtype):
@@ -127,5 +126,22 @@ def disable_signal_handler() -> None:
 
 
 def in_dynamic_mode() -> bool:
-    """Always True: the port runs eagerly, ``jit.to_static`` captures."""
-    return True
+    """False while static mode records programs (:func:`enable_static`)."""
+    from .static import program
+
+    return not program.in_static_mode()
+
+
+def enable_static() -> None:
+    """Static mode: ops are recorded into the current ``static.Program``
+    (``static.program``); an ``Executor`` runs it."""
+    from .static import program
+
+    program.enable_static()
+
+
+def disable_static() -> None:
+    """Back to dynamic (eager) mode, the default."""
+    from .static import program
+
+    program.disable_static()

@@ -1,10 +1,11 @@
 """``paddle.utils``: ``try_import``, ``deprecated``, ``run_check``,
-``unique_name`` and ``require_version``.
+``unique_name`` and ``require_version``, and the extension points:
+``register_op``, ``register_kernel`` and ``unregister_kernel``
+(:mod:`..custom_kernel`) and :mod:`.cpp_extension`.
 
-Port of ``paddle_tpu/utils/__init__.py`` (its custom-op and C++-extension
-entry points come with a later part of the port).  ``run_check`` trains a
-small linear model for three steps on the card when there is one, else
-on the CPU, and says which device it ran on.
+Port of ``paddle_tpu/utils/__init__.py``.  ``run_check`` trains a small
+linear model for three steps on the card when there is one, else on the
+CPU, and says which device it ran on.
 """
 from __future__ import annotations
 
@@ -13,8 +14,12 @@ import functools
 import importlib
 import warnings
 
+from ..custom_kernel import register_kernel, register_op, unregister_kernel
+from . import cpp_extension
+
 __all__ = ["try_import", "deprecated", "run_check", "unique_name",
-           "require_version"]
+           "require_version", "cpp_extension", "register_op",
+           "register_kernel", "unregister_kernel"]
 
 
 def try_import(module_name: str):

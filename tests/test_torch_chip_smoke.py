@@ -35,7 +35,8 @@ ROOT = Path(__file__).resolve().parent.parent
 def _port_sources():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "profile_serving.py",
-                    ROOT / "profile_training.py"]
+                    ROOT / "profile_training.py",
+                    ROOT / "probe_sparse_parity.py"]
 
 
 def _forbidden(name: str) -> bool:

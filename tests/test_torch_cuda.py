@@ -3383,3 +3383,125 @@ def test_normal_rsample_in_a_captured_graph_draws_afresh(cuda_device):
     eager = D.Normal(loc, scale).rsample((4096,))
     rng.seed(11)
     assert torch.equal(f(loc, scale), eager)
+
+
+# -- the static program mode and the extension points -------------------------
+
+def _attention_program(dev, B=2, S=128, H=4, D=64):
+    """A program of one causal self-attention block (qkv projection,
+    ``flash_attention``, output projection) recorded on ``dev``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops.attention import flash_attention as fa
+
+    torch.manual_seed(0)
+    qkv = torch.nn.Linear(H * D, 3 * H * D, device=dev)
+    out = torch.nn.Linear(H * D, H * D, device=dev)
+
+    def block(x):
+        q, k, v = qkv(x).view(B, S, H, 3 * D).split(D, dim=-1)
+        return out(fa(q, k, v, is_causal=True).reshape(B, S, H * D))
+
+    pt.enable_static()
+    try:
+        main = static.Program()
+        with pt.device_guard(dev), static.program_guard(main):
+            x = static.data("x", [B, S, H * D], "float32")
+            y = block(x)
+    finally:
+        pt.disable_static()
+    return main, y, block
+
+
+@pytest.mark.cuda
+def test_static_program_with_attention_replays_each_feed(cuda_device):
+    """Two feeds through the recorded program (its eager call, its
+    capture, replays) equal the eager block on each; K1 launches."""
+    from paddle_tpu_torch import static
+
+    main, y, block = _attention_program(cuda_device)
+    assert "flash_attention" in [o.name for o in main.ops]
+    exe = static.Executor()
+    rs = np.random.RandomState(0)
+    feeds = [rs.randn(2, 128, 256).astype(np.float32) for _ in range(2)]
+    with torch.no_grad():
+        wants = [block(torch.from_numpy(a).to(cuda_device)).cpu().numpy()
+                 for a in feeds]
+    kernels.reset_launches()
+    for a, want in zip(feeds + feeds, wants + wants):
+        got, = exe.run(main, feed={"x": a}, fetch_list=[y])
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    assert kernels.launch_counts()["flash_fwd"] == 4
+    fn, = main._cache.values()
+    assert fn.captures == 1
+
+
+@pytest.mark.cuda
+def test_profiler_device_table_names_the_flash_kernels(cuda_device,
+                                                       tmp_path):
+    from paddle_tpu_torch import profiler
+
+    q, k, v = (torch.randn(2, 256, 4, 64, device=cuda_device,
+                           requires_grad=True) for _ in range(3))
+    p = profiler.Profiler(
+        targets=[profiler.ProfilerTarget.CPU, profiler.ProfilerTarget.GPU],
+        scheduler=profiler.make_scheduler(closed=0, ready=1, record=2,
+                                          repeat=1),
+        on_trace_ready=profiler.export_chrome_tracing(str(tmp_path)))
+    p.start()
+    for _ in range(3):
+        with profiler.RecordEvent("attn_step"):
+            flash_attention(q, k, v, is_causal=True).sum().backward()
+            torch.cuda.synchronize()
+        p.step()
+    p.stop()
+    stats = p.statistic_data()
+    assert stats.host["attn_step"].call == 2
+    assert chip_smoke.static_kernel_calls(stats) == {
+        "flash_fwd": 2, "flash_bwd_dkv": 2, "flash_bwd_dq": 2}
+    assert 0 < stats.device_busy_us <= stats.wall_us
+
+
+@pytest.mark.cuda
+def test_register_kernel_backend_scope_on_the_card(cuda_device):
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.utils import register_kernel, unregister_kernel
+
+    x = torch.tensor([-1.0, 5.0])
+    try:
+        register_kernel("relu", lambda t, name=None: t * 0.0 + 42.0,
+                        backend="gpu")
+        assert F.relu(x.to(cuda_device)).tolist() == [42.0, 42.0]
+        assert F.relu(x).tolist() == [0.0, 5.0]
+        compiled = jit.to_static(lambda t: F.relu(t) + 1.0)
+        for _ in range(3):                  # eager, capture, replay
+            assert compiled(x.to(cuda_device)).tolist() == [43.0, 43.0]
+    finally:
+        unregister_kernel("relu", backend="gpu")
+    assert F.relu(x.to(cuda_device)).tolist() == [0.0, 5.0]
+
+
+@pytest.mark.cuda
+def test_cpp_extension_on_the_card_and_refused_in_a_capture(cuda_device,
+                                                            tmp_path):
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.utils import cpp_extension
+
+    src = tmp_path / "my_ops.cc"
+    src.write_text(chip_smoke.custom_kernel_cpp_src())
+    ext = cpp_extension.load("card_ops", [str(src)],
+                             functions={"softsign_ref": {},
+                                        "twice_plus_one": {}},
+                             build_directory=str(tmp_path))
+    v = torch.randn(1000, device=cuda_device)
+    got = ext.softsign_ref(v)
+    assert got.device.type == "cuda"
+    assert float((got - F.softsign(v)).abs().max()) <= 1e-6
+    f = jit.to_static(lambda t: ext.twice_plus_one(t) + 0.0)
+    assert float((f(v) - (2 * v + 1)).abs().max()) == 0.0   # eager call
+    with pytest.raises(jit.CaptureError, match="card_ops.twice_plus_one"):
+        f(v)                                                # its capture
+    # a later draw still works (the failed capture was ended)
+    torch.randn(4, device=cuda_device).sum().item()

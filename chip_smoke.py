@@ -48,6 +48,12 @@ Phases, each printing one JSON line with the card's name and power limit:
               block size 32; a bitwise repeat at each), and both under
               an overflow (+inf V rows: outputs non-finite exactly where
               the plain versions' are); the f16 K5 must hold HGMMA.
+              The f32 K1 and K2 (p 0 and dropout) run on tensor cores
+              too, 3xTF32 on wgmma: held at the bf16 edges, on the fused
+              projection's views and at p 0.1, each flash check also
+              requiring two calls to agree bitwise; their four f32
+              instances must hold HGMMA.  Every f32 row's bound takes
+              f32-accurate products at the 3xTF32 rate (``PEAK_FLOPS``).
 3. serve_paged — Llama-2 7B at full width (random weights from a seed),
               bf16, paged KV: 12 requests sharing a 512-token system
               prompt; the K4/K5 launch counts of this run are read.
@@ -455,7 +461,8 @@ Phases, each printing one JSON line with the card's name and power limit:
               port layer on the card.  The ``done`` line gives 34-35's
               seconds.  The kernels phase also times K1-K3's f32
               instances at the train shape (static_train's), listed in
-              the kernels line as ``*_f32``.
+              the kernels line as ``*_f32`` (K1's f32 dropout instance,
+              on no main path, in the kernels phase's line only).
 
 Before the last line it prints the card line of ``nvidia-smi`` and one
 ``{"kernels": [...]}`` line (K1-K5, K1-K3's dropout instances, every
@@ -488,9 +495,11 @@ import numpy as np
 import torch
 
 # published peaks of one H100 SXM (dense): HBM bytes/s and flops/s by the
-# inputs' type (f32 outside the tensor cores)
+# inputs' type.  f32 work at f32 accuracy runs fastest on the tensor cores
+# as three tf32 products a product (3xTF32) at 495 TFLOP/s, past the
+# 67 TFLOP/s of f32 outside them
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12,
               torch.float16: 989e12}
 #: max abs error of a kernel's output against its plain version: f16 keeps
 #: three more mantissa bits than bf16, so its bound is a third of bf16's
@@ -671,7 +680,7 @@ def phase_build() -> dict:
     return hgmma
 
 
-#: (library, kernel) whose bf16 instances must run on tensor cores
+#: (library, kernel) whose bf16 and f16 instances must run on tensor cores
 TENSOR_CORE_KERNELS = (("flash_attention_fwd", "flash_fwd_kernel"),
                        ("paged_attention", "paged_prefill_kernel"),
                        ("flash_attention_bwd", "flash_bwd_dkv_kernel"),
@@ -680,15 +689,24 @@ TENSOR_CORE_KERNELS = (("flash_attention_fwd", "flash_fwd_kernel"),
                        ("flash_attention_bwd",
                         "flash_bwd_dkv_dropout_kernel"),
                        ("flash_attention_bwd", "flash_bwd_dq_dropout_kernel"))
+#: ... and whose f32 instances must too (3xTF32): K1 and K2, p 0 and dropout
+F32_TENSOR_CORE_KERNELS = (
+    ("flash_attention_fwd", "flash_fwd_kernel"),
+    ("flash_attention_fwd", "flash_fwd_dropout_kernel"),
+    ("flash_attention_bwd", "flash_bwd_dkv_kernel"),
+    ("flash_attention_bwd", "flash_bwd_dkv_dropout_kernel"))
 
 
 def check_tensor_cores(hgmma: dict) -> None:
     """Every bf16 and every f16 instance of ``TENSOR_CORE_KERNELS`` (K1,
-    K5, K2, K3 and K1-K3's dropout instances) has HGMMA instructions."""
+    K5, K2, K3 and K1-K3's dropout instances), and every f32 one of
+    ``F32_TENSOR_CORE_KERNELS``, has HGMMA instructions."""
     from paddle_tpu_torch.ops.kernels import HEAD_DIMS
 
-    for lib, kernel in TENSOR_CORE_KERNELS:
-        for dtype in ("bf16", "f16"):
+    for lib, kernel, dtypes in (
+            [(lib, k, ("bf16", "f16")) for lib, k in TENSOR_CORE_KERNELS]
+            + [(lib, k, ("f32",)) for lib, k in F32_TENSOR_CORE_KERNELS]):
+        for dtype in dtypes:
             for d in HEAD_DIMS:
                 label = f"{kernel}<{dtype},{d}>"
                 if not hgmma.get(lib, {}).get(label, 0) > 0:
@@ -875,13 +893,16 @@ def check_flash(gen, B, S, H, dtype, D=128, causal=True, fused=False,
     (o, lse), (o_ref, lse_ref) = kern(), plain()
     err = (o.float() - o_ref.float()).abs().max().item()
     lse_err = (lse - lse_ref).abs().max().item()
+    o2, lse2 = kern()
+    bitwise = torch.equal(o, o2) and torch.equal(lse, lse2)
+    del o2, lse2
     flops, nbytes = attention_cost("fwd", q, causal)
     # dropout multiplies every kept probability, and so O, by 1 / (1 - p):
     # the p = 0 tolerance on that scale (one bf16 ulp of an output in
     # [4, 8) is 2**-5, past the unscaled 3e-2)
     return {"err": err, "lse_err": lse_err, "kern": kern, "plain": plain,
             "library": library, "tol": TOLERANCE[dtype] / (1 - dropout_p),
-            "bound": bound(nbytes, flops, dtype)}
+            "bitwise": bitwise, "bound": bound(nbytes, flops, dtype)}
 
 
 #: K2/K3 gradients are sums over up to S rows: held relative to the plain
@@ -925,11 +946,12 @@ def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64, causal=True,
 
         def plain():
             return (att._flash_bwd_dq_reference(*args),)
-    ref = plain()
+    ref, got, again = plain(), kern(), kern()
     scale = max(r.float().abs().max().item() for r in ref)
     err = max((a.float() - r.float()).abs().max().item()
-              for a, r in zip(kern(), ref))
-    del ref
+              for a, r in zip(got, ref))
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    del ref, got, again
     graph = []
 
     def library():
@@ -945,7 +967,7 @@ def check_flash_bwd(gen, which: str, B, S, H, dtype, D=64, causal=True,
         "bwd_dkv" if which == "flash_bwd_dkv" else "bwd_dq", q, causal)
     return {"err": err, "tol": BWD_TOLERANCE[dtype] * scale,
             "kern": kern, "plain": plain, "library": library,
-            "bound": bound(nbytes, flops, dtype)}
+            "bitwise": bitwise, "bound": bound(nbytes, flops, dtype)}
 
 
 def check_dropout_mask(dtype, S=64, H=2, p=0.25):
@@ -1108,8 +1130,9 @@ SHORT = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def flash_edges(gen):
-    """K1's bf16 edge cases: ragged S (1000, 70), causal and full, D 64
-    and 128; S 16 (one part-filled tile)."""
+    """K1's edge cases, in f32 and bf16 (both on tensor cores): ragged S
+    (1000, 70), causal and full, D 64 and 128; S 16 (one part-filled
+    tile)."""
     out = []
     for S, causal, D in [(S, c, D) for S in (1000, 70) for c in (True, False)
                          for D in (64, 128)] + [(16, True, 64),
@@ -1120,7 +1143,7 @@ def flash_edges(gen):
                         gen, 2, S, 4, dt, D, causal=c),
                     f"B=2 S={S} H=4 D={D} {mask}",
                     f"scaled_dot_product_attention is_causal={causal}",
-                    BF16, False))
+                    BOTH, False))
     return out
 
 
@@ -1179,8 +1202,9 @@ def decode_edges(gen):
 
 
 def bwd_edges(gen, which: str):
-    """K2's or K3's bf16 edge cases, as :func:`flash_edges`; the S 1000
-    causal D 128 and S 1000 full D 64 cases are timed."""
+    """K2's or K3's edge cases, as :func:`flash_edges` (K2's in f32 too,
+    on tensor cores like the bf16 ones; K3's f32 keeps its CUDA-core loop);
+    the bf16 S 1000 causal D 128 and S 1000 full D 64 cases are timed."""
     out = []
     for S, causal, D in [(S, c, D) for S in (1000, 70) for c in (True, False)
                          for D in (64, 128)] + [(16, True, 64),
@@ -1192,7 +1216,8 @@ def bwd_edges(gen, which: str):
                     f"B=2 S={S} H=4 D={D} {mask}, q/k/v views of a fused "
                     f"[B, S, H, 3D] projection",
                     f"autograd.grad through scaled_dot_product_attention "
-                    f"is_causal={causal}", BF16,
+                    f"is_causal={causal}",
+                    BOTH if which == "flash_bwd_dkv" else BF16,
                     S == 1000 and (causal, D) in ((True, 128), (False, 64))))
     return out
 
@@ -1294,7 +1319,7 @@ def phase_kernels(hgmma: dict) -> dict:
             ("train/fused", lambda dt: check_flash(gen, B, S, H, dt, D,
                                                    fused=True),
              train + ", q/k/v views of a fused [B, S, H, 3D] projection",
-             sdpa_causal, BF16, True),
+             sdpa_causal, BOTH, True),
             *flash_edges(gen)],
         "flash_bwd_dkv": [("train", bwd("flash_bwd_dkv"), train, sdpa_grad,
                            BOTH, True), *bwd_edges(gen, "flash_bwd_dkv")],
@@ -1329,7 +1354,7 @@ def phase_kernels(hgmma: dict) -> dict:
             ("S1000/full/D128", lambda dt: check_flash_bwd(
                 gen, "flash_bwd_dkv", 2, 1000, 4, dt, 128, causal=False,
                 dropout_p=P),
-             f"B=2 S=1000 H=4 D=128 full, dropout {P}", sdpa_grad_p, BF16,
+             f"B=2 S=1000 H=4 D=128 full, dropout {P}", sdpa_grad_p, BOTH,
              False),
             ("coords", lambda dt: check_dropout_coords(
                 gen, "flash_bwd_dkv", dt, B, S, H, D, P), coords_p,
@@ -1405,7 +1430,9 @@ def phase_kernels(hgmma: dict) -> dict:
     out, library_ms = {}, {}      # one figure per (shape, call, dtype)
     for name, shapes in cases.items():
         errors, tolerances, lse_errors, timed = {}, {}, {}, []
-        timed_f32 = []      # K1-K3 at the train shape in f32 (static_train)
+        # K1-K3 at the train shape in f32 (static_train's), and K1's
+        # dropout instance there
+        timed_f32 = []
         for label, make, shape, library_call, dtypes, is_timed in shapes:
             for dt in dtypes:
                 res = make(dt)
@@ -1425,7 +1452,7 @@ def phase_kernels(hgmma: dict) -> dict:
                             f"{name} {key}: lse err {res['lse_err']} > "
                             f"{LSE_TOLERANCE}")
                 f32_row = dt == torch.float32 and label == "train" and \
-                    name in TRAIN_KERNELS
+                    name in F32_TIMED
                 if (dt != torch.float32 and is_timed) or f32_row:
                     bound_ms, bound_by = res["bound"]
                     lib = (shape, library_call, dt)
@@ -1451,7 +1478,7 @@ def phase_kernels(hgmma: dict) -> dict:
         info = KERNELS[name]
         out[name] = {"name": name, "route": "cuda", "source": info.source,
                      "replaces": info.replaces, **timed[0]}
-        if timed_f32:
+        if timed_f32 and name in TRAIN_KERNELS:
             # the f32 instance shares the launch counter of ``name``
             out[f"{name}_f32"] = {"name": f"{name}_f32", "route": "cuda",
                                   "source": info.source,
@@ -5559,6 +5586,9 @@ def phase_dy2static_generate(build: dict) -> dict:
 # -- phases 12, 13 and 14: training ----------------------------------------
 
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+#: the kernels whose f32 instances the kernels phase times at the train
+#: shape: K1-K3 (static_train's) and K1's dropout instance
+F32_TIMED = TRAIN_KERNELS + ("flash_fwd_dropout",)
 
 
 def run_train(config: str, batch: int, seq: int, device: str, warmup: int,

@@ -7,17 +7,15 @@
 // f32 accumulator), and the l == 0 guard at the end.  Inputs and outputs
 // are f32, bf16 or f16.
 //
-// `attend_tile` is the f32 query-tile loop shared by the paged prefill
-// kernel (K5, paged_attention.cu) and the flash forward kernel (K1,
-// flash_attention_fwd.cu): one block holds kTileQ queries of one head in
+// `attend_tile` is the f32 query-tile loop of the paged prefill kernel
+// (K5, paged_attention.cu): one block holds kTileQ queries of one head in
 // shared memory as f32 and walks the keys kChunkK at a time up to the
 // tile's causal horizon, with both products as scalar FMA on the CUDA
 // cores (67 TFLOP/s at most), so it is bound by those operations.  Keys are
-// addressed through a functor, so the paged kernel reads them through the
-// block table and the flash kernel reads a strided [B, S, H, D] tensor,
-// with one loop for both.  Only the f32 instances, which the parity checks
-// use, run it: the bf16 and f16 instances run the tensor-core loop of
-// attention_wgmma.cuh through the same functors.
+// addressed through a functor (the paged kernel reads them through the
+// block table).  The bf16 and f16 instances of K5 and K1 run the
+// tensor-core loop of attention_wgmma.cuh through the same functors; the
+// f32 K1 runs the 3xTF32 tensor-core loop of attention_tf32.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -7,8 +7,8 @@
 // element), and only the wgmma type suffix (.bf16 / .f16) and the
 // conversions differ.  K1-K3 have instances of both; K5 of bf16 only.
 //
-// Same function as `attend_tile` in attention_common.cuh, which the f32
-// instances keep: scale 1/sqrt(D), masked scores -1e30, online softmax
+// Same function as `attend_tile` in attention_common.cuh, which the f32 K5
+// keeps (the f32 K1 runs the 3xTF32 loop of attention_tf32.cuh): scale 1/sqrt(D), masked scores -1e30, online softmax
 // with an f32 running max, sum and accumulator, the l == 0 guard, and
 // lse = m + log(l) from the f32 sum of the unrounded p.  The difference is
 // where the products run:
@@ -447,8 +447,10 @@ __device__ __forceinline__ void attend_tile(
   }
 }
 
-// Which loop an instance of K1-K3 or K5 runs: bf16 and f16 on tensor cores
-// (this file), f32 on the CUDA cores (attention_common.cuh).
+// Which loop an instance runs: bf16 and f16 on these 16-bit tensor-core
+// loops.  f32: K3 and K5 on their CUDA-core loops (kQueryTile, dynamic_smem
+// are K5's), K1 and K2 on the 3xTF32 loops of attention_tf32.cuh, chosen
+// in their own launchers.
 template <typename T>
 constexpr bool kOnTensorCores =
     std::is_same<T, bf16>::value || std::is_same<T, f16>::value;

@@ -67,22 +67,29 @@
 // overlap of the exponentials with the next wgmma), K3 recomputes the S and
 // dP that K2 formed, and the loads are cp.async rather than TMA.
 //
-// The f32 instances keep the CUDA-core loop (operands in padded shared
-// memory as f32, 256 threads with 4 x 4 register tiles of FMA), which the
-// f32 parity checks use.
-#include "attention_wgmma.cuh"
+// The f32 K2 runs every product on `wgmma` too, with tf32 operands in the
+// 3xTF32 split that keeps f32 accuracy (`tf32::dkv_tile` below, on the
+// pieces of attention_tf32.cuh): the same walk, 64 keys a warpgroup; at
+// D 64 two warpgroups (128 keys) share each 64-query tile, at D 128 one
+// walks 32-query tiles.  tf32 has no transposed B, so each query tile's Q
+// and dO are held both ways, hi and lo: eight tiles.
+// The f32 K3 keeps the CUDA-core loop (operands in padded shared memory as
+// f32, 256 threads with 4 x 4 register tiles of FMA), next in line for the
+// same redesign.
+#include "attention_tf32.cuh"
 
 namespace pt {
 
 constexpr int kBwdTile = 64;       // query rows / key rows per tile
-constexpr int kBwdThreads = 256;   // f32 instances
+constexpr int kBwdThreads = 256;   // the f32 K3
 constexpr int kSide = 16;          // threads per tile edge: tm, tn in 0..15
 constexpr int kPer = kBwdTile / kSide;  // rows (and columns) per thread
 
+// K3's block: a warpgroup on tensor cores, 256 threads for the f32 loop
 template <typename T>
 constexpr int kBwdBlock = tc::kOnTensorCores<T> ? kThreads : kBwdThreads;
 
-// -- f32: CUDA-core FMA -----------------------------------------------------
+// -- f32 K3: CUDA-core FMA ----------------------------------------------------
 
 template <int D>
 struct BwdLayout {
@@ -90,11 +97,9 @@ struct BwdLayout {
   static constexpr int kLdP = kBwdTile + 1;    // a [tile, tile] product row
   static constexpr int kOperand = kBwdTile * kLd;
   static constexpr int kProduct = kBwdTile * kLdP;
-  // four operands, `products` [tile, tile] buffers, lse and delta rows
-  static constexpr size_t bytes(int products) {
-    return (4 * kOperand + products * kProduct + 2 * kBwdTile) *
-           sizeof(float);
-  }
+  // four operands, the [tile, tile] ds buffer, lse and delta rows
+  static constexpr size_t kBytes =
+      (4 * kOperand + kProduct + 2 * kBwdTile) * sizeof(float);
 };
 
 template <typename T>
@@ -564,7 +569,231 @@ __device__ __forceinline__ void dq_tile(
 
 }  // namespace tc
 
+// -- f32 K2: 3xTF32 tensor cores ----------------------------------------------
+
+namespace tf32 {
+
+// Shared memory of an f32 K2 block: its own K and V raw (the A operands of
+// S^T and dP^T, split a k-step at a time); the walked query tile's raw Q,
+// dO, lse and delta (a one-stage ring: tile t + 1's copies run under tile
+// t's products); and that tile split four ways, Q and dO each as hi and
+// lo, [kQ][D] for S^T and dP^T and transposed [D][kQ] for dK and dV.
+//   D 64: two warpgroups, 128 keys, share each 64-query tile's split
+//   (half the split work a key, and a second warpgroup's products to
+//   overlap one's softmax and splits): 226 KB.
+//   D 128: one warpgroup, 32-query tiles, so that the transposes' tf32
+//   tiles stay one 128-byte swizzle row wide: 225.5 KB of the 227 KB a
+//   block may have.
+template <int D>
+struct DkvSmem {
+  static constexpr int kWG = D == 64 ? 2 : 1;         // warpgroups a block
+  static constexpr int kKeys = kRows * kWG;            // keys a block
+  static constexpr int kQ = D == 64 ? 64 : 32;        // queries a tile
+  static constexpr int kOwn = kKeys * D * 4;           // raw [kKeys][D]
+  static constexpr int kTile = kQ * D * 4;             // [kQ][D] or [D][kQ]
+  static constexpr int kK = 0;
+  static constexpr int kV = kOwn;
+  static constexpr int kStageQ = 2 * kOwn;
+  static constexpr int kStageDo = kStageQ + kTile;
+  static constexpr int kQHi = kStageDo + kTile;        // [kQ][D]
+  static constexpr int kQLo = kQHi + kTile;
+  static constexpr int kDoHi = kQLo + kTile;
+  static constexpr int kDoLo = kDoHi + kTile;
+  static constexpr int kQtHi = kDoLo + kTile;          // [D][kQ]
+  static constexpr int kQtLo = kQtHi + kTile;
+  static constexpr int kDotHi = kQtLo + kTile;
+  static constexpr int kDotLo = kDotHi + kTile;
+  static constexpr int kStageRows = kDotLo + kTile;    // lse, delta raw
+  static constexpr int kRowsNow = kStageRows + 2 * kQ * 4;  // ... this tile's
+  static constexpr int kBytes = kRowsNow + 2 * kQ * 4;
+  static constexpr int kAlloc = kBytes + 1024;         // room to align
+};
+
+// K2 for the kKeys keys at k0 of one (batch, head), f32, every product
+// 3xTF32 on `wgmma`, warpgroup w owning keys k0 + 64w..; arguments as
+// tc::dkv_tile, plus `rows16` (q, k, v, dO rows 16-byte aligned).  `smem`:
+// DkvSmem<D>::kAlloc bytes.  The walk, the masking and the dropout are
+// tc::dkv_tile's (a warpgroup skips a query tile wholly before its keys,
+// and one with no keys below S); p and ds are not rounded (the f32 plain
+// version does not round them).
+//
+// Fragment coordinates (a thread's s[4j + 2i + c]): key row r0 + 8i of the
+// warpgroup's 64, query column 8j + 2t + c.
+template <int D, typename Drop>
+__device__ __forceinline__ void dkv_tile(
+    uint8_t* smem, const float* __restrict__ q_bh, long long q_ss,
+    const float* __restrict__ do_bh, long long do_ss,
+    const float* __restrict__ lse_bh, const float* __restrict__ delta_bh,
+    const float* __restrict__ k_rows, long long k_ss,
+    const float* __restrict__ v_rows, long long v_ss, int S, int k0,
+    bool causal, float scale, float* __restrict__ dk_rows, long long dk_ss,
+    float* __restrict__ dv_rows, long long dv_ss, bool rows16,
+    const Drop& drop) {
+  using L = DkvSmem<D>;
+  constexpr int kQ = L::kQ, kT = kThreads * L::kWG;
+  const int tid = threadIdx.x;
+  const uint32_t raw_base = smem_u32(smem);
+  const uint32_t base = (raw_base + 1023) & ~1023u;
+  uint8_t* sm = smem + (base - raw_base);
+  const float* rows_now = reinterpret_cast<const float*>(sm + L::kRowsNow);
+  const int wg = tid / kThreads;
+  const int k0w = k0 + kRows * wg;        // the warpgroup's first key
+  const int n_keys = min(kRows, S - k0w);  // <= 0: none below S
+  const int first = causal ? k0 : 0;  // query tiles are aligned with keys'
+  const int n_tiles = (S - first + kQ - 1) / kQ;
+
+  // query tile t: raw Q, dO, and lse (threads 0..kQ-1) / delta (kQ..2kQ-1)
+  auto load_q = [&](int t) {
+    const int c0 = first + t * kQ;
+    load_raw<kQ, D, kT>(base + L::kStageQ, [&](int r) {
+      return q_bh + (c0 + r) * q_ss;
+    }, S - c0, rows16);
+    load_raw<kQ, D, kT>(base + L::kStageDo, [&](int r) {
+      return do_bh + (c0 + r) * do_ss;
+    }, S - c0, rows16);
+    if (tid < 2 * kQ) {
+      const int pos = c0 + tid % kQ;
+      const bool live = pos < S;
+      cp_async4(base + L::kStageRows + tid * 4,
+                (tid < kQ ? lse_bh : delta_bh) + (live ? pos : 0),
+                live ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+
+  load_raw<L::kKeys, D, kT>(base + L::kK, [&](int r) {
+    return k_rows + r * k_ss;
+  }, S - k0, rows16);
+  load_raw<L::kKeys, D, kT>(base + L::kV, [&](int r) {
+    return v_rows + r * v_ss;
+  }, S - k0, rows16);
+  load_q(0);  // one group with K and V
+  const uint8_t* k_own = sm + L::kK + wg * kRows * D * 4;
+  const uint8_t* v_own = sm + L::kV + wg * kRows * D * 4;
+
+  const int warp = tid % kThreads / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4;
+  const int t4 = lane % 4, cq = 2 * t4;
+  const float scale_log2 = scale * kLog2e;
+  float dk[D / 2], dv[D / 2], s[kQ / 2], dp[kQ / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kQ / 2; ++i) s[i] = dp[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();  // tile t (and, first, K and V) has landed
+    __syncthreads();      // ... for every thread; tile t-1's products are done
+    split_rows<kQ, D, kT>(sm + L::kStageQ, sm + L::kQHi, sm + L::kQLo);
+    split_rows<kQ, D, kT>(sm + L::kStageDo, sm + L::kDoHi, sm + L::kDoLo);
+    split_cols<kQ, D, kT>(sm + L::kStageQ, sm + L::kQtHi, sm + L::kQtLo);
+    split_cols<kQ, D, kT>(sm + L::kStageDo, sm + L::kDotHi, sm + L::kDotLo);
+    if (tid < 2 * kQ)
+      reinterpret_cast<float*>(sm + L::kRowsNow)[tid] =
+          reinterpret_cast<const float*>(sm + L::kStageRows)[tid];
+    fence_proxy_async();  // the split tiles are visible to wgmma ...
+    __syncthreads();      // ... from every thread; the stage is free
+    if (t + 1 < n_tiles) load_q(t + 1);
+    const int c0 = first + t * kQ;
+    if (n_keys <= 0 || (causal && c0 + kQ <= k0w))
+      continue;  // no key of this warpgroup sees these queries
+
+    // S^T = K Q^T
+    mma_nt<kQ, D>(s, k_own, base + L::kQHi, base + L::kQLo, r0, t4);
+
+    // dropout's keep bits: bit 4j + 2i + c for (key r0 + 8i, query
+    // 8j + cq + c); queries q and q + 8 (groups 2jj, 2jj + 1) share a counter
+    uint32_t keep = 0;
+    if constexpr (Drop::kOn) {
+#pragma unroll
+      for (int jj = 0; jj < kQ / 16; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = k0w + r0 + 8 * i;
+            const uint4 w = drop.words(c0 + 16 * jj + cq + c, key);
+            const int bit = 8 * jj + 2 * i + c;
+            keep |= static_cast<uint32_t>(drop.keep(key & 1 ? w.y : w.x))
+                    << bit;
+            keep |= static_cast<uint32_t>(drop.keep(key & 1 ? w.w : w.z))
+                    << (bit + 4);
+          }
+    }
+
+    // p on the fragment (kept in s for ds); P^T times the keep factor
+    const bool masked = c0 + kQ > S || (causal && c0 < k0w + kRows);
+    float pz[kQ / 2];
+#pragma unroll
+    for (int j = 0; j < kQ / 8; ++j) {
+      const float2 lse2 = *reinterpret_cast<const float2*>(rows_now + 8 * j + cq);
+      const float lse_log2[2] = {lse2.x * kLog2e, lse2.y * kLog2e};
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * i + c;
+          float p = exp2f(s[e] * scale_log2 - lse_log2[c]);
+          if (masked) {
+            const int qpos = c0 + 8 * j + cq + c;
+            const bool ok = qpos < S && (!causal || k0w + r0 + 8 * i <= qpos);
+            p = ok ? p : 0.f;
+          }
+          s[e] = p;
+          if constexpr (Drop::kOn)
+            pz[e] = p * drop.factor((keep >> e) & 1u);
+          else
+            pz[e] = p;
+        }
+    }
+
+    // dV += P^T dO, then dP^T = V dO^T
+    mma_frag<D, kQ>(dv, pz, base + L::kDotHi, base + L::kDotLo);
+    mma_nt<kQ, D>(dp, v_own, base + L::kDoHi, base + L::kDoLo, r0, t4);
+
+    // dS^T on the fragment (dP^T times the keep factor under dropout),
+    // then dK += dS^T Q
+#pragma unroll
+    for (int j = 0; j < kQ / 8; ++j) {
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(rows_now + kQ + 8 * j + cq);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * i + c;
+          float dpe = dp[e];
+          if constexpr (Drop::kOn) dpe *= drop.factor((keep >> e) & 1u);
+          dp[e] = s[e] * (dpe - (c ? d2.y : d2.x)) * scale;
+        }
+    }
+    mma_frag<D, kQ>(dk, dp, base + L::kQtHi, base + L::kQtLo);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= n_keys) continue;
+    const int row = kRows * wg + r;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dk_rows + row * dk_ss + 8 * j + cq) =
+          make_float2(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+      *reinterpret_cast<float2*>(dv_rows + row * dv_ss + 8 * j + cq) =
+          make_float2(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+}  // namespace tf32
+
 // -- kernels ------------------------------------------------------------------
+
+// K2's block: one warpgroup of 64 keys, or the f32 tile's kWG of them
+template <typename T, int D>
+constexpr int kDkvThreads =
+    tc::kOnTensorCores<T> ? kThreads : kThreads * tf32::DkvSmem<D>::kWG;
+template <typename T, int D>
+constexpr int kDkvKeys = kBwdTile * (kDkvThreads<T, D> / kThreads);
 
 #define PT_DKV_PARAMS                                                       \
   const T *__restrict__ q, const T *__restrict__ k,                         \
@@ -589,97 +818,40 @@ template <typename T, int D, typename Drop>
 __device__ __forceinline__ void flash_bwd_dkv_block(PT_DKV_PARAMS,
                                                     Drop drop) {
   extern __shared__ float smem[];
+  int h, b;
+  // rank 0 is key tile 0, which sees every query tile under a causal mask
+  const int k0 = tc::tile_rank(h, b) * kDkvKeys<T, D>;
+  const long long row0 = ((long long)b * H + h) * S;
+  drop.set_head(b, h, H);
+#define PT_DKV_TILE_ARGS                                                     \
+  reinterpret_cast<uint8_t*>(smem), q + b * q_sb + h * q_sh, q_ss,           \
+      dout + b * do_sb + h * do_sh, do_ss, lse + row0, delta + row0,         \
+      k + b * k_sb + k0 * k_ss + h * k_sh, k_ss,                             \
+      v + b * v_sb + k0 * v_ss + h * v_sh, v_ss, S, k0, causal != 0, scale,  \
+      dk + b * dk_sb + k0 * dk_ss + h * dk_sh, dk_ss,                        \
+      dv + b * dv_sb + k0 * dv_ss + h * dv_sh, dv_ss
   if constexpr (tc::kOnTensorCores<T>) {
-    int h, b;
-    // rank 0 is key tile 0, which sees every query tile under a causal mask
-    const int k0 = tc::tile_rank(h, b) * kBwdTile;
-    const long long row0 = ((long long)b * H + h) * S;
-    drop.set_head(b, h, H);
-    tc::dkv_tile<T, D>(
-        reinterpret_cast<uint8_t*>(smem), q + b * q_sb + h * q_sh, q_ss,
-        dout + b * do_sb + h * do_sh, do_ss, lse + row0, delta + row0,
-        k + b * k_sb + k0 * k_ss + h * k_sh, k_ss,
-        v + b * v_sb + k0 * v_ss + h * v_sh, v_ss, S, k0, causal != 0, scale,
-        dk + b * dk_sb + k0 * dk_ss + h * dk_sh, dk_ss,
-        dv + b * dv_sb + k0 * dv_ss + h * dv_sh, dv_ss, drop);
+    tc::dkv_tile<T, D>(PT_DKV_TILE_ARGS, drop);
   } else {
-    using L = BwdLayout<D>;
-    float* sk = smem;
-    float* sv = sk + L::kOperand;
-    float* sq = sv + L::kOperand;
-    float* sdo = sq + L::kOperand;
-    float* sp = sdo + L::kOperand;    // p^T  [key][query]
-    float* sds = sp + L::kProduct;    // ds^T [key][query]
-    float* slse = sds + L::kProduct;
-    float* sdelta = slse + kBwdTile;
-
-    const int k0 = blockIdx.x * kBwdTile, h = blockIdx.y, b = blockIdx.z;
-    const int n_keys = min(kBwdTile, S - k0);
-    drop.set_head(b, h, H);
-    const int tid = threadIdx.x, tm = tid / kSide, tn = tid % kSide;
-    const long long row0 = ((long long)b * H + h) * S;  // lse / delta row
-    const T* q_bh = q + b * q_sb + h * q_sh;
-    const T* do_bh = dout + b * do_sb + h * do_sh;
-    load_rows<T, D>(sk, k + b * k_sb + k0 * k_ss + h * k_sh, k_ss, n_keys);
-    load_rows<T, D>(sv, v + b * v_sb + k0 * v_ss + h * v_sh, v_ss, n_keys);
-
-    float dk_acc[kPer][D / kSide], dv_acc[kPer][D / kSide];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < D / kSide; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-    // query tiles are aligned with key tiles: the first that sees key k0 is
-    // the one that starts at k0
-    for (int c0 = causal ? k0 : 0; c0 < S; c0 += kBwdTile) {
-      const int n_q = min(kBwdTile, S - c0);
-      __syncthreads();  // the previous tile's products are done with sq/sdo
-      load_rows<T, D>(sq, q_bh + c0 * q_ss, q_ss, n_q);
-      load_rows<T, D>(sdo, do_bh + c0 * do_ss, do_ss, n_q);
-      if (tid < kBwdTile) {
-        slse[tid] = tid < n_q ? lse[row0 + c0 + tid] : 0.f;
-        sdelta[tid] = tid < n_q ? delta[row0 + c0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float st[kPer][kPer], dpt[kPer][kPer];
-      tile_nt<D>(sk, L::kLd, sq, L::kLd, tm, tn, st);    // (q k^T)^T
-      tile_nt<D>(sv, L::kLd, sdo, L::kLd, tm, tn, dpt);  // (dO v^T)^T
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int kj = tm + kSide * i;
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) {
-          const int qr = tn + kSide * j;
-          const bool valid = kj < n_keys && qr < n_q &&
-                             (!causal || k0 + kj <= c0 + qr);
-          const float p = valid ? expf(st[i][j] * scale - slse[qr]) : 0.f;
-          float z = 1.f;
-          if constexpr (Drop::kOn) z = drop.at(c0 + qr, k0 + kj);
-          const float ds = p * (dpt[i][j] * z - sdelta[qr]) * scale;
-          sp[kj * L::kLdP + qr] = round_to<T>(p * z);
-          sds[kj * L::kLdP + qr] = round_to<T>(ds);
-        }
-      }
-      __syncthreads();
-      tile_nn<D>(sp, L::kLdP, sdo, L::kLd, tm, tn, dv_acc);
-      tile_nn<D>(sds, L::kLdP, sq, L::kLd, tm, tn, dk_acc);
-    }
-    store_rows<T, D>(dk + b * dk_sb + k0 * dk_ss + h * dk_sh, dk_ss, n_keys,
-                     tm, tn, dk_acc);
-    store_rows<T, D>(dv + b * dv_sb + k0 * dv_ss + h * dv_sh, dv_ss, n_keys,
-                     tm, tn, dv_acc);
+    const bool rows16 = tf32::aligned16(
+        q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss | v_sh | do_sb |
+            do_ss | do_sh,
+        q, k, v, dout);
+    tf32::dkv_tile<D>(PT_DKV_TILE_ARGS, rows16, drop);
   }
+#undef PT_DKV_TILE_ARGS
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dkv_kernel(
+__global__ void __launch_bounds__((kDkvThreads<T, D>)) flash_bwd_dkv_kernel(
     PT_DKV_PARAMS) {
   flash_bwd_dkv_block<T, D>(PT_DKV_FORWARD, NoDropout{});
 }
 
 // K2 with attention dropout (rng: the draw's [seed, offset] on the device).
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dkv_dropout_kernel(
+__global__ void __launch_bounds__((kDkvThreads<T, D>))
+    flash_bwd_dkv_dropout_kernel(
     PT_DKV_PARAMS, const long long* __restrict__ rng, int rng_coords,
     long long threshold, float keep_scale) {
   flash_bwd_dkv_block<T, D>(PT_DKV_FORWARD,
@@ -798,18 +970,24 @@ __global__ void __launch_bounds__(kBwdBlock<T>) flash_bwd_dq_dropout_kernel(
                            Dropout(rng, rng_coords, threshold, keep_scale));
 }
 
-// Dynamic shared memory of a K2/K3 instance (`products` [tile, tile] f32
-// buffers for the CUDA-core loop), opting the kernel in past 48 KB once
-// per device through the launcher's `opt_in`; returns the bytes or a
-// negative cudaError_t.
+// Dynamic shared memory of a K2 / K3 instance, opting the kernel in past
+// 48 KB once per device through the launcher's `opt_in`; returns the bytes
+// or a negative cudaError_t.  K2 f32 runs the 3xTF32 tile, K3 f32 the
+// CUDA-core loop.
 template <typename T, int D, typename Kernel>
-int bwd_smem(Kernel kernel, int products, SmemOptIn& opt_in) {
-  int bytes;
+int dkv_smem(Kernel kernel, SmemOptIn& opt_in) {
   if constexpr (tc::kOnTensorCores<T>)
-    bytes = tc::BwdSmem<D>::kAlloc;
+    return opt_in(kernel, tc::BwdSmem<D>::kAlloc);
   else
-    bytes = static_cast<int>(BwdLayout<D>::bytes(products));
-  return opt_in(kernel, bytes);
+    return opt_in(kernel, tf32::DkvSmem<D>::kAlloc);
+}
+
+template <typename T, int D, typename Kernel>
+int dq_smem(Kernel kernel, SmemOptIn& opt_in) {
+  if constexpr (tc::kOnTensorCores<T>)
+    return opt_in(kernel, tc::BwdSmem<D>::kAlloc);
+  else
+    return opt_in(kernel, static_cast<int>(BwdLayout<D>::kBytes));
 }
 
 template <typename T, int D>
@@ -825,7 +1003,8 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v,
                          float scale, const void* rng, int rng_coords,
                          long long threshold,
                          float keep_scale, cudaStream_t stream) {
-  const dim3 grid((S + kBwdTile - 1) / kBwdTile, H, B);
+  constexpr int threads = kDkvThreads<T, D>, keys = kDkvKeys<T, D>;
+  const dim3 grid((S + keys - 1) / keys, H, B);
 #define PT_DKV_ARGS                                                          \
   static_cast<const T*>(q), static_cast<const T*>(k),                        \
       static_cast<const T*>(v), static_cast<const T*>(dout),                 \
@@ -835,16 +1014,16 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v,
       dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale
   if (rng == nullptr) {
     static SmemOptIn opt_in;
-    const int smem = bwd_smem<T, D>(flash_bwd_dkv_kernel<T, D>, 2, opt_in);
+    const int smem = dkv_smem<T, D>(flash_bwd_dkv_kernel<T, D>, opt_in);
     if (smem < 0) return -smem;
-    flash_bwd_dkv_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(
+    flash_bwd_dkv_kernel<T, D><<<grid, threads, smem, stream>>>(
         PT_DKV_ARGS);
   } else {
     static SmemOptIn opt_in;
     const int smem =
-        bwd_smem<T, D>(flash_bwd_dkv_dropout_kernel<T, D>, 2, opt_in);
+        dkv_smem<T, D>(flash_bwd_dkv_dropout_kernel<T, D>, opt_in);
     if (smem < 0) return -smem;
-    flash_bwd_dkv_dropout_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(
+    flash_bwd_dkv_dropout_kernel<T, D><<<grid, threads, smem, stream>>>(
         PT_DKV_ARGS, static_cast<const long long*>(rng), rng_coords, threshold,
         keep_scale);
   }
@@ -873,14 +1052,14 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v,
       v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, scale
   if (rng == nullptr) {
     static SmemOptIn opt_in;
-    const int smem = bwd_smem<T, D>(flash_bwd_dq_kernel<T, D>, 1, opt_in);
+    const int smem = dq_smem<T, D>(flash_bwd_dq_kernel<T, D>, opt_in);
     if (smem < 0) return -smem;
     flash_bwd_dq_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(
         PT_DQ_ARGS_);
   } else {
     static SmemOptIn opt_in;
     const int smem =
-        bwd_smem<T, D>(flash_bwd_dq_dropout_kernel<T, D>, 1, opt_in);
+        dq_smem<T, D>(flash_bwd_dq_dropout_kernel<T, D>, opt_in);
     if (smem < 0) return -smem;
     flash_bwd_dq_dropout_kernel<T, D><<<grid, kBwdBlock<T>, smem, stream>>>(
         PT_DQ_ARGS_, static_cast<const long long*>(rng), rng_coords, threshold,

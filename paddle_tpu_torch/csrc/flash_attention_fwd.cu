@@ -30,11 +30,17 @@
 // the backward kernels need it.  Seed and offset come from device memory.
 // The p == 0 kernel is the same code as before, with no dropout compiled in.
 //
-// f32 keeps the CUDA-core loop `attend_tile` (attention_common.cuh), 16
-// queries per block, which the f32 parity checks use.
-#include "attention_wgmma.cuh"
+// f32 runs on tensor cores too, in the 3xTF32 split that keeps f32
+// accuracy: `tf32::attend_tile` (attention_tf32.cuh), the same 64-query
+// warpgroup and softmax with tf32 operands, three products for each (hi
+// and lo halves), V stored transposed (tf32 `wgmma` reads no MN-major B),
+// and p not rounded; rows need no alignment there (4-byte copies where a
+// row is not 16-byte aligned).
+#include "attention_tf32.cuh"
 
 namespace pt {
+
+constexpr int kFwdTile = tc::kTileM;  // queries a block, every dtype
 
 // Key `pos` of one (batch, head) row of strided [B, S, H, D] k and v.
 struct DenseKeyAt {
@@ -60,7 +66,7 @@ __device__ __forceinline__ void flash_fwd_block(
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     float scale, Drop drop) {
-  constexpr int kTile = tc::kQueryTile<T>;
+  constexpr int kTile = kFwdTile;
   // last query tile first: under a causal mask it has the most keys
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -72,15 +78,17 @@ __device__ __forceinline__ void flash_fwd_block(
   T* o_rows = o + b * o_sb + q0 * o_ss + h * o_sh;
   float* lse_rows = lse + ((long long)b * H + h) * S + q0;
   drop.set_head(b, h, H);
+  extern __shared__ uint8_t dyn_smem[];
   if constexpr (tc::kOnTensorCores<T>) {
-    extern __shared__ uint8_t dyn_smem[];
     tc::attend_tile<T, D>(dyn_smem, q_rows, q_ss, n_rows, q0, horizon,
                        causal != 0, k, v, key_at, scale, o_rows, o_ss,
                        lse_rows, drop);
   } else {
-    __shared__ TileSmem<D> sm;
-    attend_tile<T, D>(sm, q_rows, q_ss, n_rows, q0, horizon, causal != 0, k,
-                      v, key_at, scale, o_rows, o_ss, lse_rows, drop);
+    const bool rows16 = tf32::aligned16(
+        q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss | v_sh, q, k, v);
+    tf32::attend_tile<D>(dyn_smem, q_rows, q_ss, n_rows, q0, horizon,
+                         causal != 0, k, v, key_at, scale, o_rows, o_ss,
+                         lse_rows, rows16, drop);
   }
 }
 
@@ -110,6 +118,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_dropout_kernel(
                         Dropout(rng, rng_coords, threshold, keep_scale));
 }
 
+// Dynamic shared memory of a K1 instance, opting the kernel in past 48 KB
+// once per device through the launcher's `opt_in`; returns the bytes or a
+// negative cudaError_t.
+template <typename T, int D, typename Kernel>
+int fwd_smem(Kernel kernel, SmemOptIn& opt_in) {
+  if constexpr (tc::kOnTensorCores<T>)
+    return opt_in(kernel, tc::Smem<D>::kAlloc);
+  else
+    return opt_in(kernel, tf32::FwdSmem<D>::kAlloc);
+}
+
 template <typename T, int D>
 int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
                      void* lse, int B, int S, int H, int causal,
@@ -120,7 +139,7 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
                      float scale, const void* rng, int rng_coords,
                      long long threshold,
                      float keep_scale, cudaStream_t stream) {
-  const dim3 grid((S + tc::kQueryTile<T> - 1) / tc::kQueryTile<T>, H, B);
+  const dim3 grid((S + kFwdTile - 1) / kFwdTile, H, B);
 #define PT_FWD_ARGS                                                          \
   static_cast<const T*>(q), static_cast<const T*>(k),                        \
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse), \
@@ -128,13 +147,13 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* o,
       o_sb, o_ss, o_sh, scale
   if (rng == nullptr) {
     static SmemOptIn opt_in;
-    const int smem = tc::dynamic_smem<T, D>(flash_fwd_kernel<T, D>, opt_in);
+    const int smem = fwd_smem<T, D>(flash_fwd_kernel<T, D>, opt_in);
     if (smem < 0) return -smem;
     flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(PT_FWD_ARGS);
   } else {
     static SmemOptIn opt_in;
     const int smem =
-        tc::dynamic_smem<T, D>(flash_fwd_dropout_kernel<T, D>, opt_in);
+        fwd_smem<T, D>(flash_fwd_dropout_kernel<T, D>, opt_in);
     if (smem < 0) return -smem;
     flash_fwd_dropout_kernel<T, D><<<grid, kThreads, smem, stream>>>(
         PT_FWD_ARGS, static_cast<const long long*>(rng), rng_coords, threshold,

@@ -23,6 +23,7 @@ import json
 import os
 import threading
 import time
+import uuid
 from typing import Callable, Dict, List, Optional, Tuple
 from urllib.parse import quote, unquote
 
@@ -97,6 +98,8 @@ class InMemoryCoordinator:
 
     def __init__(self):
         self._kv: Dict[str, bytes] = {}
+        self._revs: Dict[str, int] = {}          # key -> revision of its put
+        self._rev = 0
         self._leases: Dict[str, _Lease] = {}     # key -> lease
         self._watches: Dict[int, Tuple[str, Callable]] = {}
         self._next_watch = 0
@@ -107,6 +110,8 @@ class InMemoryCoordinator:
         value = value if isinstance(value, bytes) else str(value).encode()
         with self._lock:
             self._kv[key] = value
+            self._rev += 1
+            self._revs[key] = self._rev
             if lease is not None:
                 lease.key = key
                 self._leases[key] = lease
@@ -123,9 +128,18 @@ class InMemoryCoordinator:
             return [(v, k) for k, v in sorted(self._kv.items())
                     if k.startswith(prefix)]
 
+    def revisions(self, prefix: str) -> Dict[str, tuple]:
+        """key -> (value, revision of its last put) under ``prefix``
+        (etcd's mod_revision): a lease refresh keeps it, a put renews it."""
+        with self._lock:
+            self._gc()
+            return {k: (v, self._revs.get(k)) for k, v in self._kv.items()
+                    if k.startswith(prefix)}
+
     def delete(self, key: str):
         with self._lock:
             existed = self._kv.pop(key, None) is not None
+            self._revs.pop(key, None)
             self._leases.pop(key, None)
         if existed:
             self._notify(key)
@@ -136,6 +150,7 @@ class InMemoryCoordinator:
             keys = [k for k in self._kv if k.startswith(prefix)]
             for k in keys:
                 self._kv.pop(k, None)
+                self._revs.pop(k, None)
                 self._leases.pop(k, None)
         for k in keys:
             self._notify(k)
@@ -157,6 +172,7 @@ class InMemoryCoordinator:
                 if l.expires < now or l.revoked]
         for k in dead:
             self._kv.pop(k, None)
+            self._revs.pop(k, None)
             self._leases.pop(k, None)
         for k in dead:
             self._notify(k)
@@ -234,6 +250,10 @@ class ElasticManager:
             ElasticLevel.FAULT_TOLERANCE else self.min_np
         self.hosts: List[str] = []
         self.trainer_hosts: List[str] = []   # rank-ordered membership
+        # the membership entries (``_members``) that ``hosts`` was read
+        # from, and those of the round ``sync`` adopted
+        self._seen: Optional[Dict[str, tuple]] = None
+        self._adopted: Optional[Dict[str, tuple]] = None
         self.stopped = False
         self.need_sync = False
         self._elastic_startup_time = None
@@ -293,10 +313,22 @@ class ElasticManager:
             hosts.append(v.decode() if isinstance(v, bytes) else str(v))
         return sorted(set(hosts))
 
+    def _members(self) -> Dict[str, tuple]:
+        """The live membership entries, key -> (host, revision): a leave
+        and rejoin on one endpoint, or a lapsed and renewed lease, gives
+        its key a new revision."""
+        return self.coord.revisions(self.node_prefix)
+
     def _match(self, host_list: Optional[List[str]] = None) -> bool:
         """Is the current membership launchable?  (reference :397)"""
-        self.hosts = (sorted(set(host_list)) if host_list is not None
-                      else self._current_hosts())
+        if host_list is not None:
+            self._seen = None
+            self.hosts = sorted(set(host_list))
+        else:
+            self._seen = self._members()
+            self.hosts = sorted({v.decode() if isinstance(v, bytes)
+                                 else str(v)
+                                 for v, _ in self._seen.values()})
         n = len(self.hosts)
         if self.elastic_level == ElasticLevel.FAULT_TOLERANCE:
             return n == self.np
@@ -358,6 +390,7 @@ class ElasticManager:
         scale = len(new_order) - len(self.trainer_hosts) \
             if self.trainer_hosts else 0
         self.trainer_hosts = new_order
+        self._adopted = self._seen
         self.np = len(new_order)
         self.need_sync = False
         self.coord.put(self.endpoints_path, ",".join(new_order))
@@ -396,10 +429,23 @@ class ElasticManager:
             if self.need_sync:
                 if self._completed():
                     # a peer finished the job while membership churned:
-                    # never relaunch a completed job
+                    # never relaunch a completed job, and let this node's
+                    # workers end on their own first (the peer's
+                    # completion is not theirs): stopping them here cut
+                    # one off before its output in two launchers' rounds
+                    rc = self._await_workers(self.lease_ttl, poll)
                     self.exit(completed=False)
-                    return ElasticStatus.COMPLETED
+                    return (ElasticStatus.COMPLETED if rc in (0, None)
+                            else ElasticStatus.ERROR)
+                self.need_sync = False
+                if self._adopted is not None and \
+                        self._members() == self._adopted:
+                    # a late notice of the very entries this round
+                    # adopted (a FileCoordinator's watch polls): nothing
+                    # changed
+                    continue
                 # membership changed under us: relaunch with new ranks
+                self.need_sync = True
                 if not self._match():
                     # not launchable (node lost below min): hold
                     return ElasticStatus.HOLD
@@ -420,6 +466,16 @@ class ElasticManager:
                 return ElasticStatus.ERROR
             time.sleep(poll)
         return ElasticStatus.EXIT
+
+    def _await_workers(self, timeout: float, poll: float) -> Optional[int]:
+        """This node's workers' result once all have ended (``watch``'s
+        code), or None if some still run after ``timeout`` seconds."""
+        deadline = time.monotonic() + timeout
+        while True:
+            rc = self.launcher.watch()
+            if rc is not None or time.monotonic() >= deadline:
+                return rc
+            time.sleep(poll)
 
     def _completed(self) -> bool:
         v, _ = self.coord.get(self.prefix + "/completed")
@@ -451,8 +507,9 @@ class FileCoordinator:
     while its RECORD timestamp (written by the owner, not filesystem
     mtime — NFS servers stamp their own clock) is fresher than its ttl;
     heartbeat refresh rewrites the record.  Watches poll and diff the
-    directory by key VALUE, so heartbeats do not fire membership events
-    (etcd keepalives emit no watch events either).  Readers never delete
+    directory by each key's value and put revision, so heartbeats do not
+    fire membership events (etcd keepalives emit no watch events either)
+    while a rejoin on the same endpoint does.  Readers never delete
     stale entries (no cross-process TOCTOU); they just treat them as
     absent — only the explicit ``sweep()`` garbage-collects.
 
@@ -504,7 +561,7 @@ class FileCoordinator:
         value = value if isinstance(value, bytes) else str(value).encode()
         rec = {"v": value.decode("latin1"),
                "ttl": lease.ttl if lease is not None else None,
-               "ts": time.time()}
+               "ts": time.time(), "rev": uuid.uuid4().hex}
         self._write(key, rec)
         if lease is not None:
             lease.key = key
@@ -538,6 +595,20 @@ class FileCoordinator:
                     out.append((rec["v"].encode("latin1"), key))
         return out
 
+    def revisions(self, prefix: str) -> Dict[str, tuple]:
+        """key -> (value, revision) of the live entries under ``prefix``:
+        each put writes a new revision, a lease refresh keeps it."""
+        out = {}
+        for fname in os.listdir(self._root):
+            if self._is_tmp(fname):
+                continue
+            key = self._key(fname)
+            if key.startswith(prefix):
+                rec, alive = self._load(os.path.join(self._root, fname))
+                if alive:
+                    out[key] = (rec["v"].encode("latin1"), rec.get("rev"))
+        return out
+
     def delete(self, key: str):
         try:
             os.unlink(self._path(key))
@@ -569,15 +640,16 @@ class FileCoordinator:
 
     # -- watches -----------------------------------------------------------
     def _snapshot(self):
-        """fname -> (value, alive): VALUE-based so lease refreshes (ts
-        rewrites) do not register as membership events."""
+        """fname -> (value, revision, alive): a lease refresh rewrites
+        only ts, so it does not register as a membership event; a new
+        put of the same value (a rejoin) does."""
         snap = {}
         for fname in os.listdir(self._root):
             if self._is_tmp(fname):
                 continue
             rec, alive = self._load(os.path.join(self._root, fname))
             if rec is not None:
-                snap[fname] = (rec.get("v"), alive)
+                snap[fname] = (rec.get("v"), rec.get("rev"), alive)
         return snap
 
     def _watch_loop(self):

@@ -77,7 +77,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the dtypes of K4/K5 (paged) and of K1-K3 (flash)
 PAGED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-#: the dtypes whose instances run on tensor cores and copy 16-byte rows
+#: the dtypes whose instances copy only 16-byte rows (the f32 K1/K2 copy
+#: 4-byte pieces where a row is not 16-byte aligned)
 _TC_DTYPES = (torch.bfloat16, torch.float16)
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -593,8 +594,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dropout instance, which reads the draw ``rng`` (:func:`_dropout_args`)
     and counts as ``flash_fwd_dropout``.  bf16 and f16 run on tensor cores
     (p rounded to the input dtype before P V) and need 16-byte aligned
-    rows (:func:`_check_rows16`); f32 runs the CUDA-core loop.  A float16
-    launch counts as ``flash_fwd_f16`` (``flash_fwd_dropout_f16``)."""
+    rows (:func:`_check_rows16`); f32 runs on tensor cores too, in the
+    3xTF32 split (f32 accuracy; any row alignment).  A float16 launch
+    counts as ``flash_fwd_f16`` (``flash_fwd_dropout_f16``)."""
     what = "flash_fwd"
     D = _check_dense(what, q, k, v)
     _check_rows16(what, q, k, v)
@@ -625,9 +627,10 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the input dtype.  ``dropout_p``/``rng``: the forward's (the dropout
     instance, counted as ``flash_bwd_dkv_dropout``).  bf16 and f16 run on
     tensor cores and need 16-byte aligned rows (:func:`_check_rows16`); f32
-    runs the CUDA-core loop.  In f16 a ds past the dtype's range rounds to
-    inf, as in the Pallas kernel, so an overflow under a loss scale reaches
-    the gradients.  A float16 launch counts under ``..._f16``."""
+    runs on tensor cores in the 3xTF32 split (any row alignment).  In f16 a
+    ds past the dtype's range rounds to inf, as in the Pallas kernel, so an
+    overflow under a loss scale reaches the gradients.  A float16 launch
+    counts under ``..._f16``."""
     what = "flash_bwd_dkv"
     D = _check_dense(what, q, k, v, do)
     _check_rows16(what, q, k, v, do)

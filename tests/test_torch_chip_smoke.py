@@ -185,6 +185,21 @@ def test_bound_names_the_larger_time():
     assert by == "operations" and abs(ms - 1.0) < 1e-9
 
 
+def test_f32_bound_is_three_tf32_products():
+    """An f32 row's bound takes f32-accurate products as three tf32 ones
+    at 495 TFLOP/s: 0.1042 ms for K1 and 0.2084 ms for K2 at the train
+    shape, where the bytes take less."""
+    from paddle_tpu_torch.obs.cost import attention_cost
+
+    q = torch.empty(chip_smoke.TRAIN_ATTN, device="meta")
+    for kind, want in (("fwd", 0.1042), ("bwd_dkv", 0.2084)):
+        flops, nbytes = attention_cost(kind, q, True)
+        ms, by = chip_smoke.bound(nbytes, flops, torch.float32)
+        assert round(ms, 4) == want and by == "operations"
+        assert abs(ms - flops / (495e12 / 3) * 1e3) < 1e-12
+        assert nbytes / 3.35e9 < ms
+
+
 def test_main_without_a_card_reports_nothing(capsys):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
@@ -220,13 +235,16 @@ def test_kernel_label_names_instances(mangled, label):
 
 
 def _hgmma_everywhere():
-    """HGMMA counts in every 16-bit instance the build has: bf16 and f16
-    for all four kernels (the paged prefill's f16 instance included)."""
+    """HGMMA counts in every tensor-core instance the build has: bf16 and
+    f16 for all four kernels (the paged prefill's f16 instance included),
+    f32 for K1 and K2 (p 0 and dropout)."""
     out = {}
     for lib, kernel in chip_smoke.TENSOR_CORE_KERNELS:
         out.setdefault(lib, {}).update(
             {f"{kernel}<{t},{d}>": 8 for d in kernels.HEAD_DIMS
              for t in ("bf16", "f16")})
+    for lib, kernel in chip_smoke.F32_TENSOR_CORE_KERNELS:
+        out[lib].update({f"{kernel}<f32,{d}>": 48 for d in kernels.HEAD_DIMS})
     return out
 
 
@@ -240,11 +258,15 @@ def _hgmma_everywhere():
     ("flash_attention_bwd", "flash_bwd_dq_kernel<f16,128>"),
     ("paged_attention", "paged_prefill_kernel<f16,64>"),
     ("paged_attention", "paged_prefill_kernel<f16,128>"),
+    ("flash_attention_fwd", "flash_fwd_kernel<f32,64>"),
+    ("flash_attention_fwd", "flash_fwd_dropout_kernel<f32,128>"),
+    ("flash_attention_bwd", "flash_bwd_dkv_kernel<f32,128>"),
+    ("flash_attention_bwd", "flash_bwd_dkv_dropout_kernel<f32,64>"),
 ])
 def test_check_tensor_cores_wants_hgmma_in_bf16_k1_and_k5(lib, label):
-    """The bf16 and the f16 K1, K5, K2 and K3 must each hold HGMMA at
-    both head dims; one instance without any fails the check, and names
-    itself."""
+    """The bf16 and the f16 K1, K5, K2 and K3, and the f32 K1 and K2,
+    must each hold HGMMA at both head dims; one instance without any fails
+    the check, and names itself."""
     good = _hgmma_everywhere()
     assert {lib for lib, _ in chip_smoke.TENSOR_CORE_KERNELS} == {
         "paged_attention", "flash_attention_fwd", "flash_attention_bwd"}
@@ -284,13 +306,17 @@ def test_bf16_grad_parity_phase_on_tiny_cpu():
 
 
 def test_bwd_edges_cover_the_tensor_core_shapes():
-    cases = chip_smoke.bwd_edges(None, "flash_bwd_dkv")
-    labels = {c[0] for c in cases}
-    assert labels == {f"S{S}/{m}/D{d}" for S in (1000, 70)
-                      for m in ("causal", "full") for d in (64, 128)} | {
-        "S16/causal/D64", "S16/causal/D128"}
-    assert all(c[4] == chip_smoke.BF16 for c in cases)
-    assert sum(c[5] for c in cases) == 2
+    """K2's edges hold its f32 and bf16 instances (both on tensor cores),
+    K3's its bf16 one (the f32 K3 keeps its CUDA-core loop)."""
+    for which, dtypes in (("flash_bwd_dkv", chip_smoke.BOTH),
+                          ("flash_bwd_dq", chip_smoke.BF16)):
+        cases = chip_smoke.bwd_edges(None, which)
+        labels = {c[0] for c in cases}
+        assert labels == {f"S{S}/{m}/D{d}" for S in (1000, 70)
+                          for m in ("causal", "full") for d in (64, 128)} | {
+            "S16/causal/D64", "S16/causal/D128"}
+        assert all(c[4] == dtypes for c in cases)
+        assert sum(c[5] for c in cases) == 2
 
 
 def test_cached_build_still_reports_ptxas(tmp_path, monkeypatch):

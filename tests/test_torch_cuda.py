@@ -5,8 +5,10 @@ This file imports torch, the port and the helpers of ``chip_smoke`` and
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-Tolerances: 1e-4 absolute in f32 (CUDA-core sums in another order than
-the plain version's; K4 also merges its splits in log2 units), 3e-2 in
+Tolerances: 1e-4 absolute in f32 (sums in another order than the plain
+version's; the f32 K1 and K2 also split each operand into two tf32
+halves on the tensor cores, 3xTF32, off by ~2^-22 of a product; K4
+merges its splits in log2 units), 3e-2 in
 bf16 (two bf16 ulps at |x| < 4; both sides accumulate in f32 and round
 once, and the bf16 K1/K5 also round p to bf16 before P V on the tensor
 cores), 1e-3 on the f32 lse.  The backward
@@ -3505,3 +3507,58 @@ def test_cpp_extension_on_the_card_and_refused_in_a_capture(cuda_device,
         f(v)                                                # its capture
     # a later draw still works (the failed capture was ended)
     torch.randn(4, device=cuda_device).sum().item()
+
+
+# -- the f32 K1 and K2 on tensor cores (3xTF32 on wgmma) ----------------------
+
+#: (S, causal, D, layout, p): ragged S (130, 1000) and one part tile (16)
+#: at both masks and head dims; q/k/v as views of one fused [B, S, H, 3D]
+#: projection, as rows of D + 1 floats (not 16-byte aligned: the kernels'
+#: 4-byte copies), and at p 0.1 on one draw
+F32_TC_CASES = [(S, causal, D, "separate", 0.0) for S in (16, 130, 1000)
+                for causal in (True, False) for D in (64, 128)] + [
+    (130, True, 64, "fused", 0.0), (1000, True, 128, "fused", 0.0),
+    (130, False, 64, "odd", 0.0), (1000, True, 128, "odd", 0.0),
+    (1000, True, 64, "fused", 0.1), (130, False, 128, "separate", 0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,causal,D,layout,p", F32_TC_CASES)
+def test_f32_flash_fwd_and_dkv_on_tensor_cores_match_plain(
+        cuda_device, S, causal, D, layout, p):
+    """The f32 K1 and K2 against their plain versions: O within 1e-4 (on
+    O's scale 1/(1-p) under dropout), lse 1e-3, dK and dV 1e-4 of the
+    largest; two calls on the same inputs agree bitwise, and each launch
+    counts under its instance."""
+    from paddle_tpu_torch.ops.attention import _flash_fwd_reference
+
+    g = torch.Generator(device=cuda_device).manual_seed(29)
+
+    def rand(width):
+        return torch.randn((2, S, 3, width), generator=g, device=cuda_device)
+
+    if layout == "fused":
+        q, k, v = rand(3 * D).split(D, dim=-1)
+    elif layout == "odd":
+        q, k, v = (rand(D + 1)[..., :D] for _ in range(3))
+    else:
+        q, k, v = (rand(D) for _ in range(3))
+    do = rand(D)
+    snap = _snap(cuda_device) if p else None
+    kernels.reset_launches()
+    o, lse = kernels.flash_fwd(q, k, v, causal, p, snap)
+    o2, lse2 = kernels.flash_fwd(q, k, v, causal, p, snap)
+    o_ref, lse_ref = _flash_fwd_reference(q, k, v, causal, p, snap)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert (o - o_ref).abs().max().item() <= 1e-4 / (1 - p)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    delta = (do * o_ref).sum(-1).transpose(1, 2).contiguous().view(-1, S)
+    args = (q, k, v, do, lse_ref, delta, causal, p, snap)
+    got, again = kernels.flash_bwd_dkv(*args), kernels.flash_bwd_dkv(*args)
+    for a, b, want in zip(got, again, _flash_bwd_dkv_reference(*args)):
+        assert torch.equal(a, b)
+        assert (a - want).abs().max().item() <= \
+            1e-4 * want.abs().max().item()
+    sfx = "_dropout" if p else ""
+    assert {n: c for n, c in kernels.launch_counts().items() if c} == {
+        f"flash_fwd{sfx}": 2, f"flash_bwd_dkv{sfx}": 2}

@@ -219,6 +219,62 @@ class TestWatchLoop:
         m.exit(); m2.exit()
 
 
+class TestRoundNotices:
+    """Which membership notices restart a running round: a late one of the
+    entries the round adopted does not; a leave and rejoin on the same
+    endpoint, or a lapsed and renewed lease, does (as in the JAX
+    package); a peer's completion waits for this node's workers."""
+
+    def _round(self, coord):
+        m, m2 = mk(coord, "h1:6170"), mk(coord, "h2:6170")
+        assert m.wait(timeout=2)
+        m.sync()
+        launcher = FakeLauncher()
+        m.run(launcher)
+        return m, m2, launcher
+
+    def test_late_notice_of_the_adopted_membership_does_not_restart(self):
+        coord = InMemoryCoordinator()
+        m, m2, launcher = self._round(coord)
+        m.need_sync = True           # the watch reports the join late
+        launcher.rc = 0
+        assert m.watch() == ElasticStatus.COMPLETED
+        m2.exit()
+
+    @pytest.mark.parametrize("how", ["rejoin", "lease_renewed"])
+    def test_same_endpoint_coming_back_restarts(self, how):
+        coord = InMemoryCoordinator()
+        m, m2, launcher = self._round(coord)
+        if how == "rejoin":
+            m2.exit()
+            m2 = mk(coord, "h2:6170")
+        else:
+            m2._lease.revoke()       # the heartbeat re-registers the node
+            deadline = time.monotonic() + 2
+            while "h2:6170" not in m._current_hosts():
+                assert time.monotonic() < deadline
+                time.sleep(0.02)
+        assert m._current_hosts() == ["h1:6170", "h2:6170"]
+        assert m.need_sync
+        launcher.rc = 0              # the notice decides before the workers
+        assert m.watch() == ElasticStatus.RESTART
+        m.exit(); m2.exit()
+
+    @pytest.mark.parametrize("rc, status", [(0, ElasticStatus.COMPLETED),
+                                            (1, ElasticStatus.ERROR)])
+    def test_peer_completion_waits_for_own_workers(self, rc, status):
+        import threading
+
+        coord = InMemoryCoordinator()
+        m, m2, launcher = self._round(coord)
+        m2.exit(completed=True)      # the peer finished and left
+        assert m.need_sync and m._completed()
+        threading.Timer(0.15, setattr, (launcher, "rc", rc)).start()
+        t0 = time.monotonic()
+        assert m.watch() == status
+        assert time.monotonic() - t0 >= 0.15 and launcher.stopped == 0
+
+
 class TestNpParse:
     def test_forms(self):
         from paddle_tpu_torch.distributed.fleet.elastic.manager import _parse_np

@@ -131,12 +131,17 @@ class TestElasticLaunch:
     spec's ``TestElasticLaunch`` and ``TestElasticResume``)."""
 
     def test_single_node_elastic_completes(self, tmp_path):
+        # the two workers share the launcher's stdout: each writes its line
+        # in one call, so that unbuffered output (PYTHONUNBUFFERED) cannot
+        # interleave the pieces of two prints
         script = tmp_path / "train.py"
         script.write_text(
-            "import os\n"
-            "print('RANK', os.environ.get('PADDLE_TRAINER_ID'), 'WORLD',\n"
-            "      os.environ.get('PADDLE_TRAINERS_NUM'), 'LOCAL',\n"
-            "      os.environ.get('PADDLE_LOCAL_RANK'), flush=True)\n")
+            "import os, sys\n"
+            "sys.stdout.write('RANK %s WORLD %s LOCAL %s\\n' % (\n"
+            "    os.environ.get('PADDLE_TRAINER_ID'),\n"
+            "    os.environ.get('PADDLE_TRAINERS_NUM'),\n"
+            "    os.environ.get('PADDLE_LOCAL_RANK')))\n"
+            "sys.stdout.flush()\n")
         r = _run(LAUNCH + ["--nproc_per_node", "2", "--elastic_coordinator",
                            str(tmp_path / "coord"), "--np", "1",
                            str(script)], {})
